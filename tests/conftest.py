@@ -38,6 +38,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-second test (subprocess gate CLI, tiny "
         "train loops); run by default, deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the PyTorch/CUDA port's "
+        "hand-written kernels); skipped elsewhere")
 
 
 def pytest_collection_modifyitems(config, items):
