@@ -68,10 +68,11 @@ def check(cond: bool, msg: str) -> None:
 
 
 def horner_flops(d: int, depth: int) -> int:
-    """FP32 operations of one levelwise Horner step (tensor_ops.horner_step)
-    for one example: per level n, d for acc_1, then d^(j-1) adds and 2·d^j
-    products per j = 2..n, then d^n to add into the state."""
-    return sum(d + sum(d ** (j - 1) + 2 * d**j for j in range(2, n + 1))
+    """Least FP32 operations of one levelwise Horner step for one example,
+    with each 1/k scale folded into dx once: per level n, d for acc_1 =
+    dx/n, then d^(j-1) adds and d^j products per j = 2..n, then d^n adds
+    into the state."""
+    return sum(d + sum(d ** (j - 1) + d**j for j in range(2, n + 1))
                + d**n for n in range(1, depth + 1))
 
 
@@ -237,25 +238,9 @@ def phase_serve(rng) -> dict:
           f"M={rung}, d={d}, N={depth}, split "
           f"{st.choose_split(d, depth)}): {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by})", flush=True)
-    # the same micro-batch at every split and two thread caps (tuning data)
-    variants = {}
-    default_threads = st.MAX_THREADS
-    try:
-        for threads in (256, default_threads):
-            st.MAX_THREADS = threads
-            for s in range(depth):
-                try:
-                    st.launch_geometry(d, depth, s)
-                except ValueError:  # does not fit shared memory
-                    continue
-                variants[f"split={s},threads<={threads}"] = cuda_ms(
-                    lambda: st.sig_trunc(incs, depth, split=s), 5)
-    finally:
-        st.MAX_THREADS = default_threads
-    print(f"[serve] variants (ms): {json.dumps(variants)}", flush=True)
     return dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, shape=[B_pad, rung, d, depth], stats=stats,
-                wall_ms=wall * 1e3, variants=variants)
+                wall_ms=wall * 1e3)
 
 
 def phase_dispatch(rng) -> tuple[list, dict]:

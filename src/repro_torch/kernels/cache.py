@@ -2,71 +2,14 @@
 
 Port of the plan-cache part of ``repro.kernels.ops``.  Every host-side plan
 the kernels derive from their static arguments (index tables, launch
-geometry) is interned under :func:`plan_cache`, which bounds the entries and
-counts hits, misses and evictions.  Eviction is always safe: entries are
-pure functions of their keys.
+geometry) is interned under :func:`plan_cache`, a ``functools.lru_cache``
+of ``PLAN_CACHE_MAXSIZE`` entries with its hit and miss counts.  Eviction is
+always safe: entries are pure functions of their keys.
 """
 from __future__ import annotations
 
 import functools
-from collections import OrderedDict, namedtuple
 
 PLAN_CACHE_MAXSIZE = 256
 
-CacheInfo = namedtuple("CacheInfo",
-                       ("hits", "misses", "maxsize", "currsize", "evictions"))
-
-_CACHES: dict[str, "_CountingLru"] = {}
-
-
-class _CountingLru:
-    """``functools.lru_cache`` semantics plus an eviction counter.  Same key
-    rule: positional args plus sorted kwargs, all hashable."""
-
-    def __init__(self, fn, maxsize):
-        self._fn = fn
-        self._maxsize = maxsize
-        self._data: OrderedDict = OrderedDict()
-        self.hits = 0
-        self.misses = 0
-        self.evictions = 0
-        functools.update_wrapper(self, fn)
-
-    def __call__(self, *args, **kwargs):
-        key = (args, tuple(sorted(kwargs.items()))) if kwargs else args
-        data = self._data
-        if key in data:
-            data.move_to_end(key)
-            self.hits += 1
-            return data[key]
-        self.misses += 1
-        val = self._fn(*args, **kwargs)
-        data[key] = val
-        while self._maxsize is not None and len(data) > self._maxsize:
-            data.popitem(last=False)
-            self.evictions += 1
-        return val
-
-    def cache_info(self) -> CacheInfo:
-        return CacheInfo(self.hits, self.misses, self._maxsize,
-                         len(self._data), self.evictions)
-
-    def cache_clear(self) -> None:
-        self._data.clear()
-
-
-def plan_cache(fn):
-    """Register ``fn`` under the shared bounded-LRU plan-cache policy."""
-    cache = _CACHES[fn.__qualname__] = _CountingLru(fn, PLAN_CACHE_MAXSIZE)
-    return cache
-
-
-def clear_plan_caches() -> None:
-    """Drop every cached plan (results are unaffected)."""
-    for cache in _CACHES.values():
-        cache.cache_clear()
-
-
-def plan_cache_info() -> dict:
-    """{cache name: CacheInfo} for every registered cache."""
-    return {name: c.cache_info() for name, c in _CACHES.items()}
+plan_cache = functools.lru_cache(maxsize=PLAN_CACHE_MAXSIZE)

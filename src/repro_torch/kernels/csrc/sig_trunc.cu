@@ -20,9 +20,11 @@
 // between levels keeps a level-n+1 chain from reading a level-n value that
 // was already updated.  The ancestor path is updated last, top-down.
 //
-// What bounds it on this card.  Per step and example the Horner chains cost
-// about 3·n FP32 operations per word of level n on the CUDA cores (no tensor
-// core applies: every product is a scalar chain); the bytes are only the
+// What bounds it on this card.  Per step and example the levelwise Horner
+// rule needs about two FP32 operations per word (a product and an add, the
+// 1/k scales folded into dx) on the CUDA cores: no tensor core applies, as
+// every product is a scalar chain.  This kernel recomputes each word's chain
+// and spends about 3·n per word of level n.  The bytes are only the
 // increments in and the signatures out.  So the bound is FP32 CUDA-core
 // arithmetic (67 TFLOP/s) against HBM bytes (3.35 TB/s); for the widths
 // served (d = 6, N = 5) the arithmetic bound is the larger one.

@@ -107,7 +107,8 @@ def test_plan_cache_counts_and_clears():
         return n * n
 
     assert [square(3), square(3), square(4)] == [9, 9, 16]
-    info = cache.plan_cache_info()[square.__qualname__]
-    assert (info.hits, info.misses, info.currsize) == (1, 2, 2)
-    cache.clear_plan_caches()
-    assert cache.plan_cache_info()[square.__qualname__].currsize == 0
+    info = square.cache_info()
+    assert (info.hits, info.misses, info.maxsize, info.currsize) == (
+        1, 2, cache.PLAN_CACHE_MAXSIZE, 2)
+    square.cache_clear()
+    assert square.cache_info().currsize == 0
