@@ -22,7 +22,31 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
 5. dispatch — ops.signature at the paper's Table 1 grid, the kernel's median
              time beside the plain version's, and one streamed cell through
              core.signature.signature(stream=True).
-6. report  — one JSON line of kernels, then the device line last.
+6. words   — hold the sig_words kernel (both cells, strides 1 and 3; fp32
+             and bf16_fp32) against its plain version in float64 on the
+             card: the full truncation all_words(3, 4), a sparse set over
+             d = 4, anisotropic_words((1, 2, 1.5), 4), all_words(2, 4) +
+             Lyndon_5, and 20 random word sets from the seed (d in 2..4,
+             lengths 1..4, repeats allowed), max_rows in {8, 32, 256},
+             B = 5, M in {1, 37}.  fp32 as in phase 3; bf16_fp32 against
+             the plain version on the same rounded increments (emissions
+             within 2^-8) and every full level within n·2^-8.
+7. cross   — ops.projected over all_words(6, 5) (sig_words) equals
+             ops.signature(·, 5) (sig_trunc) at (32, 100, 6, 5).
+8. project — the paper's §8 projection at full width: Brownian paths
+             (B = 128, M = 250, d = 5), lead_lag, 500 increments over 10
+             letters, projected onto generated_words(
+             sparse_leadlag_generators(5), 4) (1,685 words) through
+             projected_signature_from_increments, ops.projected_forward_
+             only, a ragged ops.projected (lengths) and a streamed call
+             (stride 10); one launch per call; values against the plain
+             version (16 ragged rows on their unpadded paths); kernel and
+             plain times and the bound; the truncated ops.signature(·, 4)
+             time of the same input as information.
+9. logsig  — logsignature_projected on the card at every cell of
+             benchmarks/table3_logsig.py, one sig_words launch per call,
+             held against the dense logsignature on the torch engine.
+10. report — one JSON line of kernels, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -45,8 +69,18 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import signature as sig  # noqa: E402
 from repro_torch.core import tensor_ops as tops  # noqa: E402
+from repro_torch.core.logsignature import (logsignature,  # noqa: E402
+                                           logsignature_projected)
+from repro_torch.core.projection import (  # noqa: E402
+    projected_signature_from_increments)
+from repro_torch.core.transforms import (lead_lag,  # noqa: E402
+                                         sparse_leadlag_generators)
+from repro_torch.core.words import (all_words, anisotropic_words,  # noqa: E402
+                                    generated_words, lyndon_words, make_plan,
+                                    make_tiled_plan, prefix_closure)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import sig_trunc as st  # noqa: E402
+from repro_torch.kernels import sig_words as sw  # noqa: E402
 from repro_torch.ragged import (RaggedPaths, assign_buckets,  # noqa: E402
                                 pad_batch)
 from repro_torch.serve import DynamicBatcher  # noqa: E402
@@ -60,6 +94,14 @@ TABLE1 = ([(32, 100, 6, n) for n in (2, 3, 4, 5)]
           + [(64, m, 4, 5) for m in (50, 100, 200, 500)]
           + [(b, 200, 10, 3) for b in (1, 16, 64, 128)])
 STREAM_CELL = (32, 100, 6, 5, 10)   # (B, M, d, N, stride)
+CROSS_CELL = (32, 100, 6, 5)        # (B, M, d, N)
+# paper §8 (examples/hurst_fbm.py --full): B, M path steps, d channels,
+# depth of the sparse lead-lag word set, streamed stride
+PROJ_CELL = (128, 250, 5, 4, 10)
+# (B, M, d, N) cells of benchmarks/table3_logsig.py
+TABLE3 = [(32, 100, 6, 2), (32, 100, 6, 3), (32, 100, 6, 4),
+          (64, 50, 4, 5), (64, 100, 4, 5), (16, 100, 10, 3)]
+MAX_ROWS = (8, 32, 256)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -76,14 +118,45 @@ def horner_flops(d: int, depth: int) -> int:
                + d**n for n in range(1, depth + 1))
 
 
+def words_flops(plan) -> int:
+    """Least FP32 operations of one word-table Horner step for one example
+    over a plan's untiled prefix closure: 2·len(r) per closure word r (a
+    product and an add per letter, each 1/k scale folded into dx).  The
+    ancestor rows that tiles repeat do not count."""
+    return 2 * int(plan.lengths.sum())
+
+
 def bound(B: int, M: int, d: int, depth: int, in_bytes: int,
-          out_elems: int, out_bytes: int) -> tuple[float, str]:
+          out_elems: int, out_bytes: int,
+          step_flops: int | None = None) -> tuple[float, str]:
     """Least time (ms) the card could take: bytes moved once over HBM
-    against the Horner operations over FP32 peak; and which bounds it."""
+    against the operations over FP32 peak (``step_flops`` per example and
+    step, default the levelwise Horner count); and which bounds it."""
+    if step_flops is None:
+        step_flops = horner_flops(d, depth)
     t_bytes = (B * M * d * in_bytes + out_elems * out_bytes) / HBM_BYTES_PER_S
-    t_ops = B * M * horner_flops(d, depth) / FP32_FLOPS_PER_S
+    t_ops = B * M * step_flops / FP32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counters to 0, just before a path is driven."""
+    st.launches = st.stream_launches = 0
+    sw.launches = sw.stream_launches = 0
+
+
+def counts() -> dict:
+    return dict(sig_trunc=st.launches, sig_trunc_stream=st.stream_launches,
+                sig_words=sw.launches, sig_words_stream=sw.stream_launches)
+
+
+def brownian(rng, B: int, M: int, d: int) -> torch.Tensor:
+    """(B, M+1, d) Brownian paths on [0, 1] from 0, as
+    benchmarks/common.py makes them."""
+    incs = rng.normal(size=(B, M, d)) / np.sqrt(M)
+    path = np.concatenate([np.zeros((B, 1, d)), np.cumsum(incs, axis=1)], 1)
+    return torch.tensor(path, dtype=torch.float32, device="cuda")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -192,7 +265,7 @@ def phase_serve(rng) -> dict:
     svc = DynamicBatcher.signature_service(d=d, depth=depth,
                                            max_len=max_len)
     reqs = serving_inputs(rng, 256, d, 16, max_len)
-    st.launches = st.stream_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     tickets = [svc.submit(p) for p in reqs]
     out = svc.flush()
@@ -267,7 +340,7 @@ def phase_dispatch(rng) -> tuple[list, dict]:
     path = torch.tensor(np.cumsum(rng.normal(size=(B, M + 1, d))
                                   / np.sqrt(M), axis=1),
                         dtype=torch.float32, device="cuda")
-    st.launches = st.stream_launches = 0
+    reset_counts()
     out = sig.signature(path, N, stream=True, stream_stride=stride)
     torch.cuda.synchronize()
     launches = st.stream_launches
@@ -290,6 +363,236 @@ def phase_dispatch(rng) -> tuple[list, dict]:
                       shape=[B, M, d, N, stride])
 
 
+def word_sets(rng) -> list:
+    """(name, d, words) of phase 6: four fixed sets and 20 random ones."""
+    sets = [("all_words(3,4)", 3, all_words(3, 4)),
+            ("sparse d=4", 4, [(0,), (3, 2), (1, 1, 1, 1), (2, 0, 3),
+                               (3, 3)]),
+            ("anisotropic(1,2,1.5;4)", 3,
+             anisotropic_words((1.0, 2.0, 1.5), 4.0)),
+            ("all_words(2,4)+Lyndon_5", 2, all_words(2, 4)
+             + [w for w in lyndon_words(2, 5) if len(w) == 5])]
+    for i in range(20):
+        d = int(rng.integers(2, 5))
+        words = [tuple(int(c) for c in rng.integers(0, d, rng.integers(1, 5)))
+                 for _ in range(int(rng.integers(1, 13)))]
+        sets.append((f"random {i} d={d}", d, words))
+    return sets
+
+
+def full_level_errors(got: torch.Tensor, want: torch.Tensor, words,
+                      d: int) -> dict[int, float]:
+    """Relative error of the coefficients of each full level (every word
+    of that length is requested).  A sparse level can hold one coefficient
+    that cancels, where bf16 input rounding has no relative bound."""
+    errs = {}
+    for n in sorted({len(w) for w in words}):
+        idx = [k for k, w in enumerate(words) if len(w) == n]
+        if len({words[k] for k in idx}) < d**n:
+            continue
+        g, w = got[..., idx], want[..., idx]
+        errs[n] = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    return errs
+
+
+def within(got: torch.Tensor, want: torch.Tensor, rtol: float) -> bool:
+    return bool(((got - want).abs() <= TOL["atol"]
+                 + rtol * want.abs()).all())
+
+
+def phase_words_kernels(rng) -> dict:
+    """sig_words against its plain version, every cell; returns the max
+    fp32 |error| per kernel name.  bf16_fp32 is held against the plain
+    version on the same bf16-rounded increments (streamed emissions within
+    one bf16 rounding, 2^-8), and each full level against the unrounded
+    answer within n·2^-8."""
+    max_err = {"sig_words": 0.0, "sig_words_stream": 0.0}
+    cases = 0
+    cells = [(False, 1), (True, 1), (True, 3)]
+    for name, d, words in word_sets(rng):
+        for M in (1, 37):
+            x = torch.tensor(rng.normal(size=(5, M, d)) * 0.3, device="cuda")
+            xq = x.float().to(torch.bfloat16).double()
+            for max_rows in MAX_ROWS:
+                tp = make_tiled_plan(words, d, max_rows=max_rows)
+                for stream, stride in cells:
+                    kname = "sig_words_stream" if stream else "sig_words"
+                    where = (f"{kname} [{name}] M={M} max_rows={max_rows} "
+                             f"tiles={len(tp.tiles)} stride={stride}")
+                    kw = dict(stream=stream, stream_stride=stride)
+                    want = sw.sig_words_plain(x, tp, **kw)
+                    got = sw.sig_words(x.float(), tp, **kw).double()
+                    torch.cuda.synchronize()
+                    check(got.shape == want.shape, f"{where}: shape")
+                    err = float((got - want).abs().max())
+                    check(within(got, want, TOL["rtol"]),
+                          f"{where} fp32: max |err| {err:.3e}")
+                    max_err[kname] = max(max_err[kname], err)
+                    got = sw.sig_words(x.float(), tp, precision="bf16_fp32",
+                                       **kw).double()
+                    want_q = sw.sig_words_plain(xq, tp, **kw)
+                    errq = float((got - want_q).abs().max())
+                    check(within(got, want_q,
+                                 2.0**-8 if stream else TOL["rtol"]),
+                          f"{where} bf16_fp32 vs plain on the rounded "
+                          f"increments: max |err| {errq:.3e}")
+                    rel = full_level_errors(got, want, tp.words, d)
+                    check(all(e <= n * 2.0**-8 for n, e in rel.items()),
+                          f"{where} bf16_fp32: full-level errors {rel}")
+                    cases += 2
+            print(f"[words] {name:24s} d={d} M={M:2d} {len(words):3d} words: "
+                  f"max|err| {max(max_err.values()):.2e}", flush=True)
+    print(f"[words] {cases} cases within tolerance", flush=True)
+    return max_err
+
+
+def phase_cross(rng) -> dict:
+    """Two independent kernels agree: sig_words over the full truncation
+    and sig_trunc."""
+    B, M, d, N = CROSS_CELL
+    incs = tops.path_increments(brownian(rng, B, M, d))
+    reset_counts()
+    a = ops.projected(incs, all_words(d, N))
+    b = ops.signature(incs, N)
+    torch.cuda.synchronize()
+    n = counts()
+    check(n["sig_words"] == 1 and n["sig_trunc"] == 1,
+          f"cross-kernel launches {n}")
+    err = float((a - b).abs().max())
+    torch.testing.assert_close(a, b, **TOL)
+    print(f"[cross] ops.projected(all_words({d},{N})) == ops.signature(·, "
+          f"{N}) at (B={B}, M={M}): max |diff| {err:.2e}", flush=True)
+    return dict(shape=[B, M, d, N], max_abs_diff=err)
+
+
+def phase_projection(rng) -> dict:
+    """The §8 sparse lead-lag projection at full width through the user
+    entry points; returns the measurements of both sig_words cells."""
+    B, M, d, N, stride = PROJ_CELL
+    path = brownian(rng, B, M, d)
+    lengths = torch.tensor(rng.integers(M // 4, M + 1, size=B),
+                           dtype=torch.int32, device="cuda")
+    words = generated_words(sparse_leadlag_generators(d), N)
+    plan = make_plan(words, 2 * d)
+    tp = make_tiled_plan(words, 2 * d)
+    ctp = make_tiled_plan(prefix_closure(words), 2 * d)
+    print(f"[project] {len(words)} words over {2 * d} letters, closure "
+          f"{plan.closure_size}; {len(tp.tiles)} tiles (largest "
+          f"{max(p.closure_size for p in tp.tiles)} rows), closure "
+          f"{len(ctp.tiles)} tiles", flush=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    incs = tops.path_increments(lead_lag(path))        # (B, 2M, 2d)
+    full = projected_signature_from_increments(incs, plan)
+    torch.cuda.synchronize()
+    n1 = counts()
+    fwd = ops.projected_forward_only(incs, plan)
+    torch.cuda.synchronize()
+    n2 = counts()
+    ll, ll_len = lead_lag(path, lengths)
+    ragged = ops.projected(tops.path_increments(ll), plan, lengths=ll_len)
+    torch.cuda.synchronize()
+    n3 = counts()
+    stream = projected_signature_from_increments(incs, plan, stream=True,
+                                                 stream_stride=stride)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n4 = counts()
+    print(f"[project] 4 calls in {wall * 1e3:.1f} ms (first calls: plans, "
+          f"tables and host work included); launches after each call "
+          f"{[n['sig_words'] for n in (n1, n2, n3, n4)]} / streamed "
+          f"{n4['sig_words_stream']}", flush=True)
+    check((n1["sig_words"], n2["sig_words"], n3["sig_words"],
+           n4["sig_words"], n4["sig_words_stream"]) == (1, 2, 3, 3, 1),
+          f"each projection call launches sig_words once: {n1} {n2} {n3} "
+          f"{n4}")
+    check(n4["sig_trunc"] == n4["sig_trunc_stream"] == 0,
+          "the projection path launched sig_trunc")
+    M2 = 2 * M
+    check(full.shape == fwd.shape == ragged.shape == (B, len(words)),
+          f"shapes {full.shape} {fwd.shape} {ragged.shape}")
+    check(stream.shape == (B, -(-M2 // stride), len(words)),
+          f"streamed shape {tuple(stream.shape)}")
+    for name, out in (("full", full), ("fwd", fwd), ("ragged", ragged),
+                      ("stream", stream)):
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite values")
+    want = sw.sig_words_plain(incs.double(), tp)
+    torch.testing.assert_close(full.double(), want, **TOL)
+    torch.testing.assert_close(fwd.double(), want, **TOL)
+    err = float((full.double() - want).abs().max())
+    want_s = sw.sig_words_plain(incs.double(), tp, stream=True,
+                                stream_stride=stride)
+    torch.testing.assert_close(stream.double(), want_s, **TOL)
+    err_s = float((stream.double() - want_s).abs().max())
+    worst = 0.0
+    sampled = rng.choice(B, min(16, B), replace=False)
+    for i in sampled:
+        L = int(lengths[i])
+        x = tops.path_increments(lead_lag(path[i, :L + 1].double()))[None]
+        w = sw.sig_words_plain(x, tp)[0]
+        torch.testing.assert_close(ragged[i].double(), w, **TOL)
+        worst = max(worst, float((ragged[i].double() - w).abs().max()))
+    print(f"[project] values match the plain version: max |err| {err:.2e} "
+          f"(full), {err_s:.2e} (stream), {worst:.2e} ({len(sampled)} "
+          "ragged rows on their unpadded paths)", flush=True)
+    ms = cuda_ms(lambda: sw.sig_words(incs, tp), 10)
+    plain_ms = cuda_ms(lambda: sw.sig_words_plain(incs, tp), 1)
+    bms, by = bound(B, M2, 2 * d, N, 4, B * len(words), 4,
+                    words_flops(plan))
+    ms_s = cuda_ms(lambda: sw.sig_words(incs, ctp, stream=True,
+                                        stream_stride=stride), 10)
+    plain_ms_s = cuda_ms(lambda: sw.sig_words_plain(
+        incs, ctp, stream=True, stream_stride=stride), 1)
+    bms_s, by_s = bound(B, M2, 2 * d, N, 4,
+                        B * (-(-M2 // stride)) * len(ctp.words), 4,
+                        words_flops(plan))
+    trunc_ms = cuda_ms(lambda: ops.signature(incs, N), 10)
+    print(f"[project] sig_words (B={B}, M={M2}, d={2 * d}, {len(words)} "
+          f"words, {len(tp.tiles)} tiles): {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}); truncated "
+          f"ops.signature(·, {N}) ({sum((2 * d)**k for k in range(1, N + 1))}"
+          f" coefficients): {trunc_ms:.3f} ms", flush=True)
+    print(f"[project] sig_words_stream (stride {stride}, closure "
+          f"{len(ctp.words)} words, {len(ctp.tiles)} tiles): {ms_s:.3f} ms, "
+          f"plain {plain_ms_s:.3f} ms, bound {bms_s:.4f} ms ({by_s})",
+          flush=True)
+    return dict(
+        launches=n4["sig_words"], stream_launches=n4["sig_words_stream"],
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        stream_ms=ms_s, stream_plain_ms=plain_ms_s, stream_bound_ms=bms_s,
+        stream_bound_by=by_s, trunc_ms=trunc_ms, wall_ms=wall * 1e3,
+        max_abs_err=max(err, err_s, worst),
+        shape=[B, M2, 2 * d, N, stride], words=len(words),
+        closure=plan.closure_size, tiles=len(tp.tiles),
+        closure_tiles=len(ctp.tiles))
+
+
+def phase_logsig(rng) -> list:
+    """logsignature_projected on the card at the Table 3 cells."""
+    rows = []
+    for B, M, d, N in TABLE3:
+        path = brownian(rng, B, M, d)
+        reset_counts()
+        got = logsignature_projected(path, N)
+        torch.cuda.synchronize()
+        n = counts()
+        check(n["sig_words"] == 1 and n["sig_trunc"] == 0,
+              f"Table 3 cell {B, M, d, N}: launches {n}")
+        want = logsignature(path.double(), N, backend="torch")
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"Table 3 cell {B, M, d, N}: shape {tuple(got.shape)}")
+        torch.testing.assert_close(got.double(), want, **TOL)
+        err = float((got.double() - want).abs().max())
+        ms = cuda_ms(lambda: logsignature_projected(path, N), 5)
+        dense_ms = cuda_ms(lambda: logsignature(path, N), 5)
+        rows.append(dict(B=B, M=M, d=d, N=N, launches=n["sig_words"],
+                         max_abs_err=err, ms=ms, dense_ms=dense_ms))
+        print(f"[logsig] B={B:2d} M={M:3d} d={d:2d} N={N}: projected "
+              f"(sig_words) {ms:7.3f} ms, dense (sig_trunc) {dense_ms:7.3f} "
+              f"ms, max |err| vs dense torch {err:.2e}", flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -301,7 +604,12 @@ def main() -> int:
     max_err = phase_kernels(rng)
     serve = phase_serve(rng)
     table1, stream = phase_dispatch(rng)
+    words_err = phase_words_kernels(rng)
+    cross = phase_cross(rng)
+    proj = phase_projection(rng)
+    logsig = phase_logsig(rng)
     src = "src/repro_torch/kernels/csrc/sig_trunc.cu"
+    wsrc = "src/repro_torch/kernels/csrc/sig_words.cu"
     kernels = [
         dict(name="sig_trunc", route="cuda", source=src,
              replaces="src/repro/kernels/sig_trunc.py:300",
@@ -315,12 +623,26 @@ def main() -> int:
              max_abs_err=max_err["sig_trunc_stream"], ms=stream["ms"],
              plain_ms=stream["plain_ms"], bound_ms=stream["bound_ms"],
              bound_by=stream["bound_by"], library_ms=None),
+        dict(name="sig_words", route="cuda", source=wsrc,
+             replaces="src/repro/kernels/sig_words.py:197",
+             launches=proj["launches"], max_abs_err=words_err["sig_words"],
+             ms=proj["ms"], plain_ms=proj["plain_ms"],
+             bound_ms=proj["bound_ms"], bound_by=proj["bound_by"],
+             library_ms=None),
+        dict(name="sig_words_stream", route="cuda", source=wsrc,
+             replaces="src/repro/kernels/sig_words.py:212",
+             launches=proj["stream_launches"],
+             max_abs_err=words_err["sig_words_stream"], ms=proj["stream_ms"],
+             plain_ms=proj["stream_plain_ms"],
+             bound_ms=proj["stream_bound_ms"],
+             bound_by=proj["stream_bound_by"], library_ms=None),
     ]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             device=smi, kernels=kernels, serve=serve, table1=table1,
-            stream=stream), indent=1))
+            stream=stream, cross=cross, projection=proj, logsig=logsig),
+            indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

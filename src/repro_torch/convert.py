@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.words import TiledPlan, WordPlan
 from .device import resolve_device
 from .ragged import RaggedPaths
 
@@ -44,3 +45,30 @@ def ragged_from_numpy(values, lengths, device=None) -> RaggedPaths:
     return RaggedPaths.from_dense(
         torch.from_numpy(np.array(values)), np.array(lengths, np.int32),
         device=device)
+
+
+_WORDPLAN_ARRAYS = {"letters": np.int32, "prefix_idx": np.int32,
+                    "inv": np.float32, "emit": np.float32,
+                    "lengths": np.int32, "out_rows": np.int32}
+
+
+def _words(ws) -> tuple:
+    return tuple(tuple(int(i) for i in w) for w in ws)
+
+
+def plan_from_reference(plan) -> WordPlan | TiledPlan:
+    """A word plan of the JAX package (``WordPlan`` or ``TiledPlan``), read
+    by attribute as numpy arrays and word tuples, as the port's plan.  A
+    ``TiledPlan`` is told apart by its ``tiles``; nothing of the JAX package
+    is imported."""
+    if hasattr(plan, "tiles"):
+        return TiledPlan(
+            d=int(plan.d),
+            tiles=tuple(plan_from_reference(p) for p in plan.tiles),
+            gather=tuple((int(t), int(k)) for t, k in plan.gather),
+            words=_words(plan.words))
+    arrays = {k: np.array(getattr(plan, k), dtype=dt)
+              for k, dt in _WORDPLAN_ARRAYS.items()}
+    return WordPlan(d=int(plan.d), depth=int(plan.depth),
+                    words=_words(plan.words), closure=_words(plan.closure),
+                    **arrays)

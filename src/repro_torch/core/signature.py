@@ -38,8 +38,9 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{item}")
 
 
-CHECKPOINT_ITEM = "queue 1 item 4 (slice 2: the backward sweeps, with training)"
+CHECKPOINT_ITEM = "queue 1 item 5 (training: the §4.2 backward sweeps)"
 TRANSFORM_ITEM = "queue 1 item 6 (transforms and the fused kernel sub-steps)"
+HYBRID_ITEM = "queue 1 item 8 (the hybrid dense + top-word engine)"
 
 
 def stream_emit_steps(M: int, stride: int = 1) -> np.ndarray:

@@ -79,6 +79,20 @@ def tensor_exp(dx: torch.Tensor, depth: int) -> list[torch.Tensor]:
     return out
 
 
+def tensor_log(s: list[torch.Tensor]) -> list[torch.Tensor]:
+    """log(1 + A) = sum_{k>=1} (-1)^{k+1} A^{⊗k} / k, truncated (paper
+    §3.3)."""
+    depth = len(s)
+    power = list(s)                   # A^1, min level 1
+    out = list(s)                     # k = 1 term
+    for k in range(2, depth + 1):
+        power = chen_mul(power, s, a0=0.0, b0=0.0, min_level_a=k - 1,
+                         min_level_b=1)
+        coef = ((-1) ** (k + 1)) / k
+        out = [o + coef * p for o, p in zip(out, power)]
+    return out
+
+
 def tensor_inverse(s: list[torch.Tensor]) -> list[torch.Tensor]:
     """(1 + A)^{-1} = sum_{k>=0} (-A)^{⊗k}, truncated; for group-like
     elements the signature of the time-reversed path (Lemma 4.5)."""

@@ -1,2 +1,2 @@
-"""Kernels: the Hopper ``sig_trunc`` kernel, its plain version and the
-signature dispatch."""
+"""Kernels: the Hopper ``sig_trunc`` and ``sig_words`` kernels, their plain
+versions and the signature / projection dispatch."""

@@ -36,7 +36,9 @@ def test_importing_the_port_loads_no_jax():
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert res.returncode == 0, res.stderr
     mods = json.loads(res.stdout.strip().splitlines()[-1])
-    assert "repro_torch.kernels.sig_trunc" in mods
+    assert {"repro_torch.kernels.sig_trunc", "repro_torch.kernels.sig_words",
+            "repro_torch.core.projection",
+            "repro_torch.core.logsignature"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -55,4 +57,6 @@ def test_every_port_module_is_walked():
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")}
     assert {"repro_torch.kernels.ops", "repro_torch.serve.batcher",
-            "repro_torch.convert"} <= names
+            "repro_torch.convert", "repro_torch.kernels.sig_words",
+            "repro_torch.core.projection", "repro_torch.core.logsignature",
+            "repro_torch.core.transforms"} <= names

@@ -1,5 +1,6 @@
 """Parity of ``repro_torch.kernels.ops.signature`` with the reference
-dispatch, and its support matrix: backends, the ✗ cells, the device rule.
+dispatch, and the support matrix of ``signature`` and ``projected``:
+backends, the ✗ and not-ported cells, the device rule, the plan caches.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -8,6 +9,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.convert import from_numpy
+from repro_torch.core import words as tw
 from repro_torch.kernels import cache, ops
 
 TOL = dict(rtol=2e-4, atol=2e-5)
@@ -112,3 +114,67 @@ def test_plan_cache_counts_and_clears():
         1, 2, cache.PLAN_CACHE_MAXSIZE, 2)
     square.cache_clear()
     assert square.cache_info().currsize == 0
+
+
+# ---------------------------------------------------------------------------
+# projected / projected_forward_only: the new support-matrix cells
+# ---------------------------------------------------------------------------
+
+WORDS = [(0,), (1, 0), (1, 1, 0)]
+
+
+@pytest.mark.parametrize("fn", ["projected", "projected_forward_only"])
+def test_projected_unported_cells_name_the_roadmap(fn):
+    x = torch.zeros(1, 3, 2)
+    call = getattr(ops, fn)
+    cells = [(dict(backend="hybrid"), "hybrid"),
+             (dict(transform="lead_lag"), "transform")]
+    if fn == "projected":
+        cells.append((dict(backward="checkpoint"), "checkpoint"))
+    for kw, what in cells:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
+            call(x, WORDS, device="cpu", **kw)
+        assert what in str(e.value)
+    with pytest.raises(ValueError, match="CUDA device"):
+        call(x, WORDS, backend="cuda", device="cpu")
+    with pytest.raises(ValueError, match="letters"):
+        call(torch.zeros(1, 3, 4), tw.make_plan(WORDS, 2), device="cpu")
+
+
+def test_projected_stream_cells_raise_like_the_reference():
+    x = torch.zeros(1, 3, 2)
+    jx = jnp.zeros((1, 3, 2))
+    with pytest.raises(NotImplementedError, match="stream=True"):
+        ops.projected(x, WORDS, stream=True, backward="checkpoint",
+                      device="cpu")
+    with pytest.raises(NotImplementedError):
+        jops.projected(jx, WORDS, stream=True, backward="checkpoint")
+    for kw in (dict(backward="nope"), dict(stream=True, stream_stride=0)):
+        with pytest.raises(ValueError):
+            ops.projected(x, WORDS, device="cpu", **kw)
+
+
+def test_projected_default_device_without_gpu_raises(monkeypatch):
+    from repro_torch.core.logsignature import logsignature_projected
+    from repro_torch.core.projection import projected_signature
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: ops.projected(torch.zeros(1, 3, 2), WORDS),
+                 lambda: ops.projected_forward_only(torch.zeros(1, 3, 2),
+                                                    WORDS),
+                 lambda: projected_signature(torch.zeros(1, 4, 2), WORDS),
+                 lambda: logsignature_projected(torch.zeros(1, 4, 2), 3)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_plan_caches_intern_by_content():
+    a = ops._normalise_plans(tw.make_plan(WORDS, 2), 2)[0]
+    b = ops._normalise_plans(WORDS, 2)[0]
+    assert a is b
+    tp = tw.make_tiled_plan(WORDS, 2, max_rows=2)
+    wplan, tplan = ops._normalise_plans(tp, 2)
+    assert wplan is a and tplan is tp
+    assert ops._closure_tiled_plan(tuple(WORDS), 2, 8).words == \
+        tuple(tw.prefix_closure(WORDS))
+    assert ops._tiled_for_words(tuple(WORDS), 2, 8) is \
+        ops._tiled_for_words(tuple(WORDS), 2, 8)

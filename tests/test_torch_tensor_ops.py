@@ -64,3 +64,19 @@ def test_oracles_match_reference(B, M, d, N):
 def test_flat_to_levels_rejects_wrong_width():
     with pytest.raises(ValueError):
         tt.flat_to_levels(torch.zeros(2, 5), 2, 2)
+
+
+@pytest.mark.parametrize("d,N", [(2, 5), (3, 3), (4, 2)])
+def test_tensor_log_matches_reference_and_inverts_exp(d, N):
+    rng = np.random.default_rng(d + N)
+    a = _levels(rng, 3, d, N)
+    ta = from_numpy(a, device="cpu")
+    for g, w in zip(tt.tensor_log(list(ta)),
+                    jt.tensor_log([jnp.asarray(x) for x in a])):
+        _close(g, w)
+    # log(exp(dx)) = dx at level 1 and 0 above
+    dx = torch.from_numpy((rng.normal(size=(3, d)) * 0.3).astype(np.float32))
+    logs = tt.tensor_log(tt.tensor_exp(dx, N))
+    _close(logs[0], dx.numpy())
+    for lvl in logs[1:]:
+        _close(lvl, np.zeros(lvl.shape, np.float32))
