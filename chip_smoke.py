@@ -46,11 +46,39 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
 9. logsig  — logsignature_projected on the card at every cell of
              benchmarks/table3_logsig.py, one sig_words launch per call,
              held against the dense logsignature on the torch engine.
-10. report — one JSON line of kernels, then the device line last.
+10. gram   — hold the sig_gram kernel against its plain version in float64
+             on the card: B_x, B_y in {1, 7, 64, 130, 300}, D in {1, 6, 127,
+             511, 512, 513, 1685, 9330}; weights uniform in [0.2, 2], half
+             of them zeroed, all zero, and the anisotropic gamma weights at
+             D = 9330; fp32 and bf16_fp32 operands (the plain version on
+             the same rounded operands).  |G − G_64| <= 1e-5·max|G_64|, the
+             reference's acceptance (tests/test_sigkernel.py).
+11. score  — SigScoreEngine over R = 2048 Brownian reference paths of 1024
+             steps (d = 6, depth = 5, gamma spaced in [0.5, 2], KRR targets
+             the Lévy area of channels 0 and 1, reg 1e-3), then
+             DynamicBatcher.scoring_service answers 256 requests (lengths
+             log-uniform in [16, 1024]) in each mode, scores / nearest /
+             predict; one sig_trunc and one sig_gram launch per
+             micro-batch.  32 answers per mode are held against the
+             unpadded plain path (ops.signature on the torch engine in
+             float64, then sig_gram_plain) to 1e-4·max|plain| (predictions
+             to 1e-4·Σ_j |K_j α_j| with the engine's own duals); nearest
+             must be the plain argmax.  Kernel, plain and library
+             (torch.matmul, TF32 off) times of the reference Gram and of
+             the largest cross-Gram, with their bounds.
+12. mmd    — sig_mmd of two samples of the §8 lead-lag input (B = 128 each,
+             500 increments over 10 letters) on the §8 word set (1,685
+             words): two sig_words legs into three sig_gram products,
+             against the statistic from the plain versions in float64 to
+             1e-4·max|K_64|.
+13. report — one JSON line of kernels, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
-67 TFLOP/s FP32 on the CUDA cores).
+67 TFLOP/s FP32 on the CUDA cores).  Tolerances of composed results
+(signature kernel, then Gram) are 1e-4·max|plain|: each fp32 kernel is
+within 1e-5 of its float64 plain version, and the composition adds the
+signature's rounding to the Gram's.
 """
 from __future__ import annotations
 
@@ -79,11 +107,14 @@ from repro_torch.core.words import (all_words, anisotropic_words,  # noqa: E402
                                     generated_words, lyndon_words, make_plan,
                                     make_tiled_plan, prefix_closure)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import sig_gram as sg  # noqa: E402
 from repro_torch.kernels import sig_trunc as st  # noqa: E402
 from repro_torch.kernels import sig_words as sw  # noqa: E402
 from repro_torch.ragged import (RaggedPaths, assign_buckets,  # noqa: E402
                                 pad_batch)
-from repro_torch.serve import DynamicBatcher  # noqa: E402
+from repro_torch.serve import DynamicBatcher, SigScoreEngine  # noqa: E402
+from repro_torch.sigkernel import (gram_diag, krr_fit,  # noqa: E402
+                                   sig_mmd, word_weights)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 HBM_BYTES_PER_S = 3.35e12
@@ -102,6 +133,12 @@ PROJ_CELL = (128, 250, 5, 4, 10)
 TABLE3 = [(32, 100, 6, 2), (32, 100, 6, 3), (32, 100, 6, 4),
           (64, 50, 4, 5), (64, 100, 4, 5), (16, 100, 10, 3)]
 MAX_ROWS = (8, 32, 256)
+GRAM_B = (1, 7, 64, 130, 300)
+GRAM_D = (1, 6, 127, 511, 512, 513, 1685, 9330)
+GRAM_TOL = 1e-5     # |G − G_64| <= GRAM_TOL · max|G_64|
+E2E_TOL = 1e-4      # composed results: signature kernel, then Gram
+# scoring: R reference paths of M steps, d channels, depth, requests
+SCORE_CELL = (2048, 1024, 6, 5, 256)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -140,15 +177,26 @@ def bound(B: int, M: int, d: int, depth: int, in_bytes: int,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def gram_bound(Bx: int, By: int, D: int) -> tuple[float, str]:
+    """Least time (ms) of a weighted Gram: 2·B_x·B_y·D FP32 operations over
+    FP32 peak against ((B_x + B_y)·D + D + B_x·B_y)·4 bytes over HBM."""
+    t_ops = 2 * Bx * By * D / FP32_FLOPS_PER_S
+    t_bytes = ((Bx + By) * D + D + Bx * By) * 4 / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def reset_counts() -> None:
     """Every kernel's launch counters to 0, just before a path is driven."""
     st.launches = st.stream_launches = 0
     sw.launches = sw.stream_launches = 0
+    sg.launches = 0
 
 
 def counts() -> dict:
     return dict(sig_trunc=st.launches, sig_trunc_stream=st.stream_launches,
-                sig_words=sw.launches, sig_words_stream=sw.stream_launches)
+                sig_words=sw.launches, sig_words_stream=sw.stream_launches,
+                sig_gram=sg.launches)
 
 
 def brownian(rng, B: int, M: int, d: int) -> torch.Tensor:
@@ -593,6 +641,253 @@ def phase_logsig(rng) -> list:
     return rows
 
 
+def gram_within(got: torch.Tensor, want: torch.Tensor, tol: float) -> bool:
+    """|got − want| <= tol · max|want| (exactly equal when want is 0)."""
+    return float((got.double() - want).abs().max()) \
+        <= tol * float(want.abs().max())
+
+
+def gram_weights(rng, D: int) -> list:
+    """(name, weights) cases of phase 10 at width D, float64 on the card."""
+    u = rng.uniform(0.2, 2.0, D)
+    half = np.where(rng.random(D) < 0.5, 0.0, u)
+    cases = [("uniform", u), ("half zero", half), ("zero", np.zeros(D))]
+    if D == 9330:  # the scoring configuration's anisotropic weights
+        cases.append(("gamma", word_weights(
+            6, 5, gamma=np.linspace(0.5, 2.0, 6)).astype(np.float64)))
+    return [(n, torch.tensor(w, device="cuda")) for n, w in cases]
+
+
+def phase_gram_kernels(rng) -> float:
+    """sig_gram against its plain version in float64; returns the max fp32
+    |error| with uniform weights."""
+    max_err, cases = 0.0, 0
+    for D in GRAM_D:
+        for Bx in GRAM_B:
+            for By in GRAM_B:
+                x = torch.tensor(rng.normal(size=(Bx, D)), device="cuda")
+                y = torch.tensor(rng.normal(size=(By, D)), device="cuda")
+                xq, yq = (a.float().to(torch.bfloat16).double()
+                          for a in (x, y))
+                for name, w in gram_weights(rng, D):
+                    where = f"sig_gram B_x={Bx} B_y={By} D={D} [{name}]"
+                    want = sg.sig_gram_plain(x, y, w)
+                    got = sg.sig_gram(x.float(), y.float(), w.float())
+                    torch.cuda.synchronize()
+                    check(got.shape == (Bx, By), f"{where}: shape")
+                    err = float((got.double() - want).abs().max())
+                    check(gram_within(got, want, GRAM_TOL),
+                          f"{where} fp32: max |err| {err:.3e}, max|G| "
+                          f"{float(want.abs().max()):.3e}")
+                    if name == "uniform":
+                        max_err = max(max_err, err)
+                    got = ops.gram(x.float(), y.float(), w.float(),
+                                   precision="bf16_fp32")
+                    want = sg.sig_gram_plain(xq, yq, w)
+                    check(gram_within(got, want, GRAM_TOL),
+                          f"{where} bf16_fp32 vs plain on the rounded "
+                          f"operands: max |err| "
+                          f"{float((got.double() - want).abs().max()):.3e}")
+                    cases += 2
+        print(f"[gram] D={D:5d}: every B_x, B_y and weight case within "
+              f"{GRAM_TOL}·max|G| (max fp32 |err| so far {max_err:.2e})",
+              flush=True)
+    print(f"[gram] {cases} cases within tolerance", flush=True)
+    return max_err
+
+
+def time_gram(Sx: torch.Tensor, Sy: torch.Tensor, w: torch.Tensor) -> dict:
+    """Kernel, plain and library times (ms) of one Gram, and its bound.
+    The library call is torch.matmul in full FP32 (TF32 off)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib = cuda_ms(lambda: torch.matmul(Sx * w, Sy.T), 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (Bx, D), By = Sx.shape, Sy.shape[0]
+    bms, by = gram_bound(Bx, By, D)
+    return dict(shape=[Bx, By, D],
+                ms=cuda_ms(lambda: sg.sig_gram(Sx, Sy, w), 10),
+                plain_ms=cuda_ms(lambda: sg.sig_gram_plain(Sx, Sy, w), 3),
+                library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def levy_area(paths: torch.Tensor) -> torch.Tensor:
+    """(B, M+1, d) -> (B,) Lévy area of channels 0 and 1, in float64."""
+    p = paths.double()
+    dx = p[:, 1:] - p[:, :-1]
+    return 0.5 * (p[:, :-1, 0] * dx[..., 1] - p[:, :-1, 1] * dx[..., 0]).sum(1)
+
+
+def phase_scoring(rng) -> dict:
+    """SigScoreEngine at full width and DynamicBatcher.scoring_service in
+    every mode; returns the measurements."""
+    R, M, d, depth, n_req = SCORE_CELL
+    gamma = tuple(float(g) for g in np.linspace(0.5, 2.0, d))
+    refs = brownian(rng, R, M, d)
+    targets = levy_area(refs).float()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = SigScoreEngine(d=d, depth=depth, batch=1, references=refs,
+                         targets=targets, gamma=gamma, reg=1e-3)
+    torch.cuda.synchronize()
+    eng_ms = (time.perf_counter() - t0) * 1e3
+    n_eng = counts()
+    check(n_eng["sig_trunc"] == 1 and n_eng["sig_gram"] == 1,
+          f"the engine's reference state launched {n_eng}")
+    D = eng.ref_sigs.shape[1]
+    print(f"[score] SigScoreEngine R={R} M={M} d={d} depth={depth} "
+          f"(D={D}): {eng_ms:.1f} ms wall (reference signatures, Gram, KRR "
+          f"solve); launches {n_eng}", flush=True)
+    # the cached state against the plain versions
+    idx = rng.choice(R, 32, replace=False)
+    incs = tops.path_increments(refs[idx].double())
+    torch.testing.assert_close(eng.ref_sigs[idx].double(),
+                               st.sig_trunc_plain(incs, depth), **TOL)
+    S64, w64 = eng.ref_sigs.double(), eng.weights.double()
+    G64 = sg.sig_gram_plain(S64, S64, w64)
+    gerr = float((eng.ref_gram.double() - G64).abs().max())
+    check(gram_within(eng.ref_gram, G64, GRAM_TOL),
+          f"reference Gram: max |err| {gerr:.3e}")
+    A = eng.ref_gram.double() + 1e-3 * torch.eye(R, dtype=torch.float64,
+                                                 device="cuda")
+    alpha64 = eng.alpha.double()
+    resid = float((A @ alpha64 - targets.double()).norm()
+                  / (A.norm() * alpha64.norm()))
+    check(bool(torch.isfinite(eng.alpha).all()) and resid <= 1e-4,
+          f"KRR duals: relative residual {resid:.3e}")
+    print(f"[score] reference signatures (32 rows) and Gram match the plain "
+          f"versions (Gram max |err| {gerr:.2e}, max|G| "
+          f"{float(G64.abs().max()):.3e}); KRR relative residual "
+          f"{resid:.2e}", flush=True)
+    reqs = serving_inputs(rng, n_req, d, 16, M)
+    flushes = {}
+    for mode in ("scores", "nearest", "predict"):
+        svc = DynamicBatcher.scoring_service(eng, max_len=M, mode=mode)
+        reset_counts()
+        t0 = time.perf_counter()
+        tickets = [svc.submit(p) for p in reqs]
+        out = svc.flush()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        n, stats = counts(), svc.stats()
+        check(n["sig_trunc"] == n["sig_gram"] == stats["batches"] > 0
+              and n["sig_words"] == n["sig_trunc_stream"] == 0,
+              f"{mode}: launches {n} for {stats['batches']} micro-batches")
+        shape = (R,) if mode == "scores" else ()
+        for t in tickets:
+            check(tuple(out[t].shape) == shape
+                  and bool(torch.isfinite(out[t].double()).all()),
+                  f"{mode}: ticket {t} answered {tuple(out[t].shape)}")
+        flushes[mode] = dict(wall_ms=wall, launches=n, stats=stats,
+                             out=[out[t] for t in tickets])
+        print(f"[score] {mode:8s} flush of {n_req} requests: {wall:.1f} ms "
+              f"wall, {stats['batches']} micro-batches, launches "
+              f"sig_trunc {n['sig_trunc']} sig_gram {n['sig_gram']}",
+              flush=True)
+    # 32 answers per mode against the unpadded plain path
+    rn = torch.sqrt(torch.clamp_min(gram_diag(S64, w64), 1e-12))
+    errs, ties = dict(scores=0.0, predict=0.0), 0
+    sampled = rng.choice(n_req, min(32, n_req), replace=False)
+    for i in sampled:
+        x = tops.path_increments(torch.tensor(reqs[i], dtype=torch.float64,
+                                              device="cuda"))[None]
+        S = ops.signature(x, depth, backend="torch")
+        K = sg.sig_gram_plain(S, S64, w64)[0]
+        qn = torch.sqrt(torch.clamp_min(gram_diag(S, w64), 1e-12))
+        want = K / (qn * rn)
+        got = flushes["scores"]["out"][i].double()
+        err = float((got - want).abs().max())
+        errs["scores"] = max(errs["scores"], err)
+        check(err <= E2E_TOL * float(want.abs().max()),
+              f"scores of request {i}: max |err| {err:.3e}")
+        near = int(flushes["nearest"]["out"][i])
+        if near != int(want.argmax()):
+            check(float(want.max() - want[near])
+                  <= E2E_TOL * float(want.abs().max()),
+                  f"nearest of request {i}: {near}, plain argmax "
+                  f"{int(want.argmax())}")
+            ties += 1
+        pred = float(K @ alpha64)
+        err = abs(float(flushes["predict"]["out"][i]) - pred)
+        errs["predict"] = max(errs["predict"], err)
+        check(err <= E2E_TOL * float(K.abs() @ alpha64.abs()),
+              f"prediction of request {i}: |err| {err:.3e} (plain {pred})")
+    print(f"[score] {len(sampled)} answers per mode match the unpadded "
+          f"plain path: "
+          f"scores max |err| {errs['scores']:.2e}, predictions max |err| "
+          f"{errs['predict']:.2e}, nearest equal to the plain argmax "
+          f"({ties} ties within tolerance)", flush=True)
+    # kernel times: the reference Gram and the largest cross-Gram
+    ref = time_gram(eng.ref_sigs, eng.ref_sigs, eng.weights)
+    stats = flushes["scores"]["stats"]
+    rung, B_pad = max(stats["shapes"], key=lambda s: s[0] * s[1])
+    which = assign_buckets([len(p) - 1 for p in reqs], np.asarray(
+        stats["ladder"]))
+    part = [p for p, k in zip(reqs, which) if stats["ladder"][k] == rung]
+    rp = pad_batch(RaggedPaths.from_list(part[:B_pad], pad_to=rung), B_pad)
+    Sq = ops.signature(rp.increments(), depth, lengths=rp.lengths)
+    cross = time_gram(Sq, eng.ref_sigs, eng.weights)
+    for name, t in (("reference Gram", ref), ("largest cross-Gram", cross)):
+        print(f"[score] sig_gram {name} {t['shape']}: {t['ms']:.3f} ms, "
+              f"plain {t['plain_ms']:.3f} ms, library (torch.matmul, TF32 "
+              f"off) {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})", flush=True)
+    # the engine's other parts: the reference signatures and the solve
+    incs = tops.path_increments(refs)
+    sig_ms = cuda_ms(lambda: st.sig_trunc(incs, depth), 3)
+    solve_ms = cuda_ms(lambda: krr_fit(eng.ref_gram, targets, 1e-3), 3)
+    print(f"[score] engine parts: sig_trunc over the references (B={R}, "
+          f"M={M}) {sig_ms:.3f} ms, KRR solve {solve_ms:.3f} ms", flush=True)
+    for f in flushes.values():
+        del f["out"]
+    return dict(engine_ms=eng_ms, engine_launches=n_eng, flushes=flushes,
+                ref_sigs_ms=sig_ms, solve_ms=solve_ms,
+                launches=n_eng["sig_gram"] + sum(
+                    f["launches"]["sig_gram"] for f in flushes.values()),
+                ref_gram=ref, cross_gram=cross, max_abs_err=errs,
+                ref_gram_err=gerr, krr_residual=resid, nearest_ties=ties)
+
+
+def phase_projected_mmd(rng) -> dict:
+    """sig_mmd on the §8 word set: sig_words legs into sig_gram products."""
+    B, M, d, N, _ = PROJ_CELL
+    x, y = lead_lag(brownian(rng, B, M, d)), lead_lag(brownian(rng, B, M, d))
+    plan = make_plan(generated_words(sparse_leadlag_generators(d), N), 2 * d)
+    reset_counts()
+    t0 = time.perf_counter()
+    mmd = sig_mmd(x, y, words=plan)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    n = counts()
+    check(n["sig_words"] == 2 and n["sig_gram"] == 3 and n["sig_trunc"] == 0,
+          f"projected MMD launches {n}")
+    tp = make_tiled_plan(plan.words, 2 * d)
+    Sx, Sy = (sw.sig_words_plain(tops.path_increments(p.double()), tp)
+              for p in (x, y))
+    w = torch.ones(len(plan.words), dtype=torch.float64, device="cuda")
+    Kxx, Kyy, Kxy = (sg.sig_gram_plain(a, b, w)
+                     for a, b in ((Sx, Sx), (Sy, Sy), (Sx, Sy)))
+    m = B * (B - 1)
+    want = float((Kxx.sum() - Kxx.trace()) / m + (Kyy.sum() - Kyy.trace()) / m
+                 - 2.0 * Kxy.mean())
+    scale = max(float(K.abs().max()) for K in (Kxx, Kyy, Kxy))
+    err = abs(float(mmd) - want)
+    check(err <= E2E_TOL * scale,
+          f"projected MMD {float(mmd)} vs plain {want}: |err| {err:.3e}")
+    Sxk = ops.projected(tops.path_increments(x), plan)
+    t = time_gram(Sxk, Sxk, w.float())
+    print(f"[mmd] sig_mmd on {len(plan.words)} words (B={B} per sample, "
+          f"{2 * M} increments over {2 * d} letters): {float(mmd):.6e}, "
+          f"plain {want:.6e}, |err| {err:.2e} (max|K| {scale:.3e}); "
+          f"{wall:.1f} ms wall; launches {n}; sig_gram {t['shape']}: "
+          f"{t['ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+    return dict(mmd=float(mmd), plain=want, abs_err=err, wall_ms=wall,
+                launches=n, gram=t)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -608,6 +903,9 @@ def main() -> int:
     cross = phase_cross(rng)
     proj = phase_projection(rng)
     logsig = phase_logsig(rng)
+    gram_err = phase_gram_kernels(rng)
+    score = phase_scoring(rng)
+    mmd = phase_projected_mmd(rng)
     src = "src/repro_torch/kernels/csrc/sig_trunc.cu"
     wsrc = "src/repro_torch/kernels/csrc/sig_words.cu"
     kernels = [
@@ -636,12 +934,22 @@ def main() -> int:
              plain_ms=proj["stream_plain_ms"],
              bound_ms=proj["stream_bound_ms"],
              bound_by=proj["stream_bound_by"], library_ms=None),
+        dict(name="sig_gram", route="cuda",
+             source="src/repro_torch/kernels/csrc/sig_gram.cu",
+             replaces="src/repro/kernels/sig_gram.py:68",
+             launches=score["launches"], max_abs_err=gram_err,
+             ms=score["ref_gram"]["ms"],
+             plain_ms=score["ref_gram"]["plain_ms"],
+             bound_ms=score["ref_gram"]["bound_ms"],
+             bound_by=score["ref_gram"]["bound_by"],
+             library_ms=score["ref_gram"]["library_ms"]),
     ]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             device=smi, kernels=kernels, serve=serve, table1=table1,
-            stream=stream, cross=cross, projection=proj, logsig=logsig),
+            stream=stream, cross=cross, projection=proj, logsig=logsig,
+            scoring=score, projected_mmd=mmd),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,10 +1,11 @@
 """Carry state from the JAX package into the port.
 
 The JAX package hands over numpy arrays (``np.asarray`` of its arrays); this
-module turns them into the port's tensors.  The truncated path has no
-learned parameters, so the state is inputs: nested dicts, lists, tuples and
-dataclasses of arrays (:func:`from_numpy`), and ragged batches
-(:func:`ragged_from_numpy`).
+module turns them into the port's tensors: nested dicts, lists, tuples and
+dataclasses of arrays (:func:`from_numpy`), ragged batches
+(:func:`ragged_from_numpy`), word plans (:func:`plan_from_reference`) and
+the fitted kernel-method state (:func:`sigkernel_from_reference`).  The
+JAX package's objects are read by attribute; nothing of it is imported.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from .core.words import TiledPlan, WordPlan
 from .device import resolve_device
 from .ragged import RaggedPaths
+from .sigkernel import NystromFeatures, SigKRR, WordSubsetFeatures
 
 
 def from_numpy(tree, device=None):
@@ -72,3 +74,44 @@ def plan_from_reference(plan) -> WordPlan | TiledPlan:
     return WordPlan(d=int(plan.d), depth=int(plan.depth),
                     words=_words(plan.words), closure=_words(plan.closure),
                     **arrays)
+
+
+# the reference's backend strings -> the port's: its jax engine is the torch
+# engine, and its Pallas kernels are the CUDA kernels where a card is present
+_BACKENDS = {"jax": "torch", "pallas": "auto", "pallas_interpret": "auto"}
+
+
+def sigkernel_from_reference(obj, device=None):
+    """A fitted kernel-method object of the JAX package (``SigKRR``,
+    ``NystromFeatures`` or ``WordSubsetFeatures``, told apart by its
+    ``alpha`` / ``landmark_sigs`` / ``scale``) as the port's, on ``device``
+    (default CUDA).  Arrays go through ``np.asarray``, plans through
+    :func:`plan_from_reference`; the backend strings ``"jax"`` and
+    ``"pallas*"`` become ``"torch"`` and ``"auto"``."""
+    dev = resolve_device(device)
+
+    def arr(name):
+        return torch.from_numpy(np.array(getattr(obj, name))).to(dev)
+
+    def plan(p):
+        return None if p is None else plan_from_reference(p)
+
+    if not any(hasattr(obj, a) for a in ("alpha", "landmark_sigs", "scale")):
+        raise TypeError(f"not a kernel-method object of the JAX package: "
+                        f"{type(obj).__name__}")
+    backend = _BACKENDS.get(obj.backend, obj.backend)
+    if hasattr(obj, "alpha"):
+        return SigKRR(ref_sigs=arr("ref_sigs"), alpha=arr("alpha"),
+                      weights=arr("weights"), depth=obj.depth,
+                      plan=plan(obj.plan), reg=float(obj.reg),
+                      backend=backend, backward=obj.backward,
+                      block_words=int(obj.block_words))
+    if hasattr(obj, "landmark_sigs"):
+        return NystromFeatures(landmark_sigs=arr("landmark_sigs"),
+                               transform=arr("transform"),
+                               weights=arr("weights"), depth=obj.depth,
+                               plan=plan(obj.plan), backend=backend,
+                               backward=obj.backward,
+                               block_words=int(obj.block_words))
+    return WordSubsetFeatures(plan=plan(obj.plan), scale=arr("scale"),
+                              backend=backend, backward=obj.backward)

@@ -1,7 +1,9 @@
 """Word algebra over the alphabet {0, ..., d-1} (paper §2.3, Appendix A).
 
-Port of ``repro.core.words``: the encoding, the word-set constructors of
-paper §7 and the word plans the projection engines run on.  A word
+Port of ``repro.core.words``: the encoding and its prefix/suffix/concat
+rules, the word-set constructors of paper §7, the shuffle and
+deconcatenation algebra, and the word plans the projection engines run
+on.  A word
 w = (i_1, ..., i_n) is stored as the base-d integer phi_n(w) =
 sum_j i_j d^{n-j} (Def. A.1), bijective per level and lexicographic
 (Prop. A.2); the pair (level, code) is flattened by the cumulative level
@@ -37,6 +39,21 @@ def decode(code: int, level: int, d: int) -> Word:
         letters.append(code % d)
         code //= d
     return tuple(reversed(letters))
+
+
+def concat_codes(code_u: int, code_v: int, len_v: int, d: int) -> int:
+    """Encoding of u∘v from encodings of u, v (Prop. A.3)."""
+    return code_u * d**len_v + code_v
+
+
+def prefix_code(code: int, level: int, k: int, d: int) -> int:
+    """Encoding of the length-k prefix of a level-``level`` word (Cor. A.4)."""
+    return code // d ** (level - k)
+
+
+def suffix_code(code: int, k: int, d: int) -> int:
+    """Encoding of the length-k suffix (Cor. A.5)."""
+    return code % d**k
 
 
 def level_offsets(d: int, depth: int) -> np.ndarray:
@@ -160,6 +177,35 @@ def lyndon_words(d: int, depth: int) -> list[Word]:
 def lyndon_dim(d: int, depth: int) -> int:
     """Dimension of the truncated free Lie algebra = #Lyndon words."""
     return len(lyndon_words(d, depth))
+
+
+def shuffle_product(u: Word, v: Word) -> dict[Word, int]:
+    """The shuffle product u ⧢ v as a multiset {word: multiplicity}.
+
+    Signatures are grouplike, so ⟨S, u⟩·⟨S, v⟩ = Σ_w c_w ⟨S, w⟩ with c_w
+    the shuffle multiplicities: the identity that makes the weighted Gram
+    of :mod:`repro_torch.sigkernel` a kernel on path space.
+    """
+    u, v = tuple(u), tuple(v)
+    if not u:
+        return {v: 1}
+    if not v:
+        return {u: 1}
+    out: dict[Word, int] = {}
+    for w, c in shuffle_product(u[1:], v).items():
+        k = (u[0],) + w
+        out[k] = out.get(k, 0) + c
+    for w, c in shuffle_product(u, v[1:]).items():
+        k = (v[0],) + w
+        out[k] = out.get(k, 0) + c
+    return out
+
+
+def deconcatenations(w: Word) -> list[tuple[Word, Word]]:
+    """All splits w = u∘v including the empty-factor ones: the coproduct
+    side of Chen's identity ⟨S(x·y), w⟩ = Σ ⟨S(x), u⟩⟨S(y), v⟩."""
+    w = tuple(w)
+    return [(w[:k], w[k:]) for k in range(len(w) + 1)]
 
 
 # ---------------------------------------------------------------------------

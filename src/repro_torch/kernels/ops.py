@@ -1,14 +1,16 @@
-"""The engine-dispatch layer for truncated and projected signatures.
+"""The engine-dispatch layer for truncated and projected signatures and the
+weighted signature Gram.
 
-Port of the ``signature``, ``projected`` and ``projected_forward_only``
-parts of ``repro.kernels.ops``.  ``backend``:
+Port of the ``signature``, ``projected``, ``projected_forward_only`` and
+``gram`` parts of ``repro.kernels.ops``.  ``backend``:
 
-- ``"torch"`` — the plain PyTorch scans: levelwise Horner for truncated
-  signatures, the word-table scan for projections (runs anywhere,
-  differentiable by autograd).
+- ``"torch"`` — the plain PyTorch versions: levelwise Horner for truncated
+  signatures, the word-table scan for projections, the word-blocked
+  product for the Gram (runs anywhere, differentiable by autograd).
 - ``"cuda"``  — the hand-written Hopper kernels: ``sig_trunc``
-  (:mod:`repro_torch.kernels.sig_trunc`) and ``sig_words``
-  (:mod:`repro_torch.kernels.sig_words`); needs a CUDA device.
+  (:mod:`repro_torch.kernels.sig_trunc`), ``sig_words``
+  (:mod:`repro_torch.kernels.sig_words`) and ``sig_gram``
+  (:mod:`repro_torch.kernels.sig_gram`); needs a CUDA device.
 - ``"auto"``  — ``cuda`` on a CUDA device, ``torch`` on the CPU.
 
 ``device=None`` means the CUDA card (:mod:`repro_torch.device`).
@@ -42,6 +44,16 @@ cuda       True    streamed kernel over the       ✗             (torch)
 hybrid     any     not ported                     not ported    not ported
 =========  ======  =============================  ============  ==========
 
+``gram`` (one row per engine; the product has no stream or backward mode):
+
+=========  ============================================================
+engine     forward, backward
+=========  ============================================================
+torch      word-blocked ``(sx * wb) @ sy.T`` loop, closed-form backward
+cuda       ``sig_gram`` kernel, closed-form backward (``torch.matmul``)
+hybrid     the torch row (the product has no dense/word split)
+=========  ============================================================
+
 ``(torch)`` cells route to the torch engine on the same device.  The §4.2
 inverse backward (truncated and projected), ``checkpoint`` and
 ``time_chunks`` land with the training item; ``transform=`` with the
@@ -72,6 +84,7 @@ from ..core.signature import (CHECKPOINT_ITEM, HYBRID_ITEM, TRANSFORM_ITEM,
 from ..core.words import TiledPlan, WordPlan, make_plan, make_tiled_plan
 from ..device import resolve_device
 from .cache import plan_cache
+from .sig_gram import sig_gram, sig_gram_plain
 from .sig_trunc import sig_trunc
 from .sig_words import sig_words
 
@@ -343,3 +356,69 @@ def projected_forward_only(increments, plan, *, backend: str = "auto",
     if tplan is None:
         tplan = _tiled_for_words(wplan.words, wplan.d, max_rows)
     return sig_words(increments, tplan, precision=precision)
+
+
+# ---------------------------------------------------------------------------
+# weighted Gram product: word-blocked routes + closed-form product backward
+# ---------------------------------------------------------------------------
+
+class GramFunction(torch.autograd.Function):
+    """G = S_x diag(w) S_yᵀ with the reference's closed-form VJP
+    (``_gram_vjp``): products of (B, D) matrices only, so the backward too
+    never forms a (B_x, B_y, D) intermediate."""
+
+    @staticmethod
+    def forward(ctx, Sx, Sy, w, engine, block_words):
+        ctx.save_for_backward(Sx, Sy, w)
+        dt = torch.promote_types(Sx.dtype, torch.float32)
+        if engine == "cuda":
+            return sig_gram(Sx, Sy, w).to(dt)
+        return sig_gram_plain(Sx, Sy, w, block_words)
+
+    @staticmethod
+    def backward(ctx, g):
+        Sx, Sy, w = ctx.saved_tensors
+        g = g.to(torch.promote_types(Sx.dtype, torch.float32))
+        dSx = (g @ (Sy * w[None, :])).to(Sx.dtype)
+        dSy = (g.T @ (Sx * w[None, :])).to(Sy.dtype)
+        dw = ((g.T @ Sx) * Sy).sum(dim=0).to(w.dtype)
+        return dSx, dSy, dw, None, None
+
+
+def gram(Sx, Sy, weights, *, backend: str = "auto",
+         block_words: int | None = None, bx_tile: int | None = None,
+         by_tile: int | None = None, precision: str = "fp32",
+         device=None) -> torch.Tensor:
+    """Weighted signature Gram (B_x, D), (B_y, D), (D,) -> (B_x, B_y) on
+    ``device`` (default CUDA): k_ω(x, y) = S_x diag(ω) S_yᵀ, blocked over
+    the word axis so the (B_x, B_y, D) intermediate never exists.
+
+    Differentiable in all three operands through the closed-form product
+    backward.  ``precision="bf16_fp32"`` rounds both signature operands to
+    bf16 (straight-through gradient) and accumulates in fp32.
+    ``block_words`` (default 512) is the torch engine's slab width;
+    ``bx_tile``/``by_tile`` (default 128) are the reference's TPU block
+    shapes and are checked only: the CUDA kernel's tile is fixed at 64 × 64
+    until the autotune item brings a choice.
+    """
+    dev = resolve_device(device)
+    Sx = torch.as_tensor(Sx, device=dev)
+    Sy = torch.as_tensor(Sy, device=dev)
+    weights = torch.as_tensor(weights, device=dev)
+    # the gram product has no dense/word split: hybrid is the torch engine
+    engine = "torch" if backend == "hybrid" else resolve_backend(backend, dev)
+    precision = canon_precision(precision)
+    if Sx.ndim != 2 or Sy.ndim != 2 or Sy.shape[1] != Sx.shape[1] \
+            or tuple(weights.shape) != (Sx.shape[1],):
+        raise ValueError(
+            f"gram needs Sx (B_x, D), Sy (B_y, D), weights (D,); got "
+            f"{tuple(Sx.shape)}, {tuple(Sy.shape)}, {tuple(weights.shape)}")
+    block_words = 512 if block_words is None else block_words
+    for name, v in (("block_words", block_words),
+                    ("bx_tile", 128 if bx_tile is None else bx_tile),
+                    ("by_tile", 128 if by_tile is None else by_tile)):
+        if v < 1:
+            raise ValueError(f"{name} must be >= 1, got {v}")
+    Sx = quantise_increments(Sx, precision)
+    Sy = quantise_increments(Sy, precision)
+    return GramFunction.apply(Sx, Sy, weights, engine, block_words)

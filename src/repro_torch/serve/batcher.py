@@ -15,6 +15,13 @@ bounded set of shapes:
 
 ``shapes_seen`` is the set of (padded_len, padded_batch) pairs fed to the
 engine, and :meth:`stats` reports padding waste next to it.
+
+The two factories bind the batcher to the serving engines:
+:meth:`signature_service` computes each request's terminal signature, and
+:meth:`scoring_service` scores requests against a
+:class:`repro_torch.serve.engine.SigScoreEngine`'s cached references (one
+``sig_trunc`` and one ``sig_gram`` launch per micro-batch on a CUDA
+device).
 """
 from __future__ import annotations
 
@@ -43,8 +50,8 @@ class DynamicBatcher:
 
     ``compute(batch: RaggedPaths) -> (B, ...) tensor`` is the per-bucket
     engine call; row b of its output is the answer for example b.  Build one
-    with :meth:`signature_service` or pass any callable.  Micro-batches are
-    built on ``device`` (default CUDA).
+    with :meth:`signature_service` / :meth:`scoring_service`, or pass any
+    callable.  Micro-batches are built on ``device`` (default CUDA).
     """
     compute: Callable[[RaggedPaths], torch.Tensor]
     d: int
@@ -160,3 +167,45 @@ class DynamicBatcher:
                                  device=rp.values.device)
 
         return cls(compute, d, max_len, device=device, **kw)
+
+    @classmethod
+    def scoring_service(cls, engine, *, max_len: int, mode: str = "scores",
+                        **kw) -> "DynamicBatcher":
+        """Batcher scoring requests against a
+        :class:`repro_torch.serve.engine.SigScoreEngine`'s cached reference
+        signatures, on the engine's device: ``mode="scores"`` returns (R,)
+        kernel scores per request (the RKHS cosine if the engine
+        normalises), ``"nearest"`` the argmax reference index,
+        ``"predict"`` the KRR prediction from the engine's cached duals.
+        Each micro-batch runs one ``ops.signature`` and one ``ops.gram``."""
+        if mode not in ("scores", "nearest", "predict"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if mode == "predict" and engine.alpha is None:
+            raise ValueError("scoring_service(mode='predict') needs a "
+                             "SigScoreEngine constructed with targets=")
+        from ..kernels import ops
+        from ..sigkernel import gram_diag, krr_predict
+
+        def compute(rp: RaggedPaths) -> torch.Tensor:
+            incs = tops.path_increments(rp.values)
+            S = ops.signature(incs, engine.depth, backend=engine.backend,
+                              lengths=rp.lengths, precision=engine.precision,
+                              device=engine.device)
+            K = ops.gram(S, engine.ref_sigs, engine.weights,
+                         backend=engine.backend,
+                         block_words=engine.block_words,
+                         precision=engine.precision, device=engine.device)
+            if mode == "predict":
+                return krr_predict(K, engine.alpha)
+            if engine.normalize:
+                qn = torch.sqrt(torch.clamp_min(gram_diag(S, engine.weights),
+                                                1e-12))
+                rn = torch.sqrt(torch.clamp_min(torch.diag(engine.ref_gram),
+                                                1e-12))
+                K = K / (qn[:, None] * rn[None, :])
+            if mode == "nearest":
+                return torch.argmax(K, dim=-1)
+            return K
+
+        kw.setdefault("device", engine.device)
+        return cls(compute, engine.d, max_len, **kw)

@@ -10,11 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import sigkernel as SK
 from repro_torch.core import words as tw
 from repro_torch.core.logsignature import logsignature_projected
 from repro_torch.kernels import ops
+from repro_torch.kernels import sig_gram as sg
 from repro_torch.kernels import sig_trunc as st
 from repro_torch.kernels import sig_words as sw
+from repro_torch.serve import DynamicBatcher, SigScoreEngine
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 
@@ -124,3 +127,92 @@ def test_logsignature_projected_on_card_matches_torch_engine(cuda, d, N):
     assert sw.launches == 1
     torch.testing.assert_close(
         got, logsignature_projected(path, N, backend="torch"), **TOL)
+
+
+def _gram_operands(seed, Bx, By, D, device):
+    rng = np.random.default_rng(seed)
+    return (torch.tensor(rng.normal(size=(Bx, D)), device=device),
+            torch.tensor(rng.normal(size=(By, D)), device=device),
+            torch.tensor(rng.uniform(0.2, 2.0, D), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 15, 16, 17, 513])
+def test_gram_kernel_matches_plain_on_ragged_edges(cuda, D):
+    """|G − G_64| <= 1e-5·max|G_64|, the reference's Gram acceptance."""
+    for Bx, By in [(1, 1), (63, 65), (64, 64), (65, 130), (130, 1)]:
+        x, y, w = _gram_operands(Bx + By + D, Bx, By, D, cuda)
+        want = sg.sig_gram_plain(x, y, w)
+        got = sg.sig_gram(x.float(), y.float(), w.float())
+        torch.cuda.synchronize()
+        assert got.shape == (Bx, By) and got.dtype == torch.float32
+        assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_gram_dispatch_launches_the_kernel_once_per_call(cuda):
+    x, y, w = (a.float().requires_grad_() for a in
+               _gram_operands(3, 9, 5, 40, cuda))
+    sg.launches = 0
+    out = ops.gram(x, y, w)
+    ops.gram(x, x, w)
+    assert sg.launches == 2
+    ref = ops.gram(x, y, w, backend="torch")
+    assert sg.launches == 2
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    g = torch.autograd.grad((out ** 2).sum(), (x, y, w))
+    g_ref = torch.autograd.grad((ref ** 2).sum(), (x, y, w))
+    for a, b in zip(g, g_ref):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_gram_build_or_launch_failure_raises(cuda, monkeypatch):
+    x, y, w = (a.float() for a in _gram_operands(4, 3, 3, 8, cuda))
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    monkeypatch.setattr(sg._build, "library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ops.gram(x, y, w)
+
+    class Refusing:
+        @staticmethod
+        def sig_gram_launch(*args):
+            return 9   # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(sg, "_lib", lambda: Refusing)
+    before = sg.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.gram(x, y, w)
+    assert sg.launches == before
+
+
+@pytest.mark.cuda
+def test_scoring_on_card_matches_torch_engine_on_cpu(cuda):
+    rng = np.random.default_rng(5)
+    refs = np.cumsum(rng.normal(size=(6, 17, 2)) * 0.2, axis=1).astype(
+        np.float32)
+    kw = dict(d=2, depth=3, batch=1, references=refs, gamma=(0.5, 2.0),
+              targets=np.linspace(-1, 1, 6, dtype=np.float32))
+    card = SigScoreEngine(**kw)
+    cpu = SigScoreEngine(backend="torch", device="cpu", **kw)
+    torch.testing.assert_close(card.ref_gram.cpu(), cpu.ref_gram,
+                               rtol=2e-4, atol=2e-5)
+    reqs = [np.cumsum(rng.normal(size=(L + 1, 2)) * 0.2, axis=0)
+            for L in (3, 16, 9, 30)]
+    for mode in ("scores", "nearest"):
+        a = DynamicBatcher.scoring_service(card, max_len=32, mode=mode)
+        b = DynamicBatcher.scoring_service(cpu, max_len=32, mode=mode)
+        ta, tb = [a.submit(p) for p in reqs], [b.submit(p) for p in reqs]
+        st.launches = sg.launches = 0
+        got, want = a.flush(), b.flush()
+        assert st.launches == sg.launches == a.stats()["batches"]
+        for t, u in zip(ta, tb):
+            torch.testing.assert_close(got[t].cpu(), want[u], rtol=2e-4,
+                                       atol=2e-5)
+    mmd = SK.sig_mmd(torch.tensor(refs[:3]), torch.tensor(refs[3:]), 3)
+    want = SK.sig_mmd(torch.tensor(refs[:3]), torch.tensor(refs[3:]), 3,
+                      backend="torch", device="cpu")
+    torch.testing.assert_close(mmd.cpu(), want, rtol=2e-4, atol=2e-5)

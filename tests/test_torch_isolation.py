@@ -37,8 +37,11 @@ def test_importing_the_port_loads_no_jax():
     assert res.returncode == 0, res.stderr
     mods = json.loads(res.stdout.strip().splitlines()[-1])
     assert {"repro_torch.kernels.sig_trunc", "repro_torch.kernels.sig_words",
-            "repro_torch.core.projection",
-            "repro_torch.core.logsignature"} <= set(mods)
+            "repro_torch.kernels.sig_gram", "repro_torch.core.projection",
+            "repro_torch.core.logsignature", "repro_torch.sigkernel.gram",
+            "repro_torch.sigkernel.mmd", "repro_torch.sigkernel.krr",
+            "repro_torch.sigkernel.features",
+            "repro_torch.serve.engine"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -59,4 +62,8 @@ def test_every_port_module_is_walked():
     assert {"repro_torch.kernels.ops", "repro_torch.serve.batcher",
             "repro_torch.convert", "repro_torch.kernels.sig_words",
             "repro_torch.core.projection", "repro_torch.core.logsignature",
-            "repro_torch.core.transforms"} <= names
+            "repro_torch.core.transforms", "repro_torch.kernels.sig_gram",
+            "repro_torch.sigkernel", "repro_torch.sigkernel.gram",
+            "repro_torch.sigkernel.mmd", "repro_torch.sigkernel.krr",
+            "repro_torch.sigkernel.features",
+            "repro_torch.serve.engine"} <= names
