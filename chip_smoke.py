@@ -47,8 +47,10 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              benchmarks/table3_logsig.py, one sig_words launch per call,
              held against the dense logsignature on the torch engine.
 10. gram   — hold the sig_gram kernel against its plain version in float64
-             on the card: B_x, B_y in {1, 7, 64, 130, 300}, D in {1, 6, 127,
-             511, 512, 513, 1685, 9330}; weights uniform in [0.2, 2], half
+             on the card: B_x, B_y in {1, 7, 63, 64, 65, 128, 129, 130, 300},
+             D in {1, 6, 127, 511, 512, 513, 1025, 1685, 9330} (both sides
+             of the row tiles and of the 512-word blocks that split-K
+             slices are made of); weights uniform in [0.2, 2], half
              of them zeroed, all zero, and the anisotropic gamma weights at
              D = 9330; fp32 and bf16_fp32 operands (the plain version on
              the same rounded operands).  |G − G_64| <= 1e-5·max|G_64|, the
@@ -65,17 +67,19 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              to 1e-4·Σ_j |K_j α_j| with the engine's own duals); nearest
              must be the plain argmax.  Kernel, plain and library
              (torch.matmul, TF32 off) times of the reference Gram and of
-             the largest cross-Gram, with their bounds.
+             the largest cross-Gram, with both bounds; two kernel runs
+             bitwise equal; the cross-Gram at other split-K widths.
 12. mmd    — sig_mmd of two samples of the §8 lead-lag input (B = 128 each,
              500 increments over 10 letters) on the §8 word set (1,685
              words): two sig_words legs into three sig_gram products,
              against the statistic from the plain versions in float64 to
-             1e-4·max|K_64|.
+             1e-4·max|K_64|; the 128 × 128 × 1,685 Gram timed as in 11.
 13. report — one JSON line of kernels, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
-67 TFLOP/s FP32 on the CUDA cores).  Tolerances of composed results
+67 TFLOP/s FP32 on the CUDA cores, 495 TFLOP/s dense TF32 on the tensor
+cores, on which the Gram is held to three TF32 products).  Tolerances of composed results
 (signature kernel, then Gram) are 1e-4·max|plain|: each fp32 kernel is
 within 1e-5 of its float64 plain version, and the composition adds the
 signature's rounding to the Gram's.
@@ -119,6 +123,7 @@ from repro_torch.sigkernel import (gram_diag, krr_fit,  # noqa: E402
 TOL = dict(rtol=2e-4, atol=2e-5)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12   # dense, on the tensor cores
 SWEEP = [(2, 3), (3, 4), (6, 5), (10, 3), (10, 5)]
 # (B, M, d, N) cells of the paper's Table 1 (depth, length and batch sweeps)
 TABLE1 = ([(32, 100, 6, n) for n in (2, 3, 4, 5)]
@@ -133,8 +138,10 @@ PROJ_CELL = (128, 250, 5, 4, 10)
 TABLE3 = [(32, 100, 6, 2), (32, 100, 6, 3), (32, 100, 6, 4),
           (64, 50, 4, 5), (64, 100, 4, 5), (16, 100, 10, 3)]
 MAX_ROWS = (8, 32, 256)
-GRAM_B = (1, 7, 64, 130, 300)
-GRAM_D = (1, 6, 127, 511, 512, 513, 1685, 9330)
+# Gram sweep: both sides of the 64- and 128-row tiles and of the 512-word
+# blocks that split-K slices are made of
+GRAM_B = (1, 7, 63, 64, 65, 128, 129, 130, 300)
+GRAM_D = (1, 6, 127, 511, 512, 513, 1025, 1685, 9330)
 GRAM_TOL = 1e-5     # |G − G_64| <= GRAM_TOL · max|G_64|
 E2E_TOL = 1e-4      # composed results: signature kernel, then Gram
 # scoring: R reference paths of M steps, d channels, depth, requests
@@ -177,13 +184,19 @@ def bound(B: int, M: int, d: int, depth: int, in_bytes: int,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def gram_bound(Bx: int, By: int, D: int) -> tuple[float, str]:
-    """Least time (ms) of a weighted Gram: 2·B_x·B_y·D FP32 operations over
-    FP32 peak against ((B_x + B_y)·D + D + B_x·B_y)·4 bytes over HBM."""
-    t_ops = 2 * Bx * By * D / FP32_FLOPS_PER_S
+def gram_bound(Bx: int, By: int, D: int) -> dict:
+    """Least times (ms) of a weighted Gram, ((B_x + B_y)·D + D + B_x·B_y)·4
+    bytes over HBM against its operations, on two routes: the tensor cores
+    in 3xTF32 (three TF32 products, 3·2·B_x·B_y·D over 495 TFLOP/s), the
+    route the kernel takes and the bound it is held to (``bound_ms``); and
+    the FP32 CUDA cores (2·B_x·B_y·D over 67 TFLOP/s, ``fp32_bound_ms``)."""
     t_bytes = ((Bx + By) * D + D + Bx * By) * 4 / HBM_BYTES_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    out = {}
+    for key, t_ops in (("", 3 * 2 * Bx * By * D / TF32_FLOPS_PER_S),
+                       ("fp32_", 2 * Bx * By * D / FP32_FLOPS_PER_S)):
+        out[key + "bound_ms"] = max(t_bytes, t_ops) * 1e3
+        out[key + "bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
 
 
 def reset_counts() -> None:
@@ -697,8 +710,9 @@ def phase_gram_kernels(rng) -> float:
 
 
 def time_gram(Sx: torch.Tensor, Sy: torch.Tensor, w: torch.Tensor) -> dict:
-    """Kernel, plain and library times (ms) of one Gram, and its bound.
-    The library call is torch.matmul in full FP32 (TF32 off)."""
+    """Kernel, plain and library times (ms) of one Gram, and its bounds.
+    The library call is torch.matmul in full FP32 (TF32 off).  Two kernel
+    runs must agree bit for bit (split-K sums its slices in order)."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -706,11 +720,23 @@ def time_gram(Sx: torch.Tensor, Sy: torch.Tensor, w: torch.Tensor) -> dict:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     (Bx, D), By = Sx.shape, Sy.shape[0]
-    bms, by = gram_bound(Bx, By, D)
-    return dict(shape=[Bx, By, D],
+    check(torch.equal(sg.sig_gram(Sx, Sy, w), sg.sig_gram(Sx, Sy, w)),
+          f"sig_gram {[Bx, By, D]}: two runs differ")
+    slices = sg.word_slices(Bx, By, D, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    return dict(shape=[Bx, By, D], slices=len(slices),
                 ms=cuda_ms(lambda: sg.sig_gram(Sx, Sy, w), 10),
                 plain_ms=cuda_ms(lambda: sg.sig_gram_plain(Sx, Sy, w), 3),
-                library_ms=lib, bound_ms=bms, bound_by=by)
+                library_ms=lib, **gram_bound(Bx, By, D))
+
+
+def print_gram(where: str, t: dict) -> None:
+    print(f"{where} sig_gram {t['shape']} ({t['slices']} word slices): "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, library "
+          f"(torch.matmul, TF32 off) {t['library_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms on the tensor cores in 3xTF32 "
+          f"({t['bound_by']}; held to), {t['fp32_bound_ms']:.4f} ms on the "
+          f"FP32 cores ({t['fp32_bound_by']})", flush=True)
 
 
 def levy_area(paths: torch.Tensor) -> torch.Tensor:
@@ -829,11 +855,16 @@ def phase_scoring(rng) -> dict:
     rp = pad_batch(RaggedPaths.from_list(part[:B_pad], pad_to=rung), B_pad)
     Sq = ops.signature(rp.increments(), depth, lengths=rp.lengths)
     cross = time_gram(Sq, eng.ref_sigs, eng.weights)
-    for name, t in (("reference Gram", ref), ("largest cross-Gram", cross)):
-        print(f"[score] sig_gram {name} {t['shape']}: {t['ms']:.3f} ms, "
-              f"plain {t['plain_ms']:.3f} ms, library (torch.matmul, TF32 "
-              f"off) {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']})", flush=True)
+    print_gram("[score] reference Gram", ref)
+    print_gram("[score] largest cross-Gram", cross)
+    # the cross-Gram at other split-K widths than the planner's
+    nblk = -(-D // sg.KBLOCK)
+    cross["slice_sweep_ms"] = {
+        str(-(-nblk // per)): cuda_ms(lambda: sg._launch(
+            Sq, eng.ref_sigs, eng.weights, per * sg.KBLOCK), 10)
+        for per in sorted({1, 2, 3, 4, 5, 7, 10, nblk})}
+    print(f"[score] cross-Gram ms by word slices: "
+          f"{cross['slice_sweep_ms']}", flush=True)
     # the engine's other parts: the reference signatures and the solve
     incs = tops.path_increments(refs)
     sig_ms = cuda_ms(lambda: st.sig_trunc(incs, depth), 3)
@@ -881,9 +912,8 @@ def phase_projected_mmd(rng) -> dict:
     print(f"[mmd] sig_mmd on {len(plan.words)} words (B={B} per sample, "
           f"{2 * M} increments over {2 * d} letters): {float(mmd):.6e}, "
           f"plain {want:.6e}, |err| {err:.2e} (max|K| {scale:.3e}); "
-          f"{wall:.1f} ms wall; launches {n}; sig_gram {t['shape']}: "
-          f"{t['ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
-          f"{t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+          f"{wall:.1f} ms wall; launches {n}", flush=True)
+    print_gram("[mmd] projected-MMD Gram", t)
     return dict(mmd=float(mmd), plain=want, abs_err=err, wall_ms=wall,
                 launches=n, gram=t)
 
@@ -942,7 +972,14 @@ def main() -> int:
              plain_ms=score["ref_gram"]["plain_ms"],
              bound_ms=score["ref_gram"]["bound_ms"],
              bound_by=score["ref_gram"]["bound_by"],
-             library_ms=score["ref_gram"]["library_ms"]),
+             library_ms=score["ref_gram"]["library_ms"],
+             fp32_bound_ms=score["ref_gram"]["fp32_bound_ms"],
+             cases=[dict(case=name, **{k: t[k] for k in (
+                 "shape", "slices", "ms", "plain_ms", "library_ms",
+                 "bound_ms", "bound_by", "fp32_bound_ms")})
+                 for name, t in (("reference Gram", score["ref_gram"]),
+                                 ("cross-Gram", score["cross_gram"]),
+                                 ("projected-MMD Gram", mmd["gram"]))]),
     ]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -29,8 +29,11 @@
 // loaded from shared memory GG_TM (or GG_TN) times: 16 FMAs per 8 shared
 // loads.  A tile of 64 x 64 keeps enough blocks in flight for a
 // 2,048 x 2,048 Gram (1,024 blocks on 132 SMs); a 64-row cross-Gram against
-// 2,048 references gets only 32 blocks.  Double buffering, split-K over the
-// words for short-and-wide products, and wgmma/TMA are left for later.
+// 2,048 references would get only 32, so the host cuts the words into
+// slices of whole 512-word blocks (split-K: a third grid axis), each block
+// writes its slice's partial into a workspace, and a second kernel sums
+// the slices in order, deterministically.  Double buffering and tensor
+// cores are left for later.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -45,10 +48,14 @@
 
 namespace {
 
+// Block (x, y, z) owns output tile (y, x) over the words of slice z:
+// [z·slice_words, min(D, (z + 1)·slice_words)).  With one slice it writes
+// G; with S slices it writes its partial into plane z of an (S, B_x, B_y)
+// workspace, and sig_gram_reduce sums the planes.
 __global__ void __launch_bounds__(GG_THREADS)
 sig_gram_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
                 const float* __restrict__ w, float* __restrict__ out, int Bx,
-                int By, int D) {
+                int By, int D, int slice_words) {
   __shared__ __align__(16) float As[GG_BK][GG_BM + GG_PAD];
   __shared__ __align__(16) float Bs[GG_BK][GG_BN + GG_PAD];
 
@@ -57,6 +64,9 @@ sig_gram_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
   const int ty = tid / (GG_BN / GG_TN);   // row group
   const int row0 = blockIdx.y * GG_BM;
   const int col0 = blockIdx.x * GG_BN;
+  const int kbeg = blockIdx.z * slice_words;
+  const int kend = min(D, kbeg + slice_words);
+  out += (size_t)blockIdx.z * Bx * By;
 
   float acc[GG_TM][GG_TN], part[GG_TM][GG_TN];
 #pragma unroll
@@ -64,14 +74,14 @@ sig_gram_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
 #pragma unroll
     for (int j = 0; j < GG_TN; ++j) acc[i][j] = part[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < D; k0 += GG_BK) {
+  for (int k0 = kbeg; k0 < kend; k0 += GG_BK) {
     // Stage the slabs: consecutive threads read consecutive words of a row.
 #pragma unroll
     for (int e = tid; e < GG_BM * GG_BK; e += GG_THREADS) {
       const int r = e / GG_BK, c = e % GG_BK;
       const int gr = row0 + r, gk = k0 + c;
       float v = 0.f;
-      if (gr < Bx && gk < D)
+      if (gr < Bx && gk < kend)
         v = __ldg(sx + (size_t)gr * D + gk) * __ldg(w + gk);
       As[c][r] = v;
     }
@@ -79,7 +89,7 @@ sig_gram_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
     for (int e = tid; e < GG_BN * GG_BK; e += GG_THREADS) {
       const int r = e / GG_BK, c = e % GG_BK;
       const int gr = col0 + r, gk = k0 + c;
-      Bs[c][r] = (gr < By && gk < D) ? __ldg(sy + (size_t)gr * D + gk) : 0.f;
+      Bs[c][r] = (gr < By && gk < kend) ? __ldg(sy + (size_t)gr * D + gk) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -118,19 +128,44 @@ sig_gram_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
   }
 }
 
+// out[i] = Σ_z ws[z·n + i], summed in slice order: deterministic.
+__global__ void sig_gram_reduce(const float* __restrict__ ws,
+                                float* __restrict__ out, size_t n, int S) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = ws[i];
+    for (int z = 1; z < S; ++z) s += ws[(size_t)z * n + i];
+    out[i] = s;
+  }
+}
+
 }  // namespace
 
 // sx: (Bx, D), sy: (By, D), w: (D,), all contiguous fp32; out: (Bx, By)
-// fp32.  sx and sy may be the same buffer.  Returns the cudaError_t of the
-// launch (0 on success).
+// fp32.  sx and sy may be the same buffer.  The words are cut into
+// S = ceil(D / slice_words) slices (slice_words a multiple of GG_KBLOCK);
+// with S > 1, ws is an (S, Bx, By) fp32 workspace and a second kernel sums
+// its planes into out.  Returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int sig_gram_launch(const void* sx, const void* sy, const void* w,
-                               void* out, int Bx, int By, int D,
-                               void* stream) {
-  if (Bx < 1 || By < 1 || D < 1 || (Bx + GG_BM - 1) / GG_BM > 65535)
+                               void* out, void* ws, int Bx, int By, int D,
+                               int slice_words, void* stream) {
+  if (Bx < 1 || By < 1 || D < 1 || (Bx + GG_BM - 1) / GG_BM > 65535
+      || slice_words < 1 || slice_words % GG_KBLOCK != 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((By + GG_BN - 1) / GG_BN, (Bx + GG_BM - 1) / GG_BM);
-  sig_gram_kernel<<<grid, GG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int S = (D + slice_words - 1) / slice_words;
+  if (S > 65535 || (S > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid((By + GG_BN - 1) / GG_BN, (Bx + GG_BM - 1) / GG_BM, S);
+  sig_gram_kernel<<<grid, GG_THREADS, 0, st>>>(
       static_cast<const float*>(sx), static_cast<const float*>(sy),
-      static_cast<const float*>(w), static_cast<float*>(out), Bx, By, D);
+      static_cast<const float*>(w), static_cast<float*>(S > 1 ? ws : out),
+      Bx, By, D, slice_words);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return (int)err;
+  const size_t n = (size_t)Bx * By;
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  sig_gram_reduce<<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
+                                          static_cast<float*>(out), n, S);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,8 @@ from . import _build
 
 MAX_ROW_TILES = 65_535   # the grid's y extent, in 64-row tiles of S_x
 TILE = 64                # GG_BM = GG_BN of the kernel
+KBLOCK = 512             # GG_KBLOCK: words summed into a partial first
+SMS = 132                # streaming multiprocessors of an H100 SXM
 
 # launch counter, bumped where the kernel is launched
 launches = 0
@@ -41,19 +43,48 @@ def _check_shapes(Sx: torch.Tensor, Sy: torch.Tensor,
                          f"{tuple(Sy.shape)}, weights {tuple(weights.shape)}")
 
 
+def word_slices(Bx: int, By: int, D: int, sms: int = SMS,
+                tile: int = TILE) -> list[tuple[int, int]]:
+    """Cut the word axis [0, D) into the split-K slices of one Gram.
+
+    Every slice but the last covers a whole number of ``KBLOCK``-word
+    blocks, so each slice's partial is a sum of whole two-level blocks.
+    One slice when the output tiles alone fill the card (``sms`` blocks);
+    otherwise the fewest slices that give at least ``sms`` blocks, or one
+    block a slice when even that falls short.
+    """
+    tiles = -(-Bx // tile) * -(-By // tile)
+    nblk = max(1, -(-D // KBLOCK))
+    per = nblk
+    if tiles < sms:
+        per = 1
+        for b in range(nblk, 0, -1):   # the widest slices that fill the card
+            if tiles * -(-nblk // b) >= sms:
+                per = b
+                break
+    step = per * KBLOCK
+    return [(k, min(D, k + step)) for k in range(0, D, step)]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("sig_gram")
     fn = lib.sig_gram_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 4 + [i] * 3 + [p]
+        fn.argtypes = [p] * 5 + [i] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(Sx: torch.Tensor, Sy: torch.Tensor,
-            weights: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on CUDA operands with B_x, B_y, D >= 1."""
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(Sx: torch.Tensor, Sy: torch.Tensor, weights: torch.Tensor,
+            slice_words: int | None = None) -> torch.Tensor:
+    """Launch the kernel on CUDA operands with B_x, B_y, D >= 1.
+    ``slice_words`` (a multiple of ``KBLOCK``) overrides the planner's
+    split, for measurements."""
     global launches
     Bx, D = Sx.shape
     By = Sy.shape[0]
@@ -64,11 +95,18 @@ def _launch(Sx: torch.Tensor, Sy: torch.Tensor,
     y = Sy.detach().to(torch.float32).contiguous()
     w = weights.detach().to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty((Bx, By), dtype=torch.float32, device=x.device)
+    if slice_words is None:
+        lo, hi = word_slices(Bx, By, D, _sms(x.device))[0]
+        slice_words = -(-(hi - lo) // KBLOCK) * KBLOCK
+    n_slices = -(-D // slice_words)
+    ws = (torch.empty((n_slices, Bx, By), dtype=torch.float32,
+                      device=x.device) if n_slices > 1 else None)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.sig_gram_launch(
-            x.data_ptr(), y.data_ptr(), w.data_ptr(), out.data_ptr(), Bx, By,
-            D, torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), y.data_ptr(), w.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), Bx, By, D, slice_words,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"sig_gram kernel launch failed with cudaError "
                            f"{err} (B_x={Bx}, B_y={By}, D={D})")
