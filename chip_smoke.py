@@ -50,7 +50,8 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              on the card: B_x, B_y in {1, 7, 63, 64, 65, 128, 129, 130, 300},
              D in {1, 6, 127, 511, 512, 513, 1025, 1685, 9330} (both sides
              of the row tiles and of the 512-word blocks that split-K
-             slices are made of); weights uniform in [0.2, 2], half
+             slices are made of); every tile, split and copy width forced
+             at six ragged shapes, and an operand 4 bytes off 16; weights uniform in [0.2, 2], half
              of them zeroed, all zero, and the anisotropic gamma weights at
              D = 9330; fp32 and bf16_fp32 operands (the plain version on
              the same rounded operands).  |G − G_64| <= 1e-5·max|G_64|, the
@@ -142,6 +143,9 @@ MAX_ROWS = (8, 32, 256)
 # blocks that split-K slices are made of
 GRAM_B = (1, 7, 63, 64, 65, 128, 129, 130, 300)
 GRAM_D = (1, 6, 127, 511, 512, 513, 1025, 1685, 9330)
+# (B_x, B_y, D) at which every tile, split and copy width is forced
+GRAM_VARIANTS = [(129, 130, 1025), (300, 257, 1685), (65, 1, 513),
+                 (1, 129, 9330), (128, 128, 1024), (64, 300, 2048)]
 GRAM_TOL = 1e-5     # |G − G_64| <= GRAM_TOL · max|G_64|
 E2E_TOL = 1e-4      # composed results: signature kernel, then Gram
 # scoring: R reference paths of M steps, d channels, depth, requests
@@ -709,6 +713,41 @@ def phase_gram_kernels(rng) -> float:
     return max_err
 
 
+def phase_gram_variants(rng) -> int:
+    """Every tile variant (64 and 128 rows), split width (one, two or all
+    512-word blocks a slice) and copy width (1, 2 or 4 floats, as far as D
+    and the pointers allow), forced through the launcher at ragged shapes
+    the planner would route otherwise; and an operand whose base lies
+    4 bytes off 16 (a contiguous view at storage offset 1)."""
+    cases = 0
+    for Bx, By, D in GRAM_VARIANTS:
+        x = torch.tensor(rng.normal(size=(Bx, D)), device="cuda")
+        y = torch.tensor(rng.normal(size=(By, D)), device="cuda")
+        w = torch.tensor(rng.uniform(0.2, 2.0, D), device="cuda")
+        want = sg.sig_gram_plain(x, y, w)
+        xf, yf, wf = x.float(), y.float(), w.float()
+        top = sg.copy_width(D, xf.data_ptr(), yf.data_ptr())
+        for rows in (64, 128):
+            for width in sorted({512, 1024, -(-D // 512) * 512}):
+                for vec in (v for v in (1, 2, 4) if v <= top):
+                    got = sg._launch(xf, yf, wf, rows, width, vec)
+                    err = float((got.double() - want).abs().max())
+                    check(gram_within(got, want, GRAM_TOL),
+                          f"sig_gram {[Bx, By, D]} rows {rows} slice "
+                          f"{width} vec {vec}: max |err| {err:.3e}")
+                    cases += 1
+        buf = torch.empty(Bx * D + 1, dtype=torch.float32, device="cuda")
+        xo = buf[1:].view(Bx, D)
+        xo.copy_(xf)
+        check(sg.copy_width(D, xo.data_ptr()) == 1, "offset view's width")
+        check(gram_within(sg.sig_gram(xo, yf, wf), want, GRAM_TOL),
+              f"sig_gram {[Bx, By, D]} with S_x at storage offset 1")
+        cases += 1
+    print(f"[gram] {cases} forced tile, split and copy-width cases within "
+          f"tolerance", flush=True)
+    return cases
+
+
 def time_gram(Sx: torch.Tensor, Sy: torch.Tensor, w: torch.Tensor) -> dict:
     """Kernel, plain and library times (ms) of one Gram, and its bounds.
     The library call is torch.matmul in full FP32 (TF32 off).  Two kernel
@@ -861,7 +900,7 @@ def phase_scoring(rng) -> dict:
     nblk = -(-D // sg.KBLOCK)
     cross["slice_sweep_ms"] = {
         str(-(-nblk // per)): cuda_ms(lambda: sg._launch(
-            Sq, eng.ref_sigs, eng.weights, per * sg.KBLOCK), 10)
+            Sq, eng.ref_sigs, eng.weights, slice_words=per * sg.KBLOCK), 10)
         for per in sorted({1, 2, 3, 4, 5, 7, 10, nblk})}
     print(f"[score] cross-Gram ms by word slices: "
           f"{cross['slice_sweep_ms']}", flush=True)
@@ -934,6 +973,7 @@ def main() -> int:
     proj = phase_projection(rng)
     logsig = phase_logsig(rng)
     gram_err = phase_gram_kernels(rng)
+    phase_gram_variants(rng)
     score = phase_scoring(rng)
     mmd = phase_projected_mmd(rng)
     src = "src/repro_torch/kernels/csrc/sig_trunc.cu"

@@ -5,127 +5,251 @@
 // (`_kernel`): G[i, j] = Σ_k S_x[i, k] · w[k] · S_y[j, k], with S_x (B_x, D),
 // S_y (B_y, D), w (D,) and G (B_x, B_y), all fp32.
 //
-// What it computes, and how.  One thread block owns one GG_BM x GG_BN tile
-// of G.  The word axis is an inner loop over slabs of GG_BK words: each slab
-// of S_x and S_y is staged in shared memory, transposed to (word, row) so
-// the inner product reads rows as float4, and w is multiplied into the S_x
-// slab as it is loaded (the TPU kernel's fused ω on the left operand).  Each
-// of the 256 threads holds a GG_TM x GG_TN block of accumulators in
-// registers and walks the slab with FP32 FMAs into a partial sum, which is
-// added to the accumulators once every GG_KBLOCK words (the reference's
-// 512-word blocks): a two-level sum, whose rounding error grows with the
-// block and not with D.  Rows, columns and words past the edges load as 0
-// inside the kernel, so the host pads nothing (the TPU kernel zero-padded
-// the rows, the words and the weights instead).
+// What bounds it on this card.  2·B_x·B_y·D operations against
+// ((B_x + B_y)·D + D + B_x·B_y)·4 bytes.  At the reference Gram of the
+// scoring path (2,048 × 2,048 × 9,330) that is hundreds of operations a
+// byte, so arithmetic bounds it; at a 64-row cross-Gram against the 2,048
+// references (76 MB of S_y read once) the bytes do.  The FP32 CUDA cores
+// (67 TFLOP/s) are where cuBLAS's SGEMM already runs at three quarters of
+// peak; one TF32 pass on the tensor cores (495 TFLOP/s) keeps 10 mantissa
+// bits and misses the reference's 1e-5·max|G| acceptance.
 //
-// What bounds it on this card.  2·B_x·B_y·D FP32 operations against
-// ((B_x + B_y)·D + D + B_x·B_y)·4 bytes: at the served shapes (B_y = 2,048
-// references, D = 9,330 words) that is hundreds of operations a byte, so
-// the bound is arithmetic.  TF32 tensor cores are not used, so that the
-// result keeps the reference's fp32 accumulation: the bound is the
-// 67 TFLOP/s of the CUDA cores.
-//
-// What the design does about it.  The register block reuses every operand
-// loaded from shared memory GG_TM (or GG_TN) times: 16 FMAs per 8 shared
-// loads.  A tile of 64 x 64 keeps enough blocks in flight for a
-// 2,048 x 2,048 Gram (1,024 blocks on 132 SMs); a 64-row cross-Gram against
-// 2,048 references would get only 32, so the host cuts the words into
-// slices of whole 512-word blocks (split-K: a third grid axis), each block
-// writes its slice's partial into a workspace, and a second kernel sums
-// the slices in order, deterministically.  Double buffering and tensor
-// cores are left for later.
+// What the design does about it, in three stages.
+// 1. Split-K over the words.  The grid's third axis cuts the words into
+//    slices of whole 512-word blocks (GG_KBLOCK), chosen by the host
+//    (kernels/sig_gram.py::word_slices) so that short-and-wide Grams still
+//    put a block on every SM.  With one slice a block writes G; with S it
+//    writes its partial into plane z of an (S, B_x, B_y) workspace, and
+//    sig_gram_reduce sums the planes in slice order: deterministic, no
+//    atomics.  Both kernels go out from the one C entry point.
+// 2. The tile's product on the tensor cores in 3xTF32.  Each warp owns a
+//    (BM/2) x 32 block of G and issues mma.sync m16n8k8 TF32 products.
+//    Every operand element is read from shared memory (S_x's times the
+//    slab's ω row: the TPU kernel's fused ω) and split in registers into
+//    hi = rna(v) and lo = rna(v − hi), so that hi + lo holds v to 2^-24.
+//    The products go small first, lo·hi, hi·lo, then hi·hi (lo·lo, under
+//    2^-24 of the product, is dropped), into an fp32 partial that is added
+//    to the running sum once every stage of 32 words: a two-level sum.  The
+//    tensor cores truncate as they accumulate, where the FP32 cores round
+//    to nearest; a partial over the reference's 512-word k_tile let that
+//    bias grow to 2e-5 of a cancelling 1 x 1 Gram, while over 32 words,
+//    with rounded adds above it, the error stays that of an FP32 FMA loop
+//    summed in 512-word blocks.  bf16 operands have lo = 0 on the S_y side.
+//    mma.sync and not wgmma: wgmma reads B from shared memory only, so the
+//    split would need a second shared copy of S_y or a pre-split pass over
+//    HBM.
+// 3. Asynchronous copies into a ring of GG_STAGES shared-memory stages of
+//    (BM + 128) rows x 32 words and 32 weights; the next stages' copies fly
+//    while the current one feeds the tensor cores.  cp.async zero-fills
+//    past every edge, so the host pads nothing.  Rows of D = 9,330 words
+//    are 8-byte aligned only and D = 1,685 gives 4-byte rows, so the copy
+//    width (16, 8 or 4 bytes) is a template argument that the host takes
+//    from the pitch and the base pointers, instead of copying the operands
+//    into a padded buffer.  A 64-row tile variant serves B_x <= 64 and
+//    Grams too small to fill the card with 128-row tiles.
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
-#define GG_BM 64      // rows of S_x per block
-#define GG_BN 64      // rows of S_y per block
-#define GG_BK 16      // words per shared-memory slab
-#define GG_TM 4       // accumulator rows per thread
-#define GG_TN 4       // accumulator columns per thread
-#define GG_THREADS ((GG_BM / GG_TM) * (GG_BN / GG_TN))   // 256
-#define GG_PAD 4      // keeps each slab row 16-byte aligned
-#define GG_KBLOCK 512 // words summed into a partial before it is added
+#define GG_BN 128       // rows of S_y per block
+#define GG_BK 32        // words per shared-memory stage
+#define GG_LDS 36       // shared row pitch in floats: conflict-free fragments
+#define GG_STAGES 4     // depth of the cp.async ring
+#define GG_THREADS 256  // 8 warps in a 2 x 4 grid over the block's tile
+#define GG_KBLOCK 512   // words of a block: slices are whole blocks
 
 namespace {
 
-// Block (x, y, z) owns output tile (y, x) over the words of slice z:
-// [z·slice_words, min(D, (z + 1)·slice_words)).  With one slice it writes
-// G; with S slices it writes its partial into plane z of an (S, B_x, B_y)
-// workspace, and sig_gram_reduce sums the planes.
-__global__ void __launch_bounds__(GG_THREADS)
+// Shared floats of one ring stage: the S_x rows, the S_y rows, the weights.
+template <int BM>
+__host__ __device__ constexpr int stage_floats() {
+  return (BM + GG_BN) * GG_LDS + GG_BK;
+}
+
+template <int BM>
+__host__ __device__ constexpr int smem_bytes() {
+  return GG_STAGES * stage_floats<BM>() * 4;
+}
+
+// One asynchronous copy of VEC floats; src_bytes = 0 writes zeros.
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? VEC * 4 : 0;
+  if constexpr (VEC == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(VEC * 4), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ROWS rows of GG_BK words from a (rows, D) row-major operand into a
+// (ROWS, GG_LDS) shared slab; rows >= nrows and words >= D load as 0.
+template <int ROWS, int VEC>
+__device__ __forceinline__ void load_rows(float* s, const float* g, int row0,
+                                          int nrows, int k0, int D,
+                                          int tid) {
+  constexpr int PER_ROW = GG_BK / VEC;
+  static_assert(ROWS * PER_ROW % GG_THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * PER_ROW / GG_THREADS; ++it) {
+    const int c = tid + it * GG_THREADS;
+    const int r = c / PER_ROW, kc = (c % PER_ROW) * VEC;
+    const int gr = row0 + r, gk = k0 + kc;
+    const bool ok = gr < nrows && gk < D;   // VEC divides D: all or none
+    cp_async<VEC>(s + r * GG_LDS + kc, ok ? g + (size_t)gr * D + gk : g, ok);
+  }
+}
+
+// v = hi + lo, both TF32 (round to nearest, ties away from zero).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  const float r = v - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+// c = a · b (FRESH) or c += a · b on a 16 x 8 x 8 TF32 tile, fp32
+// accumulate.
+template <bool FRESH>
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  const float z = 0.f;
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(FRESH ? z : c[0]), "f"(FRESH ? z : c[1]), "f"(FRESH ? z : c[2]),
+        "f"(FRESH ? z : c[3]));
+}
+
+// Block (x, y, z) owns the BM x GG_BN tile (y, x) of G over the words of
+// slice z: [z·slice_words, min(D, (z + 1)·slice_words)).  It writes out,
+// which is G with one slice and plane z of the workspace with several.
+template <int BM, int VEC>
+__global__ void __launch_bounds__(GG_THREADS, BM == 64 ? 2 : 1)
 sig_gram_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
                 const float* __restrict__ w, float* __restrict__ out, int Bx,
                 int By, int D, int slice_words) {
-  __shared__ __align__(16) float As[GG_BK][GG_BM + GG_PAD];
-  __shared__ __align__(16) float Bs[GG_BK][GG_BN + GG_PAD];
+  constexpr int WM = BM / 2;        // warp tile rows (2 warps down)
+  constexpr int WN = GG_BN / 4;     // warp tile columns (4 warps across)
+  constexpr int MF = WM / 16, NF = WN / 8;   // m16 and n8 fragments
+  extern __shared__ __align__(16) float smem[];
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (GG_BN / GG_TN);   // column group
-  const int ty = tid / (GG_BN / GG_TN);   // row group
-  const int row0 = blockIdx.y * GG_BM;
-  const int col0 = blockIdx.x * GG_BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;   // mma groupID, thread in group
+  const int wm0 = (warp >> 2) * WM, wn0 = (warp & 3) * WN;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * GG_BN;
   const int kbeg = blockIdx.z * slice_words;
   const int kend = min(D, kbeg + slice_words);
+  const int nk = (kend - kbeg + GG_BK - 1) / GG_BK;
   out += (size_t)blockIdx.z * Bx * By;
 
-  float acc[GG_TM][GG_TN], part[GG_TM][GG_TN];
-#pragma unroll
-  for (int i = 0; i < GG_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < GG_TN; ++j) acc[i][j] = part[i][j] = 0.f;
+  auto load_stage = [&](int stage, int k0) {
+    float* sA = smem + stage * stage_floats<BM>();
+    float* sB = sA + BM * GG_LDS;
+    float* sW = sB + GG_BN * GG_LDS;
+    load_rows<BM, VEC>(sA, sx, row0, Bx, k0, D, tid);
+    load_rows<GG_BN, VEC>(sB, sy, col0, By, k0, D, tid);
+    if (tid < GG_BK) {
+      const bool ok = k0 + tid < D;
+      cp_async<1>(sW + tid, ok ? w + k0 + tid : w, ok);
+    }
+  };
 
-  for (int k0 = kbeg; k0 < kend; k0 += GG_BK) {
-    // Stage the slabs: consecutive threads read consecutive words of a row.
+  float acc[MF][NF][4], part[MF][NF][4];
 #pragma unroll
-    for (int e = tid; e < GG_BM * GG_BK; e += GG_THREADS) {
-      const int r = e / GG_BK, c = e % GG_BK;
-      const int gr = row0 + r, gk = k0 + c;
-      float v = 0.f;
-      if (gr < Bx && gk < kend)
-        v = __ldg(sx + (size_t)gr * D + gk) * __ldg(w + gk);
-      As[c][r] = v;
-    }
+  for (int i = 0; i < MF; ++i)
 #pragma unroll
-    for (int e = tid; e < GG_BN * GG_BK; e += GG_THREADS) {
-      const int r = e / GG_BK, c = e % GG_BK;
-      const int gr = col0 + r, gk = k0 + c;
-      Bs[c][r] = (gr < By && gk < kend) ? __ldg(sy + (size_t)gr * D + gk) : 0.f;
-    }
-    __syncthreads();
+    for (int j = 0; j < NF; ++j)
 #pragma unroll
-    for (int k = 0; k < GG_BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * GG_TM]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * GG_TN]);
-      const float av[GG_TM] = {a.x, a.y, a.z, a.w};
-      const float bv[GG_TN] = {b.x, b.y, b.z, b.w};
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
 #pragma unroll
-      for (int i = 0; i < GG_TM; ++i)
+  for (int s = 0; s < GG_STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, kbeg + s * GG_BK);
+    cp_async_commit();   // empty groups keep the count uniform
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<GG_STAGES - 2>();   // stage kt has landed
+    __syncthreads();                  // ... for every thread, and stage
+                                      // kt - 1 is free to refill
+    const int nxt = kt + GG_STAGES - 1;
+    if (nxt < nk) load_stage(nxt % GG_STAGES, kbeg + nxt * GG_BK);
+    cp_async_commit();
+
+    const float* sA = smem + (kt % GG_STAGES) * stage_floats<BM>();
+    const float* sB = sA + BM * GG_LDS;
+    const float* sW = sB + GG_BN * GG_LDS;
 #pragma unroll
-        for (int j = 0; j < GG_TN; ++j)
-          part[i][j] = fmaf(av[i], bv[j], part[i][j]);
-    }
-    __syncthreads();
-    if ((k0 + GG_BK) % GG_KBLOCK == 0) {
+    for (int kk = 0; kk < GG_BK; kk += 8) {
+      uint32_t ah[MF][4], al[MF][4], bh[NF][2], bl[NF][2];
+      const float w0 = sW[kk + t], w1 = sW[kk + t + 4];
 #pragma unroll
-      for (int i = 0; i < GG_TM; ++i)
+      for (int i = 0; i < MF; ++i) {
+        const float* p = sA + (wm0 + i * 16 + g) * GG_LDS + kk + t;
+        split_tf32(p[0] * w0, ah[i][0], al[i][0]);
+        split_tf32(p[8 * GG_LDS] * w0, ah[i][1], al[i][1]);
+        split_tf32(p[4] * w1, ah[i][2], al[i][2]);
+        split_tf32(p[8 * GG_LDS + 4] * w1, ah[i][3], al[i][3]);
+      }
 #pragma unroll
-        for (int j = 0; j < GG_TN; ++j) {
-          acc[i][j] += part[i][j];
-          part[i][j] = 0.f;
+      for (int j = 0; j < NF; ++j) {
+        const float* p = sB + (wn0 + j * 8 + g) * GG_LDS + kk + t;
+        split_tf32(p[0], bh[j][0], bl[j][0]);
+        split_tf32(p[4], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          if (kk == 0) mma_tf32<true>(part[i][j], al[i], bh[j]);
+          else mma_tf32<false>(part[i][j], al[i], bh[j]);
         }
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j) mma_tf32<false>(part[i][j], ah[i], bl[j]);
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j) mma_tf32<false>(part[i][j], ah[i], bh[j]);
     }
+    // The tensor cores truncate as they accumulate, so their partial spans
+    // one stage's 32 words; the running sum takes it with a rounded add.
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
   }
+  cp_async_wait<0>();
 
+  // Accumulator e of fragment (i, j) is G[r + 8·(e / 2), c + e % 2].
 #pragma unroll
-  for (int i = 0; i < GG_TM; ++i) {
-    const int gr = row0 + ty * GG_TM + i;
-    if (gr >= Bx) continue;
+  for (int i = 0; i < MF; ++i)
 #pragma unroll
-    for (int j = 0; j < GG_TN; ++j) {
-      const int gc = col0 + tx * GG_TN + j;
-      if (gc < By) out[(size_t)gr * By + gc] = acc[i][j] + part[i][j];
-    }
-  }
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + wm0 + i * 16 + g + 8 * (e >> 1);
+        const int c = col0 + wn0 + j * 8 + 2 * t + (e & 1);
+        if (r < Bx && c < By) out[(size_t)r * By + c] = acc[i][j][e];
+      }
 }
 
 // out[i] = Σ_z ws[z·n + i], summed in slice order: deterministic.
@@ -139,29 +263,66 @@ __global__ void sig_gram_reduce(const float* __restrict__ ws,
   }
 }
 
+template <int BM, int VEC>
+cudaError_t launch_tiles(const float* sx, const float* sy, const float* w,
+                         float* out, int Bx, int By, int D, int slice_words,
+                         int S, cudaStream_t st) {
+  auto kernel = sig_gram_kernel<BM, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<BM>());
+  if (err != cudaSuccess) return err;
+  dim3 grid((By + GG_BN - 1) / GG_BN, (Bx + BM - 1) / BM, S);
+  kernel<<<grid, GG_THREADS, smem_bytes<BM>(), st>>>(sx, sy, w, out, Bx, By,
+                                                      D, slice_words);
+  return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch_width(int vec, const float* sx, const float* sy,
+                         const float* w, float* out, int Bx, int By, int D,
+                         int slice_words, int S, cudaStream_t st) {
+  switch (vec) {
+    case 4: return launch_tiles<BM, 4>(sx, sy, w, out, Bx, By, D,
+                                       slice_words, S, st);
+    case 2: return launch_tiles<BM, 2>(sx, sy, w, out, Bx, By, D,
+                                       slice_words, S, st);
+    case 1: return launch_tiles<BM, 1>(sx, sy, w, out, Bx, By, D,
+                                       slice_words, S, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // sx: (Bx, D), sy: (By, D), w: (D,), all contiguous fp32; out: (Bx, By)
-// fp32.  sx and sy may be the same buffer.  The words are cut into
-// S = ceil(D / slice_words) slices (slice_words a multiple of GG_KBLOCK);
-// with S > 1, ws is an (S, Bx, By) fp32 workspace and a second kernel sums
-// its planes into out.  Returns the cudaError_t of the launches (0 on
-// success).
+// fp32.  sx and sy may be the same buffer.  tile_rows (64 or 128) is BM;
+// vec (1, 2 or 4 floats) is the copy width, which must divide D and align
+// sx and sy.  The words are cut into S = ceil(D / slice_words) slices
+// (slice_words a multiple of GG_KBLOCK); with S > 1, ws is an (S, Bx, By)
+// fp32 workspace and a second kernel sums its planes into out.  Returns
+// the cudaError_t of the launches (0 on success).
 extern "C" int sig_gram_launch(const void* sx, const void* sy, const void* w,
                                void* out, void* ws, int Bx, int By, int D,
-                               int slice_words, void* stream) {
-  if (Bx < 1 || By < 1 || D < 1 || (Bx + GG_BM - 1) / GG_BM > 65535
-      || slice_words < 1 || slice_words % GG_KBLOCK != 0)
+                               int tile_rows, int slice_words, int vec,
+                               void* stream) {
+  if (Bx < 1 || By < 1 || D < 1 || (tile_rows != 64 && tile_rows != 128)
+      || (Bx + tile_rows - 1) / tile_rows > 65535 || slice_words < 1
+      || slice_words % GG_KBLOCK != 0 || (vec != 1 && vec != 2 && vec != 4)
+      || D % vec != 0
+      || ((uintptr_t)sx | (uintptr_t)sy) % (4 * vec) != 0)
     return (int)cudaErrorInvalidValue;
   const int S = (D + slice_words - 1) / slice_words;
   if (S > 65535 || (S > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((By + GG_BN - 1) / GG_BN, (Bx + GG_BM - 1) / GG_BM, S);
-  sig_gram_kernel<<<grid, GG_THREADS, 0, st>>>(
-      static_cast<const float*>(sx), static_cast<const float*>(sy),
-      static_cast<const float*>(w), static_cast<float*>(S > 1 ? ws : out),
-      Bx, By, D, slice_words);
-  cudaError_t err = cudaGetLastError();
+  const float *x = static_cast<const float*>(sx),
+              *y = static_cast<const float*>(sy),
+              *wt = static_cast<const float*>(w);
+  float* dst = static_cast<float*>(S > 1 ? ws : out);
+  cudaError_t err =
+      tile_rows == 64
+          ? launch_width<64>(vec, x, y, wt, dst, Bx, By, D, slice_words, S, st)
+          : launch_width<128>(vec, x, y, wt, dst, Bx, By, D, slice_words, S,
+                              st);
   if (err != cudaSuccess || S == 1) return (int)err;
   const size_t n = (size_t)Bx * By;
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);

@@ -9,10 +9,15 @@ so the (B_x, B_y) Gram is one product blocked over the word axis with ω
 fused into the left operand; the (B_x, B_y, D) elementwise intermediate of
 the textbook formula never exists.
 
-The CUDA kernel (``csrc/sig_gram.cu``: one thread block per 64 × 64 output
-tile, slabs of words staged in shared memory, ω multiplied in as S_x is
-loaded, FP32 FMAs summed in 512-word blocks, edges masked in the kernel)
-writes the fp32 Gram.  On a CPU tensor :func:`sig_gram` runs
+The CUDA kernel (``csrc/sig_gram.cu``) writes the fp32 Gram: one thread
+block per output tile of 128 (or 64) × 128 and word slice, slabs of words
+brought into a ring of shared-memory stages by asynchronous copies, ω
+multiplied into S_x's elements as they are read, each element split into
+two TF32 halves for three tensor-core products (3xTF32) summed in
+512-word blocks, edges masked in the kernel, and the slices' partials
+summed in order by a second kernel.  This module chooses the tile
+(:func:`tile_rows`), the word slices (:func:`word_slices`) and the copy
+width (:func:`copy_width`) from the shape and the pointers.  On a CPU tensor :func:`sig_gram` runs
 :func:`sig_gram_plain`, the word-blocked loop of the reference's
 ``ops._gram_blocked_jax``; on a CUDA tensor it launches the kernel or
 raises.
@@ -25,10 +30,12 @@ import torch
 
 from . import _build
 
-MAX_ROW_TILES = 65_535   # the grid's y extent, in 64-row tiles of S_x
-TILE = 64                # GG_BM = GG_BN of the kernel
+MAX_ROW_TILES = 65_535   # the grid's y extent, in row tiles of S_x
+TILE_N = 128             # GG_BN: rows of S_y per block
 KBLOCK = 512             # GG_KBLOCK: words summed into a partial first
 SMS = 132                # streaming multiprocessors of an H100 SXM
+# blocks of each row tile an SM holds at once (registers, shared memory)
+BLOCKS_PER_SM = {64: 2, 128: 1}
 
 # launch counter, bumped where the kernel is launched
 launches = 0
@@ -43,27 +50,50 @@ def _check_shapes(Sx: torch.Tensor, Sy: torch.Tensor,
                          f"{tuple(Sy.shape)}, weights {tuple(weights.shape)}")
 
 
-def word_slices(Bx: int, By: int, D: int, sms: int = SMS,
-                tile: int = TILE) -> list[tuple[int, int]]:
+def _tiles(Bx: int, By: int, rows: int) -> int:
+    return -(-Bx // rows) * -(-By // TILE_N)
+
+
+def tile_rows(Bx: int, By: int, sms: int = SMS) -> int:
+    """Rows of S_x per block: 128, or 64 when B_x fits one 64-row tile or
+    128-row tiles are too few to fill the card (a 64-row tile wastes no
+    half-empty rows at a 64-row cross-Gram, and gives twice the blocks)."""
+    return 64 if Bx <= 64 or _tiles(Bx, By, 128) < sms else 128
+
+
+def word_slices(Bx: int, By: int, D: int,
+                sms: int = SMS) -> list[tuple[int, int]]:
     """Cut the word axis [0, D) into the split-K slices of one Gram.
 
     Every slice but the last covers a whole number of ``KBLOCK``-word
     blocks, so each slice's partial is a sum of whole two-level blocks.
-    One slice when the output tiles alone fill the card (``sms`` blocks);
-    otherwise the fewest slices that give at least ``sms`` blocks, or one
-    block a slice when even that falls short.
+    One slice when the output tiles alone fill the card; otherwise the
+    fewest slices that give at least one full wave of blocks (``sms``
+    times the blocks an SM holds), or one block a slice when even that
+    falls short.
     """
-    tiles = -(-Bx // tile) * -(-By // tile)
+    rows = tile_rows(Bx, By, sms)
+    tiles = _tiles(Bx, By, rows)
     nblk = max(1, -(-D // KBLOCK))
     per = nblk
     if tiles < sms:
-        per = 1
-        for b in range(nblk, 0, -1):   # the widest slices that fill the card
-            if tiles * -(-nblk // b) >= sms:
+        per, wave = 1, sms * BLOCKS_PER_SM[rows]
+        for b in range(nblk, 0, -1):   # the widest slices that fill a wave
+            if tiles * -(-nblk // b) >= wave:
                 per = b
                 break
     step = per * KBLOCK
     return [(k, min(D, k + step)) for k in range(0, D, step)]
+
+
+def copy_width(D: int, *ptrs: int) -> int:
+    """Floats per asynchronous copy: 4 (16 bytes) when D and every pointer
+    allow it, else 2, else 1.  Rows of D = 9,330 words are 8-byte aligned
+    only, and a view at an odd storage offset 4-byte aligned only."""
+    for vec in (4, 2):
+        if D % vec == 0 and all(p % (4 * vec) == 0 for p in ptrs):
+            return vec
+    return 1
 
 
 def _lib() -> ctypes.CDLL:
@@ -71,7 +101,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_gram_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 5 + [i] * 4 + [p]
+        fn.argtypes = [p] * 5 + [i] * 6 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -81,23 +111,28 @@ def _sms(device: torch.device) -> int:
 
 
 def _launch(Sx: torch.Tensor, Sy: torch.Tensor, weights: torch.Tensor,
-            slice_words: int | None = None) -> torch.Tensor:
-    """Launch the kernel on CUDA operands with B_x, B_y, D >= 1.
-    ``slice_words`` (a multiple of ``KBLOCK``) overrides the planner's
-    split, for measurements."""
+            rows: int | None = None, slice_words: int | None = None,
+            vec: int | None = None) -> torch.Tensor:
+    """Launch the kernel on CUDA operands with B_x, B_y, D >= 1.  ``rows``
+    (64 or 128), ``slice_words`` (a multiple of ``KBLOCK``) and ``vec``
+    (floats per copy, at most :func:`copy_width`) override the planner's
+    choices, for tests and measurements."""
     global launches
     Bx, D = Sx.shape
     By = Sy.shape[0]
-    if -(-Bx // TILE) > MAX_ROW_TILES:
+    sms = _sms(Sx.device)
+    rows = rows or tile_rows(Bx, By, sms)
+    if -(-Bx // rows) > MAX_ROW_TILES:
         raise ValueError(f"B_x = {Bx} exceeds the kernel's "
-                         f"{MAX_ROW_TILES * TILE} rows; split the batch")
+                         f"{MAX_ROW_TILES * rows} rows; split the batch")
     x = Sx.detach().to(torch.float32).contiguous()
     y = Sy.detach().to(torch.float32).contiguous()
     w = weights.detach().to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty((Bx, By), dtype=torch.float32, device=x.device)
     if slice_words is None:
-        lo, hi = word_slices(Bx, By, D, _sms(x.device))[0]
+        lo, hi = word_slices(Bx, By, D, sms)[0]
         slice_words = -(-(hi - lo) // KBLOCK) * KBLOCK
+    vec = vec or copy_width(D, x.data_ptr(), y.data_ptr())
     n_slices = -(-D // slice_words)
     ws = (torch.empty((n_slices, Bx, By), dtype=torch.float32,
                       device=x.device) if n_slices > 1 else None)
@@ -105,8 +140,8 @@ def _launch(Sx: torch.Tensor, Sy: torch.Tensor, weights: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.sig_gram_launch(
             x.data_ptr(), y.data_ptr(), w.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), Bx, By, D, slice_words,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            None if ws is None else ws.data_ptr(), Bx, By, D, rows,
+            slice_words, vec, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"sig_gram kernel launch failed with cudaError "
                            f"{err} (B_x={Bx}, B_y={By}, D={D})")
