@@ -68,8 +68,10 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              to 1e-4·Σ_j |K_j α_j| with the engine's own duals); nearest
              must be the plain argmax.  Kernel, plain and library
              (torch.matmul, TF32 off) times of the reference Gram and of
-             the largest cross-Gram, with both bounds; two kernel runs
-             bitwise equal; the cross-Gram at other split-K widths.
+             the largest cross-Gram (kernel and library per call of 20
+             back to back, and one call alone), with both bounds; two
+             kernel runs bitwise equal; the cross-Gram at other split-K
+             widths.
 12. mmd    — sig_mmd of two samples of the §8 lead-lag input (B = 128 each,
              500 increments over 10 letters) on the §8 word set (1,685
              words): two sig_words legs into three sig_gram products,
@@ -237,6 +239,25 @@ def cuda_ms(fn, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def cuda_ms_back_to_back(fn, n: int = 20, reps: int = 5) -> float:
+    """Milliseconds per call of ``fn`` launched ``n`` times back to back
+    (median over ``reps`` runs), by CUDA events: the device's time per call,
+    with the host's work for one call overlapping the last call's."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return float(np.median(times))
 
 
@@ -750,12 +771,16 @@ def phase_gram_variants(rng) -> int:
 
 def time_gram(Sx: torch.Tensor, Sy: torch.Tensor, w: torch.Tensor) -> dict:
     """Kernel, plain and library times (ms) of one Gram, and its bounds.
-    The library call is torch.matmul in full FP32 (TF32 off).  Two kernel
-    runs must agree bit for bit (split-K sums its slices in order)."""
+    The library call is torch.matmul in full FP32 (TF32 off).  ``ms`` and
+    ``library_ms`` are times per call of 20 calls back to back; the
+    ``call_ms`` are one call alone, the host's work in the wrapper (or in
+    PyTorch) included.  Two kernel runs must agree bit for bit (split-K
+    sums its slices in order)."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        lib = cuda_ms(lambda: torch.matmul(Sx * w, Sy.T), 10)
+        lib = cuda_ms_back_to_back(lambda: torch.matmul(Sx * w, Sy.T))
+        lib_call = cuda_ms(lambda: torch.matmul(Sx * w, Sy.T), 10)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     (Bx, D), By = Sx.shape, Sy.shape[0]
@@ -764,15 +789,19 @@ def time_gram(Sx: torch.Tensor, Sy: torch.Tensor, w: torch.Tensor) -> dict:
     slices = sg.word_slices(Bx, By, D, torch.cuda.get_device_properties(
         0).multi_processor_count)
     return dict(shape=[Bx, By, D], slices=len(slices),
-                ms=cuda_ms(lambda: sg.sig_gram(Sx, Sy, w), 10),
+                ms=cuda_ms_back_to_back(lambda: sg.sig_gram(Sx, Sy, w)),
+                call_ms=cuda_ms(lambda: sg.sig_gram(Sx, Sy, w), 10),
                 plain_ms=cuda_ms(lambda: sg.sig_gram_plain(Sx, Sy, w), 3),
-                library_ms=lib, **gram_bound(Bx, By, D))
+                library_ms=lib, library_call_ms=lib_call,
+                **gram_bound(Bx, By, D))
 
 
 def print_gram(where: str, t: dict) -> None:
     print(f"{where} sig_gram {t['shape']} ({t['slices']} word slices): "
-          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, library "
-          f"(torch.matmul, TF32 off) {t['library_ms']:.4f} ms, bound "
+          f"{t['ms']:.4f} ms a call back to back ({t['call_ms']:.4f} alone), "
+          f"plain {t['plain_ms']:.3f} ms, library (torch.matmul, TF32 off) "
+          f"{t['library_ms']:.4f} ms ({t['library_call_ms']:.4f} alone), "
+          f"bound "
           f"{t['bound_ms']:.4f} ms on the tensor cores in 3xTF32 "
           f"({t['bound_by']}; held to), {t['fp32_bound_ms']:.4f} ms on the "
           f"FP32 cores ({t['fp32_bound_by']})", flush=True)
@@ -899,8 +928,8 @@ def phase_scoring(rng) -> dict:
     # the cross-Gram at other split-K widths than the planner's
     nblk = -(-D // sg.KBLOCK)
     cross["slice_sweep_ms"] = {
-        str(-(-nblk // per)): cuda_ms(lambda: sg._launch(
-            Sq, eng.ref_sigs, eng.weights, slice_words=per * sg.KBLOCK), 10)
+        str(-(-nblk // per)): cuda_ms_back_to_back(lambda: sg._launch(
+            Sq, eng.ref_sigs, eng.weights, slice_words=per * sg.KBLOCK))
         for per in sorted({1, 2, 3, 4, 5, 7, 10, nblk})}
     print(f"[score] cross-Gram ms by word slices: "
           f"{cross['slice_sweep_ms']}", flush=True)
@@ -1015,8 +1044,9 @@ def main() -> int:
              library_ms=score["ref_gram"]["library_ms"],
              fp32_bound_ms=score["ref_gram"]["fp32_bound_ms"],
              cases=[dict(case=name, **{k: t[k] for k in (
-                 "shape", "slices", "ms", "plain_ms", "library_ms",
-                 "bound_ms", "bound_by", "fp32_bound_ms")})
+                 "shape", "slices", "ms", "call_ms", "plain_ms",
+                 "library_ms", "library_call_ms", "bound_ms", "bound_by",
+                 "fp32_bound_ms")})
                  for name, t in (("reference Gram", score["ref_gram"]),
                                  ("cross-Gram", score["cross_gram"]),
                                  ("projected-MMD Gram", mmd["gram"]))]),

@@ -26,9 +26,10 @@
 //    (BM/2) x 32 block of G and issues mma.sync m16n8k8 TF32 products.
 //    Every operand element is read from shared memory (S_x's times the
 //    slab's ω row: the TPU kernel's fused ω) and split in registers into
-//    hi = rna(v) and lo = rna(v − hi), so that hi + lo holds v to 2^-24.
-//    The products go small first, lo·hi, hi·lo, then hi·hi (lo·lo, under
-//    2^-24 of the product, is dropped), into an fp32 partial that is added
+//    hi = rna(v) and lo = v − hi, of which the tensor cores read 11 bits,
+//    so that hi + lo holds v to 2^-21, without bias.  The products go
+//    small first, lo·hi, hi·lo, then hi·hi (lo·lo, under 2^-22 of the
+//    product, is dropped), into an fp32 partial that is added
 //    to the running sum once every stage of 32 words: a two-level sum.  The
 //    tensor cores truncate as they accumulate, where the FP32 cores round
 //    to nearest; a partial over the reference's 512-word k_tile let that
@@ -54,7 +55,7 @@
 #define GG_BN 128       // rows of S_y per block
 #define GG_BK 32        // words per shared-memory stage
 #define GG_LDS 36       // shared row pitch in floats: conflict-free fragments
-#define GG_STAGES 4     // depth of the cp.async ring
+#define GG_STAGES 3     // depth of the cp.async ring
 #define GG_THREADS 256  // 8 warps in a 2 x 4 grid over the block's tile
 #define GG_KBLOCK 512   // words of a block: slices are whole blocks
 
@@ -71,11 +72,11 @@ __host__ __device__ constexpr int smem_bytes() {
   return GG_STAGES * stage_floats<BM>() * 4;
 }
 
-// One asynchronous copy of VEC floats; src_bytes = 0 writes zeros.
+// One asynchronous copy of VEC floats to shared address d; invalid ones
+// read nothing and write zeros.
 template <int VEC>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
+__device__ __forceinline__ void cp_async(unsigned d, const float* src,
                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = valid ? VEC * 4 : 0;
   if constexpr (VEC == 4)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -94,30 +95,54 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// ROWS rows of GG_BK words from a (rows, D) row-major operand into a
-// (ROWS, GG_LDS) shared slab; rows >= nrows and words >= D load as 0.
+// The copies one thread makes of each stage's ROWS x GG_BK slab of a
+// (rows, D) row-major operand: VEC floats at word kc of its rows r0,
+// r0 + RSTEP, ...  Rows past nrows and words past D load as 0 (VEC divides
+// D, so a copy is all inside or all outside).  Everything but the word
+// offset is fixed for the block, so a copy costs an address add.
 template <int ROWS, int VEC>
-__device__ __forceinline__ void load_rows(float* s, const float* g, int row0,
-                                          int nrows, int k0, int D,
-                                          int tid) {
-  constexpr int PER_ROW = GG_BK / VEC;
-  static_assert(ROWS * PER_ROW % GG_THREADS == 0, "whole copies a thread");
-#pragma unroll
-  for (int it = 0; it < ROWS * PER_ROW / GG_THREADS; ++it) {
-    const int c = tid + it * GG_THREADS;
-    const int r = c / PER_ROW, kc = (c % PER_ROW) * VEC;
-    const int gr = row0 + r, gk = k0 + kc;
-    const bool ok = gr < nrows && gk < D;   // VEC divides D: all or none
-    cp_async<VEC>(s + r * GG_LDS + kc, ok ? g + (size_t)gr * D + gk : g, ok);
-  }
-}
+struct SlabCopier {
+  static constexpr int PER_ROW = GG_BK / VEC;
+  static constexpr int RSTEP = GG_THREADS / PER_ROW;
+  static constexpr int N = ROWS / RSTEP;
+  static_assert(ROWS % RSTEP == 0, "whole copies a thread");
+  const float* src;   // this thread's first copy of the next stage
+  int rows_left;      // copy i lies inside the rows iff i·RSTEP < rows_left
+  int kc;
+  unsigned soff;      // byte offset of its first copy in the slab
 
-// v = hi + lo, both TF32 (round to nearest, ties away from zero).
+  __device__ SlabCopier(const float* g, int row0, int nrows, int D, int k0,
+                        int tid) {
+    const int r0 = tid / PER_ROW;
+    kc = (tid % PER_ROW) * VEC;
+    rows_left = nrows - row0 - r0;
+    src = g + (size_t)min(row0 + r0, nrows - 1) * D + k0 + kc;
+    soff = (r0 * GG_LDS + kc) * 4;
+  }
+
+  // Copy words [k0, k0 + GG_BK) into the slab at shared address s; g is the
+  // operand's base, read by no one, for the copies that write zeros.
+  __device__ __forceinline__ void copy(unsigned s, const float* g, int k0,
+                                       int D) {
+    const bool kin = k0 + kc < D;
+    const size_t step = (size_t)RSTEP * D;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const bool ok = kin && i * RSTEP < rows_left;
+      cp_async<VEC>(s + soff + i * RSTEP * GG_LDS * 4, ok ? src + i * step : g,
+                    ok);
+    }
+    src += GG_BK;
+  }
+};
+
+// v = hi + lo: hi is v rounded to TF32 (to nearest, ties away from zero,
+// on the bits: cvt.rna.tf32.f32 costs a compare and a select more), lo the
+// exact rest, of which the tensor cores read the top 19 bits.
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
-  const float r = v - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
 // c = a · b (FRESH) or c += a · b on a 16 x 8 x 8 TF32 tile, fp32
@@ -157,15 +182,18 @@ sig_gram_kernel(const float* __restrict__ sx, const float* __restrict__ sy,
   const int nk = (kend - kbeg + GG_BK - 1) / GG_BK;
   out += (size_t)blockIdx.z * Bx * By;
 
+  SlabCopier<BM, VEC> copy_x(sx, row0, Bx, D, kbeg, tid);
+  SlabCopier<GG_BN, VEC> copy_y(sy, col0, By, D, kbeg, tid);
+  const unsigned smem0 = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   auto load_stage = [&](int stage, int k0) {
-    float* sA = smem + stage * stage_floats<BM>();
-    float* sB = sA + BM * GG_LDS;
-    float* sW = sB + GG_BN * GG_LDS;
-    load_rows<BM, VEC>(sA, sx, row0, Bx, k0, D, tid);
-    load_rows<GG_BN, VEC>(sB, sy, col0, By, k0, D, tid);
+    const unsigned sA = smem0 + stage * stage_floats<BM>() * 4;
+    const unsigned sB = sA + BM * GG_LDS * 4;
+    const unsigned sW = sB + GG_BN * GG_LDS * 4;
+    copy_x.copy(sA, sx, k0, D);
+    copy_y.copy(sB, sy, k0, D);
     if (tid < GG_BK) {
       const bool ok = k0 + tid < D;
-      cp_async<1>(sW + tid, ok ? w + k0 + tid : w, ok);
+      cp_async<1>(sW + tid * 4, ok ? w + k0 + tid : w, ok);
     }
   };
 
@@ -268,9 +296,17 @@ cudaError_t launch_tiles(const float* sx, const float* sy, const float* w,
                          float* out, int Bx, int By, int D, int slice_words,
                          int S, cudaStream_t st) {
   auto kernel = sig_gram_kernel<BM, VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<BM>());
+  static bool sized[64];   // the shared-memory attribute, once per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= 64 || !sized[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes<BM>());
+    if (err != cudaSuccess) return err;
+    if (dev < 64) sized[dev] = true;
+  }
   dim3 grid((By + GG_BN - 1) / GG_BN, (Bx + BM - 1) / BM, S);
   kernel<<<grid, GG_THREADS, smem_bytes<BM>(), st>>>(sx, sy, w, out, Bx, By,
                                                       D, slice_words);

@@ -398,8 +398,9 @@ def gram(Sx, Sy, weights, *, backend: str = "auto",
     bf16 (straight-through gradient) and accumulates in fp32.
     ``block_words`` (default 512) is the torch engine's slab width;
     ``bx_tile``/``by_tile`` (default 128) are the reference's TPU block
-    shapes and are checked only: the CUDA kernel's tile is fixed at 64 × 64
-    until the autotune item brings a choice.
+    shapes and are checked only: the CUDA kernel chooses its tile (128 or
+    64 rows of S_x by 128 of S_y), its split of the words and its copy
+    width from the shape and the pointers (``kernels/sig_gram.py``).
     """
     dev = resolve_device(device)
     Sx = torch.as_tensor(Sx, device=dev)

@@ -25,6 +25,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -106,8 +107,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(Bx: int, By: int, D: int, sms: int) -> tuple[int, int]:
+    """(tile rows, words a slice) of one Gram shape."""
+    lo, hi = word_slices(Bx, By, D, sms)[0]
+    return tile_rows(Bx, By, sms), -(-(hi - lo) // KBLOCK) * KBLOCK
 
 
 def _launch(Sx: torch.Tensor, Sy: torch.Tensor, weights: torch.Tensor,
@@ -120,8 +129,9 @@ def _launch(Sx: torch.Tensor, Sy: torch.Tensor, weights: torch.Tensor,
     global launches
     Bx, D = Sx.shape
     By = Sy.shape[0]
-    sms = _sms(Sx.device)
-    rows = rows or tile_rows(Bx, By, sms)
+    plan_rows, plan_words = _plan(Bx, By, D, _sms(Sx.device))
+    rows = rows or plan_rows
+    slice_words = slice_words or plan_words
     if -(-Bx // rows) > MAX_ROW_TILES:
         raise ValueError(f"B_x = {Bx} exceeds the kernel's "
                          f"{MAX_ROW_TILES * rows} rows; split the batch")
@@ -129,9 +139,6 @@ def _launch(Sx: torch.Tensor, Sy: torch.Tensor, weights: torch.Tensor,
     y = Sy.detach().to(torch.float32).contiguous()
     w = weights.detach().to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty((Bx, By), dtype=torch.float32, device=x.device)
-    if slice_words is None:
-        lo, hi = word_slices(Bx, By, D, sms)[0]
-        slice_words = -(-(hi - lo) // KBLOCK) * KBLOCK
     vec = vec or copy_width(D, x.data_ptr(), y.data_ptr())
     n_slices = -(-D // slice_words)
     ws = (torch.empty((n_slices, Bx, By), dtype=torch.float32,

@@ -149,6 +149,66 @@ def test_gram_kernel_matches_plain_on_ragged_edges(cuda, D):
         assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
 
 
+def _gram_close(got, want):
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [511, 512, 513, 1025, 1685, 9330])
+def test_gram_kernel_matches_plain_across_split_boundaries(cuda, D):
+    """Both sides of the 64- and 128-row tiles and of the 512-word blocks
+    of the split-K slices, in float64 against the plain version."""
+    sizes = (1, 63, 64, 65, 128, 129)
+    x, y, w = _gram_operands(D, max(sizes), max(sizes), D, cuda)
+    for Bx in sizes:
+        for By in sizes:
+            want = sg.sig_gram_plain(x[:Bx], y[:By], w)
+            _gram_close(sg.sig_gram(x[:Bx].float(), y[:By].float(),
+                                    w.float()), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bx,By,D", [(129, 130, 1025), (65, 1, 513),
+                                     (128, 128, 1024), (3, 129, 9330)])
+def test_gram_kernel_every_tile_split_and_copy_width(cuda, Bx, By, D):
+    x, y, w = _gram_operands(Bx * By + D, Bx, By, D, cuda)
+    want = sg.sig_gram_plain(x, y, w)
+    xf, yf, wf = x.float(), y.float(), w.float()
+    top = sg.copy_width(D, xf.data_ptr(), yf.data_ptr())
+    for rows in (64, 128):
+        for width in sorted({512, 1024, -(-D // 512) * 512}):
+            for vec in (v for v in (1, 2, 4) if v <= top):
+                _gram_close(sg._launch(xf, yf, wf, rows, width, vec), want)
+
+
+@pytest.mark.cuda
+def test_gram_kernel_reads_an_operand_4_bytes_off_16(cuda):
+    x, y, w = _gram_operands(6, 70, 90, 1024, cuda)
+    buf = torch.empty(70 * 1024 + 1, dtype=torch.float32, device=cuda)
+    xo = buf[1:].view(70, 1024)
+    xo.copy_(x)
+    assert xo.is_contiguous() and xo.data_ptr() % 16 == 4
+    assert sg.copy_width(1024, xo.data_ptr(), y.data_ptr()) == 1
+    sg.launches = 0
+    _gram_close(ops.gram(xo, y.float(), w.float()),
+                sg.sig_gram_plain(x, y, w))
+    _gram_close(ops.gram(y.float(), xo, w.float()),
+                sg.sig_gram_plain(y, x, w))
+    assert sg.launches == 2
+
+
+@pytest.mark.cuda
+def test_gram_kernel_split_k_is_deterministic(cuda):
+    x, y, w = (a.float() for a in _gram_operands(7, 64, 700, 9330, cuda))
+    assert len(sg.word_slices(64, 700, 9330)) > 1
+    sg.launches = 0
+    first = ops.gram(x, y, w)
+    again = ops.gram(x, y, w)
+    assert sg.launches == 2
+    assert torch.equal(first, again)
+
+
 @pytest.mark.cuda
 def test_gram_dispatch_launches_the_kernel_once_per_call(cuda):
     x, y, w = (a.float().requires_grad_() for a in
