@@ -50,11 +50,12 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              on the card: B_x, B_y in {1, 7, 63, 64, 65, 128, 129, 130, 300},
              D in {1, 6, 127, 511, 512, 513, 1025, 1685, 9330} (both sides
              of the row tiles and of the 512-word blocks that split-K
-             slices are made of); every tile, split and copy width forced
-             at six ragged shapes, and an operand 4 bytes off 16; weights uniform in [0.2, 2], half
-             of them zeroed, all zero, and the anisotropic gamma weights at
+             slices are made of); weights uniform in [0.2, 2], half of
+             them zeroed, all zero, and the anisotropic gamma weights at
              D = 9330; fp32 and bf16_fp32 operands (the plain version on
-             the same rounded operands).  |G − G_64| <= 1e-5·max|G_64|, the
+             the same rounded operands).  Then every tile, split and copy
+             width forced at six ragged shapes, and an operand 4 bytes off
+             16.  |G − G_64| <= 1e-5·max|G_64|, the
              reference's acceptance (tests/test_sigkernel.py).
 11. score  — SigScoreEngine over R = 2048 Brownian reference paths of 1024
              steps (d = 6, depth = 5, gamma spaced in [0.5, 2], KRR targets
@@ -82,10 +83,10 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
 67 TFLOP/s FP32 on the CUDA cores, 495 TFLOP/s dense TF32 on the tensor
-cores, on which the Gram is held to three TF32 products).  Tolerances of composed results
-(signature kernel, then Gram) are 1e-4·max|plain|: each fp32 kernel is
-within 1e-5 of its float64 plain version, and the composition adds the
-signature's rounding to the Gram's.
+cores, where the Gram is held to three TF32 products).  Tolerances of
+composed results (signature kernel, then Gram) are 1e-4·max|plain|: each
+fp32 kernel is within 1e-5 of its float64 plain version, and the
+composition adds the signature's rounding to the Gram's.
 """
 from __future__ import annotations
 
@@ -801,8 +802,7 @@ def print_gram(where: str, t: dict) -> None:
           f"{t['ms']:.4f} ms a call back to back ({t['call_ms']:.4f} alone), "
           f"plain {t['plain_ms']:.3f} ms, library (torch.matmul, TF32 off) "
           f"{t['library_ms']:.4f} ms ({t['library_call_ms']:.4f} alone), "
-          f"bound "
-          f"{t['bound_ms']:.4f} ms on the tensor cores in 3xTF32 "
+          f"bound {t['bound_ms']:.4f} ms on the tensor cores in 3xTF32 "
           f"({t['bound_by']}; held to), {t['fp32_bound_ms']:.4f} ms on the "
           f"FP32 cores ({t['fp32_bound_by']})", flush=True)
 

@@ -12,7 +12,12 @@
 // references (76 MB of S_y read once) the bytes do.  The FP32 CUDA cores
 // (67 TFLOP/s) are where cuBLAS's SGEMM already runs at three quarters of
 // peak; one TF32 pass on the tensor cores (495 TFLOP/s) keeps 10 mantissa
-// bits and misses the reference's 1e-5·max|G| acceptance.
+// bits and misses the reference's 1e-5·max|G| acceptance.  On the route
+// taken below, three mma.sync products an element, the bound is 3 x 2 x
+// B_x·B_y·D operations over the tensor cores' 495 TFLOP/s; what holds the
+// kernel above it is mma.sync's own rate and the split's and the copies'
+// instructions, which share issue slots with it at 8 warps an SM (wgmma
+// would lift the first).
 //
 // What the design does about it, in three stages.
 // 1. Split-K over the words.  The grid's third axis cuts the words into

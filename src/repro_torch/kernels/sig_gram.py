@@ -10,14 +10,15 @@ fused into the left operand; the (B_x, B_y, D) elementwise intermediate of
 the textbook formula never exists.
 
 The CUDA kernel (``csrc/sig_gram.cu``) writes the fp32 Gram: one thread
-block per output tile of 128 (or 64) × 128 and word slice, slabs of words
-brought into a ring of shared-memory stages by asynchronous copies, ω
-multiplied into S_x's elements as they are read, each element split into
-two TF32 halves for three tensor-core products (3xTF32) summed in
-512-word blocks, edges masked in the kernel, and the slices' partials
-summed in order by a second kernel.  This module chooses the tile
-(:func:`tile_rows`), the word slices (:func:`word_slices`) and the copy
-width (:func:`copy_width`) from the shape and the pointers.  On a CPU tensor :func:`sig_gram` runs
+block per output tile of 128 (or 64) × 128 and word slice, words brought
+into a ring of shared-memory stages by asynchronous copies, ω multiplied
+into S_x's elements as they are read, each element split into two TF32
+halves for three tensor-core products (3xTF32) whose partial joins a
+rounded fp32 sum every 32 words, edges masked in the kernel, and the
+slices' partials summed in order by a second kernel.  This module
+chooses the tile (:func:`tile_rows`), the word slices
+(:func:`word_slices`) and the copy width (:func:`copy_width`) from the
+shape and the pointers.  On a CPU tensor :func:`sig_gram` runs
 :func:`sig_gram_plain`, the word-blocked loop of the reference's
 ``ops._gram_blocked_jax``; on a CUDA tensor it launches the kernel or
 raises.
@@ -33,7 +34,7 @@ from . import _build
 
 MAX_ROW_TILES = 65_535   # the grid's y extent, in row tiles of S_x
 TILE_N = 128             # GG_BN: rows of S_y per block
-KBLOCK = 512             # GG_KBLOCK: words summed into a partial first
+KBLOCK = 512             # GG_KBLOCK: slices are whole blocks of words
 SMS = 132                # streaming multiprocessors of an H100 SXM
 # blocks of each row tile an SM holds at once (registers, shared memory)
 BLOCKS_PER_SM = {64: 2, 128: 1}

@@ -158,7 +158,7 @@ def test_word_slices_cover_the_words_in_whole_blocks(Bx, By, D):
     assert 0 < slices[-1][1] - slices[-1][0] <= width
 
 
-@pytest.mark.parametrize("Bx,By,D", [(2048, 2048, 9330), (4096, 512, 9330),
+@pytest.mark.parametrize("Bx,By,D", [(2048, 2048, 9330), (4096, 1024, 9330),
                                      (1536, 1536, 1685)])
 def test_one_word_slice_when_the_tiles_fill_the_card(Bx, By, D):
     rows = sg.tile_rows(Bx, By)
