@@ -16,8 +16,8 @@
 // taken below, three mma.sync products an element, the bound is 3 x 2 x
 // B_x·B_y·D operations over the tensor cores' 495 TFLOP/s; what holds the
 // kernel above it is mma.sync's own rate and the split's and the copies'
-// instructions, which share issue slots with it at 8 warps an SM (wgmma
-// would lift the first).
+// instructions, which compete with it for the warp schedulers at 8 warps
+// an SM (wgmma would lift the first).
 //
 // What the design does about it, in three stages.
 // 1. Split-K over the words.  The grid's third axis cuts the words into
@@ -28,7 +28,7 @@
 //    sig_gram_reduce sums the planes in slice order: deterministic, no
 //    atomics.  Both kernels go out from the one C entry point.
 // 2. The tile's product on the tensor cores in 3xTF32.  Each warp owns a
-//    (BM/2) x 32 block of G and issues mma.sync m16n8k8 TF32 products.
+//    (BM/2) x 32 block of G and runs mma.sync m16n8k8 TF32 products.
 //    Every operand element is read from shared memory (S_x's times the
 //    slab's ω row: the TPU kernel's fused ω) and split in registers into
 //    hi = rna(v) and lo = v − hi, of which the tensor cores read 11 bits,
