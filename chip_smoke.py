@@ -11,14 +11,17 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
 3. kernels — hold the sig_trunc kernel (both cells: terminal and streamed,
              strides 1 and 3; fp32 and bf16_fp32) against its plain
              PyTorch version in float64 on the card, over (d, N) in
-             {(2,3), (3,4), (6,5), (10,3), (10,5)}, every feasible split,
-             B = 5, M in {1, 37}.  fp32: rtol 2e-4, atol 2e-5; bf16_fp32:
+             {(2,3), (3,4), (6,5), (10,3), (10,5)}, B = 5, M in {1, 37}, at
+             every partition the planner can choose
+             (sig_trunc.partition_variants: its own, and every feasible
+             split with one example a block and with the most examples a
+             block may share).  fp32: rtol 2e-4, atol 2e-5; bf16_fp32:
              relative error of level n within n·2^-8.
 4. serve   — DynamicBatcher.signature_service(d=6, depth=5, max_len=1024)
              answers 256 requests of log-uniform lengths in [16, 1024];
              32 sampled answers are held against the plain version on the
              unpadded path, and the kernel must have been launched once per
-             flushed micro-batch.
+             flushed micro-batch.  The largest micro-batch is timed.
 5. dispatch — ops.signature at the paper's Table 1 grid, the kernel's median
              time beside the plain version's, and one streamed cell through
              core.signature.signature(stream=True).
@@ -72,13 +75,16 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              the largest cross-Gram (kernel and library per call of 20
              back to back, and one call alone), with both bounds; two
              kernel runs bitwise equal; the cross-Gram at other split-K
-             widths.
+             widths; sig_trunc over the references.
 12. mmd    — sig_mmd of two samples of the §8 lead-lag input (B = 128 each,
              500 increments over 10 letters) on the §8 word set (1,685
              words): two sig_words legs into three sig_gram products,
              against the statistic from the plain versions in float64 to
              1e-4·max|K_64|; the 128 × 128 × 1,685 Gram timed as in 11.
-13. report — one JSON line of kernels, then the device line last.
+13. report — one JSON line of kernels (the sig_trunc row with its cases:
+             serving micro-batch, engine references, largest Table 1 cell,
+             streamed cell, each with ms, bound and partition), the card's
+             name and power limit, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -206,6 +212,22 @@ def gram_bound(Bx: int, By: int, D: int) -> dict:
     return out
 
 
+def trunc_partition(B: int, d: int, depth: int) -> dict:
+    """The planner's sig_trunc partition for a (B, ·, d) batch."""
+    p = st.plan_launch(B, d, depth)
+    return dict(split=p.split, threads=p.threads, top_slots=p.top_slots,
+                examples=p.examples, block=p.block,
+                blocks=p.grid[0] * p.grid[1], smem=p.smem)
+
+
+def trunc_case(case: str, shape: list, t: dict) -> dict:
+    """One entry of the sig_trunc row's ``cases``."""
+    B, d, N = shape[0], shape[2], shape[3]
+    part = trunc_partition(B, d, N)
+    return dict(case=case, shape=shape, split=part["split"], partition=part,
+                ms=t["ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+
+
 def reset_counts() -> None:
     """Every kernel's launch counters to 0, just before a path is driven."""
     st.launches = st.stream_launches = 0
@@ -307,34 +329,31 @@ def phase_kernels(rng) -> dict:
             cells = [(False, 1), (True, 1), (True, 3)]
             want = {c: st.sig_trunc_plain(x, N, stream=c[0],
                                           stream_stride=c[1]) for c in cells}
-            for s in range(N):
-                try:
-                    st.launch_geometry(d, N, s)
-                except ValueError:  # this split does not fit: not a case
-                    continue
+            for plan in st.partition_variants(len(x), d, N):
+                part = (f"split={plan.split} threads={plan.threads} "
+                        f"slots={plan.top_slots} examples={plan.examples}")
                 for stream, stride in cells:
                     name = "sig_trunc_stream" if stream else "sig_trunc"
                     w = want[(stream, stride)]
-                    got = st.sig_trunc(x.float(), N, split=s, stream=stream,
-                                       stream_stride=stride).double()
+                    got = st._launch(x.float(), N, None, stream, stride,
+                                     "fp32", plan).double()
                     torch.cuda.synchronize()
                     err = float((got - w).abs().max())
                     ok = bool(((got - w).abs() <= TOL["atol"]
                                + TOL["rtol"] * w.abs()).all())
-                    check(ok, f"{name} d={d} N={N} M={M} split={s} "
+                    check(ok, f"{name} d={d} N={N} M={M} {part} "
                           f"stride={stride} fp32: max |err| {err:.3e}")
                     max_err[name] = max(max_err[name], err)
-                    got = st.sig_trunc(x.float(), N, split=s, stream=stream,
-                                       stream_stride=stride,
-                                       precision="bf16_fp32").double()
+                    got = st._launch(x.float(), N, None, stream, stride,
+                                     "bf16_fp32", plan).double()
                     rel = level_relerr(got, w, d, N)
                     check(all(e <= n * 2.0**-8 for n, e in
                               enumerate(rel, start=1)),
-                          f"{name} d={d} N={N} M={M} split={s} "
+                          f"{name} d={d} N={N} M={M} {part} "
                           f"stride={stride} bf16_fp32: level errors {rel}")
                     cases += 2
                     print(f"[kernels] {name:16s} d={d:2d} N={N} M={M:2d} "
-                          f"split={s} stride={stride}: fp32 max|err| "
+                          f"{part} stride={stride}: fp32 max|err| "
                           f"{err:.2e}, bf16 max level relerr {max(rel):.2e}")
     print(f"[kernels] {cases} cases within tolerance", flush=True)
     return max_err
@@ -395,8 +414,8 @@ def phase_serve(rng) -> dict:
     plain_ms = cuda_ms(lambda: st.sig_trunc_plain(incs, depth), 1)
     bms, by = bound(B_pad, rung, d, depth, 4, B_pad * D, 4)
     print(f"[serve] sig_trunc at the largest micro-batch (B={B_pad}, "
-          f"M={rung}, d={d}, N={depth}, split "
-          f"{st.choose_split(d, depth)}): {ms:.3f} ms, plain "
+          f"M={rung}, d={d}, N={depth}, "
+          f"{trunc_partition(B_pad, d, depth)}): {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by})", flush=True)
     return dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, shape=[B_pad, rung, d, depth], stats=stats,
@@ -417,9 +436,9 @@ def phase_dispatch(rng) -> tuple[list, dict]:
         plain_ms = cuda_ms(lambda: st.sig_trunc_plain(incs, N), 1)
         D = sum(d**n for n in range(1, N + 1))
         bms, by = bound(B, M, d, N, 4, B * D, 4)
-        rows.append(dict(B=B, M=M, d=d, N=N, split=st.choose_split(d, N),
-                         ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                         bound_by=by))
+        rows.append(dict(B=B, M=M, d=d, N=N,
+                         partition=trunc_partition(B, d, N), ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by))
         print(f"[dispatch] B={B:3d} M={M:3d} d={d:2d} N={N}: kernel "
               f"{ms:8.3f} ms, plain {plain_ms:9.3f} ms, bound {bms:.4f} ms "
               f"({by})", flush=True)
@@ -936,12 +955,17 @@ def phase_scoring(rng) -> dict:
     # the engine's other parts: the reference signatures and the solve
     incs = tops.path_increments(refs)
     sig_ms = cuda_ms(lambda: st.sig_trunc(incs, depth), 3)
+    sig_bound, sig_by = bound(R, M, d, depth, 4, R * D, 4)
     solve_ms = cuda_ms(lambda: krr_fit(eng.ref_gram, targets, 1e-3), 3)
     print(f"[score] engine parts: sig_trunc over the references (B={R}, "
-          f"M={M}) {sig_ms:.3f} ms, KRR solve {solve_ms:.3f} ms", flush=True)
+          f"M={M}) {sig_ms:.3f} ms (bound {sig_bound:.4f} ms, {sig_by}; "
+          f"{trunc_partition(R, d, depth)}), KRR solve {solve_ms:.3f} ms",
+          flush=True)
     for f in flushes.values():
         del f["out"]
     return dict(engine_ms=eng_ms, engine_launches=n_eng, flushes=flushes,
+                ref_sigs=dict(ms=sig_ms, bound_ms=sig_bound, bound_by=sig_by,
+                              shape=[R, M, d, depth]),
                 ref_sigs_ms=sig_ms, solve_ms=solve_ms,
                 launches=n_eng["sig_gram"] + sum(
                     f["launches"]["sig_gram"] for f in flushes.values()),
@@ -1006,6 +1030,14 @@ def main() -> int:
     score = phase_scoring(rng)
     mmd = phase_projected_mmd(rng)
     src = "src/repro_torch/kernels/csrc/sig_trunc.cu"
+    largest = max(table1, key=lambda r: r["bound_ms"])
+    trunc_cases = [
+        trunc_case("serving micro-batch", serve["shape"], serve),
+        trunc_case("engine references", score["ref_sigs"]["shape"],
+                   score["ref_sigs"]),
+        trunc_case("largest Table 1 cell", [largest[k] for k in "BMdN"],
+                   largest),
+        trunc_case("streamed", stream["shape"], stream)]
     wsrc = "src/repro_torch/kernels/csrc/sig_words.cu"
     kernels = [
         dict(name="sig_trunc", route="cuda", source=src,
@@ -1013,7 +1045,7 @@ def main() -> int:
              launches=serve["launches"], max_abs_err=max_err["sig_trunc"],
              ms=serve["ms"], plain_ms=serve["plain_ms"],
              bound_ms=serve["bound_ms"], bound_by=serve["bound_by"],
-             library_ms=None),
+             library_ms=None, cases=trunc_cases),
         dict(name="sig_trunc_stream", route="cuda", source=src,
              replaces="src/repro/kernels/sig_trunc.py:313",
              launches=stream["launches"],

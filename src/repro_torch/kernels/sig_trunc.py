@@ -7,10 +7,15 @@ copy of u's ancestor path.  Per-cone state block, ``rows`` floats:
 
   [ path: levels 1..s-1 along u ] ++ [ cone levels s..N: d^0, ..., d^{N-s} ]
 
-The CUDA kernel (``csrc/sig_trunc.cu``, one thread block per example and
-cone, the state in shared memory) writes these blocks; :func:`_reassemble`
-gathers them into the flat level-major layout.  ``stream=True`` emits every
-``stream_stride``-th prefix signature and the terminal one.
+The CUDA kernel (``csrc/sig_trunc.cu``) writes these blocks;
+:func:`_reassemble` gathers them into the flat level-major layout.
+``stream=True`` emits every ``stream_stride``-th prefix signature and the
+terminal one.  :func:`plan_launch` chooses the kernel's partition: the
+split s, the threads an (example, cone) gets, where the top level lives
+and how many examples share a block; :func:`kernel_smem` gives the shared
+memory a block then takes.  :func:`state_footprint` and
+:func:`choose_split` keep the reference's meaning: the bytes of the cone
+state block and the smallest split whose block fits.
 
 On a CPU tensor :func:`sig_trunc` runs :func:`sig_trunc_plain`, the
 levelwise Horner scan; on a CUDA tensor it launches the kernel or raises.
@@ -19,6 +24,7 @@ The kernel is forward-only: :class:`SigTruncFunction` raises on backward.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,6 +42,7 @@ CHUNK = 32          # increments staged per shared-memory load (SIG_CHUNK)
 MAX_DEPTH = 16      # SIG_MAX_DEPTH
 MAX_THREADS = 1024
 MAX_CELLS = 65_535  # the grid's y extent
+MIN_BLOCK = 128     # below this, examples of one cone may share a block
 
 # launch counters: one per kernel cell, bumped where the kernel is launched
 launches = 0
@@ -72,6 +79,127 @@ def choose_split(d: int, depth: int, smem_budget: int = SMEM_BUDGET) -> int:
             return s
     raise ValueError(f"no split of d={d}, depth={depth} fits "
                      f"{smem_budget} bytes of shared memory")
+
+
+def level_counts(d: int, depth: int, s: int) -> list[int]:
+    """Entries of global level j = 0..depth in one cone: one along the
+    prefix u (j <= s), d^(j-s) below it."""
+    return [1 if j <= s else d ** (j - s) for j in range(depth + 1)]
+
+
+def level_rows(d: int, depth: int, s: int) -> list[int]:
+    """Row of level j's first entry in the cone block, j = 0..depth (the
+    path's levels 1..s-1 first, then the cone's; level 0 is not stored)."""
+    base = cone_base_level(s)
+    co = cone_offsets(d, depth, s)
+    n_path = max(0, s - 1)
+    return [0] + [j - 1 if j < s else n_path + int(co[j - base])
+                  for j in range(1, depth + 1)]
+
+
+def chain_offsets(d: int, depth: int, s: int) -> list[int]:
+    """Offset of level j's chain buffer, j = 0..depth: level j leaves one
+    value per entry for each target level above it, (depth - j)·cnt_j."""
+    cnt = level_counts(d, depth, s)
+    return [int(v) for v in np.cumsum(
+        [0] + [(depth - j) * cnt[j] for j in range(depth)])]
+
+
+def kernel_smem(d: int, depth: int, s: int, top_slots: int) -> int:
+    """Dynamic shared-memory bytes the kernel takes for one example at
+    split ``s``: the fp32 cone state block less its top level when that
+    sits in registers (``top_slots`` > 0), the chain buffers, and CHUNK
+    steps of increments scaled by 1/k for k = 1..depth.  The C entry point
+    derives the same from the geometry."""
+    rows = max(0, s - 1) + cone_rows(d, depth, s)
+    if top_slots:
+        rows -= d ** (depth - s)
+    return 4 * (rows + chain_offsets(d, depth, s)[-1] + CHUNK * depth * d)
+
+
+def max_block(plan) -> int:
+    """Threads a block may have at the plan's top-level slots."""
+    return MAX_THREADS
+
+
+class LaunchPlan(NamedTuple):
+    """One launch: split s; ``threads`` per (example, cone);
+    ``top_slots`` top-level words a thread keeps in registers (0: the top
+    level stays in shared memory); ``examples`` of one cone per block; the
+    grid (blocks of examples, cones) and a block's dynamic shared memory."""
+    split: int
+    threads: int
+    top_slots: int
+    examples: int
+    grid: tuple[int, int]
+    smem: int
+
+    @property
+    def block(self) -> int:
+        return self.threads * self.examples
+
+
+def check_split(d: int, depth: int, s: int) -> None:
+    """Raise ValueError unless the kernel can run split ``s``."""
+    if not 0 <= s < depth:
+        raise ValueError(f"split {s} outside [0, {depth})")
+    if depth > MAX_DEPTH:
+        raise ValueError(f"depth {depth} above the kernel's {MAX_DEPTH}")
+    foot = state_footprint(d, depth, s)
+    if foot > SMEM_BUDGET:
+        raise ValueError(f"split {s} has a {foot}-byte cone state, above "
+                         f"the {SMEM_BUDGET} bytes a block may take")
+    if d**s > MAX_CELLS:
+        raise ValueError(f"split {s} gives {d**s} cones, above {MAX_CELLS}")
+    smem = kernel_smem(d, depth, s, 0)
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"split {s} needs {smem} bytes of shared memory, "
+                         f"above the {SMEM_BUDGET} a block may take")
+
+
+@plan_cache
+def plan_launch(B: int, d: int, depth: int, split: int | None = None,
+                examples: int | None = None) -> LaunchPlan:
+    """The kernel's partition for (B, ·, d) increments at ``depth``:
+    the smallest split that fits (or ``split``), one example a block,
+    the top level in shared memory and a thread per word of the widest
+    level up to 1,024."""
+    s = choose_split(d, depth) if split is None else split
+    check_split(d, depth, s)
+    e = 1 if examples is None else examples
+    threads = min(MAX_THREADS, max(32, -(-d ** (depth - s) // 32) * 32))
+    smem = kernel_smem(d, depth, s, 0)
+    if e < 1 or e * threads > MAX_THREADS or e * smem > SMEM_BUDGET:
+        raise ValueError(f"{e} examples a block do not fit split {s}")
+    return LaunchPlan(s, threads, 0, e, (-(-B // e), d**s), e * smem)
+
+
+def feasible_splits(d: int, depth: int) -> list[int]:
+    """Every split the kernel can run at (d, depth)."""
+    out = []
+    for s in range(min(depth, MAX_DEPTH)):
+        try:
+            check_split(d, depth, s)
+        except ValueError:
+            continue
+        out.append(s)
+    return out
+
+
+def partition_variants(B: int, d: int, depth: int) -> list[LaunchPlan]:
+    """Every partition the planner can choose for a (B, ·, d) batch: its
+    own, and each feasible split with one example a block and with the
+    most examples of one cone that may share a block.  For tests and
+    chip_smoke.py."""
+    plans = [plan_launch(B, d, depth)]
+    for s in feasible_splits(d, depth):
+        one = plan_launch(B, d, depth, split=s, examples=1)
+        e = 1
+        while (2 * e * one.threads <= min(MIN_BLOCK, max_block(one))
+               and 2 * e * one.smem <= SMEM_BUDGET):
+            e *= 2
+        plans += [one, plan_launch(B, d, depth, split=s, examples=e)]
+    return list(dict.fromkeys(plans))
 
 
 @plan_cache
@@ -119,56 +247,45 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_trunc_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p] + [i] * 11 + [p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def launch_geometry(d: int, depth: int, s: int) -> tuple[int, int, int]:
-    """(cells, threads, shared-memory bytes) of one launch at split s."""
-    if not 0 <= s < depth:
-        raise ValueError(f"split {s} outside [0, {depth})")
-    if depth > MAX_DEPTH:
-        raise ValueError(f"depth {depth} above the kernel's {MAX_DEPTH}")
-    smem = state_footprint(d, depth, s)
-    if smem > SMEM_BUDGET:
-        raise ValueError(f"split {s} needs {smem} bytes of shared memory, "
-                         f"above the {SMEM_BUDGET} a block may take")
-    if d**s > MAX_CELLS:
-        raise ValueError(f"split {s} gives {d**s} cones, above {MAX_CELLS}")
-    widest = d ** (depth - s)
-    threads = min(MAX_THREADS, max(32, -(-widest // 32) * 32))
-    return d**s, threads, smem
-
-
 def _launch(incs: torch.Tensor, depth: int, split: int | None, stream: bool,
-            stride: int, precision: str) -> torch.Tensor:
+            stride: int, precision: str,
+            plan: LaunchPlan | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA increments (B, M, d), B, M >= 1.  Returns
-    fp32 (B, D_sig), or (B, M_out, D_sig) in the storage dtype."""
+    fp32 (B, D_sig), or (B, M_out, D_sig) in the storage dtype.  ``plan``
+    (from :func:`plan_launch`) replaces the planner's, for tests and
+    measurements."""
     global launches, stream_launches
     B, M, d = incs.shape
-    s = choose_split(d, depth) if split is None else split
-    n_cells, threads, smem = launch_geometry(d, depth, s)
+    if plan is None:
+        plan = plan_launch(B, d, depth, split)
+    s = plan.split
     rows = max(0, s - 1) + cone_rows(d, depth, s)
     storage = _storage_dtype(precision)
     x = incs.detach().to(storage).contiguous()
+    cells = plan.grid[1]
     if stream:
-        out = torch.empty((B, -(-M // stride), n_cells, rows), dtype=storage,
+        out = torch.empty((B, -(-M // stride), cells, rows), dtype=storage,
                           device=x.device)
     else:
-        out = torch.empty((B, n_cells, rows), dtype=torch.float32,
+        out = torch.empty((B, cells, rows), dtype=torch.float32,
                           device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.sig_trunc_launch(
             x.data_ptr(), out.data_ptr(), B, M, d, depth, s,
             stride if stream else 0, int(storage == torch.bfloat16),
-            int(stream and storage == torch.bfloat16), threads, smem,
+            int(stream and storage == torch.bfloat16), plan.threads,
+            plan.examples, plan.top_slots,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"sig_trunc kernel launch failed with cudaError "
                            f"{err} (B={B}, M={M}, d={d}, depth={depth}, "
-                           f"split={s}, threads={threads}, smem={smem})")
+                           f"{plan})")
     if stream:
         stream_launches += 1
     else:
@@ -214,8 +331,8 @@ def sig_trunc(increments: torch.Tensor, depth: int, *,
 
     Increments are stored in the precision's dtype (bf16 under
     ``"bf16_fp32"``) and accumulated in fp32; float64 inputs run in fp32 and
-    are cast back.  ``split`` forces the cone level (default: the smallest
-    that fits shared memory).  A CPU tensor runs :func:`sig_trunc_plain` on
+    are cast back.  ``split`` forces the cone level (default: the
+    planner's, :func:`plan_launch`).  A CPU tensor runs :func:`sig_trunc_plain` on
     the same rounded values; a CUDA tensor launches the kernel.
     """
     if increments.ndim != 3:
@@ -227,7 +344,7 @@ def sig_trunc(increments: torch.Tensor, depth: int, *,
         raise ValueError(f"stream_stride must be >= 1, got {stream_stride}")
     storage = _storage_dtype(precision)
     if split is not None:
-        launch_geometry(d, depth, split)
+        check_split(d, depth, split)
     if increments.device.type == "cpu":
         x = increments.to(storage).to(torch.float32)
         out = sig_trunc_plain(x, depth, stream=stream,
