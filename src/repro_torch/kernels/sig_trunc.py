@@ -42,6 +42,14 @@ CHUNK = 32          # increments staged per shared-memory load (SIG_CHUNK)
 MAX_DEPTH = 16      # SIG_MAX_DEPTH
 MAX_THREADS = 1024
 MAX_CELLS = 65_535  # the grid's y extent
+SMS = 132           # streaming multiprocessors of an H100 SXM
+# top-level words a thread keeps in registers (0: the top level stays in
+# shared memory), and the threads a block may then have: the kernel's
+# MaxBlock, 64, 128 or 255 registers a thread of the SM's 65,536
+MAX_BLOCK = {0: 1024, 1: 1024, 2: 1024, 4: 512, 8: 512, 16: 256, 32: 256}
+MAX_TOP = max(k * t for k, t in MAX_BLOCK.items())  # top words in registers
+CONE_THREADS = 96   # threads the planner aims to give one (example, cone)
+PLAN_TOP = 2048     # the planner's splits keep a cone's top level to this
 MIN_BLOCK = 128     # below this, examples of one cone may share a block
 
 # launch counters: one per kernel cell, bumped where the kernel is launched
@@ -117,11 +125,6 @@ def kernel_smem(d: int, depth: int, s: int, top_slots: int) -> int:
     return 4 * (rows + chain_offsets(d, depth, s)[-1] + CHUNK * depth * d)
 
 
-def max_block(plan) -> int:
-    """Threads a block may have at the plan's top-level slots."""
-    return MAX_THREADS
-
-
 class LaunchPlan(NamedTuple):
     """One launch: split s; ``threads`` per (example, cone);
     ``top_slots`` top-level words a thread keeps in registers (0: the top
@@ -139,8 +142,32 @@ class LaunchPlan(NamedTuple):
         return self.threads * self.examples
 
 
+def slot_threads(top: int, k: int) -> int:
+    """Threads that hold ``top`` words at ``k`` a thread: a power of two
+    below a warp (several examples then share a warp), whole warps
+    above."""
+    t = -(-top // k)
+    return 1 << (t - 1).bit_length() if t < 32 else -(-t // 32) * 32
+
+
+def cone_threads(d: int, depth: int, s: int) -> tuple[int, int]:
+    """(threads, top slots) of one (example, cone) at split ``s``: the
+    fewest slots that keep the threads within ``CONE_THREADS``, else 32
+    slots; a top level wider than the registers hold (``MAX_TOP``) stays
+    in shared memory (0 slots), a thread per word up to 1,024."""
+    top = d ** (depth - s)
+    if top > MAX_TOP:
+        return min(MAX_THREADS, -(-top // 32) * 32), 0
+    for k in (1, 2, 4, 8, 16, 32):
+        if slot_threads(top, k) <= CONE_THREADS:
+            return slot_threads(top, k), k
+    return slot_threads(top, 32), 32
+
+
 def check_split(d: int, depth: int, s: int) -> None:
-    """Raise ValueError unless the kernel can run split ``s``."""
+    """Raise ValueError unless the kernel can run split ``s``: the cone
+    state block fits a block's shared memory (as for ``choose_split``),
+    the cones fit the grid, and the kernel's own shared memory fits."""
     if not 0 <= s < depth:
         raise ValueError(f"split {s} outside [0, {depth})")
     if depth > MAX_DEPTH:
@@ -151,7 +178,7 @@ def check_split(d: int, depth: int, s: int) -> None:
                          f"the {SMEM_BUDGET} bytes a block may take")
     if d**s > MAX_CELLS:
         raise ValueError(f"split {s} gives {d**s} cones, above {MAX_CELLS}")
-    smem = kernel_smem(d, depth, s, 0)
+    smem = kernel_smem(d, depth, s, cone_threads(d, depth, s)[1])
     if smem > SMEM_BUDGET:
         raise ValueError(f"split {s} needs {smem} bytes of shared memory, "
                          f"above the {SMEM_BUDGET} a block may take")
@@ -160,18 +187,40 @@ def check_split(d: int, depth: int, s: int) -> None:
 @plan_cache
 def plan_launch(B: int, d: int, depth: int, split: int | None = None,
                 examples: int | None = None) -> LaunchPlan:
-    """The kernel's partition for (B, ·, d) increments at ``depth``:
-    the smallest split that fits (or ``split``), one example a block,
-    the top level in shared memory and a thread per word of the widest
-    level up to 1,024."""
-    s = choose_split(d, depth) if split is None else split
-    check_split(d, depth, s)
-    e = 1 if examples is None else examples
-    threads = min(MAX_THREADS, max(32, -(-d ** (depth - s) // 32) * 32))
-    smem = kernel_smem(d, depth, s, 0)
-    if e < 1 or e * threads > MAX_THREADS or e * smem > SMEM_BUDGET:
-        raise ValueError(f"{e} examples a block do not fit split {s}")
-    return LaunchPlan(s, threads, 0, e, (-(-B // e), d**s), e * smem)
+    """The kernel's partition for (B, ·, d) increments at ``depth``.
+
+    The split: the smallest feasible one (never below
+    :func:`choose_split`) whose cones keep the top level to ``PLAN_TOP``
+    words and give B·d^s >= ``SMS`` blocks; if none gives that many, the
+    deepest such split.  The threads and top slots: :func:`cone_threads`.
+    Examples of one cone share a block while the block stays within
+    ``MIN_BLOCK`` threads and the blocks still cover every SM.  ``split``
+    and ``examples`` force the cone level and the examples a block."""
+    if split is None:
+        fits = feasible_splits(d, depth)
+        if not fits:
+            raise ValueError(f"no split of d={d}, depth={depth} fits the "
+                             f"kernel ({SMEM_BUDGET} bytes of shared memory)")
+        cands = [s for s in fits if d ** (depth - s) <= PLAN_TOP] or fits
+        s = next((s for s in cands if B * d**s >= SMS), cands[-1])
+    else:
+        s = split
+        check_split(d, depth, s)
+    t, k = cone_threads(d, depth, s)
+    smem = kernel_smem(d, depth, s, k)
+    cells = d**s
+    if examples is None:
+        e = 1
+        while (2 * e * t <= min(MIN_BLOCK, MAX_BLOCK[k]) and 2 * e <= B
+               and 2 * e * smem <= SMEM_BUDGET
+               and -(-B // (2 * e)) * cells >= SMS):
+            e *= 2
+    else:
+        e = examples
+        if e < 1 or e * t > MAX_BLOCK[k] or e * smem > SMEM_BUDGET:
+            raise ValueError(f"{e} examples a block do not fit split {s} "
+                             f"({t} threads and {smem} bytes each)")
+    return LaunchPlan(s, t, k, e, (-(-B // e), cells), e * smem)
 
 
 def feasible_splits(d: int, depth: int) -> list[int]:
@@ -195,7 +244,7 @@ def partition_variants(B: int, d: int, depth: int) -> list[LaunchPlan]:
     for s in feasible_splits(d, depth):
         one = plan_launch(B, d, depth, split=s, examples=1)
         e = 1
-        while (2 * e * one.threads <= min(MIN_BLOCK, max_block(one))
+        while (2 * e * one.threads <= min(MIN_BLOCK, MAX_BLOCK[one.top_slots])
                and 2 * e * one.smem <= SMEM_BUDGET):
             e *= 2
         plans += [one, plan_launch(B, d, depth, split=s, examples=e)]

@@ -276,3 +276,61 @@ def test_scoring_on_card_matches_torch_engine_on_cpu(cuda):
     want = SK.sig_mmd(torch.tensor(refs[:3]), torch.tensor(refs[3:]), 3,
                       backend="torch", device="cpu")
     torch.testing.assert_close(mmd.cpu(), want, rtol=2e-4, atol=2e-5)
+
+
+def _level_relerr(got, want, d, depth):
+    errs, off = [], 0
+    for n in range(1, depth + 1):
+        g, w = got[..., off:off + d**n], want[..., off:off + d**n]
+        errs.append(float((g - w).norm() / w.norm().clamp_min(1e-30)))
+        off += d**n
+    return errs
+
+
+# (B, M, d, N): B off the examples a block shares, M off the 32 staged
+# steps, d from 1 to 10 (d = 10, N = 5 has a split whose top level stays in
+# shared memory), depth up to 16
+RAGGED = [(3, 37, 1, 4), (7, 33, 2, 5), (5, 45, 6, 4), (3, 40, 10, 3),
+          (3, 35, 10, 4), (2, 9, 2, 16), (2, 31, 1, 16), (2, 33, 10, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,d,N", RAGGED)
+def test_every_partition_variant_at_ragged_shapes(cuda, B, M, d, N):
+    x = _incs(B * M + d, B, M, d, cuda)
+    cells = [(False, 1), (True, 1), (True, 3), (True, M)]
+    want = {c: st.sig_trunc_plain(x.double(), N, stream=c[0],
+                                  stream_stride=c[1]) for c in cells}
+    for plan in st.partition_variants(B, d, N):
+        for stream, stride in cells:
+            got = st._launch(x, N, None, stream, stride, "fp32", plan)
+            assert got.shape == want[(stream, stride)].shape, plan
+            torch.testing.assert_close(got.double(), want[(stream, stride)],
+                                       **TOL, msg=lambda m: f"{plan}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,d,N", RAGGED[:5])
+def test_bf16_within_its_level_bound_at_every_partition(cuda, B, M, d, N):
+    x = _incs(B + M * d, B, M, d, cuda)
+    want = st.sig_trunc_plain(x.double(), N)
+    wstream = st.sig_trunc_plain(x.double(), N, stream=True, stream_stride=3)
+    for plan in st.partition_variants(B, d, N):
+        got = st._launch(x, N, None, False, 1, "bf16_fp32", plan)
+        stream = st._launch(x, N, None, True, 3, "bf16_fp32", plan)
+        assert stream.dtype == torch.bfloat16
+        for out, w in ((got, want), (stream, wstream)):
+            rel = _level_relerr(out.double(), w, d, N)
+            assert all(e <= n * 2.0**-8 for n, e in enumerate(rel, 1)), \
+                (plan, rel)
+
+
+@pytest.mark.cuda
+def test_two_runs_are_bitwise_equal(cuda):
+    x = _incs(9, 64, 130, 6, cuda)
+    for plan in st.partition_variants(64, 6, 5):
+        a = st._launch(x, 5, None, False, 1, "fp32", plan)
+        assert torch.equal(a, st._launch(x, 5, None, False, 1, "fp32",
+                                         plan)), plan
+    a = st.sig_trunc(x, 5, stream=True, stream_stride=7)
+    assert torch.equal(a, st.sig_trunc(x, 5, stream=True, stream_stride=7))

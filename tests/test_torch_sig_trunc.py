@@ -199,3 +199,222 @@ def test_cuda_cell_backward_raises(monkeypatch):
 def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         st.sig_trunc(torch.zeros(1, 2, 2, device="meta"), 2)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch planner and shared-memory accounting
+# ---------------------------------------------------------------------------
+
+SWEEP = [(2, 3), (3, 4), (6, 5), (10, 3), (10, 5)]   # chip_smoke.py's
+TABLE1 = ([(32, 100, 6, n) for n in (2, 3, 4, 5)]
+          + [(64, m, 4, 5) for m in (50, 100, 200, 500)]
+          + [(b, 200, 10, 3) for b in (1, 16, 64, 128)])
+PLAN_SHAPES = sorted(set(SWEEP + [(d, N) for _, _, d, N in TABLE1]
+                         + [(1, 4), (2, 16), (40, 3)]))
+
+
+def test_planner_fills_the_card_at_the_serving_micro_batch():
+    plan = st.plan_launch(64, 6, 5)
+    assert (plan.split, plan.threads, plan.top_slots, plan.examples) \
+        == (1, 96, 16, 1)
+    assert plan.grid == (64, 6) and 64 * 6 >= st.SMS
+    assert plan.smem == st.kernel_smem(6, 5, 1, 16) == 6136
+    assert st.plan_launch(2048, 6, 5).grid == (2048, 6)
+
+
+def _check_plan(plan, B, d, N):
+    t, k = plan.threads, plan.top_slots
+    if k:
+        assert t * k >= d ** (N - plan.split)      # every top word owned
+    else:
+        assert d ** (N - plan.split) > st.MAX_TOP  # only when too wide
+    assert plan.block <= st.MAX_BLOCK[k]            # the register budget
+    assert plan.smem == plan.examples * st.kernel_smem(d, N, plan.split, k)
+    assert plan.smem <= st.SMEM_BUDGET
+    assert plan.split >= st.choose_split(d, N)
+    assert plan.grid == (-(-B // plan.examples), d**plan.split)
+    assert plan.grid[1] <= st.MAX_CELLS
+
+
+@pytest.mark.parametrize("B", [1, 5, 64, 2048])
+def test_planner_fits_shared_memory_and_registers(B):
+    for d, N in PLAN_SHAPES:
+        plan = st.plan_launch(B, d, N)
+        _check_plan(plan, B, d, N)
+        top = d ** (N - plan.split)
+        assert top <= st.PLAN_TOP
+        # the smallest split that keeps the top narrow and fills the card
+        narrow = [s for s in st.feasible_splits(d, N)
+                  if d ** (N - s) <= st.PLAN_TOP]
+        full = [s for s in narrow if B * d**s >= st.SMS]
+        assert plan.split == (full[0] if full else narrow[-1])
+
+
+@pytest.mark.parametrize("d,N", PLAN_SHAPES)
+def test_planner_honours_every_split_the_wrapper_accepts(d, N):
+    for s in range(N):
+        try:
+            st.check_split(d, N, s)
+        except ValueError:
+            with pytest.raises(ValueError):
+                st.sig_trunc(torch.zeros(1, 2, d), N, split=s)
+            assert s not in st.feasible_splits(d, N)
+            continue
+        assert s in st.feasible_splits(d, N)
+        for B in (1, 64):
+            plan = st.plan_launch(B, d, N, split=s)
+            assert plan.split == s
+            _check_plan(plan, B, d, N)
+
+
+def test_kernel_smem_counts_the_rows_below_the_top_and_the_buffers():
+    for d, N in PLAN_SHAPES:
+        for s in st.feasible_splits(d, N):
+            low = st.level_rows(d, N, s)[N]
+            assert low + d ** (N - s) == max(0, s - 1) + st.cone_rows(d, N, s)
+            extra = st.chain_offsets(d, N, s)[-1] + st.CHUNK * N * d
+            assert st.kernel_smem(d, N, s, 4) == 4 * (low + extra)
+            assert st.kernel_smem(d, N, s, 0) == 4 * (low + d ** (N - s)
+                                                      + extra)
+
+
+def test_every_split_runs_at_d3_n4_and_a_wide_top_stays_in_shared_memory():
+    assert st.feasible_splits(3, 4) == [0, 1, 2, 3]
+    plan = st.plan_launch(5, 10, 5, split=1)    # 10^4 top-level words
+    assert plan.top_slots == 0 and plan.threads == st.MAX_THREADS
+    with pytest.raises(ValueError):
+        st.plan_launch(5, 10, 5, split=0)       # 444 KB of cone state
+
+
+def test_planner_shares_blocks_between_small_cones():
+    plan = st.plan_launch(2048, 2, 3)   # 8 top-level words a cone
+    assert plan.examples > 1 and plan.block <= st.MIN_BLOCK
+    assert plan.grid[0] * plan.grid[1] >= st.SMS
+    assert st.plan_launch(5, 2, 3).examples == 1   # too few to share
+    forced = st.plan_launch(5, 2, 3, split=0, examples=4)
+    assert forced.examples == 4 and forced.grid == (2, 1)
+    with pytest.raises(ValueError):
+        st.plan_launch(5, 6, 5, split=1, examples=64)  # 64 x 96 threads
+
+
+@pytest.mark.parametrize("B,d,N", [(5, 2, 3), (3, 1, 4), (7, 6, 5),
+                                   (3, 10, 3), (2, 2, 16), (5, 10, 5)])
+def test_partition_variants_cover_every_split_and_sharing(B, d, N):
+    plans = st.partition_variants(B, d, N)
+    assert plans[0] == st.plan_launch(B, d, N)
+    assert {p.split for p in plans} == set(st.feasible_splits(d, N))
+    for p in plans:
+        _check_plan(p, B, d, N)
+    if d**N <= 64:  # small cones: some variant shares a block
+        assert any(p.examples > 1 for p in plans)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's step schedule, emulated in numpy float32
+# ---------------------------------------------------------------------------
+
+def _emulate_kernel(x, d, N, plan):
+    """The CUDA kernel's schedule for every (example, cone) of ``plan``:
+    thread n-1 walks target n's chain along the prefix u from the path's
+    old values; then levels j = s+1..N, thread t taking entries w = t,
+    t+T, ... with parent v and letter i stepped by divmod(T, d) as the
+    kernel steps them.  Level j reads level j-1's chain buffer and leaves
+    its own; each state entry is touched by one thread only.  With top
+    slots the top level lives in per-thread slots k (word t + k·T) and
+    only reads level N-1's buffer.  Returns the (B, d^s, rows) blocks."""
+    B, M, _ = x.shape
+    s, T, KT = plan.split, plan.threads, plan.top_slots
+    cnt = st.level_counts(d, N, s)
+    srow, boff = st.level_rows(d, N, s), st.chain_offsets(d, N, s)
+    rows = max(0, s - 1) + st.cone_rows(d, N, s)
+    qT, rT = divmod(T, d)
+    scale = (1.0 / np.arange(1, N + 1)).astype(np.float32)
+    out = np.zeros((B, d**s, rows), np.float32)
+    jend = N if KT else N + 1
+    for c in range(d**s):
+        u = [0] + [(c // d ** (s - j)) % d for j in range(1, s + 1)]
+        state = np.zeros((B, rows), np.float32)
+        top = np.zeros((B, T, max(KT, 1)), np.float32)
+        buf = np.zeros((B, boff[-1]), np.float32)
+        buf[:, :N] = 1.0
+        for m in range(M):
+            dx = (scale[:, None] * x[:, m, None, :]).astype(np.float32)
+            new = {}
+            for n in range(1, N + 1) if s else ():  # thread (n-1) % T
+                acc = dx[:, n - 1, u[1]]
+                for j in range(2, min(s, n) + 1):  # old path values only
+                    acc = (state[:, j - 2] + acc) * dx[:, n - j, u[j]]
+                if n > s:
+                    buf[:, boff[s] + n - s - 1] = state[:, s - 1] + acc
+                else:
+                    new[n] = state[:, n - 1] + acc
+            for n, val in new.items():  # after every chain has read
+                state[:, n - 1] = val
+            for j in range(s + 1, jend):
+                bp, bc, r = boff[j - 1], boff[j], srow[j]
+                touched = np.zeros(cnt[j], np.int64)
+                nbuf = buf.copy()  # the level's writes land after its reads
+                for t in range(T):
+                    v, i = t // d, t % d
+                    for w in range(t, cnt[j], T):
+                        assert (v, i) == divmod(w, d)
+                        touched[w] += 1
+                        old = state[:, r + w].copy()
+                        state[:, r + w] = old + buf[:, bp + v] * dx[:, 0, i]
+                        for n in range(j + 1, N + 1):
+                            nbuf[:, bc + (n - j - 1) * cnt[j] + w] = (
+                                old + buf[:, bp + (n - j) * cnt[j - 1] + v]
+                                * dx[:, n - j, i])
+                        v, i = v + qT, i + rT
+                        if i >= d:
+                            v, i = v + 1, i - d
+                assert (touched == 1).all()
+                buf = nbuf
+            if KT:  # the top level, in the threads' register slots
+                for t in range(T):
+                    v, i = t // d, t % d
+                    for k in range(KT):
+                        if t + k * T < cnt[N]:
+                            assert (v, i) == divmod(t + k * T, d)
+                            top[:, t, k] += buf[:, boff[N - 1] + v] \
+                                * dx[:, 0, i]
+                        v, i = v + qT, i + rT
+                        if i >= d:
+                            v, i = v + 1, i - d
+        if KT:
+            w = np.arange(cnt[N])
+            assert (w // T < KT).all()
+            state[:, srow[N]:] = top[:, w % T, w // T]
+        out[:, c] = state
+    return out
+
+
+@pytest.mark.parametrize("split", [0, 1, 2, 3])
+def test_emulated_schedule_matches_reference_at_every_split(split):
+    x = _incs(split, 3, 9, 3)
+    want = np.asarray(jops.signature(jnp.asarray(x), 4,
+                                     backend="pallas_interpret",
+                                     batch_tile=8, split=split))
+    for plan in {st.plan_launch(3, 3, 4, split=split),
+                 st.plan_launch(3, 3, 4, split=split, examples=1)}:
+        blocks = _emulate_kernel(x, 3, 4, plan)
+        got = st._reassemble(torch.from_numpy(blocks), 3, 4, split).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_allclose(got, np.asarray(
+            jref.sig_trunc_ref(jnp.asarray(x), 4)), **TOL)
+
+
+@pytest.mark.parametrize("d,N,s,T,KT", [
+    (2, 3, 0, 3, 4), (3, 3, 0, 32, 1), (3, 4, 1, 5, 8), (3, 4, 2, 4, 4),
+    (2, 4, 3, 1, 2), (4, 3, 1, 6, 4), (1, 4, 0, 2, 1), (1, 3, 2, 1, 1),
+    (2, 5, 2, 7, 2), (3, 3, 0, 5, 0), (2, 4, 1, 3, 0),
+])
+def test_emulated_schedule_at_odd_thread_counts(d, N, s, T, KT):
+    """Threads that are no multiple of d, fewer threads than levels, and
+    the top level in shared memory (KT = 0) or in registers."""
+    plan = st.LaunchPlan(s, T, KT, 1, (2, d**s), 0)
+    x = _incs(d * N + s + T, 2, 4, d)
+    got = st._reassemble(torch.from_numpy(_emulate_kernel(x, d, N, plan)),
+                         d, N, s).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jref.sig_trunc_ref(jnp.asarray(x), N)), **TOL)
