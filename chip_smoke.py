@@ -74,8 +74,8 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              (torch.matmul, TF32 off) times of the reference Gram and of
              the largest cross-Gram (kernel and library per call of 20
              back to back, and one call alone), with both bounds; two
-             kernel runs bitwise equal; the cross-Gram at other split-K
-             widths; sig_trunc over the references.
+             kernel runs bitwise equal; sig_trunc over the references
+             (time, bound and partition).
 12. mmd    — sig_mmd of two samples of the §8 lead-lag input (B = 128 each,
              500 increments over 10 letters) on the §8 word set (1,685
              words): two sig_words legs into three sig_gram products,
@@ -222,10 +222,9 @@ def trunc_partition(B: int, d: int, depth: int) -> dict:
 
 def trunc_case(case: str, shape: list, t: dict) -> dict:
     """One entry of the sig_trunc row's ``cases``."""
-    B, d, N = shape[0], shape[2], shape[3]
-    part = trunc_partition(B, d, N)
-    return dict(case=case, shape=shape, split=part["split"], partition=part,
-                ms=t["ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+    part = trunc_partition(shape[0], shape[2], shape[3])
+    return dict(case=case, shape=shape, partition=part, ms=t["ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"])
 
 
 def reset_counts() -> None:
@@ -944,14 +943,6 @@ def phase_scoring(rng) -> dict:
     cross = time_gram(Sq, eng.ref_sigs, eng.weights)
     print_gram("[score] reference Gram", ref)
     print_gram("[score] largest cross-Gram", cross)
-    # the cross-Gram at other split-K widths than the planner's
-    nblk = -(-D // sg.KBLOCK)
-    cross["slice_sweep_ms"] = {
-        str(-(-nblk // per)): cuda_ms_back_to_back(lambda: sg._launch(
-            Sq, eng.ref_sigs, eng.weights, slice_words=per * sg.KBLOCK))
-        for per in sorted({1, 2, 3, 4, 5, 7, 10, nblk})}
-    print(f"[score] cross-Gram ms by word slices: "
-          f"{cross['slice_sweep_ms']}", flush=True)
     # the engine's other parts: the reference signatures and the solve
     incs = tops.path_increments(refs)
     sig_ms = cuda_ms(lambda: st.sig_trunc(incs, depth), 3)

@@ -261,7 +261,7 @@ def test_planner_honours_every_split_the_wrapper_accepts(d, N):
             assert s not in st.feasible_splits(d, N)
             continue
         assert s in st.feasible_splits(d, N)
-        for B in (1, 64):
+        for B in (1, 5, 64, 2048):
             plan = st.plan_launch(B, d, N, split=s)
             assert plan.split == s
             _check_plan(plan, B, d, N)
