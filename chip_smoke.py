@@ -7,7 +7,8 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
 
 1. device  — require a CUDA card; print its name and power limit.
 2. build   — build every kernel under src/repro_torch/kernels/csrc with nvcc
-             (one process per source, all at once); print the seconds.
+             (one process per source, all at once); print the seconds
+             and each kernel instance's registers and spills (ptxas).
 3. kernels — hold the sig_trunc kernel (both cells: terminal and streamed,
              strides 1 and 3; fp32 and bf16_fp32) against its plain
              PyTorch version in float64 on the card, over (d, N) in
@@ -98,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -310,9 +312,13 @@ def phase_build() -> None:
     seconds = _build.build_all()
     print(f"[build] {seconds} ({time.perf_counter() - t0:.1f} s in all)")
     for name, log in _build.build_log.items():
+        entry = ""  # ptxas names each kernel instance before its figures
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name}: {entry}: {line.strip()}")
     sys.stdout.flush()
 
 
