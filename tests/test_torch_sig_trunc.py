@@ -418,3 +418,22 @@ def test_emulated_schedule_at_odd_thread_counts(d, N, s, T, KT):
                          d, N, s).numpy()
     np.testing.assert_allclose(
         got, np.asarray(jref.sig_trunc_ref(jnp.asarray(x), N)), **TOL)
+
+
+def test_old_splits_run_unless_a_wide_top_and_its_buffers_overflow():
+    """Every split the state-footprint rule accepts runs, unless its top
+    level is too wide for the registers and, kept in shared memory with
+    the chain buffers and staged increments, passes the budget."""
+    refused = []
+    for d in range(1, 80):
+        for N in range(1, st.MAX_DEPTH + 1):
+            for s in range(N):
+                if (d ** (N - s) > 10**8 or d**s > st.MAX_CELLS
+                        or st.state_footprint(d, N, s) > st.SMEM_BUDGET):
+                    continue
+                if s in st.feasible_splits(d, N):
+                    continue
+                assert d ** (N - s) > st.MAX_TOP
+                assert st.kernel_smem(d, N, s, 0) > st.SMEM_BUDGET
+                refused.append((d, N, s))
+    assert (2, 14, 0) in refused and (6, 6, 0) in refused
