@@ -14,30 +14,30 @@
 // row r of length n:
 //   acc = 0;  acc = (S_old[prefix_j(r)] + acc) * dx[letter_j(r)] / (n-j),
 //   j = 0..n-1 (prefix_0 is eps);   S[r] += acc
-// Every chain reads only old values, so each thread computes its rows'
-// chains into registers, the block synchronises, and then the chains are
-// added.  Prefix rows and letters are gathered directly by index
-// (prefix_idx, letters: the paper's per-word CUDA assignment); the TPU
-// kernel's one-hot P_j @ S and L_j @ dx products, a workaround for sublane
-// gathers, are not carried over.
+// Prefix rows and letters are gathered directly by index (the paper's
+// per-word CUDA assignment); the TPU kernel's one-hot P_j @ S and L_j @ dx
+// products, a workaround for sublane gathers, are not carried over.
 //
-// What bounds it on this card.  Per step and example the chains need
-// 2·len(r) FP32 operations per closure word (a product and an add, the
-// 1/k scales folded into dx) on the CUDA cores: every product is a scalar
-// chain, so no tensor core applies.  This kernel spends about 3·len(r)
-// (the 1/(n-j) scale is a third product) and repeats each tile's shared
-// ancestor rows.  The bytes are the increments in and the coefficients
-// out, so for the word sets served (hundreds to thousands of words, a few
-// hundred steps) the bound is FP32 arithmetic (67 TFLOP/s), not HBM.
+// What bounds it on this card.  Per step and example the chains need one
+// product and one add per link, the 1/k scales folded into the staged
+// increments, on the CUDA cores: every product is a scalar chain, so no
+// tensor core applies.  The bytes are the increments in and the
+// coefficients out, so for the word sets served (hundreds to thousands of
+// words, a few hundred steps) the bound is FP32 arithmetic (67 TFLOP/s),
+// not HBM.  What holds the kernel above it is a step's latency: a chain is
+// depth dependent (load, add, multiply) links, and the steps are
+// sequential.
 //
-// What the design does about it.  A tile's state and its tables (prefix
-// rows, letters, 1/(n-j), lengths) live in shared memory for the whole
-// scan, loaded once per block; increments are staged SW_CHUNK steps at a
-// time so one global load feeds SW_CHUNK steps; every (example, tile) pair
-// is its own block, so a batch fills the SMs.  Threads stride over rows, up
-// to SW_ROWS_PER_THREAD each.  This first version keeps one example per
-// block and two block barriers per step; several examples per block and
-// warp-level chains are left for later.
+// What the design does about it.  The tables never change during the
+// scan, so each thread loads the links of the rows it owns into registers
+// before the time loop: a link is its prefix row and the offset of its
+// scaled increment, packed into one 32-bit word (DS slots a row, a
+// template parameter, the loop over them unrolled and predicated on the
+// row's length).  A chunk of increments is staged as dx_i/k for k =
+// 1..depth, so a link is one shared load of the state, one of the scaled
+// increment, an add and a product.  The state is double-buffered: step s
+// reads one buffer and writes the other, so a step needs one block
+// barrier; each thread keeps its own rows' values in registers.
 //
 // Precision.  Increments load as fp32 or bf16 (the bf16_fp32 cell) and all
 // accumulation is fp32; the streamed emission buffer is fp32 or bf16,
@@ -51,6 +51,12 @@
 #define SW_ROWS_PER_THREAD 4
 
 namespace {
+
+// threads a block may have at DS link slots and RPT rows a thread: the
+// register budget (65,536 an SM) at about DS·RPT + 32 registers a thread
+template <int DS, int RPT> struct MaxBlock {
+  static constexpr int value = DS * RPT <= 32 ? 1024 : 640;
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -66,97 +72,112 @@ from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Tables are (T, depth, W) for prefix_idx / letters / inv and (T, W) for
-// lengths.  out: (B, T, W+1) when stride == 0, else (B, M_out, T, W+1).
-template <typename InT, typename OutT>
-__global__ void sig_words_kernel(const InT* __restrict__ incs,
-                                 const int* __restrict__ prefix_idx,
-                                 const int* __restrict__ letters,
-                                 const float* __restrict__ inv_tab,
-                                 const int* __restrict__ lengths,
-                                 OutT* __restrict__ out, int M, int d, int W,
-                                 int depth, int stride) {
+// links: (T, depth, W) uint32, (prefix row << 16) | ((n-j-1)·d + letter);
+// lengths: (T, W).  out: (B, T, W+1) when stride == 0, else
+// (B, M_out, T, W+1).
+template <typename InT, typename OutT, int DS, int RPT>
+__global__ void __launch_bounds__(MaxBlock<DS, RPT>::value)
+    sig_words_kernel(const InT* __restrict__ incs,
+                     const unsigned* __restrict__ links,
+                     const int* __restrict__ lengths,
+                     OutT* __restrict__ out, int M, int d, int W, int depth,
+                     int stride, int chunk) {
   extern __shared__ float smem[];
   const int W1 = W + 1;
-  const int DW = depth * W;
-  float* state = smem;                     // W1
-  float* inv = state + W1;                 // DW
-  float* dxs = inv + DW;                   // SW_CHUNK * d
-  int* pidx = reinterpret_cast<int*>(dxs + SW_CHUNK * d);  // DW
-  int* let = pidx + DW;                    // DW
-  int* len = let + DW;                     // W
+  const int nd = depth * d;
+  float* s0 = smem;         // W1: the state before even steps
+  float* s1 = s0 + W1;      // W1: before odd steps
+  float* xs = s1 + W1;      // chunk x depth x d scaled increments
 
   const int b = blockIdx.x;
   const int t = blockIdx.y;
   const int T = gridDim.y;
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
 
-  const size_t tab = (size_t)t * DW;
-  for (int i = threadIdx.x; i < DW; i += blockDim.x) {
-    pidx[i] = prefix_idx[tab + i];
-    let[i] = letters[tab + i];
-    inv[i] = inv_tab[tab + i];
+  // this thread's rows r = tid + k·nth, their lengths and links
+  int len[RPT];
+  unsigned lk[RPT][DS];
+  float own[RPT];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int r = tid + k * nth;
+    len[k] = r < W ? lengths[(size_t)t * W + r] : 0;
+    own[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DS; ++j)
+      lk[k][j] = j < len[k] ? links[((size_t)t * depth + j) * W + r] : 0u;
   }
-  for (int r = threadIdx.x; r < W; r += blockDim.x)
-    len[r] = lengths[(size_t)t * W + r];
-  for (int r = threadIdx.x; r < W1; r += blockDim.x)
-    state[r] = r == 0 ? 1.f : 0.f;
+  for (int r = tid; r < W1; r += nth) {
+    s0[r] = r == 0 ? 1.f : 0.f;
+    s1[r] = r == 0 ? 1.f : 0.f;
+  }
 
   const InT* x = incs + (size_t)b * M * d;
   const int M_out = stride ? (M + stride - 1) / stride : 0;
+  int next_emit = stride - 1, q = 0;
 
-  for (int j0 = 0; j0 < M; j0 += SW_CHUNK) {
-    const int C = min(SW_CHUNK, M - j0);
-    __syncthreads();  // the tables are loaded; the previous chunk is consumed
-    for (int i = threadIdx.x; i < C * d; i += blockDim.x)
-      dxs[i] = to_f32(x[(size_t)j0 * d + i]);
+  for (int j0 = 0; j0 < M; j0 += chunk) {
+    const int C = min(chunk, M - j0);
+    // the previous step's barrier has every read of xs behind it
+    for (int e = tid; e < C * d; e += nth) {
+      const float v = to_f32(x[(size_t)j0 * d + e]);
+      const int st = e / d, i = e - st * d;
+      float* o = xs + st * nd + i;
+      for (int k = 1; k <= depth; ++k) o[(k - 1) * d] = v / (float)k;
+    }
     __syncthreads();
     for (int s = 0; s < C; ++s) {
-      const float* dx = dxs + s * d;
-      float h[SW_ROWS_PER_THREAD];
-#pragma unroll
-      for (int k = 0; k < SW_ROWS_PER_THREAD; ++k) {
-        const int r = threadIdx.x + k * blockDim.x;
-        float acc = 0.f;
-        if (r < W) {
-          const int n = len[r];
-          for (int j = 0; j < n; ++j) {
-            const int q = j * W + r;
-            acc = (state[pidx[q]] + acc) * dx[let[q]] * inv[q];
-          }
-        }
-        h[k] = acc;
-      }
-      __syncthreads();  // every chain has read the old state
-#pragma unroll
-      for (int k = 0; k < SW_ROWS_PER_THREAD; ++k) {
-        const int r = threadIdx.x + k * blockDim.x;
-        if (r < W) state[1 + r] += h[k];
-      }
-      __syncthreads();  // the new state is complete
       const int jg = j0 + s;
-      if (stride && (((jg + 1) % stride) == 0 || jg == M - 1)) {
-        // the next writes to the state come after the next step's first
-        // barrier, which every thread reaches only after this copy
-        OutT* o = out + (((size_t)b * M_out + jg / stride) * T + t) * W1;
-        for (int r = threadIdx.x; r < W1; r += blockDim.x)
-          o[r] = from_f32<OutT>(state[r]);
+      const float* __restrict__ cur = (jg & 1) ? s1 : s0;
+      float* __restrict__ nxt = (jg & 1) ? s0 : s1;
+      const float* __restrict__ dx = xs + s * nd;
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < DS; ++j)
+          if (j < len[k]) {
+            const unsigned l = lk[k][j];
+            acc = (cur[l >> 16] + acc) * dx[l & 0xffffu];
+          }
+        own[k] += acc;
+        const int r = tid + k * nth;
+        if (r < W) nxt[1 + r] = own[k];
+      }
+      __syncthreads();  // nxt is complete; cur may be written from now on
+      if (stride && (jg == next_emit || jg == M - 1)) {
+        OutT* o = out + (((size_t)b * M_out + q) * T + t) * W1;
+        if (tid == 0) o[0] = from_f32<OutT>(1.f);
+#pragma unroll
+        for (int k = 0; k < RPT; ++k) {
+          const int r = tid + k * nth;
+          if (r < W) o[1 + r] = from_f32<OutT>(own[k]);
+        }
+        next_emit += stride;
+        ++q;
       }
     }
   }
   if (!stride) {
     OutT* o = out + ((size_t)b * T + t) * W1;
-    for (int r = threadIdx.x; r < W1; r += blockDim.x)
-      o[r] = from_f32<OutT>(state[r]);
+    if (tid == 0) o[0] = from_f32<OutT>(1.f);
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      const int r = tid + k * nth;
+      if (r < W) o[1 + r] = from_f32<OutT>(own[k]);
+    }
   }
 }
 
-template <typename InT, typename OutT>
-cudaError_t launch(const void* incs, const void* prefix_idx,
-                   const void* letters, const void* inv, const void* lengths,
+template <typename InT, typename OutT, int DS, int RPT>
+cudaError_t launch(const void* incs, const void* links, const void* lengths,
                    void* out, int B, int M, int d, int T, int W, int depth,
-                   int stride, int threads, int smem_bytes,
+                   int stride, int threads, int chunk, int smem_bytes,
                    cudaStream_t stream) {
-  auto kern = sig_words_kernel<InT, OutT>;
+  auto kern = sig_words_kernel<InT, OutT, DS, RPT>;
+  if (threads > MaxBlock<DS, RPT>::value || (long long)threads * RPT < W)
+    return cudaErrorInvalidValue;
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -164,45 +185,80 @@ cudaError_t launch(const void* incs, const void* prefix_idx,
   }
   dim3 grid(B, T);
   kern<<<grid, threads, smem_bytes, stream>>>(
-      static_cast<const InT*>(incs), static_cast<const int*>(prefix_idx),
-      static_cast<const int*>(letters), static_cast<const float*>(inv),
+      static_cast<const InT*>(incs), static_cast<const unsigned*>(links),
       static_cast<const int*>(lengths), static_cast<OutT*>(out), M, d, W,
-      depth, stride);
+      depth, stride, chunk);
   return cudaGetLastError();
+}
+
+template <typename InT, typename OutT, int DS>
+cudaError_t launch_rows(int rpt, const void* incs, const void* links,
+                        const void* lengths, void* out, int B, int M, int d,
+                        int T, int W, int depth, int stride, int threads,
+                        int chunk, int smem, cudaStream_t st) {
+  switch (rpt) {
+    case 1: return launch<InT, OutT, DS, 1>(incs, links, lengths, out, B, M,
+                                            d, T, W, depth, stride, threads,
+                                            chunk, smem, st);
+    case 2: return launch<InT, OutT, DS, 2>(incs, links, lengths, out, B, M,
+                                            d, T, W, depth, stride, threads,
+                                            chunk, smem, st);
+    case 4: return launch<InT, OutT, DS, 4>(incs, links, lengths, out, B, M,
+                                            d, T, W, depth, stride, threads,
+                                            chunk, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename InT, typename OutT>
+cudaError_t launch_slots(int ds, int rpt, const void* incs, const void* links,
+                         const void* lengths, void* out, int B, int M, int d,
+                         int T, int W, int depth, int stride, int threads,
+                         int chunk, int smem, cudaStream_t st) {
+  switch (ds) {
+    case 4: return launch_rows<InT, OutT, 4>(rpt, incs, links, lengths, out,
+                                             B, M, d, T, W, depth, stride,
+                                             threads, chunk, smem, st);
+    case 8: return launch_rows<InT, OutT, 8>(rpt, incs, links, lengths, out,
+                                             B, M, d, T, W, depth, stride,
+                                             threads, chunk, smem, st);
+    case 16: return launch_rows<InT, OutT, 16>(rpt, incs, links, lengths,
+                                               out, B, M, d, T, W, depth,
+                                               stride, threads, chunk, smem,
+                                               st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// incs: (B, M, d) contiguous, fp32 or bf16 (in_bf16).  prefix_idx, letters:
-// (T, depth, W) int32; inv: (T, depth, W) fp32; lengths: (T, W) int32.
-// out: (B, T, W+1) fp32 when stride == 0; (B, ceil(M/stride), T, W+1) fp32
-// or bf16 (out_bf16) when stride >= 1.
+// incs: (B, M, d) contiguous, fp32 or bf16 (in_bf16).  links: (T, depth, W)
+// uint32; lengths: (T, W) int32.  out: (B, T, W+1) fp32 when stride == 0;
+// (B, ceil(M/stride), T, W+1) fp32 or bf16 (out_bf16) when stride >= 1.
+// depth_slots (4, 8 or 16, >= depth) and rows_per_thread (1, 2 or 4) pick
+// the instance; a block takes 4·(2·(W+1) + chunk·depth·d) bytes.
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int sig_words_launch(const void* incs, const void* prefix_idx,
-                                const void* letters, const void* inv,
+extern "C" int sig_words_launch(const void* incs, const void* links,
                                 const void* lengths, void* out, int B, int M,
                                 int d, int T, int W, int depth, int stride,
-                                int in_bf16, int out_bf16, int threads,
+                                int in_bf16, int out_bf16, int depth_slots,
+                                int rows_per_thread, int threads, int chunk,
                                 int smem_bytes, void* stream) {
-  if (depth < 1 || depth > SW_MAX_DEPTH || W < 1 || d < 1 || T < 1 ||
-      T > 65535 || B < 1 || M < 1 || stride < 0 || threads < 32 ||
-      threads > 1024 || W > threads * SW_ROWS_PER_THREAD)
+  if (depth < 1 || depth > SW_MAX_DEPTH || depth > depth_slots || W < 1 ||
+      d < 1 || T < 1 || T > 65535 || B < 1 || M < 1 || stride < 0 ||
+      threads < 32 || chunk < 1 || (out_bf16 && !in_bf16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_bf16) {
-    return (int)(out_bf16
-                     ? launch<__nv_bfloat16, __nv_bfloat16>(
-                           incs, prefix_idx, letters, inv, lengths, out, B, M,
-                           d, T, W, depth, stride, threads, smem_bytes, st)
-                     : launch<__nv_bfloat16, float>(
-                           incs, prefix_idx, letters, inv, lengths, out, B, M,
-                           d, T, W, depth, stride, threads, smem_bytes, st));
-  }
-  return (int)(out_bf16
-                   ? launch<float, __nv_bfloat16>(
-                         incs, prefix_idx, letters, inv, lengths, out, B, M, d,
-                         T, W, depth, stride, threads, smem_bytes, st)
-                   : launch<float, float>(incs, prefix_idx, letters, inv,
-                                          lengths, out, B, M, d, T, W, depth,
-                                          stride, threads, smem_bytes, st));
+  const int ds = depth_slots, rpt = rows_per_thread;
+  if (!in_bf16)
+    return (int)launch_slots<float, float>(ds, rpt, incs, links, lengths, out,
+                                           B, M, d, T, W, depth, stride,
+                                           threads, chunk, smem_bytes, st);
+  if (!out_bf16)
+    return (int)launch_slots<__nv_bfloat16, float>(
+        ds, rpt, incs, links, lengths, out, B, M, d, T, W, depth, stride,
+        threads, chunk, smem_bytes, st);
+  return (int)launch_slots<__nv_bfloat16, __nv_bfloat16>(
+      ds, rpt, incs, links, lengths, out, B, M, d, T, W, depth, stride,
+      threads, chunk, smem_bytes, st);
 }

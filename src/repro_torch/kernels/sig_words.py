@@ -47,6 +47,9 @@ MAX_DEPTH = 16        # SW_MAX_DEPTH: longest word the kernel takes
 ROWS_PER_THREAD = 4   # SW_ROWS_PER_THREAD: chain values a thread holds
 MAX_THREADS = 1024
 MAX_TILES = 65_535    # the grid's y extent
+DEPTH_SLOTS = (4, 8, 16)   # link slots a row: the kernel's instances
+ROWS = (1, 2, 4)           # rows a thread: the kernel's instances
+STAGE_FLOATS = 2048        # scaled increments a chunk may stage
 
 # launch counters: one per kernel cell, bumped where the kernel is launched
 launches = 0
@@ -136,9 +139,44 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_words_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i] * 11 + [p]
+        fn.argtypes = [p] * 4 + [i] * 14 + [p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def depth_slots(depth: int) -> int:
+    """The kernel instance's link slots a row: the least of 4, 8, 16 that
+    holds ``depth``."""
+    return next(s for s in DEPTH_SLOTS if s >= depth)
+
+
+def max_block(slots: int, rows_per_thread: int) -> int:
+    """Threads a block of the (slots, rows a thread) instance may have
+    (the kernel's MaxBlock: its register budget)."""
+    return MAX_THREADS if slots * rows_per_thread <= 32 else 640
+
+
+def link_words(prefix: np.ndarray, letters: np.ndarray, lengths: np.ndarray,
+               d: int) -> np.ndarray:
+    """Links packed as the kernel reads them: (prefix row << 16) | the
+    offset (k-1)·d + letter of the staged dx_letter/k, k = len - j, for
+    (..., depth, W) prefix rows and letters and (..., W) lengths; 0 past a
+    row's length."""
+    j = np.arange(prefix.shape[-2])[:, None]
+    k = lengths[..., None, :] - j
+    if prefix.max(initial=0) >= 1 << 16 or prefix.shape[-2] * d > 1 << 16:
+        raise ValueError("a tile's rows or depth·d exceed the kernel's 16-bit"
+                         " link fields")
+    words = (prefix.astype(np.uint32) << 16) | ((k - 1) * d + letters).astype(
+        np.uint32)
+    return np.where(k >= 1, words, 0).astype(np.uint32)
+
+
+@plan_cache
+def _links_on(tplan: TiledPlan, device: torch.device) -> torch.Tensor:
+    tt = tile_tables(tplan)
+    links = link_words(tt.prefix_idx, tt.letters, tt.lengths, tplan.d)
+    return torch.as_tensor(links.view(np.int32), device=device)
 
 
 def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
@@ -148,8 +186,18 @@ def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
     global launches, stream_launches
     B, M, d = incs.shape
     tt = tile_tables(tplan)
-    threads, smem = launch_geometry(tt, d)
+    launch_geometry(tt, d)
+    ds = depth_slots(tt.depth)
+    rpt = next((r for r in ROWS if -(-tt.w_pad // r) <= max_block(ds, r)),
+               None)
+    if rpt is None:
+        raise ValueError(f"a tile of {tt.w_pad} rows exceeds the kernel; "
+                         "tile with a smaller max_rows")
+    threads = -(-(-(-tt.w_pad // rpt)) // 32) * 32
+    chunk = max(1, min(CHUNK, STAGE_FLOATS // (tt.depth * d)))
+    smem = 4 * (2 * (1 + tt.w_pad) + chunk * tt.depth * d)
     tabs = _tables_on(tplan, incs.device)
+    links = _links_on(tplan, incs.device)
     storage = _storage_dtype(precision)
     x = incs.detach().to(storage).contiguous()
     T, W1 = tt.n_tiles, 1 + tt.w_pad
@@ -161,13 +209,11 @@ def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.sig_words_launch(
-            x.data_ptr(), tabs["prefix_idx"].data_ptr(),
-            tabs["letters"].data_ptr(), tabs["inv"].data_ptr(),
-            tabs["lengths"].data_ptr(), out.data_ptr(), B, M, d, T,
-            tt.w_pad, tt.depth, stride if stream else 0,
-            int(storage == torch.bfloat16),
-            int(stream and storage == torch.bfloat16), threads, smem,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), links.data_ptr(), tabs["lengths"].data_ptr(),
+            out.data_ptr(), B, M, d, T, tt.w_pad, tt.depth,
+            stride if stream else 0, int(storage == torch.bfloat16),
+            int(stream and storage == torch.bfloat16), ds, rpt, threads,
+            chunk, smem, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"sig_words kernel launch failed with cudaError "
                            f"{err} (B={B}, M={M}, d={d}, tiles={T}, "
