@@ -511,9 +511,17 @@ def within(got: torch.Tensor, want: torch.Tensor, rtol: float) -> bool:
                  + rtol * want.abs()).all())
 
 
+def words_part(plan) -> str:
+    return (f"groups={len(plan.groups)} rows={plan.rows} "
+            f"r_pad={plan.r_pad} rpt={plan.rows_per_thread} "
+            f"slots={plan.depth_slots} threads={plan.threads} "
+            f"examples={plan.examples} chunk={plan.chunk}")
+
+
 def phase_words_kernels(rng) -> dict:
-    """sig_words against its plain version, every cell; returns the max
-    fp32 |error| per kernel name.  bf16_fp32 is held against the plain
+    """sig_words against its plain version, every cell, at every
+    partition the planner can choose (sw.partition_variants); returns the
+    max fp32 |error| per kernel name.  bf16_fp32 is held against the plain
     version on the same bf16-rounded increments (streamed emissions within
     one bf16 rounding, 2^-8), and each full level against the unrounded
     answer within n·2^-8."""
@@ -526,31 +534,35 @@ def phase_words_kernels(rng) -> dict:
             xq = x.float().to(torch.bfloat16).double()
             for max_rows in MAX_ROWS:
                 tp = make_tiled_plan(words, d, max_rows=max_rows)
+                plans = sw.partition_variants(5, sw.tile_tables(tp), d)
                 for stream, stride in cells:
                     kname = "sig_words_stream" if stream else "sig_words"
-                    where = (f"{kname} [{name}] M={M} max_rows={max_rows} "
-                             f"tiles={len(tp.tiles)} stride={stride}")
                     kw = dict(stream=stream, stream_stride=stride)
                     want = sw.sig_words_plain(x, tp, **kw)
-                    got = sw.sig_words(x.float(), tp, **kw).double()
-                    torch.cuda.synchronize()
-                    check(got.shape == want.shape, f"{where}: shape")
-                    err = float((got - want).abs().max())
-                    check(within(got, want, TOL["rtol"]),
-                          f"{where} fp32: max |err| {err:.3e}")
-                    max_err[kname] = max(max_err[kname], err)
-                    got = sw.sig_words(x.float(), tp, precision="bf16_fp32",
-                                       **kw).double()
                     want_q = sw.sig_words_plain(xq, tp, **kw)
-                    errq = float((got - want_q).abs().max())
-                    check(within(got, want_q,
-                                 2.0**-8 if stream else TOL["rtol"]),
-                          f"{where} bf16_fp32 vs plain on the rounded "
-                          f"increments: max |err| {errq:.3e}")
-                    rel = full_level_errors(got, want, tp.words, d)
-                    check(all(e <= n * 2.0**-8 for n, e in rel.items()),
-                          f"{where} bf16_fp32: full-level errors {rel}")
-                    cases += 2
+                    for plan in plans:
+                        where = (f"{kname} [{name}] M={M} max_rows="
+                                 f"{max_rows} tiles={len(tp.tiles)} "
+                                 f"stride={stride} {words_part(plan)}")
+                        got = sw._launch(x.float(), tp, stream, stride,
+                                         "fp32", plan).double()
+                        torch.cuda.synchronize()
+                        check(got.shape == want.shape, f"{where}: shape")
+                        err = float((got - want).abs().max())
+                        check(within(got, want, TOL["rtol"]),
+                              f"{where} fp32: max |err| {err:.3e}")
+                        max_err[kname] = max(max_err[kname], err)
+                        got = sw._launch(x.float(), tp, stream, stride,
+                                         "bf16_fp32", plan).double()
+                        errq = float((got - want_q).abs().max())
+                        check(within(got, want_q,
+                                     2.0**-8 if stream else TOL["rtol"]),
+                              f"{where} bf16_fp32 vs plain on the rounded "
+                              f"increments: max |err| {errq:.3e}")
+                        rel = full_level_errors(got, want, tp.words, d)
+                        check(all(e <= n * 2.0**-8 for n, e in rel.items()),
+                              f"{where} bf16_fp32: full-level errors {rel}")
+                        cases += 2
             print(f"[words] {name:24s} d={d} M={M:2d} {len(words):3d} words: "
                   f"max|err| {max(max_err.values()):.2e}", flush=True)
     print(f"[words] {cases} cases within tolerance", flush=True)

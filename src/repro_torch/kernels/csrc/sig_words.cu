@@ -49,13 +49,18 @@
 #define SW_MAX_DEPTH 16
 #define SW_CHUNK 32
 #define SW_ROWS_PER_THREAD 4
+#define SW_PREFETCH 4  // raw increments a thread fetches ahead
 
 namespace {
 
-// threads a block may have at DS link slots and RPT rows a thread: the
-// register budget (65,536 an SM) at about DS·RPT + 32 registers a thread
-template <int DS, int RPT> struct MaxBlock {
-  static constexpr int value = DS * RPT <= 32 ? 1024 : 640;
+// The (DS link slots, RPT rows a thread) instance's launch bounds: the
+// most threads a block may have and the blocks an SM should hold, so that
+// ptxas keeps every link in registers within 42, 64, 128 or 255 registers
+// a thread (65,536 an SM).
+template <int DS, int RPT> struct Bounds {
+  static constexpr int links = DS * RPT;
+  static constexpr int threads = links <= 32 ? 512 : 256;
+  static constexpr int blocks = links <= 4 ? 3 : links <= 8 ? 2 : 1;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -72,99 +77,144 @@ from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// links: (T, depth, W) uint32, (prefix row << 16) | ((n-j-1)·d + letter);
-// lengths: (T, W).  out: (B, T, W+1) when stride == 0, else
-// (B, M_out, T, W+1).
+struct WordsGeom {
+  int B, M, d, depth, nd;  // nd = depth·d scaled increments a step
+  int R1;                  // 1 + rows of the widest group: a state buffer
+  int T, E;                // threads an example, examples a block
+  int chunk, stride, M_out;
+  int groups_on_x;         // groups on the grid's x axis (else examples)
+  int xs;                  // floats of one staged chunk: chunk·nd
+  int ex_floats;           // floats of one example's shared region
+};
+
+// dx_i/k for k = 1..depth of one raw increment, element e of a chunk
+__device__ __forceinline__ void stage(float* buf, int e, float v, int d,
+                                      int nd, int depth) {
+  const int st = e / d, i = e - st * d;
+  float* o = buf + st * nd + i;
+  for (int k = 1; k <= depth; ++k) o[(k - 1) * d] = v / (float)k;
+}
+
+// links: (G, depth, R) uint32, (prefix row << 16) | ((n-j-1)·d + letter),
+// the prefix row counted in the group's state (0 = eps); lengths: (G, R).
+// out: (B, G, R+1) when stride == 0, else (B, M_out, G, R+1).
 template <typename InT, typename OutT, int DS, int RPT>
-__global__ void __launch_bounds__(MaxBlock<DS, RPT>::value)
+__global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
+                                  Bounds<DS, RPT>::blocks)
     sig_words_kernel(const InT* __restrict__ incs,
                      const unsigned* __restrict__ links,
                      const int* __restrict__ lengths,
-                     OutT* __restrict__ out, int M, int d, int W, int depth,
-                     int stride, int chunk) {
+                     OutT* __restrict__ out, WordsGeom g) {
   extern __shared__ float smem[];
-  const int W1 = W + 1;
-  const int nd = depth * d;
-  float* s0 = smem;         // W1: the state before even steps
-  float* s1 = s0 + W1;      // W1: before odd steps
-  float* xs = s1 + W1;      // chunk x depth x d scaled increments
+  const int M = g.M, d = g.d, depth = g.depth, nd = g.nd, T = g.T;
+  const int R1 = g.R1, W = R1 - 1;
+  // the block holds g.E examples of one group, T threads each
+  const int ex = threadIdx.x / T;
+  const int t = threadIdx.x - ex * T;
+  const int grp = g.groups_on_x ? blockIdx.x : blockIdx.y;
+  const int G = g.groups_on_x ? gridDim.x : gridDim.y;
+  const int b = (g.groups_on_x ? blockIdx.y : blockIdx.x) * g.E + ex;
+  const bool live = b < g.B;  // spare examples of the last block run zeros
+  float* s0 = smem + (size_t)ex * g.ex_floats;  // R1: state before even steps
+  float* s1 = s0 + R1;                          // R1: before odd steps
+  float* xb0 = s1 + R1;                         // chunk x depth x d, even
+  float* xb1 = xb0 + g.xs;                      // odd chunks
 
-  const int b = blockIdx.x;
-  const int t = blockIdx.y;
-  const int T = gridDim.y;
-  const int tid = threadIdx.x;
-  const int nth = blockDim.x;
-
-  // this thread's rows r = tid + k·nth, their lengths and links
+  // this thread's rows r = t + k·T, their lengths and links, in registers
   int len[RPT];
   unsigned lk[RPT][DS];
   float own[RPT];
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
-    const int r = tid + k * nth;
-    len[k] = r < W ? lengths[(size_t)t * W + r] : 0;
+    const int r = t + k * T;
+    len[k] = r < W ? lengths[(size_t)grp * W + r] : 0;
     own[k] = 0.f;
 #pragma unroll
     for (int j = 0; j < DS; ++j)
-      lk[k][j] = j < len[k] ? links[((size_t)t * depth + j) * W + r] : 0u;
+      lk[k][j] =
+          j < len[k] ? links[((size_t)grp * depth + j) * W + r] : 0u;
   }
-  for (int r = tid; r < W1; r += nth) {
+  for (int r = t; r < R1; r += T) {
     s0[r] = r == 0 ? 1.f : 0.f;
     s1[r] = r == 0 ? 1.f : 0.f;
   }
+  const InT* x = incs + (size_t)(live ? b : 0) * M * d;
+  {
+    const int C = min(g.chunk, M);
+    for (int e = t; e < C * d; e += T)
+      stage(xb0, e, live ? to_f32(x[e]) : 0.f, d, nd, depth);
+  }
+  __syncthreads();
 
-  const InT* x = incs + (size_t)b * M * d;
-  const int M_out = stride ? (M + stride - 1) / stride : 0;
-  int next_emit = stride - 1, q = 0;
-
-  for (int j0 = 0; j0 < M; j0 += chunk) {
-    const int C = min(chunk, M - j0);
-    // the previous step's barrier has every read of xs behind it
-    for (int e = tid; e < C * d; e += nth) {
-      const float v = to_f32(x[(size_t)j0 * d + e]);
-      const int st = e / d, i = e - st * d;
-      float* o = xs + st * nd + i;
-      for (int k = 1; k <= depth; ++k) o[(k - 1) * d] = v / (float)k;
+  int next_emit = g.stride - 1, q = 0;
+  for (int j0 = 0, c = 0; j0 < M; j0 += g.chunk, ++c) {
+    const int C = min(g.chunk, M - j0);
+    const int jn = j0 + C;
+    const int Cn = min(g.chunk, M - jn);  // <= 0 after the last chunk
+    const float* xcur = (c & 1) ? xb1 : xb0;
+    float* xnext = (c & 1) ? xb0 : xb1;
+    // the next chunk's raw increments, PF a thread (the host keeps
+    // chunk·d <= PF·T), in flight while this chunk runs
+    float pre[SW_PREFETCH];
+#pragma unroll
+    for (int p = 0; p < SW_PREFETCH; ++p) {
+      const int e = t + p * T;
+      pre[p] = live && e < Cn * d ? to_f32(x[(size_t)jn * d + e]) : 0.f;
     }
-    __syncthreads();
     for (int s = 0; s < C; ++s) {
       const int jg = j0 + s;
       const float* __restrict__ cur = (jg & 1) ? s1 : s0;
       float* __restrict__ nxt = (jg & 1) ? s0 : s1;
-      const float* __restrict__ dx = xs + s * nd;
+      const float* __restrict__ dx = xcur + s * nd;
 #pragma unroll
       for (int k = 0; k < RPT; ++k) {
         float acc = 0.f;
+        if (len[k] > 0) {
+          // link 0 reads eps, which is 1: the chain starts at dx/n
+          acc = dx[lk[k][0] & 0xffffu];
 #pragma unroll
-        for (int j = 0; j < DS; ++j)
-          if (j < len[k]) {
-            const unsigned l = lk[k][j];
-            acc = (cur[l >> 16] + acc) * dx[l & 0xffffu];
-          }
+          for (int j = 1; j < DS; ++j)
+            if (j < len[k]) {
+              const unsigned l = lk[k][j];
+              acc = (cur[l >> 16] + acc) * dx[l & 0xffffu];
+            }
+        }
         own[k] += acc;
-        const int r = tid + k * nth;
+        const int r = t + k * T;
         if (r < W) nxt[1 + r] = own[k];
       }
-      __syncthreads();  // nxt is complete; cur may be written from now on
-      if (stride && (jg == next_emit || jg == M - 1)) {
-        OutT* o = out + (((size_t)b * M_out + q) * T + t) * W1;
-        if (tid == 0) o[0] = from_f32<OutT>(1.f);
+      if (s == C - 1) {
+        // the chunk after next last read xnext before this chunk began
 #pragma unroll
-        for (int k = 0; k < RPT; ++k) {
-          const int r = tid + k * nth;
-          if (r < W) o[1 + r] = from_f32<OutT>(own[k]);
+        for (int p = 0; p < SW_PREFETCH; ++p) {
+          const int e = t + p * T;
+          if (e < Cn * d) stage(xnext, e, pre[p], d, nd, depth);
         }
-        next_emit += stride;
+      }
+      // nxt is complete; cur may be written from now on (the step after
+      // next writes it only after the next step's barrier)
+      __syncthreads();
+      if (g.stride && (jg == next_emit || jg == M - 1)) {
+        if (live) {
+          OutT* o = out + (((size_t)b * g.M_out + q) * G + grp) * R1;
+          if (t == 0) o[0] = from_f32<OutT>(1.f);
+#pragma unroll
+          for (int k = 0; k < RPT; ++k) {
+            const int r = t + k * T;
+            if (r < W) o[1 + r] = from_f32<OutT>(own[k]);
+          }
+        }
+        next_emit += g.stride;
         ++q;
       }
     }
   }
-  if (!stride) {
-    OutT* o = out + ((size_t)b * T + t) * W1;
-    if (tid == 0) o[0] = from_f32<OutT>(1.f);
+  if (!g.stride && live) {
+    OutT* o = out + ((size_t)b * G + grp) * R1;
+    if (t == 0) o[0] = from_f32<OutT>(1.f);
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
-      const int r = tid + k * nth;
+      const int r = t + k * T;
       if (r < W) o[1 + r] = from_f32<OutT>(own[k]);
     }
   }
@@ -172,93 +222,105 @@ __global__ void __launch_bounds__(MaxBlock<DS, RPT>::value)
 
 template <typename InT, typename OutT, int DS, int RPT>
 cudaError_t launch(const void* incs, const void* links, const void* lengths,
-                   void* out, int B, int M, int d, int T, int W, int depth,
-                   int stride, int threads, int chunk, int smem_bytes,
+                   void* out, int G, const WordsGeom& g,
                    cudaStream_t stream) {
   auto kern = sig_words_kernel<InT, OutT, DS, RPT>;
-  if (threads > MaxBlock<DS, RPT>::value || (long long)threads * RPT < W)
+  if (g.T * g.E > Bounds<DS, RPT>::threads ||
+      (long long)g.T * RPT < g.R1 - 1)
     return cudaErrorInvalidValue;
-  if (smem_bytes > 48 * 1024) {
+  const long long smem = 4LL * g.E * g.ex_floats;
+  if (smem > 232448) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid(B, T);
-  kern<<<grid, threads, smem_bytes, stream>>>(
+  const int nb = (g.B + g.E - 1) / g.E;
+  dim3 grid = g.groups_on_x ? dim3(G, nb) : dim3(nb, G);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  kern<<<grid, g.T * g.E, (int)smem, stream>>>(
       static_cast<const InT*>(incs), static_cast<const unsigned*>(links),
-      static_cast<const int*>(lengths), static_cast<OutT*>(out), M, d, W,
-      depth, stride, chunk);
+      static_cast<const int*>(lengths), static_cast<OutT*>(out), g);
   return cudaGetLastError();
 }
 
 template <typename InT, typename OutT, int DS>
 cudaError_t launch_rows(int rpt, const void* incs, const void* links,
-                        const void* lengths, void* out, int B, int M, int d,
-                        int T, int W, int depth, int stride, int threads,
-                        int chunk, int smem, cudaStream_t st) {
+                        const void* lengths, void* out, int G,
+                        const WordsGeom& g, cudaStream_t st) {
   switch (rpt) {
-    case 1: return launch<InT, OutT, DS, 1>(incs, links, lengths, out, B, M,
-                                            d, T, W, depth, stride, threads,
-                                            chunk, smem, st);
-    case 2: return launch<InT, OutT, DS, 2>(incs, links, lengths, out, B, M,
-                                            d, T, W, depth, stride, threads,
-                                            chunk, smem, st);
-    case 4: return launch<InT, OutT, DS, 4>(incs, links, lengths, out, B, M,
-                                            d, T, W, depth, stride, threads,
-                                            chunk, smem, st);
+    case 1: return launch<InT, OutT, DS, 1>(incs, links, lengths, out, G, g,
+                                            st);
+    case 2: return launch<InT, OutT, DS, 2>(incs, links, lengths, out, G, g,
+                                            st);
+    case 4: return launch<InT, OutT, DS, 4>(incs, links, lengths, out, G, g,
+                                            st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename InT, typename OutT>
 cudaError_t launch_slots(int ds, int rpt, const void* incs, const void* links,
-                         const void* lengths, void* out, int B, int M, int d,
-                         int T, int W, int depth, int stride, int threads,
-                         int chunk, int smem, cudaStream_t st) {
+                         const void* lengths, void* out, int G,
+                         const WordsGeom& g, cudaStream_t st) {
   switch (ds) {
     case 4: return launch_rows<InT, OutT, 4>(rpt, incs, links, lengths, out,
-                                             B, M, d, T, W, depth, stride,
-                                             threads, chunk, smem, st);
+                                             G, g, st);
     case 8: return launch_rows<InT, OutT, 8>(rpt, incs, links, lengths, out,
-                                             B, M, d, T, W, depth, stride,
-                                             threads, chunk, smem, st);
+                                             G, g, st);
     case 16: return launch_rows<InT, OutT, 16>(rpt, incs, links, lengths,
-                                               out, B, M, d, T, W, depth,
-                                               stride, threads, chunk, smem,
-                                               st);
+                                               out, G, g, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// incs: (B, M, d) contiguous, fp32 or bf16 (in_bf16).  links: (T, depth, W)
-// uint32; lengths: (T, W) int32.  out: (B, T, W+1) fp32 when stride == 0;
-// (B, ceil(M/stride), T, W+1) fp32 or bf16 (out_bf16) when stride >= 1.
-// depth_slots (4, 8 or 16, >= depth) and rows_per_thread (1, 2 or 4) pick
-// the instance; a block takes 4·(2·(W+1) + chunk·depth·d) bytes.
+// incs: (B, M, d) contiguous, fp32 or bf16 (in_bf16).  links: (G, depth,
+// R) uint32; lengths: (G, R) int32 (R: rows of the widest group).
+// out: (B, G, R+1) fp32 when stride == 0; (B, ceil(M/stride), G, R+1) fp32
+// or bf16 (out_bf16, with in_bf16) when stride >= 1.  depth_slots (4, 8 or
+// 16, >= depth) and rows_per_thread (1, 2 or 4) pick the instance; threads
+// an example (threads·rows_per_thread >= R, chunk·d <= SW_PREFETCH·threads)
+// and examples a block.  A block takes examples·4·(2·(R+1) +
+// 2·chunk·depth·d) bytes of dynamic shared memory
+// (sig_words.py::plan_words_launch).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int sig_words_launch(const void* incs, const void* links,
                                 const void* lengths, void* out, int B, int M,
-                                int d, int T, int W, int depth, int stride,
+                                int d, int G, int R, int depth, int stride,
                                 int in_bf16, int out_bf16, int depth_slots,
-                                int rows_per_thread, int threads, int chunk,
-                                int smem_bytes, void* stream) {
-  if (depth < 1 || depth > SW_MAX_DEPTH || depth > depth_slots || W < 1 ||
-      d < 1 || T < 1 || T > 65535 || B < 1 || M < 1 || stride < 0 ||
-      threads < 32 || chunk < 1 || (out_bf16 && !in_bf16))
+                                int rows_per_thread, int threads, int examples,
+                                int chunk, void* stream) {
+  if (depth < 1 || depth > SW_MAX_DEPTH || depth > depth_slots || R < 1 ||
+      d < 1 || G < 1 || B < 1 || M < 1 || stride < 0 || threads < 1 ||
+      examples < 1 || chunk < 1 || chunk > SW_CHUNK ||
+      rows_per_thread > SW_ROWS_PER_THREAD || (long long)chunk * d >
+      (long long)SW_PREFETCH * threads || (out_bf16 && !in_bf16))
     return (int)cudaErrorInvalidValue;
+  WordsGeom g;
+  g.B = B;
+  g.M = M;
+  g.d = d;
+  g.depth = depth;
+  g.nd = depth * d;
+  g.R1 = R + 1;
+  g.T = threads;
+  g.E = examples;
+  g.chunk = chunk;
+  g.stride = stride;
+  g.M_out = stride ? (M + stride - 1) / stride : 0;
+  g.groups_on_x = G > (B + examples - 1) / examples;
+  g.xs = chunk * g.nd;
+  g.ex_floats = 2 * g.R1 + 2 * g.xs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ds = depth_slots, rpt = rows_per_thread;
   if (!in_bf16)
     return (int)launch_slots<float, float>(ds, rpt, incs, links, lengths, out,
-                                           B, M, d, T, W, depth, stride,
-                                           threads, chunk, smem_bytes, st);
+                                           G, g, st);
   if (!out_bf16)
-    return (int)launch_slots<__nv_bfloat16, float>(
-        ds, rpt, incs, links, lengths, out, B, M, d, T, W, depth, stride,
-        threads, chunk, smem_bytes, st);
+    return (int)launch_slots<__nv_bfloat16, float>(ds, rpt, incs, links,
+                                                   lengths, out, G, g, st);
   return (int)launch_slots<__nv_bfloat16, __nv_bfloat16>(
-      ds, rpt, incs, links, lengths, out, B, M, d, T, W, depth, stride,
-      threads, chunk, smem_bytes, st);
+      ds, rpt, incs, links, lengths, out, G, g, st);
 }

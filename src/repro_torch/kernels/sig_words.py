@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import heapq
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,9 +49,14 @@ MAX_DEPTH = 16        # SW_MAX_DEPTH: longest word the kernel takes
 ROWS_PER_THREAD = 4   # SW_ROWS_PER_THREAD: chain values a thread holds
 MAX_THREADS = 1024
 MAX_TILES = 65_535    # the grid's y extent
+SMS = 132             # streaming multiprocessors of an H100 SXM
 DEPTH_SLOTS = (4, 8, 16)   # link slots a row: the kernel's instances
 ROWS = (1, 2, 4)           # rows a thread: the kernel's instances
-STAGE_FLOATS = 2048        # scaled increments a chunk may stage
+STAGE_FLOATS = 2048   # scaled increments a chunk may stage
+PREFETCH = 4          # SW_PREFETCH: raw increments a thread fetches ahead
+GROUP_ROWS = 128      # the planner's cap on a group's closure rows
+EXAMPLE_THREADS = 256  # more rows a thread above this many an example
+MIN_BLOCK = 128       # below this, examples of one group share a block
 
 # launch counters: one per kernel cell, bumped where the kernel is launched
 launches = 0
@@ -151,9 +158,212 @@ def depth_slots(depth: int) -> int:
 
 
 def max_block(slots: int, rows_per_thread: int) -> int:
-    """Threads a block of the (slots, rows a thread) instance may have
-    (the kernel's MaxBlock: its register budget)."""
-    return MAX_THREADS if slots * rows_per_thread <= 32 else 640
+    """Threads a block of the (slots, rows a thread) instance may have:
+    the kernel's launch bounds (``Bounds``), set so that its links stay in
+    registers."""
+    return 512 if slots * rows_per_thread <= 32 else 256
+
+
+def tile_sizes(tt: TileTables) -> tuple[int, ...]:
+    """Closure rows of each tile (its rows of nonzero length)."""
+    return tuple(int(n) for n in (tt.lengths > 0).sum(1))
+
+
+def _lpt(sizes: tuple[int, ...], tiles: list[int], n: int,
+         rows: int) -> list[list[int]] | None:
+    """``tiles`` (largest first) over ``n`` groups, each to the least
+    loaded; None if a group would pass ``rows``."""
+    heap = [(0, g) for g in range(n)]
+    groups: list[list[int]] = [[] for _ in range(n)]
+    for t in tiles:
+        load, g = heapq.heappop(heap)
+        if load + sizes[t] > rows:
+            return None
+        groups[g].append(t)
+        heapq.heappush(heap, (load + sizes[t], g))
+    return groups
+
+
+@plan_cache
+def pack_tiles(sizes: tuple[int, ...], rows: int) -> tuple[tuple[int, ...],
+                                                            ...]:
+    """Tiles packed into groups of at most ``rows`` closure rows: a tile
+    wider than ``rows`` is a group of its own; the others go largest
+    first, each to the least loaded of the fewest groups that keep every
+    load within ``rows``.  Tiles are never split."""
+    wide = [(t,) for t, n in enumerate(sizes) if n > rows]
+    rest = sorted((t for t, n in enumerate(sizes) if n <= rows),
+                  key=lambda t: (-sizes[t], t))
+    if not rest:
+        return tuple(wide)
+    lo, hi = -(-sum(sizes[t] for t in rest) // rows), len(rest)
+    while lo < hi:  # the fewest groups (one a tile always fits)
+        mid = (lo + hi) // 2
+        if _lpt(sizes, rest, mid, rows) is None:
+            lo = mid + 1
+        else:
+            hi = mid
+    return tuple(wide) + tuple(tuple(g) for g in _lpt(sizes, rest, lo, rows))
+
+
+class WordsLaunch(NamedTuple):
+    """One launch: the tiles of each group; the packing cap ``rows`` and
+    the rows of the widest group; the instance (rows a thread, link
+    slots); ``threads`` an example and ``examples`` of one group a block;
+    the increments staged a chunk; the grid (the larger count on x) and a
+    block's dynamic shared memory."""
+    groups: tuple[tuple[int, ...], ...]
+    rows: int
+    r_pad: int
+    rows_per_thread: int
+    depth_slots: int
+    threads: int
+    examples: int
+    chunk: int
+    grid: tuple[int, int]
+    smem: int
+
+    @property
+    def block(self) -> int:
+        return self.threads * self.examples
+
+
+def _warps(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def example_smem(r_pad: int, chunk: int, depth: int, d: int) -> int:
+    """Dynamic shared-memory bytes of one example: two state buffers of
+    1 + r_pad rows and two chunks of scaled increments."""
+    return 4 * (2 * (1 + r_pad) + 2 * chunk * depth * d)
+
+
+def example_cap(plan: WordsLaunch) -> int:
+    """The most examples a block of ``plan``'s instance may hold."""
+    return min(max_block(plan.depth_slots, plan.rows_per_thread)
+               // plan.threads, SMEM_BUDGET // (plan.smem // plan.examples))
+
+
+@plan_cache
+def plan_words_launch(B: int, tt: TileTables, d: int, *,
+                      rows: int | None = None,
+                      examples: int | None = None) -> WordsLaunch:
+    """The kernel's partition for (B, ·, d) increments over ``tt``'s tiles.
+
+    Starts from :func:`launch_geometry` (its errors: ``MAX_DEPTH``, the
+    tile count, ``max_rows``).  Tiles pack into groups of ``rows``
+    (default ``GROUP_ROWS``) closure rows (:func:`pack_tiles`); a thread
+    takes 1, 2 or 4 rows, the fewest that keep an example within
+    ``EXAMPLE_THREADS`` threads; examples of one group share a block while
+    it stays within ``MIN_BLOCK`` threads and the blocks cover every SM.
+    ``rows`` and ``examples`` force the cap and the examples a block."""
+    launch_geometry(tt, d)
+    R = GROUP_ROWS if rows is None else rows
+    if R < 1:
+        raise ValueError(f"rows must be >= 1, got {R}")
+    sizes = tile_sizes(tt)
+    groups = pack_tiles(sizes, R)
+    r_pad = max(sum(sizes[t] for t in g) for g in groups)
+    ds = depth_slots(tt.depth)
+    rpt = next((r for r in ROWS if -(-r_pad // r) <= EXAMPLE_THREADS),
+               ROWS[-1])
+    threads = max(_warps(-(-r_pad // rpt)), _warps(-(-d // PREFETCH)))
+    if threads > max_block(ds, rpt):
+        raise ValueError(f"a group of {r_pad} rows at depth {tt.depth} "
+                         f"needs {threads} threads, above the kernel's "
+                         f"{max_block(ds, rpt)}; tile with a smaller "
+                         "max_rows")
+    chunk = max(1, min(CHUNK, PREFETCH * threads // d,
+                       STAGE_FLOATS // (tt.depth * d)))
+    ex_smem = example_smem(r_pad, chunk, tt.depth, d)
+    if ex_smem > SMEM_BUDGET:
+        raise ValueError(f"an example needs {ex_smem} bytes of shared memory"
+                         f", above the {SMEM_BUDGET} a block may take")
+    G = len(groups)
+    cap = min(max_block(ds, rpt) // threads, SMEM_BUDGET // ex_smem)
+    if examples is None:
+        e = 1
+        while (2 * e * threads <= MIN_BLOCK and 2 * e <= min(cap, B)
+               and -(-B // (2 * e)) * G >= SMS):
+            e *= 2
+    else:
+        e = examples
+        if not 1 <= e <= cap:
+            raise ValueError(f"{e} examples a block do not fit ({threads} "
+                             f"threads and {ex_smem} bytes each; at most "
+                             f"{cap})")
+    nb = -(-B // e)
+    if min(nb, G) > MAX_TILES:
+        raise ValueError(f"{nb} example blocks and {G} groups exceed the "
+                         "grid")
+    return WordsLaunch(groups, R, r_pad, rpt, ds, threads, e, chunk,
+                       (max(nb, G), min(nb, G)), e * ex_smem)
+
+
+def partition_variants(B: int, tt: TileTables, d: int) -> list[WordsLaunch]:
+    """Every partition the planner can choose for a (B, ·, d) batch: its
+    own; one tile and one example a block; and for both packings the
+    most examples a block may hold.  For tests and chip_smoke.py."""
+    own = plan_words_launch(B, tt, d)
+    plans = [own]
+    for rows in (1, own.rows):
+        one = plan_words_launch(B, tt, d, rows=rows, examples=1)
+        plans += [one, plan_words_launch(B, tt, d, rows=rows,
+                                         examples=example_cap(one))]
+    return list(dict.fromkeys(plans))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PackedTables:
+    """A packing's tables, laid out (G, ·, r_pad): each tile's rows follow
+    the tiles before it in its group, behind one shared eps row."""
+    r_pad: int
+    links: np.ndarray     # (G, depth, r_pad) uint32, see link_words
+    lengths: np.ndarray   # (G, r_pad) int32, 0 on padding rows
+    group: np.ndarray     # (T,) group of each tile
+    offset: np.ndarray    # (T,) packed rows before each tile's first
+    rows: np.ndarray      # (|I|,) state row of each requested word
+    gather: np.ndarray    # (|I|,) int64 into the flat (G, 1 + r_pad)
+
+
+@plan_cache
+def packed_tables(tt: TileTables, groups: tuple[tuple[int, ...], ...],
+                  d: int) -> PackedTables:
+    sizes = tile_sizes(tt)
+    G, depth = len(groups), tt.depth
+    r_pad = max(sum(sizes[t] for t in g) for g in groups)
+    pidx = np.zeros((G, depth, r_pad), np.int32)
+    letters = np.zeros((G, depth, r_pad), np.int32)
+    lengths = np.zeros((G, r_pad), np.int32)
+    group = np.zeros(tt.n_tiles, np.int64)
+    offset = np.zeros(tt.n_tiles, np.int64)
+    for g, tiles in enumerate(groups):
+        o = 0
+        for t in tiles:
+            W = sizes[t]
+            p = tt.prefix_idx[t, :, :W]
+            pidx[g, :, o:o + W] = np.where(p > 0, p + o, 0)
+            letters[g, :, o:o + W] = tt.letters[t, :, :W]
+            lengths[g, o:o + W] = tt.lengths[t, :W]
+            group[t], offset[t] = g, o
+            o += W
+    # each requested word: (tile, row) of the padded tiles, then its group
+    t, r = np.divmod(tt.gather, 1 + tt.w_pad)
+    rows = offset[t] + r
+    return PackedTables(r_pad=r_pad,
+                        links=link_words(pidx, letters, lengths, d),
+                        lengths=lengths, group=group, offset=offset,
+                        rows=rows, gather=group[t] * (1 + r_pad) + rows)
+
+
+@plan_cache
+def _packed_on(tt: TileTables, groups: tuple[tuple[int, ...], ...], d: int,
+               device: torch.device) -> dict:
+    pk = packed_tables(tt, groups, d)
+    return dict(links=torch.as_tensor(pk.links.view(np.int32),
+                                      device=device),
+                lengths=torch.as_tensor(pk.lengths, device=device),
+                gather=torch.as_tensor(pk.gather, device=device))
 
 
 def link_words(prefix: np.ndarray, letters: np.ndarray, lengths: np.ndarray,
@@ -172,53 +382,40 @@ def link_words(prefix: np.ndarray, letters: np.ndarray, lengths: np.ndarray,
     return np.where(k >= 1, words, 0).astype(np.uint32)
 
 
-@plan_cache
-def _links_on(tplan: TiledPlan, device: torch.device) -> torch.Tensor:
-    tt = tile_tables(tplan)
-    links = link_words(tt.prefix_idx, tt.letters, tt.lengths, tplan.d)
-    return torch.as_tensor(links.view(np.int32), device=device)
-
-
 def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
-            precision: str) -> torch.Tensor:
+            precision: str, plan: WordsLaunch | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA increments (B, M, d), B, M >= 1.  Returns
-    fp32 (B, |I|), or (B, M_out, |I|) in the storage dtype."""
+    fp32 (B, |I|), or (B, M_out, |I|) in the storage dtype.  ``plan``
+    (from :func:`plan_words_launch`) replaces the planner's, for tests and
+    measurements."""
     global launches, stream_launches
     B, M, d = incs.shape
     tt = tile_tables(tplan)
-    launch_geometry(tt, d)
-    ds = depth_slots(tt.depth)
-    rpt = next((r for r in ROWS if -(-tt.w_pad // r) <= max_block(ds, r)),
-               None)
-    if rpt is None:
-        raise ValueError(f"a tile of {tt.w_pad} rows exceeds the kernel; "
-                         "tile with a smaller max_rows")
-    threads = -(-(-(-tt.w_pad // rpt)) // 32) * 32
-    chunk = max(1, min(CHUNK, STAGE_FLOATS // (tt.depth * d)))
-    smem = 4 * (2 * (1 + tt.w_pad) + chunk * tt.depth * d)
-    tabs = _tables_on(tplan, incs.device)
-    links = _links_on(tplan, incs.device)
+    if plan is None:
+        plan = plan_words_launch(B, tt, d)
+    tabs = _packed_on(tt, plan.groups, d, incs.device)
     storage = _storage_dtype(precision)
     x = incs.detach().to(storage).contiguous()
-    T, W1 = tt.n_tiles, 1 + tt.w_pad
+    G, R1 = len(plan.groups), 1 + plan.r_pad
     if stream:
-        out = torch.empty((B, -(-M // stride), T, W1), dtype=storage,
+        out = torch.empty((B, -(-M // stride), G, R1), dtype=storage,
                           device=x.device)
     else:
-        out = torch.empty((B, T, W1), dtype=torch.float32, device=x.device)
+        out = torch.empty((B, G, R1), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.sig_words_launch(
-            x.data_ptr(), links.data_ptr(), tabs["lengths"].data_ptr(),
-            out.data_ptr(), B, M, d, T, tt.w_pad, tt.depth,
-            stride if stream else 0, int(storage == torch.bfloat16),
-            int(stream and storage == torch.bfloat16), ds, rpt, threads,
-            chunk, smem, torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), tabs["links"].data_ptr(),
+            tabs["lengths"].data_ptr(), out.data_ptr(), B, M, d, G,
+            plan.r_pad, tt.depth, stride if stream else 0,
+            int(storage == torch.bfloat16),
+            int(stream and storage == torch.bfloat16), plan.depth_slots,
+            plan.rows_per_thread, plan.threads, plan.examples, plan.chunk,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"sig_words kernel launch failed with cudaError "
-                           f"{err} (B={B}, M={M}, d={d}, tiles={T}, "
-                           f"W_pad={tt.w_pad}, depth={tt.depth}, "
-                           f"threads={threads}, smem={smem})")
+                           f"{err} (B={B}, M={M}, d={d}, depth={tt.depth}, "
+                           f"{plan._replace(groups=len(plan.groups))})")
     if stream:
         stream_launches += 1
     else:
