@@ -32,9 +32,12 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              d = 4, anisotropic_words((1, 2, 1.5), 4), all_words(2, 4) +
              Lyndon_5, and 20 random word sets from the seed (d in 2..4,
              lengths 1..4, repeats allowed), max_rows in {8, 32, 256},
-             B = 5, M in {1, 37}.  fp32 as in phase 3; bf16_fp32 against
-             the plain version on the same rounded increments (emissions
-             within 2^-8) and every full level within n·2^-8.
+             B = 5, M in {1, 37}, at every partition the planner can
+             choose (sig_words.partition_variants: its own, one tile and
+             one example a block, and the most examples a block for both
+             packings).  fp32 as in phase 3; bf16_fp32 against the plain
+             version on the same rounded increments (emissions within
+             2^-8) and every full level within n·2^-8.
 7. cross   — ops.projected over all_words(6, 5) (sig_words) equals
              ops.signature(·, 5) (sig_trunc) at (32, 100, 6, 5).
 8. project — the paper's §8 projection at full width: Brownian paths
@@ -45,11 +48,14 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              only, a ragged ops.projected (lengths) and a streamed call
              (stride 10); one launch per call; values against the plain
              version (16 ragged rows on their unpadded paths); kernel and
-             plain times and the bound; the truncated ops.signature(·, 4)
-             time of the same input as information.
+             plain times, the bound and the planner's partition; the
+             truncated ops.signature(·, 4) time of the same input as
+             information.
 9. logsig  — logsignature_projected on the card at every cell of
              benchmarks/table3_logsig.py, one sig_words launch per call,
-             held against the dense logsignature on the torch engine.
+             held against the dense logsignature on the torch engine; the
+             sig_words kernel alone over each cell's closure tiles (time,
+             plain time, bound and partition).
 10. gram   — hold the sig_gram kernel against its plain version in float64
              on the card: B_x, B_y in {1, 7, 63, 64, 65, 128, 129, 130, 300},
              D in {1, 6, 127, 511, 512, 513, 1025, 1685, 9330} (both sides
@@ -84,8 +90,10 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              1e-4·max|K_64|; the 128 × 128 × 1,685 Gram timed as in 11.
 13. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
-             streamed cell, each with ms, bound and partition), the card's
-             name and power limit, then the device line last.
+             streamed cell; the sig_words row with its cases: §8 terminal,
+             §8 streamed, the largest Table 3 set; each with ms, bound and
+             partition), the card's name and power limit, then the device
+             line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -179,10 +187,18 @@ def horner_flops(d: int, depth: int) -> int:
 
 def words_flops(plan) -> int:
     """Least FP32 operations of one word-table Horner step for one example
-    over a plan's untiled prefix closure: 2·len(r) per closure word r (a
-    product and an add per letter, each 1/k scale folded into dx).  The
+    over a plan's untiled prefix closure, chain prefixes shared as in
+    horner_flops: for each target length n, with P_j the distinct length-j
+    prefixes of the closure words of length n, |P_1| values acc_1 = dx/n,
+    then |P_{j-1}| adds and |P_j| products per j = 2..n, then |P_n| adds
+    into the state.  Equal to horner_flops(d, N) on all_words(d, N); the
     ancestor rows that tiles repeat do not count."""
-    return 2 * int(plan.lengths.sum())
+    total = 0
+    for n in {len(w) for w in plan.closure}:
+        ws = [w for w in plan.closure if len(w) == n]
+        p = [len({w[:j] for w in ws}) for j in range(n + 1)]
+        total += p[1] + sum(p[j - 1] + p[j] for j in range(2, n + 1)) + p[n]
+    return total
 
 
 def bound(B: int, M: int, d: int, depth: int, in_bytes: int,
@@ -220,6 +236,16 @@ def trunc_partition(B: int, d: int, depth: int) -> dict:
     return dict(split=p.split, threads=p.threads, top_slots=p.top_slots,
                 examples=p.examples, block=p.block,
                 blocks=p.grid[0] * p.grid[1], smem=p.smem)
+
+
+def words_partition(B: int, tp, d: int) -> dict:
+    """The planner's sig_words partition for a (B, ·, d) batch."""
+    p = sw.plan_words_launch(B, sw.tile_tables(tp), d)
+    return dict(groups=len(p.groups), rows=p.rows, r_pad=p.r_pad,
+                rows_per_thread=p.rows_per_thread,
+                depth_slots=p.depth_slots, threads=p.threads,
+                examples=p.examples, block=p.block,
+                blocks=p.grid[0] * p.grid[1], chunk=p.chunk, smem=p.smem)
 
 
 def trunc_case(case: str, shape: list, t: dict) -> dict:
@@ -670,16 +696,18 @@ def phase_projection(rng) -> dict:
                         B * (-(-M2 // stride)) * len(ctp.words), 4,
                         words_flops(plan))
     trunc_ms = cuda_ms(lambda: ops.signature(incs, N), 10)
+    part = words_partition(B, tp, 2 * d)
+    part_s = words_partition(B, ctp, 2 * d)
     print(f"[project] sig_words (B={B}, M={M2}, d={2 * d}, {len(words)} "
-          f"words, {len(tp.tiles)} tiles): {ms:.3f} ms, plain "
+          f"words, {len(tp.tiles)} tiles, {part}): {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}); truncated "
           f"ops.signature(·, {N}) ({sum((2 * d)**k for k in range(1, N + 1))}"
           f" coefficients): {trunc_ms:.3f} ms", flush=True)
     print(f"[project] sig_words_stream (stride {stride}, closure "
-          f"{len(ctp.words)} words, {len(ctp.tiles)} tiles): {ms_s:.3f} ms, "
-          f"plain {plain_ms_s:.3f} ms, bound {bms_s:.4f} ms ({by_s})",
-          flush=True)
-    return dict(
+          f"{len(ctp.words)} words, {len(ctp.tiles)} tiles, {part_s}): "
+          f"{ms_s:.3f} ms, plain {plain_ms_s:.3f} ms, bound {bms_s:.4f} ms "
+          f"({by_s})", flush=True)
+    return dict(partition=part, stream_partition=part_s,
         launches=n4["sig_words"], stream_launches=n4["sig_words_stream"],
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         stream_ms=ms_s, stream_plain_ms=plain_ms_s, stream_bound_ms=bms_s,
@@ -691,7 +719,9 @@ def phase_projection(rng) -> dict:
 
 
 def phase_logsig(rng) -> list:
-    """logsignature_projected on the card at the Table 3 cells."""
+    """logsignature_projected on the card at the Table 3 cells, and the
+    sig_words kernel alone over each cell's closure tiles (as ops.projected
+    tiles W_{<=N-1} ∪ Lyndon_N)."""
     rows = []
     for B, M, d, N in TABLE3:
         path = brownian(rng, B, M, d)
@@ -708,11 +738,25 @@ def phase_logsig(rng) -> list:
         err = float((got.double() - want).abs().max())
         ms = cuda_ms(lambda: logsignature_projected(path, N), 5)
         dense_ms = cuda_ms(lambda: logsignature(path, N), 5)
+        plan = make_plan(all_words(d, N - 1) + [
+            w for w in lyndon_words(d, N) if len(w) == N], d)
+        ctp = make_tiled_plan(plan.closure, d)
+        incs = tops.path_increments(path)
+        kms = cuda_ms(lambda: sw.sig_words(incs, ctp), 10)
+        kplain = cuda_ms(lambda: sw.sig_words_plain(incs, ctp), 1)
+        bms, by = bound(B, M, d, N, 4, B * plan.closure_size, 4,
+                        words_flops(plan))
         rows.append(dict(B=B, M=M, d=d, N=N, launches=n["sig_words"],
-                         max_abs_err=err, ms=ms, dense_ms=dense_ms))
+                         max_abs_err=err, ms=ms, dense_ms=dense_ms,
+                         words=plan.closure_size, kernel_ms=kms,
+                         kernel_plain_ms=kplain, bound_ms=bms, bound_by=by,
+                         partition=words_partition(B, ctp, d)))
         print(f"[logsig] B={B:2d} M={M:3d} d={d:2d} N={N}: projected "
               f"(sig_words) {ms:7.3f} ms, dense (sig_trunc) {dense_ms:7.3f} "
-              f"ms, max |err| vs dense torch {err:.2e}", flush=True)
+              f"ms, max |err| vs dense torch {err:.2e}; sig_words alone over "
+              f"{plan.closure_size} words {kms:.4f} ms, plain {kplain:.3f} "
+              f"ms, bound {bms:.4f} ms ({by}), {rows[-1]['partition']}",
+              flush=True)
     return rows
 
 
@@ -1048,6 +1092,20 @@ def main() -> int:
                    largest),
         trunc_case("streamed", stream["shape"], stream)]
     wsrc = "src/repro_torch/kernels/csrc/sig_words.cu"
+    t3 = max(logsig, key=lambda r: r["bound_ms"])
+    words_cases = [
+        dict(case="§8 terminal", shape=proj["shape"][:4],
+             words=proj["words"], partition=proj["partition"],
+             ms=proj["ms"], bound_ms=proj["bound_ms"],
+             bound_by=proj["bound_by"]),
+        dict(case="§8 streamed", shape=proj["shape"],
+             words=proj["closure"], partition=proj["stream_partition"],
+             ms=proj["stream_ms"], bound_ms=proj["stream_bound_ms"],
+             bound_by=proj["stream_bound_by"]),
+        dict(case="largest Table 3 set", shape=[t3[k] for k in "BMdN"],
+             words=t3["words"], partition=t3["partition"],
+             ms=t3["kernel_ms"], bound_ms=t3["bound_ms"],
+             bound_by=t3["bound_by"])]
     kernels = [
         dict(name="sig_trunc", route="cuda", source=src,
              replaces="src/repro/kernels/sig_trunc.py:300",
@@ -1066,7 +1124,7 @@ def main() -> int:
              launches=proj["launches"], max_abs_err=words_err["sig_words"],
              ms=proj["ms"], plain_ms=proj["plain_ms"],
              bound_ms=proj["bound_ms"], bound_by=proj["bound_by"],
-             library_ms=None),
+             library_ms=None, cases=words_cases),
         dict(name="sig_words_stream", route="cuda", source=wsrc,
              replaces="src/repro/kernels/sig_words.py:212",
              launches=proj["stream_launches"],

@@ -55,26 +55,21 @@ namespace {
 
 // The (DS link slots, RPT rows a thread) instance's launch bounds: the
 // most threads a block may have and the blocks an SM should hold, so that
-// ptxas keeps every link in registers within 42, 64, 128 or 255 registers
+// ptxas keeps every link in registers within 64, 128 or 255 registers
 // a thread (65,536 an SM).
 template <int DS, int RPT> struct Bounds {
   static constexpr int links = DS * RPT;
   static constexpr int threads = links <= 32 ? 512 : 256;
-  static constexpr int blocks = links <= 4 ? 3 : links <= 8 ? 2 : 1;
+  static constexpr int blocks = links <= 4 ? 2 : 1;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// Increments and emissions are fp32 or bf16, chosen at run time: they are
+// touched only when a chunk is staged and when the state is emitted, never
+// in the step loop, so one instance serves every type pair.
+__device__ __forceinline__ float load_inc(const void* x, size_t i,
+                                          int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i])
+              : static_cast<const float*>(x)[i];
 }
 
 struct WordsGeom {
@@ -82,6 +77,8 @@ struct WordsGeom {
   int R1;                  // 1 + rows of the widest group: a state buffer
   int T, E;                // threads an example, examples a block
   int chunk, stride, M_out;
+  int n_out;               // columns of the output: the requested words
+  int in_bf16, out_bf16;   // increments, emissions: bf16 (else fp32)
   int groups_on_x;         // groups on the grid's x axis (else examples)
   int xs;                  // floats of one staged chunk: chunk·nd
   int ex_floats;           // floats of one example's shared region
@@ -95,16 +92,37 @@ __device__ __forceinline__ void stage(float* buf, int e, float v, int d,
   for (int k = 1; k <= depth; ++k) o[(k - 1) * d] = v / (float)k;
 }
 
+// One example's requested words from a complete state buffer: entries
+// emit_off[grp]..emit_off[grp+1] of the group's emission list, each a
+// state row and its output column, in column order.
+__device__ __forceinline__ void emit(void* out, size_t o, const float* S,
+                                     const int* __restrict__ rows,
+                                     const int* __restrict__ cols, int e0,
+                                     int e1, int t, int T, int bf16) {
+  if (bf16) {
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out) + o;
+    for (int i = e0 + t; i < e1; i += T)
+      ob[cols[i]] = __float2bfloat16_rn(S[rows[i]]);
+  } else {
+    float* of = static_cast<float*>(out) + o;
+    for (int i = e0 + t; i < e1; i += T) of[cols[i]] = S[rows[i]];
+  }
+}
+
 // links: (G, depth, R) uint32, (prefix row << 16) | ((n-j-1)·d + letter),
-// the prefix row counted in the group's state (0 = eps); lengths: (G, R).
-// out: (B, G, R+1) when stride == 0, else (B, M_out, G, R+1).
-template <typename InT, typename OutT, int DS, int RPT>
+// the prefix row counted in the group's state (0 = eps); lengths: (G, R);
+// emit_off: (G+1,), emit_rows, emit_cols: (n_out,).
+// out: (B, n_out) when stride == 0, else (B, M_out, n_out).
+template <int DS, int RPT>
 __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
                                   Bounds<DS, RPT>::blocks)
-    sig_words_kernel(const InT* __restrict__ incs,
+    sig_words_kernel(const void* __restrict__ incs,
                      const unsigned* __restrict__ links,
                      const int* __restrict__ lengths,
-                     OutT* __restrict__ out, WordsGeom g) {
+                     const int* __restrict__ emit_off,
+                     const int* __restrict__ emit_rows,
+                     const int* __restrict__ emit_cols,
+                     void* __restrict__ out, WordsGeom g) {
   extern __shared__ float smem[];
   const int M = g.M, d = g.d, depth = g.depth, nd = g.nd, T = g.T;
   const int R1 = g.R1, W = R1 - 1;
@@ -112,10 +130,10 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
   const int ex = threadIdx.x / T;
   const int t = threadIdx.x - ex * T;
   const int grp = g.groups_on_x ? blockIdx.x : blockIdx.y;
-  const int G = g.groups_on_x ? gridDim.x : gridDim.y;
+  const int e0 = emit_off[grp], e1 = emit_off[grp + 1];
   const int b = (g.groups_on_x ? blockIdx.y : blockIdx.x) * g.E + ex;
   const bool live = b < g.B;  // spare examples of the last block run zeros
-  float* s0 = smem + (size_t)ex * g.ex_floats;  // R1: state before even steps
+  float* s0 = smem + (size_t)ex * g.ex_floats;  // R1: before even steps
   float* s1 = s0 + R1;                          // R1: before odd steps
   float* xb0 = s1 + R1;                         // chunk x depth x d, even
   float* xb1 = xb0 + g.xs;                      // odd chunks
@@ -138,11 +156,12 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
     s0[r] = r == 0 ? 1.f : 0.f;
     s1[r] = r == 0 ? 1.f : 0.f;
   }
-  const InT* x = incs + (size_t)(live ? b : 0) * M * d;
+  const size_t x0 = (size_t)(live ? b : 0) * M * d;  // this example's row
   {
     const int C = min(g.chunk, M);
     for (int e = t; e < C * d; e += T)
-      stage(xb0, e, live ? to_f32(x[e]) : 0.f, d, nd, depth);
+      stage(xb0, e, live ? load_inc(incs, x0 + e, g.in_bf16) : 0.f, d, nd,
+            depth);
   }
   __syncthreads();
 
@@ -159,7 +178,9 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
 #pragma unroll
     for (int p = 0; p < SW_PREFETCH; ++p) {
       const int e = t + p * T;
-      pre[p] = live && e < Cn * d ? to_f32(x[(size_t)jn * d + e]) : 0.f;
+      pre[p] = live && e < Cn * d
+                   ? load_inc(incs, x0 + (size_t)jn * d + e, g.in_bf16)
+                   : 0.f;
     }
     for (int s = 0; s < C; ++s) {
       const int jg = j0 + s;
@@ -195,36 +216,24 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
       // next writes it only after the next step's barrier)
       __syncthreads();
       if (g.stride && (jg == next_emit || jg == M - 1)) {
-        if (live) {
-          OutT* o = out + (((size_t)b * g.M_out + q) * G + grp) * R1;
-          if (t == 0) o[0] = from_f32<OutT>(1.f);
-#pragma unroll
-          for (int k = 0; k < RPT; ++k) {
-            const int r = t + k * T;
-            if (r < W) o[1 + r] = from_f32<OutT>(own[k]);
-          }
-        }
+        if (live)
+          emit(out, ((size_t)b * g.M_out + q) * g.n_out, nxt, emit_rows,
+               emit_cols, e0, e1, t, T, g.out_bf16);
         next_emit += g.stride;
         ++q;
       }
     }
   }
-  if (!g.stride && live) {
-    OutT* o = out + ((size_t)b * G + grp) * R1;
-    if (t == 0) o[0] = from_f32<OutT>(1.f);
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const int r = t + k * T;
-      if (r < W) o[1 + r] = from_f32<OutT>(own[k]);
-    }
-  }
+  // the last step wrote s0 when M is even
+  if (!g.stride && live)
+    emit(out, (size_t)b * g.n_out, (M & 1) ? s1 : s0, emit_rows, emit_cols,
+         e0, e1, t, T, 0);
 }
 
-template <typename InT, typename OutT, int DS, int RPT>
-cudaError_t launch(const void* incs, const void* links, const void* lengths,
-                   void* out, int G, const WordsGeom& g,
-                   cudaStream_t stream) {
-  auto kern = sig_words_kernel<InT, OutT, DS, RPT>;
+template <int DS, int RPT>
+cudaError_t launch(const void* incs, const void* const* tabs, void* out,
+                   int G, const WordsGeom& g, cudaStream_t stream) {
+  auto kern = sig_words_kernel<DS, RPT>;
   if (g.T * g.E > Bounds<DS, RPT>::threads ||
       (long long)g.T * RPT < g.R1 - 1)
     return cudaErrorInvalidValue;
@@ -239,37 +248,21 @@ cudaError_t launch(const void* incs, const void* links, const void* lengths,
   dim3 grid = g.groups_on_x ? dim3(G, nb) : dim3(nb, G);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   kern<<<grid, g.T * g.E, (int)smem, stream>>>(
-      static_cast<const InT*>(incs), static_cast<const unsigned*>(links),
-      static_cast<const int*>(lengths), static_cast<OutT*>(out), g);
+      incs, static_cast<const unsigned*>(tabs[0]),
+      static_cast<const int*>(tabs[1]), static_cast<const int*>(tabs[2]),
+      static_cast<const int*>(tabs[3]), static_cast<const int*>(tabs[4]), out,
+      g);
   return cudaGetLastError();
 }
 
-template <typename InT, typename OutT, int DS>
-cudaError_t launch_rows(int rpt, const void* incs, const void* links,
-                        const void* lengths, void* out, int G,
-                        const WordsGeom& g, cudaStream_t st) {
+template <int DS>
+cudaError_t launch_rows(int rpt, const void* incs, const void* const* tabs,
+                        void* out, int G, const WordsGeom& g,
+                        cudaStream_t st) {
   switch (rpt) {
-    case 1: return launch<InT, OutT, DS, 1>(incs, links, lengths, out, G, g,
-                                            st);
-    case 2: return launch<InT, OutT, DS, 2>(incs, links, lengths, out, G, g,
-                                            st);
-    case 4: return launch<InT, OutT, DS, 4>(incs, links, lengths, out, G, g,
-                                            st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename InT, typename OutT>
-cudaError_t launch_slots(int ds, int rpt, const void* incs, const void* links,
-                         const void* lengths, void* out, int G,
-                         const WordsGeom& g, cudaStream_t st) {
-  switch (ds) {
-    case 4: return launch_rows<InT, OutT, 4>(rpt, incs, links, lengths, out,
-                                             G, g, st);
-    case 8: return launch_rows<InT, OutT, 8>(rpt, incs, links, lengths, out,
-                                             G, g, st);
-    case 16: return launch_rows<InT, OutT, 16>(rpt, incs, links, lengths,
-                                               out, G, g, st);
+    case 1: return launch<DS, 1>(incs, tabs, out, G, g, st);
+    case 2: return launch<DS, 2>(incs, tabs, out, G, g, st);
+    case 4: return launch<DS, 4>(incs, tabs, out, G, g, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -277,26 +270,30 @@ cudaError_t launch_slots(int ds, int rpt, const void* incs, const void* links,
 }  // namespace
 
 // incs: (B, M, d) contiguous, fp32 or bf16 (in_bf16).  links: (G, depth,
-// R) uint32; lengths: (G, R) int32 (R: rows of the widest group).
-// out: (B, G, R+1) fp32 when stride == 0; (B, ceil(M/stride), G, R+1) fp32
-// or bf16 (out_bf16, with in_bf16) when stride >= 1.  depth_slots (4, 8 or
-// 16, >= depth) and rows_per_thread (1, 2 or 4) pick the instance; threads
-// an example (threads·rows_per_thread >= R, chunk·d <= SW_PREFETCH·threads)
-// and examples a block.  A block takes examples·4·(2·(R+1) +
-// 2·chunk·depth·d) bytes of dynamic shared memory
-// (sig_words.py::plan_words_launch).
+// R) uint32 and lengths: (G, R) int32 (R: rows of the widest group);
+// emit_off: (G+1,), emit_rows and emit_cols: (n_out,) int32, the emission
+// list of every group.  out: (B, n_out) fp32 when stride == 0;
+// (B, ceil(M/stride), n_out) fp32 or bf16 (out_bf16, with in_bf16) when
+// stride >= 1.  depth_slots (4, 8 or 16, >= depth) and rows_per_thread (1,
+// 2 or 4) pick the instance; threads an example (threads·rows_per_thread
+// >= R, chunk·d <= SW_PREFETCH·threads) and examples a block.  A block
+// takes examples·4·(2·(R+1) + 2·chunk·depth·d) bytes of dynamic shared
+// memory (sig_words.py::example_smem).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int sig_words_launch(const void* incs, const void* links,
-                                const void* lengths, void* out, int B, int M,
-                                int d, int G, int R, int depth, int stride,
-                                int in_bf16, int out_bf16, int depth_slots,
+                                const void* lengths, const void* emit_off,
+                                const void* emit_rows, const void* emit_cols,
+                                void* out, int B, int M, int d, int G, int R,
+                                int n_out, int depth, int stride, int in_bf16,
+                                int out_bf16, int depth_slots,
                                 int rows_per_thread, int threads, int examples,
                                 int chunk, void* stream) {
   if (depth < 1 || depth > SW_MAX_DEPTH || depth > depth_slots || R < 1 ||
-      d < 1 || G < 1 || B < 1 || M < 1 || stride < 0 || threads < 1 ||
-      examples < 1 || chunk < 1 || chunk > SW_CHUNK ||
-      rows_per_thread > SW_ROWS_PER_THREAD || (long long)chunk * d >
-      (long long)SW_PREFETCH * threads || (out_bf16 && !in_bf16))
+      d < 1 || G < 1 || B < 1 || M < 1 || n_out < 1 || stride < 0 ||
+      threads < 1 || examples < 1 || chunk < 1 || chunk > SW_CHUNK ||
+      rows_per_thread > SW_ROWS_PER_THREAD ||
+      (long long)chunk * d > (long long)SW_PREFETCH * threads ||
+      (out_bf16 && !in_bf16))
     return (int)cudaErrorInvalidValue;
   WordsGeom g;
   g.B = B;
@@ -310,17 +307,21 @@ extern "C" int sig_words_launch(const void* incs, const void* links,
   g.chunk = chunk;
   g.stride = stride;
   g.M_out = stride ? (M + stride - 1) / stride : 0;
+  g.n_out = n_out;
+  g.in_bf16 = in_bf16;
+  g.out_bf16 = out_bf16;
   g.groups_on_x = G > (B + examples - 1) / examples;
   g.xs = chunk * g.nd;
   g.ex_floats = 2 * g.R1 + 2 * g.xs;
+  const void* tabs[5] = {links, lengths, emit_off, emit_rows, emit_cols};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ds = depth_slots, rpt = rows_per_thread;
-  if (!in_bf16)
-    return (int)launch_slots<float, float>(ds, rpt, incs, links, lengths, out,
-                                           G, g, st);
-  if (!out_bf16)
-    return (int)launch_slots<__nv_bfloat16, float>(ds, rpt, incs, links,
-                                                   lengths, out, G, g, st);
-  return (int)launch_slots<__nv_bfloat16, __nv_bfloat16>(
-      ds, rpt, incs, links, lengths, out, G, g, st);
+  switch (depth_slots) {
+    case 4: return (int)launch_rows<4>(rows_per_thread, incs, tabs, out, G, g,
+                                       st);
+    case 8: return (int)launch_rows<8>(rows_per_thread, incs, tabs, out, G, g,
+                                       st);
+    case 16: return (int)launch_rows<16>(rows_per_thread, incs, tabs, out, G,
+                                         g, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

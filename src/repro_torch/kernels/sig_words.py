@@ -146,7 +146,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_words_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 4 + [i] * 14 + [p]
+        fn.argtypes = [p] * 7 + [i] * 15 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -323,7 +323,11 @@ class PackedTables:
     group: np.ndarray     # (T,) group of each tile
     offset: np.ndarray    # (T,) packed rows before each tile's first
     rows: np.ndarray      # (|I|,) state row of each requested word
-    gather: np.ndarray    # (|I|,) int64 into the flat (G, 1 + r_pad)
+    # the emission list: group g emits entries emit_off[g]:emit_off[g+1],
+    # state row emit_rows[i] into output column emit_cols[i]
+    emit_off: np.ndarray   # (G + 1,) int32
+    emit_rows: np.ndarray  # (|I|,) int32
+    emit_cols: np.ndarray  # (|I|,) int32, ascending within a group
 
 
 @plan_cache
@@ -350,20 +354,23 @@ def packed_tables(tt: TileTables, groups: tuple[tuple[int, ...], ...],
     # each requested word: (tile, row) of the padded tiles, then its group
     t, r = np.divmod(tt.gather, 1 + tt.w_pad)
     rows = offset[t] + r
+    cols = np.argsort(group[t], kind="stable")
+    off = np.searchsorted(group[t][cols], np.arange(G + 1))
     return PackedTables(r_pad=r_pad,
                         links=link_words(pidx, letters, lengths, d),
                         lengths=lengths, group=group, offset=offset,
-                        rows=rows, gather=group[t] * (1 + r_pad) + rows)
+                        rows=rows, emit_off=off.astype(np.int32),
+                        emit_rows=rows[cols].astype(np.int32),
+                        emit_cols=cols.astype(np.int32))
 
 
 @plan_cache
 def _packed_on(tt: TileTables, groups: tuple[tuple[int, ...], ...], d: int,
                device: torch.device) -> dict:
     pk = packed_tables(tt, groups, d)
-    return dict(links=torch.as_tensor(pk.links.view(np.int32),
-                                      device=device),
-                lengths=torch.as_tensor(pk.lengths, device=device),
-                gather=torch.as_tensor(pk.gather, device=device))
+    return [torch.as_tensor(a, device=device) for a in (
+        pk.links.view(np.int32), pk.lengths, pk.emit_off, pk.emit_rows,
+        pk.emit_cols)]
 
 
 def link_words(prefix: np.ndarray, letters: np.ndarray, lengths: np.ndarray,
@@ -396,18 +403,18 @@ def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
     tabs = _packed_on(tt, plan.groups, d, incs.device)
     storage = _storage_dtype(precision)
     x = incs.detach().to(storage).contiguous()
-    G, R1 = len(plan.groups), 1 + plan.r_pad
+    n = len(tplan.words)
     if stream:
-        out = torch.empty((B, -(-M // stride), G, R1), dtype=storage,
+        out = torch.empty((B, -(-M // stride), n), dtype=storage,
                           device=x.device)
     else:
-        out = torch.empty((B, G, R1), dtype=torch.float32, device=x.device)
+        out = torch.empty((B, n), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.sig_words_launch(
-            x.data_ptr(), tabs["links"].data_ptr(),
-            tabs["lengths"].data_ptr(), out.data_ptr(), B, M, d, G,
-            plan.r_pad, tt.depth, stride if stream else 0,
+            x.data_ptr(), *(a.data_ptr() for a in tabs), out.data_ptr(), B,
+            M, d, len(plan.groups), plan.r_pad, n, tt.depth,
+            stride if stream else 0,
             int(storage == torch.bfloat16),
             int(stream and storage == torch.bfloat16), plan.depth_slots,
             plan.rows_per_thread, plan.threads, plan.examples, plan.chunk,
@@ -420,7 +427,7 @@ def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
         stream_launches += 1
     else:
         launches += 1
-    return out.flatten(-2)[..., tabs["gather"]]
+    return out
 
 
 class SigWordsFunction(torch.autograd.Function):

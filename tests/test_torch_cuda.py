@@ -334,3 +334,94 @@ def test_two_runs_are_bitwise_equal(cuda):
                                          plan)), plan
     a = st.sig_trunc(x, 5, stream=True, stream_stride=7)
     assert torch.equal(a, st.sig_trunc(x, 5, stream=True, stream_stride=7))
+
+
+# (B, M, d, words, max_rows): B off the examples a block holds, M off the
+# staged chunk, d from 1 to 10, depth 16, repeated words, and a tile of
+# 1,022 rows that runs at 4 rows a thread
+def _words_cases():
+    rng = np.random.default_rng(18)
+    deep = [tuple(int(c) for c in rng.integers(0, 2, n)) for n in
+            (16, 16, 12, 9, 3, 1)]
+    return [(3, 37, 1, [(0,) * n for n in range(1, 17)], 4),
+            (7, 33, 2, tw.all_words(2, 5), 8),
+            (5, 45, 4, SPARSE, 2),
+            (3, 40, 10, tw.all_words(10, 2) + [(1, 2, 3), (9, 0, 9)], 8),
+            (2, 9, 2, deep, 32),
+            (2, 31, 4, tw.all_words(4, 3) + SPARSE, 32),
+            (3, 19, 2, tw.all_words(2, 9), 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(7))
+def test_every_words_partition_at_ragged_shapes(cuda, case):
+    B, M, d, words, max_rows = _words_cases()[case]
+    tp = tw.make_tiled_plan(words, d, max_rows)
+    x = _incs(B * M + d, B, M, d, cuda)
+    cells = [(False, 1), (True, 1), (True, 3), (True, M)]
+    want = {c: sw.sig_words_plain(x.double(), tp, stream=c[0],
+                                  stream_stride=c[1]) for c in cells}
+    plans = sw.partition_variants(B, sw.tile_tables(tp), d)
+    assert len(plans) >= 2
+    for plan in plans:
+        for stream, stride in cells:
+            got = sw._launch(x, tp, stream, stride, "fp32", plan)
+            assert got.shape == want[(stream, stride)].shape, plan
+            torch.testing.assert_close(got.double(), want[(stream, stride)],
+                                       **TOL, msg=lambda m: f"{plan}: {m}")
+
+
+@pytest.mark.cuda
+def test_words_tile_of_1022_rows_runs_at_4_rows_a_thread(cuda):
+    tp = tw.make_tiled_plan(tw.all_words(2, 9), 2, 1024)
+    plan = sw.plan_words_launch(3, sw.tile_tables(tp), 2)
+    assert (plan.r_pad, plan.rows_per_thread, plan.depth_slots) == \
+        (1022, 4, 16)
+    x = _incs(7, 3, 19, 2, cuda)
+    torch.testing.assert_close(sw.sig_words(x, tp).double(),
+                               sw.sig_words_plain(x.double(), tp), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [1, 3, 5])
+def test_words_bf16_within_its_level_bound_at_every_partition(cuda, case):
+    B, M, d, words, max_rows = _words_cases()[case]
+    full = tw.all_words(d, 2)
+    tp = tw.make_tiled_plan(full + [w for w in words if len(w) > 2], d,
+                            max_rows)
+    x = _incs(B + M, B, M, d, cuda)
+    want = sw.sig_words_plain(x.double(), tp)
+    wstream = sw.sig_words_plain(x.double(), tp, stream=True,
+                                 stream_stride=3)
+    for plan in sw.partition_variants(B, sw.tile_tables(tp), d):
+        got = sw._launch(x, tp, False, 1, "bf16_fp32", plan)
+        stream = sw._launch(x, tp, True, 3, "bf16_fp32", plan)
+        assert got.dtype == torch.float32 and stream.dtype == torch.bfloat16
+        for out, w in ((got, want), (stream, wstream)):
+            rel = _level_relerr(out.double()[..., :len(full)],
+                                w[..., :len(full)], d, 2)
+            assert all(e <= n * 2.0**-8 for n, e in enumerate(rel, 1)), \
+                (plan, rel)
+
+
+@pytest.mark.cuda
+def test_words_repeated_words_read_one_row(cuda):
+    words = SPARSE + [(0,), (3, 2), (1, 1, 1, 1)]
+    tp = tw.make_tiled_plan(words, 4, 2)
+    x = _incs(31, 6, 40, 4, cuda)
+    for plan in sw.partition_variants(6, sw.tile_tables(tp), 4):
+        for stream in (False, True):
+            got = sw._launch(x, tp, stream, 7, "fp32", plan)
+            for a, b in [(0, 6), (1, 5), (1, 7), (2, 8)]:
+                assert torch.equal(got[..., a], got[..., b]), plan
+
+
+@pytest.mark.cuda
+def test_words_two_runs_are_bitwise_equal(cuda):
+    tp = tw.make_tiled_plan(tw.all_words(6, 4) + [(5, 4, 3, 2, 1)], 6)
+    x = _incs(9, 64, 130, 6, cuda)
+    for plan in sw.partition_variants(64, sw.tile_tables(tp), 6):
+        for stream, stride in ((False, 1), (True, 7)):
+            a = sw._launch(x, tp, stream, stride, "fp32", plan)
+            assert torch.equal(a, sw._launch(x, tp, stream, stride, "fp32",
+                                             plan)), plan

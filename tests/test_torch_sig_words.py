@@ -9,6 +9,9 @@ through are tested here against the reference's ``tile_idx``/``row_idx``.
 Tolerances: rtol 2e-4, atol 2e-5 for fp32; n·2^-8 per full level for
 bf16_fp32.
 """
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from repro.core.projection import projected_signature_from_increments as jpsi
 from repro.kernels import ref as jref
 from repro.kernels.sig_words import sig_words as j_sig_words
 from repro_torch.core import words as tw
+from repro_torch.core.transforms import sparse_leadlag_generators
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sig_words as sw
 
@@ -175,3 +179,311 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         sw.sig_words(torch.zeros(1, 2, 4, device="meta"),
                      tw.make_tiled_plan(SPARSE, 4))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch planner: tiles packed into groups that fill the card
+# ---------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SEC8 = tw.generated_words(sparse_leadlag_generators(5), 4)   # 10 letters
+
+
+def _table3_words(d, N):
+    """W_{<=N-1} ∪ Lyndon_N: the word set of logsignature_projected."""
+    return tw.all_words(d, N - 1) + [w for w in tw.lyndon_words(d, N)
+                                     if len(w) == N]
+
+
+def _phase6_sets():
+    """chip_smoke.py's four fixed phase-6 word sets and six random ones."""
+    rng = np.random.default_rng(6)
+    sets = [(3, tw.all_words(3, 4)), (4, SPARSE), (3, ANISO),
+            (2, tw.all_words(2, 4)
+             + [w for w in tw.lyndon_words(2, 5) if len(w) == 5])]
+    for _ in range(6):
+        d = int(rng.integers(2, 5))
+        n = int(rng.integers(1, 13))
+        sets.append((d, [tuple(int(c) for c in rng.integers(
+            0, d, rng.integers(1, 5))) for _ in range(n)]))
+    return sets
+
+
+def _planner_sets():
+    """(d, TiledPlan) of the served word sets: §8 (the words and their
+    closure), the phase-6 sets at max_rows 8, 32 and 256, all_words(6, 5),
+    and the Table 3 log-signature sets as ops.projected tiles them."""
+    out = [(10, tw.make_tiled_plan(SEC8, 10)),
+           (10, tw.make_tiled_plan(tw.prefix_closure(SEC8), 10)),
+           (6, tw.make_tiled_plan(tw.all_words(6, 5), 6))]
+    for d, words in _phase6_sets():
+        out += [(d, tw.make_tiled_plan(words, d, r)) for r in (8, 32, 256)]
+    for d, N in [(6, 2), (6, 3), (6, 4), (4, 5), (10, 3)]:
+        out.append((d, tw.make_tiled_plan(
+            tw.make_plan(_table3_words(d, N), d).closure, d)))
+    return out
+
+
+def _check_words_plan(plan, tt, d, B):
+    sizes = sw.tile_sizes(tt)
+    assert sorted(t for g in plan.groups for t in g) == list(
+        range(tt.n_tiles))                      # every tile exactly once
+    loads = [sum(sizes[t] for t in g) for g in plan.groups]
+    for g, load in zip(plan.groups, loads):
+        assert load <= plan.rows or len(g) == 1  # only a lone wide tile
+    assert plan.r_pad == max(loads)
+    assert plan.threads % 32 == 0
+    assert plan.threads * plan.rows_per_thread >= plan.r_pad
+    assert plan.depth_slots == sw.depth_slots(tt.depth) >= tt.depth
+    assert plan.block <= sw.max_block(plan.depth_slots,
+                                      plan.rows_per_thread)
+    assert 1 <= plan.chunk <= sw.CHUNK
+    assert plan.chunk * d <= sw.PREFETCH * plan.threads
+    assert plan.smem == plan.examples * sw.example_smem(
+        plan.r_pad, plan.chunk, tt.depth, d) <= sw.SMEM_BUDGET
+    nb, G = -(-B // plan.examples), len(plan.groups)
+    assert plan.grid == (max(nb, G), min(nb, G))
+    assert plan.grid[1] <= sw.MAX_TILES
+
+
+@pytest.mark.parametrize("B", [1, 5, 128, 2048])
+def test_words_planner_packs_every_tile_once_within_its_limits(B):
+    for d, tp in _planner_sets():
+        tt = sw.tile_tables(tp)
+        plan = sw.plan_words_launch(B, tt, d)
+        _check_words_plan(plan, tt, d, B)
+        assert plan.rows == sw.GROUP_ROWS
+        assert -(-plan.r_pad // plan.rows_per_thread) <= sw.EXAMPLE_THREADS
+        if plan.examples > 1:  # shared only while small, and the card full
+            assert plan.block <= sw.MIN_BLOCK
+            assert plan.grid[0] * plan.grid[1] >= sw.SMS
+
+
+@pytest.mark.parametrize("rows,examples", [(1, 1), (8, 2), (64, None),
+                                           (256, 2), (None, 1), (None, 2)])
+def test_words_planner_honours_forced_rows_and_examples(rows, examples):
+    for d, tp in _planner_sets()[::3]:
+        tt = sw.tile_tables(tp)
+        plan = sw.plan_words_launch(5, tt, d, rows=rows, examples=examples)
+        assert plan.rows == (sw.GROUP_ROWS if rows is None else rows)
+        if examples is not None:
+            assert plan.examples == examples
+        _check_words_plan(plan, tt, d, 5)
+    with pytest.raises(ValueError, match="examples"):
+        sw.plan_words_launch(5, tt, d, examples=10**4)
+    with pytest.raises(ValueError, match="rows"):
+        sw.plan_words_launch(5, tt, d, rows=0)
+
+
+def test_words_planner_fills_the_card_at_section8():
+    tt = sw.tile_tables(tw.make_tiled_plan(SEC8, 10))
+    assert tt.n_tiles == 60 and sw.launch_geometry(tt, 10)[0] == 64
+    plan = sw.plan_words_launch(128, tt, 10)
+    assert len(plan.groups) <= tt.n_tiles // 3      # far fewer blocks
+    assert (plan.rows_per_thread, plan.depth_slots, plan.threads,
+            plan.examples) == (1, 4, 128, 1)
+    sizes = sw.tile_sizes(tt)
+    idle = [plan.threads - sum(sizes[t] for t in g) for g in plan.groups]
+    assert max(idle) < 32                           # within one warp a group
+    assert plan.grid[0] * plan.grid[1] >= sw.SMS
+
+
+def test_pack_tiles_keeps_wide_tiles_alone_and_never_splits():
+    sizes = (300, 51, 51, 47, 8, 8, 1, 130, 128)
+    groups = sw.pack_tiles(sizes, 128)
+    assert (0,) in groups and (7,) in groups
+    assert sorted(t for g in groups for t in g) == list(range(len(sizes)))
+    assert all(sum(sizes[t] for t in g) <= 128 for g in groups
+               if g not in ((0,), (7,)))
+    assert sw.pack_tiles((5, 5, 5), 1) == ((0,), (1,), (2,))
+    assert sw.pack_tiles((1, 1, 1), 1) == ((0,), (1,), (2,))
+
+
+@pytest.mark.parametrize("B,d", [(5, 3), (1, 10), (128, 10)])
+def test_words_partition_variants_cover_one_tile_a_block_and_sharing(B, d):
+    words = SEC8 if d == 10 else ANISO
+    tt = sw.tile_tables(tw.make_tiled_plan(words, d, 8))
+    plans = sw.partition_variants(B, tt, d)
+    assert plans[0] == sw.plan_words_launch(B, tt, d)
+    assert any(len(p.groups) == tt.n_tiles and p.examples == 1
+               for p in plans)                   # one tile, one example
+    assert any(p.examples == sw.example_cap(p) > 1 for p in plans)
+    for p in plans:
+        _check_words_plan(p, tt, d, B)
+
+
+def test_a_group_wider_than_the_registers_hold_raises_naming_max_rows():
+    """The old kernel took a tile of up to 4,096 rows while its tables
+    fitted shared memory; the links of a group now live in registers, so
+    a group passes the instance's rows (2,048 at depth <= 8, 1,024 deeper)
+    only with a ValueError that names max_rows."""
+    wide = sw.tile_tables(tw.make_tiled_plan(tw.all_words(7, 4), 7, 4096))
+    assert wide.w_pad == 2800 and sw.launch_geometry(wide, 7)
+    with pytest.raises(ValueError, match="max_rows"):
+        sw.plan_words_launch(1, wide, 7)
+    for words, d, depth in [(tw.all_words(7, 4), 7, 4),
+                            (tw.all_words(2, 10), 2, 10)]:
+        cap = sw.max_block(sw.depth_slots(depth), 4) * 4
+        tp = tw.make_tiled_plan(words, d, cap)
+        tt = sw.tile_tables(tp)
+        assert tt.w_pad <= cap and tt.depth == depth
+        _check_words_plan(sw.plan_words_launch(3, tt, d), tt, d, 3)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's step schedule, emulated in numpy float32
+# ---------------------------------------------------------------------------
+
+def _emulate_words_kernel(x, tplan, plan, stream=False, stride=1):
+    """The CUDA kernel's schedule for every (example, group) of ``plan``:
+    packed tables (tiles behind one shared eps row), each row's links
+    unpacked from its 32-bit words as a thread holds them in registers,
+    a chunk staged as dx_i/k, two state buffers (step m reads buffer m % 2
+    and writes the other, its own rows carried in registers), and the
+    requested words written through the group's emission list."""
+    B, M, d = x.shape
+    tt = sw.tile_tables(tplan)
+    pk = sw.packed_tables(tt, plan.groups, d)
+    depth, R1, G = tt.depth, 1 + plan.r_pad, len(plan.groups)
+    assert pk.links.shape == (G, depth, plan.r_pad)
+    k = np.arange(1, depth + 1, dtype=np.float32)[None, :, None]
+    steps = [(x[:, m, None, :] / k).astype(np.float32).reshape(B, -1)
+             for m in range(M)]
+    emit = set(range(stride - 1, M, stride)) | {M - 1} if stream else ()
+    n = len(tplan.words)
+    out = np.full((B, len(emit), n) if stream else (B, n), np.nan,
+                  np.float32)
+    for g in range(G):
+        links = pk.links[g].astype(np.int64)
+        pref, off, lens = links >> 16, links & 0xFFFF, pk.lengths[g]
+        assert (pref[0] == 0).all()              # link 0 reads eps
+        buf = np.zeros((2, B, R1), np.float32)
+        buf[:, :, 0] = 1.0
+        own = np.zeros((B, R1 - 1), np.float32)
+        e = slice(pk.emit_off[g], pk.emit_off[g + 1])
+        rows, cols = pk.emit_rows[e], pk.emit_cols[e]
+        q = 0
+        for m in range(M):
+            cur, nxt = buf[m % 2], buf[1 - m % 2]
+            dx = steps[m]
+            acc = np.where(lens > 0, dx[:, off[0]], 0).astype(np.float32)
+            for j in range(1, depth):
+                acc = np.where(j < lens, (cur[:, pref[j]] + acc)
+                               * dx[:, off[j]], acc).astype(np.float32)
+            own = own + acc
+            nxt[:, 1:] = own
+            if m in emit:
+                out[:, q, cols] = nxt[:, rows]
+                q += 1
+        if not stream:
+            out[:, cols] = buf[M % 2][:, rows]
+    assert not np.isnan(out).any()               # every column written
+    return out
+
+
+@pytest.mark.parametrize("max_rows", [2, 8, 64])
+def test_emulated_words_schedule_matches_pallas_interpret(max_rows):
+    x = _incs(max_rows + 1, 3, 9, 3)
+    want = np.asarray(j_sig_words(jnp.asarray(x),
+                                  jw.make_tiled_plan(ANISO, 3, max_rows),
+                                  batch_tile=8, interpret=True))
+    tp = tw.make_tiled_plan(ANISO, 3, max_rows)
+    for plan in sw.partition_variants(3, sw.tile_tables(tp), 3):
+        got = _emulate_words_kernel(x, tp, plan)
+        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_allclose(
+            got, sw.sig_words_plain(torch.from_numpy(x), tp).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("stride", [1, 3, 8])
+def test_emulated_words_stream_matches_jax_stream_engine(stride):
+    x = _incs(stride + 20, 2, 8, 4)
+    want = np.asarray(jpsi(jnp.asarray(x), jw.make_plan(SPARSE, 4),
+                           stream=True, stream_stride=stride, backend="jax"))
+    tp = tw.make_tiled_plan(SPARSE, 4, 4)
+    for plan in sw.partition_variants(2, sw.tile_tables(tp), 4):
+        got = _emulate_words_kernel(x, tp, plan, stream=True, stride=stride)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("d,words,max_rows", [
+    (2, tw.all_words(2, 5), 8), (4, SPARSE, 2), (2, [(0,) * 9, (1,)], 4),
+    (3, ANISO, 256)])
+def test_emulated_words_schedule_matches_plain_at_odd_packings(d, words,
+                                                               max_rows):
+    """Forced caps that pack several tiles a group, or one tile a group,
+    and the planner's own, at a depth of 9 (16 link slots)."""
+    x = _incs(d + max_rows, 2, 6, d)
+    tp = tw.make_tiled_plan(words, d, max_rows)
+    tt = sw.tile_tables(tp)
+    want = sw.sig_words_plain(torch.from_numpy(x), tp).numpy()
+    for rows in (1, 3, 16, None):
+        plan = sw.plan_words_launch(2, tt, d, rows=rows)
+        np.testing.assert_allclose(_emulate_words_kernel(x, tp, plan), want,
+                                   **TOL)
+
+
+def test_emission_list_writes_every_column_once_repeats_included():
+    tp = tw.make_tiled_plan(SPARSE, 4, 2)        # (3, 2) is asked twice
+    tt = sw.tile_tables(tp)
+    for plan in sw.partition_variants(4, tt, 4):
+        pk = sw.packed_tables(tt, plan.groups, 4)
+        assert sorted(pk.emit_cols) == list(range(len(SPARSE)))
+        assert pk.emit_off[0] == 0 and pk.emit_off[-1] == len(SPARSE)
+        for g in range(len(plan.groups)):
+            cols = pk.emit_cols[pk.emit_off[g]:pk.emit_off[g + 1]]
+            assert (np.diff(cols) > 0).all()     # column order
+        rows = dict(zip(pk.emit_cols, pk.emit_rows))
+        assert rows[1] == rows[5]                 # one source row
+        assert (pk.emit_rows >= 1).all()         # never the eps row
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's bound: the prefix-shared operation count
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("d,N", [(1, 4), (2, 3), (3, 4), (6, 5), (10, 3),
+                                 (2, 8)])
+def test_words_flops_is_the_horner_count_on_the_full_truncation(d, N):
+    cs = _chip_smoke()
+    assert cs.words_flops(tw.make_plan(tw.all_words(d, N), d)) \
+        == cs.horner_flops(d, N)
+
+
+def _brute_force_flops(closure):
+    """Each chain value computed once: acc_1 = dx/n per (first letter,
+    target n), then per link an add per (prefix, n) and a product per
+    (longer prefix, n), then an add into each state row."""
+    seen, ops = set(), 0
+    for w in closure:
+        n = len(w)
+        for key in [("first", w[:1], n)] + [
+                op for j in range(2, n + 1)
+                for op in (("add", w[:j - 1], n), ("mul", w[:j], n))]:
+            if key not in seen:
+                seen.add(key)
+                ops += 1
+        ops += 1
+    return ops
+
+
+def test_words_flops_matches_a_brute_force_count():
+    cs = _chip_smoke()
+    rng = np.random.default_rng(11)
+    sets = [SEC8, ANISO, SPARSE] + [
+        [tuple(int(c) for c in rng.integers(0, 4, rng.integers(1, 7)))
+         for _ in range(int(rng.integers(1, 40)))] for _ in range(12)]
+    for words in sets:
+        d = 10 if words is SEC8 else 4
+        plan = tw.make_plan(words, d)
+        assert cs.words_flops(plan) == _brute_force_flops(plan.closure)
+    assert cs.words_flops(tw.make_plan(SEC8, 10)) == 4740
