@@ -74,7 +74,7 @@ __device__ __forceinline__ float load_inc(const void* x, size_t i,
 
 struct WordsGeom {
   int B, M, d, depth, nd;  // nd = depth·d scaled increments a step
-  int R1;                  // 1 + rows of the widest group: a state buffer
+  int R1;                  // 1 + rows of the widest group; row R1 is zero
   int T, E;                // threads an example, examples a block
   int chunk, stride, M_out;
   int n_out;               // columns of the output: the requested words
@@ -109,16 +109,16 @@ __device__ __forceinline__ void emit(void* out, size_t o, const float* S,
   }
 }
 
-// links: (G, depth, R) uint32, (prefix row << 16) | ((n-j-1)·d + letter),
-// the prefix row counted in the group's state (0 = eps); lengths: (G, R);
-// emit_off: (G+1,), emit_rows, emit_cols: (n_out,).
+// links: (G, DS, R) uint32, (prefix row << 16) | ((n-j-1)·d + letter),
+// the prefix row counted in the group's state (0 = eps); a row of length n
+// holds its links in slots DS-n..DS-1 and links to the zero row R1 before
+// them; emit_off: (G+1,), emit_rows, emit_cols: (n_out,).
 // out: (B, n_out) when stride == 0, else (B, M_out, n_out).
 template <int DS, int RPT>
 __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
                                   Bounds<DS, RPT>::blocks)
     sig_words_kernel(const void* __restrict__ incs,
                      const unsigned* __restrict__ links,
-                     const int* __restrict__ lengths,
                      const int* __restrict__ emit_off,
                      const int* __restrict__ emit_rows,
                      const int* __restrict__ emit_cols,
@@ -133,26 +133,25 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
   const int e0 = emit_off[grp], e1 = emit_off[grp + 1];
   const int b = (g.groups_on_x ? blockIdx.y : blockIdx.x) * g.E + ex;
   const bool live = b < g.B;  // spare examples of the last block run zeros
-  float* s0 = smem + (size_t)ex * g.ex_floats;  // R1: before even steps
-  float* s1 = s0 + R1;                          // R1: before odd steps
-  float* xb0 = s1 + R1;                         // chunk x depth x d, even
+  float* s0 = smem + (size_t)ex * g.ex_floats;  // R1 + 1: before even steps
+  float* s1 = s0 + R1 + 1;                      // R1 + 1: before odd steps
+  float* xb0 = s1 + R1 + 1;                     // chunk x depth x d, even
   float* xb1 = xb0 + g.xs;                      // odd chunks
 
-  // this thread's rows r = t + k·T, their lengths and links, in registers
-  int len[RPT];
+  // this thread's rows r = t + k·T and their links, in registers; a slot
+  // past the group's rows links to the zero row
   unsigned lk[RPT][DS];
   float own[RPT];
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
     const int r = t + k * T;
-    len[k] = r < W ? lengths[(size_t)grp * W + r] : 0;
     own[k] = 0.f;
 #pragma unroll
     for (int j = 0; j < DS; ++j)
-      lk[k][j] =
-          j < len[k] ? links[((size_t)grp * depth + j) * W + r] : 0u;
+      lk[k][j] = r < W ? links[((size_t)grp * DS + j) * W + r]
+                       : (unsigned)R1 << 16;
   }
-  for (int r = t; r < R1; r += T) {
+  for (int r = t; r <= R1; r += T) {
     s0[r] = r == 0 ? 1.f : 0.f;
     s1[r] = r == 0 ? 1.f : 0.f;
   }
@@ -189,16 +188,13 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
       const float* __restrict__ dx = xcur + s * nd;
 #pragma unroll
       for (int k = 0; k < RPT; ++k) {
+        // DS links, no branch: the padding keeps acc at 0 until the row's
+        // first link, which reads eps (1)
         float acc = 0.f;
-        if (len[k] > 0) {
-          // link 0 reads eps, which is 1: the chain starts at dx/n
-          acc = dx[lk[k][0] & 0xffffu];
 #pragma unroll
-          for (int j = 1; j < DS; ++j)
-            if (j < len[k]) {
-              const unsigned l = lk[k][j];
-              acc = (cur[l >> 16] + acc) * dx[l & 0xffffu];
-            }
+        for (int j = 0; j < DS; ++j) {
+          const unsigned l = lk[k][j];
+          acc = (cur[l >> 16] + acc) * dx[l & 0xffffu];
         }
         own[k] += acc;
         const int r = t + k * T;
@@ -250,8 +246,7 @@ cudaError_t launch(const void* incs, const void* const* tabs, void* out,
   kern<<<grid, g.T * g.E, (int)smem, stream>>>(
       incs, static_cast<const unsigned*>(tabs[0]),
       static_cast<const int*>(tabs[1]), static_cast<const int*>(tabs[2]),
-      static_cast<const int*>(tabs[3]), static_cast<const int*>(tabs[4]), out,
-      g);
+      static_cast<const int*>(tabs[3]), out, g);
   return cudaGetLastError();
 }
 
@@ -269,21 +264,20 @@ cudaError_t launch_rows(int rpt, const void* incs, const void* const* tabs,
 
 }  // namespace
 
-// incs: (B, M, d) contiguous, fp32 or bf16 (in_bf16).  links: (G, depth,
-// R) uint32 and lengths: (G, R) int32 (R: rows of the widest group);
-// emit_off: (G+1,), emit_rows and emit_cols: (n_out,) int32, the emission
-// list of every group.  out: (B, n_out) fp32 when stride == 0;
+// incs: (B, M, d) contiguous, fp32 or bf16 (in_bf16).  links: (G,
+// depth_slots, R) uint32 (R: rows of the widest group); emit_off: (G+1,),
+// emit_rows and emit_cols: (n_out,) int32, the emission list of every
+// group.  out: (B, n_out) fp32 when stride == 0;
 // (B, ceil(M/stride), n_out) fp32 or bf16 (out_bf16, with in_bf16) when
 // stride >= 1.  depth_slots (4, 8 or 16, >= depth) and rows_per_thread (1,
 // 2 or 4) pick the instance; threads an example (threads·rows_per_thread
 // >= R, chunk·d <= SW_PREFETCH·threads) and examples a block.  A block
-// takes examples·4·(2·(R+1) + 2·chunk·depth·d) bytes of dynamic shared
+// takes examples·4·(2·(R+2) + 2·chunk·depth·d) bytes of dynamic shared
 // memory (sig_words.py::example_smem).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int sig_words_launch(const void* incs, const void* links,
-                                const void* lengths, const void* emit_off,
-                                const void* emit_rows, const void* emit_cols,
-                                void* out, int B, int M, int d, int G, int R,
+                                const void* emit_off, const void* emit_rows,
+                                const void* emit_cols, void* out, int B, int M, int d, int G, int R,
                                 int n_out, int depth, int stride, int in_bf16,
                                 int out_bf16, int depth_slots,
                                 int rows_per_thread, int threads, int examples,
@@ -312,8 +306,8 @@ extern "C" int sig_words_launch(const void* incs, const void* links,
   g.out_bf16 = out_bf16;
   g.groups_on_x = G > (B + examples - 1) / examples;
   g.xs = chunk * g.nd;
-  g.ex_floats = 2 * g.R1 + 2 * g.xs;
-  const void* tabs[5] = {links, lengths, emit_off, emit_rows, emit_cols};
+  g.ex_floats = 2 * (g.R1 + 1) + 2 * g.xs;
+  const void* tabs[4] = {links, emit_off, emit_rows, emit_cols};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (depth_slots) {
     case 4: return (int)launch_rows<4>(rows_per_thread, incs, tabs, out, G, g,

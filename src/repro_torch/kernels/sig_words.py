@@ -146,7 +146,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_words_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * 15 + [p]
+        fn.argtypes = [p] * 6 + [i] * 15 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -234,8 +234,8 @@ def _warps(n: int) -> int:
 
 def example_smem(r_pad: int, chunk: int, depth: int, d: int) -> int:
     """Dynamic shared-memory bytes of one example: two state buffers of
-    1 + r_pad rows and two chunks of scaled increments."""
-    return 4 * (2 * (1 + r_pad) + 2 * chunk * depth * d)
+    1 + r_pad rows and a zero row, and two chunks of scaled increments."""
+    return 4 * (2 * (2 + r_pad) + 2 * chunk * depth * d)
 
 
 def example_cap(plan: WordsLaunch) -> int:
@@ -318,8 +318,7 @@ class PackedTables:
     """A packing's tables, laid out (G, ·, r_pad): each tile's rows follow
     the tiles before it in its group, behind one shared eps row."""
     r_pad: int
-    links: np.ndarray     # (G, depth, r_pad) uint32, see link_words
-    lengths: np.ndarray   # (G, r_pad) int32, 0 on padding rows
+    links: np.ndarray     # (G, slots, r_pad) uint32, see link_words
     group: np.ndarray     # (T,) group of each tile
     offset: np.ndarray    # (T,) packed rows before each tile's first
     rows: np.ndarray      # (|I|,) state row of each requested word
@@ -357,8 +356,9 @@ def packed_tables(tt: TileTables, groups: tuple[tuple[int, ...], ...],
     cols = np.argsort(group[t], kind="stable")
     off = np.searchsorted(group[t][cols], np.arange(G + 1))
     return PackedTables(r_pad=r_pad,
-                        links=link_words(pidx, letters, lengths, d),
-                        lengths=lengths, group=group, offset=offset,
+                        links=link_words(pidx, letters, lengths, d,
+                                         depth_slots(depth), r_pad + 1),
+                        group=group, offset=offset,
                         rows=rows, emit_off=off.astype(np.int32),
                         emit_rows=rows[cols].astype(np.int32),
                         emit_cols=cols.astype(np.int32))
@@ -369,24 +369,30 @@ def _packed_on(tt: TileTables, groups: tuple[tuple[int, ...], ...], d: int,
                device: torch.device) -> dict:
     pk = packed_tables(tt, groups, d)
     return [torch.as_tensor(a, device=device) for a in (
-        pk.links.view(np.int32), pk.lengths, pk.emit_off, pk.emit_rows,
-        pk.emit_cols)]
+        pk.links.view(np.int32), pk.emit_off, pk.emit_rows, pk.emit_cols)]
 
 
 def link_words(prefix: np.ndarray, letters: np.ndarray, lengths: np.ndarray,
-               d: int) -> np.ndarray:
-    """Links packed as the kernel reads them: (prefix row << 16) | the
-    offset (k-1)·d + letter of the staged dx_letter/k, k = len - j, for
-    (..., depth, W) prefix rows and letters and (..., W) lengths; 0 past a
-    row's length."""
-    j = np.arange(prefix.shape[-2])[:, None]
+               d: int, slots: int, zero: int) -> np.ndarray:
+    """Links packed as the kernel reads them, (..., slots, W) uint32 from
+    (..., depth, W) prefix rows and letters and (..., W) lengths: link j of
+    a row of length n is (prefix row << 16) | the offset (k-1)·d + letter
+    of the staged dx_letter/k, k = n - j, in slot slots - n + j; the slots
+    before hold (zero << 16), a link to the state row that stays 0."""
+    depth, W = prefix.shape[-2:]
+    if zero >= 1 << 16 or depth * d > 1 << 16:
+        raise ValueError("a group's rows or depth·d exceed the kernel's "
+                         "16-bit link fields")
+    j = np.arange(depth)[:, None]
     k = lengths[..., None, :] - j
-    if prefix.max(initial=0) >= 1 << 16 or prefix.shape[-2] * d > 1 << 16:
-        raise ValueError("a tile's rows or depth·d exceed the kernel's 16-bit"
-                         " link fields")
-    words = (prefix.astype(np.uint32) << 16) | ((k - 1) * d + letters).astype(
-        np.uint32)
-    return np.where(k >= 1, words, 0).astype(np.uint32)
+    real = (prefix.astype(np.uint32) << 16) | np.where(
+        k >= 1, (k - 1) * d + letters, 0).astype(np.uint32)
+    out = np.full(prefix.shape[:-2] + (slots, W), zero << 16, np.uint32)
+    # slot = slots - n + j for j < n
+    slot = slots - lengths[..., None, :] + j
+    idx = np.nonzero(k >= 1)
+    out[idx[:-2] + (slot[idx], idx[-1])] = real[idx]
+    return out
 
 
 def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,

@@ -337,7 +337,8 @@ def test_a_group_wider_than_the_registers_hold_raises_naming_max_rows():
 def _emulate_words_kernel(x, tplan, plan, stream=False, stride=1):
     """The CUDA kernel's schedule for every (example, group) of ``plan``:
     packed tables (tiles behind one shared eps row), each row's links
-    unpacked from its 32-bit words as a thread holds them in registers,
+    unpacked from its 32-bit words as a thread holds them in registers
+    (left-padded to the instance's slots with links to the zero row),
     a chunk staged as dx_i/k, two state buffers (step m reads buffer m % 2
     and writes the other, its own rows carried in registers), and the
     requested words written through the group's emission list."""
@@ -345,7 +346,7 @@ def _emulate_words_kernel(x, tplan, plan, stream=False, stride=1):
     tt = sw.tile_tables(tplan)
     pk = sw.packed_tables(tt, plan.groups, d)
     depth, R1, G = tt.depth, 1 + plan.r_pad, len(plan.groups)
-    assert pk.links.shape == (G, depth, plan.r_pad)
+    assert pk.links.shape == (G, plan.depth_slots, plan.r_pad)
     k = np.arange(1, depth + 1, dtype=np.float32)[None, :, None]
     steps = [(x[:, m, None, :] / k).astype(np.float32).reshape(B, -1)
              for m in range(M)]
@@ -355,9 +356,12 @@ def _emulate_words_kernel(x, tplan, plan, stream=False, stride=1):
                   np.float32)
     for g in range(G):
         links = pk.links[g].astype(np.int64)
-        pref, off, lens = links >> 16, links & 0xFFFF, pk.lengths[g]
-        assert (pref[0] == 0).all()              # link 0 reads eps
-        buf = np.zeros((2, B, R1), np.float32)
+        pref, off = links >> 16, links & 0xFFFF
+        # the first link that is not padding reads eps
+        first = np.argmax(pref != R1, axis=0)
+        real = (pref != R1).any(0)
+        assert (pref[first, np.arange(plan.r_pad)][real] == 0).all()
+        buf = np.zeros((2, B, R1 + 1), np.float32)   # row R1 stays 0
         buf[:, :, 0] = 1.0
         own = np.zeros((B, R1 - 1), np.float32)
         e = slice(pk.emit_off[g], pk.emit_off[g + 1])
@@ -366,15 +370,16 @@ def _emulate_words_kernel(x, tplan, plan, stream=False, stride=1):
         for m in range(M):
             cur, nxt = buf[m % 2], buf[1 - m % 2]
             dx = steps[m]
-            acc = np.where(lens > 0, dx[:, off[0]], 0).astype(np.float32)
-            for j in range(1, depth):
-                acc = np.where(j < lens, (cur[:, pref[j]] + acc)
-                               * dx[:, off[j]], acc).astype(np.float32)
+            acc = np.zeros((B, R1 - 1), np.float32)
+            for j in range(plan.depth_slots):
+                acc = ((cur[:, pref[j]] + acc) * dx[:, off[j]]).astype(
+                    np.float32)
             own = own + acc
-            nxt[:, 1:] = own
+            nxt[:, 1:R1] = own
             if m in emit:
                 out[:, q, cols] = nxt[:, rows]
                 q += 1
+        assert not buf[:, :, R1].any()
         if not stream:
             out[:, cols] = buf[M % 2][:, rows]
     assert not np.isnan(out).any()               # every column written
