@@ -254,6 +254,7 @@ def test_words_planner_packs_every_tile_once_within_its_limits(B):
         _check_words_plan(plan, tt, d, B)
         assert plan.rows == sw.GROUP_ROWS
         assert -(-plan.r_pad // plan.rows_per_thread) <= sw.EXAMPLE_THREADS
+        assert (plan.rows_per_thread == 1) == (plan.r_pad <= 32)
         if plan.examples > 1:  # shared only while small, and the card full
             assert plan.block <= sw.MIN_BLOCK
             assert plan.grid[0] * plan.grid[1] >= sw.SMS
@@ -281,9 +282,10 @@ def test_words_planner_fills_the_card_at_section8():
     plan = sw.plan_words_launch(128, tt, 10)
     assert len(plan.groups) <= tt.n_tiles // 3      # far fewer blocks
     assert (plan.rows_per_thread, plan.depth_slots, plan.threads,
-            plan.examples) == (1, 4, 128, 1)
+            plan.examples) == (2, 4, 64, 2)            # 128-thread blocks
     sizes = sw.tile_sizes(tt)
-    idle = [plan.threads - sum(sizes[t] for t in g) for g in plan.groups]
+    idle = [plan.threads * plan.rows_per_thread - sum(sizes[t] for t in g)
+            for g in plan.groups]
     assert max(idle) < 32                           # within one warp a group
     assert plan.grid[0] * plan.grid[1] >= sw.SMS
 
