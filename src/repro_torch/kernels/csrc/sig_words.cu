@@ -53,12 +53,14 @@
 
 namespace {
 
-// The (DS target slots, RPT rows a thread) instance's launch bounds: a row
-// holds three registers, so every instance takes 1,024 threads within 64
-// registers a thread (65,536 an SM).
+// The (DS link slots, RPT rows a thread) instance's launch bounds: the
+// most threads a block may have and the blocks an SM should hold, so that
+// ptxas keeps every link in registers within 64, 128 or 255 registers
+// a thread (65,536 an SM).
 template <int DS, int RPT> struct Bounds {
-  static constexpr int threads = 1024;
-  static constexpr int blocks = 1;
+  static constexpr int links = DS * RPT;
+  static constexpr int threads = links <= 32 ? 512 : 256;
+  static constexpr int blocks = links <= 4 ? 2 : 1;
 };
 
 // Increments and emissions are fp32 or bf16, chosen at run time: they are
@@ -72,7 +74,7 @@ __device__ __forceinline__ float load_inc(const void* x, size_t i,
 
 struct WordsGeom {
   int B, M, d, depth, nd;  // nd = depth·d scaled increments a step
-  int R1;                  // 1 + rows of the widest group
+  int R1;                  // 1 + rows of the widest group; row R1 is zero
   int T, E;                // threads an example, examples a block
   int chunk, stride, M_out;
   int n_out;               // columns of the output: the requested words
@@ -107,17 +109,16 @@ __device__ __forceinline__ void emit(void* out, size_t o, const float* S,
   }
 }
 
-// rows: (G, 2, R) uint32 per packed row r (state row 1 + r, rows of a
-// group in level order): (parent's state row << 16) | letter, and
-// (level << 16) | targets, bit n-1 set for each target length n (the row's
-// own length and those of its descendants); emit_off: (G+1,), emit_rows,
-// emit_cols: (n_out,).  out: (B, n_out) when stride == 0, else
-// (B, M_out, n_out).
+// links: (G, DS, R) uint32, (prefix row << 16) | ((n-j-1)·d + letter),
+// the prefix row counted in the group's state (0 = eps); a row of length n
+// holds its links in slots DS-n..DS-1 and links to the zero row R1 before
+// them; emit_off: (G+1,), emit_rows, emit_cols: (n_out,).
+// out: (B, n_out) when stride == 0, else (B, M_out, n_out).
 template <int DS, int RPT>
 __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
                                   Bounds<DS, RPT>::blocks)
     sig_words_kernel(const void* __restrict__ incs,
-                     const unsigned* __restrict__ rows,
+                     const unsigned* __restrict__ links,
                      const int* __restrict__ emit_off,
                      const int* __restrict__ emit_rows,
                      const int* __restrict__ emit_cols,
@@ -132,23 +133,28 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
   const int e0 = emit_off[grp], e1 = emit_off[grp + 1];
   const int b = (g.groups_on_x ? blockIdx.y : blockIdx.x) * g.E + ex;
   const bool live = b < g.B;  // spare examples of the last block run zeros
-  float* S = smem + (size_t)ex * g.ex_floats;  // R1: the state, to emit
-  float* chain = S + R1;                       // depth x R1 chain values
-  float* xb0 = chain + depth * R1;             // chunk x depth x d, even
-  float* xb1 = xb0 + g.xs;                     // odd chunks
+  float* s0 = smem + (size_t)ex * g.ex_floats;  // R1 + 1: before even steps
+  float* s1 = s0 + R1 + 1;                      // R1 + 1: before odd steps
+  float* xb0 = s1 + R1 + 1;                     // chunk x depth x d, even
+  float* xb1 = xb0 + g.xs;                      // odd chunks
 
-  // this thread's rows r = t + k·T: parent and letter, level and targets
-  unsigned pl[RPT], lt[RPT];
+  // this thread's rows r = t + k·T and their links, in registers; a slot
+  // past the group's rows links to the zero row
+  unsigned lk[RPT][DS];
   float own[RPT];
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
     const int r = t + k * T;
-    pl[k] = r < W ? rows[((size_t)grp * 2) * W + r] : 0u;
-    lt[k] = r < W ? rows[((size_t)grp * 2 + 1) * W + r] : 0u;
     own[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DS; ++j)
+      lk[k][j] = r < W ? links[((size_t)grp * DS + j) * W + r]
+                       : (unsigned)R1 << 16;
   }
-  // eps's chain value is 1 for every target; no row writes it
-  for (int n = t; n < depth; n += T) chain[n * R1] = 1.f;
+  for (int r = t; r <= R1; r += T) {
+    s0[r] = r == 0 ? 1.f : 0.f;
+    s1[r] = r == 0 ? 1.f : 0.f;
+  }
   const size_t x0 = (size_t)(live ? b : 0) * M * d;  // this example's row
   {
     const int C = min(g.chunk, M);
@@ -177,67 +183,47 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
     }
     for (int s = 0; s < C; ++s) {
       const int jg = j0 + s;
+      const float* __restrict__ cur = (jg & 1) ? s1 : s0;
+      float* __restrict__ nxt = (jg & 1) ? s0 : s1;
       const float* __restrict__ dx = xcur + s * nd;
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        // DS links, no branch: the padding keeps acc at 0 until the row's
+        // first link, which reads eps (1)
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < DS; ++j) {
+          const unsigned l = lk[k][j];
+          acc = (cur[l >> 16] + acc) * dx[l & 0xffffu];
+        }
+        own[k] += acc;
+        const int r = t + k * T;
+        if (r < W) nxt[1 + r] = own[k];
+      }
       if (s == C - 1) {
-        // read first in the next chunk, after this step's barriers; the
-        // chunk before this one last read xnext
+        // the chunk after next last read xnext before this chunk began
 #pragma unroll
         for (int p = 0; p < SW_PREFETCH; ++p) {
           const int e = t + p * T;
           if (e < Cn * d) stage(xnext, e, pre[p], d, nd, depth);
         }
       }
-      // levels j = 1..depth: a row of level j with parent v and letter i
-      // forms a_n = chain_n[v]·dx_i/(n-j+1) for each of its targets n,
-      // adds a_j to its value and leaves chain_n = (its value before the
-      // step) + a_n for the targets above, read by level j+1 after the
-      // level's barrier
-      for (int j = 1; j <= depth; ++j) {
-#pragma unroll
-        for (int k = 0; k < RPT; ++k) {
-          if ((int)(lt[k] >> 16) != j) continue;
-          const int v = pl[k] >> 16;
-          const float* __restrict__ dxi =
-              dx + (int)(pl[k] & 0xffffu) - j * d;  // dxi[n·d]: k = n-j+1
-          float* __restrict__ mine = chain + 1 + t + k * T;
-          float a_own = 0.f;
-#pragma unroll
-          for (int n = 1; n <= DS; ++n)
-            if (lt[k] & (1u << (n - 1))) {
-              const float a = chain[(n - 1) * R1 + v] * dxi[n * d];
-              if (n == j)
-                a_own = a;
-              else
-                mine[(n - 1) * R1] = own[k] + a;
-            }
-          own[k] += a_own;
-        }
-        __syncthreads();
-      }
+      // nxt is complete; cur may be written from now on (the step after
+      // next writes it only after the next step's barrier)
+      __syncthreads();
       if (g.stride && (jg == next_emit || jg == M - 1)) {
-#pragma unroll
-        for (int k = 0; k < RPT; ++k)
-          if (t + k * T < W) S[1 + t + k * T] = own[k];
-        if (t == 0) S[0] = 1.f;
-        __syncthreads();
         if (live)
-          emit(out, ((size_t)b * g.M_out + q) * g.n_out, S, emit_rows,
+          emit(out, ((size_t)b * g.M_out + q) * g.n_out, nxt, emit_rows,
                emit_cols, e0, e1, t, T, g.out_bf16);
         next_emit += g.stride;
         ++q;
       }
     }
   }
-  if (!g.stride) {
-#pragma unroll
-    for (int k = 0; k < RPT; ++k)
-      if (t + k * T < W) S[1 + t + k * T] = own[k];
-    if (t == 0) S[0] = 1.f;
-    __syncthreads();
-    if (live)
-      emit(out, (size_t)b * g.n_out, S, emit_rows, emit_cols, e0, e1, t, T,
-           0);
-  }
+  // the last step wrote s0 when M is even
+  if (!g.stride && live)
+    emit(out, (size_t)b * g.n_out, (M & 1) ? s1 : s0, emit_rows, emit_cols,
+         e0, e1, t, T, 0);
 }
 
 template <int DS, int RPT>
@@ -278,22 +264,21 @@ cudaError_t launch_rows(int rpt, const void* incs, const void* const* tabs,
 
 }  // namespace
 
-// incs: (B, M, d) contiguous, fp32 or bf16 (in_bf16).  rows: (G, 2, R)
-// uint32 (R: rows of the widest group); emit_off: (G+1,), emit_rows and
-// emit_cols: (n_out,) int32, the emission list of every group.
-// out: (B, n_out) fp32 when stride == 0; (B, ceil(M/stride), n_out) fp32
-// or bf16 (out_bf16, with in_bf16) when stride >= 1.  depth_slots (4, 8
-// or 16, >= depth) and rows_per_thread (1, 2 or 4) pick the instance;
-// threads an example (threads·rows_per_thread >= R, chunk·d <=
-// SW_PREFETCH·threads) and examples a block.  A block takes
-// examples·4·((depth+1)·(R+1) + 2·chunk·depth·d) bytes of dynamic shared
+// incs: (B, M, d) contiguous, fp32 or bf16 (in_bf16).  links: (G,
+// depth_slots, R) uint32 (R: rows of the widest group); emit_off: (G+1,),
+// emit_rows and emit_cols: (n_out,) int32, the emission list of every
+// group.  out: (B, n_out) fp32 when stride == 0;
+// (B, ceil(M/stride), n_out) fp32 or bf16 (out_bf16, with in_bf16) when
+// stride >= 1.  depth_slots (4, 8 or 16, >= depth) and rows_per_thread (1,
+// 2 or 4) pick the instance; threads an example (threads·rows_per_thread
+// >= R, chunk·d <= SW_PREFETCH·threads) and examples a block.  A block
+// takes examples·4·(2·(R+2) + 2·chunk·depth·d) bytes of dynamic shared
 // memory (sig_words.py::example_smem).
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int sig_words_launch(const void* incs, const void* rows,
+extern "C" int sig_words_launch(const void* incs, const void* links,
                                 const void* emit_off, const void* emit_rows,
-                                const void* emit_cols, void* out, int B,
-                                int M, int d, int G, int R, int n_out,
-                                int depth, int stride, int in_bf16,
+                                const void* emit_cols, void* out, int B, int M, int d, int G, int R,
+                                int n_out, int depth, int stride, int in_bf16,
                                 int out_bf16, int depth_slots,
                                 int rows_per_thread, int threads, int examples,
                                 int chunk, void* stream) {
@@ -321,8 +306,8 @@ extern "C" int sig_words_launch(const void* incs, const void* rows,
   g.out_bf16 = out_bf16;
   g.groups_on_x = G > (B + examples - 1) / examples;
   g.xs = chunk * g.nd;
-  g.ex_floats = (depth + 1) * g.R1 + 2 * g.xs;
-  const void* tabs[4] = {rows, emit_off, emit_rows, emit_cols};
+  g.ex_floats = 2 * (g.R1 + 1) + 2 * g.xs;
+  const void* tabs[4] = {links, emit_off, emit_rows, emit_cols};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (depth_slots) {
     case 4: return (int)launch_rows<4>(rows_per_thread, incs, tabs, out, G, g,

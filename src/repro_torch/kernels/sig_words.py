@@ -50,7 +50,7 @@ ROWS_PER_THREAD = 4   # SW_ROWS_PER_THREAD: chain values a thread holds
 MAX_THREADS = 1024
 MAX_TILES = 65_535    # the grid's y extent
 SMS = 132             # streaming multiprocessors of an H100 SXM
-DEPTH_SLOTS = (4, 8, 16)   # target lengths a row: the kernel's instances
+DEPTH_SLOTS = (4, 8, 16)   # link slots a row: the kernel's instances
 ROWS = (1, 2, 4)           # rows a thread: the kernel's instances
 STAGE_FLOATS = 2048   # scaled increments a chunk may stage
 PREFETCH = 4          # SW_PREFETCH: raw increments a thread fetches ahead
@@ -159,8 +159,9 @@ def depth_slots(depth: int) -> int:
 
 def max_block(slots: int, rows_per_thread: int) -> int:
     """Threads a block of the (slots, rows a thread) instance may have:
-    the kernel's launch bounds (``Bounds``)."""
-    return MAX_THREADS
+    the kernel's launch bounds (``Bounds``), set so that its links stay in
+    registers."""
+    return 512 if slots * rows_per_thread <= 32 else 256
 
 
 def tile_sizes(tt: TileTables) -> tuple[int, ...]:
@@ -232,10 +233,9 @@ def _warps(n: int) -> int:
 
 
 def example_smem(r_pad: int, chunk: int, depth: int, d: int) -> int:
-    """Dynamic shared-memory bytes of one example: the state (1 + r_pad
-    rows, written when emitting), a chain value for each row and target
-    length, and two chunks of scaled increments."""
-    return 4 * ((depth + 1) * (1 + r_pad) + 2 * chunk * depth * d)
+    """Dynamic shared-memory bytes of one example: two state buffers of
+    1 + r_pad rows and a zero row, and two chunks of scaled increments."""
+    return 4 * (2 * (2 + r_pad) + 2 * chunk * depth * d)
 
 
 def example_cap(plan: WordsLaunch) -> int:
@@ -317,13 +317,13 @@ def partition_variants(B: int, tt: TileTables, d: int) -> list[WordsLaunch]:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class PackedTables:
-    """A packing's tables: the rows of each group's tiles in level order
-    behind one shared eps row (state row 0), laid out (G, ·, r_pad)."""
+    """A packing's tables, laid out (G, ·, r_pad): each tile's rows follow
+    the tiles before it in its group, behind one shared eps row."""
     r_pad: int
-    rows: np.ndarray       # (G, 2, r_pad) uint32, see row_words
-    index: np.ndarray      # (T, 1 + w_pad) state row of each tile row
-    group: np.ndarray      # (T,) group of each tile
-    word_rows: np.ndarray  # (|I|,) state row of each requested word
+    links: np.ndarray     # (G, slots, r_pad) uint32, see link_words
+    group: np.ndarray     # (T,) group of each tile
+    offset: np.ndarray    # (T,) packed rows before each tile's first
+    rows: np.ndarray      # (|I|,) state row of each requested word
     # the emission list: group g emits entries emit_off[g]:emit_off[g+1],
     # state row emit_rows[i] into output column emit_cols[i]
     emit_off: np.ndarray   # (G + 1,) int32
@@ -331,63 +331,70 @@ class PackedTables:
     emit_cols: np.ndarray  # (|I|,) int32, ascending within a group
 
 
-def row_words(parent: np.ndarray, letter: np.ndarray,
-              level: np.ndarray) -> np.ndarray:
-    """(2, W) uint32 words of a group's rows as the kernel reads them:
-    (parent's state row << 16) | letter, and (level << 16) | targets,
-    bit n-1 set for the row's own length n and each of its descendants'.
-    ``parent`` counts eps as 0 and the group's rows from 1; rows of level
-    0 are padding."""
-    if parent.max(initial=0) >= 1 << 16 or letter.max(initial=0) >= 1 << 16:
-        raise ValueError("a group's rows or letters exceed the kernel's "
-                         "16-bit fields")
-    targets = np.where(level > 0, 1 << np.maximum(level - 1, 0), 0)
-    for n in range(int(level.max(initial=0)), 1, -1):  # children first
-        r = np.nonzero(level == n)[0]
-        np.bitwise_or.at(targets, parent[r] - 1, targets[r])
-    return np.stack([(parent.astype(np.uint32) << 16) | letter,
-                     (level.astype(np.uint32) << 16) | targets]).astype(
-                         np.uint32)
-
-
 @plan_cache
 def packed_tables(tt: TileTables, groups: tuple[tuple[int, ...], ...],
                   d: int) -> PackedTables:
     sizes = tile_sizes(tt)
-    G = len(groups)
+    G, depth = len(groups), tt.depth
     r_pad = max(sum(sizes[t] for t in g) for g in groups)
-    rows = np.zeros((G, 2, r_pad), np.uint32)
-    index = np.zeros((tt.n_tiles, 1 + tt.w_pad), np.int64)
+    pidx = np.zeros((G, depth, r_pad), np.int32)
+    letters = np.zeros((G, depth, r_pad), np.int32)
+    lengths = np.zeros((G, r_pad), np.int32)
     group = np.zeros(tt.n_tiles, np.int64)
+    offset = np.zeros(tt.n_tiles, np.int64)
     for g, tiles in enumerate(groups):
-        t = np.concatenate([np.full(sizes[u], u) for u in tiles])
-        r = np.concatenate([np.arange(sizes[u]) for u in tiles])
-        level = tt.lengths[t, r]
-        order = np.argsort(level, kind="stable")     # level order
-        t, r, level = t[order], r[order], level[order]
-        index[t, 1 + r] = np.arange(1, len(t) + 1)
-        group[list(tiles)] = g
-        parent = index[t, tt.prefix_idx[t, level - 1, r]]
-        n = len(t)
-        rows[g, :, :n] = row_words(parent, tt.letters[t, level - 1, r],
-                                   level)
+        o = 0
+        for t in tiles:
+            W = sizes[t]
+            p = tt.prefix_idx[t, :, :W]
+            pidx[g, :, o:o + W] = np.where(p > 0, p + o, 0)
+            letters[g, :, o:o + W] = tt.letters[t, :, :W]
+            lengths[g, o:o + W] = tt.lengths[t, :W]
+            group[t], offset[t] = g, o
+            o += W
     # each requested word: (tile, row) of the padded tiles, then its group
     t, r = np.divmod(tt.gather, 1 + tt.w_pad)
-    word_rows = index[t, r]
+    rows = offset[t] + r
     cols = np.argsort(group[t], kind="stable")
     off = np.searchsorted(group[t][cols], np.arange(G + 1))
-    return PackedTables(r_pad=r_pad, rows=rows, index=index, group=group,
-                        word_rows=word_rows, emit_off=off.astype(np.int32),
-                        emit_rows=word_rows[cols].astype(np.int32),
+    return PackedTables(r_pad=r_pad,
+                        links=link_words(pidx, letters, lengths, d,
+                                         depth_slots(depth), r_pad + 1),
+                        group=group, offset=offset,
+                        rows=rows, emit_off=off.astype(np.int32),
+                        emit_rows=rows[cols].astype(np.int32),
                         emit_cols=cols.astype(np.int32))
 
 
 @plan_cache
 def _packed_on(tt: TileTables, groups: tuple[tuple[int, ...], ...], d: int,
-               device: torch.device) -> list:
+               device: torch.device) -> dict:
     pk = packed_tables(tt, groups, d)
     return [torch.as_tensor(a, device=device) for a in (
-        pk.rows.view(np.int32), pk.emit_off, pk.emit_rows, pk.emit_cols)]
+        pk.links.view(np.int32), pk.emit_off, pk.emit_rows, pk.emit_cols)]
+
+
+def link_words(prefix: np.ndarray, letters: np.ndarray, lengths: np.ndarray,
+               d: int, slots: int, zero: int) -> np.ndarray:
+    """Links packed as the kernel reads them, (..., slots, W) uint32 from
+    (..., depth, W) prefix rows and letters and (..., W) lengths: link j of
+    a row of length n is (prefix row << 16) | the offset (k-1)·d + letter
+    of the staged dx_letter/k, k = n - j, in slot slots - n + j; the slots
+    before hold (zero << 16), a link to the state row that stays 0."""
+    depth, W = prefix.shape[-2:]
+    if zero >= 1 << 16 or depth * d > 1 << 16:
+        raise ValueError("a group's rows or depth·d exceed the kernel's "
+                         "16-bit link fields")
+    j = np.arange(depth)[:, None]
+    k = lengths[..., None, :] - j
+    real = (prefix.astype(np.uint32) << 16) | np.where(
+        k >= 1, (k - 1) * d + letters, 0).astype(np.uint32)
+    out = np.full(prefix.shape[:-2] + (slots, W), zero << 16, np.uint32)
+    # slot = slots - n + j for j < n
+    slot = slots - lengths[..., None, :] + j
+    idx = np.nonzero(k >= 1)
+    out[idx[:-2] + (slot[idx], idx[-1])] = real[idx]
+    return out
 
 
 def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,

@@ -338,60 +338,52 @@ def test_a_group_wider_than_the_registers_hold_raises_naming_max_rows():
 
 def _emulate_words_kernel(x, tplan, plan, stream=False, stride=1):
     """The CUDA kernel's schedule for every (example, group) of ``plan``:
-    packed tables (tiles behind one shared eps row, rows in level order),
-    each row's parent, letter, level and targets unpacked from its two
-    32-bit words as a thread holds them in registers, a chunk staged as
-    dx_i/k, and per step levels j = 1..depth in turn: a row of level j
-    forms a_n = chain_n[parent]·dx_i/(n-j+1) for each target n, adds a_j
-    to its value and leaves chain_n = (its value before the step) + a_n
-    for the targets above.  The requested words are written through the
-    group's emission list."""
+    packed tables (tiles behind one shared eps row), each row's links
+    unpacked from its 32-bit words as a thread holds them in registers
+    (left-padded to the instance's slots with links to the zero row),
+    a chunk staged as dx_i/k, two state buffers (step m reads buffer m % 2
+    and writes the other, its own rows carried in registers), and the
+    requested words written through the group's emission list."""
     B, M, d = x.shape
     tt = sw.tile_tables(tplan)
     pk = sw.packed_tables(tt, plan.groups, d)
     depth, R1, G = tt.depth, 1 + plan.r_pad, len(plan.groups)
-    assert pk.rows.shape == (G, 2, plan.r_pad)
+    assert pk.links.shape == (G, plan.depth_slots, plan.r_pad)
     k = np.arange(1, depth + 1, dtype=np.float32)[None, :, None]
     steps = [(x[:, m, None, :] / k).astype(np.float32).reshape(B, -1)
              for m in range(M)]
     emit = set(range(stride - 1, M, stride)) | {M - 1} if stream else ()
-    n_out = len(tplan.words)
-    out = np.full((B, len(emit), n_out) if stream else (B, n_out), np.nan,
+    n = len(tplan.words)
+    out = np.full((B, len(emit), n) if stream else (B, n), np.nan,
                   np.float32)
     for g in range(G):
-        w0, w1 = pk.rows[g].astype(np.int64)
-        parent, letter = w0 >> 16, w0 & 0xFFFF
-        level, targets = w1 >> 16, w1 & 0xFFFF
-        real = level > 0
-        assert (np.diff(level[real]) >= 0).all()     # level order
-        assert (parent[real] < 1 + np.arange(plan.r_pad)[real]).all()
-        chain = np.zeros((B, depth, R1), np.float32)
-        chain[:, :, 0] = 1.0                          # eps, never written
-        own = np.zeros((B, plan.r_pad), np.float32)
+        links = pk.links[g].astype(np.int64)
+        pref, off = links >> 16, links & 0xFFFF
+        # the first link that is not padding reads eps
+        first = np.argmax(pref != R1, axis=0)
+        real = (pref != R1).any(0)
+        assert (pref[first, np.arange(plan.r_pad)][real] == 0).all()
+        buf = np.zeros((2, B, R1 + 1), np.float32)   # row R1 stays 0
+        buf[:, :, 0] = 1.0
+        own = np.zeros((B, R1 - 1), np.float32)
         e = slice(pk.emit_off[g], pk.emit_off[g + 1])
         rows, cols = pk.emit_rows[e], pk.emit_cols[e]
         q = 0
         for m in range(M):
+            cur, nxt = buf[m % 2], buf[1 - m % 2]
             dx = steps[m]
-            for j in range(1, depth + 1):
-                a_own = np.zeros_like(own)
-                for n in range(j, depth + 1):
-                    sel = np.nonzero((level == j)
-                                     & (targets >> (n - 1) & 1 == 1))[0]
-                    a = (chain[:, n - 1, parent[sel]]
-                         * dx[:, (n - j) * d + letter[sel]])
-                    if n == j:
-                        a_own[:, sel] = a
-                    else:
-                        chain[:, n - 1, 1 + sel] = own[:, sel] + a
-                own = (own + a_own).astype(np.float32)
+            acc = np.zeros((B, R1 - 1), np.float32)
+            for j in range(plan.depth_slots):
+                acc = ((cur[:, pref[j]] + acc) * dx[:, off[j]]).astype(
+                    np.float32)
+            own = own + acc
+            nxt[:, 1:R1] = own
             if m in emit:
-                out[:, q, cols] = np.concatenate(
-                    [np.ones((B, 1), np.float32), own], 1)[:, rows]
+                out[:, q, cols] = nxt[:, rows]
                 q += 1
+        assert not buf[:, :, R1].any()
         if not stream:
-            out[:, cols] = np.concatenate(
-                [np.ones((B, 1), np.float32), own], 1)[:, rows]
+            out[:, cols] = buf[M % 2][:, rows]
     assert not np.isnan(out).any()               # every column written
     return out
 
