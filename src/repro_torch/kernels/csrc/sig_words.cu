@@ -60,7 +60,7 @@ namespace {
 template <int DS, int RPT> struct Bounds {
   static constexpr int links = DS * RPT;
   static constexpr int threads = links <= 32 ? 512 : 256;
-  static constexpr int blocks = links <= 4 ? 2 : 1;
+  static constexpr int blocks = links <= 8 ? 2 : 1;
 };
 
 // Increments and emissions are fp32 or bf16, chosen at run time: they are
@@ -84,12 +84,11 @@ struct WordsGeom {
   int ex_floats;           // floats of one example's shared region
 };
 
-// dx_i/k for k = 1..depth of one raw increment, element e of a chunk
-__device__ __forceinline__ void stage(float* buf, int e, float v, int d,
-                                      int nd, int depth) {
-  const int st = e / d, i = e - st * d;
-  float* o = buf + st * nd + i;
-  for (int k = 1; k <= depth; ++k) o[(k - 1) * d] = v / (float)k;
+// dx_i/k for k = 1..depth of one raw increment dx_i, at o = its step's
+// table + i; rk[k] = 1/k
+__device__ __forceinline__ void stage(float* o, float v, const float* rk,
+                                      int d, int depth) {
+  for (int k = 1; k <= depth; ++k) o[(k - 1) * d] = v * rk[k];
 }
 
 // One example's requested words from a complete state buffer: entries
@@ -124,6 +123,7 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
                      const int* __restrict__ emit_cols,
                      void* __restrict__ out, WordsGeom g) {
   extern __shared__ float smem[];
+  __shared__ float rk[SW_MAX_DEPTH + 1];
   const int M = g.M, d = g.d, depth = g.depth, nd = g.nd, T = g.T;
   const int R1 = g.R1, W = R1 - 1;
   // the block holds g.E examples of one group, T threads each
@@ -155,13 +155,21 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
     s0[r] = r == 0 ? 1.f : 0.f;
     s1[r] = r == 0 ? 1.f : 0.f;
   }
-  const size_t x0 = (size_t)(live ? b : 0) * M * d;  // this example's row
-  {
-    const int C = min(g.chunk, M);
-    for (int e = t; e < C * d; e += T)
-      stage(xb0, e, live ? load_inc(incs, x0 + e, g.in_bf16) : 0.f, d, nd,
-            depth);
+  if (threadIdx.x >= 1 && threadIdx.x <= depth)
+    rk[threadIdx.x] = 1.f / (float)threadIdx.x;
+  // element e = t + p·T of every chunk is step e / d, letter e % d: where
+  // this thread's prefetched increments land in a staged chunk
+  int slot[SW_PREFETCH];
+#pragma unroll
+  for (int p = 0; p < SW_PREFETCH; ++p) {
+    const int e = t + p * T;
+    slot[p] = (e / d) * nd + e % d;
   }
+  __syncthreads();  // rk
+  const size_t x0 = (size_t)(live ? b : 0) * M * d;  // this example's row
+  for (int e = t; e < min(g.chunk, M) * d; e += T)
+    stage(xb0 + (e / d) * nd + e % d,
+          live ? load_inc(incs, x0 + e, g.in_bf16) : 0.f, rk, d, depth);
   __syncthreads();
 
   int next_emit = g.stride - 1, q = 0;
@@ -205,7 +213,7 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
 #pragma unroll
         for (int p = 0; p < SW_PREFETCH; ++p) {
           const int e = t + p * T;
-          if (e < Cn * d) stage(xnext, e, pre[p], d, nd, depth);
+          if (e < Cn * d) stage(xnext + slot[p], pre[p], rk, d, depth);
         }
       }
       // nxt is complete; cur may be written from now on (the step after
