@@ -252,12 +252,13 @@ def plan_words_launch(B: int, tt: TileTables, d: int, *,
 
     Starts from :func:`launch_geometry` (its errors: ``MAX_DEPTH``, the
     tile count, ``max_rows``).  Tiles pack into groups of ``rows``
-    (default ``GROUP_ROWS``) closure rows (:func:`pack_tiles`); a thread
-    takes one row of a group that fits a warp, else two (two independent
-    chains a thread), or four where two would need more than
-    ``EXAMPLE_THREADS`` threads an example; examples of one group share a
-    block while it stays within ``MIN_BLOCK`` threads and the blocks cover
-    every SM.
+    (default ``GROUP_ROWS``) closure rows (:func:`pack_tiles`); an example
+    of a group of up to 128 rows takes one warp, at the fewest rows a
+    thread (1, 2 or 4) that fit it (more independent chains a thread),
+    and a wider group two rows a thread, or four where two would need more
+    than ``EXAMPLE_THREADS`` threads; examples of one group share a block
+    while it stays within ``MIN_BLOCK`` threads and the blocks cover every
+    SM.
     ``rows`` and ``examples`` force the cap and the examples a block."""
     launch_geometry(tt, d)
     R = GROUP_ROWS if rows is None else rows
@@ -267,8 +268,11 @@ def plan_words_launch(B: int, tt: TileTables, d: int, *,
     groups = pack_tiles(sizes, R)
     r_pad = max(sum(sizes[t] for t in g) for g in groups)
     ds = depth_slots(tt.depth)
-    rpt = 1 if r_pad <= 32 else next(
-        (r for r in ROWS[1:] if -(-r_pad // r) <= EXAMPLE_THREADS), ROWS[-1])
+    if r_pad <= 32 * ROWS[-1]:
+        rpt = next(r for r in ROWS if r_pad <= 32 * r)
+    else:
+        rpt = next((r for r in ROWS[1:] if -(-r_pad // r) <= EXAMPLE_THREADS),
+                   ROWS[-1])
     threads = max(_warps(-(-r_pad // rpt)), _warps(-(-d // PREFETCH)))
     if threads > max_block(ds, rpt):
         raise ValueError(f"a group of {r_pad} rows at depth {tt.depth} "

@@ -255,6 +255,7 @@ def test_words_planner_packs_every_tile_once_within_its_limits(B):
         assert plan.rows == sw.GROUP_ROWS
         assert -(-plan.r_pad // plan.rows_per_thread) <= sw.EXAMPLE_THREADS
         assert (plan.rows_per_thread == 1) == (plan.r_pad <= 32)
+        assert (plan.threads == 32) == (plan.r_pad <= 128)
         if plan.examples > 1:  # shared only while small, and the card full
             assert plan.block <= sw.MIN_BLOCK
             assert plan.grid[0] * plan.grid[1] >= sw.SMS
@@ -282,7 +283,7 @@ def test_words_planner_fills_the_card_at_section8():
     plan = sw.plan_words_launch(128, tt, 10)
     assert len(plan.groups) <= tt.n_tiles // 3      # far fewer blocks
     assert (plan.rows_per_thread, plan.depth_slots, plan.threads,
-            plan.examples) == (2, 4, 64, 2)            # 128-thread blocks
+            plan.examples) == (4, 4, 32, 4)    # a warp an example, 4 a block
     sizes = sw.tile_sizes(tt)
     idle = [plan.threads * plan.rows_per_thread - sum(sizes[t] for t in g)
             for g in plan.groups]
