@@ -7,41 +7,51 @@
 // `stride` >= 1 emits the state after every stride-th step and the last.
 //
 // What it computes.  The host cuts a word set into prefix-closed tiles of
-// at most max_rows closure words (core/words.py::make_tiled_plan) and pads
-// every tile to W rows.  Per (example, tile) the state is W+1 fp32 rows:
-// row 0 is S[eps] = 1, rows 1..W the tile's closure words (padding rows
-// stay 0).  Each time step applies the paper's Alg. 1 Horner rule to every
-// row r of length n:
+// at most max_rows closure words (core/words.py::make_tiled_plan); each
+// tile's closure rows are updated independently, no row reading another
+// tile's rows.  Each time step applies the paper's Alg. 1 Horner rule to
+// every row r of length n:
 //   acc = 0;  acc = (S_old[prefix_j(r)] + acc) * dx[letter_j(r)] / (n-j),
-//   j = 0..n-1 (prefix_0 is eps);   S[r] += acc
+//   j = 0..n-1 (prefix_0 is eps, S[eps] = 1);   S[r] += acc
 // Prefix rows and letters are gathered directly by index (the paper's
 // per-word CUDA assignment); the TPU kernel's one-hot P_j @ S and L_j @ dx
 // products, a workaround for sublane gathers, are not carried over.
 //
-// What bounds it on this card.  Per step and example the chains need one
-// product and one add per link, the 1/k scales folded into the staged
-// increments, on the CUDA cores: every product is a scalar chain, so no
-// tensor core applies.  The bytes are the increments in and the
-// coefficients out, so for the word sets served (hundreds to thousands of
-// words, a few hundred steps) the bound is FP32 arithmetic (67 TFLOP/s),
-// not HBM.  What holds the kernel above it is a step's latency: a chain is
-// depth dependent (load, add, multiply) links, and the steps are
-// sequential.
+// What bounds it on this card.  Per step and example the least work is
+// the prefix-shared Horner count (chip_smoke.py::words_flops, 4,740
+// operations at the paper's §8 set) on the CUDA cores: every product is a
+// scalar chain, so no tensor core applies.  The bytes are the increments
+// in and the words out, so for the word sets served the bound is FP32
+// arithmetic (67 TFLOP/s), except in the streamed cell, where the
+// emissions are the larger.  What holds the kernel above it is that the
+// steps are sequential: each step's links are shared-memory loads of the
+// state and the increments, then a barrier.
 //
-// What the design does about it.  The tables never change during the
-// scan, so each thread loads the links of the rows it owns into registers
-// before the time loop: a link is its prefix row and the offset of its
-// scaled increment, packed into one 32-bit word (DS slots a row, a
-// template parameter, the loop over them unrolled and predicated on the
-// row's length).  A chunk of increments is staged as dx_i/k for k =
-// 1..depth, so a link is one shared load of the state, one of the scaled
-// increment, an add and a product.  The state is double-buffered: step s
-// reads one buffer and writes the other, so a step needs one block
-// barrier; each thread keeps its own rows' values in registers.
+// What the design does about it.
+//  - Links in registers.  The tables never change during the scan, so each
+//    thread loads the links of the rows it owns (RPT rows, a template
+//    parameter) into registers before the time loop: a link is its prefix
+//    row and the offset of its scaled increment, packed into 32 bits.  A
+//    row's links are left-padded to DS slots (a template parameter) with
+//    links to a state row that stays 0, so a chain is DS unpredicated
+//    links with no branch, and slot s scales by 1/(DS-s) in every row.
+//  - Increments staged as dx_i/k for k = 1..depth, a chunk ahead: each
+//    thread fetches its share of the next chunk into registers when a
+//    chunk starts and stages it at the chunk's last step, so a link is two
+//    shared loads, an add and a product.
+//  - Double-buffered state: step s reads one buffer and writes the other,
+//    so a step has one block barrier; a thread keeps its rows' values in
+//    registers.
+//  - A partition that fills the card (sig_words.py::plan_words_launch):
+//    tiles packed into groups that share one eps row, a block holding E
+//    examples of one group, and one warp an example while a group has up
+//    to 128 rows.
+//  - Emission lists: the requested words are written straight into their
+//    output columns (repeats included) from the state at each emission.
 //
 // Precision.  Increments load as fp32 or bf16 (the bf16_fp32 cell) and all
-// accumulation is fp32; the streamed emission buffer is fp32 or bf16,
-// rounded on store.
+// accumulation is fp32; the streamed emissions are fp32 or bf16, rounded
+// on store.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
@@ -108,10 +118,12 @@ __device__ __forceinline__ void emit(void* out, size_t o, const float* S,
   }
 }
 
-// links: (G, DS, R) uint32, (prefix row << 16) | ((n-j-1)·d + letter),
+// links: (G, DS, R) uint32, (prefix row << 16) | ((k-1)·d + letter),
 // the prefix row counted in the group's state (0 = eps); a row of length n
-// holds its links in slots DS-n..DS-1 and links to the zero row R1 before
-// them; emit_off: (G+1,), emit_rows, emit_cols: (n_out,).
+// holds link j in slot DS-n+j, so slot s scales by 1/k with k = DS-s in
+// every row, and links to the zero row R1 before them; slot 0, whose
+// prefix is eps or the zero row, holds 1 or 0 in place of the prefix row;
+// emit_off: (G+1,), emit_rows, emit_cols: (n_out,).
 // out: (B, n_out) when stride == 0, else (B, M_out, n_out).
 template <int DS, int RPT>
 __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
@@ -149,7 +161,7 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
 #pragma unroll
     for (int j = 0; j < DS; ++j)
       lk[k][j] = r < W ? links[((size_t)grp * DS + j) * W + r]
-                       : (unsigned)R1 << 16;
+                       : j ? (unsigned)R1 << 16 : 0u;
   }
   for (int r = t; r <= R1; r += T) {
     s0[r] = r == 0 ? 1.f : 0.f;
@@ -196,11 +208,12 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
       const float* __restrict__ dx = xcur + s * nd;
 #pragma unroll
       for (int k = 0; k < RPT; ++k) {
-        // DS links, no branch: the padding keeps acc at 0 until the row's
-        // first link, which reads eps (1)
-        float acc = 0.f;
+        // DS links, no branch: slot 0 starts the chain at dx/DS or 0,
+        // the padding keeps it at 0 until the row's first link, which
+        // reads eps (1)
+        float acc = (lk[k][0] >> 16) ? dx[lk[k][0] & 0xffffu] : 0.f;
 #pragma unroll
-        for (int j = 0; j < DS; ++j) {
+        for (int j = 1; j < DS; ++j) {
           const unsigned l = lk[k][j];
           acc = (cur[l >> 16] + acc) * dx[l & 0xffffu];
         }
@@ -285,8 +298,9 @@ cudaError_t launch_rows(int rpt, const void* incs, const void* const* tabs,
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int sig_words_launch(const void* incs, const void* links,
                                 const void* emit_off, const void* emit_rows,
-                                const void* emit_cols, void* out, int B, int M, int d, int G, int R,
-                                int n_out, int depth, int stride, int in_bf16,
+                                const void* emit_cols, void* out, int B,
+                                int M, int d, int G, int R, int n_out,
+                                int depth, int stride, int in_bf16,
                                 int out_bf16, int depth_slots,
                                 int rows_per_thread, int threads, int examples,
                                 int chunk, void* stream) {

@@ -383,21 +383,29 @@ def link_words(prefix: np.ndarray, letters: np.ndarray, lengths: np.ndarray,
     """Links packed as the kernel reads them, (..., slots, W) uint32 from
     (..., depth, W) prefix rows and letters and (..., W) lengths: link j of
     a row of length n is (prefix row << 16) | the offset (k-1)·d + letter
-    of the staged dx_letter/k, k = n - j, in slot slots - n + j; the slots
-    before hold (zero << 16), a link to the state row that stays 0."""
+    of the staged dx_letter/k, k = n - j, in slot s = slots - n + j, so
+    k = slots - s in every row.  The slots before link to the state row
+    ``zero`` that stays 0, at a staged value of the same k (or of the
+    deepest, past the depth).  Slot 0 reads eps or the zero row, so it
+    holds 1 or 0 in place of the prefix row."""
     depth, W = prefix.shape[-2:]
     if zero >= 1 << 16 or depth * d > 1 << 16:
         raise ValueError("a group's rows or depth·d exceed the kernel's "
                          "16-bit link fields")
+    s = np.arange(slots)[:, None]
+    pad = (np.minimum(slots - s, depth) - 1) * d          # (slots, 1)
+    out = np.broadcast_to((np.uint32(zero) << 16) | pad.astype(np.uint32),
+                          prefix.shape[:-2] + (slots, W)).copy()
     j = np.arange(depth)[:, None]
     k = lengths[..., None, :] - j
     real = (prefix.astype(np.uint32) << 16) | np.where(
         k >= 1, (k - 1) * d + letters, 0).astype(np.uint32)
-    out = np.full(prefix.shape[:-2] + (slots, W), zero << 16, np.uint32)
-    # slot = slots - n + j for j < n
-    slot = slots - lengths[..., None, :] + j
     idx = np.nonzero(k >= 1)
-    out[idx[:-2] + (slot[idx], idx[-1])] = real[idx]
+    slot = (slots - lengths[..., None, :] + j)[idx]
+    out[idx[:-2] + (slot, idx[-1])] = real[idx]
+    first = out[..., 0, :]
+    out[..., 0, :] = np.where(first >> 16 == zero, 0, (1 << 16)
+                              | (first & 0xFFFF)).astype(np.uint32)
     return out
 
 

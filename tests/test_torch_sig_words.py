@@ -360,10 +360,15 @@ def _emulate_words_kernel(x, tplan, plan, stream=False, stride=1):
     for g in range(G):
         links = pk.links[g].astype(np.int64)
         pref, off = links >> 16, links & 0xFFFF
+        assert set(pref[0]) <= {0, 1}               # slot 0: a flag
+        for s in range(1, plan.depth_slots):        # k = slots - s
+            k = np.minimum(plan.depth_slots - s, depth)
+            assert ((off[s] // d) == k - 1).all()
         # the first link that is not padding reads eps
-        first = np.argmax(pref != R1, axis=0)
-        real = (pref != R1).any(0)
-        assert (pref[first, np.arange(plan.r_pad)][real] == 0).all()
+        later = pref[1:] != R1
+        first = 1 + np.argmax(later, axis=0)
+        inner = later.any(0) & (pref[0] == 0)
+        assert (pref[first, np.arange(plan.r_pad)][inner] == 0).all()
         buf = np.zeros((2, B, R1 + 1), np.float32)   # row R1 stays 0
         buf[:, :, 0] = 1.0
         own = np.zeros((B, R1 - 1), np.float32)
@@ -373,8 +378,9 @@ def _emulate_words_kernel(x, tplan, plan, stream=False, stride=1):
         for m in range(M):
             cur, nxt = buf[m % 2], buf[1 - m % 2]
             dx = steps[m]
-            acc = np.zeros((B, R1 - 1), np.float32)
-            for j in range(plan.depth_slots):
+            acc = np.where(pref[0] == 1, dx[:, off[0]], 0).astype(
+                np.float32)
+            for j in range(1, plan.depth_slots):
                 acc = ((cur[:, pref[j]] + acc) * dx[:, off[j]]).astype(
                     np.float32)
             own = own + acc
