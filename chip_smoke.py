@@ -238,9 +238,8 @@ def trunc_partition(B: int, d: int, depth: int) -> dict:
                 blocks=p.grid[0] * p.grid[1], smem=p.smem)
 
 
-def words_partition(B: int, tp, d: int) -> dict:
-    """The planner's sig_words partition for a (B, ·, d) batch."""
-    p = sw.plan_words_launch(B, sw.tile_tables(tp), d)
+def words_partition(p) -> dict:
+    """A sig_words partition (sw.plan_words_launch), as reported."""
     return dict(groups=len(p.groups), rows=p.rows, r_pad=p.r_pad,
                 rows_per_thread=p.rows_per_thread,
                 depth_slots=p.depth_slots, threads=p.threads,
@@ -537,13 +536,6 @@ def within(got: torch.Tensor, want: torch.Tensor, rtol: float) -> bool:
                  + rtol * want.abs()).all())
 
 
-def words_part(plan) -> str:
-    return (f"groups={len(plan.groups)} rows={plan.rows} "
-            f"r_pad={plan.r_pad} rpt={plan.rows_per_thread} "
-            f"slots={plan.depth_slots} threads={plan.threads} "
-            f"examples={plan.examples} chunk={plan.chunk}")
-
-
 def phase_words_kernels(rng) -> dict:
     """sig_words against its plain version, every cell, at every
     partition the planner can choose (sw.partition_variants); returns the
@@ -569,7 +561,7 @@ def phase_words_kernels(rng) -> dict:
                     for plan in plans:
                         where = (f"{kname} [{name}] M={M} max_rows="
                                  f"{max_rows} tiles={len(tp.tiles)} "
-                                 f"stride={stride} {words_part(plan)}")
+                                 f"stride={stride} {words_partition(plan)}")
                         got = sw._launch(x.float(), tp, stream, stride,
                                          "fp32", plan).double()
                         torch.cuda.synchronize()
@@ -696,8 +688,9 @@ def phase_projection(rng) -> dict:
                         B * (-(-M2 // stride)) * len(ctp.words), 4,
                         words_flops(plan))
     trunc_ms = cuda_ms(lambda: ops.signature(incs, N), 10)
-    part = words_partition(B, tp, 2 * d)
-    part_s = words_partition(B, ctp, 2 * d)
+    part = words_partition(sw.plan_words_launch(B, sw.tile_tables(tp), 2 * d))
+    part_s = words_partition(sw.plan_words_launch(B, sw.tile_tables(ctp),
+                                                  2 * d))
     print(f"[project] sig_words (B={B}, M={M2}, d={2 * d}, {len(words)} "
           f"words, {len(tp.tiles)} tiles, {part}): {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}); truncated "
@@ -750,7 +743,8 @@ def phase_logsig(rng) -> list:
                          max_abs_err=err, ms=ms, dense_ms=dense_ms,
                          words=plan.closure_size, kernel_ms=kms,
                          kernel_plain_ms=kplain, bound_ms=bms, bound_by=by,
-                         partition=words_partition(B, ctp, d)))
+                         partition=words_partition(sw.plan_words_launch(
+                             B, sw.tile_tables(ctp), d))))
         print(f"[logsig] B={B:2d} M={M:3d} d={d:2d} N={N}: projected "
               f"(sig_words) {ms:7.3f} ms, dense (sig_trunc) {dense_ms:7.3f} "
               f"ms, max |err| vs dense torch {err:.2e}; sig_words alone over "

@@ -15,15 +15,18 @@ gathering its prefix row and letter directly by ``prefix_idx``/``letters``
 (the TPU kernel's one-hot ``P_j @ S`` products were a workaround for
 sublane gathers and are not carried over).
 
-The CUDA kernel (``csrc/sig_words.cu``, one thread block per example and
-tile, the state and the tile's tables in shared memory) writes (B, T,
-1 + W_pad) fp32 states, or (B, M_out, T, 1 + W_pad) emissions in the
-storage dtype; one precomputed flat index (:func:`gather_index`, equal to
-the reference's ``tile_idx``/``row_idx`` pair) reads the requested words
-out.  On a CPU tensor :func:`sig_words` runs :func:`sig_words_plain`, the
-same padded tiles as a word-table scan in PyTorch; on a CUDA tensor it
-launches the kernel or raises.  The kernel is forward-only:
-:class:`SigWordsFunction` raises on backward.
+:func:`tile_tables` lays the tiles out padded, (T, depth, W_pad), as the
+reference does, and :func:`gather_index` reads the requested words from
+the padded (T, 1 + W_pad) states.  The CUDA kernel (``csrc/sig_words.cu``)
+runs a partition chosen by :func:`plan_words_launch`: tiles packed into
+groups behind one shared eps row (:func:`pack_tiles`), each row's links
+packed into registers (:func:`packed_tables`), several examples of one
+group a block; it writes (B, |I|) fp32 words, or (B, M_out, |I|) in the
+storage dtype, through each group's emission list.  On a CPU tensor
+:func:`sig_words` runs :func:`sig_words_plain`, the padded tiles as a
+word-table scan in PyTorch; on a CUDA tensor it launches the kernel or
+raises.  The kernel is forward-only: :class:`SigWordsFunction` raises on
+backward.
 """
 from __future__ import annotations
 
@@ -325,9 +328,6 @@ class PackedTables:
     the tiles before it in its group, behind one shared eps row."""
     r_pad: int
     links: np.ndarray     # (G, slots, r_pad) uint32, see link_words
-    group: np.ndarray     # (T,) group of each tile
-    offset: np.ndarray    # (T,) packed rows before each tile's first
-    rows: np.ndarray      # (|I|,) state row of each requested word
     # the emission list: group g emits entries emit_off[g]:emit_off[g+1],
     # state row emit_rows[i] into output column emit_cols[i]
     emit_off: np.ndarray   # (G + 1,) int32
@@ -364,8 +364,7 @@ def packed_tables(tt: TileTables, groups: tuple[tuple[int, ...], ...],
     return PackedTables(r_pad=r_pad,
                         links=link_words(pidx, letters, lengths, d,
                                          depth_slots(depth), r_pad + 1),
-                        group=group, offset=offset,
-                        rows=rows, emit_off=off.astype(np.int32),
+                        emit_off=off.astype(np.int32),
                         emit_rows=rows[cols].astype(np.int32),
                         emit_cols=cols.astype(np.int32))
 
