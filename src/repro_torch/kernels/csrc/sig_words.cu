@@ -222,7 +222,8 @@ __global__ void __launch_bounds__(Bounds<DS, RPT>::threads,
         if (r < W) nxt[1 + r] = own[k];
       }
       if (s == C - 1) {
-        // the chunk after next last read xnext before this chunk began
+        // the next chunk reads xnext after this step's barrier; the chunk
+        // before this one read it last, before this chunk's barriers
 #pragma unroll
         for (int p = 0; p < SW_PREFETCH; ++p) {
           const int e = t + p * T;

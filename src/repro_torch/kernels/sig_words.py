@@ -338,6 +338,8 @@ class PackedTables:
 @plan_cache
 def packed_tables(tt: TileTables, groups: tuple[tuple[int, ...], ...],
                   d: int) -> PackedTables:
+    """The kernel's tables for ``groups`` of ``tt``'s tiles over d
+    letters, built once a packing and cached."""
     sizes = tile_sizes(tt)
     G, depth = len(groups), tt.depth
     r_pad = max(sum(sizes[t] for t in g) for g in groups)
@@ -371,7 +373,7 @@ def packed_tables(tt: TileTables, groups: tuple[tuple[int, ...], ...],
 
 @plan_cache
 def _packed_on(tt: TileTables, groups: tuple[tuple[int, ...], ...], d: int,
-               device: torch.device) -> dict:
+               device: torch.device) -> list[torch.Tensor]:
     pk = packed_tables(tt, groups, d)
     return [torch.as_tensor(a, device=device) for a in (
         pk.links.view(np.int32), pk.emit_off, pk.emit_rows, pk.emit_cols)]
