@@ -44,8 +44,8 @@
 //    registers.
 //  - A partition that fills the card (sig_words.py::plan_words_launch):
 //    tiles packed into groups that share one eps row, a block holding E
-//    examples of one group, and one warp an example while a group has up
-//    to 128 rows.
+//    examples of one group, and 2 or 4 rows a thread (independent chains)
+//    once the launch would pass the warps the card holds at once.
 //  - Emission lists: the requested words are written straight into their
 //    output columns (repeats included) from the state at each emission.
 //

@@ -59,6 +59,9 @@ STAGE_FLOATS = 2048   # scaled increments a chunk may stage
 PREFETCH = 4          # SW_PREFETCH: raw increments a thread fetches ahead
 GROUP_ROWS = 128      # the planner's cap on a group's closure rows
 EXAMPLE_THREADS = 256  # more rows a thread above this many an example
+# warps the card holds at once at 64 registers a thread (32 an SM): past
+# this, the planner gives each thread more rows (independent chains)
+RESIDENT_WARPS = 32 * SMS
 MIN_BLOCK = 128       # below this, examples of one group share a block
 
 # launch counters: one per kernel cell, bumped where the kernel is launched
@@ -250,19 +253,20 @@ def example_cap(plan: WordsLaunch) -> int:
 @plan_cache
 def plan_words_launch(B: int, tt: TileTables, d: int, *,
                       rows: int | None = None,
-                      examples: int | None = None) -> WordsLaunch:
+                      examples: int | None = None,
+                      rows_per_thread: int | None = None) -> WordsLaunch:
     """The kernel's partition for (B, ·, d) increments over ``tt``'s tiles.
 
     Starts from :func:`launch_geometry` (its errors: ``MAX_DEPTH``, the
     tile count, ``max_rows``).  Tiles pack into groups of ``rows``
-    (default ``GROUP_ROWS``) closure rows (:func:`pack_tiles`); an example
-    of a group of up to 128 rows takes one warp, at the fewest rows a
-    thread (1, 2 or 4) that fit it (more independent chains a thread),
-    and a wider group two rows a thread, or four where two would need more
-    than ``EXAMPLE_THREADS`` threads; examples of one group share a block
-    while it stays within ``MIN_BLOCK`` threads and the blocks cover every
-    SM.
-    ``rows`` and ``examples`` force the cap and the examples a block."""
+    (default ``GROUP_ROWS``) closure rows (:func:`pack_tiles`); a thread
+    takes the fewest rows (1, 2 or 4) that keep an example within
+    ``EXAMPLE_THREADS`` threads and the launch within ``RESIDENT_WARPS``
+    warps, else the most (more independent chains a thread once the card
+    is full); examples of one group share a block while it stays within
+    ``MIN_BLOCK`` threads and the blocks cover every SM.
+    ``rows``, ``examples`` and ``rows_per_thread`` force the cap, the
+    examples a block and the rows a thread."""
     launch_geometry(tt, d)
     R = GROUP_ROWS if rows is None else rows
     if R < 1:
@@ -271,11 +275,15 @@ def plan_words_launch(B: int, tt: TileTables, d: int, *,
     groups = pack_tiles(sizes, R)
     r_pad = max(sum(sizes[t] for t in g) for g in groups)
     ds = depth_slots(tt.depth)
-    if r_pad <= 32 * ROWS[-1]:
-        rpt = next(r for r in ROWS if r_pad <= 32 * r)
+    G = len(groups)
+    if rows_per_thread is None:
+        fits = [r for r in ROWS if -(-r_pad // r) <= EXAMPLE_THREADS] or [4]
+        rpt = next((r for r in fits if B * G * _warps(-(-r_pad // r)) // 32
+                    <= RESIDENT_WARPS), fits[-1])
+    elif rows_per_thread in ROWS:
+        rpt = rows_per_thread
     else:
-        rpt = next((r for r in ROWS[1:] if -(-r_pad // r) <= EXAMPLE_THREADS),
-                   ROWS[-1])
+        raise ValueError(f"rows_per_thread must be one of {ROWS}")
     threads = max(_warps(-(-r_pad // rpt)), _warps(-(-d // PREFETCH)))
     if threads > max_block(ds, rpt):
         raise ValueError(f"a group of {r_pad} rows at depth {tt.depth} "
@@ -288,7 +296,6 @@ def plan_words_launch(B: int, tt: TileTables, d: int, *,
     if ex_smem > SMEM_BUDGET:
         raise ValueError(f"an example needs {ex_smem} bytes of shared memory"
                          f", above the {SMEM_BUDGET} a block may take")
-    G = len(groups)
     cap = min(max_block(ds, rpt) // threads, SMEM_BUDGET // ex_smem)
     if examples is None:
         e = 1
@@ -311,14 +318,21 @@ def plan_words_launch(B: int, tt: TileTables, d: int, *,
 
 def partition_variants(B: int, tt: TileTables, d: int) -> list[WordsLaunch]:
     """Every partition the planner can choose for a (B, ·, d) batch: its
-    own; one tile and one example a block; and for both packings the
-    most examples a block may hold.  For tests and chip_smoke.py."""
+    own; one tile and one example a block; each rows a thread that fits
+    its packing; and for both packings the most examples a block may
+    hold.  For tests and chip_smoke.py."""
     own = plan_words_launch(B, tt, d)
     plans = [own]
     for rows in (1, own.rows):
         one = plan_words_launch(B, tt, d, rows=rows, examples=1)
         plans += [one, plan_words_launch(B, tt, d, rows=rows,
                                          examples=example_cap(one))]
+    for rpt in ROWS:
+        try:
+            plans.append(plan_words_launch(B, tt, d, examples=1,
+                                           rows_per_thread=rpt))
+        except ValueError:  # the group is too wide for this instance
+            continue
     return list(dict.fromkeys(plans))
 
 

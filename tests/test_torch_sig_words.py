@@ -254,8 +254,17 @@ def test_words_planner_packs_every_tile_once_within_its_limits(B):
         _check_words_plan(plan, tt, d, B)
         assert plan.rows == sw.GROUP_ROWS
         assert -(-plan.r_pad // plan.rows_per_thread) <= sw.EXAMPLE_THREADS
-        assert (plan.rows_per_thread == 1) == (plan.r_pad <= 32)
-        assert (plan.threads == 32) == (plan.r_pad <= 128)
+        # the fewest rows a thread that keep the launch within the warps
+        # the card holds, else the most that keep an example in bounds
+        fits = [r for r in sw.ROWS
+                if -(-plan.r_pad // r) <= sw.EXAMPLE_THREADS] or [4]
+        warps = {r: B * len(plan.groups) * -(-(-(-plan.r_pad // r)) // 32)
+                 for r in fits}
+        assert plan.rows_per_thread in fits
+        assert all(warps[r] > sw.RESIDENT_WARPS for r in fits
+                   if r < plan.rows_per_thread)
+        assert (warps[plan.rows_per_thread] <= sw.RESIDENT_WARPS
+                or plan.rows_per_thread == fits[-1])
         if plan.examples > 1:  # shared only while small, and the card full
             assert plan.block <= sw.MIN_BLOCK
             assert plan.grid[0] * plan.grid[1] >= sw.SMS
@@ -311,8 +320,13 @@ def test_words_partition_variants_cover_one_tile_a_block_and_sharing(B, d):
     assert any(len(p.groups) == tt.n_tiles and p.examples == 1
                for p in plans)                   # one tile, one example
     assert any(p.examples == sw.example_cap(p) > 1 for p in plans)
+    assert {p.rows_per_thread for p in plans} == set(sw.ROWS)
     for p in plans:
         _check_words_plan(p, tt, d, B)
+    forced = sw.plan_words_launch(B, tt, d, rows_per_thread=2)
+    assert forced.rows_per_thread == 2
+    with pytest.raises(ValueError, match="rows_per_thread"):
+        sw.plan_words_launch(B, tt, d, rows_per_thread=3)
 
 
 def test_a_group_wider_than_the_registers_hold_raises_naming_max_rows():
