@@ -88,12 +88,55 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              words): two sig_words legs into three sig_gram products,
              against the statistic from the plain versions in float64 to
              1e-4·max|K_64|; the 128 × 128 × 1,685 Gram timed as in 11.
-13. report — one JSON line of kernels (the sig_trunc row with its cases:
+13. sweep  — hold the sig_sweep kernel (the §4.2 reverse sweep, the
+             backward of both signature kernels) against sig_sweep_plain in
+             float64 on the card, through SigTruncFunction over (d, N) in
+             the sweep of phase 3 (with (10, 5), whose 111,110-row closure
+             runs from device memory) and SigWordsFunction over phase 6's
+             word sets (closure tiles of at most 32 rows): terminal and
+             streamed, strides 1 and 3, fp32 and bf16_fp32, B = 5, M in {1,
+             37}, random cotangents, the plain version on the same
+             increments and the same saved terminal state.  |g − g_64| <=
+             1e-3·|g_64| + 1e-4·max|g_64| in both precisions: the kernel
+             sums in fp32 (atomics, in an order that varies), and sums of
+             terms up to max|g| cancel, so a bound absolute in the
+             gradient's units is below fp32's resolution at max|g| ~ 1e3
+             (the fp32 plain sweep fails rtol 1e-3 + atol 1e-5 too); bf16
+             rounding enters only through the increments, which both share.
+14. train  — the paper's Table 1 train mode, ((ops.signature(x, N))**2).sum()
+             with its gradient at every Table 1 cell: one sig_trunc and one
+             sig_sweep launch per call; at the depth sweep the gradient
+             against the torch engine's float64 autodiff (tolerance as in
+             13); value plus gradient ms, sig_sweep alone (ms, plain ms,
+             bound), and the torch engine's autodiff value plus gradient at
+             the depth sweep for information.
+15. memory — the paper's Table 2 cell (B = 32, d = 5, N = 4, M from 50 to
+             1600): torch.cuda.max_memory_allocated during value plus
+             gradient for inverse (the card) and autodiff; from M = 50 to
+             1600 the inverse peak grows by at most 4× the increments' own
+             growth (B·ΔM·d·4 bytes), autodiff's by more than 10×; peaks
+             as multiples of Mem_out = 4·B·D_sig.
+16. mmdgrad — the gradient of sig_mmd on the §8 word set with respect to
+             the generated sample (two sig_words launches, three sig_gram,
+             one sig_sweep) against the float64 torch engine to
+             1e-4·max|g|.
+17. hurst  — the §8 model of examples/hurst_fbm_torch.py at the --full
+             widths (d = 5, M = 250: 500 lead-lag increments over 10
+             letters, depth 3, batch 128, lr 1e-2): 10 Adam steps of
+             truncated (1,110 features, sig_trunc) and of sparse (260
+             words, 285-row closure, sig_words) on 1,280 training paths of
+             the port's hurst_dataset, whitened on 256; one forward kernel
+             and one sig_sweep a step, finite losses, the first step's
+             gradients against the same model on the torch engine in
+             float64 to 1e-3·max|g| per parameter; step ms (median of
+             steps 2-10), the loss curve, the kernels' ms.
+18. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell; the sig_words row with its cases: §8 terminal,
-             §8 streamed, the largest Table 3 set; each with ms, bound and
-             partition), the card's name and power limit, then the device
-             line last.
+             §8 streamed, the largest Table 3 set; the sig_sweep row with
+             its cases: largest Table 1 train cell, §8 sparse step, §8
+             truncated step; each with ms, bound and partition), the
+             card's name and power limit, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -106,6 +149,7 @@ composition adds the signature's rounding to the Gram's.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import re
 import subprocess
@@ -130,8 +174,10 @@ from repro_torch.core.transforms import (lead_lag,  # noqa: E402
 from repro_torch.core.words import (all_words, anisotropic_words,  # noqa: E402
                                     generated_words, lyndon_words, make_plan,
                                     make_tiled_plan, prefix_closure)
+from repro_torch.data.pipeline import hurst_dataset  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import sig_gram as sg  # noqa: E402
+from repro_torch.kernels import sig_sweep as ss  # noqa: E402
 from repro_torch.kernels import sig_trunc as st  # noqa: E402
 from repro_torch.kernels import sig_words as sw  # noqa: E402
 from repro_torch.ragged import (RaggedPaths, assign_buckets,  # noqa: E402
@@ -259,12 +305,13 @@ def reset_counts() -> None:
     st.launches = st.stream_launches = 0
     sw.launches = sw.stream_launches = 0
     sg.launches = 0
+    ss.launches = 0
 
 
 def counts() -> dict:
     return dict(sig_trunc=st.launches, sig_trunc_stream=st.stream_launches,
                 sig_words=sw.launches, sig_words_stream=sw.stream_launches,
-                sig_gram=sg.launches)
+                sig_gram=sg.launches, sig_sweep=ss.launches)
 
 
 def brownian(rng, B: int, M: int, d: int) -> torch.Tensor:
@@ -536,17 +583,18 @@ def within(got: torch.Tensor, want: torch.Tensor, rtol: float) -> bool:
                  + rtol * want.abs()).all())
 
 
-def phase_words_kernels(rng) -> dict:
+def phase_words_kernels(rng) -> tuple[dict, list]:
     """sig_words against its plain version, every cell, at every
     partition the planner can choose (sw.partition_variants); returns the
-    max fp32 |error| per kernel name.  bf16_fp32 is held against the plain
+    max fp32 |error| per kernel name and the word sets.  bf16_fp32 is held against the plain
     version on the same bf16-rounded increments (streamed emissions within
     one bf16 rounding, 2^-8), and each full level against the unrounded
     answer within n·2^-8."""
     max_err = {"sig_words": 0.0, "sig_words_stream": 0.0}
     cases = 0
     cells = [(False, 1), (True, 1), (True, 3)]
-    for name, d, words in word_sets(rng):
+    sets = word_sets(rng)
+    for name, d, words in sets:
         for M in (1, 37):
             x = torch.tensor(rng.normal(size=(5, M, d)) * 0.3, device="cuda")
             xq = x.float().to(torch.bfloat16).double()
@@ -584,7 +632,7 @@ def phase_words_kernels(rng) -> dict:
             print(f"[words] {name:24s} d={d} M={M:2d} {len(words):3d} words: "
                   f"max|err| {max(max_err.values()):.2e}", flush=True)
     print(f"[words] {cases} cases within tolerance", flush=True)
-    return max_err
+    return max_err, sets
 
 
 def phase_cross(rng) -> dict:
@@ -1057,6 +1105,337 @@ def phase_projected_mmd(rng) -> dict:
                 launches=n, gram=t)
 
 
+# ---------------------------------------------------------------------------
+# training: the §4.2 reverse sweep (sig_sweep) and the paths that run it
+# ---------------------------------------------------------------------------
+
+# (B, d, N, M values) of the paper's Table 2 memory cell
+MEM_CELL = (32, 5, 4, (50, 100, 200, 400, 800, 1600))
+# paper §8 training (examples/hurst_fbm_torch.py --full): path channels,
+# path steps, depth, batch, learning rate, training paths, whitening paths,
+# steps per model
+HURST = (5, 250, 3, 128, 1e-2, 1280, 256, 10)
+
+
+def grad_within(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """|g − g_64| <= 1e-3·|g_64| + E2E_TOL·max|g_64| (phase 13's rule)."""
+    scale = float(want.abs().max())
+    return bool(((got.double() - want).abs()
+                 <= 1e-3 * want.abs() + E2E_TOL * scale).all())
+
+
+def sweep_bound(B: int, M: int, plan, n_emit: int) -> tuple[float, str]:
+    """Least time (ms) of one sweep: 3 × the forward's prefix-shared Horner
+    count a step and example (the inverse step, then the two products of
+    its VJP) over the FP32 peak, against the increments in, g_dx out, S_T
+    and the cotangents in, once each, over HBM."""
+    t_ops = 3 * B * M * words_flops(plan) / FP32_FLOPS_PER_S
+    t_bytes = 4 * (2 * B * M * plan.d + B * plan.closure_size
+                   + B * n_emit * len(plan.words)) / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sweep_case(rng, fn, x: torch.Tensor, plan, stream: bool, stride: int,
+               precision: str) -> float:
+    """Run ``fn`` (a kernel's autograd node) forward and back with a random
+    cotangent; hold the gradient against sig_sweep_plain in float64 on the
+    same increments and the same saved terminal state.  Returns the max
+    |error|."""
+    xin = x.detach().clone().requires_grad_()
+    out = fn(xin)
+    co = torch.tensor(rng.normal(size=tuple(out.shape)),
+                      device="cuda").to(out.dtype)
+    reset_counts()
+    g, = torch.autograd.grad(out, xin, co)
+    torch.cuda.synchronize()
+    check(ss.launches == 1, f"one sig_sweep launch a backward: {counts()}")
+    terminal = (out[:, -1] if stream else out).detach().double()
+    want = ss.sig_sweep_plain(x.double(), plan, terminal, co.double(),
+                              stream=stream, stream_stride=stride)
+    check(g.shape == want.shape and grad_within(g, want),
+          f"max |err| {float((g.double() - want).abs().max()):.3e}, "
+          f"max|g| {float(want.abs().max()):.3e}")
+    return float((g.double() - want).abs().max())
+
+
+def phase_sweep(rng, sets) -> float:
+    """sig_sweep against its plain version through both kernels' autograd
+    nodes; returns the max |error| (fp32 increments)."""
+    cells = [(False, 1), (True, 1), (True, 3)]
+    worst, cases = 0.0, 0
+    for d, N in SWEEP:
+        plan = sig.truncation_closure(d, N)
+        for M in (1, 37):
+            x = torch.tensor(rng.normal(size=(5, M, d)) * 0.3,
+                             device="cuda").float()
+            for precision in ("fp32", "bf16_fp32"):
+                xp = x if precision == "fp32" else \
+                    x.to(torch.bfloat16).float()
+                for stream, stride in cells:
+                    where = (f"sig_sweep (sig_trunc) d={d} N={N} M={M} "
+                             f"stride={stride if stream else 0} {precision}")
+                    try:
+                        err = sweep_case(rng, lambda t: st.SigTruncFunction.
+                                         apply(t, N, None, stream, stride,
+                                               precision),
+                                         xp, plan, stream, stride, precision)
+                    except RuntimeError as e:
+                        raise RuntimeError(f"{where}: {e}") from e
+                    if precision == "fp32":
+                        worst = max(worst, err)
+                    cases += 1
+        print(f"[sweep] truncated d={d:2d} N={N} (W={plan.closure_size}, "
+              f"{'shared' if ss.sweep_geometry(plan.closure_size, d, N)[2] else 'device'}"
+              f" memory): max |err| so far {worst:.2e}", flush=True)
+    for name, d, words in sets:
+        ctp = make_tiled_plan(prefix_closure(words), d, max_rows=32)
+        plan = sw.closure_plan(ctp)
+        check(plan is not None, f"[{name}] closure tiles are not closed")
+        for M in (1, 37):
+            x = torch.tensor(rng.normal(size=(5, M, d)) * 0.3,
+                             device="cuda").float()
+            for precision in ("fp32", "bf16_fp32"):
+                xp = x if precision == "fp32" else \
+                    x.to(torch.bfloat16).float()
+                for stream, stride in cells:
+                    where = (f"sig_sweep (sig_words) [{name}] M={M} "
+                             f"stride={stride if stream else 0} {precision}")
+                    try:
+                        err = sweep_case(rng, lambda t: sw.SigWordsFunction.
+                                         apply(t, ctp, stream, stride,
+                                               precision),
+                                         xp, plan, stream, stride, precision)
+                    except RuntimeError as e:
+                        raise RuntimeError(f"{where}: {e}") from e
+                    if precision == "fp32":
+                        worst = max(worst, err)
+                    cases += 1
+    print(f"[sweep] {cases} cases within tolerance, max fp32 |err| "
+          f"{worst:.2e}", flush=True)
+    return worst
+
+
+def time_sweep(incs: torch.Tensor, plan, S_T: torch.Tensor,
+               g: torch.Tensor) -> dict:
+    """sig_sweep alone and its plain version at one shape, and its bound."""
+    B, M, _ = incs.shape
+    bms, by = sweep_bound(B, M, plan, 1)
+    return dict(ms=cuda_ms(lambda: ss.sig_sweep(incs, plan, S_T, g), 5),
+                plain_ms=cuda_ms(lambda: ss.sig_sweep_plain(
+                    incs, plan, S_T, g), 1),
+                bound_ms=bms, bound_by=by, W=plan.closure_size)
+
+
+def phase_train_grid(rng) -> list:
+    """Table 1 train mode at every cell, through ops.signature."""
+    rows = []
+    for B, M, d, N in TABLE1:
+        incs = torch.tensor(rng.normal(size=(B, M, d)) / np.sqrt(M),
+                            dtype=torch.float32, device="cuda")
+        x = incs.clone().requires_grad_()
+
+        def value_and_grad():
+            out = ops.signature(x, N)
+            return out, torch.autograd.grad((out ** 2).sum(), x)[0]
+
+        reset_counts()
+        out, g = value_and_grad()
+        torch.cuda.synchronize()
+        n = counts()
+        check(n["sig_trunc"] == 1 and n["sig_sweep"] == 1
+              and n["sig_trunc_stream"] == 0,
+              f"Table 1 train cell {B, M, d, N}: launches {n}")
+        check(bool(torch.isfinite(g).all()), f"train cell {B, M, d, N}")
+        row = dict(B=B, M=M, d=d, N=N, launches=n,
+                   ms=cuda_ms(value_and_grad, 5))
+        if (B, M, d) == (32, 100, 6):   # the depth sweep
+            x64 = incs.double().requires_grad_()
+            g64, = torch.autograd.grad((ops.signature(
+                x64, N, backend="torch", backward="autodiff") ** 2).sum(),
+                x64)
+            row["max_abs_err"] = float((g.double() - g64).abs().max())
+            check(grad_within(g, g64),
+                  f"train cell {B, M, d, N}: gradient max |err| "
+                  f"{row['max_abs_err']:.3e}, max|g| "
+                  f"{float(g64.abs().max()):.3e}")
+            xa = incs.clone().requires_grad_()
+            row["autodiff_ms"] = cuda_ms(lambda: torch.autograd.grad((
+                ops.signature(xa, N, backward="autodiff") ** 2).sum(), xa),
+                1)
+        plan = sig.truncation_closure(d, N)
+        row.update({f"sweep_{k}": v for k, v in time_sweep(
+            incs, plan, out.detach(), 2 * out.detach()).items()})
+        rows.append(row)
+        print(f"[train] B={B:3d} M={M:3d} d={d:2d} N={N}: value+grad "
+              f"{row['ms']:8.3f} ms; sig_sweep alone {row['sweep_ms']:.3f} "
+              f"ms, plain {row['sweep_plain_ms']:.3f} ms, bound "
+              f"{row['sweep_bound_ms']:.4f} ms ({row['sweep_bound_by']})"
+              + (f"; torch autodiff {row['autodiff_ms']:.3f} ms, max |err| "
+                 f"vs float64 autodiff {row['max_abs_err']:.2e}"
+                 if "autodiff_ms" in row else ""), flush=True)
+    return rows
+
+
+def phase_memory(rng) -> dict:
+    """Peak device memory of value plus gradient at the Table 2 cell."""
+    B, d, N, Ms = MEM_CELL
+    mem_out = 4 * B * sum(d**n for n in range(1, N + 1))
+    peaks = {"inverse": [], "autodiff": []}
+    for M in Ms:
+        for mode in peaks:
+            x = torch.tensor(rng.normal(size=(B, M, d)) / np.sqrt(M),
+                             dtype=torch.float32,
+                             device="cuda").requires_grad_()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = ops.signature(x, N, backward=mode)
+            g, = torch.autograd.grad((out ** 2).sum(), x)
+            torch.cuda.synchronize()
+            peaks[mode].append(torch.cuda.max_memory_allocated())
+            check(bool(torch.isfinite(g).all()), f"memory cell M={M} {mode}")
+            del x, out, g
+        print(f"[memory] B={B} d={d} N={N} M={M:4d}: peak inverse "
+              f"{peaks['inverse'][-1] / mem_out:8.1f} Mem_out, autodiff "
+              f"{peaks['autodiff'][-1] / mem_out:8.1f} Mem_out (Mem_out = "
+              f"{mem_out} bytes)", flush=True)
+    inc_growth = B * (Ms[-1] - Ms[0]) * d * 4
+    grow = {m: p[-1] - p[0] for m, p in peaks.items()}
+    print(f"[memory] growth M={Ms[0]}..{Ms[-1]}: inverse {grow['inverse']} "
+          f"bytes ({grow['inverse'] / inc_growth:.2f}× the increments' "
+          f"{inc_growth}), autodiff {grow['autodiff']} bytes "
+          f"({grow['autodiff'] / inc_growth:.1f}×)", flush=True)
+    check(grow["inverse"] <= 4 * inc_growth,
+          f"inverse peak grew {grow['inverse']} bytes, above 4× the "
+          f"increments' {inc_growth}")
+    check(grow["autodiff"] > 10 * inc_growth,
+          f"autodiff peak grew only {grow['autodiff']} bytes")
+    return dict(B=B, d=d, N=N, M=list(Ms), mem_out=mem_out, peaks=peaks,
+                growth=grow, inc_growth=inc_growth)
+
+
+def phase_mmd_grad(rng) -> dict:
+    """The gradient of the §8 projected MMD w.r.t. the generated sample."""
+    B, M, d, N, _ = PROJ_CELL
+    plan = make_plan(generated_words(sparse_leadlag_generators(d), N), 2 * d)
+    xp, yp = lead_lag(brownian(rng, B, M, d)), lead_lag(brownian(rng, B, M, d))
+    x = xp.clone().requires_grad_()
+    reset_counts()
+    t0 = time.perf_counter()
+    g, = torch.autograd.grad(sig_mmd(x, yp, words=plan), x)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    n = counts()
+    check(n["sig_words"] == 2 and n["sig_gram"] == 3 and n["sig_sweep"] == 1
+          and n["sig_trunc"] == 0, f"MMD gradient launches {n}")
+    x64 = xp.double().requires_grad_()
+    g64, = torch.autograd.grad(sig_mmd(x64, yp.double(), words=plan,
+                                       backend="torch"), x64)
+    err = float((g.double() - g64).abs().max())
+    scale = float(g64.abs().max())
+    check(err <= E2E_TOL * scale,
+          f"MMD gradient max |err| {err:.3e}, max|g| {scale:.3e}")
+    print(f"[mmdgrad] d sig_mmd / d x on {len(plan.words)} words (B={B} a "
+          f"sample): {wall:.1f} ms wall, launches {n}; max |err| vs float64 "
+          f"torch {err:.2e} (max|g| {scale:.3e})", flush=True)
+    return dict(wall_ms=wall, launches=n, max_abs_err=err, max_g=scale)
+
+
+def _hurst_example():
+    spec = importlib.util.spec_from_file_location(
+        "hurst_fbm_torch", ROOT / "examples" / "hurst_fbm_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_hurst(seed: int) -> dict:
+    """The §8 model at full width: 10 training steps of each signature
+    variant through the example's module."""
+    hf = _hurst_example()
+    d, M, depth, batch, lr, n_tr, n_white, steps = HURST
+    X, H = hurst_dataset(seed=seed, n_paths=n_tr, n_steps=M, d=d)
+    X = torch.as_tensor(X, device="cuda")
+    H = torch.as_tensor(H, device="cuda")
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(n_tr),
+                           device="cuda")
+    fwd = {"truncated": "sig_trunc", "sparse": "sig_words"}
+    out = {}
+    for kind, kname in fwd.items():
+        model = hf.make_model(kind, d, depth, M, X[:n_white], seed=seed)
+        ref = hf.HurstModel(kind, d, depth, M, backend="torch",
+                            device="cuda", dtype=torch.float64)
+        ref.load_state_dict({k: v.double()
+                             for k, v in model.state_dict().items()})
+        ref.mu.copy_(model.mu)
+        ref.sd.copy_(model.sd)
+        opt = hf.adam(model, lr)
+        losses, ms, grads, sweeps = [], [], None, 0
+        for i in range(steps):
+            idx = perm[i * batch:(i + 1) * batch]
+            xb, yb = X[idx], H[idx]
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = hf.mse(model, xb, yb)
+            loss.backward()
+            if i == 0:
+                grads = {k: p.grad.clone()
+                         for k, p in model.named_parameters()}
+            opt.step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            n = counts()
+            check(n[kname] == 1 and n["sig_sweep"] == 1
+                  and sum(n.values()) == 2,
+                  f"§8 {kind} step {i}: launches {n}")
+            sweeps += n["sig_sweep"]
+            losses.append(float(loss.detach()))
+        check(all(np.isfinite(losses)), f"§8 {kind}: losses {losses}")
+        xb, yb = X[perm[:batch]], H[perm[:batch]]
+        hf.mse(ref, xb.double(), yb.double()).backward()
+        errs = {}
+        for k, p in ref.named_parameters():
+            scale = float(p.grad.abs().max())
+            errs[k] = float((grads[k].double() - p.grad).abs().max())
+            check(errs[k] <= 1e-3 * scale,
+                  f"§8 {kind}: gradient of {k} max |err| {errs[k]:.3e}, "
+                  f"max|g| {scale:.3e}")
+        # the kernels alone at the step's shape
+        with torch.no_grad():
+            incs = tops.path_increments(lead_lag(X[perm[:batch]]
+                                                 * model.scale))
+        if kind == "sparse":
+            ctp = make_tiled_plan(model.plan.closure, 2 * d)
+            plan = sw.closure_plan(ctp)
+            S_T = sw.sig_words(incs, ctp)
+            fwd_ms = cuda_ms(lambda: sw.sig_words(incs, ctp), 10)
+        else:
+            plan = sig.truncation_closure(2 * d, depth)
+            S_T = st.sig_trunc(incs, depth)
+            fwd_ms = cuda_ms(lambda: st.sig_trunc(incs, depth), 10)
+        g = torch.tensor(np.random.default_rng(seed).normal(
+            size=tuple(S_T.shape)), dtype=torch.float32, device="cuda")
+        sweep = time_sweep(incs, plan, S_T, g)
+        step_ms = float(np.median(ms[1:]))
+        out[kind] = dict(features=model.feat_dim, W=plan.closure_size,
+                         losses=losses, step_ms=step_ms, steps_ms=ms,
+                         grad_err=errs, forward_ms=fwd_ms, sweep=sweep,
+                         sweep_launches=sweeps,
+                         shape=[batch, 2 * M, 2 * d, depth])
+        print(f"[hurst] {kind:9s} ({model.feat_dim} features, closure "
+              f"{plan.closure_size} rows): step {step_ms:.3f} ms (median of "
+              f"steps 2-{steps}); losses "
+              f"{' '.join(f'{v:.5f}' for v in losses)}; first-step "
+              f"gradients within 1e-3·max|g| of float64 torch (worst "
+              f"{max(errs.values()):.2e}); {kname} {fwd_ms:.3f} ms, "
+              f"sig_sweep {sweep['ms']:.3f} ms, plain {sweep['plain_ms']:.3f}"
+              f" ms, bound {sweep['bound_ms']:.4f} ms ({sweep['bound_by']})",
+              flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1068,7 +1447,7 @@ def main() -> int:
     max_err = phase_kernels(rng)
     serve = phase_serve(rng)
     table1, stream = phase_dispatch(rng)
-    words_err = phase_words_kernels(rng)
+    words_err, sets = phase_words_kernels(rng)
     cross = phase_cross(rng)
     proj = phase_projection(rng)
     logsig = phase_logsig(rng)
@@ -1076,6 +1455,11 @@ def main() -> int:
     phase_gram_variants(rng)
     score = phase_scoring(rng)
     mmd = phase_projected_mmd(rng)
+    sweep_err = phase_sweep(rng, sets)
+    train = phase_train_grid(rng)
+    memory = phase_memory(rng)
+    mmd_grad = phase_mmd_grad(rng)
+    hurst = phase_hurst(args.seed)
     src = "src/repro_torch/kernels/csrc/sig_trunc.cu"
     largest = max(table1, key=lambda r: r["bound_ms"])
     trunc_cases = [
@@ -1144,12 +1528,40 @@ def main() -> int:
                                  ("cross-Gram", score["cross_gram"]),
                                  ("projected-MMD Gram", mmd["gram"]))]),
     ]
+    big = max(train, key=lambda r: r["sweep_bound_ms"])
+    sweep_cases = [dict(case="largest Table 1 train cell",
+                        shape=[big[k] for k in "BMdN"], W=big["sweep_W"],
+                        value_and_grad_ms=big["ms"],
+                        **{k: big[f"sweep_{k}"] for k in (
+                            "ms", "plain_ms", "bound_ms", "bound_by")})]
+    for kind, case in (("sparse", "§8 sparse step"),
+                       ("truncated", "§8 truncated step")):
+        h = hurst[kind]
+        sweep_cases.append(dict(case=case, shape=h["shape"], W=h["W"],
+                                step_ms=h["step_ms"], **{
+                                    k: h["sweep"][k] for k in (
+                                        "ms", "plain_ms", "bound_ms",
+                                        "bound_by")}))
+    sp = hurst["sparse"]["sweep"]
+    kernels.append(dict(
+        name="sig_sweep", route="cuda",
+        source="src/repro_torch/kernels/csrc/sig_sweep.cu",
+        replaces="src/repro/core/signature.py:308",
+        replaces_scans=["src/repro/core/signature.py:308",
+                        "src/repro/core/signature.py:354",
+                        "src/repro/core/projection.py:76",
+                        "src/repro/core/projection.py:134"],
+        launches=sum(h["sweep_launches"] for h in hurst.values()),
+        max_abs_err=sweep_err, ms=sp["ms"],
+        plain_ms=sp["plain_ms"], bound_ms=sp["bound_ms"],
+        bound_by=sp["bound_by"], library_ms=None, cases=sweep_cases))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             device=smi, kernels=kernels, serve=serve, table1=table1,
             stream=stream, cross=cross, projection=proj, logsig=logsig,
-            scoring=score, projected_mmd=mmd),
+            scoring=score, projected_mmd=mmd, sweep_max_abs_err=sweep_err,
+            train=train, memory=memory, mmd_grad=mmd_grad, hurst=hurst),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

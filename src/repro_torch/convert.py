@@ -3,8 +3,9 @@
 The JAX package hands over numpy arrays (``np.asarray`` of its arrays); this
 module turns them into the port's tensors: nested dicts, lists, tuples and
 dataclasses of arrays (:func:`from_numpy`), ragged batches
-(:func:`ragged_from_numpy`), word plans (:func:`plan_from_reference`) and
-the fitted kernel-method state (:func:`sigkernel_from_reference`).  The
+(:func:`ragged_from_numpy`), word plans (:func:`plan_from_reference`),
+the fitted kernel-method state (:func:`sigkernel_from_reference`) and the
+§8 Hurst model's parameters (:func:`hurst_params_from_reference`).  The
 JAX package's objects are read by attribute; nothing of it is imported.
 """
 from __future__ import annotations
@@ -115,3 +116,22 @@ def sigkernel_from_reference(obj, device=None):
                                block_words=int(obj.block_words))
     return WordSubsetFeatures(plan=plan(obj.plan), scale=arr("scale"),
                               backend=backend, backward=obj.backward)
+
+
+def hurst_params_from_reference(params, device=None) -> dict:
+    """The parameter pytree of ``examples/hurst_fbm.py``'s model
+    (``{"scale": (d,), "mlp": [{"w": (a, b), "b": (b,)}, ...]}``, arrays
+    read through ``np.asarray``; ``fnn`` has no ``scale``) as the state dict
+    of ``examples/hurst_fbm_torch.py``'s ``HurstModel``, on ``device``
+    (default CUDA).  The whitening statistics are not parameters: the port
+    takes its own on the same reference batch (``HurstModel.whiten``)."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    state = {} if "scale" not in params else {"scale": t(params["scale"])}
+    for i, layer in enumerate(params["mlp"]):
+        state[f"mlp.{i}.w"] = t(layer["w"])
+        state[f"mlp.{i}.b"] = t(layer["b"])
+    return state

@@ -1,5 +1,4 @@
-"""Signature projections onto arbitrary word sets (paper §3.1, §7),
-forward path.
+"""Signature projections onto arbitrary word sets (paper §3.1, §7).
 
 Port of ``repro.core.projection``.  The engine updates the coefficients of
 the prefix closure of a requested word set I with the per-word Horner rule
@@ -8,13 +7,14 @@ comes from :func:`repro_torch.core.words.make_plan`.  The state ``S`` is
 (B, 1 + W): row 0 is the constant S[eps] = 1, rows 1..W the closure words
 in level-major order.
 
-Backends: ``"torch"`` is this word-table scan (runs anywhere,
-differentiable by autograd); ``"cuda"`` and ``"auto"`` route through
-:func:`repro_torch.kernels.ops.projected` to the Hopper ``sig_words``
-kernel.  On the ``torch`` engine ``backward="inverse"`` and ``"autodiff"``
-both differentiate by autograd through the scan: the §4.2
-``projected_inverse_bwd_scan``, its streamed form and the checkpoint VJP
-are not ported yet (:func:`repro_torch.core.signature.not_ported`).
+Backends: ``"torch"`` is this word-table scan (runs anywhere); ``"cuda"``
+and ``"auto"`` route through :func:`repro_torch.kernels.ops.projected` to
+the Hopper ``sig_words`` kernel.  ``backward="inverse"`` saves only the
+increments and the terminal closure state, and the backward is the §4.2
+sweep over the closure (:func:`projected_inverse_bwd_scan`, its streamed
+form): the plain sweep on the ``torch`` engine, the ``sig_sweep`` kernel
+on the ``cuda`` engine.  ``"autodiff"`` is autograd through the scan;
+``"checkpoint"`` raises, naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -34,15 +34,17 @@ from .words import WordPlan, make_plan
 @plan_cache
 def plan_tables(plan: WordPlan, device: torch.device, dtype: torch.dtype):
     """(prefix_idx, letters, inv, emit, out_rows) of a plan as tensors on
-    ``device``: int64 indices, divisors and emit masks in ``dtype``."""
+    ``device``: int64 indices, divisors and emit masks in ``dtype`` (each
+    divisor 1/(len - j) rounded once, in ``dtype``)."""
     def idx(a):
         return torch.as_tensor(a, dtype=torch.int64, device=device)
 
-    def flt(a):
-        return torch.as_tensor(a, device=device).to(dtype)
-
-    return (idx(plan.prefix_idx), idx(plan.letters), flt(plan.inv),
-            flt(plan.emit), idx(plan.out_rows))
+    n = torch.as_tensor(plan.lengths, device=device).to(dtype)[:, None]
+    j = torch.arange(plan.depth, device=device).to(dtype)[None, :]
+    inv = torch.where(j < n, 1.0 / (n - j).clamp_min(1.0), 0.0)
+    return (idx(plan.prefix_idx), idx(plan.letters), inv,
+            torch.as_tensor(plan.emit, device=device).to(dtype),
+            idx(plan.out_rows))
 
 
 def projected_step(S: torch.Tensor, dx: torch.Tensor, prefix_idx, letters,
@@ -70,6 +72,14 @@ def _scan_projected(increments: torch.Tensor, plan: WordPlan, stream: bool,
                     stream_stride: int = 1) -> torch.Tensor:
     """The word-table scan, a Python loop over time.  (B, M, d) ->
     (B, |I|), or (B, M_out, |I|) when streamed."""
+    return _scan_closure(increments, plan, stream, stream_stride)[0]
+
+
+def _scan_closure(increments: torch.Tensor, plan: WordPlan, stream: bool,
+                  stream_stride: int = 1) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """:func:`_scan_projected`'s output and the terminal closure state
+    (B, 1 + W)."""
     B, M, _ = increments.shape
     pidx, letters, inv, emit, out_rows = plan_tables(
         plan, increments.device, increments.dtype)
@@ -82,10 +92,63 @@ def _scan_projected(increments: torch.Tensor, plan: WordPlan, stream: bool,
         if j in emitted:
             ys.append(S[:, out_rows])
     if not stream:
-        return S[:, out_rows]
+        return S[:, out_rows], S
     if not ys:
-        return increments.new_zeros((B, 0, len(plan.words)))
-    return torch.stack(ys, 1)
+        return increments.new_zeros((B, 0, len(plan.words))), S
+    return torch.stack(ys, 1), S
+
+
+# ---------------------------------------------------------------------------
+# the §4.2 inverse backward over the prefix closure
+# ---------------------------------------------------------------------------
+
+def projected_inverse_bwd_scan(increments: torch.Tensor, S_T: torch.Tensor,
+                               g_out: torch.Tensor,
+                               plan: WordPlan) -> torch.Tensor:
+    """§4.2 backward for word projections: invert the closure update step
+    by step (the closure is prefix-closed, so the inverse step is exact)
+    while accumulating cotangents.  ``S_T`` is the terminal closure buffer
+    (B, 1 + W); ``g_out`` (B, |I|) is scattered onto its rows (``out_rows``,
+    repeats added)."""
+    from ..kernels.sig_sweep import sig_sweep_plain  # kernels import core
+    return sig_sweep_plain(increments, plan, S_T[:, 1:], g_out)
+
+
+def projected_stream_inverse_bwd_scan(increments: torch.Tensor,
+                                      S_T: torch.Tensor,
+                                      g_steps: torch.Tensor, plan: WordPlan,
+                                      stride: int = 1) -> torch.Tensor:
+    """§4.2 backward for streamed projections: each emitted step's
+    cotangent (B, M_out, |I|) is scattered onto the closure rows and folded
+    in just before that step's pull-back.  ``S_T`` (B, 1 + W) is the only
+    residual besides the increments."""
+    from ..kernels.sig_sweep import sig_sweep_plain
+    return sig_sweep_plain(increments, plan, S_T[:, 1:], g_steps,
+                           stream=True, stream_stride=stride)
+
+
+class InverseProjectionFunction(torch.autograd.Function):
+    """The ``torch`` engine's ``backward="inverse"`` cell: the word-table
+    scan forward, saving only (increments, terminal closure state), and
+    the §4.2 sweep backward.  ``stride`` 0 is the terminal cell, >= 1 the
+    streamed one (M >= 1)."""
+
+    @staticmethod
+    def forward(ctx, increments, plan, stride):
+        out, S_T = _scan_closure(increments, plan, stride > 0, max(stride, 1))
+        ctx.save_for_backward(increments, S_T)
+        ctx.plan, ctx.stride = plan, stride
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        increments, S_T = ctx.saved_tensors
+        if ctx.stride == 0:
+            gx = projected_inverse_bwd_scan(increments, S_T, g, ctx.plan)
+        else:
+            gx = projected_stream_inverse_bwd_scan(increments, S_T, g,
+                                                   ctx.plan, ctx.stride)
+        return gx, None, None
 
 
 def projected_signature_from_increments(increments, plan: WordPlan, *,
@@ -132,10 +195,16 @@ def projected_signature_from_increments(increments, plan: WordPlan, *,
             raise ValueError(
                 f"stream_stride must be >= 1, got {stream_stride}")
         M = increments.shape[1]
-        out = _scan_projected(increments, plan, True, stream_stride)
+        if backward == "inverse" and M:
+            out = InverseProjectionFunction.apply(increments, plan,
+                                                  stream_stride)
+        else:  # autodiff, or no steps and no emissions
+            out = _scan_projected(increments, plan, True, stream_stride)
         if lengths is not None and M:
             out = out * stream_emit_mask(M, stream_stride,
                                          lengths)[..., None].to(out.dtype)
+    elif backward == "inverse":
+        out = InverseProjectionFunction.apply(increments, plan, 0)
     else:
         out = _scan_projected(increments, plan, False)
     return out[0] if squeeze else out

@@ -1,4 +1,4 @@
-"""Truncated path signatures (paper §3), forward path.
+"""Truncated path signatures with O(1)-in-length backprop (paper §3-4).
 
 Port of ``repro.core.signature``.  Public API:
 
@@ -9,16 +9,24 @@ signatures at every ``stream_stride``-th step (terminal step always emitted;
 see :func:`stream_emit_steps`).
 
 Backends: ``"torch"`` is the plain levelwise Horner scan in PyTorch (runs
-anywhere, differentiable by ordinary autograd); ``"cuda"`` is the Hopper
-``sig_trunc`` kernel through :mod:`repro_torch.kernels.ops`; ``"auto"``
-picks ``cuda`` on a CUDA device and ``torch`` on the CPU.  The device rule
-of :mod:`repro_torch.device` decides where inputs go.
+anywhere); ``"cuda"`` is the Hopper ``sig_trunc`` kernel through
+:mod:`repro_torch.kernels.ops`; ``"auto"`` picks ``cuda`` on a CUDA device
+and ``torch`` on the CPU.  The device rule of :mod:`repro_torch.device`
+decides where inputs go.
 
-Backward modes: ``"inverse"`` and ``"autodiff"``.  On the ``torch`` engine
-both differentiate by autograd through the scan (the §4.2 O(B·D_sig)
-inverse sweep is not ported yet, see :func:`not_ported`); on the ``cuda``
-engine ``"inverse"`` is forward-only and its backward raises, while
-``"autodiff"`` routes to the ``torch`` engine.  ``"checkpoint"`` raises.
+Backward modes:
+
+- ``"inverse"`` (default, the paper's §4.2): the forward saves only the
+  increments and the terminal signature; the backward reconstructs
+  S_{0,t_{j-1}} = S_{0,t_j} ⊗ exp(-ΔX_j) in one reverse sweep
+  (:func:`inverse_bwd_scan`, :func:`stream_inverse_bwd_scan`), O(B·D_sig)
+  live memory whatever M.  On the ``torch`` engine the sweep is
+  :func:`repro_torch.kernels.sig_sweep.sig_sweep_plain`; on the ``cuda``
+  engine it is the hand-written ``sig_sweep`` kernel.
+- ``"autodiff"``: plain autograd through the scan, O(M·B·D_sig) memory
+  (the memory-law baseline); the ``cuda`` engine routes it to ``torch``.
+- ``"checkpoint"`` (the √M checkpoint sweep) raises, naming its ROADMAP.md
+  item.
 """
 from __future__ import annotations
 
@@ -26,8 +34,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.cache import plan_cache
 from . import tensor_ops as tops
-from .words import sig_dim
+from .words import WordPlan, sig_dim, truncation_plan
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -38,7 +47,8 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{item}")
 
 
-CHECKPOINT_ITEM = "queue 1 item 5 (training: the §4.2 backward sweeps)"
+CHECKPOINT_ITEM = ("queue 1 item 5 (training: the √M checkpoint sweep and "
+                   "time_chunks)")
 TRANSFORM_ITEM = "queue 1 item 6 (transforms and the fused kernel sub-steps)"
 HYBRID_ITEM = "queue 1 item 8 (the hybrid dense + top-word engine)"
 
@@ -109,6 +119,21 @@ def stream_emit_mask(M: int, stride: int,
     return steps[None, :] <= slots[:, None]
 
 
+def ragged_terminal(stream_out: torch.Tensor, lengths, stride: int = 1,
+                    M: int | None = None) -> torch.Tensor:
+    """Each example's true terminal state from a streamed output
+    (B, M_out, D): the emitted slot of :func:`stream_emit_slots`.  ``M`` is
+    the padded increment count (default M_out·stride, exact at stride 1).
+    Returns (B, D)."""
+    B, M_out, _ = stream_out.shape
+    if M is None:
+        M = M_out * stride
+    slots = stream_emit_slots(M, stride, as_lengths(lengths, B,
+                                                    stream_out.device))
+    return stream_out[torch.arange(B, device=stream_out.device),
+                      slots.long()]
+
+
 def _as_batched(x: torch.Tensor) -> tuple[torch.Tensor, bool]:
     if x.ndim == 2:
         return x[None], True
@@ -153,6 +178,77 @@ def _subsample_stream(out: torch.Tensor, M: int, stride: int) -> torch.Tensor:
         return out
     idx = torch.as_tensor(stream_emit_steps(M, stride), device=out.device)
     return out[:, idx]
+
+
+# ---------------------------------------------------------------------------
+# the §4.2 inverse backward: the forward saves (increments, terminal); one
+# reverse sweep over the truncation's word table reconstructs the states
+# and pulls the cotangent back (repro_torch.kernels.sig_sweep)
+# ---------------------------------------------------------------------------
+
+@plan_cache
+def truncation_closure(d: int, depth: int) -> WordPlan:
+    """The word plan of W_{<=N}: its level-major closure is the flat
+    signature order, so a flat signature is the closure state less eps."""
+    return truncation_plan(d, depth)
+
+
+def inverse_bwd_scan(increments: torch.Tensor, out_flat: torch.Tensor,
+                     g_flat: torch.Tensor, depth: int) -> torch.Tensor:
+    """§4.2 backward sweep: reconstruct S_{0,t_{j-1}} = S_{0,t_j} ⊗
+    exp(-ΔX_j) and accumulate cotangents in one reverse loop.  Any forward
+    that produced the terminal ``out_flat`` (B, D_sig) pairs with it.
+    Returns the increments' gradient (B, M, d)."""
+    from ..kernels.sig_sweep import sig_sweep_plain  # kernels import core
+    return sig_sweep_plain(increments,
+                           truncation_closure(increments.shape[-1], depth),
+                           out_flat, g_flat)
+
+
+def stream_inverse_bwd_scan(increments: torch.Tensor,
+                            terminal_flat: torch.Tensor,
+                            g_steps: torch.Tensor, depth: int,
+                            stride: int = 1) -> torch.Tensor:
+    """§4.2 reverse sweep of a streamed forward: the cotangent of emitted
+    step j (:func:`stream_emit_steps`) is added to the running cotangent
+    just before step j is pulled back, as the reference's dense scatter
+    of strided cotangents does, without the (B, M, D_sig) buffer.  Only
+    the terminal signature ``terminal_flat`` is needed as residual."""
+    from ..kernels.sig_sweep import sig_sweep_plain
+    return sig_sweep_plain(increments,
+                           truncation_closure(increments.shape[-1], depth),
+                           terminal_flat, g_steps, stream=True,
+                           stream_stride=stride)
+
+
+class InverseSignatureFunction(torch.autograd.Function):
+    """The ``torch`` engine's ``backward="inverse"`` cell: the plain scan
+    forward, saving only (increments, terminal signature), and the §4.2
+    sweep backward.  ``stride`` 0 is the terminal cell, >= 1 the streamed
+    one (M >= 1)."""
+
+    @staticmethod
+    def forward(ctx, increments, depth, stride):
+        if stride == 0:
+            out = _scan_forward(increments, depth, False)
+            terminal = out
+        else:
+            full = _scan_forward(increments, depth, True)
+            out = _subsample_stream(full, increments.shape[1], stride)
+            terminal = full[:, -1].clone()
+        ctx.save_for_backward(increments, terminal)
+        ctx.depth, ctx.stride = depth, stride
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        increments, terminal = ctx.saved_tensors
+        if ctx.stride == 0:
+            gx = inverse_bwd_scan(increments, terminal, g, ctx.depth)
+        else:
+            gx = stream_inverse_bwd_scan(increments, terminal, g, ctx.depth,
+                                         ctx.stride)
+        return gx, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -237,11 +333,17 @@ def signature_from_increments(increments, depth: int, *,
             raise ValueError(
                 f"stream_stride must be >= 1, got {stream_stride}")
         M = increments.shape[1]
-        out = _subsample_stream(_scan_forward(increments, depth, True), M,
-                                stream_stride)
+        if backward == "inverse" and M:
+            out = InverseSignatureFunction.apply(increments, depth,
+                                                 stream_stride)
+        else:  # autodiff, or no steps and no emissions
+            out = _subsample_stream(_scan_forward(increments, depth, True),
+                                    M, stream_stride)
         if lengths is not None and M:
             out = out * stream_emit_mask(M, stream_stride,
                                          lengths)[..., None].to(out.dtype)
+    elif backward == "inverse":
+        out = InverseSignatureFunction.apply(increments, depth, 0)
     else:
         out = _scan_forward(increments, depth, False)
     return out[0] if squeeze else out

@@ -131,6 +131,13 @@ def horner_step(levels: list[torch.Tensor],
     return new
 
 
+def inverse_horner_step(levels: list[torch.Tensor],
+                        dx: torch.Tensor) -> list[torch.Tensor]:
+    """S ⊗ exp(-dx): the exact inverse of :func:`horner_step` (paper
+    Prop. 4.6), the reconstruction step of the §4.2 backward."""
+    return horner_step(levels, -dx)
+
+
 def signature_exp_chen(increments: torch.Tensor, depth: int) -> torch.Tensor:
     """Naive oracle: materialise exp(ΔX_j) and Chen-multiply along the path
     (paper eq. (2)).  (B, M, d) -> flat (B, D_sig)."""

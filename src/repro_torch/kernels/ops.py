@@ -23,24 +23,30 @@ Backend × backward × stream support matrix (✗ raises)
 =========  ======  =============================  ============  ==========
 engine     stream  backward="inverse"             "checkpoint"  "autodiff"
 =========  ======  =============================  ============  ==========
-torch      False   scan fwd, autograd bwd         not ported    scan AD
-torch      True    streamed scan, autograd bwd    ✗             scan AD
-cuda       False   kernel fwd, bwd raises         not ported    (torch)
-cuda       True    streamed kernel, bwd raises    ✗             (torch)
+torch      False   scan fwd, §4.2 plain sweep     not ported    scan AD
+torch      True    streamed scan, plain sweep     ✗             scan AD
+cuda       False   kernel fwd, ``sig_sweep``      not ported    (torch)
+                   kernel bwd
+cuda       True    streamed kernel, ``sig_sweep`` ✗             (torch)
+                   kernel bwd
 =========  ======  =============================  ============  ==========
 
 ``projected`` (``projected_forward_only`` runs the ``inverse`` column's
-forward over the requested words' tiles instead of the closure's):
+forward over the requested words' tiles instead of the closure's, and
+keeps no closure state: its backward raises unless the word set is its
+own prefix closure):
 
 =========  ======  =============================  ============  ==========
 engine     stream  backward="inverse"             "checkpoint"  "autodiff"
 =========  ======  =============================  ============  ==========
-torch      False   word-table scan, autograd bwd  not ported    scan AD
-torch      True    streamed scan, autograd bwd    ✗             scan AD
+torch      False   word-table scan, plain sweep   not ported    scan AD
+torch      True    streamed scan, plain sweep     ✗             scan AD
 cuda       False   kernel over the closure tiles, not ported    (torch)
-                   then ``out_rows``; bwd raises
+                   then ``out_rows``;
+                   ``sig_sweep`` kernel bwd
 cuda       True    streamed kernel over the       ✗             (torch)
-                   closure tiles; bwd raises
+                   closure tiles; ``sig_sweep``
+                   kernel bwd
 hybrid     any     not ported                     not ported    not ported
 =========  ======  =============================  ============  ==========
 
@@ -54,8 +60,11 @@ cuda       ``sig_gram`` kernel, closed-form backward (``torch.matmul``)
 hybrid     the torch row (the product has no dense/word split)
 =========  ============================================================
 
-``(torch)`` cells route to the torch engine on the same device.  The §4.2
-inverse backward (truncated and projected), ``checkpoint`` and
+``(torch)`` cells route to the torch engine on the same device.  The
+``inverse`` backward saves only the increments and the terminal state
+(the closure state for projections) and runs the §4.2 reverse sweep, one
+``sig_sweep`` launch a call on the card
+(:mod:`repro_torch.kernels.sig_sweep`).  ``checkpoint`` and
 ``time_chunks`` land with the training item; ``transform=`` with the
 transforms item; ``backend="hybrid"`` with the hybrid-engine item (the
 errors name the ROADMAP.md items).  For truncated signatures
@@ -342,8 +351,10 @@ def projected_forward_only(increments, plan, *, backend: str = "auto",
                            device=None) -> torch.Tensor:
     """Inference-only projected signature: the ``cuda`` engine runs the
     kernel over the requested words' tiles (a caller's TiledPlan as it is)
-    and skips the closure readout; its backward raises.  The ``torch``
-    engine is the word-table scan.  (B, M, d) -> (B, |I|)."""
+    and skips the closure readout, so it keeps no closure state and its
+    backward raises (unless the word set is its own prefix closure, whose
+    tiles are those of :func:`projected`).  The ``torch`` engine is the
+    word-table scan.  (B, M, d) -> (B, |I|)."""
     increments, engine, precision, wplan, tplan = _projected_args(
         increments, plan, backend, "inverse", transform, precision, device)
     if lengths is not None:

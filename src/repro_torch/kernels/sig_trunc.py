@@ -19,7 +19,10 @@ state block and the smallest split whose block fits.
 
 On a CPU tensor :func:`sig_trunc` runs :func:`sig_trunc_plain`, the
 levelwise Horner scan; on a CUDA tensor it launches the kernel or raises.
-The kernel is forward-only: :class:`SigTruncFunction` raises on backward.
+:class:`SigTruncFunction` saves the increments and the terminal signature
+(the last emission when streamed) and its backward is the §4.2 sweep
+kernel over the truncation's word table
+(:func:`repro_torch.kernels.sig_sweep.sig_sweep`), one launch a call.
 """
 from __future__ import annotations
 
@@ -30,10 +33,11 @@ import numpy as np
 import torch
 
 from ..core.signature import (_scan_forward, _subsample_stream,
-                              canon_precision, CHECKPOINT_ITEM)
+                              canon_precision, truncation_closure)
 from ..core.words import sig_dim
 from . import _build
 from .cache import plan_cache
+from .sig_sweep import sig_sweep
 
 # per-block dynamic shared memory the kernel may take on an H100: the opt-in
 # maximum (232,448 bytes) less a margin for the kernel's static tables
@@ -343,19 +347,25 @@ def _launch(incs: torch.Tensor, depth: int, split: int | None, stream: bool,
 
 
 class SigTruncFunction(torch.autograd.Function):
-    """The CUDA cell as an autograd node.  Forward-only in this slice: the
-    backward raises rather than letting gradients vanish silently."""
+    """The CUDA cell as an autograd node: the kernel forward, saving the
+    increments and the terminal signature (the streamed cell's last
+    emission, as the reference's ``_pallas_sig_stream`` does), and the
+    §4.2 reverse sweep kernel as its backward."""
 
     @staticmethod
     def forward(ctx, increments, depth, split, stream, stride, precision):
-        return _launch(increments, depth, split, stream, stride, precision)
+        out = _launch(increments, depth, split, stream, stride, precision)
+        ctx.save_for_backward(increments, out[:, -1] if stream else out)
+        ctx.depth, ctx.stream, ctx.stride = depth, stream, stride
+        return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the CUDA sig_trunc kernel is forward-only: the §4.2 inverse "
-            f"backward lands with ROADMAP.md {CHECKPOINT_ITEM}; use "
-            "backend='torch' or backward='autodiff' to differentiate")
+    def backward(ctx, g):
+        increments, terminal = ctx.saved_tensors
+        plan = truncation_closure(increments.shape[-1], ctx.depth)
+        gx = sig_sweep(increments, plan, terminal, g, stream=ctx.stream,
+                       stream_stride=ctx.stride)
+        return gx, None, None, None, None, None
 
 
 def sig_trunc_plain(increments: torch.Tensor, depth: int, *,

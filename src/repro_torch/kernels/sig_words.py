@@ -25,8 +25,12 @@ group a block; it writes (B, |I|) fp32 words, or (B, M_out, |I|) in the
 storage dtype, through each group's emission list.  On a CPU tensor
 :func:`sig_words` runs :func:`sig_words_plain`, the padded tiles as a
 word-table scan in PyTorch; on a CUDA tensor it launches the kernel or
-raises.  The kernel is forward-only: :class:`SigWordsFunction` raises on
-backward.
+raises.  :class:`SigWordsFunction` over a word set that is its own prefix
+closure in level-major order (the closure tiles of ``ops.projected``)
+saves the increments and the terminal closure state, and its backward is
+the §4.2 sweep kernel (:func:`repro_torch.kernels.sig_sweep.sig_sweep`),
+one launch a call; over other word sets (``ops.projected_forward_only``)
+it keeps no closure state and its backward raises.
 """
 from __future__ import annotations
 
@@ -38,10 +42,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.signature import CHECKPOINT_ITEM, stream_emit_steps
-from ..core.words import TiledPlan
+from ..core.signature import stream_emit_steps
+from ..core.words import TiledPlan, WordPlan, make_plan
 from . import _build
 from .cache import plan_cache
+from .sig_sweep import sig_sweep
 from .sig_trunc import _storage_dtype
 
 # per-block dynamic shared memory the kernel may take on an H100 (the
@@ -465,20 +470,46 @@ def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
     return out
 
 
+@plan_cache
+def closure_plan(tplan: TiledPlan) -> WordPlan | None:
+    """The untiled plan of ``tplan``'s words when they are their own prefix
+    closure in level-major order, so that the kernel's output is the
+    closure state the sweep reconstructs from; else None."""
+    plan = make_plan(tplan.words, tplan.d)
+    return plan if plan.closure == tuple(tplan.words) else None
+
+
 class SigWordsFunction(torch.autograd.Function):
-    """The CUDA cell as an autograd node.  Forward-only in this slice: the
-    backward raises rather than letting gradients vanish silently."""
+    """The CUDA cell as an autograd node.  Over a closure (the tiles of
+    ``ops.projected``, as the reference's ``_pallas_proj_inverse`` runs the
+    kernel) it saves the increments and the terminal closure coefficients
+    (the streamed cell's last emission) and its backward is the §4.2
+    reverse sweep kernel; over any other word set the forward keeps no
+    closure state, and the backward raises rather than letting gradients
+    vanish."""
 
     @staticmethod
     def forward(ctx, increments, tplan, stream, stride, precision):
-        return _launch(increments, tplan, stream, stride, precision)
+        out = _launch(increments, tplan, stream, stride, precision)
+        ctx.plan = closure_plan(tplan)
+        if ctx.plan is not None:
+            ctx.save_for_backward(increments, out[:, -1] if stream else out)
+        ctx.stream, ctx.stride = stream, stride
+        return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the CUDA sig_words kernel is forward-only: the §4.2 inverse "
-            f"backward lands with ROADMAP.md {CHECKPOINT_ITEM}; use "
-            "backend='torch' or backward='autodiff' to differentiate")
+    def backward(ctx, g):
+        if ctx.plan is None:
+            raise NotImplementedError(
+                "sig_words ran over tiles of words that are not their own "
+                "prefix closure (ops.projected_forward_only, inference-only "
+                "as in the reference): it keeps no closure state for the "
+                "§4.2 inverse backward to sweep back from; use ops.projected "
+                "to differentiate")
+        increments, S_T = ctx.saved_tensors
+        gx = sig_sweep(increments, ctx.plan, S_T, g, stream=ctx.stream,
+                       stream_stride=ctx.stride)
+        return gx, None, None, None, None
 
 
 def sig_words_plain(increments: torch.Tensor, tplan: TiledPlan, *,

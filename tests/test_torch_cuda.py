@@ -65,10 +65,21 @@ def test_dispatch_launches_the_kernel_once_per_call(cuda):
 
 @pytest.mark.cuda
 def test_kernel_backward_raises_on_card(cuda):
+    """The backward no longer raises: one sig_sweep launch, equal to the
+    plain sweep from the same terminal signature (fp32 sums whose atomic
+    order varies: rtol 1e-3, atol 1e-5), and autodiff still runs."""
+    from repro_torch.core.signature import truncation_closure
+    from repro_torch.kernels import sig_sweep as ss
     x = _incs(3, 2, 5, 2, cuda).requires_grad_()
     out = ops.signature(x, 3)
-    with pytest.raises(NotImplementedError, match="inverse backward"):
-        out.sum().backward()
+    co = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)
+                     ).to(cuda)
+    ss.launches = 0
+    g, = torch.autograd.grad(out, x, co)
+    assert ss.launches == 1
+    want = ss.sig_sweep_plain(x.detach().double(), truncation_closure(2, 3),
+                              out.detach().double(), co.double())
+    torch.testing.assert_close(g.double(), want, rtol=1e-3, atol=1e-5)
     g, = torch.autograd.grad(ops.signature(x, 3, backward="autodiff").sum(),
                              x)
     assert torch.isfinite(g).all()
@@ -109,10 +120,25 @@ def test_projected_launches_the_words_kernel_once_per_call(cuda):
 
 @pytest.mark.cuda
 def test_words_kernel_backward_raises_on_card(cuda):
+    """The backward of ops.projected no longer raises: one sig_sweep
+    launch, equal to the plain sweep from the closure state; that of
+    projected_forward_only over a set that is not its own closure still
+    raises, and autodiff still runs."""
+    from repro_torch.core.projection import _scan_closure
+    from repro_torch.kernels import sig_sweep as ss
     x = _incs(5, 2, 5, 4, cuda).requires_grad_()
     out = ops.projected(x, SPARSE)
+    co = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)
+                     ).to(cuda)
+    ss.launches = 0
+    g, = torch.autograd.grad(out, x, co)
+    assert ss.launches == 1
+    plan = tw.make_plan(SPARSE, 4)
+    S_T = _scan_closure(x.detach().double(), plan, False)[1][:, 1:]
+    want = ss.sig_sweep_plain(x.detach().double(), plan, S_T, co.double())
+    torch.testing.assert_close(g.double(), want, rtol=1e-3, atol=1e-5)
     with pytest.raises(NotImplementedError, match="inverse backward"):
-        out.sum().backward()
+        ops.projected_forward_only(x, SPARSE).sum().backward()
     g, = torch.autograd.grad(
         ops.projected(x, SPARSE, backward="autodiff").sum(), x)
     assert torch.isfinite(g).all()
@@ -425,3 +451,52 @@ def test_words_two_runs_are_bitwise_equal(cuda):
             a = sw._launch(x, tp, stream, stride, "fp32", plan)
             assert torch.equal(a, sw._launch(x, tp, stream, stride, "fp32",
                                              plan)), plan
+
+
+# ---------------------------------------------------------------------------
+# the §4.2 reverse sweep kernel (sig_sweep)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream,stride", [(False, 1), (True, 1), (True, 3)])
+@pytest.mark.parametrize("d,N", [(2, 3), (1, 16), (3, 6), (10, 5), (40, 3)])
+def test_sweep_kernel_matches_plain(cuda, d, N, stream, stride):
+    """Every instance (4, 8, 16 link slots), shared memory and the
+    device-memory scratch ((10, 5): 111,110 rows; (40, 3): 65,640),
+    terminal and streamed.  fp32 sums in atomic order: |err| <= 1e-3·|g| + 1e-4·max|g|
+    against the float64 plain sweep."""
+    from repro_torch.core.signature import truncation_closure
+    from repro_torch.kernels import sig_sweep as ss
+    plan = truncation_closure(d, N)
+    x = _incs(d * N, 3, 7, d, cuda)
+    S_T = st.sig_trunc_plain(x.double(), N)
+    shape = (3, -(-7 // stride), S_T.shape[1]) if stream else S_T.shape
+    co = torch.randn(shape, generator=torch.Generator().manual_seed(N),
+                     dtype=torch.float64).to(cuda)
+    ss.launches = 0
+    got = ss.sig_sweep(x, plan, S_T.float(), co.float(), stream=stream,
+                       stream_stride=stride)
+    assert ss.launches == 1 and got.dtype == torch.float32
+    want = ss.sig_sweep_plain(x.double(), plan, S_T, co, stream=stream,
+                              stream_stride=stride)
+    err = (got.double() - want).abs()
+    assert bool((err <= 1e-3 * want.abs()
+                 + 1e-4 * want.abs().max()).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_sweep_kernel_repeated_words_and_no_steps(cuda):
+    """A word requested twice adds both cotangents onto its row; no steps
+    launch nothing."""
+    from repro_torch.kernels import sig_sweep as ss
+    plan = tw.make_plan(SPARSE, 4)
+    x = _incs(7, 4, 9, 4, cuda)
+    S_T = torch.randn(4, plan.closure_size, device=cuda) * 0.1
+    co = torch.randn(4, 2, len(SPARSE), device=cuda)
+    got = ss.sig_sweep(x, plan, S_T, co, stream=True, stream_stride=5)
+    want = ss.sig_sweep_plain(x.double(), plan, S_T.double(), co.double(),
+                              stream=True, stream_stride=5)
+    torch.testing.assert_close(got.double(), want, rtol=1e-3, atol=1e-5)
+    ss.launches = 0
+    assert not ss.sig_sweep(x[:, :0], plan, S_T, co[:, 0]).any()
+    assert ss.launches == 0

@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.logsignature", "repro_torch.sigkernel.gram",
             "repro_torch.sigkernel.mmd", "repro_torch.sigkernel.krr",
             "repro_torch.sigkernel.features",
-            "repro_torch.serve.engine"} <= set(mods)
+            "repro_torch.serve.engine", "repro_torch.kernels.sig_sweep",
+            "repro_torch.data.pipeline"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -49,7 +50,7 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix()
      for p in (ROOT / "src" / "repro_torch").rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "examples/hurst_fbm_torch.py"]))
 def test_source_imports_no_jax(path):
     bad = _imported_roots(ROOT / path) & set(FORBIDDEN)
     assert not bad, (path, bad)

@@ -168,8 +168,13 @@ def test_torch_engine_gradients_match_reference(backward, stream):
 def test_cuda_engine_backward_raises_and_autodiff_differentiates(
         cuda_engine, monkeypatch):
     """The kernel's autograd node runs on the CPU with its launch stubbed
-    by the plain version: the dispatch must keep it on the graph."""
+    by the plain version: the dispatch must keep it on the graph.  Its
+    backward no longer raises: it is the §4.2 sweep over the closure from
+    the saved terminal closure state, equal to the plain sweep with the
+    requested words' cotangent scattered onto their closure rows; autodiff
+    still differentiates."""
     from repro_torch.kernels import sig_words as sw
+    from repro_torch.kernels.sig_sweep import sig_sweep_plain
     monkeypatch.setattr(sw, "_launch", lambda incs, tplan, *a:
                         sw.sig_words_plain(incs.detach(), tplan))
     monkeypatch.setattr(ops, "sig_words", lambda incs, tplan, stream=False,
@@ -179,8 +184,13 @@ def test_cuda_engine_backward_raises_and_autodiff_differentiates(
     d, words = SETS["sparse"]
     x = torch.from_numpy(_incs(1, 2, 5, d)).requires_grad_()
     out = ops.projected(x, words, device="cpu")
-    with pytest.raises(NotImplementedError, match="inverse backward"):
-        out.sum().backward()
+    co = torch.from_numpy(np.random.default_rng(1).normal(
+        size=tuple(out.shape)).astype(np.float32))
+    g, = torch.autograd.grad(out, x, co)
+    plan = tw.make_plan(words, d)
+    S_T = tp._scan_closure(x.detach(), plan, False)[1][:, 1:]
+    torch.testing.assert_close(
+        g, sig_sweep_plain(x.detach(), plan, S_T, co))
     g, = torch.autograd.grad(
         ops.projected(x, words, backward="autodiff", device="cpu").sum(), x)
     assert torch.isfinite(g).all() and g.abs().sum() > 0

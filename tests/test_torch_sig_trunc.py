@@ -180,20 +180,39 @@ def test_scatter_then_reassemble_is_identity(d, N):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA cell: forward-only autograd node, kernel on the card
+# the CUDA cell: autograd node with the sweep backward, kernel on the card
 # ---------------------------------------------------------------------------
 
 def test_cuda_cell_backward_raises(monkeypatch):
     """The launch is stubbed with the plain version so the autograd node
-    runs on the CPU; its backward must raise, never drop gradients."""
+    runs on the CPU.  Its backward no longer raises: it is the §4.2 sweep
+    over the truncation's word table from the saved terminal signature
+    (the last emission when streamed), equal to the plain sweep and to
+    autodiff through the plain scan."""
     monkeypatch.setattr(st, "_launch",
-                        lambda incs, depth, *a: st.sig_trunc_plain(
-                            incs.detach(), depth))
-    x = from_numpy(_incs(0, 2, 4, 2), device="cpu").requires_grad_()
-    out = st.SigTruncFunction.apply(x, 3, None, False, 1, "fp32")
-    assert out.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="inverse backward"):
-        out.sum().backward()
+                        lambda incs, depth, split, stream, stride, *a:
+                        st.sig_trunc_plain(incs.detach(), depth,
+                                           stream=stream,
+                                           stream_stride=stride))
+    from repro_torch.core.signature import truncation_closure
+    from repro_torch.kernels.sig_sweep import sig_sweep_plain
+    xn = _incs(0, 2, 4, 2)
+    for stream, stride in ((False, 1), (True, 1), (True, 3)):
+        x = from_numpy(xn, device="cpu").requires_grad_()
+        out = st.SigTruncFunction.apply(x, 3, None, stream, stride, "fp32")
+        assert out.grad_fn is not None
+        co = torch.from_numpy(np.random.default_rng(stride).normal(
+            size=tuple(out.shape)).astype(np.float32))
+        g, = torch.autograd.grad(out, x, co)
+        terminal = out[:, -1] if stream else out
+        want = sig_sweep_plain(x.detach(), truncation_closure(2, 3),
+                               terminal.detach(), co, stream=stream,
+                               stream_stride=stride)
+        torch.testing.assert_close(g, want)
+        x2 = x.detach().requires_grad_()
+        ad, = torch.autograd.grad(st.sig_trunc_plain(
+            x2, 3, stream=stream, stream_stride=stride), x2, co)
+        torch.testing.assert_close(g, ad, rtol=1e-3, atol=1e-5)
 
 
 def test_wrapper_rejects_other_devices():
