@@ -112,7 +112,8 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              the depth sweep for information.
 15. memory — the paper's Table 2 cell (B = 32, d = 5, N = 4, M from 50 to
              1600): torch.cuda.max_memory_allocated during value plus
-             gradient for inverse (the card) and autodiff; from M = 50 to
+             gradient, increments included, above what was allocated
+             before, for inverse (the card) and autodiff; from M = 50 to
              1600 the inverse peak grows by at most 4× the increments' own
              growth (B·ΔM·d·4 bytes), autodiff's by more than 10×; peaks
              as multiples of Mem_out = 4·B·D_sig.
@@ -1137,7 +1138,7 @@ def sweep_bound(B: int, M: int, plan, n_emit: int) -> tuple[float, str]:
 
 
 def sweep_case(rng, fn, x: torch.Tensor, plan, stream: bool, stride: int,
-               precision: str) -> float:
+               where: str) -> float:
     """Run ``fn`` (a kernel's autograd node) forward and back with a random
     cotangent; hold the gradient against sig_sweep_plain in float64 on the
     same increments and the same saved terminal state.  Returns the max
@@ -1149,14 +1150,15 @@ def sweep_case(rng, fn, x: torch.Tensor, plan, stream: bool, stride: int,
     reset_counts()
     g, = torch.autograd.grad(out, xin, co)
     torch.cuda.synchronize()
-    check(ss.launches == 1, f"one sig_sweep launch a backward: {counts()}")
+    check(ss.launches == 1, f"{where}: sig_sweep launches {counts()}")
     terminal = (out[:, -1] if stream else out).detach().double()
     want = ss.sig_sweep_plain(x.double(), plan, terminal, co.double(),
                               stream=stream, stream_stride=stride)
+    err = float((g.double() - want).abs().max())
     check(g.shape == want.shape and grad_within(g, want),
-          f"max |err| {float((g.double() - want).abs().max()):.3e}, "
-          f"max|g| {float(want.abs().max()):.3e}")
-    return float((g.double() - want).abs().max())
+          f"{where}: max |err| {err:.3e}, max|g| "
+          f"{float(want.abs().max()):.3e}")
+    return err
 
 
 def phase_sweep(rng, sets) -> float:
@@ -1175,19 +1177,17 @@ def phase_sweep(rng, sets) -> float:
                 for stream, stride in cells:
                     where = (f"sig_sweep (sig_trunc) d={d} N={N} M={M} "
                              f"stride={stride if stream else 0} {precision}")
-                    try:
-                        err = sweep_case(rng, lambda t: st.SigTruncFunction.
-                                         apply(t, N, None, stream, stride,
-                                               precision),
-                                         xp, plan, stream, stride, precision)
-                    except RuntimeError as e:
-                        raise RuntimeError(f"{where}: {e}") from e
+                    err = sweep_case(rng, lambda t: st.SigTruncFunction.apply(
+                        t, N, None, stream, stride, precision), xp, plan,
+                        stream, stride, where)
                     if precision == "fp32":
                         worst = max(worst, err)
                     cases += 1
+        where = "shared" if ss.sweep_geometry(plan.closure_size, d, N)[2] \
+            else "device"
         print(f"[sweep] truncated d={d:2d} N={N} (W={plan.closure_size}, "
-              f"{'shared' if ss.sweep_geometry(plan.closure_size, d, N)[2] else 'device'}"
-              f" memory): max |err| so far {worst:.2e}", flush=True)
+              f"state in {where} memory): max |err| so far {worst:.2e}",
+              flush=True)
     for name, d, words in sets:
         ctp = make_tiled_plan(prefix_closure(words), d, max_rows=32)
         plan = sw.closure_plan(ctp)
@@ -1201,13 +1201,9 @@ def phase_sweep(rng, sets) -> float:
                 for stream, stride in cells:
                     where = (f"sig_sweep (sig_words) [{name}] M={M} "
                              f"stride={stride if stream else 0} {precision}")
-                    try:
-                        err = sweep_case(rng, lambda t: sw.SigWordsFunction.
-                                         apply(t, ctp, stream, stride,
-                                               precision),
-                                         xp, plan, stream, stride, precision)
-                    except RuntimeError as e:
-                        raise RuntimeError(f"{where}: {e}") from e
+                    err = sweep_case(rng, lambda t: sw.SigWordsFunction.apply(
+                        t, ctp, stream, stride, precision), xp, plan, stream,
+                        stride, where)
                     if precision == "fp32":
                         worst = max(worst, err)
                     cases += 1
@@ -1278,21 +1274,23 @@ def phase_train_grid(rng) -> list:
 
 
 def phase_memory(rng) -> dict:
-    """Peak device memory of value plus gradient at the Table 2 cell."""
+    """Peak device memory of value plus gradient at the Table 2 cell, the
+    increments included, above what earlier phases hold."""
     B, d, N, Ms = MEM_CELL
     mem_out = 4 * B * sum(d**n for n in range(1, N + 1))
     peaks = {"inverse": [], "autodiff": []}
     for M in Ms:
         for mode in peaks:
-            x = torch.tensor(rng.normal(size=(B, M, d)) / np.sqrt(M),
-                             dtype=torch.float32,
-                             device="cuda").requires_grad_()
+            xn = rng.normal(size=(B, M, d)) / np.sqrt(M)
             torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
+            x = torch.tensor(xn, dtype=torch.float32,
+                             device="cuda").requires_grad_()
             out = ops.signature(x, N, backward=mode)
             g, = torch.autograd.grad((out ** 2).sum(), x)
             torch.cuda.synchronize()
-            peaks[mode].append(torch.cuda.max_memory_allocated())
+            peaks[mode].append(torch.cuda.max_memory_allocated() - base)
             check(bool(torch.isfinite(g).all()), f"memory cell M={M} {mode}")
             del x, out, g
         print(f"[memory] B={B} d={d} N={N} M={M:4d}: peak inverse "

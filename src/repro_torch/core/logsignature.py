@@ -121,9 +121,9 @@ def logsignature_projected(path, depth: int, *, basepoint: bool = False,
     (B, M+1, d) -> (B, logsig_dim), equal to :func:`logsignature`.
 
     On the ``cuda`` engine the word kernel runs over W_{<=N-1} ∪ Lyndon_N
-    through :func:`repro_torch.kernels.ops.projected` (forward-only: its
-    backward raises; ``backward="autodiff"`` differentiates on the torch
-    engine); on ``torch`` the word-table scan runs over the same plan.
+    through :func:`repro_torch.kernels.ops.projected` (its backward is the
+    §4.2 ``sig_sweep`` kernel); on ``torch`` the word-table scan runs over
+    the same plan.
     """
     from ..kernels import ops  # deferred: ops imports this package
     path, squeeze = _as_path(path, device)

@@ -6,10 +6,9 @@ E k_ω(y, y') − 2 E k_ω(x, y) with the weighted signature kernel of
 diagonal of the within-sample Grams (Gretton et al.'s U-statistic), so it
 can be slightly negative under H0.
 
-Differentiable with respect to the signatures and to explicit ``weights``
-on every engine (the Gram's closed-form backward); with respect to the
-paths on ``backend="torch"`` only, until the training slice brings the
-kernels' backward.
+Differentiable with respect to the signatures, to explicit ``weights``
+and to the paths on every engine: the Gram's closed-form backward, then
+the legs' §4.2 inverse sweep (the ``sig_sweep`` kernel on the card).
 """
 from __future__ import annotations
 
