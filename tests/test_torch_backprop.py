@@ -204,3 +204,25 @@ def test_inverse_reconstruction_drift_bounded():
     g_ad = grad(incs, "autodiff")
     rel = np.abs(g_inv - g_ad).max() / (np.abs(g_ad).max() + 1e-12)
     assert rel < 5e-3, rel
+
+
+@pytest.mark.parametrize("stride,M", [(1, None), (1, 9), (2, 9), (3, 9)])
+def test_ragged_terminal_matches_reference(stride, M):
+    """Each example's true terminal state from a streamed output."""
+    out = np.random.default_rng(stride).normal(
+        size=(3, -(-9 // stride), 5)).astype(np.float32)
+    lengths = np.array([9, 4, 1])
+    got = ts.ragged_terminal(torch.from_numpy(out), lengths, stride, M)
+    want = js.ragged_terminal(jnp.asarray(out), lengths, stride, M)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # on a streamed signature it is the unpadded terminal signature
+    x = _incs(9, 3, 9, 2)
+    s = ts.signature_from_increments(torch.from_numpy(x), 3, stream=True,
+                                     stream_stride=stride, lengths=lengths,
+                                     backend="torch", device="cpu")
+    for b, L in enumerate(lengths):
+        one = ts.signature_from_increments(torch.from_numpy(x[b:b + 1, :L]),
+                                           3, backend="torch", device="cpu")
+        np.testing.assert_allclose(ts.ragged_terminal(
+            s, lengths, stride, 9)[b].numpy(), one[0].numpy(), rtol=2e-4,
+            atol=2e-5)
