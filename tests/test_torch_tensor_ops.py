@@ -80,3 +80,22 @@ def test_tensor_log_matches_reference_and_inverts_exp(d, N):
     _close(logs[0], dx.numpy())
     for lvl in logs[1:]:
         _close(lvl, np.zeros(lvl.shape, np.float32))
+
+
+@pytest.mark.parametrize("d,N", [(2, 4), (3, 3), (4, 2)])
+def test_inverse_horner_step_matches_reference_and_undoes_the_step(d, N):
+    """S ⊗ exp(-dx) (paper Prop. 4.6): the reference's values, and the
+    exact inverse of horner_step."""
+    rng = np.random.default_rng(d + N)
+    a = _levels(rng, 3, d, N)
+    dx = (rng.normal(size=(3, d)) * 0.3).astype(np.float32)
+    ta, tdx = from_numpy((a, dx), device="cpu")
+    got = tt.inverse_horner_step(list(ta), tdx)
+    want = jt.inverse_horner_step([jnp.asarray(x) for x in a],
+                                  jnp.asarray(dx))
+    for g, w in zip(got, want):
+        _close(g, w)
+    back = tt.inverse_horner_step(tt.horner_step(
+        [x.double() for x in ta], tdx.double()), tdx.double())
+    for g, w in zip(back, ta):
+        torch.testing.assert_close(g, w.double(), rtol=1e-12, atol=1e-12)
