@@ -101,22 +101,30 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              sums in fp32 (atomics, in an order that varies), and sums of
              terms up to max|g| cancel, so a bound absolute in the
              gradient's units is below fp32's resolution at max|g| ~ 1e3
-             (the fp32 plain sweep fails rtol 1e-3 + atol 1e-5 too); bf16
-             rounding enters only through the increments, which both share.
+             (the fp32 plain sweep fails rtol 1e-3 + atol 1e-5 too: for
+             each truncated (d, N) the phase prints the least atol, over
+             max|g|, that rtol 1e-3 needs for the kernel and for the fp32
+             plain sweep on the same inputs); bf16 rounding enters only
+             through the increments, which both share.
 14. train  — the paper's Table 1 train mode, ((ops.signature(x, N))**2).sum()
              with its gradient at every Table 1 cell: one sig_trunc and one
-             sig_sweep launch per call; at the depth sweep the gradient
-             against the torch engine's float64 autodiff (tolerance as in
-             13); value plus gradient ms, sig_sweep alone (ms, plain ms,
-             bound), and the torch engine's autodiff value plus gradient at
-             the depth sweep for information.
+             sig_sweep launch per call; at every cell the gradient, and
+             sig_sweep alone on the same inputs, against the plain sweep in
+             float64 from the same terminal signature, and at the depth
+             sweep also against the torch engine's float64 autodiff
+             (tolerance as in 13); value plus gradient ms, sig_sweep alone
+             (ms, plain ms, bound), and the torch engine's autodiff value
+             plus gradient at the depth sweep for information.
 15. memory — the paper's Table 2 cell (B = 32, d = 5, N = 4, M from 50 to
              1600): torch.cuda.max_memory_allocated during value plus
              gradient, increments included, above what was allocated
              before, for inverse (the card) and autodiff; from M = 50 to
              1600 the inverse peak grows by at most 4× the increments' own
              growth (B·ΔM·d·4 bytes), autodiff's by more than 10×; peaks
-             as multiples of Mem_out = 4·B·D_sig.
+             as multiples of Mem_out = 4·B·D_sig.  The streamed cells
+             (ops.signature and ops.projected over W_{<=4}, stride 1): the
+             storages behind the tensors saved for the backward grow from
+             M = 50 to 1600 by at most the increments' own growth.
 16. mmdgrad — the gradient of sig_mmd on the §8 word set with respect to
              the generated sample (two sig_words launches, three sig_gram,
              one sig_sweep) against the float64 torch engine to
@@ -130,7 +138,9 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              and one sig_sweep a step, finite losses, the first step's
              gradients against the same model on the torch engine in
              float64 to 1e-3·max|g| per parameter; step ms (median of
-             steps 2-10), the loss curve, the kernels' ms.
+             steps 2-10), the loss curve, the kernels' ms, sig_sweep at the
+             step's shape held against the float64 plain sweep (tolerance
+             as in 13).
 18. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell; the sig_words row with its cases: §8 terminal,
@@ -1137,12 +1147,21 @@ def sweep_bound(B: int, M: int, plan, n_emit: int) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def atol_needed(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The least atol, over max|want|, with which ``got`` meets rtol 1e-3
+    against ``want``."""
+    excess = (got.double() - want).abs() - 1e-3 * want.abs()
+    return max(0.0, float(excess.max())) / float(want.abs().max())
+
+
 def sweep_case(rng, fn, x: torch.Tensor, plan, stream: bool, stride: int,
-               where: str) -> float:
+               where: str) -> dict:
     """Run ``fn`` (a kernel's autograd node) forward and back with a random
     cotangent; hold the gradient against sig_sweep_plain in float64 on the
     same increments and the same saved terminal state.  Returns the max
-    |error|."""
+    |error|, max|g_64|, and the least atol (over max|g_64|) that rtol 1e-3
+    needs for the kernel and for the fp32 plain sweep on the same
+    inputs."""
     xin = x.detach().clone().requires_grad_()
     out = fn(xin)
     co = torch.tensor(rng.normal(size=tuple(out.shape)),
@@ -1158,69 +1177,88 @@ def sweep_case(rng, fn, x: torch.Tensor, plan, stream: bool, stride: int,
     check(g.shape == want.shape and grad_within(g, want),
           f"{where}: max |err| {err:.3e}, max|g| "
           f"{float(want.abs().max()):.3e}")
-    return err
+    plain32 = ss.sig_sweep_plain(x, plan, terminal.float(), co.float(),
+                                 stream=stream, stream_stride=stride)
+    return dict(err=err, max_g=float(want.abs().max()),
+                atol=atol_needed(g, want), plain_atol=atol_needed(plain32,
+                                                                  want))
 
 
-def phase_sweep(rng, sets) -> float:
+def phase_sweep(rng, sets) -> dict:
     """sig_sweep against its plain version through both kernels' autograd
-    nodes; returns the max |error| (fp32 increments)."""
+    nodes.  Returns the max |error| (fp32 increments) and, for the fp32
+    cases, the least atol over max|g| that rtol 1e-3 needs: the kernel's,
+    and the fp32 plain sweep's on the same inputs (per (d, N) at the
+    truncated cells)."""
     cells = [(False, 1), (True, 1), (True, 3)]
-    worst, cases = 0.0, 0
+    worst, cases, need = 0.0, 0, {}
+
+    def run(key, fn, x, plan, where):
+        nonlocal worst, cases
+        for precision in ("fp32", "bf16_fp32"):
+            xp = x if precision == "fp32" else x.to(torch.bfloat16).float()
+            for stream, stride in cells:
+                r = sweep_case(rng, lambda t: fn(t, stream, stride,
+                                                 precision), xp, plan,
+                               stream, stride, f"{where} stride="
+                               f"{stride if stream else 0} {precision}")
+                cases += 1
+                if precision == "fp32":
+                    worst = max(worst, r["err"])
+                    n = need.setdefault(key, dict(atol=0.0, plain_atol=0.0,
+                                                  max_g=0.0))
+                    for k in n:
+                        n[k] = max(n[k], r[k])
+
     for d, N in SWEEP:
         plan = sig.truncation_closure(d, N)
         for M in (1, 37):
             x = torch.tensor(rng.normal(size=(5, M, d)) * 0.3,
                              device="cuda").float()
-            for precision in ("fp32", "bf16_fp32"):
-                xp = x if precision == "fp32" else \
-                    x.to(torch.bfloat16).float()
-                for stream, stride in cells:
-                    where = (f"sig_sweep (sig_trunc) d={d} N={N} M={M} "
-                             f"stride={stride if stream else 0} {precision}")
-                    err = sweep_case(rng, lambda t: st.SigTruncFunction.apply(
-                        t, N, None, stream, stride, precision), xp, plan,
-                        stream, stride, where)
-                    if precision == "fp32":
-                        worst = max(worst, err)
-                    cases += 1
+            run(f"{d},{N}", lambda t, stream, stride, precision:
+                st.SigTruncFunction.apply(t, N, None, stream, stride,
+                                          precision), x, plan,
+                f"sig_sweep (sig_trunc) d={d} N={N} M={M}")
         where = "shared" if ss.sweep_geometry(plan.closure_size, d, N)[2] \
             else "device"
+        n = need[f"{d},{N}"]
         print(f"[sweep] truncated d={d:2d} N={N} (W={plan.closure_size}, "
-              f"state in {where} memory): max |err| so far {worst:.2e}",
-              flush=True)
+              f"state in {where} memory): max |err| so far {worst:.2e}; "
+              f"fp32 atol needed with rtol 1e-3, over max|g| "
+              f"({n['max_g']:.3e}): kernel {n['atol']:.2e}, plain fp32 "
+              f"sweep {n['plain_atol']:.2e}", flush=True)
     for name, d, words in sets:
-        ctp = make_tiled_plan(prefix_closure(words), d, max_rows=32)
-        plan = sw.closure_plan(ctp)
-        check(plan is not None, f"[{name}] closure tiles are not closed")
+        plan = make_plan(make_plan(words, d).closure, d)
+        ctp = make_tiled_plan(plan.words, d, max_rows=32)
         for M in (1, 37):
             x = torch.tensor(rng.normal(size=(5, M, d)) * 0.3,
                              device="cuda").float()
-            for precision in ("fp32", "bf16_fp32"):
-                xp = x if precision == "fp32" else \
-                    x.to(torch.bfloat16).float()
-                for stream, stride in cells:
-                    where = (f"sig_sweep (sig_words) [{name}] M={M} "
-                             f"stride={stride if stream else 0} {precision}")
-                    err = sweep_case(rng, lambda t: sw.SigWordsFunction.apply(
-                        t, ctp, stream, stride, precision), xp, plan, stream,
-                        stride, where)
-                    if precision == "fp32":
-                        worst = max(worst, err)
-                    cases += 1
+            run("words", lambda t, stream, stride, precision:
+                sw.SigWordsFunction.apply(t, ctp, stream, stride, precision,
+                                          plan), x, plan,
+                f"sig_sweep (sig_words) [{name}] M={M}")
     print(f"[sweep] {cases} cases within tolerance, max fp32 |err| "
           f"{worst:.2e}", flush=True)
-    return worst
+    return dict(max_abs_err=worst, atol_needed=need)
 
 
 def time_sweep(incs: torch.Tensor, plan, S_T: torch.Tensor,
-               g: torch.Tensor) -> dict:
-    """sig_sweep alone and its plain version at one shape, and its bound."""
+               g: torch.Tensor, where: str) -> dict:
+    """sig_sweep alone and its plain version at one shape, and its bound;
+    the kernel's gradient held against the plain sweep in float64 on the
+    same inputs (returned as ``want``)."""
     B, M, _ = incs.shape
     bms, by = sweep_bound(B, M, plan, 1)
+    got = ss.sig_sweep(incs, plan, S_T, g)
+    want = ss.sig_sweep_plain(incs.double(), plan, S_T.double(), g.double())
+    err = float((got.double() - want).abs().max())
+    check(grad_within(got, want), f"{where}: sig_sweep max |err| {err:.3e} "
+          f"vs the float64 plain sweep, max|g| {float(want.abs().max()):.3e}")
     return dict(ms=cuda_ms(lambda: ss.sig_sweep(incs, plan, S_T, g), 5),
                 plain_ms=cuda_ms(lambda: ss.sig_sweep_plain(
                     incs, plan, S_T, g), 1),
-                bound_ms=bms, bound_by=by, W=plan.closure_size)
+                bound_ms=bms, bound_by=by, W=plan.closure_size,
+                max_abs_err=err, max_g=float(want.abs().max()), want=want)
 
 
 def phase_train_grid(rng) -> list:
@@ -1243,8 +1281,19 @@ def phase_train_grid(rng) -> list:
               and n["sig_trunc_stream"] == 0,
               f"Table 1 train cell {B, M, d, N}: launches {n}")
         check(bool(torch.isfinite(g).all()), f"train cell {B, M, d, N}")
+        # the gradient against the plain sweep in float64 from the same
+        # terminal signature, at every cell
+        sweep = time_sweep(incs, sig.truncation_closure(d, N), out.detach(),
+                           2 * out.detach(), f"train cell {B, M, d, N}")
+        want = sweep.pop("want")
         row = dict(B=B, M=M, d=d, N=N, launches=n,
-                   ms=cuda_ms(value_and_grad, 5))
+                   ms=cuda_ms(value_and_grad, 5),
+                   plain_max_abs_err=float((g.double() - want).abs().max()))
+        check(grad_within(g, want),
+              f"train cell {B, M, d, N}: gradient max |err| "
+              f"{row['plain_max_abs_err']:.3e} vs the float64 plain sweep, "
+              f"max|g| {float(want.abs().max()):.3e}")
+        row.update({f"sweep_{k}": v for k, v in sweep.items()})
         if (B, M, d) == (32, 100, 6):   # the depth sweep
             x64 = incs.double().requires_grad_()
             g64, = torch.autograd.grad((ops.signature(
@@ -1259,12 +1308,12 @@ def phase_train_grid(rng) -> list:
             row["autodiff_ms"] = cuda_ms(lambda: torch.autograd.grad((
                 ops.signature(xa, N, backward="autodiff") ** 2).sum(), xa),
                 1)
-        plan = sig.truncation_closure(d, N)
-        row.update({f"sweep_{k}": v for k, v in time_sweep(
-            incs, plan, out.detach(), 2 * out.detach()).items()})
         rows.append(row)
         print(f"[train] B={B:3d} M={M:3d} d={d:2d} N={N}: value+grad "
-              f"{row['ms']:8.3f} ms; sig_sweep alone {row['sweep_ms']:.3f} "
+              f"{row['ms']:8.3f} ms, max |err| vs the float64 plain sweep "
+              f"{row['plain_max_abs_err']:.2e} (max|g| "
+              f"{row['sweep_max_g']:.3e}); sig_sweep alone "
+              f"{row['sweep_ms']:.3f} "
               f"ms, plain {row['sweep_plain_ms']:.3f} ms, bound "
               f"{row['sweep_bound_ms']:.4f} ms ({row['sweep_bound_by']})"
               + (f"; torch autodiff {row['autodiff_ms']:.3f} ms, max |err| "
@@ -1308,8 +1357,40 @@ def phase_memory(rng) -> dict:
           f"increments' {inc_growth}")
     check(grow["autodiff"] > 10 * inc_growth,
           f"autodiff peak grew only {grow['autodiff']} bytes")
+    # the streamed cells: what the backward keeps (the storages behind the
+    # saved tensors) beyond the increments must not grow with M
+    words = all_words(d, N)
+    saved = {}
+    for name, fn in (("signature", lambda t: ops.signature(
+            t, N, stream=True)), ("projected", lambda t: ops.projected(
+                t, words, stream=True))):
+        saved[name] = [saved_storage_bytes(fn, torch.tensor(
+            rng.normal(size=(B, M, d)) / np.sqrt(M), dtype=torch.float32,
+            device="cuda").requires_grad_()) for M in (Ms[0], Ms[-1])]
+        g = saved[name][1] - saved[name][0]
+        print(f"[memory] streamed {name} (stride 1): saved for the backward "
+              f"{saved[name][0]} bytes at M={Ms[0]}, {saved[name][1]} at "
+              f"M={Ms[-1]}, growth {g / inc_growth:.2f}× the increments'",
+              flush=True)
+        check(g <= inc_growth, f"streamed {name}: the saved tensors grew "
+              f"{g} bytes, above the increments' {inc_growth}")
     return dict(B=B, d=d, N=N, M=list(Ms), mem_out=mem_out, peaks=peaks,
-                growth=grow, inc_growth=inc_growth)
+                growth=grow, inc_growth=inc_growth, stream_saved=saved)
+
+
+def saved_storage_bytes(fn, x: torch.Tensor) -> int:
+    """Bytes of the distinct storages behind the tensors autograd saves for
+    the backward of fn(x): a saved view keeps its whole base alive."""
+    storages = {}
+
+    def pack(t):
+        st_ = t.untyped_storage()
+        storages[st_.data_ptr()] = st_.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        fn(x)
+    return sum(storages.values())
 
 
 def phase_mmd_grad(rng) -> dict:
@@ -1406,7 +1487,7 @@ def phase_hurst(seed: int) -> dict:
                                                  * model.scale))
         if kind == "sparse":
             ctp = make_tiled_plan(model.plan.closure, 2 * d)
-            plan = sw.closure_plan(ctp)
+            plan = make_plan(model.plan.closure, 2 * d)
             S_T = sw.sig_words(incs, ctp)
             fwd_ms = cuda_ms(lambda: sw.sig_words(incs, ctp), 10)
         else:
@@ -1415,7 +1496,8 @@ def phase_hurst(seed: int) -> dict:
             fwd_ms = cuda_ms(lambda: st.sig_trunc(incs, depth), 10)
         g = torch.tensor(np.random.default_rng(seed).normal(
             size=tuple(S_T.shape)), dtype=torch.float32, device="cuda")
-        sweep = time_sweep(incs, plan, S_T, g)
+        sweep = time_sweep(incs, plan, S_T, g, f"§8 {kind} step")
+        del sweep["want"]
         step_ms = float(np.median(ms[1:]))
         out[kind] = dict(features=model.feat_dim, W=plan.closure_size,
                          losses=losses, step_ms=step_ms, steps_ms=ms,
@@ -1428,7 +1510,9 @@ def phase_hurst(seed: int) -> dict:
               f"{' '.join(f'{v:.5f}' for v in losses)}; first-step "
               f"gradients within 1e-3·max|g| of float64 torch (worst "
               f"{max(errs.values()):.2e}); {kname} {fwd_ms:.3f} ms, "
-              f"sig_sweep {sweep['ms']:.3f} ms, plain {sweep['plain_ms']:.3f}"
+              f"sig_sweep {sweep['ms']:.3f} ms (max |err| vs the float64 "
+              f"plain sweep {sweep['max_abs_err']:.2e}, max|g| "
+              f"{sweep['max_g']:.3e}), plain {sweep['plain_ms']:.3f}"
               f" ms, bound {sweep['bound_ms']:.4f} ms ({sweep['bound_by']})",
               flush=True)
     return out
@@ -1453,7 +1537,7 @@ def main() -> int:
     phase_gram_variants(rng)
     score = phase_scoring(rng)
     mmd = phase_projected_mmd(rng)
-    sweep_err = phase_sweep(rng, sets)
+    sweep = phase_sweep(rng, sets)
     train = phase_train_grid(rng)
     memory = phase_memory(rng)
     mmd_grad = phase_mmd_grad(rng)
@@ -1550,7 +1634,7 @@ def main() -> int:
                         "src/repro/core/projection.py:76",
                         "src/repro/core/projection.py:134"],
         launches=sum(h["sweep_launches"] for h in hurst.values()),
-        max_abs_err=sweep_err, ms=sp["ms"],
+        max_abs_err=sweep["max_abs_err"], ms=sp["ms"],
         plain_ms=sp["plain_ms"], bound_ms=sp["bound_ms"],
         bound_by=sp["bound_by"], library_ms=None, cases=sweep_cases))
     if args.out:
@@ -1558,7 +1642,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(dict(
             device=smi, kernels=kernels, serve=serve, table1=table1,
             stream=stream, cross=cross, projection=proj, logsig=logsig,
-            scoring=score, projected_mmd=mmd, sweep_max_abs_err=sweep_err,
+            scoring=score, projected_mmd=mmd, sweep=sweep,
             train=train, memory=memory, mmd_grad=mmd_grad, hurst=hurst),
             indent=1))
     print(json.dumps({"kernels": kernels}))

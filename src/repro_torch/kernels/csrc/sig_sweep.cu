@@ -28,9 +28,10 @@
 //      buffers swap.
 //  (c) g_dx written into row j of the (B, M, d) gradient.
 // Streamed cotangents enter as in the reference: at each emitted step
-// (stride-1, 2 stride-1, ..., and M-1) the step's cotangent is added onto
-// its rows of G (out_rows, repeats included) before the pull-back; the
-// terminal cell is the stream with only step M-1 emitted.
+// (stride-1, 2 stride-1, ..., and M-1, read from the host's slot table)
+// the step's cotangent is added onto its rows of G (out_rows, repeats
+// included) before the pull-back; the terminal cell is the stream with
+// only step M-1 emitted.
 //
 // What bounds it on this card.  Per step and example the least work is
 // about three times the forward's prefix-shared Horner count (the inverse
@@ -59,7 +60,7 @@
 namespace {
 
 struct SweepGeom {
-  int M, d, W, depth, n_out, stride, n_emit;
+  int M, d, W, depth, n_out, n_emit;
 };
 
 // Most threads a block of the MAXD instance may have: p and c of a chain
@@ -75,7 +76,8 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
              const int* __restrict__ letters, const float* __restrict__ inv,
              const int* __restrict__ lengths,
              const int* __restrict__ level_off,
-             const int* __restrict__ out_rows, float* __restrict__ scratch,
+             const int* __restrict__ out_rows,
+             const int* __restrict__ slots, float* __restrict__ scratch,
              float* __restrict__ gx, SweepGeom q) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
@@ -96,14 +98,7 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
     // the step's increment, and its cotangent when the step is emitted
     const float* xj = x + ((size_t)b * q.M + j) * q.d;
     for (int i = tid; i < q.d; i += nt) dx[i] = xj[i];
-    int slot = -1;
-    if (q.stride == 0) {
-      if (j == q.M - 1) slot = 0;
-    } else if ((j + 1) % q.stride == 0) {
-      slot = (j + 1) / q.stride - 1;
-    } else if (j == q.M - 1) {
-      slot = q.n_emit - 1;
-    }
+    const int slot = slots[j];
     if (slot >= 0) {
       const float* gs = g + ((size_t)b * q.n_emit + slot) * q.n_out;
       for (int k = tid; k < q.n_out; k += nt)
@@ -182,7 +177,8 @@ cudaError_t launch(const void* const* a, void* scratch, void* gx, int B,
       static_cast<const float*>(a[2]), static_cast<const int*>(a[3]),
       static_cast<const int*>(a[4]), static_cast<const float*>(a[5]),
       static_cast<const int*>(a[6]), static_cast<const int*>(a[7]),
-      static_cast<const int*>(a[8]), static_cast<float*>(scratch),
+      static_cast<const int*>(a[8]), static_cast<const int*>(a[9]),
+      static_cast<float*>(scratch),
       static_cast<float*>(gx), q);
   return cudaGetLastError();
 }
@@ -191,12 +187,13 @@ cudaError_t launch(const void* const* a, void* scratch, void* gx, int B,
 
 // x: (B, M, d) fp32 increments; s_t: (B, W) fp32 terminal closure
 // coefficients (rows 1..W of the state); g: (B, n_emit, n_out) fp32
-// cotangents, n_emit = 1 when stride == 0 (terminal) and ceil(M/stride)
-// when stride >= 1.  prefix, letters: (W, depth) int32 state rows (0 =
-// eps) and letters of each closure row's links; inv: (W, depth) fp32
-// 1/(len - k); lengths: (W,) int32, rows level-major; level_off: (depth +
-// 1,) int32, the first row of each length; out_rows: (n_out,) int32 state
-// rows of the cotangent's words.  scratch: (B, 3, W + 1) fp32 when the
+// cotangents of the emitted steps (n_emit = 1 for the terminal cell).
+// prefix, letters: (W, depth) int32 state rows (0 = eps) and letters of
+// each closure row's links; inv: (W, depth) fp32 1/(len - k); lengths:
+// (W,) int32, rows level-major; level_off: (depth + 1,) int32, the first
+// row of each length; out_rows: (n_out,) int32 state rows of the
+// cotangent's words; slots: (M,) int32 the cotangent slot added at each
+// step, -1 where none (kernels/sig_sweep.py::emit_slot_table).  scratch: (B, 3, W + 1) fp32 when the
 // state does not fit shared memory, else null.  gx: (B, M, d) fp32.  A
 // block takes 4·(2d + 3(W + 1)) bytes of dynamic shared memory (4·2d with
 // a scratch).  Returns the cudaError_t of the launch (0 on success).
@@ -204,10 +201,11 @@ extern "C" int sig_sweep_launch(const void* x, const void* s_t, const void* g,
                                 const void* prefix, const void* letters,
                                 const void* inv, const void* lengths,
                                 const void* level_off, const void* out_rows,
-                                void* scratch, void* gx, int B, int M, int d,
-                                int W, int depth, int n_out, int stride,
-                                int threads, void* stream) {
-  if (B < 1 || M < 1 || d < 1 || W < 1 || n_out < 1 || stride < 0 ||
+                                const void* slots, void* scratch, void* gx,
+                                int B, int M, int d, int W, int depth,
+                                int n_out, int n_emit, int threads,
+                                void* stream) {
+  if (B < 1 || M < 1 || d < 1 || W < 1 || n_out < 1 || n_emit < 1 ||
       depth < 1 || depth > SS_MAX_DEPTH || threads < 1)
     return (int)cudaErrorInvalidValue;
   SweepGeom q;
@@ -216,12 +214,11 @@ extern "C" int sig_sweep_launch(const void* x, const void* s_t, const void* g,
   q.W = W;
   q.depth = depth;
   q.n_out = n_out;
-  q.stride = stride;
-  q.n_emit = stride ? (M + stride - 1) / stride : 1;
+  q.n_emit = n_emit;
   const size_t smem =
       sizeof(float) * (2 * (size_t)d + (scratch ? 0 : 3 * ((size_t)W + 1)));
-  const void* a[9] = {x, s_t, g, prefix, letters, inv, lengths, level_off,
-                      out_rows};
+  const void* a[10] = {x, s_t, g, prefix, letters, inv, lengths, level_off,
+                       out_rows, slots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (depth <= 4) return (int)launch<4>(a, scratch, gx, B, threads, smem, q, st);
   if (depth <= 8) return (int)launch<8>(a, scratch, gx, B, threads, smem, q, st);

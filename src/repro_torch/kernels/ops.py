@@ -256,7 +256,8 @@ def _closure_kernel(increments: torch.Tensor, wplan: WordPlan,
     cw = sig_words(increments,
                    _closure_tiled_plan(wplan.words, wplan.d, max_rows),
                    stream=stream, stream_stride=stream_stride,
-                   precision=precision)
+                   precision=precision,
+                   closure=_plan_for_words(wplan.closure, wplan.d))
     # out_rows count the eps row as 0; the closure words start at 1
     out_rows = plan_tables(wplan, increments.device, torch.float32)[4]
     return cw[..., out_rows - 1]

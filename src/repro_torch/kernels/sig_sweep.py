@@ -97,16 +97,20 @@ def sweep_geometry(W: int, d: int, depth: int) -> tuple[int, int, bool]:
     return threads, 4 * 2 * d, False
 
 
-def emit_slots(M: int, stride: int) -> np.ndarray:
-    """(M,) the cotangent slot the kernel adds at each step, -1 where none:
-    its in-kernel rule, for the tests to hold against
-    :func:`stream_emit_steps` (``stride`` 0 is the terminal cell)."""
-    j = np.arange(M)
-    if stride == 0:
-        return np.where(j == M - 1, 0, -1)
-    n_emit = -(-M // stride)
-    return np.where((j + 1) % stride == 0, (j + 1) // stride - 1,
-                    np.where(j == M - 1, n_emit - 1, -1))
+@plan_cache
+def emit_slot_table(M: int, stride: int) -> np.ndarray:
+    """(M,) int32 the cotangent slot the kernel adds at each step, -1 where
+    none: :func:`stream_emit_steps` (``stride`` 0 is the terminal cell,
+    only step M - 1 emitted)."""
+    steps = stream_emit_steps(M, stride) if stride else np.arange(M)[-1:]
+    slots = np.full(M, -1, np.int32)
+    slots[steps] = np.arange(len(steps), dtype=np.int32)
+    return slots
+
+
+@plan_cache
+def _slots_on(M: int, stride: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(emit_slot_table(M, stride), device=device)
 
 
 def _check(increments, plan, S_T, g, stream, stream_stride):
@@ -147,12 +151,11 @@ def sig_sweep_plain(increments: torch.Tensor, plan: WordPlan,
     S = torch.cat([torch.ones((B, 1), dtype=dt, device=dev), S_T.to(dt)], 1)
     G = torch.zeros_like(S)
     g = g.to(dt)
-    steps = stream_emit_steps(M, stream_stride) if stream else [M - 1]
-    slot = {int(j): k for k, j in enumerate(steps)}
+    slots = emit_slot_table(M, stream_stride if stream else 0)
     gdx = increments.new_zeros((B, M, d))
     for j in range(M - 1, -1, -1):
-        if j in slot:
-            G = G.index_add(1, out_rows, g[:, slot[j]] if stream else g)
+        if slots[j] >= 0:
+            G = G.index_add(1, out_rows, g[:, slots[j]] if stream else g)
         dx = increments[:, j]
         S = projected_step(S, -dx, pidx, letters, inv, emit)   # S_{j-1}
         ps, cs, acc = [], [], None
@@ -181,7 +184,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_sweep_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 8 + [p]
+        fn.argtypes = [p] * 12 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -199,6 +202,8 @@ def _launch(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
     s = S_T.detach().float().contiguous()
     gg = g.detach().float().contiguous()
     tabs = _tables_on(plan, dev)
+    slots = _slots_on(M, stride, dev)
+    n_emit = -(-M // stride) if stride else 1
     scratch = None if in_smem else torch.empty(
         (B, 3, W + 1), dtype=torch.float32, device=dev)
     gx = torch.empty((B, M, d), dtype=torch.float32, device=dev)
@@ -206,9 +211,9 @@ def _launch(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.sig_sweep_launch(
             x.data_ptr(), s.data_ptr(), gg.data_ptr(),
-            *(t.data_ptr() for t in tabs),
+            *(t.data_ptr() for t in tabs), slots.data_ptr(),
             None if scratch is None else scratch.data_ptr(), gx.data_ptr(),
-            B, M, d, W, depth, len(plan.words), stride, threads,
+            B, M, d, W, depth, len(plan.words), n_emit, threads,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"sig_sweep kernel launch failed with cudaError "

@@ -348,14 +348,15 @@ def _launch(incs: torch.Tensor, depth: int, split: int | None, stream: bool,
 
 class SigTruncFunction(torch.autograd.Function):
     """The CUDA cell as an autograd node: the kernel forward, saving the
-    increments and the terminal signature (the streamed cell's last
-    emission, as the reference's ``_pallas_sig_stream`` does), and the
+    increments and the terminal signature (a copy of the streamed cell's
+    last emission, as the reference's ``_pallas_sig_stream`` does), and the
     §4.2 reverse sweep kernel as its backward."""
 
     @staticmethod
     def forward(ctx, increments, depth, split, stream, stride, precision):
         out = _launch(increments, depth, split, stream, stride, precision)
-        ctx.save_for_backward(increments, out[:, -1] if stream else out)
+        ctx.save_for_backward(increments,
+                              out[:, -1].clone() if stream else out)
         ctx.depth, ctx.stream, ctx.stride = depth, stream, stride
         return out
 

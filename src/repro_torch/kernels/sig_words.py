@@ -25,12 +25,13 @@ group a block; it writes (B, |I|) fp32 words, or (B, M_out, |I|) in the
 storage dtype, through each group's emission list.  On a CPU tensor
 :func:`sig_words` runs :func:`sig_words_plain`, the padded tiles as a
 word-table scan in PyTorch; on a CUDA tensor it launches the kernel or
-raises.  :class:`SigWordsFunction` over a word set that is its own prefix
-closure in level-major order (the closure tiles of ``ops.projected``)
-saves the increments and the terminal closure state, and its backward is
-the §4.2 sweep kernel (:func:`repro_torch.kernels.sig_sweep.sig_sweep`),
-one launch a call; over other word sets (``ops.projected_forward_only``)
-it keeps no closure state and its backward raises.
+raises.  :class:`SigWordsFunction` given the untiled plan of a word set
+that is its own prefix closure in level-major order (the closure tiles of
+``ops.projected``) saves the increments and the terminal closure state,
+and its backward is the §4.2 sweep kernel over that plan
+(:func:`repro_torch.kernels.sig_sweep.sig_sweep`), one launch a call;
+without one (``ops.projected_forward_only``) it keeps no closure state
+and its backward raises.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from ..core.signature import stream_emit_steps
-from ..core.words import TiledPlan, WordPlan, make_plan
+from ..core.words import TiledPlan, WordPlan
 from . import _build
 from .cache import plan_cache
 from .sig_sweep import sig_sweep
@@ -470,30 +471,24 @@ def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
     return out
 
 
-@plan_cache
-def closure_plan(tplan: TiledPlan) -> WordPlan | None:
-    """The untiled plan of ``tplan``'s words when they are their own prefix
-    closure in level-major order, so that the kernel's output is the
-    closure state the sweep reconstructs from; else None."""
-    plan = make_plan(tplan.words, tplan.d)
-    return plan if plan.closure == tuple(tplan.words) else None
-
-
 class SigWordsFunction(torch.autograd.Function):
-    """The CUDA cell as an autograd node.  Over a closure (the tiles of
-    ``ops.projected``, as the reference's ``_pallas_proj_inverse`` runs the
-    kernel) it saves the increments and the terminal closure coefficients
-    (the streamed cell's last emission) and its backward is the §4.2
-    reverse sweep kernel; over any other word set the forward keeps no
-    closure state, and the backward raises rather than letting gradients
-    vanish."""
+    """The CUDA cell as an autograd node.  Given ``closure``, the untiled
+    plan of ``tplan``'s words when they are their own prefix closure in
+    level-major order (the tiles of ``ops.projected``, as the reference's
+    ``_pallas_proj_inverse`` runs the kernel), it saves the increments and
+    the terminal closure coefficients (a copy of the streamed cell's last
+    emission) and its backward is the §4.2 reverse sweep kernel over
+    ``closure``; without it the forward keeps no closure state, and the
+    backward raises rather than letting gradients vanish."""
 
     @staticmethod
-    def forward(ctx, increments, tplan, stream, stride, precision):
+    def forward(ctx, increments, tplan, stream, stride, precision,
+                closure=None):
         out = _launch(increments, tplan, stream, stride, precision)
-        ctx.plan = closure_plan(tplan)
-        if ctx.plan is not None:
-            ctx.save_for_backward(increments, out[:, -1] if stream else out)
+        ctx.plan = closure
+        if closure is not None:
+            ctx.save_for_backward(increments,
+                                  out[:, -1].clone() if stream else out)
         ctx.stream, ctx.stride = stream, stride
         return out
 
@@ -509,7 +504,7 @@ class SigWordsFunction(torch.autograd.Function):
         increments, S_T = ctx.saved_tensors
         gx = sig_sweep(increments, ctx.plan, S_T, g, stream=ctx.stream,
                        stream_stride=ctx.stride)
-        return gx, None, None, None, None
+        return gx, None, None, None, None, None
 
 
 def sig_words_plain(increments: torch.Tensor, tplan: TiledPlan, *,
@@ -557,7 +552,8 @@ def sig_words_plain(increments: torch.Tensor, tplan: TiledPlan, *,
 
 def sig_words(increments: torch.Tensor, tplan: TiledPlan, *,
               stream: bool = False, stream_stride: int = 1,
-              precision: str = "fp32") -> torch.Tensor:
+              precision: str = "fp32",
+              closure: WordPlan | None = None) -> torch.Tensor:
     """Projected signature through the tile kernel.  (B, M, d) -> (B, |I|)
     in ``tplan.words`` order, or with ``stream=True`` (B, M_out, |I|),
     M_out = ceil(M / stream_stride), in the input dtype.
@@ -565,7 +561,9 @@ def sig_words(increments: torch.Tensor, tplan: TiledPlan, *,
     Increments are stored in the precision's dtype (bf16 under
     ``"bf16_fp32"``) and accumulated in fp32; float64 inputs run in fp32
     and are cast back.  A CPU tensor runs :func:`sig_words_plain` on the
-    same rounded values; a CUDA tensor launches the kernel.
+    same rounded values; a CUDA tensor launches the kernel.  ``closure``,
+    the untiled plan of ``tplan.words`` when they are their own prefix
+    closure, makes the launch differentiable (:class:`SigWordsFunction`).
     """
     if increments.ndim != 3:
         raise ValueError(f"expected (B, M, d), got {tuple(increments.shape)}")
@@ -590,5 +588,5 @@ def sig_words(increments: torch.Tensor, tplan: TiledPlan, *,
         shape = (B, -(-M // stream_stride), n) if stream else (B, n)
         return increments.new_zeros(shape)
     out = SigWordsFunction.apply(increments, tplan, stream, stream_stride,
-                                 precision)
+                                 precision, closure)
     return out.to(increments.dtype)

@@ -185,6 +185,58 @@ def test_backward_memory_is_M_independent(name):
     assert grow_ad > 10 * inc_growth, (grow_ad, inc_growth)
 
 
+def _saved_storage_bytes(fn, x):
+    """Bytes of the distinct storages behind the tensors autograd saves for
+    the backward of fn(x): a saved view keeps its whole base alive."""
+    storages = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        fn(x)
+    return sum(storages.values())
+
+
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("kernel", ["sig_trunc", "sig_words"])
+def test_kernel_cells_save_only_the_terminal_state(kernel, stream,
+                                                   monkeypatch):
+    """The memory law for the CUDA cells' autograd nodes, their launches
+    stubbed by the plain versions so that they run here: what they keep
+    for the backward beyond the increments does not grow with M, so a
+    streamed cell keeps a (B, W) copy of its last emission and never the
+    storage of the whole stream."""
+    from repro_torch.kernels import sig_trunc as st
+    from repro_torch.kernels import sig_words as sw
+    monkeypatch.setattr(st, "_launch",
+                        lambda incs, depth, split, stream, stride, *a:
+                        st.sig_trunc_plain(incs.detach(), depth,
+                                           stream=stream,
+                                           stream_stride=stride))
+    monkeypatch.setattr(sw, "_launch", lambda incs, tplan, stream, stride, *a:
+                        sw.sig_words_plain(incs.detach(), tplan,
+                                           stream=stream,
+                                           stream_stride=stride))
+    d, N = 2, 4
+    plan = tw.make_plan(tw.all_words(d, N), d)   # its own closure
+    tplan = tw.make_tiled_plan(plan.closure, d, max_rows=8)
+
+    def saved(M):
+        x = torch.zeros(1, M, d, requires_grad=True)
+        if kernel == "sig_trunc":
+            return _saved_storage_bytes(lambda t: st.SigTruncFunction.apply(
+                t, N, None, stream, 1, "fp32"), x)
+        return _saved_storage_bytes(lambda t: sw.SigWordsFunction.apply(
+            t, tplan, stream, 1, "fp32", plan), x)
+
+    inc_growth = (256 - 32) * d * 4
+    grow = saved(256) - saved(32)
+    assert grow <= inc_growth, (grow, inc_growth)
+
+
 def test_inverse_reconstruction_drift_bounded():
     """Long-path drift of the reconstruction (§4.2 note): the fp32 sweep
     against float64 autodiff at M = 800, scale 0.05, to a relative 5e-3."""

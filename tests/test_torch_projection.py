@@ -178,9 +178,10 @@ def test_cuda_engine_backward_raises_and_autodiff_differentiates(
     monkeypatch.setattr(sw, "_launch", lambda incs, tplan, *a:
                         sw.sig_words_plain(incs.detach(), tplan))
     monkeypatch.setattr(ops, "sig_words", lambda incs, tplan, stream=False,
-                        stream_stride=1, precision="fp32":
+                        stream_stride=1, precision="fp32", closure=None:
                         sw.SigWordsFunction.apply(incs, tplan, stream,
-                                                  stream_stride, precision))
+                                                  stream_stride, precision,
+                                                  closure))
     d, words = SETS["sparse"]
     x = torch.from_numpy(_incs(1, 2, 5, d)).requires_grad_()
     out = ops.projected(x, words, device="cpu")

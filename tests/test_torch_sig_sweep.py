@@ -105,11 +105,13 @@ def test_plain_sweep_matches_the_truncated_bwd_scans(d, N, M, stride):
 @pytest.mark.parametrize("M", [1, 2, 3, 7, 9, 12, 37])
 @pytest.mark.parametrize("stride", [1, 2, 3, 5, 10, 40])
 def test_kernel_emission_map_is_the_streamed_emission(M, stride):
-    slots = ss.emit_slots(M, stride)
+    """The slot table the kernel reads a step at a time."""
+    slots = ss.emit_slot_table(M, stride)
+    assert slots.dtype == np.int32 and slots.shape == (M,)
     steps = ts.stream_emit_steps(M, stride)
     assert np.array_equal(np.nonzero(slots >= 0)[0], steps)
     assert np.array_equal(slots[steps], np.arange(len(steps)))
-    term = ss.emit_slots(M, 0)
+    term = ss.emit_slot_table(M, 0)
     assert np.array_equal(np.nonzero(term >= 0)[0], [M - 1])
     assert term[M - 1] == 0
 
