@@ -11,44 +11,58 @@
 // signature order) and for projections (the untiled prefix closure of the
 // word set).
 //
-// What it computes, per example.  From the terminal closure state S_T
-// (1 + W rows, row 0 = S[eps] = 1) and the cotangents, for every step j
-// from M down to 1:
-//  (a) S_{j-1} = step(S_j, -dx_j) in place, top-down over the levels, one
-//      barrier a level: a word's new value reads only its shorter
-//      prefixes, which still hold S_j (paper Prop. 4.6).
-//  (b) G pulled back through step(S_{j-1}, dx_j).  For a word w of length
-//      n with letters i_1..i_n the Horner chain is recomputed,
-//        p_k = S[w_{1:k-1}] + acc_{k-1},  c_k = dx[i_k] / (n-k+1),
-//        acc_k = p_k c_k   (S[eps] = 1, acc_0 = 0),
-//      and walked back from b = G[w]: g_dx[i_k] += b p_k / (n-k+1),
-//      G_new[w_{1:k-1}] += b c_k for k >= 2, then b <- b c_k.  G_new
-//      starts as a copy of G (the identity term of S_new = S + acc_n); G
-//      is read from the step's buffer, the adds go into the other, and the
-//      buffers swap.
-//  (c) g_dx written into row j of the (B, M, d) gradient.
-// Streamed cotangents enter as in the reference: at each emitted step
-// (stride-1, 2 stride-1, ..., and M-1, read from the host's slot table)
-// the step's cotangent is added onto its rows of G (out_rows, repeats
-// included) before the pull-back; the terminal cell is the stream with
+// What it computes, per example.  The state rows are 0..W, row 0 = eps
+// with S[eps] = 1, level-major; row w of length k has the parent row u
+// (its first k-1 letters) and the last letter i, and its children are one
+// contiguous range of level k+1 (kernels/sig_sweep.py::level_tables).  The
+// Horner step S' = step(S, dx) (paper Alg. 1) is, with chain values per
+// row and target length n >= k,
+//   C^n[w] = (S[u] + C^n[u]) dx_i / (n-k+1),  C^n[eps] = 0,
+//   S'[w] = S[w] + C^k[w].
+// For every step j from M down to 1, from the terminal state S_T and the
+// cotangents (G, over the rows):
+//  (a) the inverse step S_{j-1} = step(S_j, -dx_j), top-down over the
+//      levels, one barrier a level: a word's new value reads only its
+//      shorter prefixes, which still hold S_j (paper Prop. 4.6);
+//  (b) the forward chain at (S_{j-1}, dx_j), levelwise and shared by every
+//      prefix, one barrier a level:
+//        Q^n[w] = S_{j-1}[w] + Q^n[u] dx_i / (n-k+1),  Q^n[eps] = 1;
+//  (c) the pull-back, levelwise from the top, one barrier a level.  The
+//      cotangent of C^n[w] is cot^k[w] = G[w] and, for n > k,
+//        cot^n[w] = sum over children c of cot^n[c] dx_letter(c) / (n-k);
+//      the identity term gives G_{j-1}[w] = G[w] + sum_{n>k} cot^n[w], and
+//      the step's increment gradient is g_dx[i] = sum over rows w with
+//      last letter i of gv[w],
+//        gv[w] = sum_{n>=k} cot^n[w] Q^n[u] / (n-k+1).
+//      The thread that owns a parent pulls from its children (their G and
+//      cot, read before it writes their new G): no two threads write one
+//      address, so no atomics, and two runs are bitwise equal;
+//  (d) g_dx by letter: a warp a letter sums that letter's gv slots (a host
+//      table groups them) with shuffles, in a fixed order, straight into
+//      row j of the (B, M, d) gradient.
+// Only rows below the top level are ever read as prefixes, so S and the
+// chain values R, Q and cot are kept for those only.  Streamed cotangents
+// enter as in the reference: at each emitted step (stride-1, 2 stride-1,
+// ..., and M-1, from the host's slot table) each row adds its cotangent
+// columns (a host table, ascending, so a repeated word sums in a fixed
+// order) onto G before the pull-back; the terminal cell is the stream with
 // only step M-1 emitted.
 //
 // What bounds it on this card.  Per step and example the least work is
 // about three times the forward's prefix-shared Horner count (the inverse
 // step, then the two products of its VJP) on the CUDA cores, against
 // bytes that are the increments in, g_dx out, S_T and the cotangents in:
-// FP32 arithmetic (67 TFLOP/s) bounds it, and the steps are sequential.
+// FP32 arithmetic (67 TFLOP/s) bounds it.  The steps are sequential, and
+// a step is a chain of dependent phases separated by barriers, so at a
+// batch below the card's SMs the time is the phases' latency.
 //
-// What the design does about it (a first design, right before fast).  One
-// block an example, a thread a row (rows strided over the block), the
-// state and both cotangent buffers in shared memory while 3 (1 + W) floats
-// fit; a wider closure (W above about 19,000 rows, e.g. d = 10, N = 5 with
-// 111,110 rows) keeps them in a per-example scratch in device memory,
-// which the wrapper allocates, with the same code.  The adds into g_dx and
-// into a prefix row go through atomics (shared memory, or device memory
-// for the scratch), so their order changes from run to run.  A step has
-// depth + 2 barriers.  Several steps a barrier and warp-level prefix
-// sharing are left to a later redesign.
+// What the design does about it.  The work a step is the levelwise
+// count, with no atomics; an example's state (S, G, gv and the chain
+// buffers) sits in shared memory while it fits (kernels/sig_sweep.py::
+// plan_sweep_launch), else in a per-example scratch in device memory with
+// the same code; an example gets a thread for each row of its widest
+// level below the top, and examples share a block only past the blocks
+// the card holds at once.
 //
 // Precision.  fp32 throughout: under bf16_fp32 the increments are the
 // rounded ones the forward saw, passed in fp32.
@@ -59,12 +73,18 @@
 
 namespace {
 
-struct SweepGeom {
-  int M, d, W, depth, n_out, n_emit;
+struct LevelGeom {
+  int B, M, d, W, depth, n_out, n_emit, T, E;
+  int ex_floats;                 // floats of one example's state
+  int s_off, g_off, gv_off, r_off, q_off, c_off;  // in the example state
+  int lo[SS_MAX_DEPTH + 2];      // first state row of each level
+  int coff[SS_MAX_DEPTH + 1];    // first chain value of each level
+  float inv[SS_MAX_DEPTH + 2];   // 1/m
 };
 
-// Most threads a block of the MAXD instance may have: p and c of a chain
-// stay in registers (64 a thread at 1,024 threads, 128 at 512).
+// Most threads a block of the MAXD instance may have: a parent's MAXD
+// chain values and scaled Q stay in registers (64 a thread at 1,024
+// threads, 128 at 512).
 template <int MAXD> struct Bounds {
   static constexpr int threads = MAXD <= 8 ? 1024 : 512;
 };
@@ -72,114 +92,180 @@ template <int MAXD> struct Bounds {
 template <int MAXD>
 __global__ void __launch_bounds__(Bounds<MAXD>::threads)
 sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
-             const float* __restrict__ g, const int* __restrict__ prefix,
-             const int* __restrict__ letters, const float* __restrict__ inv,
-             const int* __restrict__ lengths,
-             const int* __restrict__ level_off,
-             const int* __restrict__ out_rows,
+             const float* __restrict__ g, const int* __restrict__ parent,
+             const int* __restrict__ letter, const int* __restrict__ child,
+             const int* __restrict__ gv_pos,
+             const int* __restrict__ letter_off,
+             const int* __restrict__ col_off, const int* __restrict__ cols,
+             const int* __restrict__ prefix, const int* __restrict__ letters,
+             const float* __restrict__ inv_tab,
              const int* __restrict__ slots, float* __restrict__ scratch,
-             float* __restrict__ gx, SweepGeom q) {
+             float* __restrict__ gx, LevelGeom q) {
   extern __shared__ float smem[];
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int W1 = q.W + 1, D = q.depth;
-  float* dx = smem;
-  float* gdx = smem + q.d;
-  float* S = scratch ? scratch + (size_t)b * 3 * W1 : smem + 2 * q.d;
-  float* Gc = S + W1;
-  float* Gn = Gc + W1;
-  const float* sb = s_t + (size_t)b * q.W;
-  for (int r = tid; r < W1; r += nt) {
-    S[r] = r ? sb[r - 1] : 1.f;
-    Gc[r] = 0.f;
-  }
-  for (int i = tid; i < q.d; i += nt) gdx[i] = 0.f;
-  __syncthreads();
+  const int T = q.T, N = q.depth, W = q.W, d = q.d;
+  const int ex = threadIdx.x / T, t = threadIdx.x - ex * T;
+  const int cell = blockIdx.x * q.E + ex;  // this example's state slot
+  const bool live = cell < q.B;
+  const int b = live ? cell : q.B - 1;     // spare examples read the last
+  float* dx = smem + ex * d;
+  float* base = scratch ? scratch + (size_t)cell * q.ex_floats
+                        : smem + q.E * d + (size_t)ex * q.ex_floats;
+  float* S = base + q.s_off;
+  float* G = base + q.g_off;
+  float* gv = base + q.gv_off;
+  float* Q = base + q.q_off;
+  float* C = base + q.c_off;
+  const int lo_top = q.lo[N];
+  const float* sb = s_t + (size_t)b * W;
+  for (int r = t; r < lo_top; r += T) S[r] = r ? sb[r - 1] : 1.f;
+  // G by the rows the cotangent adds use (row 0 is never read)
+  for (int r = 1 + t; r <= W; r += T) G[r] = 0.f;
+  const int lane = t & 31, warp = t >> 5, nwarps = T >> 5;
+
   for (int j = q.M - 1; j >= 0; --j) {
     // the step's increment, and its cotangent when the step is emitted
-    const float* xj = x + ((size_t)b * q.M + j) * q.d;
-    for (int i = tid; i < q.d; i += nt) dx[i] = xj[i];
+    const float* xj = x + ((size_t)b * q.M + j) * d;
+    for (int i = t; i < d; i += T) dx[i] = xj[i];
     const int slot = slots[j];
     if (slot >= 0) {
       const float* gs = g + ((size_t)b * q.n_emit + slot) * q.n_out;
-      for (int k = tid; k < q.n_out; k += nt)
-        atomicAdd(&Gc[out_rows[k]], gs[k]);
+      for (int r = 1 + t; r <= W; r += T) {
+        const int c0 = col_off[r], c1 = col_off[r + 1];
+        if (c0 == c1) continue;
+        float a = G[r];
+        for (int m = c0; m < c1; ++m) a += gs[cols[m]];
+        G[r] = a;
+      }
     }
     __syncthreads();
-    // (a) S_{j-1} = step(S_j, -dx) in place, longest words first; G_new
-    // starts as G
-    for (int r = tid; r < W1; r += nt) Gn[r] = Gc[r];
-    for (int n = D; n >= 1; --n) {
-      const int hi = level_off[n];
-      for (int r = level_off[n - 1] + tid; r < hi; r += nt) {
-        const int* pr = prefix + (size_t)r * D;
-        const int* lt = letters + (size_t)r * D;
-        const float* iv = inv + (size_t)r * D;
+    // (a) S_{j-1} = step(S_j, -dx) in place, longest words first
+    for (int n = N - 1; n >= 1; --n) {
+      for (int r = q.lo[n] + t; r < q.lo[n + 1]; r += T) {
+        const int* pr = prefix + (size_t)(r - 1) * N;
+        const int* lt = letters + (size_t)(r - 1) * N;
+        const float* iv = inv_tab + (size_t)(r - 1) * N;
         float acc = 0.f;
         for (int k = 0; k < n; ++k)
           acc = (S[pr[k]] + acc) * (-dx[lt[k]]) * iv[k];
-        S[r + 1] += acc;
+        S[r] += acc;
       }
       __syncthreads();
     }
-    // (b) pull G back through step(S_{j-1}, dx)
-    for (int r = tid; r < q.W; r += nt) {
-      float bb = Gc[r + 1];
-      if (bb == 0.f) continue;  // a zero cotangent pulls nothing back
-      const int n = lengths[r];
-      const int* pr = prefix + (size_t)r * D;
-      const int* lt = letters + (size_t)r * D;
-      const float* iv = inv + (size_t)r * D;
-      float p[MAXD], c[MAXD];
-      float acc = 0.f;
+    // (b) the forward chain Q at (S_{j-1}, dx), levelwise
+    for (int k = 1; k < N; ++k) {
+      const int lo = q.lo[k], rows = q.lo[k + 1] - lo;
+      const int plo = q.lo[k - 1], prows = lo - plo;
+      for (int w = lo + t; w < lo + rows; w += T) {
+        const int u = parent[w];
+        const float xi = dx[letter[w]], sw = S[w];
+        const float* qu = Q + q.coff[k - 1] + (u - plo);
+        float* qw = Q + q.coff[k] + (w - lo);
 #pragma unroll
-      for (int k = 0; k < MAXD; ++k) {
-        if (k < n) {
-          p[k] = S[pr[k]] + acc;
-          c[k] = dx[lt[k]] * iv[k];
-          acc = p[k] * c[k];
+        for (int s = 0; s < MAXD - 1; ++s) {
+          if (s < N - k) {
+            // target n = k+1+s: the parent's value for n is its slot s+1
+            const float pq = k == 1 ? 1.f : qu[(s + 1) * prows];
+            qw[s * rows] = sw + pq * xi * q.inv[s + 2];
+          }
         }
       }
+      __syncthreads();
+    }
+    // (c) the pull-back, each parent from its children, top level first
+    for (int k = N - 1; k >= 1; --k) {
+      const int lo = q.lo[k], rows = q.lo[k + 1] - lo;
+      const int clo = q.lo[k + 1], crows = q.lo[k + 2] - clo;
+      const int ns = N - k;  // targets n = k+1..N
+      for (int w = lo + t; w < lo + rows; w += T) {
+        float qs[MAXD], acc[MAXD];
+        const float* qw = Q + q.coff[k] + (w - lo);
 #pragma unroll
-      for (int k = MAXD - 1; k >= 0; --k) {
-        if (k < n) {
-          atomicAdd(&gdx[lt[k]], bb * p[k] * iv[k]);
-          bb *= c[k];
-          if (k > 0) atomicAdd(&Gn[pr[k]], bb);
+        for (int s = 0; s < MAXD; ++s) {
+          qs[s] = s < ns ? qw[s * rows] * q.inv[s + 1] : 0.f;
+          acc[s] = 0.f;
+        }
+        const int c1 = child[w + 1];
+        for (int c = child[w]; c < c1; ++c) {
+          const float xl = dx[letter[c]];
+          const float g0 = G[c];
+          float gvc = g0 * qs[0];
+          acc[0] += g0 * xl;
+          if (ns > 1) {  // the child keeps cot for targets k+2..N
+            const float* cc = C + q.coff[k + 1] + (c - clo);
+            float gsum = 0.f;
+#pragma unroll
+            for (int s = 1; s < MAXD; ++s) {
+              if (s < ns) {
+                const float tv = cc[(s - 1) * crows];
+                gsum += tv;
+                gvc += tv * qs[s];
+                acc[s] += tv * xl;
+              }
+            }
+            G[c] = g0 + gsum;
+          }
+          gv[gv_pos[c]] = gvc;
+        }
+        if (k > 1) {
+          float* cw = C + q.coff[k] + (w - lo);
+#pragma unroll
+          for (int s = 0; s < MAXD; ++s)
+            if (s < ns) cw[s * rows] = acc[s] * q.inv[s + 1];
+        } else {  // level 1: the parent is eps, whose Q is 1
+          const float g0 = G[w];
+          float gvw = g0, gsum = 0.f;
+#pragma unroll
+          for (int s = 0; s < MAXD; ++s) {
+            if (s < ns) {
+              const float cv = acc[s] * q.inv[s + 1];
+              gsum += cv;
+              gvw += cv * q.inv[s + 2];
+            }
+          }
+          G[w] = g0 + gsum;
+          gv[gv_pos[w]] = gvw;
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
-    // (c) the step's increment gradient
-    float* gj = gx + ((size_t)b * q.M + j) * q.d;
-    for (int i = tid; i < q.d; i += nt) {
-      gj[i] = gdx[i];
-      gdx[i] = 0.f;
+    if (N == 1) {  // every row is a letter: gv is G
+      for (int r = 1 + t; r <= W; r += T) gv[gv_pos[r]] = G[r];
+      __syncthreads();
     }
-    float* t = Gc;
-    Gc = Gn;
-    Gn = t;
+    // (d) g_dx by letter, a warp a letter, in a fixed order
+    float* gj = gx + ((size_t)b * q.M + j) * d;
+    for (int i = warp; i < d; i += nwarps) {
+      float sum = 0.f;
+      const int m1 = letter_off[i + 1];
+      for (int m = letter_off[i] + lane; m < m1; m += 32) sum += gv[m];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0 && live) gj[i] = sum;
+    }
   }
 }
 
 template <int MAXD>
-cudaError_t launch(const void* const* a, void* scratch, void* gx, int B,
-                   int threads, size_t smem, const SweepGeom& q,
+cudaError_t launch(const void* const* a, void* scratch, void* gx,
+                   int blocks, int block, size_t smem, const LevelGeom& q,
                    cudaStream_t st) {
-  if (threads > Bounds<MAXD>::threads) return cudaErrorInvalidValue;
+  if (block > Bounds<MAXD>::threads) return cudaErrorInvalidValue;
   auto kern = sweep_kernel<MAXD>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<B, threads, smem, st>>>(
+  kern<<<blocks, block, smem, st>>>(
       static_cast<const float*>(a[0]), static_cast<const float*>(a[1]),
       static_cast<const float*>(a[2]), static_cast<const int*>(a[3]),
-      static_cast<const int*>(a[4]), static_cast<const float*>(a[5]),
+      static_cast<const int*>(a[4]), static_cast<const int*>(a[5]),
       static_cast<const int*>(a[6]), static_cast<const int*>(a[7]),
       static_cast<const int*>(a[8]), static_cast<const int*>(a[9]),
-      static_cast<float*>(scratch),
-      static_cast<float*>(gx), q);
+      static_cast<const int*>(a[10]), static_cast<const int*>(a[11]),
+      static_cast<const float*>(a[12]), static_cast<const int*>(a[13]),
+      static_cast<float*>(scratch), static_cast<float*>(gx), q);
   return cudaGetLastError();
 }
 
@@ -188,39 +274,64 @@ cudaError_t launch(const void* const* a, void* scratch, void* gx, int B,
 // x: (B, M, d) fp32 increments; s_t: (B, W) fp32 terminal closure
 // coefficients (rows 1..W of the state); g: (B, n_emit, n_out) fp32
 // cotangents of the emitted steps (n_emit = 1 for the terminal cell).
-// prefix, letters: (W, depth) int32 state rows (0 = eps) and letters of
-// each closure row's links; inv: (W, depth) fp32 1/(len - k); lengths:
-// (W,) int32, rows level-major; level_off: (depth + 1,) int32, the first
-// row of each length; out_rows: (n_out,) int32 state rows of the
-// cotangent's words; slots: (M,) int32 the cotangent slot added at each
-// step, -1 where none (kernels/sig_sweep.py::emit_slot_table).  scratch: (B, 3, W + 1) fp32 when the
-// state does not fit shared memory, else null.  gx: (B, M, d) fp32.  A
-// block takes 4·(2d + 3(W + 1)) bytes of dynamic shared memory (4·2d with
-// a scratch).  Returns the cudaError_t of the launch (0 on success).
-extern "C" int sig_sweep_launch(const void* x, const void* s_t, const void* g,
-                                const void* prefix, const void* letters,
-                                const void* inv, const void* lengths,
-                                const void* level_off, const void* out_rows,
-                                const void* slots, void* scratch, void* gx,
-                                int B, int M, int d, int W, int depth,
-                                int n_out, int n_emit, int threads,
-                                void* stream) {
+// The tables of kernels/sig_sweep.py::level_tables, over state rows 0..W:
+// parent, letter (W + 1,); child (lo[depth] + 1,); gv_pos (W + 1,);
+// letter_off (d + 1,); col_off (W + 2,); cols (n_out,); and of
+// sweep_tables: prefix, letters (W, depth) int32 and inv (W, depth) fp32.
+// slots: (M,) int32 the cotangent slot added at each step, -1 where none
+// (emit_slot_table).  lo (depth + 2,) and coff (depth + 1,): host int32
+// arrays, the first state row and the first chain value of each level.
+// scratch: (blocks·E, ex_floats) fp32 when the state does not fit shared
+// memory, else null.  gx: (B, M, d) fp32.  T threads an example, E
+// examples a block.  A block takes 4·E·(d + ex_floats) bytes of dynamic
+// shared memory (4·E·d with a scratch).  Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int sig_sweep_launch(
+    const void* x, const void* s_t, const void* g, const void* parent,
+    const void* letter, const void* child, const void* gv_pos,
+    const void* letter_off, const void* col_off, const void* cols,
+    const void* prefix, const void* letters, const void* inv,
+    const void* slots, void* scratch, void* gx, int B, int M, int d, int W,
+    int depth, int n_out, int n_emit, int T, int E, const int* lo,
+    const int* coff, int ex_floats, void* stream) {
   if (B < 1 || M < 1 || d < 1 || W < 1 || n_out < 1 || n_emit < 1 ||
-      depth < 1 || depth > SS_MAX_DEPTH || threads < 1)
+      depth < 1 || depth > SS_MAX_DEPTH || T < 32 || T % 32 || E < 1)
     return (int)cudaErrorInvalidValue;
-  SweepGeom q;
+  LevelGeom q;
+  q.B = B;
   q.M = M;
   q.d = d;
   q.W = W;
   q.depth = depth;
   q.n_out = n_out;
   q.n_emit = n_emit;
+  q.T = T;
+  q.E = E;
+  q.ex_floats = ex_floats;
+  for (int k = 0; k <= SS_MAX_DEPTH + 1; ++k) {
+    q.lo[k] = k <= depth + 1 ? lo[k] : W + 1;
+    q.inv[k] = k ? 1.f / k : 0.f;
+  }
+  for (int k = 0; k <= SS_MAX_DEPTH; ++k)
+    q.coff[k] = k <= depth ? coff[k] : coff[depth];
+  const int chain = coff[depth];
+  q.s_off = 0;
+  q.g_off = lo[depth];
+  q.gv_off = q.g_off + W + 1;
+  q.r_off = q.gv_off + W;
+  q.q_off = q.r_off + chain;
+  q.c_off = q.q_off + chain;
+  if (q.c_off + chain != ex_floats) return (int)cudaErrorInvalidValue;
+  const int blocks = (B + E - 1) / E;
   const size_t smem =
-      sizeof(float) * (2 * (size_t)d + (scratch ? 0 : 3 * ((size_t)W + 1)));
-  const void* a[10] = {x, s_t, g, prefix, letters, inv, lengths, level_off,
-                       out_rows, slots};
+      sizeof(float) * (size_t)E * (d + (scratch ? 0 : (size_t)ex_floats));
+  const void* a[14] = {x,        s_t,        g,       parent, letter,
+                       child,    gv_pos,     letter_off, col_off, cols,
+                       prefix,   letters,    inv,     slots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (depth <= 4) return (int)launch<4>(a, scratch, gx, B, threads, smem, q, st);
-  if (depth <= 8) return (int)launch<8>(a, scratch, gx, B, threads, smem, q, st);
-  return (int)launch<16>(a, scratch, gx, B, threads, smem, q, st);
+  if (depth <= 4)
+    return (int)launch<4>(a, scratch, gx, blocks, T * E, smem, q, st);
+  if (depth <= 8)
+    return (int)launch<8>(a, scratch, gx, blocks, T * E, smem, q, st);
+  return (int)launch<16>(a, scratch, gx, blocks, T * E, smem, q, st);
 }

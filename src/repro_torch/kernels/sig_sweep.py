@@ -40,6 +40,15 @@ from .cache import plan_cache
 # opt-in maximum, 232,448 bytes, less a margin)
 SMEM_BUDGET = 232_448 - 1024
 MAX_DEPTH = 16        # SS_MAX_DEPTH
+DEPTH_SLOTS = (4, 8, 16)   # chain slots a thread holds: the instances
+MAX_BLOCK = {4: 1024, 8: 1024, 16: 512}   # most threads a block, by slots
+REDUCE_WARPS = 8      # the planner's warps for the g_dx reduction
+MIN_BLOCK = 128       # examples share a block only below this many threads
+SMS = 132             # streaming multiprocessors of an H100 SXM
+SM_THREADS = 2048     # resident threads an SM
+SM_BLOCKS = 32        # resident blocks an SM
+SM_SMEM = 233_472     # shared memory an SM gives its blocks (228 KB)
+SMEM_RESERVED = 1024  # the runtime's shared memory a block
 
 # launch counter, bumped where the kernel is launched
 launches = 0
@@ -47,7 +56,8 @@ launches = 0
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SweepTables:
-    """The kernel's tables of a prefix-closed plan, rows level-major."""
+    """Per-row link tables of a prefix-closed plan, rows level-major (the
+    plain step's layout: each row's whole chain of prefixes)."""
     prefix: np.ndarray     # (W, depth) int32 state rows of the links, 0 = eps
     letters: np.ndarray    # (W, depth) int32
     inv: np.ndarray        # (W, depth) float32, 1/(len - k); 0 past len
@@ -73,13 +83,6 @@ def sweep_tables(plan: WordPlan) -> SweepTables:
         out_rows=np.ascontiguousarray(plan.out_rows, np.int32))
 
 
-@plan_cache
-def _tables_on(plan: WordPlan, device: torch.device) -> list[torch.Tensor]:
-    t = sweep_tables(plan)
-    return [torch.as_tensor(a, device=device) for a in (
-        t.prefix, t.letters, t.inv, t.lengths, t.level_off, t.out_rows)]
-
-
 def sweep_geometry(W: int, d: int, depth: int) -> tuple[int, int, bool]:
     """(threads, shared-memory bytes, state in shared memory) of a launch
     over a closure of W rows: a thread a row up to the instance's most
@@ -95,6 +98,77 @@ def sweep_geometry(W: int, d: int, depth: int) -> tuple[int, int, bool]:
     if smem <= SMEM_BUDGET:
         return threads, smem, True
     return threads, 4 * 2 * d, False
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LevelTables:
+    """The levelwise tables of a prefix-closed plan over its state rows
+    0..W (row 0 = eps), level-major as the closure is.  Level k holds rows
+    lo[k]..lo[k+1]-1.  A row w below the top level has the children
+    child[w]..child[w+1]-1, one contiguous range of the next level (the
+    closure sorts each level by word).  Level k < depth keeps chain values
+    (R, Q and the cotangent) for each target n = k+1..depth, target-major:
+    row w's value for n sits at chain_off[k] + (n-k-1)·rows_k + w - lo[k].
+    """
+    d: int
+    depth: int
+    lo: np.ndarray          # (depth + 2,) int32, lo[depth + 1] = W + 1
+    parent: np.ndarray      # (W + 1,) int32 state row of the parent, 0 = eps
+    letter: np.ndarray      # (W + 1,) int32 last letter (0 at eps)
+    child: np.ndarray       # (lo[depth] + 1,) int32 first child of each row
+    chain_off: np.ndarray   # (depth + 1,) int32, chain_off[depth] = size
+    # rows grouped by last letter: the g_dx reduction reads slots
+    # letter_off[i]..letter_off[i+1]-1 of the letter-major gv buffer, where
+    # row r writes slot gv_pos[r]
+    gv_pos: np.ndarray      # (W + 1,) int32 (0 at eps)
+    letter_off: np.ndarray  # (d + 1,) int32
+    # cotangent columns of each row, ascending (a repeated word sums in
+    # column order): row r adds columns cols[col_off[r]:col_off[r+1]]
+    col_off: np.ndarray     # (W + 2,) int32
+    cols: np.ndarray        # (n_out,) int32
+
+    @property
+    def W(self) -> int:
+        return int(self.lo[-1]) - 1
+
+    @property
+    def chain_size(self) -> int:
+        return int(self.chain_off[-1])
+
+    def rows(self, k: int) -> int:
+        return int(self.lo[k + 1] - self.lo[k])
+
+
+@plan_cache
+def level_tables(plan: WordPlan) -> LevelTables:
+    """The levelwise tables of ``plan``'s closure (raises as
+    :func:`sweep_tables`)."""
+    t = sweep_tables(plan)
+    N, W, d = plan.depth, plan.closure_size, plan.d
+    lo = np.concatenate([[0], 1 + t.level_off, [W + 1]]).astype(np.int32)
+    parent = np.zeros(W + 1, np.int32)
+    letter = np.zeros(W + 1, np.int32)
+    rows = np.arange(W)
+    last = t.lengths - 1
+    parent[1:] = np.where(last > 0, t.prefix[rows, last], 0)
+    letter[1:] = t.letters[rows, last]
+    # each row's first child: parents are ascending along the rows
+    child = np.searchsorted(parent[lo[1]:], np.arange(lo[N] + 1),
+                            side="left").astype(np.int32) + lo[1]
+    child[0] = lo[1]
+    sizes = [(lo[k + 1] - lo[k]) * (N - k) for k in range(1, N)]
+    chain_off = np.concatenate([[0, 0], np.cumsum(sizes)]).astype(np.int32)
+    order = np.argsort(letter[1:], kind="stable") + 1
+    gv_pos = np.zeros(W + 1, np.int32)
+    gv_pos[order] = np.arange(W, dtype=np.int32)
+    letter_off = np.searchsorted(letter[order], np.arange(d + 1),
+                                 side="left").astype(np.int32)
+    cols = np.argsort(t.out_rows, kind="stable").astype(np.int32)
+    col_off = np.searchsorted(t.out_rows[cols], np.arange(W + 2),
+                              side="left").astype(np.int32)
+    return LevelTables(d=d, depth=N, lo=lo, parent=parent, letter=letter,
+                       child=child, chain_off=chain_off, gv_pos=gv_pos,
+                       letter_off=letter_off, col_off=col_off, cols=cols)
 
 
 @plan_cache
@@ -179,46 +253,195 @@ def sig_sweep_plain(increments: torch.Tensor, plan: WordPlan,
     return gdx
 
 
+def depth_slots(depth: int) -> int:
+    """The kernel instance (chain slots a thread holds) for ``depth``."""
+    if depth > MAX_DEPTH:
+        raise ValueError(f"words of length {depth} exceed the kernel's "
+                         f"MAX_DEPTH {MAX_DEPTH}")
+    return next(s for s in DEPTH_SLOTS if depth <= s)
+
+
+def example_floats(lt: LevelTables) -> int:
+    """Floats of one example's sweep state: S below the top level (the top
+    level's S is never read), G for every state row, the letter-major gv,
+    and the R, Q and cotangent chain values."""
+    return int(lt.lo[lt.depth]) + (lt.W + 1) + lt.W + 3 * lt.chain_size
+
+
+def stage_floats(lt: LevelTables) -> int:
+    """Floats of one example's staged increments."""
+    return lt.d
+
+
+def step_phases(depth: int) -> int:
+    """Dependent phases of one reverse step: staging the increment and the
+    cotangent, the inverse step and the forward chain Q levelwise, the
+    pull-back levelwise (a barrier after each), then the g_dx reduction."""
+    return 1 + 3 * (depth - 1) + (depth == 1) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepLaunch:
+    """A partition of the levelwise sweep."""
+    threads: int     # an example's threads, a multiple of 32
+    examples: int    # examples a block
+    in_smem: bool    # the state in shared memory, else a device scratch
+    slots: int       # the instance's chain slots (DEPTH_SLOTS)
+    smem: int        # dynamic shared-memory bytes a block
+    blocks: int
+    phases: int      # dependent phases a step
+
+    @property
+    def block(self) -> int:
+        return self.threads * self.examples
+
+
+def _warps(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def widest_level(lt: LevelTables) -> int:
+    """The most rows a phase walks: the widest level below the top (the
+    inverse step, the chains and the pull-back's parents), or the top
+    level when it is the only one."""
+    N = lt.depth
+    return max(lt.rows(k) for k in range(1, max(N, 2)))
+
+
+def resident_blocks(block: int, smem: int) -> int:
+    """Blocks of ``block`` threads and ``smem`` bytes the card holds at
+    once."""
+    by_smem = SM_SMEM // max(smem + SMEM_RESERVED, 1)
+    return SMS * max(0, min(SM_BLOCKS, SM_THREADS // block, by_smem))
+
+
+@plan_cache
+def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
+                      examples: int | None = None,
+                      in_smem: bool | None = None) -> SweepLaunch:
+    """The kernel's partition for a (B, ·, d) batch over ``plan``'s closure.
+
+    An example gets a thread for each row of its widest level
+    (:func:`widest_level`) and a warp for each letter of the g_dx
+    reduction up to ``REDUCE_WARPS``, rounded to warps, within the
+    instance's most threads; its state sits in shared memory while it fits
+    ``SMEM_BUDGET``, else in a device-memory scratch.  Examples share a
+    block only while the batch exceeds the blocks the card holds at once
+    and the block stays within ``MIN_BLOCK`` threads.  ``threads``,
+    ``examples`` and ``in_smem`` force the partition (``in_smem=True``
+    raises where the state does not fit)."""
+    lt = level_tables(plan)
+    slots = depth_slots(plan.depth)
+    cap = MAX_BLOCK[slots]
+    if threads is None:
+        T = min(cap, max(_warps(widest_level(lt)),
+                         32 * min(lt.d, REDUCE_WARPS)))
+    elif threads % 32 or not 32 <= threads <= cap:
+        raise ValueError(f"threads must be a multiple of 32 in [32, {cap}],"
+                         f" got {threads}")
+    else:
+        T = threads
+    state = 4 * example_floats(lt)
+    stage = 4 * stage_floats(lt)
+    fits = state + stage <= SMEM_BUDGET
+    if in_smem is None:
+        in_smem = fits
+    elif in_smem and not fits:
+        raise ValueError(f"an example's state needs {state + stage} bytes, "
+                         f"above the {SMEM_BUDGET} a block may take")
+    ex = (state if in_smem else 0) + stage
+    most = min(cap // T, SMEM_BUDGET // ex)
+    if examples is None:
+        e = 1
+        while (2 * e <= most and 2 * e * T <= MIN_BLOCK
+               and -(-B // e) > resident_blocks(e * T, e * ex)):
+            e *= 2
+    elif not 1 <= examples <= most:
+        raise ValueError(f"{examples} examples a block do not fit ({T} "
+                         f"threads and {ex} bytes each; at most {most})")
+    else:
+        e = examples
+    return SweepLaunch(threads=T, examples=e, in_smem=in_smem, slots=slots,
+                       smem=e * ex, blocks=-(-B // e),
+                       phases=step_phases(plan.depth))
+
+
+def partition_variants(B: int, plan: WordPlan) -> list[SweepLaunch]:
+    """Every partition the planner can choose for a (B, ·, d) batch: its
+    own; one warp an example and the instance's most threads; the state in
+    shared memory (where it fits) and in a device-memory scratch, each
+    with one example a block, two, and the most that fit (at most B).
+    For tests and chip_smoke.py."""
+    own = plan_sweep_launch(B, plan)
+    cap = MAX_BLOCK[own.slots]
+    plans = [own, plan_sweep_launch(B, plan, threads=32),
+             plan_sweep_launch(B, plan, threads=cap)]
+    for where in dict.fromkeys((own.in_smem, False)):
+        one = plan_sweep_launch(B, plan, in_smem=where, examples=1)
+        most = min(cap // one.threads, SMEM_BUDGET // one.smem, B)
+        plans += [plan_sweep_launch(B, plan, in_smem=where, examples=e)
+                  for e in sorted({1, min(2, most), most})]
+    return list(dict.fromkeys(plans))
+
+
+@plan_cache
+def _level_tables_on(plan: WordPlan,
+                     device: torch.device) -> list[torch.Tensor]:
+    lt = level_tables(plan)
+    t = sweep_tables(plan)
+    return [torch.as_tensor(a, device=device) for a in (
+        lt.parent, lt.letter, lt.child, lt.gv_pos, lt.letter_off,
+        lt.col_off, lt.cols, t.prefix, t.letters, t.inv)]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("sig_sweep")
     fn = lib.sig_sweep_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 8 + [p]
+        fn.argtypes = [p] * 16 + [i] * 9 + [p] * 2 + [i] + [p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def _launch(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
-            g: torch.Tensor, stride: int) -> torch.Tensor:
+            g: torch.Tensor, stride: int,
+            launch: SweepLaunch | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors, B, M >= 1; ``stride`` 0 is the
-    terminal cell.  Returns the fp32 (B, M, d) gradient."""
+    terminal cell; ``launch`` forces a partition (default the planner's).
+    Returns the fp32 (B, M, d) gradient."""
     global launches
     B, M, d = increments.shape
-    W, depth = plan.closure_size, plan.depth
-    threads, _, in_smem = sweep_geometry(W, d, depth)
+    p = launch or plan_sweep_launch(B, plan)
+    lt = level_tables(plan)
     dev = increments.device
     x = increments.detach().float().contiguous()
     s = S_T.detach().float().contiguous()
     gg = g.detach().float().contiguous()
-    tabs = _tables_on(plan, dev)
+    tabs = _level_tables_on(plan, dev)
     slots = _slots_on(M, stride, dev)
     n_emit = -(-M // stride) if stride else 1
-    scratch = None if in_smem else torch.empty(
-        (B, 3, W + 1), dtype=torch.float32, device=dev)
+    scratch = None if p.in_smem else torch.empty(
+        (p.blocks * p.examples, example_floats(lt)), dtype=torch.float32,
+        device=dev)
     gx = torch.empty((B, M, d), dtype=torch.float32, device=dev)
+    lo = np.ascontiguousarray(lt.lo, np.int32)
+    coff = np.ascontiguousarray(lt.chain_off, np.int32)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.sig_sweep_launch(
             x.data_ptr(), s.data_ptr(), gg.data_ptr(),
             *(t.data_ptr() for t in tabs), slots.data_ptr(),
             None if scratch is None else scratch.data_ptr(), gx.data_ptr(),
-            B, M, d, W, depth, len(plan.words), n_emit, threads,
+            B, M, d, plan.closure_size, plan.depth, len(plan.words), n_emit,
+            p.threads, p.examples, lo.ctypes.data, coff.ctypes.data,
+            example_floats(lt),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"sig_sweep kernel launch failed with cudaError "
-                           f"{err} (B={B}, M={M}, d={d}, W={W}, depth="
-                           f"{depth}, stride={stride}, threads={threads})")
+                           f"{err} (B={B}, M={M}, d={d}, W="
+                           f"{plan.closure_size}, depth={plan.depth}, "
+                           f"stride={stride}, {p})")
     launches += 1
     return gx
 

@@ -500,3 +500,67 @@ def test_sweep_kernel_repeated_words_and_no_steps(cuda):
     ss.launches = 0
     assert not ss.sig_sweep(x[:, :0], plan, S_T, co[:, 0]).any()
     assert ss.launches == 0
+
+
+# every partition of the levelwise sweep at ragged shapes: truncation
+# closures (shared memory and, at (10, 5) and (40, 3), the device-memory
+# scratch), ragged word sets with rows that have no children below the top
+# level, and a repeated word
+SWEEP_PLANS = [("trunc", 3, 4), ("trunc", 1, 16), ("trunc", 6, 5),
+               ("trunc", 10, 5), ("trunc", 40, 3), ("words", 4, SPARSE),
+               ("words", 3, [(0,), (1, 2, 0, 1, 2), (2,), (2, 2)])]
+
+
+def _sweep_plan(kind, d, arg):
+    from repro_torch.core.signature import truncation_closure
+    return truncation_closure(d, arg) if kind == "trunc" \
+        else tw.make_plan(arg, d)
+
+
+def _sweep_inputs(plan, B, M, stride, device, seed):
+    x = _incs(seed, B, M, plan.d, device)
+    S_T = torch.randn(B, plan.closure_size, dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(seed)) * 0.1
+    shape = (B, -(-M // stride), len(plan.words)) if stride \
+        else (B, len(plan.words))
+    co = torch.randn(shape, dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(seed + 1))
+    return x, S_T.to(device), co.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [0, 3])
+@pytest.mark.parametrize("k", range(len(SWEEP_PLANS)))
+def test_sweep_every_partition_matches_plain(cuda, k, stride):
+    """Each partition the planner can choose (its own, one warp and the
+    most threads an example, shared memory or scratch, the most examples a
+    block), forced, at a batch that leaves the last block's examples
+    spare: |err| <= 1e-3·|g| + 1e-4·max|g| against the float64 plain
+    sweep, as the kernel's other tests."""
+    from repro_torch.kernels import sig_sweep as ss
+    plan = _sweep_plan(*SWEEP_PLANS[k])
+    B = 3 if plan.closure_size > 20_000 else 7
+    x, S_T, co = _sweep_inputs(plan, B, 11, stride, cuda, k)
+    want = ss.sig_sweep_plain(x.double(), plan, S_T, co, stream=bool(stride),
+                              stream_stride=stride or 1)
+    variants = ss.partition_variants(B, plan)
+    assert {p.in_smem for p in variants} >= {False}
+    for p in variants:
+        got = ss._launch(x, plan, S_T.float(), co.float(), stride, p)
+        torch.cuda.synchronize()
+        err = (got.double() - want).abs()
+        assert bool((err <= 1e-3 * want.abs()
+                     + 1e-4 * want.abs().max()).all()), (p, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(SWEEP_PLANS)))
+def test_sweep_two_runs_are_bitwise_equal(cuda, k):
+    """No atomics: every partition gives the same bits on a second run."""
+    from repro_torch.kernels import sig_sweep as ss
+    plan = _sweep_plan(*SWEEP_PLANS[k])
+    x, S_T, co = _sweep_inputs(plan, 5, 9, 2, cuda, 50 + k)
+    for p in ss.partition_variants(5, plan):
+        a = ss._launch(x, plan, S_T.float(), co.float(), 2, p)
+        assert torch.equal(a, ss._launch(x, plan, S_T.float(), co.float(),
+                                         2, p)), p
