@@ -21,13 +21,16 @@
 //   S'[w] = S[w] + C^k[w].
 // For every step j from M down to 1, from the terminal state S_T and the
 // cotangents (G, over the rows):
-//  (a) the inverse step S_{j-1} = step(S_j, -dx_j), top-down over the
-//      levels, one barrier a level: a word's new value reads only its
-//      shorter prefixes, which still hold S_j (paper Prop. 4.6);
-//  (b) the forward chain at (S_{j-1}, dx_j), levelwise and shared by every
-//      prefix, one barrier a level:
-//        Q^n[w] = S_{j-1}[w] + Q^n[u] dx_i / (n-k+1),  Q^n[eps] = 1;
-//  (c) the pull-back, levelwise from the top, one barrier a level.  The
+//  (a) one ascending pass over the levels below the top, one barrier a
+//      level, that is both the inverse step S_{j-1} = step(S_j, -dx_j)
+//      (paper Prop. 4.6) and the forward chain at (S_{j-1}, dx_j): row w
+//      reads its parent's chain values and, in place,
+//        R^n[w] = S_j[w] - R^n[u] dx_i / (n-k+1),  R^n[eps] = 1,
+//        S_{j-1}[w] = S_j[w] - R^k[u] dx_i,
+//        Q^n[w] = S_{j-1}[w] + Q^n[u] dx_i / (n-k+1),  Q^n[eps] = 1,
+//      for the targets n > k (R only below the top level: the top level's
+//      S is never read);
+//  (b) the pull-back, levelwise from the top, one barrier a level.  The
 //      cotangent of C^n[w] is cot^k[w] = G[w] and, for n > k,
 //        cot^n[w] = sum over children c of cot^n[c] dx_letter(c) / (n-k);
 //      the identity term gives G_{j-1}[w] = G[w] + sum_{n>k} cot^n[w], and
@@ -37,11 +40,14 @@
 //      The thread that owns a parent pulls from its children (their G and
 //      cot, read before it writes their new G): no two threads write one
 //      address, so no atomics, and two runs are bitwise equal;
-//  (d) g_dx by letter: a warp a letter sums that letter's gv slots (a host
+//  (c) g_dx by letter: a warp a letter sums that letter's gv slots (a host
 //      table groups them) with shuffles, in a fixed order, straight into
 //      row j of the (B, M, d) gradient.
 // Only rows below the top level are ever read as prefixes, so S and the
-// chain values R, Q and cot are kept for those only.  Streamed cotangents
+// chain values R, Q and cot are kept for those only.  The increments and
+// the slot table are staged a chunk of SS_CHUNK steps ahead into shared
+// memory, double-buffered, so a step loads nothing from device memory
+// but its cotangent, and the step's first barrier is the first level's.  Streamed cotangents
 // enter as in the reference: at each emitted step (stride-1, 2 stride-1,
 // ..., and M-1, from the host's slot table) each row adds its cotangent
 // columns (a host table, ascending, so a repeated word sums in a fixed
@@ -57,7 +63,7 @@
 // batch below the card's SMs the time is the phases' latency.
 //
 // What the design does about it.  The work a step is the levelwise
-// count, with no atomics; an example's state (S, G, gv and the chain
+// count, with no atomics, in 2N - 1 dependent phases (N the depth); an example's state (S, G, gv and the chain
 // buffers) sits in shared memory while it fits (kernels/sig_sweep.py::
 // plan_sweep_launch), else in a per-example scratch in device memory with
 // the same code; an example gets a thread for each row of its widest
@@ -70,6 +76,7 @@
 #include <stddef.h>
 
 #define SS_MAX_DEPTH 16
+#define SS_CHUNK 32
 
 namespace {
 
@@ -89,16 +96,33 @@ template <int MAXD> struct Bounds {
   static constexpr int threads = MAXD <= 8 ? 1024 : 512;
 };
 
+// Stage chunk c (steps M-1-c·SS_CHUNK downwards) of this example's
+// increments, and (by example 0's threads) of the slot table, into
+// buffer c & 1.
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ xb,
+                                            const int* __restrict__ slots,
+                                            float* xs, int* ss, int c, int M,
+                                            int d, int t, int T, bool first) {
+  const int top = M - 1 - c * SS_CHUNK;
+  if (top < 0) return;
+  const int steps = min(SS_CHUNK, top + 1);
+  float* xd = xs + (c & 1) * SS_CHUNK * d;
+  // position p holds step top - p
+  for (int e = t; e < steps * d; e += T) {
+    const int p = e / d, i = e - p * d;
+    xd[e] = xb[(size_t)(top - p) * d + i];
+  }
+  if (first)
+    for (int p = t; p < steps; p += T) ss[(c & 1) * SS_CHUNK + p] = slots[top - p];
+}
+
 template <int MAXD>
 __global__ void __launch_bounds__(Bounds<MAXD>::threads)
 sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
-             const float* __restrict__ g, const int* __restrict__ parent,
-             const int* __restrict__ letter, const int* __restrict__ child,
-             const int* __restrict__ gv_pos,
+             const float* __restrict__ g, const int2* __restrict__ up,
+             const int2* __restrict__ down, const int* __restrict__ child,
              const int* __restrict__ letter_off,
              const int* __restrict__ col_off, const int* __restrict__ cols,
-             const int* __restrict__ prefix, const int* __restrict__ letters,
-             const float* __restrict__ inv_tab,
              const int* __restrict__ slots, float* __restrict__ scratch,
              float* __restrict__ gx, LevelGeom q) {
   extern __shared__ float smem[];
@@ -107,26 +131,34 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
   const int cell = blockIdx.x * q.E + ex;  // this example's state slot
   const bool live = cell < q.B;
   const int b = live ? cell : q.B - 1;     // spare examples read the last
-  float* dx = smem + ex * d;
+  int* ss = reinterpret_cast<int*>(smem);  // 2 SS_CHUNK slots
+  float* xs = smem + 2 * SS_CHUNK + ex * 2 * SS_CHUNK * d;
   float* base = scratch ? scratch + (size_t)cell * q.ex_floats
-                        : smem + q.E * d + (size_t)ex * q.ex_floats;
+                        : smem + 2 * SS_CHUNK * (1 + q.E * d) +
+                              (size_t)ex * q.ex_floats;
   float* S = base + q.s_off;
   float* G = base + q.g_off;
   float* gv = base + q.gv_off;
+  float* R = base + q.r_off;
   float* Q = base + q.q_off;
   float* C = base + q.c_off;
-  const int lo_top = q.lo[N];
+  const float* xb = x + (size_t)b * q.M * d;
   const float* sb = s_t + (size_t)b * W;
-  for (int r = t; r < lo_top; r += T) S[r] = r ? sb[r - 1] : 1.f;
+  for (int r = t; r < q.lo[N]; r += T) S[r] = r ? sb[r - 1] : 1.f;
   // G by the rows the cotangent adds use (row 0 is never read)
   for (int r = 1 + t; r <= W; r += T) G[r] = 0.f;
+  stage_chunk(xb, slots, xs, ss, 0, q.M, d, t, T, ex == 0);
+  __syncthreads();
   const int lane = t & 31, warp = t >> 5, nwarps = T >> 5;
 
   for (int j = q.M - 1; j >= 0; --j) {
-    // the step's increment, and its cotangent when the step is emitted
-    const float* xj = x + ((size_t)b * q.M + j) * d;
-    for (int i = t; i < d; i += T) dx[i] = xj[i];
-    const int slot = slots[j];
+    const int c = (q.M - 1 - j) / SS_CHUNK, p = (q.M - 1 - j) - c * SS_CHUNK;
+    if (p == 0)  // the next chunk, a chunk ahead
+      stage_chunk(xb, slots, xs, ss, c + 1, q.M, d, t, T, ex == 0);
+    const float* dx = xs + ((c & 1) * SS_CHUNK + p) * d;
+    // the step's cotangent, when the step is emitted, each row's columns
+    // in ascending order
+    const int slot = ss[(c & 1) * SS_CHUNK + p];
     if (slot >= 0) {
       const float* gs = g + ((size_t)b * q.n_emit + slot) * q.n_out;
       for (int r = 1 + t; r <= W; r += T) {
@@ -137,41 +169,43 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
         G[r] = a;
       }
     }
-    __syncthreads();
-    // (a) S_{j-1} = step(S_j, -dx) in place, longest words first
-    for (int n = N - 1; n >= 1; --n) {
-      for (int r = q.lo[n] + t; r < q.lo[n + 1]; r += T) {
-        const int* pr = prefix + (size_t)(r - 1) * N;
-        const int* lt = letters + (size_t)(r - 1) * N;
-        const float* iv = inv_tab + (size_t)(r - 1) * N;
-        float acc = 0.f;
-        for (int k = 0; k < n; ++k)
-          acc = (S[pr[k]] + acc) * (-dx[lt[k]]) * iv[k];
-        S[r] += acc;
-      }
+    if (N == 1) {  // every row is a letter: gv is G, once the last
+      __syncthreads();  // step's reduction has read it
+      for (int r = 1 + t; r <= W; r += T) gv[down[r].x] = G[r];
       __syncthreads();
     }
-    // (b) the forward chain Q at (S_{j-1}, dx), levelwise
+    // (a) S_{j-1} in place, R and Q, levelwise from the first level
     for (int k = 1; k < N; ++k) {
       const int lo = q.lo[k], rows = q.lo[k + 1] - lo;
-      const int plo = q.lo[k - 1], prows = lo - plo;
+      const int prows = lo - q.lo[k - 1];
+      const int ns = N - k;  // targets n = k+1..N
       for (int w = lo + t; w < lo + rows; w += T) {
-        const int u = parent[w];
-        const float xi = dx[letter[w]], sw = S[w];
-        const float* qu = Q + q.coff[k - 1] + (u - plo);
+        const int2 ul = up[w];  // parent's index in its level, letter
+        const float xi = dx[ul.y];
+        const float* ru = R + q.coff[k - 1] + ul.x;
+        const float* qu = Q + q.coff[k - 1] + ul.x;
+        float* rw = R + q.coff[k] + (w - lo);
         float* qw = Q + q.coff[k] + (w - lo);
+        const float so = S[w];
+        const float sn = so - (k == 1 ? 1.f : ru[0]) * xi;
+        S[w] = sn;
 #pragma unroll
         for (int s = 0; s < MAXD - 1; ++s) {
-          if (s < N - k) {
-            // target n = k+1+s: the parent's value for n is its slot s+1
+          if (s < ns) {
+            // target n = k+1+s: the parent's slot s+1, scale 1/(s+2)
+            const float xm = xi * q.inv[s + 2];
             const float pq = k == 1 ? 1.f : qu[(s + 1) * prows];
-            qw[s * rows] = sw + pq * xi * q.inv[s + 2];
+            qw[s * rows] = sn + pq * xm;
+            if (s + 1 < ns) {  // R below the top level only
+              const float pr = k == 1 ? 1.f : ru[(s + 1) * prows];
+              rw[s * rows] = so - pr * xm;
+            }
           }
         }
       }
       __syncthreads();
     }
-    // (c) the pull-back, each parent from its children, top level first
+    // (b) the pull-back, each parent from its children, top level first
     for (int k = N - 1; k >= 1; --k) {
       const int lo = q.lo[k], rows = q.lo[k + 1] - lo;
       const int clo = q.lo[k + 1], crows = q.lo[k + 2] - clo;
@@ -186,7 +220,8 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
         }
         const int c1 = child[w + 1];
         for (int c = child[w]; c < c1; ++c) {
-          const float xl = dx[letter[c]];
+          const int2 dl = down[c];  // gv slot, letter
+          const float xl = dx[dl.y];
           const float g0 = G[c];
           float gvc = g0 * qs[0];
           acc[0] += g0 * xl;
@@ -204,7 +239,7 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
             }
             G[c] = g0 + gsum;
           }
-          gv[gv_pos[c]] = gvc;
+          gv[dl.x] = gvc;
         }
         if (k > 1) {
           float* cw = C + q.coff[k] + (w - lo);
@@ -223,16 +258,12 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
             }
           }
           G[w] = g0 + gsum;
-          gv[gv_pos[w]] = gvw;
+          gv[down[w].x] = gvw;
         }
       }
       __syncthreads();
     }
-    if (N == 1) {  // every row is a letter: gv is G
-      for (int r = 1 + t; r <= W; r += T) gv[gv_pos[r]] = G[r];
-      __syncthreads();
-    }
-    // (d) g_dx by letter, a warp a letter, in a fixed order
+    // (c) g_dx by letter, a warp a letter, in a fixed order
     float* gj = gx + ((size_t)b * q.M + j) * d;
     for (int i = warp; i < d; i += nwarps) {
       float sum = 0.f;
@@ -259,12 +290,10 @@ cudaError_t launch(const void* const* a, void* scratch, void* gx,
   }
   kern<<<blocks, block, smem, st>>>(
       static_cast<const float*>(a[0]), static_cast<const float*>(a[1]),
-      static_cast<const float*>(a[2]), static_cast<const int*>(a[3]),
-      static_cast<const int*>(a[4]), static_cast<const int*>(a[5]),
+      static_cast<const float*>(a[2]), static_cast<const int2*>(a[3]),
+      static_cast<const int2*>(a[4]), static_cast<const int*>(a[5]),
       static_cast<const int*>(a[6]), static_cast<const int*>(a[7]),
       static_cast<const int*>(a[8]), static_cast<const int*>(a[9]),
-      static_cast<const int*>(a[10]), static_cast<const int*>(a[11]),
-      static_cast<const float*>(a[12]), static_cast<const int*>(a[13]),
       static_cast<float*>(scratch), static_cast<float*>(gx), q);
   return cudaGetLastError();
 }
@@ -275,25 +304,24 @@ cudaError_t launch(const void* const* a, void* scratch, void* gx,
 // coefficients (rows 1..W of the state); g: (B, n_emit, n_out) fp32
 // cotangents of the emitted steps (n_emit = 1 for the terminal cell).
 // The tables of kernels/sig_sweep.py::level_tables, over state rows 0..W:
-// parent, letter (W + 1,); child (lo[depth] + 1,); gv_pos (W + 1,);
-// letter_off (d + 1,); col_off (W + 2,); cols (n_out,); and of
-// sweep_tables: prefix, letters (W, depth) int32 and inv (W, depth) fp32.
-// slots: (M,) int32 the cotangent slot added at each step, -1 where none
-// (emit_slot_table).  lo (depth + 2,) and coff (depth + 1,): host int32
-// arrays, the first state row and the first chain value of each level.
-// scratch: (blocks·E, ex_floats) fp32 when the state does not fit shared
-// memory, else null.  gx: (B, M, d) fp32.  T threads an example, E
-// examples a block.  A block takes 4·E·(d + ex_floats) bytes of dynamic
-// shared memory (4·E·d with a scratch).  Returns the cudaError_t of the
-// launch (0 on success).
+// up (W + 1, 2) int32, each row's parent as an index in its level and its
+// last letter; down (W + 1, 2) int32, its gv slot and its last letter;
+// child (lo[depth] + 1,); letter_off (d + 1,); col_off (W + 2,); cols
+// (n_out,).  slots: (M,) int32 the cotangent slot added at each step, -1
+// where none (emit_slot_table).  lo (depth + 2,) and coff (depth + 1,):
+// host int32 arrays, the first state row and the first chain value of each
+// level.  scratch: (blocks·E, ex_floats) fp32 when the state does not fit
+// shared memory, else null.  gx: (B, M, d) fp32.  T threads an example, E
+// examples a block.  A block takes 4·(2·SS_CHUNK·(1 + E·d) + E·ex_floats)
+// bytes of dynamic shared memory (no ex_floats with a scratch).  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int sig_sweep_launch(
-    const void* x, const void* s_t, const void* g, const void* parent,
-    const void* letter, const void* child, const void* gv_pos,
-    const void* letter_off, const void* col_off, const void* cols,
-    const void* prefix, const void* letters, const void* inv,
-    const void* slots, void* scratch, void* gx, int B, int M, int d, int W,
-    int depth, int n_out, int n_emit, int T, int E, const int* lo,
-    const int* coff, int ex_floats, void* stream) {
+    const void* x, const void* s_t, const void* g, const void* up,
+    const void* down, const void* child, const void* letter_off,
+    const void* col_off, const void* cols, const void* slots, void* scratch,
+    void* gx, int B, int M, int d, int W, int depth, int n_out, int n_emit,
+    int T, int E, const int* lo, const int* coff, int ex_floats,
+    void* stream) {
   if (B < 1 || M < 1 || d < 1 || W < 1 || n_out < 1 || n_emit < 1 ||
       depth < 1 || depth > SS_MAX_DEPTH || T < 32 || T % 32 || E < 1)
     return (int)cudaErrorInvalidValue;
@@ -324,10 +352,10 @@ extern "C" int sig_sweep_launch(
   if (q.c_off + chain != ex_floats) return (int)cudaErrorInvalidValue;
   const int blocks = (B + E - 1) / E;
   const size_t smem =
-      sizeof(float) * (size_t)E * (d + (scratch ? 0 : (size_t)ex_floats));
-  const void* a[14] = {x,        s_t,        g,       parent, letter,
-                       child,    gv_pos,     letter_off, col_off, cols,
-                       prefix,   letters,    inv,     slots};
+      sizeof(float) * (2 * SS_CHUNK * (1 + (size_t)E * d) +
+                       (scratch ? 0 : (size_t)E * ex_floats));
+  const void* a[10] = {x,       s_t,     g,    up,   down,
+                       child,   letter_off, col_off, cols, slots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (depth <= 4)
     return (int)launch<4>(a, scratch, gx, blocks, T * E, smem, q, st);

@@ -49,6 +49,7 @@ SM_THREADS = 2048     # resident threads an SM
 SM_BLOCKS = 32        # resident blocks an SM
 SM_SMEM = 233_472     # shared memory an SM gives its blocks (228 KB)
 SMEM_RESERVED = 1024  # the runtime's shared memory a block
+CHUNK = 32            # SS_CHUNK: steps of increments staged at once
 
 # launch counter, bumped where the kernel is launched
 launches = 0
@@ -126,6 +127,10 @@ class LevelTables:
     # column order): row r adds columns cols[col_off[r]:col_off[r+1]]
     col_off: np.ndarray     # (W + 2,) int32
     cols: np.ndarray        # (n_out,) int32
+    # what the kernel loads for a row, 8 bytes at once: (its parent's index
+    # within the parent's level, its letter), and (gv_pos, letter)
+    up: np.ndarray          # (W + 1, 2) int32
+    down: np.ndarray        # (W + 1, 2) int32
 
     @property
     def W(self) -> int:
@@ -166,9 +171,14 @@ def level_tables(plan: WordPlan) -> LevelTables:
     cols = np.argsort(t.out_rows, kind="stable").astype(np.int32)
     col_off = np.searchsorted(t.out_rows[cols], np.arange(W + 2),
                               side="left").astype(np.int32)
+    level = np.searchsorted(lo, np.arange(W + 1), side="right") - 1
+    first = lo[np.maximum(level - 1, 0)]
+    up = np.stack([parent - first, letter], 1).astype(np.int32)
+    down = np.stack([gv_pos, letter], 1).astype(np.int32)
     return LevelTables(d=d, depth=N, lo=lo, parent=parent, letter=letter,
                        child=child, chain_off=chain_off, gv_pos=gv_pos,
-                       letter_off=letter_off, col_off=col_off, cols=cols)
+                       letter_off=letter_off, col_off=col_off, cols=cols,
+                       up=up, down=down)
 
 
 @plan_cache
@@ -269,15 +279,24 @@ def example_floats(lt: LevelTables) -> int:
 
 
 def stage_floats(lt: LevelTables) -> int:
-    """Floats of one example's staged increments."""
-    return lt.d
+    """Floats of one example's staged increments: two chunks of
+    ``CHUNK`` steps."""
+    return 2 * CHUNK * lt.d
+
+
+def block_smem(lt: LevelTables, examples: int, in_smem: bool) -> int:
+    """Dynamic shared-memory bytes of a block: the slot table's two chunks,
+    and each example's staged increments and, in shared memory, state."""
+    ex = stage_floats(lt) + (example_floats(lt) if in_smem else 0)
+    return 4 * (2 * CHUNK + examples * ex)
 
 
 def step_phases(depth: int) -> int:
-    """Dependent phases of one reverse step: staging the increment and the
-    cotangent, the inverse step and the forward chain Q levelwise, the
-    pull-back levelwise (a barrier after each), then the g_dx reduction."""
-    return 1 + 3 * (depth - 1) + (depth == 1) + 1
+    """Dependent phases of one reverse step: the inverse step with both
+    chains, levelwise, then the pull-back levelwise (a barrier after each
+    level), then the g_dx reduction; at depth 1, the cotangent copied into
+    gv between two barriers, then the reduction."""
+    return 2 * depth - 1 if depth > 1 else 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -341,20 +360,19 @@ def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
                          f" got {threads}")
     else:
         T = threads
-    state = 4 * example_floats(lt)
-    stage = 4 * stage_floats(lt)
-    fits = state + stage <= SMEM_BUDGET
+    fits = block_smem(lt, 1, True) <= SMEM_BUDGET
     if in_smem is None:
         in_smem = fits
     elif in_smem and not fits:
-        raise ValueError(f"an example's state needs {state + stage} bytes, "
-                         f"above the {SMEM_BUDGET} a block may take")
-    ex = (state if in_smem else 0) + stage
-    most = min(cap // T, SMEM_BUDGET // ex)
+        raise ValueError(f"an example's state needs {block_smem(lt, 1, True)}"
+                         f" bytes, above the {SMEM_BUDGET} a block may take")
+    ex = block_smem(lt, 2, in_smem) - block_smem(lt, 1, in_smem)
+    most = min(cap // T, (SMEM_BUDGET - 8 * CHUNK) // ex)
     if examples is None:
         e = 1
         while (2 * e <= most and 2 * e * T <= MIN_BLOCK
-               and -(-B // e) > resident_blocks(e * T, e * ex)):
+               and -(-B // e) > resident_blocks(e * T, block_smem(
+                   lt, e, in_smem))):
             e *= 2
     elif not 1 <= examples <= most:
         raise ValueError(f"{examples} examples a block do not fit ({T} "
@@ -362,7 +380,7 @@ def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
     else:
         e = examples
     return SweepLaunch(threads=T, examples=e, in_smem=in_smem, slots=slots,
-                       smem=e * ex, blocks=-(-B // e),
+                       smem=block_smem(lt, e, in_smem), blocks=-(-B // e),
                        phases=step_phases(plan.depth))
 
 
@@ -378,7 +396,8 @@ def partition_variants(B: int, plan: WordPlan) -> list[SweepLaunch]:
              plan_sweep_launch(B, plan, threads=cap)]
     for where in dict.fromkeys((own.in_smem, False)):
         one = plan_sweep_launch(B, plan, in_smem=where, examples=1)
-        most = min(cap // one.threads, SMEM_BUDGET // one.smem, B)
+        ex = block_smem(level_tables(plan), 2, where) - one.smem
+        most = min(cap // one.threads, (SMEM_BUDGET - 8 * CHUNK) // ex, B)
         plans += [plan_sweep_launch(B, plan, in_smem=where, examples=e)
                   for e in sorted({1, min(2, most), most})]
     return list(dict.fromkeys(plans))
@@ -388,10 +407,9 @@ def partition_variants(B: int, plan: WordPlan) -> list[SweepLaunch]:
 def _level_tables_on(plan: WordPlan,
                      device: torch.device) -> list[torch.Tensor]:
     lt = level_tables(plan)
-    t = sweep_tables(plan)
-    return [torch.as_tensor(a, device=device) for a in (
-        lt.parent, lt.letter, lt.child, lt.gv_pos, lt.letter_off,
-        lt.col_off, lt.cols, t.prefix, t.letters, t.inv)]
+    return [torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in (lt.up, lt.down, lt.child, lt.letter_off, lt.col_off,
+                      lt.cols)]
 
 
 def _lib() -> ctypes.CDLL:
@@ -399,7 +417,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_sweep_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 16 + [i] * 9 + [p] * 2 + [i] + [p]
+        fn.argtypes = [p] * 12 + [i] * 9 + [p] * 2 + [i] + [p]
         fn.restype = ctypes.c_int
     return lib
 

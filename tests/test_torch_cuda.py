@@ -505,10 +505,11 @@ def test_sweep_kernel_repeated_words_and_no_steps(cuda):
 # every partition of the levelwise sweep at ragged shapes: truncation
 # closures (shared memory and, at (10, 5) and (40, 3), the device-memory
 # scratch), ragged word sets with rows that have no children below the top
-# level, and a repeated word
+# level, a repeated word, and a set of letters alone (depth 1)
 SWEEP_PLANS = [("trunc", 3, 4), ("trunc", 1, 16), ("trunc", 6, 5),
                ("trunc", 10, 5), ("trunc", 40, 3), ("words", 4, SPARSE),
-               ("words", 3, [(0,), (1, 2, 0, 1, 2), (2,), (2, 2)])]
+               ("words", 3, [(0,), (1, 2, 0, 1, 2), (2,), (2, 2)]),
+               ("words", 5, [(4,), (0,), (2,), (0,)])]
 
 
 def _sweep_plan(kind, d, arg):

@@ -170,6 +170,16 @@ def test_level_tables(name, plan):
     for r in range(W + 1):
         cols = list(lt.cols[lt.col_off[r]:lt.col_off[r + 1]])
         assert cols == [c for c, o in enumerate(plan.out_rows) if o == r]
+    # the kernel's 8-byte loads: the parent's index within its level, the
+    # gv slot, each beside the letter
+    assert lt.up.shape == lt.down.shape == (W + 1, 2)
+    for r in range(1, W + 1):
+        k = len(closure[r])
+        assert lt.up[r, 0] == lt.parent[r] - lt.lo[k - 1]
+        assert 0 <= lt.up[r, 0] < lt.rows(k - 1) if k > 1 else \
+            lt.up[r, 0] == 0
+        assert tuple(lt.down[r]) == (lt.gv_pos[r], lt.letter[r])
+        assert lt.up[r, 1] == lt.letter[r]
 
 
 def test_tables_of_rows_without_children_and_a_repeated_word():
@@ -208,8 +218,10 @@ def test_planner_limits(name, plan, B):
         assert p.threads % 32 == 0 and p.block <= ss.MAX_BLOCK[p.slots]
         assert p.slots == ss.depth_slots(plan.depth) >= plan.depth
         assert p.blocks == -(-B // p.examples)
-        state = 4 * ss.example_floats(lt) if p.in_smem else 0
-        assert p.smem == p.examples * (state + 4 * ss.stage_floats(lt))
+        state = ss.example_floats(lt) if p.in_smem else 0
+        assert p.smem == 4 * (2 * ss.CHUNK + p.examples * (
+            state + 2 * ss.CHUNK * plan.d))
+        assert p.smem == ss.block_smem(lt, p.examples, p.in_smem)
         assert p.smem <= ss.SMEM_BUDGET
         assert p.phases == ss.step_phases(plan.depth)
     assert own.threads == min(ss.MAX_BLOCK[own.slots], max(
@@ -220,7 +232,7 @@ def test_planner_limits(name, plan, B):
     if own.examples > 1:
         assert own.block <= ss.MIN_BLOCK
         assert -(-B // (own.examples // 2)) > ss.resident_blocks(
-            own.block // 2, own.smem // 2)
+            own.block // 2, ss.block_smem(lt, own.examples // 2, True))
     assert {p.in_smem for p in variants} == {True, False}
     assert 32 in {p.threads for p in variants}
 
@@ -231,8 +243,8 @@ def test_planner_at_the_sweep_shapes(d, N):
     planner never forces it into shared memory."""
     plan = ts.truncation_closure(d, N)
     p = ss.plan_sweep_launch(128, plan)
-    fits = 4 * (ss.example_floats(ss.level_tables(plan)) + d) \
-        <= ss.SMEM_BUDGET
+    fits = 4 * (ss.example_floats(ss.level_tables(plan)) + 2 * ss.CHUNK
+                * (d + 1)) <= ss.SMEM_BUDGET
     assert p.in_smem == fits == ((d, N) not in [(10, 5), (40, 3)])
     if not fits:
         with pytest.raises(ValueError, match="state needs"):
