@@ -86,12 +86,13 @@ struct LevelGeom {
   int s_off, g_off, gv_off, r_off, q_off, c_off;  // in the example state
   int lo[SS_MAX_DEPTH + 2];      // first state row of each level
   int coff[SS_MAX_DEPTH + 1];    // first chain value of each level
+  int lanes[SS_MAX_DEPTH + 1];   // lanes a parent in the pull-back
   float inv[SS_MAX_DEPTH + 2];   // 1/m
 };
 
-// Most threads a block of the MAXD instance may have: a parent's MAXD
-// chain values and scaled Q stay in registers (64 a thread at 1,024
-// threads, 128 at 512).
+// Most threads a block of the MAXD instance (words up to MAXD letters) may
+// have: a parent's MAXD - 1 partial cotangents and scaled Q stay in
+// registers (64 a thread at 1,024 threads, 128 at 512).
 template <int MAXD> struct Bounds {
   static constexpr int threads = MAXD <= 8 ? 1024 : 512;
 };
@@ -184,7 +185,7 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
         const float xi = dx[ul.y];
         const float* ru = R + q.coff[k - 1] + ul.x;
         const float* qu = Q + q.coff[k - 1] + ul.x;
-        float* rw = R + q.coff[k] + (w - lo);
+        float* rw = R + q.coff[k] + (w - lo);  // slots s < ns - 1
         float* qw = Q + q.coff[k] + (w - lo);
         const float so = S[w];
         const float sn = so - (k == 1 ? 1.f : ru[0]) * xi;
@@ -205,21 +206,28 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
       }
       __syncthreads();
     }
-    // (b) the pull-back, each parent from its children, top level first
+    // (b) the pull-back, each parent from its children, top level first:
+    // a parent's q.lanes[k] lanes (a power of two, one warp at most) split
+    // its children and sum their partial cotangents with shuffles
     for (int k = N - 1; k >= 1; --k) {
       const int lo = q.lo[k], rows = q.lo[k + 1] - lo;
       const int clo = q.lo[k + 1], crows = q.lo[k + 2] - clo;
       const int ns = N - k;  // targets n = k+1..N
-      for (int w = lo + t; w < lo + rows; w += T) {
-        float qs[MAXD], acc[MAXD];
+      const int sg = q.lanes[k], sh = __ffs(sg) - 1;
+      const int span = ((rows << sh) + 31) & ~31;  // whole warps
+      for (int v = t; v < span; v += T) {
+        const int pi = v >> sh, li = v & (sg - 1);
+        const bool own = pi < rows;
+        const int w = lo + (own ? pi : 0);
+        float qs[MAXD - 1], acc[MAXD - 1];
         const float* qw = Q + q.coff[k] + (w - lo);
 #pragma unroll
-        for (int s = 0; s < MAXD; ++s) {
+        for (int s = 0; s < MAXD - 1; ++s) {
           qs[s] = s < ns ? qw[s * rows] * q.inv[s + 1] : 0.f;
           acc[s] = 0.f;
         }
-        const int c1 = child[w + 1];
-        for (int c = child[w]; c < c1; ++c) {
+        const int c1 = own ? child[w + 1] : 0;
+        for (int c = child[w] + li; c < c1; c += sg) {
           const int2 dl = down[c];  // gv slot, letter
           const float xl = dx[dl.y];
           const float g0 = G[c];
@@ -229,7 +237,7 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
             const float* cc = C + q.coff[k + 1] + (c - clo);
             float gsum = 0.f;
 #pragma unroll
-            for (int s = 1; s < MAXD; ++s) {
+            for (int s = 1; s < MAXD - 1; ++s) {
               if (s < ns) {
                 const float tv = cc[(s - 1) * crows];
                 gsum += tv;
@@ -241,16 +249,22 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
           }
           gv[dl.x] = gvc;
         }
+        for (int o = 1; o < sg; o <<= 1) {
+#pragma unroll
+          for (int s = 0; s < MAXD - 1; ++s)
+            if (s < ns) acc[s] += __shfl_xor_sync(0xffffffffu, acc[s], o);
+        }
+        if (!own || li) continue;
         if (k > 1) {
           float* cw = C + q.coff[k] + (w - lo);
 #pragma unroll
-          for (int s = 0; s < MAXD; ++s)
+          for (int s = 0; s < MAXD - 1; ++s)
             if (s < ns) cw[s * rows] = acc[s] * q.inv[s + 1];
         } else {  // level 1: the parent is eps, whose Q is 1
           const float g0 = G[w];
           float gvw = g0, gsum = 0.f;
 #pragma unroll
-          for (int s = 0; s < MAXD; ++s) {
+          for (int s = 0; s < MAXD - 1; ++s) {
             if (s < ns) {
               const float cv = acc[s] * q.inv[s + 1];
               gsum += cv;
@@ -263,12 +277,21 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
       }
       __syncthreads();
     }
-    // (c) g_dx by letter, a warp a letter, in a fixed order
+    // (c) g_dx by letter, a warp a letter, in a fixed order (four partial
+    // sums a lane, then the warp's)
     float* gj = gx + ((size_t)b * q.M + j) * d;
     for (int i = warp; i < d; i += nwarps) {
-      float sum = 0.f;
-      const int m1 = letter_off[i + 1];
-      for (int m = letter_off[i] + lane; m < m1; m += 32) sum += gv[m];
+      const int m0 = letter_off[i] + lane, m1 = letter_off[i + 1];
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+      int m = m0;
+      for (; m + 96 < m1; m += 128) {
+        s0 += gv[m];
+        s1 += gv[m + 32];
+        s2 += gv[m + 64];
+        s3 += gv[m + 96];
+      }
+      for (; m < m1; m += 32) s0 += gv[m];
+      float sum = (s0 + s1) + (s2 + s3);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
@@ -276,7 +299,6 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
     }
   }
 }
-
 template <int MAXD>
 cudaError_t launch(const void* const* a, void* scratch, void* gx,
                    int blocks, int block, size_t smem, const LevelGeom& q,
@@ -310,7 +332,9 @@ cudaError_t launch(const void* const* a, void* scratch, void* gx,
 // (n_out,).  slots: (M,) int32 the cotangent slot added at each step, -1
 // where none (emit_slot_table).  lo (depth + 2,) and coff (depth + 1,):
 // host int32 arrays, the first state row and the first chain value of each
-// level.  scratch: (blocks·E, ex_floats) fp32 when the state does not fit
+// level; lanes (depth,) host int32, lanes[k] the lanes (1, 2, .., 32) a
+// parent of level k takes in the pull-back (kernels/sig_sweep.py::
+// parent_lanes; lanes[0] unused).  scratch: (blocks·E, ex_floats) fp32 when the state does not fit
 // shared memory, else null.  gx: (B, M, d) fp32.  T threads an example, E
 // examples a block.  A block takes 4·(2·SS_CHUNK·(1 + E·d) + E·ex_floats)
 // bytes of dynamic shared memory (no ex_floats with a scratch).  Returns
@@ -320,8 +344,8 @@ extern "C" int sig_sweep_launch(
     const void* down, const void* child, const void* letter_off,
     const void* col_off, const void* cols, const void* slots, void* scratch,
     void* gx, int B, int M, int d, int W, int depth, int n_out, int n_emit,
-    int T, int E, const int* lo, const int* coff, int ex_floats,
-    void* stream) {
+    int T, int E, const int* lo, const int* coff, const int* lanes,
+    int ex_floats, void* stream) {
   if (B < 1 || M < 1 || d < 1 || W < 1 || n_out < 1 || n_emit < 1 ||
       depth < 1 || depth > SS_MAX_DEPTH || T < 32 || T % 32 || E < 1)
     return (int)cudaErrorInvalidValue;
@@ -340,8 +364,12 @@ extern "C" int sig_sweep_launch(
     q.lo[k] = k <= depth + 1 ? lo[k] : W + 1;
     q.inv[k] = k ? 1.f / k : 0.f;
   }
-  for (int k = 0; k <= SS_MAX_DEPTH; ++k)
+  for (int k = 0; k <= SS_MAX_DEPTH; ++k) {
     q.coff[k] = k <= depth ? coff[k] : coff[depth];
+    q.lanes[k] = k < depth ? lanes[k] : 1;
+    if (q.lanes[k] < 1 || q.lanes[k] > 32 || (q.lanes[k] & (q.lanes[k] - 1)))
+      return (int)cudaErrorInvalidValue;
+  }
   const int chain = coff[depth];
   q.s_off = 0;
   q.g_off = lo[depth];
@@ -357,8 +385,10 @@ extern "C" int sig_sweep_launch(
   const void* a[10] = {x,       s_t,     g,    up,   down,
                        child,   letter_off, col_off, cols, slots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (depth <= 4)
-    return (int)launch<4>(a, scratch, gx, blocks, T * E, smem, q, st);
+  if (depth <= 3)
+    return (int)launch<3>(a, scratch, gx, blocks, T * E, smem, q, st);
+  if (depth <= 5)
+    return (int)launch<5>(a, scratch, gx, blocks, T * E, smem, q, st);
   if (depth <= 8)
     return (int)launch<8>(a, scratch, gx, blocks, T * E, smem, q, st);
   return (int)launch<16>(a, scratch, gx, blocks, T * E, smem, q, st);

@@ -40,9 +40,10 @@ from .cache import plan_cache
 # opt-in maximum, 232,448 bytes, less a margin)
 SMEM_BUDGET = 232_448 - 1024
 MAX_DEPTH = 16        # SS_MAX_DEPTH
-DEPTH_SLOTS = (4, 8, 16)   # chain slots a thread holds: the instances
-MAX_BLOCK = {4: 1024, 8: 1024, 16: 512}   # most threads a block, by slots
+DEPTH_SLOTS = (3, 5, 8, 16)   # deepest word of each kernel instance
+MAX_BLOCK = {3: 1024, 5: 1024, 8: 1024, 16: 512}   # most threads a block
 REDUCE_WARPS = 8      # the planner's warps for the g_dx reduction
+PULL_THREADS = 384    # the planner's most threads for the pull-back's lanes
 MIN_BLOCK = 128       # examples share a block only below this many threads
 SMS = 132             # streaming multiprocessors of an H100 SXM
 SM_THREADS = 2048     # resident threads an SM
@@ -264,7 +265,8 @@ def sig_sweep_plain(increments: torch.Tensor, plan: WordPlan,
 
 
 def depth_slots(depth: int) -> int:
-    """The kernel instance (chain slots a thread holds) for ``depth``."""
+    """The kernel instance for ``depth``: its deepest word (a thread holds
+    one less chain value of a parent for each target above it)."""
     if depth > MAX_DEPTH:
         raise ValueError(f"words of length {depth} exceed the kernel's "
                          f"MAX_DEPTH {MAX_DEPTH}")
@@ -309,6 +311,7 @@ class SweepLaunch:
     smem: int        # dynamic shared-memory bytes a block
     blocks: int
     phases: int      # dependent phases a step
+    lanes: tuple[int, ...]   # lanes a parent at levels 1..depth-1
 
     @property
     def block(self) -> int:
@@ -327,6 +330,40 @@ def widest_level(lt: LevelTables) -> int:
     return max(lt.rows(k) for k in range(1, max(N, 2)))
 
 
+def most_children(lt: LevelTables) -> list[int]:
+    """The most children of one row at each level 0..depth-1."""
+    counts = np.diff(lt.child)
+    return [int(counts[lt.lo[k]:lt.lo[k + 1]].max(initial=0))
+            for k in range(lt.depth)]
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def parent_lanes(lt: LevelTables, threads: int) -> tuple[int, ...]:
+    """Lanes of one warp that pull a parent's children at each level
+    1..depth-1: the fewest powers of two that give each child its own lane,
+    at most 32, and no more than the example's threads spread over the
+    level's parents (one lane a parent once the parents fill them).  The
+    lanes of a parent sum their partial cotangents with shuffles."""
+    most = most_children(lt)
+    out = []
+    for k in range(1, lt.depth):
+        fill = max(1, threads // lt.rows(k))
+        out.append(min(32, _pow2_at_least(max(most[k], 1)),
+                       1 << (fill.bit_length() - 1)))
+    return tuple(out)
+
+
+def pull_threads(lt: LevelTables) -> int:
+    """Threads that give every child of the widest pull-back level its own
+    lane (:func:`parent_lanes` with no cap)."""
+    most = most_children(lt)
+    return max([lt.rows(k) * min(32, _pow2_at_least(max(most[k], 1)))
+                for k in range(1, lt.depth)], default=0)
+
+
 def resident_blocks(block: int, smem: int) -> int:
     """Blocks of ``block`` threads and ``smem`` bytes the card holds at
     once."""
@@ -341,9 +378,13 @@ def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
     """The kernel's partition for a (B, ·, d) batch over ``plan``'s closure.
 
     An example gets a thread for each row of its widest level
-    (:func:`widest_level`) and a warp for each letter of the g_dx
-    reduction up to ``REDUCE_WARPS``, rounded to warps, within the
-    instance's most threads; its state sits in shared memory while it fits
+    (:func:`widest_level`), a lane for each child the pull-back pulls at
+    any level (:func:`pull_threads`) up to ``PULL_THREADS`` (more warps
+    cost more than the lanes save: 320–384 threads were the fastest at
+    each of the training paths' three sweep shapes on an H100), and a warp
+    for each letter of the g_dx reduction up to ``REDUCE_WARPS``, rounded
+    to warps, within the instance's most threads; the lanes a parent then
+    takes at each level are :func:`parent_lanes`; its state sits in shared memory while it fits
     ``SMEM_BUDGET``, else in a device-memory scratch.  Examples share a
     block only while the batch exceeds the blocks the card holds at once
     and the block stays within ``MIN_BLOCK`` threads.  ``threads``,
@@ -354,6 +395,7 @@ def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
     cap = MAX_BLOCK[slots]
     if threads is None:
         T = min(cap, max(_warps(widest_level(lt)),
+                         _warps(min(pull_threads(lt), PULL_THREADS)),
                          32 * min(lt.d, REDUCE_WARPS)))
     elif threads % 32 or not 32 <= threads <= cap:
         raise ValueError(f"threads must be a multiple of 32 in [32, {cap}],"
@@ -381,18 +423,23 @@ def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
         e = examples
     return SweepLaunch(threads=T, examples=e, in_smem=in_smem, slots=slots,
                        smem=block_smem(lt, e, in_smem), blocks=-(-B // e),
-                       phases=step_phases(plan.depth))
+                       phases=step_phases(plan.depth),
+                       lanes=parent_lanes(lt, T))
 
 
 def partition_variants(B: int, plan: WordPlan) -> list[SweepLaunch]:
     """Every partition the planner can choose for a (B, ·, d) batch: its
-    own; one warp an example and the instance's most threads; the state in
+    own; one warp an example, a thread a row of the widest level (one lane
+    a parent where the parents fill them) and the instance's most threads;
+    the state in
     shared memory (where it fits) and in a device-memory scratch, each
     with one example a block, two, and the most that fit (at most B).
     For tests and chip_smoke.py."""
     own = plan_sweep_launch(B, plan)
     cap = MAX_BLOCK[own.slots]
+    rows = min(cap, _warps(widest_level(level_tables(plan))))
     plans = [own, plan_sweep_launch(B, plan, threads=32),
+             plan_sweep_launch(B, plan, threads=rows),
              plan_sweep_launch(B, plan, threads=cap)]
     for where in dict.fromkeys((own.in_smem, False)):
         one = plan_sweep_launch(B, plan, in_smem=where, examples=1)
@@ -417,7 +464,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_sweep_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 9 + [p] * 2 + [i] + [p]
+        fn.argtypes = [p] * 12 + [i] * 9 + [p] * 3 + [i] + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -445,6 +492,7 @@ def _launch(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
     gx = torch.empty((B, M, d), dtype=torch.float32, device=dev)
     lo = np.ascontiguousarray(lt.lo, np.int32)
     coff = np.ascontiguousarray(lt.chain_off, np.int32)
+    lanes = np.array((1,) + p.lanes, np.int32)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.sig_sweep_launch(
@@ -453,7 +501,7 @@ def _launch(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
             None if scratch is None else scratch.data_ptr(), gx.data_ptr(),
             B, M, d, plan.closure_size, plan.depth, len(plan.words), n_emit,
             p.threads, p.examples, lo.ctypes.data, coff.ctypes.data,
-            example_floats(lt),
+            lanes.ctypes.data, example_floats(lt),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"sig_sweep kernel launch failed with cudaError "

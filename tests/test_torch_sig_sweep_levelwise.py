@@ -198,6 +198,10 @@ def test_sec8_closure_levels():
     plan = tw.make_plan(sec8_words(), 10)
     lt = ss.level_tables(plan)
     assert [lt.rows(k) for k in (1, 2, 3)] == [10, 55, 220]
+    assert ss.most_children(lt) == [10, 10, 6]
+    assert ss.pull_threads(lt) == 55 * 8
+    assert ss.parent_lanes(lt, 448) == (16, 8)   # 10 and 55 parents
+    assert ss.parent_lanes(lt, 64) == (4, 1)
     assert lt.chain_size == 10 * 2 + 55
     assert ss.widest_level(lt) == 55
     assert ss.example_floats(lt) == 66 + 286 + 285 + 3 * 75
@@ -225,8 +229,17 @@ def test_planner_limits(name, plan, B):
         assert p.smem <= ss.SMEM_BUDGET
         assert p.phases == ss.step_phases(plan.depth)
     assert own.threads == min(ss.MAX_BLOCK[own.slots], max(
-        -(-ss.widest_level(lt) // 32) * 32, 32 * min(plan.d,
-                                                     ss.REDUCE_WARPS)))
+        -(-ss.widest_level(lt) // 32) * 32,
+        -(-min(ss.pull_threads(lt), ss.PULL_THREADS) // 32) * 32,
+        32 * min(plan.d, ss.REDUCE_WARPS)))
+    most = ss.most_children(lt)
+    for p in variants:   # a parent's lanes: a power of two within a warp
+        assert p.lanes == ss.parent_lanes(lt, p.threads)
+        assert len(p.lanes) == plan.depth - 1
+        for k, lanes in enumerate(p.lanes, start=1):
+            assert lanes in (1, 2, 4, 8, 16, 32)
+            assert lanes == 1 or lanes < 2 * max(most[k], 1)
+            assert lanes * lt.rows(k) <= max(p.threads, lt.rows(k))
     assert own.in_smem
     # examples share a block only past the blocks the card holds at once
     if own.examples > 1:
@@ -253,6 +266,28 @@ def test_planner_at_the_sweep_shapes(d, N):
         ss.plan_sweep_launch(128, plan, threads=48)
     with pytest.raises(ValueError, match="examples"):
         ss.plan_sweep_launch(128, plan, examples=4096)
+
+
+@pytest.mark.parametrize("d,N,threads", [(10, 3, 384), (4, 5, 384),
+                                         (6, 5, 1024), (2, 3, 64)])
+def test_planner_threads_at_the_sweep_shapes(d, N, threads):
+    """Lanes for the pull-back up to PULL_THREADS, but never fewer threads
+    than the widest level's rows (1,296 at (6, 5))."""
+    assert ss.plan_sweep_launch(128, ts.truncation_closure(d, N)).threads \
+        == threads
+    assert ss.plan_sweep_launch(128, tw.make_plan(sec8_words(), 10)) \
+        .threads == 384
+
+
+def test_parent_lanes_of_full_truncations():
+    """A parent of W_{<=N} has d children: its lanes are the power of two
+    at least d while the level's parents leave room, else fewer."""
+    lt = ss.level_tables(ts.truncation_closure(4, 5))
+    assert ss.most_children(lt) == [4] * 5
+    assert ss.parent_lanes(lt, 1024) == (4, 4, 4, 4)
+    assert ss.parent_lanes(lt, 256) == (4, 4, 4, 1)
+    lt = ss.level_tables(ts.truncation_closure(40, 3))
+    assert ss.parent_lanes(lt, 1024) == (16, 1)   # 40 children, 16 lanes
 
 
 def test_planner_refuses_deeper_words_than_the_kernel_takes():

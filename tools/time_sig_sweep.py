@@ -18,8 +18,10 @@ from ``--seed``, the terminal state comes from the forward kernel and the
 cotangent is random (the Table 1 cell: 2·S_T, the gradient of the sum of
 squares).  Each case holds the kernel's gradient against the float64
 plain sweep, |g − g_64| <= 1e-3·|g_64| + 1e-4·max|g_64|, then times it by
-CUDA events (median of ``--reps`` calls).  Prints one line per case and a
-JSON line with the card's name and power limit.
+CUDA events (median of ``--reps`` calls); ``--variants`` also times each partition
+the planner can choose, and ``--threads`` the planner's partition at each
+given count of threads an example.  Prints one line per case and a JSON line with
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -39,6 +41,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", help="append the JSON line to this file")
+    ap.add_argument("--variants", action="store_true",
+                    help="also time every partition the planner can choose "
+                         "(sig_sweep.partition_variants)")
+    ap.add_argument("--threads", default="",
+                    help="comma-separated threads an example to time the "
+                         "planner's partition at, forced")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
     import torch
@@ -116,7 +124,25 @@ def main() -> int:
         if hasattr(ss, "plan_sweep_launch"):
             p = ss.plan_sweep_launch(B, plan)
             row.update(threads=p.threads, examples=p.examples,
-                       in_smem=p.in_smem, phases=p.phases)
+                       in_smem=p.in_smem, phases=p.phases,
+                       lanes=list(p.lanes))
+        if args.variants:
+            row["variants"] = []
+            for p in ss.partition_variants(B, plan):
+                v = dict(threads=p.threads, lanes=list(p.lanes),
+                         examples=p.examples, in_smem=p.in_smem,
+                         ms=ms(lambda: ss._launch(x, plan, S_T, g, 0, p)))
+                row["variants"].append(v)
+                print(f"  variant {v}", flush=True)
+        for T in filter(None, args.threads.split(",")):
+            try:
+                p = ss.plan_sweep_launch(B, plan, threads=int(T))
+            except ValueError:
+                continue
+            v = dict(threads=p.threads, lanes=list(p.lanes),
+                     ms=ms(lambda: ss._launch(x, plan, S_T, g, 0, p)))
+            row.setdefault("threads_sweep", []).append(v)
+            print(f"  forced {v}", flush=True)
         rows.append(row)
         print(f"[{args.label or args.tree}] {name} {row['shape']} W="
               f"{row['W']}: {t:.3f} ms ({row['us_per_step']:.2f} µs a step)"
