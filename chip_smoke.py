@@ -98,14 +98,21 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              37}, random cotangents, the plain version on the same
              increments and the same saved terminal state.  |g − g_64| <=
              1e-3·|g_64| + 1e-4·max|g_64| in both precisions: the kernel
-             sums in fp32 (atomics, in an order that varies), and sums of
-             terms up to max|g| cancel, so a bound absolute in the
-             gradient's units is below fp32's resolution at max|g| ~ 1e3
-             (the fp32 plain sweep fails rtol 1e-3 + atol 1e-5 too: for
-             each truncated (d, N) the phase prints the least atol, over
-             max|g|, that rtol 1e-3 needs for the kernel and for the fp32
-             plain sweep on the same inputs); bf16 rounding enters only
-             through the increments, which both share.
+             sums in fp32, and sums of terms up to max|g| cancel, so a
+             bound absolute in the gradient's units is below fp32's
+             resolution at max|g| ~ 1e3 (the fp32 plain sweep fails rtol
+             1e-3 + atol 1e-5 too: for each truncated (d, N) the phase
+             prints the least atol, over max|g|, that rtol 1e-3 needs for
+             the kernel and for the fp32 plain sweep on the same inputs);
+             bf16 rounding enters only through the increments, which both
+             share.  Then every partition the planner can choose
+             (sig_sweep.partition_variants: its own, one warp, a thread a
+             row of the widest level and the most threads an example;
+             shared memory and the device-memory scratch, each with one,
+             two and the most examples a block), forced, over the same
+             closures at B = 5, M = 37, terminal and stride 3: each within
+             the same rule, and a second run bitwise equal (the kernel
+             has no atomics).
 14. train  — the paper's Table 1 train mode, ((ops.signature(x, N))**2).sum()
              with its gradient at every Table 1 cell: one sig_trunc and one
              sig_sweep launch per call; at every cell the gradient, and
@@ -146,8 +153,10 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              streamed cell; the sig_words row with its cases: §8 terminal,
              §8 streamed, the largest Table 3 set; the sig_sweep row with
              its cases: largest Table 1 train cell, §8 sparse step, §8
-             truncated step; each with ms, bound and partition), the
-             card's name and power limit, then the device line last.
+             truncated step, each with µs a step, dependent phases a step
+             and partition, and its instances' ptxas registers and stack;
+             each with ms, bound and partition), the card's name and power
+             limit, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -390,10 +399,13 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every kernel; returns {source: {kernel instance, as
+    name<template integers>: {registers, stack bytes}}} from ptxas."""
     t0 = time.perf_counter()
     seconds = _build.build_all()
     print(f"[build] {seconds} ({time.perf_counter() - t0:.1f} s in all)")
+    ptxas = {}
     for name, log in _build.build_log.items():
         entry = ""  # ptxas names each kernel instance before its figures
         for line in log.splitlines():
@@ -402,7 +414,19 @@ def phase_build() -> None:
                 entry = m.group(1)
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name}: {entry}: {line.strip()}")
+                m = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)I(.*?)EEv",
+                              entry)
+                short = (f"{m.group(1)}<"
+                         f"{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+                         if m else entry)
+                inst = ptxas.setdefault(name, {}).setdefault(short, {})
+                for key, pat in (("registers", r"Used (\d+) registers"),
+                                 ("stack", r"(\d+) bytes stack frame")):
+                    m = re.search(pat, line)
+                    if m:
+                        inst[key] = int(m.group(1))
     sys.stdout.flush()
+    return ptxas
 
 
 def phase_kernels(rng) -> dict:
@@ -1219,7 +1243,7 @@ def phase_sweep(rng, sets) -> dict:
                 st.SigTruncFunction.apply(t, N, None, stream, stride,
                                           precision), x, plan,
                 f"sig_sweep (sig_trunc) d={d} N={N} M={M}")
-        where = "shared" if ss.sweep_geometry(plan.closure_size, d, N)[2] \
+        where = "shared" if ss.plan_sweep_launch(5, plan).in_smem \
             else "device"
         n = need[f"{d},{N}"]
         print(f"[sweep] truncated d={d:2d} N={N} (W={plan.closure_size}, "
@@ -1239,7 +1263,48 @@ def phase_sweep(rng, sets) -> dict:
                 f"sig_sweep (sig_words) [{name}] M={M}")
     print(f"[sweep] {cases} cases within tolerance, max fp32 |err| "
           f"{worst:.2e}", flush=True)
-    return dict(max_abs_err=worst, atol_needed=need)
+    plans = [sig.truncation_closure(d, N) for d, N in SWEEP]
+    plans += [make_plan(make_plan(words, d).closure, d)
+              for _, d, words in sets]
+    parts, perr = sweep_partitions(rng, plans)
+    return dict(max_abs_err=max(worst, perr), atol_needed=need,
+                partitions=parts)
+
+
+def sweep_partitions(rng, plans) -> tuple[int, float]:
+    """Every partition of sig_sweep.partition_variants, forced, at B = 5,
+    M = 37, terminal and stride 3, against the float64 plain sweep, and a
+    second run bitwise equal.  Returns the cases and the max |error|."""
+    cases, worst = 0, 0.0
+    for plan in plans:
+        B, M = 5, 37
+        x = torch.tensor(rng.normal(size=(B, M, plan.d)) * 0.3,
+                         device="cuda").float()
+        S_T = torch.tensor(rng.normal(size=(B, plan.closure_size)) * 0.1,
+                           device="cuda")
+        for stride in (0, 3):
+            shape = (B, -(-M // stride), len(plan.words)) if stride \
+                else (B, len(plan.words))
+            co = torch.tensor(rng.normal(size=shape), device="cuda")
+            want = ss.sig_sweep_plain(x.double(), plan, S_T, co,
+                                      stream=bool(stride),
+                                      stream_stride=stride or 1)
+            for p in ss.partition_variants(B, plan):
+                got = ss._launch(x, plan, S_T.float(), co.float(), stride, p)
+                again = ss._launch(x, plan, S_T.float(), co.float(), stride,
+                                   p)
+                torch.cuda.synchronize()
+                err = float((got.double() - want).abs().max())
+                where = (f"sig_sweep partition d={plan.d} W="
+                         f"{plan.closure_size} stride={stride} {p}")
+                check(grad_within(got, want), f"{where}: max |err| {err:.3e}"
+                      f", max|g| {float(want.abs().max()):.3e}")
+                check(torch.equal(got, again), f"{where}: two runs differ")
+                worst = max(worst, err)
+                cases += 1
+    print(f"[sweep] {cases} forced partitions within tolerance and bitwise "
+          f"equal on a second run, max |err| {worst:.2e}", flush=True)
+    return cases, worst
 
 
 def time_sweep(incs: torch.Tensor, plan, S_T: torch.Tensor,
@@ -1254,7 +1319,14 @@ def time_sweep(incs: torch.Tensor, plan, S_T: torch.Tensor,
     err = float((got.double() - want).abs().max())
     check(grad_within(got, want), f"{where}: sig_sweep max |err| {err:.3e} "
           f"vs the float64 plain sweep, max|g| {float(want.abs().max()):.3e}")
-    return dict(ms=cuda_ms(lambda: ss.sig_sweep(incs, plan, S_T, g), 5),
+    again = ss.sig_sweep(incs, plan, S_T, g)
+    check(torch.equal(got, again), f"{where}: two sig_sweep runs differ")
+    t = cuda_ms(lambda: ss.sig_sweep(incs, plan, S_T, g), 5)
+    p = ss.plan_sweep_launch(B, plan)
+    return dict(ms=t, us_per_step=1e3 * t / M, phases=p.phases,
+                partition=dict(threads=p.threads, lanes=list(p.lanes),
+                               examples=p.examples, in_smem=p.in_smem,
+                               blocks=p.blocks, smem=p.smem),
                 plain_ms=cuda_ms(lambda: ss.sig_sweep_plain(
                     incs, plan, S_T, g), 1),
                 bound_ms=bms, bound_by=by, W=plan.closure_size,
@@ -1524,7 +1596,7 @@ def main() -> int:
     ap.add_argument("--out", help="also write the measurements here (JSON)")
     args = ap.parse_args()
     smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
     rng = np.random.default_rng(args.seed)
     max_err = phase_kernels(rng)
     serve = phase_serve(rng)
@@ -1615,14 +1687,16 @@ def main() -> int:
                         shape=[big[k] for k in "BMdN"], W=big["sweep_W"],
                         value_and_grad_ms=big["ms"],
                         **{k: big[f"sweep_{k}"] for k in (
-                            "ms", "plain_ms", "bound_ms", "bound_by")})]
+                            "ms", "us_per_step", "phases", "partition",
+                            "plain_ms", "bound_ms", "bound_by")})]
     for kind, case in (("sparse", "§8 sparse step"),
                        ("truncated", "§8 truncated step")):
         h = hurst[kind]
         sweep_cases.append(dict(case=case, shape=h["shape"], W=h["W"],
                                 step_ms=h["step_ms"], **{
                                     k: h["sweep"][k] for k in (
-                                        "ms", "plain_ms", "bound_ms",
+                                        "ms", "us_per_step", "phases",
+                                        "partition", "plain_ms", "bound_ms",
                                         "bound_by")}))
     sp = hurst["sparse"]["sweep"]
     kernels.append(dict(
@@ -1636,7 +1710,10 @@ def main() -> int:
         launches=sum(h["sweep_launches"] for h in hurst.values()),
         max_abs_err=sweep["max_abs_err"], ms=sp["ms"],
         plain_ms=sp["plain_ms"], bound_ms=sp["bound_ms"],
-        bound_by=sp["bound_by"], library_ms=None, cases=sweep_cases))
+        bound_by=sp["bound_by"], library_ms=None,
+        us_per_step=sp["us_per_step"], phases=sp["phases"],
+        partitions_checked=sweep["partitions"],
+        ptxas=ptxas.get("sig_sweep", {}), cases=sweep_cases))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(

@@ -44,10 +44,7 @@
 //      table groups them) with shuffles, in a fixed order, straight into
 //      row j of the (B, M, d) gradient.
 // Only rows below the top level are ever read as prefixes, so S and the
-// chain values R, Q and cot are kept for those only.  The increments and
-// the slot table are staged a chunk of SS_CHUNK steps ahead into shared
-// memory, double-buffered, so a step loads nothing from device memory
-// but its cotangent, and the step's first barrier is the first level's.  Streamed cotangents
+// chain values R, Q and cot are kept for those only.  Streamed cotangents
 // enter as in the reference: at each emitted step (stride-1, 2 stride-1,
 // ..., and M-1, from the host's slot table) each row adds its cotangent
 // columns (a host table, ascending, so a repeated word sums in a fixed
@@ -62,12 +59,20 @@
 // a step is a chain of dependent phases separated by barriers, so at a
 // batch below the card's SMs the time is the phases' latency.
 //
-// What the design does about it.  The work a step is the levelwise
-// count, with no atomics, in 2N - 1 dependent phases (N the depth); an example's state (S, G, gv and the chain
-// buffers) sits in shared memory while it fits (kernels/sig_sweep.py::
-// plan_sweep_launch), else in a per-example scratch in device memory with
-// the same code; an example gets a thread for each row of its widest
-// level below the top, and examples share a block only past the blocks
+// What the design does about it.  The work a step is the levelwise count
+// (each prefix's chain values computed once and shared by its
+// descendants), with no atomics, in 2N - 1 dependent phases (N the depth).
+// The increments and the slot table are staged a chunk of SS_CHUNK steps
+// ahead into shared memory, double-buffered, so a step loads nothing from
+// device memory but its cotangent.  In the pull-back a parent's children
+// are split over up to a warp of lanes (a power of two a level, from the
+// host), which sum their partial cotangents with shuffles: a phase waits
+// on a few children a lane, not on every child in turn.  The host
+// (kernels/sig_sweep.py::plan_sweep_launch) gives an example a thread a
+// row of its widest level and lanes for the pull-back up to a measured
+// 384 threads; an example's state (S, G, gv and the chain buffers) sits
+// in shared memory while it fits, else in a per-example scratch in device
+// memory with the same code; examples share a block only past the blocks
 // the card holds at once.
 //
 // Precision.  fp32 throughout: under bf16_fp32 the increments are the
@@ -114,7 +119,8 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ xb,
     xd[e] = xb[(size_t)(top - p) * d + i];
   }
   if (first)
-    for (int p = t; p < steps; p += T) ss[(c & 1) * SS_CHUNK + p] = slots[top - p];
+    for (int p = t; p < steps; p += T)
+      ss[(c & 1) * SS_CHUNK + p] = slots[top - p];
 }
 
 template <int MAXD>
@@ -334,11 +340,12 @@ cudaError_t launch(const void* const* a, void* scratch, void* gx,
 // host int32 arrays, the first state row and the first chain value of each
 // level; lanes (depth,) host int32, lanes[k] the lanes (1, 2, .., 32) a
 // parent of level k takes in the pull-back (kernels/sig_sweep.py::
-// parent_lanes; lanes[0] unused).  scratch: (blocks·E, ex_floats) fp32 when the state does not fit
-// shared memory, else null.  gx: (B, M, d) fp32.  T threads an example, E
-// examples a block.  A block takes 4·(2·SS_CHUNK·(1 + E·d) + E·ex_floats)
-// bytes of dynamic shared memory (no ex_floats with a scratch).  Returns
-// the cudaError_t of the launch (0 on success).
+// parent_lanes; lanes[0] unused).  scratch: (blocks·E, ex_floats) fp32
+// when the state does not fit shared memory, else null.  gx: (B, M, d)
+// fp32.  T threads an example, E examples a block.  A block takes
+// 4·(2·SS_CHUNK·(1 + E·d) + E·ex_floats) bytes of dynamic shared memory
+// (no ex_floats with a scratch).  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int sig_sweep_launch(
     const void* x, const void* s_t, const void* g, const void* up,
     const void* down, const void* child, const void* letter_off,

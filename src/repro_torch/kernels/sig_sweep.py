@@ -86,11 +86,13 @@ def sweep_tables(plan: WordPlan) -> SweepTables:
 
 
 def sweep_geometry(W: int, d: int, depth: int) -> tuple[int, int, bool]:
-    """(threads, shared-memory bytes, state in shared memory) of a launch
-    over a closure of W rows: a thread a row up to the instance's most
-    threads (1,024 to depth 8, 512 deeper), the state and both cotangent
-    buffers in shared memory while they fit ``SMEM_BUDGET``, else in a
-    per-example scratch in device memory."""
+    """(threads, shared-memory bytes, state in shared memory) of the
+    one-thread-a-row form of the sweep over a closure of W rows, which the
+    kernel no longer runs (:func:`plan_sweep_launch` plans its launch): a
+    thread a row up to 1,024 threads to depth 8, 512 deeper, and the state
+    and two cotangent buffers, 3 (W + 1) floats, in shared memory while
+    they fit ``SMEM_BUDGET``, else in device memory.  It still says
+    whether a closure's full state fits a block."""
     if depth > MAX_DEPTH:
         raise ValueError(f"words of length {depth} exceed the kernel's "
                          f"MAX_DEPTH {MAX_DEPTH}")
@@ -384,8 +386,9 @@ def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
     each of the training paths' three sweep shapes on an H100), and a warp
     for each letter of the g_dx reduction up to ``REDUCE_WARPS``, rounded
     to warps, within the instance's most threads; the lanes a parent then
-    takes at each level are :func:`parent_lanes`; its state sits in shared memory while it fits
-    ``SMEM_BUDGET``, else in a device-memory scratch.  Examples share a
+    takes at each level are :func:`parent_lanes`.  Its state sits in
+    shared memory while it fits ``SMEM_BUDGET``, else in a device-memory
+    scratch.  Examples share a
     block only while the batch exceeds the blocks the card holds at once
     and the block stays within ``MIN_BLOCK`` threads.  ``threads``,
     ``examples`` and ``in_smem`` force the partition (``in_smem=True``

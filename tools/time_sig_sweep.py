@@ -18,10 +18,10 @@ from ``--seed``, the terminal state comes from the forward kernel and the
 cotangent is random (the Table 1 cell: 2·S_T, the gradient of the sum of
 squares).  Each case holds the kernel's gradient against the float64
 plain sweep, |g − g_64| <= 1e-3·|g_64| + 1e-4·max|g_64|, then times it by
-CUDA events (median of ``--reps`` calls); ``--variants`` also times each partition
-the planner can choose, and ``--threads`` the planner's partition at each
-given count of threads an example.  Prints one line per case and a JSON line with
-the card's name and power limit.
+CUDA events (median of ``--reps`` calls); ``--variants`` also times
+each partition the planner can choose, and ``--threads`` the planner's
+partition at each given count of threads an example.  Prints one line
+per case and a JSON line with the card's name and power limit.
 """
 from __future__ import annotations
 
