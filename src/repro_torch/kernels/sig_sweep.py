@@ -21,7 +21,10 @@ inverse backwards call it.  :func:`sig_sweep` is the wrapper of the
 hand-written CUDA kernel (``csrc/sig_sweep.cu``), one launch a backward
 call, which ``SigTruncFunction`` and ``SigWordsFunction`` call: on a CPU
 tensor it runs the plain version, on a CUDA tensor it launches the kernel
-or raises.
+or raises.  The kernel runs the sweep levelwise over the tables of
+:func:`level_tables` (each row's parent, last letter and children, its
+chain values by target length, rows grouped by letter, each row's
+cotangent columns), partitioned by :func:`plan_sweep_launch`.
 """
 from __future__ import annotations
 
