@@ -22,7 +22,8 @@
 // For every step j from M down to 1, from the terminal state S_T and the
 // cotangents (G, over the rows):
 //  (a) one ascending pass over the levels below the top, one barrier a
-//      level, that is both the inverse step S_{j-1} = step(S_j, -dx_j)
+//      level (the last of them in one phase with its pull-back, (b)),
+//      that is both the inverse step S_{j-1} = step(S_j, -dx_j)
 //      (paper Prop. 4.6) and the forward chain at (S_{j-1}, dx_j): row w
 //      reads its parent's chain values and, in place,
 //        R^n[w] = S_j[w] - R^n[u] dx_i / (n-k+1),  R^n[eps] = 1,
@@ -61,7 +62,9 @@
 //
 // What the design does about it.  The work a step is the levelwise count
 // (each prefix's chain values computed once and shared by its
-// descendants), with no atomics, in 2N - 1 dependent phases (N the depth).
+// descendants), with no atomics, in 2N - 2 dependent phases from depth 3
+// (N the depth): the level below the top runs its inverse step and its
+// pull-back from the top level in one phase.
 // The increments and the slot table are staged a chunk of SS_CHUNK steps
 // ahead into shared memory, double-buffered, so a step loads nothing from
 // device memory but its cotangent.  In the pull-back a parent's children
@@ -181,8 +184,11 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
       for (int r = 1 + t; r <= W; r += T) gv[down[r].x] = G[r];
       __syncthreads();
     }
-    // (a) S_{j-1} in place, R and Q, levelwise from the first level
-    for (int k = 1; k < N; ++k) {
+    if (N == 2) __syncthreads();  // the fused level below reads G and
+                                  // writes gv (the last step's reduction)
+    // (a) S_{j-1} in place, R and Q, levelwise from the first level, up
+    // to the level below the top one, which (a') fuses with its pull-back
+    for (int k = 1; k < N - 1; ++k) {
       const int lo = q.lo[k], rows = q.lo[k + 1] - lo;
       const int prows = lo - q.lo[k - 1];
       const int ns = N - k;  // targets n = k+1..N
@@ -212,10 +218,55 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
       }
       __syncthreads();
     }
-    // (b) the pull-back, each parent from its children, top level first:
-    // a parent's q.lanes[k] lanes (a power of two, one warp at most) split
-    // its children and sum their partial cotangents with shuffles
-    for (int k = N - 1; k >= 1; --k) {
+    // (a') the level below the top, k = N-1: its rows' inverse step and
+    // their one chain target n = N, then at once their pull-back from the
+    // top level's children (whose G no pull-back changes), with no
+    // barrier between: every lane of a parent computes the parent's step
+    // and the first writes it back
+    if (N >= 2) {
+      const int k = N - 1, lo = q.lo[k], rows = q.lo[k + 1] - lo;
+      const int prows = lo - q.lo[k - 1];
+      const int sg = q.lanes[k], sh = __ffs(sg) - 1;
+      const int span = ((rows << sh) + 31) & ~31;  // whole warps
+      for (int v = t; v < span; v += T) {
+        const int pi = v >> sh, li = v & (sg - 1);
+        const bool own = pi < rows;
+        const int w = lo + (own ? pi : 0);
+        const int2 ul = up[w];  // parent's index in its level, letter
+        const float xi = dx[ul.y];
+        const float* ru = R + q.coff[k - 1] + ul.x;
+        const float* qu = Q + q.coff[k - 1] + ul.x;
+        const float sn = S[w] - (k == 1 ? 1.f : ru[0]) * xi;
+        // Q^N[w], over 1/(N-k) = 1
+        const float qn = sn + (k == 1 ? 1.f : qu[prows]) * xi * q.inv[2];
+        float acc = 0.f;
+        const int c1 = own ? child[w + 1] : 0;
+        for (int c = child[w] + li; c < c1; c += sg) {
+          const int2 dl = down[c];  // gv slot, letter
+          const float g0 = G[c];
+          gv[dl.x] = g0 * qn;
+          acc += g0 * dx[dl.y];
+        }
+        for (int o = 1; o < sg; o <<= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, o);
+        __syncwarp();  // every lane has read S[w] before the first writes
+        if (!own || li) continue;
+        S[w] = sn;
+        if (k > 1) {
+          C[q.coff[k] + (w - lo)] = acc;
+        } else {  // N = 2, level 1: the parent is eps, whose Q is 1
+          const float g0 = G[w];
+          G[w] = g0 + acc;
+          gv[down[w].x] = g0 + acc * q.inv[2];
+        }
+      }
+      __syncthreads();
+    }
+    // (b) the pull-back of the levels below, each parent from its
+    // children: a parent's q.lanes[k] lanes (a power of two, one warp at
+    // most) split its children and sum their partial cotangents with
+    // shuffles
+    for (int k = N - 2; k >= 1; --k) {
       const int lo = q.lo[k], rows = q.lo[k + 1] - lo;
       const int clo = q.lo[k + 1], crows = q.lo[k + 2] - clo;
       const int ns = N - k;  // targets n = k+1..N

@@ -300,10 +300,12 @@ def block_smem(lt: LevelTables, examples: int, in_smem: bool) -> int:
 
 def step_phases(depth: int) -> int:
     """Dependent phases of one reverse step: the inverse step with both
-    chains, levelwise, then the pull-back levelwise (a barrier after each
-    level), then the g_dx reduction; at depth 1, the cotangent copied into
-    gv between two barriers, then the reduction."""
-    return 2 * depth - 1 if depth > 1 else 2
+    chains, levelwise up to the level below the top, which is one phase
+    with its own pull-back, then the pull-back of the levels below it (a
+    barrier after each), then the g_dx reduction.  At depth 2 a barrier
+    comes first (the fused level reads every row's cotangent); at depth 1
+    the cotangent is copied into gv between two barriers."""
+    return 2 * depth - 2 if depth > 2 else depth + 1
 
 
 @dataclasses.dataclass(frozen=True)
