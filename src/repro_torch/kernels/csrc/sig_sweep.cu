@@ -75,10 +75,8 @@
 // row of its widest level and lanes for the pull-back up to a measured
 // 384 threads; an example's state (S, G, gv and the chain buffers) sits
 // in shared memory while it fits, else in a per-example scratch in device
-// memory with the same code; the tables every phase reads are copied
-// into shared memory where the block still fits (a phase's chain of
-// dependent loads starts with a table load); examples share a block only
-// past the blocks the card holds at once.
+// memory with the same code; examples share a block only past the blocks
+// the card holds at once.
 //
 // Precision.  fp32 throughout: under bf16_fp32 the increments are the
 // rounded ones the forward saw, passed in fp32.
@@ -93,7 +91,6 @@ namespace {
 struct LevelGeom {
   int B, M, d, W, depth, n_out, n_emit, T, E;
   int ex_floats;                 // floats of one example's state
-  int tab_floats;                // the tables' floats in shared memory, or 0
   int s_off, g_off, gv_off, r_off, q_off, c_off;  // in the example state
   int lo[SS_MAX_DEPTH + 2];      // first state row of each level
   int coff[SS_MAX_DEPTH + 1];    // first chain value of each level
@@ -139,51 +136,16 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
              const int* __restrict__ slots, float* __restrict__ scratch,
              float* __restrict__ gx, LevelGeom q) {
   extern __shared__ float smem[];
-  // the launch's level constants, indexed by level in every phase
-  __shared__ int lo_s[SS_MAX_DEPTH + 2], coff_s[SS_MAX_DEPTH + 1];
-  __shared__ int lanes_s[SS_MAX_DEPTH + 1];
-  __shared__ float inv_s[SS_MAX_DEPTH + 2];
   const int T = q.T, N = q.depth, W = q.W, d = q.d;
   const int ex = threadIdx.x / T, t = threadIdx.x - ex * T;
   const int cell = blockIdx.x * q.E + ex;  // this example's state slot
   const bool live = cell < q.B;
   const int b = live ? cell : q.B - 1;     // spare examples read the last
-  for (int k = threadIdx.x; k <= SS_MAX_DEPTH + 1; k += blockDim.x) {
-    lo_s[k] = q.lo[k];
-    inv_s[k] = q.inv[k];
-    if (k <= SS_MAX_DEPTH) {
-      coff_s[k] = q.coff[k];
-      lanes_s[k] = q.lanes[k];
-    }
-  }
-  // the tables every phase reads, copied into shared memory where they
-  // fit (q.tab_floats > 0): up (rows below the top), down (every row),
-  // child and letter_off
-  if (q.tab_floats) {
-    const int lt = q.lo[N];
-    int2* su = reinterpret_cast<int2*>(smem);
-    int2* sd = su + lt;
-    int* sc = reinterpret_cast<int*>(sd + W + 1);
-    int* sl = sc + lt + 1;
-    for (int r = threadIdx.x; r <= W; r += blockDim.x) {
-      if (r < lt) su[r] = up[r];
-      sd[r] = down[r];
-      if (r <= lt) sc[r] = child[r];
-      if (r <= d) sl[r] = letter_off[r];
-    }
-    for (int r = W + 1 + threadIdx.x; r <= d; r += blockDim.x)
-      sl[r] = letter_off[r];
-    up = su;
-    down = sd;
-    child = sc;
-    letter_off = sl;
-  }
-  __syncthreads();  // the constants and tables before their first use
-  int* ss = reinterpret_cast<int*>(smem + q.tab_floats);  // 2 SS_CHUNK
-  float* xs = smem + q.tab_floats + 2 * SS_CHUNK + ex * 2 * SS_CHUNK * d;
+  int* ss = reinterpret_cast<int*>(smem);  // 2 SS_CHUNK slots
+  float* xs = smem + 2 * SS_CHUNK + ex * 2 * SS_CHUNK * d;
   float* base = scratch ? scratch + (size_t)cell * q.ex_floats
-                        : smem + q.tab_floats + 2 * SS_CHUNK * (1 + q.E * d)
-                              + (size_t)ex * q.ex_floats;
+                        : smem + 2 * SS_CHUNK * (1 + q.E * d) +
+                              (size_t)ex * q.ex_floats;
   float* S = base + q.s_off;
   float* G = base + q.g_off;
   float* gv = base + q.gv_off;
@@ -192,7 +154,7 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
   float* C = base + q.c_off;
   const float* xb = x + (size_t)b * q.M * d;
   const float* sb = s_t + (size_t)b * W;
-  for (int r = t; r < lo_s[N]; r += T) S[r] = r ? sb[r - 1] : 1.f;
+  for (int r = t; r < q.lo[N]; r += T) S[r] = r ? sb[r - 1] : 1.f;
   // G by the rows the cotangent adds use (row 0 is never read)
   for (int r = 1 + t; r <= W; r += T) G[r] = 0.f;
   stage_chunk(xb, slots, xs, ss, 0, q.M, d, t, T, ex == 0);
@@ -227,16 +189,16 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
     // (a) S_{j-1} in place, R and Q, levelwise from the first level, up
     // to the level below the top one, which (a') fuses with its pull-back
     for (int k = 1; k < N - 1; ++k) {
-      const int lo = lo_s[k], rows = lo_s[k + 1] - lo;
-      const int prows = lo - lo_s[k - 1];
+      const int lo = q.lo[k], rows = q.lo[k + 1] - lo;
+      const int prows = lo - q.lo[k - 1];
       const int ns = N - k;  // targets n = k+1..N
       for (int w = lo + t; w < lo + rows; w += T) {
         const int2 ul = up[w];  // parent's index in its level, letter
         const float xi = dx[ul.y];
-        const float* ru = R + coff_s[k - 1] + ul.x;
-        const float* qu = Q + coff_s[k - 1] + ul.x;
-        float* rw = R + coff_s[k] + (w - lo);  // slots s < ns - 1
-        float* qw = Q + coff_s[k] + (w - lo);
+        const float* ru = R + q.coff[k - 1] + ul.x;
+        const float* qu = Q + q.coff[k - 1] + ul.x;
+        float* rw = R + q.coff[k] + (w - lo);  // slots s < ns - 1
+        float* qw = Q + q.coff[k] + (w - lo);
         const float so = S[w];
         const float sn = so - (k == 1 ? 1.f : ru[0]) * xi;
         S[w] = sn;
@@ -244,7 +206,7 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
         for (int s = 0; s < MAXD - 1; ++s) {
           if (s < ns) {
             // target n = k+1+s: the parent's slot s+1, scale 1/(s+2)
-            const float xm = xi * inv_s[s + 2];
+            const float xm = xi * q.inv[s + 2];
             const float pq = k == 1 ? 1.f : qu[(s + 1) * prows];
             qw[s * rows] = sn + pq * xm;
             if (s + 1 < ns) {  // R below the top level only
@@ -262,9 +224,9 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
     // barrier between: every lane of a parent computes the parent's step
     // and the first writes it back
     if (N >= 2) {
-      const int k = N - 1, lo = lo_s[k], rows = lo_s[k + 1] - lo;
-      const int prows = lo - lo_s[k - 1];
-      const int sg = lanes_s[k], sh = __ffs(sg) - 1;
+      const int k = N - 1, lo = q.lo[k], rows = q.lo[k + 1] - lo;
+      const int prows = lo - q.lo[k - 1];
+      const int sg = q.lanes[k], sh = __ffs(sg) - 1;
       const int span = ((rows << sh) + 31) & ~31;  // whole warps
       for (int v = t; v < span; v += T) {
         const int pi = v >> sh, li = v & (sg - 1);
@@ -272,11 +234,11 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
         const int w = lo + (own ? pi : 0);
         const int2 ul = up[w];  // parent's index in its level, letter
         const float xi = dx[ul.y];
-        const float* ru = R + coff_s[k - 1] + ul.x;
-        const float* qu = Q + coff_s[k - 1] + ul.x;
+        const float* ru = R + q.coff[k - 1] + ul.x;
+        const float* qu = Q + q.coff[k - 1] + ul.x;
         const float sn = S[w] - (k == 1 ? 1.f : ru[0]) * xi;
         // Q^N[w], over 1/(N-k) = 1
-        const float qn = sn + (k == 1 ? 1.f : qu[prows]) * xi * inv_s[2];
+        const float qn = sn + (k == 1 ? 1.f : qu[prows]) * xi * q.inv[2];
         float acc = 0.f;
         const int c1 = own ? child[w + 1] : 0;
         for (int c = child[w] + li; c < c1; c += sg) {
@@ -291,34 +253,34 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
         if (!own || li) continue;
         S[w] = sn;
         if (k > 1) {
-          C[coff_s[k] + (w - lo)] = acc;
+          C[q.coff[k] + (w - lo)] = acc;
         } else {  // N = 2, level 1: the parent is eps, whose Q is 1
           const float g0 = G[w];
           G[w] = g0 + acc;
-          gv[down[w].x] = g0 + acc * inv_s[2];
+          gv[down[w].x] = g0 + acc * q.inv[2];
         }
       }
       __syncthreads();
     }
     // (b) the pull-back of the levels below, each parent from its
-    // children: a parent's lanes_s[k] lanes (a power of two, one warp at
+    // children: a parent's q.lanes[k] lanes (a power of two, one warp at
     // most) split its children and sum their partial cotangents with
     // shuffles
     for (int k = N - 2; k >= 1; --k) {
-      const int lo = lo_s[k], rows = lo_s[k + 1] - lo;
-      const int clo = lo_s[k + 1], crows = lo_s[k + 2] - clo;
+      const int lo = q.lo[k], rows = q.lo[k + 1] - lo;
+      const int clo = q.lo[k + 1], crows = q.lo[k + 2] - clo;
       const int ns = N - k;  // targets n = k+1..N
-      const int sg = lanes_s[k], sh = __ffs(sg) - 1;
+      const int sg = q.lanes[k], sh = __ffs(sg) - 1;
       const int span = ((rows << sh) + 31) & ~31;  // whole warps
       for (int v = t; v < span; v += T) {
         const int pi = v >> sh, li = v & (sg - 1);
         const bool own = pi < rows;
         const int w = lo + (own ? pi : 0);
         float qs[MAXD - 1], acc[MAXD - 1];
-        const float* qw = Q + coff_s[k] + (w - lo);
+        const float* qw = Q + q.coff[k] + (w - lo);
 #pragma unroll
         for (int s = 0; s < MAXD - 1; ++s) {
-          qs[s] = s < ns ? qw[s * rows] * inv_s[s + 1] : 0.f;
+          qs[s] = s < ns ? qw[s * rows] * q.inv[s + 1] : 0.f;
           acc[s] = 0.f;
         }
         const int c1 = own ? child[w + 1] : 0;
@@ -329,7 +291,7 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
           float gvc = g0 * qs[0];
           acc[0] += g0 * xl;
           if (ns > 1) {  // the child keeps cot for targets k+2..N
-            const float* cc = C + coff_s[k + 1] + (c - clo);
+            const float* cc = C + q.coff[k + 1] + (c - clo);
             float gsum = 0.f;
 #pragma unroll
             for (int s = 1; s < MAXD - 1; ++s) {
@@ -351,19 +313,19 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
         }
         if (!own || li) continue;
         if (k > 1) {
-          float* cw = C + coff_s[k] + (w - lo);
+          float* cw = C + q.coff[k] + (w - lo);
 #pragma unroll
           for (int s = 0; s < MAXD - 1; ++s)
-            if (s < ns) cw[s * rows] = acc[s] * inv_s[s + 1];
+            if (s < ns) cw[s * rows] = acc[s] * q.inv[s + 1];
         } else {  // level 1: the parent is eps, whose Q is 1
           const float g0 = G[w];
           float gvw = g0, gsum = 0.f;
 #pragma unroll
           for (int s = 0; s < MAXD - 1; ++s) {
             if (s < ns) {
-              const float cv = acc[s] * inv_s[s + 1];
+              const float cv = acc[s] * q.inv[s + 1];
               gsum += cv;
-              gvw += cv * inv_s[s + 2];
+              gvw += cv * q.inv[s + 2];
             }
           }
           G[w] = g0 + gsum;
@@ -431,19 +393,17 @@ cudaError_t launch(const void* const* a, void* scratch, void* gx,
 // parent of level k takes in the pull-back (kernels/sig_sweep.py::
 // parent_lanes; lanes[0] unused).  scratch: (blocks·E, ex_floats) fp32
 // when the state does not fit shared memory, else null.  gx: (B, M, d)
-// fp32.  T threads an example, E examples a block.  tables: 1 to copy
-// up, down, child and letter_off into shared memory (tab_floats, from
-// kernels/sig_sweep.py::table_floats), 0 to read them from device memory.
-// A block takes 4·(tab_floats + 2·SS_CHUNK·(1 + E·d) + E·ex_floats)
-// bytes of dynamic shared memory (no ex_floats with a scratch).  Returns
-// the cudaError_t of the launch (0 on success).
+// fp32.  T threads an example, E examples a block.  A block takes
+// 4·(2·SS_CHUNK·(1 + E·d) + E·ex_floats) bytes of dynamic shared memory
+// (no ex_floats with a scratch).  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int sig_sweep_launch(
     const void* x, const void* s_t, const void* g, const void* up,
     const void* down, const void* child, const void* letter_off,
     const void* col_off, const void* cols, const void* slots, void* scratch,
     void* gx, int B, int M, int d, int W, int depth, int n_out, int n_emit,
     int T, int E, const int* lo, const int* coff, const int* lanes,
-    int ex_floats, int tables, void* stream) {
+    int ex_floats, void* stream) {
   if (B < 1 || M < 1 || d < 1 || W < 1 || n_out < 1 || n_emit < 1 ||
       depth < 1 || depth > SS_MAX_DEPTH || T < 32 || T % 32 || E < 1)
     return (int)cudaErrorInvalidValue;
@@ -458,10 +418,6 @@ extern "C" int sig_sweep_launch(
   q.T = T;
   q.E = E;
   q.ex_floats = ex_floats;
-  // up (lo[depth]) and down (W + 1) as int2, child (lo[depth] + 1) and
-  // letter_off (d + 1), rounded to 8 bytes
-  q.tab_floats = tables ? (3 * lo[depth] + 2 * (W + 1) + 1 + d + 1 + 1) & ~1
-                        : 0;
   for (int k = 0; k <= SS_MAX_DEPTH + 1; ++k) {
     q.lo[k] = k <= depth + 1 ? lo[k] : W + 1;
     q.inv[k] = k ? 1.f / k : 0.f;
@@ -482,8 +438,7 @@ extern "C" int sig_sweep_launch(
   if (q.c_off + chain != ex_floats) return (int)cudaErrorInvalidValue;
   const int blocks = (B + E - 1) / E;
   const size_t smem =
-      sizeof(float) * ((size_t)q.tab_floats +
-                       2 * SS_CHUNK * (1 + (size_t)E * d) +
+      sizeof(float) * (2 * SS_CHUNK * (1 + (size_t)E * d) +
                        (scratch ? 0 : (size_t)E * ex_floats));
   const void* a[10] = {x,       s_t,     g,    up,   down,
                        child,   letter_off, col_off, cols, slots};

@@ -291,22 +291,11 @@ def stage_floats(lt: LevelTables) -> int:
     return 2 * CHUNK * lt.d
 
 
-def table_floats(lt: LevelTables) -> int:
-    """Floats (rounded to 8 bytes) of the tables a block copies into
-    shared memory where they fit: ``up`` below the top level and ``down``
-    for every row (8 bytes each), ``child`` and ``letter_off``."""
-    n = 3 * int(lt.lo[lt.depth]) + 2 * (lt.W + 1) + 1 + lt.d + 1
-    return n + (n & 1)
-
-
-def block_smem(lt: LevelTables, examples: int, in_smem: bool,
-               tables: bool = False) -> int:
-    """Dynamic shared-memory bytes of a block: the tables where they are
-    copied in, the slot table's two chunks, and each example's staged
-    increments and, in shared memory, state."""
+def block_smem(lt: LevelTables, examples: int, in_smem: bool) -> int:
+    """Dynamic shared-memory bytes of a block: the slot table's two chunks,
+    and each example's staged increments and, in shared memory, state."""
     ex = stage_floats(lt) + (example_floats(lt) if in_smem else 0)
-    return 4 * ((table_floats(lt) if tables else 0) + 2 * CHUNK
-                + examples * ex)
+    return 4 * (2 * CHUNK + examples * ex)
 
 
 def step_phases(depth: int) -> int:
@@ -330,7 +319,6 @@ class SweepLaunch:
     blocks: int
     phases: int      # dependent phases a step
     lanes: tuple[int, ...]   # lanes a parent at levels 1..depth-1
-    tables_in_smem: bool     # the tables copied into shared memory
 
     @property
     def block(self) -> int:
@@ -405,9 +393,7 @@ def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
     to warps, within the instance's most threads; the lanes a parent then
     takes at each level are :func:`parent_lanes`.  Its state sits in
     shared memory while it fits ``SMEM_BUDGET``, else in a device-memory
-    scratch; the tables every phase reads (:func:`table_floats`) are
-    copied into shared memory where the block still fits, else read from
-    device memory.  Examples share a
+    scratch.  Examples share a
     block only while the batch exceeds the blocks the card holds at once
     and the block stays within ``MIN_BLOCK`` threads.  ``threads``,
     ``examples`` and ``in_smem`` force the partition (``in_smem=True``
@@ -443,11 +429,10 @@ def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
                          f"threads and {ex} bytes each; at most {most})")
     else:
         e = examples
-    tables = block_smem(lt, e, in_smem, True) <= SMEM_BUDGET
     return SweepLaunch(threads=T, examples=e, in_smem=in_smem, slots=slots,
-                       smem=block_smem(lt, e, in_smem, tables),
-                       blocks=-(-B // e), phases=step_phases(plan.depth),
-                       lanes=parent_lanes(lt, T), tables_in_smem=tables)
+                       smem=block_smem(lt, e, in_smem), blocks=-(-B // e),
+                       phases=step_phases(plan.depth),
+                       lanes=parent_lanes(lt, T))
 
 
 def partition_variants(B: int, plan: WordPlan) -> list[SweepLaunch]:
@@ -466,8 +451,7 @@ def partition_variants(B: int, plan: WordPlan) -> list[SweepLaunch]:
              plan_sweep_launch(B, plan, threads=cap)]
     for where in dict.fromkeys((own.in_smem, False)):
         one = plan_sweep_launch(B, plan, in_smem=where, examples=1)
-        lt = level_tables(plan)
-        ex = block_smem(lt, 2, where) - block_smem(lt, 1, where)
+        ex = block_smem(level_tables(plan), 2, where) - one.smem
         most = min(cap // one.threads, (SMEM_BUDGET - 8 * CHUNK) // ex, B)
         plans += [plan_sweep_launch(B, plan, in_smem=where, examples=e)
                   for e in sorted({1, min(2, most), most})]
@@ -488,7 +472,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_sweep_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 9 + [p] * 3 + [i] * 2 + [p]
+        fn.argtypes = [p] * 12 + [i] * 9 + [p] * 3 + [i] + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -525,7 +509,7 @@ def _launch(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
             None if scratch is None else scratch.data_ptr(), gx.data_ptr(),
             B, M, d, plan.closure_size, plan.depth, len(plan.words), n_emit,
             p.threads, p.examples, lo.ctypes.data, coff.ctypes.data,
-            lanes.ctypes.data, example_floats(lt), int(p.tables_in_smem),
+            lanes.ctypes.data, example_floats(lt),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"sig_sweep kernel launch failed with cudaError "

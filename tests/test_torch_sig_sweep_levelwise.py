@@ -223,15 +223,10 @@ def test_planner_limits(name, plan, B):
         assert p.slots == ss.depth_slots(plan.depth) >= plan.depth
         assert p.blocks == -(-B // p.examples)
         state = ss.example_floats(lt) if p.in_smem else 0
-        tables = ss.table_floats(lt) if p.tables_in_smem else 0
-        assert p.smem == 4 * (tables + 2 * ss.CHUNK + p.examples * (
+        assert p.smem == 4 * (2 * ss.CHUNK + p.examples * (
             state + 2 * ss.CHUNK * plan.d))
-        assert p.smem == ss.block_smem(lt, p.examples, p.in_smem,
-                                       p.tables_in_smem)
+        assert p.smem == ss.block_smem(lt, p.examples, p.in_smem)
         assert p.smem <= ss.SMEM_BUDGET
-        # the tables go to shared memory exactly where the block fits
-        assert p.tables_in_smem == (ss.block_smem(
-            lt, p.examples, p.in_smem, True) <= ss.SMEM_BUDGET)
         assert p.phases == ss.step_phases(plan.depth)
     assert own.threads == min(ss.MAX_BLOCK[own.slots], max(
         -(-ss.widest_level(lt) // 32) * 32,
@@ -251,7 +246,6 @@ def test_planner_limits(name, plan, B):
         assert own.block <= ss.MIN_BLOCK
         assert -(-B // (own.examples // 2)) > ss.resident_blocks(
             own.block // 2, ss.block_smem(lt, own.examples // 2, True))
-    assert own.tables_in_smem   # every closure here is small
     assert {p.in_smem for p in variants} == {True, False}
     assert 32 in {p.threads for p in variants}
 
@@ -265,10 +259,6 @@ def test_planner_at_the_sweep_shapes(d, N):
     fits = 4 * (ss.example_floats(ss.level_tables(plan)) + 2 * ss.CHUNK
                 * (d + 1)) <= ss.SMEM_BUDGET
     assert p.in_smem == fits == ((d, N) not in [(10, 5), (40, 3)])
-    # (6, 5): 9,330 rows, state and tables in 196 KB; the scratch cells'
-    # tables (111,111 and 65,641 rows a down table) stay in device memory
-    assert p.tables_in_smem == fits
-    assert ss.table_floats(ss.level_tables(plan)) % 2 == 0
     if not fits:
         with pytest.raises(ValueError, match="state needs"):
             ss.plan_sweep_launch(128, plan, in_smem=True)
