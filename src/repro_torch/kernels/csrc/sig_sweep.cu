@@ -64,10 +64,10 @@
 // (each prefix's chain values computed once and shared by its
 // descendants), with no atomics, in 2N - 2 dependent phases from depth 3
 // (N the depth): the level below the top runs its inverse step and its
-// pull-back from the top level in one phase.
-// The increments and the slot table are staged a chunk of SS_CHUNK steps
-// ahead into shared memory, double-buffered, so a step loads nothing from
-// device memory but its cotangent.  In the pull-back a parent's children
+// pull-back from the top level in one phase.  The increments and the slot
+// table are staged a chunk of SS_CHUNK steps ahead into shared memory,
+// double-buffered, so a step loads nothing from device memory but its
+// cotangent.  In the pull-back a parent's children
 // are split over up to a warp of lanes (a power of two a level, from the
 // host), which sum their partial cotangents with shuffles: a phase waits
 // on a few children a lane, not on every child in turn.  The host
@@ -184,8 +184,10 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
       for (int r = 1 + t; r <= W; r += T) gv[down[r].x] = G[r];
       __syncthreads();
     }
-    if (N == 2) __syncthreads();  // the fused level below reads G and
-                                  // writes gv (the last step's reduction)
+    // at depth 2 the fused level (a') is the step's first phase: it reads
+    // the cotangents just added and writes gv, which the last step's
+    // reduction reads
+    if (N == 2) __syncthreads();
     // (a) S_{j-1} in place, R and Q, levelwise from the first level, up
     // to the level below the top one, which (a') fuses with its pull-back
     for (int k = 1; k < N - 1; ++k) {

@@ -94,8 +94,8 @@ def sweep_geometry(W: int, d: int, depth: int) -> tuple[int, int, bool]:
     kernel no longer runs (:func:`plan_sweep_launch` plans its launch): a
     thread a row up to 1,024 threads to depth 8, 512 deeper, and the state
     and two cotangent buffers, 3 (W + 1) floats, in shared memory while
-    they fit ``SMEM_BUDGET``, else in device memory.  It still says
-    whether a closure's full state fits a block."""
+    they fit ``SMEM_BUDGET``, else in device memory.  Nothing in the
+    port calls it; its tests hold its contract."""
     if depth > MAX_DEPTH:
         raise ValueError(f"words of length {depth} exceed the kernel's "
                          f"MAX_DEPTH {MAX_DEPTH}")

@@ -356,19 +356,3 @@ def test_levelwise_walk_matches_the_truncated_bwd_scans(d, N, stride):
             want = js.inverse_bwd_scan(jnp.asarray(x), jnp.asarray(S_T),
                                        jnp.asarray(g[:, 0]), N)
         np.testing.assert_allclose(got, np.asarray(want), **TOL64)
-
-
-@pytest.mark.parametrize("stride", [0, 3])
-def test_levelwise_walk_at_the_sec8_closure(stride):
-    """The §8 sparse step's 285-row closure over 10 letters."""
-    plan = tw.make_plan(sec8_words(), 10)
-    M = 5
-    x, S_T, g = _inputs(plan, 8, 1, M, stride)
-    got = levelwise_sweep(x, ss.level_tables(plan), S_T, g,
-                          ss.emit_slot_table(M, stride))
-    want = ss.sig_sweep_plain(torch.from_numpy(x), plan,
-                              torch.from_numpy(S_T),
-                              torch.from_numpy(g if stride else g[:, 0]),
-                              stream=bool(stride),
-                              stream_stride=stride or 1)
-    np.testing.assert_allclose(got, want.numpy(), **TOL64)
