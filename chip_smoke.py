@@ -107,9 +107,9 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              bf16 rounding enters only through the increments, which both
              share.  Then every partition the planner can choose
              (sig_sweep.partition_variants: its own, one warp, a thread a
-             row of the widest level and the most threads an example;
-             shared memory and the device-memory scratch, each with one,
-             two and the most examples a block), forced, over the same
+             row of the widest level and the most threads an example,
+             a block an example; and its own threads with the state in
+             the device-memory scratch), forced, over the same
              closures at B = 5, M = 37, terminal and stride 3: each within
              the same rule, and a second run bitwise equal (the kernel
              has no atomics).
@@ -153,8 +153,10 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              streamed cell; the sig_words row with its cases: §8 terminal,
              §8 streamed, the largest Table 3 set; the sig_sweep row with
              its cases: largest Table 1 train cell, §8 sparse step, §8
-             truncated step, each with µs a step, dependent phases a step
-             and partition, and its instances' ptxas registers and stack;
+             truncated step, each with µs a step and partition, and its
+             instances' ptxas registers and stack; the dependent phases a
+             step as the kernel is written, design_phases, is a count of
+             its layout (sig_sweep.step_phases), not a measurement;
              each with ms, bound and partition), the card's name and power
              limit, then the device line last.
 
@@ -1243,7 +1245,7 @@ def phase_sweep(rng, sets) -> dict:
                 st.SigTruncFunction.apply(t, N, None, stream, stride,
                                           precision), x, plan,
                 f"sig_sweep (sig_trunc) d={d} N={N} M={M}")
-        where = "shared" if ss.plan_sweep_launch(5, plan).in_smem \
+        where = "shared" if ss.plan_sweep_launch(plan).in_smem \
             else "device"
         n = need[f"{d},{N}"]
         print(f"[sweep] truncated d={d:2d} N={N} (W={plan.closure_size}, "
@@ -1289,7 +1291,7 @@ def sweep_partitions(rng, plans) -> tuple[int, float]:
             want = ss.sig_sweep_plain(x.double(), plan, S_T, co,
                                       stream=bool(stride),
                                       stream_stride=stride or 1)
-            for p in ss.partition_variants(B, plan):
+            for p in ss.partition_variants(plan):
                 got = ss._launch(x, plan, S_T.float(), co.float(), stride, p)
                 again = ss._launch(x, plan, S_T.float(), co.float(), stride,
                                    p)
@@ -1322,11 +1324,10 @@ def time_sweep(incs: torch.Tensor, plan, S_T: torch.Tensor,
     again = ss.sig_sweep(incs, plan, S_T, g)
     check(torch.equal(got, again), f"{where}: two sig_sweep runs differ")
     t = cuda_ms(lambda: ss.sig_sweep(incs, plan, S_T, g), 5)
-    p = ss.plan_sweep_launch(B, plan)
-    return dict(ms=t, us_per_step=1e3 * t / M, phases=p.phases,
+    p = ss.plan_sweep_launch(plan)
+    return dict(ms=t, us_per_step=1e3 * t / M,
                 partition=dict(threads=p.threads, lanes=list(p.lanes),
-                               examples=p.examples, in_smem=p.in_smem,
-                               blocks=p.blocks, smem=p.smem),
+                               in_smem=p.in_smem, smem=p.smem),
                 plain_ms=cuda_ms(lambda: ss.sig_sweep_plain(
                     incs, plan, S_T, g), 1),
                 bound_ms=bms, bound_by=by, W=plan.closure_size,
@@ -1687,7 +1688,7 @@ def main() -> int:
                         shape=[big[k] for k in "BMdN"], W=big["sweep_W"],
                         value_and_grad_ms=big["ms"],
                         **{k: big[f"sweep_{k}"] for k in (
-                            "ms", "us_per_step", "phases", "partition",
+                            "ms", "us_per_step", "partition",
                             "plain_ms", "bound_ms", "bound_by")})]
     for kind, case in (("sparse", "§8 sparse step"),
                        ("truncated", "§8 truncated step")):
@@ -1695,7 +1696,7 @@ def main() -> int:
         sweep_cases.append(dict(case=case, shape=h["shape"], W=h["W"],
                                 step_ms=h["step_ms"], **{
                                     k: h["sweep"][k] for k in (
-                                        "ms", "us_per_step", "phases",
+                                        "ms", "us_per_step",
                                         "partition", "plain_ms", "bound_ms",
                                         "bound_by")}))
     sp = hurst["sparse"]["sweep"]
@@ -1711,7 +1712,9 @@ def main() -> int:
         max_abs_err=sweep["max_abs_err"], ms=sp["ms"],
         plain_ms=sp["plain_ms"], bound_ms=sp["bound_ms"],
         bound_by=sp["bound_by"], library_ms=None,
-        us_per_step=sp["us_per_step"], phases=sp["phases"],
+        us_per_step=sp["us_per_step"],
+        design_phases={str(n): ss.step_phases(n) for n in sorted(
+            {c["shape"][3] for c in sweep_cases})},
         partitions_checked=sweep["partitions"],
         ptxas=ptxas.get("sig_sweep", {}), cases=sweep_cases))
     if args.out:

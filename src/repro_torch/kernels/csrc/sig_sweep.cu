@@ -62,9 +62,10 @@
 //
 // What the design does about it.  The work a step is the levelwise count
 // (each prefix's chain values computed once and shared by its
-// descendants), with no atomics, in 2N - 2 dependent phases from depth 3
-// (N the depth): the level below the top runs its inverse step and its
-// pull-back from the top level in one phase.  The increments and the slot
+// descendants), with no atomics, in 2N - 3 barriers a step from depth 3
+// (N the depth), so 2N - 2 dependent phases with the g_dx reduction, which
+// runs into the next step's first phase: the level below the top runs its
+// inverse step and its pull-back from the top level in one phase.  The increments and the slot
 // table are staged a chunk of SS_CHUNK steps ahead into shared memory,
 // double-buffered, so a step loads nothing from device memory but its
 // cotangent.  In the pull-back a parent's children
@@ -73,10 +74,9 @@
 // on a few children a lane, not on every child in turn.  The host
 // (kernels/sig_sweep.py::plan_sweep_launch) gives an example a thread a
 // row of its widest level and lanes for the pull-back up to a measured
-// 384 threads; an example's state (S, G, gv and the chain buffers) sits
-// in shared memory while it fits, else in a per-example scratch in device
-// memory with the same code; examples share a block only past the blocks
-// the card holds at once.
+// 384 threads, one example a block; an example's state (S, G, gv and
+// the chain buffers) sits in shared memory while it fits, else in a
+// per-example scratch in device memory with the same code.
 //
 // Precision.  fp32 throughout: under bf16_fp32 the increments are the
 // rounded ones the forward saw, passed in fp32.
@@ -89,7 +89,7 @@
 namespace {
 
 struct LevelGeom {
-  int B, M, d, W, depth, n_out, n_emit, T, E;
+  int B, M, d, W, depth, n_out, n_emit, T;
   int ex_floats;                 // floats of one example's state
   int s_off, g_off, gv_off, r_off, q_off, c_off;  // in the example state
   int lo[SS_MAX_DEPTH + 2];      // first state row of each level
@@ -100,18 +100,20 @@ struct LevelGeom {
 
 // Most threads a block of the MAXD instance (words up to MAXD letters) may
 // have: a parent's MAXD - 1 partial cotangents and scaled Q stay in
-// registers (64 a thread at 1,024 threads, 128 at 512).
+// registers (64 a thread at 1,024 threads, 128 at 512).  The host keeps
+// instances for words of up to 4, 5, 8 and 16 letters: a depth runs in the
+// smallest that holds it, since a larger one issues its unused slots and
+// the 8-letter one spills at 1,024 threads.
 template <int MAXD> struct Bounds {
   static constexpr int threads = MAXD <= 8 ? 1024 : 512;
 };
 
 // Stage chunk c (steps M-1-c·SS_CHUNK downwards) of this example's
-// increments, and (by example 0's threads) of the slot table, into
-// buffer c & 1.
+// increments and of the slot table into buffer c & 1.
 __device__ __forceinline__ void stage_chunk(const float* __restrict__ xb,
                                             const int* __restrict__ slots,
                                             float* xs, int* ss, int c, int M,
-                                            int d, int t, int T, bool first) {
+                                            int d, int t, int T) {
   const int top = M - 1 - c * SS_CHUNK;
   if (top < 0) return;
   const int steps = min(SS_CHUNK, top + 1);
@@ -121,9 +123,8 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ xb,
     const int p = e / d, i = e - p * d;
     xd[e] = xb[(size_t)(top - p) * d + i];
   }
-  if (first)
-    for (int p = t; p < steps; p += T)
-      ss[(c & 1) * SS_CHUNK + p] = slots[top - p];
+  for (int p = t; p < steps; p += T)
+    ss[(c & 1) * SS_CHUNK + p] = slots[top - p];
 }
 
 template <int MAXD>
@@ -137,15 +138,11 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
              float* __restrict__ gx, LevelGeom q) {
   extern __shared__ float smem[];
   const int T = q.T, N = q.depth, W = q.W, d = q.d;
-  const int ex = threadIdx.x / T, t = threadIdx.x - ex * T;
-  const int cell = blockIdx.x * q.E + ex;  // this example's state slot
-  const bool live = cell < q.B;
-  const int b = live ? cell : q.B - 1;     // spare examples read the last
-  int* ss = reinterpret_cast<int*>(smem);  // 2 SS_CHUNK slots
-  float* xs = smem + 2 * SS_CHUNK + ex * 2 * SS_CHUNK * d;
-  float* base = scratch ? scratch + (size_t)cell * q.ex_floats
-                        : smem + 2 * SS_CHUNK * (1 + q.E * d) +
-                              (size_t)ex * q.ex_floats;
+  const int t = threadIdx.x, b = blockIdx.x;  // one example a block
+  int* ss = reinterpret_cast<int*>(smem);     // 2 SS_CHUNK slots
+  float* xs = smem + 2 * SS_CHUNK;            // 2 SS_CHUNK steps of dx
+  float* base = scratch ? scratch + (size_t)b * q.ex_floats
+                        : smem + 2 * SS_CHUNK * (1 + d);
   float* S = base + q.s_off;
   float* G = base + q.g_off;
   float* gv = base + q.gv_off;
@@ -157,14 +154,14 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
   for (int r = t; r < q.lo[N]; r += T) S[r] = r ? sb[r - 1] : 1.f;
   // G by the rows the cotangent adds use (row 0 is never read)
   for (int r = 1 + t; r <= W; r += T) G[r] = 0.f;
-  stage_chunk(xb, slots, xs, ss, 0, q.M, d, t, T, ex == 0);
+  stage_chunk(xb, slots, xs, ss, 0, q.M, d, t, T);
   __syncthreads();
   const int lane = t & 31, warp = t >> 5, nwarps = T >> 5;
 
   for (int j = q.M - 1; j >= 0; --j) {
     const int c = (q.M - 1 - j) / SS_CHUNK, p = (q.M - 1 - j) - c * SS_CHUNK;
     if (p == 0)  // the next chunk, a chunk ahead
-      stage_chunk(xb, slots, xs, ss, c + 1, q.M, d, t, T, ex == 0);
+      stage_chunk(xb, slots, xs, ss, c + 1, q.M, d, t, T);
     const float* dx = xs + ((c & 1) * SS_CHUNK + p) * d;
     // the step's cotangent, when the step is emitted, each row's columns
     // in ascending order
@@ -354,7 +351,7 @@ sweep_kernel(const float* __restrict__ x, const float* __restrict__ s_t,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0 && live) gj[i] = sum;
+      if (lane == 0) gj[i] = sum;
     }
   }
 }
@@ -393,21 +390,21 @@ cudaError_t launch(const void* const* a, void* scratch, void* gx,
 // host int32 arrays, the first state row and the first chain value of each
 // level; lanes (depth,) host int32, lanes[k] the lanes (1, 2, .., 32) a
 // parent of level k takes in the pull-back (kernels/sig_sweep.py::
-// parent_lanes; lanes[0] unused).  scratch: (blocks·E, ex_floats) fp32
-// when the state does not fit shared memory, else null.  gx: (B, M, d)
-// fp32.  T threads an example, E examples a block.  A block takes
-// 4·(2·SS_CHUNK·(1 + E·d) + E·ex_floats) bytes of dynamic shared memory
-// (no ex_floats with a scratch).  Returns the cudaError_t of the launch
-// (0 on success).
+// parent_lanes; lanes[0] unused).  scratch: (B, ex_floats) fp32 when the
+// state does not fit shared memory, else null.  gx: (B, M, d) fp32.  One
+// block of T threads an example, which takes
+// 4·(2·SS_CHUNK·(1 + d) + ex_floats) bytes of dynamic shared memory (no
+// ex_floats with a scratch).  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int sig_sweep_launch(
     const void* x, const void* s_t, const void* g, const void* up,
     const void* down, const void* child, const void* letter_off,
     const void* col_off, const void* cols, const void* slots, void* scratch,
     void* gx, int B, int M, int d, int W, int depth, int n_out, int n_emit,
-    int T, int E, const int* lo, const int* coff, const int* lanes,
+    int T, const int* lo, const int* coff, const int* lanes,
     int ex_floats, void* stream) {
   if (B < 1 || M < 1 || d < 1 || W < 1 || n_out < 1 || n_emit < 1 ||
-      depth < 1 || depth > SS_MAX_DEPTH || T < 32 || T % 32 || E < 1)
+      depth < 1 || depth > SS_MAX_DEPTH || T < 32 || T % 32)
     return (int)cudaErrorInvalidValue;
   LevelGeom q;
   q.B = B;
@@ -418,7 +415,6 @@ extern "C" int sig_sweep_launch(
   q.n_out = n_out;
   q.n_emit = n_emit;
   q.T = T;
-  q.E = E;
   q.ex_floats = ex_floats;
   for (int k = 0; k <= SS_MAX_DEPTH + 1; ++k) {
     q.lo[k] = k <= depth + 1 ? lo[k] : W + 1;
@@ -438,18 +434,16 @@ extern "C" int sig_sweep_launch(
   q.q_off = q.r_off + chain;
   q.c_off = q.q_off + chain;
   if (q.c_off + chain != ex_floats) return (int)cudaErrorInvalidValue;
-  const int blocks = (B + E - 1) / E;
-  const size_t smem =
-      sizeof(float) * (2 * SS_CHUNK * (1 + (size_t)E * d) +
-                       (scratch ? 0 : (size_t)E * ex_floats));
+  const size_t smem = sizeof(float) * (2 * SS_CHUNK * (1 + (size_t)d) +
+                                       (scratch ? 0 : (size_t)ex_floats));
   const void* a[10] = {x,       s_t,     g,    up,   down,
                        child,   letter_off, col_off, cols, slots};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (depth <= 3)
-    return (int)launch<3>(a, scratch, gx, blocks, T * E, smem, q, st);
+  if (depth <= 4)
+    return (int)launch<4>(a, scratch, gx, B, T, smem, q, st);
   if (depth <= 5)
-    return (int)launch<5>(a, scratch, gx, blocks, T * E, smem, q, st);
+    return (int)launch<5>(a, scratch, gx, B, T, smem, q, st);
   if (depth <= 8)
-    return (int)launch<8>(a, scratch, gx, blocks, T * E, smem, q, st);
-  return (int)launch<16>(a, scratch, gx, blocks, T * E, smem, q, st);
+    return (int)launch<8>(a, scratch, gx, B, T, smem, q, st);
+  return (int)launch<16>(a, scratch, gx, B, T, smem, q, st);
 }

@@ -43,16 +43,12 @@ from .cache import plan_cache
 # opt-in maximum, 232,448 bytes, less a margin)
 SMEM_BUDGET = 232_448 - 1024
 MAX_DEPTH = 16        # SS_MAX_DEPTH
-DEPTH_SLOTS = (3, 5, 8, 16)   # deepest word of each kernel instance
-MAX_BLOCK = {3: 1024, 5: 1024, 8: 1024, 16: 512}   # most threads a block
+# deepest word of each kernel instance: a parent keeps depth - 1 chain
+# values in registers, and at depth 5 the 8-letter instance spills
+DEPTH_SLOTS = (4, 5, 8, 16)
+MAX_BLOCK = {4: 1024, 5: 1024, 8: 1024, 16: 512}   # most threads a block
 REDUCE_WARPS = 8      # the planner's warps for the g_dx reduction
 PULL_THREADS = 384    # the planner's most threads for the pull-back's lanes
-MIN_BLOCK = 128       # examples share a block only below this many threads
-SMS = 132             # streaming multiprocessors of an H100 SXM
-SM_THREADS = 2048     # resident threads an SM
-SM_BLOCKS = 32        # resident blocks an SM
-SM_SMEM = 233_472     # shared memory an SM gives its blocks (228 KB)
-SMEM_RESERVED = 1024  # the runtime's shared memory a block
 CHUNK = 32            # SS_CHUNK: steps of increments staged at once
 
 # launch counter, bumped where the kernel is launched
@@ -133,10 +129,6 @@ class LevelTables:
     # column order): row r adds columns cols[col_off[r]:col_off[r+1]]
     col_off: np.ndarray     # (W + 2,) int32
     cols: np.ndarray        # (n_out,) int32
-    # what the kernel loads for a row, 8 bytes at once: (its parent's index
-    # within the parent's level, its letter), and (gv_pos, letter)
-    up: np.ndarray          # (W + 1, 2) int32
-    down: np.ndarray        # (W + 1, 2) int32
 
     @property
     def W(self) -> int:
@@ -177,14 +169,20 @@ def level_tables(plan: WordPlan) -> LevelTables:
     cols = np.argsort(t.out_rows, kind="stable").astype(np.int32)
     col_off = np.searchsorted(t.out_rows[cols], np.arange(W + 2),
                               side="left").astype(np.int32)
-    level = np.searchsorted(lo, np.arange(W + 1), side="right") - 1
-    first = lo[np.maximum(level - 1, 0)]
-    up = np.stack([parent - first, letter], 1).astype(np.int32)
-    down = np.stack([gv_pos, letter], 1).astype(np.int32)
     return LevelTables(d=d, depth=N, lo=lo, parent=parent, letter=letter,
                        child=child, chain_off=chain_off, gv_pos=gv_pos,
-                       letter_off=letter_off, col_off=col_off, cols=cols,
-                       up=up, down=down)
+                       letter_off=letter_off, col_off=col_off, cols=cols)
+
+
+def row_pairs(lt: LevelTables) -> tuple[np.ndarray, np.ndarray]:
+    """What the kernel loads for a row, 8 bytes at once: ``up`` (W + 1, 2),
+    its parent's index within the parent's level and its letter, and
+    ``down`` (W + 1, 2), its gv slot and its letter."""
+    level = np.searchsorted(lt.lo, np.arange(lt.W + 1), side="right") - 1
+    first = lt.lo[np.maximum(level - 1, 0)]
+    up = np.stack([lt.parent - first, lt.letter], 1).astype(np.int32)
+    down = np.stack([lt.gv_pos, lt.letter], 1).astype(np.int32)
+    return up, down
 
 
 @plan_cache
@@ -291,18 +289,22 @@ def stage_floats(lt: LevelTables) -> int:
     return 2 * CHUNK * lt.d
 
 
-def block_smem(lt: LevelTables, examples: int, in_smem: bool) -> int:
-    """Dynamic shared-memory bytes of a block: the slot table's two chunks,
-    and each example's staged increments and, in shared memory, state."""
+def block_smem(lt: LevelTables, in_smem: bool) -> int:
+    """Dynamic shared-memory bytes of a block, which holds one example: the
+    slot table's two chunks, the staged increments and, in shared memory,
+    the state."""
     ex = stage_floats(lt) + (example_floats(lt) if in_smem else 0)
-    return 4 * (2 * CHUNK + examples * ex)
+    return 4 * (2 * CHUNK + ex)
 
 
 def step_phases(depth: int) -> int:
-    """Dependent phases of one reverse step: the inverse step with both
+    """Dependent phases of one reverse step as the kernel is written (a
+    count of its layout, not a measurement): the inverse step with both
     chains, levelwise up to the level below the top, which is one phase
     with its own pull-back, then the pull-back of the levels below it (a
-    barrier after each), then the g_dx reduction.  At depth 2 a barrier
+    barrier after each), then the g_dx reduction, which runs into the next
+    step's first phase with no barrier between.  So from depth 3 a step
+    has 2·depth - 3 barriers and 2·depth - 2 phases.  At depth 2 a barrier
     comes first (the fused level reads every row's cotangent); at depth 1
     the cotangent is copied into gv between two barriers."""
     return 2 * depth - 2 if depth > 2 else depth + 1
@@ -310,19 +312,13 @@ def step_phases(depth: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SweepLaunch:
-    """A partition of the levelwise sweep."""
+    """A partition of the levelwise sweep: a block of ``threads`` an
+    example."""
     threads: int     # an example's threads, a multiple of 32
-    examples: int    # examples a block
     in_smem: bool    # the state in shared memory, else a device scratch
     slots: int       # the instance's chain slots (DEPTH_SLOTS)
     smem: int        # dynamic shared-memory bytes a block
-    blocks: int
-    phases: int      # dependent phases a step
     lanes: tuple[int, ...]   # lanes a parent at levels 1..depth-1
-
-    @property
-    def block(self) -> int:
-        return self.threads * self.examples
 
 
 def _warps(n: int) -> int:
@@ -371,18 +367,10 @@ def pull_threads(lt: LevelTables) -> int:
                 for k in range(1, lt.depth)], default=0)
 
 
-def resident_blocks(block: int, smem: int) -> int:
-    """Blocks of ``block`` threads and ``smem`` bytes the card holds at
-    once."""
-    by_smem = SM_SMEM // max(smem + SMEM_RESERVED, 1)
-    return SMS * max(0, min(SM_BLOCKS, SM_THREADS // block, by_smem))
-
-
 @plan_cache
-def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
-                      examples: int | None = None,
+def plan_sweep_launch(plan: WordPlan, *, threads: int | None = None,
                       in_smem: bool | None = None) -> SweepLaunch:
-    """The kernel's partition for a (B, ·, d) batch over ``plan``'s closure.
+    """The kernel's partition over ``plan``'s closure, a block an example.
 
     An example gets a thread for each row of its widest level
     (:func:`widest_level`), a lane for each child the pull-back pulls at
@@ -393,11 +381,8 @@ def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
     to warps, within the instance's most threads; the lanes a parent then
     takes at each level are :func:`parent_lanes`.  Its state sits in
     shared memory while it fits ``SMEM_BUDGET``, else in a device-memory
-    scratch.  Examples share a
-    block only while the batch exceeds the blocks the card holds at once
-    and the block stays within ``MIN_BLOCK`` threads.  ``threads``,
-    ``examples`` and ``in_smem`` force the partition (``in_smem=True``
-    raises where the state does not fit)."""
+    scratch.  ``threads`` and ``in_smem`` force the partition
+    (``in_smem=True`` raises where the state does not fit)."""
     lt = level_tables(plan)
     slots = depth_slots(plan.depth)
     cap = MAX_BLOCK[slots]
@@ -410,51 +395,30 @@ def plan_sweep_launch(B: int, plan: WordPlan, *, threads: int | None = None,
                          f" got {threads}")
     else:
         T = threads
-    fits = block_smem(lt, 1, True) <= SMEM_BUDGET
+    fits = block_smem(lt, True) <= SMEM_BUDGET
     if in_smem is None:
         in_smem = fits
     elif in_smem and not fits:
-        raise ValueError(f"an example's state needs {block_smem(lt, 1, True)}"
+        raise ValueError(f"an example's state needs {block_smem(lt, True)}"
                          f" bytes, above the {SMEM_BUDGET} a block may take")
-    ex = block_smem(lt, 2, in_smem) - block_smem(lt, 1, in_smem)
-    most = min(cap // T, (SMEM_BUDGET - 8 * CHUNK) // ex)
-    if examples is None:
-        e = 1
-        while (2 * e <= most and 2 * e * T <= MIN_BLOCK
-               and -(-B // e) > resident_blocks(e * T, block_smem(
-                   lt, e, in_smem))):
-            e *= 2
-    elif not 1 <= examples <= most:
-        raise ValueError(f"{examples} examples a block do not fit ({T} "
-                         f"threads and {ex} bytes each; at most {most})")
-    else:
-        e = examples
-    return SweepLaunch(threads=T, examples=e, in_smem=in_smem, slots=slots,
-                       smem=block_smem(lt, e, in_smem), blocks=-(-B // e),
-                       phases=step_phases(plan.depth),
+    return SweepLaunch(threads=T, in_smem=in_smem, slots=slots,
+                       smem=block_smem(lt, in_smem),
                        lanes=parent_lanes(lt, T))
 
 
-def partition_variants(B: int, plan: WordPlan) -> list[SweepLaunch]:
-    """Every partition the planner can choose for a (B, ·, d) batch: its
-    own; one warp an example, a thread a row of the widest level (one lane
-    a parent where the parents fill them) and the instance's most threads;
-    the state in
-    shared memory (where it fits) and in a device-memory scratch, each
-    with one example a block, two, and the most that fit (at most B).
-    For tests and chip_smoke.py."""
-    own = plan_sweep_launch(B, plan)
+def partition_variants(plan: WordPlan) -> list[SweepLaunch]:
+    """Every partition the planner can choose: its own; one warp an
+    example, a thread a row of the widest level (one lane a parent where
+    the parents fill them) and the instance's most threads; and its own
+    threads with the state in a device-memory scratch.  For tests and
+    chip_smoke.py."""
+    own = plan_sweep_launch(plan)
     cap = MAX_BLOCK[own.slots]
     rows = min(cap, _warps(widest_level(level_tables(plan))))
-    plans = [own, plan_sweep_launch(B, plan, threads=32),
-             plan_sweep_launch(B, plan, threads=rows),
-             plan_sweep_launch(B, plan, threads=cap)]
-    for where in dict.fromkeys((own.in_smem, False)):
-        one = plan_sweep_launch(B, plan, in_smem=where, examples=1)
-        ex = block_smem(level_tables(plan), 2, where) - one.smem
-        most = min(cap // one.threads, (SMEM_BUDGET - 8 * CHUNK) // ex, B)
-        plans += [plan_sweep_launch(B, plan, in_smem=where, examples=e)
-                  for e in sorted({1, min(2, most), most})]
+    plans = [own, plan_sweep_launch(plan, threads=32),
+             plan_sweep_launch(plan, threads=rows),
+             plan_sweep_launch(plan, threads=cap),
+             plan_sweep_launch(plan, in_smem=False)]
     return list(dict.fromkeys(plans))
 
 
@@ -463,7 +427,7 @@ def _level_tables_on(plan: WordPlan,
                      device: torch.device) -> list[torch.Tensor]:
     lt = level_tables(plan)
     return [torch.as_tensor(np.ascontiguousarray(a), device=device)
-            for a in (lt.up, lt.down, lt.child, lt.letter_off, lt.col_off,
+            for a in (*row_pairs(lt), lt.child, lt.letter_off, lt.col_off,
                       lt.cols)]
 
 
@@ -472,7 +436,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_sweep_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 9 + [p] * 3 + [i] + [p]
+        fn.argtypes = [p] * 12 + [i] * 8 + [p] * 3 + [i] + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -485,7 +449,7 @@ def _launch(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
     Returns the fp32 (B, M, d) gradient."""
     global launches
     B, M, d = increments.shape
-    p = launch or plan_sweep_launch(B, plan)
+    p = launch or plan_sweep_launch(plan)
     lt = level_tables(plan)
     dev = increments.device
     x = increments.detach().float().contiguous()
@@ -495,8 +459,7 @@ def _launch(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
     slots = _slots_on(M, stride, dev)
     n_emit = -(-M // stride) if stride else 1
     scratch = None if p.in_smem else torch.empty(
-        (p.blocks * p.examples, example_floats(lt)), dtype=torch.float32,
-        device=dev)
+        (B, example_floats(lt)), dtype=torch.float32, device=dev)
     gx = torch.empty((B, M, d), dtype=torch.float32, device=dev)
     lo = np.ascontiguousarray(lt.lo, np.int32)
     coff = np.ascontiguousarray(lt.chain_off, np.int32)
@@ -508,7 +471,7 @@ def _launch(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
             *(t.data_ptr() for t in tabs), slots.data_ptr(),
             None if scratch is None else scratch.data_ptr(), gx.data_ptr(),
             B, M, d, plan.closure_size, plan.depth, len(plan.words), n_emit,
-            p.threads, p.examples, lo.ctypes.data, coff.ctypes.data,
+            p.threads, lo.ctypes.data, coff.ctypes.data,
             lanes.ctypes.data, example_floats(lt),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:

@@ -534,17 +534,16 @@ def _sweep_inputs(plan, B, M, stride, device, seed):
 @pytest.mark.parametrize("k", range(len(SWEEP_PLANS)))
 def test_sweep_every_partition_matches_plain(cuda, k, stride):
     """Each partition the planner can choose (its own, one warp and the
-    most threads an example, shared memory or scratch, the most examples a
-    block), forced, at a batch that leaves the last block's examples
-    spare: |err| <= 1e-3·|g| + 1e-4·max|g| against the float64 plain
-    sweep, as the kernel's other tests."""
+    most threads an example, shared memory or scratch), forced: |err| <=
+    1e-3·|g| + 1e-4·max|g| against the float64 plain sweep, as the
+    kernel's other tests."""
     from repro_torch.kernels import sig_sweep as ss
     plan = _sweep_plan(*SWEEP_PLANS[k])
     B = 3 if plan.closure_size > 20_000 else 7
     x, S_T, co = _sweep_inputs(plan, B, 11, stride, cuda, k)
     want = ss.sig_sweep_plain(x.double(), plan, S_T, co, stream=bool(stride),
                               stream_stride=stride or 1)
-    variants = ss.partition_variants(B, plan)
+    variants = ss.partition_variants(plan)
     assert {p.in_smem for p in variants} >= {False}
     for p in variants:
         got = ss._launch(x, plan, S_T.float(), co.float(), stride, p)
@@ -561,7 +560,7 @@ def test_sweep_two_runs_are_bitwise_equal(cuda, k):
     from repro_torch.kernels import sig_sweep as ss
     plan = _sweep_plan(*SWEEP_PLANS[k])
     x, S_T, co = _sweep_inputs(plan, 5, 9, 2, cuda, 50 + k)
-    for p in ss.partition_variants(5, plan):
+    for p in ss.partition_variants(plan):
         a = ss._launch(x, plan, S_T.float(), co.float(), 2, p)
         assert torch.equal(a, ss._launch(x, plan, S_T.float(), co.float(),
                                          2, p)), p

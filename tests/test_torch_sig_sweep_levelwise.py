@@ -172,14 +172,14 @@ def test_level_tables(name, plan):
         assert cols == [c for c, o in enumerate(plan.out_rows) if o == r]
     # the kernel's 8-byte loads: the parent's index within its level, the
     # gv slot, each beside the letter
-    assert lt.up.shape == lt.down.shape == (W + 1, 2)
+    up, down = ss.row_pairs(lt)
+    assert up.shape == down.shape == (W + 1, 2)
     for r in range(1, W + 1):
         k = len(closure[r])
-        assert lt.up[r, 0] == lt.parent[r] - lt.lo[k - 1]
-        assert 0 <= lt.up[r, 0] < lt.rows(k - 1) if k > 1 else \
-            lt.up[r, 0] == 0
-        assert tuple(lt.down[r]) == (lt.gv_pos[r], lt.letter[r])
-        assert lt.up[r, 1] == lt.letter[r]
+        assert up[r, 0] == lt.parent[r] - lt.lo[k - 1]
+        assert 0 <= up[r, 0] < lt.rows(k - 1) if k > 1 else up[r, 0] == 0
+        assert tuple(down[r]) == (lt.gv_pos[r], lt.letter[r])
+        assert up[r, 1] == lt.letter[r]
 
 
 def test_tables_of_rows_without_children_and_a_repeated_word():
@@ -212,28 +212,23 @@ def test_sec8_closure_levels():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,plan", PLANS, ids=[n for n, _ in PLANS])
-@pytest.mark.parametrize("B", [1, 5, 128, 5000])
-def test_planner_limits(name, plan, B):
+@pytest.mark.parametrize("threads", [None, 32, 96, 1024])
+def test_planner_limits(name, plan, threads):
+    """The planner's own partition (``threads`` None) and forced ones, and
+    every variant it may choose."""
     lt = ss.level_tables(plan)
-    own = ss.plan_sweep_launch(B, plan)
-    variants = ss.partition_variants(B, plan)
-    assert variants[0] == own and len(set(variants)) == len(variants)
-    for p in variants:
-        assert p.threads % 32 == 0 and p.block <= ss.MAX_BLOCK[p.slots]
-        assert p.slots == ss.depth_slots(plan.depth) >= plan.depth
-        assert p.blocks == -(-B // p.examples)
-        state = ss.example_floats(lt) if p.in_smem else 0
-        assert p.smem == 4 * (2 * ss.CHUNK + p.examples * (
-            state + 2 * ss.CHUNK * plan.d))
-        assert p.smem == ss.block_smem(lt, p.examples, p.in_smem)
-        assert p.smem <= ss.SMEM_BUDGET
-        assert p.phases == ss.step_phases(plan.depth)
-    assert own.threads == min(ss.MAX_BLOCK[own.slots], max(
-        -(-ss.widest_level(lt) // 32) * 32,
-        -(-min(ss.pull_threads(lt), ss.PULL_THREADS) // 32) * 32,
-        32 * min(plan.d, ss.REDUCE_WARPS)))
+    own = ss.plan_sweep_launch(plan, threads=threads)
+    variants = ss.partition_variants(plan)
+    assert len(set(variants)) == len(variants)
     most = ss.most_children(lt)
-    for p in variants:   # a parent's lanes: a power of two within a warp
+    for p in [own] + variants:
+        assert p.threads % 32 == 0 and p.threads <= ss.MAX_BLOCK[p.slots]
+        assert p.slots == ss.depth_slots(plan.depth) >= plan.depth
+        state = ss.example_floats(lt) if p.in_smem else 0
+        assert p.smem == 4 * (2 * ss.CHUNK + state + 2 * ss.CHUNK * plan.d)
+        assert p.smem == ss.block_smem(lt, p.in_smem)
+        assert p.smem <= ss.SMEM_BUDGET
+        # a parent's lanes: a power of two within a warp
         assert p.lanes == ss.parent_lanes(lt, p.threads)
         assert len(p.lanes) == plan.depth - 1
         for k, lanes in enumerate(p.lanes, start=1):
@@ -241,11 +236,14 @@ def test_planner_limits(name, plan, B):
             assert lanes == 1 or lanes < 2 * max(most[k], 1)
             assert lanes * lt.rows(k) <= max(p.threads, lt.rows(k))
     assert own.in_smem
-    # examples share a block only past the blocks the card holds at once
-    if own.examples > 1:
-        assert own.block <= ss.MIN_BLOCK
-        assert -(-B // (own.examples // 2)) > ss.resident_blocks(
-            own.block // 2, ss.block_smem(lt, own.examples // 2, True))
+    if threads is None:
+        assert variants[0] == own
+        assert own.threads == min(ss.MAX_BLOCK[own.slots], max(
+            -(-ss.widest_level(lt) // 32) * 32,
+            -(-min(ss.pull_threads(lt), ss.PULL_THREADS) // 32) * 32,
+            32 * min(plan.d, ss.REDUCE_WARPS)))
+    else:
+        assert own.threads == threads
     assert {p.in_smem for p in variants} == {True, False}
     assert 32 in {p.threads for p in variants}
 
@@ -255,17 +253,17 @@ def test_planner_at_the_sweep_shapes(d, N):
     """A closure wider than shared memory runs from the scratch; the
     planner never forces it into shared memory."""
     plan = ts.truncation_closure(d, N)
-    p = ss.plan_sweep_launch(128, plan)
+    p = ss.plan_sweep_launch(plan)
     fits = 4 * (ss.example_floats(ss.level_tables(plan)) + 2 * ss.CHUNK
                 * (d + 1)) <= ss.SMEM_BUDGET
     assert p.in_smem == fits == ((d, N) not in [(10, 5), (40, 3)])
     if not fits:
         with pytest.raises(ValueError, match="state needs"):
-            ss.plan_sweep_launch(128, plan, in_smem=True)
+            ss.plan_sweep_launch(plan, in_smem=True)
     with pytest.raises(ValueError, match="threads"):
-        ss.plan_sweep_launch(128, plan, threads=48)
-    with pytest.raises(ValueError, match="examples"):
-        ss.plan_sweep_launch(128, plan, examples=4096)
+        ss.plan_sweep_launch(plan, threads=48)
+    with pytest.raises(ValueError, match="threads"):
+        ss.plan_sweep_launch(plan, threads=2048)
 
 
 @pytest.mark.parametrize("d,N,threads", [(10, 3, 384), (4, 5, 384),
@@ -273,9 +271,9 @@ def test_planner_at_the_sweep_shapes(d, N):
 def test_planner_threads_at_the_sweep_shapes(d, N, threads):
     """Lanes for the pull-back up to PULL_THREADS, but never fewer threads
     than the widest level's rows (1,296 at (6, 5))."""
-    assert ss.plan_sweep_launch(128, ts.truncation_closure(d, N)).threads \
+    assert ss.plan_sweep_launch(ts.truncation_closure(d, N)).threads \
         == threads
-    assert ss.plan_sweep_launch(128, tw.make_plan(sec8_words(), 10)) \
+    assert ss.plan_sweep_launch(tw.make_plan(sec8_words(), 10)) \
         .threads == 384
 
 
@@ -292,7 +290,25 @@ def test_parent_lanes_of_full_truncations():
 
 def test_planner_refuses_deeper_words_than_the_kernel_takes():
     with pytest.raises(ValueError, match="MAX_DEPTH"):
-        ss.plan_sweep_launch(4, ts.truncation_closure(1, ss.MAX_DEPTH + 1))
+        ss.plan_sweep_launch(ts.truncation_closure(1, ss.MAX_DEPTH + 1))
+
+
+@pytest.mark.parametrize("depth,slots", [(1, 4), (3, 4), (4, 4), (5, 5),
+                                         (8, 8), (9, 16), (16, 16)])
+def test_depth_slots_pick_the_kernel_instance(depth, slots):
+    """Four instances, for words of up to 4, 5, 8 and 16 letters; 1,024
+    threads a block up to 8, 512 past."""
+    assert ss.depth_slots(depth) == slots
+    assert ss.plan_sweep_launch(ts.truncation_closure(1, depth)).slots \
+        == slots
+    assert ss.MAX_BLOCK[slots] == (1024 if depth <= 8 else 512)
+
+
+def test_step_phases_follow_the_kernel_layout():
+    """The phases a step as the kernel is written, from depth 3 its
+    2·depth - 3 barriers and the g_dx reduction (which runs into the next
+    step's first phase with no barrier between)."""
+    assert [ss.step_phases(n) for n in range(1, 7)] == [2, 3, 4, 6, 8, 10]
 
 
 # ---------------------------------------------------------------------------

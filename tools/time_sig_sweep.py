@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the sig_sweep kernel at the training paths' three sweep shapes.
 
-    python3 tools/time_sig_sweep.py [--tree DIR] [--label NAME] [--out FILE]
+    python3 tools/time_sig_sweep.py [--tree DIR] [--out FILE]
 
 ``--tree`` is the root of a checkout whose ``src/repro_torch`` is timed
 (default: this one), so two versions of the kernel can be timed in turns
@@ -14,14 +14,12 @@ sparse step (B = 128, 500 lead-lag increments over 10 letters, the
 285-row closure of the §8 word set, depth 3), the §8 truncated step (the
 same increments, W_{<=3} over 10 letters, 1,110 rows) and the largest
 Table 1 train cell (64, 500, 4, 5; 1,364 rows).  Increments are Brownian
-from ``--seed``, the terminal state comes from the forward kernel and the
+from seed 0, the terminal state comes from the forward kernel and the
 cotangent is random (the Table 1 cell: 2·S_T, the gradient of the sum of
 squares).  Each case holds the kernel's gradient against the float64
 plain sweep, |g − g_64| <= 1e-3·|g_64| + 1e-4·max|g_64|, then times it by
-CUDA events (median of ``--reps`` calls); ``--variants`` also times
-each partition the planner can choose, and ``--threads`` the planner's
-partition at each given count of threads an example.  Prints one line
-per case and a JSON line with the card's name and power limit.
+CUDA events (median of 10 calls).  Prints one line per case and a JSON
+line with the tree, the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -37,16 +35,7 @@ import numpy as np
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("--label", default=None)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", help="append the JSON line to this file")
-    ap.add_argument("--variants", action="store_true",
-                    help="also time every partition the planner can choose "
-                         "(sig_sweep.partition_variants)")
-    ap.add_argument("--threads", default="",
-                    help="comma-separated threads an example to time the "
-                         "planner's partition at, forced")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
     import torch
@@ -67,7 +56,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     _build.build_all(["sig_sweep", "sig_trunc", "sig_words"])
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(0)
 
     def brownian_incs(B, M, d):
         return torch.tensor(rng.normal(size=(B, M, d)) / np.sqrt(M),
@@ -77,7 +66,7 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         times = []
-        for _ in range(args.reps):
+        for _ in range(10):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -121,34 +110,16 @@ def main() -> int:
                    W=plan.closure_size, ms=t, us_per_step=1e3 * t / M,
                    max_abs_err=float(err.max()), max_g=top,
                    bitwise_repeat=bool(torch.equal(got, again)))
-        if hasattr(ss, "plan_sweep_launch"):
-            p = ss.plan_sweep_launch(B, plan)
-            row.update(threads=p.threads, examples=p.examples,
-                       in_smem=p.in_smem, phases=p.phases,
+        if hasattr(ss, "plan_sweep_launch"):   # the levelwise kernel
+            p = ss.plan_sweep_launch(plan)
+            row.update(threads=p.threads, in_smem=p.in_smem,
                        lanes=list(p.lanes))
-        if args.variants:
-            row["variants"] = []
-            for p in ss.partition_variants(B, plan):
-                v = dict(threads=p.threads, lanes=list(p.lanes),
-                         examples=p.examples, in_smem=p.in_smem,
-                         ms=ms(lambda: ss._launch(x, plan, S_T, g, 0, p)))
-                row["variants"].append(v)
-                print(f"  variant {v}", flush=True)
-        for T in filter(None, args.threads.split(",")):
-            try:
-                p = ss.plan_sweep_launch(B, plan, threads=int(T))
-            except ValueError:
-                continue
-            v = dict(threads=p.threads, lanes=list(p.lanes),
-                     ms=ms(lambda: ss._launch(x, plan, S_T, g, 0, p)))
-            row.setdefault("threads_sweep", []).append(v)
-            print(f"  forced {v}", flush=True)
         rows.append(row)
-        print(f"[{args.label or args.tree}] {name} {row['shape']} W="
+        print(f"[{args.tree}] {name} {row['shape']} W="
               f"{row['W']}: {t:.3f} ms ({row['us_per_step']:.2f} µs a step)"
               f", max |err| {row['max_abs_err']:.2e} (max|g| {top:.3e}), "
               f"bitwise repeat {row['bitwise_repeat']}", flush=True)
-    line = json.dumps(dict(label=args.label or args.tree, device=smi,
+    line = json.dumps(dict(tree=args.tree, device=smi,
                            cases=rows))
     print(line)
     if args.out:
