@@ -102,8 +102,7 @@ struct LevelGeom {
 // have: a parent's MAXD - 1 partial cotangents and scaled Q stay in
 // registers (64 a thread at 1,024 threads, 128 at 512).  The host keeps
 // instances for words of up to 4, 5, 8 and 16 letters: a depth runs in the
-// smallest that holds it, since a larger one issues its unused slots and
-// the 8-letter one spills at 1,024 threads.
+// smallest that holds it, since a larger one issues its unused slots.
 template <int MAXD> struct Bounds {
   static constexpr int threads = MAXD <= 8 ? 1024 : 512;
 };
