@@ -17,7 +17,11 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              (sig_trunc.partition_variants: its own, and every feasible
              split with one example a block and with the most examples a
              block may share).  fp32: rtol 2e-4, atol 2e-5; bf16_fp32:
-             relative error of level n within n·2^-8.
+             relative error of level n within n·2^-8.  Then the fused
+             transform cases: raw increments (d in 1, 2, 3, 5) and the
+             time rows of a ragged batch through lead_lag and
+             time_augment+lead_lag, at every partition of the augmented
+             alphabet, against the plain version's fused scan.
 4. serve   — DynamicBatcher.signature_service(d=6, depth=5, max_len=1024)
              answers 256 requests of log-uniform lengths in [16, 1024];
              32 sampled answers are held against the plain version on the
@@ -37,7 +41,10 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              one example a block, and the most examples a block for both
              packings).  fp32 as in phase 3; bf16_fp32 against the plain
              version on the same rounded increments (emissions within
-             2^-8) and every full level within n·2^-8.
+             2^-8) and every full level within n·2^-8.  Then the fused
+             transform cases over word sets of the augmented alphabets
+             (a random set for d in 1, 2, 3 and each transform, and the
+             §8 sparse lead-lag set at d = 2), max_rows in {8, 256}.
 7. cross   — ops.projected over all_words(6, 5) (sig_words) equals
              ops.signature(·, 5) (sig_trunc) at (32, 100, 6, 5).
 8. project — the paper's §8 projection at full width: Brownian paths
@@ -112,7 +119,12 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              the device-memory scratch), forced, over the same
              closures at B = 5, M = 37, terminal and stride 3: each within
              the same rule, and a second run bitwise equal (the kernel
-             has no atomics).
+             has no atomics).  The fused transform cells of phases 3 and
+             6 too: their backward builds the augmented increments from
+             the saved raw ones, sweeps them and applies fused_adjoint,
+             held against the plain sweep on the same augmented
+             increments pulled back the same way; their closures join
+             the forced partitions.
 14. train  — the paper's Table 1 train mode, ((ops.signature(x, N))**2).sum()
              with its gradient at every Table 1 cell: one sig_trunc and one
              sig_sweep launch per call; at every cell the gradient, and
@@ -148,10 +160,40 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              steps 2-10), the loss curve, the kernels' ms, sig_sweep at the
              step's shape held against the float64 plain sweep (tolerance
              as in 13).
-18. report — one JSON line of kernels (the sig_trunc row with its cases:
+18. transform — the fused transform cells through the user entry
+             points: the paper's §8 at full width through
+             transform="lead_lag" (B = 128, M = 250, d = 5: 500
+             augmented steps over 10 letters) in ops.projected onto the
+             1,685-word set (terminal, ragged, streamed at stride 10) and
+             ops.projected_forward_only, and ops.signature(·, 3) with its
+             gradient; the Table 1 transform cells of
+             benchmarks/table1_runtime.py (fused_transform (32, 100, 6, 2)
+             fp32 and combined (32, 100, 3, 3) bf16_fp32, both
+             time_augment+lead_lag), terminal, streamed at stride 3 and
+             value plus gradient; and signature_service(d=6, depth=5,
+             max_len=1024, transform="time_augment") answering 256
+             requests.  Each call launches one fused forward kernel (the
+             fused counter shows it) and one sig_sweep a backward; values
+             against the plain version's fused scan in float64 (bf16:
+             every level within n·2^-8 and the plain version on the same
+             rounded raw increments), against the same kernel on the
+             materialised increments, gradients by phase 13's rule; the
+             tensors saved for the backward hold the raw increments,
+             never the augmented ones; each fused case timed beside the
+             materialising route (fused_augment in PyTorch, then the same
+             kernel) and the plain version, with its bound (the raw
+             increments and time rows in, the output out, against the
+             Horner operations over the augmented steps and letters).
+19. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
-             streamed cell; the sig_words row with its cases: §8 terminal,
-             §8 streamed, the largest Table 3 set; the sig_sweep row with
+             streamed cell, and the fused ones: §8 lead_lag depth 3, the
+             time_augment serving micro-batch, the two Table 1 transform
+             cells; the sig_trunc_stream row with the two streamed Table 1
+             transform cells; the sig_words row with its cases: §8
+             terminal, §8 streamed, the largest Table 3 set, §8 lead_lag
+             fused; the sig_words_stream row with §8 lead_lag streamed
+             fused, each fused case with its materialising route's ms;
+             the sig_sweep row with
              its cases: largest Table 1 train cell, §8 sparse step, §8
              truncated step, each with µs a step and partition, and its
              instances' ptxas registers and stack; the dependent phases a
@@ -191,8 +233,9 @@ from repro_torch.core.logsignature import (logsignature,  # noqa: E402
                                            logsignature_projected)
 from repro_torch.core.projection import (  # noqa: E402
     projected_signature_from_increments)
-from repro_torch.core.transforms import (lead_lag,  # noqa: E402
-                                         sparse_leadlag_generators)
+from repro_torch.core.transforms import (  # noqa: E402
+    as_transform, augment_increments, fused_adjoint, fused_augment, lead_lag,
+    sparse_leadlag_generators, transform_dim, transform_time_aux)
 from repro_torch.core.words import (all_words, anisotropic_words,  # noqa: E402
                                     generated_words, lyndon_words, make_plan,
                                     make_tiled_plan, prefix_closure)
@@ -226,6 +269,17 @@ PROJ_CELL = (128, 250, 5, 4, 10)
 TABLE3 = [(32, 100, 6, 2), (32, 100, 6, 3), (32, 100, 6, 4),
           (64, 50, 4, 5), (64, 100, 4, 5), (16, 100, 10, 3)]
 MAX_ROWS = (8, 32, 256)
+# fused transform cases of phases 3, 6 and 13: raw (d, N) whose augmented
+# alphabets (lead_lag 2d letters, time_augment+lead_lag 2d + 1) span 2 to
+# 11 letters, the §8 width (d = 5) included
+FUSED_SWEEP = [(1, 4), (2, 3), (3, 4), (5, 3)]
+FUSED_SPECS = ("lead_lag", "time_augment+lead_lag")
+# the transform cells of benchmarks/table1_runtime.py (run_levers):
+# fused_transform at _LEVER_CELL_JAX, combined at _LEVER_CELL_PALLAS in
+# bf16_fp32; (name, B, M, d, N, precision)
+TABLE1_TRANSFORM = "time_augment+lead_lag"
+TABLE1_FUSED = [("fused_transform", 32, 100, 6, 2, "fp32"),
+                ("combined", 32, 100, 3, 3, "bf16_fp32")]
 # Gram sweep: both sides of the 64- and 128-row tiles and of the 512-word
 # blocks that split-K slices are made of
 GRAM_B = (1, 7, 63, 64, 65, 128, 129, 130, 300)
@@ -270,14 +324,20 @@ def words_flops(plan) -> int:
 
 
 def bound(B: int, M: int, d: int, depth: int, in_bytes: int,
-          out_elems: int, out_bytes: int,
-          step_flops: int | None = None) -> tuple[float, str]:
+          out_elems: int, out_bytes: int, step_flops: int | None = None,
+          raw: tuple[int, int] | None = None,
+          aux_bytes: int = 0) -> tuple[float, str]:
     """Least time (ms) the card could take: bytes moved once over HBM
     against the operations over FP32 peak (``step_flops`` per example and
-    step, default the levelwise Horner count); and which bounds it."""
+    step, default the levelwise Horner count); and which bounds it.  A
+    fused transform cell runs its M (augmented) steps over d (augmented)
+    letters but reads ``raw`` = (M_raw, d_raw) increments an example and
+    ``aux_bytes`` of time rows."""
     if step_flops is None:
         step_flops = horner_flops(d, depth)
-    t_bytes = (B * M * d * in_bytes + out_elems * out_bytes) / HBM_BYTES_PER_S
+    m_in, d_in = raw if raw is not None else (M, d)
+    t_bytes = (B * m_in * d_in * in_bytes + aux_bytes
+               + out_elems * out_bytes) / HBM_BYTES_PER_S
     t_ops = B * M * step_flops / FP32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -324,16 +384,18 @@ def trunc_case(case: str, shape: list, t: dict) -> dict:
 
 def reset_counts() -> None:
     """Every kernel's launch counters to 0, just before a path is driven."""
-    st.launches = st.stream_launches = 0
-    sw.launches = sw.stream_launches = 0
+    st.launches = st.stream_launches = st.fused_launches = 0
+    sw.launches = sw.stream_launches = sw.fused_launches = 0
     sg.launches = 0
     ss.launches = 0
 
 
 def counts() -> dict:
     return dict(sig_trunc=st.launches, sig_trunc_stream=st.stream_launches,
-                sig_words=sw.launches, sig_words_stream=sw.stream_launches,
-                sig_gram=sg.launches, sig_sweep=ss.launches)
+                sig_trunc_fused=st.fused_launches, sig_words=sw.launches,
+                sig_words_stream=sw.stream_launches,
+                sig_words_fused=sw.fused_launches, sig_gram=sg.launches,
+                sig_sweep=ss.launches)
 
 
 def brownian(rng, B: int, M: int, d: int) -> torch.Tensor:
@@ -419,7 +481,7 @@ def phase_build() -> dict:
                 m = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)I(.*?)EEv",
                               entry)
                 short = (f"{m.group(1)}<"
-                         f"{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+                         f"{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
                          if m else entry)
                 inst = ptxas.setdefault(name, {}).setdefault(short, {})
                 for key, pat in (("registers", r"Used (\d+) registers"),
@@ -431,9 +493,18 @@ def phase_build() -> dict:
     return ptxas
 
 
+def fused_batch(rng, B: int, M: int, d: int, spec) -> tuple:
+    """Raw increments (B, M, d), float64 on the card, and the (B, 2) time
+    rows of a ragged batch (lengths uniform in 0..M): the fused cells'
+    inputs."""
+    x = torch.tensor(rng.normal(size=(B, M, d)) * 0.3, device="cuda")
+    lengths = torch.tensor(rng.integers(0, M + 1, size=B), device="cuda")
+    return x, transform_time_aux(spec, B, M, lengths, device="cuda")
+
+
 def phase_kernels(rng) -> dict:
-    """Kernel against plain, every cell; returns the max fp32 |error| per
-    kernel name."""
+    """Kernel against plain, every cell, with and without a fused
+    transform; returns the max fp32 |error| per kernel name."""
     max_err = {"sig_trunc": 0.0, "sig_trunc_stream": 0.0}
     cases = 0
     for d, N in SWEEP:
@@ -470,6 +541,57 @@ def phase_kernels(rng) -> dict:
                           f"{part} stride={stride}: fp32 max|err| "
                           f"{err:.2e}, bf16 max level relerr {max(rel):.2e}")
     print(f"[kernels] {cases} cases within tolerance", flush=True)
+    fused = phase_kernels_fused(rng)
+    return {k: max(v, fused[k]) for k, v in max_err.items()}
+
+
+def phase_kernels_fused(rng) -> dict:
+    """The fused transform cases of phase 3: raw increments and ragged time
+    rows into the kernel at every partition of the augmented alphabet,
+    against the plain version (the fused scan) in float64."""
+    max_err = {"sig_trunc": 0.0, "sig_trunc_stream": 0.0}
+    cases = 0
+    cells = [(False, 1), (True, 1), (True, 3)]
+    for d, N in FUSED_SWEEP:
+        for tname in FUSED_SPECS:
+            spec = as_transform(tname)
+            da = transform_dim(spec, d)
+            for M in (1, 37):
+                x, taux = fused_batch(rng, 5, M, d, spec)
+                want = {c: st.sig_trunc_plain(x, N, stream=c[0],
+                                              stream_stride=c[1],
+                                              transform=spec, taux=taux)
+                        for c in cells}
+                for plan in st.partition_variants(len(x), da, N):
+                    part = (f"split={plan.split} threads={plan.threads} "
+                            f"slots={plan.top_slots} "
+                            f"examples={plan.examples}")
+                    for stream, stride in cells:
+                        name = "sig_trunc_stream" if stream else "sig_trunc"
+                        where = (f"{name} [{tname}] d={d} (d_aug={da}) N={N}"
+                                 f" M={M} {part} stride={stride}")
+                        w = want[(stream, stride)]
+                        got = st._launch(x.float(), N, None, stream, stride,
+                                         "fp32", plan, spec, taux).double()
+                        torch.cuda.synchronize()
+                        check(got.shape == w.shape, f"{where}: shape")
+                        err = float((got - w).abs().max())
+                        check(within(got, w, TOL["rtol"]),
+                              f"{where} fp32: max |err| {err:.3e}")
+                        max_err[name] = max(max_err[name], err)
+                        got = st._launch(x.float(), N, None, stream, stride,
+                                         "bf16_fp32", plan, spec,
+                                         taux).double()
+                        rel = level_relerr(got, w, da, N)
+                        check(all(e <= n * 2.0**-8 for n, e in
+                                  enumerate(rel, start=1)),
+                              f"{where} bf16_fp32: level errors {rel}")
+                        cases += 2
+                print(f"[kernels] fused [{tname}] d={d} (d_aug={da}) N={N} "
+                      f"M={M:2d}: max|err| {max(max_err.values()):.2e}",
+                      flush=True)
+    print(f"[kernels] {cases} fused transform cases within tolerance",
+          flush=True)
     return max_err
 
 
@@ -620,13 +742,14 @@ def within(got: torch.Tensor, want: torch.Tensor, rtol: float) -> bool:
                  + rtol * want.abs()).all())
 
 
-def phase_words_kernels(rng) -> tuple[dict, list]:
+def phase_words_kernels(rng) -> tuple[dict, list, list]:
     """sig_words against its plain version, every cell, at every
-    partition the planner can choose (sw.partition_variants); returns the
-    max fp32 |error| per kernel name and the word sets.  bf16_fp32 is held against the plain
-    version on the same bf16-rounded increments (streamed emissions within
-    one bf16 rounding, 2^-8), and each full level against the unrounded
-    answer within n·2^-8."""
+    partition the planner can choose (sw.partition_variants), with and
+    without a fused transform; returns the max fp32 |error| per kernel
+    name, the word sets and the fused word sets.  bf16_fp32 is held
+    against the plain version on the same bf16-rounded increments
+    (streamed emissions within one bf16 rounding, 2^-8), and each full
+    level against the unrounded answer within n·2^-8."""
     max_err = {"sig_words": 0.0, "sig_words_stream": 0.0}
     cases = 0
     cells = [(False, 1), (True, 1), (True, 3)]
@@ -669,7 +792,81 @@ def phase_words_kernels(rng) -> tuple[dict, list]:
             print(f"[words] {name:24s} d={d} M={M:2d} {len(words):3d} words: "
                   f"max|err| {max(max_err.values()):.2e}", flush=True)
     print(f"[words] {cases} cases within tolerance", flush=True)
-    return max_err, sets
+    fsets = fused_word_sets(rng)
+    fused = phase_words_fused(rng, fsets)
+    return {k: max(v, fused[k]) for k, v in max_err.items()}, sets, fsets
+
+
+def fused_word_sets(rng) -> list:
+    """(name, d_raw, transform, words over the augmented alphabet) of the
+    fused cases: a random set for each raw d in 1..3 and transform, and
+    the §8 sparse lead-lag set at d = 2."""
+    sets = []
+    for d in (1, 2, 3):
+        for tname in FUSED_SPECS:
+            da = transform_dim(tname, d)
+            words = [tuple(int(c) for c in rng.integers(
+                0, da, rng.integers(1, 5)))
+                for _ in range(int(rng.integers(3, 13)))]
+            sets.append((f"random {tname} d={d}", d, tname, words))
+    sets.append(("§8 lead_lag d=2", 2, "lead_lag",
+                 generated_words(sparse_leadlag_generators(2), 4)))
+    return sets
+
+
+def phase_words_fused(rng, fsets) -> dict:
+    """The fused transform cases of phase 6: raw increments and ragged time
+    rows into sig_words at every partition of the augmented alphabet's
+    tiles, against the plain version (the fused scan) in float64; bf16 as
+    in phase 6."""
+    max_err = {"sig_words": 0.0, "sig_words_stream": 0.0}
+    cases = 0
+    cells = [(False, 1), (True, 1), (True, 3)]
+    for name, d, tname, words in fsets:
+        spec = as_transform(tname)
+        da = transform_dim(spec, d)
+        for M in (1, 37):
+            x, taux = fused_batch(rng, 5, M, d, spec)
+            xq = x.float().to(torch.bfloat16).double()
+            for max_rows in (8, 256):
+                tp = make_tiled_plan(words, da, max_rows=max_rows)
+                plans = sw.partition_variants(5, sw.tile_tables(tp), da,
+                                              lead_lag=spec.lead_lag)
+                for stream, stride in cells:
+                    kname = "sig_words_stream" if stream else "sig_words"
+                    kw = dict(stream=stream, stream_stride=stride,
+                              transform=spec, taux=taux)
+                    want = sw.sig_words_plain(x, tp, **kw)
+                    want_q = sw.sig_words_plain(xq, tp, **kw)
+                    for plan in plans:
+                        where = (f"{kname} [{name}] M={M} max_rows="
+                                 f"{max_rows} stride={stride} "
+                                 f"{words_partition(plan)}")
+                        got = sw._launch(x.float(), tp, stream, stride,
+                                         "fp32", plan, spec, taux).double()
+                        torch.cuda.synchronize()
+                        check(got.shape == want.shape, f"{where}: shape")
+                        err = float((got - want).abs().max())
+                        check(within(got, want, TOL["rtol"]),
+                              f"{where} fp32: max |err| {err:.3e}")
+                        max_err[kname] = max(max_err[kname], err)
+                        got = sw._launch(x.float(), tp, stream, stride,
+                                         "bf16_fp32", plan, spec,
+                                         taux).double()
+                        errq = float((got - want_q).abs().max())
+                        check(within(got, want_q,
+                                     2.0**-8 if stream else TOL["rtol"]),
+                              f"{where} bf16_fp32 vs plain on the rounded "
+                              f"increments: max |err| {errq:.3e}")
+                        rel = full_level_errors(got, want, tp.words, da)
+                        check(all(e <= n * 2.0**-8 for n, e in rel.items()),
+                              f"{where} bf16_fp32: full-level errors {rel}")
+                        cases += 2
+        print(f"[words] fused {name:28s} (d_aug={da}) {len(words):3d} "
+              f"words: max|err| {max(max_err.values()):.2e}", flush=True)
+    print(f"[words] {cases} fused transform cases within tolerance",
+          flush=True)
+    return max_err
 
 
 def phase_cross(rng) -> dict:
@@ -1181,13 +1378,14 @@ def atol_needed(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def sweep_case(rng, fn, x: torch.Tensor, plan, stream: bool, stride: int,
-               where: str) -> dict:
+               where: str, spec=None, taux=None) -> dict:
     """Run ``fn`` (a kernel's autograd node) forward and back with a random
     cotangent; hold the gradient against sig_sweep_plain in float64 on the
-    same increments and the same saved terminal state.  Returns the max
-    |error|, max|g_64|, and the least atol (over max|g_64|) that rtol 1e-3
-    needs for the kernel and for the fp32 plain sweep on the same
-    inputs."""
+    same increments and the same saved terminal state (with a fused
+    ``spec``: on the augmented increments, pulled back by fused_adjoint).
+    Returns the max |error|, max|g_64|, and the least atol (over
+    max|g_64|) that rtol 1e-3 needs for the kernel and for the fp32 plain
+    sweep on the same inputs."""
     xin = x.detach().clone().requires_grad_()
     out = fn(xin)
     co = torch.tensor(rng.normal(size=tuple(out.shape)),
@@ -1197,20 +1395,24 @@ def sweep_case(rng, fn, x: torch.Tensor, plan, stream: bool, stride: int,
     torch.cuda.synchronize()
     check(ss.launches == 1, f"{where}: sig_sweep launches {counts()}")
     terminal = (out[:, -1] if stream else out).detach().double()
-    want = ss.sig_sweep_plain(x.double(), plan, terminal, co.double(),
-                              stream=stream, stream_stride=stride)
+
+    def plain(xp, S_T, cot):
+        ge = ss.sig_sweep_plain(fused_augment(xp, taux, spec), plan, S_T,
+                                cot, stream=stream, stream_stride=stride)
+        return fused_adjoint(ge, spec, x.shape[-1])
+
+    want = plain(x.double(), terminal, co.double())
     err = float((g.double() - want).abs().max())
     check(g.shape == want.shape and grad_within(g, want),
           f"{where}: max |err| {err:.3e}, max|g| "
           f"{float(want.abs().max()):.3e}")
-    plain32 = ss.sig_sweep_plain(x, plan, terminal.float(), co.float(),
-                                 stream=stream, stream_stride=stride)
+    plain32 = plain(x, terminal.float(), co.float())
     return dict(err=err, max_g=float(want.abs().max()),
                 atol=atol_needed(g, want), plain_atol=atol_needed(plain32,
                                                                   want))
 
 
-def phase_sweep(rng, sets) -> dict:
+def phase_sweep(rng, sets, fsets) -> dict:
     """sig_sweep against its plain version through both kernels' autograd
     nodes.  Returns the max |error| (fp32 increments) and, for the fp32
     cases, the least atol over max|g| that rtol 1e-3 needs: the kernel's,
@@ -1219,7 +1421,7 @@ def phase_sweep(rng, sets) -> dict:
     cells = [(False, 1), (True, 1), (True, 3)]
     worst, cases, need = 0.0, 0, {}
 
-    def run(key, fn, x, plan, where):
+    def run(key, fn, x, plan, where, spec=None, taux=None):
         nonlocal worst, cases
         for precision in ("fp32", "bf16_fp32"):
             xp = x if precision == "fp32" else x.to(torch.bfloat16).float()
@@ -1227,7 +1429,8 @@ def phase_sweep(rng, sets) -> dict:
                 r = sweep_case(rng, lambda t: fn(t, stream, stride,
                                                  precision), xp, plan,
                                stream, stride, f"{where} stride="
-                               f"{stride if stream else 0} {precision}")
+                               f"{stride if stream else 0} {precision}",
+                               spec, taux)
                 cases += 1
                 if precision == "fp32":
                     worst = max(worst, r["err"])
@@ -1263,11 +1466,40 @@ def phase_sweep(rng, sets) -> dict:
                 sw.SigWordsFunction.apply(t, ctp, stream, stride, precision,
                                           plan), x, plan,
                 f"sig_sweep (sig_words) [{name}] M={M}")
-    print(f"[sweep] {cases} cases within tolerance, max fp32 |err| "
-          f"{worst:.2e}", flush=True)
+    # the fused cells' backward: the sweep over the augmented increments
+    # the node builds from the raw ones and taux, then fused_adjoint
+    fplans = []
+    for d, N in FUSED_SWEEP:
+        for tname in FUSED_SPECS:
+            spec = as_transform(tname)
+            plan = sig.truncation_closure(transform_dim(spec, d), N)
+            fplans.append(plan)
+            for M in (1, 37):
+                x, taux = fused_batch(rng, 5, M, d, spec)
+                run("fused", lambda t, stream, stride, precision:
+                    st.SigTruncFunction.apply(t, N, None, stream, stride,
+                                              precision, spec, taux),
+                    x.float(), plan, f"sig_sweep (sig_trunc [{tname}]) "
+                    f"d={d} N={N} M={M}", spec, taux)
+    for name, d, tname, words in fsets:
+        spec = as_transform(tname)
+        da = transform_dim(spec, d)
+        plan = make_plan(make_plan(words, da).closure, da)
+        fplans.append(plan)
+        ctp = make_tiled_plan(plan.words, da, max_rows=32)
+        for M in (1, 37):
+            x, taux = fused_batch(rng, 5, M, d, spec)
+            run("fused", lambda t, stream, stride, precision:
+                sw.SigWordsFunction.apply(t, ctp, stream, stride, precision,
+                                          plan, spec, taux),
+                x.float(), plan, f"sig_sweep (sig_words [{name}]) M={M}",
+                spec, taux)
+    print(f"[sweep] {cases} cases within tolerance (fused transform cases "
+          f"included), max fp32 |err| {worst:.2e}", flush=True)
     plans = [sig.truncation_closure(d, N) for d, N in SWEEP]
     plans += [make_plan(make_plan(words, d).closure, d)
               for _, d, words in sets]
+    plans += fplans
     parts, perr = sweep_partitions(rng, plans)
     return dict(max_abs_err=max(worst, perr), atol_needed=need,
                 partitions=parts)
@@ -1591,6 +1823,349 @@ def phase_hurst(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the fused transform cells through the user entry points
+# ---------------------------------------------------------------------------
+
+def one_forward(fn, kernel: str, where: str, backward: bool = False):
+    """Run ``fn`` with every count at 0 and check that it launched
+    ``kernel`` (terminal or streamed cell) exactly once, fused, one
+    sig_sweep if ``backward``, and nothing else.  Returns fn's result and
+    the counts."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    n = counts()
+    want = {k: 0 for k in n}
+    stream = n[kernel + "_stream"] == 1
+    want[kernel + ("_stream" if stream else "")] = 1
+    want[kernel + "_fused"] = 1
+    want["sig_sweep"] = int(backward)
+    check(n == want, f"{where}: launches {n}, expected {want}")
+    return out, n
+
+
+def fused_times(fused, mat, plain) -> dict:
+    """The fused kernel's ms beside the materialising route's (the
+    augment in PyTorch, then the same kernel) and the plain version's."""
+    return dict(ms=cuda_ms(fused, 10), materialise_ms=cuda_ms(mat, 10),
+                plain_ms=cuda_ms(plain, 1))
+
+
+def fused_case(case: str, shape: list, t: dict, b: tuple, **kw) -> dict:
+    """One fused entry of a kernel row's ``cases``."""
+    return dict(case=case, shape=shape, transform=kw.pop("transform"),
+                ms=t["ms"], materialise_ms=t["materialise_ms"],
+                plain_ms=t["plain_ms"], bound_ms=b[0], bound_by=b[1], **kw)
+
+
+def saved_for_backward(fn, x: torch.Tensor, where: str,
+                       allowed: int, augmented: int) -> int:
+    """Bytes saved for the backward of fn(x): at most ``allowed`` (the raw
+    increments, the time rows and the terminal state), never the
+    augmented increments' ``augmented`` bytes."""
+    saved = saved_storage_bytes(fn, x)
+    check(saved <= allowed, f"{where}: {saved} bytes saved for the backward"
+          f", above the raw increments, time rows and terminal state "
+          f"({allowed}); the augmented increments are {augmented}")
+    return saved
+
+
+def transform_projection(rng) -> dict:
+    """§8 at full width through transform="lead_lag": ops.projected
+    (terminal, ragged, streamed) and ops.projected_forward_only onto the
+    1,685-word set, and ops.signature(·, 3) with its gradient."""
+    B, M, d, N, stride = PROJ_CELL
+    tname = "lead_lag"
+    spec = as_transform(tname)
+    da, Ma = transform_dim(spec, d), 2 * M
+    incs = tops.path_increments(brownian(rng, B, M, d))
+    lengths = torch.tensor(rng.integers(M // 4, M + 1, size=B),
+                           dtype=torch.int32, device="cuda")
+    words = generated_words(sparse_leadlag_generators(d), N)
+    plan = make_plan(words, da)
+    tp = make_tiled_plan(words, da)
+    ctp = make_tiled_plan(prefix_closure(words), da)
+    x64 = incs.double()
+    kw = dict(transform=tname)
+    full, _ = one_forward(lambda: ops.projected(incs, plan, **kw),
+                          "sig_words", "§8 lead_lag ops.projected")
+    fwd, _ = one_forward(lambda: ops.projected_forward_only(incs, plan, **kw),
+                         "sig_words", "§8 lead_lag projected_forward_only")
+    ragged, _ = one_forward(lambda: ops.projected(incs, plan, lengths=lengths,
+                                                  **kw),
+                            "sig_words", "§8 lead_lag ragged ops.projected")
+    stream, _ = one_forward(lambda: ops.projected(
+        incs, plan, stream=True, stream_stride=stride, **kw),
+        "sig_words", "§8 lead_lag streamed ops.projected")
+    check(full.shape == fwd.shape == ragged.shape == (B, len(words))
+          and stream.shape == (B, -(-Ma // stride), len(words)),
+          f"§8 lead_lag shapes {full.shape} {fwd.shape} {ragged.shape} "
+          f"{stream.shape}")
+    want = sw.sig_words_plain(x64, tp, transform=spec)
+    want_r = sw.sig_words_plain(sig.mask_increments(x64, lengths), tp,
+                                transform=spec)
+    want_s = sw.sig_words_plain(x64, tp, stream=True, stream_stride=stride,
+                                transform=spec)
+    errs = []
+    for name, got, w in (("terminal", full, want), ("forward-only", fwd, want),
+                         ("ragged", ragged, want_r),
+                         ("streamed", stream, want_s)):
+        check(bool(torch.isfinite(got).all()), f"§8 lead_lag {name}: "
+              "non-finite values")
+        torch.testing.assert_close(got.double(), w, **TOL)
+        errs.append(float((got.double() - w).abs().max()))
+    # the same kernel on the materialised increments
+    e = augment_increments(incs, spec)
+    torch.testing.assert_close(full, ops.projected(e, plan), **TOL)
+    torch.testing.assert_close(stream, ops.projected(
+        e, plan, stream=True, stream_stride=stride), **TOL)
+    t = fused_times(lambda: sw.sig_words(incs, tp, transform=spec),
+                    lambda: sw.sig_words(fused_augment(incs, None, spec), tp),
+                    lambda: sw.sig_words_plain(incs, tp, transform=spec))
+    b = bound(B, Ma, da, N, 4, B * len(words), 4, words_flops(plan),
+              raw=(M, d))
+    ts_ = fused_times(
+        lambda: sw.sig_words(incs, ctp, stream=True, stream_stride=stride,
+                             transform=spec),
+        lambda: sw.sig_words(fused_augment(incs, None, spec), ctp,
+                             stream=True, stream_stride=stride),
+        lambda: sw.sig_words_plain(incs, ctp, stream=True,
+                                   stream_stride=stride, transform=spec))
+    bs = bound(B, Ma, da, N, 4, B * (-(-Ma // stride)) * len(ctp.words), 4,
+               words_flops(plan), raw=(M, d))
+    print(f"[transform] §8 lead_lag (B={B}, M={M} raw, {Ma} augmented "
+          f"steps over {da} letters, {len(words)} words): ops.projected "
+          f"terminal, forward-only, ragged and streamed (stride {stride}) "
+          f"one fused sig_words launch each, max |err| vs plain "
+          f"{max(errs):.2e}; sig_words fused {t['ms']:.3f} ms, materialised "
+          f"{t['materialise_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+          f"{b[0]:.4f} ms ({b[1]}); streamed over the {len(ctp.words)}-word "
+          f"closure fused {ts_['ms']:.3f} ms, materialised "
+          f"{ts_['materialise_ms']:.3f} ms, bound {bs[0]:.4f} ms ({bs[1]})",
+          flush=True)
+    # the truncated signature at depth 3, value and gradient
+    D = sum(da**n for n in range(1, 4))
+    x = incs.clone().requires_grad_()
+
+    def value_and_grad():
+        out = ops.signature(x, 3, **kw)
+        return out, torch.autograd.grad((out ** 2).sum(), x)[0]
+
+    (out, g), n = one_forward(value_and_grad, "sig_trunc",
+                              "§8 lead_lag ops.signature value and "
+                              "gradient", backward=True)
+    torch.testing.assert_close(out.double(), st.sig_trunc_plain(
+        x64, 3, transform=spec), **TOL)
+    torch.testing.assert_close(out, ops.signature(e, 3), **TOL)
+    o64 = out.detach().double()
+    gw = fused_adjoint(ss.sig_sweep_plain(
+        fused_augment(x64, None, spec), sig.truncation_closure(da, 3), o64,
+        2 * o64), spec, d)
+    gerr = float((g.double() - gw).abs().max())
+    check(grad_within(g, gw), f"§8 lead_lag ops.signature gradient: max "
+          f"|err| {gerr:.3e}, max|g| {float(gw.abs().max()):.3e}")
+    saved = saved_for_backward(lambda v: ops.signature(v, 3, **kw),
+                               incs.clone().requires_grad_(),
+                               "§8 lead_lag ops.signature",
+                               4 * (B * M * d + B * D), 4 * B * Ma * da)
+    tt_ = fused_times(lambda: st.sig_trunc(incs, 3, transform=spec),
+                      lambda: st.sig_trunc(fused_augment(incs, None, spec),
+                                           3),
+                      lambda: st.sig_trunc_plain(incs, 3, transform=spec))
+    bt = bound(B, Ma, da, 3, 4, B * D, 4, raw=(M, d))
+    vg_ms = cuda_ms(value_and_grad, 5)
+    print(f"[transform] §8 lead_lag ops.signature(·, 3) ({D} features): "
+          f"one fused sig_trunc and one sig_sweep launch; gradient max |err| "
+          f"vs the float64 plain sweep {gerr:.2e}; {saved} bytes saved for "
+          f"the backward (raw increments {4 * B * M * d}, augmented "
+          f"{4 * B * Ma * da}); value+grad {vg_ms:.3f} ms; sig_trunc fused "
+          f"{tt_['ms']:.3f} ms, materialised {tt_['materialise_ms']:.3f} ms, "
+          f"plain {tt_['plain_ms']:.3f} ms, bound {bt[0]:.4f} ms ({bt[1]})",
+          flush=True)
+    shape = [B, M, d, N]
+    return dict(
+        words=fused_case("§8 lead_lag terminal", shape, t, b,
+                         transform=tname, words=len(words),
+                         max_abs_err=max(errs), launches=1),
+        words_stream=fused_case("§8 lead_lag streamed", shape + [stride],
+                                ts_, bs, transform=tname,
+                                words=len(ctp.words), launches=1),
+        trunc=fused_case("§8 lead_lag depth 3, value and gradient",
+                         [B, M, d, 3], tt_, bt, transform=tname,
+                         value_and_grad_ms=vg_ms, grad_max_abs_err=gerr,
+                         saved_bytes=saved, launches=1))
+
+
+def transform_table1(rng) -> list:
+    """The Table 1 transform cells: terminal, streamed (stride 3), and
+    value plus gradient, through ops.signature."""
+    out = []
+    for name, B, M, d, N, prec in TABLE1_FUSED:
+        spec = as_transform(TABLE1_TRANSFORM)
+        da, Ma = transform_dim(spec, d), 2 * M
+        D = sum(da**n for n in range(1, N + 1))
+        incs = torch.tensor(rng.normal(size=(B, M, d)) / np.sqrt(M),
+                            dtype=torch.float32, device="cuda")
+        taux = transform_time_aux(spec, B, M, device="cuda")
+        xq = incs.to(torch.bfloat16).double() if prec == "bf16_fp32" \
+            else incs.double()
+        where = f"Table 1 {name} ({B}, {M}, {d}, {N}) {prec}"
+        kw = dict(transform=TABLE1_TRANSFORM, precision=prec)
+        got, _ = one_forward(lambda: ops.signature(incs, N, **kw),
+                             "sig_trunc", where)
+        want = st.sig_trunc_plain(xq, N, transform=spec, taux=taux)
+        torch.testing.assert_close(got.double(), want, **TOL)
+        err = float((got.double() - want).abs().max())
+        if prec == "bf16_fp32":
+            rel = level_relerr(got.double(), st.sig_trunc_plain(
+                incs.double(), N, transform=spec, taux=taux), da, N)
+            check(all(e <= n * 2.0**-8 for n, e in enumerate(rel, start=1)),
+                  f"{where}: level errors {rel}")
+        # the same kernel on the materialised increments (from the same
+        # rounded raw increments, the time channel in fp32)
+        e = fused_augment(xq.float(), taux, spec)
+        torch.testing.assert_close(got, st.sig_trunc(e, N), **TOL)
+        gs, _ = one_forward(lambda: ops.signature(
+            incs, N, stream=True, stream_stride=3, **kw), "sig_trunc",
+            where + " streamed")
+        want_s = st.sig_trunc_plain(xq, N, stream=True, stream_stride=3,
+                                    transform=spec, taux=taux)
+        check(gs.shape == want_s.shape and within(
+            gs.double(), want_s, 2.0**-8 if prec == "bf16_fp32"
+            else TOL["rtol"]), f"{where} streamed: max |err| "
+            f"{float((gs.double() - want_s).abs().max()):.3e}")
+        x = incs.clone().requires_grad_()
+
+        def value_and_grad():
+            o = ops.signature(x, N, **kw)
+            return o, torch.autograd.grad((o ** 2).sum(), x)[0]
+
+        (o, g), _ = one_forward(value_and_grad, "sig_trunc",
+                                where + " value and gradient", backward=True)
+        o64 = o.detach().double()
+        gw = fused_adjoint(ss.sig_sweep_plain(
+            fused_augment(xq, taux, spec), sig.truncation_closure(da, N),
+            o64, 2 * o64), spec, d)
+        gerr = float((g.double() - gw).abs().max())
+        check(grad_within(g, gw), f"{where}: gradient max |err| {gerr:.3e}, "
+              f"max|g| {float(gw.abs().max()):.3e}")
+        saved = saved_for_backward(lambda v: ops.signature(v, N, **kw),
+                                   incs.clone().requires_grad_(), where,
+                                   4 * (B * M * d + 2 * B + B * D),
+                                   4 * B * Ma * da)
+        kk = dict(transform=spec, taux=taux, precision=prec)
+        t = fused_times(lambda: st.sig_trunc(incs, N, **kk),
+                        lambda: st.sig_trunc(fused_augment(incs, taux, spec),
+                                             N, precision=prec),
+                        lambda: st.sig_trunc_plain(incs, N, transform=spec,
+                                                   taux=taux))
+        ts_ = fused_times(
+            lambda: st.sig_trunc(incs, N, stream=True, stream_stride=3, **kk),
+            lambda: st.sig_trunc(fused_augment(incs, taux, spec), N,
+                                 stream=True, stream_stride=3,
+                                 precision=prec),
+            lambda: st.sig_trunc_plain(incs, N, stream=True,
+                                       stream_stride=3, transform=spec,
+                                       taux=taux))
+        ib = 2 if prec == "bf16_fp32" else 4
+        b = bound(B, Ma, da, N, ib, B * D, 4, raw=(M, d), aux_bytes=8 * B)
+        bs = bound(B, Ma, da, N, ib, gs.numel(), ib, raw=(M, d),
+                   aux_bytes=8 * B)
+        vg_ms = cuda_ms(value_and_grad, 5)
+        print(f"[transform] {where}, {TABLE1_TRANSFORM} ({Ma} augmented "
+              f"steps over {da} letters): terminal, streamed (stride 3) and "
+              f"value+grad one fused launch each; max |err| vs plain "
+              f"{err:.2e}, gradient {gerr:.2e}; {saved} bytes saved "
+              f"(augmented increments {4 * B * Ma * da}); sig_trunc fused "
+              f"{t['ms']:.3f} ms, materialised {t['materialise_ms']:.3f} ms,"
+              f" plain {t['plain_ms']:.3f} ms, bound {b[0]:.4f} ms ({b[1]}); "
+              f"streamed fused {ts_['ms']:.3f} ms, materialised "
+              f"{ts_['materialise_ms']:.3f} ms, bound {bs[0]:.4f} ms "
+              f"({bs[1]}); value+grad {vg_ms:.3f} ms", flush=True)
+        shape = [B, M, d, N]
+        out.append(dict(
+            trunc=fused_case(f"Table 1 {name}", shape, t, b,
+                             transform=TABLE1_TRANSFORM, precision=prec,
+                             value_and_grad_ms=vg_ms, max_abs_err=err,
+                             grad_max_abs_err=gerr, saved_bytes=saved,
+                             launches=1),
+            stream=fused_case(f"Table 1 {name} streamed", shape + [3], ts_,
+                              bs, transform=TABLE1_TRANSFORM, precision=prec,
+                              launches=1)))
+    return out
+
+
+def transform_serving(rng) -> dict:
+    """signature_service(transform="time_augment") answers 256 requests:
+    the per-example dt of ragged micro-batches at serving width."""
+    d, depth, max_len = 6, 5, 1024
+    tname = "time_augment"
+    spec = as_transform(tname)
+    da = transform_dim(spec, d)
+    D = sum(da**n for n in range(1, depth + 1))
+    svc = DynamicBatcher.signature_service(d=d, depth=depth, max_len=max_len,
+                                           transform=tname)
+    reqs = serving_inputs(rng, 256, d, 16, max_len)
+    reset_counts()
+    t0 = time.perf_counter()
+    tickets = [svc.submit(p) for p in reqs]
+    out = svc.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, stats = counts(), svc.stats()
+    check(n["sig_trunc"] == n["sig_trunc_fused"] == stats["batches"] > 0
+          and sum(n.values()) == 2 * stats["batches"],
+          f"time_augment serving: launches {n} for {stats['batches']} "
+          "micro-batches")
+    for tk in tickets:
+        check(out[tk].shape == (D,) and bool(torch.isfinite(out[tk]).all()),
+              f"time_augment ticket {tk}: bad answer")
+    worst = 0.0
+    for i in rng.choice(len(reqs), 32, replace=False):
+        x = tops.path_increments(torch.tensor(reqs[i], dtype=torch.float64,
+                                              device="cuda"))[None]
+        taux = transform_time_aux(spec, 1, x.shape[1], device="cuda")
+        want = st.sig_trunc_plain(x, depth, transform=spec, taux=taux)[0]
+        got = out[tickets[i]].double()
+        worst = max(worst, float((got - want).abs().max()))
+        check(within(got, want, TOL["rtol"]), f"time_augment request {i} "
+              f"(length {len(reqs[i]) - 1}): max |err| {worst:.3e}")
+    rung, B_pad = max(stats["shapes"], key=lambda s: s[0] * s[1])
+    which = assign_buckets([len(p) - 1 for p in reqs], svc.ladder)
+    part = [p for p, k in zip(reqs, which) if svc.ladder[k] == rung][:B_pad]
+    rp = pad_batch(RaggedPaths.from_list(part, pad_to=rung), B_pad)
+    incs = sig.mask_increments(rp.increments(), rp.lengths)
+    taux = transform_time_aux(spec, B_pad, rung, rp.lengths, device="cuda")
+    t = fused_times(
+        lambda: st.sig_trunc(incs, depth, transform=spec, taux=taux),
+        lambda: st.sig_trunc(fused_augment(incs, taux, spec), depth),
+        lambda: st.sig_trunc_plain(incs, depth, transform=spec, taux=taux))
+    b = bound(B_pad, rung, da, depth, 4, B_pad * D, 4, raw=(rung, d),
+              aux_bytes=8 * B_pad)
+    print(f"[transform] signature_service(d={d}, depth={depth}, "
+          f"transform={tname}): {len(reqs)} requests in {wall * 1e3:.1f} ms "
+          f"(first flush), {stats['batches']} micro-batches, one fused "
+          f"sig_trunc launch each; 32 sampled answers match the unpadded "
+          f"plain version, max |err| {worst:.2e}; largest micro-batch (B="
+          f"{B_pad}, M={rung}): sig_trunc fused {t['ms']:.3f} ms, "
+          f"materialised {t['materialise_ms']:.3f} ms, plain "
+          f"{t['plain_ms']:.3f} ms, bound {b[0]:.4f} ms ({b[1]})", flush=True)
+    return fused_case("serving time_augment micro-batch",
+                      [B_pad, rung, d, depth], t, b, transform=tname,
+                      launches=n["sig_trunc"], wall_ms=wall * 1e3,
+                      max_abs_err=worst)
+
+
+def phase_transform(rng) -> dict:
+    """Phase 18: the fused transform cells on the card through the entry
+    points a user calls."""
+    proj = transform_projection(rng)
+    table1 = transform_table1(rng)
+    serve = transform_serving(rng)
+    return dict(projection=proj, table1=table1, serve=serve)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1602,7 +2177,7 @@ def main() -> int:
     max_err = phase_kernels(rng)
     serve = phase_serve(rng)
     table1, stream = phase_dispatch(rng)
-    words_err, sets = phase_words_kernels(rng)
+    words_err, sets, fsets = phase_words_kernels(rng)
     cross = phase_cross(rng)
     proj = phase_projection(rng)
     logsig = phase_logsig(rng)
@@ -1610,11 +2185,12 @@ def main() -> int:
     phase_gram_variants(rng)
     score = phase_scoring(rng)
     mmd = phase_projected_mmd(rng)
-    sweep = phase_sweep(rng, sets)
+    sweep = phase_sweep(rng, sets, fsets)
     train = phase_train_grid(rng)
     memory = phase_memory(rng)
     mmd_grad = phase_mmd_grad(rng)
     hurst = phase_hurst(args.seed)
+    fused = phase_transform(rng)
     src = "src/repro_torch/kernels/csrc/sig_trunc.cu"
     largest = max(table1, key=lambda r: r["bound_ms"])
     trunc_cases = [
@@ -1623,7 +2199,9 @@ def main() -> int:
                    score["ref_sigs"]),
         trunc_case("largest Table 1 cell", [largest[k] for k in "BMdN"],
                    largest),
-        trunc_case("streamed", stream["shape"], stream)]
+        trunc_case("streamed", stream["shape"], stream),
+        fused["projection"]["trunc"], fused["serve"]]
+    trunc_cases += [c["trunc"] for c in fused["table1"]]
     wsrc = "src/repro_torch/kernels/csrc/sig_words.cu"
     t3 = max(logsig, key=lambda r: r["bound_ms"])
     words_cases = [
@@ -1638,7 +2216,8 @@ def main() -> int:
         dict(case="largest Table 3 set", shape=[t3[k] for k in "BMdN"],
              words=t3["words"], partition=t3["partition"],
              ms=t3["kernel_ms"], bound_ms=t3["bound_ms"],
-             bound_by=t3["bound_by"])]
+             bound_by=t3["bound_by"]),
+        fused["projection"]["words"]]
     kernels = [
         dict(name="sig_trunc", route="cuda", source=src,
              replaces="src/repro/kernels/sig_trunc.py:300",
@@ -1651,7 +2230,8 @@ def main() -> int:
              launches=stream["launches"],
              max_abs_err=max_err["sig_trunc_stream"], ms=stream["ms"],
              plain_ms=stream["plain_ms"], bound_ms=stream["bound_ms"],
-             bound_by=stream["bound_by"], library_ms=None),
+             bound_by=stream["bound_by"], library_ms=None,
+             cases=[c["stream"] for c in fused["table1"]]),
         dict(name="sig_words", route="cuda", source=wsrc,
              replaces="src/repro/kernels/sig_words.py:197",
              launches=proj["launches"], max_abs_err=words_err["sig_words"],
@@ -1664,7 +2244,8 @@ def main() -> int:
              max_abs_err=words_err["sig_words_stream"], ms=proj["stream_ms"],
              plain_ms=proj["stream_plain_ms"],
              bound_ms=proj["stream_bound_ms"],
-             bound_by=proj["stream_bound_by"], library_ms=None),
+             bound_by=proj["stream_bound_by"], library_ms=None,
+             cases=[fused["projection"]["words_stream"]]),
         dict(name="sig_gram", route="cuda",
              source="src/repro_torch/kernels/csrc/sig_gram.cu",
              replaces="src/repro/kernels/sig_gram.py:68",
@@ -1723,7 +2304,8 @@ def main() -> int:
             device=smi, kernels=kernels, serve=serve, table1=table1,
             stream=stream, cross=cross, projection=proj, logsig=logsig,
             scoring=score, projected_mmd=mmd, sweep=sweep,
-            train=train, memory=memory, mmd_grad=mmd_grad, hurst=hurst),
+            train=train, memory=memory, mmd_grad=mmd_grad, hurst=hurst,
+            transform=fused),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -23,11 +23,12 @@ import torch
 from ..device import resolve_device
 from ..kernels.cache import plan_cache
 from . import tensor_ops as tops
-from .signature import (CHECKPOINT_ITEM, TRANSFORM_ITEM, _as_batched,
+from .signature import (CHECKPOINT_ITEM, _as_batched,
                         _unpack_ragged, as_lengths, canon_precision,
                         mask_increments, not_ported, quantise_increments,
                         stream_emit_mask, stream_emit_steps,
                         unsupported_stream_backward)
+from .transforms import as_transform, transform_dim
 from .words import WordPlan, make_plan
 
 
@@ -156,7 +157,7 @@ def projected_signature_from_increments(increments, plan: WordPlan, *,
                                         stream_stride: int = 1,
                                         backward: str = "inverse",
                                         backend: str = "auto", lengths=None,
-                                        transform=None,
+                                        transform=None, x0=None,
                                         precision: str = "fp32",
                                         device=None) -> torch.Tensor:
     """π_I(S_{0,T}(X)) for the plan's word set I: (B, M, d) -> (B, |I|).
@@ -165,20 +166,24 @@ def projected_signature_from_increments(increments, plan: WordPlan, *,
     :func:`repro_torch.kernels.ops.projected`.  ``stream=True`` emits every
     ``stream_stride``-th per-step projection as (B, M_out, |I|).
     ``lengths`` (B,) makes the batch ragged (zero-masked padded tails,
-    masked post-end emissions).  ``precision`` is ``"fp32"`` |
-    ``"bf16_fp32"``.  ``device=None`` means CUDA.
+    masked post-end emissions).  ``transform`` applies a path transform
+    (the plan is then over the augmented alphabet; ``x0`` is the path
+    start, needed iff the transform has a basepoint) and routes through
+    :func:`repro_torch.kernels.ops.projected`, as the reference does.
+    ``precision`` is ``"fp32"`` | ``"bf16_fp32"``.  ``device=None`` means
+    CUDA.
     """
     dev = resolve_device(device)
     increments, squeeze = _as_batched(torch.as_tensor(increments, device=dev))
     precision = canon_precision(precision)
-    if transform is not None:
-        raise not_ported("transform=", TRANSFORM_ITEM)
-    if backend != "torch":
+    spec = as_transform(transform)
+    if backend != "torch" or spec is not None:
         from ..kernels import ops  # deferred: ops imports this module
         out = ops.projected(increments, plan, backend=backend,
                             backward=backward, stream=stream,
                             stream_stride=stream_stride, lengths=lengths,
-                            precision=precision, device=dev)
+                            transform=spec, x0=x0, precision=precision,
+                            device=dev)
         return out[0] if squeeze else out
     if backward == "checkpoint":
         if stream:
@@ -222,20 +227,25 @@ def projected_signature(path, words, d: int | None = None, *,
     ``words`` is an iterable of letter tuples (0-based), or pass a prebuilt
     ``plan``.  ``lengths`` (B,) makes the batch ragged; a
     :class:`repro_torch.ragged.RaggedPaths` may be passed as ``path``.
-    ``device=None`` means CUDA.
+    ``transform`` applies a path transform fused into the sweep: the words
+    (and any ``plan``) are over the augmented alphabet, ``d`` defaults to
+    the augmented channel count, and the basepoint start ``x0`` is taken
+    from the path.  ``device=None`` means CUDA.
     """
     dev = resolve_device(device)
     values, rl = _unpack_ragged(path)
     if rl is not None and lengths is None:
         lengths = rl
     path, squeeze = _as_batched(torch.as_tensor(values, device=dev))
-    if transform is not None:
-        raise not_ported("transform=", TRANSFORM_ITEM)
+    spec = as_transform(transform)
     if plan is None:
-        plan = make_plan(tuple(tuple(w) for w in words),
-                         path.shape[-1] if d is None else d)
+        if d is None:
+            d = transform_dim(spec, path.shape[-1])
+        plan = make_plan(tuple(tuple(w) for w in words), d)
+    x0 = path[:, 0] if spec is not None and spec.basepoint else None
     out = projected_signature_from_increments(
         tops.path_increments(path), plan, stream=stream,
         stream_stride=stream_stride, backward=backward, backend=backend,
-        lengths=lengths, precision=precision, device=dev)
+        lengths=lengths, transform=spec, x0=x0, precision=precision,
+        device=dev)
     return out[0] if squeeze else out

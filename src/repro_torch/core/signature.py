@@ -27,6 +27,13 @@ Backward modes:
   (the memory-law baseline); the ``cuda`` engine routes it to ``torch``.
 - ``"checkpoint"`` (the √M checkpoint sweep) raises, naming its ROADMAP.md
   item.
+
+``transform=`` (see :func:`repro_torch.core.transforms.as_transform`)
+fuses basepoint / lead_lag / time_augment into the scan: basepoint is an
+increment prepend (``x0=``), and each augmented increment is built per
+Horner sub-step (:func:`_fused_scan_forward`), so the (B, M_aug, d_aug)
+intermediate never exists on the forward; streamed emissions and lengths
+are over the augmented step axis.
 """
 from __future__ import annotations
 
@@ -49,7 +56,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 CHECKPOINT_ITEM = ("queue 1 item 5 (training: the √M checkpoint sweep and "
                    "time_chunks)")
-TRANSFORM_ITEM = "queue 1 item 6 (transforms and the fused kernel sub-steps)"
 HYBRID_ITEM = "queue 1 item 8 (the hybrid dense + top-word engine)"
 
 
@@ -181,6 +187,65 @@ def _subsample_stream(out: torch.Tensor, M: int, stride: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# fused-transform forward: the augmented increment is built per Horner
+# sub-step, so the (B, M_aug, d_aug) intermediate never exists.
+# ``increments`` already include the basepoint increment (the dispatch
+# prepends x0); ``taux`` is transforms.transform_time_aux output.
+# ---------------------------------------------------------------------------
+
+def dataclasses_replace_nobp(spec):
+    """The kernel-level view of a transform spec: basepoint is an increment
+    prepend done by the dispatch, so the scans and kernels see only
+    lead_lag and time."""
+    import dataclasses
+    if spec.basepoint:
+        return dataclasses.replace(spec, basepoint=False)
+    return spec
+
+
+def _fused_build_increment(dx: torch.Tensor, taux: torch.Tensor, spec,
+                           phase: int, ja: int) -> torch.Tensor:
+    """Augmented increment ``ja`` (B, d_aug), in ``dx``'s dtype, from raw
+    increment (B, d): [t?, lag, lead] channels, lead moving in phase 0."""
+    parts = []
+    if spec.time:
+        dt, n_valid = taux[:, :1], taux[:, 1:]
+        parts.append((dt * (ja < n_valid).to(dt.dtype)).to(dx.dtype))
+    if spec.lead_lag:
+        z = torch.zeros_like(dx)
+        parts += [z, dx] if phase == 0 else [dx, z]
+    else:
+        parts.append(dx)
+    return torch.cat(parts, dim=-1)
+
+
+def _fused_scan_forward(increments: torch.Tensor, taux: torch.Tensor, spec,
+                        depth: int, stream: bool) -> torch.Tensor:
+    """Fused levelwise-Horner scan: ``spec.sub_steps`` Horner sub-steps per
+    raw step.  increments: (B, M, d) raw -> (B, D_sig(d_aug)), or over the
+    augmented axis (B, M_aug, D_sig) when streamed."""
+    from .transforms import transform_dim
+    B, M, d = increments.shape
+    sub = spec.sub_steps
+    d_aug = transform_dim(dataclasses_replace_nobp(spec), d)
+    levels = tops.zero_levels((B,), d_aug, depth, increments.dtype,
+                              increments.device)
+    ys = []
+    for j in range(M):
+        for p in range(sub):
+            e = _fused_build_increment(increments[:, j], taux, spec, p,
+                                       sub * j + p)
+            levels = tops.horner_step(levels, e)
+            if stream:
+                ys.append(tops.levels_to_flat(levels))
+    if stream:
+        if not ys:
+            return increments.new_zeros((B, 0, sig_dim(d_aug, depth)))
+        return torch.stack(ys, 1)
+    return tops.levels_to_flat(levels)
+
+
+# ---------------------------------------------------------------------------
 # the §4.2 inverse backward: the forward saves (increments, terminal); one
 # reverse sweep over the truncation's word table reconstructs the states
 # and pulls the cotangent back (repro_torch.kernels.sig_sweep)
@@ -251,6 +316,42 @@ class InverseSignatureFunction(torch.autograd.Function):
         return gx, None, None
 
 
+class FusedInverseSignatureFunction(torch.autograd.Function):
+    """The ``torch`` engine's fused ``backward="inverse"`` cell: the fused
+    scan forward, saving the raw increments, ``taux`` and the terminal
+    signature.  The backward materialises the augmented increments
+    transiently (:func:`repro_torch.core.transforms.fused_augment`), runs
+    the plain §4.2 sweep over them and pulls the cotangent back through
+    :func:`repro_torch.core.transforms.fused_adjoint`; ``taux`` gets no
+    gradient.  ``stride`` 0 is the terminal cell, >= 1 the streamed one
+    (emissions strided over the augmented axis)."""
+
+    @staticmethod
+    def forward(ctx, increments, taux, spec, depth, stride):
+        full = _fused_scan_forward(increments, taux, spec, depth, stride > 0)
+        if stride == 0:
+            out = terminal = full
+        else:
+            out = _subsample_stream(full, full.shape[1], stride)
+            terminal = full[:, -1].clone()
+        ctx.save_for_backward(increments, taux, terminal)
+        ctx.spec, ctx.depth, ctx.stride = spec, depth, stride
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from .transforms import fused_adjoint, fused_augment
+        increments, taux, terminal = ctx.saved_tensors
+        e = fused_augment(increments, taux, ctx.spec)
+        if ctx.stride == 0:
+            g_e = inverse_bwd_scan(e, terminal, g, ctx.depth)
+        else:
+            g_e = stream_inverse_bwd_scan(e, terminal, g, ctx.depth,
+                                          ctx.stride)
+        gx = fused_adjoint(g_e, ctx.spec, increments.shape[-1])
+        return gx, None, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # precision: "fp32" | "bf16_fp32" (bf16-rounded increments, fp32
 # accumulation).  The rounding is the semantics: every engine runs fp32
@@ -288,11 +389,75 @@ def unsupported_stream_backward(backward: str) -> NotImplementedError:
 # public API
 # ---------------------------------------------------------------------------
 
+def prepend_basepoint(increments: torch.Tensor, lengths, spec, x0,
+                      precision: str):
+    """The fused cells' bookkeeping, in the reference's order: mask,
+    prepend the x0 increment (lengths + 1), quantise.  Returns the
+    increments, the lengths and the kernel-level (basepoint-free) spec."""
+    if lengths is not None:
+        lengths = as_lengths(lengths, increments.shape[0], increments.device)
+        increments = mask_increments(increments, lengths)
+    if spec.basepoint:
+        if x0 is None:
+            raise ValueError("transform with basepoint needs x0= (the path "
+                             "start point, shape (B, d)); core.signature."
+                             "signature passes it automatically")
+        x0 = torch.as_tensor(x0, device=increments.device).to(
+            increments.dtype)
+        increments = torch.cat([x0[:, None, :], increments], dim=1)
+        lengths = None if lengths is None else lengths + 1
+    increments = quantise_increments(increments, precision)
+    return increments, lengths, dataclasses_replace_nobp(spec)
+
+
+def _fused_torch_signature(increments: torch.Tensor, depth: int, spec, *,
+                           x0, stream: bool, stream_stride: int,
+                           backward: str, lengths,
+                           precision: str) -> torch.Tensor:
+    """Fused-transform route of the torch engine: basepoint is an increment
+    prepend, lead_lag/time are built per sub-step inside the scan.
+    Streaming, lengths masking and emissions are over the augmented axis.
+    """
+    from .transforms import transform_dim, transform_time_aux
+    B, M, d = increments.shape
+    increments, lengths_bp, kspec = prepend_basepoint(increments, lengths,
+                                                      spec, x0, precision)
+    M_bp = increments.shape[1]
+    taux = transform_time_aux(kspec, B, M_bp, lengths_bp,
+                              device=increments.device)
+    M_aug = M_bp * kspec.sub_steps
+    if backward == "checkpoint":
+        if stream:
+            raise unsupported_stream_backward(backward)
+        raise not_ported("backward='checkpoint'", CHECKPOINT_ITEM)
+    if backward not in ("inverse", "autodiff"):
+        raise ValueError(f"unknown backward mode {backward!r}")
+    if stream:
+        if M_aug == 0:  # no steps: no emissions
+            return increments.new_zeros(
+                (B, 0, sig_dim(transform_dim(kspec, d), depth)))
+        if backward == "inverse":
+            out = FusedInverseSignatureFunction.apply(increments, taux, kspec,
+                                                      depth, stream_stride)
+        else:
+            out = _subsample_stream(_fused_scan_forward(
+                increments, taux, kspec, depth, True), M_aug, stream_stride)
+        if lengths_bp is not None:
+            aug_lengths = lengths_bp * kspec.sub_steps
+            out = out * stream_emit_mask(M_aug, stream_stride, aug_lengths
+                                         )[..., None].to(out.dtype)
+        return out
+    if backward == "inverse" and M_aug:
+        return FusedInverseSignatureFunction.apply(increments, taux, kspec,
+                                                   depth, 0)
+    return _fused_scan_forward(increments, taux, kspec, depth, False)
+
+
 def signature_from_increments(increments, depth: int, *,
                               stream: bool = False, stream_stride: int = 1,
                               backward: str = "inverse",
                               backend: str = "auto", lengths=None,
-                              transform=None,
+                              transform=None, x0=None,
                               precision: str = "fp32",
                               device=None) -> torch.Tensor:
     """Truncated signature from increments (B, M, d) -> (B, D_sig).
@@ -302,21 +467,35 @@ def signature_from_increments(increments, depth: int, *,
     ``stream_stride``-th prefix signature as (B, M_out, D_sig).  ``lengths``
     (B,) makes the batch ragged: increments at or past each example's length
     are zero-masked, and streamed emissions past each true-terminal slot are
-    masked.  ``precision`` is ``"fp32"`` | ``"bf16_fp32"``.
+    masked.  ``transform`` fuses basepoint / lead_lag / time_augment into
+    the sweep (streamed emissions and lengths over the augmented axis);
+    ``x0`` (B, d) is the path start, required iff the transform has a
+    basepoint.  ``precision`` is ``"fp32"`` | ``"bf16_fp32"``.
     """
     dev = resolve_device(device)
     increments, squeeze = _as_batched(torch.as_tensor(increments, device=dev))
     if depth < 1:
         raise ValueError("depth must be >= 1")
     precision = canon_precision(precision)
-    if transform is not None:
-        raise not_ported("transform=", TRANSFORM_ITEM)
     if backend != "torch":
         from ..kernels import ops  # deferred: ops imports this module
         out = ops.signature(increments, depth, backend=backend,
                             backward=backward, stream=stream,
                             stream_stride=stream_stride, lengths=lengths,
-                            precision=precision, device=dev)
+                            transform=transform, x0=x0, precision=precision,
+                            device=dev)
+        return out[0] if squeeze else out
+    from .transforms import as_transform
+    spec = as_transform(transform)
+    if spec is not None:
+        if stream and stream_stride < 1:
+            raise ValueError(
+                f"stream_stride must be >= 1, got {stream_stride}")
+        out = _fused_torch_signature(increments, depth, spec, x0=x0,
+                                     stream=stream,
+                                     stream_stride=stream_stride,
+                                     backward=backward, lengths=lengths,
+                                     precision=precision)
         return out[0] if squeeze else out
     increments = quantise_increments(increments, precision)
     if lengths is not None:
@@ -360,7 +539,10 @@ def signature(path, depth: int, *, stream: bool = False,
     signatures, strided by ``stream_stride`` (terminal always included).
     ``lengths`` (B,) gives each example's true increment count; a
     :class:`repro_torch.ragged.RaggedPaths` may be passed as ``path`` (its
-    lengths are used unless overridden).  ``device=None`` means CUDA.
+    lengths are used unless overridden).  ``transform``
+    (``"time_augment"`` / ``"lead_lag"`` / ``"basepoint"``, composable)
+    applies the path transforms fused into the sweep, the basepoint start
+    ``x0`` taken from the path.  ``device=None`` means CUDA.
     """
     dev = resolve_device(device)
     values, rl = _unpack_ragged(path)
@@ -374,10 +556,13 @@ def signature(path, depth: int, *, stream: bool = False,
         if lengths is not None:
             lengths = lengths + 1
     incs = tops.path_increments(path)
+    from .transforms import as_transform
+    spec = as_transform(transform)
+    x0 = path[:, 0] if spec is not None and spec.basepoint else None
     out = signature_from_increments(incs, depth, stream=stream,
                                     stream_stride=stream_stride,
                                     backward=backward, backend=backend,
-                                    lengths=lengths, transform=transform,
+                                    lengths=lengths, transform=spec, x0=x0,
                                     precision=precision, device=dev)
     return out[0] if squeeze else out
 

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into a shared library under ``build/repro_torch/`` at the
-repository root, named by a hash of its source and flags, so a library is
-built once per source version and reused afterwards.  :func:`build_all`
-starts one ``nvcc`` per source, all at once.  Nothing is built when a module
+repository root, named by a hash of its source, the shared headers and the
+flags, so a library is built once per source version and reused
+afterwards.  :func:`build_all` starts one ``nvcc`` per source, all at once.  Nothing is built when a module
 is imported: the first launch builds, and a missing ``nvcc`` raises.
 """
 from __future__ import annotations
@@ -44,6 +44,8 @@ def sources() -> list[str]:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the headers a source includes
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

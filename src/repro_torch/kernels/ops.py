@@ -65,9 +65,8 @@ hybrid     the torch row (the product has no dense/word split)
 (the closure state for projections) and runs the §4.2 reverse sweep, one
 ``sig_sweep`` launch a call on the card
 (:mod:`repro_torch.kernels.sig_sweep`).  ``checkpoint`` and
-``time_chunks`` land with the training item; ``transform=`` with the
-transforms item; ``backend="hybrid"`` with the hybrid-engine item (the
-errors name the ROADMAP.md items).  For truncated signatures
+``time_chunks`` land with the training item; ``backend="hybrid"`` with the
+hybrid-engine item (the errors name the ROADMAP.md items).  For truncated signatures
 ``backend="hybrid"`` raises as in the reference: it applies to projected
 word sets only.  ``max_rows`` bounds a tile's closure rows (a caller's
 ``TiledPlan`` keeps its tiles); the reference's TPU ``batch_tile`` knob has
@@ -76,6 +75,32 @@ no counterpart.
 ``lengths`` (B,) works in every cell: padded-tail increments are zero-masked
 before the engine runs (a zero increment is the identity Chen update), and
 streamed outputs are masked after each example's true-terminal slot.
+
+``transform`` column: every cell above also takes ``transform=`` (a
+:class:`repro_torch.core.transforms.Transform` or a spec string such as
+``"time_augment+lead_lag"``) and ``x0=`` (the path start, needed iff the
+transform has a basepoint), applied to the path before signing:
+
+- ``cuda`` × ``inverse`` (truncated and projected, terminal or streamed,
+  and ``projected_forward_only``): FUSED.  The raw (B, M, d) increments
+  and a (B, 2) fp32 ``[dt, n_valid_aug]`` row enter the kernel, which
+  builds each augmented increment ([t?, lag, lead] channels) as it stages
+  it; the (B, M_aug, d_aug) tensor is never made on the forward.  The
+  backward saves the raw increments, builds the augmented ones
+  transiently for the unchanged ``sig_sweep`` kernel, then applies
+  :func:`repro_torch.core.transforms.fused_adjoint`.
+- ``torch`` signatures: the augment is fused into the scan step
+  (``core.signature._fused_torch_signature``).
+- ``torch`` projections and every ``autodiff`` cell of them:
+  materialise: ``fused_augment`` builds the augmented increments once and
+  the plain cell runs (the augment is linear, autograd transposes it).
+- ``basepoint``: resolved here by prepending the ``x0`` increment
+  (lengths shift by one); a basepoint-only transform runs the plain cell.
+- The order of operations is the reference's: mask, prepend x0 (lengths
+  + 1), quantise, then ``taux`` from the shifted lengths.  Streamed
+  emissions, strides and lengths count augmented steps.  Projected word
+  sets are over the augmented alphabet; a plan over the raw alphabet
+  raises.
 ``precision="bf16_fp32"`` rounds the increments to bf16 once, here, before
 any engine runs (straight-through gradient); the kernels then store them in
 bf16 and accumulate in fp32, and streamed emissions are rounded to bf16.
@@ -85,11 +110,13 @@ from __future__ import annotations
 import torch
 
 from ..core.projection import plan_tables, projected_signature_from_increments
-from ..core.signature import (CHECKPOINT_ITEM, HYBRID_ITEM, TRANSFORM_ITEM,
-                              as_lengths, canon_precision, mask_increments,
-                              not_ported, quantise_increments,
+from ..core.signature import (CHECKPOINT_ITEM, HYBRID_ITEM, as_lengths,
+                              canon_precision, mask_increments, not_ported,
+                              prepend_basepoint, quantise_increments,
                               signature_from_increments, stream_emit_mask,
                               unsupported_stream_backward)
+from ..core.transforms import (as_transform, fused_augment, transform_dim,
+                               transform_time_aux)
 from ..core.words import TiledPlan, WordPlan, make_plan, make_tiled_plan
 from ..device import resolve_device
 from .cache import plan_cache
@@ -135,12 +162,26 @@ def _mask_stream_out(out: torch.Tensor, M: int, stride: int,
     return out * stream_emit_mask(M, stride, lengths)[..., None].to(out.dtype)
 
 
+def _time_rows(kspec, increments: torch.Tensor, lengths):
+    """The (B, 2) fp32 ``[dt, n_valid_aug]`` rows of a fused cell, from the
+    post-basepoint lengths; None without a time channel."""
+    if not kspec.time:
+        return None
+    B, M, _ = increments.shape
+    return transform_time_aux(kspec, B, M, lengths, device=increments.device)
+
+
 def _signature_local(increments: torch.Tensor, lengths, *, depth: int,
                      engine: str, backward: str, split: int | None,
-                     stream: bool, stream_stride: int,
-                     precision: str) -> torch.Tensor:
+                     stream: bool, stream_stride: int, precision: str,
+                     transform=None, x0=None) -> torch.Tensor:
     """Single-device dispatch, in the reference's order: mask, quantise,
     engine, then the streamed output mask."""
+    kw = dict(depth=depth, engine=engine, backward=backward, split=split,
+              stream=stream, stream_stride=stream_stride,
+              precision=precision)
+    if transform is not None:
+        return _signature_fused(increments, lengths, transform, x0, **kw)
     if lengths is not None:
         lengths = as_lengths(lengths, increments.shape[0], increments.device)
         increments = mask_increments(increments, lengths)
@@ -167,10 +208,44 @@ def _signature_local(increments: torch.Tensor, lengths, *, depth: int,
     return sig_trunc(increments, depth, split=split, precision=precision)
 
 
+def _signature_fused(increments: torch.Tensor, lengths, spec, x0, *,
+                     depth: int, engine: str, backward: str,
+                     split: int | None, stream: bool, stream_stride: int,
+                     precision: str) -> torch.Tensor:
+    """The fused-transform cells of :func:`signature`: the ``cuda``
+    ``inverse`` cells run ``sig_trunc`` on the raw increments and ``taux``
+    (the reference's ``_pallas_sig_fused_inverse`` / ``_stream``); the
+    torch engine and ``autodiff`` run the torch engine's fused scan."""
+    if engine == "torch" or backward == "autodiff" or increments.shape[1] == 0:
+        out = signature_from_increments(
+            increments, depth, stream=stream, stream_stride=stream_stride,
+            backward=backward, backend="torch", lengths=lengths,
+            transform=spec, x0=x0, precision=precision,
+            device=increments.device)
+        return quantise_increments(out, precision) if stream else out
+    increments, lengths, kspec = prepend_basepoint(increments, lengths,
+                                                   spec, x0, precision)
+    kw = dict(depth=depth, engine=engine, backward=backward, split=split,
+              stream=stream, stream_stride=stream_stride,
+              precision=precision)
+    if not kspec:  # basepoint only: one prepended increment, the plain cell
+        return _signature_local(increments, lengths, **kw)
+    out = sig_trunc(increments, depth, split=split, stream=stream,
+                    stream_stride=stream_stride, precision=precision,
+                    transform=kspec,
+                    taux=_time_rows(kspec, increments, lengths))
+    if not stream:
+        return out
+    out = quantise_increments(out, precision)
+    aug_lengths = None if lengths is None else lengths * kspec.sub_steps
+    return _mask_stream_out(out, increments.shape[1] * kspec.sub_steps,
+                            stream_stride, aug_lengths)
+
+
 def signature(increments, depth: int, *, backend: str = "auto",
               backward: str = "inverse", split: int | None = None,
               time_chunks: int = 1, stream: bool = False,
-              stream_stride: int = 1, lengths=None, transform=None,
+              stream_stride: int = 1, lengths=None, transform=None, x0=None,
               precision: str = "fp32", device=None) -> torch.Tensor:
     """Truncated signature (B, M, d) -> (B, D_sig) on ``device`` (default
     CUDA); see the support matrix in the module docstring.
@@ -178,14 +253,15 @@ def signature(increments, depth: int, *, backend: str = "auto",
     ``stream=True`` -> (B, M_out, D_sig) prefix signatures at every
     ``stream_stride``-th step (terminal always included).  ``lengths`` (B,)
     makes the batch ragged.  ``split`` forces the kernel's cone level.
+    ``transform`` / ``x0`` apply a path transform fused into the kernel
+    (the ``transform`` column of the support matrix).
     """
     dev = resolve_device(device)
     increments = torch.as_tensor(increments, device=dev)
     engine = resolve_backend(backend, dev)
     _check_backward(backward)
     precision = canon_precision(precision)
-    if transform is not None:
-        raise not_ported("transform=", TRANSFORM_ITEM)
+    spec = as_transform(transform)
     if stream:
         if stream_stride < 1:
             raise ValueError(
@@ -204,7 +280,8 @@ def signature(increments, depth: int, *, backend: str = "auto",
         raise ValueError("depth must be >= 1")
     return _signature_local(increments, lengths, depth=depth, engine=engine,
                             backward=backward, split=split, stream=stream,
-                            stream_stride=stream_stride, precision=precision)
+                            stream_stride=stream_stride, precision=precision,
+                            transform=spec, x0=x0)
 
 
 # ---------------------------------------------------------------------------
@@ -248,16 +325,19 @@ def _normalise_plans(plan, d: int) -> tuple[WordPlan, TiledPlan | None]:
 
 def _closure_kernel(increments: torch.Tensor, wplan: WordPlan,
                     max_rows: int, stream: bool, stream_stride: int,
-                    precision: str) -> torch.Tensor:
+                    precision: str, transform=None,
+                    taux=None) -> torch.Tensor:
     """The ``sig_words`` kernel over the closure-tiled plan, read at the
     requested words.  The kernel's (B, W) closure coefficients (B, M_out,
     W when streamed) are the closure state the §4.2 backward reconstructs
-    from, as in the reference's ``_pallas_proj_inverse``."""
+    from, as in the reference's ``_pallas_proj_inverse`` (and, with a
+    ``transform``, ``_pallas_proj_fused_inverse`` / ``_stream``)."""
+    fused = {} if transform is None else dict(transform=transform, taux=taux)
     cw = sig_words(increments,
                    _closure_tiled_plan(wplan.words, wplan.d, max_rows),
                    stream=stream, stream_stride=stream_stride,
                    precision=precision,
-                   closure=_plan_for_words(wplan.closure, wplan.d))
+                   closure=_plan_for_words(wplan.closure, wplan.d), **fused)
     # out_rows count the eps row as 0; the closure words start at 1
     out_rows = plan_tables(wplan, increments.device, torch.float32)[4]
     return cw[..., out_rows - 1]
@@ -265,9 +345,33 @@ def _closure_kernel(increments: torch.Tensor, wplan: WordPlan,
 
 def _projected_local(increments: torch.Tensor, lengths, *, wplan: WordPlan,
                      engine: str, backward: str, max_rows: int, stream: bool,
-                     stream_stride: int, precision: str) -> torch.Tensor:
+                     stream_stride: int, precision: str, transform=None,
+                     x0=None) -> torch.Tensor:
     """Single-device projected dispatch, in the reference's order: mask,
-    quantise, engine, then the streamed output mask."""
+    quantise, engine, then the streamed output mask.  With a transform:
+    the ``cuda`` ``inverse`` cells fuse it into ``sig_words``; every other
+    cell materialises the augmented increments once and runs the plain
+    cell over them, as the reference does."""
+    kw = dict(wplan=wplan, engine=engine, backward=backward,
+              max_rows=max_rows, stream=stream, stream_stride=stream_stride,
+              precision=precision)
+    if transform is not None:
+        increments, lengths, kspec = prepend_basepoint(
+            increments, lengths, transform, x0, precision)
+        if not kspec:  # basepoint only: one prepended increment
+            return _projected_local(increments, lengths, **kw)
+        taux = _time_rows(kspec, increments, lengths)
+        M_aug = increments.shape[1] * kspec.sub_steps
+        aug_lengths = None if lengths is None else lengths * kspec.sub_steps
+        if engine == "torch" or backward == "autodiff" or M_aug == 0:
+            return _projected_local(fused_augment(increments, taux, kspec),
+                                    aug_lengths, **kw)
+        out = _closure_kernel(increments, wplan, max_rows, stream,
+                              stream_stride, precision, kspec, taux)
+        if not stream:
+            return out
+        out = quantise_increments(out, precision)
+        return _mask_stream_out(out, M_aug, stream_stride, aug_lengths)
     if lengths is not None:
         lengths = as_lengths(lengths, increments.shape[0], increments.device)
         increments = mask_increments(increments, lengths)
@@ -302,21 +406,27 @@ def _projected_args(increments, plan, backend: str, backward: str,
     engine = resolve_backend(backend, dev)
     _check_backward(backward)
     precision = canon_precision(precision)
-    if transform is not None:
-        raise not_ported("transform=", TRANSFORM_ITEM)
+    spec = as_transform(transform)
     if increments.ndim != 3:
         raise ValueError(f"expected (B, M, d), got {tuple(increments.shape)}")
-    wplan, tplan = _normalise_plans(plan, increments.shape[-1])
-    if wplan.d != increments.shape[-1]:
+    d_in = increments.shape[-1]
+    d_eff = transform_dim(spec, d_in)
+    wplan, tplan = _normalise_plans(plan, d_eff)
+    if spec is not None and wplan.d != d_eff:
+        raise ValueError(
+            f"projected word plan is over d={wplan.d} letters, but transform "
+            f"{spec} maps d={d_in} input channels to {d_eff} augmented "
+            f"channels — build the plan over the augmented alphabet")
+    if wplan.d != d_in and spec is None:
         raise ValueError(f"the word plan is over d={wplan.d} letters, the "
-                         f"increments have {increments.shape[-1]} channels")
-    return increments, engine, precision, wplan, tplan
+                         f"increments have {d_in} channels")
+    return increments, engine, precision, wplan, tplan, spec
 
 
 def projected(increments, plan, *, backend: str = "auto",
               backward: str = "inverse", max_rows: int = 256,
               stream: bool = False, stream_stride: int = 1, lengths=None,
-              transform=None, precision: str = "fp32",
+              transform=None, x0=None, precision: str = "fp32",
               device=None) -> torch.Tensor:
     """Projected signature over a word set (B, M, d) -> (B, |I|) on
     ``device`` (default CUDA); see the support matrix in the module
@@ -327,8 +437,11 @@ def projected(increments, plan, *, backend: str = "auto",
     ``stream_stride``-th step (terminal always included).  ``lengths`` (B,)
     makes the batch ragged.  ``max_rows`` bounds the closure tiles of the
     ``cuda`` engine (a TiledPlan's own largest tile sets it instead).
+    ``transform`` / ``x0`` apply a path transform (the support matrix's
+    ``transform`` column); the word set is then over the augmented
+    alphabet.
     """
-    increments, engine, precision, wplan, tplan = _projected_args(
+    increments, engine, precision, wplan, tplan, spec = _projected_args(
         increments, plan, backend, backward, transform, precision, device)
     if stream:
         if stream_stride < 1:
@@ -343,31 +456,46 @@ def projected(increments, plan, *, backend: str = "auto",
     return _projected_local(increments, lengths, wplan=wplan, engine=engine,
                             backward=backward, max_rows=max_rows,
                             stream=stream, stream_stride=stream_stride,
-                            precision=precision)
+                            precision=precision, transform=spec, x0=x0)
 
 
 def projected_forward_only(increments, plan, *, backend: str = "auto",
                            max_rows: int = 256, lengths=None, transform=None,
-                           precision: str = "fp32",
+                           x0=None, precision: str = "fp32",
                            device=None) -> torch.Tensor:
     """Inference-only projected signature: the ``cuda`` engine runs the
     kernel over the requested words' tiles (a caller's TiledPlan as it is)
     and skips the closure readout, so it keeps no closure state and its
     backward raises (unless the word set is its own prefix closure, whose
     tiles are those of :func:`projected`).  The ``torch`` engine is the
-    word-table scan.  (B, M, d) -> (B, |I|)."""
-    increments, engine, precision, wplan, tplan = _projected_args(
+    word-table scan.  (B, M, d) -> (B, |I|).  ``transform`` / ``x0`` as in
+    :func:`projected`: the ``cuda`` engine fuses the transform into the
+    kernel, the torch engine materialises the augmented increments."""
+    increments, engine, precision, wplan, tplan, spec = _projected_args(
         increments, plan, backend, "inverse", transform, precision, device)
-    if lengths is not None:
-        lengths = as_lengths(lengths, increments.shape[0], increments.device)
-        increments = mask_increments(increments, lengths)
-    increments = quantise_increments(increments, precision)
+    kspec = taux = None
+    if spec is not None:
+        increments, lengths, kspec = prepend_basepoint(
+            increments, lengths, spec, x0, precision)
+        kspec = kspec or None
+    else:
+        if lengths is not None:
+            lengths = as_lengths(lengths, increments.shape[0],
+                                 increments.device)
+            increments = mask_increments(increments, lengths)
+        increments = quantise_increments(increments, precision)
+    if kspec is not None:
+        taux = _time_rows(kspec, increments, lengths)
+        if engine == "torch":
+            increments = fused_augment(increments, taux, kspec)
+            kspec = taux = None
     if engine == "torch":
         return projected_signature_from_increments(
             increments, wplan, backend="torch", device=increments.device)
     if tplan is None:
         tplan = _tiled_for_words(wplan.words, wplan.d, max_rows)
-    return sig_words(increments, tplan, precision=precision)
+    fused = {} if kspec is None else dict(transform=kspec, taux=taux)
+    return sig_words(increments, tplan, precision=precision, **fused)
 
 
 # ---------------------------------------------------------------------------

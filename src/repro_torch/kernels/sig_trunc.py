@@ -23,6 +23,17 @@ levelwise Horner scan; on a CUDA tensor it launches the kernel or raises.
 (the last emission when streamed) and its backward is the §4.2 sweep
 kernel over the truncation's word table
 (:func:`repro_torch.kernels.sig_sweep.sig_sweep`), one launch a call.
+
+``transform=`` (a basepoint-free
+:class:`repro_torch.core.transforms.Transform`) and ``taux=`` fuse
+lead_lag / time_augment into the kernel: it reads the raw (B, M, d_raw)
+increments and builds each augmented increment as it stages a chunk, so
+the partition and the state are those of d_aug letters
+(:func:`repro_torch.core.transforms.transform_dim`) and ``CHUNK`` counts
+augmented steps.  The autograd node then saves the raw increments and
+``taux``, never the augmented tensor; its backward builds that tensor
+transiently (``fused_augment``), runs the same sweep kernel over its
+M_aug steps and applies ``fused_adjoint``.
 """
 from __future__ import annotations
 
@@ -32,8 +43,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.signature import (_scan_forward, _subsample_stream,
-                              canon_precision, truncation_closure)
+from ..core.signature import (_fused_scan_forward, _scan_forward,
+                              _subsample_stream, canon_precision,
+                              truncation_closure)
+from ..core.transforms import fused_adjoint, fused_augment, transform_dim
 from ..core.words import sig_dim
 from . import _build
 from .cache import plan_cache
@@ -56,9 +69,11 @@ CONE_THREADS = 96   # threads the planner aims to give one (example, cone)
 PLAN_TOP = 2048     # the planner's splits keep a cone's top level to this
 MIN_BLOCK = 128     # below this, examples of one cone may share a block
 
-# launch counters: one per kernel cell, bumped where the kernel is launched
+# launch counters: one per kernel cell, bumped where the kernel is launched;
+# fused_launches also counts the launches of either cell with a transform
 launches = 0
 stream_launches = 0
+fused_launches = 0
 
 
 def cone_base_level(s: int) -> int:
@@ -300,37 +315,55 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_trunc_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p] + [i] * 11 + [p]
+        fn.argtypes = [p, p, p] + [i] * 14 + [p]
         fn.restype = ctypes.c_int
     return lib
 
 
+def fuse_flags(transform) -> tuple[bool, bool]:
+    """(lead_lag, time) of a kernel-level transform; raises on a basepoint,
+    which the dispatch prepends as an increment before the kernel."""
+    if transform is None:
+        return False, False
+    if transform.basepoint:
+        raise ValueError("kernel-level transform must not include basepoint "
+                         "(dispatch prepends the x0 increment first)")
+    return transform.lead_lag, transform.time
+
+
 def _launch(incs: torch.Tensor, depth: int, split: int | None, stream: bool,
-            stride: int, precision: str,
-            plan: LaunchPlan | None = None) -> torch.Tensor:
-    """Launch the kernel on CUDA increments (B, M, d), B, M >= 1.  Returns
-    fp32 (B, D_sig), or (B, M_out, D_sig) in the storage dtype.  ``plan``
-    (from :func:`plan_launch`) replaces the planner's, for tests and
-    measurements."""
-    global launches, stream_launches
-    B, M, d = incs.shape
+            stride: int, precision: str, plan: LaunchPlan | None = None,
+            transform=None, taux: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the kernel on CUDA increments (B, M, d_raw), B, M >= 1.
+    Returns fp32 (B, D_sig), or (B, M_out, D_sig) in the storage dtype,
+    over the d = transform_dim(transform, d_raw) augmented letters and
+    M_aug augmented steps.  ``plan`` (from :func:`plan_launch` at d)
+    replaces the planner's, for tests and measurements."""
+    global launches, stream_launches, fused_launches
+    B, M, d_raw = incs.shape
+    ll, time = fuse_flags(transform)
+    d = transform_dim(transform, d_raw)
+    M_aug = 2 * M if ll else M
     if plan is None:
         plan = plan_launch(B, d, depth, split)
     s = plan.split
     rows = max(0, s - 1) + cone_rows(d, depth, s)
     storage = _storage_dtype(precision)
     x = incs.detach().to(storage).contiguous()
+    ta = taux.detach().to(device=x.device, dtype=torch.float32).contiguous() \
+        if time else None
     cells = plan.grid[1]
     if stream:
-        out = torch.empty((B, -(-M // stride), cells, rows), dtype=storage,
-                          device=x.device)
+        out = torch.empty((B, -(-M_aug // stride), cells, rows),
+                          dtype=storage, device=x.device)
     else:
         out = torch.empty((B, cells, rows), dtype=torch.float32,
                           device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.sig_trunc_launch(
-            x.data_ptr(), out.data_ptr(), B, M, d, depth, s,
+            x.data_ptr(), None if ta is None else ta.data_ptr(),
+            out.data_ptr(), B, M, d_raw, d, int(ll), int(time), depth, s,
             stride if stream else 0, int(storage == torch.bfloat16),
             int(stream and storage == torch.bfloat16), plan.threads,
             plan.examples, plan.top_slots,
@@ -338,53 +371,73 @@ def _launch(incs: torch.Tensor, depth: int, split: int | None, stream: bool,
     if err:
         raise RuntimeError(f"sig_trunc kernel launch failed with cudaError "
                            f"{err} (B={B}, M={M}, d={d}, depth={depth}, "
-                           f"{plan})")
+                           f"transform={transform}, {plan})")
     if stream:
         stream_launches += 1
     else:
         launches += 1
+    if transform is not None:
+        fused_launches += 1
     return _reassemble(out, d, depth, s)
 
 
 class SigTruncFunction(torch.autograd.Function):
     """The CUDA cell as an autograd node: the kernel forward, saving the
-    increments and the terminal signature (a copy of the streamed cell's
-    last emission, as the reference's ``_pallas_sig_stream`` does), and the
-    §4.2 reverse sweep kernel as its backward."""
+    increments, ``taux`` and the terminal signature (a copy of the
+    streamed cell's last emission, as the reference's
+    ``_pallas_sig_stream`` does), and the §4.2 reverse sweep kernel as its
+    backward.  With a ``transform`` the saved increments are the raw ones;
+    the backward builds the augmented increments for the sweep and pulls
+    its gradient back through the transform's adjoint (``taux`` gets
+    none)."""
 
     @staticmethod
-    def forward(ctx, increments, depth, split, stream, stride, precision):
-        out = _launch(increments, depth, split, stream, stride, precision)
-        ctx.save_for_backward(increments,
+    def forward(ctx, increments, depth, split, stream, stride, precision,
+                transform=None, taux=None):
+        out = _launch(increments, depth, split, stream, stride, precision,
+                      None, transform, taux)
+        ctx.save_for_backward(increments, taux,
                               out[:, -1].clone() if stream else out)
         ctx.depth, ctx.stream, ctx.stride = depth, stream, stride
+        ctx.transform = transform
         return out
 
     @staticmethod
     def backward(ctx, g):
-        increments, terminal = ctx.saved_tensors
-        plan = truncation_closure(increments.shape[-1], ctx.depth)
-        gx = sig_sweep(increments, plan, terminal, g, stream=ctx.stream,
+        increments, taux, terminal = ctx.saved_tensors
+        e = increments if ctx.transform is None else fused_augment(
+            increments, taux, ctx.transform)
+        plan = truncation_closure(e.shape[-1], ctx.depth)
+        gx = sig_sweep(e, plan, terminal, g, stream=ctx.stream,
                        stream_stride=ctx.stride)
-        return gx, None, None, None, None, None
+        if ctx.transform is not None:
+            gx = fused_adjoint(gx, ctx.transform, increments.shape[-1])
+        return gx, None, None, None, None, None, None, None
 
 
 def sig_trunc_plain(increments: torch.Tensor, depth: int, *,
-                    stream: bool = False,
-                    stream_stride: int = 1) -> torch.Tensor:
+                    stream: bool = False, stream_stride: int = 1,
+                    transform=None,
+                    taux: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's plain PyTorch version: the levelwise Horner scan, a
-    Python loop over time (:func:`repro_torch.core.tensor_ops.horner_step`).
+    Python loop over time (:func:`repro_torch.core.tensor_ops.horner_step`);
+    with a ``transform``, the fused scan over the augmented sub-steps
+    (:func:`repro_torch.core.signature._fused_scan_forward`).
     (B, M, d) -> (B, D_sig), or (B, M_out, D_sig) when streamed."""
+    if transform is None:
+        full = _scan_forward(increments, depth, stream)
+    else:
+        full = _fused_scan_forward(increments, taux, transform, depth, stream)
     if not stream:
-        return _scan_forward(increments, depth, False)
-    return _subsample_stream(_scan_forward(increments, depth, True),
-                             increments.shape[1], stream_stride)
+        return full
+    return _subsample_stream(full, full.shape[1], stream_stride)
 
 
 def sig_trunc(increments: torch.Tensor, depth: int, *,
               split: int | None = None, stream: bool = False,
-              stream_stride: int = 1,
-              precision: str = "fp32") -> torch.Tensor:
+              stream_stride: int = 1, precision: str = "fp32",
+              transform=None,
+              taux: torch.Tensor | None = None) -> torch.Tensor:
     """Truncated signature through the cone kernel.  (B, M, d) ->
     (B, D_sig), or with ``stream=True`` (B, M_out, D_sig), M_out =
     ceil(M / stream_stride), in the input dtype.
@@ -392,32 +445,46 @@ def sig_trunc(increments: torch.Tensor, depth: int, *,
     Increments are stored in the precision's dtype (bf16 under
     ``"bf16_fp32"``) and accumulated in fp32; float64 inputs run in fp32 and
     are cast back.  ``split`` forces the cone level (default: the
-    planner's, :func:`plan_launch`).  A CPU tensor runs :func:`sig_trunc_plain` on
-    the same rounded values; a CUDA tensor launches the kernel.
+    planner's, :func:`plan_launch`).  ``transform`` (basepoint-free) and
+    ``taux`` (the (B, 2) ``transform_time_aux`` rows, needed iff it has a
+    time channel) fuse lead_lag / time_augment into the kernel: the
+    increments stay raw (B, M, d_raw), the output is over d_aug letters
+    and M_out = ceil(M_aug / stream_stride); the time channel stays fp32.
+    A CPU tensor runs :func:`sig_trunc_plain` on the same rounded values; a
+    CUDA tensor launches the kernel.
     """
     if increments.ndim != 3:
         raise ValueError(f"expected (B, M, d), got {tuple(increments.shape)}")
-    B, M, d = increments.shape
+    B, M, d_raw = increments.shape
     if depth < 1:
         raise ValueError("depth must be >= 1")
     if stream_stride < 1:
         raise ValueError(f"stream_stride must be >= 1, got {stream_stride}")
+    ll, time = fuse_flags(transform)
+    if time and taux is None:
+        raise ValueError("transform with a time channel needs taux= "
+                         "(see repro_torch.core.transforms."
+                         "transform_time_aux)")
+    d = transform_dim(transform, d_raw)
     storage = _storage_dtype(precision)
     if split is not None:
         check_split(d, depth, split)
     if increments.device.type == "cpu":
         x = increments.to(storage).to(torch.float32)
+        ta = None if taux is None else taux.to(torch.float32)
         out = sig_trunc_plain(x, depth, stream=stream,
-                              stream_stride=stream_stride)
+                              stream_stride=stream_stride,
+                              transform=transform, taux=ta)
         return out.to(storage if stream else torch.float32).to(
             increments.dtype)
     if increments.device.type != "cuda":
         raise ValueError(f"sig_trunc runs on cuda or cpu tensors, not "
                          f"{increments.device}")
     if B == 0 or M == 0:  # no steps: zeros, no launch
-        shape = (B, -(-M // stream_stride), sig_dim(d, depth)) if stream \
-            else (B, sig_dim(d, depth))
+        M_aug = 2 * M if ll else M
+        shape = (B, -(-M_aug // stream_stride), sig_dim(d, depth)) \
+            if stream else (B, sig_dim(d, depth))
         return increments.new_zeros(shape)
     out = SigTruncFunction.apply(increments, depth, split, stream,
-                                 stream_stride, precision)
+                                 stream_stride, precision, transform, taux)
     return out.to(increments.dtype)

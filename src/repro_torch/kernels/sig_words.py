@@ -32,6 +32,13 @@ and its backward is the §4.2 sweep kernel over that plan
 (:func:`repro_torch.kernels.sig_sweep.sig_sweep`), one launch a call;
 without one (``ops.projected_forward_only``) it keeps no closure state
 and its backward raises.
+
+``transform=`` (basepoint-free) and ``taux=`` fuse lead_lag /
+time_augment into the kernel as in :mod:`repro_torch.kernels.sig_trunc`:
+the plan is over the augmented alphabet (``tplan.d == transform_dim(
+transform, d_raw)``), the increments stay raw, the planner runs at d_aug
+letters (a chunk counts augmented steps, an even number under lead-lag)
+and the autograd node saves the raw increments and ``taux``.
 """
 from __future__ import annotations
 
@@ -43,12 +50,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.signature import stream_emit_steps
+from ..core.signature import _fused_build_increment, stream_emit_steps
+from ..core.transforms import fused_adjoint, fused_augment, transform_dim
 from ..core.words import TiledPlan, WordPlan
 from . import _build
 from .cache import plan_cache
 from .sig_sweep import sig_sweep
-from .sig_trunc import _storage_dtype
+from .sig_trunc import _storage_dtype, fuse_flags
 
 # per-block dynamic shared memory the kernel may take on an H100 (the
 # opt-in maximum, 232,448 bytes, less a margin)
@@ -70,9 +78,11 @@ EXAMPLE_THREADS = 256  # more rows a thread above this many an example
 RESIDENT_WARPS = 32 * SMS
 MIN_BLOCK = 128       # below this, examples of one group share a block
 
-# launch counters: one per kernel cell, bumped where the kernel is launched
+# launch counters: one per kernel cell, bumped where the kernel is launched;
+# fused_launches also counts the launches of either cell with a transform
 launches = 0
 stream_launches = 0
+fused_launches = 0
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -158,7 +168,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sig_words_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i] * 15 + [p]
+        fn.argtypes = [p] * 7 + [i] * 18 + [p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -260,7 +270,8 @@ def example_cap(plan: WordsLaunch) -> int:
 def plan_words_launch(B: int, tt: TileTables, d: int, *,
                       rows: int | None = None,
                       examples: int | None = None,
-                      rows_per_thread: int | None = None) -> WordsLaunch:
+                      rows_per_thread: int | None = None,
+                      lead_lag: bool = False) -> WordsLaunch:
     """The kernel's partition for (B, ·, d) increments over ``tt``'s tiles.
 
     Starts from :func:`launch_geometry` (its errors: ``MAX_DEPTH``, the
@@ -272,7 +283,9 @@ def plan_words_launch(B: int, tt: TileTables, d: int, *,
     is full); examples of one group share a block while it stays within
     ``MIN_BLOCK`` threads and the blocks cover every SM.
     ``rows``, ``examples`` and ``rows_per_thread`` force the cap, the
-    examples a block and the rows a thread."""
+    examples a block and the rows a thread.  ``lead_lag``: the launch fuses
+    a lead-lag transform, so a chunk holds whole raw steps (an even number
+    of augmented ones)."""
     launch_geometry(tt, d)
     R = GROUP_ROWS if rows is None else rows
     if R < 1:
@@ -298,6 +311,11 @@ def plan_words_launch(B: int, tt: TileTables, d: int, *,
                          "max_rows")
     chunk = max(1, min(CHUNK, PREFETCH * threads // d,
                        STAGE_FLOATS // (tt.depth * d)))
+    if lead_lag:
+        chunk -= chunk % 2
+        if chunk < 2:
+            raise ValueError(f"a lead-lag launch over {d} letters at depth "
+                             f"{tt.depth} cannot stage two steps a chunk")
     ex_smem = example_smem(r_pad, chunk, tt.depth, d)
     if ex_smem > SMEM_BUDGET:
         raise ValueError(f"an example needs {ex_smem} bytes of shared memory"
@@ -322,21 +340,25 @@ def plan_words_launch(B: int, tt: TileTables, d: int, *,
                        (max(nb, G), min(nb, G)), e * ex_smem)
 
 
-def partition_variants(B: int, tt: TileTables, d: int) -> list[WordsLaunch]:
+def partition_variants(B: int, tt: TileTables, d: int,
+                       lead_lag: bool = False) -> list[WordsLaunch]:
     """Every partition the planner can choose for a (B, ·, d) batch: its
     own; one tile and one example a block; each rows a thread that fits
     its packing; and for both packings the most examples a block may
     hold.  For tests and chip_smoke.py."""
-    own = plan_words_launch(B, tt, d)
+    own = plan_words_launch(B, tt, d, lead_lag=lead_lag)
     plans = [own]
     for rows in (1, own.rows):
-        one = plan_words_launch(B, tt, d, rows=rows, examples=1)
+        one = plan_words_launch(B, tt, d, rows=rows, examples=1,
+                                lead_lag=lead_lag)
         plans += [one, plan_words_launch(B, tt, d, rows=rows,
-                                         examples=example_cap(one))]
+                                         examples=example_cap(one),
+                                         lead_lag=lead_lag)]
     for rpt in ROWS:
         try:
             plans.append(plan_words_launch(B, tt, d, examples=1,
-                                           rows_per_thread=rpt))
+                                           rows_per_thread=rpt,
+                                           lead_lag=lead_lag))
         except ValueError:  # the group is too wide for this instance
             continue
     return list(dict.fromkeys(plans))
@@ -431,30 +453,42 @@ def link_words(prefix: np.ndarray, letters: np.ndarray, lengths: np.ndarray,
 
 
 def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
-            precision: str, plan: WordsLaunch | None = None) -> torch.Tensor:
-    """Launch the kernel on CUDA increments (B, M, d), B, M >= 1.  Returns
-    fp32 (B, |I|), or (B, M_out, |I|) in the storage dtype.  ``plan``
-    (from :func:`plan_words_launch`) replaces the planner's, for tests and
-    measurements."""
-    global launches, stream_launches
-    B, M, d = incs.shape
+            precision: str, plan: WordsLaunch | None = None, transform=None,
+            taux: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the kernel on CUDA increments (B, M, d_raw), B, M >= 1, over
+    ``tplan``'s d = transform_dim(transform, d_raw) letters.  Returns fp32
+    (B, |I|), or (B, M_out, |I|) in the storage dtype, M_out counting
+    augmented steps.  ``plan`` (from :func:`plan_words_launch` at d)
+    replaces the planner's, for tests and measurements."""
+    global launches, stream_launches, fused_launches
+    B, M, d_raw = incs.shape
+    ll, time = fuse_flags(transform)
+    d = transform_dim(transform, d_raw)
+    M_aug = 2 * M if ll else M
     tt = tile_tables(tplan)
     if plan is None:
-        plan = plan_words_launch(B, tt, d)
+        plan = plan_words_launch(B, tt, d, lead_lag=ll)
+    elif ll and plan.chunk % 2:
+        raise ValueError(f"a lead-lag launch stages whole raw steps: plan "
+                         f"a chunk of an even number of steps, not "
+                         f"{plan.chunk} (plan_words_launch(lead_lag=True))")
     tabs = _packed_on(tt, plan.groups, d, incs.device)
     storage = _storage_dtype(precision)
     x = incs.detach().to(storage).contiguous()
+    ta = taux.detach().to(device=x.device, dtype=torch.float32).contiguous() \
+        if time else None
     n = len(tplan.words)
     if stream:
-        out = torch.empty((B, -(-M // stride), n), dtype=storage,
+        out = torch.empty((B, -(-M_aug // stride), n), dtype=storage,
                           device=x.device)
     else:
         out = torch.empty((B, n), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.sig_words_launch(
-            x.data_ptr(), *(a.data_ptr() for a in tabs), out.data_ptr(), B,
-            M, d, len(plan.groups), plan.r_pad, n, tt.depth,
+            x.data_ptr(), None if ta is None else ta.data_ptr(),
+            *(a.data_ptr() for a in tabs), out.data_ptr(), B, M, d_raw, d,
+            int(ll), int(time), len(plan.groups), plan.r_pad, n, tt.depth,
             stride if stream else 0,
             int(storage == torch.bfloat16),
             int(stream and storage == torch.bfloat16), plan.depth_slots,
@@ -463,11 +497,14 @@ def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
     if err:
         raise RuntimeError(f"sig_words kernel launch failed with cudaError "
                            f"{err} (B={B}, M={M}, d={d}, depth={tt.depth}, "
+                           f"transform={transform}, "
                            f"{plan._replace(groups=len(plan.groups))})")
     if stream:
         stream_launches += 1
     else:
         launches += 1
+    if transform is not None:
+        fused_launches += 1
     return out
 
 
@@ -479,17 +516,21 @@ class SigWordsFunction(torch.autograd.Function):
     the terminal closure coefficients (a copy of the streamed cell's last
     emission) and its backward is the §4.2 reverse sweep kernel over
     ``closure``; without it the forward keeps no closure state, and the
-    backward raises rather than letting gradients vanish."""
+    backward raises rather than letting gradients vanish.  With a
+    ``transform`` it saves the raw increments and ``taux``, and the
+    backward sweeps the augmented increments it builds, then applies the
+    transform's adjoint."""
 
     @staticmethod
     def forward(ctx, increments, tplan, stream, stride, precision,
-                closure=None):
-        out = _launch(increments, tplan, stream, stride, precision)
+                closure=None, transform=None, taux=None):
+        out = _launch(increments, tplan, stream, stride, precision, None,
+                      transform, taux)
         ctx.plan = closure
         if closure is not None:
-            ctx.save_for_backward(increments,
+            ctx.save_for_backward(increments, taux,
                                   out[:, -1].clone() if stream else out)
-        ctx.stream, ctx.stride = stream, stride
+        ctx.stream, ctx.stride, ctx.transform = stream, stride, transform
         return out
 
     @staticmethod
@@ -501,20 +542,30 @@ class SigWordsFunction(torch.autograd.Function):
                 "as in the reference): it keeps no closure state for the "
                 "§4.2 inverse backward to sweep back from; use ops.projected "
                 "to differentiate")
-        increments, S_T = ctx.saved_tensors
-        gx = sig_sweep(increments, ctx.plan, S_T, g, stream=ctx.stream,
+        increments, taux, S_T = ctx.saved_tensors
+        e = increments if ctx.transform is None else fused_augment(
+            increments, taux, ctx.transform)
+        gx = sig_sweep(e, ctx.plan, S_T, g, stream=ctx.stream,
                        stream_stride=ctx.stride)
-        return gx, None, None, None, None, None
+        if ctx.transform is not None:
+            gx = fused_adjoint(gx, ctx.transform, increments.shape[-1])
+        return gx, None, None, None, None, None, None, None
 
 
 def sig_words_plain(increments: torch.Tensor, tplan: TiledPlan, *,
-                    stream: bool = False,
-                    stream_stride: int = 1) -> torch.Tensor:
+                    stream: bool = False, stream_stride: int = 1,
+                    transform=None,
+                    taux: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's plain PyTorch version on the same padded tiles: the
     per-tile word-table scan, a Python loop over time, in the increments'
-    dtype, then the same gather.  (B, M, d) -> (B, |I|), or
-    (B, M_out, |I|) when streamed."""
-    B, M, _ = increments.shape
+    dtype, then the same gather; with a ``transform``, over each raw
+    step's augmented sub-steps
+    (:func:`repro_torch.core.signature._fused_build_increment`).
+    (B, M, d) -> (B, |I|), or (B, M_out, |I|) when streamed, M_out
+    counting augmented steps."""
+    B, M_raw, _ = increments.shape
+    sub = transform.sub_steps if transform is not None else 1
+    M = M_raw * sub
     tt = tile_tables(tplan)
     tabs = _tables_on(tplan, increments.device)
     dtype = increments.dtype
@@ -533,7 +584,9 @@ def sig_words_plain(increments: torch.Tensor, tplan: TiledPlan, *,
         else ()
     ys = []
     for step in range(M):
-        dx = increments[:, step]
+        dx = increments[:, step // sub]
+        if transform is not None:
+            dx = _fused_build_increment(dx, taux, transform, step % sub, step)
         acc = S.new_zeros((B, T, W))
         h = acc
         for jj in range(depth):
@@ -553,7 +606,8 @@ def sig_words_plain(increments: torch.Tensor, tplan: TiledPlan, *,
 def sig_words(increments: torch.Tensor, tplan: TiledPlan, *,
               stream: bool = False, stream_stride: int = 1,
               precision: str = "fp32",
-              closure: WordPlan | None = None) -> torch.Tensor:
+              closure: WordPlan | None = None, transform=None,
+              taux: torch.Tensor | None = None) -> torch.Tensor:
     """Projected signature through the tile kernel.  (B, M, d) -> (B, |I|)
     in ``tplan.words`` order, or with ``stream=True`` (B, M_out, |I|),
     M_out = ceil(M / stream_stride), in the input dtype.
@@ -564,20 +618,34 @@ def sig_words(increments: torch.Tensor, tplan: TiledPlan, *,
     same rounded values; a CUDA tensor launches the kernel.  ``closure``,
     the untiled plan of ``tplan.words`` when they are their own prefix
     closure, makes the launch differentiable (:class:`SigWordsFunction`).
+    ``transform`` (basepoint-free) and ``taux`` (needed iff it has a time
+    channel) fuse lead_lag / time_augment into the kernel: the increments
+    stay raw (B, M, d_raw), ``tplan`` is over the augmented alphabet and
+    M_out = ceil(M_aug / stream_stride); the time channel stays fp32.
     """
     if increments.ndim != 3:
         raise ValueError(f"expected (B, M, d), got {tuple(increments.shape)}")
-    B, M, d = increments.shape
+    B, M, d_raw = increments.shape
+    ll, time = fuse_flags(transform)
+    if time and taux is None:
+        raise ValueError("transform with a time channel needs taux= "
+                         "(see repro_torch.core.transforms."
+                         "transform_time_aux)")
+    d = transform_dim(transform, d_raw)
     if d != tplan.d:
-        raise ValueError(f"increments have d={d} channels, the plan is over "
-                         f"{tplan.d} letters")
+        raise ValueError(f"increments have d={d} channels"
+                         + (f" after the transform (d_raw={d_raw})"
+                            if transform is not None else "")
+                         + f", the plan is over {tplan.d} letters")
     if stream_stride < 1:
         raise ValueError(f"stream_stride must be >= 1, got {stream_stride}")
     storage = _storage_dtype(precision)
     if increments.device.type == "cpu":
         x = increments.to(storage).to(torch.float32)
+        ta = None if taux is None else taux.to(torch.float32)
         out = sig_words_plain(x, tplan, stream=stream,
-                              stream_stride=stream_stride)
+                              stream_stride=stream_stride,
+                              transform=transform, taux=ta)
         return out.to(storage if stream else torch.float32).to(
             increments.dtype)
     if increments.device.type != "cuda":
@@ -585,8 +653,9 @@ def sig_words(increments: torch.Tensor, tplan: TiledPlan, *,
                          f"{increments.device}")
     if B == 0 or M == 0:  # no steps: zeros, no launch
         n = len(tplan.words)
-        shape = (B, -(-M // stream_stride), n) if stream else (B, n)
+        M_aug = 2 * M if ll else M
+        shape = (B, -(-M_aug // stream_stride), n) if stream else (B, n)
         return increments.new_zeros(shape)
     out = SigWordsFunction.apply(increments, tplan, stream, stream_stride,
-                                 precision, closure)
+                                 precision, closure, transform, taux)
     return out.to(increments.dtype)

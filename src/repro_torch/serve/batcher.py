@@ -153,17 +153,26 @@ class DynamicBatcher:
 
     @classmethod
     def signature_service(cls, d: int, depth: int, *, max_len: int,
-                          backend: str = "auto", precision: str = "fp32",
-                          device=None, **kw) -> "DynamicBatcher":
+                          backend: str = "auto", transform=None,
+                          precision: str = "fp32", device=None,
+                          **kw) -> "DynamicBatcher":
         """Batcher computing each request's terminal signature (D_sig,)
         through :func:`repro_torch.kernels.ops.signature`: on a CUDA device
-        the ``sig_trunc`` kernel serves every micro-batch in one launch."""
+        the ``sig_trunc`` kernel serves every micro-batch in one launch.
+        ``transform`` fuses path transforms into that launch (no augmented
+        intermediate per batch; the basepoint start is each request's first
+        point)."""
+        from ..core.transforms import as_transform
         from ..kernels import ops
+        spec = as_transform(transform)
 
         def compute(rp: RaggedPaths) -> torch.Tensor:
             incs = tops.path_increments(rp.values)
+            x0 = rp.values[:, 0] if spec is not None and spec.basepoint \
+                else None
             return ops.signature(incs, depth, backend=backend,
-                                 lengths=rp.lengths, precision=precision,
+                                 lengths=rp.lengths, transform=spec, x0=x0,
+                                 precision=precision,
                                  device=rp.values.device)
 
         return cls(compute, d, max_len, device=device, **kw)

@@ -564,3 +564,93 @@ def test_sweep_two_runs_are_bitwise_equal(cuda, k):
         a = ss._launch(x, plan, S_T.float(), co.float(), 2, p)
         assert torch.equal(a, ss._launch(x, plan, S_T.float(), co.float(),
                                          2, p)), p
+
+
+# ---------------------------------------------------------------------------
+# fused transforms: raw increments and time rows into the kernels
+# ---------------------------------------------------------------------------
+
+FUSED = ["lead_lag", "time_augment", "time_augment+lead_lag"]
+
+
+def _fused_inputs(seed, B, M, d, spec, device):
+    """Raw increments and the time rows of a ragged batch."""
+    from repro_torch.core.transforms import transform_time_aux
+    x = _incs(seed, B, M, d, device)
+    lengths = torch.tensor(np.random.default_rng(seed).integers(
+        0, M + 1, size=B), device=device)
+    return x, transform_time_aux(spec, B, M, lengths, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream,stride", [(False, 1), (True, 1), (True, 3)])
+@pytest.mark.parametrize("tname", FUSED)
+def test_fused_trunc_kernel_matches_plain_at_every_partition(cuda, tname,
+                                                             stream, stride):
+    from repro_torch.core.transforms import as_transform, transform_dim
+    spec = as_transform(tname)
+    for d, N in [(1, 4), (2, 3), (5, 3)]:
+        x, taux = _fused_inputs(d, 5, 37, d, spec, cuda)
+        want = st.sig_trunc_plain(x.double(), N, stream=stream,
+                                  stream_stride=stride, transform=spec,
+                                  taux=taux)
+        for plan in st.partition_variants(5, transform_dim(spec, d), N):
+            got = st._launch(x, N, None, stream, stride, "fp32", plan, spec,
+                             taux)
+            torch.testing.assert_close(got.double(), want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream,stride", [(False, 1), (True, 1), (True, 3)])
+@pytest.mark.parametrize("tname", FUSED)
+def test_fused_words_kernel_matches_plain_at_every_partition(cuda, tname,
+                                                             stream, stride):
+    from repro_torch.core.transforms import (as_transform,
+                                             sparse_leadlag_generators,
+                                             transform_dim)
+    spec = as_transform(tname)
+    d = 3
+    da = transform_dim(spec, d)
+    words = tw.generated_words(sparse_leadlag_generators(d), 4) \
+        if tname == "lead_lag" else tw.all_words(da, 3)
+    x, taux = _fused_inputs(7, 5, 37, d, spec, cuda)
+    for max_rows in (8, 256):
+        tp = tw.make_tiled_plan(words, da, max_rows)
+        want = sw.sig_words_plain(x.double(), tp, stream=stream,
+                                  stream_stride=stride, transform=spec,
+                                  taux=taux)
+        for plan in sw.partition_variants(5, sw.tile_tables(tp), da,
+                                          lead_lag=spec.lead_lag):
+            got = sw._launch(x, tp, stream, stride, "fp32", plan, spec, taux)
+            torch.testing.assert_close(got.double(), want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tname", ["basepoint+lead_lag+time_augment",
+                                   "time_augment+lead_lag"])
+def test_fused_dispatch_one_launch_and_the_torch_engine(cuda, tname):
+    """ops.signature and ops.projected with a transform: one fused launch
+    each, one sig_sweep a backward, values and gradients as the torch
+    engine's (fp32 sums: gradients rtol 1e-3, atol 1e-5)."""
+    from repro_torch.core.transforms import as_transform, transform_dim
+    from repro_torch.kernels import sig_sweep as ss
+    spec = as_transform(tname)
+    x = _incs(11, 4, 23, 2, cuda).requires_grad_()
+    x0 = _incs(12, 4, 1, 2, cuda)[:, 0]
+    lengths = torch.tensor([23, 9, 1, 0], device=cuda)
+    words = tw.all_words(transform_dim(spec, 2), 3)[:50]
+    for fn, kernel in ((lambda v, **k: ops.signature(v, 3, **k), st),
+                       (lambda v, **k: ops.projected(v, words, **k), sw)):
+        kernel.launches = kernel.fused_launches = ss.launches = 0
+        out = fn(x, transform=tname, x0=x0, lengths=lengths)
+        co = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            1)).to(cuda)
+        g, = torch.autograd.grad(out, x, co)
+        assert (kernel.launches, kernel.fused_launches, ss.launches) == (
+            1, 1, 1)
+        x64 = x.detach().double().requires_grad_()
+        want = fn(x64, transform=tname, x0=x0.double(), lengths=lengths,
+                  backend="torch")
+        g64, = torch.autograd.grad(want, x64, co.double())
+        torch.testing.assert_close(out.double(), want, **TOL)
+        torch.testing.assert_close(g.double(), g64, rtol=1e-3, atol=1e-5)

@@ -89,8 +89,7 @@ def test_unsupported_cells_raise_like_the_reference():
     for kw in (dict(backward="nope"), dict(stream=True, stream_stride=0)):
         with pytest.raises(ValueError):
             ops.signature(x, 2, device="cpu", **kw)
-    for kw in (dict(backward="checkpoint"), dict(time_chunks=2),
-               dict(transform="time_augment")):
+    for kw in (dict(backward="checkpoint"), dict(time_chunks=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ops.signature(x, 2, device="cpu", **kw)
     with pytest.raises(ValueError, match="CUDA device"):
@@ -127,8 +126,7 @@ WORDS = [(0,), (1, 0), (1, 1, 0)]
 def test_projected_unported_cells_name_the_roadmap(fn):
     x = torch.zeros(1, 3, 2)
     call = getattr(ops, fn)
-    cells = [(dict(backend="hybrid"), "hybrid"),
-             (dict(transform="lead_lag"), "transform")]
+    cells = [(dict(backend="hybrid"), "hybrid")]
     if fn == "projected":
         cells.append((dict(backward="checkpoint"), "checkpoint"))
     for kw, what in cells:

@@ -132,9 +132,6 @@ def test_unported_cells_raise_naming_the_roadmap():
         ts.signature_from_increments(x, 2, backward="checkpoint",
                                      stream=True, backend="torch",
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.signature(torch.zeros(1, 4, 2), 2, transform="lead_lag",
-                     device="cpu")
 
 
 def test_default_device_without_gpu_raises(monkeypatch):
