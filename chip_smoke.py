@@ -164,9 +164,10 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              points: the paper's §8 at full width through
              transform="lead_lag" (B = 128, M = 250, d = 5: 500
              augmented steps over 10 letters) in ops.projected onto the
-             1,685-word set (terminal, ragged, streamed at stride 10) and
-             ops.projected_forward_only, and ops.signature(·, 3) with its
-             gradient; the Table 1 transform cells of
+             1,685-word set (terminal, ragged, streamed at stride 10),
+             ops.projected_forward_only, ops.projected onto its 1,860-word
+             prefix closure with its gradient, and ops.signature(·, 3) with
+             its gradient; the Table 1 transform cells of
              benchmarks/table1_runtime.py (fused_transform (32, 100, 6, 2)
              fp32 and combined (32, 100, 3, 3) bf16_fp32, both
              time_augment+lead_lag), terminal, streamed at stride 3 and
@@ -179,11 +180,14 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              rounded raw increments), against the same kernel on the
              materialised increments, gradients by phase 13's rule; the
              tensors saved for the backward hold the raw increments,
-             never the augmented ones; each fused case timed beside the
-             materialising route (fused_augment in PyTorch, then the same
-             kernel) and the plain version, with its bound (the raw
-             increments and time rows in, the output out, against the
-             Horner operations over the augmented steps and letters).
+             never the augmented ones; each fused case timed, one call
+             and back to back, beside the materialising route
+             (fused_augment in PyTorch, then the same kernel) and the plain
+             version, with its bound (the raw increments and time rows in,
+             the output out, against the Horner operations over the
+             augmented steps, counting in each sub-step only the letters
+             that move: half of a lead-lag increment is zero by
+             construction).
 19. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell, and the fused ones: §8 lead_lag depth 3, the
@@ -298,33 +302,60 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def horner_flops(d: int, depth: int) -> int:
+def horner_flops(d: int, depth: int, moving: int | None = None) -> int:
     """Least FP32 operations of one levelwise Horner step for one example,
     with each 1/k scale folded into dx once: per level n, d for acc_1 =
     dx/n, then d^(j-1) adds and d^j products per j = 2..n, then d^n adds
-    into the state."""
-    return sum(d + sum(d ** (j - 1) + d**j for j in range(2, n + 1))
-               + d**n for n in range(1, depth + 1))
+    into the state.  With only ``moving`` of the d letters nonzero in dx,
+    only the words whose last letter moves change: each count d^k becomes
+    moving·d^(k-1)."""
+    m = d if moving is None else moving
+    return sum(m + sum(m * d ** (j - 2) + m * d ** (j - 1)
+                       for j in range(2, n + 1)) + m * d ** (n - 1)
+               for n in range(1, depth + 1))
 
 
-def words_flops(plan) -> int:
+def words_flops(plan, moving=None) -> int:
     """Least FP32 operations of one word-table Horner step for one example
     over a plan's untiled prefix closure, chain prefixes shared as in
     horner_flops: for each target length n, with P_j the distinct length-j
     prefixes of the closure words of length n, |P_1| values acc_1 = dx/n,
     then |P_{j-1}| adds and |P_j| products per j = 2..n, then |P_n| adds
     into the state.  Equal to horner_flops(d, N) on all_words(d, N); the
-    ancestor rows that tiles repeat do not count."""
+    ancestor rows that tiles repeat do not count.  With ``moving`` (a set
+    of letters, the others zero in dx) each P_j keeps only the prefixes
+    whose last letter moves, as in horner_flops."""
     total = 0
     for n in {len(w) for w in plan.closure}:
         ws = [w for w in plan.closure if len(w) == n]
-        p = [len({w[:j] for w in ws}) for j in range(n + 1)]
+        p = [len({w[:j] for w in ws
+                  if j == 0 or moving is None or w[j - 1] in moving})
+             for j in range(n + 1)]
         total += p[1] + sum(p[j - 1] + p[j] for j in range(2, n + 1)) + p[n]
     return total
 
 
+def moving_letters(spec, d_raw: int) -> list[set[int]]:
+    """The letters of a fused transform's augmented alphabet ([t?, lag,
+    lead]) that can be nonzero in each of its sub-steps: lead-lag moves the
+    lead block, then the lag block; a time channel moves in every
+    sub-step.  The other letters are zero by construction."""
+    t = int(spec.time)
+    blocks = ([range(t + d_raw, t + 2 * d_raw), range(t, t + d_raw)]
+              if spec.lead_lag else [range(t, t + d_raw)])
+    return [set(b) | ({0} if spec.time else set()) for b in blocks]
+
+
+def fused_step_flops(spec, d_raw: int, count) -> float:
+    """Least operations of one augmented step of a fused (or materialised)
+    transform cell, averaged over its sub-steps: ``count(moving)`` counts
+    a step in which only the ``moving`` letters are nonzero."""
+    phases = moving_letters(spec, d_raw)
+    return sum(count(m) for m in phases) / len(phases)
+
+
 def bound(B: int, M: int, d: int, depth: int, in_bytes: int,
-          out_elems: int, out_bytes: int, step_flops: int | None = None,
+          out_elems: int, out_bytes: int, step_flops: float | None = None,
           raw: tuple[int, int] | None = None,
           aux_bytes: int = 0) -> tuple[float, str]:
     """Least time (ms) the card could take: bytes moved once over HBM
@@ -332,7 +363,8 @@ def bound(B: int, M: int, d: int, depth: int, in_bytes: int,
     step, default the levelwise Horner count); and which bounds it.  A
     fused transform cell runs its M (augmented) steps over d (augmented)
     letters but reads ``raw`` = (M_raw, d_raw) increments an example and
-    ``aux_bytes`` of time rows."""
+    ``aux_bytes`` of time rows; its ``step_flops`` count only the letters
+    that move (fused_step_flops)."""
     if step_flops is None:
         step_flops = horner_flops(d, depth)
     m_in, d_in = raw if raw is not None else (M, d)
@@ -960,15 +992,16 @@ def phase_projection(rng) -> dict:
           "ragged rows on their unpadded paths)", flush=True)
     ms = cuda_ms(lambda: sw.sig_words(incs, tp), 10)
     plain_ms = cuda_ms(lambda: sw.sig_words_plain(incs, tp), 1)
-    bms, by = bound(B, M2, 2 * d, N, 4, B * len(words), 4,
-                    words_flops(plan))
+    # half of each lead-lag increment is zero: count the letters that move
+    ll_flops = fused_step_flops(as_transform("lead_lag"), d,
+                                lambda m: words_flops(plan, m))
+    bms, by = bound(B, M2, 2 * d, N, 4, B * len(words), 4, ll_flops)
     ms_s = cuda_ms(lambda: sw.sig_words(incs, ctp, stream=True,
                                         stream_stride=stride), 10)
     plain_ms_s = cuda_ms(lambda: sw.sig_words_plain(
         incs, ctp, stream=True, stream_stride=stride), 1)
     bms_s, by_s = bound(B, M2, 2 * d, N, 4,
-                        B * (-(-M2 // stride)) * len(ctp.words), 4,
-                        words_flops(plan))
+                        B * (-(-M2 // stride)) * len(ctp.words), 4, ll_flops)
     trunc_ms = cuda_ms(lambda: ops.signature(incs, N), 10)
     part = words_partition(sw.plan_words_launch(B, sw.tile_tables(tp), 2 * d))
     part_s = words_partition(sw.plan_words_launch(B, sw.tile_tables(ctp),
@@ -1847,23 +1880,34 @@ def one_forward(fn, kernel: str, where: str, backward: bool = False):
 
 def fused_times(fused, mat, plain) -> dict:
     """The fused kernel's ms beside the materialising route's (the
-    augment in PyTorch, then the same kernel) and the plain version's."""
+    augment in PyTorch, then the same kernel) and the plain version's: one
+    call (median of 10) and a call's share of 20 back to back (b2b), where
+    the host's work for a call hides behind the last call's."""
     return dict(ms=cuda_ms(fused, 10), materialise_ms=cuda_ms(mat, 10),
+                b2b_ms=cuda_ms_back_to_back(fused),
+                materialise_b2b_ms=cuda_ms_back_to_back(mat),
                 plain_ms=cuda_ms(plain, 1))
+
+
+def fused_line(t: dict, b: tuple) -> str:
+    """A fused case's times and bound, as printed."""
+    return (f"fused {t['ms']:.3f} ms ({t['b2b_ms']:.3f} b2b), materialised "
+            f"{t['materialise_ms']:.3f} ({t['materialise_b2b_ms']:.3f} b2b), "
+            f"plain {t['plain_ms']:.3f}, bound {b[0]:.5f} ms ({b[1]})")
 
 
 def fused_case(case: str, shape: list, t: dict, b: tuple, **kw) -> dict:
     """One fused entry of a kernel row's ``cases``."""
     return dict(case=case, shape=shape, transform=kw.pop("transform"),
-                ms=t["ms"], materialise_ms=t["materialise_ms"],
-                plain_ms=t["plain_ms"], bound_ms=b[0], bound_by=b[1], **kw)
+                **t, bound_ms=b[0], bound_by=b[1], **kw)
 
 
 def saved_for_backward(fn, x: torch.Tensor, where: str,
                        allowed: int, augmented: int) -> int:
     """Bytes saved for the backward of fn(x): at most ``allowed`` (the raw
-    increments, the time rows and the terminal state), never the
-    augmented increments' ``augmented`` bytes."""
+    increments, the time rows and the terminal state; for a projection
+    also its words' int64 read-out index), never the augmented
+    increments' ``augmented`` bytes."""
     saved = saved_storage_bytes(fn, x)
     check(saved <= allowed, f"{where}: {saved} bytes saved for the backward"
           f", above the raw increments, time rows and terminal state "
@@ -1923,8 +1967,8 @@ def transform_projection(rng) -> dict:
     t = fused_times(lambda: sw.sig_words(incs, tp, transform=spec),
                     lambda: sw.sig_words(fused_augment(incs, None, spec), tp),
                     lambda: sw.sig_words_plain(incs, tp, transform=spec))
-    b = bound(B, Ma, da, N, 4, B * len(words), 4, words_flops(plan),
-              raw=(M, d))
+    w_flops = fused_step_flops(spec, d, lambda m: words_flops(plan, m))
+    b = bound(B, Ma, da, N, 4, B * len(words), 4, w_flops, raw=(M, d))
     ts_ = fused_times(
         lambda: sw.sig_words(incs, ctp, stream=True, stream_stride=stride,
                              transform=spec),
@@ -1933,16 +1977,46 @@ def transform_projection(rng) -> dict:
         lambda: sw.sig_words_plain(incs, ctp, stream=True,
                                    stream_stride=stride, transform=spec))
     bs = bound(B, Ma, da, N, 4, B * (-(-Ma // stride)) * len(ctp.words), 4,
-               words_flops(plan), raw=(M, d))
+               w_flops, raw=(M, d))
     print(f"[transform] §8 lead_lag (B={B}, M={M} raw, {Ma} augmented "
           f"steps over {da} letters, {len(words)} words): ops.projected "
           f"terminal, forward-only, ragged and streamed (stride {stride}) "
           f"one fused sig_words launch each, max |err| vs plain "
-          f"{max(errs):.2e}; sig_words fused {t['ms']:.3f} ms, materialised "
-          f"{t['materialise_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
-          f"{b[0]:.4f} ms ({b[1]}); streamed over the {len(ctp.words)}-word "
-          f"closure fused {ts_['ms']:.3f} ms, materialised "
-          f"{ts_['materialise_ms']:.3f} ms, bound {bs[0]:.4f} ms ({bs[1]})",
+          f"{max(errs):.2e}; sig_words {fused_line(t, b)}; streamed over "
+          f"the {len(ctp.words)}-word closure {fused_line(ts_, bs)}",
+          flush=True)
+    # the projection onto the prefix-closed set, value and gradient: the
+    # sweep runs back from the closure state the forward saved
+    cplan = make_plan(ctp.words, da)
+    W = len(cplan.words)
+    xp = incs.clone().requires_grad_()
+
+    def proj_value_and_grad():
+        out = ops.projected(xp, cplan, **kw)
+        return out, torch.autograd.grad((out ** 2).sum(), xp)[0]
+
+    (po, pg), _ = one_forward(proj_value_and_grad, "sig_words",
+                              "§8 lead_lag ops.projected value and gradient",
+                              backward=True)
+    torch.testing.assert_close(po.double(), sw.sig_words_plain(
+        x64, ctp, transform=spec), **TOL)
+    p64 = po.detach().double()
+    pgw = fused_adjoint(ss.sig_sweep_plain(
+        fused_augment(x64, None, spec), cplan, p64, 2 * p64), spec, d)
+    pgerr = float((pg.double() - pgw).abs().max())
+    check(grad_within(pg, pgw), f"§8 lead_lag ops.projected gradient: max "
+          f"|err| {pgerr:.3e}, max|g| {float(pgw.abs().max()):.3e}")
+    psaved = saved_for_backward(lambda v: ops.projected(v, cplan, **kw),
+                                incs.clone().requires_grad_(),
+                                "§8 lead_lag ops.projected",
+                                4 * (B * M * d + B * W) + 8 * W,
+                                4 * B * Ma * da)
+    pvg_ms = cuda_ms(proj_value_and_grad, 5)
+    print(f"[transform] §8 lead_lag ops.projected onto the {W}-word closure"
+          f": one fused sig_words and one sig_sweep launch; gradient max "
+          f"|err| vs the float64 plain sweep {pgerr:.2e}; {psaved} bytes "
+          f"saved for the backward (raw increments {4 * B * M * d}, "
+          f"augmented {4 * B * Ma * da}); value+grad {pvg_ms:.3f} ms",
           flush=True)
     # the truncated signature at depth 3, value and gradient
     D = sum(da**n for n in range(1, 4))
@@ -1973,21 +2047,23 @@ def transform_projection(rng) -> dict:
                       lambda: st.sig_trunc(fused_augment(incs, None, spec),
                                            3),
                       lambda: st.sig_trunc_plain(incs, 3, transform=spec))
-    bt = bound(B, Ma, da, 3, 4, B * D, 4, raw=(M, d))
+    bt = bound(B, Ma, da, 3, 4, B * D, 4, fused_step_flops(
+        spec, d, lambda m: horner_flops(da, 3, len(m))), raw=(M, d))
     vg_ms = cuda_ms(value_and_grad, 5)
     print(f"[transform] §8 lead_lag ops.signature(·, 3) ({D} features): "
           f"one fused sig_trunc and one sig_sweep launch; gradient max |err| "
           f"vs the float64 plain sweep {gerr:.2e}; {saved} bytes saved for "
           f"the backward (raw increments {4 * B * M * d}, augmented "
-          f"{4 * B * Ma * da}); value+grad {vg_ms:.3f} ms; sig_trunc fused "
-          f"{tt_['ms']:.3f} ms, materialised {tt_['materialise_ms']:.3f} ms, "
-          f"plain {tt_['plain_ms']:.3f} ms, bound {bt[0]:.4f} ms ({bt[1]})",
-          flush=True)
+          f"{4 * B * Ma * da}); value+grad {vg_ms:.3f} ms; sig_trunc "
+          f"{fused_line(tt_, bt)}", flush=True)
     shape = [B, M, d, N]
     return dict(
         words=fused_case("§8 lead_lag terminal", shape, t, b,
                          transform=tname, words=len(words),
-                         max_abs_err=max(errs), launches=1),
+                         max_abs_err=max(errs), launches=1,
+                         closure_value_and_grad_ms=pvg_ms,
+                         closure_grad_max_abs_err=pgerr,
+                         closure_saved_bytes=psaved),
         words_stream=fused_case("§8 lead_lag streamed", shape + [stride],
                                 ts_, bs, transform=tname,
                                 words=len(ctp.words), launches=1),
@@ -2069,20 +2145,20 @@ def transform_table1(rng) -> list:
                                        stream_stride=3, transform=spec,
                                        taux=taux))
         ib = 2 if prec == "bf16_fp32" else 4
-        b = bound(B, Ma, da, N, ib, B * D, 4, raw=(M, d), aux_bytes=8 * B)
-        bs = bound(B, Ma, da, N, ib, gs.numel(), ib, raw=(M, d),
+        t_flops = fused_step_flops(spec, d,
+                                   lambda m: horner_flops(da, N, len(m)))
+        b = bound(B, Ma, da, N, ib, B * D, 4, t_flops, raw=(M, d),
+                  aux_bytes=8 * B)
+        bs = bound(B, Ma, da, N, ib, gs.numel(), ib, t_flops, raw=(M, d),
                    aux_bytes=8 * B)
         vg_ms = cuda_ms(value_and_grad, 5)
         print(f"[transform] {where}, {TABLE1_TRANSFORM} ({Ma} augmented "
               f"steps over {da} letters): terminal, streamed (stride 3) and "
               f"value+grad one fused launch each; max |err| vs plain "
               f"{err:.2e}, gradient {gerr:.2e}; {saved} bytes saved "
-              f"(augmented increments {4 * B * Ma * da}); sig_trunc fused "
-              f"{t['ms']:.3f} ms, materialised {t['materialise_ms']:.3f} ms,"
-              f" plain {t['plain_ms']:.3f} ms, bound {b[0]:.4f} ms ({b[1]}); "
-              f"streamed fused {ts_['ms']:.3f} ms, materialised "
-              f"{ts_['materialise_ms']:.3f} ms, bound {bs[0]:.4f} ms "
-              f"({bs[1]}); value+grad {vg_ms:.3f} ms", flush=True)
+              f"(augmented increments {4 * B * Ma * da}); sig_trunc "
+              f"{fused_line(t, b)}; streamed {fused_line(ts_, bs)}; "
+              f"value+grad {vg_ms:.3f} ms", flush=True)
         shape = [B, M, d, N]
         out.append(dict(
             trunc=fused_case(f"Table 1 {name}", shape, t, b,
@@ -2141,16 +2217,15 @@ def transform_serving(rng) -> dict:
         lambda: st.sig_trunc(incs, depth, transform=spec, taux=taux),
         lambda: st.sig_trunc(fused_augment(incs, taux, spec), depth),
         lambda: st.sig_trunc_plain(incs, depth, transform=spec, taux=taux))
-    b = bound(B_pad, rung, da, depth, 4, B_pad * D, 4, raw=(rung, d),
-              aux_bytes=8 * B_pad)
+    b = bound(B_pad, rung, da, depth, 4, B_pad * D, 4, fused_step_flops(
+        spec, d, lambda m: horner_flops(da, depth, len(m))), raw=(rung, d),
+        aux_bytes=8 * B_pad)
     print(f"[transform] signature_service(d={d}, depth={depth}, "
           f"transform={tname}): {len(reqs)} requests in {wall * 1e3:.1f} ms "
           f"(first flush), {stats['batches']} micro-batches, one fused "
           f"sig_trunc launch each; 32 sampled answers match the unpadded "
           f"plain version, max |err| {worst:.2e}; largest micro-batch (B="
-          f"{B_pad}, M={rung}): sig_trunc fused {t['ms']:.3f} ms, "
-          f"materialised {t['materialise_ms']:.3f} ms, plain "
-          f"{t['plain_ms']:.3f} ms, bound {b[0]:.4f} ms ({b[1]})", flush=True)
+          f"{B_pad}, M={rung}): sig_trunc {fused_line(t, b)}", flush=True)
     return fused_case("serving time_augment micro-batch",
                       [B_pad, rung, d, depth], t, b, transform=tname,
                       launches=n["sig_trunc"], wall_ms=wall * 1e3,

@@ -107,6 +107,8 @@ bf16 and accumulate in fp32, and streamed emissions are rounded to bf16.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..core.projection import plan_tables, projected_signature_from_increments
@@ -153,22 +155,44 @@ def _check_backward(backward: str) -> None:
             f"unknown backward mode {backward!r}; expected one of {BACKWARDS}")
 
 
-def _mask_stream_out(out: torch.Tensor, M: int, stride: int,
-                     lengths) -> torch.Tensor:
-    """Zero a streamed output (B, M_out, D) after each example's true-
-    terminal slot.  No-op without lengths (or with no emissions)."""
+def _finish_stream(out: torch.Tensor, precision: str, M: int, stride: int,
+                   lengths) -> torch.Tensor:
+    """A streamed cell's (B, M_out, D) output over M steps: rounded as
+    bf16_fp32 stores its emissions (the kernel rounds on store, so every
+    engine agrees on the values), then zeroed after each example's true-
+    terminal slot (no-op without lengths or emissions)."""
+    out = quantise_increments(out, precision)
     if lengths is None or out.shape[1] == 0:
         return out
     return out * stream_emit_mask(M, stride, lengths)[..., None].to(out.dtype)
 
 
-def _time_rows(kspec, increments: torch.Tensor, lengths):
-    """The (B, 2) fp32 ``[dt, n_valid_aug]`` rows of a fused cell, from the
-    post-basepoint lengths; None without a time channel."""
-    if not kspec.time:
-        return None
+class _Fused(NamedTuple):
+    """A fused cell's inputs: the raw increments after the basepoint, the
+    lengths, the kernel-level (basepoint-free, falsy for basepoint only)
+    spec, its time rows (None without a time channel), and the augmented
+    steps and lengths."""
+    increments: torch.Tensor
+    lengths: torch.Tensor | None
+    spec: object
+    taux: torch.Tensor | None
+    M_aug: int
+    aug_lengths: torch.Tensor | None
+
+
+def _fused_inputs(increments: torch.Tensor, lengths, spec, x0,
+                  precision: str) -> _Fused:
+    """The fused cells' bookkeeping, in the reference's order: mask,
+    prepend the x0 increment (lengths + 1), quantise, then the (B, 2) fp32
+    ``[dt, n_valid_aug]`` rows from the post-basepoint lengths."""
+    increments, lengths, kspec = prepend_basepoint(increments, lengths, spec,
+                                                   x0, precision)
     B, M, _ = increments.shape
-    return transform_time_aux(kspec, B, M, lengths, device=increments.device)
+    taux = transform_time_aux(kspec, B, M, lengths,
+                              device=increments.device) if kspec.time else None
+    sub = kspec.sub_steps
+    return _Fused(increments, lengths, kspec, taux, M * sub,
+                  None if lengths is None else lengths * sub)
 
 
 def _signature_local(increments: torch.Tensor, lengths, *, depth: int,
@@ -196,11 +220,8 @@ def _signature_local(increments: torch.Tensor, lengths, *, depth: int,
         else:
             out = sig_trunc(increments, depth, split=split, stream=True,
                             stream_stride=stream_stride, precision=precision)
-        # bf16_fp32 stores the emissions in bf16 (the kernel rounds on
-        # store); rounding here makes every engine agree on the values
-        out = quantise_increments(out, precision)
-        return _mask_stream_out(out, increments.shape[1], stream_stride,
-                                lengths)
+        return _finish_stream(out, precision, increments.shape[1],
+                              stream_stride, lengths)
     if engine == "torch" or backward == "autodiff":
         return signature_from_increments(increments, depth, backward=backward,
                                          backend="torch",
@@ -223,23 +244,19 @@ def _signature_fused(increments: torch.Tensor, lengths, spec, x0, *,
             transform=spec, x0=x0, precision=precision,
             device=increments.device)
         return quantise_increments(out, precision) if stream else out
-    increments, lengths, kspec = prepend_basepoint(increments, lengths,
-                                                   spec, x0, precision)
-    kw = dict(depth=depth, engine=engine, backward=backward, split=split,
-              stream=stream, stream_stride=stream_stride,
-              precision=precision)
-    if not kspec:  # basepoint only: one prepended increment, the plain cell
-        return _signature_local(increments, lengths, **kw)
-    out = sig_trunc(increments, depth, split=split, stream=stream,
+    f = _fused_inputs(increments, lengths, spec, x0, precision)
+    if not f.spec:  # basepoint only: one prepended increment, the plain cell
+        return _signature_local(
+            f.increments, f.lengths, depth=depth, engine=engine,
+            backward=backward, split=split, stream=stream,
+            stream_stride=stream_stride, precision=precision)
+    out = sig_trunc(f.increments, depth, split=split, stream=stream,
                     stream_stride=stream_stride, precision=precision,
-                    transform=kspec,
-                    taux=_time_rows(kspec, increments, lengths))
+                    transform=f.spec, taux=f.taux)
     if not stream:
         return out
-    out = quantise_increments(out, precision)
-    aug_lengths = None if lengths is None else lengths * kspec.sub_steps
-    return _mask_stream_out(out, increments.shape[1] * kspec.sub_steps,
-                            stream_stride, aug_lengths)
+    return _finish_stream(out, precision, f.M_aug, stream_stride,
+                          f.aug_lengths)
 
 
 def signature(increments, depth: int, *, backend: str = "auto",
@@ -356,22 +373,18 @@ def _projected_local(increments: torch.Tensor, lengths, *, wplan: WordPlan,
               max_rows=max_rows, stream=stream, stream_stride=stream_stride,
               precision=precision)
     if transform is not None:
-        increments, lengths, kspec = prepend_basepoint(
-            increments, lengths, transform, x0, precision)
-        if not kspec:  # basepoint only: one prepended increment
-            return _projected_local(increments, lengths, **kw)
-        taux = _time_rows(kspec, increments, lengths)
-        M_aug = increments.shape[1] * kspec.sub_steps
-        aug_lengths = None if lengths is None else lengths * kspec.sub_steps
-        if engine == "torch" or backward == "autodiff" or M_aug == 0:
-            return _projected_local(fused_augment(increments, taux, kspec),
-                                    aug_lengths, **kw)
-        out = _closure_kernel(increments, wplan, max_rows, stream,
-                              stream_stride, precision, kspec, taux)
+        f = _fused_inputs(increments, lengths, transform, x0, precision)
+        if not f.spec:  # basepoint only: one prepended increment
+            return _projected_local(f.increments, f.lengths, **kw)
+        if engine == "torch" or backward == "autodiff" or f.M_aug == 0:
+            return _projected_local(fused_augment(f.increments, f.taux,
+                                                  f.spec), f.aug_lengths, **kw)
+        out = _closure_kernel(f.increments, wplan, max_rows, stream,
+                              stream_stride, precision, f.spec, f.taux)
         if not stream:
             return out
-        out = quantise_increments(out, precision)
-        return _mask_stream_out(out, M_aug, stream_stride, aug_lengths)
+        return _finish_stream(out, precision, f.M_aug, stream_stride,
+                              f.aug_lengths)
     if lengths is not None:
         lengths = as_lengths(lengths, increments.shape[0], increments.device)
         increments = mask_increments(increments, lengths)
@@ -385,9 +398,7 @@ def _projected_local(increments: torch.Tensor, lengths, *, wplan: WordPlan,
         else:
             out = _closure_kernel(increments, wplan, max_rows, True,
                                   stream_stride, precision)
-        # same streamed-emission rounding as _signature_local
-        out = quantise_increments(out, precision)
-        return _mask_stream_out(out, M, stream_stride, lengths)
+        return _finish_stream(out, precision, M, stream_stride, lengths)
     if engine == "torch" or backward == "autodiff":
         return projected_signature_from_increments(
             increments, wplan, backward=backward, backend="torch",
@@ -473,28 +484,25 @@ def projected_forward_only(increments, plan, *, backend: str = "auto",
     kernel, the torch engine materialises the augmented increments."""
     increments, engine, precision, wplan, tplan, spec = _projected_args(
         increments, plan, backend, "inverse", transform, precision, device)
-    kspec = taux = None
+    fused = {}
     if spec is not None:
-        increments, lengths, kspec = prepend_basepoint(
-            increments, lengths, spec, x0, precision)
-        kspec = kspec or None
+        f = _fused_inputs(increments, lengths, spec, x0, precision)
+        increments = f.increments
+        if f.spec and engine == "torch":  # the torch engine materialises
+            increments = fused_augment(increments, f.taux, f.spec)
+        elif f.spec:
+            fused = dict(transform=f.spec, taux=f.taux)
     else:
         if lengths is not None:
             lengths = as_lengths(lengths, increments.shape[0],
                                  increments.device)
             increments = mask_increments(increments, lengths)
         increments = quantise_increments(increments, precision)
-    if kspec is not None:
-        taux = _time_rows(kspec, increments, lengths)
-        if engine == "torch":
-            increments = fused_augment(increments, taux, kspec)
-            kspec = taux = None
     if engine == "torch":
         return projected_signature_from_increments(
             increments, wplan, backend="torch", device=increments.device)
     if tplan is None:
         tplan = _tiled_for_words(wplan.words, wplan.d, max_rows)
-    fused = {} if kspec is None else dict(transform=kspec, taux=taux)
     return sig_words(increments, tplan, precision=precision, **fused)
 
 

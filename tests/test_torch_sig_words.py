@@ -21,6 +21,7 @@ from repro.core import words as jw
 from repro.core.projection import projected_signature_from_increments as jpsi
 from repro.kernels import ref as jref
 from repro.kernels.sig_words import sig_words as j_sig_words
+from repro_torch.core import transforms as tt
 from repro_torch.core import words as tw
 from repro_torch.core.transforms import sparse_leadlag_generators
 from repro_torch.kernels import ref as tref
@@ -487,20 +488,21 @@ def test_words_flops_is_the_horner_count_on_the_full_truncation(d, N):
         == cs.horner_flops(d, N)
 
 
-def _brute_force_flops(closure):
+def _brute_force_flops(closure, moving=None):
     """Each chain value computed once: acc_1 = dx/n per (first letter,
     target n), then per link an add per (prefix, n) and a product per
-    (longer prefix, n), then an add into each state row."""
+    (longer prefix, n), then an add into each state row.  With ``moving``
+    only the values whose prefix ends in a moving letter change."""
     seen, ops = set(), 0
     for w in closure:
         n = len(w)
         for key in [("first", w[:1], n)] + [
                 op for j in range(2, n + 1)
                 for op in (("add", w[:j - 1], n), ("mul", w[:j], n))]:
-            if key not in seen:
+            if key not in seen and (moving is None or key[1][-1] in moving):
                 seen.add(key)
                 ops += 1
-        ops += 1
+        ops += moving is None or w[-1] in moving
     return ops
 
 
@@ -515,3 +517,55 @@ def test_words_flops_matches_a_brute_force_count():
         plan = tw.make_plan(words, d)
         assert cs.words_flops(plan) == _brute_force_flops(plan.closure)
     assert cs.words_flops(tw.make_plan(SEC8, 10)) == 4740
+
+
+@pytest.mark.parametrize("d,N", [(2, 3), (3, 4), (7, 3), (13, 2)])
+def test_horner_flops_count_only_the_moving_letters(d, N):
+    """A step whose dx is zero outside ``moving`` letters changes only the
+    words ending in one: the full truncation's count, restricted."""
+    cs = _chip_smoke()
+    plan = tw.make_plan(tw.all_words(d, N), d)
+    assert cs.horner_flops(d, N, d) == cs.horner_flops(d, N)
+    for m in range(1, d + 1):
+        moving = set(range(d - m, d))
+        assert cs.words_flops(plan, moving) == cs.horner_flops(d, N, m)
+        assert cs.words_flops(plan, moving) == _brute_force_flops(
+            plan.closure, moving)
+
+
+def test_words_flops_of_moving_letters_match_a_brute_force_count():
+    cs = _chip_smoke()
+    rng = np.random.default_rng(12)
+    for words in [SEC8, ANISO, SPARSE]:
+        d = 10 if words is SEC8 else 4
+        plan = tw.make_plan(words, d)
+        for _ in range(4):
+            moving = {int(c) for c in rng.choice(d, rng.integers(1, d + 1),
+                                                 replace=False)}
+            assert cs.words_flops(plan, moving) == _brute_force_flops(
+                plan.closure, moving)
+    # §8's lead-lag word set: the lead and lag halves move in turn
+    ll = cs.moving_letters(tt.as_transform("lead_lag"), 5)
+    assert cs.fused_step_flops(
+        tt.as_transform("lead_lag"), 5,
+        lambda m: cs.words_flops(tw.make_plan(SEC8, 10), m)) == 2370
+    assert ll == [set(range(5, 10)), set(range(5))]
+
+
+@pytest.mark.parametrize("tname", ["lead_lag", "time_augment",
+                                   "time_augment+lead_lag"])
+@pytest.mark.parametrize("d_raw", [1, 3])
+def test_moving_letters_are_the_channels_fused_augment_moves(tname, d_raw):
+    """chip_smoke.py's bound counts, in each sub-step, the augmented
+    channels that fused_augment can make nonzero, and no others."""
+    cs = _chip_smoke()
+    spec = tt.as_transform(tname)
+    B, M = 3, 6
+    x = torch.tensor(np.random.default_rng(13).normal(size=(B, M, d_raw)))
+    taux = tt.transform_time_aux(spec, B, M, dtype=torch.float64)
+    e = tt.fused_augment(x, taux, spec)
+    moving = cs.moving_letters(spec, d_raw)
+    assert len(moving) == spec.sub_steps
+    for p, m in enumerate(moving):
+        nonzero = (e[:, p::spec.sub_steps] != 0).any(dim=(0, 1))
+        assert set(torch.nonzero(nonzero).flatten().tolist()) == m

@@ -592,3 +592,25 @@ def test_lead_lag_plans_stage_whole_raw_steps():
             with pytest.raises(ValueError, match="even"):
                 sw._launch(torch.zeros(5, 3, d_raw), tp, False, 1, "fp32", p,
                            spec)
+
+
+@pytest.mark.parametrize("tname", ["lead_lag", "time_augment+lead_lag"])
+def test_fused_projection_saves_the_raw_increments(tname, card):
+    """ops.projected's fused cuda cell onto a prefix-closed set keeps the
+    raw increments, taux, the (B, W) closure state and the int64 read-out
+    index of its W words for the backward: never the augmented tensor,
+    whatever M."""
+    spec = tt.as_transform(tname)
+    d_aug = tt.transform_dim(spec, d)
+    plan = tw.make_plan(tw.make_plan(tw.all_words(d_aug, 3), d_aug).closure,
+                        d_aug)
+    W = len(plan.words)
+
+    def saved(n):
+        x = torch.zeros(1, n, d, requires_grad=True)
+        return _saved_storage_bytes(
+            lambda t: ops.projected(t, plan, transform=tname, device="cpu"),
+            x)
+
+    for n in (8, 200):
+        assert saved(n) == 4 * (n * d + 2 * spec.time + W) + 8 * W, n
