@@ -137,10 +137,13 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
 15. memory — the paper's Table 2 cell (B = 32, d = 5, N = 4, M from 50 to
              1600): torch.cuda.max_memory_allocated during value plus
              gradient, increments included, above what was allocated
-             before, for inverse (the card) and autodiff; from M = 50 to
-             1600 the inverse peak grows by at most 4× the increments' own
-             growth (B·ΔM·d·4 bytes), autodiff's by more than 10×; peaks
-             as multiples of Mem_out = 4·B·D_sig.  The streamed cells
+             before, for inverse (the card), checkpoint (the card) and
+             autodiff; from M = 50 to 1600 the inverse peak grows by at
+             most 4× the increments' own growth (B·ΔM·d·4 bytes),
+             autodiff's by more than 10×, and the checkpoint peak less
+             the increments' bytes with a least-squares exponent in M
+             within [0.35, 0.65] (√M: 0.5); peaks as multiples of
+             Mem_out = 4·B·D_sig.  The streamed cells
              (ops.signature and ops.projected over W_{<=4}, stride 1): the
              storages behind the tensors saved for the backward grow from
              M = 50 to 1600 by at most the increments' own growth.
@@ -188,7 +191,44 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              augmented steps, counting in each sub-step only the letters
              that move: half of a lead-lag increment is zero by
              construction).
-19. report — one JSON line of kernels (the sig_trunc row with its cases:
+19. checkpoint — value plus gradient at every Table 1 cell with
+             backward="checkpoint" and with time_chunks 4 and 16: one
+             sig_trunc launch over the folded chunks and one sig_sweep a
+             call, values by phase 3's fp32 rule and gradients by phase
+             13's against the float64 plain version, value plus gradient
+             ms beside phase 14's inverse cell; sig_trunc over the folded
+             chunks and sig_sweep over them alone at the largest cell
+             (ms, plain ms, bound); transform="lead_lag" with checkpoint
+             at the Table 1 fused_transform cell (materialised: one
+             unfused sig_trunc, one sig_sweep); ops.projected(backward=
+             "checkpoint") at §8 width through lead_lag, which runs the
+             torch engine on the card and launches no kernel.
+20. windows — the Fig. 3 grid of benchmarks/fig3_windows.py (B = 16,
+             d = 4, N = 3, window 16, stride 8, K in {4, 16, 64, 256,
+             1024}, M = 8K + 16; and (32, 2048, 4, 4), window 256, stride
+             8, K = 225): fold, chen, auto and per-window (K ops.signature
+             calls, not at the last cell) ms, auto's pick and whether it
+             is within 15% of the faster route (printed, not gated), one
+             launch a route, fold against the float64 plain per-window
+             signatures by phase 3's rule and chen to
+             1e-4·max|plain|, the auto route's gradient (one sig_sweep)
+             against float64 autodiff of the torch engine by phase 13's
+             rule; at K = 64 windowed_projection onto the §8 sparse
+             lead-lag word set at d = 4, depth 3, through lead_lag (one
+             fused sig_words launch, its gradient), a ragged batch on both
+             routes and a time_augment per-window case; both routes'
+             kernels alone at the heavy-overlap cell.
+21. stream — a StreamCarry of 100,000 rows (d = 3, depth 3, ring 64, 1%
+             dead lanes), the scale of benchmarks/session_throughput.py:
+             ten rounds of stream_extend (per-row counts 0..32, 10% zero)
+             and stream_rolling_drop, one sig_trunc launch an extend,
+             zero-count and dead rows bitwise unchanged, ms a round and
+             rows per second; stream_take / stream_scatter of 4,096 rows;
+             256 sampled rows against the float64 plain signature of their
+             ring to 1e-4·max|plain|; stream_extend(return_stream=True) at
+             10,000 rows (one streamed launch); a batch-1 SignatureStream
+             over 20 hops of 8 ticks.
+22. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell, and the fused ones: §8 lead_lag depth 3, the
              time_augment serving micro-batch, the two Table 1 transform
@@ -203,7 +243,12 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              instances' ptxas registers and stack; the dependent phases a
              step as the kernel is written, design_phases, is a count of
              its layout (sig_sweep.step_phases), not a measurement;
-             each with ms, bound and partition), the card's name and power
+             each with ms, bound and partition; and the cases of phases
+             19-21: on the sig_trunc row the checkpoint chunks, the windows
+             fold route and a stream extend, on the sig_trunc_stream row
+             the windows chen route and the streamed extend, on the
+             sig_words row the windowed projection, on the sig_sweep row
+             the sweep over the folded chunks), the card's name and power
              limit, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
@@ -217,6 +262,7 @@ composition adds the signature's rounding to the Gram's.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import re
@@ -232,7 +278,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import signature as sig  # noqa: E402
+from repro_torch.core import stream  # noqa: E402
 from repro_torch.core import tensor_ops as tops  # noqa: E402
+from repro_torch.core import windows as win  # noqa: E402
 from repro_torch.core.logsignature import (logsignature,  # noqa: E402
                                            logsignature_projected)
 from repro_torch.core.projection import (  # noqa: E402
@@ -1665,7 +1713,7 @@ def phase_memory(rng) -> dict:
     increments included, above what earlier phases hold."""
     B, d, N, Ms = MEM_CELL
     mem_out = 4 * B * sum(d**n for n in range(1, N + 1))
-    peaks = {"inverse": [], "autodiff": []}
+    peaks = {"inverse": [], "checkpoint": [], "autodiff": []}
     for M in Ms:
         for mode in peaks:
             xn = rng.normal(size=(B, M, d)) / np.sqrt(M)
@@ -1681,7 +1729,8 @@ def phase_memory(rng) -> dict:
             check(bool(torch.isfinite(g).all()), f"memory cell M={M} {mode}")
             del x, out, g
         print(f"[memory] B={B} d={d} N={N} M={M:4d}: peak inverse "
-              f"{peaks['inverse'][-1] / mem_out:8.1f} Mem_out, autodiff "
+              f"{peaks['inverse'][-1] / mem_out:8.1f} Mem_out, checkpoint "
+              f"{peaks['checkpoint'][-1] / mem_out:8.1f} Mem_out, autodiff "
               f"{peaks['autodiff'][-1] / mem_out:8.1f} Mem_out (Mem_out = "
               f"{mem_out} bytes)", flush=True)
     inc_growth = B * (Ms[-1] - Ms[0]) * d * 4
@@ -1695,6 +1744,17 @@ def phase_memory(rng) -> dict:
           f"increments' {inc_growth}")
     check(grow["autodiff"] > 10 * inc_growth,
           f"autodiff peak grew only {grow['autodiff']} bytes")
+    # the checkpoint peak beyond the increments grows like √M: the exponent
+    # of a least-squares line through log(peak − B·M·d·4) against log M
+    excess = [p - B * M * d * 4 for p, M in zip(peaks["checkpoint"], Ms)]
+    exponent = float(np.polyfit(np.log(Ms), np.log(excess), 1)[0])
+    ends = float(np.log(excess[-1] / excess[0]) / np.log(Ms[-1] / Ms[0]))
+    print(f"[memory] checkpoint: peak beyond the increments "
+          f"{excess[0]} bytes at M={Ms[0]}, {excess[-1]} at M={Ms[-1]}; "
+          f"fitted exponent {exponent:.3f} (first to last point "
+          f"{ends:.3f}; √M is 0.5)", flush=True)
+    check(0.35 <= exponent <= 0.65, f"checkpoint peak exponent {exponent:.3f}"
+          f" outside [0.35, 0.65]: {excess}")
     # the streamed cells: what the backward keeps (the storages behind the
     # saved tensors) beyond the increments must not grow with M
     words = all_words(d, N)
@@ -1713,7 +1773,9 @@ def phase_memory(rng) -> dict:
         check(g <= inc_growth, f"streamed {name}: the saved tensors grew "
               f"{g} bytes, above the increments' {inc_growth}")
     return dict(B=B, d=d, N=N, M=list(Ms), mem_out=mem_out, peaks=peaks,
-                growth=grow, inc_growth=inc_growth, stream_saved=saved)
+                growth=grow, inc_growth=inc_growth, stream_saved=saved,
+                checkpoint_exponent=exponent,
+                checkpoint_exponent_ends=ends)
 
 
 def saved_storage_bytes(fn, x: torch.Tensor) -> int:
@@ -2241,6 +2303,565 @@ def phase_transform(rng) -> dict:
     return dict(projection=proj, table1=table1, serve=serve)
 
 
+# ---------------------------------------------------------------------------
+# phases 19-21: the √M checkpoint backward and time chunks, windowed
+# signatures (Fig. 3) and online signature streams
+# ---------------------------------------------------------------------------
+
+# the Fig. 3 grid of benchmarks/fig3_windows.py (its non-quick run): B, M,
+# d, N, window length, stride, and whether per-window calls are timed
+FIG3 = ([(16, 16 * K // 2 + 16, 4, 3, 16, 8, True)
+         for K in (4, 16, 64, 256, 1024)]
+        + [(32, 2048, 4, 4, 256, 8, False)])
+# benchmarks/session_throughput.py: path channels, depth, most ticks a
+# round, pool rows, ring capacity, rounds, rows moved by take / scatter,
+# rows of the streamed extend
+SESSIONS = (3, 3, 32, 100_000, 64, 10, 4096, 10_000)
+
+
+def launched(fn, where: str, **want):
+    """Run ``fn`` with every count at 0; check that the kernels named in
+    ``want`` launched that many times and nothing else did.  Returns fn's
+    result and the counts."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    n = counts()
+    expect = {k: want.get(k, 0) for k in n}
+    check(n == expect, f"{where}: launches {n}, expected {expect}")
+    return out, n
+
+
+def value_and_grad_fn(fn, x: torch.Tensor):
+    """() -> (fn(x), d sum(fn(x)²) / dx) on a leaf copy of x."""
+    x = x.detach().clone().requires_grad_()
+
+    def run():
+        out = fn(x)
+        return out, torch.autograd.grad((out ** 2).sum(), x)[0]
+    return run
+
+
+def phase_checkpoint(rng, train) -> dict:
+    """Phase 19: value plus gradient with backward="checkpoint" and with
+    time_chunks 4 and 16 at every Table 1 cell (one sig_trunc launch over
+    the folded chunks, one sig_sweep), held against the float64 plain
+    version; the folded forward and its sweep alone at the largest cell; a
+    lead_lag checkpoint cell; the projected checkpoint cell at §8 width,
+    which launches no kernel."""
+    inverse_ms = {(r["B"], r["M"], r["d"], r["N"]): r["ms"] for r in train}
+    modes = [("checkpoint", dict(backward="checkpoint")),
+             ("time_chunks=4", dict(time_chunks=4)),
+             ("time_chunks=16", dict(time_chunks=16))]
+    rows, worst = [], 0.0
+    for B, M, d, N in TABLE1:
+        incs = torch.tensor(rng.normal(size=(B, M, d)) / np.sqrt(M),
+                            dtype=torch.float32, device="cuda")
+        x64 = incs.double()
+        want = st.sig_trunc_plain(x64, N)
+        g_want = ss.sig_sweep_plain(x64, sig.truncation_closure(d, N), want,
+                                    2 * want)
+        row = dict(B=B, M=M, d=d, N=N, inverse_ms=inverse_ms[(B, M, d, N)])
+        line = []
+        for name, kw in modes:
+            where = f"Table 1 {name} cell {B, M, d, N}"
+            run = value_and_grad_fn(lambda t: ops.signature(t, N, **kw), incs)
+            (out, g), n = launched(run, where, sig_trunc=1, sig_sweep=1)
+            err = float((out.double() - want).abs().max())
+            check(within(out.double(), want, TOL["rtol"]),
+                  f"{where}: value max |err| {err:.3e}")
+            gerr = float((g.double() - g_want).abs().max())
+            check(grad_within(g, g_want), f"{where}: gradient max |err| "
+                  f"{gerr:.3e}, max|g| {float(g_want.abs().max()):.3e}")
+            worst = max(worst, err)
+            row[name] = dict(ms=cuda_ms(run, 5), max_abs_err=err,
+                             grad_max_abs_err=gerr, launches=n)
+            line.append(f"{name} {row[name]['ms']:.3f}")
+        rows.append(row)
+        print(f"[checkpoint] B={B:3d} M={M:3d} d={d:2d} N={N}: value+grad ms "
+              f"inverse {row['inverse_ms']:.3f}, {', '.join(line)}; one "
+              f"sig_trunc and one sig_sweep launch each; max |err| "
+              f"{max(row[k]['max_abs_err'] for k, _ in modes):.2e}, "
+              f"gradient {max(row[k]['grad_max_abs_err'] for k, _ in modes):.2e}"
+              f" (max|g| {float(g_want.abs().max()):.3e})", flush=True)
+    cases = checkpoint_kernel_cases(rng)
+    lead_lag = checkpoint_lead_lag(rng)
+    projected = checkpoint_projected(rng)
+    return dict(rows=rows, max_abs_err=worst, lead_lag=lead_lag,
+                projected=projected, **cases)
+
+
+def checkpoint_kernel_cases(rng) -> dict:
+    """The checkpoint cell's two launches alone at the largest Table 1
+    cell: sig_trunc over the folded chunks, and sig_sweep over them with
+    each chunk signature as terminal state."""
+    B, M, d, N = max(TABLE1, key=lambda c: c[0] * c[1] * horner_flops(
+        c[2], c[3]))
+    chunk = sig.default_chunk(M)
+    C = -(-M // chunk)
+    Mc = -(-M // C)
+    incs = torch.tensor(rng.normal(size=(B, M, d)) / np.sqrt(M),
+                        dtype=torch.float32, device="cuda")
+    folded = torch.nn.functional.pad(incs, (0, 0, 0, C * Mc - M)).reshape(
+        B * C, Mc, d)
+    D = sum(d**n for n in range(1, N + 1))
+    S = st.sig_trunc(folded, N)
+    want = st.sig_trunc_plain(folded.double(), N)
+    check(within(S.double(), want, TOL["rtol"]), "checkpoint chunks: "
+          f"max |err| {float((S.double() - want).abs().max()):.3e}")
+    b = bound(B * C, Mc, d, N, 4, B * C * D, 4)
+    fwd = dict(case="checkpoint chunks, largest Table 1 cell",
+               shape=[B * C, Mc, d, N], partition=trunc_partition(B * C, d, N),
+               ms=cuda_ms(lambda: st.sig_trunc(folded, N), 5),
+               plain_ms=cuda_ms(lambda: st.sig_trunc_plain(folded, N), 1),
+               bound_ms=b[0], bound_by=b[1], launches=1)
+    sweep = time_sweep(folded, sig.truncation_closure(d, N), S, 2 * S,
+                       "checkpoint sweep over the folded chunks")
+    sweep.pop("want")
+    sweep.update(case="checkpoint sweep over folded chunks, largest "
+                 "Table 1 cell", shape=[B * C, Mc, d, N], launches=1)
+    print(f"[checkpoint] largest Table 1 cell ({B}, {M}, {d}, {N}): {C} "
+          f"chunks of {Mc} steps; sig_trunc over ({B * C}, {Mc}, {d}) "
+          f"{fwd['ms']:.3f} ms (plain {fwd['plain_ms']:.3f}, bound "
+          f"{b[0]:.5f} ms, {b[1]}); sig_sweep over them {sweep['ms']:.3f} ms "
+          f"(plain {sweep['plain_ms']:.3f}, bound {sweep['bound_ms']:.5f} ms,"
+          f" {sweep['bound_by']})", flush=True)
+    return dict(trunc_case=fwd, sweep_case=sweep)
+
+
+def checkpoint_lead_lag(rng) -> dict:
+    """transform="lead_lag" with backward="checkpoint" at the Table 1
+    fused_transform cell: the augmented increments are materialised, then
+    the checkpoint cell runs (one unfused sig_trunc, one sig_sweep)."""
+    _, B, M, d, N, _ = TABLE1_FUSED[0]
+    spec = as_transform("lead_lag")
+    incs = torch.tensor(rng.normal(size=(B, M, d)) / np.sqrt(M),
+                        dtype=torch.float32, device="cuda")
+    x64 = incs.double()
+    want = st.sig_trunc_plain(x64, N, transform=spec)
+    g_want = fused_adjoint(ss.sig_sweep_plain(
+        fused_augment(x64, None, spec), sig.truncation_closure(2 * d, N),
+        want, 2 * want), spec, d)
+    where = f"lead_lag checkpoint ({B}, {M}, {d}, {N})"
+    run = value_and_grad_fn(lambda t: ops.signature(
+        t, N, transform="lead_lag", backward="checkpoint"), incs)
+    (out, g), n = launched(run, where, sig_trunc=1, sig_sweep=1)
+    err = float((out.double() - want).abs().max())
+    gerr = float((g.double() - g_want).abs().max())
+    check(within(out.double(), want, TOL["rtol"]),
+          f"{where}: max |err| {err:.3e}")
+    check(grad_within(g, g_want), f"{where}: gradient max |err| {gerr:.3e}")
+    ms = cuda_ms(run, 5)
+    print(f"[checkpoint] {where}: {2 * M} augmented steps over {2 * d} "
+          f"letters, launches {n}; value+grad {ms:.3f} ms; max |err| "
+          f"{err:.2e}, gradient {gerr:.2e}", flush=True)
+    return dict(shape=[B, M, d, N], ms=ms, launches=n, max_abs_err=err,
+                grad_max_abs_err=gerr)
+
+
+def checkpoint_projected(rng) -> dict:
+    """ops.projected(backward="checkpoint") at §8 width through lead_lag:
+    the torch engine on the card's tensors (the word kernel emits no
+    boundary closure states), so no kernel launches."""
+    B, M, d, N, _ = PROJ_CELL
+    plan = make_plan(generated_words(sparse_leadlag_generators(d), N), 2 * d)
+    incs = tops.path_increments(brownian(rng, B, M, d))
+    kw = dict(transform="lead_lag")
+    where = f"projected checkpoint §8 ({B}, {M}, {d}, {N})"
+    run = value_and_grad_fn(lambda t: ops.projected(
+        t, plan, backward="checkpoint", **kw), incs)
+    (out, g), n = launched(run, where)
+    want, g_want = value_and_grad_fn(lambda t: ops.projected(
+        t, plan, backend="torch", **kw), incs.double())()
+    want = want.detach()
+    err = float((out.double() - want).abs().max())
+    gerr = float((g.double() - g_want).abs().max())
+    check(within(out.double(), want, TOL["rtol"]),
+          f"{where}: max |err| {err:.3e}")
+    check(grad_within(g, g_want), f"{where}: gradient max |err| {gerr:.3e}")
+    ms = cuda_ms(run, 1)
+    print(f"[checkpoint] {where} onto {len(plan.words)} words: the torch "
+          f"engine on the card, launches {n} (no kernel: the word kernel "
+          f"emits no boundary closure states); value+grad {ms:.3f} ms; max "
+          f"|err| vs the float64 inverse cell {err:.2e}, gradient "
+          f"{gerr:.2e}", flush=True)
+    return dict(shape=[B, M, d, N], words=len(plan.words), ms=ms,
+                launches=n, max_abs_err=err, grad_max_abs_err=gerr)
+
+
+def phase_windows(rng) -> dict:
+    """Phase 20: the Fig. 3 grid through windowed_signature: fold, chen,
+    auto and per-window times, auto's pick, one launch a route, values
+    against the float64 plain per-window signatures, the auto route's
+    gradient against float64 autodiff; then a §8-set windowed projection
+    through lead_lag, a ragged case and a time_augment case."""
+    rows = []
+    for B, M, d, N, wlen, stride, per_window in FIG3:
+        path = brownian(rng, B, M, d)
+        windows = win.sliding_windows(M, wlen, stride)
+        K = len(windows)
+        where = (f"Fig. 3 B={B} M={M} K={K} window {wlen} stride {stride} "
+                 f"d={d} N={N}")
+        pick = win.select_route("auto", windows, M)
+        out, ms = {}, {}
+        for route in ("fold", "chen", "auto"):
+            kern = pick if route == "auto" else route
+            want = dict(sig_trunc=1) if kern == "fold" \
+                else dict(sig_trunc_stream=1)
+
+            def call(route=route):
+                return win.windowed_signature(path, windows, N, route=route)
+            out[route], _ = launched(call, f"{where} {route}", **want)
+            ms[route] = cuda_ms(call, 5)
+        if per_window:
+            incs = tops.path_increments(path)
+
+            def per():
+                return [ops.signature(incs[:, lo:hi], N)
+                        for lo, hi in windows]
+            launched(per, f"{where} per-window", sig_trunc=K)
+            ms["per_window"] = cuda_ms(per, 3)
+        plain = win.windowed_signature(path.double(), windows, N,
+                                       route="fold", backend="torch",
+                                       backward="autodiff")
+        scale = float(plain.abs().max())
+        err = {r: float((out[r].double() - plain).abs().max())
+               for r in ("fold", "chen")}
+        check(within(out["fold"].double(), plain, TOL["rtol"]),
+              f"{where}: fold max |err| {err['fold']:.3e}")
+        check(err["chen"] <= E2E_TOL * scale, f"{where}: chen max |err| "
+              f"{err['chen']:.3e}, max|S| {scale:.3e}")
+        fold_vs_chen = float((out["fold"] - out["chen"]).abs().max())
+        run = value_and_grad_fn(lambda p: win.windowed_signature(
+            p, windows, N), path)
+        (_, g), n = launched(run, f"{where} auto value and gradient",
+                             sig_sweep=1, **({"sig_trunc": 1}
+                                             if pick == "fold" else
+                                             {"sig_trunc_stream": 1}))
+        # the float64 oracle: autodiff through the torch engine's fold
+        # route, or for long windows its chen route (fewer saved steps)
+        oracle = "chen" if wlen > 64 else "fold"
+        _, g64 = value_and_grad_fn(lambda p: win.windowed_signature(
+            p, windows, N, route=oracle, backend="torch",
+            backward="autodiff"), path.double())()
+        gerr = float((g.double() - g64).abs().max())
+        check(grad_within(g, g64), f"{where}: auto gradient max |err| "
+              f"{gerr:.3e}, max|g| {float(g64.abs().max()):.3e}")
+        ms["auto_value_and_grad"] = cuda_ms(run, 3)
+        best = min(ms["fold"], ms["chen"])
+        faster = "fold" if ms["fold"] <= ms["chen"] else "chen"
+        row = dict(B=B, M=M, K=K, wlen=wlen, stride=stride, d=d, N=N,
+                   auto_route=pick, faster_route=faster,
+                   auto_within_15pct=bool(ms[pick] <= 1.15 * best),
+                   auto_over_best=ms["auto"] / best, max_abs_err=err,
+                   fold_vs_chen=fold_vs_chen, grad_max_abs_err=gerr,
+                   max_g=float(g64.abs().max()), launches=n,
+                   **{f"{k}_ms": v for k, v in ms.items()})
+        rows.append(row)
+        print(f"[windows] {where}: fold {ms['fold']:.3f} ms, chen "
+              f"{ms['chen']:.3f}, auto ({pick}) {ms['auto']:.3f}"
+              + (f", per-window {ms['per_window']:.3f}" if per_window
+                 else "")
+              + f"; faster {faster}, auto within 15%: "
+              f"{row['auto_within_15pct']}; one launch a route; max |err| "
+              f"vs float64 plain fold {err['fold']:.2e}, chen "
+              f"{err['chen']:.2e} (max|S| {scale:.2e}), fold vs chen "
+              f"{fold_vs_chen:.2e}; auto value+grad "
+              f"{ms['auto_value_and_grad']:.3f} ms, launches {n}, gradient "
+              f"max |err| {gerr:.2e}", flush=True)
+    extra = windows_extra_cases(rng)
+    cases = windows_kernel_cases(rng)
+    return dict(rows=rows, **extra, **cases)
+
+
+def windows_extra_cases(rng) -> dict:
+    """At the K = 64 cell of the grid: windowed_projection onto the §8
+    sparse lead-lag word set at d = 4, depth 3, through lead_lag (one fused
+    sig_words launch, one sig_sweep); a ragged batch on both routes; a
+    time_augment per-window case (one fused sig_trunc launch)."""
+    B, M, d, _, wlen, stride, _ = FIG3[2]
+    path = brownian(rng, B, M, d)
+    windows = win.sliding_windows(M, wlen, stride)
+    K = len(windows)
+    words = generated_words(sparse_leadlag_generators(d), 3)
+    plan = make_plan(words, 2 * d)
+    where = f"windowed projection §8 set (d={d}, depth 3) lead_lag K={K}"
+    run = value_and_grad_fn(lambda p: win.windowed_projection(
+        p, windows, plan, transform="lead_lag"), path)
+    (proj, g), n = launched(run, where, sig_words=1, sig_words_fused=1,
+                            sig_sweep=1)
+    want, g64 = value_and_grad_fn(lambda p: win.windowed_projection(
+        p, windows, plan, transform="lead_lag", backend="torch",
+        backward="autodiff"), path.double())()
+    want = want.detach()
+    perr = float((proj.double() - want).abs().max())
+    gerr = float((g.double() - g64).abs().max())
+    check(within(proj.double(), want, TOL["rtol"]),
+          f"{where}: max |err| {perr:.3e}")
+    check(grad_within(g, g64), f"{where}: gradient max |err| {gerr:.3e}")
+    pms = cuda_ms(lambda: win.windowed_projection(path, windows, plan,
+                                                  transform="lead_lag"), 5)
+    # the sig_words launch alone on the window increments
+    g_inc = win._window_increments(path, windows).reshape(B * K, wlen, d)
+    ctp = make_tiled_plan(plan.closure, 2 * d)
+    spec = as_transform("lead_lag")
+    kms = cuda_ms(lambda: sw.sig_words(g_inc, ctp, transform=spec), 5)
+    flops = fused_step_flops(spec, d, lambda mv: words_flops(plan, mv))
+    b = bound(B * K, 2 * wlen, 2 * d, 3, 4, B * K * len(plan.closure), 4,
+              flops, raw=(wlen, d))
+    print(f"[windows] {where} onto {len(words)} words: launches {n}; "
+          f"windowed_projection {pms:.3f} ms, sig_words alone over "
+          f"({B * K}, {wlen}, {d}) raw {kms:.3f} ms, bound {b[0]:.5f} ms "
+          f"({b[1]}); max |err| {perr:.2e}, gradient {gerr:.2e}", flush=True)
+    words_case = dict(case="windowed projection fold, §8 set lead_lag",
+                      shape=[B * K, wlen, d, 3], words=len(plan.closure),
+                      transform="lead_lag", ms=kms, route_ms=pms,
+                      bound_ms=b[0], bound_by=b[1], launches=1)
+    lengths = torch.tensor(rng.integers(M // 4, M + 1, size=B),
+                           dtype=torch.int32, device="cuda")
+    ragged = {}
+    for route, kern in (("fold", "sig_trunc"), ("chen", "sig_trunc_stream")):
+        out, _ = launched(lambda: win.windowed_signature(
+            path, windows, 3, route=route, lengths=lengths),
+            f"ragged windows {route}", **{kern: 1})
+        want = win.windowed_signature(path.double(), windows, 3,
+                                      route="fold", lengths=lengths,
+                                      backend="torch")
+        ragged[route] = float((out.double() - want).abs().max())
+        check(within(out.double(), want, TOL["rtol"]) if route == "fold"
+              else ragged[route] <= E2E_TOL * float(want.abs().max()),
+              f"ragged windows {route}: max |err| {ragged[route]:.3e}")
+    out, n_t = launched(lambda: win.windowed_signature(
+        path, windows, 3, transform="time_augment"),
+        "time_augment windows", sig_trunc=1, sig_trunc_fused=1)
+    want = win.windowed_signature(path.double(), windows, 3,
+                                  transform="time_augment", backend="torch")
+    terr = float((out.double() - want).abs().max())
+    check(within(out.double(), want, TOL["rtol"]),
+          f"time_augment windows: max |err| {terr:.3e}")
+    print(f"[windows] ragged (lengths in [{M // 4}, {M}]): fold max |err| "
+          f"{ragged['fold']:.2e}, chen {ragged['chen']:.2e}; time_augment "
+          f"per window: one fused sig_trunc launch {n_t}, max |err| "
+          f"{terr:.2e}", flush=True)
+    return dict(projection=dict(words=len(words), launches=n,
+                                max_abs_err=perr, grad_max_abs_err=gerr,
+                                ms=pms),
+                ragged=ragged, time_augment_err=terr, words_case=words_case)
+
+
+def windows_kernel_cases(rng) -> dict:
+    """The two routes' launches alone at the heavy-overlap cell: sig_trunc
+    over the B·K folded windows, the streamed sig_trunc over the path."""
+    B, M, d, N, wlen, stride, _ = FIG3[-1]
+    path = brownian(rng, B, M, d)
+    windows = win.sliding_windows(M, wlen, stride)
+    K = len(windows)
+    D = sum(d**n for n in range(1, N + 1))
+    folded = win._window_increments(path, windows).reshape(B * K, wlen, d)
+    incs = tops.path_increments(path)
+    fb = bound(B * K, wlen, d, N, 4, B * K * D, 4)
+    cb = bound(B, M, d, N, 4, B * M * D, 4)
+    fold = dict(case="windows fold, Fig. 3 heavy-overlap cell",
+                shape=[B * K, wlen, d, N],
+                partition=trunc_partition(B * K, d, N),
+                ms=cuda_ms(lambda: st.sig_trunc(folded, N), 5),
+                bound_ms=fb[0], bound_by=fb[1], launches=1)
+    chen = dict(case="windows chen, Fig. 3 heavy-overlap cell",
+                shape=[B, M, d, N, 1], partition=trunc_partition(B, d, N),
+                ms=cuda_ms(lambda: st.sig_trunc(incs, N, stream=True), 5),
+                bound_ms=cb[0], bound_by=cb[1], launches=1)
+    print(f"[windows] heavy-overlap cell, kernels alone: sig_trunc over "
+          f"({B * K}, {wlen}, {d}) {fold['ms']:.3f} ms (bound {fb[0]:.5f} "
+          f"ms, {fb[1]}); streamed sig_trunc over ({B}, {M}, {d}) "
+          f"{chen['ms']:.3f} ms (bound {cb[0]:.5f} ms, {cb[1]})", flush=True)
+    return dict(fold_case=fold, chen_case=chen)
+
+
+def ring_windows(carry, rows: torch.Tensor) -> torch.Tensor:
+    """(len(rows), R, d) each row's ring contents oldest first, zero past
+    its length (a zero increment is the identity)."""
+    R = carry.capacity
+    length, end = carry.length[rows].long(), carry.end[rows].long()
+    steps = torch.arange(R, device=rows.device)
+    idx = (end[:, None] - length[:, None] + steps) % R
+    w = carry.ring[rows[:, None], idx]
+    return w * (steps[None, :] < length[:, None])[..., None].to(w.dtype)
+
+
+def phase_stream(rng) -> dict:
+    """Phase 21: a StreamCarry at the scale of
+    benchmarks/session_throughput.py: ten rounds of stream_extend with
+    per-row counts and stream_rolling_drop, stream_take / stream_scatter of
+    4,096 rows, one sig_trunc launch an extend; sampled rows against the
+    float64 plain signature of their ring, dead and zero-count rows
+    bitwise unchanged; the streamed extend; a batch-1 SignatureStream."""
+    d, N, m, n_rows, R, rounds, n_move, n_feat = SESSIONS
+    D = sum(d**n for n in range(1, N + 1))
+    dev = "cuda"
+    pool = stream.stream_init(n_rows, d, N, capacity=R, valid=True)
+    alive = rng.random(n_rows) >= 0.01
+    pool = dataclasses.replace(pool, valid=torch.tensor(alive, device=dev))
+    dead = torch.tensor(~alive, device=dev)
+    length = np.zeros(n_rows, np.int64)     # the host's mirror
+    round_ms, ticks = [], 0
+    for r in range(rounds):
+        ticks_in = rng.integers(0, m + 1, size=n_rows)
+        ticks_in[rng.random(n_rows) < 0.1] = 0
+        counts_t = torch.tensor(ticks_in, dtype=torch.int32, device=dev)
+        x = torch.tensor(rng.normal(size=(n_rows, m, d)) * 0.1,
+                         dtype=torch.float32, device=dev)
+        eff = ticks_in * alive
+        drop = np.minimum(np.maximum(length + eff - m, 0)
+                          + rng.integers(0, 5, size=n_rows), length + eff)
+        drop_t = torch.tensor(drop, dtype=torch.int32, device=dev)
+        before = pool
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        reset_counts()
+        t0.record()
+        mid = stream.stream_extend(pool, x, counts=counts_t)
+        pool = stream.stream_rolling_drop(mid, drop_t,
+                                          max_drop=int(drop.max()))
+        t1.record()
+        t1.synchronize()
+        round_ms.append(t0.elapsed_time(t1))
+        n = counts()
+        check(n == {**{k: 0 for k in n}, "sig_trunc": 1},
+              f"stream round {r}: launches {n}")
+        idle = torch.tensor(eff == 0, device=dev)
+        for f in ("sig", "ring", "length", "end"):
+            check(torch.equal(getattr(mid, f)[idle], getattr(before, f)[idle]),
+                  f"stream round {r}: zero-count or dead rows changed {f}")
+        kept = torch.tensor(drop == 0, device=dev)
+        check(torch.equal(pool.sig[kept], mid.sig[kept]),
+              f"stream round {r}: rows without a drop changed")
+        length = length + eff - drop
+        ticks += int(eff.sum())
+    check(np.array_equal(pool.length.cpu().numpy(), length),
+          "stream: lengths differ from the host's mirror")
+    check(not pool.sig[dead].any() and not pool.ring[dead].any(),
+          "stream: a dead lane changed")
+    # take / scatter of 4,096 rows, one extend between
+    slots = torch.tensor(rng.choice(n_rows, n_move, replace=False),
+                         device=dev)
+    c_move = np.minimum(rng.integers(1, m + 1, size=n_move),
+                        R - length[slots.cpu().numpy()])
+    y = torch.tensor(rng.normal(size=(n_move, m, d)) * 0.1,
+                     dtype=torch.float32, device=dev)
+
+    def move():
+        sub = stream.stream_take(pool, slots)
+        sub = stream.stream_extend(sub, y, counts=torch.tensor(
+            c_move, dtype=torch.int32, device=dev))
+        return stream.stream_scatter(pool, slots, sub)
+    pool, _ = launched(move, "stream take/extend/scatter", sig_trunc=1)
+    length[slots.cpu().numpy()] += c_move * alive[slots.cpu().numpy()]
+    move_ms = cuda_ms(move, 3)
+    # 256 sampled rows (half of them moved) against the float64 plain
+    # signature of their ring's contents
+    sample = torch.cat([slots[:128], torch.tensor(
+        rng.choice(n_rows, 128, replace=False), device=dev)])
+    want = st.sig_trunc_plain(ring_windows(pool, sample).double(), N)
+    got = pool.sig[sample].double()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= E2E_TOL * scale, f"stream sampled rows: max |err| "
+          f"{err:.3e}, max|S| {scale:.3e}")
+    # the kernel alone at an extend's shape
+    x = torch.tensor(rng.normal(size=(n_rows, m, d)) * 0.1,
+                     dtype=torch.float32, device=dev)
+    b = bound(n_rows, m, d, N, 4, n_rows * D, 4)
+    extend_case = dict(case="stream extend, 100,000 rows",
+                       shape=[n_rows, m, d, N],
+                       partition=trunc_partition(n_rows, d, N),
+                       ms=cuda_ms(lambda: st.sig_trunc(x, N), 5),
+                       bound_ms=b[0], bound_by=b[1], launches=rounds + 1)
+    feats = stream_features(rng)
+    single = stream_single(rng)
+    med = float(np.median(round_ms))
+    print(f"[stream] StreamCarry of {n_rows} rows (d={d}, depth {N}, ring "
+          f"{R}, {int((~alive).sum())} dead): {rounds} rounds of extend "
+          f"(counts 0..{m}) and rolling_drop, one sig_trunc launch an "
+          f"extend, {med:.3f} ms a round (median), {n_rows / med * 1e3:.0f} "
+          f"rows/s, {ticks / sum(round_ms) * 1e3:.0f} ticks/s; zero-count "
+          f"and dead rows bitwise unchanged; take/extend/scatter of "
+          f"{n_move} rows {move_ms:.3f} ms; 256 sampled rows vs float64 "
+          f"plain of their rings max |err| {err:.2e} (max|S| {scale:.2e}); "
+          f"sig_trunc alone at ({n_rows}, {m}, {d}) {extend_case['ms']:.3f} "
+          f"ms, bound {b[0]:.5f} ms ({b[1]})", flush=True)
+    return dict(rows=n_rows, round_ms=round_ms, median_round_ms=med,
+                rows_per_s=n_rows / med * 1e3,
+                ticks_per_s=ticks / sum(round_ms) * 1e3, move_ms=move_ms,
+                max_abs_err=err, max_sig=scale, extend_case=extend_case,
+                features=feats, single=single)
+
+
+def stream_features(rng) -> dict:
+    """stream_extend(return_stream=True) at 10,000 rows: one streamed
+    sig_trunc launch; 64 rows' features against the float64 plain stream
+    of their whole history."""
+    d, N, m, _, _, _, _, n = SESSIONS
+    D = sum(d**k for k in range(1, N + 1))
+    pool = stream.stream_init(n, d, N, valid=True)
+    first = torch.tensor(rng.normal(size=(n, m, d)) * 0.1,
+                         dtype=torch.float32, device="cuda")
+    x = torch.tensor(rng.normal(size=(n, m, d)) * 0.1, dtype=torch.float32,
+                     device="cuda")
+    pool = stream.stream_extend(pool, first)
+    (_, feats), launches = launched(lambda: stream.stream_extend(
+        pool, x, return_stream=True), "streamed extend",
+        sig_trunc_stream=1)
+    rows = torch.tensor(rng.choice(n, 64, replace=False), device="cuda")
+    want = st.sig_trunc_plain(torch.cat([first, x], 1)[rows].double(), N,
+                              stream=True)[:, m:]
+    err = float((feats[rows].double() - want).abs().max())
+    check(err <= E2E_TOL * float(want.abs().max()),
+          f"streamed extend: max |err| {err:.3e}")
+    b = bound(n, m, d, N, 4, n * m * D, 4)
+    case = dict(case="stream extend return_stream, 10,000 rows",
+                shape=[n, m, d, N, 1], partition=trunc_partition(n, d, N),
+                ms=cuda_ms(lambda: st.sig_trunc(x, N, stream=True), 5),
+                route_ms=cuda_ms(lambda: stream.stream_extend(
+                    pool, x, return_stream=True), 5),
+                bound_ms=b[0], bound_by=b[1], launches=1)
+    print(f"[stream] extend(return_stream=True) at {n} rows: launches "
+          f"{launches}; {case['route_ms']:.3f} ms, the streamed sig_trunc "
+          f"alone {case['ms']:.3f} ms (bound {b[0]:.5f} ms, {b[1]}); 64 "
+          f"rows max |err| {err:.2e}", flush=True)
+    return dict(max_abs_err=err, case=case)
+
+
+def stream_single(rng) -> dict:
+    """A batch-1 SignatureStream with a 64-step ring: 20 hops of 8 ticks,
+    dropping as needed, one sig_trunc launch an extend; the last window
+    against the float64 plain signature."""
+    d, N, _, _, R, _, _, _ = SESSIONS
+    hop, hops = 8, 20
+    x = torch.tensor(rng.normal(size=(1, hop * hops, d)) * 0.1,
+                     dtype=torch.float32, device="cuda")
+    s = stream.signature_stream_init(1, d, N, capacity=R)
+    start, t = 0, []
+    for k in range(hops):
+        need = max(0, s.length + hop - R)
+        s = s.rolling_drop(need)
+        start += need
+        t0 = time.perf_counter()
+        s, _ = launched(lambda: s.extend(x[:, hop * k:hop * (k + 1)]),
+                        "SignatureStream extend", sig_trunc=1)
+        t.append((time.perf_counter() - t0) * 1e3)
+    want = st.sig_trunc_plain(x[:, start:].double(), N)
+    err = float((s.sig.double() - want).abs().max())
+    check(err <= E2E_TOL * float(want.abs().max()),
+          f"SignatureStream: max |err| {err:.3e}")
+    ms = float(np.median(t))
+    print(f"[stream] SignatureStream batch 1, ring {R}: {hops} hops of "
+          f"{hop}, one sig_trunc launch each, {ms:.3f} ms an extend "
+          f"(host clock, median); window [{start}, {hop * hops}) max |err| "
+          f"{err:.2e}", flush=True)
+    return dict(max_abs_err=err, extend_ms=ms)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2266,6 +2887,13 @@ def main() -> int:
     mmd_grad = phase_mmd_grad(rng)
     hurst = phase_hurst(args.seed)
     fused = phase_transform(rng)
+    t0 = time.perf_counter()
+    ckpt = phase_checkpoint(rng, train)
+    windows = phase_windows(rng)
+    streams = phase_stream(rng)
+    new_s = time.perf_counter() - t0
+    print(f"[timing] checkpoint, windows and stream phases: {new_s:.1f} s",
+          flush=True)
     src = "src/repro_torch/kernels/csrc/sig_trunc.cu"
     largest = max(table1, key=lambda r: r["bound_ms"])
     trunc_cases = [
@@ -2277,6 +2905,8 @@ def main() -> int:
         trunc_case("streamed", stream["shape"], stream),
         fused["projection"]["trunc"], fused["serve"]]
     trunc_cases += [c["trunc"] for c in fused["table1"]]
+    trunc_cases += [ckpt["trunc_case"], windows["fold_case"],
+                    streams["extend_case"]]
     wsrc = "src/repro_torch/kernels/csrc/sig_words.cu"
     t3 = max(logsig, key=lambda r: r["bound_ms"])
     words_cases = [
@@ -2292,7 +2922,7 @@ def main() -> int:
              words=t3["words"], partition=t3["partition"],
              ms=t3["kernel_ms"], bound_ms=t3["bound_ms"],
              bound_by=t3["bound_by"]),
-        fused["projection"]["words"]]
+        fused["projection"]["words"], windows["words_case"]]
     kernels = [
         dict(name="sig_trunc", route="cuda", source=src,
              replaces="src/repro/kernels/sig_trunc.py:300",
@@ -2306,7 +2936,8 @@ def main() -> int:
              max_abs_err=max_err["sig_trunc_stream"], ms=stream["ms"],
              plain_ms=stream["plain_ms"], bound_ms=stream["bound_ms"],
              bound_by=stream["bound_by"], library_ms=None,
-             cases=[c["stream"] for c in fused["table1"]]),
+             cases=[c["stream"] for c in fused["table1"]]
+             + [windows["chen_case"], streams["features"]["case"]]),
         dict(name="sig_words", route="cuda", source=wsrc,
              replaces="src/repro/kernels/sig_words.py:197",
              launches=proj["launches"], max_abs_err=words_err["sig_words"],
@@ -2355,6 +2986,7 @@ def main() -> int:
                                         "ms", "us_per_step",
                                         "partition", "plain_ms", "bound_ms",
                                         "bound_by")}))
+    sweep_cases.append(ckpt["sweep_case"])
     sp = hurst["sparse"]["sweep"]
     kernels.append(dict(
         name="sig_sweep", route="cuda",
@@ -2380,7 +3012,8 @@ def main() -> int:
             stream=stream, cross=cross, projection=proj, logsig=logsig,
             scoring=score, projected_mmd=mmd, sweep=sweep,
             train=train, memory=memory, mmd_grad=mmd_grad, hurst=hurst,
-            transform=fused),
+            transform=fused, checkpoint=ckpt, windows=windows,
+            streams=streams, new_phases_s=new_s),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

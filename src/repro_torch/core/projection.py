@@ -13,8 +13,12 @@ the Hopper ``sig_words`` kernel.  ``backward="inverse"`` saves only the
 increments and the terminal closure state, and the backward is the §4.2
 sweep over the closure (:func:`projected_inverse_bwd_scan`, its streamed
 form): the plain sweep on the ``torch`` engine, the ``sig_sweep`` kernel
-on the ``cuda`` engine.  ``"autodiff"`` is autograd through the scan;
-``"checkpoint"`` raises, naming its ROADMAP.md item.
+on the ``cuda`` engine.  ``"autodiff"`` is autograd through the scan.
+``"checkpoint"`` (beyond the paper) saves the closure state at each of the
+O(√M) chunk boundaries and replays each chunk from its boundary on the
+backward (:class:`CheckpointProjectionFunction`); every engine runs it
+here, on the input's device, because the word kernel emits no boundary
+closure states.
 """
 from __future__ import annotations
 
@@ -23,9 +27,9 @@ import torch
 from ..device import resolve_device
 from ..kernels.cache import plan_cache
 from . import tensor_ops as tops
-from .signature import (CHECKPOINT_ITEM, _as_batched,
-                        _unpack_ragged, as_lengths, canon_precision,
-                        mask_increments, not_ported, quantise_increments,
+from .signature import (_as_batched, _fold_chunks, _unpack_ragged,
+                        as_lengths, canon_precision, default_chunk,
+                        mask_increments, quantise_increments,
                         stream_emit_mask, stream_emit_steps,
                         unsupported_stream_backward)
 from .transforms import as_transform, transform_dim
@@ -152,6 +156,53 @@ class InverseProjectionFunction(torch.autograd.Function):
         return gx, None, None
 
 
+class CheckpointProjectionFunction(torch.autograd.Function):
+    """The ``backward="checkpoint"`` cell of projections: the word-table
+    scan forward, chunk by chunk, saving the increments and the
+    (n_chunks, B, 1 + W) boundary closure states; the backward replays
+    each chunk, last first, from its boundary under autograd (M >= 1)."""
+
+    @staticmethod
+    def forward(ctx, increments, plan, chunk):
+        tables = plan_tables(plan, increments.device, increments.dtype)
+        S = _closure_init(increments.shape[0], plan, increments.dtype,
+                          increments.device)
+        bounds = []
+        for c in _fold_chunks(increments, chunk):
+            bounds.append(S)
+            S = _chunk_scan_projected(S, c, tables)
+        ctx.save_for_backward(increments, torch.stack(bounds))
+        ctx.plan, ctx.chunk = plan, chunk
+        return S[:, tables[4]]
+
+    @staticmethod
+    def backward(ctx, g_out):
+        increments, bounds = ctx.saved_tensors
+        B, M, d = increments.shape
+        tables = plan_tables(ctx.plan, increments.device, increments.dtype)
+        incs = _fold_chunks(increments.detach(), ctx.chunk)
+        G = g_out.new_zeros((B, bounds.shape[-1])).index_add_(
+            1, tables[4], g_out)
+        g_chunks = []
+        for k in reversed(range(incs.shape[0])):
+            with torch.enable_grad():
+                S = bounds[k].detach().clone().requires_grad_()
+                c = incs[k].clone().requires_grad_()
+                G, g_c = torch.autograd.grad(
+                    _chunk_scan_projected(S, c, tables), (S, c), G)
+            g_chunks.append(g_c)
+        g = torch.stack(g_chunks[::-1]).reshape(-1, B, d).movedim(0, 1)
+        return g[:, :M], None, None
+
+
+def _chunk_scan_projected(S: torch.Tensor, incs: torch.Tensor,
+                          tables) -> torch.Tensor:
+    """Advance a closure state through one chunk of increments (c, B, d)."""
+    for dx in incs:
+        S = projected_step(S, dx, *tables[:4])
+    return S
+
+
 def projected_signature_from_increments(increments, plan: WordPlan, *,
                                         stream: bool = False,
                                         stream_stride: int = 1,
@@ -185,11 +236,9 @@ def projected_signature_from_increments(increments, plan: WordPlan, *,
                             transform=spec, x0=x0, precision=precision,
                             device=dev)
         return out[0] if squeeze else out
-    if backward == "checkpoint":
-        if stream:
-            raise unsupported_stream_backward(backward)
-        raise not_ported("backward='checkpoint'", CHECKPOINT_ITEM)
-    if backward not in ("inverse", "autodiff"):
+    if backward == "checkpoint" and stream:
+        raise unsupported_stream_backward(backward)
+    if backward not in ("inverse", "checkpoint", "autodiff"):
         raise ValueError(f"unknown backward mode {backward!r}")
     if lengths is not None:
         lengths = as_lengths(lengths, increments.shape[0], dev)
@@ -210,6 +259,9 @@ def projected_signature_from_increments(increments, plan: WordPlan, *,
                                          lengths)[..., None].to(out.dtype)
     elif backward == "inverse":
         out = InverseProjectionFunction.apply(increments, plan, 0)
+    elif backward == "checkpoint" and increments.shape[1]:
+        out = CheckpointProjectionFunction.apply(
+            increments, plan, default_chunk(increments.shape[1]))
     else:
         out = _scan_projected(increments, plan, False)
     return out[0] if squeeze else out

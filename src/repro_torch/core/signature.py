@@ -25,8 +25,14 @@ Backward modes:
   engine it is the hand-written ``sig_sweep`` kernel.
 - ``"autodiff"``: plain autograd through the scan, O(M·B·D_sig) memory
   (the memory-law baseline); the ``cuda`` engine routes it to ``torch``.
-- ``"checkpoint"`` (the √M checkpoint sweep) raises, naming its ROADMAP.md
-  item.
+- ``"checkpoint"`` (beyond the paper): the forward saves the increments
+  and the state at each of the O(√M) chunk boundaries
+  (:func:`default_chunk`); the backward replays each chunk from its
+  boundary under autograd (:func:`checkpoint_bwd_scan`), O(√M·B·D_sig)
+  memory and no inverse-reconstruction drift.  On the ``cuda`` engine the
+  cell folds the chunks into one ``sig_trunc`` launch and its backward is
+  one ``sig_sweep`` launch (:mod:`repro_torch.kernels.ops`).  A transform
+  materialises the augmented increments first, as the reference does.
 
 ``transform=`` (see :func:`repro_torch.core.transforms.as_transform`)
 fuses basepoint / lead_lag / time_augment into the scan: basepoint is an
@@ -36,6 +42,8 @@ intermediate never exists on the forward; streamed emissions and lengths
 are over the augmented step axis.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -54,8 +62,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{item}")
 
 
-CHECKPOINT_ITEM = ("queue 1 item 5 (training: the √M checkpoint sweep and "
-                   "time_chunks)")
 HYBRID_ITEM = "queue 1 item 8 (the hybrid dense + top-word engine)"
 
 
@@ -353,6 +359,94 @@ class FusedInverseSignatureFunction(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# the √M checkpoint backward (beyond the paper): the forward saves the state
+# at each chunk boundary, the backward replays each chunk from its boundary
+# ---------------------------------------------------------------------------
+
+def default_chunk(M: int) -> int:
+    """√M chunk length for the checkpoint backward."""
+    return max(1, math.isqrt(max(M, 1)))
+
+
+def _chunk_scan(levels: list[torch.Tensor], incs: torch.Tensor,
+                depth: int) -> list[torch.Tensor]:
+    """Advance a levels state through one chunk of increments (c, B, d)."""
+    for dx in incs:
+        levels = tops.horner_step(levels, dx)
+    return levels
+
+
+def _fold_chunks(increments: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, M, d) -> time-major (n_chunks, chunk, B, d), zero-padded (a zero
+    increment is the identity update)."""
+    B, M, d = increments.shape
+    n_chunks = -(-M // chunk)
+    incs = torch.nn.functional.pad(increments,
+                                   (0, 0, 0, n_chunks * chunk - M))
+    return incs.movedim(1, 0).reshape(n_chunks, chunk, B, d)
+
+
+def checkpoint_bwd_scan(increments: torch.Tensor, boundaries: torch.Tensor,
+                        g_flat: torch.Tensor, depth: int,
+                        chunk: int) -> torch.Tensor:
+    """√M-checkpoint backward: replay each chunk, last first, from its
+    stored boundary state under autograd and pull the cotangent back
+    through it.  ``boundaries`` (n_chunks, B, D_sig) holds the state before
+    each chunk.  Returns the increments' gradient (B, M, d)."""
+    B, M, d = increments.shape
+    incs = _fold_chunks(increments.detach(), chunk)
+    G = tops.flat_to_levels(g_flat, d, depth)
+    g_chunks = []
+    for k in reversed(range(incs.shape[0])):
+        with torch.enable_grad():
+            bound = [lv.clone().requires_grad_() for lv in
+                     tops.flat_to_levels(boundaries[k].detach(), d, depth)]
+            c = incs[k].clone().requires_grad_()
+            *G, g_c = torch.autograd.grad(_chunk_scan(bound, c, depth),
+                                          bound + [c], G)
+        g_chunks.append(g_c)
+    g = torch.stack(g_chunks[::-1]).reshape(-1, B, d).movedim(0, 1)
+    return g[:, :M]
+
+
+class CheckpointSignatureFunction(torch.autograd.Function):
+    """The ``torch`` engine's ``backward="checkpoint"`` cell: the plain
+    scan forward, chunk by chunk, saving the increments and the
+    (n_chunks, B, D_sig) boundary states; the backward is
+    :func:`checkpoint_bwd_scan` (M >= 1)."""
+
+    @staticmethod
+    def forward(ctx, increments, depth, chunk):
+        B, _, d = increments.shape
+        levels = tops.zero_levels((B,), d, depth, increments.dtype,
+                                  increments.device)
+        bounds = []
+        for c in _fold_chunks(increments, chunk):
+            bounds.append(tops.levels_to_flat(levels))
+            levels = _chunk_scan(levels, c, depth)
+        ctx.save_for_backward(increments, torch.stack(bounds))
+        ctx.depth, ctx.chunk = depth, chunk
+        return tops.levels_to_flat(levels)
+
+    @staticmethod
+    def backward(ctx, g):
+        increments, bounds = ctx.saved_tensors
+        return (checkpoint_bwd_scan(increments, bounds, g, ctx.depth,
+                                    ctx.chunk), None, None)
+
+
+def checkpoint_signature(increments: torch.Tensor,
+                         depth: int) -> torch.Tensor:
+    """The checkpoint cell at :func:`default_chunk`; no steps is the
+    identity."""
+    M = increments.shape[1]
+    if M == 0:
+        return _scan_forward(increments, depth, False)
+    return CheckpointSignatureFunction.apply(increments, depth,
+                                             default_chunk(M))
+
+
+# ---------------------------------------------------------------------------
 # precision: "fp32" | "bf16_fp32" (bf16-rounded increments, fp32
 # accumulation).  The rounding is the semantics: every engine runs fp32
 # Horner updates on the same rounded increments.
@@ -418,7 +512,7 @@ def _fused_torch_signature(increments: torch.Tensor, depth: int, spec, *,
     prepend, lead_lag/time are built per sub-step inside the scan.
     Streaming, lengths masking and emissions are over the augmented axis.
     """
-    from .transforms import transform_dim, transform_time_aux
+    from .transforms import fused_augment, transform_dim, transform_time_aux
     B, M, d = increments.shape
     increments, lengths_bp, kspec = prepend_basepoint(increments, lengths,
                                                       spec, x0, precision)
@@ -429,7 +523,10 @@ def _fused_torch_signature(increments: torch.Tensor, depth: int, spec, *,
     if backward == "checkpoint":
         if stream:
             raise unsupported_stream_backward(backward)
-        raise not_ported("backward='checkpoint'", CHECKPOINT_ITEM)
+        # materialise, then the plain checkpoint cell: the augment is
+        # linear, so autograd through it is the transform's adjoint
+        return checkpoint_signature(fused_augment(increments, taux, kspec),
+                                    depth)
     if backward not in ("inverse", "autodiff"):
         raise ValueError(f"unknown backward mode {backward!r}")
     if stream:
@@ -501,13 +598,11 @@ def signature_from_increments(increments, depth: int, *,
     if lengths is not None:
         lengths = as_lengths(lengths, increments.shape[0], dev)
         increments = mask_increments(increments, lengths)
-    if backward == "checkpoint":
-        if stream:
-            raise unsupported_stream_backward(backward)
-        raise not_ported("backward='checkpoint'", CHECKPOINT_ITEM)
-    if backward not in ("inverse", "autodiff"):
+    if backward not in ("inverse", "checkpoint", "autodiff"):
         raise ValueError(f"unknown backward mode {backward!r}")
     if stream:
+        if backward == "checkpoint":
+            raise unsupported_stream_backward(backward)
         if stream_stride < 1:
             raise ValueError(
                 f"stream_stride must be >= 1, got {stream_stride}")
@@ -523,6 +618,8 @@ def signature_from_increments(increments, depth: int, *,
                                          lengths)[..., None].to(out.dtype)
     elif backward == "inverse":
         out = InverseSignatureFunction.apply(increments, depth, 0)
+    elif backward == "checkpoint":
+        out = checkpoint_signature(increments, depth)
     else:
         out = _scan_forward(increments, depth, False)
     return out[0] if squeeze else out

@@ -1,8 +1,8 @@
 """The engine-dispatch layer for truncated and projected signatures and the
 weighted signature Gram.
 
-Port of the ``signature``, ``projected``, ``projected_forward_only`` and
-``gram`` parts of ``repro.kernels.ops``.  ``backend``:
+Port of the ``signature``, ``signature_time_parallel``, ``projected``,
+``projected_forward_only`` and ``gram`` parts of ``repro.kernels.ops``.  ``backend``:
 
 - ``"torch"`` — the plain PyTorch versions: levelwise Horner for truncated
   signatures, the word-table scan for projections, the word-blocked
@@ -20,16 +20,26 @@ Backend × backward × stream support matrix (✗ raises)
 
 ``signature``:
 
-=========  ======  =============================  ============  ==========
-engine     stream  backward="inverse"             "checkpoint"  "autodiff"
-=========  ======  =============================  ============  ==========
-torch      False   scan fwd, §4.2 plain sweep     not ported    scan AD
-torch      True    streamed scan, plain sweep     ✗             scan AD
-cuda       False   kernel fwd, ``sig_sweep``      not ported    (torch)
+=========  ======  =============================  ==============  ==========
+engine     stream  backward="inverse"             "checkpoint"    "autodiff"
+=========  ======  =============================  ==============  ==========
+torch      False   scan fwd, §4.2 plain sweep     √M boundaries,  scan AD
+                                                  chunk replay
+torch      True    streamed scan, plain sweep     ✗               scan AD
+cuda       False   kernel fwd, ``sig_sweep``      √M chunks in    (torch)
+                   kernel bwd                     one kernel fwd,
+                                                  Chen tree, one
+                                                  ``sig_sweep``
+cuda       True    streamed kernel, ``sig_sweep`` ✗               (torch)
                    kernel bwd
-cuda       True    streamed kernel, ``sig_sweep`` ✗             (torch)
-                   kernel bwd
-=========  ======  =============================  ============  ==========
+=========  ======  =============================  ==============  ==========
+
+``time_chunks`` > 1 (``cuda``, not streamed): C time chunks folded into
+the batch of one kernel launch of the chosen backward's cell, then a
+log-depth Chen tree in plain tensor algebra (:func:`time_parallel_combine`);
+autograd carries the tree's adjoint to each chunk signature, so the
+backward is that cell's, one ``sig_sweep`` launch.  The torch engine runs
+whole paths, as the reference's ``jax`` engine does.
 
 ``projected`` (``projected_forward_only`` runs the ``inverse`` column's
 forward over the requested words' tiles instead of the closure's, and
@@ -39,9 +49,12 @@ own prefix closure):
 =========  ======  =============================  ============  ==========
 engine     stream  backward="inverse"             "checkpoint"  "autodiff"
 =========  ======  =============================  ============  ==========
-torch      False   word-table scan, plain sweep   not ported    scan AD
+torch      False   word-table scan, plain sweep   √M boundary   scan AD
+                                                  closure
+                                                  states, chunk
+                                                  replay
 torch      True    streamed scan, plain sweep     ✗             scan AD
-cuda       False   kernel over the closure tiles, not ported    (torch)
+cuda       False   kernel over the closure tiles, (torch)       (torch)
                    then ``out_rows``;
                    ``sig_sweep`` kernel bwd
 cuda       True    streamed kernel over the       ✗             (torch)
@@ -60,13 +73,16 @@ cuda       ``sig_gram`` kernel, closed-form backward (``torch.matmul``)
 hybrid     the torch row (the product has no dense/word split)
 =========  ============================================================
 
-``(torch)`` cells route to the torch engine on the same device.  The
-``inverse`` backward saves only the increments and the terminal state
-(the closure state for projections) and runs the §4.2 reverse sweep, one
-``sig_sweep`` launch a call on the card
-(:mod:`repro_torch.kernels.sig_sweep`).  ``checkpoint`` and
-``time_chunks`` land with the training item; ``backend="hybrid"`` with the
-hybrid-engine item (the errors name the ROADMAP.md items).  For truncated signatures
+``(torch)`` cells route to the torch engine on the same device: the
+projected ``cuda`` × ``checkpoint`` cell launches no kernel, because the
+word kernel emits no boundary closure states.  The ``inverse`` backward
+saves only the increments and the terminal state (the closure state for
+projections) and runs the §4.2 reverse sweep, one ``sig_sweep`` launch a
+call on the card (:mod:`repro_torch.kernels.sig_sweep`).  The ``cuda``
+``checkpoint`` cell (:func:`_checkpoint_cell`) saves the increments and
+O(√M) chunk states an example and rebuilds the states within a chunk by
+the same sweep.  ``backend="hybrid"`` lands with the hybrid-engine item
+(the error names the ROADMAP.md item).  For truncated signatures
 ``backend="hybrid"`` raises as in the reference: it applies to projected
 word sets only.  ``max_rows`` bounds a tile's closure rows (a caller's
 ``TiledPlan`` keeps its tiles); the reference's TPU ``batch_tile`` knob has
@@ -91,9 +107,11 @@ transform has a basepoint), applied to the path before signing:
   :func:`repro_torch.core.transforms.fused_adjoint`.
 - ``torch`` signatures: the augment is fused into the scan step
   (``core.signature._fused_torch_signature``).
-- ``torch`` projections and every ``autodiff`` cell of them:
-  materialise: ``fused_augment`` builds the augmented increments once and
-  the plain cell runs (the augment is linear, autograd transposes it).
+- ``torch`` projections, every ``autodiff`` and ``checkpoint`` cell of
+  them, and the ``cuda`` signature cells with ``checkpoint`` or
+  ``time_chunks`` > 1: materialise: ``fused_augment`` builds the augmented
+  increments once and the plain cell runs (the augment is linear,
+  autograd transposes it).
 - ``basepoint``: resolved here by prepending the ``x0`` increment
   (lengths shift by one); a basepoint-only transform runs the plain cell.
 - The order of operations is the reference's: mask, prepend x0 (lengths
@@ -112,8 +130,9 @@ from typing import NamedTuple
 import torch
 
 from ..core.projection import plan_tables, projected_signature_from_increments
-from ..core.signature import (CHECKPOINT_ITEM, HYBRID_ITEM, as_lengths,
-                              canon_precision, mask_increments, not_ported,
+from ..core import tensor_ops as tops
+from ..core.signature import (HYBRID_ITEM, as_lengths, canon_precision,
+                              default_chunk, mask_increments, not_ported,
                               prepend_basepoint, quantise_increments,
                               signature_from_increments, stream_emit_mask,
                               unsupported_stream_backward)
@@ -197,13 +216,14 @@ def _fused_inputs(increments: torch.Tensor, lengths, spec, x0,
 
 def _signature_local(increments: torch.Tensor, lengths, *, depth: int,
                      engine: str, backward: str, split: int | None,
-                     stream: bool, stream_stride: int, precision: str,
-                     transform=None, x0=None) -> torch.Tensor:
+                     time_chunks: int, stream: bool, stream_stride: int,
+                     precision: str, transform=None,
+                     x0=None) -> torch.Tensor:
     """Single-device dispatch, in the reference's order: mask, quantise,
     engine, then the streamed output mask."""
     kw = dict(depth=depth, engine=engine, backward=backward, split=split,
-              stream=stream, stream_stride=stream_stride,
-              precision=precision)
+              time_chunks=time_chunks, stream=stream,
+              stream_stride=stream_stride, precision=precision)
     if transform is not None:
         return _signature_fused(increments, lengths, transform, x0, **kw)
     if lengths is not None:
@@ -223,20 +243,83 @@ def _signature_local(increments: torch.Tensor, lengths, *, depth: int,
         return _finish_stream(out, precision, increments.shape[1],
                               stream_stride, lengths)
     if engine == "torch" or backward == "autodiff":
+        # the torch engine runs whole paths: time_chunks is a kernel knob
         return signature_from_increments(increments, depth, backward=backward,
                                          backend="torch",
                                          device=increments.device)
+    if time_chunks > 1:
+        return time_parallel_combine(
+            lambda x: _signature_local(x, None, **dict(kw, time_chunks=1)),
+            increments, depth, time_chunks)
+    if backward == "checkpoint":
+        return _checkpoint_cell(increments, depth, split, precision)
     return sig_trunc(increments, depth, split=split, precision=precision)
+
+
+def _checkpoint_cell(increments: torch.Tensor, depth: int,
+                     split: int | None, precision: str) -> torch.Tensor:
+    """The ``cuda`` × ``checkpoint`` cell (the reference's
+    ``_pallas_sig_checkpoint``): the ⌈M/√M⌉ chunks of
+    :func:`repro_torch.core.signature.default_chunk` steps are folded into
+    the batch of one ``sig_trunc`` launch, and the chunk signatures are
+    Chen-combined in the log-depth tree of :func:`time_parallel_combine`.
+
+    What autograd saves is the folded increments (a view of the input when
+    the chunks tile it, else its zero-padded copy), the (B, C, D_sig)
+    chunk signatures and the tree's O(C) partial products: O(√M) states an
+    example.  The backward differs from the reference's: autograd through
+    the tree gives each chunk signature S_k its cotangent (the adjoint of
+    X ↦ P_k ⊗ X ⊗ Q_k, P_k the product before chunk k and Q_k after it),
+    and ``SigTruncFunction``'s backward is then one ``sig_sweep`` launch
+    over all B·C chunks, each starting at the identity with S_k as its
+    terminal state.  So within a chunk the states are rebuilt by the §4.2
+    inverse over at most √M steps, where the reference replays the chunk
+    forward from its stored boundary; the tree replaces the reference's
+    sequential boundary scan (log C batched products instead of C)."""
+    M = increments.shape[1]
+    n_chunks = -(-M // default_chunk(M))
+    return time_parallel_combine(
+        lambda x: sig_trunc(x, depth, split=split, precision=precision),
+        increments, depth, n_chunks)
+
+
+def time_parallel_combine(sig_flat_fn, increments: torch.Tensor, depth: int,
+                          time_chunks: int) -> torch.Tensor:
+    """Fold C time chunks into the batch, sign them with ``sig_flat_fn``
+    ((B·C, Mc, d) -> (B·C, D_sig)) and Chen-combine them in a log-depth
+    tree of plain tensor algebra (the reference's
+    ``_time_parallel_combine``).  The fold is a view when the chunks tile
+    the path; otherwise the tail is zero-padded (the identity update)."""
+    B, M, d = increments.shape
+    C = max(1, min(time_chunks, M))
+    Mc = -(-M // C)
+    x = increments
+    if C * Mc != M:
+        x = torch.nn.functional.pad(increments, (0, 0, 0, C * Mc - M))
+    parts = sig_flat_fn(x.reshape(B * C, Mc, d)).reshape(B, C, -1)
+    while parts.shape[1] > 1:
+        n = parts.shape[1]
+        even, odd = parts[:, 0:n - n % 2:2], parts[:, 1:n:2]
+        merged = tops.levels_to_flat(tops.chen_mul(
+            tops.flat_to_levels(even, d, depth),
+            tops.flat_to_levels(odd, d, depth)))
+        if n % 2:
+            merged = torch.cat([merged, parts[:, -1:]], dim=1)
+        parts = merged
+    return parts[:, 0]
 
 
 def _signature_fused(increments: torch.Tensor, lengths, spec, x0, *,
                      depth: int, engine: str, backward: str,
-                     split: int | None, stream: bool, stream_stride: int,
-                     precision: str) -> torch.Tensor:
+                     split: int | None, time_chunks: int, stream: bool,
+                     stream_stride: int, precision: str) -> torch.Tensor:
     """The fused-transform cells of :func:`signature`: the ``cuda``
     ``inverse`` cells run ``sig_trunc`` on the raw increments and ``taux``
     (the reference's ``_pallas_sig_fused_inverse`` / ``_stream``); the
-    torch engine and ``autodiff`` run the torch engine's fused scan."""
+    torch engine and ``autodiff`` run the torch engine's fused scan;
+    ``checkpoint`` and ``time_chunks > 1`` materialise the augmented
+    increments and run the plain cell over them (autograd transposes the
+    augment), as the reference does."""
     if engine == "torch" or backward == "autodiff" or increments.shape[1] == 0:
         out = signature_from_increments(
             increments, depth, stream=stream, stream_stride=stream_stride,
@@ -244,12 +327,15 @@ def _signature_fused(increments: torch.Tensor, lengths, spec, x0, *,
             transform=spec, x0=x0, precision=precision,
             device=increments.device)
         return quantise_increments(out, precision) if stream else out
+    kw = dict(depth=depth, engine=engine, backward=backward, split=split,
+              time_chunks=time_chunks, stream=stream,
+              stream_stride=stream_stride, precision=precision)
     f = _fused_inputs(increments, lengths, spec, x0, precision)
     if not f.spec:  # basepoint only: one prepended increment, the plain cell
-        return _signature_local(
-            f.increments, f.lengths, depth=depth, engine=engine,
-            backward=backward, split=split, stream=stream,
-            stream_stride=stream_stride, precision=precision)
+        return _signature_local(f.increments, f.lengths, **kw)
+    if not stream and (time_chunks > 1 or backward == "checkpoint"):
+        return _signature_local(fused_augment(f.increments, f.taux, f.spec),
+                                None, **kw)
     out = sig_trunc(f.increments, depth, split=split, stream=stream,
                     stream_stride=stream_stride, precision=precision,
                     transform=f.spec, taux=f.taux)
@@ -270,8 +356,10 @@ def signature(increments, depth: int, *, backend: str = "auto",
     ``stream=True`` -> (B, M_out, D_sig) prefix signatures at every
     ``stream_stride``-th step (terminal always included).  ``lengths`` (B,)
     makes the batch ragged.  ``split`` forces the kernel's cone level.
-    ``transform`` / ``x0`` apply a path transform fused into the kernel
-    (the ``transform`` column of the support matrix).
+    ``time_chunks`` > 1 folds that many time chunks into the kernel's batch
+    and Chen-combines them (:func:`time_parallel_combine`; the torch engine
+    runs whole paths).  ``transform`` / ``x0`` apply a path transform fused
+    into the kernel (the ``transform`` column of the support matrix).
     """
     dev = resolve_device(device)
     increments = torch.as_tensor(increments, device=dev)
@@ -289,16 +377,30 @@ def signature(increments, depth: int, *, backend: str = "auto",
             raise NotImplementedError(
                 "stream=True is incompatible with time_chunks > 1: chunked "
                 "signatures only reconstruct the terminal state")
-    if backward == "checkpoint":
-        raise not_ported("backward='checkpoint'", CHECKPOINT_ITEM)
-    if time_chunks > 1:
-        raise not_ported("time_chunks > 1", CHECKPOINT_ITEM)
     if depth < 1:
         raise ValueError("depth must be >= 1")
     return _signature_local(increments, lengths, depth=depth, engine=engine,
-                            backward=backward, split=split, stream=stream,
+                            backward=backward, split=split,
+                            time_chunks=time_chunks, stream=stream,
                             stream_stride=stream_stride, precision=precision,
                             transform=spec, x0=x0)
+
+
+def signature_time_parallel(increments, depth: int, time_chunks: int, *,
+                            backend: str = "auto", backward: str = "inverse",
+                            split: int | None = None,
+                            precision: str = "fp32",
+                            device=None) -> torch.Tensor:
+    """Chunked-time signature on any engine: fold ``time_chunks`` chunks
+    into the batch, sign them through :func:`signature` and Chen-combine
+    them in a log-depth tree.  Differentiable end to end: each chunk
+    signature carries its cell's backward and the tree is plain tensor
+    algebra."""
+    dev = resolve_device(device)
+    return time_parallel_combine(
+        lambda x: signature(x, depth, backend=backend, backward=backward,
+                            split=split, precision=precision, device=dev),
+        torch.as_tensor(increments, device=dev), depth, time_chunks)
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +478,7 @@ def _projected_local(increments: torch.Tensor, lengths, *, wplan: WordPlan,
         f = _fused_inputs(increments, lengths, transform, x0, precision)
         if not f.spec:  # basepoint only: one prepended increment
             return _projected_local(f.increments, f.lengths, **kw)
-        if engine == "torch" or backward == "autodiff" or f.M_aug == 0:
+        if engine == "torch" or backward != "inverse" or f.M_aug == 0:
             return _projected_local(fused_augment(f.increments, f.taux,
                                                   f.spec), f.aug_lengths, **kw)
         out = _closure_kernel(f.increments, wplan, max_rows, stream,
@@ -399,7 +501,9 @@ def _projected_local(increments: torch.Tensor, lengths, *, wplan: WordPlan,
             out = _closure_kernel(increments, wplan, max_rows, True,
                                   stream_stride, precision)
         return _finish_stream(out, precision, M, stream_stride, lengths)
-    if engine == "torch" or backward == "autodiff":
+    if engine == "torch" or backward != "inverse":
+        # checkpoint needs boundary closure states the word kernel cannot
+        # emit, autodiff the scan's residuals: both run on the torch engine
         return projected_signature_from_increments(
             increments, wplan, backward=backward, backend="torch",
             device=increments.device)
@@ -460,8 +564,6 @@ def projected(increments, plan, *, backend: str = "auto",
                 f"stream_stride must be >= 1, got {stream_stride}")
         if backward == "checkpoint":
             raise unsupported_stream_backward(backward)
-    if backward == "checkpoint":
-        raise not_ported("backward='checkpoint'", CHECKPOINT_ITEM)
     if tplan is not None:  # keep the caller's tile granularity
         max_rows = max(p.closure_size for p in tplan.tiles)
     return _projected_local(increments, lengths, wplan=wplan, engine=engine,

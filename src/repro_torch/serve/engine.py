@@ -9,9 +9,10 @@ serves requests against that cache.
 
 The session pool the reference engine keeps its live streams in
 (``store=``, ``handles``, ``state``, ``push``, ``scores``, ``predict``,
-``nearest``, ``reset``) needs ``SignatureStream`` and ``SessionStore``;
-until they are ported those members raise, naming the ROADMAP.md items,
-and ``SigStreamEngine`` waits for the same items.
+``nearest``, ``reset``) needs ``SessionStore``, built on the
+``StreamCarry`` of :mod:`repro_torch.core.stream`; until it is ported
+those members raise, naming the ROADMAP.md item, and ``SigStreamEngine``
+waits for the same item.
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ from ..device import resolve_device
 from ..kernels import ops
 from ..sigkernel import krr_fit, word_weights
 
-SESSION_ITEM = ("queue 1 items 9 and 13 (SignatureStream and the "
-                "SessionStore pool)")
+SESSION_ITEM = ("queue 1 item 13 (the SessionStore pool on core/stream's "
+                "StreamCarry; of items 9 and 13, item 9 is ported)")
 
 
 @dataclasses.dataclass

@@ -89,9 +89,6 @@ def test_unsupported_cells_raise_like_the_reference():
     for kw in (dict(backward="nope"), dict(stream=True, stream_stride=0)):
         with pytest.raises(ValueError):
             ops.signature(x, 2, device="cpu", **kw)
-    for kw in (dict(backward="checkpoint"), dict(time_chunks=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ops.signature(x, 2, device="cpu", **kw)
     with pytest.raises(ValueError, match="CUDA device"):
         ops.signature(x, 2, backend="cuda", device="cpu")
 
@@ -127,8 +124,6 @@ def test_projected_unported_cells_name_the_roadmap(fn):
     x = torch.zeros(1, 3, 2)
     call = getattr(ops, fn)
     cells = [(dict(backend="hybrid"), "hybrid")]
-    if fn == "projected":
-        cells.append((dict(backward="checkpoint"), "checkpoint"))
     for kw, what in cells:
         with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
             call(x, WORDS, device="cpu", **kw)

@@ -125,9 +125,6 @@ def test_quantise_rounds_values_and_passes_gradients_straight():
 
 def test_unported_cells_raise_naming_the_roadmap():
     x = torch.zeros(1, 3, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.signature_from_increments(x, 2, backward="checkpoint",
-                                     backend="torch", device="cpu")
     with pytest.raises(NotImplementedError, match="stream=True"):
         ts.signature_from_increments(x, 2, backward="checkpoint",
                                      stream=True, backend="torch",

@@ -565,13 +565,13 @@ def test_projected_plan_over_raw_alphabet_raises(data):
 
 def test_checkpoint_with_a_transform_names_the_roadmap(data):
     _, incs, _ = data
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.signature(_t(incs), DEPTH, transform="lead_lag",
+    with pytest.raises(NotImplementedError, match="stream=True"):
+        ops.signature(_t(incs), DEPTH, transform="lead_lag", stream=True,
                       backward="checkpoint", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="stream=True"):
         ts.signature_from_increments(_t(incs), DEPTH, transform="lead_lag",
-                                     backward="checkpoint", backend="torch",
-                                     device="cpu")
+                                     stream=True, backward="checkpoint",
+                                     backend="torch", device="cpu")
 
 
 def test_lead_lag_plans_stage_whole_raw_steps():
