@@ -198,7 +198,10 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              13's against the float64 plain version, value plus gradient
              ms beside phase 14's inverse cell; sig_trunc over the folded
              chunks and sig_sweep over them alone at the largest cell
-             (ms, plain ms, bound); transform="lead_lag" with checkpoint
+             (ms, plain ms, bound), and one value plus gradient there of
+             inverse and of checkpoint under torch.profiler (wall ms,
+             device busy ms, kernels, idle share); transform="lead_lag"
+             with checkpoint
              at the Table 1 fused_transform cell (materialised: one
              unfused sig_trunc, one sig_sweep); ops.projected(backward=
              "checkpoint") at §8 width through lead_lag, which runs the
@@ -2382,7 +2385,8 @@ def phase_checkpoint(rng, train) -> dict:
               f"inverse {row['inverse_ms']:.3f}, {', '.join(line)}; one "
               f"sig_trunc and one sig_sweep launch each; max |err| "
               f"{max(row[k]['max_abs_err'] for k, _ in modes):.2e}, "
-              f"gradient {max(row[k]['grad_max_abs_err'] for k, _ in modes):.2e}"
+              f"gradient "
+              f"{max(row[k]['grad_max_abs_err'] for k, _ in modes):.2e}"
               f" (max|g| {float(g_want.abs().max()):.3e})", flush=True)
     cases = checkpoint_kernel_cases(rng)
     lead_lag = checkpoint_lead_lag(rng)
@@ -2420,13 +2424,44 @@ def checkpoint_kernel_cases(rng) -> dict:
     sweep.pop("want")
     sweep.update(case="checkpoint sweep over folded chunks, largest "
                  "Table 1 cell", shape=[B * C, Mc, d, N], launches=1)
+    traces = {mode: device_busy(value_and_grad_fn(lambda t: ops.signature(
+        t, N, backward=mode), incs)) for mode in ("inverse", "checkpoint")}
+    for mode, t in traces.items():
+        print(f"[checkpoint] trace of one value+grad, {mode}, ({B}, {M}, "
+              f"{d}, {N}): wall {t['wall_ms']:.3f} ms, device busy "
+              + (f"{t['device_ms']:.3f} ms ({t['kernels']} kernels; idle "
+                 f"share {1 - t['device_ms'] / t['wall_ms']:.2f})"
+                 if t["device_ms"] else "not measured (no device events)"),
+              flush=True)
     print(f"[checkpoint] largest Table 1 cell ({B}, {M}, {d}, {N}): {C} "
           f"chunks of {Mc} steps; sig_trunc over ({B * C}, {Mc}, {d}) "
           f"{fwd['ms']:.3f} ms (plain {fwd['plain_ms']:.3f}, bound "
           f"{b[0]:.5f} ms, {b[1]}); sig_sweep over them {sweep['ms']:.3f} ms "
           f"(plain {sweep['plain_ms']:.3f}, bound {sweep['bound_ms']:.5f} ms,"
           f" {sweep['bound_by']})", flush=True)
-    return dict(trunc_case=fwd, sweep_case=sweep)
+    return dict(trunc_case=fwd, sweep_case=sweep, traces=traces)
+
+
+def device_busy(fn) -> dict:
+    """One warm call of ``fn`` under torch.profiler: the host's wall ms to
+    a synchronize, the device's busy ms (the kernels' summed self time)
+    and the number of kernels; device_ms is 0 when the profiler records
+    no device events."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")]
+    busy = sum(getattr(e, "self_device_time_total", None)
+               or getattr(e, "self_cuda_time_total", 0) for e in dev)
+    return dict(wall_ms=wall, device_ms=busy / 1e3,
+                kernels=sum(e.count for e in dev))
 
 
 def checkpoint_lead_lag(rng) -> dict:

@@ -15,10 +15,12 @@ from .words import (Word, all_words, anisotropic_words, dag_words,
                     shuffle_product, sig_dim, truncation_plan, WordPlan,
                     TiledPlan)
 from .signature import (as_lengths, length_mask, mask_increments,
-                        ragged_terminal, signature_from_increments, signature_combine,
-                        signature_inverse, stream_emit_mask,
-                        stream_emit_slots, stream_emit_steps)
-from .projection import projected_signature, projected_signature_from_increments
+                        ragged_terminal, signature_from_increments,
+                        signature_combine, signature_inverse,
+                        stream_emit_mask, stream_emit_slots,
+                        stream_emit_steps)
+from .projection import (projected_signature,
+                         projected_signature_from_increments)
 from .logsignature import logsignature_projected, logsig_dim
 from .windows import (windowed_signature, windowed_projection,
                       windowed_signature_chen, expanding_windows,
@@ -37,7 +39,8 @@ __all__ = [
     "deconcatenations", "sig_dim", "truncation_plan",
     "signature_from_increments", "signature_combine",
     "signature_inverse", "stream_emit_steps", "projected_signature",
-    "projected_signature_from_increments", "logsignature_projected", "logsig_dim", "windowed_signature",
+    "projected_signature_from_increments", "logsignature_projected",
+    "logsig_dim", "windowed_signature",
     "windowed_projection", "windowed_signature_chen", "expanding_windows",
     "sliding_windows", "dyadic_windows", "select_route", "SignatureStream",
     "signature_stream_init", "signature_stream_extend",

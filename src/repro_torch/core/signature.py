@@ -28,10 +28,11 @@ Backward modes:
 - ``"checkpoint"`` (beyond the paper): the forward saves the increments
   and the state at each of the O(√M) chunk boundaries
   (:func:`default_chunk`); the backward replays each chunk from its
-  boundary under autograd (:func:`checkpoint_bwd_scan`), O(√M·B·D_sig)
+  boundary under autograd (:func:`checkpoint_bwd_scan`): O(√M·B·D_sig)
   memory and no inverse-reconstruction drift.  On the ``cuda`` engine the
   cell folds the chunks into one ``sig_trunc`` launch and its backward is
-  one ``sig_sweep`` launch (:mod:`repro_torch.kernels.ops`).  A transform
+  one ``sig_sweep`` launch, which rebuilds the states within each chunk
+  by the §4.2 inverse (:mod:`repro_torch.kernels.ops`).  A transform
   materialises the augmented increments first, as the reference does.
 
 ``transform=`` (see :func:`repro_torch.core.transforms.as_transform`)
@@ -368,8 +369,8 @@ def default_chunk(M: int) -> int:
     return max(1, math.isqrt(max(M, 1)))
 
 
-def _chunk_scan(levels: list[torch.Tensor], incs: torch.Tensor,
-                depth: int) -> list[torch.Tensor]:
+def _chunk_scan(levels: list[torch.Tensor],
+                incs: torch.Tensor) -> list[torch.Tensor]:
     """Advance a levels state through one chunk of increments (c, B, d)."""
     for dx in incs:
         levels = tops.horner_step(levels, dx)
@@ -402,7 +403,7 @@ def checkpoint_bwd_scan(increments: torch.Tensor, boundaries: torch.Tensor,
             bound = [lv.clone().requires_grad_() for lv in
                      tops.flat_to_levels(boundaries[k].detach(), d, depth)]
             c = incs[k].clone().requires_grad_()
-            *G, g_c = torch.autograd.grad(_chunk_scan(bound, c, depth),
+            *G, g_c = torch.autograd.grad(_chunk_scan(bound, c),
                                           bound + [c], G)
         g_chunks.append(g_c)
     g = torch.stack(g_chunks[::-1]).reshape(-1, B, d).movedim(0, 1)
@@ -423,7 +424,7 @@ class CheckpointSignatureFunction(torch.autograd.Function):
         bounds = []
         for c in _fold_chunks(increments, chunk):
             bounds.append(tops.levels_to_flat(levels))
-            levels = _chunk_scan(levels, c, depth)
+            levels = _chunk_scan(levels, c)
         ctx.save_for_backward(increments, torch.stack(bounds))
         ctx.depth, ctx.chunk = depth, chunk
         return tops.levels_to_flat(levels)

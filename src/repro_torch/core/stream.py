@@ -269,7 +269,7 @@ def stream_rolling_drop(carry: StreamCarry, counts, *,
     idx = (start[:, None] + steps) % R                          # (N, max_drop)
     dropped = carry.ring.gather(1, idx[..., None].expand(-1, -1, carry.d))
     dropped = torch.where((steps[None, :] < counts[:, None])[..., None],
-                          dropped, 0.0)                         # identity steps
+                          dropped, 0.0)                   # identity steps
     new_sig = drop_sig(carry.sig, dropped, carry.d, carry.depth)
     new_len = carry.length - counts
     # a drained window is exactly the identity, with no float drift

@@ -2,7 +2,8 @@
 weighted signature Gram.
 
 Port of the ``signature``, ``signature_time_parallel``, ``projected``,
-``projected_forward_only`` and ``gram`` parts of ``repro.kernels.ops``.  ``backend``:
+``projected_forward_only`` and ``gram`` parts of ``repro.kernels.ops``.
+``backend``:
 
 - ``"torch"`` — the plain PyTorch versions: levelwise Horner for truncated
   signatures, the word-table scan for projections, the word-blocked
@@ -36,7 +37,7 @@ cuda       True    streamed kernel, ``sig_sweep`` ✗               (torch)
 
 ``time_chunks`` > 1 (``cuda``, not streamed): C time chunks folded into
 the batch of one kernel launch of the chosen backward's cell, then a
-log-depth Chen tree in plain tensor algebra (:func:`time_parallel_combine`);
+log-depth Chen tree in plain tensor algebra (:func:`_time_parallel_combine`);
 autograd carries the tree's adjoint to each chunk signature, so the
 backward is that cell's, one ``sig_sweep`` launch.  The torch engine runs
 whole paths, as the reference's ``jax`` engine does.
@@ -130,12 +131,11 @@ from typing import NamedTuple
 import torch
 
 from ..core.projection import plan_tables, projected_signature_from_increments
-from ..core import tensor_ops as tops
 from ..core.signature import (HYBRID_ITEM, as_lengths, canon_precision,
                               default_chunk, mask_increments, not_ported,
                               prepend_basepoint, quantise_increments,
-                              signature_from_increments, stream_emit_mask,
-                              unsupported_stream_backward)
+                              signature_combine, signature_from_increments,
+                              stream_emit_mask, unsupported_stream_backward)
 from ..core.transforms import (as_transform, fused_augment, transform_dim,
                                transform_time_aux)
 from ..core.words import TiledPlan, WordPlan, make_plan, make_tiled_plan
@@ -248,7 +248,7 @@ def _signature_local(increments: torch.Tensor, lengths, *, depth: int,
                                          backend="torch",
                                          device=increments.device)
     if time_chunks > 1:
-        return time_parallel_combine(
+        return _time_parallel_combine(
             lambda x: _signature_local(x, None, **dict(kw, time_chunks=1)),
             increments, depth, time_chunks)
     if backward == "checkpoint":
@@ -262,7 +262,7 @@ def _checkpoint_cell(increments: torch.Tensor, depth: int,
     ``_pallas_sig_checkpoint``): the ⌈M/√M⌉ chunks of
     :func:`repro_torch.core.signature.default_chunk` steps are folded into
     the batch of one ``sig_trunc`` launch, and the chunk signatures are
-    Chen-combined in the log-depth tree of :func:`time_parallel_combine`.
+    Chen-combined in the log-depth tree of :func:`_time_parallel_combine`.
 
     What autograd saves is the folded increments (a view of the input when
     the chunks tile it, else its zero-padded copy), the (B, C, D_sig)
@@ -278,18 +278,19 @@ def _checkpoint_cell(increments: torch.Tensor, depth: int,
     sequential boundary scan (log C batched products instead of C)."""
     M = increments.shape[1]
     n_chunks = -(-M // default_chunk(M))
-    return time_parallel_combine(
+    return _time_parallel_combine(
         lambda x: sig_trunc(x, depth, split=split, precision=precision),
         increments, depth, n_chunks)
 
 
-def time_parallel_combine(sig_flat_fn, increments: torch.Tensor, depth: int,
+def _time_parallel_combine(sig_flat_fn, increments: torch.Tensor, depth: int,
                           time_chunks: int) -> torch.Tensor:
     """Fold C time chunks into the batch, sign them with ``sig_flat_fn``
     ((B·C, Mc, d) -> (B·C, D_sig)) and Chen-combine them in a log-depth
-    tree of plain tensor algebra (the reference's
-    ``_time_parallel_combine``).  The fold is a view when the chunks tile
-    the path; otherwise the tail is zero-padded (the identity update)."""
+    tree of plain tensor algebra, as the reference's
+    ``_time_parallel_combine`` does.  The fold is a view when the chunks
+    tile the path; otherwise the tail is zero-padded (the identity
+    update)."""
     B, M, d = increments.shape
     C = max(1, min(time_chunks, M))
     Mc = -(-M // C)
@@ -300,9 +301,7 @@ def time_parallel_combine(sig_flat_fn, increments: torch.Tensor, depth: int,
     while parts.shape[1] > 1:
         n = parts.shape[1]
         even, odd = parts[:, 0:n - n % 2:2], parts[:, 1:n:2]
-        merged = tops.levels_to_flat(tops.chen_mul(
-            tops.flat_to_levels(even, d, depth),
-            tops.flat_to_levels(odd, d, depth)))
+        merged = signature_combine(even, odd, d, depth)
         if n % 2:
             merged = torch.cat([merged, parts[:, -1:]], dim=1)
         parts = merged
@@ -357,7 +356,7 @@ def signature(increments, depth: int, *, backend: str = "auto",
     ``stream_stride``-th step (terminal always included).  ``lengths`` (B,)
     makes the batch ragged.  ``split`` forces the kernel's cone level.
     ``time_chunks`` > 1 folds that many time chunks into the kernel's batch
-    and Chen-combines them (:func:`time_parallel_combine`; the torch engine
+    and Chen-combines them (:func:`_time_parallel_combine`; the torch engine
     runs whole paths).  ``transform`` / ``x0`` apply a path transform fused
     into the kernel (the ``transform`` column of the support matrix).
     """
@@ -397,7 +396,7 @@ def signature_time_parallel(increments, depth: int, time_chunks: int, *,
     signature carries its cell's backward and the tree is plain tensor
     algebra."""
     dev = resolve_device(device)
-    return time_parallel_combine(
+    return _time_parallel_combine(
         lambda x: signature(x, depth, backend=backend, backward=backward,
                             split=split, precision=precision, device=dev),
         torch.as_tensor(increments, device=dev), depth, time_chunks)

@@ -394,3 +394,27 @@ def test_checkpoint_saves_sqrt_M_states(cell, request):
     grow = excess(1024, "checkpoint") / excess(64, "checkpoint")
     assert 3 <= grow <= 6, grow
     assert excess(1024, "autodiff") / excess(64, "autodiff") > 12
+
+
+# ---------------------------------------------------------------------------
+# the Chen product behind the combine tree
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,N", [(2, 4), (3, 3), (4, 1), (1, 5)])
+def test_signature_combine_matches_reference(d, N):
+    """The tree's product on (B, C, D_sig) halves, against the
+    reference's signature_combine: values and both operands' gradients."""
+    D = _sig_dim(d, N)
+    a = _incs(d + N, 3, 2, D)
+    b = _incs(d * N, 3, 2, D)
+    co = _cotangent(d, (3, 2, D))
+    ta = torch.from_numpy(a).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    out = ts.signature_combine(ta, tb, d, N)
+    ga, gb = torch.autograd.grad(out, (ta, tb), torch.from_numpy(co))
+    want, vjp = jax.vjp(lambda x, y: js.signature_combine(x, y, d, N),
+                        jnp.asarray(a), jnp.asarray(b))
+    wa, wb = vjp(jnp.asarray(co))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(ga.numpy(), np.asarray(wa), **GTOL)
+    np.testing.assert_allclose(gb.numpy(), np.asarray(wb), **GTOL)

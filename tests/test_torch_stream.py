@@ -17,7 +17,6 @@ import pytest
 import torch
 
 from repro.core import stream as js
-from repro.core.signature import signature_from_increments as j_sig
 from repro_torch.core import stream as ts
 from repro_torch.core.signature import signature_from_increments
 from repro_torch.kernels import ops
