@@ -155,7 +155,7 @@ def test_expanding_windows_equal_stream():
 
 
 @pytest.mark.parametrize("route", ROUTES, indirect=True)
-@pytest.mark.parametrize("rname", ["fold", "chen"])
+@pytest.mark.parametrize("rname", ["fold", "chen", "auto"])
 def test_windowed_projection_matches_reference(rname, route):
     d = 3
     path = _path(4, 2, 24, d)
@@ -168,12 +168,14 @@ def test_windowed_projection_matches_reference(rname, route):
         jnp.asarray(path), windows, j_make_plan(words, d), route=rname))
     np.testing.assert_allclose(got, want, **TOL)
     full = _ours(path, windows, 3, route="fold")
+    picked = tw.select_route(rname, windows, 24, chen_cost_scale=sig_dim(
+        d, 3) / (1 + make_plan(words, d).closure_size))
     np.testing.assert_allclose(got, full[..., [flat_index(w, d)
                                                for w in words]],
-                               **(TOL if rname == "fold" else CHEN_TOL))
+                               **(TOL if picked == "fold" else CHEN_TOL))
     if route is not None:
         assert (route["words"], route["stream"]) == (
-            (1, 0) if rname == "fold" else (0, 1))
+            (1, 0) if picked == "fold" else (0, 1))
 
 
 @pytest.mark.parametrize("route", ROUTES, indirect=True)
