@@ -231,7 +231,32 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              ring to 1e-4·max|plain|; stream_extend(return_stream=True) at
              10,000 rows (one streamed launch); a batch-1 SignatureStream
              over 20 hops of 8 ticks.
-22. report — one JSON line of kernels (the sig_trunc row with its cases:
+22. sessions — the session pool on the card: (a)
+             benchmarks/session_throughput.py's full sweep (10,000,
+             100,000 and 1,000,000 sessions, d = 3, depth 3, 4 rounds of
+             ~512 ticking sessions, up to 32 ticks, seed 0, traffic from
+             session_tick_stream): SessionStore cold and warm epochs
+             (host clock to a synchronize), updates/s, staleness p50/p99,
+             flush and launch shapes against their bound, one sig_trunc
+             launch a flush bucket (the buckets worked out from each
+             round's counts), the per-object plan (a batch-1
+             SignatureStream a session) with 8 sessions against it, 256
+             sampled sessions against the float64 plain signature of their
+             ticks to 1e-4·max|S|; (b) a ring pool (ring 64, max_sessions
+             below the population, ttl 2, arrivals and churn) with TTL,
+             LRU and explicit evictions, dropped ticks, a stale handle,
+             hopping windows by drop_block and 256 rows against the
+             float64 plain signature of their rings; (c) SigStreamEngine
+             (d = 6, depth 5, batch 64, window 256, stride 8: 8 pushes of
+             64 steps, one streamed sig_trunc launch each, features
+             against the float64 plain stream) and SigScoreEngine over
+             2,048 references of 1,024 steps (one sig_trunc and one
+             sig_gram launch a push; scores, predict and nearest against
+             float64), and both engines on one shared store; (d) the
+             100,000-session pool checkpointed and restored, every lane
+             equal; (e) signature_service with the prefetch on and off,
+             bitwise equal, in-flight peak within max_in_flight.
+23. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell, and the fused ones: §8 lead_lag depth 3, the
              time_augment serving micro-batch, the two Table 1 transform
@@ -251,8 +276,12 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              fold route and a stream extend, on the sig_trunc_stream row
              the windows chen route and the streamed extend, on the
              sig_words row the windowed projection, on the sig_sweep row
-             the sweep over the folded chunks), the card's name and power
-             limit, then the device line last.
+             the sweep over the folded chunks; and phase 22's: on the
+             sig_trunc row a flush bucket of the 1,000,000-session pool and
+             a score-engine push, on the sig_trunc_stream row a
+             stream-engine push, on the sig_gram row the cross-Gram a
+             push), the card's name and power limit, then the device line
+             last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -269,6 +298,7 @@ import dataclasses
 import importlib.util
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -294,7 +324,9 @@ from repro_torch.core.transforms import (  # noqa: E402
 from repro_torch.core.words import (all_words, anisotropic_words,  # noqa: E402
                                     generated_words, lyndon_words, make_plan,
                                     make_tiled_plan, prefix_closure)
-from repro_torch.data.pipeline import hurst_dataset  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.data.pipeline import (hurst_dataset,  # noqa: E402
+                                       session_tick_stream)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import sig_gram as sg  # noqa: E402
 from repro_torch.kernels import sig_sweep as ss  # noqa: E402
@@ -302,7 +334,8 @@ from repro_torch.kernels import sig_trunc as st  # noqa: E402
 from repro_torch.kernels import sig_words as sw  # noqa: E402
 from repro_torch.ragged import (RaggedPaths, assign_buckets,  # noqa: E402
                                 pad_batch)
-from repro_torch.serve import DynamicBatcher, SigScoreEngine  # noqa: E402
+from repro_torch.serve import (DynamicBatcher, SessionStore,  # noqa: E402
+                               SigScoreEngine, SigStreamEngine)
 from repro_torch.sigkernel import (gram_diag, krr_fit,  # noqa: E402
                                    sig_mmd, word_weights)
 
@@ -2897,6 +2930,566 @@ def stream_single(rng) -> dict:
     return dict(max_abs_err=err, extend_ms=ms)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the session pool, its engines, pool checkpoints and the
+# batcher's prefetch
+# ---------------------------------------------------------------------------
+
+DEV = "cuda"
+# benchmarks/session_throughput.py run(quick=False): pool sizes, path
+# channels, depth, rounds, ticking sessions a round, most ticks a session
+# and round, seed; RATE_MEAN is its _RATE_MEAN (the mean Pareto activity)
+POOL_SWEEP = (10_000, 100_000, 1_000_000)
+POOL_CFG = (3, 3, 4, 512, 32, 0)
+RATE_MEAN = 6.0
+# the ring pool: population, ring, max_sessions, ttl, tick probability,
+# arrivals and churn a round, rounds
+RING_POOL = (4_000, 64, 2_048, 2.0, 0.15, 40.0, 0.02, 8)
+# the engines: d, depth, batch, window, stride, pushes, steps a push
+ENGINE_CELL = (6, 5, 64, 256, 8, 8, 64)
+
+
+def pool_rounds(n: int) -> list:
+    """The benchmark's pre-generated ingest rounds from the port's
+    session_tick_stream (tick_prob aims the ticking set at k)."""
+    d, _, rounds, k, max_ticks, seed = POOL_CFG
+    traffic = session_tick_stream(n, d, seed=seed, max_ticks=max_ticks,
+                                  tick_prob=min(1.0, k / (RATE_MEAN * n)))
+    return [(r["sids"], r["counts"], r["ticks"])
+            for r in (next(traffic) for _ in range(rounds))]
+
+
+def expected_buckets(counts, max_ticks: int, max_rows: int) -> int:
+    """Buckets (one sig_trunc launch each) of a flush in which each
+    session has queued ``counts`` ticks, worked out from the counts alone:
+    per wave of at most max_ticks ticks, one bucket per tick rung and
+    max_rows rows."""
+    left, n = np.asarray(counts, np.int64), 0
+    while left.size:
+        rungs = np.minimum(max_ticks, 2 ** np.ceil(np.log2(np.maximum(
+            np.minimum(left, max_ticks), 1))).astype(np.int64))
+        n += sum(-(-int((rungs == u).sum()) // max_rows)
+                 for u in np.unique(rungs))
+        left = left[left > max_ticks] - max_ticks
+    return n
+
+
+def pooled_plan(n: int, rounds: list) -> dict:
+    """SessionStore over the rounds, two epochs (cold, warm): one flush a
+    round, its sig_trunc launches counted against its buckets."""
+    d, N, _, _, max_ticks, _ = POOL_CFG
+    store = SessionStore(d, N, initial_sessions=n, max_ticks=max_ticks,
+                         device=DEV)
+    walls, launches, want = [], [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for sids, cnt, ticks in rounds:
+            reset_counts()
+            store.ingest_many(sids, cnt, ticks, auto_create=True)
+            store.flush()
+            launches.append(counts())
+            want.append(expected_buckets(cnt, store.max_ticks,
+                                         store.max_rows))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    for k, (got, w) in enumerate(zip(launches, want)):
+        check(got == {**{key: 0 for key in got}, "sig_trunc": w},
+              f"pool of {n}: flush {k} launched {got}, {w} buckets")
+    return dict(store=store, cold_s=walls[0], warm_s=walls[1],
+                launches=sum(x["sig_trunc"] for x in launches),
+                flushes=len(launches))
+
+
+def per_object_plan(rounds: list) -> tuple[dict, list]:
+    """One batch-1 SignatureStream a ticking session, one extend (one
+    sig_trunc launch) a session and round; two epochs."""
+    d, N = POOL_CFG[:2]
+    streams, walls = {}, []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for sids, cnt, ticks in rounds:
+            for sid, chunk in zip(sids, np.split(ticks, np.cumsum(cnt)[:-1])):
+                s = streams.get(sid)
+                if s is None:
+                    s = stream.signature_stream_init(1, d, N, device=DEV)
+                streams[sid] = s.extend(torch.from_numpy(chunk)[None].to(DEV))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return streams, walls
+
+
+def sessions_plain(rounds: list, sids: list, N: int) -> torch.Tensor:
+    """Float64 plain signatures of each sid's ticks over two epochs of the
+    rounds, zero-padded to one batch (a zero increment is the identity)."""
+    hist = {s: [] for s in sids}
+    for _ in range(2):
+        for r_sids, cnt, ticks in rounds:
+            for sid, chunk in zip(r_sids, np.split(ticks,
+                                                   np.cumsum(cnt)[:-1])):
+                if sid in hist:
+                    hist[sid].append(chunk)
+    L = max(sum(len(c) for c in h) for h in hist.values())
+    x = np.zeros((len(sids), L, POOL_CFG[0]))
+    for i, sid in enumerate(sids):
+        cat = np.concatenate(hist[sid])
+        x[i, :len(cat)] = cat
+    return st.sig_trunc_plain(torch.tensor(x, device=DEV), N)
+
+
+def round_trace(store, rnd) -> dict:
+    """Where a warm round's time goes at a pool: one ingest + flush under
+    torch.profiler (device_busy), then one more with the ingest and the
+    flush timed apart on the host clock (the flush to a synchronize)."""
+    sids, cnt, ticks = rnd
+
+    def one():
+        store.ingest_many(sids, cnt, ticks)
+        store.flush()
+
+    trace = device_busy(one)
+    t0 = time.perf_counter()
+    store.ingest_many(sids, cnt, ticks)
+    t1 = time.perf_counter()
+    store.flush()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(trace=trace, ingest_ms=(t1 - t0) * 1e3,
+                flush_ms=(t2 - t1) * 1e3, ticks=int(cnt.sum()),
+                buckets=expected_buckets(cnt, store.max_ticks,
+                                         store.max_rows))
+
+
+def phase_pool(rng) -> dict:
+    """Phase 22a: benchmarks/session_throughput.py's full sweep, pooled and
+    per object, on the card."""
+    d, N, n_rounds, k, max_ticks, _ = POOL_CFG
+    rows, keep, bucket = [], None, None
+    for n in POOL_SWEEP:
+        rounds = pool_rounds(n)
+        ticks = int(sum(int(c.sum()) for _, c, _ in rounds))
+        p = pooled_plan(n, rounds)
+        store = p.pop("store")
+        stats = store.stats()
+        bound_shapes = (int(np.log2(store.max_ticks)) + 1) * (
+            int(np.log2(store.max_rows)) + 1) * len(stats["pool_sizes"])
+        check(stats["compiled_shapes"] <= bound_shapes,
+              f"pool of {n}: {stats['compiled_shapes']} launch shapes > "
+              f"bound {bound_shapes}")
+        check(stats["updates"] == 2 * ticks, f"pool of {n}: "
+              f"{stats['updates']} updates for {2 * ticks} ticks")
+        streams, o_walls = per_object_plan(rounds)
+        worst = 0.0
+        for sid in list(streams)[:8]:
+            got, want = store.features(sid), streams[sid].sig[0]
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            check(err <= E2E_TOL * float(want.abs().max()),
+                  f"pool of {n}: {sid} pooled vs per object max |err| "
+                  f"{err:.3e}")
+        live = list(store._ids)
+        sample = [live[i] for i in rng.choice(len(live), min(256, len(live)),
+                                              replace=False)]
+        want = sessions_plain(rounds, sample, N)
+        got = store.block_features(sample).double()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= E2E_TOL * scale, f"pool of {n}: 256 sampled sessions "
+              f"max |err| {err:.3e}, max|S| {scale:.3e}")
+        row = dict(n_sessions=n, ticks_per_epoch=ticks,
+                   touched_sessions=len(streams), **p,
+                   updates_per_s_warm=ticks / p["warm_s"],
+                   p50_staleness_s=stats["p50_staleness_s"],
+                   p99_staleness_s=stats["p99_staleness_s"],
+                   flush_shapes=stats["flush_shapes"],
+                   compiled_shapes=stats["compiled_shapes"],
+                   compiled_shape_bound=bound_shapes,
+                   pool_size=stats["pool_size"],
+                   per_object_cold_s=o_walls[0], per_object_warm_s=o_walls[1],
+                   per_object_updates_per_s_warm=ticks / o_walls[1],
+                   speedup_warm=o_walls[1] / p["warm_s"],
+                   max_abs_err_vs_per_object=worst, max_abs_err=err,
+                   max_sig=scale, health=store.health()["status"])
+        rows.append(row)
+        print(f"[sessions] pool of {n}: {ticks} ticks an epoch over "
+              f"{len(streams)} sessions; pooled cold {p['cold_s']:.3f} s, "
+              f"warm {p['warm_s']:.4f} s ({row['updates_per_s_warm']:.0f} "
+              f"updates/s), staleness p50 {row['p50_staleness_s'] * 1e3:.3f}"
+              f" ms p99 {row['p99_staleness_s'] * 1e3:.3f} ms; "
+              f"{p['launches']} sig_trunc launches over {p['flushes']} "
+              f"flushes, one a bucket; flush shapes {stats['flush_shapes']},"
+              f" {stats['compiled_shapes']} launch shapes (bound "
+              f"{bound_shapes}); per object warm {o_walls[1]:.3f} s "
+              f"({row['per_object_updates_per_s_warm']:.0f} updates/s), "
+              f"pooled {row['speedup_warm']:.1f}x; 8 sessions vs per "
+              f"object max |err| {worst:.2e}; 256 sampled vs float64 plain "
+              f"max |err| {err:.2e} (max|S| {scale:.2e}); health "
+              f"{row['health']}", flush=True)
+        if n == 100_000:
+            keep = store
+        if n == POOL_SWEEP[-1]:
+            row["round"] = rt = round_trace(store, rounds[0])
+            tr = rt["trace"]
+            print(f"[sessions] a warm round at the pool of {n} "
+                  f"({rt['ticks']} ticks, {rt['buckets']} buckets): ingest "
+                  f"{rt['ingest_ms']:.3f} ms, flush {rt['flush_ms']:.3f} ms "
+                  f"(host clock); traced, {tr['wall_ms']:.3f} ms wall, "
+                  f"device busy {tr['device_ms']:.3f} ms in "
+                  f"{tr['kernels']} kernels (idle share "
+                  f"{1 - tr['device_ms'] / tr['wall_ms']:.2f})", flush=True)
+            rung, B = max(stats["flush_shapes"], key=lambda s: s[0] * s[1])
+            x = torch.tensor(rng.normal(size=(B, rung, d)) * 0.1,
+                             dtype=torch.float32, device=DEV)
+            D = sum(d**j for j in range(1, N + 1))
+            b = bound(B, rung, d, N, 4, B * D, 4)
+            bucket = dict(case="session flush bucket, pool of 1,000,000",
+                          shape=[B, rung, d, N],
+                          partition=trunc_partition(B, d, N),
+                          ms=cuda_ms(lambda: st.sig_trunc(x, N), 10),
+                          plain_ms=cuda_ms(lambda: st.sig_trunc_plain(x, N),
+                                           1),
+                          bound_ms=b[0], bound_by=b[1],
+                          launches=p["launches"])
+            print(f"[sessions] sig_trunc alone at the largest bucket "
+                  f"({B}, {rung}, {d}, {N}): {bucket['ms']:.4f} ms, plain "
+                  f"{bucket['plain_ms']:.3f} ms, bound {b[0]:.6f} ms "
+                  f"({b[1]})", flush=True)
+        del store, streams
+    return dict(rows=rows, store=keep, bucket_case=bucket)
+
+
+def phase_ring_pool(rng) -> dict:
+    """Phase 22b: a ring pool below its population, with TTL, LRU and
+    explicit (churn) evictions, hopping windows by drop_block."""
+    d, N = POOL_CFG[:2]
+    pop, R, cap, ttl, prob, arrivals, churn, rounds = RING_POOL
+    store = SessionStore(d, N, ring_capacity=R, initial_sessions=1024,
+                         max_sessions=cap, ttl=ttl, max_ticks=32,
+                         device=DEV)
+    traffic = session_tick_stream(pop, d, seed=1, tick_prob=prob,
+                                  arrival_rate=arrivals, churn_prob=churn,
+                                  max_ticks=32)
+    stale, drops, t0 = None, 0, time.perf_counter()
+    for _ in range(rounds):
+        r = next(traffic)
+        fresh = [s for s in r["sids"] if s not in store]
+        store.create_many(fresh)             # may LRU-evict
+        keep = [i for i, s in enumerate(r["sids"]) if s in store]
+        sids = [r["sids"][i] for i in keep]
+        cnt = r["counts"][keep]
+        chunks = np.split(r["ticks"], np.cumsum(r["counts"])[:-1])
+        need = {}
+        for sid, c in zip(sids, cnt):
+            over = store.length(sid) + int(c) - R
+            if over > 0:
+                need.setdefault(over, []).append(sid)
+        for n_drop, block in need.items():   # hopping windows
+            store.drop_block(block, n_drop)
+            drops += len(block)
+        if sids:
+            store.ingest_many(sids, cnt, np.concatenate(
+                [chunks[i] for i in keep]))
+        for sid in r["departures"]:
+            if sid in store:
+                if stale is None:
+                    stale = store.lookup(sid)
+                store.evict(sid)             # its queued ticks are dropped
+        store.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    try:
+        store.lookup(stale)
+        check(False, "a stale handle resolved")
+    except ValueError:
+        pass
+    stats = store.stats()
+    ev = stats["evictions"]
+    check(min(ev.values()) > 0 and stats["dropped_ticks"] > 0 and drops,
+          f"ring pool: evictions {ev}, dropped ticks "
+          f"{stats['dropped_ticks']}, drops {drops}")
+    live = np.asarray(list(store._ids.values()))
+    rows = torch.tensor(rng.choice(live, min(256, len(live)), replace=False),
+                        device=DEV)
+    want = st.sig_trunc_plain(ring_windows(store.pool, rows).double(), N)
+    err = float((store.pool.sig[rows].double() - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= E2E_TOL * scale, f"ring pool sampled rows: max |err| "
+          f"{err:.3e}, max|S| {scale:.3e}")
+    print(f"[sessions] ring pool (ring {R}, max_sessions {cap}, ttl {ttl}) "
+          f"over {rounds} rounds in {wall:.3f} s: {len(store)} live, "
+          f"evictions {ev}, dropped ticks {stats['dropped_ticks']}, "
+          f"{drops} hopping-window drops; a stale handle raises; "
+          f"{len(rows)} sampled rows vs float64 plain of their rings max "
+          f"|err| {err:.2e} (max|S| {scale:.2e})", flush=True)
+    return dict(wall_s=wall, evictions=ev, drops=drops, live=len(store),
+                dropped_ticks=stats["dropped_ticks"], max_abs_err=err,
+                max_sig=scale)
+
+
+def push_times(ms: list, filled: int) -> dict:
+    """Host-clock ms of each push, and the medians of the pushes that fill
+    the window (no drop) and of those that drop a hop first."""
+    return dict(push_ms=ms, fill_push_ms=float(np.median(ms[:filled])),
+                drop_push_ms=float(np.median(ms[filled:])))
+
+
+def push_line(case: dict) -> str:
+    return (f"{case['fill_push_ms']:.3f} ms a push while the window fills, "
+            f"{case['drop_push_ms']:.3f} ms once each push drops a hop "
+            f"first (host clock, medians)")
+
+
+def window_of(x: torch.Tensor, end: int, window: int) -> torch.Tensor:
+    return x[:, max(0, end - window):end]
+
+
+def score_plain(eng, S64: torch.Tensor) -> tuple:
+    """Float64 plain (raw cross-Gram, scores) of window signatures against
+    the engine's references."""
+    R64, w64 = eng.ref_sigs.double(), eng.weights.double()
+    K = sg.sig_gram_plain(S64, R64, w64)
+    qn = torch.sqrt(torch.clamp_min(gram_diag(S64, w64), 1e-12))
+    rn = torch.sqrt(torch.clamp_min(gram_diag(R64, w64), 1e-12))
+    return K, K / (qn[:, None] * rn[None, :])
+
+
+def check_scores(eng, scores, pred, near, S64, where: str) -> float:
+    K, want = score_plain(eng, S64)
+    scale = float(want.abs().max())
+    err = float((scores.double() - want).abs().max())
+    check(err <= E2E_TOL * scale, f"{where}: scores max |err| {err:.3e}")
+    alpha = eng.alpha.double()
+    perr = (pred.double() - K @ alpha).abs()
+    check(bool((perr <= E2E_TOL * (K.abs() @ alpha.abs())).all()),
+          f"{where}: predictions max |err| {float(perr.max()):.3e}")
+    best = want.max(dim=1).values
+    picked = want.gather(1, near[:, None].long())[:, 0]
+    check(bool((best - picked <= E2E_TOL * scale).all()),
+          f"{where}: nearest is not the plain argmax")
+    return err
+
+
+def phase_engines(rng) -> dict:
+    """Phase 22c: SigStreamEngine and SigScoreEngine pushes on the card,
+    and both on one shared store."""
+    d, N, B, W, stride, pushes, hop = ENGINE_CELL
+    D = sum(d**j for j in range(1, N + 1))
+    x = torch.tensor(rng.normal(size=(B, pushes * hop, d)) / np.sqrt(W),
+                     dtype=torch.float32, device=DEV)
+    x64 = x.double()
+    chk = torch.arange(8, device=DEV)        # rows held to float64
+    eng = SigStreamEngine(d=d, depth=N, batch=B, window=W,
+                          stream_stride=stride, device=DEV)
+    push_ms, serr = [], 0.0
+    for k in range(pushes):
+        end = hop * (k + 1)
+        chunk = x[:, end - hop:end]
+        t0 = time.perf_counter()
+        feats, _ = launched(lambda: eng.push(chunk),
+                            f"SigStreamEngine push {k}", sig_trunc_stream=1)
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+        start = max(0, end - W)
+        want = st.sig_trunc_plain(x64[chk, start:end], N, stream=True,
+                                  stream_stride=stride)
+        want = want[:, (end - hop - start) // stride:]
+        err = float((feats[chk].double() - want).abs().max())
+        serr = max(serr, err)
+        check(feats.shape == (B, hop // stride, D)
+              and err <= E2E_TOL * float(want.abs().max()),
+              f"SigStreamEngine push {k}: max |err| {err:.3e}")
+    stream_case = dict(
+        case="SigStreamEngine push", shape=[B, hop, d, N, stride],
+        partition=trunc_partition(B, d, N),
+        ms=cuda_ms(lambda: st.sig_trunc(chunk, N, stream=True,
+                                        stream_stride=stride), 10),
+        plain_ms=cuda_ms(lambda: st.sig_trunc_plain(
+            chunk, N, stream=True, stream_stride=stride), 1),
+        launches=pushes, **push_times(push_ms, W // hop),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(B, hop, d, N, 4, B * (hop // stride) * D, 4))))
+    print(f"[sessions] SigStreamEngine (d={d}, depth {N}, batch {B}, window"
+          f" {W}, stride {stride}): {pushes} pushes of {hop} steps, one "
+          f"streamed sig_trunc launch each, {push_line(stream_case)}; "
+          f"features vs "
+          f"float64 plain max |err| {serr:.2e}; the streamed kernel alone "
+          f"{stream_case['ms']:.4f} ms (bound "
+          f"{stream_case['bound_ms']:.5f}, {stream_case['bound_by']})",
+          flush=True)
+
+    R, M = SCORE_CELL[:2]
+    refs = brownian(rng, R, M, d)
+    score, _ = launched(lambda: SigScoreEngine(
+        d=d, depth=N, batch=B, references=refs, targets=levy_area(
+            refs).float(), window=W, device=DEV), "SigScoreEngine set-up",
+        sig_trunc=1, sig_gram=1)
+    score_ms, cerr = [], 0.0
+    for k in range(pushes):
+        end = hop * (k + 1)
+        chunk = x[:, end - hop:end]
+        t0 = time.perf_counter()
+        (s, p, i), _ = launched(
+            lambda: (score.push(chunk), score.predict(), score.nearest()),
+            f"SigScoreEngine push {k}", sig_trunc=1, sig_gram=1)
+        score_ms.append((time.perf_counter() - t0) * 1e3)
+        S64 = st.sig_trunc_plain(window_of(x64, end, W), N)
+        cerr = max(cerr, check_scores(score, s, p, i, S64,
+                                      f"SigScoreEngine push {k}"))
+    push_case = dict(
+        case="SigScoreEngine push", shape=[B, hop, d, N],
+        partition=trunc_partition(B, d, N),
+        ms=cuda_ms(lambda: st.sig_trunc(chunk, N), 10),
+        plain_ms=cuda_ms(lambda: st.sig_trunc_plain(chunk, N), 1),
+        launches=pushes, **push_times(score_ms, W // hop),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(B, hop, d, N, 4, B * D, 4))))
+    gram = time_gram(score._terminal_sigs(), score.ref_sigs, score.weights)
+    gram_case = dict(case="SigScoreEngine cross-Gram a push",
+                     launches=pushes, **gram)
+    print(f"[sessions] SigScoreEngine ({R} references of {M} steps, batch "
+          f"{B}, window {W}): {pushes} pushes, one sig_trunc and one "
+          f"sig_gram launch each (scores, predict, nearest), "
+          f"{push_line(push_case)}; "
+          f"scores vs float64 plain max |err| {cerr:.2e}; sig_trunc alone "
+          f"{push_case['ms']:.4f} ms (bound {push_case['bound_ms']:.5f},"
+          f" {push_case['bound_by']})", flush=True)
+    print_gram("[sessions] cross-Gram a push", gram)
+
+    # two engines on one shared store, against the private stream engine
+    pool = SessionStore(d, N, ring_capacity=W, initial_sessions=2 * B,
+                        device=DEV)
+    shared = SigStreamEngine(d=d, depth=N, batch=B, window=W,
+                             stream_stride=stride, store=pool)
+    small = brownian(rng, 256, 256, d)
+    tenant = SigScoreEngine(d=d, depth=N, batch=B, references=small,
+                            targets=levy_area(small).float(), window=W,
+                            store=pool)
+    for k in range(pushes):
+        end = hop * (k + 1)
+        shared.push(x[:, end - hop:end])
+        s = tenant.push(x[:, end - hop:end])
+    check(len(pool) == 2 * B and pool.pool_size == 2 * B
+          and torch.equal(shared.features, eng.features),
+          "shared store: the stream engine differs from its private twin")
+    S64 = st.sig_trunc_plain(window_of(x64, pushes * hop, W), N)
+    sh_err = check_scores(tenant, s, tenant.predict(), tenant.nearest(), S64,
+                          "shared store score engine")
+    print(f"[sessions] one store of {pool.pool_size} rows shared by a "
+          f"SigStreamEngine (features bitwise equal to its private twin's) "
+          f"and a SigScoreEngine over 256 references (scores vs float64 "
+          f"plain max |err| {sh_err:.2e})", flush=True)
+    # where a push goes once the window is full: each traced, and the
+    # hop's drop_block alone
+    traces = dict(stream_push=device_busy(lambda: eng.push(chunk)),
+                  score_push=device_busy(lambda: score.push(chunk)),
+                  drop_block=device_busy(lambda: eng.store.drop_block(
+                      eng.handles, hop)))
+    for name, tr in traces.items():
+        print(f"[sessions] traced {name} ({hop} steps): {tr['wall_ms']:.3f}"
+              f" ms wall, device busy {tr['device_ms']:.3f} ms in "
+              f"{tr['kernels']} kernels", flush=True)
+    return dict(stream_case=stream_case, trunc_case=push_case,
+                gram_case=gram_case, stream_max_abs_err=serr,
+                score_max_abs_err=cerr, shared_max_abs_err=sh_err,
+                traces=traces)
+
+
+def phase_pool_checkpoint(store) -> dict:
+    """Phase 22d: the 100,000-session pool saved and restored, every lane
+    equal."""
+    where = ROOT / "build" / "chip_smoke_sessions_ckpt"
+    shutil.rmtree(where, ignore_errors=True)
+    ck = Checkpointer(str(where), async_save=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.checkpoint(ck, 1)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = SessionStore.restore(ck, device=DEV)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in where.rglob("*") if f.is_file())
+    shutil.rmtree(where, ignore_errors=True)
+    for lane in ("sig", "ring", "length", "end", "valid"):
+        check(torch.equal(getattr(back.pool, lane), getattr(store.pool, lane)),
+              f"restored pool: lane {lane} differs")
+    check(back._ids == store._ids and back.now == store.now,
+          "restored pool: host state differs")
+    print(f"[sessions] checkpoint of the {store.pool_size}-row pool "
+          f"({len(store)} sessions, {size / 1e6:.1f} MB): save "
+          f"{save_s:.3f} s, restore {restore_s:.3f} s; every lane equal",
+          flush=True)
+    return dict(pool_size=store.pool_size, sessions=len(store),
+                bytes=size, save_s=save_s, restore_s=restore_s)
+
+
+def phase_prefetch(rng) -> dict:
+    """Phase 22e: signature_service with the prefetch on and off, bitwise
+    equal results; after one warm-up flush each, three flushes each in
+    turns (on, off, off, on, on, off), one sig_trunc launch a
+    micro-batch."""
+    d, N, max_len = 6, 5, 1024
+    reqs = serving_inputs(rng, 256, d, 16, max_len)
+    svcs = {flag: DynamicBatcher.signature_service(
+        d=d, depth=N, max_len=max_len, async_dispatch=flag, device=DEV)
+        for flag in (True, False)}
+    walls, first = {True: [], False: []}, None
+    for k, flag in enumerate((True, False, True, False, False, True, True,
+                              False)):
+        svc = svcs[flag]
+        tickets = [svc.submit(p) for p in reqs]
+        batches = svc.stats()["batches"]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = svc.flush()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        n, stats = counts(), svc.stats()
+        check(n["sig_trunc"] == stats["batches"] - batches > 0,
+              f"prefetch={flag}: launches {n} for "
+              f"{stats['batches'] - batches} micro-batches")
+        values = torch.stack([res[t] for t in tickets])
+        first = values if first is None else first
+        check(torch.equal(values, first),
+              f"prefetch={flag}: results differ from the first flush's")
+        if k >= 2:
+            walls[flag].append(wall)
+    out = {}
+    for flag, svc in svcs.items():
+        stats = svc.stats()
+        check(stats["in_flight_peak"] <= stats["max_in_flight"]
+              and (stats["prefetched_rungs"] > 0) == flag,
+              f"prefetch={flag}: stats {stats}")
+        out["on" if flag else "off"] = dict(
+            wall_ms=walls[flag], median_wall_ms=float(np.median(walls[flag])),
+            health=svc.health()["status"],
+            in_flight_peak=stats["in_flight_peak"],
+            prefetched_rungs=stats["prefetched_rungs"],
+            batches=stats["batches"])
+    on, off = out["on"], out["off"]
+    print(f"[sessions] signature_service, 256 requests a flush: prefetch on "
+          f"{on['median_wall_ms']:.2f} ms (median of "
+          f"{', '.join(f'{w:.2f}' for w in on['wall_ms'])}; in flight at "
+          f"most {on['in_flight_peak']}, {on['prefetched_rungs']} rungs "
+          f"staged ahead, health {on['health']}), off "
+          f"{off['median_wall_ms']:.2f} ms (median of "
+          f"{', '.join(f'{w:.2f}' for w in off['wall_ms'])}; health "
+          f"{off['health']}); one sig_trunc launch a micro-batch; every "
+          f"flush bitwise equal", flush=True)
+    return out
+
+
+def phase_sessions(rng) -> dict:
+    """Phase 22: the session path on the card."""
+    pool = phase_pool(rng)
+    ring = phase_ring_pool(rng)
+    engines = phase_engines(rng)
+    ckpt = phase_pool_checkpoint(pool.pop("store"))
+    prefetch = phase_prefetch(rng)
+    return dict(pool=pool, ring=ring, engines=engines, checkpoint=ckpt,
+                prefetch=prefetch)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2929,6 +3522,11 @@ def main() -> int:
     new_s = time.perf_counter() - t0
     print(f"[timing] checkpoint, windows and stream phases: {new_s:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    sessions = phase_sessions(rng)
+    sessions_s = time.perf_counter() - t0
+    print(f"[timing] sessions phase: {sessions_s:.1f} s", flush=True)
+    eng = sessions["engines"]
     src = "src/repro_torch/kernels/csrc/sig_trunc.cu"
     largest = max(table1, key=lambda r: r["bound_ms"])
     trunc_cases = [
@@ -2941,7 +3539,8 @@ def main() -> int:
         fused["projection"]["trunc"], fused["serve"]]
     trunc_cases += [c["trunc"] for c in fused["table1"]]
     trunc_cases += [ckpt["trunc_case"], windows["fold_case"],
-                    streams["extend_case"]]
+                    streams["extend_case"], sessions["pool"]["bucket_case"],
+                    eng["trunc_case"]]
     wsrc = "src/repro_torch/kernels/csrc/sig_words.cu"
     t3 = max(logsig, key=lambda r: r["bound_ms"])
     words_cases = [
@@ -2972,7 +3571,8 @@ def main() -> int:
              plain_ms=stream["plain_ms"], bound_ms=stream["bound_ms"],
              bound_by=stream["bound_by"], library_ms=None,
              cases=[c["stream"] for c in fused["table1"]]
-             + [windows["chen_case"], streams["features"]["case"]]),
+             + [windows["chen_case"], streams["features"]["case"],
+                eng["stream_case"]]),
         dict(name="sig_words", route="cuda", source=wsrc,
              replaces="src/repro/kernels/sig_words.py:197",
              launches=proj["launches"], max_abs_err=words_err["sig_words"],
@@ -3003,7 +3603,8 @@ def main() -> int:
                  "fp32_bound_ms")})
                  for name, t in (("reference Gram", score["ref_gram"]),
                                  ("cross-Gram", score["cross_gram"]),
-                                 ("projected-MMD Gram", mmd["gram"]))]),
+                                 ("projected-MMD Gram", mmd["gram"]))]
+             + [eng["gram_case"]]),
     ]
     big = max(train, key=lambda r: r["sweep_bound_ms"])
     sweep_cases = [dict(case="largest Table 1 train cell",
@@ -3048,7 +3649,8 @@ def main() -> int:
             scoring=score, projected_mmd=mmd, sweep=sweep,
             train=train, memory=memory, mmd_grad=mmd_grad, hurst=hurst,
             transform=fused, checkpoint=ckpt, windows=windows,
-            streams=streams, new_phases_s=new_s),
+            streams=streams, new_phases_s=new_s, sessions=sessions,
+            sessions_s=sessions_s),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

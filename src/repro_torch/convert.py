@@ -4,9 +4,12 @@ The JAX package hands over numpy arrays (``np.asarray`` of its arrays); this
 module turns them into the port's tensors: nested dicts, lists, tuples and
 dataclasses of arrays (:func:`from_numpy`), ragged batches
 (:func:`ragged_from_numpy`), word plans (:func:`plan_from_reference`),
-the fitted kernel-method state (:func:`sigkernel_from_reference`) and the
-§8 Hurst model's parameters (:func:`hurst_params_from_reference`).  The
-JAX package's objects are read by attribute; nothing of it is imported.
+the fitted kernel-method state (:func:`sigkernel_from_reference`), the
+§8 Hurst model's parameters (:func:`hurst_params_from_reference`) and a
+session pool's carry (:func:`stream_carry_from_reference`); the backend
+and dtype strings a reference checkpoint records map through
+:func:`backend_from_reference` and :func:`dtype_from_reference`.  The JAX
+package's objects are read by attribute; nothing of it is imported.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.stream import StreamCarry
 from .core.words import TiledPlan, WordPlan
 from .device import resolve_device
 from .ragged import RaggedPaths
@@ -82,6 +86,46 @@ def plan_from_reference(plan) -> WordPlan | TiledPlan:
 _BACKENDS = {"jax": "torch", "pallas": "auto", "pallas_interpret": "auto"}
 
 
+def backend_from_reference(backend: str) -> str:
+    """A backend string of the JAX package as the port's (``"jax"`` ->
+    ``"torch"``, ``"pallas*"`` -> ``"auto"``); the port's own strings pass
+    through."""
+    return _BACKENDS.get(backend, backend)
+
+
+def dtype_from_reference(name: str) -> torch.dtype:
+    """A dtype name as numpy prints it (``"float32"``, ``"bfloat16"``) ->
+    the torch dtype."""
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dtype
+
+
+_CARRY_LANES = ("sig", "ring", "length", "end", "valid")
+
+
+def stream_carry_from_reference(carry_arrays, d: int, depth: int,
+                                device=None) -> StreamCarry:
+    """The lanes of the JAX package's ``StreamCarry`` (``sig``, ``ring``,
+    ``length``, ``end``, ``valid``; a mapping, or an object read by
+    attribute, of numpy-convertible arrays) as the port's ``StreamCarry``
+    on ``device`` (default CUDA): lengths and ends int32, ``valid``
+    bool."""
+    dev = resolve_device(device)
+
+    def lane(name):
+        a = carry_arrays[name] if isinstance(carry_arrays, dict) \
+            else getattr(carry_arrays, name)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    lanes = {k: lane(k) for k in _CARRY_LANES}
+    for k in ("length", "end"):
+        lanes[k] = lanes[k].to(torch.int32)
+    lanes["valid"] = lanes["valid"].to(torch.bool)
+    return StreamCarry(d=int(d), depth=int(depth), **lanes)
+
+
 def sigkernel_from_reference(obj, device=None):
     """A fitted kernel-method object of the JAX package (``SigKRR``,
     ``NystromFeatures`` or ``WordSubsetFeatures``, told apart by its
@@ -100,7 +144,7 @@ def sigkernel_from_reference(obj, device=None):
     if not any(hasattr(obj, a) for a in ("alpha", "landmark_sigs", "scale")):
         raise TypeError(f"not a kernel-method object of the JAX package: "
                         f"{type(obj).__name__}")
-    backend = _BACKENDS.get(obj.backend, obj.backend)
+    backend = backend_from_reference(obj.backend)
     if hasattr(obj, "alpha"):
         return SigKRR(ref_sigs=arr("ref_sigs"), alpha=arr("alpha"),
                       weights=arr("weights"), depth=obj.depth,

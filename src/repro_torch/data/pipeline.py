@@ -1,9 +1,13 @@
-"""Fractional Brownian motion for the paper's §8 Hurst experiment.
+"""Fractional Brownian motion for the paper's §8 Hurst experiment, and
+multi-tenant session tick traffic.
 
-Port of ``fbm_paths`` and ``hurst_dataset`` from ``repro.data.pipeline``:
-numpy only, and the same arrays as the reference for the same seed.
+Port of ``fbm_paths``, ``hurst_dataset``, ``SessionTickStream`` and
+``session_tick_stream`` from ``repro.data.pipeline``: numpy only, and the
+same arrays as the reference for the same seed.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -41,3 +45,106 @@ def hurst_dataset(seed: int, n_paths: int, n_steps: int, d: int,
     H = rng.uniform(*h_range, size=n_paths)
     X = fbm_paths(rng, n_paths, n_steps, H, d)
     return X, H.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant session traffic (the SessionStore ingest workload)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SessionTickStream:
+    """Deterministic bursty multi-tenant tick traffic for a session pool.
+
+    Models the serving workload :class:`repro_torch.serve.SessionStore` is
+    built for: a population of sessions with **heavy-tailed per-session tick
+    rates** (a few whales stream constantly, a long tail ticks rarely —
+    Pareto-distributed rates), plus **arrival/churn** (new sessions appear
+    at ``arrival_rate`` per round, live ones leave with probability
+    ``churn_prob``).
+
+    Each ``next()`` is one ingest round, shaped for
+    ``SessionStore.ingest_many``::
+
+        {"sids":       [k active session ids that tick this round],
+         "counts":     (k,) int64 per-sid tick counts (>= 1),
+         "ticks":      (sum(counts), d) float32 increments, sids order,
+         "departures": [sids churning out after this round]}
+
+    Deterministic and seekable: every draw is keyed by (seed, step) and the
+    per-session rate by (seed, sid index), so the same seed replays the
+    same traffic and ``state()``/``restore()`` resume it exactly — traffic
+    replay across a checkpoint/restart is what makes the resume tests
+    meaningful.
+    """
+    n_sessions: int             # initial population
+    d: int
+    seed: int = 0
+    mean_ticks: float = 3.0     # mean per-tick burst length of a rate-1 user
+    max_ticks: int = 64         # burst cap per session per round
+    tick_prob: float = 0.3      # base per-round tick probability
+    arrival_rate: float = 0.0   # Poisson new sessions per round
+    churn_prob: float = 0.0     # per-session departure probability per round
+    scale: float = 0.1          # increment std
+    step: int = 0
+
+    def __post_init__(self):
+        if self.n_sessions < 1 or self.d < 1:
+            raise ValueError("need n_sessions >= 1 and d >= 1")
+        self._active: list[int] = list(range(self.n_sessions))
+        self._next_id = self.n_sessions
+        self._rates: dict[int, float] = {}
+
+    def state(self) -> dict:
+        return {"step": self.step, "seed": self.seed,
+                "active": list(self._active), "next_id": self._next_id}
+
+    def restore(self, state: dict) -> None:
+        self.step = int(state["step"])
+        self._active = [int(s) for s in state["active"]]
+        self._next_id = int(state["next_id"])
+
+    def _rate(self, idx: int) -> float:
+        """Heavy-tailed per-session activity multiplier (Pareto α=1.2),
+        fixed for the session's lifetime and keyed only by (seed, idx) — a
+        pure function, so the memo survives ``restore`` unchanged."""
+        r = self._rates.get(idx)
+        if r is None:
+            g = np.random.default_rng((self.seed, 104729, idx))
+            r = self._rates[idx] = float(1.0 + g.pareto(1.2))
+        return r
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        rng = np.random.default_rng((self.seed, self.step))
+        # arrivals join before the round so a fresh session can tick at once
+        n_new = int(rng.poisson(self.arrival_rate)) if self.arrival_rate \
+            else 0
+        self._active.extend(range(self._next_id, self._next_id + n_new))
+        self._next_id += n_new
+        active = np.asarray(self._active, np.int64)
+        rates = np.asarray([self._rate(i) for i in active])
+        ticking = rng.random(len(active)) < np.minimum(
+            1.0, self.tick_prob * rates)
+        sids = active[ticking]
+        # burst length ~ geometric with a rate-scaled mean, capped
+        mean = np.minimum(self.mean_ticks * rates[ticking], self.max_ticks)
+        counts = np.clip(rng.geometric(1.0 / np.maximum(mean, 1.0)),
+                         1, self.max_ticks).astype(np.int64)
+        ticks = (rng.standard_normal((int(counts.sum()), self.d)) *
+                 self.scale).astype(np.float32)
+        leave = rng.random(len(active)) < self.churn_prob
+        departures = active[leave].tolist()
+        self._active = active[~leave].tolist()
+        self.step += 1
+        return {"sids": [f"u{i}" for i in sids],
+                "counts": counts,
+                "ticks": ticks,
+                "departures": [f"u{i}" for i in departures]}
+
+
+def session_tick_stream(n_sessions: int, d: int, seed: int = 0,
+                        **kw) -> SessionTickStream:
+    """Bursty multi-tenant ingest traffic (see :class:`SessionTickStream`)."""
+    return SessionTickStream(n_sessions, d, seed, **kw)

@@ -1,20 +1,30 @@
 """Dynamic batching for ragged signature serving.
 
-Port of ``repro.serve.batcher`` (single device, synchronous).
-``DynamicBatcher`` turns per-request traffic into micro-batches drawn from a
-bounded set of shapes:
+Port of ``repro.serve.batcher`` (one device; mesh placement is ROADMAP.md
+queue 1 item 15).  ``DynamicBatcher`` turns per-request traffic into
+micro-batches drawn from a bounded set of shapes:
 
 1. requests are queued (:meth:`submit`) as (M_i+1, d) paths;
 2. :meth:`flush` packs them into length buckets on the
    :func:`repro_torch.ragged.bucket_ladder` and pads each micro-batch's row
-   count up a power-of-two ladder;
+   count up a power-of-two ladder, on the host;
 3. each micro-batch runs ONE engine call over its padded
    :class:`repro_torch.ragged.RaggedPaths` — exact per-request answers,
    because zero-masked padding is the identity;
 4. results are scattered back to the submitting tickets.
 
+With ``async_dispatch`` (the default) the next micro-batches are staged
+while the current one computes: on a CUDA device each is pinned in host
+memory and copied on a side stream, and the compute stream waits on that
+copy's event; at most ``max_in_flight`` computes are outstanding, the
+oldest retired by its event before the next launch.
+``async_dispatch=False`` runs each micro-batch strictly in turn (copy,
+compute, next).
+
 ``shapes_seen`` is the set of (padded_len, padded_batch) pairs fed to the
-engine, and :meth:`stats` reports padding waste next to it.
+engine; :meth:`stats` reports padding waste next to it, the flush-latency
+window, and the prefetch counts, and :meth:`health` evaluates SLOs over
+them.
 
 The two factories bind the batcher to the serving engines:
 :meth:`signature_service` computes each request's terminal signature, and
@@ -25,7 +35,9 @@ device).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -33,6 +45,8 @@ import torch
 
 from ..core import tensor_ops as tops
 from ..device import resolve_device
+from ..kernels.cache import plan_cache_info
+from ..obs import slo as slo_mod
 from ..ragged import (RaggedPaths, assign_buckets, batch_rung, bucket_ladder,
                       pad_batch)
 
@@ -51,7 +65,7 @@ class DynamicBatcher:
     ``compute(batch: RaggedPaths) -> (B, ...) tensor`` is the per-bucket
     engine call; row b of its output is the answer for example b.  Build one
     with :meth:`signature_service` / :meth:`scoring_service`, or pass any
-    callable.  Micro-batches are built on ``device`` (default CUDA).
+    callable.  Micro-batches run on ``device`` (default CUDA).
     """
     compute: Callable[[RaggedPaths], torch.Tensor]
     d: int
@@ -60,6 +74,10 @@ class DynamicBatcher:
     growth: float = 2.0               # ladder growth factor
     max_batch: int = 64               # top rung of the batch ladder
     ladder: Optional[np.ndarray] = None   # explicit rungs override
+    slos: Optional[tuple] = None      # health() objectives (None -> defaults)
+    latency_window: int = 1024        # recent flush latencies kept for health
+    async_dispatch: bool = True       # stage the next rungs while one runs
+    max_in_flight: int = 2            # bound on dispatched-not-retired rungs
     device: Optional[object] = None
 
     def __post_init__(self):
@@ -70,8 +88,18 @@ class DynamicBatcher:
         self.ladder = np.asarray(self.ladder, np.int64)
         self.max_len = int(self.ladder[-1])
         self.device = resolve_device(self.device)
+        if self.slos is None:
+            self.slos = slo_mod.batcher_slos()
+        # host-side latency record, so health() needs no metrics registry
+        self._flush_latencies = collections.deque(
+            maxlen=max(1, self.latency_window))
+        if self.max_in_flight < 1:
+            raise ValueError(f"max_in_flight must be >= 1, got "
+                             f"{self.max_in_flight}")
         self._queue: list[_Request] = []
         self._next_ticket = 0
+        self._in_flight_peak = 0      # most dispatched-not-retired rungs seen
+        self._prefetched_rungs = 0    # Σ rungs staged ahead of their compute
         self.shapes_seen: set[tuple[int, int]] = set()
         self.batches = 0              # micro-batches fed to the engine
         self.padded_steps = 0         # Σ padded increments fed to the engine
@@ -100,9 +128,9 @@ class DynamicBatcher:
         return len(self._queue)
 
     def _pack_groups(self, queue) -> list:
-        """Bucket + split the queue into micro-batches
-        [(rung, B_pad, part, RaggedPaths)], with shape/padding accounting
-        applied."""
+        """Bucket + split the queue into host-side micro-batches
+        [(rung, B_pad, part, RaggedPaths on the CPU)], with shape/padding
+        accounting applied."""
         lengths = np.asarray([r.length for r in queue], np.int64)
         which = assign_buckets(lengths, self.ladder)
         groups = []
@@ -114,7 +142,7 @@ class DynamicBatcher:
             for off in range(0, len(group), self.max_batch):
                 part = group[off:off + self.max_batch]
                 rp = RaggedPaths.from_list([r.path for r in part],
-                                           pad_to=rung, device=self.device)
+                                           pad_to=rung, device="cpu")
                 B_pad = batch_rung(len(part), self.max_batch)
                 self.shapes_seen.add((rung, B_pad))
                 self.padded_steps += rung * B_pad
@@ -124,21 +152,102 @@ class DynamicBatcher:
                 groups.append((rung, B_pad, part, pad_batch(rp, B_pad)))
         return groups
 
+    def _place(self, rp: RaggedPaths, side) -> tuple:
+        """Stage one host micro-batch on the device: (RaggedPaths, event).
+        On CUDA with a side stream the batch is pinned and copied there,
+        and the event marks the copy's end; otherwise the copy is in order
+        and the event is None."""
+        if side is None:
+            return RaggedPaths(rp.values.to(self.device),
+                               rp.lengths.to(self.device)), None
+        with torch.cuda.stream(side):
+            out = RaggedPaths(
+                rp.values.pin_memory().to(self.device, non_blocking=True),
+                rp.lengths.pin_memory().to(self.device, non_blocking=True))
+            done = torch.cuda.Event()
+            done.record(side)
+        return out, done
+
+    def _run_groups(self, groups) -> list:
+        """Async-dispatch executor: stage the next rungs' micro-batches up
+        to ``max_in_flight`` groups ahead while the current one computes,
+        launch every compute without waiting for its result, and retire the
+        oldest outstanding rung by its event before a launch would put
+        more than ``max_in_flight`` in flight (the reference retires just
+        after such a launch, so its ``in_flight_peak`` is one higher).
+        Returns [(part, result)]; with ``async_dispatch=False`` this is
+        strict copy → compute → next order."""
+        window = self.max_in_flight if self.async_dispatch else 0
+        cuda = self.device.type == "cuda"
+        side = torch.cuda.Stream(self.device) if cuda and window else None
+        placed = collections.deque()
+        next_put = 0
+
+        def top_up(limit):
+            nonlocal next_put
+            while next_put < len(groups) and next_put < limit:
+                rung, B_pad, part, rp = groups[next_put]
+                placed.append((part, *self._place(rp, side)))
+                next_put += 1
+
+        results: list = []
+        in_flight: collections.deque = collections.deque()
+        for i in range(len(groups)):
+            top_up(i + 1 + window)
+            self._prefetched_rungs += len(placed) - 1
+            part, rp, copied = placed.popleft()
+            while len(in_flight) >= max(1, window):
+                done = in_flight.popleft()
+                if done is not None:
+                    done.synchronize()
+            if copied is not None:
+                main = torch.cuda.current_stream(self.device)
+                main.wait_event(copied)
+                # the copy was allocated on the side stream: keep its memory
+                # until the compute stream is done with it
+                rp.values.record_stream(main)
+                rp.lengths.record_stream(main)
+            res = self.compute(rp)
+            self.batches += 1
+            results.append((part, res))
+            done = None
+            if cuda:
+                done = torch.cuda.Event()
+                done.record()
+            in_flight.append(done)
+            self._in_flight_peak = max(self._in_flight_peak, len(in_flight))
+        return results
+
     def flush(self) -> dict[int, torch.Tensor]:
         """Run every queued request through bucketed micro-batches; returns
         {ticket: result_row}."""
         queue, self._queue = self._queue, []
         out: dict[int, torch.Tensor] = {}
-        for _, _, part, rp in self._pack_groups(queue):
-            res = self.compute(rp)
-            self.batches += 1
+        if not queue:
+            return out
+        t_flush = time.perf_counter()
+        for part, res in self._run_groups(self._pack_groups(queue)):
             for row, req in enumerate(part):
                 out[req.ticket] = res[row]
+        self._flush_latencies.append(time.perf_counter() - t_flush)
         return out
 
+    def _flush_pctl(self, q: float) -> float:
+        lat = sorted(self._flush_latencies)
+        if not lat:
+            return 0.0
+        i = max(0, min(len(lat) - 1,
+                       int(np.ceil(q / 100.0 * len(lat))) - 1))
+        return lat[i]
+
     def stats(self) -> dict:
-        """Shape-count + padding-waste accounting for the traffic so far."""
+        """Shape-count + padding-waste accounting for the traffic so far,
+        the recent flush latencies and the prefetch counts, with the
+        reference's keys (and ``batches``)."""
         return {
+            "flush_p50_s": self._flush_pctl(50),
+            "flush_p99_s": self._flush_pctl(99),
+            "flushes_recorded": len(self._flush_latencies),
             "compiled_shapes": len(self.shapes_seen),
             "shapes": sorted(self.shapes_seen),
             "ladder": self.ladder.tolist(),
@@ -147,9 +256,23 @@ class DynamicBatcher:
             "true_steps": self.true_steps,
             "padding_overhead": (self.padded_steps / self.true_steps
                                  if self.true_steps else 0.0),
+            "devices": 1,
+            "rows_per_device": self.padded_rows,
             "occupancy": (self.true_rows / self.padded_rows
                           if self.padded_rows else 0.0),
+            "async_dispatch": self.async_dispatch,
+            "max_in_flight": self.max_in_flight,
+            "in_flight_peak": self._in_flight_peak,
+            "prefetched_rungs": self._prefetched_rungs,
+            "compute_cache": plan_cache_info(),
         }
+
+    def health(self, slos: Optional[tuple] = None) -> dict:
+        """Machine-readable SLO health evaluated over :meth:`stats`:
+        ``{"status": "ok"|"breach", "breaches": [...], "results": [...]}``
+        (host-side; the recent-flush latency window feeds the p99)."""
+        use = self.slos if slos is None else tuple(slos)
+        return slo_mod.report(slo_mod.evaluate_values(use, self.stats()))
 
     @classmethod
     def signature_service(cls, d: int, depth: int, *, max_len: int,

@@ -1,18 +1,20 @@
-"""Serving engines for signature-kernel scoring.
+"""Online signature-feature engines on a session pool.
 
-Port of the cached reference side of ``repro.serve.engine.SigScoreEngine``.
-At construction the reference paths' signatures, the (R, R) reference Gram
-and (with targets) the KRR dual coefficients are computed once through the
-engine dispatch and cached; on a CUDA device that is one ``sig_trunc``
-launch and one ``sig_gram`` launch.  ``DynamicBatcher.scoring_service``
-serves requests against that cache.
+Port of ``SigStreamEngine``, ``SigScoreEngine`` and their helpers from
+``repro.serve.engine`` (the LM ``ServeEngine``, ``make_serve_step`` and
+``make_prefill_step`` are ROADMAP.md queue 1 item 16).
 
-The session pool the reference engine keeps its live streams in
-(``store=``, ``handles``, ``state``, ``push``, ``scores``, ``predict``,
-``nearest``, ``reset``) needs ``SessionStore``, built on the
-``StreamCarry`` of :mod:`repro_torch.core.stream`; until it is ported
-those members raise, naming the ROADMAP.md item, and ``SigStreamEngine``
-waits for the same item.
+``SigStreamEngine`` keeps fixed batch slots whose per-step windowed
+signatures stay current as path chunks arrive: the slots are sessions in a
+:class:`repro_torch.serve.sessions.SessionStore` (a private pool by
+default, or a shared multi-tenant one via ``store=``).  On a CUDA device a
+push is one streamed ``sig_trunc`` launch.  ``SigScoreEngine`` layers the
+kernel methods of :mod:`repro_torch.sigkernel` on top: at construction the
+reference paths' signatures, the (R, R) reference Gram and (with targets)
+the KRR duals are computed once (one ``sig_trunc`` and one ``sig_gram``
+launch on a CUDA device), and every push scores the slots' terminal window
+signatures against them (one ``sig_trunc`` and one ``sig_gram`` launch).
+``DynamicBatcher.scoring_service`` serves requests against the same cache.
 """
 from __future__ import annotations
 
@@ -22,24 +24,151 @@ from typing import Optional
 import torch
 
 from ..core import tensor_ops as tops
-from ..core.signature import canon_precision, not_ported
+from ..core.signature import canon_precision
+from ..core.stream import SignatureStream
 from ..device import resolve_device
 from ..kernels import ops
-from ..sigkernel import krr_fit, word_weights
+from ..sigkernel import gram_diag, krr_fit, krr_predict, word_weights
+from .sessions import SessionHandle, SessionStore
 
-SESSION_ITEM = ("queue 1 item 13 (the SessionStore pool on core/stream's "
-                "StreamCarry; of items 9 and 13, item 9 is ported)")
+
+def _hop_window(length: int, increments: torch.Tensor, window: int):
+    """Shared hopping-window step: truncate a chunk larger than the window
+    to its tail, and compute how many oldest increments must drop to keep
+    occupancy <= window.  Returns (need, increments) ready for the block
+    extend."""
+    m = increments.shape[1]
+    if window and m > window:
+        increments = increments[:, m - window:]
+        m = window
+    need = max(0, length + m - window) if window else 0
+    return need, increments
+
+
+def _engine_device(engine) -> torch.device:
+    """The engine's device: its own, else its shared store's, else CUDA."""
+    if engine.device is None and engine.store is not None:
+        return engine.store.device
+    return resolve_device(engine.device)
+
+
+def _engine_block(engine, store: SessionStore | None) -> SessionStore:
+    """Admit an engine's fixed batch slots into a session pool (the
+    engine's own single-tenant pool by default, or a shared multi-tenant
+    one)."""
+    if store is None:
+        store = SessionStore(engine.d, engine.depth,
+                             ring_capacity=engine.window,
+                             initial_sessions=engine.batch,
+                             backend=engine.backend, dtype=engine.dtype,
+                             device=engine.device)
+    else:
+        if (store.d, store.depth) != (engine.d, engine.depth):
+            raise ValueError(
+                f"shared store is (d={store.d}, depth={store.depth}) but the "
+                f"engine needs (d={engine.d}, depth={engine.depth})")
+        if engine.window and store.ring_capacity < engine.window:
+            raise ValueError(
+                f"shared store rings hold {store.ring_capacity} increments; "
+                f"the engine's hopping window needs >= {engine.window}")
+        if store.dtype != engine.dtype:
+            raise ValueError(
+                f"shared store holds {store.dtype} pool state but the engine "
+                f"asked for dtype={engine.dtype}; pool updates always run "
+                f"in the store's dtype")
+        if engine.backend not in ("auto", store.backend):
+            raise ValueError(
+                f"shared store dispatches pool updates on "
+                f"backend={store.backend!r} but the engine asked for "
+                f"backend={engine.backend!r}; pass backend='auto' (or the "
+                f"store's backend) to join a shared pool")
+        if (store.device.type, store.device.index or 0) != (
+                engine.device.type, engine.device.index or 0):
+            raise ValueError(f"shared store lives on {store.device} but the "
+                             f"engine runs on {engine.device}")
+    engine._handles = store.create_block(
+        engine.batch, prefix=f"{type(engine).__name__.lower()}/")
+    return store
+
+
+@dataclasses.dataclass
+class SigStreamEngine:
+    """Batched online signature-feature engine.
+
+    Fixed batch slots live in a :class:`SessionStore` pool (a private one,
+    or a shared multi-tenant pool via ``store=``); every :meth:`push` of a
+    (B, m, d) increment chunk returns the per-step signature features over
+    the current window, (B, m_out, D_sig).  With ``window > 0`` the engine
+    keeps a hopping window: before each push it drops however many oldest
+    increments keep the window within ``window`` (chunks larger than the
+    window keep only their tail).  The carry is O(B·D_sig + B·window·d),
+    on ``device`` (default: the shared store's, else CUDA).
+    """
+    d: int
+    depth: int
+    batch: int
+    window: int = 0             # 0 = expanding window (never drop)
+    backend: str = "auto"
+    stream_stride: int = 1
+    dtype: torch.dtype = torch.float32
+    store: Optional[SessionStore] = None    # join a shared pool
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        self.device = _engine_device(self)
+        self.store = _engine_block(self, self.store)
+
+    @property
+    def handles(self) -> list[SessionHandle]:
+        """The pool sessions backing this engine's batch slots."""
+        return self._handles
+
+    @property
+    def state(self) -> SignatureStream:
+        """The slots' current carry as a (B,)-batched
+        :class:`SignatureStream` view.  Assignable: installing a carry
+        writes it back into the pool slots."""
+        return self.store.block_view(self._handles)
+
+    @state.setter
+    def state(self, new: SignatureStream) -> None:
+        self.store.set_block(self._handles, new)
+
+    def push(self, increments) -> torch.Tensor:
+        """Feed (B, m, d) new increments; returns (B, m_out, D_sig) per-step
+        features of the emitted steps (terminal step always included)."""
+        increments = torch.as_tensor(increments, device=self.device)
+        need, increments = _hop_window(
+            self.store.length(self._handles[0]), increments, self.window)
+        if need:
+            self.store.drop_block(self._handles, need)
+        return self.store.extend_block(
+            self._handles, increments, return_stream=True,
+            stream_stride=self.stream_stride)
+
+    @property
+    def features(self) -> torch.Tensor:
+        """Current (B, D_sig) window signature for every slot."""
+        return self.store.block_features(self._handles)
+
+    def reset(self) -> None:
+        self.store.reset_block(self._handles)
 
 
 @dataclasses.dataclass
 class SigScoreEngine:
-    """Kernel scorer against a cached reference set.
+    """Streaming kernel scorer: live streams against a cached reference
+    Gram.
 
     ``weights`` (D_sig,), ``ref_sigs`` (R, D_sig), ``ref_gram`` (R, R) and
     ``alpha`` ((R[, p]) duals, or None without ``targets``) are computed
-    once at construction on ``device`` (default CUDA).  ``batch``,
-    ``window``, ``dtype`` and ``store`` configure the session pool, which
-    is not ported yet.
+    once at construction on ``device`` (default: the shared store's, else
+    CUDA).  Fixed batch slots live in a :class:`SessionStore` pool
+    (private, or shared via ``store=``) with a hopping window like
+    :class:`SigStreamEngine`; every :meth:`push` updates the slots and
+    returns (B, R) kernel scores of their terminal window signatures, one
+    cross-Gram a state, shared by :meth:`scores`, :meth:`predict` and
+    :meth:`nearest`.
     """
     d: int
     depth: int
@@ -55,13 +184,11 @@ class SigScoreEngine:
     block_words: int = 512
     precision: str = "fp32"                  # "fp32" | "bf16_fp32"
     dtype: torch.dtype = torch.float32
-    store: Optional[object] = None           # a shared session pool
+    store: Optional[SessionStore] = None     # join a shared pool
     device: Optional[object] = None
 
     def __post_init__(self):
-        if self.store is not None:
-            raise not_ported("SigScoreEngine(store=...)", SESSION_ITEM)
-        self.device = resolve_device(self.device)
+        self.device = _engine_device(self)
         self.precision = canon_precision(self.precision)
         refs = torch.as_tensor(self.references, device=self.device)
         if refs.ndim != 3 or refs.shape[-1] != self.d:
@@ -81,33 +208,74 @@ class SigScoreEngine:
                                  device=self.device)
         self.alpha = None if self.targets is None else krr_fit(
             self.ref_gram, self.targets, self.reg)
-
-    def _session_pool(self, what: str):
-        raise not_ported(f"SigScoreEngine.{what}", SESSION_ITEM)
-
-    @property
-    def handles(self):
-        self._session_pool("handles")
+        self.store = _engine_block(self, self.store)
+        self._cross = None          # cached raw (B, R) Gram of current state
 
     @property
-    def state(self):
-        self._session_pool("state")
+    def handles(self) -> list[SessionHandle]:
+        """The pool sessions backing this engine's batch slots."""
+        return self._handles
+
+    @property
+    def state(self) -> SignatureStream:
+        """The slots' current carry as a (B,)-batched
+        :class:`SignatureStream` view.  Assignable: installing a carry
+        writes it back into the pool slots."""
+        return self.store.block_view(self._handles)
 
     @state.setter
-    def state(self, new):
-        self._session_pool("state")
+    def state(self, new: SignatureStream) -> None:
+        self.store.set_block(self._handles, new)
+        self._cross = None
 
-    def push(self, increments):
-        self._session_pool("push")
+    def push(self, increments) -> torch.Tensor:
+        """Feed (B, m, d) new increments; returns the refreshed (B, R)
+        reference scores of every slot's current window."""
+        increments = torch.as_tensor(increments, device=self.device)
+        need, increments = _hop_window(
+            self.store.length(self._handles[0]), increments, self.window)
+        if need:
+            self.store.drop_block(self._handles, need)
+        self.store.extend_block(self._handles, increments)
+        self._cross = None          # state moved: invalidate the cached Gram
+        return self.scores()
 
-    def scores(self):
-        self._session_pool("scores")
+    def _terminal_sigs(self) -> torch.Tensor:
+        return self.store.block_features(self._handles)
 
-    def predict(self):
-        self._session_pool("predict")
+    def _cross_gram(self) -> torch.Tensor:
+        """The raw (B, R) cross-Gram of the current terminal signatures,
+        computed once a state: scores/predict/nearest share it."""
+        if self._cross is None:
+            self._cross = ops.gram(self._terminal_sigs(), self.ref_sigs,
+                                   self.weights, backend=self.backend,
+                                   block_words=self.block_words,
+                                   precision=self.precision,
+                                   device=self.device)
+        return self._cross
 
-    def nearest(self):
-        self._session_pool("nearest")
+    def scores(self) -> torch.Tensor:
+        """(B, R) kernel scores of the terminal window signatures (RKHS
+        cosine when ``normalize=True``, raw k_ω otherwise)."""
+        K = self._cross_gram()
+        if not self.normalize:
+            return K
+        qn = torch.sqrt(torch.clamp_min(
+            gram_diag(self._terminal_sigs(), self.weights), 1e-12))
+        rn = torch.sqrt(torch.clamp_min(torch.diag(self.ref_gram), 1e-12))
+        return K / (qn[:, None] * rn[None, :])
 
-    def reset(self):
-        self._session_pool("reset")
+    def predict(self) -> torch.Tensor:
+        """(B[, p]) kernel-ridge predictions against the cached duals."""
+        if self.alpha is None:
+            raise ValueError("SigScoreEngine has no targets: construct with "
+                             "targets= to enable KRR predictions")
+        return krr_predict(self._cross_gram(), self.alpha)
+
+    def nearest(self) -> torch.Tensor:
+        """(B,) index of the best-scoring reference per slot."""
+        return torch.argmax(self.scores(), dim=-1)
+
+    def reset(self) -> None:
+        self.store.reset_block(self._handles)
+        self._cross = None

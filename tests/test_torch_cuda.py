@@ -654,3 +654,99 @@ def test_fused_dispatch_one_launch_and_the_torch_engine(cuda, tname):
         g64, = torch.autograd.grad(want, x64, co.double())
         torch.testing.assert_close(out.double(), want, **TOL)
         torch.testing.assert_close(g.double(), g64, rtol=1e-3, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the session pool on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_session_pool_on_the_card_matches_the_torch_engine(cuda):
+    """The same traffic through a pool on the card and one on the CPU
+    (torch engine): one sig_trunc launch a flush bucket, rings, lengths and
+    liveness equal, signatures within TOL; a checkpoint round-trips the
+    card's pool bitwise."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import session_tick_stream
+    from repro_torch.serve import SessionStore
+    kw = dict(ring_capacity=48, initial_sessions=16, max_ticks=8,
+              max_rows=16)
+    card = SessionStore(3, 3, device=cuda, **kw)
+    cpu = SessionStore(3, 3, device="cpu", backend="torch", **kw)
+    traffic = session_tick_stream(40, 3, seed=2, max_ticks=12)
+    for _ in range(3):
+        r = next(traffic)
+        # buckets of at most 16 rows a tick rung, in two waves of 8 ticks
+        rungs = np.minimum(8, 2 ** np.ceil(np.log2(np.minimum(
+            r["counts"], 8))).astype(int))
+        wave2 = np.minimum(8, 2 ** np.ceil(np.log2(np.maximum(
+            r["counts"][r["counts"] > 8] - 8, 1))).astype(int))
+        for s in (card, cpu):
+            s.ingest_many(r["sids"], r["counts"], r["ticks"],
+                          auto_create=True)
+        st.launches = st.stream_launches = 0
+        card.flush()
+        torch.cuda.synchronize()
+        want = sum(-(-int((rungs == u).sum()) // 16) for u in set(rungs)) \
+            + sum(-(-int((wave2 == u).sum()) // 16) for u in set(wave2))
+        assert (st.launches, st.stream_launches) == (want, 0)
+        cpu.flush()
+    for lane in ("ring", "length", "end", "valid"):
+        assert torch.equal(getattr(card.pool, lane).cpu(),
+                           getattr(cpu.pool, lane))
+    torch.testing.assert_close(card.pool.sig.cpu(), cpu.pool.sig, **TOL)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp, async_save=False)
+        card.checkpoint(ck, 1)
+        back = SessionStore.restore(ck, device=cuda)
+        for lane in ("sig", "ring", "length", "end", "valid"):
+            assert torch.equal(getattr(back.pool, lane),
+                               getattr(card.pool, lane))
+
+
+@pytest.mark.cuda
+def test_engines_on_the_card_launch_once_a_push(cuda):
+    from repro_torch.serve import SigStreamEngine
+    x = _incs(3, 4, 30, 2, cuda)
+    eng = SigStreamEngine(d=2, depth=3, batch=4, window=12,
+                          stream_stride=2)
+    cpu = SigStreamEngine(d=2, depth=3, batch=4, window=12,
+                          stream_stride=2, backend="torch", device="cpu")
+    for k in range(5):
+        st.launches = st.stream_launches = 0
+        got = eng.push(x[:, 6 * k:6 * (k + 1)])
+        torch.cuda.synchronize()
+        assert (st.launches, st.stream_launches) == (0, 1)
+        torch.testing.assert_close(got.cpu(), cpu.push(
+            x[:, 6 * k:6 * (k + 1)].cpu()), **TOL)
+    refs = torch.cumsum(_incs(4, 9, 20, 2, cuda), dim=1)
+    score = SigScoreEngine(d=2, depth=3, batch=4, references=refs,
+                           targets=torch.linspace(-1, 1, 9), window=12)
+    for k in range(3):
+        st.launches = sg.launches = 0
+        score.push(x[:, 6 * k:6 * (k + 1)])
+        score.predict()
+        score.nearest()
+        torch.cuda.synchronize()
+        assert (st.launches, sg.launches) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_batcher_prefetch_on_the_card_is_bitwise_serial(cuda):
+    rng = np.random.default_rng(5)
+    reqs = [np.cumsum(rng.normal(size=(L + 1, 3)) * 0.2, axis=0).astype(
+        np.float32) for L in rng.integers(1, 200, size=60)]
+    out = {}
+    for flag in (True, False):
+        db = DynamicBatcher.signature_service(3, 4, max_len=256,
+                                              max_batch=8,
+                                              async_dispatch=flag)
+        tickets = [db.submit(p) for p in reqs]
+        res = db.flush()
+        out[flag] = torch.stack([res[t] for t in tickets])
+        stats = db.stats()
+        assert stats["in_flight_peak"] <= db.max_in_flight
+        assert (stats["prefetched_rungs"] > 0) == flag
+    assert torch.equal(out[True], out[False])

@@ -69,3 +69,12 @@ def test_every_port_module_is_walked():
             "repro_torch.sigkernel.mmd", "repro_torch.sigkernel.krr",
             "repro_torch.sigkernel.features",
             "repro_torch.serve.engine"} <= names
+
+
+def test_session_slice_modules_are_walked():
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.serve.sessions", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.checkpointer", "repro_torch.obs",
+            "repro_torch.obs.slo", "repro_torch.data.pipeline"} <= names

@@ -1,6 +1,8 @@
 """The scoring slice as a whole: ``SigScoreEngine``'s cached reference
-state and ``DynamicBatcher.scoring_service`` against the reference's, on
-the same references and requests (mirrors ``tests/test_ragged.py``'s
+state, its session-pool members (``handles``, ``state``, ``push``,
+``scores``, ``predict``, ``nearest``, ``reset``, a shared ``store=``) and
+``DynamicBatcher.scoring_service`` against the reference's, on the same
+references, chunks and requests (mirrors ``tests/test_ragged.py``'s
 scoring test).  The reference runs its ``jax`` engine, the port its
 ``torch`` engine on the CPU.  Tolerance: 1e-5·max|ref| in fp32, as the
 reference's Gram acceptance.  The KRR duals come from a solve and are held
@@ -124,18 +126,80 @@ def test_scoring_service_validation():
                        backend="torch", device="cpu")
 
 
+def _pool_engines(store=None, jstore=None):
+    """The "plain" engines with targets and an 8-step hopping window, on a
+    private pool or on ``store`` / ``jstore``."""
+    kw = dict(d=2, depth=3, batch=2, references=_paths(1, 6, 16, 2),
+              targets=np.linspace(-1.0, 1.0, 6, dtype=np.float32), window=8)
+    return (SigScoreEngine(backend="torch", device="cpu", store=store, **kw),
+            JaxEngine(backend="jax", store=jstore, **kw))
+
+
+def _push_both(ours, ref, seed=4, pushes=3, hop=5):
+    x = (np.random.default_rng(seed).normal(size=(2, pushes * hop, 2))
+         * 0.3).astype(np.float32)
+    out = []
+    for k in range(pushes):      # the third push drops the oldest two
+        chunk = x[:, hop * k:hop * (k + 1)]
+        out.append((ours.push(chunk), ref.push(jnp.asarray(chunk))))
+    return out
+
+
+def _check_member(ours, ref, member):
+    if member == "handles":
+        assert [(h.sid, h.slot, h.generation) for h in ours.handles] == [
+            (h.sid, h.slot, h.generation) for h in ref.handles]
+    elif member == "state":
+        a, b = ours.state, ref.state
+        assert (a.length, a.end, a.d, a.depth) == (b.length, b.end, b.d,
+                                                   b.depth)
+        _close(a.sig, b.sig)
+        _close(a.ring, b.ring)
+        ours.push(np.zeros((2, 1, 2), np.float32))
+        ours.state = a                   # installing a carry drops the cache
+        _close(ours.scores(), ref.scores())
+    elif member == "scores":
+        _close(ours.scores(), ref.scores())
+    elif member == "predict":
+        K, alpha = np.asarray(ref._cross_gram()), np.asarray(ref.alpha)
+        scale = np.abs(K) @ np.abs(alpha)
+        assert (np.abs(ours.predict().numpy() - np.asarray(ref.predict()))
+                <= 1e-4 * scale).all()
+    elif member == "nearest":
+        assert ours.nearest().tolist() == np.asarray(ref.nearest()).tolist()
+    elif member == "reset":
+        ours.reset()
+        ref.reset()
+        assert ours.state.length == ref.state.length == 0
+        _close(ours.scores(), ref.scores())
+        assert ours._cross is not None   # one cross-Gram a state, cached
+
+
 @pytest.mark.parametrize("member", ["handles", "state", "push", "scores",
                                     "predict", "nearest", "reset"])
-def test_session_pool_members_are_not_ported(member):
-    ours, _ = _engines("plain")
-    with pytest.raises(NotImplementedError, match="items 9 and 13"):
-        attr = getattr(ours, member)
-        attr(np.zeros((2, 1, 2))) if member == "push" else attr()
-    with pytest.raises(NotImplementedError, match="items 9 and 13"):
-        ours.state = None
+def test_session_pool_members_match_reference(member):
+    ours, ref = _pool_engines()
+    for got, want in _push_both(ours, ref):
+        if member == "push":
+            _close(got, want)
+    _check_member(ours, ref, member)
 
 
-def test_shared_store_is_not_ported():
-    with pytest.raises(NotImplementedError, match="items 9 and 13"):
-        SigScoreEngine(d=2, depth=2, batch=1, references=_paths(3, 2, 4, 2),
-                       store=object(), backend="torch", device="cpu")
+def test_shared_store_matches_reference():
+    from repro.serve import SessionStore as JaxStore
+    from repro_torch.serve import SessionStore
+    store = SessionStore(2, 3, ring_capacity=8, initial_sessions=2,
+                         backend="torch", device="cpu")
+    jstore = JaxStore(2, 3, ring_capacity=8, initial_sessions=2)
+    for s in (store, jstore):
+        s.create("tenant")
+        s.ingest("tenant", np.full((3, 2), 0.1, np.float32))
+        s.flush()
+    ours, ref = _pool_engines(store, jstore)
+    assert ours.store is store and ours.device == store.device
+    for got, want in _push_both(ours, ref):
+        _close(got, want)
+    for member in ("handles", "predict", "nearest"):
+        _check_member(ours, ref, member)
+    assert store._ids == jstore._ids and store.pool_size == 4
+    _close(store.features("tenant"), jstore.features("tenant"))
