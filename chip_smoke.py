@@ -256,7 +256,37 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              100,000-session pool checkpointed and restored, every lane
              equal; (e) signature_service with the prefetch on and off,
              bitwise equal, in-flight peak within max_in_flight.
-23. report — one JSON line of kernels (the sig_trunc row with its cases:
+23. slice8 — (a) benchmarks/ragged_throughput.py at full size (384
+             requests of the port's geometric_lengths up to 1,024 steps,
+             d = 4, depth 4, 4 rounds, max_batch 64, min_bucket 48): per
+             request, pad-to-max, signature_service and bucket_paths (one
+             ops.signature launch a bucket), cold and warm, requests a
+             second, every plan against the per-request answers (rtol
+             2e-4, atol 2e-5); from_segments, point_mask,
+             terminal_points and RaggedPathStream batches on card tensors
+             against numpy.  (b) backend="hybrid" at the six Table 3
+             cells on the §3.3 set: logsignature_projected and
+             ops.projected, value and gradient, against the cuda route
+             (sig_words, then sig_sweep) and float64 (values
+             1e-4·max|float64|, gradients by phase 13's rule); both
+             routes' ms and launches, a traced value plus gradient at the
+             largest cell, the hybrid backward's saved bytes equal to the
+             increments plus the output.  (c) PATHSIG_AUTOTUNE=sweep into
+             a temporary cache over kernels/autotune.py's --quick grid:
+             each winner against the plain version, ms <= default_ms, a
+             non-default winner >= 10% faster, the default timed, a
+             second lookup a hit, the file round trip; the tuned
+             128 × 128 × 1,685 Gram beside cuBLAS.  (d) metrics, a trace
+             and the flight recorder over a ragged serving round, a warm
+             session flush at 10^4 sessions and one §8 truncated step in
+             a train.step span: span nesting, the Chrome JSON, the
+             counters against the host's counts, one retrace tick per new
+             launch shape, a failing ingest's single flight dump; round
+             and flush wall ms with obs off and on in turns (not gated),
+             the same launches either way; the §8 step's device busy ms,
+             kernels and idle share under torch.profiler.  Phases 1-22
+             run with PATHSIG_AUTOTUNE=off.
+24. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell, and the fused ones: §8 lead_lag depth 3, the
              time_augment serving micro-batch, the two Table 1 transform
@@ -280,8 +310,11 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              sig_trunc row a flush bucket of the 1,000,000-session pool and
              a score-engine push, on the sig_trunc_stream row a
              stream-engine push, on the sig_gram row the cross-Gram a
-             push), the card's name and power limit, then the device line
-             last.
+             push; and phase 23's: on the sig_trunc row a bucket_paths
+             bucket, on the sig_words row the hybrid comparison's largest
+             Table 3 set, on the sig_gram row the tuned 128 × 128 × 1,685
+             Gram, each with its launches), the card's name and power
+             limit, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -297,6 +330,7 @@ import argparse
 import dataclasses
 import importlib.util
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -314,7 +348,9 @@ from repro_torch.core import signature as sig  # noqa: E402
 from repro_torch.core import stream  # noqa: E402
 from repro_torch.core import tensor_ops as tops  # noqa: E402
 from repro_torch.core import windows as win  # noqa: E402
-from repro_torch.core.logsignature import (logsignature,  # noqa: E402
+from repro_torch.core.hybrid import hybrid_low_plus_top  # noqa: E402
+from repro_torch.core.logsignature import (logsig_dim,  # noqa: E402
+                                           logsignature,
                                            logsignature_projected)
 from repro_torch.core.projection import (  # noqa: E402
     projected_signature_from_increments)
@@ -325,14 +361,17 @@ from repro_torch.core.words import (all_words, anisotropic_words,  # noqa: E402
                                     generated_words, lyndon_words, make_plan,
                                     make_tiled_plan, prefix_closure)
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
-from repro_torch.data.pipeline import (hurst_dataset,  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.data.pipeline import (RaggedPathStream,  # noqa: E402
+                                       geometric_lengths, hurst_dataset,
                                        session_tick_stream)
-from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import _build, autotune, ops  # noqa: E402
 from repro_torch.kernels import sig_gram as sg  # noqa: E402
 from repro_torch.kernels import sig_sweep as ss  # noqa: E402
 from repro_torch.kernels import sig_trunc as st  # noqa: E402
 from repro_torch.kernels import sig_words as sw  # noqa: E402
 from repro_torch.ragged import (RaggedPaths, assign_buckets,  # noqa: E402
+                                batch_rung, bucket_ladder, bucket_paths,
                                 pad_batch)
 from repro_torch.serve import (DynamicBatcher, SessionStore,  # noqa: E402
                                SigScoreEngine, SigStreamEngine)
@@ -3490,11 +3529,689 @@ def phase_sessions(rng) -> dict:
                 prefetch=prefetch)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: ragged serving, the hybrid cell, the autotuner, observability
+# ---------------------------------------------------------------------------
+
+# benchmarks/ragged_throughput.py run(quick=False)
+RAGGED = dict(seed=0, n_requests=384, max_len=1024, d=4, depth=4,
+              n_rounds=4, max_batch=64, min_bucket=48)
+
+
+def ragged_workload() -> list:
+    """The bench's make_workload, its lengths from the port's
+    geometric_lengths: the request paths split into flush rounds."""
+    c = RAGGED
+    lengths = geometric_lengths(c["seed"], c["n_requests"], c["max_len"],
+                                min_steps=2)
+    rng = np.random.default_rng((c["seed"], 1))
+    reqs = []
+    for L in lengths:
+        steps = rng.standard_normal((int(L), c["d"])).astype(np.float32)
+        steps /= np.sqrt(max(int(L), 1))
+        reqs.append(np.concatenate([np.zeros((1, c["d"]), np.float32),
+                                    np.cumsum(steps, axis=0)], axis=0))
+    bounds = np.linspace(0, c["n_requests"], c["n_rounds"] + 1).astype(int)
+    return [reqs[bounds[i]:bounds[i + 1]] for i in range(c["n_rounds"])]
+
+
+def walk_batch(seed: int, step: int, B: int, M: int, d: int) -> tuple:
+    """One RaggedPathStream(kind="walk") batch drawn in numpy alone: the
+    reference's keys ((seed, step) for the walk, (7919, seed * 1_000_003
+    + step) for the lengths) and frozen tails."""
+    rng = np.random.default_rng((seed, step))
+    p = min(1.0, 1.0 / max(0.25 * M, 1.0))
+    lengths = np.clip(np.random.default_rng(
+        (7919, seed * 1_000_003 + step)).geometric(p, size=B), 2, M)
+    steps = rng.standard_normal((B, M, d)).astype(np.float32)
+    steps /= np.sqrt(np.maximum(lengths, 1))[:, None, None]
+    X = np.concatenate([np.zeros((B, 1, d), np.float32),
+                        np.cumsum(steps, axis=1)], axis=1)
+    idx = np.minimum(np.arange(M + 1)[None, :], lengths[:, None])
+    return np.take_along_axis(X, idx[..., None], axis=1), lengths
+
+
+def ragged_plans(rounds: list) -> tuple[dict, dict]:
+    """The four serving plans over the rounds, each an epoch function
+    returning the answers in request order and its launches."""
+    c = RAGGED
+    d, N, max_len, mb = c["d"], c["depth"], c["max_len"], c["max_batch"]
+    svc = DynamicBatcher.signature_service(d, N, max_len=max_len,
+                                           max_batch=mb,
+                                           min_bucket=c["min_bucket"])
+    ladder = bucket_ladder(max_len, min_len=c["min_bucket"])
+    buckets = []
+
+    def per_request():
+        return [ops.signature(torch.from_numpy(p[1:] - p[:-1])[None].to(DEV),
+                              N)[0] for rnd in rounds for p in rnd]
+
+    def pad_to_max():
+        out = []
+        for rnd in rounds:
+            for off in range(0, len(rnd), mb):
+                part = rnd[off:off + mb]
+                rp = pad_batch(RaggedPaths.from_list(part, pad_to=max_len),
+                               batch_rung(len(part), mb))
+                res = ops.signature(rp.values[:, 1:] - rp.values[:, :-1], N,
+                                    lengths=rp.lengths)
+                out.extend(res[i] for i in range(len(part)))
+        return out
+
+    def service():
+        out = []
+        for rnd in rounds:
+            tickets = [svc.submit(p) for p in rnd]
+            res = svc.flush()
+            out.extend(res[t] for t in tickets)
+        return out
+
+    def bucketed():
+        out = []
+        for rnd in rounds:
+            res = [None] * len(rnd)
+            for idx, sub in bucket_paths(RaggedPaths.from_list(rnd), ladder):
+                sig_ = ops.signature(sub.values[:, 1:] - sub.values[:, :-1],
+                                     N, lengths=sub.lengths)
+                buckets.append((len(idx), sub.max_len))
+                for j, i in enumerate(idx):
+                    res[i] = sig_[j]
+            out.extend(res)
+        return out
+
+    return dict(per_request=per_request, pad_to_max=pad_to_max,
+                signature_service=service, bucket_paths=bucketed), \
+        dict(svc=svc, buckets=buckets, ladder=ladder)
+
+
+def ragged_card_checks(rounds: list) -> None:
+    """from_segments, point_mask, terminal_points and one RaggedPathStream
+    batch on card tensors against numpy."""
+    rnd = rounds[0]
+    rp = RaggedPaths.from_list(rnd)
+    seg = RaggedPaths.from_segments(np.concatenate(rnd), [len(p) for p in rnd])
+    check(torch.equal(seg.values, rp.values)
+          and torch.equal(seg.lengths, rp.lengths),
+          "from_segments does not round-trip a round")
+    lengths = np.asarray([len(p) - 1 for p in rnd])
+    mask = np.arange(rp.max_len + 1)[None, :] <= lengths[:, None]
+    check(rp.point_mask().device == rp.values.device
+          and np.array_equal(rp.point_mask().cpu().numpy(), mask),
+          "point_mask differs from numpy")
+    check(np.array_equal(rp.terminal_points().cpu().numpy(),
+                         np.stack([p[-1] for p in rnd])),
+          "terminal_points differ from each path's last point")
+    for step in (0, 3):
+        s = RaggedPathStream(batch=64, max_steps=1024, d=4, seed=0)
+        s.restore({"step": step, "seed": 0})
+        b = next(s)
+        X, L = walk_batch(0, step, 64, 1024, 4)
+        check(b["paths"].device.type == torch.device(DEV).type
+              and np.array_equal(b["paths"].cpu().numpy(), X)
+              and np.array_equal(b["path_lengths"].cpu().numpy(), L),
+              f"RaggedPathStream step {step} differs from the numpy draw")
+    print("[ragged] from_segments, point_mask, terminal_points and two "
+          "RaggedPathStream(64, 1024, 4) batches equal numpy", flush=True)
+
+
+def phase_ragged(rng) -> dict:
+    """Phase 23a: benchmarks/ragged_throughput.py at full size on the card,
+    four plans cold and warm, and the ragged utilities on card tensors."""
+    c = RAGGED
+    rounds = ragged_workload()
+    n = c["n_requests"]
+    lens = [len(p) - 1 for rnd in rounds for p in rnd]
+    print(f"[ragged] {n} requests in {c['n_rounds']} rounds, lengths max "
+          f"{max(lens)}, median {np.median(lens):.0f}, d={c['d']}, "
+          f"N={c['depth']}", flush=True)
+    plans, extra = ragged_plans(rounds)
+    results, out = {}, {}
+    for name, epoch in plans.items():
+        walls, launches = [], []
+        for _ in range(2):
+            extra["buckets"].clear()
+            batches0 = extra["svc"].batches
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = epoch()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append(counts())
+        n_l = launches[-1]
+        check(sum(n_l.values()) == n_l["sig_trunc"],
+              f"ragged {name}: launches {n_l}")
+        if name == "bucket_paths":
+            check(n_l["sig_trunc"] == len(extra["buckets"]),
+                  f"bucket_paths: {n_l['sig_trunc']} sig_trunc launches for "
+                  f"{len(extra['buckets'])} buckets")
+        if name == "signature_service":
+            check(n_l["sig_trunc"] == extra["svc"].batches - batches0,
+                  f"signature_service: {n_l['sig_trunc']} launches")
+        if name == "per_request":
+            check(n_l["sig_trunc"] == n, f"per request: {n_l} launches")
+        results[name] = torch.stack(res).double()
+        out[name] = dict(cold_s=walls[0], warm_s=walls[1],
+                         req_per_s_warm=n / walls[1],
+                         req_per_s_cold=n / walls[0],
+                         launches=n_l["sig_trunc"])
+        print(f"[ragged] {name:17s} cold {walls[0] * 1e3:8.1f} ms, warm "
+              f"{walls[1] * 1e3:8.1f} ms, {n / walls[1]:9.1f} requests/s "
+              f"warm, {n_l['sig_trunc']} sig_trunc launches an epoch",
+              flush=True)
+    ref = results["per_request"]
+    for name, got in results.items():
+        err = float((got - ref).abs().max())
+        out[name]["max_abs_err_vs_per_request"] = err
+        check(bool(((got - ref).abs() <= TOL["atol"]
+                    + TOL["rtol"] * ref.abs()).all()),
+              f"ragged {name}: max |err| {err:.2e} against per request")
+    flat = [p for rnd in rounds for p in rnd]
+    for i in rng.choice(n, 16, replace=False):
+        x = torch.tensor(flat[i][1:] - flat[i][:-1], dtype=torch.float64,
+                         device=DEV)[None]
+        want = st.sig_trunc_plain(x, c["depth"])[0]
+        check(bool(((ref[i] - want).abs() <= TOL["atol"]
+                    + TOL["rtol"] * want.abs()).all()),
+              f"ragged request {i}: per-request answer off the plain one")
+    ragged_card_checks(rounds)
+    # sig_trunc alone on the largest bucket of the bucket_paths plan
+    groups = bucket_paths(RaggedPaths.from_list(rounds[0]), extra["ladder"])
+    idx, sub = max(groups, key=lambda g: len(g[0]) * g[1].max_len)
+    incs = sub.increments()
+    B, M, d, N = len(idx), sub.max_len, c["d"], c["depth"]
+    D = sum(d**k for k in range(1, N + 1))
+    reset_counts()
+    st.sig_trunc(incs, N)
+    launched = counts()["sig_trunc"]
+    ms = cuda_ms(lambda: st.sig_trunc(incs, N), 10)
+    plain_ms = cuda_ms(lambda: st.sig_trunc_plain(incs, N), 1)
+    bms, by = bound(B, M, d, N, 4, B * D, 4)
+    case = dict(trunc_case("a bucket_paths bucket (ragged serving)",
+                           [B, M, d, N], dict(ms=ms, bound_ms=bms,
+                                              bound_by=by)),
+                launches=launched, plain_ms=plain_ms)
+    print(f"[ragged] sig_trunc on the largest bucket (B={B}, M={M}): "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.5f} ms "
+          f"({by})", flush=True)
+    return dict(plans=out, bucket_case=case, svc=extra["svc"], rounds=rounds)
+
+
+def value_and_grad(fn, x: torch.Tensor, w: torch.Tensor) -> tuple:
+    """fn(x) and the gradient of Σ fn(x)·w."""
+    x = x.detach().clone().requires_grad_()
+    out = fn(x)
+    (g,) = torch.autograd.grad((out * w.to(out.dtype)).sum(), x)
+    return out.detach(), g
+
+
+def values_within(got: torch.Tensor, want: torch.Tensor,
+                  scale: float = 1e-4) -> bool:
+    """|got − want| <= scale·max|want| (composed results)."""
+    return float((got.double() - want).abs().max()) \
+        <= scale * float(want.abs().max())
+
+
+def phase_hybrid(rng) -> dict:
+    """Phase 23b: backend="hybrid" at the six Table 3 cells on the §3.3
+    set, against the cuda route (sig_words, then sig_sweep) and float64."""
+    rows, case, traces = [], None, {}
+    for B, M, d, N in TABLE3:
+        path = brownian(rng, B, M, d)
+        incs = tops.path_increments(path)
+        words = all_words(d, N - 1) + [w for w in lyndon_words(d, N)
+                                       if len(w) == N]
+        plan = make_plan(words, d)
+        wl = torch.tensor(rng.normal(size=(B, logsig_dim(d, N))), device=DEV)
+        wp = torch.tensor(rng.normal(size=(B, len(words))), device=DEV)
+        log64 = value_and_grad(lambda p: logsignature_projected(
+            p, N, backend="torch"), path.double(), wl)
+        proj64 = value_and_grad(lambda x: projected_signature_from_increments(
+            x, plan, backend="torch", device=DEV), incs.double(), wp)
+        got, row = {}, dict(B=B, M=M, d=d, N=N, words=len(words))
+        for route in ("hybrid", "cuda"):
+            runs = dict(
+                logsig=(lambda p: logsignature_projected(p, N, backend=route),
+                        path, wl, log64),
+                projected=(lambda x: ops.projected(x, plan, backend=route),
+                           incs, wp, proj64))
+            for what, (fn, x, w, ref) in runs.items():
+                reset_counts()
+                val, g = value_and_grad(fn, x, w)
+                torch.cuda.synchronize()
+                n = counts()
+                want_n = {k: 0 for k in n}
+                if route == "cuda":
+                    want_n.update(sig_words=1, sig_sweep=1)
+                check(n == want_n, f"hybrid phase {B, M, d, N} {route} "
+                      f"{what}: launches {n}")
+                check(values_within(val, ref[0]),
+                      f"{route} {what} {B, M, d, N}: value off float64")
+                check(grad_within(g, ref[1]),
+                      f"{route} {what} {B, M, d, N}: gradient off float64")
+                got[route, what] = (val, g)
+                row[f"{route}_{what}_launches"] = sum(n.values())
+            row[f"{route}_ms"] = cuda_ms(
+                lambda: ops.projected(incs, plan, backend=route), 5)
+            row[f"{route}_grad_ms"] = cuda_ms(
+                lambda: value_and_grad(lambda x: ops.projected(
+                    x, plan, backend=route), incs, wp), 3)
+        for what in ("logsig", "projected"):
+            # each route is within 1e-4·max|float64|: the two within 2e-4
+            check(values_within(got["hybrid", what][0],
+                                got["cuda", what][0].double(), 2e-4),
+                  f"hybrid against the cuda route {what} {B, M, d, N}")
+        top = [w for w in words if len(w) == N]
+        xg = incs.detach().requires_grad_()
+        saved = saved_storage_bytes(
+            lambda x: hybrid_low_plus_top(x, top, N), xg)
+        want_b = incs.numel() * 4 + B * len(words) * 4
+        check(saved == want_b, f"hybrid backward saves {saved} bytes, the "
+              f"increments and the output are {want_b}")
+        row["saved_bytes"] = saved
+        ctp = ops._closure_tiled_plan(plan.words, d, 256)
+        row["sig_words_ms"] = cuda_ms(lambda: sw.sig_words(incs, ctp), 10)
+        row["bound_ms"], row["bound_by"] = bound(
+            B, M, d, N, 4, B * plan.closure_size, 4, words_flops(plan))
+        rows.append(row)
+        print(f"[hybrid] B={B:2d} M={M:3d} d={d:2d} N={N} ({len(words)} "
+              f"words): forward hybrid {row['hybrid_ms']:8.3f} ms, cuda "
+              f"route {row['cuda_ms']:7.3f} ms (sig_words alone "
+              f"{row['sig_words_ms']:.4f}); value+grad hybrid "
+              f"{row['hybrid_grad_ms']:8.3f} ms, cuda "
+              f"{row['cuda_grad_ms']:7.3f} ms; launches hybrid 0, cuda "
+              f"{row['cuda_projected_launches']}; saved {saved} bytes",
+              flush=True)
+    big = max(rows, key=lambda r: r["bound_ms"])
+    B, M, d, N = (big[k] for k in "BMdN")
+    path = brownian(rng, B, M, d)
+    incs = tops.path_increments(path)
+    plan = make_plan(all_words(d, N - 1) + [
+        w for w in lyndon_words(d, N) if len(w) == N], d)
+    wp = torch.tensor(rng.normal(size=(B, len(plan.words))), device=DEV)
+    for route in ("hybrid", "cuda"):
+        traces[route] = device_busy(lambda: value_and_grad(
+            lambda x: ops.projected(x, plan, backend=route), incs, wp))
+        t = traces[route]
+        print(f"[hybrid] traced value+grad at {B, M, d, N}, {route}: wall "
+              f"{t['wall_ms']:.3f} ms, device busy {t['device_ms']:.3f} ms "
+              f"in {t['kernels']} kernels", flush=True)
+    case = dict(case="hybrid comparison: largest Table 3 §3.3 set",
+                shape=[B, M, d, N], words=plan.closure_size,
+                ms=big["sig_words_ms"], bound_ms=big["bound_ms"],
+                bound_by=big["bound_by"], launches=big["cuda_projected_launches"]
+                - 1, hybrid_ms=big["hybrid_ms"], route_ms=big["cuda_ms"],
+                partition=words_partition(sw.plan_words_launch(
+                    B, sw.tile_tables(ops._closure_tiled_plan(
+                        plan.words, d, 256)), d)))
+    return dict(rows=rows, traces=traces, words_case=case)
+
+
+def tuned_result(kind: str, cell: dict, part: dict, rng) -> float:
+    """The tuned partition's result against the plain version in float64:
+    returns max |err| (checked by the kernel's own rule)."""
+    if kind == "gram":
+        Bx, By, D = cell["Bx"], cell["By"], cell["D"]
+        Sx = torch.tensor(rng.normal(size=(Bx, D)) * 0.1, device=DEV)
+        Sy = torch.tensor(rng.normal(size=(By, D)) * 0.1, device=DEV)
+        w = torch.tensor(rng.uniform(0.2, 2.0, D), device=DEV)
+        got = sg.sig_gram(Sx.float(), Sy.float(), w.float(), **part)
+        want = sg.sig_gram_plain(Sx, Sy, w)
+        check(gram_within(got, want, GRAM_TOL),
+              f"tuned gram {cell} {part} off the plain version")
+        return float((got.double() - want).abs().max())
+    B, M, d, depth = cell["B"], cell["M"], cell["d"], cell["depth"]
+    prec = cell["precision"]
+    x = brownian(rng, B, M, d)
+    x = tops.path_increments(x)
+    x64 = x.to(torch.bfloat16).double() if prec == "bf16_fp32" \
+        else x.double()
+    if kind == "sig_trunc":
+        got = st.sig_trunc(x, depth, precision=prec, **part)
+        want = st.sig_trunc_plain(x64, depth)
+    else:
+        tplan = ops._closure_tiled_plan(tuple(all_words(d, depth)), d,
+                                        part["max_rows"])
+        got = sw.sig_words(x, tplan, precision=prec)
+        want = sw.sig_words_plain(x64, tplan)
+    check(within(got.double(), want, TOL["rtol"]),
+          f"tuned {kind} {cell} {part} off the plain version")
+    return float((got.double() - want).abs().max())
+
+
+def default_partition(kind: str, cell: dict) -> dict:
+    if kind == "sig_trunc":
+        p = st.plan_launch(cell["B"], cell["d"], cell["depth"])
+        return {"split": p.split, "examples": p.examples}
+    if kind == "sig_words":
+        return {"max_rows": 256}
+    rows, words = sg._plan(cell["Bx"], cell["By"], cell["D"],
+                           torch.cuda.get_device_properties(
+                               0).multi_processor_count)
+    return {"rows": rows, "slice_words": words}
+
+
+def phase_autotune(rng) -> dict:
+    """Phase 23c: PATHSIG_AUTOTUNE=sweep into a temporary cache over the
+    --quick grid; each winner against the plain version, the hysteresis
+    rule, a second lookup a hit, the cache file round trip."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="pathsig_autotune_")
+    path = Path(tmp) / "tune.json"
+    os.environ.update(PATHSIG_AUTOTUNE="sweep",
+                      PATHSIG_AUTOTUNE_CACHE=str(path))
+    autotune.clear()
+    rows = []
+    try:
+        with obs.enabled_scope():
+            lookups = obs.counter("pathsig_autotune_lookups_total", "",
+                                  ("kind", "outcome"))
+            for kind, cell in autotune.QUICK_GRID:
+                t0 = time.perf_counter()
+                rec = autotune.lookup(kind, **cell)
+                sweep_s = time.perf_counter() - t0
+                check(bool(rec), f"autotune {kind} {cell}: no record")
+                part = autotune.partition(rec, kind)
+                default = default_partition(kind, cell)
+                timed = [autotune.partition(c, kind)
+                         for c in rec["candidates"]]
+                check(default in timed,
+                      f"autotune {kind}: the default {default} was not timed")
+                check(rec["ms"] <= rec["default_ms"],
+                      f"autotune {kind}: {rec['ms']} > default "
+                      f"{rec['default_ms']}")
+                if part != default:
+                    check(rec["ms"] < 0.9 * rec["default_ms"],
+                          f"autotune {kind}: a non-default winner within "
+                          "10% of the default")
+                err = tuned_result(kind, cell, part, rng)
+                hits = lookups.value(kind=kind, outcome="hit")
+                sweeps = lookups.value(kind=kind, outcome="sweep")
+                check(autotune.lookup(kind, **cell) == rec
+                      and lookups.value(kind=kind, outcome="hit") == hits + 1
+                      and lookups.value(kind=kind, outcome="sweep")
+                      == sweeps, f"autotune {kind}: second lookup no hit")
+                rows.append(dict(kind=kind, cell=cell, winner=part,
+                                 default=default, ms=rec["ms"],
+                                 default_ms=rec["default_ms"],
+                                 candidates=rec["candidates"],
+                                 max_abs_err=err, sweep_s=sweep_s))
+                print(f"[autotune] {autotune.cell_key(kind, **cell)}: winner "
+                      f"{part} {rec['ms']:.5f} ms, default {default} "
+                      f"{rec['default_ms']:.5f} ms, sweep {sweep_s:.2f} s; "
+                      f"max |err| vs plain {err:.2e}; candidates "
+                      + ", ".join(f"{autotune.partition(c, kind)} "
+                                  f"{c['ms']:.5f}" for c in
+                                  rec["candidates"]), flush=True)
+        cells = dict(autotune.load_cache())
+        autotune.clear()
+        head = json.loads(path.read_text())
+        check(autotune.load_cache() == cells and head["device"]
+              == torch.cuda.get_device_name(0) and head["version"] == 1,
+              "the autotune cache does not round-trip")
+        # the tuned 128 x 128 x 1,685 Gram beside cuBLAS, through ops.gram
+        os.environ["PATHSIG_AUTOTUNE"] = "load"
+        g = next(r for r in rows if r["kind"] == "gram"
+                 and r["cell"]["Bx"] == 128)
+        Sx = torch.tensor(rng.normal(size=(128, 1685)) * 0.1,
+                          dtype=torch.float32, device=DEV)
+        Sy = torch.tensor(rng.normal(size=(128, 1685)) * 0.1,
+                          dtype=torch.float32, device=DEV)
+        w = torch.tensor(rng.uniform(0.2, 2.0, 1685), dtype=torch.float32,
+                         device=DEV)
+        reset_counts()
+        ops.gram(Sx, Sy, w)
+        launched = counts()["sig_gram"]
+        check(launched == 1, f"tuned ops.gram launched {launched}")
+        t = time_gram(Sx, Sy, w)
+        # device times behind a sleep, as the sweep takes them
+        tuned_ms = autotune._median_time(
+            lambda: sg.sig_gram(Sx, Sy, w, **g["winner"]), 20) * 1e3
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            lib_ms = autotune._median_time(
+                lambda: torch.matmul(Sx * w, Sy.T), 20) * 1e3
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        closes = min(c["ms"] for c in g["candidates"]) <= lib_ms
+        print(f"[autotune] 128 x 128 x 1,685 Gram, device ms behind a "
+              f"sleep: tuned {g['winner']} {tuned_ms:.4f}, cuBLAS "
+              f"(torch.matmul, TF32 off) {lib_ms:.4f}: "
+              f"{'a' if closes else 'no'} candidate closes the gap; back "
+              f"to back: planner's {t['ms']:.4f}, cuBLAS "
+              f"{t['library_ms']:.4f}", flush=True)
+        gram_case = dict(case="tuned projected-MMD Gram", shape=[128, 128,
+                                                                 1685],
+                         partition=g["winner"], ms=tuned_ms,
+                         library_ms=lib_ms, planner_b2b_ms=t["ms"],
+                         library_b2b_ms=t["library_ms"],
+                         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                         bound_by=t["bound_by"],
+                         fp32_bound_ms=t["fp32_bound_ms"],
+                         launches=launched, closes_gap=closes)
+    finally:
+        os.environ["PATHSIG_AUTOTUNE"] = "off"
+        os.environ.pop("PATHSIG_AUTOTUNE_CACHE", None)
+        autotune.clear()
+    return dict(rows=rows, gram_case=gram_case)
+
+
+def span_inside(inner: dict, outer: dict) -> bool:
+    return (outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"]
+            <= outer["ts"] + outer["dur"] + 1.0
+            and inner["args"]["depth"] > outer["args"]["depth"])
+
+
+def obs_step(hf, model, opt, xb, yb):
+    """One §8 training step inside a ``train.step`` span."""
+    with obs.span("train.step"):
+        opt.zero_grad(set_to_none=True)
+        loss = hf.mse(model, xb, yb)
+        loss.backward()
+        opt.step()
+    return loss
+
+
+def phase_observability(rng, ragged: dict) -> dict:
+    """Phase 23d: metrics, a trace and the flight recorder on over a
+    ragged serving round, a warm session flush at 10^4 sessions and one
+    §8 step; the instruments against the host's own counts."""
+    import tempfile
+    obs.enable_flight()
+    svc, rnd = ragged["svc"], ragged["rounds"][0]
+    d, N, _, _, max_ticks, _ = POOL_CFG
+    prounds = pool_rounds(10_000)
+    store = SessionStore(d, N, initial_sessions=10_000, max_ticks=max_ticks,
+                         device=DEV)
+    for sids, cnt, ticks in prounds:                   # cold epoch
+        store.ingest_many(sids, cnt, ticks, auto_create=True)
+        store.flush()
+    hf = _hurst_example()
+    hd, hM, depth, batch, lr, _, n_white, _ = HURST
+    X, H = hurst_dataset(seed=1, n_paths=n_white, n_steps=hM, d=hd)
+    X, H = torch.as_tensor(X, device=DEV), torch.as_tensor(H, device=DEV)
+    model = hf.make_model("truncated", hd, depth, hM, X, seed=1)
+    opt = hf.adam(model, lr)
+    xb, yb = X[:batch], H[:batch]
+
+    def serve_round():
+        for p in rnd:
+            svc.submit(p)
+        svc.flush()
+        torch.cuda.synchronize()
+
+    def session_flush(k):
+        sids, cnt, ticks = prounds[k % len(prounds)]
+        store.ingest_many(sids, cnt, ticks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.flush()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # obs off and on in turns, medians of three, and the launches of each
+    walls = {("round", False): [], ("round", True): [],
+             ("flush", False): [], ("flush", True): []}
+    flush_launches = {}
+    for k in range(6):
+        on = bool(k % 2)
+        if on:
+            obs.enable()
+            obs.start_trace(None)
+        reset_counts()
+        t0 = time.perf_counter()
+        serve_round()
+        walls["round", on].append(time.perf_counter() - t0)
+        reset_counts()
+        walls["flush", on].append(session_flush(k))
+        flush_launches.setdefault(on, []).append(counts()["sig_trunc"])
+        obs.disable()
+        obs.stop_trace()
+    check(flush_launches[False] == flush_launches[True],
+          f"a flush launches {flush_launches[False]} with obs off and "
+          f"{flush_launches[True]} with it on")
+    med = {f"{w}_{'on' if on else 'off'}_ms": float(np.median(v)) * 1e3
+           for (w, on), v in walls.items()}
+    print(f"[obs] serving round {med['round_off_ms']:.3f} ms off, "
+          f"{med['round_on_ms']:.3f} ms on; session flush "
+          f"{med['flush_off_ms']:.3f} ms off, {med['flush_on_ms']:.3f} ms on "
+          f"(medians of three, in turns; not gated); flush launches "
+          f"{flush_launches[False]} off, {flush_launches[True]} on",
+          flush=True)
+    # the instrumented window
+    tmp = Path(tempfile.mkdtemp(prefix="pathsig_obs_"))
+    shapes0 = {m.__name__: set(m.launch_shapes) for m in (st, sw, sg, ss)}
+    store_shapes0 = set(store._shape_keys)
+    batches0, updates0 = svc.stats()["batches"], store.stats()["updates"]
+    obs.reset()
+    obs.FLIGHT.clear()
+    obs.enable()
+    obs.start_trace(str(tmp / "trace.json"))
+    sids, cnt, ticks = prounds[1]
+    try:
+        serve_round()
+        store.ingest_many(sids, cnt, ticks)
+        store.flush()
+        obs_step(hf, model, opt, xb, yb)
+        torch.cuda.synchronize()
+        snap = obs.snapshot()
+    finally:
+        trace_path = obs.stop_trace()
+        obs.disable()
+    doc = json.load(open(trace_path))
+    evs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    named = {n: [e for e in evs if e["name"] == n] for n in (
+        "serve.batcher.flush", "serve.batcher.rung", "kernels.signature",
+        "serve.sessions.flush", "train.step")}
+    check(len(named["serve.batcher.flush"]) == 1
+          and len(named["serve.sessions.flush"]) == 1
+          and len(named["train.step"]) == 1, "obs: missing spans")
+    bf, sf = named["serve.batcher.flush"][0], named["serve.sessions.flush"][0]
+    rungs = named["serve.batcher.rung"]
+    check(rungs and all(span_inside(r, bf) for r in rungs),
+          "serve.batcher.rung outside serve.batcher.flush")
+    in_rungs = [k for k in named["kernels.signature"]
+                if any(span_inside(k, r) for r in rungs)]
+    check(len(in_rungs) == len(rungs),
+          f"{len(in_rungs)} kernels.signature spans in {len(rungs)} rungs")
+    in_flush = [e for e in evs if e["name"].startswith("kernels.")
+                and span_inside(e, sf)]
+    buckets = expected_buckets(cnt, store.max_ticks, store.max_rows)
+    check(len(in_flush) == buckets,
+          f"{len(in_flush)} kernels spans in the session flush, {buckets} "
+          "buckets")
+
+    def metric(name, **labels):
+        rows = snap["metrics"].get(name, {}).get("values", [])
+        return sum(r["value"] for r in rows
+                   if all(r["labels"].get(k) == v for k, v in labels.items()))
+
+    batches = svc.stats()["batches"] - batches0
+    check(metric("pathsig_batcher_requests_total") == len(rnd),
+          "pathsig_batcher_requests_total is not the round's requests")
+    check(metric("pathsig_sessions_ticks_applied_total")
+          == store.stats()["updates"] - updates0 == int(cnt.sum()),
+          "pathsig_sessions_ticks_applied_total is not the ticks applied")
+    calls = metric("pathsig_dispatch_calls_total", op="signature")
+    check(calls == batches + buckets + 1,
+          f"pathsig_dispatch_calls_total {calls}: {batches} micro-batches, "
+          f"{buckets} flush buckets and one §8 step")
+    sites = {}
+    for mod, site in ((st, "sig_trunc"), (sw, "sig_words"),
+                      (sg, "sig_gram_tiles"), (ss, "sig_sweep")):
+        new = len(mod.launch_shapes - shapes0[mod.__name__])
+        sites[site] = (metric(obs.TRACE_COUNTER_NAME, site=site), new)
+    sites["session_flush"] = (metric(obs.TRACE_COUNTER_NAME,
+                                     site="session_flush"),
+                              len(store._shape_keys - store_shapes0))
+    for site, (ticked, new) in sites.items():
+        check(ticked == new, f"pathsig_jit_traces_total{{site={site}}} "
+              f"{ticked}, {new} new launch shapes")
+    # a failing ingest: one flight dump across nested boundaries
+    os.environ["PATHSIG_FLIGHT_DIR"] = str(tmp / "flight")
+    try:
+        with obs.dump_on_error("phase23.caller"):
+            store.ingest(sids[0], np.zeros((3, d + 1), np.float32))
+        check(False, "ingest with the wrong d did not raise")
+    except ValueError as e:
+        check("increments must be" in str(e), f"ingest raised {e}")
+    finally:
+        os.environ.pop("PATHSIG_FLIGHT_DIR")
+    dumps = list((tmp / "flight").glob("flight_*.json"))
+    check(len(dumps) == 1, f"{len(dumps)} flight dumps")
+    fd = json.load(open(dumps[0]))
+    check(fd["otherData"]["exception"]["type"] == "ValueError"
+          and fd["otherData"]["note"] == "sessions.ingest"
+          and {"serve.sessions.flush", "train.step"}
+          <= {e["name"] for e in fd["traceEvents"]},
+          "the flight dump lacks the recent spans or the exception")
+    # the §8 step traced on the device, and its wall untraced
+    trace = device_busy(lambda: obs_step(hf, model, opt, xb, yb))
+    idle = 1 - trace["device_ms"] / trace["wall_ms"]
+    step_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs_step(hf, model, opt, xb, yb)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(step_ms))
+    print(f"[obs] spans nest (batcher flush > {len(rungs)} rungs > "
+          f"kernels.signature; session flush > {len(in_flush)} kernels "
+          f"spans); counters equal the host's ({len(rnd)} requests, "
+          f"{int(cnt.sum())} ticks, {calls:.0f} dispatch calls); new launch "
+          f"shapes {sites}; one flight dump; §8 truncated step traced: wall "
+          f"{trace['wall_ms']:.3f} ms, device busy {trace['device_ms']:.3f} "
+          f"ms in {trace['kernels']} kernels, idle share {idle:.3f}; "
+          f"untraced {step_ms:.3f} ms (median of 5), busy over that "
+          f"{trace['device_ms'] / step_ms:.3f}", flush=True)
+    return dict(times=med, flush_launches=flush_launches, sites={
+        k: list(v) for k, v in sites.items()}, step_trace=trace,
+        step_idle_share=idle, step_ms=step_ms,
+        trace_events=len(doc["traceEvents"]))
+
+
+def phase_slice8(rng) -> dict:
+    """Phase 23: ragged serving, the hybrid cell, the autotuner and the
+    observability layer."""
+    ragged = phase_ragged(rng)
+    hyb = phase_hybrid(rng)
+    tune = phase_autotune(rng)
+    obs_ = phase_observability(rng, ragged)
+    for k in ("svc", "rounds"):
+        ragged.pop(k)
+    return dict(ragged=ragged, hybrid=hyb, autotune=tune,
+                observability=obs_)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write the measurements here (JSON)")
     args = ap.parse_args()
+    # phases 1-22 run the planner's partitions; phase 23 sweeps its own
+    os.environ["PATHSIG_AUTOTUNE"] = "off"
     smi = phase_device()
     ptxas = phase_build()
     rng = np.random.default_rng(args.seed)
@@ -3526,6 +4243,11 @@ def main() -> int:
     sessions = phase_sessions(rng)
     sessions_s = time.perf_counter() - t0
     print(f"[timing] sessions phase: {sessions_s:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    slice8 = phase_slice8(rng)
+    slice8_s = time.perf_counter() - t0
+    print(f"[timing] ragged, hybrid, autotune and observability phase: "
+          f"{slice8_s:.1f} s", flush=True)
     eng = sessions["engines"]
     src = "src/repro_torch/kernels/csrc/sig_trunc.cu"
     largest = max(table1, key=lambda r: r["bound_ms"])
@@ -3540,7 +4262,7 @@ def main() -> int:
     trunc_cases += [c["trunc"] for c in fused["table1"]]
     trunc_cases += [ckpt["trunc_case"], windows["fold_case"],
                     streams["extend_case"], sessions["pool"]["bucket_case"],
-                    eng["trunc_case"]]
+                    eng["trunc_case"], slice8["ragged"]["bucket_case"]]
     wsrc = "src/repro_torch/kernels/csrc/sig_words.cu"
     t3 = max(logsig, key=lambda r: r["bound_ms"])
     words_cases = [
@@ -3556,7 +4278,8 @@ def main() -> int:
              words=t3["words"], partition=t3["partition"],
              ms=t3["kernel_ms"], bound_ms=t3["bound_ms"],
              bound_by=t3["bound_by"]),
-        fused["projection"]["words"], windows["words_case"]]
+        fused["projection"]["words"], windows["words_case"],
+        slice8["hybrid"]["words_case"]]
     kernels = [
         dict(name="sig_trunc", route="cuda", source=src,
              replaces="src/repro/kernels/sig_trunc.py:300",
@@ -3604,7 +4327,7 @@ def main() -> int:
                  for name, t in (("reference Gram", score["ref_gram"]),
                                  ("cross-Gram", score["cross_gram"]),
                                  ("projected-MMD Gram", mmd["gram"]))]
-             + [eng["gram_case"]]),
+             + [eng["gram_case"], slice8["autotune"]["gram_case"]]),
     ]
     big = max(train, key=lambda r: r["sweep_bound_ms"])
     sweep_cases = [dict(case="largest Table 1 train cell",
@@ -3650,7 +4373,7 @@ def main() -> int:
             train=train, memory=memory, mmd_grad=mmd_grad, hurst=hurst,
             transform=fused, checkpoint=ckpt, windows=windows,
             streams=streams, new_phases_s=new_s, sessions=sessions,
-            sessions_s=sessions_s),
+            sessions_s=sessions_s, slice8=slice8, slice8_s=slice8_s),
             indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

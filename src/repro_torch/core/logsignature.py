@@ -122,8 +122,11 @@ def logsignature_projected(path, depth: int, *, basepoint: bool = False,
 
     On the ``cuda`` engine the word kernel runs over W_{<=N-1} ∪ Lyndon_N
     through :func:`repro_torch.kernels.ops.projected` (its backward is the
-    §4.2 ``sig_sweep`` kernel); on ``torch`` the word-table scan runs over
-    the same plan.
+    §4.2 ``sig_sweep`` kernel), as does ``backend="hybrid"``.  On
+    ``torch`` at depth >= 2 the hybrid engine computes the set
+    (:func:`repro_torch.core.hybrid.hybrid_low_plus_top`: the plan's words
+    are W_{<=N-1} ++ Lyndon_N in exactly its output order); at depth 1 the
+    word-table scan runs over the plan.
     """
     from ..kernels import ops  # deferred: ops imports this package
     path, squeeze = _as_path(path, device)
@@ -134,9 +137,15 @@ def logsignature_projected(path, depth: int, *, basepoint: bool = False,
         _projected_tables(d, depth)
     incs = tops.path_increments(path)
     dev = path.device
-    if ops.resolve_backend(backend, dev) == "cuda":
+    engine = "hybrid" if backend == "hybrid" else ops.resolve_backend(
+        backend, dev)
+    if engine != "torch":
         coeffs = ops.projected(incs, plan, backend=backend,
                                backward=backward, device=dev)
+    elif depth >= 2:
+        from .hybrid import hybrid_low_plus_top
+        coeffs = hybrid_low_plus_top(incs, plan.words[lown:], depth,
+                                     backward=backward)
     else:
         coeffs = projected_signature_from_increments(
             incs, plan, backward=backward, backend="torch", device=dev)

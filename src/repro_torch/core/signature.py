@@ -55,17 +55,6 @@ from . import tensor_ops as tops
 from .words import WordPlan, sig_dim, truncation_plan
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a reference feature that a later slice of the port
-    brings; ``item`` names the ROADMAP.md entry."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: it lands with ROADMAP.md "
-        f"{item}")
-
-
-HYBRID_ITEM = "queue 1 item 8 (the hybrid dense + top-word engine)"
-
-
 def stream_emit_steps(M: int, stride: int = 1) -> np.ndarray:
     """0-based scan steps emitted by a streamed forward: stride-1,
     2·stride-1, ..., with the terminal step M-1 always included.

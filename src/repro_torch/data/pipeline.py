@@ -1,8 +1,9 @@
-"""Fractional Brownian motion for the paper's §8 Hurst experiment, and
-multi-tenant session tick traffic.
+"""Fractional Brownian motion for the paper's §8 Hurst experiment,
+variable-length path batches, and multi-tenant session tick traffic.
 
-Port of ``fbm_paths``, ``hurst_dataset``, ``SessionTickStream`` and
-``session_tick_stream`` from ``repro.data.pipeline``: numpy only, and the
+Port of ``fbm_paths``, ``hurst_dataset``, ``geometric_lengths``,
+``ragged_fbm_dataset``, ``RaggedPathStream``, ``SessionTickStream`` and
+``session_tick_stream`` from ``repro.data.pipeline``: numpy draws, the
 same arrays as the reference for the same seed.
 """
 from __future__ import annotations
@@ -10,6 +11,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from ..device import resolve_device
 
 
 def fbm_paths(rng: np.random.Generator, n_paths: int, n_steps: int,
@@ -45,6 +49,101 @@ def hurst_dataset(seed: int, n_paths: int, n_steps: int, d: int,
     H = rng.uniform(*h_range, size=n_paths)
     X = fbm_paths(rng, n_paths, n_steps, H, d)
     return X, H.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# ragged (variable-length) generators: the trainer and the ragged serving
+# workload draw their mixed lengths from the same seekable pipeline
+# ---------------------------------------------------------------------------
+
+def geometric_lengths(seed: int, n: int, max_steps: int, min_steps: int = 2,
+                      mean_frac: float = 0.25) -> np.ndarray:
+    """Deterministic geometric-ish per-request lengths in
+    [min_steps, max_steps]; ``mean_frac`` sets the pre-clip mean to
+    ``mean_frac · max_steps``.  Same (seed, n, max_steps) -> same lengths."""
+    if not 1 <= min_steps <= max_steps:
+        raise ValueError(f"need 1 <= min_steps <= max_steps, got "
+                         f"{min_steps}, {max_steps}")
+    rng = np.random.default_rng((7919, seed))  # domain-separated from paths
+    p = min(1.0, 1.0 / max(mean_frac * max_steps, 1.0))
+    return np.clip(rng.geometric(p, size=n), min_steps,
+                   max_steps).astype(np.int64)
+
+
+def _freeze_tails(X: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Every point past an example's length repeats its endpoint."""
+    k = np.arange(X.shape[1])[None, :]
+    idx = np.minimum(k, lengths[:, None])
+    return np.take_along_axis(X, idx[..., None], axis=1)
+
+
+def ragged_fbm_dataset(seed: int, n_paths: int, max_steps: int, d: int,
+                       h_range=(0.25, 0.75), min_steps: int = 2):
+    """Variable-length fBM batch: (values (N, max_steps+1, d) frozen-tail
+    padded, lengths (N,) int32, H (N,)), the ragged spelling of
+    :func:`hurst_dataset`."""
+    rng = np.random.default_rng(seed)
+    H = rng.uniform(*h_range, size=n_paths)
+    lengths = geometric_lengths(seed, n_paths, max_steps,
+                                min_steps=min_steps)
+    X = _freeze_tails(fbm_paths(rng, n_paths, max_steps, H, d), lengths)
+    return X, lengths.astype(np.int32), H.astype(np.float32)
+
+
+@dataclasses.dataclass
+class RaggedPathStream:
+    """Deterministic, seekable stream of variable-length path batches on
+    ``device`` (default CUDA): ``{"paths": (B, max_steps+1, d) frozen-tail
+    padded, "path_lengths": (B,) int32}``.  ``kind="walk"`` draws scaled
+    Gaussian random walks, ``"fbm"`` per-example-Hurst fBM.  Each batch is
+    keyed by (seed, step) and its lengths by ``seed * 1_000_003 + step``,
+    so restoring ``state()`` resumes the exact stream."""
+    batch: int
+    max_steps: int
+    d: int
+    seed: int = 0
+    min_steps: int = 2
+    kind: str = "walk"          # "walk" | "fbm"
+    step: int = 0
+    device: object = None
+
+    def __post_init__(self):
+        if self.kind not in ("walk", "fbm"):
+            raise ValueError(f"unknown kind {self.kind!r}")
+        self.device = resolve_device(self.device)
+
+    def state(self) -> dict:
+        return {"step": self.step, "seed": self.seed}
+
+    def restore(self, state: dict) -> None:
+        self.step = int(state["step"])
+
+    def __iter__(self):
+        return self
+
+    def _draw(self) -> tuple[np.ndarray, np.ndarray]:
+        """The next batch as numpy (paths, lengths), advancing the step."""
+        rng = np.random.default_rng((self.seed, self.step))
+        lengths = geometric_lengths(self.seed * 1_000_003 + self.step,
+                                    self.batch, self.max_steps,
+                                    min_steps=self.min_steps)
+        if self.kind == "fbm":
+            H = rng.uniform(0.25, 0.75, size=self.batch)
+            X = fbm_paths(rng, self.batch, self.max_steps, H, self.d)
+        else:
+            steps = rng.standard_normal(
+                (self.batch, self.max_steps, self.d)).astype(np.float32)
+            steps /= np.sqrt(np.maximum(lengths, 1))[:, None, None]
+            X = np.concatenate(
+                [np.zeros((self.batch, 1, self.d), np.float32),
+                 np.cumsum(steps, axis=1)], axis=1)
+        self.step += 1
+        return _freeze_tails(X, lengths), lengths.astype(np.int32)
+
+    def __next__(self) -> dict:
+        X, lengths = self._draw()
+        return {"paths": torch.from_numpy(X).to(self.device),
+                "path_lengths": torch.from_numpy(lengths).to(self.device)}
 
 
 # ---------------------------------------------------------------------------

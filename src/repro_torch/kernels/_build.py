@@ -18,6 +18,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from ..obs.compile import count_trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -77,6 +79,7 @@ def build_all(names=None) -> dict[str, float]:
             failed.append(f"{name}.cu:\n{log}")
         else:
             os.replace(tmp, _lib_path(name))  # atomic: racing builds agree
+            count_trace(f"build.{name}", source=f"{name}.cu")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds

@@ -61,7 +61,9 @@ cuda       False   kernel over the closure tiles, (torch)       (torch)
 cuda       True    streamed kernel over the       ✗             (torch)
                    closure tiles; ``sig_sweep``
                    kernel bwd
-hybrid     any     not ported                     not ported    not ported
+hybrid     False   dense W_{<=N-1} + top-word     (torch)       scan AD
+                   chains, §4.2 inverse backward
+hybrid     True    ✗                              ✗             ✗
 =========  ======  =============================  ============  ==========
 
 ``gram`` (one row per engine; the product has no stream or backward mode):
@@ -82,12 +84,19 @@ projections) and runs the §4.2 reverse sweep, one ``sig_sweep`` launch a
 call on the card (:mod:`repro_torch.kernels.sig_sweep`).  The ``cuda``
 ``checkpoint`` cell (:func:`_checkpoint_cell`) saves the increments and
 O(√M) chunk states an example and rebuilds the states within a chunk by
-the same sweep.  ``backend="hybrid"`` lands with the hybrid-engine item
-(the error names the ROADMAP.md item).  For truncated signatures
-``backend="hybrid"`` raises as in the reference: it applies to projected
-word sets only.  ``max_rows`` bounds a tile's closure rows (a caller's
-``TiledPlan`` keeps its tiles); the reference's TPU ``batch_tile`` knob has
-no counterpart.
+the same sweep.  ``backend="hybrid"`` (:mod:`repro_torch.core.hybrid`,
+plain PyTorch on whatever device the tensors are on, as the reference's
+is jnp outside any Pallas kernel) runs the dense levelwise Horner step for
+every level below the set's top level and per-word chains for its
+top-level words only, then gathers the requested coordinates: the §3.3
+log-signature's shape.  A set whose depth is below 2 takes the torch
+word-table engine, ``checkpoint`` the torch engine's projected
+checkpoint, and a transform is materialised first.  For truncated
+signatures ``backend="hybrid"`` raises as in the reference: it applies to
+projected word sets only.  ``max_rows`` bounds a tile's closure rows (a
+caller's ``TiledPlan`` keeps its tiles; ``None`` is the autotuner's pick,
+:mod:`repro_torch.kernels.autotune`, else 256); the reference's TPU
+``batch_tile`` knob has no counterpart.
 
 ``lengths`` (B,) works in every cell: padded-tail increments are zero-masked
 before the engine runs (a zero increment is the identity Chen update), and
@@ -126,27 +135,69 @@ bf16 and accumulate in fp32, and streamed emissions are rounded to bf16.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.projection import plan_tables, projected_signature_from_increments
-from ..core.signature import (HYBRID_ITEM, as_lengths, canon_precision,
-                              default_chunk, mask_increments, not_ported,
-                              prepend_basepoint, quantise_increments,
-                              signature_combine, signature_from_increments,
-                              stream_emit_mask, unsupported_stream_backward)
+from ..core.signature import (as_lengths, canon_precision, default_chunk,
+                              mask_increments, prepend_basepoint,
+                              quantise_increments, signature_combine,
+                              signature_from_increments, stream_emit_mask,
+                              unsupported_stream_backward)
 from ..core.transforms import (as_transform, fused_augment, transform_dim,
-                               transform_time_aux)
-from ..core.words import TiledPlan, WordPlan, make_plan, make_tiled_plan
+                               transform_steps, transform_time_aux)
+from ..core.words import (TiledPlan, WordPlan, flat_index, make_plan,
+                          make_tiled_plan, sig_dim)
+from .. import obs
 from ..device import resolve_device
-from .cache import plan_cache
+from . import autotune
+from .cache import plan_cache, plan_cache_collector
 from .sig_gram import sig_gram, sig_gram_plain
-from .sig_trunc import sig_trunc
+from .sig_trunc import plan_launch, sig_trunc
 from .sig_words import sig_words
 
 BACKENDS = ("torch", "cuda", "auto")
 BACKWARDS = ("inverse", "checkpoint", "autodiff")
+
+obs.register_collector(plan_cache_collector)
+
+
+# ---------------------------------------------------------------------------
+# dispatch observability: per-entry call counters + tracer spans
+# ---------------------------------------------------------------------------
+
+def _dispatch_calls():
+    return obs.counter(
+        "pathsig_dispatch_calls_total",
+        "public dispatch entry calls (the port has no trace-time calls: "
+        "ctx is always eager)", ("op", "backend", "ctx"))
+
+
+def _obs_entry(fn):
+    """Wrap a public dispatch entry with call accounting
+    (``pathsig_dispatch_calls_total{op, backend, ctx="eager"}``) and a
+    ``kernels.<op>`` span.  Two flag checks when observability is off."""
+    site = fn.__name__
+
+    @functools.wraps(fn)
+    def wrapper(x, *args, **kwargs):
+        metrics_on = obs.REGISTRY._enabled
+        trace_on = obs.TRACER._active
+        if not metrics_on and not trace_on:
+            return fn(x, *args, **kwargs)
+        backend = str(kwargs.get("backend", "auto"))
+        if metrics_on:
+            _dispatch_calls().inc(op=site, backend=backend, ctx="eager")
+        if not trace_on:
+            return fn(x, *args, **kwargs)
+        with obs.span(f"kernels.{site}", backend=backend, ctx="eager",
+                      shapes=obs.shape_key(x)):
+            return fn(x, *args, **kwargs)
+
+    return wrapper
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:
@@ -214,16 +265,24 @@ def _fused_inputs(increments: torch.Tensor, lengths, spec, x0,
                   None if lengths is None else lengths * sub)
 
 
+def _tuned(examples: int | None) -> dict:
+    """The ``sig_trunc`` keyword of the autotuner's examples a block (none
+    when the planner chooses)."""
+    return {} if examples is None else {"examples": examples}
+
+
 def _signature_local(increments: torch.Tensor, lengths, *, depth: int,
                      engine: str, backward: str, split: int | None,
                      time_chunks: int, stream: bool, stream_stride: int,
-                     precision: str, transform=None,
-                     x0=None) -> torch.Tensor:
+                     precision: str, transform=None, x0=None,
+                     examples: int | None = None) -> torch.Tensor:
     """Single-device dispatch, in the reference's order: mask, quantise,
-    engine, then the streamed output mask."""
+    engine, then the streamed output mask.  ``examples`` (the autotuner's)
+    applies to the launches over the call's own batch."""
     kw = dict(depth=depth, engine=engine, backward=backward, split=split,
               time_chunks=time_chunks, stream=stream,
-              stream_stride=stream_stride, precision=precision)
+              stream_stride=stream_stride, precision=precision,
+              examples=examples)
     if transform is not None:
         return _signature_fused(increments, lengths, transform, x0, **kw)
     if lengths is not None:
@@ -239,7 +298,8 @@ def _signature_local(increments: torch.Tensor, lengths, *, depth: int,
                 device=increments.device)
         else:
             out = sig_trunc(increments, depth, split=split, stream=True,
-                            stream_stride=stream_stride, precision=precision)
+                            stream_stride=stream_stride, precision=precision,
+                            **_tuned(examples))
         return _finish_stream(out, precision, increments.shape[1],
                               stream_stride, lengths)
     if engine == "torch" or backward == "autodiff":
@@ -247,13 +307,15 @@ def _signature_local(increments: torch.Tensor, lengths, *, depth: int,
         return signature_from_increments(increments, depth, backward=backward,
                                          backend="torch",
                                          device=increments.device)
-    if time_chunks > 1:
+    if time_chunks > 1:  # the chunks' launch is over another batch
         return _time_parallel_combine(
-            lambda x: _signature_local(x, None, **dict(kw, time_chunks=1)),
+            lambda x: _signature_local(x, None, **dict(kw, time_chunks=1,
+                                                       examples=None)),
             increments, depth, time_chunks)
     if backward == "checkpoint":
         return _checkpoint_cell(increments, depth, split, precision)
-    return sig_trunc(increments, depth, split=split, precision=precision)
+    return sig_trunc(increments, depth, split=split, precision=precision,
+                     **_tuned(examples))
 
 
 def _checkpoint_cell(increments: torch.Tensor, depth: int,
@@ -311,7 +373,8 @@ def _time_parallel_combine(sig_flat_fn, increments: torch.Tensor, depth: int,
 def _signature_fused(increments: torch.Tensor, lengths, spec, x0, *,
                      depth: int, engine: str, backward: str,
                      split: int | None, time_chunks: int, stream: bool,
-                     stream_stride: int, precision: str) -> torch.Tensor:
+                     stream_stride: int, precision: str,
+                     examples: int | None) -> torch.Tensor:
     """The fused-transform cells of :func:`signature`: the ``cuda``
     ``inverse`` cells run ``sig_trunc`` on the raw increments and ``taux``
     (the reference's ``_pallas_sig_fused_inverse`` / ``_stream``); the
@@ -328,7 +391,8 @@ def _signature_fused(increments: torch.Tensor, lengths, spec, x0, *,
         return quantise_increments(out, precision) if stream else out
     kw = dict(depth=depth, engine=engine, backward=backward, split=split,
               time_chunks=time_chunks, stream=stream,
-              stream_stride=stream_stride, precision=precision)
+              stream_stride=stream_stride, precision=precision,
+              examples=examples)
     f = _fused_inputs(increments, lengths, spec, x0, precision)
     if not f.spec:  # basepoint only: one prepended increment, the plain cell
         return _signature_local(f.increments, f.lengths, **kw)
@@ -337,13 +401,14 @@ def _signature_fused(increments: torch.Tensor, lengths, spec, x0, *,
                                 None, **kw)
     out = sig_trunc(f.increments, depth, split=split, stream=stream,
                     stream_stride=stream_stride, precision=precision,
-                    transform=f.spec, taux=f.taux)
+                    transform=f.spec, taux=f.taux, **_tuned(examples))
     if not stream:
         return out
     return _finish_stream(out, precision, f.M_aug, stream_stride,
                           f.aug_lengths)
 
 
+@_obs_entry
 def signature(increments, depth: int, *, backend: str = "auto",
               backward: str = "inverse", split: int | None = None,
               time_chunks: int = 1, stream: bool = False,
@@ -358,7 +423,10 @@ def signature(increments, depth: int, *, backend: str = "auto",
     ``time_chunks`` > 1 folds that many time chunks into the kernel's batch
     and Chen-combines them (:func:`_time_parallel_combine`; the torch engine
     runs whole paths).  ``transform`` / ``x0`` apply a path transform fused
-    into the kernel (the ``transform`` column of the support matrix).
+    into the kernel (the ``transform`` column of the support matrix).  On
+    the ``cuda`` engine ``split=None`` consults the autotuner
+    (:mod:`repro_torch.kernels.autotune`) for the launch's split and
+    examples a block; on a miss the planner chooses.
     """
     dev = resolve_device(device)
     increments = torch.as_tensor(increments, device=dev)
@@ -378,13 +446,28 @@ def signature(increments, depth: int, *, backend: str = "auto",
                 "signatures only reconstruct the terminal state")
     if depth < 1:
         raise ValueError("depth must be >= 1")
+    examples = None
+    B = increments.shape[0]
+    d_eff = transform_dim(spec, increments.shape[-1])
+    if split is None:  # {} on the torch engine, which has no partition
+        hit = autotune.lookup(
+            "sig_trunc", engine=engine, d=d_eff, depth=depth,
+            M=transform_steps(spec, increments.shape[1]), B=B,
+            precision=precision)
+        split, examples = hit.get("split"), hit.get("examples")
+    if engine == "cuda" and obs.REGISTRY._enabled and B:
+        obs.gauge("pathsig_smem_state_bytes",
+                  "shared memory a block of the resolved launch plan takes",
+                  ("op",)).set(plan_launch(B, d_eff, depth, split,
+                                           examples).smem, op="signature")
     return _signature_local(increments, lengths, depth=depth, engine=engine,
                             backward=backward, split=split,
                             time_chunks=time_chunks, stream=stream,
                             stream_stride=stream_stride, precision=precision,
-                            transform=spec, x0=x0)
+                            transform=spec, x0=x0, examples=examples)
 
 
+@_obs_entry
 def signature_time_parallel(increments, depth: int, time_chunks: int, *,
                             backend: str = "auto", backward: str = "inverse",
                             split: int | None = None,
@@ -441,6 +524,38 @@ def _normalise_plans(plan, d: int) -> tuple[WordPlan, TiledPlan | None]:
     return _plan_for_words(tuple(tuple(w) for w in plan), d), None
 
 
+@plan_cache
+def _hybrid_gather(words: tuple, d: int) -> tuple[tuple, np.ndarray]:
+    """-> (top_words, out_idx): the level-N words the hybrid engine chains
+    explicitly, and the gather from its [dense W_{<=N-1} ++ top] buffer
+    back to the requested word order."""
+    wplan = _plan_for_words(words, d)
+    depth = wplan.depth
+    top = tuple(dict.fromkeys(w for w in wplan.words if len(w) == depth))
+    top_pos = {w: i for i, w in enumerate(top)}
+    lown = sig_dim(d, depth - 1)
+    idx = [lown + top_pos[w] if len(w) == depth else flat_index(w, d)
+           for w in wplan.words]
+    return top, np.asarray(idx, dtype=np.int64)
+
+
+def _hybrid_projected(increments: torch.Tensor, wplan: WordPlan,
+                      backward: str) -> torch.Tensor:
+    """The projected signature through the hybrid engine
+    (:func:`repro_torch.core.hybrid.hybrid_low_plus_top`), gathered to the
+    requested words; a set of depth below 2 has no dense block and runs
+    the torch word-table engine."""
+    if wplan.depth < 2:
+        return projected_signature_from_increments(
+            increments, wplan, backward=backward, backend="torch",
+            device=increments.device)
+    from ..core.hybrid import hybrid_low_plus_top
+    top, idx = _hybrid_gather(wplan.words, wplan.d)
+    buf = hybrid_low_plus_top(increments, top, wplan.depth,
+                              backward=backward)
+    return buf[:, torch.from_numpy(idx).to(buf.device)]
+
+
 def _closure_kernel(increments: torch.Tensor, wplan: WordPlan,
                     max_rows: int, stream: bool, stream_stride: int,
                     precision: str, transform=None,
@@ -477,7 +592,8 @@ def _projected_local(increments: torch.Tensor, lengths, *, wplan: WordPlan,
         f = _fused_inputs(increments, lengths, transform, x0, precision)
         if not f.spec:  # basepoint only: one prepended increment
             return _projected_local(f.increments, f.lengths, **kw)
-        if engine == "torch" or backward != "inverse" or f.M_aug == 0:
+        if engine in ("torch", "hybrid") or backward != "inverse" \
+                or f.M_aug == 0:
             return _projected_local(fused_augment(f.increments, f.taux,
                                                   f.spec), f.aug_lengths, **kw)
         out = _closure_kernel(f.increments, wplan, max_rows, stream,
@@ -491,6 +607,13 @@ def _projected_local(increments: torch.Tensor, lengths, *, wplan: WordPlan,
         increments = mask_increments(increments, lengths)
     increments = quantise_increments(increments, precision)
     M = increments.shape[1]
+    if engine == "hybrid":
+        if backward == "checkpoint":
+            # the hybrid engine keeps no chunk boundaries: the torch cell
+            return projected_signature_from_increments(
+                increments, wplan, backward=backward, backend="torch",
+                device=increments.device)
+        return _hybrid_projected(increments, wplan, backward)
     if stream:
         if engine == "torch" or backward == "autodiff" or M == 0:
             out = projected_signature_from_increments(
@@ -515,9 +638,8 @@ def _projected_args(increments, plan, backend: str, backward: str,
     :func:`projected_forward_only`."""
     dev = resolve_device(device)
     increments = torch.as_tensor(increments, device=dev)
-    if backend == "hybrid":
-        raise not_ported("backend='hybrid'", HYBRID_ITEM)
-    engine = resolve_backend(backend, dev)
+    engine = "hybrid" if backend == "hybrid" else resolve_backend(backend,
+                                                                  dev)
     _check_backward(backward)
     precision = canon_precision(precision)
     spec = as_transform(transform)
@@ -537,8 +659,21 @@ def _projected_args(increments, plan, backend: str, backward: str,
     return increments, engine, precision, wplan, tplan, spec
 
 
+def _max_rows(max_rows: int | None, engine: str, increments: torch.Tensor,
+              wplan: WordPlan, spec, precision: str) -> int:
+    """An explicit ``max_rows``, else the autotuner's ``sig_words`` pick on
+    the ``cuda`` engine, else 256."""
+    if max_rows is not None:
+        return max_rows
+    return autotune.lookup(
+        "sig_words", engine=engine, d=wplan.d, depth=wplan.depth,
+        M=transform_steps(spec, increments.shape[1]), B=increments.shape[0],
+        precision=precision).get("max_rows", 256)
+
+
+@_obs_entry
 def projected(increments, plan, *, backend: str = "auto",
-              backward: str = "inverse", max_rows: int = 256,
+              backward: str = "inverse", max_rows: int | None = None,
               stream: bool = False, stream_stride: int = 1, lengths=None,
               transform=None, x0=None, precision: str = "fp32",
               device=None) -> torch.Tensor:
@@ -550,13 +685,18 @@ def projected(increments, plan, *, backend: str = "auto",
     ``stream=True`` -> (B, M_out, |I|) per-step projections at every
     ``stream_stride``-th step (terminal always included).  ``lengths`` (B,)
     makes the batch ragged.  ``max_rows`` bounds the closure tiles of the
-    ``cuda`` engine (a TiledPlan's own largest tile sets it instead).
+    ``cuda`` engine (a TiledPlan's own largest tile sets it instead;
+    ``None`` is the autotuner's pick, else 256).
     ``transform`` / ``x0`` apply a path transform (the support matrix's
     ``transform`` column); the word set is then over the augmented
     alphabet.
     """
     increments, engine, precision, wplan, tplan, spec = _projected_args(
         increments, plan, backend, backward, transform, precision, device)
+    if engine == "hybrid" and stream:
+        raise NotImplementedError(
+            "backend='hybrid' has no streamed forward; use backend='torch' "
+            "or 'cuda' for stream=True")
     if stream:
         if stream_stride < 1:
             raise ValueError(
@@ -565,14 +705,18 @@ def projected(increments, plan, *, backend: str = "auto",
             raise unsupported_stream_backward(backward)
     if tplan is not None:  # keep the caller's tile granularity
         max_rows = max(p.closure_size for p in tplan.tiles)
+    max_rows = _max_rows(max_rows, engine, increments, wplan, spec,
+                         precision)
     return _projected_local(increments, lengths, wplan=wplan, engine=engine,
                             backward=backward, max_rows=max_rows,
                             stream=stream, stream_stride=stream_stride,
                             precision=precision, transform=spec, x0=x0)
 
 
+@_obs_entry
 def projected_forward_only(increments, plan, *, backend: str = "auto",
-                           max_rows: int = 256, lengths=None, transform=None,
+                           max_rows: int | None = None, lengths=None,
+                           transform=None,
                            x0=None, precision: str = "fp32",
                            device=None) -> torch.Tensor:
     """Inference-only projected signature: the ``cuda`` engine runs the
@@ -582,14 +726,18 @@ def projected_forward_only(increments, plan, *, backend: str = "auto",
     tiles are those of :func:`projected`).  The ``torch`` engine is the
     word-table scan.  (B, M, d) -> (B, |I|).  ``transform`` / ``x0`` as in
     :func:`projected`: the ``cuda`` engine fuses the transform into the
-    kernel, the torch engine materialises the augmented increments."""
+    kernel, the torch engine materialises the augmented increments.
+    ``max_rows=None`` is the autotuner's pick, else 256."""
     increments, engine, precision, wplan, tplan, spec = _projected_args(
         increments, plan, backend, "inverse", transform, precision, device)
+    if tplan is None:
+        max_rows = _max_rows(max_rows, engine, increments, wplan, spec,
+                             precision)
     fused = {}
     if spec is not None:
         f = _fused_inputs(increments, lengths, spec, x0, precision)
         increments = f.increments
-        if f.spec and engine == "torch":  # the torch engine materialises
+        if f.spec and engine != "cuda":  # torch and hybrid materialise
             increments = fused_augment(increments, f.taux, f.spec)
         elif f.spec:
             fused = dict(transform=f.spec, taux=f.taux)
@@ -599,6 +747,8 @@ def projected_forward_only(increments, plan, *, backend: str = "auto",
                                  increments.device)
             increments = mask_increments(increments, lengths)
         increments = quantise_increments(increments, precision)
+    if engine == "hybrid":
+        return _hybrid_projected(increments, wplan, "inverse")
     if engine == "torch":
         return projected_signature_from_increments(
             increments, wplan, backend="torch", device=increments.device)
@@ -617,11 +767,11 @@ class GramFunction(torch.autograd.Function):
     never forms a (B_x, B_y, D) intermediate."""
 
     @staticmethod
-    def forward(ctx, Sx, Sy, w, engine, block_words):
+    def forward(ctx, Sx, Sy, w, engine, block_words, tuned):
         ctx.save_for_backward(Sx, Sy, w)
         dt = torch.promote_types(Sx.dtype, torch.float32)
         if engine == "cuda":
-            return sig_gram(Sx, Sy, w).to(dt)
+            return sig_gram(Sx, Sy, w, **tuned).to(dt)
         return sig_gram_plain(Sx, Sy, w, block_words)
 
     @staticmethod
@@ -631,9 +781,10 @@ class GramFunction(torch.autograd.Function):
         dSx = (g @ (Sy * w[None, :])).to(Sx.dtype)
         dSy = (g.T @ (Sx * w[None, :])).to(Sy.dtype)
         dw = ((g.T @ Sx) * Sy).sum(dim=0).to(w.dtype)
-        return dSx, dSy, dw, None, None
+        return dSx, dSy, dw, None, None, None
 
 
+@_obs_entry
 def gram(Sx, Sy, weights, *, backend: str = "auto",
          block_words: int | None = None, bx_tile: int | None = None,
          by_tile: int | None = None, precision: str = "fp32",
@@ -649,7 +800,8 @@ def gram(Sx, Sy, weights, *, backend: str = "auto",
     ``bx_tile``/``by_tile`` (default 128) are the reference's TPU block
     shapes and are checked only: the CUDA kernel chooses its tile (128 or
     64 rows of S_x by 128 of S_y), its split of the words and its copy
-    width from the shape and the pointers (``kernels/sig_gram.py``).
+    width from the shape and the pointers (``kernels/sig_gram.py``), or
+    takes the autotuner's ``{rows, slice_words}`` for the cell.
     """
     dev = resolve_device(device)
     Sx = torch.as_tensor(Sx, device=dev)
@@ -671,4 +823,7 @@ def gram(Sx, Sy, weights, *, backend: str = "auto",
             raise ValueError(f"{name} must be >= 1, got {v}")
     Sx = quantise_increments(Sx, precision)
     Sy = quantise_increments(Sy, precision)
-    return GramFunction.apply(Sx, Sy, weights, engine, block_words)
+    tuned = autotune.partition(autotune.lookup(
+        "gram", engine=engine, D=Sx.shape[1], Bx=Sx.shape[0],
+        By=Sy.shape[0], precision=precision), "gram")
+    return GramFunction.apply(Sx, Sy, weights, engine, block_words, tuned)

@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from ..obs.compile import count_new_shape
 from . import _build
 
 MAX_ROW_TILES = 65_535   # the grid's y extent, in row tiles of S_x
@@ -41,6 +42,8 @@ BLOCKS_PER_SM = {64: 2, 128: 1}
 
 # launch counter, bumped where the kernel is launched
 launches = 0
+# every launch shape met so far (the wrapper's counterpart of a jit cache)
+launch_shapes: set = set()
 
 
 def _check_shapes(Sx: torch.Tensor, Sy: torch.Tensor,
@@ -172,17 +175,31 @@ def sig_gram_plain(Sx: torch.Tensor, Sy: torch.Tensor, weights: torch.Tensor,
     return G
 
 
-def sig_gram(Sx: torch.Tensor, Sy: torch.Tensor,
-             weights: torch.Tensor) -> torch.Tensor:
+def sig_gram(Sx: torch.Tensor, Sy: torch.Tensor, weights: torch.Tensor,
+             *, rows: int | None = None,
+             slice_words: int | None = None) -> torch.Tensor:
     """Weighted Gram G[i, j] = Σ_k Sx[i, k] · weights[k] · Sy[j, k].
 
     Sx (B_x, D), Sy (B_y, D), weights (D,) -> (B_x, B_y) float32, with the
     operands cast to float32 as the reference kernel casts them.  A CPU
     tensor runs :func:`sig_gram_plain`; a CUDA tensor launches the kernel.
+    ``rows`` (64 or 128 rows of S_x a tile) and ``slice_words`` (a
+    multiple of ``KBLOCK``) override the planner's partition (the
+    autotuner's ``gram`` record).
     """
     _check_shapes(Sx, Sy, weights)
     if Sx.device != Sy.device:
         raise ValueError(f"Sx on {Sx.device}, Sy on {Sy.device}")
+    if rows not in (None, 64, 128):
+        raise ValueError(f"rows must be 64 or 128, got {rows}")
+    if slice_words is not None and (slice_words < KBLOCK
+                                    or slice_words % KBLOCK):
+        raise ValueError(f"slice_words must be a positive multiple of "
+                         f"{KBLOCK}, got {slice_words}")
+    count_new_shape("sig_gram_tiles", launch_shapes,
+                    (tuple(Sx.shape), tuple(Sy.shape), Sx.dtype, rows,
+                     slice_words),
+                    Sx, Sy, rows=rows, slice_words=slice_words)
     if Sx.device.type == "cpu":
         return sig_gram_plain(Sx.float(), Sy.float(), weights.float())
     if Sx.device.type != "cuda":
@@ -191,4 +208,4 @@ def sig_gram(Sx: torch.Tensor, Sy: torch.Tensor,
     if 0 in (Sx.shape[0], Sy.shape[0], Sx.shape[1]):  # empty: no launch
         return torch.zeros((Sx.shape[0], Sy.shape[0]), dtype=torch.float32,
                            device=Sx.device)
-    return _launch(Sx, Sy, weights)
+    return _launch(Sx, Sy, weights, rows, slice_words)

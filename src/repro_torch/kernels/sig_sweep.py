@@ -36,6 +36,7 @@ import torch
 
 from ..core.signature import stream_emit_steps
 from ..core.words import WordPlan
+from ..obs.compile import count_new_shape
 from . import _build
 from .cache import plan_cache
 
@@ -54,6 +55,8 @@ CHUNK = 32            # SS_CHUNK: steps of increments staged at once
 
 # launch counter, bumped where the kernel is launched
 launches = 0
+# every launch shape met so far (the wrapper's counterpart of a jit cache)
+launch_shapes: set = set()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -492,6 +495,11 @@ def sig_sweep(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
     :func:`sig_sweep_plain`; a CUDA tensor launches the kernel, which sums
     in fp32."""
     _check(increments, plan, S_T, g, stream, stream_stride)
+    count_new_shape("sig_sweep", launch_shapes,
+                    (tuple(increments.shape), increments.dtype,
+                     len(plan.words), plan.depth, stream, stream_stride),
+                    increments, words=len(plan.words), stream=stream,
+                    stride=stream_stride)
     if increments.device.type == "cpu":
         return sig_sweep_plain(increments, plan, S_T, g, stream=stream,
                                stream_stride=stream_stride)

@@ -48,6 +48,7 @@ from ..core.signature import (_fused_scan_forward, _scan_forward,
                               truncation_closure)
 from ..core.transforms import fused_adjoint, fused_augment, transform_dim
 from ..core.words import sig_dim
+from ..obs.compile import count_new_shape
 from . import _build
 from .cache import plan_cache
 from .sig_sweep import sig_sweep
@@ -74,6 +75,8 @@ MIN_BLOCK = 128     # below this, examples of one cone may share a block
 launches = 0
 stream_launches = 0
 fused_launches = 0
+# every launch shape met so far (the wrapper's counterpart of a jit cache)
+launch_shapes: set = set()
 
 
 def cone_base_level(s: int) -> int:
@@ -338,7 +341,7 @@ def _launch(incs: torch.Tensor, depth: int, split: int | None, stream: bool,
     Returns fp32 (B, D_sig), or (B, M_out, D_sig) in the storage dtype,
     over the d = transform_dim(transform, d_raw) augmented letters and
     M_aug augmented steps.  ``plan`` (from :func:`plan_launch` at d)
-    replaces the planner's, for tests and measurements."""
+    replaces the planner's (a forced partition, or the autotuner's)."""
     global launches, stream_launches, fused_launches
     B, M, d_raw = incs.shape
     ll, time = fuse_flags(transform)
@@ -393,9 +396,13 @@ class SigTruncFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, increments, depth, split, stream, stride, precision,
-                transform=None, taux=None):
+                transform=None, taux=None, examples=None):
+        plan = None if examples is None else plan_launch(
+            increments.shape[0], transform_dim(transform,
+                                               increments.shape[-1]),
+            depth, split, examples)
         out = _launch(increments, depth, split, stream, stride, precision,
-                      None, transform, taux)
+                      plan, transform, taux)
         ctx.save_for_backward(increments, taux,
                               out[:, -1].clone() if stream else out)
         ctx.depth, ctx.stream, ctx.stride = depth, stream, stride
@@ -412,7 +419,7 @@ class SigTruncFunction(torch.autograd.Function):
                        stream_stride=ctx.stride)
         if ctx.transform is not None:
             gx = fused_adjoint(gx, ctx.transform, increments.shape[-1])
-        return gx, None, None, None, None, None, None, None
+        return gx, None, None, None, None, None, None, None, None
 
 
 def sig_trunc_plain(increments: torch.Tensor, depth: int, *,
@@ -436,8 +443,8 @@ def sig_trunc_plain(increments: torch.Tensor, depth: int, *,
 def sig_trunc(increments: torch.Tensor, depth: int, *,
               split: int | None = None, stream: bool = False,
               stream_stride: int = 1, precision: str = "fp32",
-              transform=None,
-              taux: torch.Tensor | None = None) -> torch.Tensor:
+              transform=None, taux: torch.Tensor | None = None,
+              examples: int | None = None) -> torch.Tensor:
     """Truncated signature through the cone kernel.  (B, M, d) ->
     (B, D_sig), or with ``stream=True`` (B, M_out, D_sig), M_out =
     ceil(M / stream_stride), in the input dtype.
@@ -445,7 +452,8 @@ def sig_trunc(increments: torch.Tensor, depth: int, *,
     Increments are stored in the precision's dtype (bf16 under
     ``"bf16_fp32"``) and accumulated in fp32; float64 inputs run in fp32 and
     are cast back.  ``split`` forces the cone level (default: the
-    planner's, :func:`plan_launch`).  ``transform`` (basepoint-free) and
+    planner's, :func:`plan_launch`) and ``examples`` the examples of one
+    cone a block.  ``transform`` (basepoint-free) and
     ``taux`` (the (B, 2) ``transform_time_aux`` rows, needed iff it has a
     time channel) fuse lead_lag / time_augment into the kernel: the
     increments stay raw (B, M, d_raw), the output is over d_aug letters
@@ -469,6 +477,12 @@ def sig_trunc(increments: torch.Tensor, depth: int, *,
     storage = _storage_dtype(precision)
     if split is not None:
         check_split(d, depth, split)
+    count_new_shape("sig_trunc", launch_shapes,
+                    (tuple(increments.shape), increments.dtype, depth, split,
+                     examples, stream, stream_stride, precision, transform),
+                    increments, depth=depth, split=split, examples=examples,
+                    stream=stream, stride=stream_stride, precision=precision,
+                    transform=str(transform) if transform else None)
     if increments.device.type == "cpu":
         x = increments.to(storage).to(torch.float32)
         ta = None if taux is None else taux.to(torch.float32)
@@ -486,5 +500,6 @@ def sig_trunc(increments: torch.Tensor, depth: int, *,
             if stream else (B, sig_dim(d, depth))
         return increments.new_zeros(shape)
     out = SigTruncFunction.apply(increments, depth, split, stream,
-                                 stream_stride, precision, transform, taux)
+                                 stream_stride, precision, transform, taux,
+                                 examples)
     return out.to(increments.dtype)

@@ -53,6 +53,7 @@ import torch
 from ..core.signature import _fused_build_increment, stream_emit_steps
 from ..core.transforms import fused_adjoint, fused_augment, transform_dim
 from ..core.words import TiledPlan, WordPlan
+from ..obs.compile import count_new_shape
 from . import _build
 from .cache import plan_cache
 from .sig_sweep import sig_sweep
@@ -83,6 +84,8 @@ MIN_BLOCK = 128       # below this, examples of one group share a block
 launches = 0
 stream_launches = 0
 fused_launches = 0
+# every launch shape met so far (the wrapper's counterpart of a jit cache)
+launch_shapes: set = set()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -640,6 +643,14 @@ def sig_words(increments: torch.Tensor, tplan: TiledPlan, *,
     if stream_stride < 1:
         raise ValueError(f"stream_stride must be >= 1, got {stream_stride}")
     storage = _storage_dtype(precision)
+    count_new_shape("sig_words", launch_shapes,
+                    (tuple(increments.shape), increments.dtype,
+                     len(tplan.words), len(tplan.tiles), stream,
+                     stream_stride, precision, transform),
+                    increments, words=len(tplan.words),
+                    tiles=len(tplan.tiles), stream=stream,
+                    stride=stream_stride, precision=precision,
+                    transform=str(transform) if transform else None)
     if increments.device.type == "cpu":
         x = increments.to(storage).to(torch.float32)
         ta = None if taux is None else taux.to(torch.float32)

@@ -42,6 +42,31 @@ def assign_buckets(lengths, ladder: np.ndarray) -> np.ndarray:
     return np.searchsorted(ladder, lengths, side="left").astype(np.int64)
 
 
+def bucket_paths(rp: RaggedPaths, ladder=None, min_len: int = 16,
+                 growth: float = 2.0) -> list[tuple[np.ndarray, RaggedPaths]]:
+    """Split a ragged batch into per-rung sub-batches:
+    ``[(orig_indices, sub_batch), ...]``, each sub-batch cut and padded to
+    its rung's increment count.  The lengths are read on the host once;
+    the row gathers stay on the batch's device, so a bucket is one
+    engine launch."""
+    lengths = rp.lengths.cpu().numpy()
+    if ladder is None:
+        ladder = bucket_ladder(max(int(lengths.max()), 1), min_len=min_len,
+                               growth=growth)
+    ladder = np.asarray(ladder, np.int64)
+    which = assign_buckets(lengths, ladder)
+    out = []
+    for k in range(len(ladder)):
+        idx = np.nonzero(which == k)[0]
+        if idx.size == 0:
+            continue
+        sub = rp.take(idx)
+        rung = int(ladder[k])
+        sub = RaggedPaths(sub.values[:, :rung + 1], sub.lengths)
+        out.append((idx, sub.pad_to(rung)))
+    return out
+
+
 def pad_batch(rp: RaggedPaths, target_batch: int) -> RaggedPaths:
     """Pad the batch axis with zero-length dummy rows (their results are
     dropped by the caller)."""

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..core import tensor_ops as tops
-from ..core.signature import as_lengths, mask_increments
+from ..core.signature import as_lengths, length_mask, mask_increments
 from ..device import resolve_device
 
 
@@ -58,6 +58,21 @@ class RaggedPaths:
                    torch.from_numpy(lengths).to(dev))
 
     @classmethod
+    def from_segments(cls, flat, segment_points: Sequence[int],
+                      pad_to: int | None = None, dtype=torch.float32,
+                      device=None) -> "RaggedPaths":
+        """From a flat (Σ(M_i+1), d) concatenation and per-path point counts
+        (the CSR-style spelling of request queues)."""
+        flat = flat.cpu().numpy() if torch.is_tensor(flat) else \
+            np.asarray(flat)
+        pts = np.asarray(segment_points, np.int64)
+        if pts.sum() != flat.shape[0]:
+            raise ValueError(f"segment points sum to {pts.sum()} but flat "
+                             f"has {flat.shape[0]} rows")
+        return cls.from_list(np.split(flat, np.cumsum(pts)[:-1]),
+                             pad_to=pad_to, dtype=dtype, device=device)
+
+    @classmethod
     def from_dense(cls, values, lengths, device=None) -> "RaggedPaths":
         """From an already-padded (B, M+1, d) batch + lengths.  The tail is
         not rewritten (signature entry points mask it anyway)."""
@@ -85,6 +100,15 @@ class RaggedPaths:
         """(B, M_max, d) increments with the padded tail zero-masked."""
         return mask_increments(tops.path_increments(self.values),
                                self.lengths)
+
+    def point_mask(self) -> torch.Tensor:
+        """(B, M_max+1) bool: True at meaningful points (k <= lengths)."""
+        return length_mask(self.lengths + 1, self.values.shape[1])
+
+    def terminal_points(self) -> torch.Tensor:
+        """(B, d) each example's true endpoint X_{L_b}."""
+        idx = self.lengths.long()[:, None, None].expand(-1, 1, self.d)
+        return torch.gather(self.values, 1, idx)[:, 0]
 
     def pad_to(self, M: int) -> "RaggedPaths":
         """Re-pad to M increments (frozen tail); same lengths."""

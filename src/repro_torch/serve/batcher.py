@@ -45,6 +45,7 @@ import torch
 
 from ..core import tensor_ops as tops
 from ..device import resolve_device
+from .. import obs
 from ..kernels.cache import plan_cache_info
 from ..obs import slo as slo_mod
 from ..ragged import (RaggedPaths, assign_buckets, batch_rung, bucket_ladder,
@@ -121,6 +122,10 @@ class DynamicBatcher:
         t = self._next_ticket
         self._next_ticket += 1
         self._queue.append(_Request(t, path, length))
+        if obs.enabled():
+            obs.gauge("pathsig_batcher_queue_depth",
+                      "requests waiting in the DynamicBatcher queue",
+                      ).set(len(self._queue))
         return t
 
     @property
@@ -207,7 +212,11 @@ class DynamicBatcher:
                 # until the compute stream is done with it
                 rp.values.record_stream(main)
                 rp.lengths.record_stream(main)
-            res = self.compute(rp)
+            rung, B_pad = rp.values.shape[1] - 1, rp.values.shape[0]
+            with obs.span("serve.batcher.rung", rung=rung, B_pad=B_pad,
+                          rows=len(part), prefetched=len(placed),
+                          clock="host: the launches, not the device work"):
+                res = self.compute(rp)
             self.batches += 1
             results.append((part, res))
             done = None
@@ -218,6 +227,7 @@ class DynamicBatcher:
             self._in_flight_peak = max(self._in_flight_peak, len(in_flight))
         return results
 
+    @obs.dump_on_error("batcher.flush")
     def flush(self) -> dict[int, torch.Tensor]:
         """Run every queued request through bucketed micro-batches; returns
         {ticket: result_row}."""
@@ -226,10 +236,33 @@ class DynamicBatcher:
         if not queue:
             return out
         t_flush = time.perf_counter()
-        for part, res in self._run_groups(self._pack_groups(queue)):
-            for row, req in enumerate(part):
-                out[req.ticket] = res[row]
+        with obs.span("serve.batcher.flush", requests=len(queue)):
+            for part, res in self._run_groups(self._pack_groups(queue)):
+                for row, req in enumerate(part):
+                    out[req.ticket] = res[row]
         self._flush_latencies.append(time.perf_counter() - t_flush)
+        if obs.enabled():
+            obs.histogram(
+                "pathsig_batcher_flush_seconds",
+                "host wall-clock of one DynamicBatcher.flush (launch side)",
+            ).observe(time.perf_counter() - t_flush)
+            obs.counter("pathsig_batcher_requests_total",
+                        "requests served through DynamicBatcher.flush",
+                        ).inc(len(queue))
+            obs.gauge("pathsig_batcher_padding_overhead",
+                      "cumulative padded/true step ratio fed to the engine",
+                      ).set(self.padded_steps / self.true_steps
+                            if self.true_steps else 0.0)
+            obs.gauge("pathsig_batcher_occupancy",
+                      "cumulative true/padded batch-row occupancy",
+                      ).set(self.true_rows / self.padded_rows
+                            if self.padded_rows else 0.0)
+            obs.gauge("pathsig_batcher_compiled_shapes",
+                      "distinct (rung, B_pad) shapes fed to the engine",
+                      ).set(len(self.shapes_seen))
+            obs.gauge("pathsig_batcher_queue_depth",
+                      "requests waiting in the DynamicBatcher queue",
+                      ).set(len(self._queue))
         return out
 
     def _flush_pctl(self, q: float) -> float:

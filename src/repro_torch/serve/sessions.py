@@ -54,6 +54,7 @@ from ..convert import backend_from_reference, dtype_from_reference
 from ..core.stream import (SignatureStream, StreamCarry, stream_extend,
                            stream_init, stream_rolling_drop, stream_take)
 from ..device import resolve_device
+from .. import obs
 from ..kernels.cache import plan_cache_info
 from ..obs import slo as slo_mod
 from ..ragged import batch_rung
@@ -343,6 +344,7 @@ class SessionStore:
 
     def _evict_sids(self, sids: list[Sid], *, reason: str) -> None:
         slots = []
+        dropped_ticks = 0
         for sid in sids:
             slot = self._ids.pop(sid)
             self._valid[slot] = False
@@ -350,9 +352,18 @@ class SessionStore:
             dropped = self._pending.pop(slot, None)
             if dropped is not None:
                 self.dropped_ticks += dropped.ticks
+                dropped_ticks += dropped.ticks
             self._free.append(slot)
             slots.append(slot)
         self.evictions[reason] = self.evictions.get(reason, 0) + len(sids)
+        if obs.enabled():
+            obs.counter("pathsig_sessions_evictions_total",
+                        "SessionStore slot evictions by reason",
+                        ("reason",)).inc(len(sids), reason=reason)
+            if dropped_ticks:
+                obs.counter("pathsig_sessions_dropped_ticks_total",
+                            "queued ticks lost to eviction"
+                            ).inc(dropped_ticks)
         with torch.no_grad():
             self._carry.valid.index_fill_(0, self._index(np.asarray(slots)),
                                           False)
@@ -372,6 +383,7 @@ class SessionStore:
 
     # -- ingest ------------------------------------------------------------
 
+    @obs.dump_on_error("sessions.ingest")
     def ingest(self, session: Union[Sid, SessionHandle], increments, *,
                now: Optional[float] = None) -> None:
         """Queue (m, d) new increments for one session (delivered at the
@@ -383,6 +395,7 @@ class SessionStore:
                              f"{inc.shape}")
         self._queue(h.slot, inc, now)
 
+    @obs.dump_on_error("sessions.ingest_many")
     def ingest_many(self, sids, counts, ticks, *,
                     now: Optional[float] = None,
                     auto_create: bool = False) -> None:
@@ -430,6 +443,7 @@ class SessionStore:
 
     # -- flush: continuous-batching delivery -------------------------------
 
+    @obs.dump_on_error("sessions.flush")
     def flush(self, *, now: Optional[float] = None) -> int:
         """Deliver every queued tick through bucketed pool updates; advance
         the logical clock; TTL-sweep.  Returns the number of ticks applied.
@@ -450,20 +464,50 @@ class SessionStore:
         pending, self._pending = self._pending, {}
         applied = 0
         t0 = time.perf_counter()
+        metrics_on = obs.enabled()
+        stale_h = obs.histogram(
+            "pathsig_sessions_staleness_seconds",
+            "queue residency (enqueue -> flush) per pending session"
+        ) if metrics_on else None
         for p in pending.values():
             self._staleness.append(t0 - p.t_enqueue)
-        # waves: each wave takes at most max_ticks per session, arrival order
-        work = {s: np.concatenate(p.chunks) if len(p.chunks) > 1
-                else p.chunks[0] for s, p in pending.items()}
-        while work:
-            wave = {s: a[:self.max_ticks] for s, a in work.items()}
-            work = {s: a[self.max_ticks:] for s, a in work.items()
-                    if a.shape[0] > self.max_ticks}
-            applied += self._apply_wave(wave)
+            if stale_h is not None:
+                stale_h.observe(t0 - p.t_enqueue)
+        with obs.span("serve.sessions.flush", sessions=len(pending)):
+            # waves: each wave takes at most max_ticks per session, arrival
+            # order
+            work = {s: np.concatenate(p.chunks) if len(p.chunks) > 1
+                    else p.chunks[0] for s, p in pending.items()}
+            while work:
+                wave = {s: a[:self.max_ticks] for s, a in work.items()}
+                work = {s: a[self.max_ticks:] for s, a in work.items()
+                        if a.shape[0] > self.max_ticks}
+                applied += self._apply_wave(wave)
         self.flushes += 1
         self.now = (self.now + 1.0) if now is None else float(now)
         self.sweep()
+        if metrics_on:
+            obs.histogram(
+                "pathsig_sessions_flush_seconds",
+                "host wall-clock of one SessionStore.flush (launch side)"
+            ).observe(time.perf_counter() - t0)
+            obs.counter("pathsig_sessions_ticks_applied_total",
+                        "increments delivered to the pool by flushes"
+                        ).inc(applied)
+            obs.gauge("pathsig_sessions_pool_occupancy",
+                      "live sessions / pool slots").set(
+                len(self._ids) / self._carry.size)
+            obs.gauge("pathsig_sessions_rung_shapes",
+                      "distinct (tick rung, row rung) flush shapes so far"
+                      ).set(len(self._flush_shapes))
         return applied
+
+    def _new_shape(self, site: str, key: tuple) -> None:
+        """Record a launch shape; a new one ticks ``site``'s retrace
+        counter (the reference's jit site of that compute)."""
+        if key not in self._shape_keys:
+            self._shape_keys.add(key)
+            obs.count_trace(site, *key[1:])
 
     def _rungs(self, ms: np.ndarray) -> np.ndarray:
         return np.minimum(self.max_ticks, 2 ** np.ceil(np.log2(
@@ -498,8 +542,8 @@ class SessionStore:
                         % self.ring_capacity
                 applied += int(counts.sum())
                 self._flush_shapes.add((int(rung), B))
-                self._shape_keys.add(("flush", int(rung), B,
-                                      self._carry.size))
+                self._new_shape("session_flush", ("flush", int(rung), B,
+                                                  self._carry.size))
         self.updates += applied
         return applied
 
@@ -621,9 +665,10 @@ class SessionStore:
                             stream_stride=stream_stride)
         sub, feats = out if return_stream else (out, None)
         self._write_rows(idx, sub, len(slots))
-        self._shape_keys.add(("extend", len(slots), m, self._carry.size,
-                              return_stream, stream_stride, backward,
-                              self.backend))
+        self._new_shape("session_extend",
+                        ("extend", len(slots), m, self._carry.size,
+                         return_stream, stream_stride, backward,
+                         self.backend))
         self._length[slots] += m
         if R:
             self._end[slots] = (self._end[slots] + m) % R
@@ -647,7 +692,8 @@ class SessionStore:
         idx = self._index(slots)
         sub = stream_rolling_drop(stream_take(self._carry, idx), int(n))
         self._write_rows(idx, sub, len(slots))
-        self._shape_keys.add(("drop", len(slots), int(n), self._carry.size))
+        self._new_shape("session_drop",
+                        ("drop", len(slots), int(n), self._carry.size))
         self._length[slots] -= n
 
     def reset_block(self, sessions) -> None:

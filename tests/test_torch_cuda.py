@@ -750,3 +750,71 @@ def test_batcher_prefetch_on_the_card_is_bitwise_serial(cuda):
         assert stats["in_flight_peak"] <= db.max_in_flight
         assert (stats["prefetched_rungs"] > 0) == flag
     assert torch.equal(out[True], out[False])
+
+
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    """A temporary autotune cache in load mode, on this card."""
+    from repro_torch.kernels import autotune
+    p = tmp_path / "tune.json"
+    monkeypatch.setenv("PATHSIG_AUTOTUNE_CACHE", str(p))
+    monkeypatch.setenv("PATHSIG_AUTOTUNE", "load")
+    autotune.clear()
+    yield autotune
+    autotune.clear()
+
+
+@pytest.mark.cuda
+def test_tuned_sig_trunc_partitions_match_plain(cuda, tune_cache):
+    """Every {split, examples} the tuner may record, taken from its cache
+    by ops.signature, against the plain version."""
+    x = _incs(40, 6, 21, 3, cuda)
+    want = st.sig_trunc_plain(x.double(), 4)
+    cell = dict(engine="cuda", d=3, depth=4, M=21, B=6, precision="fp32")
+    key = tune_cache.cell_key("sig_trunc", **cell)
+    for p in st.partition_variants(6, 3, 4):
+        tune_cache.save_cache({key: {"split": p.split,
+                                     "examples": p.examples}})
+        st.launches = 0
+        got = ops.signature(x, 4)
+        assert st.launches == 1
+        torch.testing.assert_close(got.double(), want, **TOL)
+
+
+@pytest.mark.cuda
+def test_tuned_gram_partitions_match_plain(cuda, tune_cache):
+    g = torch.Generator().manual_seed(3)
+    Sx = torch.randn((70, 1300), generator=g).to(cuda)
+    Sy = torch.randn((130, 1300), generator=g).to(cuda)
+    w = torch.rand(1300, generator=g).to(cuda)
+    want = sg.sig_gram_plain(Sx.double(), Sy.double(), w.double())
+    key = tune_cache.cell_key("gram", engine="cuda", D=1300, Bx=70, By=130,
+                              precision="fp32")
+    for rows in (64, 128):
+        for words in (512, 1024, 1536):
+            tune_cache.save_cache({key: {"rows": rows,
+                                         "slice_words": words}})
+            got = ops.gram(Sx, Sy, w)
+            assert (got.double() - want).abs().max() <= \
+                1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_hybrid_on_card_tensors_matches_the_word_kernel(cuda):
+    """backend="hybrid" runs plain PyTorch on the card: values and
+    gradients against the sig_words route and sig_sweep."""
+    d, N = 4, 4
+    words = tw.all_words(d, N - 1) + [w for w in tw.lyndon_words(d, N)
+                                      if len(w) == N]
+    x = _incs(41, 8, 30, d, cuda).requires_grad_()
+    outs, grads = [], []
+    for backend in ("hybrid", "cuda"):
+        out = ops.projected(x, words, backend=backend)
+        (g,) = torch.autograd.grad((out ** 2).sum(), x)
+        outs.append(out.double())
+        grads.append(g.double())
+    assert outs[0].device.type == "cuda"
+    torch.testing.assert_close(outs[0], outs[1], **TOL)
+    scale = grads[1].abs().max()
+    assert ((grads[0] - grads[1]).abs()
+            <= 1e-3 * grads[1].abs() + 1e-4 * scale).all()

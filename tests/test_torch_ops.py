@@ -120,14 +120,9 @@ WORDS = [(0,), (1, 0), (1, 1, 0)]
 
 
 @pytest.mark.parametrize("fn", ["projected", "projected_forward_only"])
-def test_projected_unported_cells_name_the_roadmap(fn):
+def test_projected_rejects_a_missing_card_and_a_wrong_alphabet(fn):
     x = torch.zeros(1, 3, 2)
     call = getattr(ops, fn)
-    cells = [(dict(backend="hybrid"), "hybrid")]
-    for kw, what in cells:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-            call(x, WORDS, device="cpu", **kw)
-        assert what in str(e.value)
     with pytest.raises(ValueError, match="CUDA device"):
         call(x, WORDS, backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="letters"):
