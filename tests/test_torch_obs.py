@@ -593,12 +593,16 @@ def test_sigusr2_dumps_live_ring(tmp_path, monkeypatch):
     if not flight._SIG_INSTALLED:
         pytest.skip("SIGUSR2 hook not installed in this process")
     monkeypatch.setenv("PATHSIG_FLIGHT_DIR", str(tmp_path))
-    # the reference's hook, chained behind this one in a process that
-    # imports both packages, would overwrite the same file name
+    # in a process that imports both packages the two hooks chain and
+    # would both write a dump: give the signal to this one alone
     monkeypatch.setattr(flight, "_PREV_SIGUSR2", None)
-    with obs.span("pre.signal"):
-        pass
-    os.kill(os.getpid(), signal.SIGUSR2)
+    prev = signal.signal(signal.SIGUSR2, flight._sigusr2)
+    try:
+        with obs.span("pre.signal"):
+            pass
+        os.kill(os.getpid(), signal.SIGUSR2)
+    finally:
+        signal.signal(signal.SIGUSR2, prev)
     dumps = list(tmp_path.glob("flight_*.json"))
     assert len(dumps) == 1
     doc = json.load(open(dumps[0]))
