@@ -286,7 +286,44 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              the same launches either way; the §8 step's device busy ms,
              kernels and idle share under torch.profiler.  Phases 1-22
              run with PATHSIG_AUTOTUNE=off.
-24. report — one JSON line of kernels (the sig_trunc row with its cases:
+24. lm     — the dense-decoder LM substrate at qwen3-4b's published
+             widths.  (a) ServeEngine over get_config("qwen3-4b") as
+             published (36 layers, d_model 2,560, 32/8 heads of 128,
+             d_ff 9,728, vocab 151,936: 4.02B parameters in fp32, drawn
+             on the card): 8 prompts of 64 tokens from TokenStream(seed=0)
+             and 32 greedy tokens each; the prefill step's last logits
+             against the decode path's to 1e-4·max|logit|, the first
+             greedy token the prefill's argmax up to near ties, no
+             signature launch; tokens/s, ms a decode step, a traced
+             step's kernels and idle share, peak memory.  (b) train_loop
+             at full width with the depth cut to 4 layers (0.79B
+             parameters; 36 layers need 64 GB for fp32 parameters,
+             gradients and AdamW state before any activation), the
+             SigHeadConfig defaults (8 channels, depth 3) and an
+             init_sig_head projection, AdamW under linear_warmup_cosine,
+             batches of 8 × 512 tokens: 10 sig-MMD steps against 8 fBM
+             reference paths of 512 points (hurst_dataset, scaled by
+             1/√512 as the learned path is), checkpointed at step 5 and
+             at the end; 3 ragged steps (ragged_token_batches masks,
+             RaggedPathStream lengths) and 3 LM steps while the last
+             checkpoint is written; then a loop resumed from the step-5
+             checkpoint whose losses must equal the uninterrupted run's
+             to 1e-4; exactly 2 sig_trunc, 3 sig_gram and
+             1 sig_sweep launches a sig-MMD step, none an LM step; median
+             step ms, peak memory, the loss curves, one sig-MMD step
+             under torch.profiler (busy ms, kernels, idle share, the
+             signature kernels' share).  (c) one full-width hidden state
+             of the trained model, (8, 512, 2,560) -> path (8, 512, 8):
+             the sig-MMD loss, sig_pool truncated, projected onto 172
+             words and with 16 kernel landmarks, and sig_stream_features
+             (stride 8), value and gradient with backend="cuda" against
+             backend="torch" on the same tensors (values
+             1e-4·max|torch|, gradients by phase 13's rule), each with
+             its exact launches; then sig_trunc, its streamed cell,
+             sig_words, sig_gram and sig_sweep alone at those shapes
+             against their plain versions in float64, timed, with bounds
+             and partitions.
+25. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell, and the fused ones: §8 lead_lag depth 3, the
              time_augment serving micro-batch, the two Table 1 transform
@@ -313,8 +350,12 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              push; and phase 23's: on the sig_trunc row a bucket_paths
              bucket, on the sig_words row the hybrid comparison's largest
              Table 3 set, on the sig_gram row the tuned 128 × 128 × 1,685
-             Gram, each with its launches), the card's name and power
-             limit, then the device line last.
+             Gram, each with its launches; and phase 24's: the LM
+             path's sig-MMD leg on the sig_trunc row, its stream on the
+             sig_trunc_stream row, the projected head on the sig_words
+             row, the sig-MMD Gram on the sig_gram row and the leg's
+             backward on the sig_sweep row, with their launches), the
+             card's name and power limit, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -328,6 +369,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import importlib.util
 import json
 import os
@@ -361,10 +403,18 @@ from repro_torch.core.words import (all_words, anisotropic_words,  # noqa: E402
                                     generated_words, lyndon_words, make_plan,
                                     make_tiled_plan, prefix_closure)
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch import models as LM  # noqa: E402
 from repro_torch import obs  # noqa: E402
+from repro_torch.configs import get_config, with_sig_head  # noqa: E402
 from repro_torch.data.pipeline import (RaggedPathStream,  # noqa: E402
-                                       geometric_lengths, hurst_dataset,
+                                       TokenStream, geometric_lengths,
+                                       hurst_dataset, ragged_token_batches,
                                        session_tick_stream)
+from repro_torch.launch.train import reference_paths  # noqa: E402
+from repro_torch.models.sig_head import (_learned_path,  # noqa: E402
+                                         init_sig_head, sig_pool,
+                                         sig_stream_features)
+from repro_torch.optim import adamw, linear_warmup_cosine  # noqa: E402
 from repro_torch.kernels import _build, autotune, ops  # noqa: E402
 from repro_torch.kernels import sig_gram as sg  # noqa: E402
 from repro_torch.kernels import sig_sweep as ss  # noqa: E402
@@ -373,10 +423,13 @@ from repro_torch.kernels import sig_words as sw  # noqa: E402
 from repro_torch.ragged import (RaggedPaths, assign_buckets,  # noqa: E402
                                 batch_rung, bucket_ladder, bucket_paths,
                                 pad_batch)
-from repro_torch.serve import (DynamicBatcher, SessionStore,  # noqa: E402
-                               SigScoreEngine, SigStreamEngine)
+from repro_torch.serve import (DynamicBatcher, ServeEngine,  # noqa: E402
+                               SessionStore, SigScoreEngine, SigStreamEngine,
+                               make_prefill_step)
 from repro_torch.sigkernel import (gram_diag, krr_fit,  # noqa: E402
                                    sig_mmd, word_weights)
+from repro_torch.train import (TrainLoopConfig,  # noqa: E402
+                               make_train_step, train_loop)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 HBM_BYTES_PER_S = 3.35e12
@@ -2514,11 +2567,16 @@ def checkpoint_kernel_cases(rng) -> dict:
     return dict(trunc_case=fwd, sweep_case=sweep, traces=traces)
 
 
+SIG_KERNELS = ("sig_trunc_kernel", "sig_words_kernel", "sig_gram_kernel",
+               "sweep_kernel")
+
+
 def device_busy(fn) -> dict:
     """One warm call of ``fn`` under torch.profiler: the host's wall ms to
-    a synchronize, the device's busy ms (the kernels' summed self time)
-    and the number of kernels; device_ms is 0 when the profiler records
-    no device events."""
+    a synchronize, the device's busy ms (the kernels' summed self time),
+    the number of kernels and the busy ms of the signature kernels
+    (``sig_ms``); device_ms is 0 when the profiler records no device
+    events."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2530,10 +2588,15 @@ def device_busy(fn) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.key_averages()
            if str(e.device_type).endswith("CUDA")]
-    busy = sum(getattr(e, "self_device_time_total", None)
-               or getattr(e, "self_cuda_time_total", 0) for e in dev)
+    def self_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    busy = sum(self_us(e) for e in dev)
+    sig_us = sum(self_us(e) for e in dev
+                 if any(k in e.key for k in SIG_KERNELS))
     return dict(wall_ms=wall, device_ms=busy / 1e3,
-                kernels=sum(e.count for e in dev))
+                kernels=sum(e.count for e in dev), sig_ms=sig_us / 1e3)
 
 
 def checkpoint_lead_lag(rng) -> dict:
@@ -4205,6 +4268,461 @@ def phase_slice8(rng) -> dict:
                 observability=obs_)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the dense-decoder LM substrate, the signature heads and the
+# sig-MMD trainer at qwen3-4b's published widths
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-4b"
+# serving: requests, prompt tokens, new greedy tokens each
+LM_SERVE = (8, 64, 32)
+# training: layers (the depth cut: 36 layers need 64 GB for fp32
+# parameters, gradients and AdamW state before any activation), batch,
+# tokens a sequence, sig-MMD steps, the step checkpointed, steps resumed
+# from that checkpoint, ragged steps, LM steps
+LM_TRAIN = (4, 8, 512, 10, 5, 2, 3, 3)
+LM_HEAD = dict(channels=8, depth=3, backend="auto")   # the SigHeadConfig
+LM_OUT = 16            # the pooled heads' readout width
+LM_STREAM_STRIDE = 8
+LM_LANDMARKS = 16
+LM_LEVEL3 = 100        # level-3 words of the projected head's word set
+
+
+def lm_matmul_flops(cfg, B: int, S: int) -> float:
+    """Operations of one sig-MMD train step's matmuls: the weight
+    products (2 a parameter and token, embedding and LM head excluded:
+    the sig-MMD loss reads neither product) and the attention's two
+    batched products, forward once and backward twice; the "dots" remat
+    recomputes the attention's products once more."""
+    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    weights = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+               + 3 * d * ff) * cfg.n_layers + d * cfg.sig_head.channels
+    attn = 4 * B * cfg.n_heads * S * S * hd * cfg.n_layers
+    return 3 * 2 * weights * B * S + 4 * attn
+
+
+def lm_free() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve(seed: int) -> dict:
+    """Phase 24a: ServeEngine over qwen3-4b as published."""
+    B, P, n_new = LM_SERVE
+    cfg = get_config(LM_ARCH)
+    lm_free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.init_params(seed, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+          == (36, 2560, 32, 8, 128, 9728, 151936)
+          and abs(n_params - cfg.param_count()) <= 1e-4 * n_params,
+          f"qwen3-4b as published: {n_params} parameters against the "
+          f"config's {cfg.param_count()}")
+    check(all(p.is_cuda for p in params.parameters()),
+          "init_params without a device did not place the model on the card")
+    prompts = next(TokenStream(cfg.vocab_size, B, P, seed=0))["tokens"]
+    reset_counts()
+    logits = make_prefill_step(cfg)(params, {"tokens": prompts})
+    cache = LM.init_cache(cfg, B, P + n_new, torch.float32)
+    for j in range(P):
+        step_logits, cache = LM.decode_step(params, cfg,
+                                            prompts[:, j:j + 1], cache)
+    scale = float(logits.abs().max())
+    err = float((step_logits[:, -1].float() - logits).abs().max())
+    check(bool(torch.isfinite(logits).all()) and err <= E2E_TOL * scale,
+          f"qwen3-4b prefill against decode: max |err| {err:.3e}, "
+          f"max|logit| {scale:.3e}")
+    engine = ServeEngine(cfg, params, max_len=P + n_new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = counts()
+    check(all(v == 0 for v in n.values()),
+          f"LM serving launched signature kernels: {n}")
+    check(tuple(out.shape) == (B, P + n_new)
+          and torch.equal(out[:, :P], prompts)
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+          f"generated tokens {tuple(out.shape)}")
+    # the first greedy token is the prefill's argmax, up to near ties
+    chosen = logits.gather(1, out[:, P:P + 1].long())[:, 0]
+    check(bool((logits.max(-1).values - chosen <= E2E_TOL * scale).all()),
+          "the first greedy token is not the prefill's argmax")
+    tok = out[:, -1:]
+    step_ms = cuda_ms(lambda: LM.decode_step(params, cfg, tok, cache), 5)
+    tr = device_busy(lambda: LM.decode_step(params, cfg, tok, cache))
+    steps = P - 1 + n_new
+    # a decode step reads every weight once
+    bound_ms = 4 * n_params / HBM_BYTES_PER_S * 1e3
+    res = dict(params=n_params, layers=cfg.n_layers, init_s=init_s,
+               decode_step_bound_ms=bound_ms,
+               requests=B, prompt=P, new_tokens=n_new,
+               prefill_decode_err=err, max_logit=scale, generate_s=wall,
+               tokens_per_s=B * n_new / wall,
+               ms_per_decode_step=wall * 1e3 / steps, decode_step_ms=step_ms,
+               kernels_per_decode_step=tr["kernels"],
+               decode_step_busy_ms=tr["device_ms"],
+               decode_step_idle_share=1 - tr["device_ms"] / tr["wall_ms"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               signature_launches=n)
+    print(f"[lm] serve {cfg.name} as published ({cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f}B parameters in fp32, drawn on the card in "
+          f"{init_s:.2f} s): {B} prompts of {P} tokens + {n_new} greedy "
+          f"tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} new tokens/s "
+          f"(the prefill through decode steps included), "
+          f"{res['ms_per_decode_step']:.2f} ms a decode step over {steps} "
+          f"steps, {step_ms:.2f} ms one step by CUDA events (bound "
+          f"{bound_ms:.2f} ms: the weights read once, bytes); one step "
+          f"traced: {tr['kernels']} kernels, {tr['device_ms']:.3f} ms busy "
+          f"of {tr['wall_ms']:.3f} (idle {res['decode_step_idle_share']:.3f})"
+          f"; prefill logits against the decode path max |err| {err:.2e} "
+          f"(max|logit| {scale:.2f}); peak {res['peak_gb']:.2f} GB; "
+          f"signature launches {n}", flush=True)
+    del engine, params, cache, logits, step_logits, out
+    lm_free()
+    return res
+
+
+def lm_data(cfg, kind: str, start: int, seed: int):
+    """Training batches from stream step ``start``: tokens, with the fBM
+    reference sample (``sig_mmd``), or ragged masks with RaggedPathStream
+    paths and lengths (``ragged``), or alone (``lm``)."""
+    _, B, S = LM_TRAIN[:3]
+    c = cfg.sig_head.channels
+    if kind == "ragged":
+        paths = RaggedPathStream(B, S - 1, c, seed=seed)
+        for tokens, p in zip(ragged_token_batches(cfg.vocab_size, B, S,
+                                                  seed), paths):
+            yield dict(tokens, **p)
+        return
+    ref = reference_paths(seed, B, S, c, "cuda") if kind == "sig_mmd" \
+        else None
+    for item in TokenStream(cfg.vocab_size, B, S, seed, step=start):
+        yield item if ref is None else dict(item, paths=ref)
+
+
+def lm_loop(cfg, params, opt, kind: str, steps: int, seed: int,
+            start: int = 0, data_start: int = 0, **kw) -> tuple:
+    """One train_loop run, every count at 0 just before it: (params,
+    opt_state, history, launches, wall s)."""
+    loop = TrainLoopConfig(steps=steps, log_every=1, run_dir="",
+                           loss="lm" if kind == "lm" else "sig_mmd",
+                           ckpt_every=kw.pop("ckpt_every", 0))
+    reset_counts()
+    t0 = time.perf_counter()
+    params, state, hist = train_loop(cfg, params, opt,
+                                     lm_data(cfg, kind, data_start, seed),
+                                     loop, start_step=start, **kw)
+    torch.cuda.synchronize()
+    return params, state, hist, counts(), time.perf_counter() - t0
+
+
+def lm_model(cfg, seed: int):
+    model = LM.init_params(seed, cfg)
+    model["sig_head"] = init_sig_head(seed + 1, cfg, LM_OUT)
+    return model
+
+
+def phase_lm_train(seed: int) -> dict:
+    """Phase 24b: train_loop at qwen3-4b's width, depth cut."""
+    L, B, S, n_mmd, ck_step, n_resume, n_rag, n_lm = LM_TRAIN
+    cfg = lm_train_cfg()
+    lm_free()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm_model(cfg, seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = adamw(lr=linear_warmup_cosine(3e-4, 2, n_mmd))
+    where = ROOT / "build" / "chip_smoke_lm_ckpt"
+    shutil.rmtree(where, ignore_errors=True)
+    ck = Checkpointer(str(where), keep=2)
+    params, _, hist, n_mmd_launch, mmd_s = lm_loop(
+        cfg, model, opt, "sig_mmd", n_mmd, seed, ckpt_every=ck_step,
+        checkpointer=ck)
+    del model
+    per = dict(sig_trunc=2, sig_gram=3, sig_sweep=1)
+    want = {k: per.get(k, 0) * n_mmd for k in n_mmd_launch}
+    check(n_mmd_launch == want,
+          f"sig-MMD steps: launches {n_mmd_launch}, expected {want}")
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)), f"sig-MMD losses {losses}")
+    # the ragged and LM loops run while the last checkpoint is written
+    lm_free()
+    params, _, hist_g, n_g, _ = lm_loop(cfg, params, opt, "ragged", n_rag,
+                                        seed)
+    want = {k: per.get(k, 0) * n_rag for k in n_g}
+    check(n_g == want, f"ragged steps: launches {n_g}, expected {want}")
+    params, _, hist_l, n_l, _ = lm_loop(cfg, params, opt, "lm", n_lm, seed)
+    check(all(v == 0 for v in n_l.values()),
+          f"LM steps launched signature kernels: {n_l}")
+    for h in hist_g + hist_l:
+        check(np.isfinite(h["loss"]), f"loss {h}")
+    # the checkpoint of step ck_step holds ck_step + 1 updates: a loop
+    # resumed there reads batch ck_step + 1 first and must give the
+    # uninterrupted run's losses
+    lm_free()
+    ck.wait()
+    t0 = time.perf_counter()
+    _, _, hist_r, n_r, _ = lm_loop(
+        cfg, lm_model(cfg, seed + 7), opt, "sig_mmd", ck_step + n_resume,
+        seed, start=ck_step, data_start=ck_step + 1, checkpointer=ck)
+    resume_s = time.perf_counter() - t0
+    ck.wait()
+    ckpt_bytes = sum(f.stat().st_size for f in where.rglob("*")
+                     if f.is_file())
+    shutil.rmtree(where, ignore_errors=True)
+    resumed = [h["loss"] for h in hist_r]
+    check([h["step"] for h in hist_r] == list(range(ck_step,
+                                                    ck_step + n_resume))
+          and all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(
+              resumed, losses[ck_step + 1:])),
+          f"resumed losses {resumed} against {losses[ck_step + 1:]}")
+    lm_free()
+    # one sig-MMD step traced
+    step_fn = make_train_step(cfg, opt, loss="sig_mmd")
+    state = opt.init(params)
+    batch = next(lm_data(cfg, "sig_mmd", 0, seed))
+    tr = device_busy(lambda: step_fn(params, state, batch))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = lm_matmul_flops(cfg, B, S)
+
+    def med(h):
+        return float(np.median([x["sec"] for x in h[1:]])) * 1e3
+
+    res = dict(layers=L, params=n_params, batch=[B, S], head=LM_HEAD,
+               sig_mmd_step_ms=med(hist), ragged_step_ms=med(hist_g),
+               lm_step_ms=med(hist_l), peak_gb=peak,
+               launches_a_step={k: v / n_mmd for k, v in n_mmd_launch.items()
+                                if v},
+               launches=n_mmd_launch, ragged_launches=n_g,
+               loss_curve=losses, resumed_losses=resumed,
+               ragged_losses=[h["loss"] for h in hist_g],
+               lm_losses=[h["loss"] for h in hist_l],
+               grad_norms=[h["grad_norm"] for h in hist],
+               matmul_tflop=flops / 1e12,
+               matmul_bound_ms=flops / FP32_FLOPS_PER_S * 1e3,
+               checkpoint_bytes=ckpt_bytes, sig_mmd_loop_s=mmd_s,
+               resume_s=resume_s, trace=dict(
+                   tr, idle_share=1 - tr["device_ms"] / tr["wall_ms"],
+                   sig_share=tr["sig_ms"] / max(tr["device_ms"], 1e-9)))
+    print(f"[lm] train {cfg.name} at full width, depth {L} "
+          f"({n_params / 1e9:.3f}B parameters, fp32, AdamW; head "
+          f"channels {cfg.sig_head.channels}, depth {cfg.sig_head.depth}), "
+          f"batch {B} x {S}: sig-MMD step {res['sig_mmd_step_ms']:.1f} ms "
+          f"(median of steps 1-{n_mmd - 1}), ragged "
+          f"{res['ragged_step_ms']:.1f} ms, LM {res['lm_step_ms']:.1f} ms; "
+          f"peak {peak:.2f} GB; launches a sig-MMD step "
+          f"{res['launches_a_step']}; losses {np.round(losses, 6).tolist()}, "
+          f"resumed at step {ck_step} {np.round(resumed, 6).tolist()}, "
+          f"ragged {np.round(res['ragged_losses'], 6).tolist()}, LM "
+          f"{np.round(res['lm_losses'], 4).tolist()}; checkpoints "
+          f"{ckpt_bytes / 1e9:.2f} GB on disk at the end, the resumed loop "
+          f"(restore, {n_resume} steps, save) {resume_s:.1f} s", flush=True)
+    print(f"[lm] one sig-MMD step traced: {tr['wall_ms']:.1f} ms wall, "
+          f"{tr['device_ms']:.1f} ms busy in {tr['kernels']} kernels (idle "
+          f"{res['trace']['idle_share']:.3f}); the signature kernels "
+          f"{tr['sig_ms']:.3f} ms, {res['trace']['sig_share']:.4f} of the "
+          f"busy time; its matmuls {flops / 1e12:.2f} TFLOP, "
+          f"{res['matmul_bound_ms']:.1f} ms at the FP32 peak", flush=True)
+    return res, cfg, params
+
+
+def lm_train_cfg():
+    return with_sig_head(dataclasses.replace(get_config(LM_ARCH),
+                                             n_layers=LM_TRAIN[0]),
+                         **LM_HEAD)
+
+
+def lm_head_routes(cfg, head: dict, ref: torch.Tensor, plan, seed: int):
+    """(name, config, parameters, fn(p, x, cfg), launches) of each head
+    route phase 24c holds on the card against the torch engine."""
+    sc = cfg.sig_head
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    n_feat = len(plan.words) + sc.channels
+    proj = dict(head, out=torch.randn(n_feat, LM_OUT, generator=g,
+                                      device="cuda") / np.sqrt(n_feat))
+    kcfg = dataclasses.replace(cfg, sig_head=dataclasses.replace(
+        sc, kernel_landmarks=LM_LANDMARKS))
+    kp = dict(head, **{k: v.detach() for k, v in init_sig_head(
+        seed + 1, kcfg, LM_OUT).named_parameters() if k != "proj"})
+    scfg = dataclasses.replace(cfg, sig_head=dataclasses.replace(
+        sc, stream_stride=LM_STREAM_STRIDE))
+
+    def mmd(p, x, c):
+        return sig_mmd(_learned_path(p, x, c.sig_head), ref,
+                       c.sig_head.depth, backend=c.sig_head.backend,
+                       device=x.device)
+
+    return [
+        ("sig-MMD loss", cfg, head, mmd,
+         dict(sig_trunc=2, sig_gram=3, sig_sweep=1)),
+        ("sig_pool truncated", cfg, head,
+         lambda p, x, c: sig_pool(p, x, c), dict(sig_trunc=1, sig_sweep=1)),
+        ("sig_pool projected", cfg, proj,
+         lambda p, x, c: sig_pool(p, x, c, plan=plan),
+         dict(sig_words=1, sig_sweep=1)),
+        ("sig_pool kernel landmarks", kcfg, kp,
+         lambda p, x, c: sig_pool(p, x, c),
+         dict(sig_trunc=2, sig_gram=1, sig_sweep=1)),
+        ("sig_stream_features", scfg, head,
+         lambda p, x, c: sig_stream_features(p, x, c),
+         dict(sig_trunc_stream=1, sig_sweep=1)),
+    ]
+
+
+def with_backend(cfg, backend: str):
+    return dataclasses.replace(cfg, sig_head=dataclasses.replace(
+        cfg.sig_head, backend=backend))
+
+
+def phase_lm_heads(rng, cfg, params, seed: int) -> dict:
+    """Phase 24c: every head route on one full-width hidden state of the
+    trained model, backend="cuda" against backend="torch" on the same
+    tensors (the heads sign a float32 path, as the reference's do); then
+    each kernel alone against its plain version in float64."""
+    _, B, S = LM_TRAIN[:3]
+    sc = cfg.sig_head
+    d, N = sc.channels, sc.depth
+    batch = next(lm_data(cfg, "sig_mmd", 0, seed))
+    with torch.no_grad():
+        hidden, _ = LM.transformer.backbone(params, cfg,
+                                            tokens=batch["tokens"],
+                                            remat="none")
+    ref = batch["paths"]
+    head = {k: v.detach() for k, v in params["sig_head"].named_parameters()}
+    level3 = rng.choice(d ** 3, LM_LEVEL3, replace=False)
+    words = ([(i,) for i in range(d)]
+             + [(i, j) for i in range(d) for j in range(d)]
+             + [(int(w) // d ** 2, int(w) // d % d, int(w) % d)
+                for w in sorted(level3)])
+    plan = make_plan(words, d)
+    routes = []
+    for name, c, p, fn, want in lm_head_routes(cfg, head, ref, plan, seed):
+
+        def value_and_grad(backend, fn=fn, p=p, c=c):
+            x = hidden.clone().requires_grad_()
+            out = fn(p, x, with_backend(c, backend))
+            w = torch.randn(out.shape, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(seed))
+            return out, torch.autograd.grad((out * w).sum(), x)[0]
+
+        want_out, want_g = value_and_grad("torch")
+        (out, g), n = launched(lambda: value_and_grad("cuda"),
+                               f"LM head {name}", **want)
+        out, g = out.detach(), g.detach()
+        err = float((out - want_out.detach()).abs().max())
+        scale = float(want_out.detach().abs().max())
+        check(err <= E2E_TOL * scale,
+              f"LM head {name}: max |err| {err:.3e}, max|torch| "
+              f"{scale:.3e}")
+        gerr = float((g - want_g).abs().max())
+        check(grad_within(g, want_g.double()),
+              f"LM head {name}: gradient max |err| {gerr:.3e}, max|g| "
+              f"{float(want_g.abs().max()):.3e}")
+        ms = cuda_ms(lambda: value_and_grad("cuda"), 3)
+        torch_ms = cuda_ms(lambda: value_and_grad("torch"), 1)
+        routes.append(dict(route=name, shape=list(out.shape), launches=n,
+                           max_abs_err=err, max_torch=scale,
+                           grad_max_abs_err=gerr,
+                           max_g=float(want_g.abs().max()), ms=ms,
+                           torch_ms=torch_ms))
+        print(f"[lm] {name} on the ({B}, {S}, {hidden.shape[-1]}) hidden "
+              f"state: value and gradient {ms:.3f} ms on the kernels, "
+              f"{torch_ms:.1f} ms on the torch engine; launches "
+              f"{ {k: v for k, v in n.items() if v} }; against the torch "
+              f"engine max |err| {err:.2e} (max|out| {scale:.3e}), gradient "
+              f"{gerr:.2e} (max|g| {float(want_g.abs().max()):.3e})",
+              flush=True)
+    kernels = lm_kernel_cases(cfg, head, hidden, ref, words, plan)
+    return dict(routes=routes, words=len(words), **kernels)
+
+
+def lm_kernel_cases(cfg, head, hidden, ref, words, plan) -> dict:
+    """Each kernel of the path alone at the path's shapes: against its
+    plain version, timed beside it, with its bound and partition."""
+    sc = cfg.sig_head
+    d, N, s = sc.channels, sc.depth, LM_STREAM_STRIDE
+    incs = tops.path_increments(_learned_path(head, hidden, sc)).detach()
+    B, M, _ = incs.shape
+    D = sum(d ** k for k in range(1, N + 1))
+    S_x = st.sig_trunc(incs, N)
+    torch.testing.assert_close(S_x.double(),
+                               st.sig_trunc_plain(incs.double(), N), **TOL)
+    trunc = dict(ms=cuda_ms(lambda: st.sig_trunc(incs, N), 10),
+                 plain_ms=cuda_ms(lambda: st.sig_trunc_plain(incs, N), 1))
+    trunc["bound_ms"], trunc["bound_by"] = bound(B, M, d, N, 4, B * D, 4)
+    out_s = st.sig_trunc(incs, N, stream=True, stream_stride=s)
+    torch.testing.assert_close(out_s.double(), st.sig_trunc_plain(
+        incs.double(), N, stream=True, stream_stride=s), **TOL)
+    b = bound(B, M, d, N, 4, out_s.numel(), 4)
+    stream_case = dict(
+        case="LM sig_stream_features", shape=[B, M, d, N, s],
+        partition=trunc_partition(B, d, N),
+        ms=cuda_ms(lambda: st.sig_trunc(incs, N, stream=True,
+                                        stream_stride=s), 10),
+        plain_ms=cuda_ms(lambda: st.sig_trunc_plain(
+            incs, N, stream=True, stream_stride=s), 1),
+        bound_ms=b[0], bound_by=b[1], launches=1)
+    tp = make_tiled_plan(words, d)
+    torch.testing.assert_close(sw.sig_words(incs, tp).double(),
+                               sw.sig_words_plain(incs.double(), tp), **TOL)
+    b = bound(B, M, d, N, 4, B * len(words), 4, words_flops(plan))
+    words_case = dict(
+        case="LM sig_pool projected", shape=[B, M, d, N], words=len(words),
+        partition=words_partition(sw.plan_words_launch(
+            B, sw.tile_tables(tp), d)),
+        ms=cuda_ms(lambda: sw.sig_words(incs, tp), 10),
+        plain_ms=cuda_ms(lambda: sw.sig_words_plain(incs, tp), 1),
+        bound_ms=b[0], bound_by=b[1], launches=1)
+    S_y = st.sig_trunc(tops.path_increments(ref), N)
+    w = torch.as_tensor(word_weights(d, N), dtype=torch.float32,
+                        device="cuda")
+    G64 = sg.sig_gram_plain(S_x.double(), S_y.double(), w.double())
+    gram_err = float((sg.sig_gram(S_x, S_y, w).double() - G64).abs().max())
+    check(gram_err <= GRAM_TOL * float(G64.abs().max()),
+          f"LM sig-MMD Gram: max |err| {gram_err:.3e}")
+    gram = time_gram(S_x, S_y, w)
+    sweep = time_sweep(incs, sig.truncation_closure(d, N), S_x, 2 * S_x,
+                       "LM sig-MMD leg")
+    sweep.pop("want")
+    print(f"[lm] the path's kernels alone: sig_trunc {[B, M, d, N]} "
+          f"{trunc['ms']:.4f} ms (plain {trunc['plain_ms']:.2f}, bound "
+          f"{trunc['bound_ms']:.5f}, {trunc['bound_by']}); streamed stride "
+          f"{s} {stream_case['ms']:.4f} ms (bound "
+          f"{stream_case['bound_ms']:.5f}); sig_words {len(words)} words "
+          f"{words_case['ms']:.4f} ms (plain {words_case['plain_ms']:.2f}, "
+          f"bound {words_case['bound_ms']:.5f}); sig_sweep "
+          f"{sweep['ms']:.4f} ms (plain {sweep['plain_ms']:.2f}, bound "
+          f"{sweep['bound_ms']:.5f}, {sweep['bound_by']}); Gram max |err| "
+          f"{gram_err:.2e}", flush=True)
+    print_gram("[lm] sig-MMD", gram)
+    return dict(trunc_case=dict(trunc_case("LM sig-MMD leg and sig_pool",
+                                           [B, M, d, N], trunc),
+                                plain_ms=trunc["plain_ms"]),
+                stream_case=stream_case, words_case=words_case,
+                gram_case=dict(case="LM sig-MMD Gram", **gram),
+                sweep_case=dict(case="LM sig-MMD leg backward",
+                                shape=[B, M, d, N], **sweep))
+
+
+def phase_lm(rng, seed: int) -> dict:
+    """Phase 24: serve qwen3-4b as published, train it at full width with
+    the depth cut, and hold every head route's kernels on the card."""
+    serve = phase_lm_serve(seed)
+    train, cfg, params = phase_lm_train(seed)
+    heads = phase_lm_heads(rng, cfg, params, seed)
+    del params
+    lm_free()
+    return dict(serve=serve, train=train, heads=heads)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4212,6 +4730,8 @@ def main() -> int:
     args = ap.parse_args()
     # phases 1-22 run the planner's partitions; phase 23 sweeps its own
     os.environ["PATHSIG_AUTOTUNE"] = "off"
+    # the reference's matmuls are exact fp32: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()
     ptxas = phase_build()
     rng = np.random.default_rng(args.seed)
@@ -4248,6 +4768,14 @@ def main() -> int:
     slice8_s = time.perf_counter() - t0
     print(f"[timing] ragged, hybrid, autotune and observability phase: "
           f"{slice8_s:.1f} s", flush=True)
+    os.environ["PATHSIG_AUTOTUNE"] = "off"
+    t0 = time.perf_counter()
+    lm = phase_lm(rng, args.seed)
+    lm_s = time.perf_counter() - t0
+    print(f"[timing] LM serving, training and heads phase: {lm_s:.1f} s",
+          flush=True)
+    heads = lm["heads"]
+    lm_launches = lm["train"]["launches"]
     eng = sessions["engines"]
     src = "src/repro_torch/kernels/csrc/sig_trunc.cu"
     largest = max(table1, key=lambda r: r["bound_ms"])
@@ -4262,7 +4790,9 @@ def main() -> int:
     trunc_cases += [c["trunc"] for c in fused["table1"]]
     trunc_cases += [ckpt["trunc_case"], windows["fold_case"],
                     streams["extend_case"], sessions["pool"]["bucket_case"],
-                    eng["trunc_case"], slice8["ragged"]["bucket_case"]]
+                    eng["trunc_case"], slice8["ragged"]["bucket_case"],
+                    dict(heads["trunc_case"],
+                         launches=lm_launches["sig_trunc"])]
     wsrc = "src/repro_torch/kernels/csrc/sig_words.cu"
     t3 = max(logsig, key=lambda r: r["bound_ms"])
     words_cases = [
@@ -4279,7 +4809,7 @@ def main() -> int:
              ms=t3["kernel_ms"], bound_ms=t3["bound_ms"],
              bound_by=t3["bound_by"]),
         fused["projection"]["words"], windows["words_case"],
-        slice8["hybrid"]["words_case"]]
+        slice8["hybrid"]["words_case"], heads["words_case"]]
     kernels = [
         dict(name="sig_trunc", route="cuda", source=src,
              replaces="src/repro/kernels/sig_trunc.py:300",
@@ -4295,7 +4825,7 @@ def main() -> int:
              bound_by=stream["bound_by"], library_ms=None,
              cases=[c["stream"] for c in fused["table1"]]
              + [windows["chen_case"], streams["features"]["case"],
-                eng["stream_case"]]),
+                eng["stream_case"], heads["stream_case"]]),
         dict(name="sig_words", route="cuda", source=wsrc,
              replaces="src/repro/kernels/sig_words.py:197",
              launches=proj["launches"], max_abs_err=words_err["sig_words"],
@@ -4327,7 +4857,8 @@ def main() -> int:
                  for name, t in (("reference Gram", score["ref_gram"]),
                                  ("cross-Gram", score["cross_gram"]),
                                  ("projected-MMD Gram", mmd["gram"]))]
-             + [eng["gram_case"], slice8["autotune"]["gram_case"]]),
+             + [eng["gram_case"], slice8["autotune"]["gram_case"],
+                dict(heads["gram_case"], launches=lm_launches["sig_gram"])]),
     ]
     big = max(train, key=lambda r: r["sweep_bound_ms"])
     sweep_cases = [dict(case="largest Table 1 train cell",
@@ -4345,7 +4876,9 @@ def main() -> int:
                                         "ms", "us_per_step",
                                         "partition", "plain_ms", "bound_ms",
                                         "bound_by")}))
-    sweep_cases.append(ckpt["sweep_case"])
+    sweep_cases += [ckpt["sweep_case"],
+                    dict(heads["sweep_case"],
+                         launches=lm_launches["sig_sweep"])]
     sp = hurst["sparse"]["sweep"]
     kernels.append(dict(
         name="sig_sweep", route="cuda",
@@ -4373,8 +4906,8 @@ def main() -> int:
             train=train, memory=memory, mmd_grad=mmd_grad, hurst=hurst,
             transform=fused, checkpoint=ckpt, windows=windows,
             streams=streams, new_phases_s=new_s, sessions=sessions,
-            sessions_s=sessions_s, slice8=slice8, slice8_s=slice8_s),
-            indent=1))
+            sessions_s=sessions_s, slice8=slice8, slice8_s=slice8_s,
+            lm=lm, lm_s=lm_s), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -70,17 +70,20 @@ def _flatten(tree) -> tuple[list, object]:
 
 def _to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        x = x.detach()
-        if x.dtype == torch.bfloat16:       # numpy has no bfloat16
-            x = x.float()
-        return x.cpu().numpy().copy()
+        h = x.detach()
+        if h.dtype == torch.bfloat16:       # numpy has no bfloat16
+            h = h.float()
+        if h.device.type != "cpu":          # the copy off the card is new
+            return h.cpu().numpy()
+        return h.numpy().copy()
     return np.array(x)
 
 
 def _from_host(h: np.ndarray, like):
     """The saved array in the template leaf's type, dtype and device."""
     if isinstance(like, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(h)).to(
+        # np.ascontiguousarray lifts a 0-d array to 1-d: keep its shape
+        return torch.from_numpy(np.ascontiguousarray(h).reshape(h.shape)).to(
             device=like.device, dtype=like.dtype)
     if isinstance(like, np.ndarray):
         return h.astype(like.dtype)

@@ -6,7 +6,10 @@ dataclasses of arrays (:func:`from_numpy`), ragged batches
 (:func:`ragged_from_numpy`), word plans (:func:`plan_from_reference`),
 the fitted kernel-method state (:func:`sigkernel_from_reference`), the
 §8 Hurst model's parameters (:func:`hurst_params_from_reference`) and a
-session pool's carry (:func:`stream_carry_from_reference`); the backend
+session pool's carry (:func:`stream_carry_from_reference`), a dense
+decoder's parameters with its signature head
+(:func:`lm_params_from_reference`) and an optimizer's state
+(:func:`opt_state_from_reference`); the backend
 and dtype strings a reference checkpoint records map through
 :func:`backend_from_reference` and :func:`dtype_from_reference`.  The JAX
 package's objects are read by attribute; nothing of it is imported.
@@ -179,3 +182,74 @@ def hurst_params_from_reference(params, device=None) -> dict:
         state[f"mlp.{i}.w"] = t(layer["w"])
         state[f"mlp.{i}.b"] = t(layer["b"])
     return state
+
+
+def _per_layer(tree, prefix: str = "") -> dict:
+    """Flat ``{dotted name: array}`` of a reference parameter-shaped tree,
+    with the layer-stacked ``"layers"`` entry (leading ``n_layers`` axis)
+    split into ``layers.<i>.<name>`` entries: the port's parameter names.
+    An optimizer slot dict (``vr``/``vc`` or ``v``) is one leaf."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict) and not set(v) <= {"vr", "vc", "v"}:
+            out.update(_per_layer(v, f"{name}."))
+        else:
+            out[name] = v
+    if prefix:
+        return out
+    flat = {}
+    for name, v in out.items():
+        if not name.startswith("layers."):
+            flat[name] = v
+            continue
+        rest = name[len("layers."):]
+        n = len(next(iter(v.values())) if isinstance(v, dict) else v)
+        for i in range(n):
+            flat[f"layers.{i}.{rest}"] = (
+                {s: a[i] for s, a in v.items()} if isinstance(v, dict)
+                else v[i])
+    return flat
+
+
+def _nest(flat: dict) -> dict:
+    """``{dotted name: leaf}`` -> the nested dict (lists for layers)."""
+    tree: dict = {}
+    for name, v in flat.items():
+        node = tree
+        *path, last = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = v
+    if "layers" in tree:
+        tree["layers"] = [tree["layers"][str(i)]
+                          for i in range(len(tree["layers"]))]
+    return tree
+
+
+def lm_params_from_reference(params, cfg, device=None):
+    """A dense decoder's reference parameter tree (numpy, layer-stacked with
+    a leading ``n_layers`` axis; a ``"sig_head"`` entry carried too) as the
+    port's :class:`repro_torch.models.transformer.DecoderLM` on ``device``
+    (default CUDA), its head a
+    :class:`repro_torch.models.sig_head.SigHead`."""
+    from .models.sig_head import SigHead
+    from .models.transformer import DecoderLM, check_ported
+    check_ported(cfg)
+    tree = _nest(from_numpy(_per_layer(dict(params)), device))
+    head = tree.pop("sig_head", None)
+    model = DecoderLM(tree, cfg)
+    if head is not None:
+        model["sig_head"] = SigHead(head, cfg)
+    return model
+
+
+def opt_state_from_reference(state, device=None) -> dict:
+    """A reference optimizer state (``adamw``: ``m``, ``v``, ``step``;
+    ``adafactor``: ``slots``, ``step``; ``sgd``: ``mom``, ``step``; numpy
+    trees shaped like the parameters) as the port's: each tree keyed by
+    the port's parameter names (:func:`lm_params_from_reference`), the
+    layer-stacked slots split per layer, on ``device`` (default CUDA)."""
+    out = {k: _per_layer(dict(v)) if isinstance(v, dict) else v
+           for k, v in state.items()}
+    return from_numpy(out, device)

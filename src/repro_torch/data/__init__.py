@@ -1,8 +1,10 @@
 """Data generators of the port (numpy draws, the reference's for a seed)."""
-from .pipeline import (RaggedPathStream, SessionTickStream, fbm_paths,
-                       geometric_lengths, hurst_dataset, ragged_fbm_dataset,
-                       session_tick_stream)
+from .pipeline import (RaggedPathStream, SessionTickStream, TokenStream,
+                       fbm_paths, geometric_lengths, hurst_dataset,
+                       ragged_fbm_dataset, ragged_token_batches,
+                       session_tick_stream, synthetic_lm_batches)
 
-__all__ = ["RaggedPathStream", "SessionTickStream", "fbm_paths",
-           "geometric_lengths", "hurst_dataset", "ragged_fbm_dataset",
-           "session_tick_stream"]
+__all__ = ["RaggedPathStream", "SessionTickStream", "TokenStream",
+           "fbm_paths", "geometric_lengths", "hurst_dataset",
+           "ragged_fbm_dataset", "ragged_token_batches",
+           "session_tick_stream", "synthetic_lm_batches"]

@@ -1,10 +1,13 @@
-"""Fractional Brownian motion for the paper's §8 Hurst experiment,
-variable-length path batches, and multi-tenant session tick traffic.
+"""Synthetic LM token streams, fractional Brownian motion for the paper's
+§8 Hurst experiment, variable-length path and token batches, and
+multi-tenant session tick traffic.
 
-Port of ``fbm_paths``, ``hurst_dataset``, ``geometric_lengths``,
-``ragged_fbm_dataset``, ``RaggedPathStream``, ``SessionTickStream`` and
+Port of ``TokenStream``, ``synthetic_lm_batches``, ``fbm_paths``,
+``hurst_dataset``, ``geometric_lengths``, ``ragged_fbm_dataset``,
+``RaggedPathStream``, ``ragged_token_batches``, ``SessionTickStream`` and
 ``session_tick_stream`` from ``repro.data.pipeline``: numpy draws, the
-same arrays as the reference for the same seed.
+same arrays as the reference for the same seed.  (``ShardedLoader`` is
+ROADMAP.md queue 1, item 15.)
 """
 from __future__ import annotations
 
@@ -14,6 +17,85 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+
+
+# ---------------------------------------------------------------------------
+# synthetic LM stream (seekable: the data state lives in the checkpoint)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TokenStream:
+    """Deterministic synthetic LM stream with a Zipfian unigram and a short
+    Markov dependency, so the loss has learnable structure; batches are
+    ``{"tokens", "labels"}`` (B, seq) int32 tensors on ``device`` (default
+    CUDA), bit-equal to the reference's.
+
+    ``state`` is the step counter: restoring it resumes the exact stream.
+    """
+    vocab_size: int
+    batch: int
+    seq: int
+    seed: int = 0
+    step: int = 0
+    device: object = None
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        ranks = np.arange(1, self.vocab_size + 1)
+        self._p = (1.0 / ranks) / np.sum(1.0 / ranks)
+        self._shift = rng.integers(1, self.vocab_size, size=8)
+        self.device = resolve_device(self.device)
+
+    def state(self) -> dict:
+        return {"step": self.step, "seed": self.seed}
+
+    def restore(self, state: dict) -> None:
+        self.step = int(state["step"])
+
+    def __iter__(self):
+        return self
+
+    def _draw(self) -> tuple[np.ndarray, np.ndarray]:
+        """The next batch as numpy int32 (tokens, labels), advancing the
+        step."""
+        rng = np.random.default_rng((self.seed, self.step))
+        base = rng.choice(self.vocab_size, size=(self.batch, self.seq + 1),
+                          p=self._p)
+        # short-range structure: x[t] sometimes determined by x[t-1]
+        det = (base[:, :-1] + self._shift[self.step % 8]) % self.vocab_size
+        mask = rng.random((self.batch, self.seq)) < 0.5
+        nxt = np.where(mask, det, base[:, 1:])
+        tokens = np.concatenate([base[:, :1], nxt], axis=1).astype(np.int32)
+        self.step += 1
+        return tokens[:, :-1], tokens[:, 1:]
+
+    def __next__(self) -> dict:
+        tokens, labels = self._draw()
+        return {"tokens": torch.from_numpy(tokens).to(self.device),
+                "labels": torch.from_numpy(labels).to(self.device)}
+
+
+def synthetic_lm_batches(vocab_size: int, batch: int, seq: int,
+                         seed: int = 0, device=None):
+    return iter(TokenStream(vocab_size, batch, seq, seed, device=device))
+
+
+def ragged_token_batches(vocab_size: int, batch: int, seq: int,
+                         seed: int = 0, device=None):
+    """Variable-length LM stream: :class:`TokenStream` batches plus a
+    right-padded ``"mask"`` (tokens past each example's deterministic
+    length are zeroed, their labels -1), the ragged spelling the sig-head
+    and trainer ``mask`` pass-through consumes."""
+    stream = TokenStream(vocab_size, batch, seq, seed, device=device)
+    while True:
+        tokens, labels = stream._draw()
+        lengths = geometric_lengths(seed * 1_000_003 + stream.step,
+                                    batch, seq, min_steps=2)
+        mask = np.arange(seq)[None, :] < lengths[:, None]
+        yield {k: torch.from_numpy(v.astype(np.int32)).to(stream.device)
+               for k, v in (("tokens", tokens * mask),
+                            ("labels", np.where(mask, labels, -1)),
+                            ("mask", mask))}
 
 
 def fbm_paths(rng: np.random.Generator, n_paths: int, n_steps: int,

@@ -777,10 +777,13 @@ class GramFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         Sx, Sy, w = ctx.saved_tensors
-        g = g.to(torch.promote_types(Sx.dtype, torch.float32))
-        dSx = (g @ (Sy * w[None, :])).to(Sx.dtype)
-        dSy = (g.T @ (Sx * w[None, :])).to(Sy.dtype)
-        dw = ((g.T @ Sx) * Sy).sum(dim=0).to(w.dtype)
+        # operands of mixed dtypes meet in their promoted dtype
+        dt = torch.promote_types(torch.promote_types(Sx.dtype, Sy.dtype),
+                                 torch.promote_types(w.dtype, torch.float32))
+        g, x, y, v = (t.to(dt) for t in (g, Sx, Sy, w))
+        dSx = (g @ (y * v[None, :])).to(Sx.dtype)
+        dSy = (g.T @ (x * v[None, :])).to(Sy.dtype)
+        dw = ((g.T @ x) * y).sum(dim=0).to(w.dtype)
         return dSx, dSy, dw, None, None, None
 
 

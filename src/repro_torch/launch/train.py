@@ -1,0 +1,139 @@
+"""Training launcher on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
+        --reduced --steps 20 --batch 4 --seq 64 --ckpt-dir runs/ckpt \
+        [--device cpu] [--loss sig_mmd --sig-channels 8 --sig-depth 3]
+
+``--device`` defaults to the CUDA card.  ``--mesh`` takes only ``1x1``:
+meshes are ROADMAP.md queue 1, item 15.  ``--loss sig_mmd`` trains the
+signature-MMD loss against a fixed sample of fBM reference paths (the
+port's ``hurst_dataset``, one path an example of ``--seq`` points and
+``--sig-channels`` channels, scaled by 1/√seq as the learned path is);
+``--sig-channels`` and ``--sig-depth`` set the config's signature head.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from .. import models as M
+from ..checkpoint import Checkpointer, latest_step
+from ..configs import get_config, reduce_config, with_sig_head
+from ..data.pipeline import TokenStream, hurst_dataset
+from ..device import resolve_device
+from ..optim import adafactor, adamw, linear_warmup_cosine
+from ..optim.optimizers import named
+from ..train import make_train_step
+
+
+def parse_mesh(spec: str) -> tuple[int, ...]:
+    dims = tuple(int(x) for x in spec.lower().split("x"))
+    if int(np.prod(dims)) != 1:
+        raise SystemExit(f"mesh {spec}: the port trains on one device "
+                         f"(--mesh 1x1); meshes are ROADMAP.md queue 1, "
+                         f"item 15")
+    return dims
+
+
+def reference_paths(seed: int, batch: int, seq: int, channels: int,
+                    device) -> torch.Tensor:
+    """(batch, seq, channels) fBM paths (H ~ U(0.25, 0.75)) scaled by
+    1/√seq, the sig-MMD loss's reference sample."""
+    X, _ = hurst_dataset(seed, batch, seq - 1, channels)
+    return torch.from_numpy(X / np.float32(np.sqrt(seq))).to(device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="family-preserving reduced config")
+    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--opt", default="adamw", choices=["adamw", "adafactor"])
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--remat", default="dots",
+                    choices=["dots", "full", "none"])
+    ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    ap.add_argument("--loss", default="lm", choices=["lm", "sig_mmd"])
+    ap.add_argument("--sig-channels", type=int, default=8)
+    ap.add_argument("--sig-depth", type=int, default=3)
+    args = ap.parse_args(argv)
+
+    parse_mesh(args.mesh)
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_config(cfg)
+    if args.loss == "sig_mmd":
+        cfg = with_sig_head(cfg, channels=args.sig_channels,
+                            depth=args.sig_depth)
+    print(f"[train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
+          f"device={dev}, batch={args.batch}x{args.seq}, loss={args.loss}")
+
+    opt = (adamw if args.opt == "adamw" else adafactor)(
+        lr=linear_warmup_cosine(args.lr, max(1, args.steps // 10),
+                                args.steps))
+    params = M.init_params(args.seed, cfg, torch.float32, device=dev)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, remat=args.remat,
+                              microbatch=args.microbatch, loss=args.loss)
+
+    ckpt = None
+    start = 0
+    if args.ckpt_dir:
+        ckpt = Checkpointer(args.ckpt_dir)
+        if args.resume and latest_step(args.ckpt_dir) is not None:
+            start = latest_step(args.ckpt_dir)
+            tensors = named(params)
+            restored, opt_state, _ = ckpt.restore(tensors, opt_state, start)
+            with torch.no_grad():
+                for k, t in restored.items():
+                    tensors[k].copy_(t)
+            print(f"[train] resumed from step {start}")
+
+    stream = TokenStream(cfg.vocab_size, args.batch, args.seq, args.seed,
+                         step=start, device=dev)
+    paths = None if args.loss == "lm" else reference_paths(
+        args.seed, args.batch, args.seq, args.sig_channels, dev)
+
+    tokens_per_step = args.batch * args.seq
+    m = {}
+    for step in range(start, args.steps):
+        t0 = time.perf_counter()
+        batch = next(stream)
+        if paths is not None:
+            batch["paths"] = paths
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"  step {step:>5} loss {loss:.4f} "
+                  f"|g| {float(m['grad_norm']):.3f} "
+                  f"{tokens_per_step/dt:,.0f} tok/s")
+        if ckpt and args.ckpt_every and step and \
+                step % args.ckpt_every == 0:
+            ckpt.save(named(params), opt_state, step,
+                      extra={"data": stream.state()})
+    if ckpt:
+        ckpt.save(named(params), opt_state, args.steps,
+                  extra={"data": stream.state()})
+        ckpt.wait()
+    print("[train] done")
+    return params, m
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,213 @@
+"""Self-contained optimizers: AdamW, Adafactor, SGD (port of
+``repro.optim.optimizers``).
+
+``opt.init(params) -> state`` and ``opt.update(grads, state, params) ->
+state``.  ``params`` is an ``nn.Module`` (its named parameters) or a dict
+of tensors; ``grads`` a dict of tensors under the same names.  The update
+is written into the parameters and the state in place, the counterpart of
+the reference's donated buffers; the arithmetic is the reference's own:
+AdamW clips to global norm 1.0 inside ``update`` with ``1e-9`` in the
+denominator, takes the learning rate at the incremented step, and adds
+the weight decay to every leaf's update.
+
+Adafactor's update clip (the RMS of the update) runs over the reference's
+leaf: a parameter named ``layers.<i>.<rest>`` belongs to the stacked leaf
+``layers.<rest>`` of all layers, whose RMS the reference takes.  A
+stacked 1-D leaf (a norm) is factored by the reference once both the
+layer count and its width reach ``min_dim_factored``; per layer it never
+is (no config of the pool has 128 layers).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Callable
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable     # params -> state
+    update: Callable   # (grads, state, params) -> state; params in place
+
+
+def named(params) -> dict:
+    """The parameters as a ``{name: tensor}`` dict."""
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in _leaves(tree)))
+
+
+def clip_by_global_norm(tree: dict, max_norm: float):
+    g = global_norm(tree)
+    scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
+    return {k: x * scale.to(x.dtype) for k, x in tree.items()}, g
+
+
+def cosine_schedule(base_lr: float, total_steps: int, min_frac: float = 0.1):
+    def lr(step):
+        step = torch.as_tensor(step)
+        t = torch.clamp(step, max=total_steps) / max(1, total_steps)
+        return base_lr * (min_frac + (1 - min_frac) * 0.5 *
+                          (1 + torch.cos(math.pi * t)))
+    return lr
+
+
+def linear_warmup_cosine(base_lr: float, warmup: int, total_steps: int,
+                         min_frac: float = 0.05):
+    cos = cosine_schedule(base_lr, max(1, total_steps - warmup), min_frac)
+
+    def lr(step):
+        step = torch.as_tensor(step)
+        w = torch.clamp(step / max(1, warmup), max=1.0)
+        return torch.where(step < warmup, base_lr * w, cos(step - warmup))
+    return lr
+
+
+def _step_counter(params: dict) -> torch.Tensor:
+    dev = next(iter(params.values())).device if params else None
+    return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+          clip_norm: float | None = 1.0) -> Optimizer:
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        params = named(params)
+        zeros = {k: torch.zeros_like(p, dtype=torch.float32)
+                 for k, p in params.items()}
+        return {"m": zeros,
+                "v": {k: torch.zeros_like(z) for k, z in zeros.items()},
+                "step": _step_counter(params)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        params = named(params)
+        state["step"] += 1
+        step = state["step"]
+        scale = None
+        if clip_norm is not None:
+            scale = torch.clamp(clip_norm / (global_norm(grads) + 1e-9),
+                                max=1.0)
+        bc1 = 1 - b1 ** step.float()
+        bc2 = 1 - b2 ** step.float()
+        lr_t = lr_fn(step)
+        for k, p in params.items():
+            g = grads[k] if scale is None else grads[k] * scale.to(
+                grads[k].dtype)
+            g = g.float()
+            m = state["m"][k].copy_(b1 * state["m"][k] + (1 - b1) * g)
+            v = state["v"][k].copy_(b2 * state["v"][k] + (1 - b2) * g * g)
+            u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            u = u + weight_decay * p.float()
+            p.add_((-lr_t * u).to(p.dtype))
+        return state
+
+    return Optimizer(init, update)
+
+
+def _stack_key(name: str) -> str:
+    """``layers.<i>.<rest>`` -> ``layers.<rest>``: the reference's
+    layer-stacked leaf a per-layer parameter belongs to."""
+    return re.sub(r"^layers\.\d+\.", "layers.", name)
+
+
+def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
+              min_dim_factored=128) -> Optimizer:
+    """Memory-factored second-moment optimizer."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def factored(p):
+        return p.ndim >= 2 and p.shape[-1] >= min_dim_factored and \
+            p.shape[-2] >= min_dim_factored
+
+    def init(params):
+        params = named(params)
+
+        def one(p):
+            if factored(p):
+                return {"vr": p.new_zeros(p.shape[:-1], dtype=torch.float32),
+                        "vc": p.new_zeros(p.shape[:-2] + p.shape[-1:],
+                                          dtype=torch.float32)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
+        return {"slots": {k: one(p) for k, p in params.items()},
+                "step": _step_counter(params)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        params = named(params)
+        state["step"] += 1
+        step = state["step"]
+        beta = 1.0 - step.float() ** (-decay)
+        lr_t = lr_fn(step)
+        us = {}
+        for k, p in params.items():
+            g = grads[k].float()
+            g2 = g * g + eps
+            slot = state["slots"][k]
+            if factored(p):
+                vr = slot["vr"].copy_(beta * slot["vr"]
+                                      + (1 - beta) * torch.mean(g2, dim=-1))
+                vc = slot["vc"].copy_(beta * slot["vc"]
+                                      + (1 - beta) * torch.mean(g2, dim=-2))
+                denom = torch.sqrt(
+                    vr[..., None] * vc[..., None, :] /
+                    (torch.mean(vr, dim=-1, keepdim=True)[..., None] + eps))
+                us[k] = g / (denom + eps)
+            else:
+                v = slot["v"].copy_(beta * slot["v"] + (1 - beta) * g2)
+                us[k] = g / (torch.sqrt(v) + eps)
+        # the RMS of each reference leaf: a stacked leaf spans its layers
+        sq, count = {}, {}
+        for k, u in us.items():
+            key = _stack_key(k)
+            sq[key] = sq.get(key, 0.0) + torch.sum(u * u)
+            count[key] = count.get(key, 0) + u.numel()
+        for k, p in params.items():
+            key = _stack_key(k)
+            rms = torch.sqrt(sq[key] / count[key] + eps)
+            u = us[k] / torch.clamp(rms / clip_threshold, min=1.0)
+            p.add_((-lr_t * u).to(p.dtype))
+        return state
+
+    return Optimizer(init, update)
+
+
+def sgd(lr=1e-2, momentum=0.9) -> Optimizer:
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        params = named(params)
+        return {"mom": {k: torch.zeros_like(p, dtype=torch.float32)
+                        for k, p in params.items()},
+                "step": _step_counter(params)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        params = named(params)
+        state["step"] += 1
+        lr_t = lr_fn(state["step"])
+        for k, p in params.items():
+            mom = state["mom"][k].copy_(momentum * state["mom"][k]
+                                        + grads[k].float())
+            p.add_((-lr_t * mom).to(p.dtype))
+        return state
+
+    return Optimizer(init, update)

@@ -1,8 +1,11 @@
-"""Online signature-feature engines on a session pool.
+"""Serving: prefill and decode steps, a small batched LM engine, and the
+online signature-feature engines on a session pool.
 
-Port of ``SigStreamEngine``, ``SigScoreEngine`` and their helpers from
-``repro.serve.engine`` (the LM ``ServeEngine``, ``make_serve_step`` and
-``make_prefill_step`` are ROADMAP.md queue 1 item 16).
+Port of ``repro.serve.engine``.  ``make_prefill_step``,
+``make_serve_step`` and ``ServeEngine`` serve the dense decoder
+(:mod:`repro_torch.models.transformer`): the prompt is prefilled through
+decode steps into a float32 cache, as in the reference, and an EOS token
+freezes its slot.
 
 ``SigStreamEngine`` keeps fixed batch slots whose per-step windowed
 signatures stay current as path chunks arrive: the slots are sessions in a
@@ -26,8 +29,11 @@ import torch
 from ..core import tensor_ops as tops
 from ..core.signature import canon_precision
 from ..core.stream import SignatureStream
+from .. import models as M
 from ..device import resolve_device
 from ..kernels import ops
+from ..models import transformer as T
+from ..models.config import ModelConfig
 from ..sigkernel import gram_diag, krr_fit, krr_predict, word_weights
 from .sessions import SessionHandle, SessionStore
 
@@ -279,3 +285,94 @@ class SigScoreEngine:
     def reset(self) -> None:
         self.store.reset_block(self._handles)
         self._cross = None
+
+
+def make_prefill_step(cfg: ModelConfig, remat: str = "dots"):
+    """Forward over the full prompt: prefill(params, batch) -> the last
+    position's float32 logits (B, V)."""
+    T.check_ported(cfg)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        hidden, _ = T.backbone(params, cfg, tokens=batch.get("tokens"),
+                               embeds=batch.get("embeds"),
+                               positions=batch.get("positions"), remat=remat)
+        return T.logits_fn(params, cfg, hidden[:, -1:])[:, 0].float()
+    return prefill
+
+
+def make_serve_step(cfg: ModelConfig, temperature: float = 0.0):
+    """One decode step: (params, cache, tokens, generator) -> (next_tokens
+    (B, 1) int32, cache).  Greedy at temperature 0; otherwise a
+    ``torch.multinomial`` draw from softmax(logits / temperature) with the
+    generator: reproducible under a seed, but not the reference's
+    ``jax.random.categorical`` draws."""
+
+    def serve_step(params, cache, tokens, generator=None):
+        logits, cache = M.decode_step(params, cfg, tokens, cache)
+        logits = logits[:, -1].float()
+        if temperature > 0:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:
+            next_tok = torch.argmax(logits, dim=-1)
+        return next_tok[:, None].to(torch.int32), cache
+
+    return serve_step
+
+
+@dataclasses.dataclass
+class ServeEngine:
+    """Minimal batched generation engine: fixed batch slots, per-slot stop
+    tracking, on ``device`` (default CUDA), where ``params`` must live.
+
+    Greedy decoding (``temperature=0``) gives the reference's tokens.
+    Sampling draws with ``torch.multinomial`` from the engine's generator
+    (seeded by ``seed``): reproducible, not bit-equal to
+    ``jax.random.categorical``.
+    """
+    cfg: ModelConfig
+    params: torch.nn.Module
+    max_len: int
+    temperature: float = 0.0
+    eos_id: int = -1
+    seed: int = 0
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        where = {p.device for p in self.params.parameters()}
+        if any((d.type, d.index or 0) != (self.device.type,
+                                          self.device.index or 0)
+               for d in where):
+            raise ValueError(f"the parameters live on {sorted(map(str, where))}"
+                             f" but the engine runs on {self.device}")
+        self._step = make_serve_step(self.cfg, self.temperature)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
+
+    def generate(self, prompt_tokens, n_steps: int,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, P) prompt -> (B, P + n_steps) int32: the prompt, then each
+        slot's new tokens (EOS repeated once a slot has emitted it)."""
+        prompt = torch.as_tensor(prompt_tokens, device=self.device).to(
+            torch.int32)
+        B = prompt.shape[0]
+        generator = self.generator if generator is None else generator
+        cache = M.init_cache(self.cfg, B, self.max_len, torch.float32,
+                             device=self.device)
+        # teacher-forced prefill through decode steps (simple and exact)
+        for j in range(prompt.shape[1] - 1):
+            _, cache = M.decode_step(self.params, self.cfg,
+                                     prompt[:, j:j + 1], cache)
+        tok = prompt[:, -1:]
+        out = [prompt]
+        done = torch.zeros((B, 1), dtype=torch.bool, device=self.device)
+        for _ in range(n_steps):
+            tok, cache = self._step(self.params, cache, tok, generator)
+            if self.eos_id >= 0:
+                done = done | (tok == self.eos_id)
+                tok = torch.where(done, torch.full_like(tok, self.eos_id),
+                                  tok)
+            out.append(tok)
+        return torch.cat(out, dim=1)

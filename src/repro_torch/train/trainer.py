@@ -1,0 +1,352 @@
+"""Training step and loop on one device (port of
+``repro.train.trainer``): microbatch accumulation, remat, the
+signature-MMD loss, checkpoint/restart, straggler-aware step timing and
+the trainer's instruments.
+
+The step differentiates with ``torch.autograd.grad`` and writes the
+optimizer's update into the parameters and its state in place (the
+reference donates both buffers to the jitted step).  The signature legs of
+the sig-MMD loss and of the heads carry their own autograd Functions: on
+the card each is a ``sig_trunc`` (or ``sig_words``) launch forward and a
+``sig_sweep`` launch backward, and the Gram products ``sig_gram`` launches.
+
+The mesh code (``replicate_tree``, ``place_batch``, data-parallel
+``train_loop``) is ROADMAP.md queue 1, item 15.
+"""
+from __future__ import annotations
+
+import collections
+import copy
+import dataclasses
+import math
+import os
+import time
+import warnings
+from typing import Any, Callable, Optional
+
+import torch
+
+from .. import models as M
+from .. import obs
+from ..models.config import ModelConfig
+from ..optim import Optimizer, global_norm
+from ..optim.optimizers import named
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLoopConfig:
+    steps: int = 100
+    log_every: int = 10
+    ckpt_every: int = 0                 # 0 = only at exit
+    ckpt_dir: str = ""
+    microbatch: int = 0                 # 0 = no accumulation
+    remat: str = "dots"
+    straggler_deadline_s: float = 0.0   # 0 = disabled; see train_loop
+    sig_backend: str = ""               # "" = honour cfg.sig_head.backend;
+    sig_backward: str = ""              # else override the engine dispatch
+    loss: str = "lm"                    # "lm" | "sig_mmd" (distribution match)
+    run_dir: str = "runs"               # default JSONL run-log dir ("" = no
+    run_name: str = ""                  # default sink); "" names by time
+    # SLO enforcement (repro_torch.obs.slo): active when slos or
+    # slo_callback is set.  Objectives are evaluated over the trailing
+    # slo_window steps at the slo_every cadence (0 = log_every); slos=()
+    # uses obs.train_slos().  The callback (if any) gets (step, report) at
+    # every evaluation; on a breached report a "warn" action warns, while
+    # slo_action="abort" (or the callback returning "abort") raises
+    # SloBreach.
+    slos: tuple = ()
+    slo_every: int = 0
+    slo_window: int = 64
+    slo_action: str = "warn"            # "warn" | "abort"
+    slo_callback: Optional[Callable[[int, dict], Any]] = None
+
+
+def _apply_sig_overrides(cfg: ModelConfig, sig_backend: str,
+                         sig_backward: str) -> ModelConfig:
+    """Override the sig head's engine-dispatch routing so a launch config
+    can pin the trained path to a backend."""
+    if cfg.sig_head is None or not (sig_backend or sig_backward):
+        return cfg
+    sc = cfg.sig_head
+    if sig_backend:
+        sc = dataclasses.replace(sc, backend=sig_backend)
+    if sig_backward:
+        sc = dataclasses.replace(sc, backward=sig_backward)
+    return dataclasses.replace(cfg, sig_head=sc)
+
+
+def make_sig_mmd_loss(cfg: ModelConfig):
+    """Distribution-matching loss (``TrainLoopConfig.loss="sig_mmd"``): the
+    unbiased signature-MMD² between the model's learned hidden-state paths
+    and reference paths in ``batch["paths"]`` (B_ref, S'+1, channels).
+
+    The generated sample is the backbone's hidden trajectory projected to
+    ``cfg.sig_head.channels`` dims (through ``params["sig_head"]["proj"]``
+    when present, else the leading channels) and normalised as
+    :func:`repro_torch.models.sig_head._learned_path` does.  Ragged batches:
+    ``batch["mask"]`` (B, S right-padded) ends each generated trajectory at
+    its true end, ``batch["path_lengths"]`` (B_ref,) makes the reference
+    sample ragged.
+    """
+    sc = cfg.sig_head
+    if sc is None:
+        raise ValueError("loss='sig_mmd' needs cfg.sig_head (depth/channels/"
+                         "backend of the matched path distribution)")
+    if cfg.family == "encdec":
+        raise ValueError("loss='sig_mmd' matches decoder-style hidden "
+                         "trajectories (decoder/rwkv/hybrid families); the "
+                         "encdec family has no single backbone trajectory")
+    from ..models import transformer as T
+    from ..models.sig_head import _learned_path, mask_path_lengths
+    from ..sigkernel import sig_mmd
+
+    def loss_fn(params, batch, remat):
+        hidden, aux = T.backbone(params, cfg, tokens=batch.get("tokens"),
+                                 embeds=batch.get("embeds"),
+                                 positions=batch.get("positions"),
+                                 remat=remat)
+        mask = batch.get("mask")
+        lengths = None
+        hp = params.get("sig_head")
+        if hp is not None and "proj" in hp:
+            if mask is None:
+                path = _learned_path(hp, hidden, sc)
+            else:
+                path, lengths = _learned_path(hp, hidden, sc, mask)
+        else:
+            path = hidden[..., :sc.channels].float()
+            if sc.stride > 1:
+                path = path[:, ::sc.stride]
+            if mask is None:
+                path = path / torch.sqrt(torch.tensor(float(path.shape[1])))
+            else:
+                lengths, norm = mask_path_lengths(mask, sc.stride)
+                path = path / norm[:, None, None]
+        mmd = sig_mmd(path, batch["paths"].float(), sc.depth,
+                      backend=sc.backend, backward=sc.backward,
+                      x_lengths=lengths,
+                      y_lengths=batch.get("path_lengths"),
+                      device=path.device)
+        loss = mmd + aux
+        return loss, {"loss": loss, "sig_mmd": mmd, "aux": aux}
+
+    return loss_fn
+
+
+def _resolve_loss(cfg: ModelConfig, loss: str):
+    """loss name -> fn(params, batch, remat) -> (loss, metrics); shared by
+    the train and eval steps so both score the trained objective."""
+    if loss == "sig_mmd":
+        return make_sig_mmd_loss(cfg)
+    if loss == "lm":
+        return lambda params, batch, remat: M.loss_fn(params, cfg, batch,
+                                                      remat=remat)
+    raise ValueError(f"unknown loss {loss!r}; expected 'lm' or 'sig_mmd'")
+
+
+def _detached(metrics: dict) -> dict:
+    return {k: v.detach() if isinstance(v, torch.Tensor) else v
+            for k, v in metrics.items()}
+
+
+def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
+                    microbatch: int = 0, sig_backend: str = "",
+                    sig_backward: str = "", loss: str = "lm"):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), ``params`` the model, updated in place.  With microbatch > 1
+    the gradients are accumulated over ``microbatch`` slices of the batch
+    (every batch entry split on its first axis), the loss is their mean
+    and the metrics shrink to ``{loss, grad_norm}``.  ``grad_norm`` is the
+    norm of the unclipped gradients.  ``sig_backend``/``sig_backward`` pin
+    the signature head's engine dispatch; ``loss`` selects ``"lm"`` (token
+    NLL) or ``"sig_mmd"`` (:func:`make_sig_mmd_loss`)."""
+    cfg = _apply_sig_overrides(cfg, sig_backend, sig_backward)
+    base_loss = _resolve_loss(cfg, loss)
+
+    def grads_of(params, batch):
+        tensors = named(params)
+        loss_val, metrics = base_loss(params, batch, remat)
+        grads = torch.autograd.grad(loss_val, list(tensors.values()),
+                                    allow_unused=True)
+        # a parameter the loss does not read has a zero gradient, as under
+        # jax.grad
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(tensors.items(), grads)}
+        return loss_val.detach(), _detached(metrics), grads
+
+    def train_step(params, opt_state, batch):
+        if microbatch and microbatch > 1:
+            acc, loss_sum = None, 0.0
+            for i in range(microbatch):
+                def sl(x):
+                    mb = x.shape[0] // microbatch
+                    return x[i * mb:(i + 1) * mb]
+                loss_val, _, grads = grads_of(
+                    params, {k: sl(v) for k, v in batch.items()})
+                acc = grads if acc is None else {
+                    k: acc[k] + g for k, g in grads.items()}
+                loss_sum = loss_sum + loss_val
+            grads = {k: g / microbatch for k, g in acc.items()}
+            loss_val = loss_sum / microbatch
+            metrics = {"loss": loss_val}
+        else:
+            loss_val, metrics, grads = grads_of(params, batch)
+        gnorm = global_norm(grads)
+        opt.update(grads, opt_state, params)
+        metrics = dict(metrics, grad_norm=gnorm, loss=loss_val)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, remat: str = "none", *,
+                   loss: str = "lm", sig_backend: str = "",
+                   sig_backward: str = ""):
+    """Eval with the objective (and sig-head dispatch overrides) the model
+    was trained with: loss='sig_mmd' evaluates the MMD statistic."""
+    cfg = _apply_sig_overrides(cfg, sig_backend, sig_backward)
+    base_loss = _resolve_loss(cfg, loss)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = base_loss(params, batch, remat)
+        return metrics
+    return eval_step
+
+
+def _batch_key(batch: dict) -> tuple:
+    return tuple((k, tuple(v.shape), str(v.dtype))
+                 for k, v in sorted(batch.items()))
+
+
+def train_loop(cfg: ModelConfig, params, opt: Optimizer, data_iter,
+               loop: TrainLoopConfig, checkpointer=None, start_step: int = 0,
+               on_metrics: Optional[Callable[[int, dict], None]] = None):
+    """Reference loop with checkpoint/restart and a straggler guard.
+
+    ``params`` is the model; the loop trains a copy of it, so the caller's
+    module survives (the reference copies before its donated steps).
+    Returns ``(params, opt_state, history)``.
+
+    Fault tolerance: with a checkpointer, state is saved every
+    ``ckpt_every`` steps and in ``finally``; ``start_step`` > 0 restores
+    that step's checkpoint first.  The straggler guard flags steps slower
+    than ``straggler_deadline_s``.
+
+    Observability: every log step goes to ``on_metrics`` (by default a
+    JSONL sink under ``loop.run_dir``; ``run_dir=""`` disables).  Each
+    step runs inside a ``train.step`` span, ticks the step-time histogram
+    and straggler counter and sets the loss and grad-norm gauges; the
+    first step of each new batch shape ticks
+    ``pathsig_jit_traces_total{site="train_step"}`` (the reference's
+    retrace).  SLOs (``loop.slos`` / ``loop.slo_callback``) are evaluated
+    at the log cadence over the trailing window: breaches warn, call the
+    callback and, with ``slo_action="abort"`` or a callback returning
+    ``"abort"``, raise :class:`repro_torch.obs.slo.SloBreach`.  Any
+    exception escaping a step dumps the flight recorder before the final
+    checkpoint save runs.
+    """
+    if on_metrics is None and loop.run_dir:
+        name = loop.run_name or time.strftime("run-%Y%m%d-%H%M%S")
+        on_metrics = obs.jsonl_sink(
+            os.path.join(loop.run_dir, f"{name}.jsonl"))
+    step_fn = make_train_step(cfg, opt, remat=loop.remat,
+                              microbatch=loop.microbatch,
+                              sig_backend=loop.sig_backend,
+                              sig_backward=loop.sig_backward, loss=loop.loss)
+    shapes_seen: set = set()
+    params = copy.deepcopy(params)
+    opt_state = opt.init(params)
+    if checkpointer is not None and start_step:
+        tensors = named(params)
+        restored, opt_state, _ = checkpointer.restore(tensors, opt_state,
+                                                      start_step)
+        with torch.no_grad():
+            for k, t in restored.items():
+                tensors[k].copy_(t)
+    slo_active = bool(loop.slos) or loop.slo_callback is not None
+    slo_specs = tuple(loop.slos) or obs.train_slos()
+    slo_every = loop.slo_every or loop.log_every
+    window = collections.deque(maxlen=max(1, loop.slo_window))
+    history = []
+    try:
+        with obs.dump_on_error("train.loop"):
+            for step in range(start_step, loop.steps):
+                t0 = time.perf_counter()
+                with obs.span("train.step", step=step):
+                    batch = next(data_iter)
+                    obs.compile.count_new_shape(
+                        "train_step", shapes_seen, _batch_key(batch), batch)
+                    params, opt_state, metrics = step_fn(params, opt_state,
+                                                         batch)
+                    loss_val = float(metrics["loss"])    # honest timing
+                dt = time.perf_counter() - t0
+                straggler = bool(loop.straggler_deadline_s
+                                 and dt > loop.straggler_deadline_s)
+                if straggler:
+                    metrics = dict(metrics, straggler=True)
+                if obs.enabled():
+                    obs.histogram("pathsig_train_step_seconds",
+                                  "train step wall-clock "
+                                  "(to the loss on the host)").observe(dt)
+                    if straggler:
+                        obs.counter(
+                            "pathsig_train_stragglers_total",
+                            "steps exceeding straggler_deadline_s").inc()
+                    obs.gauge("pathsig_train_loss",
+                              "last train-step loss").set(loss_val)
+                    if "grad_norm" in metrics:
+                        obs.gauge("pathsig_train_grad_norm",
+                                  "last train-step global gradient norm"
+                                  ).set(float(metrics["grad_norm"]))
+                if slo_active:
+                    window.append((dt, loss_val,
+                                   float(metrics["grad_norm"])
+                                   if "grad_norm" in metrics else 0.0))
+                    if step % slo_every == 0 or step == loop.steps - 1:
+                        _enforce_slos(loop, slo_specs, window, step)
+                if step % loop.log_every == 0 or step == loop.steps - 1:
+                    m = {k: float(v) if hasattr(v, "shape") else v
+                         for k, v in metrics.items()}
+                    m["step"], m["sec"] = step, dt
+                    history.append(m)
+                    if on_metrics:
+                        on_metrics(step, m)
+                if checkpointer is not None and loop.ckpt_every and \
+                        step and step % loop.ckpt_every == 0:
+                    checkpointer.save(named(params), opt_state, step)
+    finally:
+        if checkpointer is not None:
+            checkpointer.save(named(params), opt_state, loop.steps)
+    return params, opt_state, history
+
+
+def _slo_window_values(window) -> dict:
+    """Trailing-window observations for :func:`repro_torch.obs.slo.
+    train_slos`: step-latency percentiles, worst grad norm, loss
+    finiteness."""
+    secs = sorted(dt for dt, _, _ in window)
+    i99 = max(0, min(len(secs) - 1, math.ceil(0.99 * len(secs)) - 1))
+    last_loss = window[-1][1]
+    return {
+        "step_s": window[-1][0],
+        "step_p99_s": secs[i99],
+        "loss": last_loss,
+        "loss_finite": 1.0 if math.isfinite(last_loss) else 0.0,
+        "grad_norm_max": max(g for _, _, g in window),
+    }
+
+
+def _enforce_slos(loop: TrainLoopConfig, slo_specs, window,
+                  step: int) -> None:
+    results = obs.evaluate_values(slo_specs, _slo_window_values(window))
+    rep = obs.slo.report(results)
+    action = None
+    if loop.slo_callback is not None:
+        action = loop.slo_callback(step, rep)
+    if rep["status"] == "breach":
+        msg = (f"train SLO breach at step {step}: "
+               f"{', '.join(rep['breaches'])}")
+        if loop.slo_action == "abort" or action == "abort":
+            raise obs.SloBreach(msg)
+        warnings.warn(msg, stacklevel=2)
