@@ -323,7 +323,35 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              sig_words, sig_gram and sig_sweep alone at those shapes
              against their plain versions in float64, timed, with bounds
              and partitions.
-25. report — one JSON line of kernels (the sig_trunc row with its cases:
+25. families — the MoE/MLA, hybrid, RWKV6 and encoder-decoder LMs
+             (float32, TF32 off, random init on the card from the seed).
+             (a) ServeEngine over deepseek-v2-lite-16b, zamba2-7b,
+             rwkv6-1.6b and whisper-large-v3 as published and
+             phi3.5-moe-42b-a6.6b at full width with its depth cut to the
+             most layers that leave 10 GB free, each freed before the
+             next: prompts from TokenStream(seed=0) (4 × 64; phi3.5 2 ×
+             32; whisper 4 × 32 over 1,500 stub frames; a MoE prompt
+             batch is <= 4E tokens, one dropless group) and 16 greedy
+             tokens; prefill logits against P decode steps to
+             1e-4·max|logit| (MoE/MLA; rwkv6 in float64, its float32
+             gap reported; zamba2 at a 12-layer cut of the same weights,
+             its full depth finite: with 14 groups over 2 shared blocks
+             the reference's decode is not its prefill; whisper encode ->
+             prefill_cross -> decode_step against decode_train); new
+             tokens/s, ms a decode step by CUDA events beside the
+             weight-read bound, a traced step's kernels and idle share,
+             peak memory, no signature launch.  (b) deepseek-v2-lite at
+             full width, depth 4 (1 dense + 3 MoE layers), through the
+             sig-MMD loss with the SigHeadConfig defaults, AdamW, 5 steps
+             of 8 × 512 tokens: finite losses, exactly 2 sig_trunc, 3
+             sig_gram and 1 sig_sweep launches a step, step ms, a traced
+             step's signature share, the leg's kernels alone against
+             their plain versions; one LM step each of zamba2-7b,
+             rwkv6-1.6b and whisper-large-v3 at full width, depth 4,
+             4 × 256 tokens (two SSD chunks): finite loss and gradient
+             norm, peak memory.  (c) the plain _ssd_chunked and _wkv_scan
+             forward at those shapes: ms, kernels a call, bytes bound.
+26. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell, and the fused ones: §8 lead_lag depth 3, the
              time_augment serving micro-batch, the two Table 1 transform
@@ -354,8 +382,11 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              path's sig-MMD leg on the sig_trunc row, its stream on the
              sig_trunc_stream row, the projected head on the sig_words
              row, the sig-MMD Gram on the sig_gram row and the leg's
-             backward on the sig_sweep row, with their launches), the
-             card's name and power limit, then the device line last.
+             backward on the sig_sweep row, with their launches; and
+             phase 25's: deepseek-v2-lite's sig-MMD leg on the sig_trunc
+             row, its Gram on the sig_gram row and its backward on the
+             sig_sweep row, with their launches), the card's name and
+             power limit, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -4644,11 +4675,12 @@ def phase_lm_heads(rng, cfg, params, seed: int) -> dict:
     return dict(routes=routes, words=len(words), **kernels)
 
 
-def lm_kernel_cases(cfg, head, hidden, ref, words, plan) -> dict:
-    """Each kernel of the path alone at the path's shapes: against its
-    plain version, timed beside it, with its bound and partition."""
+def mmd_kernel_cases(cfg, head, hidden, ref, where: str) -> dict:
+    """The sig-MMD leg's kernels alone at the path's shapes (sig_trunc,
+    the Gram and the leg's sig_sweep): against their plain versions, timed
+    beside them, with their bounds."""
     sc = cfg.sig_head
-    d, N, s = sc.channels, sc.depth, LM_STREAM_STRIDE
+    d, N = sc.channels, sc.depth
     incs = tops.path_increments(_learned_path(head, hidden, sc)).detach()
     B, M, _ = incs.shape
     D = sum(d ** k for k in range(1, N + 1))
@@ -4658,6 +4690,35 @@ def lm_kernel_cases(cfg, head, hidden, ref, words, plan) -> dict:
     trunc = dict(ms=cuda_ms(lambda: st.sig_trunc(incs, N), 10),
                  plain_ms=cuda_ms(lambda: st.sig_trunc_plain(incs, N), 1))
     trunc["bound_ms"], trunc["bound_by"] = bound(B, M, d, N, 4, B * D, 4)
+    S_y = st.sig_trunc(tops.path_increments(ref), N)
+    w = torch.as_tensor(word_weights(d, N), dtype=torch.float32,
+                        device="cuda")
+    G64 = sg.sig_gram_plain(S_x.double(), S_y.double(), w.double())
+    gram_err = float((sg.sig_gram(S_x, S_y, w).double() - G64).abs().max())
+    check(gram_err <= GRAM_TOL * float(G64.abs().max()),
+          f"{where} Gram: max |err| {gram_err:.3e}")
+    gram = time_gram(S_x, S_y, w)
+    sweep = time_sweep(incs, sig.truncation_closure(d, N), S_x, 2 * S_x,
+                       f"{where} leg")
+    sweep.pop("want")
+    return dict(incs=incs, trunc=trunc, gram_err=gram_err, gram=gram,
+                sweep=sweep,
+                trunc_case=dict(trunc_case(f"{where} leg", [B, M, d, N],
+                                           trunc),
+                                plain_ms=trunc["plain_ms"]),
+                gram_case=dict(case=f"{where} Gram", **gram),
+                sweep_case=dict(case=f"{where} leg backward",
+                                shape=[B, M, d, N], **sweep))
+
+
+def lm_kernel_cases(cfg, head, hidden, ref, words, plan) -> dict:
+    """Each kernel of the path alone at the path's shapes: against its
+    plain version, timed beside it, with its bound and partition."""
+    sc = cfg.sig_head
+    d, N, s = sc.channels, sc.depth, LM_STREAM_STRIDE
+    mmd = mmd_kernel_cases(cfg, head, hidden, ref, "LM sig-MMD")
+    incs, trunc, sweep = mmd["incs"], mmd["trunc"], mmd["sweep"]
+    B, M, _ = incs.shape
     out_s = st.sig_trunc(incs, N, stream=True, stream_stride=s)
     torch.testing.assert_close(out_s.double(), st.sig_trunc_plain(
         incs.double(), N, stream=True, stream_stride=s), **TOL)
@@ -4681,17 +4742,6 @@ def lm_kernel_cases(cfg, head, hidden, ref, words, plan) -> dict:
         ms=cuda_ms(lambda: sw.sig_words(incs, tp), 10),
         plain_ms=cuda_ms(lambda: sw.sig_words_plain(incs, tp), 1),
         bound_ms=b[0], bound_by=b[1], launches=1)
-    S_y = st.sig_trunc(tops.path_increments(ref), N)
-    w = torch.as_tensor(word_weights(d, N), dtype=torch.float32,
-                        device="cuda")
-    G64 = sg.sig_gram_plain(S_x.double(), S_y.double(), w.double())
-    gram_err = float((sg.sig_gram(S_x, S_y, w).double() - G64).abs().max())
-    check(gram_err <= GRAM_TOL * float(G64.abs().max()),
-          f"LM sig-MMD Gram: max |err| {gram_err:.3e}")
-    gram = time_gram(S_x, S_y, w)
-    sweep = time_sweep(incs, sig.truncation_closure(d, N), S_x, 2 * S_x,
-                       "LM sig-MMD leg")
-    sweep.pop("want")
     print(f"[lm] the path's kernels alone: sig_trunc {[B, M, d, N]} "
           f"{trunc['ms']:.4f} ms (plain {trunc['plain_ms']:.2f}, bound "
           f"{trunc['bound_ms']:.5f}, {trunc['bound_by']}); streamed stride "
@@ -4701,15 +4751,13 @@ def lm_kernel_cases(cfg, head, hidden, ref, words, plan) -> dict:
           f"bound {words_case['bound_ms']:.5f}); sig_sweep "
           f"{sweep['ms']:.4f} ms (plain {sweep['plain_ms']:.2f}, bound "
           f"{sweep['bound_ms']:.5f}, {sweep['bound_by']}); Gram max |err| "
-          f"{gram_err:.2e}", flush=True)
-    print_gram("[lm] sig-MMD", gram)
-    return dict(trunc_case=dict(trunc_case("LM sig-MMD leg and sig_pool",
-                                           [B, M, d, N], trunc),
-                                plain_ms=trunc["plain_ms"]),
-                stream_case=stream_case, words_case=words_case,
-                gram_case=dict(case="LM sig-MMD Gram", **gram),
-                sweep_case=dict(case="LM sig-MMD leg backward",
-                                shape=[B, M, d, N], **sweep))
+          f"{mmd['gram_err']:.2e}", flush=True)
+    print_gram("[lm] sig-MMD", mmd["gram"])
+    return dict(trunc_case=dict(mmd["trunc_case"],
+                                case="LM sig-MMD leg and sig_pool"),
+                stream_case=stream_case,
+                words_case=words_case, gram_case=mmd["gram_case"],
+                sweep_case=mmd["sweep_case"])
 
 
 def phase_lm(rng, seed: int) -> dict:
@@ -4721,6 +4769,435 @@ def phase_lm(rng, seed: int) -> dict:
     del params
     lm_free()
     return dict(serve=serve, train=train, heads=heads)
+
+# ---------------------------------------------------------------------------
+# phase 25: the MoE/MLA, hybrid, RWKV6 and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+# served as published (phi3.5-moe at full width, its depth cut to what
+# leaves FAM_FREE_GB free): requests, prompt tokens, new greedy tokens.  A
+# MoE prompt batch holds B·P <= 4E tokens, so its prefill is one dropless
+# group, as its decode steps are.
+FAM_SERVE = {"deepseek-v2-lite-16b": (4, 64, 16),
+             "phi3.5-moe-42b-a6.6b": (2, 32, 16),
+             "zamba2-7b": (4, 64, 16),
+             "rwkv6-1.6b": (4, 64, 16),
+             "whisper-large-v3": (4, 32, 16)}
+FAM_FREE_GB = 10
+# rwkv6's float32 prefill is 6.6e-4·max|logit| from its decode on the
+# card (tools/rwkv_drift.py): the channel mix's GEMMs over the prompt's
+# 256 rows round coarser than a decode step's 4, and 24 layers amplify
+# the gap (tools/rwkv_gemm_variants.py; 2.4e-4 on the CPU).  float32
+# prefill = decode is held at FAM_F32_TOL·max|logit|, 3x that gap, and
+# at E2E_TOL with the weights and activations in float64 (the float32
+# casts of the WKV state, decay and norms kept, as the reference has them)
+FAM_F32_TOL = {"rwkv6-1.6b": 2e-3}
+# zamba2's prefill equals its decode while its groups do not outnumber its
+# shared blocks: 12 layers are 2 groups over the 2 blocks
+FAM_ZAMBA_CHECK = 12
+# deepseek-v2-lite at full width through the sig-MMD loss: layers (1 dense
+# + 3 MoE), steps; batch and tokens as phase 24's (LM_TRAIN)
+FAM_TRAIN = (4, 5)
+# one LM-loss step of the other families at full width: layers, batch,
+# tokens (two 128-token SSD chunks)
+FAM_LM_STEP = (4, 4, 256)
+
+
+def expected_params(cfg) -> int:
+    """The model's parameter count: the config's ``param_count()``, to
+    within its approximate norms, except for the encoder-decoder, whose
+    count leaves out the third matrix of each gated GELU MLP (w_gate) and
+    the decoder's position table."""
+    n = cfg.param_count()
+    if cfg.family == "encdec":
+        n += ((cfg.n_layers + cfg.n_encoder_layers) * cfg.d_model * cfg.d_ff
+              + cfg.decoder_max_len * cfg.d_model)
+    return n
+
+
+def decode_weights(cfg, params) -> int:
+    """Parameters one decode step reads: all but the encoder's."""
+    return sum(p.numel() for n, p in params.named_parameters()
+               if not n.startswith(("enc_layers.", "ln_enc")))
+
+
+def routed_weights(cfg, params, step) -> tuple[int, list]:
+    """Parameters one decode step would read if each MoE layer read only
+    the experts its tokens route to: the step's other weights and, for
+    each MoE layer, its routed experts' w_gate, w_up and w_down.  ``step``
+    runs the decode step once; the routes are read from its top-k.  Also
+    returns the experts routed in each MoE layer."""
+    picked, top_k = [], LM.layers.top_k
+
+    def record(probs, k):
+        vals, idx = top_k(probs, k)
+        picked.append(int(idx.unique().numel()))
+        return vals, idx
+
+    LM.layers.top_k = record
+    try:
+        step()
+    finally:
+        LM.layers.top_k = top_k
+    experts = sum(p.numel() for n, p in params.named_parameters()
+                  if re.search(r"\.moe\.w_(gate|up|down)$", n))
+    one = experts // (cfg.n_experts * len(picked))
+    return decode_weights(cfg, params) - experts + one * sum(picked), picked
+
+
+def family_model(arch: str, seed: int):
+    """(config, model) of ``arch`` as published, drawn on the card; for
+    phi3.5-moe the most layers that leave FAM_FREE_GB free."""
+    cfg = get_config(arch)
+    if 4 * cfg.param_count() > torch.cuda.mem_get_info()[0] - FAM_FREE_GB * 1e9:
+        free = torch.cuda.mem_get_info()[0] - FAM_FREE_GB * 1e9
+
+        def size(n):
+            return 4 * dataclasses.replace(cfg, n_layers=n).param_count()
+
+        n = max(n for n in range(1, cfg.n_layers + 1) if size(n) <= free)
+        cfg = dataclasses.replace(cfg, n_layers=n)
+    model = LM.init_params(seed, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(abs(n_params - expected_params(cfg)) <= 1e-3 * n_params
+          and all(p.is_cuda for p in model.parameters()),
+          f"{arch}: {n_params} parameters on the card against "
+          f"{expected_params(cfg)} expected")
+    free = torch.cuda.mem_get_info()[0]
+    check(free >= FAM_FREE_GB * 1e9 or cfg.n_layers == get_config(
+        arch).n_layers, f"{arch}: {free / 1e9:.1f} GB free after the cut")
+    return cfg, model
+
+
+def prefill_decode_err(logits: torch.Tensor, step_logits: torch.Tensor):
+    scale = float(logits.abs().max())
+    return float((step_logits.float() - logits).abs().max()), scale
+
+
+def family_prefill_check(cfg, params, prompts, tol: float | None,
+                         dtype=torch.float32) -> dict:
+    """The prompt's last logits by make_prefill_step and by P decode steps
+    into a cache of ``dtype`` (the parameters'); equal within
+    tol·max|logit| unless ``tol`` is None, finite always."""
+    B, P = prompts.shape
+    logits = make_prefill_step(cfg)(params, {"tokens": prompts})
+    cache = LM.init_cache(cfg, B, P, dtype)
+    for j in range(P):
+        step_logits, cache = LM.decode_step(params, cfg, prompts[:, j:j + 1],
+                                            cache)
+    err, scale = prefill_decode_err(logits, step_logits[:, -1])
+    check(bool(torch.isfinite(logits).all()
+               and torch.isfinite(step_logits).all())
+          and (tol is None or err <= tol * scale),
+          f"{cfg.name} ({cfg.n_layers} layers) prefill against decode: max "
+          f"|err| {err:.3e}, max|logit| {scale:.3e}")
+    return dict(layers=cfg.n_layers, err=err, max_logit=scale, tol=tol,
+                dtype=str(dtype))
+
+
+def whisper_check(cfg, params, prompts, frames) -> tuple[dict, dict]:
+    """encode -> prefill_cross -> P decode steps against decode_train's
+    logits; returns the check and the prefilled cache."""
+    B, P = prompts.shape
+    enc = LM.encdec.encode(params, cfg, frames, remat="none")
+    full = LM.encdec.decode_train(params, cfg, enc, prompts, remat="none")
+    logits = (full[:, -1] @ params["embed"].T).float()
+    cache = LM.encdec.prefill_cross(params, cfg, enc, LM.init_cache(
+        cfg, B, frames.shape[1], torch.float32))
+    for j in range(P):
+        step_logits, cache = LM.decode_step(params, cfg, prompts[:, j:j + 1],
+                                            cache)
+    err, scale = prefill_decode_err(logits, step_logits[:, -1])
+    check(bool(torch.isfinite(step_logits).all()) and err <= E2E_TOL * scale,
+          f"{cfg.name} decode against decode_train: max |err| {err:.3e}, "
+          f"max|logit| {scale:.3e}")
+    return dict(layers=cfg.n_layers, frames=frames.shape[1], err=err,
+                max_logit=scale, tol=E2E_TOL), cache
+
+
+@torch.no_grad()
+def family_serve(arch: str, seed: int) -> dict:
+    """Phase 25a for one family: drawn on the card, its prefill checked
+    against its decode, ServeEngine's greedy tokens, one decode step timed
+    and traced."""
+    B, P, n_new = FAM_SERVE[arch]
+    lm_free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = family_model(arch, seed)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = next(TokenStream(cfg.vocab_size, B, P, seed=0))["tokens"]
+    reset_counts()
+    if cfg.family == "encdec":
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        frames = torch.randn(B, cfg.n_audio_frames, cfg.d_model,
+                             generator=g, device="cuda")
+        checked, cache = whisper_check(cfg, params, prompts, frames)
+    elif cfg.family == "hybrid":
+        # the full depth's decode is not its prefill (the reference's
+        # groups past the shared blocks discard their cache writes):
+        # finite there, equal at the 12-layer cut of the same weights
+        tree = {k: params[k] for k in params.keys() if k != "layers"}
+        cut = dataclasses.replace(cfg, n_layers=FAM_ZAMBA_CHECK)
+        sub = LM.transformer.DecoderLM(dict(tree, layers=list(
+            params["layers"])[:FAM_ZAMBA_CHECK]), cut)
+        checked = dict(full=family_prefill_check(cfg, params, prompts, None),
+                       cut=family_prefill_check(cut, sub, prompts, E2E_TOL))
+        del sub
+    else:
+        checked = family_prefill_check(cfg, params, prompts,
+                                       FAM_F32_TOL.get(arch, E2E_TOL))
+    engine = ServeEngine(cfg, params, max_len=P + n_new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = counts()
+    check(all(v == 0 for v in n.values()),
+          f"{arch} serving launched signature kernels: {n}")
+    check(tuple(out.shape) == (B, P + n_new)
+          and torch.equal(out[:, :P], prompts)
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+          f"{arch} generated tokens {tuple(out.shape)}")
+    if cfg.family != "encdec":
+        cache = LM.init_cache(cfg, B, P + n_new, torch.float32)
+    tok = out[:, -1:]
+    step_ms = cuda_ms(lambda: LM.decode_step(params, cfg, tok, cache), 5)
+    tr = device_busy(lambda: LM.decode_step(params, cfg, tok, cache))
+    steps = P - 1 + n_new
+    read = decode_weights(cfg, params)
+    bound_ms = 4 * read / HBM_BYTES_PER_S * 1e3
+    routed = {}
+    if cfg.moe:
+        # the batched expert product reads every expert; the step's routes
+        # reach only some of them
+        r_read, picked = routed_weights(
+            cfg, params, lambda: LM.decode_step(params, cfg, tok, cache))
+        routed = dict(params_routed_a_step=r_read,
+                      experts_routed_per_layer=picked,
+                      decode_step_routed_bound_ms=4 * r_read
+                      / HBM_BYTES_PER_S * 1e3)
+    res = dict(arch=arch, layers=cfg.n_layers,
+               published_layers=get_config(arch).n_layers, params=n_params,
+               params_read_a_step=read, init_s=init_s, requests=B, prompt=P,
+               new_tokens=n_new, check=checked, generate_s=wall,
+               tokens_per_s=B * n_new / wall,
+               ms_per_decode_step=wall * 1e3 / steps, decode_step_ms=step_ms,
+               decode_step_bound_ms=bound_ms, **routed,
+               kernels_per_decode_step=tr["kernels"],
+               decode_step_busy_ms=tr["device_ms"],
+               decode_step_idle_share=1 - tr["device_ms"] / tr["wall_ms"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               signature_launches=n)
+    del engine, cache, out
+    if arch in FAM_F32_TOL:
+        checked = res["check"] = dict(
+            float32=checked, float64=family_prefill_check(
+                cfg, params.double(), prompts, E2E_TOL, torch.float64))
+    cut = "" if cfg.n_layers == res["published_layers"] else (
+        f", depth cut from {res['published_layers']} to {cfg.n_layers} "
+        f"layers to leave >= {FAM_FREE_GB} GB free")
+    print(f"[families] serve {arch} at full width ({cfg.n_layers} layers"
+          f"{cut}; {n_params / 1e9:.3f}B parameters in fp32, drawn on the "
+          f"card in {init_s:.2f} s): {B} prompts of {P} tokens + {n_new} "
+          f"greedy tokens in {wall:.3f} s = {res['tokens_per_s']:.1f} new "
+          f"tokens/s, {res['ms_per_decode_step']:.2f} ms a decode step over "
+          f"{steps} steps, {step_ms:.2f} ms one step by CUDA events (bound "
+          f"{bound_ms:.2f} ms: {read / 1e9:.3f}B weights read once, bytes"
+          + (f"; {routed['decode_step_routed_bound_ms']:.2f} ms from the "
+             f"{routed['params_routed_a_step'] / 1e9:.3f}B weights of the "
+             f"routed experts, {min(routed['experts_routed_per_layer'])}-"
+             f"{max(routed['experts_routed_per_layer'])} of "
+             f"{cfg.n_experts} a layer" if routed else "") + "); "
+          f"one step traced: {tr['kernels']} kernels, {tr['device_ms']:.3f} "
+          f"ms busy of {tr['wall_ms']:.3f} (idle "
+          f"{res['decode_step_idle_share']:.3f}); check {checked}; peak "
+          f"{res['peak_gb']:.2f} GB; signature launches {n}", flush=True)
+    del params
+    lm_free()
+    return res
+
+
+def family_sig_mmd(seed: int) -> dict:
+    """Phase 25b: deepseek-v2-lite at full width, its depth cut, trained
+    through the sig-MMD loss (SigHeadConfig's defaults) with AdamW; the
+    signature kernels' launches counted; then the leg's kernels alone."""
+    L, n_steps = FAM_TRAIN
+    _, B, S = LM_TRAIN[:3]
+    lm_free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = with_sig_head(dataclasses.replace(
+        get_config("deepseek-v2-lite-16b"), n_layers=L))
+    model = LM.init_params(seed, cfg)
+    model["sig_head"] = init_sig_head(seed + 1, cfg, LM_OUT)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = adamw(lr=linear_warmup_cosine(3e-4, 2, n_steps))
+    state = opt.init(model)
+    step_fn = make_train_step(cfg, opt, loss="sig_mmd")
+    data = lm_data(cfg, "sig_mmd", 0, seed)
+    batches = [next(data) for _ in range(n_steps)]
+    losses, secs = [], []
+    reset_counts()
+    for batch in batches:
+        t0 = time.perf_counter()
+        model, state, m = step_fn(model, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    n = counts()
+    per = dict(sig_trunc=2, sig_gram=3, sig_sweep=1)
+    want = {k: per.get(k, 0) * n_steps for k in n}
+    check(n == want, f"deepseek sig-MMD steps: launches {n}, expected {want}")
+    check(all(np.isfinite(losses)), f"deepseek sig-MMD losses {losses}")
+    tr = device_busy(lambda: step_fn(model, state, batches[0]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        hidden, _ = LM.transformer.backbone(model, cfg,
+                                            tokens=batches[0]["tokens"],
+                                            remat="none")
+    head = {k: v.detach() for k, v in model["sig_head"].named_parameters()}
+    cases = mmd_kernel_cases(cfg, head, hidden, batches[0]["paths"],
+                             "deepseek sig-MMD")
+    step_ms = float(np.median(secs[1:])) * 1e3
+    res = dict(layers=L, params=n_params, batch=[B, S], steps=n_steps,
+               losses=losses, step_ms=step_ms, peak_gb=peak, launches=n,
+               launches_a_step=per,
+               trace=dict(tr, idle_share=1 - tr["device_ms"] / tr["wall_ms"],
+                          sig_share=tr["sig_ms"] / max(tr["device_ms"],
+                                                       1e-9)),
+               **{k: cases[k] for k in ("trunc_case", "gram_case",
+                                        "sweep_case")})
+    print(f"[families] train deepseek-v2-lite at full width, depth {L} (1 "
+          f"dense + {L - 1} MoE; {n_params / 1e9:.3f}B parameters, fp32, "
+          f"AdamW, sig-MMD with SigHeadConfig's defaults: channels "
+          f"{cfg.sig_head.channels}, depth {cfg.sig_head.depth}), batch {B} x "
+          f"{S}: {step_ms:.1f} ms a step (median of steps 1-{n_steps - 1}); "
+          f"losses {np.round(losses, 6).tolist()}; launches {n}; peak "
+          f"{peak:.2f} GB; one step traced: {tr['wall_ms']:.1f} ms wall, "
+          f"{tr['device_ms']:.1f} ms busy in {tr['kernels']} kernels (idle "
+          f"{res['trace']['idle_share']:.3f}), the signature kernels "
+          f"{tr['sig_ms']:.3f} ms = {res['trace']['sig_share']:.4f} of the "
+          f"busy time; the leg's kernels alone: sig_trunc "
+          f"{cases['trunc']['ms']:.4f} ms, Gram {cases['gram']['ms']:.4f} "
+          f"ms, sig_sweep {cases['sweep']['ms']:.4f} ms", flush=True)
+    del model, state, batches, hidden
+    lm_free()
+    return res
+
+
+def family_lm_step(arch: str, seed: int) -> dict:
+    """Phase 25b: one LM-loss train step of ``arch`` at full width, its
+    depth cut (the encoder's too), AdamW."""
+    L, B, S = FAM_LM_STEP
+    lm_free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(arch), n_layers=L)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_encoder_layers=L)
+    model = LM.init_params(seed, cfg)
+    opt = adamw(lr=3e-4)
+    state = opt.init(model)
+    batch = next(TokenStream(cfg.vocab_size, B, S, seed))
+    if cfg.family == "encdec":
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        batch["frames"] = torch.randn(B, cfg.n_audio_frames, cfg.d_model,
+                                      generator=g, device="cuda")
+    step_fn = make_train_step(cfg, opt)
+    reset_counts()
+    t0 = time.perf_counter()
+    model, state, m = step_fn(model, state, batch)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step_fn(model, state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    n = counts()
+    check(np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0
+          and all(v == 0 for v in n.values()),
+          f"{arch} LM step: loss {loss}, |g| {gnorm}, launches {n}")
+    frames = (f" over {cfg.n_audio_frames:,} frames"
+              if cfg.family == "encdec" else "")
+    res = dict(arch=arch, layers=L, batch=[B, S],
+               params=sum(p.numel() for p in model.parameters()), loss=loss,
+               grad_norm=gnorm, first_step_s=first_s, step_ms=step_ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[families] one LM step of {arch} at full width, depth {L}, batch "
+          f"{B} x {S}{frames}"
+          f": loss {loss:.4f}, |g| {gnorm:.3f}, {step_ms:.1f} ms (the first "
+          f"{first_s:.1f} s), peak {res['peak_gb']:.2f} GB", flush=True)
+    del model, state, batch
+    lm_free()
+    return res
+
+
+@torch.no_grad()
+def family_scans(seed: int) -> dict:
+    """The plain SSD scan and WKV recurrence forward at the LM step's
+    shapes (zamba2-7b's and rwkv6-1.6b's widths): ms by CUDA events, the
+    kernels one call launches, and the bytes bound (inputs read once,
+    output written once)."""
+    _, B, S = FAM_LM_STEP
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device="cuda")
+
+    z = get_config("zamba2-7b")
+    _, nh = LM.ssm.mamba_dims(z)
+    hd, ds = z.mamba_head_dim, z.ssm_state
+    dt = torch.nn.functional.softplus(randn(B, S, nh))
+    ssd_args = (randn(B, S, nh, hd), dt, -dt, randn(B, S, ds, scale=0.3),
+                randn(B, S, ds, scale=0.3))
+    r = get_config("rwkv6-1.6b")
+    nh_r, hk = r.d_model // r.rwkv_head_dim, r.rwkv_head_dim
+    wkv_args = (randn(B, S, nh_r, hk, scale=0.3),
+                randn(B, S, nh_r, hk, scale=0.3),
+                randn(B, S, nh_r, hk, scale=0.3),
+                torch.exp(-torch.exp(-4.0 + randn(B, S, nh_r, hk, scale=0.3))),
+                randn(nh_r, hk, scale=0.1),
+                torch.zeros(B, nh_r, hk, hk, device="cuda"))
+    out = {}
+    for name, fn, args in (
+            ("_ssd_chunked", lambda: LM.ssm._ssd_chunked(*ssd_args, 128),
+             ssd_args),
+            ("_wkv_scan", lambda: LM.ssm._wkv_scan(*wkv_args), wkv_args)):
+        y = fn()
+        ys = y if isinstance(y, tuple) else (y,)
+        check(all(bool(torch.isfinite(t).all()) for t in ys),
+              f"{name}: non-finite output")
+        moved = 4 * (sum(a.numel() for a in args)
+                     + sum(t.numel() for t in ys))
+        tr = device_busy(fn)
+        out[name] = dict(ms=cuda_ms(fn, 5), kernels=tr["kernels"],
+                         busy_ms=tr["device_ms"], wall_ms=tr["wall_ms"],
+                         bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                         bound_by="bytes",
+                         shape=[list(a.shape) for a in args])
+        print(f"[families] {name} forward at {out[name]['shape'][0]}: "
+              f"{out[name]['ms']:.3f} ms by CUDA events, {tr['kernels']} "
+              f"kernels a call, {tr['device_ms']:.3f} ms busy of "
+              f"{tr['wall_ms']:.3f} traced; bound {out[name]['bound_ms']:.4f}"
+              f" ms (bytes)", flush=True)
+    return out
+
+
+def phase_families(seed: int) -> dict:
+    """Phase 25: serve each family at its published size, train
+    deepseek-v2-lite through the sig-MMD loss, one LM step each of the
+    others, and the plain scans' times."""
+    t0 = time.perf_counter()
+    serve = [family_serve(arch, seed) for arch in FAM_SERVE]
+    train = family_sig_mmd(seed)
+    steps = [family_lm_step(a, seed) for a in ("zamba2-7b", "rwkv6-1.6b",
+                                                 "whisper-large-v3")]
+    scans = family_scans(seed)
+    return dict(serve=serve, train=train, lm_steps=steps, scans=scans,
+                seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -4774,8 +5251,12 @@ def main() -> int:
     lm_s = time.perf_counter() - t0
     print(f"[timing] LM serving, training and heads phase: {lm_s:.1f} s",
           flush=True)
+    fam = phase_families(args.seed)
+    print(f"[timing] families phase: {fam['seconds']:.1f} s", flush=True)
     heads = lm["heads"]
     lm_launches = lm["train"]["launches"]
+    moe = fam["train"]
+    moe_launches = moe["launches"]
     eng = sessions["engines"]
     src = "src/repro_torch/kernels/csrc/sig_trunc.cu"
     largest = max(table1, key=lambda r: r["bound_ms"])
@@ -4792,7 +5273,8 @@ def main() -> int:
                     streams["extend_case"], sessions["pool"]["bucket_case"],
                     eng["trunc_case"], slice8["ragged"]["bucket_case"],
                     dict(heads["trunc_case"],
-                         launches=lm_launches["sig_trunc"])]
+                         launches=lm_launches["sig_trunc"]),
+                    dict(moe["trunc_case"], launches=moe_launches["sig_trunc"])]
     wsrc = "src/repro_torch/kernels/csrc/sig_words.cu"
     t3 = max(logsig, key=lambda r: r["bound_ms"])
     words_cases = [
@@ -4858,7 +5340,8 @@ def main() -> int:
                                  ("cross-Gram", score["cross_gram"]),
                                  ("projected-MMD Gram", mmd["gram"]))]
              + [eng["gram_case"], slice8["autotune"]["gram_case"],
-                dict(heads["gram_case"], launches=lm_launches["sig_gram"])]),
+                dict(heads["gram_case"], launches=lm_launches["sig_gram"]),
+                dict(moe["gram_case"], launches=moe_launches["sig_gram"])]),
     ]
     big = max(train, key=lambda r: r["sweep_bound_ms"])
     sweep_cases = [dict(case="largest Table 1 train cell",
@@ -4878,7 +5361,9 @@ def main() -> int:
                                         "bound_by")}))
     sweep_cases += [ckpt["sweep_case"],
                     dict(heads["sweep_case"],
-                         launches=lm_launches["sig_sweep"])]
+                         launches=lm_launches["sig_sweep"]),
+                    dict(moe["sweep_case"],
+                         launches=moe_launches["sig_sweep"])]
     sp = hurst["sparse"]["sweep"]
     kernels.append(dict(
         name="sig_sweep", route="cuda",
@@ -4907,7 +5392,7 @@ def main() -> int:
             transform=fused, checkpoint=ckpt, windows=windows,
             streams=streams, new_phases_s=new_s, sessions=sessions,
             sessions_s=sessions_s, slice8=slice8, slice8_s=slice8_s,
-            lm=lm, lm_s=lm_s), indent=1))
+            lm=lm, lm_s=lm_s, families=fam), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

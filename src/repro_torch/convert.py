@@ -7,7 +7,7 @@ dataclasses of arrays (:func:`from_numpy`), ragged batches
 the fitted kernel-method state (:func:`sigkernel_from_reference`), the
 §8 Hurst model's parameters (:func:`hurst_params_from_reference`) and a
 session pool's carry (:func:`stream_carry_from_reference`), a dense
-decoder's parameters with its signature head
+LM's parameters with its signature head
 (:func:`lm_params_from_reference`) and an optimizer's state
 (:func:`opt_state_from_reference`); the backend
 and dtype strings a reference checkpoint records map through
@@ -184,10 +184,16 @@ def hurst_params_from_reference(params, device=None) -> dict:
     return state
 
 
+# the reference's layer-stacked entries (a leading layer axis), which the
+# port holds as lists of layers
+STACKED = ("layers", "dense_layers", "shared_attn", "enc_layers",
+           "dec_layers")
+
+
 def _per_layer(tree, prefix: str = "") -> dict:
     """Flat ``{dotted name: array}`` of a reference parameter-shaped tree,
-    with the layer-stacked ``"layers"`` entry (leading ``n_layers`` axis)
-    split into ``layers.<i>.<name>`` entries: the port's parameter names.
+    with each layer-stacked entry (:data:`STACKED`, leading layer axis)
+    split into ``<entry>.<i>.<name>`` entries: the port's parameter names.
     An optimizer slot dict (``vr``/``vc`` or ``v``) is one leaf."""
     out = {}
     for k, v in tree.items():
@@ -200,20 +206,21 @@ def _per_layer(tree, prefix: str = "") -> dict:
         return out
     flat = {}
     for name, v in out.items():
-        if not name.startswith("layers."):
+        top, _, rest = name.partition(".")
+        if top not in STACKED:
             flat[name] = v
             continue
-        rest = name[len("layers."):]
         n = len(next(iter(v.values())) if isinstance(v, dict) else v)
         for i in range(n):
-            flat[f"layers.{i}.{rest}"] = (
+            flat[f"{top}.{i}.{rest}"] = (
                 {s: a[i] for s, a in v.items()} if isinstance(v, dict)
                 else v[i])
     return flat
 
 
 def _nest(flat: dict) -> dict:
-    """``{dotted name: leaf}`` -> the nested dict (lists for layers)."""
+    """``{dotted name: leaf}`` -> the nested dict (lists for the stacked
+    entries)."""
     tree: dict = {}
     for name, v in flat.items():
         node = tree
@@ -221,24 +228,25 @@ def _nest(flat: dict) -> dict:
         for part in path:
             node = node.setdefault(part, {})
         node[last] = v
-    if "layers" in tree:
-        tree["layers"] = [tree["layers"][str(i)]
-                          for i in range(len(tree["layers"]))]
+    for key in STACKED:
+        if key in tree:
+            tree[key] = [tree[key][str(i)] for i in range(len(tree[key]))]
     return tree
 
 
 def lm_params_from_reference(params, cfg, device=None):
-    """A dense decoder's reference parameter tree (numpy, layer-stacked with
-    a leading ``n_layers`` axis; a ``"sig_head"`` entry carried too) as the
-    port's :class:`repro_torch.models.transformer.DecoderLM` on ``device``
-    (default CUDA), its head a
-    :class:`repro_torch.models.sig_head.SigHead`."""
+    """An LM's reference parameter tree (numpy, each stacked entry with a
+    leading layer axis; a ``"sig_head"`` entry carried too) as the port's
+    model on ``device`` (default CUDA): a
+    :class:`repro_torch.models.transformer.DecoderLM`, or for the
+    ``encdec`` family a :class:`repro_torch.models.encdec.EncDecLM`; its
+    head a :class:`repro_torch.models.sig_head.SigHead`."""
+    from .models.encdec import EncDecLM
     from .models.sig_head import SigHead
-    from .models.transformer import DecoderLM, check_ported
-    check_ported(cfg)
+    from .models.transformer import DecoderLM
     tree = _nest(from_numpy(_per_layer(dict(params)), device))
     head = tree.pop("sig_head", None)
-    model = DecoderLM(tree, cfg)
+    model = (EncDecLM if cfg.family == "encdec" else DecoderLM)(tree, cfg)
     if head is not None:
         model["sig_head"] = SigHead(head, cfg)
     return model

@@ -15,10 +15,10 @@ Port of ``repro.core.logsignature``.  Two routes:
 
 On the ``cuda`` engine the projected route calls
 :func:`repro_torch.kernels.ops.projected` and so runs the Hopper
-``sig_words`` kernel over that word set.  On the ``torch`` engine it runs
-the word-table scan over the same plan: the reference's ``jax`` branch uses
-the hybrid dense + top-word engine, which is not ported, and the scan gives
-the same values.
+``sig_words`` kernel over that word set.  On the ``torch`` engine at depth
+>= 2 it runs the hybrid dense + top-word engine
+(:mod:`repro_torch.core.hybrid`), as the reference's ``jax`` branch does;
+at depth 1 the word-table scan runs over the same plan.
 """
 from __future__ import annotations
 

@@ -1,0 +1,223 @@
+"""Whisper-style encoder-decoder backbone (port of
+``repro.models.encdec``).
+
+The conv/mel frontend is a stub, as in the reference: the encoder takes
+precomputed frame embeddings (B, F, d_model).  Everything after it is
+real: sinusoidal positions, the bidirectional encoder, the causal decoder
+with cross-attention and a tied output embedding.  The model is an
+:class:`EncDecLM` whose ``enc_layers`` and ``dec_layers`` are
+``nn.ModuleList``\\ s of layers, walked in Python loops where the
+reference scans stacked parameters.
+
+Serving decodes one token at a time against cross K/V computed once from
+the encoder's output (:func:`prefill_cross`) and a self-attention cache of
+``decoder_max_len`` rows, written in place.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .config import ModelConfig
+from .layers import (ParamTree, _init, _sdpa, _zeros, as_generator,
+                     attention, init_attention, init_mlp, mlp, rms_norm)
+from .transformer import _remat, default_positions
+
+
+def sinusoids(length: int, channels: int) -> np.ndarray:
+    t = np.arange(length)[:, None]
+    inv = np.exp(-np.log(10000.0) * np.arange(channels // 2)
+                 / (channels // 2 - 1))
+    ang = t * inv[None]
+    return np.concatenate([np.sin(ang), np.cos(ang)],
+                          axis=1).astype(np.float32)
+
+
+class EncDecLM(ParamTree):
+    """The encoder-decoder's parameters as a module: ``enc_layers``,
+    ``dec_layers``, ``embed`` (tied output), ``pos_dec``, ``ln_enc`` and
+    ``ln_f``.  Calling it maps frames (B, F, d) and tokens (B, S) to
+    logits (B, S, V)."""
+
+    def __init__(self, tree: dict, cfg: ModelConfig):
+        super().__init__(tree)
+        self.cfg = cfg
+
+    def forward(self, frames: torch.Tensor, tokens: torch.Tensor,
+                remat: str = "none"):
+        enc = encode(self, self.cfg, frames, remat=remat)
+        hidden = decode_train(self, self.cfg, enc, tokens, remat=remat)
+        return hidden @ self["embed"].T.to(hidden.dtype)
+
+
+def init_params(generator, cfg: ModelConfig, dtype=torch.float32, *,
+                device=None) -> EncDecLM:
+    """Random init on the generator's device (an int seeds one on
+    ``device``, default CUDA), scales as the reference's."""
+    g = as_generator(generator, device)
+    d = cfg.d_model
+
+    def enc_one():
+        return {"ln_attn": _zeros(g, (d,)), "ln_mlp": _zeros(g, (d,)),
+                "attn": init_attention(g, cfg),
+                "mlp": init_mlp(g, d, cfg.d_ff, cfg.act)}
+
+    def dec_one():
+        return {"ln_self": _zeros(g, (d,)), "ln_cross": _zeros(g, (d,)),
+                "ln_mlp": _zeros(g, (d,)),
+                "self_attn": init_attention(g, cfg),
+                "cross_attn": init_attention(g, cfg),
+                "mlp": init_mlp(g, d, cfg.d_ff, cfg.act)}
+
+    tree = {
+        "enc_layers": [enc_one() for _ in range(cfg.n_encoder_layers)],
+        "dec_layers": [dec_one() for _ in range(cfg.n_layers)],
+        "embed": _init(g, (cfg.vocab_size, d), scale=0.02),
+        "pos_dec": _init(g, (cfg.decoder_max_len, d), scale=0.02),
+        "ln_enc": _zeros(g, (d,)), "ln_f": _zeros(g, (d,)),
+    }
+    return EncDecLM(tree, cfg).to(dtype)
+
+
+def _cross_attention(p, x: torch.Tensor, enc_kv, cfg) -> torch.Tensor:
+    """x: (B,S,d); enc_kv: precomputed (k, v) each (B, F, H, hd)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads,
+                                          cfg.resolved_head_dim)
+    k, v = enc_kv
+    out = _sdpa(q, k.to(x.dtype), v.to(x.dtype), causal=False)
+    return out @ p["wo"].to(x.dtype)
+
+
+def cross_kv(p, enc_out: torch.Tensor, cfg):
+    B, F, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = enc_out @ p["wk"].to(enc_out.dtype)
+    v = enc_out @ p["wv"].to(enc_out.dtype)
+    return (k.reshape(B, F, cfg.n_kv_heads, hd),
+            v.reshape(B, F, cfg.n_kv_heads, hd))
+
+
+def encode(params, cfg: ModelConfig, frames: torch.Tensor,
+           remat: str = "dots") -> torch.Tensor:
+    """frames: (B, F, d_model) stub embeddings -> encoder states."""
+    B, F, d = frames.shape
+    pos = torch.as_tensor(sinusoids(F, d), device=frames.device).to(
+        frames.dtype)
+    x = frames + pos[None]
+    positions = default_positions(cfg, B, F, frames.device)
+
+    def body(p, h):
+        a, _ = attention(p["attn"], rms_norm(h, p["ln_attn"], cfg.norm_eps),
+                         cfg, positions, causal=False)
+        h = h + a
+        return h + mlp(p["mlp"], rms_norm(h, p["ln_mlp"], cfg.norm_eps),
+                       cfg.act)
+
+    fn = _remat(body, remat)
+    for p in params["enc_layers"]:
+        x = fn(p, x)
+    return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+
+
+def decode_train(params, cfg: ModelConfig, enc_out: torch.Tensor, tokens,
+                 remat: str = "dots") -> torch.Tensor:
+    B, S = tokens.shape
+    x = params["embed"][tokens.long()]
+    x = x + params["pos_dec"][:S][None].to(x.dtype)
+    positions = default_positions(cfg, B, S, x.device)
+
+    def body(p, h):
+        a, _ = attention(p["self_attn"],
+                         rms_norm(h, p["ln_self"], cfg.norm_eps), cfg,
+                         positions, causal=True)
+        h = h + a
+        kv = cross_kv(p["cross_attn"], enc_out, cfg)
+        h = h + _cross_attention(p["cross_attn"],
+                                 rms_norm(h, p["ln_cross"], cfg.norm_eps),
+                                 kv, cfg)
+        return h + mlp(p["mlp"], rms_norm(h, p["ln_mlp"], cfg.norm_eps),
+                       cfg.act)
+
+    fn = _remat(body, remat)
+    for p in params["dec_layers"]:
+        x = fn(p, x)
+    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def lm_loss(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
+    """batch: frames (B, F, d), tokens (B, S), labels (B, S) (< 0 =
+    ignore).  The token NLL through the tied output embedding; no z-loss
+    and no aux loss.  Returns (loss, metrics)."""
+    enc = encode(params, cfg, batch["frames"], remat=remat)
+    hidden = decode_train(params, cfg, enc, batch["tokens"], remat=remat)
+    logits = (hidden @ params["embed"].T.to(hidden.dtype)).float()
+    labels = batch["labels"]
+    valid = (labels >= 0).float()
+    safe = torch.clamp(labels, min=0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    ntok = torch.clamp(valid.sum(), min=1.0)
+    loss = (nll * valid).sum() / ntok
+    return loss, {"loss": loss, "ntok": ntok}
+
+
+# ---------------------------------------------------------------------------
+# serving: decode one token against precomputed cross-KV
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, B: int, n_frames: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """Cross K/V (L, B, n_frames, Hkv, hd), self K/V (L, B,
+    decoder_max_len, Hkv, hd) and an int32 ``index`` a layer, zero, on
+    ``device`` (default CUDA)."""
+    dev = resolve_device(device)
+    hd, L = cfg.resolved_head_dim, cfg.n_layers
+
+    def zeros(n):
+        return torch.zeros((L, B, n, cfg.n_kv_heads, hd), dtype=dtype,
+                           device=dev)
+
+    return {"cross_k": zeros(n_frames), "cross_v": zeros(n_frames),
+            "self_k": zeros(cfg.decoder_max_len),
+            "self_v": zeros(cfg.decoder_max_len),
+            "index": torch.zeros((L,), dtype=torch.int32, device=dev)}
+
+
+def prefill_cross(params, cfg: ModelConfig, enc_out: torch.Tensor,
+                  cache: dict) -> dict:
+    """The cache with each decoder layer's cross K/V of ``enc_out`` (in
+    the cache's dtype)."""
+    ks, vs = zip(*(cross_kv(p["cross_attn"], enc_out, cfg)
+                   for p in params["dec_layers"]))
+    return dict(cache, cross_k=torch.stack(ks).to(cache["cross_k"].dtype),
+                cross_v=torch.stack(vs).to(cache["cross_v"].dtype))
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, tokens, cache: dict):
+    """tokens (B, S) -> (float32 logits (B, S, V), cache); the cross K/V
+    must be prefilled.  The decoder position ``index`` is clamped to the
+    last of ``decoder_max_len`` rows, as the reference's
+    ``dynamic_slice_in_dim`` clamps; the self cache is written in place."""
+    B, S = tokens.shape
+    idx = cache["index"][0]
+    x = params["embed"][tokens.long()]
+    row = torch.clamp(idx, 0, params["pos_dec"].shape[0] - 1).long()
+    x = x + params["pos_dec"][row][None, None].to(x.dtype)
+    positions = default_positions(cfg, B, S, x.device, start=idx)
+    for i, p in enumerate(params["dec_layers"]):
+        a, new_kv = attention(
+            p["self_attn"], rms_norm(x, p["ln_self"], cfg.norm_eps), cfg,
+            positions, cache={"k": cache["self_k"][i],
+                              "v": cache["self_v"][i],
+                              "index": cache["index"][i]})
+        x = x + a
+        x = x + _cross_attention(
+            p["cross_attn"], rms_norm(x, p["ln_cross"], cfg.norm_eps),
+            (cache["cross_k"][i], cache["cross_v"][i]), cfg)
+        x = x + mlp(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), cfg.act)
+        cache["index"][i] = new_kv["index"]
+    hidden = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return (hidden @ params["embed"].T.to(hidden.dtype)).float(), cache

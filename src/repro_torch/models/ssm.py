@@ -1,0 +1,288 @@
+"""State-space blocks: Mamba2 (SSD, chunked) and RWKV6 (Finch) (port of
+``repro.models.ssm``).
+
+Both are linear-time in sequence length and have one-step decode updates
+on O(1) state caches.  The chunked SSD scan (``_ssd_chunked``) and the
+WKV6 recurrence (``_wkv_scan``) are plain PyTorch, as the reference's are
+plain ``jnp`` scans; the SSD's scan over chunks and the WKV's scan over
+steps are Python loops.  A decode cache is updated in place by the
+caller: the conv ring and the token shifts keep the dtype they were made
+with, the SSM and WKV states are float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from .layers import _init, _zeros, rms_norm
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD
+# ---------------------------------------------------------------------------
+
+def mamba_dims(cfg):
+    d_in = cfg.mamba_expand * cfg.d_model
+    nh = d_in // cfg.mamba_head_dim
+    return d_in, nh
+
+
+def init_mamba(generator: torch.Generator, cfg) -> dict:
+    d, ds = cfg.d_model, cfg.ssm_state
+    d_in, nh = mamba_dims(cfg)
+    conv_ch = d_in + 2 * ds
+    return {
+        "w_in": _init(generator, (d, 2 * d_in + 2 * ds + nh)),  # z, xBC, dt
+        "conv_w": _init(generator, (cfg.conv_width, conv_ch), scale=0.5),
+        "conv_b": _zeros(generator, (conv_ch,)),
+        "dt_bias": _zeros(generator, (nh,)),
+        "A_log": _zeros(generator, (nh,)),
+        "D": torch.ones((nh,), device=generator.device),
+        "norm": _zeros(generator, (d_in,)),
+        "w_out": _init(generator, (d_in, d)),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv: x (B, S, C), w (K, C)."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = sum(xp[:, i:i + S] * w[i][None, None] for i in range(K))
+    return out + b[None, None]
+
+
+def _ssd_chunked(xh, dt, a_log, Bc, Cc, chunk: int) -> torch.Tensor:
+    """Chunked SSD scan (Mamba2).  xh: (B,S,nh,hd), dt: (B,S,nh),
+    a_log: per-step log-decay (B,S,nh), Bc/Cc: (B,S,ds).  S is padded up
+    to a multiple of the chunk and the scan runs in float32.
+
+    Within a chunk the decay exp(cum_t - cum_s) is wanted for s <= t only;
+    above the diagonal the difference is positive and its exponential can
+    overflow.  The reference takes the exponential of the whole block and
+    masks it with ``where`` (an overflow there leaves 0 * inf in its
+    gradient); here the block is masked to -inf before the exponential, so
+    the values are the same and the gradient stays finite."""
+    B, S, nh, hd = xh.shape
+    ds = Bc.shape[-1]
+    L = min(chunk, S)
+    nc = -(-S // L)
+    pad = nc * L - S
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+        Bc = F.pad(Bc, (0, 0, 0, pad))
+        Cc = F.pad(Cc, (0, 0, 0, pad))
+    f32 = torch.float32
+    xh = xh.reshape(B, nc, L, nh, hd)
+    dtx = (dt.reshape(B, nc, L, nh)[..., None] * xh).to(f32)
+    al = a_log.reshape(B, nc, L, nh).to(f32)
+    Bc = Bc.reshape(B, nc, L, ds).to(f32)
+    Cc = Cc.reshape(B, nc, L, ds).to(f32)
+
+    cum = torch.cumsum(al, dim=2)                            # (B,nc,L,nh)
+    # intra-chunk: scores[t,s] = (C_t·B_s) exp(cum_t - cum_s) [s<=t]
+    cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)             # (B,nc,L,L)
+    decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,nc,L,L,nh)
+    ar = torch.arange(L, device=xh.device)
+    tri = ar[:, None] >= ar[None, :]
+    m = torch.exp(decay.masked_fill(~tri[None, None, :, :, None],
+                                    float("-inf")))
+    scores = cb[..., None] * m                               # (B,nc,L,L,nh)
+    y_intra = torch.einsum("bctsh,bcshd->bcthd", scores, dtx)
+
+    # chunk-final states: sum_s exp(cum_L - cum_s) dtx_s ⊗ B_s
+    tail = torch.exp(cum[:, :, -1:, :] - cum)                # (B,nc,L,nh)
+    st = torch.einsum("bclh,bclhd,bcln->bchdn", tail, dtx, Bc)
+
+    # inter-chunk: scan over the chunk axis; S_prevs[c] is the state
+    # entering chunk c
+    decay_chunk = torch.exp(cum[:, :, -1, :])                # (B,nc,nh)
+    state = torch.zeros((B, nh, hd, ds), dtype=f32, device=xh.device)
+    prevs = []
+    for c in range(nc):
+        prevs.append(state)
+        state = state * decay_chunk[:, c, :, None, None] + st[:, c]
+    S_prevs = torch.stack(prevs, dim=1)                      # (B,nc,nh,hd,ds)
+    y_inter = torch.einsum("bctn,bcth,bchdn->bcthd",
+                           Cc, torch.exp(cum), S_prevs)
+    y = (y_intra + y_inter).reshape(B, nc * L, nh, hd)
+    return y[:, :S]
+
+
+def mamba_block(p, x: torch.Tensor, cfg, chunk: int = 128, cache=None):
+    """Returns (out, new_cache).  cache = {"conv": (B,K-1,C), "ssm":
+    (B,nh,hd,ds)}; with a cache the S steps run as the recurrent update."""
+    B, S, d = x.shape
+    ds = cfg.ssm_state
+    d_in, nh = mamba_dims(cfg)
+    hd = cfg.mamba_head_dim
+    proj = x @ p["w_in"].to(x.dtype)
+    z, xBC, dt = torch.split(proj, [d_in, d_in + 2 * ds, nh], dim=-1)
+
+    if cache is None:
+        xBC = _causal_conv(xBC, p["conv_w"].to(x.dtype),
+                           p["conv_b"].to(x.dtype))
+        new_conv = None
+    else:
+        ctx = torch.cat([cache["conv"].to(x.dtype), xBC], dim=1)
+        K = p["conv_w"].shape[0]
+        xBC = sum(ctx[:, i:i + S] * p["conv_w"][i][None, None].to(x.dtype)
+                  for i in range(K)) + p["conv_b"][None, None].to(x.dtype)
+        new_conv = ctx[:, -(K - 1):]
+    xBC = F.silu(xBC)
+    xs, Bc, Cc = torch.split(xBC, [d_in, ds, ds], dim=-1)
+    xh = xs.reshape(B, S, nh, hd)
+    dt = F.softplus(dt.float() + p["dt_bias"][None, None])
+    a_log = -torch.exp(p["A_log"].float())[None, None] * dt
+
+    new_cache = None
+    if cache is None:
+        y = _ssd_chunked(xh, dt, a_log, Bc, Cc, chunk)
+    else:  # single/few-step decode: recurrent update
+        Sst = cache["ssm"].float()
+        xf, Bf, Cf = xh.float(), Bc.float(), Cc.float()
+        ys = []
+        for t in range(S):
+            Sst = Sst * torch.exp(a_log[:, t])[..., None, None] + \
+                torch.einsum("bh,bhd,bn->bhdn", dt[:, t], xf[:, t], Bf[:, t])
+            ys.append(torch.einsum("bn,bhdn->bhd", Cf[:, t], Sst))
+        y = torch.stack(ys, dim=1)
+        new_cache = {"conv": new_conv, "ssm": Sst}
+
+    y = y + p["D"].float()[None, None, :, None] * xh.float()
+    y = y.reshape(B, S, d_in).to(x.dtype) * F.silu(z)
+    y = rms_norm(y, p["norm"], cfg.norm_eps)
+    return y @ p["w_out"].to(x.dtype), new_cache
+
+
+def mamba_cache(cfg, B: int, dtype=torch.float32, device=None) -> dict:
+    dev = resolve_device(device)
+    d_in, nh = mamba_dims(cfg)
+    conv_ch = d_in + 2 * cfg.ssm_state
+    return {"conv": torch.zeros((B, cfg.conv_width - 1, conv_ch),
+                                dtype=dtype, device=dev),
+            "ssm": torch.zeros((B, nh, cfg.mamba_head_dim, cfg.ssm_state),
+                               dtype=torch.float32, device=dev)}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): data-dependent decay time mix + channel mix
+# ---------------------------------------------------------------------------
+
+def init_rwkv(generator: torch.Generator, cfg) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    lora = 64
+    nh = d // cfg.rwkv_head_dim
+
+    def full(v):
+        return torch.full((d,), v, device=generator.device)
+
+    return {
+        "ln1": _zeros(generator, (d,)), "ln2": _zeros(generator, (d,)),
+        "mu_r": full(0.5), "mu_k": full(0.5), "mu_v": full(0.5),
+        "mu_g": full(0.5), "mu_w": full(0.5),
+        "w_r": _init(generator, (d, d)), "w_k": _init(generator, (d, d)),
+        "w_v": _init(generator, (d, d)), "w_g": _init(generator, (d, d)),
+        "w_o": _init(generator, (d, d)),
+        "w0": full(-4.0),
+        "w_lora_a": _init(generator, (d, lora)),
+        "w_lora_b": _init(generator, (lora, d), scale=0.01),
+        "u": _zeros(generator, (nh, cfg.rwkv_head_dim)),
+        "ln_x": _zeros(generator, (d,)),
+        "mu_cr": full(0.5), "mu_ck": full(0.5),
+        "w_ck": _init(generator, (d, ff)), "w_cv": _init(generator, (ff, d)),
+        "w_cr": _init(generator, (d, d)),
+    }
+
+
+def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """prev: (B, d) last token of the previous call (zeros at start)."""
+    return torch.cat([prev[:, None], x[:, :-1]], dim=1)
+
+
+def _wkv_scan(r, k, v, w, u, state):
+    """WKV6 recurrence.  r,k: (B,S,nh,hk), v: (B,S,nh,hv), w: (B,S,nh,hk)
+    decays in (0,1); u: (nh,hk) bonus.  state: (B,nh,hk,hv).  Returns
+    (y (B,S,nh,hv), final state), in float32."""
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    S = state.float()
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + uf * kv))
+        S = S * w[:, t, ..., None] + kv
+    return torch.stack(ys, dim=1), S
+
+
+def rwkv_block(p, x_in: torch.Tensor, cfg, cache=None):
+    """Full residual RWKV6 block: x + time mix + channel mix.  Returns
+    (out, new_cache); cache = {"shift_a", "shift_c": (B, d), "wkv":
+    (B, nh, hk, hv)}.  The shift caches hold the normed last token."""
+    B, S, d = x_in.shape
+    hk = cfg.rwkv_head_dim
+    nh = d // hk
+    x = rms_norm(x_in, p["ln1"], cfg.norm_eps)
+    prev_a = cache["shift_a"].to(x.dtype) if cache is not None else \
+        x.new_zeros((B, d))
+    xs = _token_shift(x, prev_a)
+
+    def lerp(mu):
+        return x + (xs - x) * mu.to(x.dtype)[None, None]
+
+    r = lerp(p["mu_r"]) @ p["w_r"].to(x.dtype)
+    k = lerp(p["mu_k"]) @ p["w_k"].to(x.dtype)
+    v = lerp(p["mu_v"]) @ p["w_v"].to(x.dtype)
+    g = lerp(p["mu_g"]) @ p["w_g"].to(x.dtype)
+    # data-dependent decay (the Finch contribution)
+    wl = torch.tanh(lerp(p["mu_w"]) @ p["w_lora_a"].to(x.dtype)) \
+        @ p["w_lora_b"].to(x.dtype)
+    w = torch.exp(-torch.exp((p["w0"][None, None] + wl).float()))
+
+    state = cache["wkv"] if cache is not None else \
+        torch.zeros((B, nh, hk, hk), dtype=torch.float32, device=x.device)
+    y, S_fin = _wkv_scan(r.reshape(B, S, nh, hk), k.reshape(B, S, nh, hk),
+                         v.reshape(B, S, nh, hk), w.reshape(B, S, nh, hk),
+                         p["u"], state)
+    y = y.reshape(B, S, d).to(x.dtype)
+    # per-head group norm
+    yh = y.reshape(B, S, nh, hk).float()
+    mu = yh.mean(-1, keepdim=True)
+    var = yh.var(-1, unbiased=False, keepdim=True)
+    yh = (yh - mu) * torch.rsqrt(var + 64e-5)
+    y = (yh.reshape(B, S, d) * (1.0 + p["ln_x"][None, None])).to(x.dtype)
+    y = y * F.silu(g)
+    att = y @ p["w_o"].to(x.dtype)
+
+    # channel mix on the post-attention residual stream
+    res = x_in + att
+    x2 = rms_norm(res, p["ln2"], cfg.norm_eps)
+    prev_c = cache["shift_c"].to(x.dtype) if cache is not None else \
+        x.new_zeros((B, d))
+    xs2 = _token_shift(x2, prev_c)
+
+    def lerp2(mu):
+        return x2 + (xs2 - x2) * mu.to(x.dtype)[None, None]
+
+    ck = lerp2(p["mu_ck"]) @ p["w_ck"].to(x.dtype)
+    cv = torch.square(F.relu(ck)) @ p["w_cv"].to(x.dtype)
+    cr = torch.sigmoid(lerp2(p["mu_cr"]) @ p["w_cr"].to(x.dtype))
+    ffn = cr * cv
+
+    new_cache = None
+    if cache is not None:
+        new_cache = {"shift_a": x[:, -1], "shift_c": x2[:, -1], "wkv": S_fin}
+    return res + ffn, new_cache
+
+
+def rwkv_cache(cfg, B: int, dtype=torch.float32, device=None) -> dict:
+    dev = resolve_device(device)
+    d = cfg.d_model
+    nh = d // cfg.rwkv_head_dim
+    return {"shift_a": torch.zeros((B, d), dtype=dtype, device=dev),
+            "shift_c": torch.zeros((B, d), dtype=dtype, device=dev),
+            "wkv": torch.zeros((B, nh, cfg.rwkv_head_dim, cfg.rwkv_head_dim),
+                               dtype=torch.float32, device=dev)}

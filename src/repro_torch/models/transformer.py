@@ -1,17 +1,24 @@
-"""The dense decoder LM (port of the ``family == "decoder"`` branch of
-``repro.models.transformer`` with ``moe=False``, ``mla=False``).
+"""Decoder LM families: dense/GQA, MoE, MLA, hybrid (Mamba2 + shared
+attention) and RWKV6 (port of ``repro.models.transformer``): one
+init/forward/decode triple driven by ``ModelConfig``.
 
 The model is a :class:`DecoderLM`, an ``nn.Module`` whose parameter tree
-is the reference's with the layer-stacked ``"layers"`` entry split into an
-``nn.ModuleList`` of layers, walked in a Python loop where the reference
-runs ``lax.scan``.  Remat is a per-layer ``torch.utils.checkpoint``:
-``"full"`` recomputes the whole layer in the backward, ``"dots"`` saves the
-outputs of the weight matmuls (the reference's
-``dots_with_no_batch_dims_saveable``: ``aten.mm`` without batch dimensions,
-not the attention's batched products) and recomputes the rest.
+is the reference's with each layer-stacked entry (``layers``,
+``dense_layers``, ``shared_attn``) split into an ``nn.ModuleList`` of
+layers, walked in a Python loop where the reference runs ``lax.scan``.
+Remat is a per-layer ``torch.utils.checkpoint``: ``"full"`` recomputes the
+whole layer in the backward, ``"dots"`` saves the outputs of the weight
+matmuls (the reference's ``dots_with_no_batch_dims_saveable``: ``aten.mm``
+without batch dimensions, not the attention's or the experts' batched
+products) and recomputes the rest.
 
-The MoE, MLA, hybrid (Mamba2 + shared attention) and RWKV families raise
-``NotImplementedError``: they are ROADMAP.md queue 1, item 16.
+The decode cache is written in place.  For the hybrid family the reference
+keeps one K/V cache a shared attention block, written by the first
+``n_shared_attn_blocks`` groups only: a later group reuses block
+``g % n_shared_attn_blocks``'s cache, attends over one slot it writes past
+that block's index, and the reference throws the write away.  The port
+restores the rows it wrote, so decode equals the reference's, which
+differs from a prefill when there are more groups than blocks.
 """
 from __future__ import annotations
 
@@ -24,29 +31,18 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import resolve_device
 from .config import ModelConfig
 from .layers import (ParamTree, _init, _zeros, as_generator, attention,
-                     init_attention, init_mlp, mlp, rms_norm)
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a family this port does not have yet."""
-    kind = None
-    if cfg.family != "decoder":
-        kind = f"{cfg.family} family"
-    elif cfg.moe:
-        kind = "mixture-of-experts decoder"
-    elif cfg.mla:
-        kind = "MLA decoder"
-    if kind is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind} is not ported yet (ROADMAP.md queue 1, "
-            f"item 16); the port runs the dense decoder")
+                     cache_rows, init_attention, init_mla, init_mlp,
+                     init_moe, mla_attention, mlp, moe, rms_norm)
+from .ssm import (init_mamba, init_rwkv, mamba_block, mamba_cache,
+                  rwkv_block, rwkv_cache)
 
 
 class DecoderLM(ParamTree):
-    """The dense decoder's parameters as a module: ``embed``, ``ln_f``,
-    ``lm_head`` (untied), ``layers`` (one ``ParamTree`` a layer:
-    ``ln_attn``, ``ln_mlp``, ``attn``, ``mlp``) and, when attached,
-    ``sig_head``.  Calling it maps tokens (B, S) to logits (B, S, V)."""
+    """A decoder LM's parameters as a module: ``embed``, ``ln_f``,
+    ``lm_head`` (untied) and the layer lists of its family (``layers``;
+    a MoE model's leading ``dense_layers``; the hybrid's
+    ``shared_attn`` blocks) and, when attached, ``sig_head``.  Calling it
+    maps tokens (B, S) to logits (B, S, V)."""
 
     def __init__(self, tree: dict, cfg: ModelConfig):
         super().__init__(tree)
@@ -61,13 +57,27 @@ class DecoderLM(ParamTree):
 # init
 # ---------------------------------------------------------------------------
 
-def _init_decoder_layer(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def _init_decoder_layer(generator: torch.Generator, cfg: ModelConfig,
+                        use_moe: bool) -> dict:
+    d = cfg.d_model
+    p = {"ln_attn": _zeros(generator, (d,)),
+         "ln_mlp": _zeros(generator, (d,)),
+         "attn": init_mla(generator, cfg) if cfg.mla
+         else init_attention(generator, cfg)}
+    if use_moe:
+        p["moe"] = init_moe(generator, cfg)
+    else:
+        p["mlp"] = init_mlp(generator, d, cfg.d_ff_dense or cfg.d_ff,
+                            cfg.act)
+    return p
+
+
+def _init_shared_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
     d = cfg.d_model
     return {"ln_attn": _zeros(generator, (d,)),
             "ln_mlp": _zeros(generator, (d,)),
             "attn": init_attention(generator, cfg),
-            "mlp": init_mlp(generator, d, cfg.d_ff_dense or cfg.d_ff,
-                            cfg.act)}
+            "mlp": init_mlp(generator, d, cfg.d_ff, cfg.act)}
 
 
 def init_params(generator, cfg: ModelConfig, dtype=torch.float32, *,
@@ -77,15 +87,30 @@ def init_params(generator, cfg: ModelConfig, dtype=torch.float32, *,
     host.  Scales as the reference's; the draws are torch's, so carry a
     reference init across with :func:`repro_torch.convert.lm_params_from_
     reference` to compare."""
-    check_ported(cfg)
     g = as_generator(generator, device)
-    d = cfg.d_model
+    d, L = cfg.d_model, cfg.n_layers
     tree = {"embed": _init(g, (cfg.vocab_size, d), scale=0.02),
             "ln_f": _zeros(g, (d,))}
     if not cfg.tie_embeddings:
         tree["lm_head"] = _init(g, (d, cfg.vocab_size))
-    tree["layers"] = [_init_decoder_layer(g, cfg)
-                      for _ in range(cfg.n_layers)]
+    if cfg.family == "rwkv":
+        tree["layers"] = [init_rwkv(g, cfg) for _ in range(L)]
+    elif cfg.family == "hybrid":
+        tree["layers"] = [{"ln": _zeros(g, (d,)), "mamba": init_mamba(g, cfg)}
+                          for _ in range(L)]
+        tree["shared_attn"] = [_init_shared_block(g, cfg)
+                               for _ in range(cfg.n_shared_attn_blocks)]
+    else:  # decoder (dense or MoE; MoE may have leading dense layers)
+        n_dense = cfg.moe_layer_start if cfg.moe else L
+        if cfg.moe and n_dense:
+            tree["dense_layers"] = [_init_decoder_layer(g, cfg, False)
+                                    for _ in range(n_dense)]
+        if L - n_dense:
+            tree["layers"] = [_init_decoder_layer(g, cfg, True)
+                              for _ in range(L - n_dense)]
+        elif not cfg.moe:
+            tree["layers"] = [_init_decoder_layer(g, cfg, False)
+                              for _ in range(L)]
     return DecoderLM(tree, cfg).to(dtype)
 
 
@@ -94,12 +119,19 @@ def init_params(generator, cfg: ModelConfig, dtype=torch.float32, *,
 # ---------------------------------------------------------------------------
 
 def _decoder_layer_fwd(p, x: torch.Tensor, cfg: ModelConfig,
-                       positions: torch.Tensor, cache=None):
+                       positions: torch.Tensor, use_moe: bool = False,
+                       cache=None):
+    """Returns (x, aux, new_cache); aux is 0 for a dense layer."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    a, new_kv = attention(p["attn"], h, cfg, positions, cache=cache)
+    attn_fn = mla_attention if cfg.mla else attention
+    a, new_kv = attn_fn(p["attn"], h, cfg, positions, cache=cache)
     x = x + a
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg.act), new_kv
+    if use_moe:
+        m, aux = moe(p["moe"], h, cfg)
+    else:
+        m, aux = mlp(p["mlp"], h, cfg.act), x.new_zeros(())
+    return x + m, aux, new_kv
 
 
 _UNBATCHED_MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
@@ -132,20 +164,47 @@ def default_positions(cfg: ModelConfig, B: int, S: int, device,
     return pos
 
 
+def _groups(cfg: ModelConfig):
+    """The hybrid's groups: (g, first Mamba layer, layers, shared block)."""
+    per, done = cfg.hybrid_attn_every, 0
+    for g in range(-(-cfg.n_layers // per)):
+        take = min(per, cfg.n_layers - done)
+        yield g, done, take, g % cfg.n_shared_attn_blocks
+        done += take
+
+
 def backbone(params, cfg: ModelConfig, tokens=None, embeds=None,
              positions=None, remat: str = "dots"):
     """Token/embedding inputs -> final hidden states (B, S, d).  Returns
-    (hidden, aux_loss); a dense decoder's aux loss is 0."""
-    check_ported(cfg)
+    (hidden, aux_loss); the aux loss is the MoE layers' sum, else 0."""
     x = params["embed"][tokens.long()] if embeds is None else embeds
     B, S = x.shape[:2]
     if positions is None:
         positions = default_positions(cfg, B, S, x.device)
-    body = _remat(lambda p, h: _decoder_layer_fwd(p, h, cfg, positions)[0],
-                  remat)
-    for p in params["layers"]:
-        x = body(p, x)
-    return rms_norm(x, params["ln_f"], cfg.norm_eps), x.new_zeros(())
+    aux = x.new_zeros(())
+    if cfg.family == "rwkv":
+        body = _remat(lambda p, h: rwkv_block(p, h, cfg)[0], remat)
+        for p in params["layers"]:
+            x = body(p, x)
+    elif cfg.family == "hybrid":
+        mbody = _remat(lambda p, h: h + mamba_block(
+            p["mamba"], rms_norm(h, p["ln"], cfg.norm_eps), cfg)[0], remat)
+        layers, shared = params["layers"], params["shared_attn"]
+        for _, first, take, b in _groups(cfg):
+            for p in layers[first:first + take]:
+                x = mbody(p, x)
+            x = _decoder_layer_fwd(shared[b], x, cfg, positions)[0]
+    else:
+        stacks = [("layers", cfg.moe)]
+        if cfg.moe and cfg.moe_layer_start:
+            stacks.insert(0, ("dense_layers", False))
+        for key, use_moe in stacks:
+            body = _remat(lambda p, h, use_moe=use_moe: _decoder_layer_fwd(
+                p, h, cfg, positions, use_moe)[:2], remat)
+            for p in params[key]:
+                x, a = body(p, x)
+                aux = aux + a
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
 
 
 def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -180,18 +239,48 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
 # decode path (serving)
 # ---------------------------------------------------------------------------
 
+def _zeros_stack(n: int, tree: dict) -> dict:
+    """A per-layer cache tree stacked n times on a new leading axis."""
+    return {k: v.new_zeros((n,) + v.shape) for k, v in tree.items()}
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """{"layers": {"k", "v": (L, B, max_len, Hkv, hd), "index": (L,)
-    int32}} on ``device`` (default CUDA)."""
-    check_ported(cfg)
+    """The decode cache on ``device`` (default CUDA): ``{"layers": ...}``
+    with a leading layer axis: K/V (L, B, max_len, Hkv, hd), MLA's
+    ``c_kv`` / ``k_rope``, RWKV's shifts and WKV state, Mamba's conv ring
+    and SSM state; the hybrid's ``shared_attn`` K/V a shared block; an
+    int32 ``index`` a layer (a block) for the attention caches."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    L, hd = cfg.n_layers, cfg.resolved_head_dim
+
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.family == "rwkv":
+        return {"layers": _zeros_stack(L, rwkv_cache(cfg, B, dtype, dev))}
+    if cfg.family == "hybrid":
+        n = cfg.n_shared_attn_blocks
+        return {"layers": _zeros_stack(L, mamba_cache(cfg, B, dtype, dev)),
+                "shared_attn": {
+                    "k": zeros(n, B, max_len, cfg.n_kv_heads, hd),
+                    "v": zeros(n, B, max_len, cfg.n_kv_heads, hd),
+                    "index": zeros(n, dtype=torch.int32)}}
+    if cfg.mla:
+        return {"layers": {
+            "c_kv": zeros(L, B, max_len, cfg.kv_lora_rank),
+            "k_rope": zeros(L, B, max_len, cfg.qk_rope_dim),
+            "index": zeros(L, dtype=torch.int32)}}
     return {"layers": {
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
-        "index": torch.zeros((cfg.n_layers,), dtype=torch.int32,
-                             device=dev)}}
+        "k": zeros(L, B, max_len, cfg.n_kv_heads, hd),
+        "v": zeros(L, B, max_len, cfg.n_kv_heads, hd),
+        "index": zeros(L, dtype=torch.int32)}}
+
+
+def _write(stacked: dict, i: int, new: dict) -> None:
+    """Layer i's new cache into the stacked cache (in place)."""
+    for k, v in new.items():
+        stacked[k][i] = v
 
 
 @torch.no_grad()
@@ -200,17 +289,58 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: dict,
     """One decoding step.  tokens: (B, S) (or embeds (B, S, d)).  Returns
     (logits (B, S, V), cache): the cache is updated in place (the
     counterpart of the reference's donated cache) and returned."""
-    check_ported(cfg)
     x = params["embed"][tokens.long()] if embeds is None else embeds
     B, S = x.shape[:2]
     lc = cache["layers"]
     if positions is None:
-        positions = default_positions(cfg, B, S, x.device,
-                                      start=lc["index"][0])
-    for i, p in enumerate(params["layers"]):
-        c = {"k": lc["k"][i], "v": lc["v"][i], "index": lc["index"][i]}
-        x, c2 = _decoder_layer_fwd(p, x, cfg, positions, cache=c)
-        lc["index"][i] = c2["index"]
+        if cfg.family == "hybrid":
+            start = cache["shared_attn"]["index"][0]
+        elif "index" in lc:
+            start = lc["index"][0]
+        else:
+            start = 0
+        positions = default_positions(cfg, B, S, x.device, start=start)
+
+    if cfg.family == "rwkv":
+        for i, p in enumerate(params["layers"]):
+            x, c2 = rwkv_block(p, x, cfg, cache={k: v[i]
+                                                 for k, v in lc.items()})
+            _write(lc, i, c2)
+    elif cfg.family == "hybrid":
+        kvs = cache["shared_attn"]
+        layers, shared = params["layers"], params["shared_attn"]
+        for g, first, take, b in _groups(cfg):
+            for i in range(first, first + take):
+                p = layers[i]
+                h, c2 = mamba_block(p["mamba"],
+                                    rms_norm(x, p["ln"], cfg.norm_eps), cfg,
+                                    cache={k: v[i] for k, v in lc.items()})
+                x = x + h
+                _write(lc, i, c2)
+            kvc = {"k": kvs["k"][b], "v": kvs["v"][b],
+                   "index": kvs["index"][b]}
+            if g < cfg.n_shared_attn_blocks:  # shared blocks share one cache
+                x, _, kvn = _decoder_layer_fwd(shared[b], x, cfg, positions,
+                                               cache=kvc)
+                kvs["index"][b] = kvn["index"]
+            else:  # the reference discards this group's write
+                rows = cache_rows(kvc["index"], S, kvc["k"].shape[1])
+                saved = [kvc[k].index_select(1, rows) for k in ("k", "v")]
+                x, _, _ = _decoder_layer_fwd(shared[b], x, cfg, positions,
+                                             cache=kvc)
+                for k, old in zip(("k", "v"), saved):
+                    kvc[k].index_copy_(1, rows, old)
+    else:
+        stacks = [("layers", cfg.moe)]
+        if cfg.moe and cfg.moe_layer_start:
+            stacks.insert(0, ("dense_layers", False))
+        i = 0
+        for key, use_moe in stacks:
+            for p in params[key]:
+                x, _, c2 = _decoder_layer_fwd(
+                    p, x, cfg, positions, use_moe,
+                    cache={k: v[i] for k, v in lc.items()})
+                lc["index"][i] = c2["index"]
+                i += 1
     hidden = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return logits_fn(params, cfg, hidden), cache
-

@@ -12,10 +12,11 @@ the weight decay to every leaf's update.
 
 Adafactor's update clip (the RMS of the update) runs over the reference's
 leaf: a parameter named ``layers.<i>.<rest>`` belongs to the stacked leaf
-``layers.<rest>`` of all layers, whose RMS the reference takes.  A
-stacked 1-D leaf (a norm) is factored by the reference once both the
-layer count and its width reach ``min_dim_factored``; per layer it never
-is (no config of the pool has 128 layers).
+``layers.<rest>`` of all layers, whose RMS the reference takes, and so do
+those of ``dense_layers``, ``shared_attn``, ``enc_layers`` and
+``dec_layers``.  A stacked 1-D leaf (a norm) is factored by the reference
+once both the layer count and its width reach ``min_dim_factored``; per
+layer it never is (no config of the pool has 128 layers).
 """
 from __future__ import annotations
 
@@ -123,10 +124,16 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
     return Optimizer(init, update)
 
 
+_STACKED = re.compile(
+    r"^(layers|dense_layers|shared_attn|enc_layers|dec_layers)\.\d+\.")
+
+
 def _stack_key(name: str) -> str:
-    """``layers.<i>.<rest>`` -> ``layers.<rest>``: the reference's
-    layer-stacked leaf a per-layer parameter belongs to."""
-    return re.sub(r"^layers\.\d+\.", "layers.", name)
+    """``<entry>.<i>.<rest>`` -> ``<entry>.<rest>`` for each layer-stacked
+    entry (``layers``, ``dense_layers``, ``shared_attn``, ``enc_layers``,
+    ``dec_layers``): the reference's stacked leaf a per-layer parameter
+    belongs to."""
+    return _STACKED.sub(r"\1.", name)
 
 
 def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,

@@ -2,10 +2,12 @@
 online signature-feature engines on a session pool.
 
 Port of ``repro.serve.engine``.  ``make_prefill_step``,
-``make_serve_step`` and ``ServeEngine`` serve the dense decoder
-(:mod:`repro_torch.models.transformer`): the prompt is prefilled through
-decode steps into a float32 cache, as in the reference, and an EOS token
-freezes its slot.
+``make_serve_step`` and ``ServeEngine`` serve every LM family of
+:mod:`repro_torch.models`: the prompt is prefilled through decode steps
+into a float32 cache, as in the reference, and an EOS token freezes its
+slot.  For the encoder-decoder the engine, as the reference's, decodes
+against the zero cross K/V of ``init_cache``; a real transcription runs
+``encdec.encode`` -> ``encdec.prefill_cross`` -> ``decode_step``.
 
 ``SigStreamEngine`` keeps fixed batch slots whose per-step windowed
 signatures stay current as path chunks arrive: the slots are sessions in a
@@ -32,7 +34,7 @@ from ..core.stream import SignatureStream
 from .. import models as M
 from ..device import resolve_device
 from ..kernels import ops
-from ..models import transformer as T
+from ..models import encdec, transformer as T
 from ..models.config import ModelConfig
 from ..sigkernel import gram_diag, krr_fit, krr_predict, word_weights
 from .sessions import SessionHandle, SessionStore
@@ -289,8 +291,18 @@ class SigScoreEngine:
 
 def make_prefill_step(cfg: ModelConfig, remat: str = "dots"):
     """Forward over the full prompt: prefill(params, batch) -> the last
-    position's float32 logits (B, V)."""
-    T.check_ported(cfg)
+    position's float32 logits (B, V).  For the ``encdec`` family the batch
+    holds ``frames`` too: the encoder runs over them and the decoder over
+    the tokens."""
+    if cfg.family == "encdec":
+        @torch.no_grad()
+        def prefill(params, batch):
+            enc = encdec.encode(params, cfg, batch["frames"], remat=remat)
+            hidden = encdec.decode_train(params, cfg, enc, batch["tokens"],
+                                         remat=remat)
+            return (hidden[:, -1] @ params["embed"].T.to(
+                hidden.dtype)).float()
+        return prefill
 
     @torch.no_grad()
     def prefill(params, batch):

@@ -43,7 +43,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.sigkernel.features",
             "repro_torch.serve.engine", "repro_torch.kernels.sig_sweep",
             "repro_torch.data.pipeline", "repro_torch.core.windows",
-            "repro_torch.core.stream"} <= set(mods)
+            "repro_torch.core.stream", "repro_torch.models.ssm",
+            "repro_torch.models.encdec"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 

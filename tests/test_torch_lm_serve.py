@@ -3,10 +3,12 @@ its launchers.
 
 Greedy ``ServeEngine`` generation against the reference's token for token
 (the reference's parameters carried across by
-``convert.lm_params_from_reference``), EOS freezing, ``make_prefill_step``
-against the decode path, sampling under a seed, the engine's device rule,
-and both launch CLIs on the CPU (``--device cpu``), the serving launcher
-restoring the training launcher's checkpoint.
+``convert.lm_params_from_reference``; the other families' cases are in
+``test_torch_models.py``, beside their cached inits), EOS freezing,
+``make_prefill_step`` against the decode path, sampling under a seed, the
+engine's device rule, and both launch CLIs on the CPU (``--device
+cpu``), the serving launcher restoring the training launcher's
+checkpoint, and every family through the launchers.
 """
 import dataclasses
 
@@ -31,6 +33,8 @@ VALUE = dict(rtol=2e-4, atol=2e-5)
 
 
 def setup(arch="qwen3-4b", seed=0):
+    """Reduced configs, the port's model and the reference's numpy
+    parameters."""
     cfg = tconfigs.reduce_config(tconfigs.get_config(arch))
     jcfg = jconfigs.reduce_config(jconfigs.get_config(arch))
     ref = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(seed),
@@ -115,10 +119,6 @@ def test_engine_device_rule():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeEngine(cfg, model, max_len=8)
-    whisper = tconfigs.reduce_config(
-        tconfigs.get_config("whisper-large-v3"))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        make_prefill_step(whisper)
 
 
 def test_launch_clis_on_the_cpu(tmp_path, capsys):
@@ -146,3 +146,20 @@ def test_launch_clis_on_the_cpu(tmp_path, capsys):
     cfg = dataclasses.replace(tconfigs.reduce_config(
         tconfigs.get_config("qwen3-4b")))
     assert int(out.max()) < cfg.vocab_size
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "phi3.5-moe-42b-a6.6b", "zamba2-7b",
+                                  "rwkv6-1.6b", "whisper-large-v3"])
+def test_launchers_accept_every_family(arch, capsys):
+    out = serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
+                          "--batch", "2", "--prompt-len", "3", "--steps",
+                          "3", "--max-len", "8"])
+    cfg = tconfigs.reduce_config(tconfigs.get_config(arch))
+    assert tuple(out.shape) == (2, 6) and int(out.max()) < cfg.vocab_size
+    assert f"family={cfg.family}" in capsys.readouterr().out
+    if cfg.family != "encdec":      # the token stream carries no frames
+        _, m = train_cli.main(["--arch", arch, "--reduced", "--device",
+                               "cpu", "--batch", "2", "--seq", "8",
+                               "--steps", "2"])
+        assert np.isfinite(float(m["loss"]))

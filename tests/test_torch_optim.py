@@ -7,6 +7,8 @@ port's state is also carried over from the reference's after two steps
 (``convert.opt_state_from_reference``) and run on.  Values rtol 2e-4,
 atol 2e-5.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,3 +154,55 @@ def test_clipping_and_global_norm(max_norm):
                                float(J.global_norm(tree)), rtol=1e-5)
     for k, w in _per_layer(jax.tree.map(np.asarray, jclip)).items():
         np.testing.assert_allclose(clip[k].numpy(), w, **VALUE)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-7b",
+                                  "whisper-large-v3"])
+def test_adafactor_on_the_stacked_families_equals_the_reference(arch):
+    """Three Adafactor steps over a reduced model's tree: the update clip
+    takes the RMS over each stacked leaf (``dense_layers``,
+    ``shared_attn``, ``enc_layers``, ``dec_layers`` as ``layers``), whose
+    layers get gradients of different scales."""
+    from repro import configs as jconfigs
+    import repro.models as JM
+    jcfg = jconfigs.reduce_config(jconfigs.get_config(arch))
+    if jcfg.moe:                      # two leading dense layers
+        jcfg = dataclasses.replace(jcfg, n_layers=4, moe_layer_start=2)
+    # the reference's tree, drawn in numpy: its shapes are what the
+    # update's factoring and the stacked RMS read
+    rng = np.random.default_rng(0)
+    tree = jax.tree.map(
+        lambda a: rng.normal(scale=0.1, size=a.shape).astype(np.float32),
+        jax.eval_shape(lambda k: JM.init_params(k, jcfg, jnp.float32),
+                       jax.random.PRNGKey(0)))
+
+    def grads(step):
+        # a stacked leaf's layers are scaled apart, so its RMS is not any
+        # one layer's
+        return jax.tree.map(lambda x: (rng.normal(size=x.shape) * np.geomspace(
+            0.1, 10 ** step, x.shape[0]).reshape((-1,) + (1,) * (x.ndim - 1))
+        ).astype(np.float32), tree)
+
+    gs = [grads(i) for i in range(3)]
+    opt = J.adafactor(lr=1e-2)
+    params = jax.tree.map(jnp.asarray, tree)
+    state, update = opt.init(params), jax.jit(opt.update)
+    for g in gs:
+        updates, state = update(jax.tree.map(jnp.asarray, g), state, params)
+        params = jax.tree.map(jnp.add, params, updates)
+    want = _per_layer(jax.tree.map(np.asarray, params))
+    got = port(tree)
+    topt = T.adafactor(lr=1e-2)
+    tstate = topt.init(got)
+    for g in gs:
+        topt.update(port(g), tstate, got)
+    assert sorted(got) == sorted(want)
+    stacked = {k.split(".")[0] for k in want
+               if k.count(".") and k.split(".")[1].isdigit()}
+    assert stacked == {"deepseek-v2-lite-16b": {"dense_layers", "layers"},
+                       "zamba2-7b": {"layers", "shared_attn"},
+                       "whisper-large-v3": {"enc_layers",
+                                            "dec_layers"}}[arch]
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k], **VALUE,
+                                   err_msg=k)
