@@ -351,7 +351,41 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              4 × 256 tokens (two SSD chunks): finite loss and gradient
              norm, peak memory.  (c) the plain _ssd_chunked and _wkv_scan
              forward at those shapes: ms, kernels a call, bytes bound.
-26. report — one JSON line of kernels (the sig_trunc row with its cases:
+26. distributed — the data-parallel slice (repro_torch.distributed):
+             gloo worlds of P = 2 and P = 4 ranks spawned on the one card
+             (NCCL refuses two ranks on one device; a collective times out
+             after 120 s and a world after 420 s, each rank's exit code is
+             checked), each rank loading the kernels phase 2 built.  Under
+             sharding_ctx(make_sig_mesh()), against rank 0's single-rank
+             result on the card (values rtol 2e-4 / atol 2e-5, the Gram
+             1e-5·max|G|, gradients 1e-3·|g| + 1e-4·max|g|): (a) sharded
+             ops.signature value plus gradient at (64, 500, 4, 5) with
+             inverse and checkpoint and a ragged B = 63 batch, one
+             sig_trunc and one sig_sweep launch a rank; (b) sharded
+             ops.projected on §8's 1,685 words over 500 lead-lag
+             increments (B = 128), one sig_words and one sig_sweep a
+             rank; (c) the Gram ring at 2,048 × 2,048 × 9,330 and 8 × 8 ×
+             584, value and three gradients, P sig_gram launches a rank a
+             forward and none a backward, P − 1 send/recv steps of
+             (P − 1)·⌈B_y/P⌉·D·4 bytes, equal to the analytic counters,
+             each posted before its tile (ring_overlap).  At P = 2 only:
+             (d) the sig-MMD train_loop, qwen3-4b at full width, depth 2,
+             8 × 512 tokens, AdamW, 3 steps: losses within
+             1e-4·max(1, |loss|) of one rank's, the first step's
+             gradients by the gradient rule, 2 sig_trunc, 3·P sig_gram and
+             1 sig_sweep launches a rank a step; (e) signature_service(
+             d=6, depth=5, max_len=1024) placed over the mesh answering
+             256 requests like one rank, every rung a multiple of P; (f) a
+             SessionStore over the mesh at phase 22's configuration
+             (10,000 sessions, one round), its checkpoint restored with no
+             mesh answering bit for bit.  Then a world of one over NCCL:
+             the size-1 context bit-identical to none for the value and
+             gradient of a signature and of a Gram.  Each case's ms (rank
+             0, the ranks starting together) beside the single-rank ms
+             (rank 0 alone): ranks that share one card are not faster.
+             The launches a rank and the transport of each collective
+             are printed.
+27. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell, and the fused ones: §8 lead_lag depth 3, the
              time_augment serving micro-batch, the two Table 1 transform
@@ -385,8 +419,10 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              backward on the sig_sweep row, with their launches; and
              phase 25's: deepseek-v2-lite's sig-MMD leg on the sig_trunc
              row, its Gram on the sig_gram row and its backward on the
-             sig_sweep row, with their launches), the card's name and
-             power limit, then the device line last.
+             sig_sweep row, with their launches; and phase 26's sharded
+             cases at P = 2 and 4 on their kernels' rows, with their
+             launches a rank), the card's name and power limit, then the
+             device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -5200,6 +5236,594 @@ def phase_families(seed: int) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the data-parallel slice (repro_torch.distributed) on the card.
+# gloo worlds of P ranks share the one H100 (NCCL refuses two ranks on one
+# device); a world of one over NCCL holds the size-1 context bit for bit.
+# ---------------------------------------------------------------------------
+
+DIST_WORLDS = (2, 4)
+DIST_SIG = (64, 500, 4, 5)        # Table 1's largest train cell
+DIST_RAGGED_B = 63                # a batch P does not divide
+# the reference Gram (scoring) and the sig-MMD Gram of phase 24's head
+DIST_GRAMS = (("reference Gram", 2048, 2048, 9330),
+              ("sig-MMD Gram", 8, 8, 584))
+# the trainer: layers (qwen3-4b at full width, depth cut so that two
+# ranks' fp32 weights, gradients and AdamW state share one card), steps;
+# batch and tokens are phase 24's (LM_TRAIN: 8 x 512)
+DIST_TRAIN = (2, 3)
+DIST_POOL_N = 10_000              # phase 22's smallest pool
+DIST_COLLECTIVE_S = 120           # a hung collective fails the phase
+DIST_WORLD_S = 420                # a hung world fails the phase
+
+
+def dist_ms(fn, group, reps: int = 3) -> float:
+    """Median wall ms of ``fn`` on this rank, every rank starting each
+    repetition together (a barrier) and the card synchronised."""
+    ts = []
+    for _ in range(reps):
+        torch.distributed.barrier(group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def dist_alone(fn, rank: int, group, warm: bool = True):
+    """``fn()`` on rank 0 while the other ranks wait: the single-rank
+    result and its time, after one untimed call with ``warm`` (None
+    elsewhere)."""
+    out = None
+    if rank == 0:
+        if warm:
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        out = (out, (time.perf_counter() - t0) * 1e3)
+    torch.distributed.barrier(group=group)
+    return out
+
+
+def dist_vg(fn, x: torch.Tensor, cot: torch.Tensor, mesh):
+    """Value and gradient of ⟨fn(x), cot⟩ under the installed context: the
+    gathered rows and the input's gradient summed over the ranks."""
+    from repro_torch.distributed import batch as DB
+    from repro_torch.distributed import collectives as C
+    group = mesh.get_group()
+    a = x.detach().clone().requires_grad_(True)
+    out = fn(a)
+    C.reduce_sum((DB.to_local(out) * DB.local_rows(cot, mesh, pad=False)
+                  ).sum(), group).backward()
+    return DB.gather_rows(out), C.all_reduce_(a.grad.clone(), group)
+
+
+def single_vg(fn, x: torch.Tensor, cot: torch.Tensor):
+    a = x.detach().clone().requires_grad_(True)
+    out = fn(a)
+    (out * cot).sum().backward()
+    return out.detach(), a.grad
+
+
+def dist_values_within(got, want) -> bool:
+    return bool(((got - want).abs() <= TOL["atol"]
+                 + TOL["rtol"] * want.abs()).all())
+
+
+def dist_case(rank: int, mesh, name: str, fn, x, cot, shape) -> dict:
+    """One sharded value-plus-gradient case against rank 0's single-rank
+    result: launches per rank, ms beside the single-rank ms."""
+    from repro_torch.distributed import sharding_ctx
+    group = mesh.get_group()
+    alone = dist_alone(lambda: single_vg(fn, x, cot), rank, group)
+    reset_counts()
+    with sharding_ctx(mesh):
+        got, g = dist_vg(fn, x, cot, mesh)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counts().items() if v}
+    with sharding_ctx(mesh):
+        ms = dist_ms(lambda: dist_vg(fn, x, cot, mesh), group)
+    res = dict(case=name, shape=list(shape), P=mesh.size(), ms=ms,
+               launches_per_rank=launches)
+    if rank == 0:
+        (want, gwant), single_ms = alone
+        check(dist_values_within(got, want),
+              f"{name} P={mesh.size()}: values differ from one rank, max "
+              f"|err| {float((got - want).abs().max()):.3e}")
+        check(grad_within(g, gwant.double()),
+              f"{name} P={mesh.size()}: gradients differ from one rank, "
+              f"max |err| {float((g - gwant).abs().max()):.3e}")
+        res.update(single_ms=alone[1],
+                   max_abs_err=float((got - want).abs().max()),
+                   grad_max_abs_err=float((g - gwant).abs().max()))
+    return res
+
+
+def dist_signature(rank: int, mesh, seed: int) -> list:
+    """(a) sharded ops.signature, value plus gradient, inverse and
+    checkpoint at (64, 500, 4, 5), and a ragged B = 63 batch."""
+    B, M, d, N = DIST_SIG
+    rng = np.random.default_rng(seed + 2601)
+    x = torch.tensor(rng.normal(size=(B, M, d)) / np.sqrt(M),
+                     dtype=torch.float32, device="cuda")
+    D = sum(d**n for n in range(1, N + 1))
+    cot = torch.tensor(rng.normal(size=(B, D)), dtype=torch.float32,
+                       device="cuda")
+    lens = torch.tensor(rng.integers(M // 2, M + 1, size=DIST_RAGGED_B),
+                        dtype=torch.int32, device="cuda")
+    cases = []
+    for name, kw, b in (
+            ("inverse", {}, B),
+            ("checkpoint", dict(backward="checkpoint"), B),
+            ("ragged B=63", dict(lengths=lens), DIST_RAGGED_B)):
+        cases.append(dist_case(
+            rank, mesh, f"sharded signature {name}",
+            lambda a, kw=kw: ops.signature(a, N, **kw), x[:b], cot[:b],
+            (b, M, d, N)))
+    for c in cases:
+        want = dict(sig_trunc=1, sig_sweep=1)
+        check(c["launches_per_rank"] == want,
+              f"{c['case']}: launches a rank {c['launches_per_rank']}, "
+              f"expected {want}")
+    return cases
+
+
+def dist_projected(rank: int, mesh, seed: int) -> dict:
+    """(b) sharded ops.projected on §8's set: B = 128, 500 lead-lag
+    increments over 10 letters, 1,685 words."""
+    B, M, d, N, _ = PROJ_CELL
+    rng = np.random.default_rng(seed + 2602)
+    incs = tops.path_increments(lead_lag(brownian(rng, B, M, d)))
+    words = generated_words(sparse_leadlag_generators(d), N)
+    plan = make_plan(words, 2 * d)
+    cot = torch.tensor(rng.normal(size=(B, len(words))),
+                       dtype=torch.float32, device="cuda")
+    case = dist_case(rank, mesh, "sharded projected §8",
+                     lambda a: ops.projected(a, plan), incs, cot,
+                     (B, incs.shape[1], 2 * d, N))
+    case["words"] = len(words)
+    want = dict(sig_words=1, sig_sweep=1)
+    check(case["launches_per_rank"] == want,
+          f"sharded projected: launches a rank {case['launches_per_rank']}, "
+          f"expected {want}")
+    return case
+
+
+def dist_gram(rank: int, mesh, seed: int) -> list:
+    """(c) the Gram ring: value and the three gradients against one rank,
+    the communication record and the analytic counters."""
+    from repro_torch.distributed import batch as DB
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import collective_stats, sharding_ctx
+    from repro_torch.distributed.hlo import ring_overlap
+    group, P = mesh.get_group(), mesh.size()
+    rng = np.random.default_rng(seed + 2603)
+    cases = []
+    for name, Bx, By, D in DIST_GRAMS:
+        Sx, Sy = (torch.tensor(rng.normal(size=(b, D)) * 0.1,
+                               dtype=torch.float32, device="cuda")
+                  for b in (Bx, By))
+        w = torch.tensor(rng.uniform(0.2, 2.0, D), dtype=torch.float32,
+                         device="cuda")
+        cot = torch.tensor(rng.normal(size=(Bx, By)), dtype=torch.float32,
+                           device="cuda")
+
+        def single():
+            ts = [t.clone().requires_grad_(True) for t in (Sx, Sy, w)]
+            G = ops.gram(*ts)
+            (G * cot).sum().backward()
+            return G.detach(), [t.grad for t in ts]
+
+        alone = dist_alone(single, rank, group)
+        ts = [t.clone().requires_grad_(True) for t in (Sx, Sy, w)]
+        C.LOG.reset()
+        obs.enable()
+        obs.reset()
+        reset_counts()
+        with sharding_ctx(mesh):
+            G = ops.gram(*ts)
+            torch.cuda.synchronize()
+            fwd_launches = counts()["sig_gram"]
+            stats = collective_stats(tag="gram_ring")
+            ov = ring_overlap()
+            C.reduce_sum((DB.to_local(G) * DB.local_rows(cot, mesh, pad=False)
+                          ).sum(), group).backward()
+        wire = obs.counter("pathsig_ring_wire_bytes_total", "",
+                           ("ctx",)).value(ctx="eager")
+        steps = obs.counter("pathsig_ring_ppermute_total", "",
+                            ("ctx",)).value(ctx="eager")
+        obs.disable()
+        bwd_gram = counts()["sig_gram"] - fwd_launches
+        grads = [C.all_reduce_(t.grad.clone(), group) for t in ts]
+        full = DB.gather_rows(G)
+        analytic = (P - 1) * (-(-By // P)) * D * 4
+        n, result, wire_bytes = stats.by_kind["collective-permute"]
+        check(fwd_launches == P and bwd_gram == 0,
+              f"{name} P={P}: sig_gram launched {fwd_launches} times a "
+              f"forward and {bwd_gram} a backward, expected {P} and 0")
+        check(n == P - 1 and wire_bytes == analytic == wire
+              and steps == P - 1,
+              f"{name} P={P}: {n} permutes of {wire_bytes} bytes, counters "
+              f"{steps} steps {wire} bytes, analytic {P - 1} and {analytic}")
+        check(ov.overlapped and ov.n_permutes == P - 1 and ov.n_dots == P,
+              f"{name} P={P}: ring overlap {ov.summary()}")
+
+        def ring():
+            with sharding_ctx(mesh):
+                ops.gram(Sx, Sy, w)
+
+        ms = dist_ms(ring, group)
+        # one rank's forward alone, for the time beside the ring's
+        fwd_alone = dist_alone(lambda: ops.gram(Sx, Sy, w), rank, group)
+        res = dict(case=f"ring {name}", shape=[Bx, By, D], P=P, ms=ms,
+                   launches_per_rank=dict(sig_gram=fwd_launches),
+                   permutes=n, wire_bytes=wire_bytes,
+                   overlap=ov.summary())
+        if rank == 0:
+            (G1, g1), single_ms = alone
+            err = float((full - G1).abs().max())
+            check(err <= GRAM_TOL * float(G1.abs().max()),
+                  f"{name} P={P}: ring max |err| {err:.3e}")
+            for k, (a, b) in enumerate(zip(grads, g1)):
+                check(grad_within(a, b.double()),
+                      f"{name} P={P}: gradient {k} max |err| "
+                      f"{float((a - b).abs().max()):.3e}")
+            res.update(single_ms=fwd_alone[1],
+                       single_value_and_grad_ms=single_ms, max_abs_err=err)
+        cases.append(res)
+    return cases
+
+
+def dist_train(rank: int, mesh, seed: int) -> dict:
+    """(d) the data-parallel sig-MMD train_loop against one rank: losses
+    within 1e-4·max(1, |loss|), the first step's gradients by the gate."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.optim.optimizers import named
+    from repro_torch.train import make_sig_mmd_loss, place_batch
+    group, P = mesh.get_group(), mesh.size()
+    L, steps = DIST_TRAIN
+    cfg = with_sig_head(dataclasses.replace(get_config(LM_ARCH),
+                                            n_layers=L), **LM_HEAD)
+    model = lm_model(cfg, seed)
+    loop = TrainLoopConfig(steps=steps, log_every=1, run_dir="",
+                           loss="sig_mmd")
+    loss_fn = make_sig_mmd_loss(cfg)
+    batch = next(lm_data(cfg, "sig_mmd", 0, seed))
+
+    def first_grads():
+        # placed under the context (data-parallel), as it is without one
+        loss, _ = loss_fn(model, place_batch(batch), "dots")
+        return torch.autograd.grad(loss, list(named(model).values()),
+                                   allow_unused=True)
+
+    def single():
+        g = first_grads()
+        _, _, hist = train_loop(cfg, model, adamw(lr=3e-4),
+                                lm_data(cfg, "sig_mmd", 0, seed), loop)
+        return g, hist
+
+    alone = dist_alone(single, rank, group, warm=False)
+    lm_free()
+    with sharding_ctx(mesh):
+        g = [None if t is None else C.all_reduce_(t, group)
+             for t in first_grads()]
+        reset_counts()
+        t0 = time.perf_counter()
+        _, _, hist = train_loop(cfg, model, adamw(lr=3e-4),
+                                lm_data(cfg, "sig_mmd", 0, seed), loop)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    launches = counts()
+    want = {k: dict(sig_trunc=2, sig_gram=3 * P, sig_sweep=1).get(k, 0)
+            * steps for k in launches}
+    check(launches == want, f"data-parallel sig-MMD steps: launches a rank "
+          f"{launches}, expected {want}")
+    losses = [h["loss"] for h in hist]
+    res = dict(case="data-parallel sig-MMD train_loop", layers=L, P=P,
+               batch=[LM_TRAIN[1], LM_TRAIN[2]], losses=losses,
+               shape=[LM_TRAIN[1], LM_TRAIN[2], LM_HEAD["channels"],
+                      LM_HEAD["depth"]],
+               step_ms=float(np.median([h["sec"] for h in hist[1:]])) * 1e3,
+               loop_s=loop_s,
+               launches_per_rank={k: v for k, v in launches.items() if v})
+    if rank == 0:
+        (g1, hist1), _ = alone
+        ref = [h["loss"] for h in hist1]
+        check(all(abs(a - b) <= 1e-4 * max(1.0, abs(b))
+                  for a, b in zip(losses, ref)),
+              f"data-parallel losses {losses} against one rank's {ref}")
+        for (name, _), a, b in zip(named(model).items(), g, g1):
+            if b is None:      # a parameter the loss does not read
+                check(a is None, f"first-step gradient {name}: one rank "
+                      f"has none, the mesh has one")
+                continue
+            check(grad_within(a, b.double()),
+                  f"first-step gradient {name}: max |err| "
+                  f"{float((a - b).abs().max()):.3e}")
+        res.update(single_losses=ref, single_step_ms=float(np.median(
+            [h["sec"] for h in hist1[1:]])) * 1e3)
+    del model, g, alone
+    lm_free()
+    return res
+
+
+def dist_batcher(rank: int, mesh, seed: int) -> dict:
+    """(e) DynamicBatcher.signature_service(d=6, depth=5, max_len=1024)
+    placed over the mesh: phase 4's 256 requests."""
+    group, P = mesh.get_group(), mesh.size()
+    reqs = serving_inputs(np.random.default_rng(seed + 2605), 256, 6, 16,
+                          1024)
+
+    def serve(m):
+        svc = DynamicBatcher.signature_service(d=6, depth=5, max_len=1024,
+                                               mesh=m)
+        tickets = [svc.submit(p) for p in reqs]
+        t0 = time.perf_counter()
+        out = svc.flush()
+        torch.cuda.synchronize()
+        return ([out[t] for t in tickets], svc.stats(),
+                (time.perf_counter() - t0) * 1e3)
+
+    alone = dist_alone(lambda: serve(None), rank, group)
+    reset_counts()
+    got, stats, ms = serve(mesh)
+    launches = counts()
+    check(all(Bp % P == 0 for _, Bp in stats["shapes"]),
+          f"batcher rungs {stats['shapes']} not multiples of {P}")
+    check(launches["sig_trunc"] == stats["batches"],
+          f"batcher: {launches['sig_trunc']} sig_trunc launches a rank for "
+          f"{stats['batches']} rungs")
+    res = dict(case="mesh-placed batcher", P=P, requests=len(reqs),
+               flush_ms=ms, rows_per_device=stats["rows_per_device"],
+               occupancy=stats["occupancy"], devices=stats["devices"],
+               shapes=stats["shapes"],
+               launches_per_rank=dict(sig_trunc=launches["sig_trunc"]))
+    if rank == 0:
+        (want, _, single_ms), _ = alone
+        worst = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        check(all(dist_values_within(a, b) for a, b in zip(got, want)),
+              f"batcher answers differ from one rank: max |err| {worst}")
+        res.update(single_flush_ms=single_ms, max_abs_err=worst)
+    return res
+
+
+def dist_sessions(rank: int, mesh, seed: int, where: str) -> dict:
+    """(f) a SessionStore over the mesh at phase 22's configuration: one
+    round, its checkpoint restored with no mesh: the same answers."""
+    from repro_torch.distributed import batch as DB
+    d, N, _, _, max_ticks, _ = POOL_CFG
+    group, P = mesh.get_group(), mesh.size()
+    sids, cnt, ticks = pool_rounds(DIST_POOL_N)[0]
+
+    def one_round(m):
+        store = SessionStore(d, N, initial_sessions=DIST_POOL_N,
+                             max_ticks=max_ticks, device=DEV, mesh=m)
+        t0 = time.perf_counter()
+        store.ingest_many(sids, cnt, ticks, auto_create=True)
+        store.flush()
+        torch.cuda.synchronize()
+        return store, (time.perf_counter() - t0) * 1e3
+
+    alone = dist_alone(lambda: one_round(None), rank, group)
+    reset_counts()
+    store, ms = one_round(mesh)
+    launches = counts()["sig_trunc"]
+    sample = list(dict.fromkeys(sids))[:256]
+    before = store.block_features(sample)
+    ck = Checkpointer(os.path.join(where, "pool"), async_save=False)
+    store.checkpoint(ck, 1)
+    back = SessionStore.restore(ck, mesh=None)
+    after = back.block_features(sample)
+    check(torch.equal(before, after), "the pool restored at P = 1 answers "
+          "differently from the pool checkpointed over the mesh")
+    check(DB.is_dtensor(store.pool.sig) and store.stats()["devices"] == P,
+          "the pool is not placed over the mesh")
+    res = dict(case="sharded session pool", P=P, sessions=len(store),
+               pool_size=store.pool_size, round_ms=ms,
+               launches_per_rank=dict(sig_trunc=launches))
+    if rank == 0:
+        single, single_ms = alone[0]
+        want = single.block_features(sample)
+        check(dist_values_within(before, want),
+              f"sharded pool differs from one rank: max |err| "
+              f"{float((before - want).abs().max()):.3e}")
+        res.update(single_round_ms=single_ms)
+    return res
+
+
+def dist_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
+    """One gloo rank on the card: every case of phase 26; nothing is
+    caught (an exception exits the process non-zero)."""
+    from datetime import timedelta
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_sig_mesh
+    os.environ["PATHSIG_AUTOTUNE"] = "off"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", store=torch.distributed.FileStore(
+            os.path.join(where, "store"), world), rank=rank,
+        world_size=world, timeout=timedelta(seconds=DIST_COLLECTIVE_S))
+    mesh = make_sig_mesh()
+    parts = [("signature", dist_signature), ("projected", dist_projected),
+             ("gram", dist_gram)]
+    if world == 2:
+        parts += [("train", dist_train), ("batcher", dist_batcher),
+                  ("sessions", lambda r, m, s: dist_sessions(r, m, s, where))]
+    res, seconds = dict(rank=rank), {}
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        res[name] = fn(rank, mesh, seed)
+        seconds[name] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    res["transports"] = dict(C.LOG.transports)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    queue.put(res)
+
+
+def dist_world(P: int, seed: int) -> list:
+    """Spawn a gloo world of P ranks on the card; -> every rank's results.
+    Each rank's exit code is checked, and a world that does not finish in
+    DIST_WORLD_S fails."""
+    import queue as queue_mod
+    import tempfile
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    where = tempfile.mkdtemp(dir=ROOT / "build")
+    procs = [ctx.Process(target=dist_rank, args=(r, P, where, seed, q))
+             for r in range(P)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.perf_counter() + DIST_WORLD_S
+    try:
+        while len(got) < P:
+            try:
+                res = q.get(timeout=5)
+                got[res["rank"]] = res
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in
+                        (None, 0)]
+                check(not dead, f"world of {P}: a rank exited {dead}")
+                check(time.perf_counter() < deadline,
+                      f"world of {P}: no result in {DIST_WORLD_S} s")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(where, ignore_errors=True)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * P, f"world of {P}: exit codes {codes}")
+    return [got[r] for r in range(P)]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_nccl_one(seed: int) -> dict:
+    """A world of one over NCCL: the size-1 context takes the
+    single-device path, bit for bit (values and gradients of one
+    signature and one Gram)."""
+    from datetime import timedelta
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.launch.mesh import make_sig_mesh
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1, timeout=timedelta(seconds=DIST_COLLECTIVE_S))
+    try:
+        mesh = make_sig_mesh(1)
+        rng = np.random.default_rng(seed + 2606)
+        B, M, d, N = DIST_SIG
+        x = torch.tensor(rng.normal(size=(B, M, d)) / np.sqrt(M),
+                         dtype=torch.float32, device="cuda")
+        S = torch.tensor(rng.normal(size=(8, 584)), dtype=torch.float32,
+                         device="cuda")
+        w = S[0].abs() + 0.2
+
+        def sig():
+            a = x.clone().requires_grad_(True)
+            out = ops.signature(a, N)
+            out.square().sum().backward()
+            return out.detach(), a.grad
+
+        def gram():
+            a = S.clone().requires_grad_(True)
+            G = ops.gram(a, S, w)
+            G.square().sum().backward()
+            return G.detach(), a.grad
+
+        same = {}
+        for name, fn in (("signature", sig), ("gram", gram)):
+            ref = fn()
+            with sharding_ctx(mesh):
+                got = fn()
+            same[name] = all(type(g) is torch.Tensor and torch.equal(g, r)
+                             for g, r in zip(got, ref))
+            check(same[name], f"NCCL world of one: the size-1 context's "
+                  f"{name} differs from no context")
+        return dict(backend=str(torch.distributed.get_backend()),
+                    bit_identical=same)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_distributed(seed: int) -> dict:
+    """Phase 26: the data-parallel slice over gloo worlds of 2 and 4 ranks
+    on the one card, and a world of one over NCCL."""
+    t0 = time.perf_counter()
+    one = dist_nccl_one(seed)
+    print(f"[dist] NCCL world of one: the size-1 context is bit-identical "
+          f"to none {one['bit_identical']}", flush=True)
+    worlds, world_s = {}, {}
+    for P in DIST_WORLDS:
+        t1 = time.perf_counter()
+        worlds[P] = dist_world(P, seed)
+        world_s[P] = time.perf_counter() - t1
+    print(f"[dist] worlds' wall seconds (spawn to exit) {world_s}",
+          flush=True)
+    for P, ranks in worlds.items():
+        r0 = ranks[0]
+        for c in r0["signature"] + [r0["projected"]] + r0["gram"]:
+            per = [next(x for x in (r["signature"] + [r["projected"]]
+                                    + r["gram"]) if x["case"] == c["case"]
+                        )["launches_per_rank"] for r in ranks]
+            print(f"[dist] P={P} {c['case']} {c['shape']}: {c['ms']:.2f} ms "
+                  f"sharded value{'' if 'ring' in c['case'] else '+grad'} "
+                  f"(rank 0), {c['single_ms']:.2f} ms on one rank alone; "
+                  f"launches a rank {per}; max |err| "
+                  f"{c['max_abs_err']:.2e}", flush=True)
+        for g in r0["gram"]:
+            print(f"[dist] P={P} {g['case']}: {g['permutes']} send/recv "
+                  f"steps, {g['wire_bytes']} bytes a rank; {g['overlap']}",
+                  flush=True)
+        if "train" in r0:
+            t, b, s = r0["train"], r0["batcher"], r0["sessions"]
+            print(f"[dist] P={P} sig-MMD train_loop qwen3-4b depth "
+                  f"{t['layers']}, {t['batch'][0]} x {t['batch'][1]}: losses "
+                  f"{np.round(t['losses'], 6).tolist()} against one rank's "
+                  f"{np.round(t['single_losses'], 6).tolist()}; step "
+                  f"{t['step_ms']:.1f} ms (one rank alone "
+                  f"{t['single_step_ms']:.1f} ms); launches a rank "
+                  f"{[r['train']['launches_per_rank'] for r in ranks]}",
+                  flush=True)
+            print(f"[dist] P={P} batcher: {b['requests']} requests, flush "
+                  f"{b['flush_ms']:.1f} ms (one rank alone "
+                  f"{b['single_flush_ms']:.1f} ms); rungs {b['shapes']}; "
+                  f"rows_per_device {b['rows_per_device']}, occupancy "
+                  f"{b['occupancy']:.3f}; launches a rank "
+                  f"{[r['batcher']['launches_per_rank'] for r in ranks]}",
+                  flush=True)
+            print(f"[dist] P={P} session pool of {s['sessions']} sessions "
+                  f"(pool {s['pool_size']}): round {s['round_ms']:.1f} ms "
+                  f"(one rank alone {s['single_round_ms']:.1f} ms); "
+                  f"restored at P = 1 bit for bit; launches a rank "
+                  f"{[r['sessions']['launches_per_rank'] for r in ranks]}",
+                  flush=True)
+        print(f"[dist] P={P} transports: {r0['transports']}; seconds a "
+              f"case (rank 0) {np.round(list(r0['seconds'].values()), 1)}"
+              f" {list(r0['seconds'])}", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"[dist] ranks share one card: a sharded time is not a speedup. "
+          f"Phase 26 {seconds:.1f} s", flush=True)
+    return dict(nccl_one=one, world_s=world_s,
+                worlds={P: ranks[0] for P, ranks in worlds.items()},
+                launches={P: [{k: r[k] for k in ("signature", "projected",
+                                                   "gram")} for r in ranks]
+                          for P, ranks in worlds.items()},
+                seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5253,6 +5877,24 @@ def main() -> int:
           flush=True)
     fam = phase_families(args.seed)
     print(f"[timing] families phase: {fam['seconds']:.1f} s", flush=True)
+    lm_free()
+    distd = phase_distributed(args.seed)
+    print(f"[timing] distributed phase: {distd['seconds']:.1f} s",
+          flush=True)
+    shard_cases = {name: [] for name in ("sig_trunc", "sig_words",
+                                         "sig_gram", "sig_sweep")}
+    for P, r0 in distd["worlds"].items():
+        for c in r0["signature"]:
+            shard_cases["sig_trunc"].append(c)
+            shard_cases["sig_sweep"].append(c)
+        shard_cases["sig_words"].append(r0["projected"])
+        shard_cases["sig_sweep"].append(r0["projected"])
+        shard_cases["sig_gram"] += r0["gram"]
+        if "train" in r0:
+            for k in ("sig_trunc", "sig_gram", "sig_sweep"):
+                shard_cases[k].append({key: v for key, v in
+                                       r0["train"].items()
+                                       if key != "losses"})
     heads = lm["heads"]
     lm_launches = lm["train"]["launches"]
     moe = fam["train"]
@@ -5275,6 +5917,7 @@ def main() -> int:
                     dict(heads["trunc_case"],
                          launches=lm_launches["sig_trunc"]),
                     dict(moe["trunc_case"], launches=moe_launches["sig_trunc"])]
+    trunc_cases += shard_cases["sig_trunc"]
     wsrc = "src/repro_torch/kernels/csrc/sig_words.cu"
     t3 = max(logsig, key=lambda r: r["bound_ms"])
     words_cases = [
@@ -5292,6 +5935,7 @@ def main() -> int:
              bound_by=t3["bound_by"]),
         fused["projection"]["words"], windows["words_case"],
         slice8["hybrid"]["words_case"], heads["words_case"]]
+    words_cases += shard_cases["sig_words"]
     kernels = [
         dict(name="sig_trunc", route="cuda", source=src,
              replaces="src/repro/kernels/sig_trunc.py:300",
@@ -5341,7 +5985,8 @@ def main() -> int:
                                  ("projected-MMD Gram", mmd["gram"]))]
              + [eng["gram_case"], slice8["autotune"]["gram_case"],
                 dict(heads["gram_case"], launches=lm_launches["sig_gram"]),
-                dict(moe["gram_case"], launches=moe_launches["sig_gram"])]),
+                dict(moe["gram_case"], launches=moe_launches["sig_gram"])]
+             + shard_cases["sig_gram"]),
     ]
     big = max(train, key=lambda r: r["sweep_bound_ms"])
     sweep_cases = [dict(case="largest Table 1 train cell",
@@ -5364,6 +6009,7 @@ def main() -> int:
                          launches=lm_launches["sig_sweep"]),
                     dict(moe["sweep_case"],
                          launches=moe_launches["sig_sweep"])]
+    sweep_cases += shard_cases["sig_sweep"]
     sp = hurst["sparse"]["sweep"]
     kernels.append(dict(
         name="sig_sweep", route="cuda",
@@ -5392,7 +6038,7 @@ def main() -> int:
             transform=fused, checkpoint=ckpt, windows=windows,
             streams=streams, new_phases_s=new_s, sessions=sessions,
             sessions_s=sessions_s, slice8=slice8, slice8_s=slice8_s,
-            lm=lm, lm_s=lm_s, families=fam), indent=1))
+            lm=lm, lm_s=lm_s, families=fam, distributed=distd), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -68,6 +68,29 @@ def _flatten(tree) -> tuple[list, object]:
                     f"dataclasses of tensors")
 
 
+def _placements_of(tree, shardings) -> list:
+    """``shardings`` read against the template ``tree``: one entry per leaf
+    of :func:`_flatten`'s order.  A ``None`` or a sharding object where
+    the template has a subtree applies to every leaf below it (the
+    reference's ``flatten_up_to`` with prefix broadcasting)."""
+    n = len(_flatten(tree)[0])
+    if shardings is None or hasattr(shardings, "place"):
+        return [shardings] * n
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _placements_of(tree[k], shardings.get(k))]
+    if isinstance(tree, (list, tuple)):
+        return [p for t, sh in zip(tree, shardings)
+                for p in _placements_of(t, sh)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        names = [f.name for f in dataclasses.fields(tree)
+                 if isinstance(getattr(tree, f.name),
+                               (torch.Tensor, np.ndarray))]
+        return [getattr(shardings, k) for k in names]
+    raise TypeError(f"shardings do not match the template at a "
+                    f"{type(tree).__name__}")
+
+
 def _to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         h = x.detach()
@@ -174,10 +197,18 @@ class Checkpointer:
         with open(os.path.join(self._step_dir(step), "manifest.json")) as f:
             return json.load(f).get("extra", {})
 
-    def restore(self, params_like, opt_state_like, step: int | None = None):
+    def restore(self, params_like, opt_state_like, step: int | None = None,
+                shardings=None):
         """Restore into the structure of the templates: each leaf takes the
         template leaf's dtype and device.  Returns ``(params, opt_state,
-        extra)``."""
+        extra)``.
+
+        ``shardings`` (a tree over ``{"params": ..., "opt_state": ...}``
+        of :class:`repro_torch.distributed.ctx.NamedSharding` or None, a
+        prefix of the templates' structure) lays the leaves out on a mesh:
+        each rank reads the whole array and keeps its block as a DTensor
+        (a replicated spec keeps the whole tensor), so a checkpoint written
+        at one shard count restores at another."""
         path = self._step_dir(step)
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -194,5 +225,10 @@ class Checkpointer:
                 raise ValueError(f"leaf {i}: checkpoint shape "
                                  f"{tuple(got.shape)} != template shape "
                                  f"{tuple(np.shape(want))}")
-        out = rebuild(iter([_from_host(h, w) for h, w in zip(host, leaves)]))
+        placed = [_from_host(h, w) for h, w in zip(host, leaves)]
+        if shardings is not None:
+            tree = {"params": params_like, "opt_state": opt_state_like}
+            placed = [t if sh is None else sh.place(t) for t, sh in
+                      zip(placed, _placements_of(tree, shardings))]
+        out = rebuild(iter(placed))
         return out["params"], out["opt_state"], manifest.get("extra", {})

@@ -329,3 +329,48 @@ def session_tick_stream(n_sessions: int, d: int, seed: int = 0,
                         **kw) -> SessionTickStream:
     """Bursty multi-tenant ingest traffic (see :class:`SessionTickStream`)."""
     return SessionTickStream(n_sessions, d, seed, **kw)
+
+
+# ---------------------------------------------------------------------------
+# rank-sharded loader
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardedLoader:
+    """Wraps a stream so each rank reads only its shard of the global batch.
+
+    Process i of n loads rows [i·B/n, (i+1)·B/n) of every entry.
+    ``process_index`` / ``process_count`` default to the default process
+    group's rank and size (0 and 1 without one); with one process this is
+    the identity.
+    """
+    stream: TokenStream
+    process_index: int | None = None
+    process_count: int | None = None
+
+    def __post_init__(self):
+        import torch.distributed as dist
+        live = dist.is_available() and dist.is_initialized()
+        if self.process_index is None:
+            self.process_index = dist.get_rank() if live else 0
+        if self.process_count is None:
+            self.process_count = dist.get_world_size() if live else 1
+
+    def state(self):
+        return self.stream.state()
+
+    def restore(self, st):
+        self.stream.restore(st)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.stream)
+        if self.process_count == 1:
+            return batch
+
+        def shard(x):
+            per = x.shape[0] // self.process_count
+            return x[self.process_index * per:(self.process_index + 1) * per]
+        return {k: shard(v) for k, v in batch.items()}

@@ -1,0 +1,132 @@
+"""The batch layout of the mesh path: which rows a rank owns, and the move
+between a rank's rows and a batch-sharded DTensor.
+
+The reference pads the batch to a multiple of the shard count P with zero
+rows and splits it evenly (``kernels/ops.py::_pad_rows``): rank r owns
+rows [r·c, (r+1)·c) of the padded batch, c = ⌈B/P⌉.  Its true rows, the
+first ``min(c, B − r·c)`` of them, are exactly the block
+``torch.chunk``-style ``Shard(0)`` gives rank r of a (B, ...) DTensor, so
+the sharded results are DTensors of the true global shape with no padding
+left in them.  (Port-only module: the reference's arrays carry their
+layout.)
+"""
+from __future__ import annotations
+
+import torch
+
+from .ctx import axis_names
+
+
+def batch_mesh(mesh, names: tuple):
+    """The 1-D mesh of the batch axes ``names`` (several axes flattened
+    into one, in mesh order)."""
+    if mesh.ndim == 1:
+        return mesh
+    if len(names) == 1:
+        return mesh[names[0]]
+    order = tuple(a for a in axis_names(mesh) if a in names)
+    return mesh[order]._flatten()
+
+
+def rows_of(B: int, P: int, r: int) -> tuple[int, int, int]:
+    """-> (start, true rows, padded rows c) of rank r's block of a batch of
+    B rows over P shards."""
+    c = -(-B // P)
+    start = min(B, r * c)
+    return start, max(0, min(c, B - r * c)), c
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= max(1, n)
+    return tuple(reversed(stride))
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def local_rows(x, bmesh, B: int | None = None, pad: bool = True):
+    """This rank's rows of a batch: ``x.to_local()`` for a DTensor (placed
+    ``Shard(0)`` over the batch axes), rows [start, start + n) of a plain
+    tensor (the full batch, the same on every rank).  ``pad`` zero-pads
+    them to the block's c rows."""
+    P, r = bmesh.size(), bmesh.get_local_rank()
+    if B is None:
+        B = x.shape[0]
+    start, n, c = rows_of(B, P, r)
+    if is_dtensor(x):
+        loc = x.to_local()
+        if loc.shape[0] != n:
+            raise ValueError(
+                f"a batch DTensor of {B} rows over {P} shards holds "
+                f"{loc.shape[0]} rows on rank {r}, expected {n}: place it "
+                f"Shard(0) over the mesh's batch axes")
+    else:
+        loc = x[start:start + n]
+    if pad and n < c:
+        loc = torch.nn.functional.pad(
+            loc, (0, 0) * (loc.ndim - 1) + (0, c - n))
+    return loc
+
+
+def from_rows(local: torch.Tensor, bmesh, B: int):
+    """A rank's true rows -> the (B, ...) DTensor placed ``Shard(0)`` on
+    the batch mesh (differentiable: the gradient comes back as the rank's
+    rows of the output's gradient)."""
+    from torch.distributed.tensor import DTensor, Shard
+    shape = (B,) + tuple(local.shape[1:])
+    return DTensor.from_local(local, bmesh, [Shard(0)], run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def rows_like(local: torch.Tensor, ref):
+    """``local`` rows laid out as the batch DTensor ``ref`` is (same mesh,
+    placements and global row count); ``local`` itself when ``ref`` is a
+    plain tensor."""
+    if not is_dtensor(ref):
+        return local
+    from torch.distributed.tensor import DTensor
+    shape = (ref.shape[0],) + tuple(local.shape[1:])
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def group_of(x):
+    """The process group over the mesh axes that shard a batch DTensor's
+    rows (its whole mesh when that is 1-D)."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    if mesh.ndim == 1:
+        return mesh.get_group()
+    names = tuple(n for n, p in zip(axis_names(mesh), x.placements)
+                  if isinstance(p, Shard) and p.dim == 0)
+    return batch_mesh(mesh, names).get_group()
+
+
+def to_local(x):
+    """A DTensor's local block, anything else as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def gather_rows(x, *, tag: str = "gather"):
+    """The whole (B, ...) tensor on every rank from a batch DTensor, by the
+    group's all-gather (staged through the host on a gloo group of CUDA
+    tensors); a plain tensor comes back as it is.  Not differentiable."""
+    if not is_dtensor(x):
+        return x
+    from . import collectives as C
+    mesh = x.device_mesh
+    if mesh.ndim != 1:
+        raise ValueError("gather_rows takes a DTensor on a 1-D batch mesh")
+    B, P = x.shape[0], mesh.size()
+    _, n, c = rows_of(B, P, mesh.get_local_rank())
+    loc = x.to_local().detach()
+    if n < c:
+        loc = torch.nn.functional.pad(loc, (0, 0) * (loc.ndim - 1) + (0, c - n))
+    return C.all_gather(loc, mesh.get_group(), tag=tag)[:B]

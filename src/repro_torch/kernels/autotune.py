@@ -12,7 +12,11 @@ is the launch partition of each kernel, not the reference's TPU tile:
   ``projected_forward_only``) take the tuner's pick, else 256;
 - ``gram``: ``{rows, slice_words}`` of
   :func:`repro_torch.kernels.sig_gram._launch` (64 or 128 rows of S_x a
-  tile, whole ``KBLOCK``-word slices).
+  tile, whole ``KBLOCK``-word slices);
+- ``gram_ring``: the same partition for the tiles of the cross-rank Gram
+  ring (:class:`repro_torch.kernels.ops.GramRingFunction`), keyed on the
+  per-shard rows and the shard count P, and swept only under a live
+  sharding context whose batch axis has P shards.
 
 A small JSON cache of measured winners is keyed by dispatch *cell*: (kind,
 d, depth, power-of-two buckets of M and B, engine, precision).  Only the
@@ -281,6 +285,16 @@ def _candidates(kind: str, cell: dict, x, dev):
         return cands, {"max_rows": 256}, lambda rec: sw.sig_words(
             x(), ops._closure_tiled_plan(words, d, rec["max_rows"]),
             precision=precision)
+    if kind == "gram_ring":
+        # the ring's tiles are per-shard products: sweepable only under a
+        # live context whose "batch" axis matches the cell's P (the lookup
+        # happens inside gram() under the caller's context)
+        from ..distributed.ctx import current_mesh, logical_axis_size
+        P = int(cell.get("P", 0))
+        if current_mesh() is None or P < 2 \
+                or logical_axis_size("batch") != P:
+            return None
+        kind = "gram"
     if kind == "gram":
         D, Bx, By = cell["D"], cell["Bx"], cell["By"]
         g = torch.Generator().manual_seed(0)
@@ -349,7 +363,8 @@ def sweep_cell(kind: str, cell: dict, repeats: int = 10) -> dict:
 def partition(rec: dict, kind: str) -> dict:
     """The partition fields of a cached record (no timings)."""
     keys = {"sig_trunc": ("split", "examples"), "sig_words": ("max_rows",),
-            "gram": ("rows", "slice_words")}[kind]
+            "gram": ("rows", "slice_words"),
+            "gram_ring": ("rows", "slice_words")}[kind]
     return {k: rec[k] for k in keys if k in rec}
 
 

@@ -98,6 +98,11 @@ caller's ``TiledPlan`` keeps its tiles; ``None`` is the autotuner's pick,
 :mod:`repro_torch.kernels.autotune`, else 256); the reference's TPU
 ``batch_tile`` knob has no counterpart.
 
+Under an installed ``sharding_ctx(mesh)`` whose "batch" axis has two or
+more shards, every cell runs data-parallel (the mesh path below): each
+rank runs the cell on its rows and gets a DTensor placed ``Shard(0)``,
+and ``gram`` runs as a send/recv ring (:class:`GramRingFunction`).
+
 ``lengths`` (B,) works in every cell: padded-tail increments are zero-masked
 before the engine runs (a zero increment is the identity Chen update), and
 streamed outputs are masked after each example's true-terminal slot.
@@ -140,6 +145,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.projection import plan_tables, projected_signature_from_increments
 from ..core.signature import (as_lengths, canon_precision, default_chunk,
@@ -147,12 +153,16 @@ from ..core.signature import (as_lengths, canon_precision, default_chunk,
                               quantise_increments, signature_combine,
                               signature_from_increments, stream_emit_mask,
                               unsupported_stream_backward)
-from ..core.transforms import (as_transform, fused_augment, transform_dim,
-                               transform_steps, transform_time_aux)
+from ..core.transforms import (as_transform, augment_increments,
+                               fused_augment, transform_dim, transform_steps,
+                               transform_time_aux)
 from ..core.words import (TiledPlan, WordPlan, flat_index, make_plan,
                           make_tiled_plan, sig_dim)
 from .. import obs
 from ..device import resolve_device
+from ..distributed import batch as DB
+from ..distributed import collectives as C
+from ..distributed.ctx import axis_size, current_mesh, logical_axes
 from . import autotune
 from .cache import plan_cache, plan_cache_collector
 from .sig_gram import sig_gram, sig_gram_plain
@@ -408,6 +418,126 @@ def _signature_fused(increments: torch.Tensor, lengths, spec, x0, *,
                           f.aug_lengths)
 
 
+# ---------------------------------------------------------------------------
+# mesh path: an installed sharding_ctx(mesh) whose rules map the "batch"
+# logical axis onto >= 2 ranks makes every dispatch cell data-parallel (the
+# reference's shard_map branch).  Each rank pads the batch to a multiple of
+# the shard count with zero rows (zero increments are identity updates; the
+# padded rows are sliced off, so their cotangents are exactly zero), runs
+# the single-device cell on its own rows, and returns its true rows as a
+# DTensor placed Shard(0).  Gradients shard as the primals do: the kernels
+# see only the local rows.  Outside any context, and under one whose batch
+# axis has one shard, the branch is never taken.
+# ---------------------------------------------------------------------------
+
+def _as_batch(x, dev: torch.device):
+    """A batch argument on ``dev``: a DTensor (a batch placed Shard(0) on
+    the mesh) as it is, anything else through ``torch.as_tensor``."""
+    return x if DB.is_dtensor(x) else torch.as_tensor(x, device=dev)
+
+
+def _batch_lengths(lengths, B: int, dev: torch.device):
+    """``lengths=`` for the mesh path: a DTensor as it is, else (B,)
+    int32."""
+    if lengths is None or DB.is_dtensor(lengths):
+        return lengths
+    return as_lengths(lengths, B, dev)
+
+
+def _mesh_batch():
+    """-> (1-D batch mesh, shard count) when the current sharding context
+    shards the "batch" logical axis over >= 2 ranks, else None."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    names = logical_axes("batch")
+    size = 1
+    for a in names:
+        size *= axis_size(mesh, a)
+    if size <= 1:
+        return None
+    return _batch_mesh(mesh, names), size
+
+
+@plan_cache
+def _batch_mesh(mesh, names: tuple):
+    """The batch axes' 1-D mesh, interned: flattening several axes makes
+    process groups, so it happens once a (mesh, axes)."""
+    return DB.batch_mesh(mesh, names)
+
+
+class _Sharded:
+    """A cell run per rank: ``local_fn(increments, lengths)`` over the
+    rank's padded block, counted under ``site`` once per new local
+    shape (the reference's retrace of its jitted shard_map)."""
+
+    def __init__(self, local_fn, site: str):
+        self.local_fn, self.site = local_fn, site
+        self.shapes: set = set()
+
+
+def _apply_sharded(fn: _Sharded, bm, increments, lengths, spec=None,
+                   x0=None):
+    """Take this rank's rows, zero-padded to the block of ⌈B/P⌉ rows (the
+    reference's ``_pad_rows``: zero increments are identity updates),
+    materialise a transform on them, run ``fn``'s cell and wrap the true
+    rows as the (B, ...) DTensor placed Shard(0) on the batch mesh."""
+    B = increments.shape[0]
+    incs = DB.local_rows(increments, bm)
+    lens = None if lengths is None else DB.local_rows(lengths, bm, B)
+    if spec:
+        # mesh × transform: increment-level materialise (support matrix);
+        # the augment is row-wise, so each rank builds its own rows
+        x0 = None if x0 is None else DB.local_rows(
+            torch.as_tensor(x0, device=incs.device), bm, B)
+        if lens is not None:
+            incs, lens = augment_increments(incs, spec, x0=x0, lengths=lens)
+        else:
+            incs = augment_increments(incs, spec, x0=x0)
+    obs.compile.count_new_shape(fn.site, fn.shapes, (tuple(incs.shape),
+                                                     lens is None), incs)
+    out = fn.local_fn(incs, lens)
+    _, n, _ = DB.rows_of(B, bm.size(), bm.get_local_rank())
+    return DB.from_rows(out[:n], bm, B)
+
+
+@plan_cache
+def _sharded_sig(bm, with_lengths: bool, depth: int, engine: str,
+                 backward: str, split: int | None, time_chunks: int,
+                 stream: bool, stream_stride: int, precision: str,
+                 examples: int | None) -> _Sharded:
+    """The truncated-signature cell per rank.  Transforms are materialised
+    before it (support matrix), so it needs only the precision knob."""
+    return _Sharded(functools.partial(
+        _signature_local, depth=depth, engine=engine, backward=backward,
+        split=split, time_chunks=time_chunks, stream=stream,
+        stream_stride=stream_stride, precision=precision, examples=examples),
+        "sharded_sig")
+
+
+@plan_cache
+def _sharded_proj(bm, with_lengths: bool, words: tuple, d: int,
+                  engine: str, backward: str, max_rows: int, stream: bool,
+                  stream_stride: int, precision: str) -> _Sharded:
+    """The projected-signature cell per rank (the hybrid engine too)."""
+    return _Sharded(functools.partial(
+        _projected_local, wplan=_plan_for_words(words, d), engine=engine,
+        backward=backward, max_rows=max_rows, stream=stream,
+        stream_stride=stream_stride, precision=precision), "sharded_proj")
+
+
+@plan_cache
+def _sharded_proj_fwd(bm, with_lengths: bool, words: tuple, d: int,
+                      engine: str, tplan, max_rows: int,
+                      precision: str) -> _Sharded:
+    """:func:`projected_forward_only`'s body per rank (a caller's
+    TiledPlan as it is)."""
+    return _Sharded(functools.partial(
+        _projected_fwd_local, wplan=_plan_for_words(words, d), engine=engine,
+        tplan=tplan, max_rows=max_rows, precision=precision),
+        "sharded_proj_fwd")
+
+
 @_obs_entry
 def signature(increments, depth: int, *, backend: str = "auto",
               backward: str = "inverse", split: int | None = None,
@@ -429,7 +559,7 @@ def signature(increments, depth: int, *, backend: str = "auto",
     examples a block; on a miss the planner chooses.
     """
     dev = resolve_device(device)
-    increments = torch.as_tensor(increments, device=dev)
+    increments = _as_batch(increments, dev)
     engine = resolve_backend(backend, dev)
     _check_backward(backward)
     precision = canon_precision(precision)
@@ -460,11 +590,19 @@ def signature(increments, depth: int, *, backend: str = "auto",
                   "shared memory a block of the resolved launch plan takes",
                   ("op",)).set(plan_launch(B, d_eff, depth, split,
                                            examples).smem, op="signature")
-    return _signature_local(increments, lengths, depth=depth, engine=engine,
-                            backward=backward, split=split,
-                            time_chunks=time_chunks, stream=stream,
-                            stream_stride=stream_stride, precision=precision,
-                            transform=spec, x0=x0, examples=examples)
+    mb = _mesh_batch()
+    if mb is None:
+        return _signature_local(increments, lengths, depth=depth,
+                                engine=engine, backward=backward, split=split,
+                                time_chunks=time_chunks, stream=stream,
+                                stream_stride=stream_stride,
+                                precision=precision, transform=spec, x0=x0,
+                                examples=examples)
+    fn = _sharded_sig(mb[0], lengths is not None, depth, engine, backward,
+                      split, time_chunks, stream, stream_stride, precision,
+                      examples)
+    return _apply_sharded(fn, mb[0], increments,
+                          _batch_lengths(lengths, B, dev), spec, x0)
 
 
 @_obs_entry
@@ -637,7 +775,7 @@ def _projected_args(increments, plan, backend: str, backward: str,
     """Validation shared by :func:`projected` and
     :func:`projected_forward_only`."""
     dev = resolve_device(device)
-    increments = torch.as_tensor(increments, device=dev)
+    increments = _as_batch(increments, dev)
     engine = "hybrid" if backend == "hybrid" else resolve_backend(backend,
                                                                   dev)
     _check_backward(backward)
@@ -707,10 +845,18 @@ def projected(increments, plan, *, backend: str = "auto",
         max_rows = max(p.closure_size for p in tplan.tiles)
     max_rows = _max_rows(max_rows, engine, increments, wplan, spec,
                          precision)
-    return _projected_local(increments, lengths, wplan=wplan, engine=engine,
-                            backward=backward, max_rows=max_rows,
-                            stream=stream, stream_stride=stream_stride,
-                            precision=precision, transform=spec, x0=x0)
+    mb = _mesh_batch()
+    if mb is None:
+        return _projected_local(increments, lengths, wplan=wplan,
+                                engine=engine, backward=backward,
+                                max_rows=max_rows, stream=stream,
+                                stream_stride=stream_stride,
+                                precision=precision, transform=spec, x0=x0)
+    fn = _sharded_proj(mb[0], lengths is not None, wplan.words, wplan.d,
+                       engine, backward, max_rows, stream, stream_stride,
+                       precision)
+    return _apply_sharded(fn, mb[0], increments, _batch_lengths(
+        lengths, increments.shape[0], increments.device), spec, x0)
 
 
 @_obs_entry
@@ -733,9 +879,26 @@ def projected_forward_only(increments, plan, *, backend: str = "auto",
     if tplan is None:
         max_rows = _max_rows(max_rows, engine, increments, wplan, spec,
                              precision)
+    mb = _mesh_batch()
+    if mb is None:
+        return _projected_fwd_local(increments, lengths, wplan=wplan,
+                                    engine=engine, tplan=tplan,
+                                    max_rows=max_rows, precision=precision,
+                                    transform=spec, x0=x0)
+    fn = _sharded_proj_fwd(mb[0], lengths is not None, wplan.words, wplan.d,
+                           engine, tplan, max_rows, precision)
+    return _apply_sharded(fn, mb[0], increments, _batch_lengths(
+        lengths, increments.shape[0], increments.device), spec, x0)
+
+
+def _projected_fwd_local(increments: torch.Tensor, lengths, *,
+                         wplan: WordPlan, engine: str, tplan, max_rows,
+                         precision: str, transform=None,
+                         x0=None) -> torch.Tensor:
+    """Single-device body of :func:`projected_forward_only`."""
     fused = {}
-    if spec is not None:
-        f = _fused_inputs(increments, lengths, spec, x0, precision)
+    if transform is not None:
+        f = _fused_inputs(increments, lengths, transform, x0, precision)
         increments = f.increments
         if f.spec and engine != "cuda":  # torch and hybrid materialise
             increments = fused_augment(increments, f.taux, f.spec)
@@ -761,6 +924,16 @@ def projected_forward_only(increments, plan, *, backend: str = "auto",
 # weighted Gram product: word-blocked routes + closed-form product backward
 # ---------------------------------------------------------------------------
 
+def _gram_tile(Sx, Sy, w, engine: str, block_words: int,
+               tuned: dict) -> torch.Tensor:
+    """One (B_x, B_y) product: a ``sig_gram`` launch on the cuda engine,
+    the word-blocked plain product on the torch engine."""
+    if engine == "cuda":
+        return sig_gram(Sx, Sy, w, **tuned).to(
+            torch.promote_types(Sx.dtype, torch.float32))
+    return sig_gram_plain(Sx, Sy, w, block_words)
+
+
 class GramFunction(torch.autograd.Function):
     """G = S_x diag(w) S_yᵀ with the reference's closed-form VJP
     (``_gram_vjp``): products of (B, D) matrices only, so the backward too
@@ -769,10 +942,7 @@ class GramFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, Sx, Sy, w, engine, block_words, tuned):
         ctx.save_for_backward(Sx, Sy, w)
-        dt = torch.promote_types(Sx.dtype, torch.float32)
-        if engine == "cuda":
-            return sig_gram(Sx, Sy, w, **tuned).to(dt)
-        return sig_gram_plain(Sx, Sy, w, block_words)
+        return _gram_tile(Sx, Sy, w, engine, block_words, tuned)
 
     @staticmethod
     def backward(ctx, g):
@@ -785,6 +955,114 @@ class GramFunction(torch.autograd.Function):
         dSy = (g.T @ (x * v[None, :])).to(Sy.dtype)
         dw = ((g.T @ x) * y).sum(dim=0).to(w.dtype)
         return dSx, dSy, dw, None, None, None
+
+
+class GramRingFunction(torch.autograd.Function):
+    """The cross-rank Gram (the reference's ``_gram_ring``) over one rank's
+    blocks: ``sx`` (c_x, D) and ``sy`` (c_y, D), each the rank's rows
+    padded to the block.
+
+    X rows stay local; Y blocks rotate round the group to the left
+    neighbour in P steps.  Step s holds the block of rank (p + s) mod P,
+    posts the send/recv of the next block *before* launching its tile (one
+    ``sig_gram`` launch) and writes the tile at that block's origin
+    columns, so the transfer runs under the tile.  P − 1 sends of one
+    (c_y, D) block a forward: the whole of Y crosses the wire once, and no
+    rank holds more than two Y blocks and its (c_x, P·c_y) row block.
+
+    The backward is the reversed ring (blocks rotate right) with
+    :class:`GramFunction`'s closed-form products: dS_x accumulates
+    locally, and each Y block's cotangent travels with the block, summing
+    every rank's share, and arrives at its owner after P sends.  ``dw`` is
+    this rank's share (its rows of G): a replicated weight's gradient is
+    the sum over the ranks, as a parameter's is in the data-parallel
+    trainer."""
+
+    @staticmethod
+    def forward(ctx, sx, sy, w, group, engine, block_words, tuned):
+        P, p = dist.get_world_size(group), dist.get_rank(group)
+        cy = sy.shape[0]
+        G = sx.new_zeros((sx.shape[0], cy * P),
+                         dtype=torch.promote_types(sx.dtype, torch.float32))
+        cur = sy
+        C.LOG.mark("ring_start", tag="gram_ring")
+        for s in range(P):
+            nxt = C.RingShift([cur], group, tag="gram_ring", step=s) \
+                if s + 1 < P else None
+            C.LOG.mark("tile", tag="gram_ring", step=s)
+            o = (p + s) % P     # origin rank of the block held at step s
+            G[:, o * cy:(o + 1) * cy] = _gram_tile(sx, cur, w, engine,
+                                                   block_words, tuned)
+            if nxt is not None:
+                (cur,) = nxt.wait()
+                C.LOG.mark("wait", tag="gram_ring", step=s)
+        C.LOG.mark("ring_end", tag="gram_ring")
+        ctx.save_for_backward(sx, sy, w)
+        ctx.group = group
+        return G
+
+    @staticmethod
+    def backward(ctx, g):
+        sx, sy, w = ctx.saved_tensors
+        group = ctx.group
+        P, p = dist.get_world_size(group), dist.get_rank(group)
+        cy = sy.shape[0]
+        dt = torch.promote_types(torch.promote_types(sx.dtype, sy.dtype),
+                                 torch.promote_types(w.dtype, torch.float32))
+        g, x, v = g.to(dt), sx.to(dt), w.to(dt)
+        xw = x * v[None, :]
+        dsx = torch.zeros_like(x)
+        dw = torch.zeros_like(v)
+        acc = torch.zeros((cy, x.shape[1]), dtype=dt, device=x.device)
+        cur = sy
+        for s in range(P):
+            o = (p - s) % P     # origin rank of the block held at step s
+            nxt = C.RingShift([cur], group, direction=1, tag="gram_ring_bwd",
+                              step=s) if s + 1 < P else None
+            gs, y = g[:, o * cy:(o + 1) * cy], cur.to(dt)
+            dsx += gs @ (y * v[None, :])
+            acc += gs.T @ xw
+            dw += ((gs.T @ x) * y).sum(dim=0)
+            # the block's cotangent moves on with it; after the last step
+            # one more send delivers each to its owner
+            (acc,) = C.RingShift([acc], group, direction=1,
+                                 tag="gram_ring_bwd", step=s).wait()
+            if nxt is not None:
+                (cur,) = nxt.wait()
+        return (dsx.to(sx.dtype), acc.to(sy.dtype), dw.to(w.dtype), None,
+                None, None, None)
+
+
+def _gram_ring(bm, P: int, Sx, Sy, weights, engine: str, block_words: int,
+               precision: str):
+    """``gram`` under the mesh: the ring over this rank's blocks, its true
+    (B_x/P, B_y) rows returned as a Shard(0) DTensor.  Publishes the
+    reference's analytic ring counters at dispatch."""
+    Bx, By, D = Sx.shape[0], Sy.shape[0], Sx.shape[1]
+    # the tiles the ring launches are the per-shard ones: key the tuned
+    # cell on those and on P
+    tuned = autotune.partition(autotune.lookup(
+        "gram_ring", engine=engine, D=D, Bx=-(-Bx // P), By=-(-By // P), P=P,
+        precision=precision), "gram_ring")
+    sx = quantise_increments(DB.local_rows(Sx, bm), precision)
+    sy = quantise_increments(DB.local_rows(Sy, bm), precision)
+    if obs.REGISTRY._enabled:
+        # P - 1 sends of one (B_y,pad / P, D) block a forward (the last
+        # block held is consumed, not forwarded)
+        shard_bytes = sy.shape[0] * D * sy.element_size()
+        obs.counter("pathsig_ring_ppermute_total",
+                    "ppermute steps issued by the gram ring",
+                    ("ctx",)).inc(P - 1, ctx="eager")
+        obs.counter("pathsig_ring_wire_bytes_total",
+                    "analytic wire bytes moved by gram-ring ppermutes "
+                    "(per device)", ("ctx",)).inc((P - 1) * shard_bytes,
+                                                  ctx="eager")
+    with obs.span("kernels.gram_ring", devices=P,
+                  shapes=obs.shape_key(Sx, Sy)):
+        G = GramRingFunction.apply(sx, sy, weights, bm.get_group(), engine,
+                                   block_words, tuned)
+    _, n, _ = DB.rows_of(Bx, P, bm.get_local_rank())
+    return DB.from_rows(G[:n, :By], bm, Bx)
 
 
 @_obs_entry
@@ -805,10 +1083,15 @@ def gram(Sx, Sy, weights, *, backend: str = "auto",
     64 rows of S_x by 128 of S_y), its split of the words and its copy
     width from the shape and the pointers (``kernels/sig_gram.py``), or
     takes the autotuner's ``{rows, slice_words}`` for the cell.
+
+    Under an installed ``sharding_ctx(mesh)`` that shards the "batch"
+    logical axis, the product runs as the cross-rank ring of
+    :class:`GramRingFunction` (both operands batch-sharded, zero rows
+    padding them to a multiple of the shard count), and the result is a
+    (B_x, B_y) DTensor placed Shard(0).
     """
     dev = resolve_device(device)
-    Sx = torch.as_tensor(Sx, device=dev)
-    Sy = torch.as_tensor(Sy, device=dev)
+    Sx, Sy = _as_batch(Sx, dev), _as_batch(Sy, dev)
     weights = torch.as_tensor(weights, device=dev)
     # the gram product has no dense/word split: hybrid is the torch engine
     engine = "torch" if backend == "hybrid" else resolve_backend(backend, dev)
@@ -824,6 +1107,10 @@ def gram(Sx, Sy, weights, *, backend: str = "auto",
                     ("by_tile", 128 if by_tile is None else by_tile)):
         if v < 1:
             raise ValueError(f"{name} must be >= 1, got {v}")
+    mb = _mesh_batch()
+    if mb is not None:
+        return _gram_ring(mb[0], mb[1], Sx, Sy, weights, engine, block_words,
+                          precision)
     Sx = quantise_increments(Sx, precision)
     Sy = quantise_increments(Sy, precision)
     tuned = autotune.partition(autotune.lookup(

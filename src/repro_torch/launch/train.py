@@ -1,11 +1,19 @@
-"""Training launcher on one device.
+"""Training launcher, on one device or data-parallel over ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
         --reduced --steps 20 --batch 4 --seq 64 --ckpt-dir runs/ckpt \
         [--device cpu] [--loss sig_mmd --sig-channels 8 --sig-depth 3]
 
-``--device`` defaults to the CUDA card.  ``--mesh`` takes only ``1x1``:
-meshes are ROADMAP.md queue 1, item 15.  ``--loss sig_mmd`` trains the
+    PYTHONPATH=src torchrun --nproc-per-node=2 -m repro_torch.launch.train \
+        --arch qwen3-4b --reduced --mesh 2x1
+
+``--device`` defaults to the CUDA card (``cuda:LOCAL_RANK`` under
+torchrun).  ``--mesh DxM``: D ranks of data parallelism (the world must
+hold D ranks: torchrun's, or a process group the caller initialised, gloo
+on the CPU); every rank draws the same global batch and trains on its
+rows (:func:`repro_torch.train.place_batch`), and rank 0 prints and writes
+the checkpoints.  A model axis M > 1 is ROADMAP.md queue 1, item 15.
+``--loss sig_mmd`` trains the
 signature-MMD loss against a fixed sample of fBM reference paths (the
 port's ``hurst_dataset``, one path an example of ``--seq`` points and
 ``--sig-channels`` channels, scaled by 1/√seq as the learned path is);
@@ -14,28 +22,51 @@ port's ``hurst_dataset``, one path an example of ``--seq`` points and
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import models as M
 from ..checkpoint import Checkpointer, latest_step
 from ..configs import get_config, reduce_config, with_sig_head
 from ..data.pipeline import TokenStream, hurst_dataset
 from ..device import resolve_device
+from ..distributed import sharding_ctx
 from ..optim import adafactor, adamw, linear_warmup_cosine
 from ..optim.optimizers import named
-from ..train import make_train_step
+from ..train import make_train_step, place_batch, replicate_tree
+from .mesh import make_dev_mesh
 
 
 def parse_mesh(spec: str) -> tuple[int, ...]:
+    """``DxM`` -> (D, M); a model axis M > 1 raises (ROADMAP.md queue 1,
+    item 15: the port's meshes are data-parallel)."""
     dims = tuple(int(x) for x in spec.lower().split("x"))
-    if int(np.prod(dims)) != 1:
-        raise SystemExit(f"mesh {spec}: the port trains on one device "
-                         f"(--mesh 1x1); meshes are ROADMAP.md queue 1, "
-                         f"item 15")
+    if len(dims) != 2 or min(dims) < 1:
+        raise SystemExit(f"mesh {spec}: expected DATAxMODEL, e.g. 2x1")
+    if dims[1] != 1:
+        raise SystemExit(f"mesh {spec}: the port trains data-parallel only "
+                         f"(--mesh Dx1); a model axis is ROADMAP.md queue "
+                         f"1, item 15")
     return dims
+
+
+def build_mesh(dims: tuple[int, ...], device):
+    """The data-parallel mesh of ``--mesh Dx1`` (None for 1x1); under
+    torchrun (``WORLD_SIZE`` set) the process group is initialised here.
+    A world that does not hold D ranks is refused with the launch it
+    needs."""
+    if dims[0] == 1:
+        return None
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        return make_dev_mesh(dims[0], 1, device=device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {dims[0]}x1: {e}") from None
 
 
 def reference_paths(seed: int, batch: int, seq: int, channels: int,
@@ -72,21 +103,32 @@ def main(argv=None):
     ap.add_argument("--sig-depth", type=int, default=3)
     args = ap.parse_args(argv)
 
-    parse_mesh(args.mesh)
+    dims = parse_mesh(args.mesh)
+    if args.device is None and "LOCAL_RANK" in os.environ:
+        args.device = f"cuda:{os.environ['LOCAL_RANK']}"
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
+    mesh = build_mesh(dims, dev)
+    # every rank runs the same loop; rank 0 prints and writes
+    lead = mesh is None or dist.get_rank() == 0
+    log = print if lead else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
     if args.loss == "sig_mmd":
         cfg = with_sig_head(cfg, channels=args.sig_channels,
                             depth=args.sig_depth)
-    print(f"[train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
-          f"device={dev}, batch={args.batch}x{args.seq}, loss={args.loss}")
+    log(f"[train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
+        f"device={dev}, batch={args.batch}x{args.seq}, loss={args.loss}, "
+        f"mesh={args.mesh}")
 
     opt = (adamw if args.opt == "adamw" else adafactor)(
         lr=linear_warmup_cosine(args.lr, max(1, args.steps // 10),
                                 args.steps))
     params = M.init_params(args.seed, cfg, torch.float32, device=dev)
+    if mesh is not None:
+        replicate_tree(params, mesh)
     opt_state = opt.init(params)
     step_fn = make_train_step(cfg, opt, remat=args.remat,
                               microbatch=args.microbatch, loss=args.loss)
@@ -102,7 +144,7 @@ def main(argv=None):
             with torch.no_grad():
                 for k, t in restored.items():
                     tensors[k].copy_(t)
-            print(f"[train] resumed from step {start}")
+            log(f"[train] resumed from step {start}")
 
     stream = TokenStream(cfg.vocab_size, args.batch, args.seq, args.seed,
                          step=start, device=dev)
@@ -116,22 +158,27 @@ def main(argv=None):
         batch = next(stream)
         if paths is not None:
             batch["paths"] = paths
-        params, opt_state, m = step_fn(params, opt_state, batch)
+        if mesh is not None:
+            with sharding_ctx(mesh):
+                params, opt_state, m = step_fn(params, opt_state,
+                                               place_batch(batch, mesh))
+        else:
+            params, opt_state, m = step_fn(params, opt_state, batch)
         loss = float(m["loss"])
         dt = time.perf_counter() - t0
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"  step {step:>5} loss {loss:.4f} "
-                  f"|g| {float(m['grad_norm']):.3f} "
-                  f"{tokens_per_step/dt:,.0f} tok/s")
-        if ckpt and args.ckpt_every and step and \
+            log(f"  step {step:>5} loss {loss:.4f} "
+                f"|g| {float(m['grad_norm']):.3f} "
+                f"{tokens_per_step/dt:,.0f} tok/s")
+        if ckpt and lead and args.ckpt_every and step and \
                 step % args.ckpt_every == 0:
             ckpt.save(named(params), opt_state, step,
                       extra={"data": stream.state()})
-    if ckpt:
+    if ckpt and lead:
         ckpt.save(named(params), opt_state, args.steps,
                   extra={"data": stream.state()})
         ckpt.wait()
-    print("[train] done")
+    log("[train] done")
     return params, m
 
 

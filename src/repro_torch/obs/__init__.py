@@ -33,8 +33,8 @@ This package imports nothing from the rest of ``repro_torch``: every layer
 imports it.
 """
 from . import slo
-from .compile import (TRACE_COUNTER_NAME, count_trace, set_retrace_sink,
-                      shape_key)
+from .compile import (TRACE_COUNTER_NAME, count_trace, record_collectives,
+                      set_retrace_sink, shape_key)
 from .flight import (FLIGHT, FlightRecorder, disable_flight, dump_on_error,
                      enable_flight, flight_active)
 from .metrics import (DEFAULT_BUCKETS, DEFAULT_MAX_LABEL_SETS, REGISTRY,
@@ -61,6 +61,7 @@ __all__ = [
     "stop_trace", "trace_active", "trace_scope",
     # launch-shape accounting
     "TRACE_COUNTER_NAME", "shape_key", "count_trace", "set_retrace_sink",
+    "record_collectives",
     # SLOs
     "slo", "Slo", "SloResult", "SloBreach", "evaluate_values",
     "evaluate_snapshot", "evaluate_log", "breached", "report",

@@ -18,7 +18,7 @@ from __future__ import annotations
 from . import metrics
 
 __all__ = ["shape_key", "count_trace", "count_new_shape",
-           "TRACE_COUNTER_NAME", "set_retrace_sink"]
+           "TRACE_COUNTER_NAME", "set_retrace_sink", "record_collectives"]
 
 TRACE_COUNTER_NAME = "pathsig_jit_traces_total"
 
@@ -96,3 +96,19 @@ def count_new_shape(site: str, seen: set, key: tuple, *xs, **kxs) -> None:
         return
     seen.add(key)
     count_trace(site, *xs, **kxs)
+
+
+def record_collectives(site: str, stats) -> None:
+    """Publish a :class:`repro_torch.distributed.hlo.CollectiveStats` (from
+    ``collective_stats()``, the port's record of the collectives it
+    issued) as per-kind counters: ``pathsig_hlo_collectives_total{site=,
+    kind=}`` plus wire-byte totals, under the reference's names."""
+    c = metrics.counter(
+        "pathsig_hlo_collectives_total",
+        "collectives issued (the port's record of them)", ("site", "kind"))
+    b = metrics.counter(
+        "pathsig_hlo_collective_wire_bytes_total",
+        "wire bytes moved by the collectives issued", ("site", "kind"))
+    for kind, (count, _result_bytes, wire_bytes) in stats.by_kind.items():
+        c.inc(count, site=site, kind=kind)
+        b.inc(wire_bytes, site=site, kind=kind)

@@ -1,8 +1,7 @@
 """Dynamic batching for ragged signature serving.
 
-Port of ``repro.serve.batcher`` (one device; mesh placement is ROADMAP.md
-queue 1 item 15).  ``DynamicBatcher`` turns per-request traffic into
-micro-batches drawn from a bounded set of shapes:
+Port of ``repro.serve.batcher``.  ``DynamicBatcher`` turns per-request
+traffic into micro-batches drawn from a bounded set of shapes:
 
 1. requests are queued (:meth:`submit`) as (M_i+1, d) paths;
 2. :meth:`flush` packs them into length buckets on the
@@ -20,6 +19,14 @@ copy's event; at most ``max_in_flight`` computes are outstanding, the
 oldest retired by its event before the next launch.
 ``async_dispatch=False`` runs each micro-batch strictly in turn (copy,
 compute, next).
+
+With a ``mesh`` (or an installed ``sharding_ctx`` at construction) the
+batcher places its rungs across the mesh's ranks: every rank submits and
+flushes the same requests, each rung's row count is rounded up to a
+multiple of the batch-shard count, each rank copies and computes only its
+own rows (a batch DTensor placed ``Shard(0)``, so the engine's dispatch
+takes its mesh path), and the answers are gathered back so that every
+rank resolves every ticket.
 
 ``shapes_seen`` is the set of (padded_len, padded_batch) pairs fed to the
 engine; :meth:`stats` reports padding waste next to it, the flush-latency
@@ -43,8 +50,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+import contextlib
+
 from ..core import tensor_ops as tops
 from ..device import resolve_device
+from ..distributed import batch as DB
+from ..distributed.ctx import current_mesh, logical_axis_size, sharding_ctx
 from .. import obs
 from ..kernels.cache import plan_cache_info
 from ..obs import slo as slo_mod
@@ -75,6 +86,8 @@ class DynamicBatcher:
     growth: float = 2.0               # ladder growth factor
     max_batch: int = 64               # top rung of the batch ladder
     ladder: Optional[np.ndarray] = None   # explicit rungs override
+    mesh: Optional[object] = None     # DeviceMesh: place rungs across ranks
+    mesh_rules: Optional[dict] = None     # logical-axis rule overrides
     slos: Optional[tuple] = None      # health() objectives (None -> defaults)
     latency_window: int = 1024        # recent flush latencies kept for health
     async_dispatch: bool = True       # stage the next rungs while one runs
@@ -89,6 +102,8 @@ class DynamicBatcher:
         self.ladder = np.asarray(self.ladder, np.int64)
         self.max_len = int(self.ladder[-1])
         self.device = resolve_device(self.device)
+        if self.mesh is None:  # adopt an installed context at build time
+            self.mesh = current_mesh()
         if self.slos is None:
             self.slos = slo_mod.batcher_slos()
         # host-side latency record, so health() needs no metrics registry
@@ -107,6 +122,33 @@ class DynamicBatcher:
         self.true_steps = 0           # Σ true increments served
         self.padded_rows = 0          # Σ batch rows fed to the engine
         self.true_rows = 0            # Σ real requests served
+
+    # -- mesh placement ----------------------------------------------------
+
+    def _mesh_scope(self):
+        """Context manager installing this batcher's mesh (a no-op when the
+        batcher is single-device)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sharding_ctx(self.mesh, self.mesh_rules)
+
+    def _batch_shards(self) -> int:
+        """Shards of the "batch" logical axis under this batcher's own mesh
+        (fixed at construction, never the ambient context, so the rung
+        rounding and ``stats()`` cannot drift with the call site)."""
+        if self.mesh is None:
+            return 1
+        with self._mesh_scope():
+            return logical_axis_size("batch")
+
+    def _batch_mesh(self):
+        """(1-D batch mesh, shard count), or None off-mesh or with one
+        shard."""
+        if self.mesh is None:
+            return None
+        from ..kernels.ops import _mesh_batch
+        with self._mesh_scope():
+            return _mesh_batch()
 
     def submit(self, path) -> int:
         """Queue one (M_i+1, d) path; returns the ticket :meth:`flush`
@@ -136,6 +178,7 @@ class DynamicBatcher:
         """Bucket + split the queue into host-side micro-batches
         [(rung, B_pad, part, RaggedPaths on the CPU)], with shape/padding
         accounting applied."""
+        shards = self._batch_shards()
         lengths = np.asarray([r.length for r in queue], np.int64)
         which = assign_buckets(lengths, self.ladder)
         groups = []
@@ -149,6 +192,9 @@ class DynamicBatcher:
                 rp = RaggedPaths.from_list([r.path for r in part],
                                            pad_to=rung, device="cpu")
                 B_pad = batch_rung(len(part), self.max_batch)
+                # round the rung up to a multiple of the mesh's batch
+                # shards so every rank owns the same number of rows
+                B_pad = -(-B_pad // shards) * shards
                 self.shapes_seen.add((rung, B_pad))
                 self.padded_steps += rung * B_pad
                 self.true_steps += int(sum(r.length for r in part))
@@ -159,9 +205,14 @@ class DynamicBatcher:
 
     def _place(self, rp: RaggedPaths, side) -> tuple:
         """Stage one host micro-batch on the device: (RaggedPaths, event).
-        On CUDA with a side stream the batch is pinned and copied there,
-        and the event marks the copy's end; otherwise the copy is in order
-        and the event is None."""
+        Under a mesh only this rank's rows are staged.  On CUDA with a side
+        stream the batch is pinned and copied there, and the event marks
+        the copy's end; otherwise the copy is in order and the event is
+        None."""
+        mb = self._batch_mesh()
+        if mb is not None:
+            rp = RaggedPaths(DB.local_rows(rp.values, mb[0]),
+                             DB.local_rows(rp.lengths, mb[0]))
         if side is None:
             return RaggedPaths(rp.values.to(self.device),
                                rp.lengths.to(self.device)), None
@@ -212,10 +263,16 @@ class DynamicBatcher:
                 # until the compute stream is done with it
                 rp.values.record_stream(main)
                 rp.lengths.record_stream(main)
-            rung, B_pad = rp.values.shape[1] - 1, rp.values.shape[0]
-            with obs.span("serve.batcher.rung", rung=rung, B_pad=B_pad,
-                          rows=len(part), prefetched=len(placed),
-                          clock="host: the launches, not the device work"):
+            rung, B_pad = groups[i][0], groups[i][1]
+            mb = self._batch_mesh()
+            if mb is not None:   # this rank's rows of the rung
+                rp = RaggedPaths(DB.from_rows(rp.values, mb[0], B_pad),
+                                 DB.from_rows(rp.lengths, mb[0], B_pad))
+            with self._mesh_scope(), \
+                    obs.span("serve.batcher.rung", rung=rung, B_pad=B_pad,
+                             rows=len(part), prefetched=len(placed),
+                             clock="host: the launches, not the device "
+                                   "work"):
                 res = self.compute(rp)
             self.batches += 1
             results.append((part, res))
@@ -238,6 +295,7 @@ class DynamicBatcher:
         t_flush = time.perf_counter()
         with obs.span("serve.batcher.flush", requests=len(queue)):
             for part, res in self._run_groups(self._pack_groups(queue)):
+                res = DB.gather_rows(res, tag="batcher")  # every ticket
                 for row, req in enumerate(part):
                     out[req.ticket] = res[row]
         self._flush_latencies.append(time.perf_counter() - t_flush)
@@ -276,7 +334,9 @@ class DynamicBatcher:
     def stats(self) -> dict:
         """Shape-count + padding-waste accounting for the traffic so far,
         the recent flush latencies and the prefetch counts, with the
-        reference's keys (and ``batches``)."""
+        reference's keys (and ``batches``); ``devices`` is the mesh's
+        batch-shard count and ``rows_per_device`` each rank's rows."""
+        shards = self._batch_shards()
         return {
             "flush_p50_s": self._flush_pctl(50),
             "flush_p99_s": self._flush_pctl(99),
@@ -289,8 +349,8 @@ class DynamicBatcher:
             "true_steps": self.true_steps,
             "padding_overhead": (self.padded_steps / self.true_steps
                                  if self.true_steps else 0.0),
-            "devices": 1,
-            "rows_per_device": self.padded_rows,
+            "devices": shards,
+            "rows_per_device": self.padded_rows // shards,
             "occupancy": (self.true_rows / self.padded_rows
                           if self.padded_rows else 0.0),
             "async_dispatch": self.async_dispatch,
@@ -323,13 +383,15 @@ class DynamicBatcher:
         spec = as_transform(transform)
 
         def compute(rp: RaggedPaths) -> torch.Tensor:
-            incs = tops.path_increments(rp.values)
-            x0 = rp.values[:, 0] if spec is not None and spec.basepoint \
-                else None
+            # under a mesh rp holds batch DTensors: each rank differences
+            # its own rows
+            vals = DB.to_local(rp.values)
+            incs = DB.rows_like(tops.path_increments(vals), rp.values)
+            x0 = DB.rows_like(vals[:, 0], rp.values) \
+                if spec is not None and spec.basepoint else None
             return ops.signature(incs, depth, backend=backend,
                                  lengths=rp.lengths, transform=spec, x0=x0,
-                                 precision=precision,
-                                 device=rp.values.device)
+                                 precision=precision, device=vals.device)
 
         return cls(compute, d, max_len, device=device, **kw)
 
@@ -352,7 +414,8 @@ class DynamicBatcher:
         from ..sigkernel import gram_diag, krr_predict
 
         def compute(rp: RaggedPaths) -> torch.Tensor:
-            incs = tops.path_increments(rp.values)
+            incs = DB.rows_like(
+                tops.path_increments(DB.to_local(rp.values)), rp.values)
             S = ops.signature(incs, engine.depth, backend=engine.backend,
                               lengths=rp.lengths, precision=engine.precision,
                               device=engine.device)
@@ -360,6 +423,10 @@ class DynamicBatcher:
                          backend=engine.backend,
                          block_words=engine.block_words,
                          precision=engine.precision, device=engine.device)
+            # under a mesh S and K are this rank's rows (as DTensors)
+            return DB.rows_like(finish(DB.to_local(S), DB.to_local(K)), K)
+
+        def finish(S: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
             if mode == "predict":
                 return krr_predict(K, engine.alpha)
             if engine.normalize:

@@ -1,9 +1,9 @@
 """Pooled multi-tenant session layer: many live signature streams in ONE
 struct-of-arrays device pool.
 
-Port of ``repro.serve.sessions`` (one device; mesh placement is ROADMAP.md
-queue 1 item 15).  ``SessionStore`` keeps every tenant's window signature
-as a row of one :class:`repro_torch.core.stream.StreamCarry` on the device:
+Port of ``repro.serve.sessions``.  ``SessionStore`` keeps every tenant's
+window signature as a row of one :class:`repro_torch.core.stream.StreamCarry`
+on the device (batch-sharded across the ranks of a mesh, below):
 
 - **Pool** — (N, D_sig) signatures, (N, R, d) rings and per-row
   ``length`` / ``end`` / ``valid`` lanes.  Slots are recycled through a
@@ -33,6 +33,16 @@ as a row of one :class:`repro_torch.core.stream.StreamCarry` on the device:
   the reference's format; :meth:`restore` brings every session back
   bit-identically, from a checkpoint of either package.
 
+- **Mesh** — with ``mesh=`` (or an installed ``sharding_ctx`` at
+  construction) the pool is split over the mesh's batch shards: rank r
+  holds rows [r·N/P, (r+1)·N/P) (pool sizes are rounded to a multiple of
+  P), every rank runs the same calls (SPMD) with the same host mirrors,
+  and each update runs on the rank that owns the row, with no
+  communication.  Reads of rows (:meth:`features`, :meth:`block_view`,
+  the streamed features of :meth:`extend_block`) add the owners' rows
+  over the ranks; growing the pool and :meth:`checkpoint` gather it;
+  :meth:`restore` lays a checkpoint out on a mesh of any size.
+
 The host mirrors (``length``, ``end``, ``valid``, generations) are the
 truth the scheduler reads: the flush path never reads a device tensor
 back.  Time is a *logical clock*: every flush advances ``now`` by 1.0, and
@@ -41,6 +51,7 @@ only for the staleness numbers of :meth:`stats`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -53,7 +64,12 @@ from ..checkpoint import Checkpointer
 from ..convert import backend_from_reference, dtype_from_reference
 from ..core.stream import (SignatureStream, StreamCarry, stream_extend,
                            stream_init, stream_rolling_drop, stream_take)
+from ..core.words import sig_dim
 from ..device import resolve_device
+from ..distributed import batch as DB
+from ..distributed import collectives as C
+from ..distributed.ctx import (current_mesh, logical_axis_size,
+                               named_sharding, no_mesh, sharding_ctx)
 from .. import obs
 from ..kernels.cache import plan_cache_info
 from ..obs import slo as slo_mod
@@ -84,6 +100,13 @@ def _pctl(sample, q: float) -> float:
     if a.size == 0:
         return 0.0
     return float(np.percentile(a, q))
+
+
+def _take_rows(sub: StreamCarry, pos: np.ndarray) -> StreamCarry:
+    """The rows ``pos`` of a sub-carry."""
+    idx = torch.from_numpy(np.asarray(pos, np.int64)).to(sub.sig.device)
+    return dataclasses.replace(sub, **{k: getattr(sub, k).index_select(0, idx)
+                                       for k in _LANES})
 
 
 def _pow2(n: int) -> int:
@@ -120,6 +143,9 @@ class SessionStore:
                     CUDA kernels on a CUDA device, the torch engine on the
                     CPU) and the pool's float dtype.
     device          where the pool lives (default CUDA).
+    mesh            place the pool batch-sharded across this mesh's ranks
+                    (or the ambient ``sharding_ctx`` at construction);
+                    ``mesh_rules`` overrides its logical-axis rules.
     """
 
     def __init__(self, d: int, depth: int, *, ring_capacity: int = 0,
@@ -129,7 +155,8 @@ class SessionStore:
                  max_rows: int = 4096, backend: str = "auto",
                  lru_evict: bool = True, dtype=torch.float32,
                  staleness_window: int = 100_000,
-                 slos: Optional[tuple] = None, device=None):
+                 slos: Optional[tuple] = None, device=None, mesh=None,
+                 mesh_rules: Optional[dict] = None):
         if d < 1 or depth < 1:
             raise ValueError(f"need d >= 1 and depth >= 1, got {d}, {depth}")
         if ring_capacity < 0:
@@ -147,13 +174,20 @@ class SessionStore:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.slos = slo_mod.session_slos() if slos is None else tuple(slos)
+        self.mesh = mesh if mesh is not None else current_mesh()
+        self.mesh_rules = mesh_rules
+        mb = self._batch_mesh()
+        self._bm = None if mb is None else mb[0]
 
         n0 = _pow2(initial_sessions)
         if max_sessions is not None and n0 > _pow2(max_sessions):
             n0 = _pow2(max_sessions)
+        n0 = self._round(n0)
+        self._n = n0                        # pool rows over every rank
+        # this rank's block of the pool (all of it off-mesh)
         self._carry: StreamCarry = stream_init(
-            n0, d, depth, capacity=ring_capacity, dtype=dtype,
-            device=self.device)
+            n0 // self._batch_shards(), d, depth, capacity=ring_capacity,
+            dtype=dtype, device=self.device)
 
         # host mirrors: the schedulable truth (the device lanes are read
         # only by the pool updates themselves)
@@ -163,7 +197,7 @@ class SessionStore:
         self._end = np.zeros(n0, np.int64)
         self._generation = np.zeros(n0, np.int64)
         self._last_seen = np.zeros(n0, np.float64)
-        self._free: list[int] = list(range(n0 - 1, -1, -1))
+        self._free: list[int] = self._free_order(0, n0)
         self._pending: dict[int, _Pending] = {}
         self._auto_sid = 0
 
@@ -178,17 +212,101 @@ class SessionStore:
         self.evictions = {"explicit": 0, "ttl": 0, "lru": 0}
         self.dropped_ticks = 0              # queued ticks lost to eviction
 
+    # -- mesh placement ----------------------------------------------------
+
+    def _mesh_scope(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sharding_ctx(self.mesh, self.mesh_rules)
+
+    def _batch_shards(self) -> int:
+        if self.mesh is None:
+            return 1
+        with self._mesh_scope():
+            return logical_axis_size("batch")
+
+    def _batch_mesh(self):
+        if self.mesh is None:
+            return None
+        from ..kernels.ops import _mesh_batch
+        with self._mesh_scope():
+            return _mesh_batch()
+
+    def _round(self, n: int) -> int:
+        """A pool size rounded up to a multiple of the batch shards."""
+        P = self._batch_shards()
+        return -(-n // P) * P
+
+    def _pool_shardings(self) -> Optional[StreamCarry]:
+        """Batch-sharded placement of every pool lane (None off-mesh)."""
+        if self.mesh is None:
+            return None
+        with self._mesh_scope():
+            return StreamCarry(
+                sig=named_sharding("batch", None),
+                ring=named_sharding("batch", None, None),
+                length=named_sharding("batch"), end=named_sharding("batch"),
+                valid=named_sharding("batch"), d=self.d, depth=self.depth)
+
+    def _free_order(self, lo: int, hi: int) -> list[int]:
+        """Free slots [lo, hi) as a stack (popped from the end): lowest
+        first off-mesh; under a mesh the pops take each rank's block in
+        turn, so new sessions spread over the ranks that update them."""
+        per = self._n // self._batch_shards()
+        return sorted(range(lo, hi), key=lambda s: (s % per, s // per),
+                      reverse=True)
+
+    def _owned(self, slots: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """-> (positions in ``slots`` of the rows this rank holds, their
+        rows in its block); every position off-mesh."""
+        slots = np.asarray(slots, np.int64)
+        if self._bm is None:
+            return np.arange(len(slots)), slots
+        per = self._n // self._bm.size()
+        pos = np.nonzero(slots // per == self._bm.get_local_rank())[0]
+        return pos, slots[pos] % per
+
+    def _add_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """Rows that their owners filled (zeros elsewhere) made whole on
+        every rank (identity off-mesh)."""
+        if self._bm is None:
+            return t
+        return C.all_reduce_(t, self._bm.get_group(), tag="sessions")
+
+    def _gathered(self) -> StreamCarry:
+        """The whole pool on every rank (this rank's block off-mesh)."""
+        if self._bm is None:
+            return self._carry
+        group = self._bm.get_group()
+
+        def whole(a: torch.Tensor) -> torch.Tensor:
+            # gloo has no bool collectives: valid travels as uint8
+            b = a.to(torch.uint8) if a.dtype == torch.bool else a
+            out = C.all_gather(b, group, tag="sessions")
+            return out.to(a.dtype)
+
+        return dataclasses.replace(
+            self._carry, **{k: whole(getattr(self._carry, k))
+                            for k in _LANES})
+
     # -- pool views --------------------------------------------------------
 
     @property
     def pool(self) -> StreamCarry:
         """The live struct-of-arrays carry.  Read-only by convention: its
-        lanes are updated in place, so clone what must not change."""
-        return self._carry
+        lanes are updated in place, so clone what must not change.  Under
+        a mesh the lanes are DTensors placed ``Shard(0)`` (each rank's
+        block)."""
+        if self._bm is None:
+            return self._carry
+        return dataclasses.replace(
+            self._carry, **{k: DB.from_rows(getattr(self._carry, k),
+                                            self._bm, self._n)
+                            for k in _LANES})
 
     @property
     def pool_size(self) -> int:
-        return self._carry.size
+        return self._n
 
     def __len__(self) -> int:
         return len(self._ids)
@@ -289,8 +407,9 @@ class SessionStore:
             handles.append(SessionHandle(sid, slot,
                                          int(self._generation[slot])))
         self.created += len(handles)
-        if slots:
-            self._reset_rows(self._index(np.asarray(slots)))
+        local = self._owned(np.asarray(slots, np.int64))[1]
+        if len(local):
+            self._reset_rows(self._index(local))
         return handles
 
     def _take_slot(self, now: float) -> int:
@@ -310,29 +429,37 @@ class SessionStore:
                     f"session pool full ({len(self._ids)} sessions, "
                     f"max_sessions={self.max_sessions}) and lru_evict is off")
         if not self._free:
-            self._grow(2 * self._carry.size)
+            self._grow(2 * self._n)
         return self._free.pop()
 
     def _grow(self, new_n: int) -> None:
-        """Double the pool: copy rows into a fresh (new_n, ...) carry."""
-        new_n = max(_pow2(new_n), self._carry.size * 2)
-        old_n = self._carry.size
+        """Double the pool: copy rows into a fresh (new_n, ...) carry.
+        Under a mesh the blocks change owners: the pool is gathered and
+        each rank keeps its new block."""
+        old_n = self._n
+        new_n = self._round(max(_pow2(new_n), old_n * 2))
+        P = self._batch_shards()
+        start = 0 if self._bm is None else \
+            self._bm.get_local_rank() * (new_n // P)
+        per = new_n // P
+        full = self._gathered()
 
         def grown(a: torch.Tensor) -> torch.Tensor:
-            out = a.new_zeros((new_n, *a.shape[1:]))
-            out[:old_n] = a
+            out = a.new_zeros((per, *a.shape[1:]))
+            keep = max(0, min(per, old_n - start))
+            out[:keep] = a[start:start + keep]
             return out
 
         with torch.no_grad():
             self._carry = dataclasses.replace(
-                self._carry, **{k: grown(getattr(self._carry, k))
-                                for k in _LANES})
+                self._carry, **{k: grown(getattr(full, k)) for k in _LANES})
+        self._n = new_n
         for arr in ("_valid", "_length", "_end", "_generation", "_last_seen"):
             old = getattr(self, arr)
             new = np.zeros(new_n, old.dtype)
             new[:old_n] = old
             setattr(self, arr, new)
-        self._free = list(range(new_n - 1, old_n - 1, -1)) + self._free
+        self._free = self._free_order(old_n, new_n) + self._free
         self._pool_sizes.append(new_n)
 
     def evict(self, session: Union[Sid, SessionHandle], *,
@@ -364,9 +491,9 @@ class SessionStore:
                 obs.counter("pathsig_sessions_dropped_ticks_total",
                             "queued ticks lost to eviction"
                             ).inc(dropped_ticks)
+        local = self._owned(np.asarray(slots, np.int64))[1]
         with torch.no_grad():
-            self._carry.valid.index_fill_(0, self._index(np.asarray(slots)),
-                                          False)
+            self._carry.valid.index_fill_(0, self._index(local), False)
 
     def sweep(self, *, now: Optional[float] = None) -> int:
         """Evict sessions idle for more than ``ttl`` (no-op without one).
@@ -496,7 +623,7 @@ class SessionStore:
                         ).inc(applied)
             obs.gauge("pathsig_sessions_pool_occupancy",
                       "live sessions / pool slots").set(
-                len(self._ids) / self._carry.size)
+                len(self._ids) / self._n)
             obs.gauge("pathsig_sessions_rung_shapes",
                       "distinct (tick rung, row rung) flush shapes so far"
                       ).set(len(self._flush_shapes))
@@ -525,17 +652,15 @@ class SessionStore:
             for off in range(0, len(sel), self.max_rows):
                 part = sel[off:off + self.max_rows]
                 B = batch_rung(len(part), self.max_rows)
+                # round the rung up to a multiple of the batch shards
+                B = self._round(B)
                 incs = np.zeros((B, int(rung), self.d), np.float32)
                 counts = np.zeros(B, np.int32)
                 for i, slot in enumerate(part):
                     m = wave[slot].shape[0]
                     incs[i, :m] = wave[slot]
                     counts[i] = m
-                # padding rows point one past the pool: the gather clamps
-                # them with count 0 (pass-through), the write-back drops them
-                idx = np.full(B, self._carry.size, np.int64)
-                idx[:len(part)] = part
-                self._run_flush_step(idx, incs, counts, len(part))
+                self._run_flush_step(part, incs, counts)
                 self._length[part] += counts[:len(part)]
                 if self.ring_capacity:
                     self._end[part] = (self._end[part] + counts[:len(part)]) \
@@ -543,31 +668,59 @@ class SessionStore:
                 applied += int(counts.sum())
                 self._flush_shapes.add((int(rung), B))
                 self._new_shape("session_flush", ("flush", int(rung), B,
-                                                  self._carry.size))
+                                                  self._n))
         self.updates += applied
         return applied
 
-    def _run_flush_step(self, idx: np.ndarray, incs: np.ndarray,
-                        counts: np.ndarray, n: int) -> None:
-        """One bucket: one host→device copy each of ``idx``, ``incs`` and
-        ``counts``; gather, one extend, write the ``n`` real rows back."""
+    def _run_flush_step(self, part: np.ndarray, incs: np.ndarray,
+                        counts: np.ndarray) -> None:
+        """One bucket of the rows ``part`` (``incs`` / ``counts`` padded to
+        the rung): one host→device copy each of the index, increments and
+        counts; gather, one extend, write the real rows back.  Under a mesh
+        each rank runs the rows it holds, padded up the row ladder."""
+        pos, local = self._owned(part)
+        n = len(pos)
+        if self._bm is not None:
+            if not n:
+                return
+            B = batch_rung(n, self.max_rows)
+            incs = np.concatenate([incs[pos], np.zeros(
+                (B - n,) + incs.shape[1:], np.float32)])
+            counts = np.concatenate([counts[pos],
+                                     np.zeros(B - n, counts.dtype)])
+        # padding rows point one past the block: the gather clamps them
+        # with count 0 (pass-through), the write-back drops them
+        idx = np.full(incs.shape[0], self._carry.size, np.int64)
+        idx[:n] = local
         idx_t = self._index(idx)
         sub = stream_take(self._carry, idx_t)
-        sub = stream_extend(sub, torch.from_numpy(incs).to(self.device),
-                            counts=torch.from_numpy(counts).to(self.device),
-                            backend=self.backend)
+        with no_mesh():     # this rank's block: the single-device cell
+            sub = stream_extend(
+                sub, torch.from_numpy(incs).to(self.device),
+                counts=torch.from_numpy(counts).to(self.device),
+                backend=self.backend)
         self._write_rows(idx_t, sub, n)
 
     # -- reads -------------------------------------------------------------
 
+    def _rows(self, lane: str, slots: np.ndarray) -> torch.Tensor:
+        """(len(slots), ...) rows of one lane: gathered from the block, or
+        under a mesh filled by their owners and added over the ranks."""
+        a = getattr(self._carry, lane)
+        pos, local = self._owned(slots)
+        if self._bm is None:
+            return a.index_select(0, self._index(local))
+        out = a.new_zeros((len(slots),) + tuple(a.shape[1:]))
+        out[self._index(pos)] = a.index_select(0, self._index(local))
+        return self._add_over_ranks(out)
+
     def features(self, session: Union[Sid, SessionHandle]) -> torch.Tensor:
         """(D_sig,) current window signature of one session (a copy)."""
-        return self._carry.sig[self.lookup(session).slot].clone()
+        return self._rows("sig", np.asarray([self.lookup(session).slot]))[0]
 
     def block_features(self, sessions) -> torch.Tensor:
         """(B, D_sig) gathered signatures for a block of sessions."""
-        return self._carry.sig.index_select(
-            0, self._index(self._slots_of(sessions)))
+        return self._rows("sig", self._slots_of(sessions))
 
     def length(self, session: Union[Sid, SessionHandle]) -> int:
         return int(self._length[self.lookup(session).slot])
@@ -580,10 +733,8 @@ class SessionStore:
         if len(slots) and (np.any(lens != lens[0]) or np.any(ends != ends[0])):
             raise ValueError("block_view needs uniform occupancy across the "
                              "block (use features()/length() per session)")
-        idx = self._index(slots)
         return SignatureStream(
-            sig=self._carry.sig.index_select(0, idx),
-            ring=self._carry.ring.index_select(0, idx),
+            sig=self._rows("sig", slots), ring=self._rows("ring", slots),
             length=int(lens[0]) if len(slots) else 0,
             end=int(ends[0]) if len(slots) else 0,
             d=self.d, depth=self.depth)
@@ -612,7 +763,8 @@ class SessionStore:
                            device=dev),
             valid=torch.ones((B,), dtype=torch.bool, device=dev),
             d=self.d, depth=self.depth)
-        self._write_rows(self._index(slots), sub, B)
+        pos, local = self._owned(slots)
+        self._write_rows(self._index(local), _take_rows(sub, pos), len(pos))
         self._length[slots] = int(state.length)
         self._end[slots] = int(state.end)
 
@@ -657,16 +809,29 @@ class SessionStore:
                     f"extending by {m} would hold {worst + m} increments in "
                     f"a ring of capacity {R}; rolling_drop at least "
                     f"{worst + m - R} first")
-        idx = self._index(slots)
-        # uniform chunks: the streamed cell takes no per-row counts
-        out = stream_extend(stream_take(self._carry, idx), increments,
-                            backend=self.backend, backward=backward,
-                            return_stream=return_stream,
-                            stream_stride=stream_stride)
-        sub, feats = out if return_stream else (out, None)
-        self._write_rows(idx, sub, len(slots))
+        pos, local = self._owned(slots)
+        feats = None
+        if len(pos):   # under a mesh: the rows this rank holds
+            idx = self._index(local)
+            # uniform chunks: the streamed cell takes no per-row counts
+            with no_mesh():
+                out = stream_extend(stream_take(self._carry, idx),
+                                    increments[self._index(pos)]
+                                    if self._bm is not None else increments,
+                                    backend=self.backend, backward=backward,
+                                    return_stream=return_stream,
+                                    stream_stride=stream_stride)
+            sub, feats = out if return_stream else (out, None)
+            self._write_rows(idx, sub, len(pos))
+        if return_stream and self._bm is not None:
+            whole = increments.new_zeros(
+                (len(slots), -(-m // stream_stride),
+                 sig_dim(self.d, self.depth)))
+            if feats is not None:
+                whole[self._index(pos)] = feats.to(whole.dtype)
+            feats = self._add_over_ranks(whole)
         self._new_shape("session_extend",
-                        ("extend", len(slots), m, self._carry.size,
+                        ("extend", len(slots), m, self._n,
                          return_stream, stream_stride, backward,
                          self.backend))
         self._length[slots] += m
@@ -689,18 +854,22 @@ class SessionStore:
                              f"length {shortest}")
         if n == 0:
             return
-        idx = self._index(slots)
-        sub = stream_rolling_drop(stream_take(self._carry, idx), int(n))
-        self._write_rows(idx, sub, len(slots))
+        local = self._owned(slots)[1]
+        if len(local):
+            idx = self._index(local)
+            sub = stream_rolling_drop(stream_take(self._carry, idx), int(n))
+            self._write_rows(idx, sub, len(local))
         self._new_shape("session_drop",
-                        ("drop", len(slots), int(n), self._carry.size))
+                        ("drop", len(slots), int(n), self._n))
         self._length[slots] -= n
 
     def reset_block(self, sessions) -> None:
         """Zero a block's windows in place (lengths back to 0, handles stay
         valid)."""
         slots = self._slots_of(sessions)
-        self._reset_rows(self._index(slots))
+        local = self._owned(slots)[1]
+        if len(local):
+            self._reset_rows(self._index(local))
         self._length[slots] = 0
         self._end[slots] = 0
 
@@ -713,8 +882,8 @@ class SessionStore:
         stale = self._staleness
         return {
             "sessions": len(self._ids),
-            "pool_size": self._carry.size,
-            "occupancy": len(self._ids) / self._carry.size,
+            "pool_size": self._n,
+            "occupancy": len(self._ids) / self._n,
             "pool_sizes": list(self._pool_sizes),
             "created": self.created,
             "evictions": dict(self.evictions),
@@ -726,7 +895,7 @@ class SessionStore:
             "flush_shapes": sorted(self._flush_shapes),
             "compiled_shapes": len(self._shape_keys),
             "compute_cache": plan_cache_info(),
-            "devices": 1,
+            "devices": self._batch_shards(),
             "p50_staleness_s": _pctl(stale, 50),
             "p99_staleness_s": _pctl(stale, 99),
             "now": self.now,
@@ -747,7 +916,7 @@ class SessionStore:
             "kind": "session_store",
             "d": self.d, "depth": self.depth,
             "ring_capacity": self.ring_capacity,
-            "pool_size": self._carry.size,
+            "pool_size": self._n,
             "max_sessions": self.max_sessions, "ttl": self.ttl,
             "max_ticks": self.max_ticks, "max_rows": self.max_rows,
             "backend": self.backend, "lru_evict": self.lru_evict,
@@ -775,17 +944,27 @@ class SessionStore:
         exactly this state."""
         if self._pending:
             self.flush()
-        ckptr.save(self._carry, {}, step, extra=self._host_state())
+        carry = self._gathered()
+        if self._bm is None:
+            ckptr.save(carry, {}, step, extra=self._host_state())
+            return
+        # every rank holds the whole pool now; the first one writes it
+        if self._bm.get_local_rank() == 0:
+            ckptr.save(carry, {}, step, extra=self._host_state())
+            ckptr.wait()
+        torch.distributed.barrier(group=self._bm.get_group())
 
     @classmethod
     def restore(cls, ckptr: Checkpointer, *, step: Optional[int] = None,
-                backend: Optional[str] = None,
-                device=None) -> "SessionStore":
+                backend: Optional[str] = None, device=None, mesh=None,
+                mesh_rules: Optional[dict] = None) -> "SessionStore":
         """Rebuild a store from a checkpoint of either package,
         bit-identically: every session's signature, ring, occupancy, id,
         generation and the logical clock come back exactly.  A reference
         checkpoint's backend maps through
-        :func:`repro_torch.convert.backend_from_reference`."""
+        :func:`repro_torch.convert.backend_from_reference`.  ``mesh`` (or
+        the ambient context) lays the pool out over its ranks, whatever
+        the shard count it was written at."""
         extra = ckptr.peek_extra(step)
         if extra.get("kind") != "session_store":
             raise ValueError(f"checkpoint is not a session pool: {extra!r}")
@@ -797,11 +976,18 @@ class SessionStore:
             max_ticks=extra["max_ticks"], max_rows=extra["max_rows"],
             backend=backend or backend_from_reference(extra["backend"]),
             lru_evict=extra["lru_evict"],
-            dtype=dtype_from_reference(extra["dtype"]), device=device)
+            dtype=dtype_from_reference(extra["dtype"]), device=device,
+            mesh=mesh, mesh_rules=mesh_rules)
         if store.pool_size != extra["pool_size"]:
             raise ValueError(f"pool size {extra['pool_size']} does not "
                              f"round-trip (got {store.pool_size})")
-        store._carry, _, _ = ckptr.restore(store._carry, {}, step)
+        sh = store._pool_shardings() if store._bm is not None else None
+        carry, _, _ = ckptr.restore(
+            store.pool, {}, step,
+            shardings=None if sh is None else {"params": sh,
+                                               "opt_state": {}})
+        store._carry = dataclasses.replace(
+            carry, **{k: DB.to_local(getattr(carry, k)) for k in _LANES})
         store._ids = {sid: int(slot) for sid, slot in extra["ids"]}
         store._generation = np.asarray(extra["generation"], np.int64)
         store._valid = np.asarray(extra["valid"], bool)

@@ -23,6 +23,7 @@ from ..core import tensor_ops as tops
 from ..core.signature import _unpack_ragged
 from ..core.words import WordPlan, all_words, make_plan, sig_dim
 from ..device import resolve_device
+from ..distributed import batch as DB
 from ..kernels import ops
 
 ROUTES = ("auto", "oracle", "tiled")
@@ -91,11 +92,12 @@ def signature_features(paths, depth: int | None = None, *, words=None,
     """
     paths, lengths = unpack_ragged(paths, lengths)
     dev = resolve_device(device)
-    paths = torch.as_tensor(paths, device=dev)
+    paths = ops._as_batch(paths, dev)
     if paths.ndim != 3:
         raise ValueError(f"expected batched paths (B, M+1, d), "
                          f"got {tuple(paths.shape)}")
-    incs = tops.path_increments(paths)
+    # a batch DTensor (under a sharding context) differences its own rows
+    incs = DB.rows_like(tops.path_increments(DB.to_local(paths)), paths)
     if words is not None:
         plan = _as_plan(words, paths.shape[-1])
         return ops.projected(incs, plan, backend=backend, backward=backward,
@@ -166,7 +168,7 @@ def sig_gram(x, y=None, depth: int | None = None, *, words=None,
     """
     x, x_lengths = unpack_ragged(x, x_lengths)
     dev = resolve_device(device)
-    x = torch.as_tensor(x, device=dev)
+    x = ops._as_batch(x, dev)
     plan, w = resolve_weights(x.shape[-1], depth, words, weights,
                               level_weights, gamma, device=dev)
     kw = dict(words=plan, backend=backend, backward=backward, device=dev)

@@ -10,8 +10,21 @@ the sig-MMD loss and of the heads carry their own autograd Functions: on
 the card each is a ``sig_trunc`` (or ``sig_words``) launch forward and a
 ``sig_sweep`` launch backward, and the Gram products ``sig_gram`` launches.
 
-The mesh code (``replicate_tree``, ``place_batch``, data-parallel
-``train_loop``) is ROADMAP.md queue 1, item 15.
+Data parallelism: run :func:`train_loop` inside ``sharding_ctx(mesh)``
+(:mod:`repro_torch.distributed.ctx`) on every rank and it goes SPMD.  The
+parameters and optimizer state are replicated (:func:`replicate_tree`
+broadcasts them from the mesh's first rank), every batch is placed with
+:func:`repro_torch.distributed.sharding.batch_specs` (:func:`place_batch`:
+the "batch" logical axis split over the mesh's data axes), and each rank
+runs the model on its own rows.  The loss is the global loss on every
+rank: the LM loss weights each rank's token mean by its share of the
+tokens and sums over the ranks, and the sig-MMD loss runs its signatures
+on each rank's rows and its Grams as the cross-rank ring
+(:mod:`repro_torch.kernels.ops`).  Each rank's backward yields its own
+rows' share of every parameter's gradient, and the step sums the shares
+over the ranks (one all-reduce a parameter), so every rank takes the
+single-device step.  A placed batch is what makes a step data-parallel;
+outside any context nothing changes.
 """
 from __future__ import annotations
 
@@ -25,9 +38,13 @@ import warnings
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import models as M
 from .. import obs
+from ..distributed import batch as DB
+from ..distributed import collectives as C
+from ..distributed.ctx import axis_names, current_mesh, current_rules
 from ..models.config import ModelConfig
 from ..optim import Optimizer, global_norm
 from ..optim.optimizers import named
@@ -41,6 +58,7 @@ class TrainLoopConfig:
     ckpt_dir: str = ""
     microbatch: int = 0                 # 0 = no accumulation
     remat: str = "dots"
+    grad_compression: bool = False      # int8 EF over cross-pod axis
     straggler_deadline_s: float = 0.0   # 0 = disabled; see train_loop
     sig_backend: str = ""               # "" = honour cfg.sig_head.backend;
     sig_backward: str = ""              # else override the engine dispatch
@@ -101,11 +119,15 @@ def make_sig_mmd_loss(cfg: ModelConfig):
     from ..sigkernel import sig_mmd
 
     def loss_fn(params, batch, remat):
-        hidden, aux = T.backbone(params, cfg, tokens=batch.get("tokens"),
-                                 embeds=batch.get("embeds"),
-                                 positions=batch.get("positions"),
+        # a placed batch (DTensors): the backbone runs on this rank's rows
+        # and the paths go back to the batch layout for the sharded MMD
+        placed = batch.get("tokens", batch.get("embeds"))
+        local = {k: DB.to_local(v) for k, v in batch.items()}
+        hidden, aux = T.backbone(params, cfg, tokens=local.get("tokens"),
+                                 embeds=local.get("embeds"),
+                                 positions=local.get("positions"),
                                  remat=remat)
-        mask = batch.get("mask")
+        mask = local.get("mask")
         lengths = None
         hp = params.get("sig_head")
         if hp is not None and "proj" in hp:
@@ -122,15 +144,45 @@ def make_sig_mmd_loss(cfg: ModelConfig):
             else:
                 lengths, norm = mask_path_lengths(mask, sc.stride)
                 path = path / norm[:, None, None]
-        mmd = sig_mmd(path, batch["paths"].float(), sc.depth,
+        ref = batch["paths"]
+        mmd = sig_mmd(DB.rows_like(path, placed),
+                      DB.rows_like(DB.to_local(ref).float(), ref), sc.depth,
                       backend=sc.backend, backward=sc.backward,
-                      x_lengths=lengths,
+                      x_lengths=None if lengths is None
+                      else DB.rows_like(lengths, placed),
                       y_lengths=batch.get("path_lengths"),
                       device=path.device)
+        if DB.is_dtensor(placed):
+            aux = _rank_mean(aux, placed)
         loss = mmd + aux
         return loss, {"loss": loss, "sig_mmd": mmd, "aux": aux}
 
     return loss_fn
+
+
+def _rank_mean(x: torch.Tensor, placed) -> torch.Tensor:
+    """A per-rank statistic weighted by the rank's share of the placed
+    batch's rows and summed over the ranks (differentiably)."""
+    share = DB.to_local(placed).shape[0] / placed.shape[0]
+    return C.reduce_sum(x * share, DB.group_of(placed), tag="loss")
+
+
+def _placed_lm_loss(params, cfg: ModelConfig, batch: dict, remat: str):
+    """The LM loss of a placed batch: each rank's token mean (and aux and
+    z-loss) weighted by its share of the valid tokens, summed over the
+    ranks: the loss of the whole batch on every rank."""
+    placed = batch.get("tokens", batch.get("embeds"))
+    group = DB.group_of(placed)
+    total, m = M.loss_fn(params, cfg, {k: DB.to_local(v)
+                                       for k, v in batch.items()},
+                         remat=remat)
+    ntok = C.all_reduce_(m["ntok"].detach().clone(), group, tag="loss")
+    share = m["ntok"].detach() / ntok
+    total = C.reduce_sum(total * share, group, tag="loss")
+    aux = torch.as_tensor(m["aux"], dtype=total.dtype, device=total.device)
+    stats = C.all_reduce_(torch.stack([m["loss"], aux]).detach() * share,
+                          group, tag="loss")
+    return total, {"loss": stats[0], "aux": stats[1], "ntok": ntok}
 
 
 def _resolve_loss(cfg: ModelConfig, loss: str):
@@ -139,9 +191,54 @@ def _resolve_loss(cfg: ModelConfig, loss: str):
     if loss == "sig_mmd":
         return make_sig_mmd_loss(cfg)
     if loss == "lm":
-        return lambda params, batch, remat: M.loss_fn(params, cfg, batch,
-                                                      remat=remat)
+        def lm(params, batch, remat):
+            if _batch_group(batch) is not None:
+                return _placed_lm_loss(params, cfg, batch, remat)
+            return M.loss_fn(params, cfg, batch, remat=remat)
+        return lm
     raise ValueError(f"unknown loss {loss!r}; expected 'lm' or 'sig_mmd'")
+
+
+def _batch_group(batch: dict):
+    """The process group of a placed batch (its DTensors' mesh), else
+    None."""
+    for v in batch.values():
+        if DB.is_dtensor(v):
+            return DB.group_of(v)
+    return None
+
+
+def replicate_tree(tree, mesh):
+    """Make every tensor of ``tree`` (a model, or dicts, lists and tuples
+    of tensors) the same on every rank of ``mesh``: each is broadcast in
+    place from the mesh's first rank.  Returns ``tree``."""
+    group = DB.batch_mesh(mesh, axis_names(mesh)).get_group()   # every rank
+    if isinstance(tree, torch.nn.Module):
+        tensors = list(named(tree).values())
+    else:
+        from ..distributed.sharding import _leaves_with_path
+        tensors = [t for _, t in _leaves_with_path(tree)
+                   if isinstance(t, torch.Tensor)]
+    with torch.no_grad():
+        for t in tensors:
+            C.broadcast_(t, 0, group, tag="replicate")
+    return tree
+
+
+def place_batch(batch, mesh=None, rules=None):
+    """Lay a batch (the whole batch, the same on every rank) out over the
+    mesh's data axes by
+    :func:`repro_torch.distributed.sharding.batch_specs`: sharded leaves
+    become DTensors holding this rank's rows, replicated ones stay as they
+    are (no-op without a mesh).  Defaults come from the installed sharding
+    context."""
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None:
+        return batch
+    from ..distributed.sharding import batch_specs
+    rules = current_rules() if rules is None else rules
+    specs = batch_specs(batch, mesh, rules)
+    return {k: specs[k].place(v) for k, v in batch.items()}
 
 
 def _detached(metrics: dict) -> dict:
@@ -175,6 +272,11 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
         return loss_val.detach(), _detached(metrics), grads
 
     def train_step(params, opt_state, batch):
+        group = _batch_group(batch)
+        if group is not None and microbatch and microbatch > 1:
+            raise NotImplementedError(
+                "microbatch accumulation of a placed (data-parallel) batch "
+                "is not ported: ROADMAP.md queue 1, item 15")
         if microbatch and microbatch > 1:
             acc, loss_sum = None, 0.0
             for i in range(microbatch):
@@ -191,6 +293,10 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
             metrics = {"loss": loss_val}
         else:
             loss_val, metrics, grads = grads_of(params, batch)
+        if group is not None:
+            # each rank holds its rows' share of every gradient
+            grads = {k: C.all_reduce_(g, group, tag="grads")
+                     for k, g in grads.items()}
         gnorm = global_norm(grads)
         opt.update(grads, opt_state, params)
         metrics = dict(metrics, grad_norm=gnorm, loss=loss_val)
@@ -233,6 +339,12 @@ def train_loop(cfg: ModelConfig, params, opt: Optimizer, data_iter,
     that step's checkpoint first.  The straggler guard flags steps slower
     than ``straggler_deadline_s``.
 
+    Data parallelism: under an installed ``sharding_ctx(mesh)`` every rank
+    calls the loop with the same data; the parameters are replicated,
+    each batch is placed (:func:`place_batch`) and the gradients summed
+    over the ranks (see the module docstring).  Rank 0 alone writes the
+    default run log and the checkpoints.
+
     Observability: every log step goes to ``on_metrics`` (by default a
     JSONL sink under ``loop.run_dir``; ``run_dir=""`` disables).  Each
     step runs inside a ``train.step`` span, ticks the step-time histogram
@@ -246,7 +358,10 @@ def train_loop(cfg: ModelConfig, params, opt: Optimizer, data_iter,
     exception escaping a step dumps the flight recorder before the final
     checkpoint save runs.
     """
-    if on_metrics is None and loop.run_dir:
+    mesh = current_mesh()          # data-parallel when a context is installed
+    # one writer of the run log and the replicated state under a mesh
+    writer = mesh is None or dist.get_rank() == 0
+    if on_metrics is None and loop.run_dir and writer:
         name = loop.run_name or time.strftime("run-%Y%m%d-%H%M%S")
         on_metrics = obs.jsonl_sink(
             os.path.join(loop.run_dir, f"{name}.jsonl"))
@@ -256,6 +371,8 @@ def train_loop(cfg: ModelConfig, params, opt: Optimizer, data_iter,
                               sig_backward=loop.sig_backward, loss=loop.loss)
     shapes_seen: set = set()
     params = copy.deepcopy(params)
+    if mesh is not None:
+        replicate_tree(params, mesh)
     opt_state = opt.init(params)
     if checkpointer is not None and start_step:
         tensors = named(params)
@@ -277,6 +394,8 @@ def train_loop(cfg: ModelConfig, params, opt: Optimizer, data_iter,
                     batch = next(data_iter)
                     obs.compile.count_new_shape(
                         "train_step", shapes_seen, _batch_key(batch), batch)
+                    if mesh is not None:
+                        batch = place_batch(batch, mesh)
                     params, opt_state, metrics = step_fn(params, opt_state,
                                                          batch)
                     loss_val = float(metrics["loss"])    # honest timing
@@ -312,11 +431,12 @@ def train_loop(cfg: ModelConfig, params, opt: Optimizer, data_iter,
                     history.append(m)
                     if on_metrics:
                         on_metrics(step, m)
-                if checkpointer is not None and loop.ckpt_every and \
-                        step and step % loop.ckpt_every == 0:
+                if checkpointer is not None and writer and \
+                        loop.ckpt_every and step and \
+                        step % loop.ckpt_every == 0:
                     checkpointer.save(named(params), opt_state, step)
     finally:
-        if checkpointer is not None:
+        if checkpointer is not None and writer:
             checkpointer.save(named(params), opt_state, loop.steps)
     return params, opt_state, history
 

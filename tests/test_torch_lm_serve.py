@@ -135,7 +135,11 @@ def test_launch_clis_on_the_cpu(tmp_path, capsys):
                                   "--sig-channels", "3", "--sig-depth", "2",
                                   "--opt", "adafactor", "--remat", "full"])
     assert np.isfinite(float(m["loss"])) and "sig_mmd" in m
+    # a model axis is the model-parallel half of item 15; a data mesh needs
+    # a world of its size, which one process is not
     with pytest.raises(SystemExit, match="item 15"):
+        train_cli.main(args + ["--mesh", "1x2"])
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node=2"):
         train_cli.main(args + ["--mesh", "2x1"])
     out = serve_cli.main(["--arch", "qwen3-4b", "--reduced", "--device",
                           "cpu", "--batch", "2", "--prompt-len", "3",

@@ -21,18 +21,14 @@ MISSING = {
     # submodule names too; the kernels are sig_trunc.sig_trunc and
     # sig_words.sig_words
     "kernels": {"sig_trunc", "sig_words"},
-    # ROADMAP queue 1, item 15 (distributed): the int8 all-reduce and the
-    # collectives record; item 19 (with the benchmark): the regression
-    # gate, the lowered-cost record and the jit instrument
-    "optim": {"compress_int8", "decompress_int8",
-              "int8_error_feedback_allreduce"},
-    "obs": {"record_collectives", "baseline", "record_cost",
-            "instrument_jit"},
+    # ROADMAP queue 1, item 19 (with the benchmark): the regression gate,
+    # the lowered-cost record and the jit instrument
+    "obs": {"baseline", "record_cost", "instrument_jit"},
 }
 # names the port exports that the reference's __all__ leaves out
 EXTRA = {"obs": {"breached", "report"}}
-# reference packages the port does not have yet (ROADMAP queue 1, item 15)
-ABSENT = {"distributed"}
+# reference packages the port does not have yet
+ABSENT: set = set()
 
 PACKAGES = sorted(m.name for m in pkgutil.iter_modules(repro.__path__)
                   if m.ispkg)
