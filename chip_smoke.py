@@ -385,7 +385,29 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              (rank 0 alone): ranks that share one card are not faster.
              The launches a rank and the transport of each collective
              are printed.
-27. report — one JSON line of kernels (the sig_trunc row with its cases:
+27. model_parallel — the model-parallel slice (repro_torch.distributed.
+             model_parallel): a gloo world of 4 ranks on a 2 x 2
+             ("data", "model") mesh and one of 2 ranks on a 1 x 2 mesh,
+             spawned on the one card as in phase 26, the models laid out by
+             param_specs (tensor, expert and FSDP parallel), each against
+             rank 0 alone with the whole model: (a) qwen3-4b at full width,
+             depth 2, the sig-MMD train_loop, 8 x 512 tokens, AdamW, 3
+             steps: losses within 1e-4·max(1, |loss|), the first step's
+             gradients (gathered to full arrays) by the gradient rule, 2
+             sig_trunc, 3·2 sig_gram and 1 sig_sweep launches a rank a step
+             (the Gram ring over the data subgroup of 2), and the
+             collectives of one backbone forward by kind and site against
+             the analytic count (2 model-axis all-reduces and 7 FSDP
+             all-gathers a dense layer, one for the embedding); (b)
+             qwen3-4b as published (36 layers) served on the 1 x 2 mesh:
+             greedy tokens equal to one rank's, ms a decode step; (c)
+             deepseek-v2-lite-16b, zamba2-7b and rwkv6-1.6b at full width,
+             depth 2 each: one SGD step on the 2 x 2 mesh (loss within
+             1e-4·max(1, |loss|), gradient norm within 1e-3 relative) and
+             three greedy tokens on the 1 x 2 mesh equal to one rank's;
+             (d) every parameter and cache leaf of a sharded decode step
+             updated in place (hlo.donation_stats).
+28. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell, and the fused ones: §8 lead_lag depth 3, the
              time_augment serving micro-batch, the two Table 1 transform
@@ -421,6 +443,8 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              row, its Gram on the sig_gram row and its backward on the
              sig_sweep row, with their launches; and phase 26's sharded
              cases at P = 2 and 4 on their kernels' rows, with their
+             launches a rank; and phase 27's 2 x 2 sig-MMD train_loop on
+             the sig_trunc, sig_gram and sig_sweep rows, with its
              launches a rank), the card's name and power limit, then the
              device line last.
 
@@ -5666,17 +5690,18 @@ def dist_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
     queue.put(res)
 
 
-def dist_world(P: int, seed: int) -> list:
-    """Spawn a gloo world of P ranks on the card; -> every rank's results.
-    Each rank's exit code is checked, and a world that does not finish in
+def dist_world(P: int, seed: int, target=None) -> list:
+    """Spawn a gloo world of P ranks on the card running ``target``
+    (default :func:`dist_rank`); -> every rank's results.  Each rank's
+    exit code is checked, and a world that does not finish in
     DIST_WORLD_S fails."""
     import queue as queue_mod
     import tempfile
     ctx = torch.multiprocessing.get_context("spawn")
     q = ctx.Queue()
     where = tempfile.mkdtemp(dir=ROOT / "build")
-    procs = [ctx.Process(target=dist_rank, args=(r, P, where, seed, q))
-             for r in range(P)]
+    procs = [ctx.Process(target=target or dist_rank,
+                         args=(r, P, where, seed, q)) for r in range(P)]
     for p in procs:
         p.start()
     got, deadline = {}, time.perf_counter() + DIST_WORLD_S
@@ -5824,6 +5849,348 @@ def phase_distributed(seed: int) -> dict:
                 seconds=seconds)
 
 
+MP_TRAIN = (2, 3)                 # qwen3-4b depth, sig-MMD steps (2 x 2)
+MP_SERVE = (4, 8, 8, 64)          # batch, prompt, new tokens, max_len
+MP_FAMILIES = ("deepseek-v2-lite-16b", "zamba2-7b", "rwkv6-1.6b")
+MP_FAM_DEPTH = 2
+MP_FAM_TRAIN = (2, 512)           # batch, tokens: one row a data rank
+MP_FAM_DECODE = (2, 4, 3, 16)     # batch, prompt, new tokens, max_len
+MP_SGD_LR = 1e-3
+
+
+def mp_full_grads(model, grads, data_group) -> list:
+    """A sharded model's gradients as the reference's full arrays, summed
+    over the data ranks (an FSDP shard's already is)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.optim.optimizers import named
+    pl = MP.placements(model)
+    out = []
+    for name, g in zip(named(model), grads):
+        if g is None:
+            out.append(None)
+            continue
+        if not MP.grads_reduced_in_backward(pl.get(name)):
+            g = C.all_reduce_(g.clone(), data_group, tag="check")
+        out.append(MP.gather_tensor(g, pl[name]) if name in pl else g)
+    return out
+
+
+def mp_forward_collectives(model, cfg, batch, mesh) -> dict:
+    """The collectives of one backbone forward on the sharded model: counts
+    and bytes by kind, counts by site, against the analytic count."""
+    from repro_torch.distributed import batch as DB
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.distributed.hlo import collective_stats
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import place_batch
+    with sharding_ctx(mesh), torch.no_grad():
+        placed = place_batch(batch)["tokens"]
+        C.LOG.reset()
+        TT.backbone(model, cfg, tokens=DB.to_local(placed), remat="none")
+        recs = list(C.LOG.records)
+    sites: dict = {}
+    for r in recs:
+        sites[r.tag] = sites.get(r.tag, 0) + 1
+    L = cfg.n_layers
+    want = {"tp_out": 2 * L, "fsdp_gather": 7 * L, "embed": 1}
+    check(all(sites.get(k, 0) == v for k, v in want.items()),
+          f"model-parallel forward collectives by site {sites}, expected "
+          f"{want}")
+    st = collective_stats(recs)
+    return dict(by_kind={k: list(v) for k, v in st.by_kind.items()},
+                by_site=sites, expected=want,
+                transports=dict(C.LOG.transports))
+
+
+def mp_qwen_train(rank: int, mesh, seed: int) -> dict:
+    """(a) the sig-MMD train_loop of qwen3-4b (full width, depth 2) on
+    the 2 x 2 mesh against one rank."""
+    import copy
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.optim.optimizers import named
+    from repro_torch.train import make_sig_mmd_loss, place_batch
+    L, steps = MP_TRAIN
+    cfg = with_sig_head(dataclasses.replace(get_config(LM_ARCH),
+                                            n_layers=L), **LM_HEAD)
+    model = lm_model(cfg, seed)
+    loop = TrainLoopConfig(steps=steps, log_every=1, run_dir="",
+                           loss="sig_mmd")
+    loss_fn = make_sig_mmd_loss(cfg)
+    batch = next(lm_data(cfg, "sig_mmd", 0, seed))
+
+    def first_grads(m):
+        loss, _ = loss_fn(m, place_batch(batch), "dots")
+        return torch.autograd.grad(loss, list(named(m).values()),
+                                   allow_unused=True)
+
+    def single():
+        g = first_grads(model)
+        _, _, hist = train_loop(cfg, model, adamw(lr=3e-4),
+                                lm_data(cfg, "sig_mmd", 0, seed), loop)
+        return [None if t is None else t.cpu() for t in g], hist
+
+    alone = dist_alone(single, rank, None, warm=False)
+    lm_free()
+    sharded = MP.shard_model(copy.deepcopy(model), mesh)
+    data_group = mesh["data"].get_group()
+    with sharding_ctx(mesh):
+        g = mp_full_grads(sharded, first_grads(sharded), data_group)
+    coll = mp_forward_collectives(sharded, cfg, batch, mesh)
+    del sharded
+    lm_free()
+    with sharding_ctx(mesh):
+        reset_counts()
+        t0 = time.perf_counter()
+        trained, _, hist = train_loop(cfg, model, adamw(lr=3e-4),
+                                      lm_data(cfg, "sig_mmd", 0, seed), loop)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    launches = counts()
+    P = 2
+    want = {k: dict(sig_trunc=2, sig_gram=3 * P, sig_sweep=1).get(k, 0)
+            * steps for k in launches}
+    check(launches == want, f"model-parallel sig-MMD steps: launches a rank "
+          f"{launches}, expected {want}")
+    losses = [h["loss"] for h in hist]
+    local = sum(p.numel() for p in trained.parameters())
+    res = dict(case="2 x 2 model-parallel sig-MMD train_loop", layers=L,
+               mesh=[2, 2], shape=[LM_TRAIN[1], LM_TRAIN[2],
+                                   LM_HEAD["channels"], LM_HEAD["depth"]],
+               losses=losses, collectives=coll,
+               local_params=local,
+               full_params=sum(p.numel() for p in model.parameters()),
+               step_ms=float(np.median([h["sec"] for h in hist[1:]])) * 1e3,
+               loop_s=loop_s,
+               launches_per_rank={k: v for k, v in launches.items() if v})
+    if rank == 0:
+        (g1, hist1), _ = alone
+        ref = [h["loss"] for h in hist1]
+        check(all(abs(a - b) <= 1e-4 * max(1.0, abs(b))
+                  for a, b in zip(losses, ref)),
+              f"model-parallel losses {losses} against one rank's {ref}")
+        worst = 0.0
+        for name, a, b in zip(named(model), g, g1):
+            if b is None:
+                check(a is None, f"first-step gradient {name}: one rank has "
+                      f"none, the mesh has one")
+                continue
+            b = b.cuda()
+            worst = max(worst, float((a - b).abs().max()))
+            check(grad_within(a, b.double()),
+                  f"model-parallel first-step gradient {name}: max |err| "
+                  f"{float((a - b).abs().max()):.3e}")
+        res.update(single_losses=ref, grad_max_abs_err=worst,
+                   single_step_ms=float(np.median(
+                       [h["sec"] for h in hist1[1:]])) * 1e3)
+    del model, trained, g, alone
+    lm_free()
+    return res
+
+
+def mp_family_cfg(arch: str):
+    cfg = dataclasses.replace(get_config(arch), n_layers=MP_FAM_DEPTH)
+    if cfg.family == "hybrid":      # one group: the Mamba2 layers, a block
+        cfg = dataclasses.replace(cfg, hybrid_attn_every=MP_FAM_DEPTH)
+    return cfg
+
+
+def mp_family_train(rank: int, mesh, seed: int, arch: str) -> dict:
+    """(c) one SGD step at full width, depth 2, on the 2 x 2 mesh against
+    one rank: the loss and the gradient norm."""
+    import copy
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.optim import sgd
+    from repro_torch.train import place_batch
+    cfg = mp_family_cfg(arch)
+    model = LM.init_params(seed, cfg)
+    B, S = MP_FAM_TRAIN
+    batch = next(iter(TokenStream(cfg.vocab_size, B, S, seed)))
+
+    def one(m, b):
+        opt = sgd(lr=MP_SGD_LR)
+        state = opt.init(m)
+        step = make_train_step(cfg, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = step(m, state, b)
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in metrics.items()},
+                (time.perf_counter() - t0) * 1e3)
+
+    alone = dist_alone(lambda: one(copy.deepcopy(model), batch), rank, None,
+                       warm=False)
+    lm_free()
+    MP.shard_model(model, mesh)
+    with sharding_ctx(mesh):
+        got, ms = one(model, place_batch(batch))
+    res = dict(case=f"{arch} depth {MP_FAM_DEPTH}, one SGD step", mesh=[2, 2],
+               batch=[B, S], loss=got["loss"], grad_norm=got["grad_norm"],
+               ms=ms)
+    if rank == 0:
+        (want, single_ms), _ = alone
+        check(abs(got["loss"] - want["loss"])
+              <= 1e-4 * max(1.0, abs(want["loss"])),
+              f"{arch} model-parallel loss {got['loss']} against one rank's "
+              f"{want['loss']}")
+        check(abs(got["grad_norm"] - want["grad_norm"])
+              <= 1e-3 * abs(want["grad_norm"]),
+              f"{arch} model-parallel gradient norm {got['grad_norm']} "
+              f"against one rank's {want['grad_norm']}")
+        res.update(single_loss=want["loss"],
+                   single_grad_norm=want["grad_norm"], single_ms=single_ms)
+    del model
+    lm_free()
+    return res
+
+
+def mp_decode(rank: int, mesh, seed: int, cfg, shape, donation=False):
+    """Greedy tokens of ``cfg`` on the sharded model against one rank's;
+    ms a decode step (rank 0, the ranks starting together)."""
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.distributed.hlo import buffer_ptrs, donation_stats
+    B, P, new, max_len = shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 27)
+    prompts = torch.randint(1, cfg.vocab_size, (B, P), generator=g,
+                            device="cuda", dtype=torch.int32)
+    model = LM.init_params(seed, cfg)
+    n_steps = P - 1 + new
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def gen():
+        return ServeEngine(cfg, model, max_len=max_len,
+                           device=dev).generate(prompts, new)
+
+    alone = dist_alone(gen, rank, None, warm=False)
+    MP.shard_model(model, mesh)
+    lm_free()
+    with sharding_ctx(mesh):
+        gen()
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = gen()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        don = None
+        if donation:
+            cache = LM.init_cache(cfg, B, max_len, torch.float32, device=dev)
+            before = buffer_ptrs((model, cache))
+            LM.decode_step(model, cfg, prompts[:, :1], cache)
+            st = donation_stats(before, (model, cache))
+            don = (st.n_aliased, len(before))
+            check(st.n_aliased == len(before), f"{cfg.name} sharded decode: "
+                  f"{st.n_aliased} of {len(before)} buffers in place")
+    res = dict(case=f"{cfg.name} ({cfg.n_layers} layers) greedy",
+               mesh=list(mesh.shape),
+               shape=[B, P, new], ms_per_step=ms, donation=don,
+               local_params=sum(p.numel() for p in model.parameters()))
+    if rank == 0:
+        want, single_ms = alone
+        check(torch.equal(toks, want), f"{cfg.name} model-parallel tokens "
+              f"{toks.tolist()} against one rank's {want.tolist()}")
+        res.update(single_ms_per_step=single_ms / n_steps)
+    del model
+    lm_free()
+    return res
+
+
+def mp_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
+    """One gloo rank on the card: the cases of phase 27 on a 2 x 2 mesh
+    (world 4) or a 1 x 2 mesh (world 2); nothing is caught."""
+    from datetime import timedelta
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_dev_mesh
+    os.environ["PATHSIG_AUTOTUNE"] = "off"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", store=torch.distributed.FileStore(
+            os.path.join(where, "store"), world), rank=rank,
+        world_size=world, timeout=timedelta(seconds=DIST_COLLECTIVE_S))
+    res, seconds = dict(rank=rank), {}
+    if world == 4:
+        mesh = make_dev_mesh(2, 2)
+        parts = [("train", lambda: mp_qwen_train(rank, mesh, seed))]
+        parts += [(f"train/{a}", lambda a=a: mp_family_train(rank, mesh,
+                                                             seed, a))
+                  for a in MP_FAMILIES]
+    else:
+        mesh = make_dev_mesh(1, 2)
+        parts = [("serve", lambda: mp_decode(
+            rank, mesh, seed, get_config(LM_ARCH), MP_SERVE,
+            donation=True))]
+        parts += [(f"decode/{a}", lambda a=a: mp_decode(
+            rank, mesh, seed, mp_family_cfg(a), MP_FAM_DECODE))
+            for a in MP_FAMILIES]
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        res[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    res["transports"] = dict(C.LOG.transports)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    queue.put(res)
+
+
+def phase_model_parallel(seed: int) -> dict:
+    """Phase 27: the model-parallel slice on a 2 x 2 and a 1 x 2 mesh of
+    gloo ranks sharing the one card, against one rank."""
+    t0 = time.perf_counter()
+    worlds, world_s = {}, {}
+    for P in (4, 2):
+        t1 = time.perf_counter()
+        worlds[P] = dist_world(P, seed, target=mp_rank)
+        world_s[P] = time.perf_counter() - t1
+    r4, r2 = worlds[4][0], worlds[2][0]
+    t = r4["train"]
+    print(f"[mp] 2 x 2 sig-MMD train_loop qwen3-4b depth {t['layers']}, "
+          f"{t['shape'][0]} x {t['shape'][1]}: losses "
+          f"{np.round(t['losses'], 6).tolist()} against one rank's "
+          f"{np.round(t['single_losses'], 6).tolist()}; first-step "
+          f"gradients max |err| {t['grad_max_abs_err']:.2e}; step "
+          f"{t['step_ms']:.1f} ms (one rank alone {t['single_step_ms']:.1f} "
+          f"ms); {t['local_params']} of {t['full_params']} parameters on "
+          f"rank 0; launches a rank "
+          f"{[r['train']['launches_per_rank'] for r in worlds[4]]}",
+          flush=True)
+    c = t["collectives"]
+    print(f"[mp] 2 x 2 backbone forward collectives by site {c['by_site']} "
+          f"(expected {c['expected']}); by kind [count, result bytes, wire "
+          f"bytes a rank] {c['by_kind']}; transports {c['transports']}",
+          flush=True)
+    for a in MP_FAMILIES:
+        f = r4[f"train/{a}"]
+        print(f"[mp] 2 x 2 {f['case']} {f['batch']}: loss {f['loss']:.6f} "
+              f"(one rank {f['single_loss']:.6f}), |g| {f['grad_norm']:.4f} "
+              f"(one rank {f['single_grad_norm']:.4f}); {f['ms']:.1f} ms "
+              f"(one rank alone {f['single_ms']:.1f} ms)", flush=True)
+    for key in ["serve"] + [f"decode/{a}" for a in MP_FAMILIES]:
+        d = r2[key]
+        print(f"[mp] 1 x 2 {d['case']} {d['shape']}: tokens equal one "
+              f"rank's; {d['ms_per_step']:.1f} ms a decode step (one rank "
+              f"alone {d['single_ms_per_step']:.1f} ms); "
+              f"{d['local_params']} parameters on rank 0"
+              + (f"; buffers in place {d['donation']}" if d["donation"]
+                 else ""), flush=True)
+    print(f"[mp] worlds' wall seconds {world_s}; seconds a case (rank 0) "
+          f"{ {k: round(v, 1) for k, v in r4['seconds'].items()} } "
+          f"{ {k: round(v, 1) for k, v in r2['seconds'].items()} }",
+          flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"[mp] ranks share one card: a sharded time is not a speedup. "
+          f"Phase 27 {seconds:.1f} s", flush=True)
+    return dict(world_s=world_s, world4=r4, world2=r2,
+                launches=[r["train"]["launches_per_rank"] for r in worlds[4]],
+                seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5881,6 +6248,9 @@ def main() -> int:
     distd = phase_distributed(args.seed)
     print(f"[timing] distributed phase: {distd['seconds']:.1f} s",
           flush=True)
+    mpar = phase_model_parallel(args.seed)
+    print(f"[timing] model-parallel phase: {mpar['seconds']:.1f} s",
+          flush=True)
     shard_cases = {name: [] for name in ("sig_trunc", "sig_words",
                                          "sig_gram", "sig_sweep")}
     for P, r0 in distd["worlds"].items():
@@ -5895,6 +6265,11 @@ def main() -> int:
                 shard_cases[k].append({key: v for key, v in
                                        r0["train"].items()
                                        if key != "losses"})
+    mp_case = {k: v for k, v in mpar["world4"]["train"].items()
+               if k not in ("losses", "single_losses", "collectives")}
+    for k in ("sig_trunc", "sig_gram", "sig_sweep"):
+        shard_cases[k].append(dict(mp_case, launches_per_rank=[
+            {n: c for n, c in r.items() if n == k} for r in mpar["launches"]]))
     heads = lm["heads"]
     lm_launches = lm["train"]["launches"]
     moe = fam["train"]
@@ -6038,7 +6413,8 @@ def main() -> int:
             transform=fused, checkpoint=ckpt, windows=windows,
             streams=streams, new_phases_s=new_s, sessions=sessions,
             sessions_s=sessions_s, slice8=slice8, slice8_s=slice8_s,
-            lm=lm, lm_s=lm_s, families=fam, distributed=distd), indent=1))
+            lm=lm, lm_s=lm_s, families=fam, distributed=distd,
+            model_parallel=mpar), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,8 @@ Port of ``TokenStream``, ``synthetic_lm_batches``, ``fbm_paths``,
 ``hurst_dataset``, ``geometric_lengths``, ``ragged_fbm_dataset``,
 ``RaggedPathStream``, ``ragged_token_batches``, ``SessionTickStream`` and
 ``session_tick_stream`` from ``repro.data.pipeline``: numpy draws, the
-same arrays as the reference for the same seed.  (``ShardedLoader`` is
-ROADMAP.md queue 1, item 15.)
+same arrays as the reference for the same seed, and ``ShardedLoader``
+(rank i of n reads the reference's rows).
 """
 from __future__ import annotations
 

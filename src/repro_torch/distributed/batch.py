@@ -12,6 +12,10 @@ layout.)
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
+
 import torch
 
 from .ctx import axis_names
@@ -130,3 +134,81 @@ def gather_rows(x, *, tag: str = "gather"):
     if n < c:
         loc = torch.nn.functional.pad(loc, (0, 0) * (loc.ndim - 1) + (0, c - n))
     return C.all_gather(loc, mesh.get_group(), tag=tag)[:B]
+
+
+@dataclasses.dataclass(frozen=True)
+class Rows:
+    """This rank's rows of a placed batch: the group over the batch axes,
+    the global row count B, this rank's first row and its row count."""
+    group: object
+    B: int
+    start: int
+    n: int
+
+
+_ROWS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_rows", default=None)
+
+
+@contextlib.contextmanager
+def rows_scope(placed):
+    """Run a block that computes on this rank's rows of the placed batch
+    DTensor ``placed``: statistics over the global batch (the MoE aux
+    loss and dispatch groups) read :func:`current_rows`.  A plain tensor
+    installs nothing."""
+    if not is_dtensor(placed):
+        yield None
+        return
+    import torch.distributed as dist
+    group = group_of(placed)
+    B = placed.shape[0]
+    start, n, _ = rows_of(B, dist.get_world_size(group),
+                          dist.get_rank(group))
+    token = _ROWS.set(Rows(group, B, start, n))
+    try:
+        yield _ROWS.get()
+    finally:
+        _ROWS.reset(token)
+
+
+def current_rows():
+    """The :class:`Rows` of the innermost :func:`rows_scope` (None outside
+    one)."""
+    return _ROWS.get()
+
+
+@contextlib.contextmanager
+def rows_set(rows):
+    """Install ``rows`` (a :func:`current_rows` taken earlier, or None):
+    a layer recomputed in the backward sees the rows its forward saw."""
+    token = _ROWS.set(rows)
+    try:
+        yield rows
+    finally:
+        _ROWS.reset(token)
+
+
+def slice_rows(x, i: int, n: int):
+    """Microbatch ``i`` of ``n`` of a placed batch leaf: a slice of this
+    rank's own rows, laid out as a batch of B / n rows (every rank's
+    block must split evenly: B divisible by n times the shard count).  A
+    plain leaf is sliced on its first axis, as the reference slices its
+    batch."""
+    if not is_dtensor(x):
+        per = x.shape[0] // n
+        return x[i * per:(i + 1) * per]
+    import torch.distributed as dist
+    B, group = x.shape[0], group_of(x)
+    P = dist.get_world_size(group)
+    if B % (n * P):
+        raise ValueError(
+            f"microbatch {n} of a batch of {B} rows over {P} shards: the "
+            f"rows must split evenly, B divisible by {n * P}")
+    loc = x.to_local()
+    per = loc.shape[0] // n
+    from torch.distributed.tensor import DTensor
+    shape = (B // n,) + tuple(loc.shape[1:])
+    return DTensor.from_local(loc[i * per:(i + 1) * per], x.device_mesh,
+                              x.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))

@@ -14,7 +14,10 @@ Transport follows the group's backend (``dist.get_backend(group)``):
   staged through a host buffer: the tensor is copied to the host, sent,
   and the received buffer copied back.  That is gloo's only transport for
   those operations, not a fallback: the kernels run on the card either
-  way.  The choice is logged once per (backend, operation).
+  way.  gloo has no reduce-scatter for any tensor: on a gloo group it is
+  an all-reduce of the whole tensor of which each rank keeps its block
+  (``"gloo-allreduce"``).  The choice is logged once per (backend,
+  operation).
 
 Every operation appends a record to :data:`LOG` (kind, result bytes, wire
 bytes by the ring model of ``repro.distributed.hlo``, group size, order),
@@ -36,6 +39,7 @@ _logger = logging.getLogger(__name__)
 # the reference's HLO collective kinds
 ALL_REDUCE = "all-reduce"
 ALL_GATHER = "all-gather"
+REDUCE_SCATTER = "reduce-scatter"
 BROADCAST = "broadcast"
 PERMUTE = "collective-permute"
 
@@ -82,6 +86,8 @@ def _wire(kind: str, nbytes: int, n: int) -> float:
         return 2.0 * nbytes * (n - 1) / max(n, 1)
     if kind in (ALL_GATHER, BROADCAST):
         return nbytes * (n - 1) / max(n, 1)
+    if kind == REDUCE_SCATTER:      # the result is the scattered block
+        return float(nbytes * (n - 1))
     return float(nbytes)
 
 
@@ -89,7 +95,9 @@ def transport(group, t: torch.Tensor, kind: str) -> str:
     """``"nccl"``, ``"gloo"`` or ``"gloo-host"`` (a CUDA tensor staged
     through a host buffer) for one operation of ``kind`` on ``group``."""
     backend = str(dist.get_backend(group))
-    if t.device.type == "cuda" and backend == "gloo" \
+    if backend == "gloo" and kind == REDUCE_SCATTER:
+        how = "gloo-allreduce"
+    elif t.device.type == "cuda" and backend == "gloo" \
             and kind not in (ALL_REDUCE, BROADCAST):
         how = "gloo-host"
     else:
@@ -108,10 +116,21 @@ def _log(kind: str, t: torch.Tensor, group, how: str, *, tag: str = "",
     LOG.add(Record(kind, nbytes, _wire(kind, nbytes, n), n, tag, step, how))
 
 
-def all_reduce_(t: torch.Tensor, group, *, tag: str = "") -> torch.Tensor:
-    """Sum ``t`` over the group, in place; returns ``t``."""
+def all_reduce_(t: torch.Tensor, group, *, tag: str = "",
+                op: str = "sum") -> torch.Tensor:
+    """Sum (``op="max"``: the maximum of) ``t`` over the group, in place;
+    returns ``t``."""
     how = transport(group, t, ALL_REDUCE)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    if op == "max":
+        # gloo's CUDA all-reduce is a sum: a maximum is staged on the host
+        if how == "gloo" and t.device.type == "cuda":
+            how = "gloo-host"
+        src = t.cpu() if how == "gloo-host" else t
+        dist.all_reduce(src, op=dist.ReduceOp.MAX, group=group)
+        if src is not t:
+            t.copy_(src)
+    else:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     _log(ALL_REDUCE, t, group, how, tag=tag)
     return t
 
@@ -125,8 +144,9 @@ def broadcast_(t: torch.Tensor, src_index: int, group, *,
     return t
 
 
-def all_gather(t: torch.Tensor, group, *, tag: str = "") -> torch.Tensor:
-    """Every member's ``t`` (equal shapes) concatenated along dim 0 in
+def all_gather(t: torch.Tensor, group, *, tag: str = "",
+               dim: int = 0) -> torch.Tensor:
+    """Every member's ``t`` (equal shapes) concatenated along ``dim`` in
     group order."""
     how = transport(group, t, ALL_GATHER)
     n = dist.get_world_size(group)
@@ -135,8 +155,29 @@ def all_gather(t: torch.Tensor, group, *, tag: str = "") -> torch.Tensor:
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts).to(t.device)
+    out = torch.cat(parts, dim=dim).to(t.device)
     _log(ALL_GATHER, out, group, how, tag=tag)
+    return out
+
+
+def reduce_scatter(t: torch.Tensor, group, *, tag: str = "",
+                   dim: int = 0) -> torch.Tensor:
+    """The sum of every member's ``t`` over the group, of which this rank
+    keeps its block along ``dim`` (``t.shape[dim]`` divisible by the group
+    size, blocks in group order)."""
+    how = transport(group, t, REDUCE_SCATTER)
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    per = t.shape[dim] // n
+    if how == "gloo-allreduce":
+        full = t.detach().clone()
+        dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
+        out = full.narrow(dim, me * per, per).contiguous()
+    else:
+        src = t.detach().movedim(dim, 0).contiguous()
+        out = src.new_empty((per,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=group)
+        out = out.movedim(0, dim).contiguous()
+    _log(REDUCE_SCATTER, out, group, how, tag=tag)
     return out
 
 

@@ -53,6 +53,32 @@ DEFAULT_RULES: dict[str, object] = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and sizes with no process group behind them (the
+    counterpart of ``jax.sharding.AbstractMesh``): the spec functions of
+    :mod:`repro_torch.distributed.sharding` read nothing else, so a
+    production mesh (16 x 16, 2 x 16 x 16) can be specified on one
+    process."""
+    shape: tuple
+    mesh_dim_names: tuple
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.mesh_dim_names):
+            raise ValueError(f"mesh shape {self.shape} and axis names "
+                             f"{self.mesh_dim_names} differ in length")
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def size(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
 def axis_names(mesh) -> tuple[str, ...]:
     """The mesh's axis names (a DeviceMesh's ``mesh_dim_names``)."""
     return tuple(mesh.mesh_dim_names or ())

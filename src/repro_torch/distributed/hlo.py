@@ -1,5 +1,5 @@
-"""Collective accounting: the counterpart of ``repro.distributed.hlo``'s
-``collective_stats`` and ``ring_overlap``.
+"""Collective, donation and remat accounting: the counterpart of
+``repro.distributed.hlo``.
 
 The reference parses the optimized HLO of a lowered computation.  The port
 has no HLO: its collectives are the ``torch.distributed`` calls of
@@ -8,13 +8,25 @@ has no HLO: its collectives are the ``torch.distributed`` calls of
 that record and answer with the reference's dataclasses.  Clear the log
 (``LOG.reset()``) before the computation to be accounted.
 
-``donation_stats``, ``assert_donation`` and ``remat_duplication`` are
-ROADMAP.md queue 1, item 15 (the model-parallel half, with ``dryrun``).
+Donation: the reference counts the input/output-aliased buffers of a
+lowered computation.  The port's counterpart of a donated buffer is one
+updated in place: :func:`buffer_ptrs` records the ``data_ptr`` of every
+parameter and cache leaf before a step, and :func:`donation_stats`
+counts the leaves still at the same address after it.
+
+Remat: the reference counts repeated dot shapes in the HLO.
+:func:`remat_duplication` records the matmuls of one forward plus
+backward with a ``TorchDispatchMode`` and answers their count over their
+unique (operation, shapes, dtype) keys: recomputed layers repeat the
+same products, so ``remat="full"`` gives a larger ratio than
+``"none"``.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict
+
+import torch
 
 from .collectives import LOG, PERMUTE
 
@@ -110,3 +122,93 @@ def ring_overlap(records=None, *, tag: str = "gram_ring") -> RingOverlap:
     in_loop = any(s in wait_at and s in tile_at and wait_at[s] < tile_at[s]
                   for s in permute_at)
     return RingOverlap(len(permute_at), len(tile_at), in_loop, depends)
+
+
+# -- donation ---------------------------------------------------------------
+
+@dataclasses.dataclass
+class DonationStats:
+    # (output leaf, input leaf, kind) per aliased pair
+    pairs: list
+    n_aliased: int
+
+    def summary(self) -> str:
+        if not self.pairs:
+            return "no input/output aliasing"
+        return "; ".join(f"out{o} <- arg{p} ({k})" for o, p, k in self.pairs)
+
+
+def _tensor_leaves(tree, path=()):
+    if isinstance(tree, torch.nn.Module):
+        for name, t in tree.named_parameters():
+            yield path + (name,), t
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tensor_leaves(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tensor_leaves(v, path + (str(i),))
+    elif isinstance(tree, torch.Tensor):
+        yield path, tree
+
+
+def buffer_ptrs(tree) -> dict:
+    """``{leaf path: (data_ptr, shape)}`` of every tensor of ``tree`` (a
+    model's parameters, a cache, an optimizer state, or a tuple of
+    them), taken before a step."""
+    return {"/".join(p): (t.data_ptr(), tuple(t.shape))
+            for p, t in _tensor_leaves(tree)}
+
+
+def donation_stats(before: dict, after) -> DonationStats:
+    """The leaves of ``after`` (the tree after the step) that kept the
+    address and shape they had in ``before`` (its :func:`buffer_ptrs`
+    before the step): the buffers the step updated in place."""
+    now = buffer_ptrs(after)
+    index = {k: i for i, k in enumerate(before)}
+    pairs = [(o, index[k], "in-place") for o, (k, v) in enumerate(now.items())
+             if k in before and before[k] == v]
+    return DonationStats(pairs, len(pairs))
+
+
+def assert_donation(before: dict, after, min_aliased: int = 1
+                    ) -> DonationStats:
+    """Assert at least ``min_aliased`` buffers were updated in place (a
+    step that reallocates its cache or parameters fails here)."""
+    st = donation_stats(before, after)
+    if st.n_aliased < min_aliased:
+        raise AssertionError(
+            f"expected >= {min_aliased} buffers updated in place, found "
+            f"{st.n_aliased} ({st.summary()})")
+    return st
+
+
+# -- remat -------------------------------------------------------------------
+
+_MATMULS = ("mm", "bmm", "addmm", "baddbmm")
+
+
+def remat_duplication(fn, *args, **kwargs) -> float:
+    """Run ``fn(*args, **kwargs)`` (one forward plus backward) and return
+    the matmul count over the unique (operation, input shapes, dtype)
+    keys among them (1.0 when there is none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    keys: list = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.__name__.split(".")[0]
+            if name in _MATMULS:
+                shapes = tuple(tuple(a.shape) for a in args
+                               if isinstance(a, torch.Tensor))
+                dtype = next((str(a.dtype) for a in args
+                              if isinstance(a, torch.Tensor)), "")
+                keys.append((name, shapes, dtype))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn(*args, **kwargs)
+    if not keys:
+        return 1.0
+    return len(keys) / max(1, len(set(keys)))

@@ -1,0 +1,415 @@
+"""Model-parallel execution of the parameter specs: tensor, expert and
+FSDP parallelism on a ``("data", "model")`` mesh (the port's counterpart
+of what GSPMD does with the reference's ``shard(...)`` annotations).
+
+:func:`shard_model` lays a model out by
+:func:`~repro_torch.distributed.sharding.param_specs`: every rank holds
+the full tree (initialised from the same generator), keeps its block of
+each parameter, and records the parameter's :class:`Placement` on the
+``ParamTree`` that owns it.  Then:
+
+- a dimension sharded over an axis other than ``"model"`` (``"fsdp"`` ->
+  ``"data"``) is ZeRO-3: ``p[key]`` all-gathers it before its layer runs
+  (:class:`FsdpGather`), and the backward reduce-scatters the gradient
+  back to the shard, summed over the data ranks;
+- a dimension sharded over ``"model"`` is a tensor-parallel block: the
+  layer code (:mod:`repro_torch.models.layers`, ``transformer``, ``ssm``)
+  runs its heads, columns, experts or vocabulary rows on it.  Activations
+  cross the model group through autograd pairs, as in Megatron-LM: at a
+  column-parallel input :func:`copy_to` (identity forward, all-reduce
+  backward), at a row-parallel output :func:`reduce_from` (all-reduce
+  forward, identity backward), and :func:`gather_from` where a replicated
+  computation needs the whole of a split tensor (all-gather forward, this
+  rank's block of the gradient backward: the computation downstream is
+  the same on every rank of the group).
+
+Every collective goes through :mod:`repro_torch.distributed.collectives`
+and is logged there with its transport.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import collectives as C
+from .ctx import NamedSharding, axis_names, axis_size
+
+MODEL = "model"
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """This rank's block of a dimension split over mesh axes: the axes'
+    process group, the number of blocks and this rank's index."""
+    group: object
+    size: int
+    index: int
+
+    def block(self, n: int) -> tuple[int, int]:
+        """(start, length) of this rank's block of a dimension of n."""
+        per = n // self.size
+        return self.index * per, per
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A sharded parameter's layout: its sharding and its full shape."""
+    sharding: NamedSharding
+    shape: tuple
+
+    def __deepcopy__(self, memo):       # a mesh is shared, never copied
+        return self
+
+    @property
+    def spec(self) -> tuple:
+        return self.sharding.spec
+
+
+_GROUPS: dict = {}
+
+
+def axes_split(mesh, axes) -> Split:
+    """The :class:`Split` of the mesh axes ``axes`` (a name or a tuple of
+    names) for this rank: one axis's group, or the group of several axes
+    flattened in mesh order."""
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    order = tuple(a for a in axis_names(mesh) if a in names)
+    key = (id(mesh), order)
+    if key not in _GROUPS:
+        from .batch import batch_mesh
+        coord = mesh.get_coordinate()
+        size, index = 1, 0
+        for a in order:
+            n = axis_size(mesh, a)
+            index = index * n + coord[axis_names(mesh).index(a)]
+            size *= n
+        sub = mesh[order[0]] if len(order) == 1 else batch_mesh(mesh, order)
+        _GROUPS[key] = (mesh, Split(sub.get_group(), size, index))
+    return _GROUPS[key][1]
+
+
+# ---------------------------------------------------------------------------
+# autograd pairs
+# ---------------------------------------------------------------------------
+
+class CopyTo(torch.autograd.Function):
+    """Identity forward, sum over the group backward: a replicated tensor
+    entering a computation split over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        ctx.group, ctx.tag = group, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return C.all_reduce_(g.contiguous().clone(), ctx.group,
+                             tag=ctx.tag), None, None
+
+
+class ReduceFrom(torch.autograd.Function):
+    """Sum over the group forward, identity backward: the partial outputs
+    of a split computation added into the replicated result."""
+
+    @staticmethod
+    def forward(ctx, x, group, tag):
+        return C.all_reduce_(x.contiguous().clone(), group, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class GatherFrom(torch.autograd.Function):
+    """All-gather along ``dim`` forward, this rank's block backward: a
+    split tensor made whole for a computation that every rank of the
+    group runs the same."""
+
+    @staticmethod
+    def forward(ctx, x, group, index, dim, tag):
+        ctx.index, ctx.dim, ctx.n = index, dim, x.shape[dim]
+        return C.all_gather(x, group, dim=dim, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).contiguous(),
+                None, None, None, None)
+
+
+class FsdpGather(torch.autograd.Function):
+    """All-gather of a parameter shard along ``dim`` forward,
+    reduce-scatter of its gradient backward (ZeRO-3): the gradient comes
+    back to the shard summed over the group's ranks, each of which ran its
+    own rows."""
+
+    @staticmethod
+    def forward(ctx, w, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return C.all_gather(w, group, dim=dim, tag="fsdp_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return C.reduce_scatter(g.contiguous(), ctx.group, dim=ctx.dim,
+                                tag="fsdp_grad"), None, None
+
+
+def copy_to(x, split: Split | None, tag: str = "tp_in"):
+    return x if split is None else CopyTo.apply(x, split.group, tag)
+
+
+def reduce_from(x, split: Split | None, tag: str = "tp_out"):
+    return x if split is None else ReduceFrom.apply(x, split.group, tag)
+
+
+def gather_from(x, split: Split | None, dim: int = -1,
+                tag: str = "tp_gather"):
+    if split is None:
+        return x
+    return GatherFrom.apply(x, split.group, split.index, dim % x.ndim, tag)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _dims(placement: Placement):
+    """(dim, axes) of each sharded dimension."""
+    return [(d, a) for d, a in enumerate(placement.spec) if a is not None]
+
+
+def fsdp_view(w: torch.Tensor, placement: Placement) -> torch.Tensor:
+    """The parameter as its layer uses it: every dimension sharded over
+    axes other than the model axis gathered (differentiably), the
+    model-axis blocks kept."""
+    mesh = placement.sharding.mesh
+    for d, axes in _dims(placement):
+        if axes != MODEL:
+            sp = axes_split(mesh, axes)
+            if sp.size > 1:
+                w = FsdpGather.apply(w, sp.group, d)
+    return w
+
+
+def model_split(placement: Placement | None, dim: int) -> Split | None:
+    """The model axis's :class:`Split` when ``dim`` of the parameter is a
+    tensor-parallel block, else None."""
+    if placement is None or placement.spec[dim % len(placement.shape)] \
+            != MODEL:
+        return None
+    sp = axes_split(placement.sharding.mesh, MODEL)
+    return sp if sp.size > 1 else None
+
+
+def full_view(w: torch.Tensor, placement: Placement | None):
+    """The whole parameter: its FSDP view with the model-axis blocks
+    gathered too (:func:`gather_from`)."""
+    if placement is None:
+        return w
+    w = fsdp_view(w, placement)
+    for d in range(len(placement.shape)):
+        sp = model_split(placement, d)
+        if sp is not None:
+            w = gather_from(w, sp, dim=d, tag="tp_param_gather")
+    return w
+
+
+def block(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's block of the full tensor ``x`` under ``sharding``
+    (nothing is sent)."""
+    whole = x
+    for d, axes in enumerate(sharding.spec):
+        if axes is not None:
+            start, n = axes_split(sharding.mesh, axes).block(x.shape[d])
+            x = x.narrow(d, start, n)
+    # a copy, so that the full tensor's storage can go
+    return x.clone(memory_format=torch.contiguous_format) if x is not whole \
+        else x
+
+
+def _owners(model):
+    """(dotted name, owning ParamTree, key) of every parameter."""
+    for mname, mod in model.named_modules():
+        for key in list(mod._parameters):
+            if mod._parameters[key] is not None:
+                yield (f"{mname}.{key}" if mname else key), mod, key
+
+
+def placements(model) -> dict:
+    """``{dotted name: Placement}`` of a sharded model's parameters."""
+    return {name: mod._placed[key] for name, mod, key in _owners(model)
+            if key in getattr(mod, "_placed", {})}
+
+
+def full_shapes(model) -> dict:
+    """``{dotted name: full shape}``: the recorded shape of a sharded
+    parameter, else its own."""
+    pl = placements(model)
+    return {name: tuple(pl[name].shape) if name in pl else
+            tuple(mod._parameters[key].shape)
+            for name, mod, key in _owners(model)}
+
+
+def shard_model(model, mesh, rules: dict | None = None):
+    """Lay ``model`` (the full tree, the same on every rank) out over the
+    mesh by :func:`~repro_torch.distributed.sharding.param_specs`: each
+    parameter keeps this rank's block in place (the ``nn.Parameter``
+    objects stay) and its owner records the :class:`Placement`.  Returns
+    the model."""
+    from .sharding import param_specs
+    cfg = getattr(model, "cfg", None)
+    specs = param_specs(model, mesh, rules)
+    if cfg is not None and cfg.family == "encdec" and any(
+            MODEL in (a if isinstance(a, tuple) else (a,))
+            for s in specs.values() for a in s.spec if a is not None):
+        raise NotImplementedError(
+            "whisper's model axis is not ported (ROADMAP.md queue 1): "
+            "shard the encoder-decoder over a data axis only")
+    with torch.no_grad():
+        for name, mod, key in list(_owners(model)):
+            sh = specs[name]
+            if all(a is None for a in sh.spec):
+                continue
+            p = mod._parameters[key]
+            full = tuple(p.shape)
+            p.data = block(p.data, sh)
+            mod._placed[key] = Placement(sh, full)
+    return model
+
+
+def model_mesh(model):
+    """The mesh a model was sharded over (None when no parameter is
+    sharded)."""
+    pl = placements(model)
+    return next(iter(pl.values())).sharding.mesh if pl else None
+
+
+@torch.no_grad()
+def gather_tensor(x: torch.Tensor, placement: Placement) -> torch.Tensor:
+    """The full tensor from this rank's block (every rank of the mesh
+    calls it; not differentiable)."""
+    mesh = placement.sharding.mesh
+    for d, axes in _dims(placement):
+        x = C.all_gather(x, axes_split(mesh, axes).group, dim=d,
+                         tag="gather")
+    return x
+
+
+def gather_params(model) -> dict:
+    """``{dotted name: full tensor}`` of a (sharded) model's parameters:
+    the reference's arrays on every rank."""
+    pl = placements(model)
+    return {name: gather_tensor(mod._parameters[key].detach(), pl[name])
+            if name in pl else mod._parameters[key].detach()
+            for name, mod, key in _owners(model)}
+
+
+def opt_placements(opt_state, model) -> dict:
+    """The optimizer state's layout: a tree of :class:`Placement` (None
+    for a replicated leaf) by
+    :func:`~repro_torch.distributed.sharding.opt_state_specs`."""
+    from .sharding import _rebuild, opt_state_specs
+    pl = placements(model)
+    mesh = model_mesh(model)
+    specs = opt_state_specs(opt_state, {k: p.sharding for k, p in
+                                        pl.items()}, mesh)
+    shapes = {k: p.shape for k, p in pl.items()}
+
+    def one(path, sh):
+        if all(a is None for a in sh.spec):
+            return None
+        parts = [str(p) for p in path]
+        pname = next("/".join(parts[i:]) for i in range(len(parts))
+                     if "/".join(parts[i:]) in shapes)
+        return Placement(sh, shapes[pname])
+    return _rebuild(specs, one)
+
+
+def gather_opt_state(opt_state, model):
+    """The optimizer state with every sharded slot gathered to the
+    reference's full array (every rank calls it)."""
+    from .sharding import _rebuild, _leaves_with_path
+    pl = dict(_leaves_with_path(opt_placements(opt_state, model)))
+    return _rebuild(opt_state, lambda path, t: t if pl.get(path) is None
+                    else gather_tensor(t, pl[path]))
+
+
+def local_cache(cache, mesh, rules: dict | None = None):
+    """The decode cache cut to this rank's blocks by
+    :func:`~repro_torch.distributed.sharding.cache_specs`, the batch and
+    the sequence whole on every rank (decode runs every request on every
+    rank of the model group; context parallelism is not executed)."""
+    from .sharding import _leaves_with_path, _rebuild, cache_specs
+    specs = dict(_leaves_with_path(cache_specs(
+        cache, mesh, dict(rules or {}, batch=None, kv_seq=None))))
+    return _rebuild(cache, lambda path, t: block(t, specs[path]))
+
+
+def grads_reduced_in_backward(placement: Placement | None) -> bool:
+    """True when the parameter's gradient is summed over the data ranks
+    by its FSDP reduce-scatter (a dimension sharded over an axis other
+    than the model axis)."""
+    return placement is not None and any(
+        a != MODEL for _, a in _dims(placement))
+
+
+def sharded_norm(grads: dict, model) -> torch.Tensor:
+    """The global norm of sharded gradients: each rank's sum of squares,
+    weighted by one over the number of ranks holding the same block, added
+    over the mesh (one all-reduce)."""
+    from .batch import batch_mesh
+    pl = placements(model)
+    mesh = model_mesh(model)
+    world = mesh.size()
+    total = None
+    for name, g in grads.items():
+        held = 1
+        if name in pl:
+            for _, axes in _dims(pl[name]):
+                held *= axes_split(mesh, axes).size
+        sq = torch.sum(torch.square(g.float())) * (held / world)
+        total = sq if total is None else total + sq
+    group = batch_mesh(mesh, axis_names(mesh)).get_group()
+    return torch.sqrt(C.all_reduce_(total, group, tag="grad_norm"))
+
+
+def save_sharded(checkpointer, model, opt_state, step: int, *,
+                 write: bool, extra: dict | None = None) -> None:
+    """Save the reference's full arrays of a sharded model and its
+    optimizer state: every rank gathers (collectively), ``write`` ranks
+    (one) write."""
+    params = gather_params(model)
+    state = gather_opt_state(opt_state, model)
+    if write:
+        checkpointer.save(params, state, step, extra=extra)
+
+
+def restore_sharded(checkpointer, model, opt_state, step: int):
+    """Restore a checkpoint of full arrays (either package's) onto a
+    sharded model and optimizer state: each rank reads the arrays and
+    keeps its blocks (``Checkpointer.restore(shardings=)``), copied into
+    the parameters in place.  Returns ``(opt_state, extra)``."""
+    from .sharding import _leaves_with_path, _rebuild
+    pl = placements(model)
+    opl = opt_placements(opt_state, model)
+    params = {name: mod._parameters[key] for name, mod, key in _owners(model)}
+
+    def empty(t, placement):
+        return t if placement is None else t.new_empty(placement.shape)
+
+    full_p = {k: empty(t.detach(), pl.get(k)) for k, t in params.items()}
+    opl_flat = dict(_leaves_with_path(opl))
+    full_o = _rebuild(opt_state, lambda path, t: empty(t, opl_flat.get(path)))
+    sh = {"params": {k: None if k not in pl else pl[k].sharding
+                     for k in params},
+          "opt_state": _rebuild(opl, lambda path, p: None if p is None
+                                else p.sharding)}
+    got_p, got_o, extra = checkpointer.restore(full_p, full_o, step,
+                                               shardings=sh)
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+    with torch.no_grad():
+        for k, t in params.items():
+            t.copy_(local(got_p[k]))
+    return _rebuild(got_o, lambda path, t: local(t)), extra

@@ -1,3 +1,3 @@
 """Command-line launchers and meshes (port of ``repro.launch``'s
 ``serve``, ``train`` and ``mesh``; ``dryrun`` and ``specs`` are
-ROADMAP.md queue 1, item 15)."""
+ROADMAP.md queue 1)."""

@@ -4,15 +4,21 @@
         --reduced --steps 20 --batch 4 --seq 64 --ckpt-dir runs/ckpt \
         [--device cpu] [--loss sig_mmd --sig-channels 8 --sig-depth 3]
 
-    PYTHONPATH=src torchrun --nproc-per-node=2 -m repro_torch.launch.train \
-        --arch qwen3-4b --reduced --mesh 2x1
+    PYTHONPATH=src torchrun --nproc-per-node=4 -m repro_torch.launch.train \
+        --arch qwen3-4b --reduced --mesh 2x2 [--backend gloo --device cuda:0]
 
 ``--device`` defaults to the CUDA card (``cuda:LOCAL_RANK`` under
-torchrun).  ``--mesh DxM``: D ranks of data parallelism (the world must
-hold D ranks: torchrun's, or a process group the caller initialised, gloo
-on the CPU); every rank draws the same global batch and trains on its
-rows (:func:`repro_torch.train.place_batch`), and rank 0 prints and writes
-the checkpoints.  A model axis M > 1 is ROADMAP.md queue 1, item 15.
+torchrun).  ``--mesh DxM``: a ``("data", "model")`` mesh of D x M ranks
+(the world must hold them: torchrun's, or a process group the caller
+initialised, gloo on the CPU or on one shared card), laid out by
+``param_specs`` as the reference's launcher lays its parameters out:
+tensor and expert parallel over the M model ranks, FSDP over the D data
+ranks.  Every rank draws the same global batch and trains on its data
+rows (:func:`repro_torch.train.place_batch`); rank 0 prints and writes
+the checkpoints (the full arrays, gathered).  Under torchrun the process
+group is NCCL on the card (one rank a card) unless ``--backend gloo``
+asks for gloo: with ``--device cuda:0`` the ranks then share one card,
+which checks the layout but is no speedup.
 ``--loss sig_mmd`` trains the
 signature-MMD loss against a fixed sample of fBM reference paths (the
 port's ``hurst_dataset``, one path an example of ``--seq`` points and
@@ -34,6 +40,7 @@ from ..checkpoint import Checkpointer, latest_step
 from ..configs import get_config, reduce_config, with_sig_head
 from ..data.pipeline import TokenStream, hurst_dataset
 from ..device import resolve_device
+from ..distributed import model_parallel as MP
 from ..distributed import sharding_ctx
 from ..optim import adafactor, adamw, linear_warmup_cosine
 from ..optim.optimizers import named
@@ -42,31 +49,30 @@ from .mesh import make_dev_mesh
 
 
 def parse_mesh(spec: str) -> tuple[int, ...]:
-    """``DxM`` -> (D, M); a model axis M > 1 raises (ROADMAP.md queue 1,
-    item 15: the port's meshes are data-parallel)."""
-    dims = tuple(int(x) for x in spec.lower().split("x"))
+    """``DxM`` -> (D, M)."""
+    try:
+        dims = tuple(int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        dims = ()
     if len(dims) != 2 or min(dims) < 1:
-        raise SystemExit(f"mesh {spec}: expected DATAxMODEL, e.g. 2x1")
-    if dims[1] != 1:
-        raise SystemExit(f"mesh {spec}: the port trains data-parallel only "
-                         f"(--mesh Dx1); a model axis is ROADMAP.md queue "
-                         f"1, item 15")
+        raise SystemExit(f"mesh {spec}: expected DATAxMODEL, e.g. 2x2")
     return dims
 
 
-def build_mesh(dims: tuple[int, ...], device):
-    """The data-parallel mesh of ``--mesh Dx1`` (None for 1x1); under
-    torchrun (``WORLD_SIZE`` set) the process group is initialised here.
-    A world that does not hold D ranks is refused with the launch it
-    needs."""
-    if dims[0] == 1:
+def build_mesh(dims: tuple[int, ...], device, backend: str = ""):
+    """The ``("data", "model")`` mesh of ``--mesh DxM`` (None for 1x1);
+    under torchrun (``WORLD_SIZE`` set) the process group is initialised
+    here.  A world that does not hold D x M ranks is refused with the
+    launch it needs."""
+    if dims[0] * dims[1] == 1:
         return None
     if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        dist.init_process_group(backend or (
+            "nccl" if device.type == "cuda" else "gloo"))
     try:
-        return make_dev_mesh(dims[0], 1, device=device)
+        return make_dev_mesh(dims[0], dims[1], device=device)
     except ValueError as e:
-        raise SystemExit(f"--mesh {dims[0]}x1: {e}") from None
+        raise SystemExit(f"--mesh {dims[0]}x{dims[1]}: {e}") from None
 
 
 def reference_paths(seed: int, batch: int, seq: int, channels: int,
@@ -98,6 +104,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--backend", default="",
+                    help="process group under torchrun (default: nccl on "
+                         "the card, gloo on the CPU)")
     ap.add_argument("--loss", default="lm", choices=["lm", "sig_mmd"])
     ap.add_argument("--sig-channels", type=int, default=8)
     ap.add_argument("--sig-depth", type=int, default=3)
@@ -109,7 +118,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
-    mesh = build_mesh(dims, dev)
+    mesh = build_mesh(dims, dev, args.backend)
     # every rank runs the same loop; rank 0 prints and writes
     lead = mesh is None or dist.get_rank() == 0
     log = print if lead else (lambda *a, **k: None)
@@ -129,6 +138,7 @@ def main(argv=None):
     params = M.init_params(args.seed, cfg, torch.float32, device=dev)
     if mesh is not None:
         replicate_tree(params, mesh)
+        MP.shard_model(params, mesh)
     opt_state = opt.init(params)
     step_fn = make_train_step(cfg, opt, remat=args.remat,
                               microbatch=args.microbatch, loss=args.loss)
@@ -139,12 +149,25 @@ def main(argv=None):
         ckpt = Checkpointer(args.ckpt_dir)
         if args.resume and latest_step(args.ckpt_dir) is not None:
             start = latest_step(args.ckpt_dir)
-            tensors = named(params)
-            restored, opt_state, _ = ckpt.restore(tensors, opt_state, start)
-            with torch.no_grad():
-                for k, t in restored.items():
-                    tensors[k].copy_(t)
+            if mesh is not None:
+                opt_state, _ = MP.restore_sharded(ckpt, params, opt_state,
+                                                  start)
+            else:
+                tensors = named(params)
+                restored, opt_state, _ = ckpt.restore(tensors, opt_state,
+                                                      start)
+                with torch.no_grad():
+                    for k, t in restored.items():
+                        tensors[k].copy_(t)
             log(f"[train] resumed from step {start}")
+
+    def save(step):
+        extra = {"data": stream.state()}
+        if mesh is not None:
+            MP.save_sharded(ckpt, params, opt_state, step, write=lead,
+                            extra=extra)
+        elif lead:
+            ckpt.save(named(params), opt_state, step, extra=extra)
 
     stream = TokenStream(cfg.vocab_size, args.batch, args.seq, args.seed,
                          step=start, device=dev)
@@ -170,15 +193,15 @@ def main(argv=None):
             log(f"  step {step:>5} loss {loss:.4f} "
                 f"|g| {float(m['grad_norm']):.3f} "
                 f"{tokens_per_step/dt:,.0f} tok/s")
-        if ckpt and lead and args.ckpt_every and step and \
+        if ckpt and args.ckpt_every and step and \
                 step % args.ckpt_every == 0:
-            ckpt.save(named(params), opt_state, step,
-                      extra={"data": stream.state()})
-    if ckpt and lead:
-        ckpt.save(named(params), opt_state, args.steps,
-                  extra={"data": stream.state()})
+            save(step)
+    if ckpt:
+        save(args.steps)
         ckpt.wait()
     log("[train] done")
+    if mesh is not None:    # the full arrays, the same on every rank
+        params = MP.gather_params(params)
     return params, m
 
 

@@ -9,6 +9,17 @@ and a float32 softmax cast back to the values' dtype.  So are
 multi-head latent attention (``mla_attention``) and the mixture of
 experts (``moe``), whose grouped capacity dispatch runs as index
 scatters and gathers where the reference multiplies dense one-hots.
+
+On a model sharded by :func:`repro_torch.distributed.model_parallel.
+shard_model` each layer runs its tensor-parallel block where the
+reference annotates ``shard(...)``: attention and MLA over this rank's
+heads (``wq``/``w_u*`` column-parallel, ``wo`` row-parallel; ``wk``/``wv``
+replicated, each rank using the KV groups of its own query heads), the
+MLP's ``ff`` columns, and the MoE's experts (each rank runs its experts
+on every token of its rows; the row-parallel sum adds their outputs).
+``p[key]`` is the parameter as the layer uses it (FSDP shards gathered),
+``p.full(key)`` the whole of it; a layer whose split does not fall on
+head boundaries runs on the whole weights, replicated.
 """
 from __future__ import annotations
 
@@ -18,6 +29,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..distributed import batch as DB
+from ..distributed.collectives import reduce_sum
+from ..distributed.model_parallel import (copy_to, fsdp_view, full_view,
+                                          model_split, reduce_from)
 
 
 class ParamTree(nn.Module):
@@ -29,6 +45,7 @@ class ParamTree(nn.Module):
 
     def __init__(self, tree: dict | None = None):
         super().__init__()
+        self._placed: dict = {}        # key -> Placement (sharded leaves)
         for k, v in (tree or {}).items():
             self[k] = v
 
@@ -48,7 +65,9 @@ class ParamTree(nn.Module):
 
     def __getitem__(self, key: str):
         if key in self._parameters:
-            return self._parameters[key]
+            w = self._parameters[key]
+            pl = self._placed.get(key)
+            return w if pl is None else fsdp_view(w, pl)
         if key in self._modules:
             return self._modules[key]
         raise KeyError(key)
@@ -62,20 +81,65 @@ class ParamTree(nn.Module):
     def keys(self) -> list[str]:
         return list(self._parameters) + list(self._modules)
 
+    def split(self, key: str, dim: int):
+        """The model axis's split of dimension ``dim`` of parameter
+        ``key`` (None when that dimension is whole on this rank)."""
+        return model_split(self._placed.get(key), dim)
+
+    def full(self, key: str) -> torch.Tensor:
+        """The whole parameter (its model-axis blocks gathered too)."""
+        return full_view(self._parameters[key], self._placed.get(key))
+
+
+def _split(p, key: str, dim: int):
+    return p.split(key, dim) if isinstance(p, ParamTree) else None
+
+
+def _full(p, key: str) -> torch.Tensor:
+    return p.full(key) if isinstance(p, ParamTree) else p[key]
+
+
+def _weight(p, key: str, sp) -> torch.Tensor:
+    """This rank's tensor-parallel block of ``key`` under a split, else
+    the whole parameter."""
+    return p[key] if sp is not None else _full(p, key)
+
+
+def model_axis(p, *keys):
+    """The model axis's split of the first of ``keys`` that has one."""
+    for key in keys:
+        if isinstance(p, ParamTree) and key in p._placed:
+            for dim in range(len(p._placed[key].shape)):
+                sp = p.split(key, dim)
+                if sp is not None:
+                    return sp
+    return None
+
 
 def as_generator(generator, device=None) -> torch.Generator:
     """A ``torch.Generator`` as given, or one seeded with an int on
     ``device`` (every draw of an init runs on the parameters' device)."""
-    if isinstance(generator, torch.Generator):
+    if isinstance(generator, (torch.Generator, _Shapes)):
         return generator
     from ..device import resolve_device
-    g = torch.Generator(device=resolve_device(device))
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return _Shapes()
+    g = torch.Generator(device=dev)
     g.manual_seed(int(generator))
     return g
 
 
+class _Shapes:
+    """The generator of an init on the ``meta`` device: shapes only (a
+    published-size tree for the spec functions, nothing allocated)."""
+    device = torch.device("meta")
+
+
 def _init(generator: torch.Generator, shape, scale=None,
           dtype=torch.float32) -> torch.Tensor:
+    if isinstance(generator, _Shapes):
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     return (torch.randn(shape, generator=generator, device=generator.device,
                         dtype=torch.float32) * scale).to(dtype)
@@ -165,22 +229,52 @@ def init_attention(generator: torch.Generator, cfg) -> dict:
     return p
 
 
-def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
+def heads_split(p, cfg):
+    """The model split of an attention layer's query heads, when ``wq``'s
+    columns and ``wo``'s rows are split on head boundaries and each rank's
+    heads read whole KV groups (or share one): -> (split, first KV head,
+    KV heads a rank), else None."""
+    sp = _split(p, "wq", 1)
+    if sp is None or _split(p, "wo", 0) is None:
+        return None
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if H % sp.size:
+        return None
+    Hl, g = H // sp.size, H // Hkv
+    if Hl % g and g % Hl:
+        return None
+    return sp, sp.index * Hl // g, max(1, Hl // g)
+
+
+def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor,
+                 tp=None):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    if tp is None:
+        sp, kv0, Hkv = None, 0, cfg.n_kv_heads
+        H = cfg.n_heads
+    else:
+        sp, kv0, Hkv = tp
+        H = cfg.n_heads // sp.size
+
+    def kv(key):        # replicated; this rank reads its KV heads' columns
+        w = copy_to(_full(p, key), sp)
+        return w[..., kv0 * hd:(kv0 + Hkv) * hd].to(x.dtype)
+
+    x = copy_to(x, sp)
+    q = x @ _weight(p, "wq", sp).to(x.dtype)
+    k = x @ kv("wk")
+    v = x @ kv("wv")
     if cfg.attn_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+        q = q + _weight(p, "bq", sp).to(x.dtype)
+        k = k + kv("bk")
+        v = v + kv("bv")
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Hkv, hd)
+    v = v.reshape(B, S, Hkv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, copy_to(_full(p, "q_norm"), sp), cfg.norm_eps)
+        k = rms_norm(k, copy_to(_full(p, "k_norm"), sp), cfg.norm_eps)
     if cfg.rope_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -225,23 +319,30 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     in place at ``index`` (clamped so the S new rows fit, as
     ``lax.dynamic_update_slice`` clamps), and every cache position below
     ``index + S`` is attended to: there is no causal mask among the S new
-    tokens, as in the reference (decoding feeds S = 1)."""
+    tokens, as in the reference (decoding feeds S = 1).  Under a heads
+    split the cache holds this rank's KV heads (or all of them, of which
+    it writes and reads its own)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    tp = heads_split(p, cfg)
+    q, k, v = _project_qkv(p, x, cfg, positions, tp)
     new_cache = None
     if cache is not None:
         idx = cache["index"]
         ck, cv = cache["k"], cache["v"]
+        if tp is not None and ck.shape[2] != k.shape[2]:
+            ck, cv = (c.narrow(2, tp[1], tp[2]) for c in (ck, cv))
         Skv = ck.shape[1]
         rows = cache_rows(idx, S, Skv)
         ck.index_copy_(1, rows, k.to(ck.dtype))
         cv.index_copy_(1, rows, v.to(cv.dtype))
-        new_cache = {"k": ck, "v": cv, "index": idx + S}
+        new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + S}
         valid = torch.arange(Skv, device=x.device) < (idx + S)
         out = _sdpa_decode(q, ck, cv, valid)
     else:
         out = _sdpa(q, k, v, causal)
-    return out @ p["wo"].to(x.dtype), new_cache
+    sp = None if tp is None else tp[0]
+    return reduce_from(out @ _weight(p, "wo", sp).to(x.dtype), sp), \
+        new_cache
 
 
 def _sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -291,21 +392,33 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     whose key is one head shared by all heads; the scale is
     1/sqrt(dn + dr).  The cache holds only the RMS-normed rank-r latent
     ``c_kv`` and the rope key ``k_rope``, written in place at ``index``
-    as :func:`attention` writes its cache.  Returns (out, new_cache)."""
+    as :func:`attention` writes its cache.  Returns (out, new_cache).
+    Under a heads split (``w_u*``, ``wq`` and ``wo`` split by heads) the
+    latent and the rope key are computed whole and every rank runs its
+    heads on them; the cache is the whole latent on every rank."""
     B, S, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
         cfg.v_head_dim
+    qkey = "w_uq" if cfg.q_lora_rank else "wq"
+    sp = _split(p, "w_uk", 1)
+    if sp is not None and (H % sp.size or _split(p, "w_uv", 1) is None
+                           or _split(p, qkey, 1) is None
+                           or _split(p, "wo", 0) is None):
+        sp = None
+    Hl = H if sp is None else H // sp.size
     if cfg.q_lora_rank:
-        q = rms_norm(x @ p["w_dq"].to(x.dtype), p["q_norm"], cfg.norm_eps)
-        q = q @ p["w_uq"].to(x.dtype)
+        q = rms_norm(x @ _full(p, "w_dq").to(x.dtype), _full(p, "q_norm"),
+                     cfg.norm_eps)
+        q = copy_to(q, sp) @ _weight(p, "w_uq", sp).to(x.dtype)
     else:
-        q = x @ p["wq"].to(x.dtype)
-    q = q.reshape(B, S, H, dn + dr)
+        q = copy_to(x, sp) @ _weight(p, "wq", sp).to(x.dtype)
+    q = q.reshape(B, S, Hl, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    c_kv = rms_norm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"], cfg.norm_eps)
-    k_rope = x @ p["w_krope"].to(x.dtype)
+    c_kv = rms_norm(x @ _full(p, "w_dkv").to(x.dtype), _full(p, "kv_norm"),
+                    cfg.norm_eps)
+    k_rope = x @ _full(p, "w_krope").to(x.dtype)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
 
@@ -320,8 +433,10 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
         c_kv, k_rope = cc.to(x.dtype), cr.to(x.dtype)
         valid = torch.arange(cc.shape[1], device=x.device) < (idx + S)
 
-    k_nope = (c_kv @ p["w_uk"].to(x.dtype)).reshape(B, -1, H, dn)
-    v = (c_kv @ p["w_uv"].to(x.dtype)).reshape(B, -1, H, dv)
+    c_kv, k_rope = copy_to(c_kv, sp), copy_to(k_rope, sp)
+    k_nope = (c_kv @ _weight(p, "w_uk", sp).to(x.dtype)).reshape(
+        B, -1, Hl, dn)
+    v = (c_kv @ _weight(p, "w_uv", sp).to(x.dtype)).reshape(B, -1, Hl, dv)
     scale = 1.0 / math.sqrt(dn + dr)
     logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
               + torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)
@@ -334,8 +449,9 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
             torch.arange(Skv, device=x.device)[None, :]
         logits = logits.masked_fill(~mask[None, None], -1e30)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, S, H * dv)
-    return out @ p["wo"].to(x.dtype), new_cache
+    out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, S, Hl * dv)
+    return reduce_from(out @ _weight(p, "wo", sp).to(x.dtype), sp), \
+        new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -349,13 +465,26 @@ def init_mlp(generator: torch.Generator, d: int, ff: int, act: str) -> dict:
     return p
 
 
-def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
-    up = x @ p["w_up"].to(x.dtype)
+def _mlp_partial(p, x: torch.Tensor, act: str):
+    """-> (this rank's partial output, its model split): column-parallel
+    ``w_up``/``w_gate`` and row-parallel ``w_down`` under an ``ff`` split
+    (the output still to be summed over the split), else the whole MLP
+    and None."""
+    sp = _split(p, "w_up", 1)
+    if sp is not None and _split(p, "w_down", 0) is None:
+        sp = None
+    x = copy_to(x, sp)
+    up = x @ _weight(p, "w_up", sp).to(x.dtype)
     if "w_gate" in p:
-        up = act_fn(act)(x @ p["w_gate"].to(x.dtype)) * up
+        up = act_fn(act)(x @ _weight(p, "w_gate", sp).to(x.dtype)) * up
     else:
         up = act_fn(act)(up)
-    return up @ p["w_down"].to(x.dtype)
+    return up @ _weight(p, "w_down", sp).to(x.dtype), sp
+
+
+def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    out, sp = _mlp_partial(p, x, act)
+    return reduce_from(out, sp)
 
 
 def init_moe(generator: torch.Generator, cfg) -> dict:
@@ -395,6 +524,30 @@ def moe_groups(cfg, T: int) -> tuple[int, int, int]:
     return T // Tg, Tg, max(1, int(cfg.capacity_factor * Tg * k / E))
 
 
+def dispatch_groups(cfg, T: int, S: int, rows=None) -> tuple[int, int, int]:
+    """:func:`moe_groups` of this rank's T tokens.  On a placed batch
+    (``rows``: the data group's global row count and this rank's first
+    row) the groups are the reference's groups of the global batch
+    restricted to this rank's rows: a dropless global batch is dropless
+    here, else every rank takes the global (Tg, C).  A group that would
+    straddle two ranks raises."""
+    if rows is None:
+        return moe_groups(cfg, T)
+    Tglob = rows.B * S
+    if Tglob <= 4 * cfg.n_experts or cfg.capacity_factor <= 0:
+        return 1, T, T
+    _, Tg, Cap = moe_groups(cfg, Tglob)
+    t0 = rows.start * S
+    if T % Tg or t0 % Tg:
+        raise ValueError(
+            f"MoE dispatch: the global batch's {Tglob} tokens form groups "
+            f"of {Tg}, and this rank's tokens [{t0}, {t0 + T}) would split "
+            f"one across two ranks, which would drop differently from one "
+            f"device: place a batch whose rows a rank times the sequence "
+            f"length ({S}) is a multiple of {Tg}, or lower moe_group_size")
+    return T // Tg, Tg, Cap
+
+
 def moe(p, x: torch.Tensor, cfg):
     """Top-k routed experts with the reference's grouped capacity dispatch
     (GShard-style) and Switch aux loss.  Returns (out, aux_loss).
@@ -405,39 +558,73 @@ def moe(p, x: torch.Tensor, cfg):
     capacity C is dropped.  The kept pairs are scattered into an
     (E, G·C, d) slot buffer, the experts run as batched matmuls over all
     their slots (empty slots are zero rows, as the reference's), and each
-    token gathers its k slots back, weighted by its normalised gates."""
+    token gathers its k slots back, weighted by its normalised gates.
+
+    Under an expert split each rank fills and runs the slots of its own
+    experts (the capacity positions are counted over all experts, as on
+    one device) and the row-parallel sum over the model group adds the
+    ranks' outputs, the shared experts' partial sums with them.  On a
+    placed batch (:func:`repro_torch.distributed.batch.current_rows`) the
+    dispatch groups are the global batch's (:func:`dispatch_groups`) and
+    the aux loss E·Σ me·ce takes ``me`` and ``ce`` over the global batch:
+    their sums and the token count are added over the data group first
+    (differentiably for ``ce``), as the reference's means over its whole
+    batch are."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, d)
-    probs = torch.softmax((xt @ p["router"].to(x.dtype)).float(), dim=-1)
+    probs = torch.softmax((xt @ _full(p, "router").to(x.dtype)).float(),
+                          dim=-1)
     gate_vals, gate_idx = top_k(probs, k)                       # (T, k)
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
 
-    G, Tg, C = moe_groups(cfg, T)
+    rows = DB.current_rows()
+    G, Tg, C = dispatch_groups(cfg, T, S, rows)
     onehot = F.one_hot(gate_idx, E).float()                     # (T, k, E)
     ohf = onehot.reshape(G, Tg * k, E)
     pos = ((torch.cumsum(ohf, dim=1) - ohf) * ohf).sum(-1)      # (G, Tg*k)
     keep = (pos < C).reshape(T, k)
+    sp = _split(p, "w_gate", 0)
+    if sp is not None and (E % sp.size or _split(p, "w_up", 0) is None
+                           or _split(p, "w_down", 0) is None):
+        sp = None
+    El = E if sp is None else E // sp.size
+    e0 = 0 if sp is None else sp.index * El
+    mine = (gate_idx >= e0) & (gate_idx < e0 + El)              # (T, k)
     group = torch.arange(G, device=x.device).repeat_interleave(Tg * k)
-    slot = (gate_idx.reshape(-1) * G + group) * C \
+    slot = ((gate_idx.reshape(-1) - e0).clamp(0, El - 1) * G + group) * C \
         + pos.reshape(-1).long().clamp(max=C - 1)               # (T*k,)
-    n_slots = E * G * C
-    # dropped pairs land in one spare row past the slots
-    target = torch.where(keep.reshape(-1), slot,
+    n_slots = El * G * C
+    # dropped pairs (and other ranks' experts') land in one spare row
+    target = torch.where((keep & mine).reshape(-1), slot,
                          torch.full_like(slot, n_slots))
-    xe = xt.new_zeros((n_slots + 1, d)).index_add(
-        0, target, xt.repeat_interleave(k, dim=0))[:n_slots]
-    xe = xe.reshape(E, G * C, d)
-    h = act_fn(cfg.act)(torch.bmm(xe, p["w_gate"].to(x.dtype))) \
-        * torch.bmm(xe, p["w_up"].to(x.dtype))
-    ye = torch.bmm(h, p["w_down"].to(x.dtype)).reshape(n_slots, d)
-    w = (gate_vals * keep).to(x.dtype)                          # (T, k)
-    out = (ye[slot].reshape(T, k, d) * w[..., None]).sum(1)
+    xin = copy_to(xt, sp)
+    xe = xin.new_zeros((n_slots + 1, d)).index_add(
+        0, target, xin.repeat_interleave(k, dim=0))[:n_slots]
+    xe = xe.reshape(El, G * C, d)
+    h = act_fn(cfg.act)(torch.bmm(xe, _weight(p, "w_gate", sp).to(x.dtype))) \
+        * torch.bmm(xe, _weight(p, "w_up", sp).to(x.dtype))
+    ye = torch.bmm(h, _weight(p, "w_down", sp).to(x.dtype)).reshape(n_slots,
+                                                                     d)
+    ye = torch.cat([ye, ye.new_zeros((1, d))])
+    w = (copy_to(gate_vals * keep, sp) * mine).to(x.dtype)      # (T, k)
+    out = (ye[target].reshape(T, k, d) * w[..., None]).sum(1)
     if cfg.n_shared_experts:
-        out = out + mlp(p["shared"], x, cfg.act).reshape(T, d)
-    # load-balancing aux loss (Switch-style)
-    me = onehot[:, 0].mean(0)
-    ce = probs.mean(0)
+        sh, ssp = _mlp_partial(p["shared"], x, cfg.act)
+        sh = sh.reshape(T, d)
+        if sp is not None and ssp is not None:
+            out = out + sh
+        else:
+            out = reduce_from(out, sp) + reduce_from(sh, ssp)
+            sp = None
+    out = reduce_from(out, sp)
+    # load-balancing aux loss (Switch-style), over the global batch
+    sums = torch.stack([onehot[:, 0].sum(0), probs.sum(0)])
+    n = T
+    if rows is not None:
+        sums = reduce_sum(sums, rows.group, tag="moe_aux")
+        n = rows.B * S
+    me, ce = sums[0].detach() / n, sums[1] / n
     aux = E * torch.sum(me * ce) * cfg.router_aux_coef
     return out.reshape(B, S, d), aux

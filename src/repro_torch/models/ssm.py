@@ -8,6 +8,18 @@ plain ``jnp`` scans; the SSD's scan over chunks and the WKV's scan over
 steps are Python loops.  A decode cache is updated in place by the
 caller: the conv ring and the token shifts keep the dtype they were made
 with, the SSM and WKV states are float32.
+
+On a model sharded over a model axis: Mamba2's fused ``w_in`` is split
+flat over its (z, xBC, dt) columns by the reference's rule, which cuts
+across the segments, so each rank projects onto its columns, the
+projections are gathered (activations, not the weight) and the block
+runs whole; ``w_out`` is row-parallel over ``d_in`` (each rank its rows
+of the gated, normed output, summed over the model group).  Its decode caches are this
+rank's blocks (conv channels, SSM heads), gathered for the step and cut
+back.  RWKV6 runs its WKV heads split over the model axis (``w_r``,
+``w_k``, ``w_v``, ``w_g`` column-parallel, ``w_o`` row-parallel, the WKV
+state cached per head) and its channel mix as a column/row-parallel pair,
+``w_cr``'s gate columns gathered.
 """
 from __future__ import annotations
 
@@ -15,7 +27,26 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .layers import _init, _zeros, rms_norm
+from ..distributed.model_parallel import copy_to, gather_from, reduce_from
+from .layers import _full, _init, _split, _weight, _zeros, model_axis, \
+    rms_norm
+
+
+def _whole(t: torch.Tensor, n: int, dim: int, sp):
+    """A cache leaf whole: gathered over the model split when it holds
+    this rank's block of its ``n`` entries along ``dim``."""
+    if sp is None or t.shape[dim] == n:
+        return t
+    return gather_from(t, sp, dim=dim, tag="cache_gather")
+
+
+def _mine(t: torch.Tensor, like: torch.Tensor, dim: int, sp):
+    """``t`` cut to this rank's block along ``dim`` when the cache leaf
+    ``like`` holds a block."""
+    if sp is None or like.shape[dim] == t.shape[dim]:
+        return t
+    start, n = sp.block(t.shape[dim])
+    return t.narrow(dim, start, n)
 
 
 # ---------------------------------------------------------------------------
@@ -119,30 +150,37 @@ def mamba_block(p, x: torch.Tensor, cfg, chunk: int = 128, cache=None):
     ds = cfg.ssm_state
     d_in, nh = mamba_dims(cfg)
     hd = cfg.mamba_head_dim
-    proj = x @ p["w_in"].to(x.dtype)
+    ms = model_axis(p, "w_in", "w_out")
+    sp = _split(p, "w_in", 1)
+    if sp is None:
+        proj = x @ _full(p, "w_in").to(x.dtype)
+    else:       # column-parallel, the projection gathered whole
+        proj = gather_from(copy_to(x, sp) @ p["w_in"].to(x.dtype), sp,
+                           dim=-1, tag="tp_gather")
     z, xBC, dt = torch.split(proj, [d_in, d_in + 2 * ds, nh], dim=-1)
+    conv_w, conv_b = _full(p, "conv_w"), _full(p, "conv_b")
 
     if cache is None:
-        xBC = _causal_conv(xBC, p["conv_w"].to(x.dtype),
-                           p["conv_b"].to(x.dtype))
+        xBC = _causal_conv(xBC, conv_w.to(x.dtype), conv_b.to(x.dtype))
         new_conv = None
     else:
-        ctx = torch.cat([cache["conv"].to(x.dtype), xBC], dim=1)
-        K = p["conv_w"].shape[0]
-        xBC = sum(ctx[:, i:i + S] * p["conv_w"][i][None, None].to(x.dtype)
-                  for i in range(K)) + p["conv_b"][None, None].to(x.dtype)
-        new_conv = ctx[:, -(K - 1):]
+        conv = _whole(cache["conv"], d_in + 2 * ds, -1, ms)
+        ctx = torch.cat([conv.to(x.dtype), xBC], dim=1)
+        K = conv_w.shape[0]
+        xBC = sum(ctx[:, i:i + S] * conv_w[i][None, None].to(x.dtype)
+                  for i in range(K)) + conv_b[None, None].to(x.dtype)
+        new_conv = _mine(ctx[:, -(K - 1):], cache["conv"], -1, ms)
     xBC = F.silu(xBC)
     xs, Bc, Cc = torch.split(xBC, [d_in, ds, ds], dim=-1)
     xh = xs.reshape(B, S, nh, hd)
-    dt = F.softplus(dt.float() + p["dt_bias"][None, None])
-    a_log = -torch.exp(p["A_log"].float())[None, None] * dt
+    dt = F.softplus(dt.float() + _full(p, "dt_bias")[None, None])
+    a_log = -torch.exp(_full(p, "A_log").float())[None, None] * dt
 
     new_cache = None
     if cache is None:
         y = _ssd_chunked(xh, dt, a_log, Bc, Cc, chunk)
     else:  # single/few-step decode: recurrent update
-        Sst = cache["ssm"].float()
+        Sst = _whole(cache["ssm"], nh, 1, ms).float()
         xf, Bf, Cf = xh.float(), Bc.float(), Cc.float()
         ys = []
         for t in range(S):
@@ -150,12 +188,18 @@ def mamba_block(p, x: torch.Tensor, cfg, chunk: int = 128, cache=None):
                 torch.einsum("bh,bhd,bn->bhdn", dt[:, t], xf[:, t], Bf[:, t])
             ys.append(torch.einsum("bn,bhdn->bhd", Cf[:, t], Sst))
         y = torch.stack(ys, dim=1)
-        new_cache = {"conv": new_conv, "ssm": Sst}
+        new_cache = {"conv": new_conv,
+                     "ssm": _mine(Sst, cache["ssm"], 1, ms)}
 
-    y = y + p["D"].float()[None, None, :, None] * xh.float()
+    y = y + _full(p, "D").float()[None, None, :, None] * xh.float()
     y = y.reshape(B, S, d_in).to(x.dtype) * F.silu(z)
-    y = rms_norm(y, p["norm"], cfg.norm_eps)
-    return y @ p["w_out"].to(x.dtype), new_cache
+    y = rms_norm(y, _full(p, "norm"), cfg.norm_eps)
+    sp = _split(p, "w_out", 0)
+    if sp is None:
+        return y @ _full(p, "w_out").to(x.dtype), new_cache
+    start, n = sp.block(d_in)
+    y = copy_to(y, sp)[..., start:start + n]
+    return reduce_from(y @ p["w_out"].to(x.dtype), sp), new_cache
 
 
 def mamba_cache(cfg, B: int, dtype=torch.float32, device=None) -> dict:
@@ -225,52 +269,77 @@ def rwkv_block(p, x_in: torch.Tensor, cfg, cache=None):
     B, S, d = x_in.shape
     hk = cfg.rwkv_head_dim
     nh = d // hk
-    x = rms_norm(x_in, p["ln1"], cfg.norm_eps)
+    x = rms_norm(x_in, _full(p, "ln1"), cfg.norm_eps)
     prev_a = cache["shift_a"].to(x.dtype) if cache is not None else \
         x.new_zeros((B, d))
     xs = _token_shift(x, prev_a)
 
     def lerp(mu):
-        return x + (xs - x) * mu.to(x.dtype)[None, None]
+        return x + (xs - x) * _full(p, mu).to(x.dtype)[None, None]
 
-    r = lerp(p["mu_r"]) @ p["w_r"].to(x.dtype)
-    k = lerp(p["mu_k"]) @ p["w_k"].to(x.dtype)
-    v = lerp(p["mu_v"]) @ p["w_v"].to(x.dtype)
-    g = lerp(p["mu_g"]) @ p["w_g"].to(x.dtype)
+    # the WKV heads split over the model axis (this rank's d / M channels)
+    sp = _split(p, "w_r", 1)
+    if sp is not None and (nh % sp.size or _split(p, "w_o", 0) is None):
+        sp = None
+    c0, dl = (0, d) if sp is None else sp.block(d)
+    h0, nhl = c0 // hk, dl // hk
+
+    def proj(mu, key):
+        return copy_to(lerp(mu), sp) @ _weight(p, key, sp).to(x.dtype)
+
+    r, k = proj("mu_r", "w_r"), proj("mu_k", "w_k")
+    v, g = proj("mu_v", "w_v"), proj("mu_g", "w_g")
     # data-dependent decay (the Finch contribution)
-    wl = torch.tanh(lerp(p["mu_w"]) @ p["w_lora_a"].to(x.dtype)) \
-        @ p["w_lora_b"].to(x.dtype)
-    w = torch.exp(-torch.exp((p["w0"][None, None] + wl).float()))
+    wl = torch.tanh(lerp("mu_w") @ _full(p, "w_lora_a").to(x.dtype)) \
+        @ _full(p, "w_lora_b").to(x.dtype)
+    w = torch.exp(-torch.exp((_full(p, "w0")[None, None] + wl).float()))
+    w = copy_to(w, sp)[..., c0:c0 + dl]
 
-    state = cache["wkv"] if cache is not None else \
-        torch.zeros((B, nh, hk, hk), dtype=torch.float32, device=x.device)
-    y, S_fin = _wkv_scan(r.reshape(B, S, nh, hk), k.reshape(B, S, nh, hk),
-                         v.reshape(B, S, nh, hk), w.reshape(B, S, nh, hk),
-                         p["u"], state)
-    y = y.reshape(B, S, d).to(x.dtype)
+    if cache is not None:
+        state = cache["wkv"]
+        if state.shape[1] != nhl:
+            raise ValueError(
+                f"the WKV cache holds {state.shape[1]} heads but this rank "
+                f"runs {nhl}: make the cache with init_cache under the "
+                f"model's sharding context")
+    else:
+        state = torch.zeros((B, nhl, hk, hk), dtype=torch.float32,
+                            device=x.device)
+    u = copy_to(_full(p, "u"), sp)[h0:h0 + nhl]
+    y, S_fin = _wkv_scan(r.reshape(B, S, nhl, hk), k.reshape(B, S, nhl, hk),
+                         v.reshape(B, S, nhl, hk), w.reshape(B, S, nhl, hk),
+                         u, state)
+    y = y.reshape(B, S, dl).to(x.dtype)
     # per-head group norm
-    yh = y.reshape(B, S, nh, hk).float()
+    yh = y.reshape(B, S, nhl, hk).float()
     mu = yh.mean(-1, keepdim=True)
     var = yh.var(-1, unbiased=False, keepdim=True)
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
-    y = (yh.reshape(B, S, d) * (1.0 + p["ln_x"][None, None])).to(x.dtype)
+    ln_x = copy_to(_full(p, "ln_x"), sp)[c0:c0 + dl]
+    y = (yh.reshape(B, S, dl) * (1.0 + ln_x[None, None])).to(x.dtype)
     y = y * F.silu(g)
-    att = y @ p["w_o"].to(x.dtype)
+    att = reduce_from(y @ _weight(p, "w_o", sp).to(x.dtype), sp)
 
     # channel mix on the post-attention residual stream
     res = x_in + att
-    x2 = rms_norm(res, p["ln2"], cfg.norm_eps)
+    x2 = rms_norm(res, _full(p, "ln2"), cfg.norm_eps)
     prev_c = cache["shift_c"].to(x.dtype) if cache is not None else \
         x.new_zeros((B, d))
     xs2 = _token_shift(x2, prev_c)
 
     def lerp2(mu):
-        return x2 + (xs2 - x2) * mu.to(x.dtype)[None, None]
+        return x2 + (xs2 - x2) * _full(p, mu).to(x.dtype)[None, None]
 
-    ck = lerp2(p["mu_ck"]) @ p["w_ck"].to(x.dtype)
-    cv = torch.square(F.relu(ck)) @ p["w_cv"].to(x.dtype)
-    cr = torch.sigmoid(lerp2(p["mu_cr"]) @ p["w_cr"].to(x.dtype))
-    ffn = cr * cv
+    csp = _split(p, "w_ck", 1)
+    if csp is not None and _split(p, "w_cv", 0) is None:
+        csp = None
+    ck = copy_to(lerp2("mu_ck"), csp) @ _weight(p, "w_ck", csp).to(x.dtype)
+    cv = reduce_from(torch.square(F.relu(ck))
+                     @ _weight(p, "w_cv", csp).to(x.dtype), csp)
+    rsp = _split(p, "w_cr", 1)
+    cr = torch.sigmoid(copy_to(lerp2("mu_cr"), rsp)
+                       @ _weight(p, "w_cr", rsp).to(x.dtype))
+    ffn = gather_from(cr, rsp, dim=-1) * cv
 
     new_cache = None
     if cache is not None:

@@ -19,9 +19,18 @@ keeps one K/V cache a shared attention block, written by the first
 that block's index, and the reference throws the write away.  The port
 restores the rows it wrote, so decode equals the reference's, which
 differs from a prefill when there are more groups than blocks.
+
+On a model sharded over a model axis the embedding is vocab-parallel (a
+masked lookup of this rank's rows, summed over the model group), the
+logits are this rank's vocabulary block, and the token NLL all-reduces
+their max and sum-exp over the model group, so no rank holds the whole
+logits in training; decoding gathers them.  A cache made by
+:func:`init_cache` under a sharding context is this rank's block of every
+leaf (``cache_specs``), written in place.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -29,10 +38,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..distributed import batch as DB
+from ..distributed import collectives as C
+from ..distributed.ctx import current_mesh, current_rules
+from ..distributed.model_parallel import (copy_to, gather_from,
+                                          local_cache, reduce_from)
 from .config import ModelConfig
-from .layers import (ParamTree, _init, _zeros, as_generator, attention,
-                     cache_rows, init_attention, init_mla, init_mlp,
-                     init_moe, mla_attention, mlp, moe, rms_norm)
+from .layers import (ParamTree, _full, _init, _split, _zeros, as_generator,
+                     attention, cache_rows, init_attention, init_mla,
+                     init_mlp, init_moe, mla_attention, mlp, moe, rms_norm)
 from .ssm import (init_mamba, init_rwkv, mamba_block, mamba_cache,
                   rwkv_block, rwkv_cache)
 
@@ -142,17 +156,33 @@ def _save_unbatched_matmuls(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+@contextlib.contextmanager
+def _within(*managers):
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
+
+
 def _remat(fn, mode: str):
     if mode == "none":
         return fn
-    if mode == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
-    if mode == "dots":
-        return functools.partial(
-            checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                         _save_unbatched_matmuls))
-    raise ValueError(mode)
+    if mode not in ("full", "dots"):
+        raise ValueError(mode)
+
+    def context_fn():
+        # the recompute runs in the backward, outside the forward's rows
+        # scope: it reinstalls the rows the forward saw (MoE dispatch)
+        rows = DB.current_rows()
+        if mode == "dots":
+            fwd, rec = create_selective_checkpoint_contexts(
+                _save_unbatched_matmuls)
+        else:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, _within(rec, DB.rows_set(rows))
+
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=context_fn)
 
 
 def default_positions(cfg: ModelConfig, B: int, S: int, device,
@@ -173,11 +203,26 @@ def _groups(cfg: ModelConfig):
         done += take
 
 
+def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings; vocab-parallel on a vocabulary split: each
+    rank looks up the tokens of its rows of the table (zeros elsewhere)
+    and the lookups are summed over the model group."""
+    sp = _split(params, "embed", 0)
+    if sp is None:
+        return _full(params, "embed")[tokens.long()]
+    w = params["embed"]
+    v0, Vl = sp.block(sp.size * w.shape[0])
+    loc = tokens.long() - v0
+    inside = (loc >= 0) & (loc < Vl)
+    x = w[loc.clamp(0, Vl - 1)] * inside[..., None].to(w.dtype)
+    return reduce_from(x, sp, tag="embed")
+
+
 def backbone(params, cfg: ModelConfig, tokens=None, embeds=None,
              positions=None, remat: str = "dots"):
     """Token/embedding inputs -> final hidden states (B, S, d).  Returns
     (hidden, aux_loss); the aux loss is the MoE layers' sum, else 0."""
-    x = params["embed"][tokens.long()] if embeds is None else embeds
+    x = embed(params, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     if positions is None:
         positions = default_positions(cfg, B, S, x.device)
@@ -207,12 +252,47 @@ def backbone(params, cfg: ModelConfig, tokens=None, embeds=None,
     return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
 
 
-def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = hidden @ w.to(hidden.dtype)
+def vocab_logits(params, cfg: ModelConfig, hidden: torch.Tensor):
+    """-> (logits of this rank's vocabulary block, the vocabulary split);
+    the whole logits and None when the vocabulary is not split."""
+    key, dim = ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
+    sp = _split(params, key, dim)
+    w = params[key] if sp is not None else _full(params, key)
+    if cfg.tie_embeddings:
+        w = w.T
+    logits = copy_to(hidden, sp) @ w.to(hidden.dtype)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    return logits, sp
+
+
+def logits_fn(params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """The whole logits (B, S, V) (gathered over a vocabulary split)."""
+    logits, sp = vocab_logits(params, cfg, hidden)
+    return gather_from(logits, sp, dim=-1, tag="logits")
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor, sp):
+    """-> (token NLL, logsumexp) of float32 logits; over a vocabulary
+    split the max and the sum-exp are all-reduced over the model group
+    and the label's logit is summed from the rank that holds it."""
+    safe = torch.clamp(labels, min=0).long()
+    if sp is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, safe[..., None])[..., 0], \
+            torch.logsumexp(logits, dim=-1)
+    Vl = logits.shape[-1]
+    v0 = sp.index * Vl
+    m = C.all_reduce_(logits.detach().amax(-1).contiguous(), sp.group,
+                      tag="vocab_max", op="max")
+    se = reduce_from(torch.exp(logits - m[..., None]).sum(-1), sp,
+                     tag="vocab_sumexp")
+    lse = m + torch.log(se)
+    loc = safe - v0
+    inside = (loc >= 0) & (loc < Vl)
+    tgt = torch.gather(logits, -1, loc.clamp(0, Vl - 1)[..., None])[..., 0]
+    tgt = reduce_from(tgt * inside, sp, tag="vocab_target")
+    return lse - tgt, lse
 
 
 def lm_loss(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
@@ -222,16 +302,14 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
     hidden, aux = backbone(params, cfg, tokens=batch.get("tokens"),
                            embeds=batch.get("embeds"),
                            positions=batch.get("positions"), remat=remat)
-    logits = logits_fn(params, cfg, hidden).float()
+    logits, sp = vocab_logits(params, cfg, hidden)
     labels = batch["labels"]
     valid = (labels >= 0).float()
-    safe = torch.clamp(labels, min=0).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll, lse = _token_nll(logits.float(), labels, sp)
     ntok = torch.clamp(valid.sum(), min=1.0)
     loss = (nll * valid).sum() / ntok
     # z-loss for stability at scale
-    zl = 1e-4 * (torch.logsumexp(logits, dim=-1) ** 2 * valid).sum() / ntok
+    zl = 1e-4 * (lse ** 2 * valid).sum() / ntok
     return loss + aux + zl, {"loss": loss, "aux": aux, "ntok": ntok}
 
 
@@ -250,7 +328,17 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     with a leading layer axis: K/V (L, B, max_len, Hkv, hd), MLA's
     ``c_kv`` / ``k_rope``, RWKV's shifts and WKV state, Mamba's conv ring
     and SSM state; the hybrid's ``shared_attn`` K/V a shared block; an
-    int32 ``index`` a layer (a block) for the attention caches."""
+    int32 ``index`` a layer (a block) for the attention caches.  Under a
+    sharding context each leaf is this rank's block by ``cache_specs``
+    (the batch whole on every rank)."""
+    cache = _init_cache(cfg, B, max_len, dtype, device)
+    mesh = current_mesh()
+    return cache if mesh is None else local_cache(cache, mesh,
+                                                  current_rules())
+
+
+def _init_cache(cfg: ModelConfig, B: int, max_len: int, dtype,
+                device) -> dict:
     dev = resolve_device(device)
     L, hd = cfg.n_layers, cfg.resolved_head_dim
 
@@ -289,7 +377,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: dict,
     """One decoding step.  tokens: (B, S) (or embeds (B, S, d)).  Returns
     (logits (B, S, V), cache): the cache is updated in place (the
     counterpart of the reference's donated cache) and returned."""
-    x = params["embed"][tokens.long()] if embeds is None else embeds
+    x = embed(params, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     lc = cache["layers"]
     if positions is None:

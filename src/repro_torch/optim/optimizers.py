@@ -20,6 +20,8 @@ layer it never is (no config of the pool has 128 layers).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 import re
@@ -33,6 +35,23 @@ from torch import nn
 class Optimizer:
     init: Callable     # params -> state
     update: Callable   # (grads, state, params) -> state; params in place
+
+
+_NORM: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_grad_norm", default=None)
+
+
+@contextlib.contextmanager
+def norm_scope(fn):
+    """Compute :func:`global_norm` of a ``{name: tensor}`` dict with
+    ``fn`` inside the block: the norm of sharded gradients
+    (:func:`repro_torch.distributed.model_parallel.sharded_norm`), which
+    the AdamW clip and the trainer's ``grad_norm`` read."""
+    token = _NORM.set(fn)
+    try:
+        yield
+    finally:
+        _NORM.reset(token)
 
 
 def named(params) -> dict:
@@ -51,6 +70,9 @@ def _leaves(tree) -> list:
 
 
 def global_norm(tree) -> torch.Tensor:
+    fn = _NORM.get()
+    if fn is not None and isinstance(tree, dict):
+        return fn(tree)
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in _leaves(tree)))
 

@@ -25,6 +25,21 @@ rows' share of every parameter's gradient, and the step sums the shares
 over the ranks (one all-reduce a parameter), so every rank takes the
 single-device step.  A placed batch is what makes a step data-parallel;
 outside any context nothing changes.
+
+Model parallelism: on a ``("data", "model")`` mesh (``make_dev_mesh``)
+:func:`train_loop` lays the model out by ``param_specs``
+(:func:`repro_torch.distributed.model_parallel.shard_model`): tensor,
+expert and FSDP parallel, the optimizer slots shards too.  The step then
+reduces each gradient by its parameter's spec: an FSDP shard's gradient
+is already summed over the data ranks by its reduce-scatter, one
+replicated over the data axis is all-reduced over the data group, and a
+model-axis block is this rank's alone.  The gradient norm (and AdamW's
+clip) is the norm of the whole gradient.  The MoE aux loss and dispatch
+groups are the global batch's (:func:`repro_torch.distributed.batch.
+rows_scope`).  The signature head and sig-MMD run on the data axis: the
+hidden states leave the backbone replicated over the model group, every
+rank of a model group computes the same head, and the Gram ring runs over
+the data subgroup.
 """
 from __future__ import annotations
 
@@ -44,10 +59,11 @@ from .. import models as M
 from .. import obs
 from ..distributed import batch as DB
 from ..distributed import collectives as C
+from ..distributed import model_parallel as MP
 from ..distributed.ctx import axis_names, current_mesh, current_rules
 from ..models.config import ModelConfig
 from ..optim import Optimizer, global_norm
-from ..optim.optimizers import named
+from ..optim.optimizers import named, norm_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,10 +139,12 @@ def make_sig_mmd_loss(cfg: ModelConfig):
         # and the paths go back to the batch layout for the sharded MMD
         placed = batch.get("tokens", batch.get("embeds"))
         local = {k: DB.to_local(v) for k, v in batch.items()}
-        hidden, aux = T.backbone(params, cfg, tokens=local.get("tokens"),
-                                 embeds=local.get("embeds"),
-                                 positions=local.get("positions"),
-                                 remat=remat)
+        with DB.rows_scope(placed):      # the aux loss over the global batch
+            hidden, aux = T.backbone(params, cfg,
+                                     tokens=local.get("tokens"),
+                                     embeds=local.get("embeds"),
+                                     positions=local.get("positions"),
+                                     remat=remat)
         mask = local.get("mask")
         lengths = None
         hp = params.get("sig_head")
@@ -152,37 +170,29 @@ def make_sig_mmd_loss(cfg: ModelConfig):
                       else DB.rows_like(lengths, placed),
                       y_lengths=batch.get("path_lengths"),
                       device=path.device)
-        if DB.is_dtensor(placed):
-            aux = _rank_mean(aux, placed)
         loss = mmd + aux
         return loss, {"loss": loss, "sig_mmd": mmd, "aux": aux}
 
     return loss_fn
 
 
-def _rank_mean(x: torch.Tensor, placed) -> torch.Tensor:
-    """A per-rank statistic weighted by the rank's share of the placed
-    batch's rows and summed over the ranks (differentiably)."""
-    share = DB.to_local(placed).shape[0] / placed.shape[0]
-    return C.reduce_sum(x * share, DB.group_of(placed), tag="loss")
-
-
 def _placed_lm_loss(params, cfg: ModelConfig, batch: dict, remat: str):
-    """The LM loss of a placed batch: each rank's token mean (and aux and
-    z-loss) weighted by its share of the valid tokens, summed over the
-    ranks: the loss of the whole batch on every rank."""
+    """The LM loss of a placed batch: each rank's token mean (and z-loss)
+    weighted by its share of the valid tokens, summed over the ranks, plus
+    the aux loss, which the MoE layers already take over the global batch:
+    the loss of the whole batch on every rank."""
     placed = batch.get("tokens", batch.get("embeds"))
     group = DB.group_of(placed)
-    total, m = M.loss_fn(params, cfg, {k: DB.to_local(v)
-                                       for k, v in batch.items()},
-                         remat=remat)
+    with DB.rows_scope(placed):
+        total, m = M.loss_fn(params, cfg, {k: DB.to_local(v)
+                                           for k, v in batch.items()},
+                             remat=remat)
     ntok = C.all_reduce_(m["ntok"].detach().clone(), group, tag="loss")
     share = m["ntok"].detach() / ntok
-    total = C.reduce_sum(total * share, group, tag="loss")
     aux = torch.as_tensor(m["aux"], dtype=total.dtype, device=total.device)
-    stats = C.all_reduce_(torch.stack([m["loss"], aux]).detach() * share,
-                          group, tag="loss")
-    return total, {"loss": stats[0], "aux": stats[1], "ntok": ntok}
+    total = C.reduce_sum((total - aux) * share, group, tag="loss") + aux
+    loss = C.all_reduce_(m["loss"].detach() * share, group, tag="loss")
+    return total, {"loss": loss, "aux": aux.detach(), "ntok": ntok}
 
 
 def _resolve_loss(cfg: ModelConfig, loss: str):
@@ -273,18 +283,21 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
 
     def train_step(params, opt_state, batch):
         group = _batch_group(batch)
-        if group is not None and microbatch and microbatch > 1:
+        layout = MP.placements(params) \
+            if isinstance(params, torch.nn.Module) else {}
+        if layout and "slots" in opt_state:      # Adafactor's state
             raise NotImplementedError(
-                "microbatch accumulation of a placed (data-parallel) batch "
-                "is not ported: ROADMAP.md queue 1, item 15")
+                "Adafactor's factored moments on sharded parameters are not "
+                "ported (ROADMAP.md queue 1): train a model-parallel mesh "
+                "with adamw or sgd")
         if microbatch and microbatch > 1:
+            # a placed batch: each microbatch is a slice of every rank's own
+            # rows (DB.slice_rows); else of the whole batch
             acc, loss_sum = None, 0.0
             for i in range(microbatch):
-                def sl(x):
-                    mb = x.shape[0] // microbatch
-                    return x[i * mb:(i + 1) * mb]
                 loss_val, _, grads = grads_of(
-                    params, {k: sl(v) for k, v in batch.items()})
+                    params, {k: DB.slice_rows(v, i, microbatch)
+                             for k, v in batch.items()})
                 acc = grads if acc is None else {
                     k: acc[k] + g for k, g in grads.items()}
                 loss_sum = loss_sum + loss_val
@@ -294,11 +307,16 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
         else:
             loss_val, metrics, grads = grads_of(params, batch)
         if group is not None:
-            # each rank holds its rows' share of every gradient
-            grads = {k: C.all_reduce_(g, group, tag="grads")
-                     for k, g in grads.items()}
-        gnorm = global_norm(grads)
-        opt.update(grads, opt_state, params)
+            # each rank holds its rows' share of every gradient; an FSDP
+            # shard's was summed over the data ranks by its reduce-scatter
+            grads = {k: g if layout and MP.grads_reduced_in_backward(
+                layout.get(k)) else C.all_reduce_(g, group, tag="grads")
+                for k, g in grads.items()}
+        # a sharded model's norm (and AdamW's clip) is the whole gradient's
+        with norm_scope((lambda g: MP.sharded_norm(g, params)) if layout
+                        else None):
+            gnorm = global_norm(grads)
+            opt.update(grads, opt_state, params)
         metrics = dict(metrics, grad_norm=gnorm, loss=loss_val)
         return params, opt_state, metrics
 
@@ -343,7 +361,12 @@ def train_loop(cfg: ModelConfig, params, opt: Optimizer, data_iter,
     calls the loop with the same data; the parameters are replicated,
     each batch is placed (:func:`place_batch`) and the gradients summed
     over the ranks (see the module docstring).  Rank 0 alone writes the
-    default run log and the checkpoints.
+    default run log and the checkpoints.  On a mesh with a ``"model"``
+    axis the parameters and optimizer slots are laid out by the specs
+    instead (the returned model is sharded:
+    ``model_parallel.gather_params`` gives its full arrays); checkpoints
+    hold the full arrays, gathered on save and cut to the shards on
+    restore.
 
     Observability: every log step goes to ``on_metrics`` (by default a
     JSONL sink under ``loop.run_dir``; ``run_dir=""`` disables).  Each
@@ -371,16 +394,30 @@ def train_loop(cfg: ModelConfig, params, opt: Optimizer, data_iter,
                               sig_backward=loop.sig_backward, loss=loop.loss)
     shapes_seen: set = set()
     params = copy.deepcopy(params)
+    sharded = mesh is not None and "model" in axis_names(mesh)
     if mesh is not None:
         replicate_tree(params, mesh)
+        if sharded:
+            MP.shard_model(params, mesh, current_rules())
     opt_state = opt.init(params)
     if checkpointer is not None and start_step:
-        tensors = named(params)
-        restored, opt_state, _ = checkpointer.restore(tensors, opt_state,
-                                                      start_step)
-        with torch.no_grad():
-            for k, t in restored.items():
-                tensors[k].copy_(t)
+        if sharded:
+            opt_state, _ = MP.restore_sharded(checkpointer, params,
+                                              opt_state, start_step)
+        else:
+            tensors = named(params)
+            restored, opt_state, _ = checkpointer.restore(
+                tensors, opt_state, start_step)
+            with torch.no_grad():
+                for k, t in restored.items():
+                    tensors[k].copy_(t)
+
+    def save(step):
+        if sharded:
+            MP.save_sharded(checkpointer, params, opt_state, step,
+                            write=writer)
+        elif writer:
+            checkpointer.save(named(params), opt_state, step)
     slo_active = bool(loop.slos) or loop.slo_callback is not None
     slo_specs = tuple(loop.slos) or obs.train_slos()
     slo_every = loop.slo_every or loop.log_every
@@ -431,13 +468,12 @@ def train_loop(cfg: ModelConfig, params, opt: Optimizer, data_iter,
                     history.append(m)
                     if on_metrics:
                         on_metrics(step, m)
-                if checkpointer is not None and writer and \
-                        loop.ckpt_every and step and \
-                        step % loop.ckpt_every == 0:
-                    checkpointer.save(named(params), opt_state, step)
+                if checkpointer is not None and loop.ckpt_every and step \
+                        and step % loop.ckpt_every == 0:
+                    save(step)
     finally:
-        if checkpointer is not None and writer:
-            checkpointer.save(named(params), opt_state, loop.steps)
+        if checkpointer is not None:
+            save(loop.steps)
     return params, opt_state, history
 
 

@@ -135,9 +135,9 @@ def test_launch_clis_on_the_cpu(tmp_path, capsys):
                                   "--sig-channels", "3", "--sig-depth", "2",
                                   "--opt", "adafactor", "--remat", "full"])
     assert np.isfinite(float(m["loss"])) and "sig_mmd" in m
-    # a model axis is the model-parallel half of item 15; a data mesh needs
-    # a world of its size, which one process is not
-    with pytest.raises(SystemExit, match="item 15"):
+    # a mesh needs a world of its size, which one process is not: a model
+    # axis as a data axis
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node=2"):
         train_cli.main(args + ["--mesh", "1x2"])
     with pytest.raises(SystemExit, match="torchrun --nproc-per-node=2"):
         train_cli.main(args + ["--mesh", "2x1"])
