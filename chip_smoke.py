@@ -407,7 +407,28 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              three greedy tokens on the 1 x 2 mesh equal to one rank's;
              (d) every parameter and cache leaf of a sharded decode step
              updated in place (hlo.donation_stats).
-28. report — one JSON line of kernels (the sig_trunc row with its cases:
+28. dryrun_mp — the dry run, whisper's model axis and Adafactor on
+             sharded parameters: gloo worlds of 4 (2 x 2) and 2 (1 x 2)
+             ranks sharing the card as in phase 27, each case against rank
+             0 alone, and the dry run (launch/dryrun.py::lower_cell on an
+             AbstractMesh((2, 2)) in a fake world of 4, in a process of its
+             own that never touches the card): (a) whisper-large-v3 as
+             published (1.95B parameters, 32 + 32 layers) on 1 x 2: encode
+             1,500 frames, prefill the cross caches, greedy tokens equal to
+             one rank's, ms a decode step; (b) whisper at full width,
+             depth 4 + 4, Adafactor, 3 steps on 2 x 2 (losses within
+             1e-4·max(1, |loss|), first-step gradients by the gradient
+             rule); (c) phase 27's qwen3-4b sig-MMD step with Adafactor, 3
+             steps on 2 x 2 (the same checks, 2 sig_trunc, 3·2 sig_gram
+             and 1 sig_sweep launches a rank a step); (d) qwen3-4b as
+             published on 2 x 2: greedy tokens equal to one rank's under
+             dryrun.rules_for(qwen3-4b, decode_32k) and under the default
+             rules, ms a step of each (rules_for's no more than the
+             default's) and one rank's; (e) the dry run's parameter and
+             Adafactor-state bytes a rank for (b) and (c) equal to rank
+             0's exactly, and one backbone forward's collectives by kind
+             equal to the real world's log.
+29. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell, and the fused ones: §8 lead_lag depth 3, the
              time_augment serving micro-batch, the two Table 1 transform
@@ -443,10 +464,10 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              row, its Gram on the sig_gram row and its backward on the
              sig_sweep row, with their launches; and phase 26's sharded
              cases at P = 2 and 4 on their kernels' rows, with their
-             launches a rank; and phase 27's 2 x 2 sig-MMD train_loop on
-             the sig_trunc, sig_gram and sig_sweep rows, with its
-             launches a rank), the card's name and power limit, then the
-             device line last.
+             launches a rank; and phase 27's 2 x 2 sig-MMD train_loop and
+             phase 28's 2 x 2 Adafactor sig-MMD steps on the sig_trunc,
+             sig_gram and sig_sweep rows, with their launches a rank), the
+             card's name and power limit, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -6191,6 +6212,515 @@ def phase_model_parallel(seed: int) -> dict:
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the dry run against a real world, whisper's model axis,
+# Adafactor on sharded parameters, decode under the dry run's rules
+# ---------------------------------------------------------------------------
+
+DR_ARCH = "whisper-large-v3"
+DR_WHISPER_TRAIN = (4, 2, 64, 3)   # layers a stack, batch, tokens, steps
+DR_WHISPER_SERVE = (2, 4, 8)       # batch, prompt, new tokens (1 x 2)
+DR_ADAFACTOR = dict(lr=1e-3)       # factored at the published widths
+# qwen3-4b's decode on 2 x 2: batch, prompt, new tokens, max_len (a step
+# under the default rules gathers its 16 GB of weights through the host,
+# 12.3 s with four ranks sharing the card: two steps, the second timed)
+DR_DECODE = (4, 1, 2, 16)
+DR_SHAPES = {"phase28_whisper": "whisper", "phase28_qwen": "qwen"}
+
+
+def dr_whisper_cfg():
+    L = DR_WHISPER_TRAIN[0]
+    return dataclasses.replace(get_config(DR_ARCH), n_layers=L,
+                               n_encoder_layers=L)
+
+
+def dr_qwen_cfg():
+    return with_sig_head(dataclasses.replace(get_config(LM_ARCH),
+                                             n_layers=MP_TRAIN[0]),
+                         **LM_HEAD)
+
+
+def dr_whisper_batch(cfg, seed: int, device="cuda") -> dict:
+    """frames (B, 1,500, 1,280), tokens and labels (B, S) from the seed."""
+    _, B, S, _ = DR_WHISPER_TRAIN
+    item = next(TokenStream(cfg.vocab_size, B, S, seed, device=device))
+    g = torch.Generator(device=device).manual_seed(seed + 28)
+    frames = torch.randn(B, cfg.n_audio_frames, cfg.d_model, generator=g,
+                         device=device)
+    return dict(item, frames=frames)
+
+
+def dr_meta(batch: dict) -> dict:
+    return {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+
+
+def dr_child(seed: int, queue) -> None:
+    """The dry run's process (the fake world of 4 is its default process
+    group; it never touches the card): ``lower_cell`` on
+    ``AbstractMesh((2, 2))`` for phase 28's two training steps."""
+    from repro_torch.distributed.ctx import AbstractMesh
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.optim import adafactor
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    out = {}
+    w = dr_whisper_cfg()
+    wb = dr_meta(dr_whisper_batch(w, seed, "cpu"))
+    q = dr_qwen_cfg()
+    qb = next(lm_data_cpu(q, seed))
+    cells = (("whisper", DR_ARCH, w, LM.init_params(
+                  seed, w, torch.float32, device="meta"), wb, "lm"),
+             ("qwen", LM_ARCH, q, lm_model_meta(q, seed), dr_meta(qb),
+              "sig_mmd"))
+    for name, arch, cfg, params, batch, loss in cells:
+        shape = f"phase28_{name}"
+        B, S = batch["tokens"].shape
+        specs.SHAPES[shape] = dict(kind="train", seq=S, batch=B)
+        t0 = time.perf_counter()
+        res = dryrun.lower_cell(arch, shape, mesh=mesh, cfg=cfg,
+                                params=params, batch=batch, loss=loss,
+                                opt=adafactor(**DR_ADAFACTOR), rules={},
+                                forward_collectives=True)
+        res["wall_s"] = time.perf_counter() - t0
+        out[name] = res
+    dryrun.close_world()
+    queue.put(out)
+
+
+def lm_data_cpu(cfg, seed: int):
+    """phase 24's sig-MMD batches (lm_data) made on the host."""
+    _, B, S = LM_TRAIN[:3]
+    ref = reference_paths(seed, B, S, cfg.sig_head.channels, "cpu")
+    for item in TokenStream(cfg.vocab_size, B, S, seed, device="cpu"):
+        yield dict(item, paths=ref)
+
+
+def lm_model_meta(cfg, seed: int):
+    model = LM.init_params(seed, cfg, torch.float32, device="meta")
+    model["sig_head"] = init_sig_head(seed + 1, cfg, LM_OUT, device="meta")
+    return model
+
+
+def dr_measured(model, state, cfg, batch: dict, mesh) -> dict:
+    """What the dry run predicts, on this rank: parameter and
+    optimizer-state bytes, and one backbone forward's collectives by
+    kind."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.distributed.hlo import collective_stats
+    from repro_torch.launch import dryrun
+    from repro_torch.train import place_batch
+    with sharding_ctx(mesh):
+        placed = place_batch(batch)
+        C.LOG.reset()
+        dryrun.backbone_forward(model, cfg, placed)
+        st = collective_stats()
+    return dict(param_bytes=dryrun.tree_bytes(model),
+                opt_state_bytes=dryrun.tree_bytes(state),
+                forward={k: list(v) for k, v in st.by_kind.items()})
+
+
+def dr_train(rank: int, mesh, seed: int, cfg, model, batches: list,
+             loss: str) -> dict:
+    """Adafactor steps of ``model`` on the mesh against one rank: the
+    losses, the first step's gradients (gathered whole) and ms a step,
+    launches a rank counted over the sharded steps; and the measured side
+    of the dry run."""
+    import copy
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.optim import adafactor
+    from repro_torch.optim.optimizers import named
+    from repro_torch.train import place_batch
+    from repro_torch.train.trainer import _resolve_loss
+    loss_fn = _resolve_loss(cfg, loss)
+
+    def first_grads(m, b):
+        value, _ = loss_fn(m, b, "dots")
+        return torch.autograd.grad(value, list(named(m).values()),
+                                   allow_unused=True)
+
+    def steps(m, place):
+        opt = adafactor(**DR_ADAFACTOR)
+        state = opt.init(m)
+        step = make_train_step(cfg, opt, loss=loss)
+        hist = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, metrics = step(m, state, place(b))
+            value = float(metrics["loss"])
+            hist.append((value, (time.perf_counter() - t0) * 1e3))
+        return hist, state
+
+    def single():
+        m = copy.deepcopy(model)
+        g = first_grads(m, batches[0])
+        hist, _ = steps(m, lambda b: b)
+        return [None if t is None else t.cpu() for t in g], hist
+
+    alone = dist_alone(single, rank, None, warm=False)
+    lm_free()
+    MP.shard_model(model, mesh)
+    with sharding_ctx(mesh):
+        g = mp_full_grads(model, first_grads(model, place_batch(batches[0])),
+                          mesh["data"].get_group())
+        reset_counts()
+        hist, state = steps(model, place_batch)
+        torch.cuda.synchronize()
+    launches = counts()
+    measured = dr_measured(model, state, cfg, batches[0], mesh)
+    res = dict(losses=[h[0] for h in hist],
+               step_ms=float(np.median([h[1] for h in hist[1:]])),
+               launches_per_rank={k: v for k, v in launches.items() if v},
+               local_params=sum(p.numel() for p in model.parameters()),
+               measured=measured)
+    if rank == 0:
+        (g1, hist1), _ = alone
+        ref = [h[0] for h in hist1]
+        check(all(abs(a - b) <= 1e-4 * max(1.0, abs(b))
+                  for a, b in zip(res["losses"], ref)),
+              f"{cfg.name} 2 x 2 Adafactor losses {res['losses']} against "
+              f"one rank's {ref}")
+        worst = 0.0
+        for name, a, b in zip(named(model), g, g1):
+            if b is None:
+                check(a is None, f"{cfg.name} first-step gradient {name}: "
+                      f"one rank has none, the mesh has one")
+                continue
+            b = b.cuda()
+            worst = max(worst, float((a - b).abs().max()))
+            check(grad_within(a, b.double()),
+                  f"{cfg.name} 2 x 2 first-step gradient {name}: max |err| "
+                  f"{float((a - b).abs().max()):.3e}")
+        res.update(single_losses=ref, grad_max_abs_err=worst,
+                   single_step_ms=float(np.median(
+                       [h[1] for h in hist1[1:]])))
+    return res
+
+
+def dr_whisper_train(rank: int, mesh, seed: int) -> dict:
+    """(b) whisper at full width, depth cut, Adafactor on the 2 x 2 mesh."""
+    cfg = dr_whisper_cfg()
+    model = LM.init_params(seed, cfg)
+    batches = [dr_whisper_batch(cfg, seed + i) for i in
+               range(DR_WHISPER_TRAIN[3])]
+    res = dr_train(rank, mesh, seed, cfg, model, batches, "lm")
+    res.update(layers=[cfg.n_encoder_layers, cfg.n_layers],
+               published_layers=[get_config(DR_ARCH).n_encoder_layers,
+                                 get_config(DR_ARCH).n_layers],
+               batch=list(batches[0]["frames"].shape[:2])
+               + [batches[0]["tokens"].shape[1]],
+               full_params=sum(p.numel() for p in LM.init_params(
+                   seed, cfg, device="meta").parameters()))
+    del model
+    lm_free()
+    return res
+
+
+def dr_qwen_train(rank: int, mesh, seed: int) -> dict:
+    """(c) phase 27's qwen3-4b sig-MMD step with Adafactor on 2 x 2."""
+    cfg = dr_qwen_cfg()
+    model = lm_model(cfg, seed)
+    data = lm_data(cfg, "sig_mmd", 0, seed)
+    batches = [next(data) for _ in range(MP_TRAIN[1])]
+    res = dr_train(rank, mesh, seed, cfg, model, batches, "sig_mmd")
+    P = 2
+    want = {k: dict(sig_trunc=2, sig_gram=3 * P, sig_sweep=1).get(k, 0)
+            * MP_TRAIN[1] for k in counts()}
+    got = {k: res["launches_per_rank"].get(k, 0) for k in want}
+    check(got == want, f"2 x 2 Adafactor sig-MMD steps: launches a rank "
+          f"{got}, expected {want}")
+    res.update(layers=cfg.n_layers, mesh=[2, 2],
+               shape=[LM_TRAIN[1], LM_TRAIN[2], LM_HEAD["channels"],
+                      LM_HEAD["depth"]],
+               case="2 x 2 model-parallel sig-MMD Adafactor steps")
+    del model
+    lm_free()
+    return res
+
+
+def dr_in_turns(rank: int, world: int, make):
+    """``make()`` on each rank in turn (a published model drawn whole,
+    then cut to its blocks), so one full tree is on the card at a time."""
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = make()
+            lm_free()
+        torch.distributed.barrier()
+    return out
+
+
+@torch.no_grad()
+def dr_greedy(model, cfg, prompts, n_new: int, cache):
+    """The prompt's decode steps, then n_new greedy tokens, each step
+    timed to a synchronize; -> (tokens, median ms a step after the first
+    step, which is warm-up)."""
+    P = prompts.shape[1]
+    ms, tok, out = [], prompts[:, :1], [prompts]
+    for j in range(P - 1 + n_new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = LM.decode_step(model, cfg, tok, cache)
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if j + 1 < P:
+            tok = prompts[:, j + 1:j + 2]
+        else:
+            tok = nxt
+            out.append(nxt)
+    return torch.cat(out, dim=1), float(np.median(ms[1:]))
+
+
+def dr_decode(rank: int, mesh, seed: int) -> dict:
+    """(d) qwen3-4b as published on the 2 x 2 mesh: greedy tokens and ms a
+    step under the dry run's decode rules, under the default rules, and
+    on one rank alone (DR_DECODE: every weight is gathered over the data
+    axis a step under the default rules, through gloo's host staging)."""
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.launch.dryrun import rules_for
+    cfg = get_config(LM_ARCH)
+    B, P, new, max_len = DR_DECODE
+    g = torch.Generator(device="cuda").manual_seed(seed + 28)
+    prompts = torch.randint(1, cfg.vocab_size, (B, P), generator=g,
+                            device="cuda", dtype=torch.int32)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    decode_rules = rules_for(LM_ARCH, "decode_32k")
+
+    def gen(model):
+        return dr_greedy(model, cfg, prompts, new, LM.init_cache(
+            cfg, B, max_len, torch.float32, device=dev))
+
+    alone = None
+    if rank == 0:
+        whole = LM.init_params(seed, cfg)
+        alone = gen(whole)
+        del whole
+    torch.distributed.barrier()
+    lm_free()
+    res = dict(rules=str(decode_rules))
+    for name, rules in (("default", None), ("rules_for", decode_rules)):
+        model = dr_in_turns(rank, 4, lambda rules=rules: MP.shard_model(
+            LM.init_params(seed, cfg), mesh, rules))
+        with sharding_ctx(mesh, rules):
+            torch.distributed.barrier()
+            toks, res[f"{name}_ms"] = gen(model)
+        res[f"{name}_local_params"] = sum(p.numel()
+                                          for p in model.parameters())
+        if rank == 0:
+            check(torch.equal(toks, alone[0]), f"qwen3-4b 2 x 2 decode "
+                  f"under the {name} rules: tokens {toks.tolist()} against "
+                  f"one rank's {alone[0].tolist()}")
+        del model
+        lm_free()
+    if rank == 0:
+        res["single_ms"] = alone[1]
+        check(res["rules_for_ms"] <= res["default_ms"],
+              f"qwen3-4b 2 x 2 decode: {res['rules_for_ms']:.1f} ms a step "
+              f"under rules_for against {res['default_ms']:.1f} under the "
+              f"default rules")
+    res.update(shape=[B, P, new], params=cfg.param_count())
+    return res
+
+
+@torch.no_grad()
+def dr_whisper_greedy(model, cfg, frames, prompts, n_new: int):
+    """encode -> prefill_cross -> dr_greedy; -> (tokens, ms a decode
+    step)."""
+    B = prompts.shape[0]
+    enc = LM.encdec.encode(model, cfg, frames, remat="none")
+    cache = LM.encdec.prefill_cross(model, cfg, enc, LM.init_cache(
+        cfg, B, frames.shape[1], torch.float32, device=frames.device))
+    return dr_greedy(model, cfg, prompts, n_new, cache)
+
+
+def dr_whisper_serve(rank: int, mesh, seed: int) -> dict:
+    """(a) whisper as published on the 1 x 2 mesh against one rank."""
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.distributed import sharding_ctx
+    cfg = get_config(DR_ARCH)
+    B, P, new = DR_WHISPER_SERVE
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    frames = torch.randn(B, cfg.n_audio_frames, cfg.d_model, generator=g,
+                         device="cuda")
+    prompts = torch.randint(1, cfg.vocab_size, (B, P), generator=g,
+                            device="cuda", dtype=torch.int32)
+    model = LM.init_params(seed, cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    alone = dist_alone(lambda: dr_whisper_greedy(model, cfg, frames,
+                                                 prompts, new),
+                       rank, None, warm=True)
+    MP.shard_model(model, mesh)
+    lm_free()
+    with sharding_ctx(mesh):
+        dr_whisper_greedy(model, cfg, frames, prompts, new)
+        torch.distributed.barrier()
+        toks, ms = dr_whisper_greedy(model, cfg, frames, prompts, new)
+    res = dict(params=n_params, layers=[cfg.n_encoder_layers, cfg.n_layers],
+               shape=[B, cfg.n_audio_frames, P, new], ms_per_step=ms,
+               local_params=sum(p.numel() for p in model.parameters()))
+    if rank == 0:
+        (want, single_ms), _ = alone
+        check(torch.equal(toks, want), f"whisper 1 x 2 tokens "
+              f"{toks.tolist()} against one rank's {want.tolist()}")
+        res["single_ms_per_step"] = single_ms
+    del model
+    lm_free()
+    return res
+
+
+def dr_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
+    """One gloo rank on the card: phase 28's cases on a 2 x 2 mesh (world
+    4) or a 1 x 2 mesh (world 2); nothing is caught."""
+    from datetime import timedelta
+    from repro_torch.launch.mesh import make_dev_mesh
+    os.environ["PATHSIG_AUTOTUNE"] = "off"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", store=torch.distributed.FileStore(
+            os.path.join(where, "store"), world), rank=rank,
+        world_size=world, timeout=timedelta(seconds=DIST_COLLECTIVE_S))
+    res, seconds = dict(rank=rank), {}
+    if world == 4:
+        mesh = make_dev_mesh(2, 2)
+        parts = [("whisper_train", dr_whisper_train),
+                 ("qwen_train", dr_qwen_train), ("decode", dr_decode)]
+    else:
+        mesh = make_dev_mesh(1, 2)
+        parts = [("whisper_serve", dr_whisper_serve)]
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        res[name] = fn(rank, mesh, seed)
+        seconds[name] = time.perf_counter() - t0
+        if rank == 0:
+            print(f"[dryrun_mp] world of {world}: {name} "
+                  f"{seconds[name]:.1f} s", flush=True)
+    res["seconds"] = seconds
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    queue.put(res)
+
+
+def dr_compare(name: str, predicted: dict, measured: dict) -> dict:
+    """The dry run's bytes a rank and forward collectives against the real
+    world's rank 0 (counts by kind equal, bytes exactly equal)."""
+    mem = predicted["memory_analysis"]
+    fwd = {k: v["count"] for k, v in predicted["forward_collectives"].items()}
+    real = {k: v[0] for k, v in measured["forward"].items()}
+    check(mem["param_bytes"] == measured["param_bytes"]
+          and mem["opt_state_bytes"] == measured["opt_state_bytes"],
+          f"{name}: the dry run's bytes a rank (parameters "
+          f"{mem['param_bytes']}, Adafactor state {mem['opt_state_bytes']})"
+          f" against rank 0's ({measured['param_bytes']}, "
+          f"{measured['opt_state_bytes']})")
+    check(fwd == real, f"{name}: the dry run's forward collectives {fwd} "
+          f"against the real world's {real}")
+    return dict(param_bytes=mem["param_bytes"],
+                opt_state_bytes=mem["opt_state_bytes"], forward=fwd,
+                step_collectives={k: v["count"] for k, v in
+                                  predicted["collectives"].items()},
+                flops_per_dev=predicted["hlo_flops_per_dev"],
+                t_s={k: predicted[k] for k in ("t_compute_s", "t_memory_s",
+                                              "t_collective_s")},
+                temp_bytes=mem["temp_size_bytes"],
+                wall_s=predicted["wall_s"])
+
+
+def phase_dryrun_mp(seed: int) -> dict:
+    """Phase 28: the dry run on an abstract 2 x 2 mesh against a real
+    gloo world, whisper's model axis served and trained, Adafactor on
+    sharded parameters, and decode under the dry run's rules."""
+    import queue as queue_mod
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.get_context("spawn")
+    dq = ctx.Queue()
+    child = ctx.Process(target=dr_child, args=(seed, dq))
+    child.start()
+    worlds, world_s = {}, {}
+    try:
+        for P in (4, 2):
+            t1 = time.perf_counter()
+            worlds[P] = dist_world(P, seed, target=dr_rank)
+            world_s[P] = time.perf_counter() - t1
+        try:
+            predicted = dq.get(timeout=DIST_WORLD_S)
+        except queue_mod.Empty:
+            check(False, f"the dry run's process: no result in "
+                  f"{DIST_WORLD_S} s (exit code {child.exitcode})")
+        child.join(timeout=60)
+    finally:
+        if child.is_alive():
+            child.kill()
+            child.join()
+    check(child.exitcode == 0, f"the dry run's process exited "
+          f"{child.exitcode}")
+    r4, r2 = worlds[4][0], worlds[2][0]
+    s = r2["whisper_serve"]
+    print(f"[dryrun_mp] 1 x 2 whisper-large-v3 as published ("
+          f"{s['params'] / 1e9:.2f}B parameters, {s['layers'][0]} + "
+          f"{s['layers'][1]} layers), {s['shape'][0]} requests over "
+          f"{s['shape'][1]} frames, {s['shape'][2]}-token prompts, "
+          f"{s['shape'][3]} greedy tokens: tokens equal one rank's; "
+          f"{s['ms_per_step']:.1f} ms a decode step (one rank alone "
+          f"{s['single_ms_per_step']:.1f} ms); {s['local_params']} "
+          f"parameters on rank 0", flush=True)
+    w = r4["whisper_train"]
+    print(f"[dryrun_mp] 2 x 2 whisper-large-v3 at full width, depth cut to "
+          f"{w['layers'][0]} + {w['layers'][1]} of {w['published_layers'][0]}"
+          f" + {w['published_layers'][1]} layers, batch {w['batch']} "
+          f"(requests, frames, tokens), Adafactor {len(w['losses'])} steps: "
+          f"losses {np.round(w['losses'], 6).tolist()} against one rank's "
+          f"{np.round(w['single_losses'], 6).tolist()}; first-step "
+          f"gradients max |err| {w['grad_max_abs_err']:.2e}; step "
+          f"{w['step_ms']:.1f} ms (one rank alone {w['single_step_ms']:.1f}"
+          f" ms); {w['local_params']} of {w['full_params']} parameters on "
+          f"rank 0", flush=True)
+    q = r4["qwen_train"]
+    print(f"[dryrun_mp] 2 x 2 qwen3-4b sig-MMD with Adafactor (depth "
+          f"{q['layers']}, {q['shape'][0]} x {q['shape'][1]}): losses "
+          f"{np.round(q['losses'], 6).tolist()} against one rank's "
+          f"{np.round(q['single_losses'], 6).tolist()}; first-step "
+          f"gradients max |err| {q['grad_max_abs_err']:.2e}; step "
+          f"{q['step_ms']:.1f} ms (one rank alone {q['single_step_ms']:.1f}"
+          f" ms); launches a rank "
+          f"{[r['qwen_train']['launches_per_rank'] for r in worlds[4]]}",
+          flush=True)
+    d = r4["decode"]
+    print(f"[dryrun_mp] 2 x 2 qwen3-4b as published, greedy "
+          f"{d['shape']}: tokens equal one rank's under both rule sets; "
+          f"{d['rules_for_ms']:.1f} ms a step under rules_for(qwen3-4b, "
+          f"decode_32k) = {d['rules']}, {d['default_ms']:.1f} under the "
+          f"default rules, {d['single_ms']:.1f} on one rank alone (ranks "
+          f"share the card: ratio rules_for / default "
+          f"{d['rules_for_ms'] / d['default_ms']:.3f}, not a speedup); "
+          f"{d['rules_for_local_params']} and {d['default_local_params']} "
+          f"parameters on rank 0", flush=True)
+    dry = {"whisper": dr_compare("whisper", predicted["whisper"],
+                                 w["measured"]),
+           "qwen": dr_compare("qwen3-4b sig-MMD", predicted["qwen"],
+                              q["measured"])}
+    print(f"[dryrun_mp] dry run on AbstractMesh((2, 2)) against rank 0: "
+          + "; ".join(f"{k}: parameters {v['param_bytes']} B, Adafactor "
+                      f"state {v['opt_state_bytes']} B (equal), one "
+                      f"forward's collectives {v['forward']} (equal), a "
+                      f"step's {v['step_collectives']}, "
+                      f"{v['flops_per_dev']:.4e} FLOPs a rank, terms "
+                      f"{ {t: float(f'{x:.4g}') for t, x in v['t_s'].items()} }"
+                      f", {v['wall_s']:.1f} s"
+                      for k, v in dry.items()), flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"[dryrun_mp] worlds' wall seconds {world_s}; seconds a case "
+          f"(rank 0) { {k: round(v, 1) for k, v in r4['seconds'].items()} }"
+          f" { {k: round(v, 1) for k, v in r2['seconds'].items()} }; "
+          f"phase 28 {seconds:.1f} s", flush=True)
+    return dict(world_s=world_s, world4=r4, world2=r2, dryrun=dry,
+                launches=[r["qwen_train"]["launches_per_rank"]
+                          for r in worlds[4]], seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6251,6 +6781,9 @@ def main() -> int:
     mpar = phase_model_parallel(args.seed)
     print(f"[timing] model-parallel phase: {mpar['seconds']:.1f} s",
           flush=True)
+    drmp = phase_dryrun_mp(args.seed)
+    print(f"[timing] dry-run and model-axis phase: {drmp['seconds']:.1f} s",
+          flush=True)
     shard_cases = {name: [] for name in ("sig_trunc", "sig_words",
                                          "sig_gram", "sig_sweep")}
     for P, r0 in distd["worlds"].items():
@@ -6270,6 +6803,11 @@ def main() -> int:
     for k in ("sig_trunc", "sig_gram", "sig_sweep"):
         shard_cases[k].append(dict(mp_case, launches_per_rank=[
             {n: c for n, c in r.items() if n == k} for r in mpar["launches"]]))
+    dr_case = {k: v for k, v in drmp["world4"]["qwen_train"].items()
+               if k not in ("losses", "single_losses", "measured")}
+    for k in ("sig_trunc", "sig_gram", "sig_sweep"):
+        shard_cases[k].append(dict(dr_case, launches_per_rank=[
+            {n: c for n, c in r.items() if n == k} for r in drmp["launches"]]))
     heads = lm["heads"]
     lm_launches = lm["train"]["launches"]
     moe = fam["train"]
@@ -6414,7 +6952,7 @@ def main() -> int:
             streams=streams, new_phases_s=new_s, sessions=sessions,
             sessions_s=sessions_s, slice8=slice8, slice8_s=slice8_s,
             lm=lm, lm_s=lm_s, families=fam, distributed=distd,
-            model_parallel=mpar), indent=1))
+            model_parallel=mpar, dryrun_mp=drmp), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -188,27 +188,31 @@ def rows_set(rows):
         _ROWS.reset(token)
 
 
-def slice_rows(x, i: int, n: int):
-    """Microbatch ``i`` of ``n`` of a placed batch leaf: a slice of this
-    rank's own rows, laid out as a batch of B / n rows (every rank's
-    block must split evenly: B divisible by n times the shard count).  A
-    plain leaf is sliced on its first axis, as the reference slices its
-    batch."""
+def microbatches(x, n: int) -> list:
+    """The ``n`` microbatches of a batch leaf, the reference's contiguous
+    slices of the global batch: microbatch i holds global rows
+    [i·B/n, (i+1)·B/n).  A placed leaf (a DTensor over the batch axes)
+    gives placed microbatches: rank r's block of microbatch i is the r-th
+    shard of those rows, gathered from the ranks that hold them (one
+    all-gather of the leaf's rows over the batch group a step; every
+    microbatch must split evenly, B divisible by n times the shard
+    count).  A plain leaf is sliced on its first axis."""
     if not is_dtensor(x):
         per = x.shape[0] // n
-        return x[i * per:(i + 1) * per]
+        return [x[i * per:(i + 1) * per] for i in range(n)]
     import torch.distributed as dist
+    from . import collectives as C
     B, group = x.shape[0], group_of(x)
-    P = dist.get_world_size(group)
+    P, r = dist.get_world_size(group), dist.get_rank(group)
     if B % (n * P):
         raise ValueError(
             f"microbatch {n} of a batch of {B} rows over {P} shards: the "
             f"rows must split evenly, B divisible by {n * P}")
-    loc = x.to_local()
-    per = loc.shape[0] // n
+    whole = C.all_gather(x.to_local(), group, tag="microbatch")
+    per = B // (n * P)
     from torch.distributed.tensor import DTensor
-    shape = (B // n,) + tuple(loc.shape[1:])
-    return DTensor.from_local(loc[i * per:(i + 1) * per], x.device_mesh,
-                              x.placements, run_check=False,
-                              shape=torch.Size(shape),
-                              stride=_contiguous_stride(shape))
+    shape = (B // n,) + tuple(whole.shape[1:])
+    return [DTensor.from_local(
+        whole[(i * P + r) * per:(i * P + r + 1) * per], x.device_mesh,
+        x.placements, run_check=False, shape=torch.Size(shape),
+        stride=_contiguous_stride(shape)) for i in range(n)]

@@ -14,7 +14,11 @@ Transport follows the group's backend (``dist.get_backend(group)``):
   staged through a host buffer: the tensor is copied to the host, sent,
   and the received buffer copied back.  That is gloo's only transport for
   those operations, not a fallback: the kernels run on the card either
-  way.  gloo has no reduce-scatter for any tensor: on a gloo group it is
+  way.
+- ``fake`` (``torch.testing._internal.distributed.fake_pg``, the dry
+  run's world of meta tensors) accepts every operation but a send/recv,
+  which it cannot take for a meta tensor: the ring's permutes are logged
+  with their bytes and nothing is issued.  gloo has no reduce-scatter for any tensor: on a gloo group it is
   an all-reduce of the whole tensor of which each rank keeps its block
   (``"gloo-allreduce"``).  The choice is logged once per (backend,
   operation).
@@ -53,6 +57,7 @@ class Record:
     tag: str = ""           # the caller's site ("gram_ring", "loss", ...)
     step: int = -1          # ring step (markers and permutes)
     transport: str = ""
+    ranks: tuple = ()       # the group's global ranks
 
 
 class CollectiveLog:
@@ -109,11 +114,23 @@ def transport(group, t: torch.Tensor, kind: str) -> str:
     return how
 
 
+_RANKS: dict = {}
+
+
+def group_ranks(group) -> tuple:
+    """The group's global ranks (one shared tuple a group)."""
+    key = id(group)
+    if key not in _RANKS or _RANKS[key][0] is not group:
+        _RANKS[key] = (group, tuple(dist.get_process_group_ranks(group)))
+    return _RANKS[key][1]
+
+
 def _log(kind: str, t: torch.Tensor, group, how: str, *, tag: str = "",
          step: int = -1) -> None:
     n = dist.get_world_size(group)
     nbytes = t.numel() * t.element_size()
-    LOG.add(Record(kind, nbytes, _wire(kind, nbytes, n), n, tag, step, how))
+    LOG.add(Record(kind, nbytes, _wire(kind, nbytes, n), n, tag, step, how,
+                   group_ranks(group)))
 
 
 def all_reduce_(t: torch.Tensor, group, *, tag: str = "",
@@ -207,7 +224,10 @@ class RingShift:
             self.recv.append(recv)
             _log(PERMUTE, t, group, how, tag=tag, step=step)
         self._keep = ops          # the send buffers live until wait()
-        self.reqs = dist.batch_isend_irecv(ops)
+        # torch.distributed's fake backend (the dry run's world) takes no
+        # send/recv of meta tensors: the permutes are logged, nothing moves
+        fake = str(dist.get_backend(group)) == "fake"
+        self.reqs = [] if fake else dist.batch_isend_irecv(ops)
 
     def wait(self) -> list:
         for r in self.reqs:

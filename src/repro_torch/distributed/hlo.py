@@ -16,7 +16,7 @@ counts the leaves still at the same address after it.
 
 Remat: the reference counts repeated dot shapes in the HLO.
 :func:`remat_duplication` records the matmuls of one forward plus
-backward with a ``TorchDispatchMode`` and answers their count over their
+backward (``obs.compile.CostCounter``) and answers their count over their
 unique (operation, shapes, dtype) keys: recomputed layers repeat the
 same products, so ``remat="full"`` gives a larger ratio than
 ``"none"``.
@@ -28,6 +28,7 @@ from collections import defaultdict
 
 import torch
 
+from ..obs.compile import CostCounter
 from .collectives import LOG, PERMUTE
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -185,30 +186,18 @@ def assert_donation(before: dict, after, min_aliased: int = 1
 
 # -- remat -------------------------------------------------------------------
 
-_MATMULS = ("mm", "bmm", "addmm", "baddbmm")
+def duplication(keys: list) -> float:
+    """The matmul count over the unique keys among them (1.0 when there is
+    none)."""
+    if not keys:
+        return 1.0
+    return len(keys) / max(1, len(set(keys)))
 
 
 def remat_duplication(fn, *args, **kwargs) -> float:
     """Run ``fn(*args, **kwargs)`` (one forward plus backward) and return
     the matmul count over the unique (operation, input shapes, dtype)
     keys among them (1.0 when there is none)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    keys: list = []
-
-    class Record(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            name = func.__name__.split(".")[0]
-            if name in _MATMULS:
-                shapes = tuple(tuple(a.shape) for a in args
-                               if isinstance(a, torch.Tensor))
-                dtype = next((str(a.dtype) for a in args
-                              if isinstance(a, torch.Tensor)), "")
-                keys.append((name, shapes, dtype))
-            return func(*args, **(kwargs or {}))
-
-    with Record():
+    with CostCounter() as cost:
         fn(*args, **kwargs)
-    if not keys:
-        return 1.0
-    return len(keys) / max(1, len(set(keys)))
+    return duplication(cost.matmuls)

@@ -257,14 +257,7 @@ def shard_model(model, mesh, rules: dict | None = None):
     objects stay) and its owner records the :class:`Placement`.  Returns
     the model."""
     from .sharding import param_specs
-    cfg = getattr(model, "cfg", None)
     specs = param_specs(model, mesh, rules)
-    if cfg is not None and cfg.family == "encdec" and any(
-            MODEL in (a if isinstance(a, tuple) else (a,))
-            for s in specs.values() for a in s.spec if a is not None):
-        raise NotImplementedError(
-            "whisper's model axis is not ported (ROADMAP.md queue 1): "
-            "shard the encoder-decoder over a data axis only")
     with torch.no_grad():
         for name, mod, key in list(_owners(model)):
             sh = specs[name]
@@ -353,21 +346,28 @@ def grads_reduced_in_backward(placement: Placement | None) -> bool:
         a != MODEL for _, a in _dims(placement))
 
 
+def block_share(placement: Placement | None, mesh) -> float:
+    """The weight of one rank's sum over its block in a sum over every rank
+    of the mesh: the number of distinct blocks over the mesh's size (1 /
+    size for a replicated tensor)."""
+    held = 1
+    if placement is not None:
+        for _, axes in _dims(placement):
+            held *= axes_split(mesh, axes).size
+    return held / mesh.size()
+
+
 def sharded_norm(grads: dict, model) -> torch.Tensor:
     """The global norm of sharded gradients: each rank's sum of squares,
-    weighted by one over the number of ranks holding the same block, added
-    over the mesh (one all-reduce)."""
+    weighted by its :func:`block_share`, added over the mesh (one
+    all-reduce)."""
     from .batch import batch_mesh
     pl = placements(model)
     mesh = model_mesh(model)
-    world = mesh.size()
     total = None
     for name, g in grads.items():
-        held = 1
-        if name in pl:
-            for _, axes in _dims(pl[name]):
-                held *= axes_split(mesh, axes).size
-        sq = torch.sum(torch.square(g.float())) * (held / world)
+        sq = torch.sum(torch.square(g.float())) * block_share(pl.get(name),
+                                                              mesh)
         total = sq if total is None else total + sq
     group = batch_mesh(mesh, axis_names(mesh)).get_group()
     return torch.sqrt(C.all_reduce_(total, group, tag="grad_norm"))

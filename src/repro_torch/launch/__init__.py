@@ -1,3 +1,3 @@
-"""Command-line launchers and meshes (port of ``repro.launch``'s
-``serve``, ``train`` and ``mesh``; ``dryrun`` and ``specs`` are
-ROADMAP.md queue 1)."""
+"""Command-line launchers, meshes and the dry run (port of
+``repro.launch``: ``serve``, ``train``, ``mesh``, ``specs`` and
+``dryrun``)."""

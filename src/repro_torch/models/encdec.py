@@ -12,6 +12,21 @@ reference scans stacked parameters.
 Serving decodes one token at a time against cross K/V computed once from
 the encoder's output (:func:`prefill_cross`) and a self-attention cache of
 ``decoder_max_len`` rows, written in place.
+
+On a model sharded over a model axis
+(:func:`repro_torch.distributed.model_parallel.shard_model`) the layers
+run their tensor-parallel blocks where the reference annotates
+``shard(...)``: encoder and decoder self-attention and the
+cross-attention over this rank's heads (``wq`` column-, ``wo``
+row-parallel; ``cross_kv`` projects the KV heads of this rank's query
+heads from the replicated ``wk``/``wv``), the gated GELU MLPs over their
+``ff`` columns, and the tied vocabulary as the decoder LM's is: a
+vocab-parallel lookup, this rank's block of the logits in the loss,
+gathered logits in decoding.  A head count the model axis does not divide
+(20 heads over 16) runs on the whole weights.  FSDP shards (``"data"``)
+are gathered by ``p[key]``.  A cache made by :func:`init_cache` under a
+sharding context is this rank's block by ``cache_specs``, the self and
+the cross K/V alike.
 """
 from __future__ import annotations
 
@@ -19,10 +34,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed.ctx import current_mesh, current_rules
+from ..distributed.model_parallel import copy_to, local_cache, reduce_from
 from .config import ModelConfig
-from .layers import (ParamTree, _init, _sdpa, _zeros, as_generator,
-                     attention, init_attention, init_mlp, mlp, rms_norm)
-from .transformer import _remat, default_positions
+from .layers import (ParamTree, _full, _init, _sdpa, _weight, _zeros,
+                     as_generator, attention, heads_split, init_attention,
+                     init_mlp, mlp, rms_norm)
+from .transformer import (_remat, _token_nll, default_positions, embed,
+                          logits_fn, vocab_logits)
 
 
 def sinusoids(length: int, channels: int) -> np.ndarray:
@@ -48,7 +67,7 @@ class EncDecLM(ParamTree):
                 remat: str = "none"):
         enc = encode(self, self.cfg, frames, remat=remat)
         hidden = decode_train(self, self.cfg, enc, tokens, remat=remat)
-        return hidden @ self["embed"].T.to(hidden.dtype)
+        return logits_fn(self, self.cfg, hidden)
 
 
 def init_params(generator, cfg: ModelConfig, dtype=torch.float32, *,
@@ -81,22 +100,42 @@ def init_params(generator, cfg: ModelConfig, dtype=torch.float32, *,
 
 
 def _cross_attention(p, x: torch.Tensor, enc_kv, cfg) -> torch.Tensor:
-    """x: (B,S,d); enc_kv: precomputed (k, v) each (B, F, H, hd)."""
+    """x: (B,S,d); enc_kv: precomputed (k, v) each (B, F, Hkv, hd): every
+    KV head, or this rank's under a heads split."""
     B, S, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads,
-                                          cfg.resolved_head_dim)
+    hd = cfg.resolved_head_dim
+    tp = heads_split(p, cfg)
     k, v = enc_kv
+    if tp is None:
+        sp, H = None, cfg.n_heads
+    else:
+        sp, kv0, Hkv = tp
+        H = cfg.n_heads // sp.size
+        if k.shape[2] != Hkv:       # the cross K/V of every head
+            k, v = (t.narrow(2, kv0, Hkv) for t in (k, v))
+    q = (copy_to(x, sp) @ _weight(p, "wq", sp).to(x.dtype)).reshape(
+        B, S, H, hd)
     out = _sdpa(q, k.to(x.dtype), v.to(x.dtype), causal=False)
-    return out @ p["wo"].to(x.dtype)
+    return reduce_from(out @ _weight(p, "wo", sp).to(x.dtype), sp)
 
 
-def cross_kv(p, enc_out: torch.Tensor, cfg):
+def cross_kv(p, enc_out: torch.Tensor, cfg, heads: int | None = None):
+    """The cross K/V of ``enc_out``, each (B, F, Hkv, hd): every KV head,
+    or under a heads split this rank's (the KV groups of its query heads,
+    from the replicated ``wk``/``wv``); ``heads=cfg.n_kv_heads`` asks for
+    every head."""
     B, F, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    k = enc_out @ p["wk"].to(enc_out.dtype)
-    v = enc_out @ p["wv"].to(enc_out.dtype)
-    return (k.reshape(B, F, cfg.n_kv_heads, hd),
-            v.reshape(B, F, cfg.n_kv_heads, hd))
+    tp = None if heads == cfg.n_kv_heads else heads_split(p, cfg)
+    sp, kv0, Hkv = (None, 0, cfg.n_kv_heads) if tp is None else tp
+
+    def w(key):
+        return copy_to(_full(p, key), sp)[..., kv0 * hd:(kv0 + Hkv) * hd] \
+            .to(enc_out.dtype)
+
+    x = copy_to(enc_out, sp)
+    return ((x @ w("wk")).reshape(B, F, Hkv, hd),
+            (x @ w("wv")).reshape(B, F, Hkv, hd))
 
 
 def encode(params, cfg: ModelConfig, frames: torch.Tensor,
@@ -124,7 +163,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor,
 def decode_train(params, cfg: ModelConfig, enc_out: torch.Tensor, tokens,
                  remat: str = "dots") -> torch.Tensor:
     B, S = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = embed(params, tokens)
     x = x + params["pos_dec"][:S][None].to(x.dtype)
     positions = default_positions(cfg, B, S, x.device)
 
@@ -148,16 +187,15 @@ def decode_train(params, cfg: ModelConfig, enc_out: torch.Tensor, tokens,
 
 def lm_loss(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
     """batch: frames (B, F, d), tokens (B, S), labels (B, S) (< 0 =
-    ignore).  The token NLL through the tied output embedding; no z-loss
-    and no aux loss.  Returns (loss, metrics)."""
+    ignore).  The token NLL through the tied output embedding (over a
+    vocabulary split, this rank's block of the logits); no z-loss and no
+    aux loss.  Returns (loss, metrics)."""
     enc = encode(params, cfg, batch["frames"], remat=remat)
     hidden = decode_train(params, cfg, enc, batch["tokens"], remat=remat)
-    logits = (hidden @ params["embed"].T.to(hidden.dtype)).float()
+    logits, sp = vocab_logits(params, cfg, hidden)
     labels = batch["labels"]
     valid = (labels >= 0).float()
-    safe = torch.clamp(labels, min=0).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll, _ = _token_nll(logits.float(), labels, sp)
     ntok = torch.clamp(valid.sum(), min=1.0)
     loss = (nll * valid).sum() / ntok
     return loss, {"loss": loss, "ntok": ntok}
@@ -171,7 +209,16 @@ def init_cache(cfg: ModelConfig, B: int, n_frames: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Cross K/V (L, B, n_frames, Hkv, hd), self K/V (L, B,
     decoder_max_len, Hkv, hd) and an int32 ``index`` a layer, zero, on
-    ``device`` (default CUDA)."""
+    ``device`` (default CUDA).  Under a sharding context each leaf is this
+    rank's block by ``cache_specs`` (the batch whole on every rank)."""
+    cache = _init_cache(cfg, B, n_frames, dtype, device)
+    mesh = current_mesh()
+    return cache if mesh is None else local_cache(cache, mesh,
+                                                  current_rules())
+
+
+def _init_cache(cfg: ModelConfig, B: int, n_frames: int, dtype,
+                device) -> dict:
     dev = resolve_device(device)
     hd, L = cfg.resolved_head_dim, cfg.n_layers
 
@@ -188,8 +235,9 @@ def init_cache(cfg: ModelConfig, B: int, n_frames: int,
 def prefill_cross(params, cfg: ModelConfig, enc_out: torch.Tensor,
                   cache: dict) -> dict:
     """The cache with each decoder layer's cross K/V of ``enc_out`` (in
-    the cache's dtype)."""
-    ks, vs = zip(*(cross_kv(p["cross_attn"], enc_out, cfg)
+    the cache's dtype), as many KV heads as the cache holds."""
+    heads = cache["cross_k"].shape[3]
+    ks, vs = zip(*(cross_kv(p["cross_attn"], enc_out, cfg, heads)
                    for p in params["dec_layers"]))
     return dict(cache, cross_k=torch.stack(ks).to(cache["cross_k"].dtype),
                 cross_v=torch.stack(vs).to(cache["cross_v"].dtype))
@@ -203,9 +251,10 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: dict):
     ``dynamic_slice_in_dim`` clamps; the self cache is written in place."""
     B, S = tokens.shape
     idx = cache["index"][0]
-    x = params["embed"][tokens.long()]
+    x = embed(params, tokens)
     row = torch.clamp(idx, 0, params["pos_dec"].shape[0] - 1).long()
-    x = x + params["pos_dec"][row][None, None].to(x.dtype)
+    x = x + params["pos_dec"].index_select(0, row.reshape(1))[None].to(
+        x.dtype)
     positions = default_positions(cfg, B, S, x.device, start=idx)
     for i, p in enumerate(params["dec_layers"]):
         a, new_kv = attention(
@@ -220,4 +269,4 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: dict):
         x = x + mlp(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), cfg.act)
         cache["index"][i] = new_kv["index"]
     hidden = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return (hidden @ params["embed"].T.to(hidden.dtype)).float(), cache
+    return logits_fn(params, cfg, hidden).float(), cache

@@ -19,7 +19,8 @@ Port of ``repro.obs``; one import surface::
   ``torch.profiler.record_function`` bridge (``PATHSIG_TRACE_TORCH=1``).
 - :mod:`repro_torch.obs.compile` — first launches of a new shape and
   ``nvcc`` builds, counted under the reference's retrace counter
-  (:func:`count_trace`, :func:`shape_key`).
+  (:func:`count_trace`, :func:`shape_key`), and the FLOPs and bytes of
+  a computation counted on meta tensors (:func:`record_cost`).
 - :mod:`repro_torch.obs.slo` — declarative SLOs over snapshots / value
   dicts / JSONL run logs; backs ``SessionStore.health()`` and
   ``DynamicBatcher.health()``.
@@ -34,7 +35,7 @@ imports it.
 """
 from . import slo
 from .compile import (TRACE_COUNTER_NAME, count_trace, record_collectives,
-                      set_retrace_sink, shape_key)
+                      record_cost, set_retrace_sink, shape_key)
 from .flight import (FLIGHT, FlightRecorder, disable_flight, dump_on_error,
                      enable_flight, flight_active)
 from .metrics import (DEFAULT_BUCKETS, DEFAULT_MAX_LABEL_SETS, REGISTRY,
@@ -61,7 +62,7 @@ __all__ = [
     "stop_trace", "trace_active", "trace_scope",
     # launch-shape accounting
     "TRACE_COUNTER_NAME", "shape_key", "count_trace", "set_retrace_sink",
-    "record_collectives",
+    "record_collectives", "record_cost",
     # SLOs
     "slo", "Slo", "SloResult", "SloBreach", "evaluate_values",
     "evaluate_snapshot", "evaluate_log", "breached", "report",

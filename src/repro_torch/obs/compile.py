@@ -12,13 +12,33 @@ build (``kernels/_build.py``, site ``build.<kernel>``).  Both go through
 ``obs.slo.default_slos(retrace_budget=)`` reads the port's snapshot
 unchanged.  The retrace key also goes to the flight recorder's ring with
 metrics off.
+
+The reference's ``record_cost`` publishes XLA's ``cost_analysis`` of a
+lowered computation.  The port's :func:`record_cost` runs the callable
+on meta copies of its tensor arguments under :class:`CostCounter`: a
+``torch.utils.flop_counter.FlopCounterMode`` for the FLOPs and a
+dispatch mode that adds up every operation's input and output bytes,
+unfused, as XLA's ``bytes accessed`` is.  ``repro_torch.launch.dryrun``
+counts its cells with the same :class:`CostCounter`.
+
+The reference's ``instrument_jit`` (``jax.jit`` with a retrace counter)
+has no counterpart: the port has no jit, and launch-shape accounting
+(:func:`count_new_shape` in the kernel wrappers and the trainer) plays
+its role.
 """
 from __future__ import annotations
+
+import copy
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from . import metrics
 
 __all__ = ["shape_key", "count_trace", "count_new_shape",
-           "TRACE_COUNTER_NAME", "set_retrace_sink", "record_collectives"]
+           "TRACE_COUNTER_NAME", "set_retrace_sink", "record_collectives",
+           "record_cost", "CostCounter"]
 
 TRACE_COUNTER_NAME = "pathsig_jit_traces_total"
 
@@ -112,3 +132,160 @@ def record_collectives(site: str, stats) -> None:
     for kind, (count, _result_bytes, wire_bytes) in stats.by_kind.items():
         c.inc(count, site=site, kind=kind)
         b.inc(wire_bytes, site=site, kind=kind)
+
+
+class CostCounter:
+    """Count the FLOPs and the bytes of the operations run inside the
+    block: ``with CostCounter() as cc: fn(...)`` then ``cc.flops``,
+    ``cc.bytes`` and ``cc.raw()``.  FLOPs are
+    ``torch.utils.flop_counter.FlopCounterMode``'s (matmuls, attention,
+    convolutions); bytes are each operation's tensor inputs read once and
+    outputs written once, views (an output aliasing an input, not written)
+    excluded.  ``peak_bytes`` is the peak of the live bytes of the
+    operations' new outputs (each counted until it is freed) and
+    ``matmuls`` the (operation, input shapes, dtype) key of every matmul.
+    Works on meta tensors, where nothing runs."""
+
+    def __init__(self):
+        from torch.utils.flop_counter import FlopCounterMode
+        self._flops = FlopCounterMode(display=False)
+        self._ops = _OpCounter()
+        self.bytes_by_op: dict = self._ops.by_op
+        self.matmuls: list = self._ops.matmuls
+
+    def __enter__(self):
+        self._flops.__enter__()
+        self._ops.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.__exit__(*exc)
+        self._flops.__exit__(*exc)
+        return False
+
+    @property
+    def flops(self) -> float:
+        return float(self._flops.get_total_flops())
+
+    @property
+    def bytes(self) -> float:
+        return float(sum(self.bytes_by_op.values()))
+
+    @property
+    def peak_bytes(self) -> int:
+        return self._ops.peak
+
+    def raw(self) -> dict:
+        """``{"flops_by_op": ..., "bytes_by_op": ...}`` keyed by aten
+        operation name."""
+        flops = self._flops.get_flop_counts().get("Global", {})
+        return {"flops_by_op": {str(k): float(v) for k, v in flops.items()},
+                "bytes_by_op": dict(self.bytes_by_op)}
+
+
+_MATMULS = ("mm", "bmm", "addmm", "baddbmm")
+
+
+def matmul_key(func, args):
+    """(operation, input shapes, dtype) of a matmul, else None."""
+    name = func.__name__.split(".")[0]
+    if name not in _MATMULS:
+        return None
+    shapes = tuple(tuple(a.shape) for a in args
+                   if isinstance(a, torch.Tensor))
+    dtype = next((str(a.dtype) for a in args
+                  if isinstance(a, torch.Tensor)), "")
+    return name, shapes, dtype
+
+
+def _tensors(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+class _OpCounter(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.by_op: dict = {}
+        self.matmuls: list = []
+        self.live = 0
+        self.peak = 0
+
+    def _free(self, n: int) -> None:
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        returns = func._schema.returns
+        outs = _tensors(out if isinstance(out, (list, tuple)) else [out])
+        if not (returns and all(r.alias_info is not None
+                                and not r.alias_info.is_write
+                                for r in returns)):      # not a view
+            n = sum(t.numel() * t.element_size() for t in
+                    _tensors(list(args)) + _tensors(
+                        list((kwargs or {}).values())) + outs)
+            name = func.__name__.split(".")[0]
+            self.by_op[name] = self.by_op.get(name, 0) + n
+        if not any(r.alias_info is not None for r in returns):  # new
+            for t in outs:
+                n = t.numel() * t.element_size()
+                self.live += n
+                weakref.finalize(t, self._free, n)
+            self.peak = max(self.peak, self.live)
+        key = matmul_key(func, args)
+        if key is not None:
+            self.matmuls.append(key)
+        return out
+
+
+def _meta_copy(x, memo: dict):
+    """``x`` with every tensor (a module's parameters and buffers too)
+    replaced by a meta tensor of its shape and dtype; nothing real is
+    copied."""
+    if isinstance(x, torch.nn.Module):
+        for t in list(x.parameters()) + list(x.buffers()):
+            if id(t) not in memo:
+                m = torch.empty_like(t, device="meta")
+                memo[id(t)] = torch.nn.Parameter(
+                    m, requires_grad=t.requires_grad) \
+                    if isinstance(t, torch.nn.Parameter) else m
+        return copy.deepcopy(x, memo)
+    if isinstance(x, torch.Tensor):
+        if id(x) not in memo:
+            memo[id(x)] = torch.empty_like(x, device="meta").requires_grad_(
+                x.requires_grad)
+        return memo[id(x)]
+    if isinstance(x, dict):
+        return {k: _meta_copy(v, memo) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_meta_copy(v, memo) for v in x)
+    return x
+
+
+def record_cost(site: str, fn, *args, **kwargs) -> dict:
+    """Run ``fn(*args, **kwargs)`` on meta copies of its tensor arguments
+    (a module's parameters included) under :class:`CostCounter` and
+    publish its cost as gauges: ``pathsig_lowered_flops{site=}`` and
+    ``pathsig_lowered_bytes{site=}``.  Returns ``{"flops", "bytes",
+    "raw"}``.
+
+    Nothing runs on a device and nothing is allocated: opt-in for
+    benchmarks and examples, not the hot path.  ``fn`` must run on meta
+    tensors (no ``.item()``, no host copy of a result)."""
+    memo: dict = {}
+    margs = _meta_copy(args, memo)
+    mkw = _meta_copy(kwargs, memo)
+    with CostCounter() as cc:
+        fn(*margs, **mkw)
+    flops, nbytes = cc.flops, cc.bytes
+    metrics.gauge("pathsig_lowered_flops",
+                  "FLOPs of the computation counted on meta tensors "
+                  "(FlopCounterMode)", ("site",)).set(flops, site=site)
+    metrics.gauge("pathsig_lowered_bytes",
+                  "bytes accessed by the computation's operations, "
+                  "unfused, counted on meta tensors", ("site",)
+                  ).set(nbytes, site=site)
+    return {"flops": flops, "bytes": nbytes, "raw": cc.raw()}

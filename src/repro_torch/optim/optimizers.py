@@ -30,6 +30,11 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..distributed import collectives as C
+from ..distributed.batch import batch_mesh
+from ..distributed.ctx import axis_names
+from ..distributed.model_parallel import axes_split, block_share, placements
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -158,29 +163,47 @@ def _stack_key(name: str) -> str:
     return _STACKED.sub(r"\1.", name)
 
 
+def _layout(params) -> dict:
+    """``{name: Placement}`` of a model's sharded parameters (empty for a
+    dict of tensors or an unsharded model)."""
+    return placements(params) if isinstance(params, nn.Module) else {}
+
+
 def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
               min_dim_factored=128) -> Optimizer:
-    """Memory-factored second-moment optimizer."""
+    """Memory-factored second-moment optimizer.
+
+    On a sharded model (:func:`repro_torch.distributed.model_parallel.
+    shard_model`) every slot is whole and replicated, as the reference's
+    ``opt_state_specs`` lays Adafactor's slots out, and the statistics are
+    the global leaf's: a factored leaf's row and column means sum this
+    rank's block and all-reduce over the ranks that shard the averaged
+    dimension, and each new slot is gathered whole from the ranks' blocks;
+    the update clip's RMS adds every rank's sum of squares over the mesh
+    (one all-reduce for every sharded leaf)."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
-    def factored(p):
-        return p.ndim >= 2 and p.shape[-1] >= min_dim_factored and \
-            p.shape[-2] >= min_dim_factored
+    def factored(shape):
+        return len(shape) >= 2 and shape[-1] >= min_dim_factored and \
+            shape[-2] >= min_dim_factored
 
     def init(params):
+        layout = _layout(params)
         params = named(params)
 
-        def one(p):
-            if factored(p):
-                return {"vr": p.new_zeros(p.shape[:-1], dtype=torch.float32),
-                        "vc": p.new_zeros(p.shape[:-2] + p.shape[-1:],
+        def one(k, p):
+            shape = tuple(layout[k].shape) if k in layout else tuple(p.shape)
+            if factored(shape):
+                return {"vr": p.new_zeros(shape[:-1], dtype=torch.float32),
+                        "vc": p.new_zeros(shape[:-2] + shape[-1:],
                                           dtype=torch.float32)}
-            return {"v": torch.zeros_like(p, dtype=torch.float32)}
-        return {"slots": {k: one(p) for k, p in params.items()},
+            return {"v": p.new_zeros(shape, dtype=torch.float32)}
+        return {"slots": {k: one(k, p) for k, p in params.items()},
                 "step": _step_counter(params)}
 
     @torch.no_grad()
     def update(grads, state, params):
+        layout = _layout(params)
         params = named(params)
         state["step"] += 1
         step = state["step"]
@@ -191,24 +214,46 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
             g = grads[k].float()
             g2 = g * g + eps
             slot = state["slots"][k]
-            if factored(p):
-                vr = slot["vr"].copy_(beta * slot["vr"]
-                                      + (1 - beta) * torch.mean(g2, dim=-1))
-                vc = slot["vc"].copy_(beta * slot["vc"]
-                                      + (1 - beta) * torch.mean(g2, dim=-2))
+            pl = layout.get(k)
+            sh = _Sharded(pl) if pl is not None else None
+            if "vr" in slot:
+                if sh is None:
+                    vr = slot["vr"].copy_(beta * slot["vr"] + (1 - beta)
+                                          * torch.mean(g2, dim=-1))
+                    vc = slot["vc"].copy_(beta * slot["vc"] + (1 - beta)
+                                          * torch.mean(g2, dim=-2))
+                    mean_vr = torch.mean(vr, dim=-1, keepdim=True)
+                else:
+                    n = sh.nd
+                    vr = sh.update(slot["vr"], beta, g2, n - 1)
+                    vc = sh.update(slot["vc"], beta, g2, n - 2)
+                    mean_vr = sh.mine(torch.mean(slot["vr"], dim=-1,
+                                                 keepdim=True), n - 1,
+                                      skip=(n - 2,))
                 denom = torch.sqrt(
                     vr[..., None] * vc[..., None, :] /
-                    (torch.mean(vr, dim=-1, keepdim=True)[..., None] + eps))
+                    (mean_vr[..., None] + eps))
                 us[k] = g / (denom + eps)
             else:
-                v = slot["v"].copy_(beta * slot["v"] + (1 - beta) * g2)
+                if sh is None:
+                    v = slot["v"].copy_(beta * slot["v"] + (1 - beta) * g2)
+                else:
+                    v = sh.update(slot["v"], beta, g2, None)
                 us[k] = g / (torch.sqrt(v) + eps)
-        # the RMS of each reference leaf: a stacked leaf spans its layers
+        # the RMS of each reference leaf: a stacked leaf spans its layers,
+        # a sharded one its ranks' blocks (summed over the mesh, each sum
+        # of squares weighted by its share)
+        split = {_stack_key(k) for k in layout}
+        mesh = next(iter(layout.values())).sharding.mesh if layout else None
         sq, count = {}, {}
         for k, u in us.items():
             key = _stack_key(k)
-            sq[key] = sq.get(key, 0.0) + torch.sum(u * u)
-            count[key] = count.get(key, 0) + u.numel()
+            w = block_share(layout.get(k), mesh) if key in split else 1.0
+            sq[key] = sq.get(key, 0.0) + torch.sum(u * u) * w
+            count[key] = count.get(key, 0) + (
+                math.prod(layout[k].shape) if k in layout else u.numel())
+        if split:
+            sq = _sum_over_mesh(sq, split, mesh)
         for k, p in params.items():
             key = _stack_key(k)
             rms = torch.sqrt(sq[key] / count[key] + eps)
@@ -217,6 +262,70 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
         return state
 
     return Optimizer(init, update)
+
+
+class _Sharded:
+    """Adafactor's statistics of one sharded leaf: its sharded dimensions,
+    their splits, and the moves between this rank's block and a whole,
+    replicated slot."""
+
+    def __init__(self, placement):
+        mesh = placement.sharding.mesh
+        self.shape = tuple(placement.shape)
+        self.nd = len(self.shape)
+        self.dims = {}
+        for d, a in enumerate(placement.spec):
+            if a is not None and axes_split(mesh, a).size > 1:
+                self.dims[d] = axes_split(mesh, a)
+
+    def mine(self, whole: torch.Tensor, dropped=None, skip=()) -> \
+            torch.Tensor:
+        """This rank's block of a slot shaped as the leaf with dimension
+        ``dropped`` (a leaf dimension, or None) taken out; the leaf
+        dimensions in ``skip`` are not cut."""
+        out = whole
+        for d, sp in self.dims.items():
+            if d == dropped or d in skip:
+                continue
+            start, n = sp.block(self.shape[d])
+            out = out.narrow(self._at(d, dropped), start, n)
+        return out
+
+    def _at(self, d: int, dropped) -> int:
+        return d if dropped is None or d < dropped else d - 1
+
+    def update(self, slot: torch.Tensor, beta, g2: torch.Tensor, dim):
+        """``slot = beta·slot + (1 − beta)·stat`` where stat is g2 (``dim``
+        None) or its mean over leaf dimension ``dim`` of the global leaf;
+        returns this rank's block of the new slot, which is written
+        whole."""
+        if dim is None:
+            stat = g2
+        else:
+            stat = g2.sum(dim=dim)
+            if dim in self.dims:
+                stat = C.all_reduce_(stat, self.dims[dim].group,
+                                     tag="adafactor_moment")
+            stat = stat / self.shape[dim]
+        new = beta * self.mine(slot, dim) + (1 - beta) * stat
+        whole = new
+        for d, sp in self.dims.items():
+            if d != dim:
+                whole = C.all_gather(whole, sp.group, dim=self._at(d, dim),
+                                     tag="adafactor_slot")
+        slot.copy_(whole)
+        return new
+
+
+def _sum_over_mesh(sq: dict, keys: set, mesh) -> dict:
+    """``sq`` with the entries of ``keys`` (each rank's share) summed over
+    every rank of the mesh in one all-reduce."""
+    keys = sorted(keys)
+    group = batch_mesh(mesh, axis_names(mesh)).get_group()
+    vec = C.all_reduce_(torch.stack([torch.as_tensor(sq[k]).float()
+                                     for k in keys]), group,
+                        tag="adafactor_rms")
+    return dict(sq, **{k: vec[i] for i, k in enumerate(keys)})
 
 
 def sgd(lr=1e-2, momentum=0.9) -> Optimizer:

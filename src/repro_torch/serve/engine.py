@@ -300,8 +300,7 @@ def make_prefill_step(cfg: ModelConfig, remat: str = "dots"):
             enc = encdec.encode(params, cfg, batch["frames"], remat=remat)
             hidden = encdec.decode_train(params, cfg, enc, batch["tokens"],
                                          remat=remat)
-            return (hidden[:, -1] @ params["embed"].T.to(
-                hidden.dtype)).float()
+            return T.logits_fn(params, cfg, hidden[:, -1:])[:, 0].float()
         return prefill
 
     @torch.no_grad()

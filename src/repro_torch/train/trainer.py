@@ -189,7 +189,8 @@ def _placed_lm_loss(params, cfg: ModelConfig, batch: dict, remat: str):
                              remat=remat)
     ntok = C.all_reduce_(m["ntok"].detach().clone(), group, tag="loss")
     share = m["ntok"].detach() / ntok
-    aux = torch.as_tensor(m["aux"], dtype=total.dtype, device=total.device)
+    aux = torch.as_tensor(m.get("aux", 0.0), dtype=total.dtype,
+                          device=total.device)
     total = C.reduce_sum((total - aux) * share, group, tag="loss") + aux
     loss = C.all_reduce_(m["loss"].detach() * share, group, tag="loss")
     return total, {"loss": loss, "aux": aux.detach(), "ntok": ntok}
@@ -285,19 +286,15 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
         group = _batch_group(batch)
         layout = MP.placements(params) \
             if isinstance(params, torch.nn.Module) else {}
-        if layout and "slots" in opt_state:      # Adafactor's state
-            raise NotImplementedError(
-                "Adafactor's factored moments on sharded parameters are not "
-                "ported (ROADMAP.md queue 1): train a model-parallel mesh "
-                "with adamw or sgd")
         if microbatch and microbatch > 1:
-            # a placed batch: each microbatch is a slice of every rank's own
-            # rows (DB.slice_rows); else of the whole batch
+            # microbatch i is the reference's contiguous slice of the
+            # global batch, placed: DB.microbatches
+            parts = {k: DB.microbatches(v, microbatch)
+                     for k, v in batch.items()}
             acc, loss_sum = None, 0.0
             for i in range(microbatch):
                 loss_val, _, grads = grads_of(
-                    params, {k: DB.slice_rows(v, i, microbatch)
-                             for k, v in batch.items()})
+                    params, {k: v[i] for k, v in parts.items()})
                 acc = grads if acc is None else {
                     k: acc[k] + g for k, g in grads.items()}
                 loss_sum = loss_sum + loss_val

@@ -1,0 +1,220 @@
+"""``repro_torch.launch.dryrun`` and ``obs.record_cost``.
+
+- ``rules_for`` equals the reference's dict for every cell (and with
+  overrides).
+- The fake world lives in a subprocess (one for the module): the CLI over
+  every arch at ``long_500k`` on both production meshes (the eight
+  full-attention archs skipped with the reference's reason, zamba2's and
+  rwkv6's decode cells run), two decode cells of the production mesh, and
+  a dense LM-loss train step of reduced qwen3-4b on a 2 x 2 mesh whose
+  FLOPs a rank times 4 lie within 10% of the same step's FLOPs on one
+  rank alone.
+- ``record_cost`` counts 2·m·n·k FLOPs for a matmul and publishes its
+  gauges under the reference's names.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import configs as tconfigs
+from repro_torch.launch import dryrun as tdryrun
+from repro_torch.launch import specs as tspecs
+
+HERE = Path(__file__).resolve().parent
+
+
+def _reference_dryrun():
+    """``repro.launch.dryrun`` without its XLA_FLAGS reaching this
+    process's later subprocesses (it sets 512 host devices on import)."""
+    before = os.environ.get("XLA_FLAGS")
+    from repro.launch import dryrun as jdryrun
+    if before is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = before
+    return jdryrun
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
+def test_rules_for_equals_the_reference(arch):
+    jdryrun = _reference_dryrun()
+    for shape in list(tspecs.SHAPES) + ["unknown"]:
+        assert tdryrun.rules_for(arch, shape) == jdryrun.rules_for(arch,
+                                                                   shape)
+        over = {"kv_seq": "data", "fsdp": None}
+        assert tdryrun.rules_for(arch, shape, over) == \
+            jdryrun.rules_for(arch, shape, over)
+
+
+def test_h100_constants():
+    assert tdryrun.PEAK_FLOPS == 989.4e12 and tdryrun.HBM_BW == 3.35e12
+    bw = tdryrun.axis_bandwidth(tdryrun.production_mesh())
+    assert bw == {"data": 50e9, "model": 50e9}   # 16 ranks span two nodes
+    small = tdryrun.axis_bandwidth(tdryrun.AbstractMesh((2, 2),
+                                                        ("data", "model")))
+    assert small == {"data": 450e9, "model": 450e9}
+
+
+def test_lower_cell_skips_without_a_world():
+    res = tdryrun.lower_cell("qwen3-4b", "long_500k")
+    assert res == {"arch": "qwen3-4b", "shape": "long_500k",
+                   "skipped": tspecs.cell_is_runnable("qwen3-4b",
+                                                      "long_500k")[1]}
+
+
+_CHILD = """
+import dataclasses, json, sys, torch
+from repro_torch import configs, train
+from repro_torch import models as M
+from repro_torch.distributed.ctx import AbstractMesh
+from repro_torch.launch import dryrun, specs
+from repro_torch.obs.compile import CostCounter
+from repro_torch.optim import sgd
+out = {}
+for arch in ("qwen2-vl-2b", "whisper-large-v3"):
+    out[arch] = dryrun.lower_cell(arch, "decode_32k")
+specs.SHAPES["train_flops"] = dict(kind="train", seq=16, batch=256)
+cfg = configs.reduce_config(configs.get_config("qwen3-4b"))
+res = dryrun.lower_cell("qwen3-4b", "train_flops", cfg=cfg,
+                        mesh=AbstractMesh((2, 2), ("data", "model")),
+                        opt=sgd(), forward_collectives=True)
+rwkv = configs.reduce_config(configs.get_config("rwkv6-1.6b"))
+specs.SHAPES["rwkv_long"] = dict(kind="train", seq=128, batch=8)
+cells = []
+for seqs in ((1000, 2000, 4000), (16, 32, 64)):   # run whole, extrapolated
+    dryrun.POLY_SEQ = seqs
+    cells.append(dryrun.lower_cell(
+        "rwkv6-1.6b", "rwkv_long", cfg=rwkv,
+        mesh=AbstractMesh((2, 2), ("data", "model"))))
+out["rwkv"] = cells
+dryrun.close_world()
+model = M.init_params(0, cfg, torch.bfloat16, device="meta")
+opt = sgd()
+state = opt.init(model)
+step = train.make_train_step(cfg, opt)
+with CostCounter() as cc:
+    step(model, state, specs.batch_specs_for(cfg, "train_flops"))
+out["flops"] = dict(mesh=res, one=cc.flops)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def child(tmp_path_factory):
+    """The CLI's run over the ``long_500k`` cells and the in-process
+    cells of ``_CHILD``, each in a process of its own, side by side."""
+    env = dict(os.environ, PYTHONPATH=str(HERE.parent / "src"))
+    out = tmp_path_factory.mktemp("dryrun")
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for cmd in ([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--arch", "all", "--shape", "long_500k",
+                          "--both-meshes", "--out", str(out)],
+                         [sys.executable, "-c", _CHILD])]
+    (cli_out, cli_err), (cells, err) = [p.communicate(timeout=600)
+                                        for p in procs]
+    assert procs[1].returncode == 0, err
+    cli = subprocess.CompletedProcess(procs[0].args, procs[0].returncode,
+                                      cli_out, cli_err)
+    return cli, out, json.loads(cells.strip().splitlines()[-1])
+
+
+def test_cli_runs_every_long_context_cell(child):
+    cli, out, _ = child
+    assert cli.returncode == 0, cli.stdout + cli.stderr
+    assert "[FAIL]" not in cli.stdout
+    for arch in tconfigs.ARCH_IDS:
+        for pod in ("pod1", "pod2"):
+            res = json.loads((out / f"{arch}__long_500k__{pod}.json")
+                             .read_text())
+            ok, why = tspecs.cell_is_runnable(arch, "long_500k")
+            if not ok:
+                assert res["skipped"] == why
+                continue
+            assert res["devices"] == (512 if pod == "pod2" else 256)
+            assert res["hlo_flops_per_dev"] > 0
+            assert res["memory_analysis"]["argument_size_bytes"] > 0
+            assert res["rules"] == {k: str(v) for k, v in
+                                    tdryrun.rules_for(arch,
+                                                      "long_500k").items()}
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-large-v3"])
+def test_production_decode_cells(child, arch):
+    res = child[2][arch]
+    assert res["mesh"] == "16x16" and res["kind"] == "decode"
+    assert res["hlo_flops_per_dev"] > 0 and res["hlo_bytes_per_dev"] > 0
+    mem = res["memory_analysis"]
+    assert mem["argument_size_bytes"] > mem["param_bytes"] > 0
+    assert res["dominant"] in ("compute_s", "memory_s", "collective_s")
+    # weight-stationary decode: no FSDP gather of the parameters
+    assert res["rules"]["fsdp"] == "None"
+    # the request batch is whole on every rank, the cache cut by heads
+    assert mem["output_size_bytes"] >= mem["argument_size_bytes"] - \
+        mem["param_bytes"]
+
+
+def test_a_dense_steps_flops_split_over_the_2x2_mesh(child):
+    got = child[2]["flops"]
+    res, one = got["mesh"], got["one"]
+    assert abs(res["hlo_flops_per_dev"] * 4 - one) <= 0.1 * one, (
+        res["hlo_flops_per_dev"], one)
+    assert res["collectives"] and res["forward_collectives"]
+    assert res["collective_wire_bytes_per_dev"] > 0
+    assert res["t_collective_s"] > 0 and res["t_compute_s"] > 0
+
+
+def test_rwkv_cells_extrapolate_exactly(child):
+    """An rwkv train cell read off the parabola through three short runs
+    (``POLY_SEQ``) equals the cell run whole: FLOPs, unfused bytes (a
+    quadratic), collectives and wire bytes, argument and output bytes;
+    the peak live bytes, an estimate, within 5%."""
+    whole, ex = child[2]["rwkv"]
+    assert "extrapolated_from_seq" not in whole
+    assert ex["extrapolated_from_seq"] == [16, 32, 64]
+    for k in ("hlo_flops_per_dev", "hlo_bytes_per_dev",
+              "collective_wire_bytes_per_dev"):
+        assert ex[k] == pytest.approx(whole[k], rel=1e-9), k
+    for kind, c in whole["collectives"].items():
+        assert ex["collectives"][kind]["count"] == c["count"], kind
+        for k in ("result_bytes", "wire_bytes"):
+            assert ex["collectives"][kind][k] == pytest.approx(
+                c[k], rel=1e-9), (kind, k)
+    for k in ("argument_size_bytes", "output_size_bytes", "param_bytes",
+              "opt_state_bytes"):
+        assert ex["memory_analysis"][k] == whole["memory_analysis"][k], k
+    assert ex["memory_analysis"]["temp_size_bytes"] == pytest.approx(
+        whole["memory_analysis"]["temp_size_bytes"], rel=0.05)
+
+
+def test_record_cost_counts_a_matmul_and_publishes_its_gauges():
+    from repro_torch import obs
+    m, k, n = 3, 5, 7
+    a, b = torch.randn(m, k), torch.randn(k, n)
+    with obs.enabled_scope():
+        got = obs.record_cost("mm", torch.matmul, a, b)
+        snap = obs.snapshot()
+    assert got["flops"] == 2 * m * n * k
+    assert got["bytes"] == 4 * (m * k + k * n + m * n)
+    assert got["raw"]["flops_by_op"] == {"aten.mm": 2.0 * m * n * k}
+    names = json.dumps(snap)
+    assert "pathsig_lowered_flops" in names and \
+        "pathsig_lowered_bytes" in names
+    assert a.device.type == "cpu"          # the arguments stay as they were
+
+
+def test_record_cost_runs_a_module_on_meta_copies():
+    from repro_torch import models as M
+    from repro_torch.obs.compile import record_cost
+    cfg = tconfigs.reduce_config(tconfigs.get_config("qwen3-4b"))
+    model = M.init_params(0, cfg, device="cpu")
+    tokens = torch.ones((2, 8), dtype=torch.int32)
+    got = record_cost("forward", lambda m, t: m(t, remat="none"), model,
+                      tokens)
+    assert got["flops"] > 0 and got["bytes"] > 0
+    assert all(p.device.type == "cpu" for p in model.parameters())

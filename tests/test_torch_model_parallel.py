@@ -7,19 +7,26 @@ tensor-, expert- and FSDP-parallel LM execution on a ``("data",
   of ``ARCH_IDS``, at published size (shapes only: the reference's
   ``jax.eval_shape``, the port's ``meta`` tensors) and reduced, on the
   abstract meshes (2, 4), (16, 16) and (2, 16, 16), under the rules ``{}``
-  and each rule set of ``repro.launch.dryrun.rules_for``.  The port's
-  layers are per-layer entries, so a stacked leaf's spec is the
-  reference's without its leading ``None``.
+  and each rule set of the port's ``launch.dryrun.rules_for`` (held equal
+  to the reference's in ``test_torch_dryrun.py``).  The port's layers are
+  per-layer entries, so a stacked leaf's spec is the reference's without
+  its leading ``None``.
 - Execution: one gloo world of 4 ranks (a 2 x 2 mesh) and one of 2 (a
   1 x 2 mesh), each spawned once for the module
   (``_torch_mp_ranks.rank_main``: torch and ``repro_torch`` only), run
-  reduced qwen3-4b, deepseek-v2-lite-16b, zamba2-7b and rwkv6-1.6b for
-  three SGD steps and three greedy tokens, held against the reference's
-  single-device ``make_train_step`` and ``ServeEngine``; the 2 x 2 world
-  also runs sig-MMD steps, ``microbatch=2`` of a placed batch, the
+  reduced qwen3-4b, deepseek-v2-lite-16b, zamba2-7b, rwkv6-1.6b and
+  whisper-large-v3 for three SGD steps and three greedy tokens, held
+  against the reference's single-device ``make_train_step`` and
+  ``ServeEngine``; the 2 x 2 world also runs sig-MMD steps,
+  ``microbatch=2`` of a placed batch, three Adafactor steps of qwen3-4b,
+  deepseek and whisper on sharded parameters, the dry run's cells, the
   donation counters and the launcher.  Both worlds run one deepseek step
   of each loss on a data-only mesh of all their ranks: the MoE aux loss
-  is the global batch's.
+  is the global batch's; the world of 2 also microbatched sig-MMD and
+  MoE-aux steps there.
+- The dry run: ``launch.dryrun.lower_cell`` in a fake world of 4 ranks
+  (a subprocess) predicts the 2 x 2 world's parameter and optimizer-state
+  bytes a rank and the collectives of one step.
 
 Tolerances: losses within the reference's 1e-4·max(1, |loss|), metrics
 and parameters at the gradient tolerance rtol 1e-3 / atol 1e-5; greedy
@@ -40,8 +47,6 @@ from repro import optim as joptim
 from repro import train as jtrain
 from repro.data import pipeline as jpipe
 from repro.distributed import sharding as jsharding
-from repro.launch import dryrun as jdryrun
-from repro.launch import specs as jspecs
 from repro.models import sig_head as JS
 from repro.serve import engine as jengine
 
@@ -52,6 +57,8 @@ from repro_torch import optim as toptim
 from repro_torch.convert import _per_layer
 from repro_torch.distributed import sharding as tsharding
 from repro_torch.distributed.ctx import AbstractMesh
+from repro_torch.launch import dryrun as tdryrun
+from repro_torch.launch import specs as tspecs
 
 GRAD = dict(rtol=1e-3, atol=1e-5)
 MESHES = (((2, 4), ("data", "model")), ((16, 16), ("data", "model")),
@@ -144,7 +151,7 @@ def _spec_setup(arch: str, reduced: bool):
 @pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
 def test_specs_equal_the_reference(arch, reduced):
     jparams, tparams, jcache, tcache, opts = _spec_setup(arch, reduced)
-    rule_sets = [{}] + [jdryrun.rules_for(arch, s) for s in jspecs.SHAPES]
+    rule_sets = [{}] + [tdryrun.rules_for(arch, s) for s in tspecs.SHAPES]
     for shape, names in MESHES:
         jm = jax.sharding.AbstractMesh(shape, names)
         tm = AbstractMesh(shape, names)
@@ -194,6 +201,11 @@ def _inputs() -> dict:
         stream = jpipe.TokenStream(jcfg.vocab_size, B, S, i)
         batches[arch] = [jax.tree.map(np.asarray, next(stream))
                          for _ in range(steps)]
+        if jcfg.family == "encdec":       # the stub frontend's frames
+            for b in batches[arch]:
+                b["frames"] = rng.standard_normal(
+                    (B, jcfg.n_audio_frames, jcfg.d_model)).astype(
+                    np.float32)
         prompts[arch] = rng.integers(1, jcfg.vocab_size, size=R.DECODE[:2]
                                      ).astype(np.int32)
     for arch in ("qwen3-4b", "deepseek-v2-lite-16b"):
@@ -224,10 +236,15 @@ def _inputs() -> dict:
         jpipe.TokenStream(128, Ba, Sa, 13)))]
     batches["aux/sig_mmd"] = with_paths(jpipe.TokenStream(128, Ba, Sa, 14),
                                         1, 2)
+    batches["micro/sig_mmd"] = with_paths(jpipe.TokenStream(128, Bm, Sm, 15),
+                                          1, 3)
+    batches["micro/moe_aux"] = [jax.tree.map(np.asarray, next(
+        jpipe.TokenStream(128, Bm, Sm, 16)))]
     return dict(params=params, batches=batches, prompts=prompts)
 
 
-def _spawn(world: int, inputs: dict, tmp) -> dict:
+def _start(world: int, inputs: dict, tmp):
+    """Spawn a gloo world's ranks; -> (processes, result queue)."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     dirs = {"ckpt": str(tmp / f"ck{world}")}
@@ -236,8 +253,13 @@ def _spawn(world: int, inputs: dict, tmp) -> dict:
                                dirs, q)) for r in range(world)]
     for p in procs:
         p.start()
+    return procs, q
+
+
+def _collect(world: int, procs, q) -> dict:
+    """{rank: results} of a started world (a rank's traceback fails)."""
     try:
-        got = dict(q.get(timeout=300) for _ in procs)
+        got = dict(q.get(timeout=420) for _ in procs)
     finally:
         for p in procs:
             p.join(timeout=60)
@@ -252,26 +274,32 @@ def _spawn(world: int, inputs: dict, tmp) -> dict:
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """({world: {rank: results}}, inputs): the 2 x 2 mesh's world of 4
-    and the 1 x 2 mesh's world of 2."""
+    and the 1 x 2 mesh's world of 2, run side by side."""
     tmp = tmp_path_factory.mktemp("mp_worlds")
     inputs = _inputs()
-    return {4: _spawn(4, inputs, tmp), 2: _spawn(2, inputs, tmp)}, inputs
+    started = {w: _start(w, inputs, tmp) for w in (4, 2)}
+    _REF["dryrun"] = _start_dryrun()
+    # the reference's results are computed while the ranks run
+    _REF["inputs"] = inputs
+    for name in _references(inputs):
+        _ref(name)
+    return {w: _collect(w, *started[w]) for w in (4, 2)}, inputs
 
 
-def _reference_steps(key: str, batches: list, **kw):
-    """The reference's single-device SGD steps, jitted; -> (metrics a
-    step, per-layer params)."""
+def _reference_steps(key: str, batches: list, opt=None, **kw):
+    """The reference's single-device steps (SGD unless ``opt``), jitted;
+    -> (metrics a step, per-layer params)."""
     arch = key.split("/")[0]
     jcfg = _jcfg(arch, sig="sig" in key or kw.get("loss") == "sig_mmd")
-    step = jax.jit(jtrain.make_train_step(jcfg, joptim.sgd(lr=R.lr_of(key)),
-                                          **kw))
-    return _run(step, key, batches)
+    opt = joptim.sgd(lr=R.lr_of(key)) if opt is None else opt
+    step = jax.jit(jtrain.make_train_step(jcfg, opt, **kw))
+    return _run(step, key, batches, opt)
 
 
-def _run(step, key, batches):
+def _run(step, key, batches, opt):
     inputs = _REF["inputs"]
     params = jax.tree.map(jnp.asarray, inputs["params"][key])
-    state = joptim.sgd(lr=R.lr_of(key)).init(params)
+    state = opt.init(params)
     hist = []
     for b in batches:
         params, state, m = step(params, state, jax.tree.map(jnp.asarray, b))
@@ -283,6 +311,65 @@ def _cached(name, fn):
     if name not in _REF:
         _REF[name] = fn()
     return _REF[name]
+
+
+def _reference_decode(arch: str):
+    inputs = _REF["inputs"]
+    return np.asarray(jengine.ServeEngine(
+        _jcfg(arch), jax.tree.map(jnp.asarray, inputs["params"][arch]),
+        max_len=R.DECODE[3]).generate(jnp.asarray(inputs["prompts"][arch]),
+                                      R.DECODE[2]))
+
+
+def _reference_rwkv64():
+    """rwkv6's three SGD steps at the shared learning rate in float64."""
+    inputs = _REF["inputs"]
+    with jax.enable_x64(True):
+        opt = joptim.sgd(lr=R.RWKV64_LR)
+        step = jax.jit(jtrain.make_train_step(_jcfg("rwkv6-1.6b"), opt))
+        params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                              inputs["params"]["rwkv6-1.6b"])
+        state = opt.init(params)
+        hist = []
+        for b in inputs["batches"]["rwkv6-1.6b"]:
+            params, state, m = step(params, state,
+                                    jax.tree.map(jnp.asarray, b))
+            hist.append({k: float(v) for k, v in m.items()})
+        return hist, _per_layer(jax.tree.map(np.asarray, params))
+
+
+def _references(inputs) -> dict:
+    """{name: the reference's (or the single-device port's) result as a
+    zero-argument function} for every case the tests hold the worlds
+    against."""
+    b = inputs["batches"]
+    table = {}
+    for arch in R.ARCHS:
+        table[f"train/{arch}"] = lambda a=arch: _reference_steps(a, b[a])
+        table[f"port/{arch}"] = lambda a=arch: _port_steps(a, b[a])
+        table[f"decode/{arch}"] = lambda a=arch: _reference_decode(a)
+    table["sig_mmd"] = lambda: _reference_steps(
+        "qwen3-4b/sig", b["sig_mmd"], loss="sig_mmd")
+    table["microbatch"] = lambda: _reference_steps(
+        "qwen3-4b", b["micro"], microbatch=R.MICRO[2])
+    for loss in ("lm", "sig_mmd"):
+        table[f"aux/{loss}"] = lambda loss=loss: _reference_steps(
+            "deepseek-v2-lite-16b/sig", b[f"aux/{loss}"], loss=loss)
+    for arch in R.ADAFACTOR_ARCHS:
+        table[f"adafactor/{arch}"] = lambda a=arch: _reference_steps(
+            a, b[a], opt=joptim.adafactor(**R.ADAFACTOR))
+    for case, arch, loss in (("sig_mmd", "qwen3-4b", "sig_mmd"),
+                             ("moe_aux", "deepseek-v2-lite-16b", "lm")):
+        table[f"micro/{case}"] = lambda c=case, a=arch, lo=loss: \
+            _reference_steps(f"{a}/sig", b[f"micro/{c}"], loss=lo,
+                             microbatch=R.MICRO[2])
+    table["rwkv64"] = _reference_rwkv64
+    return table
+
+
+def _ref(name: str):
+    """A reference result of :func:`_references`, computed once."""
+    return _cached(name, _references(_REF["inputs"])[name])
 
 
 def _assert_steps(got, ref, what):
@@ -321,11 +408,7 @@ def _port_steps(arch: str, batches: list):
 @pytest.mark.parametrize("arch", R.ARCHS)
 def test_three_model_parallel_steps_equal_the_reference(worlds, arch, world):
     res, inputs = worlds
-    _REF["inputs"] = inputs
-    ref = _cached(f"train/{arch}", lambda: _reference_steps(
-        arch, inputs["batches"][arch]))
-    one = _cached(f"port/{arch}", lambda: _port_steps(
-        arch, inputs["batches"][arch]))
+    ref, one = _ref(f"train/{arch}"), _ref(f"port/{arch}")
     got = res[world][0][f"train/{arch}"]
     _assert_steps(got, one, (arch, world, "one rank"))
     _assert_steps(got, ref, (arch, world))
@@ -342,36 +425,23 @@ def test_three_model_parallel_steps_equal_the_reference(worlds, arch, world):
 @pytest.mark.parametrize("arch", R.ARCHS)
 def test_model_parallel_greedy_tokens_equal_the_reference(worlds, arch,
                                                           world):
-    res, inputs = worlds
-    p = inputs["prompts"][arch]
-
-    def ref():
-        jcfg = _jcfg(arch)
-        return np.asarray(jengine.ServeEngine(
-            jcfg, jax.tree.map(jnp.asarray, inputs["params"][arch]),
-            max_len=R.DECODE[3]).generate(jnp.asarray(p), R.DECODE[2]))
-    want = _cached(f"decode/{arch}", ref)
+    res, _ = worlds
+    want = _ref(f"decode/{arch}")
     for r in range(world):
         np.testing.assert_array_equal(res[world][r][f"decode/{arch}"], want)
 
 
 def test_sig_mmd_steps_on_a_2x2_mesh_equal_the_reference(worlds):
-    res, inputs = worlds
-    _REF["inputs"] = inputs
-    ref = _reference_steps("qwen3-4b/sig", inputs["batches"]["sig_mmd"],
-                           loss="sig_mmd")
-    _assert_steps(res[4][0]["sig_mmd"], ref, "sig_mmd")
+    res, _ = worlds
+    _assert_steps(res[4][0]["sig_mmd"], _ref("sig_mmd"), "sig_mmd")
 
 
 def test_microbatch_of_a_placed_batch_equals_the_reference(worlds):
-    """Each microbatch is a slice of every rank's own rows; with every
-    label valid the accumulated LM loss and gradients are the reference's
-    ``microbatch=2`` of the global batch."""
-    res, inputs = worlds
-    _REF["inputs"] = inputs
-    ref = _reference_steps("qwen3-4b", inputs["batches"]["micro"],
-                           microbatch=R.MICRO[2])
-    _assert_steps(res[4][0]["microbatch"], ref, "microbatch")
+    """Each microbatch is the reference's contiguous slice of the global
+    batch, placed: the accumulated LM loss and gradients are the
+    reference's ``microbatch=2``."""
+    res, _ = worlds
+    _assert_steps(res[4][0]["microbatch"], _ref("microbatch"), "microbatch")
 
 
 @pytest.mark.parametrize("loss", ["lm", "sig_mmd"])
@@ -382,11 +452,8 @@ def test_moe_aux_loss_is_the_global_batchs(worlds, world, loss):
     the loss, the aux loss and the trained parameters are the reference's
     single-device values (the aux is E·Σ me·ce over the global batch, not
     a mean of the ranks' products)."""
-    res, inputs = worlds
-    _REF["inputs"] = inputs
-    ref = _cached(f"aux/{loss}", lambda: _reference_steps(
-        "deepseek-v2-lite-16b/sig", inputs["batches"][f"aux/{loss}"],
-        loss=loss))
+    res, _ = worlds
+    ref = _ref(f"aux/{loss}")
     got = res[world][0][f"moe_aux/{loss}"]
     np.testing.assert_allclose(got[0][0]["aux"], ref[0][0]["aux"],
                                rtol=1e-5, atol=1e-9)
@@ -435,14 +502,123 @@ def test_launcher_trains_and_resumes_on_a_2x2_mesh(worlds):
     assert sorted(map(tuple, got[0]["shapes"])) == sorted(full * 3 + [()])
 
 
-def test_shard_model_refuses_whisper_on_a_model_axis():
-    """whisper's model axis is not ported: ``shard_model`` says so before
-    it touches a process group."""
-    from repro_torch.distributed.model_parallel import shard_model
-    cfg = tconfigs.reduce_config(tconfigs.get_config("whisper-large-v3"))
-    with pytest.raises(NotImplementedError, match="whisper's model axis"):
-        shard_model(TM.init_params(0, cfg, device="meta"),
-                    AbstractMesh((1, 2), ("data", "model")))
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+def test_shard_model_refuses_whisper_on_a_model_axis(worlds, world):
+    """``shard_model`` no longer refuses whisper on a model axis (it did
+    while whisper's model axis was unported): on both meshes it lays the
+    reduced model out by ``param_specs``, heads, ``ff`` columns and the
+    tied vocabulary over ``"model"``, and the executed cases above hold
+    it against the reference."""
+    got = worlds[0][world][0]["whisper_specs"]
+    assert got["dec_layers.0.cross_attn.wq"] == ("data", "model")
+    assert got["enc_layers.0.attn.wo"] == ("model", "data")
+    assert got["dec_layers.0.mlp.w_gate"] == ("data", "model")
+    assert got["dec_layers.0.cross_attn.wk"] == ("data", None)
+    assert got["embed"] == ("model", None)
+
+
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+def test_rwkv6_float64_steps_at_the_shared_lr_equal_the_reference(worlds,
+                                                                   world):
+    """rwkv6's float32 steps train at 1e-4 (``_torch_mp_ranks.LR_OF``:
+    float32's own spread leaves the band at 1e-3, for the reference
+    against itself too); in float64 at the shared 1e-3 the sharded port
+    holds the reference's float64 steps to the gradient tolerance."""
+    res, _ = worlds
+    want = _ref("rwkv64")
+    _assert_steps(res[world][0]["rwkv64"], want, ("rwkv64", world))
+
+
+@pytest.mark.parametrize("arch", R.ADAFACTOR_ARCHS)
+def test_adafactor_on_sharded_parameters_equals_the_reference(worlds, arch):
+    """Three Adafactor steps on the 2 x 2 mesh (factored moments over
+    sharded dimensions, slots whole on every rank) against the
+    reference's single-device Adafactor."""
+    res, _ = worlds
+    _assert_steps(res[4][0][f"adafactor/{arch}"], _ref(f"adafactor/{arch}"),
+                  ("adafactor", arch))
+
+
+@pytest.mark.parametrize("case", ["sig_mmd", "moe_aux"])
+def test_microbatches_are_the_references_global_slices(worlds, case):
+    """``microbatch=2`` on the data-only mesh of a world of 2: each
+    microbatch is the reference's contiguous slice of the global batch, so
+    a sig-MMD step (qwen3-4b) and a MoE-aux LM step (deepseek, tokens
+    dropping) equal the reference's single-device step."""
+    res, _ = worlds
+    ref = _ref(f"micro/{case}")
+    got = res[2][0][f"micro/{case}"]
+    (hist, params), (rhist, rparams) = got, ref
+    for a, b in zip(hist, rhist):
+        np.testing.assert_allclose(a["loss"], b["loss"], **GRAD)
+    for k, v in rparams.items():
+        np.testing.assert_allclose(params[k], v, **GRAD,
+                                   err_msg=f"micro {case} {k}")
+
+
+_DRYRUN_CHILD = """
+import json, sys, torch
+import _torch_mp_ranks as R
+from repro_torch import configs, optim
+from repro_torch import models as M
+from repro_torch.distributed.ctx import AbstractMesh
+from repro_torch.launch import dryrun, specs
+name, shape = R.DRYRUN_SHAPE
+specs.SHAPES[name] = shape
+out = {}
+for arch in R.DRYRUN_ARCHS:
+    cfg = R.config(arch, configs)
+    res = dryrun.lower_cell(
+        arch, name, mesh=AbstractMesh((2, 2), ("data", "model")), cfg=cfg,
+        params=M.init_params(0, cfg, torch.float32, device="meta"),
+        opt=optim.adafactor(**R.ADAFACTOR))
+    out[arch] = res
+dryrun.close_world()
+print(json.dumps(out))
+"""
+
+
+def _start_dryrun():
+    """Start the dry run's 2 x 2 cells of DRYRUN_ARCHS in a subprocess
+    (the fake world of 4 is that process's default process group)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parent / "src"), str(here)]))
+    return subprocess.Popen([sys.executable, "-c", _DRYRUN_CHILD],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+
+@pytest.fixture(scope="module")
+def dryrun_cells(worlds):
+    """The dry run's results, from the subprocess the worlds' fixture
+    started beside the worlds."""
+    import json
+    out, err = _REF["dryrun"].communicate(timeout=300)
+    assert _REF["dryrun"].returncode == 0, err
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch", R.DRYRUN_ARCHS)
+def test_dry_run_predicts_the_2x2_worlds_bytes_and_collectives(
+        worlds, dryrun_cells, arch):
+    """``lower_cell`` on ``AbstractMesh((2, 2))``: the parameter and
+    Adafactor-state bytes a rank holds equal rank 0's of the gloo world
+    exactly, and so do one step's collectives by kind (count, result
+    bytes, wire bytes)."""
+    want = worlds[0][4][0][f"dryrun/{arch}"]
+    got = dryrun_cells[arch]
+    mem = got["memory_analysis"]
+    assert mem["param_bytes"] == want["param_bytes"]
+    assert mem["opt_state_bytes"] == want["opt_state_bytes"]
+    assert got["collectives"] == {
+        k: {"count": v[0], "result_bytes": v[1], "wire_bytes": v[2]}
+        for k, v in want["collectives"].items()}
+    assert got["hlo_flops_per_dev"] > 0 and mem["argument_size_bytes"] > 0
 
 
 def test_remat_duplication_counts_recomputed_matmuls():

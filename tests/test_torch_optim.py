@@ -206,3 +206,44 @@ def test_adafactor_on_the_stacked_families_equals_the_reference(arch):
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), want[k], **VALUE,
                                    err_msg=k)
+
+
+def test_adafactor_on_a_sharded_tree_equals_the_reference(tmp_path):
+    """Five Adafactor steps over the tree with ``w`` split by columns and
+    each layer of the stacked ``layers.m`` by rows over a 1 x 2 mesh of
+    two gloo ranks (``_torch_mp_ranks.optim_rank``): the row and column
+    means, the slots (whole on every rank) and the stacked leaf's update
+    clip are the global leaf's, so the gathered parameters are the
+    reference's single-device run."""
+    import multiprocessing as mp
+    import _torch_mp_ranks as R
+    tree = ref_tree()
+    make = OPTS[3][1]
+    want, _ = run_ref(make(J), tree, STEPS)
+    grads = [{k: v.numpy() for k, v in port(grads_at(i, 1.0)).items()}
+             for i in range(STEPS)]
+    params = {k: v.numpy() for k, v in port(tree).items()}
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=R.optim_rank, args=(
+        r, 2, str(tmp_path / "store"), params, grads,
+        (1e-2, 6), q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(q.get(timeout=120) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for r, v in got.items():
+        assert not isinstance(v, str), f"rank {r} failed:\n{v}"
+    out = got[0]
+    assert out["local"]["w"] == (130, 70)
+    assert out["local"]["layers.0.m"] == (64, 130)
+    assert out["slots"]["w"] == {"vr": (130,), "vc": (140,)}
+    assert out["slots"]["layers.1.m"] == {"vr": (128,), "vc": (130,)}
+    for k, w in _per_layer(want).items():
+        np.testing.assert_allclose(out["params"][k], w, **VALUE, err_msg=k)
+        np.testing.assert_array_equal(got[1]["params"][k], out["params"][k])

@@ -21,9 +21,11 @@ MISSING = {
     # submodule names too; the kernels are sig_trunc.sig_trunc and
     # sig_words.sig_words
     "kernels": {"sig_trunc", "sig_words"},
-    # ROADMAP queue 1, item 19 (with the benchmark): the regression gate,
-    # the lowered-cost record and the jit instrument
-    "obs": {"baseline", "record_cost", "instrument_jit"},
+    # ROADMAP queue 1, item 19 (with the benchmark): the regression gate;
+    # and instrument_jit, which has no counterpart: the port has no jit,
+    # and launch-shape accounting (obs.compile.count_new_shape) plays its
+    # role
+    "obs": {"baseline", "instrument_jit"},
 }
 # names the port exports that the reference's __all__ leaves out
 EXTRA = {"obs": {"breached", "report"}}
@@ -69,6 +71,19 @@ def test_documented_renames():
     assert callable(sig_trunc.sig_trunc) and callable(sig_words.sig_words)
     assert callable(core.signature.signature)
     assert callable(core.logsignature.logsignature)
+
+
+def test_launch_modules_are_the_references():
+    """Every module of ``repro.launch`` has its counterpart, the dry run
+    and its specs included."""
+    import repro.launch as J
+    import repro_torch.launch as T
+    ref = {m.name for m in pkgutil.iter_modules(J.__path__)}
+    port = {m.name for m in pkgutil.iter_modules(T.__path__)}
+    assert ref <= port, ref - port
+    from repro_torch.launch import dryrun, specs
+    assert callable(dryrun.lower_cell) and callable(dryrun.rules_for)
+    assert callable(specs.params_specs_for)
 
 
 def test_models_surface_is_the_reference():

@@ -19,8 +19,21 @@ thing held.  Each layer's value equals what the model's prefill and
 decode_step compute, since a layer's output at token t reads only its
 input at tokens <= t.
 
+``--grads`` (CPU; needs the JAX reference package ``repro`` and ``jax``)
+puts the port's and the reference's training side by side instead, on
+the reduced rwkv6 of ``tests/_torch_mp_ranks.py`` with its inputs: the
+first step's gradients, each leaf's max |err| over its max |g|, and the
+embedding after three SGD steps at lr 1e-3 (its max |err| against the
+band rtol 1e-3 / atol 1e-5, as a multiple of the band), for
+
+- ``port32_ref32``: the port in float32 against the reference in float32;
+- ``ref32_ref64``: the reference in float32 against itself in float64;
+- ``port32_port64``: the port in float32 against itself in float64;
+- ``port64_ref64``: the two in float64.
+
     PYTHONPATH=src python tools/rwkv_drift.py --device cpu [--json out]
     PYTHONPATH=src python tools/rwkv_drift.py --device cuda
+    PYTHONPATH=src:tests python tools/rwkv_drift.py --grads [--json out]
 """
 from __future__ import annotations
 
@@ -63,7 +76,11 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth (0: as published)")
     ap.add_argument("--json", help="also write the rows here")
+    ap.add_argument("--grads", action="store_true",
+                    help="the port's and the reference's training instead")
     args = ap.parse_args(argv)
+    if args.grads:
+        return grads_main(args)
     if args.device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("rwkv6-1.6b")
@@ -104,6 +121,92 @@ def main(argv=None) -> int:
         device=args.device, batch=args.batch, prompt=args.prompt,
         layers=cfg.n_layers, d_model=cfg.d_model)
     print(json.dumps(out["logits"]), flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+def _band(a, b, rtol=1e-3, atol=1e-5) -> float:
+    """max |a − b| / (atol + rtol·|b|): above 1 is outside the band."""
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
+def grads_main(args) -> int:
+    """The port against the reference on reduced rwkv6: first-step
+    gradients and three SGD steps, float32 and float64."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import _torch_mp_ranks as R
+    import repro.models as JM
+    from repro import configs as jconfigs
+    from repro import optim as joptim
+    from repro import train as jtrain
+    from repro.data import pipeline as jpipe
+    from repro_torch import configs, optim, train
+    from repro_torch.convert import _per_layer, lm_params_from_reference
+    arch = "rwkv6-1.6b"
+    jcfg, cfg = R.config(arch, jconfigs), R.config(arch, configs)
+    B, S, steps = R.TRAIN
+    i = R.ARCHS.index(arch)
+    ref_params = jax.tree.map(np.asarray, JM.init_params(
+        jax.random.PRNGKey(i), jcfg, jnp.float32))
+    stream = jpipe.TokenStream(jcfg.vocab_size, B, S, i)
+    batches = [jax.tree.map(np.asarray, next(stream)) for _ in range(steps)]
+    lr = 1e-3
+
+    def reference(x64: bool):
+        with jax.enable_x64(x64):
+            dt = jnp.float64 if x64 else jnp.float32
+            p = jax.tree.map(lambda a: jnp.asarray(a, dt), ref_params)
+            b0 = jax.tree.map(jnp.asarray, batches[0])
+            g = jax.grad(lambda q: JM.loss_fn(q, jcfg, b0, "dots")[0])(p)
+            opt = joptim.sgd(lr=lr)
+            step = jax.jit(jtrain.make_train_step(jcfg, opt))
+            state = opt.init(p)
+            for b in batches:
+                p, state, _ = step(p, state, jax.tree.map(jnp.asarray, b))
+            return ({k: torch.from_numpy(np.asarray(v, np.float64))
+                     for k, v in _per_layer(jax.tree.map(np.asarray, g))
+                     .items()},
+                    torch.from_numpy(np.asarray(p["embed"], np.float64)))
+
+    @torch.enable_grad()
+    def port(dtype):
+        model = lm_params_from_reference(ref_params, cfg, device="cpu").to(
+            dtype)
+        t = [{k: torch.from_numpy(np.array(v)) for k, v in b.items()}
+             for b in batches]
+        names = [k for k, _ in model.named_parameters()]
+        loss, _ = train.trainer.M.loss_fn(model, cfg, t[0], remat="dots")
+        g = torch.autograd.grad(loss, list(model.parameters()))
+        grads = {k: v.detach().double() for k, v in zip(names, g)}
+        opt = optim.sgd(lr=lr)
+        state = opt.init(model)
+        step = train.make_train_step(cfg, opt)
+        for b in t:
+            model, state, _ = step(model, state, b)
+        return grads, model.embed.detach().double()
+
+    runs = {"ref32": reference(False), "ref64": reference(True),
+            "port32": port(torch.float32), "port64": port(torch.float64)}
+    out = {}
+    for name, (a, b) in (("port32_ref32", ("port32", "ref32")),
+                         ("ref32_ref64", ("ref32", "ref64")),
+                         ("port32_port64", ("port32", "port64")),
+                         ("port64_ref64", ("port64", "ref64"))):
+        ga, gb = runs[a][0], runs[b][0]
+        worst = max(ga, key=lambda k: rel(ga[k], gb[k]))
+        out[name] = dict(grad_rel_max=rel(ga[worst], gb[worst]),
+                         grad_leaf=worst,
+                         grad_norm=float(torch.sqrt(sum(
+                             (v ** 2).sum() for v in gb.values()))),
+                         embed_band=_band(runs[a][1], runs[b][1]),
+                         embed_max_abs_err=float(
+                             (runs[a][1] - runs[b][1]).abs().max()))
+        print(name, json.dumps(out[name]), flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
