@@ -428,7 +428,23 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              Adafactor-state bytes a rank for (b) and (c) equal to rank
              0's exactly, and one backbone forward's collectives by kind
              equal to the real world's log.
-29. report — one JSON line of kernels (the sig_trunc row with its cases:
+29. examples — the eight examples with a _torch counterpart
+             (examples/quickstart_torch.py, streaming_torch.py,
+             kernel_methods_torch.py, ragged_serving_torch.py,
+             sessions_serving_torch.py, serve_lm_torch.py,
+             train_lm_torch.py at --preset 100m --steps 20 with its
+             restart, and observability_torch.py --check, whose ring
+             spawns 2 gloo ranks sharing the card), each imported by name
+             and its main(argv) called on the card with the launch
+             counters set to 0 just before it and read just after.  An
+             example that raises, exits non-zero or fails one of its
+             printed checks (quickstart's kernels against their plain
+             versions, the ragged and session bit-identities, train_lm's
+             resumed losses against the uninterrupted run's, the
+             observability check) fails the phase; so does a kernel of
+             sig_trunc, sig_words, sig_gram and sig_sweep that no example
+             launched.  Each example's seconds and launches are printed.
+30. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell, and the fused ones: §8 lead_lag depth 3, the
              time_augment serving micro-batch, the two Table 1 transform
@@ -466,8 +482,9 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              cases at P = 2 and 4 on their kernels' rows, with their
              launches a rank; and phase 27's 2 x 2 sig-MMD train_loop and
              phase 28's 2 x 2 Adafactor sig-MMD steps on the sig_trunc,
-             sig_gram and sig_sweep rows, with their launches a rank), the
-             card's name and power limit, then the device line last.
+             sig_gram and sig_sweep rows, with their launches a rank; and
+             phase 29's launches on every row, by example), the card's
+             name and power limit, then the device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
 events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
@@ -2060,18 +2077,10 @@ def phase_mmd_grad(rng) -> dict:
     return dict(wall_ms=wall, launches=n, max_abs_err=err, max_g=scale)
 
 
-def _hurst_example():
-    spec = importlib.util.spec_from_file_location(
-        "hurst_fbm_torch", ROOT / "examples" / "hurst_fbm_torch.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def phase_hurst(seed: int) -> dict:
     """The §8 model at full width: 10 training steps of each signature
     variant through the example's module."""
-    hf = _hurst_example()
+    hf = example_module("hurst_fbm_torch")
     d, M, depth, batch, lr, n_tr, n_white, steps = HURST
     X, H = hurst_dataset(seed=seed, n_paths=n_tr, n_steps=M, d=d)
     X = torch.as_tensor(X, device="cuda")
@@ -4202,7 +4211,7 @@ def phase_observability(rng, ragged: dict) -> dict:
     for sids, cnt, ticks in prounds:                   # cold epoch
         store.ingest_many(sids, cnt, ticks, auto_create=True)
         store.flush()
-    hf = _hurst_example()
+    hf = example_module("hurst_fbm_torch")
     hd, hM, depth, batch, lr, _, n_white, _ = HURST
     X, H = hurst_dataset(seed=1, n_paths=n_white, n_steps=hM, d=hd)
     X, H = torch.as_tensor(X, device=DEV), torch.as_tensor(H, device=DEV)
@@ -6721,6 +6730,95 @@ def phase_dryrun_mp(seed: int) -> dict:
                           for r in worlds[4]], seconds=seconds)
 
 
+# phase 29: the examples with a _torch counterpart, each run on the card as
+# a user runs it: (module under examples/, argv)
+EXAMPLES = [
+    ("quickstart_torch", []), ("streaming_torch", []),
+    ("kernel_methods_torch", []), ("ragged_serving_torch", []),
+    ("sessions_serving_torch", []), ("serve_lm_torch", []),
+    ("train_lm_torch", ["--preset", "100m", "--steps", "20", "--ckpt-dir",
+                        str(ROOT / "build" / "chip_smoke_train_lm_ckpt")]),
+    ("observability_torch", ["--check"])]
+# each kernel's counters: the terminal and the streamed launches
+EXAMPLE_KERNELS = {"sig_trunc": ("sig_trunc", "sig_trunc_stream"),
+                   "sig_words": ("sig_words", "sig_words_stream"),
+                   "sig_gram": ("sig_gram",), "sig_sweep": ("sig_sweep",)}
+# the launches that the examples hold against their plain versions on the
+# same inputs (the "plain_checks" their main returns): quickstart's
+# sig_trunc, sig_words and section 2 gradient, streaming's streamed forward
+# and its gradient, kernel_methods' Gram
+PLAIN_CHECKED = {"sig_trunc", "sig_trunc_stream", "sig_words", "sig_gram",
+                 "sig_sweep"}
+
+
+def example_module(name: str):
+    """An example imported by name from examples/, which goes on sys.path
+    so that the ranks an example spawns import it too."""
+    where = str(ROOT / "examples")
+    if where not in sys.path:
+        sys.path.insert(0, where)
+    return importlib.import_module(name)
+
+
+def phase_examples() -> dict:
+    """Phase 29: every example's main(argv) on the card, with the launch
+    counters set to 0 just before it and read just after."""
+    t_phase = time.perf_counter()
+    runs, checked = {}, set()
+    for name, argv in EXAMPLES:
+        mod = example_module(name)
+        print(f"[examples] {name} {' '.join(argv)}", flush=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            out = mod.main(argv)
+        except SystemExit as e:
+            check(e.code in (None, 0), f"examples/{name}.py exited "
+                  f"{e.code!r}")
+            out = None
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(not isinstance(out, int) or out == 0,
+              f"examples/{name}.py returned {out}")
+        plain = out.get("plain_checks", []) if isinstance(out, dict) else []
+        for c in plain:
+            print(f"[examples] {name}: {c['kernel']} {c['what']} max|err| "
+                  f"{c['max_abs_err']:.2e}", flush=True)
+            check(c["ok"], f"examples/{name}.py: {c['what']} missed its "
+                  f"tolerance")
+        checked.update(c["kernel"] for c in plain)
+        runs[name] = dict(seconds=seconds, plain_checks=plain,
+                          launches={k: v for k, v in counts().items() if v})
+    shutil.rmtree(ROOT / "build" / "chip_smoke_train_lm_ckpt",
+                  ignore_errors=True)
+    totals = {k: sum(r["launches"].get(c, 0) for r in runs.values()
+                     for c in cs) for k, cs in EXAMPLE_KERNELS.items()}
+    for name, r in runs.items():
+        print(f"[examples] {name}: {r['seconds']:.1f} s, launches "
+              f"{r['launches']}", flush=True)
+    for k, n in totals.items():
+        check(n > 0, f"no example launched the {k} kernel")
+    check(checked == PLAIN_CHECKED, f"the examples held {sorted(checked)} "
+          f"against their plain versions, not {sorted(PLAIN_CHECKED)}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[examples] launches by kernel over the eight examples {totals}; "
+          f"phase 29 {seconds:.1f} s", flush=True)
+    return dict(runs=runs, totals=totals, seconds=seconds)
+
+
+def examples_case(ex: dict, counter: str) -> dict:
+    """One kernel row's case of phase 29: its launches by example, and
+    the examples' checks of it against its plain version."""
+    by = {name: r["launches"].get(counter, 0) for name, r in
+          ex["runs"].items()}
+    held = {f"{name}: {c['what']}": c["max_abs_err"]
+            for name, r in ex["runs"].items() for c in r["plain_checks"]
+            if c["kernel"] == counter}
+    return dict(case="examples (phase 29)", launches=sum(by.values()),
+                by_example={k: v for k, v in by.items() if v},
+                plain_max_abs_err=held)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6784,6 +6882,7 @@ def main() -> int:
     drmp = phase_dryrun_mp(args.seed)
     print(f"[timing] dry-run and model-axis phase: {drmp['seconds']:.1f} s",
           flush=True)
+    ex = phase_examples()
     shard_cases = {name: [] for name in ("sig_trunc", "sig_words",
                                          "sig_gram", "sig_sweep")}
     for P, r0 in distd["worlds"].items():
@@ -6855,7 +6954,8 @@ def main() -> int:
              launches=serve["launches"], max_abs_err=max_err["sig_trunc"],
              ms=serve["ms"], plain_ms=serve["plain_ms"],
              bound_ms=serve["bound_ms"], bound_by=serve["bound_by"],
-             library_ms=None, cases=trunc_cases),
+             library_ms=None,
+             cases=trunc_cases + [examples_case(ex, "sig_trunc")]),
         dict(name="sig_trunc_stream", route="cuda", source=src,
              replaces="src/repro/kernels/sig_trunc.py:313",
              launches=stream["launches"],
@@ -6864,13 +6964,15 @@ def main() -> int:
              bound_by=stream["bound_by"], library_ms=None,
              cases=[c["stream"] for c in fused["table1"]]
              + [windows["chen_case"], streams["features"]["case"],
-                eng["stream_case"], heads["stream_case"]]),
+                eng["stream_case"], heads["stream_case"],
+                examples_case(ex, "sig_trunc_stream")]),
         dict(name="sig_words", route="cuda", source=wsrc,
              replaces="src/repro/kernels/sig_words.py:197",
              launches=proj["launches"], max_abs_err=words_err["sig_words"],
              ms=proj["ms"], plain_ms=proj["plain_ms"],
              bound_ms=proj["bound_ms"], bound_by=proj["bound_by"],
-             library_ms=None, cases=words_cases),
+             library_ms=None,
+             cases=words_cases + [examples_case(ex, "sig_words")]),
         dict(name="sig_words_stream", route="cuda", source=wsrc,
              replaces="src/repro/kernels/sig_words.py:212",
              launches=proj["stream_launches"],
@@ -6878,7 +6980,8 @@ def main() -> int:
              plain_ms=proj["stream_plain_ms"],
              bound_ms=proj["stream_bound_ms"],
              bound_by=proj["stream_bound_by"], library_ms=None,
-             cases=[fused["projection"]["words_stream"]]),
+             cases=[fused["projection"]["words_stream"],
+                    examples_case(ex, "sig_words_stream")]),
         dict(name="sig_gram", route="cuda",
              source="src/repro_torch/kernels/csrc/sig_gram.cu",
              replaces="src/repro/kernels/sig_gram.py:68",
@@ -6899,7 +7002,7 @@ def main() -> int:
              + [eng["gram_case"], slice8["autotune"]["gram_case"],
                 dict(heads["gram_case"], launches=lm_launches["sig_gram"]),
                 dict(moe["gram_case"], launches=moe_launches["sig_gram"])]
-             + shard_cases["sig_gram"]),
+             + shard_cases["sig_gram"] + [examples_case(ex, "sig_gram")]),
     ]
     big = max(train, key=lambda r: r["sweep_bound_ms"])
     sweep_cases = [dict(case="largest Table 1 train cell",
@@ -6923,6 +7026,7 @@ def main() -> int:
                     dict(moe["sweep_case"],
                          launches=moe_launches["sig_sweep"])]
     sweep_cases += shard_cases["sig_sweep"]
+    sweep_cases.append(examples_case(ex, "sig_sweep"))
     sp = hurst["sparse"]["sweep"]
     kernels.append(dict(
         name="sig_sweep", route="cuda",
@@ -6938,7 +7042,7 @@ def main() -> int:
         bound_by=sp["bound_by"], library_ms=None,
         us_per_step=sp["us_per_step"],
         design_phases={str(n): ss.step_phases(n) for n in sorted(
-            {c["shape"][3] for c in sweep_cases})},
+            {c["shape"][3] for c in sweep_cases if "shape" in c})},
         partitions_checked=sweep["partitions"],
         ptxas=ptxas.get("sig_sweep", {}), cases=sweep_cases))
     if args.out:
@@ -6952,7 +7056,7 @@ def main() -> int:
             streams=streams, new_phases_s=new_s, sessions=sessions,
             sessions_s=sessions_s, slice8=slice8, slice8_s=slice8_s,
             lm=lm, lm_s=lm_s, families=fam, distributed=distd,
-            model_parallel=mpar, dryrun_mp=drmp), indent=1))
+            model_parallel=mpar, dryrun_mp=drmp, examples=ex), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,9 @@ Port of ``repro.obs``; one import surface::
   ``nvcc`` builds, counted under the reference's retrace counter
   (:func:`count_trace`, :func:`shape_key`), and the FLOPs and bytes of
   a computation counted on meta tensors (:func:`record_cost`).
+- :mod:`repro_torch.obs.baseline` — flat benchmark record schema, baseline
+  store, and the median/MAD statistical regression gate (the reference's
+  file format; the port's benchmark suites come with its benchmark).
 - :mod:`repro_torch.obs.slo` — declarative SLOs over snapshots / value
   dicts / JSONL run logs; backs ``SessionStore.health()`` and
   ``DynamicBatcher.health()``.
@@ -33,7 +36,7 @@ Port of ``repro.obs``; one import surface::
 This package imports nothing from the rest of ``repro_torch``: every layer
 imports it.
 """
-from . import slo
+from . import baseline, slo
 from .compile import (TRACE_COUNTER_NAME, count_trace, record_collectives,
                       record_cost, set_retrace_sink, shape_key)
 from .flight import (FLIGHT, FlightRecorder, disable_flight, dump_on_error,
@@ -63,8 +66,8 @@ __all__ = [
     # launch-shape accounting
     "TRACE_COUNTER_NAME", "shape_key", "count_trace", "set_retrace_sink",
     "record_collectives", "record_cost",
-    # SLOs
-    "slo", "Slo", "SloResult", "SloBreach", "evaluate_values",
+    # baseline gate and SLOs
+    "baseline", "slo", "Slo", "SloResult", "SloBreach", "evaluate_values",
     "evaluate_snapshot", "evaluate_log", "breached", "report",
     "default_slos", "session_slos", "batcher_slos", "train_slos",
     # flight recorder

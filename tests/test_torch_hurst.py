@@ -7,7 +7,8 @@ batch: the reference's parameters are carried across by
 on the same batch.  The port runs on the CPU, where the signature's
 backward is the plain §4.2 sweep; the reference runs its jax engine and
 its inverse VJP.  Tolerances: the loss to 1e-5 relative, each gradient to
-1e-4·max|g|, parameters after three Adam steps to 1e-4.
+1e-4·max|g|, parameters after three Adam steps to 1e-4, and the loss
+curve of 20 full-batch Adam steps to 1e-4 relative.
 """
 import importlib.util
 import inspect
@@ -126,6 +127,54 @@ def test_three_adam_steps_match_the_reference(kind):
         np.testing.assert_allclose(got[name].detach().numpy(),
                                    np.asarray(want), rtol=0, atol=1e-4,
                                    err_msg=name)
+
+
+def _ref_adam_curve(params, apply, X, H, lr, steps, dtype):
+    """The reference's full-batch Adam (examples/hurst_fbm.py's step,
+    written out): the loss before each step."""
+    vg = jax.jit(jax.value_and_grad(_ref_loss(apply)))
+    params = jax.tree.map(lambda a: jnp.asarray(a, dtype), params)
+    m = jax.tree.map(jnp.zeros_like, params)
+    v = jax.tree.map(jnp.zeros_like, params)
+    x, y = jnp.asarray(X, dtype), jnp.asarray(H, dtype)
+    curve = []
+    for t in range(1, steps + 1):
+        loss, g = vg(params, x, y)
+        curve.append(float(loss))
+        m = jax.tree.map(lambda a, b: 0.9 * a + 0.1 * b, m, g)
+        v = jax.tree.map(lambda a, b: 0.999 * a + 0.001 * b * b, v, g)
+        mh = jax.tree.map(lambda a: a / (1 - 0.9 ** t), m)
+        vh = jax.tree.map(lambda a: a / (1 - 0.999 ** t), v)
+        params = jax.tree.map(
+            lambda p, a, b: p - lr * a / (jnp.sqrt(b) + 1e-8), params, mh,
+            vh)
+    return np.asarray(curve)
+
+
+def _port_adam_curve(model, X, H, lr, steps):
+    dtype = next(model.parameters()).dtype
+    x, y = torch.from_numpy(X).to(dtype), torch.from_numpy(H).to(dtype)
+    opt = port.adam(model, lr)
+    curve = []
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = port.mse(model, x, y)
+        loss.backward()
+        opt.step()
+        curve.append(float(loss.detach()))
+    return np.asarray(curve)
+
+
+@pytest.mark.parametrize("kind", ["truncated", "sparse"])
+def test_twenty_adam_steps_follow_the_references_curve(kind):
+    """The §8 loss curves over 20 full-batch Adam steps at lr 1e-2, held
+    at 1e-4 relative: the two part by float32's own spread, each about as
+    far from its own float64 run (tools/hurst_curves.py)."""
+    X, H, params, apply, model = _models(kind, 3)
+    want = _ref_adam_curve(params, apply, X, H, 1e-2, 20, jnp.float32)
+    got = _port_adam_curve(model, X, H, 1e-2, 20)
+    assert want[-1] < 0.1 * want[0]              # the curve does descend
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
 
 
 def test_train_runs_an_epoch_on_the_cpu():

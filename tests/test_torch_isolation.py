@@ -1,4 +1,5 @@
-"""The port and ``chip_smoke.py`` import neither ``jax`` nor ``repro``."""
+"""The port, ``chip_smoke.py`` and the ``examples/*_torch.py`` scripts
+import neither ``jax`` nor ``repro``."""
 import ast
 import json
 import os
@@ -52,7 +53,9 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix()
      for p in (ROOT / "src" / "repro_torch").rglob("*.py")]
-    + ["chip_smoke.py", "examples/hurst_fbm_torch.py"]))
+    + ["chip_smoke.py"]
+    + [p.relative_to(ROOT).as_posix()
+       for p in sorted(ROOT.glob("examples/*_torch.py"))]))
 def test_source_imports_no_jax(path):
     bad = _imported_roots(ROOT / path) & set(FORBIDDEN)
     assert not bad, (path, bad)
@@ -79,3 +82,22 @@ def test_session_slice_modules_are_walked():
     assert {"repro_torch.serve.sessions", "repro_torch.checkpoint",
             "repro_torch.checkpoint.checkpointer", "repro_torch.obs",
             "repro_torch.obs.slo", "repro_torch.data.pipeline"} <= names
+
+
+# the examples beside their references: each runs on the card unless the
+# caller asks for the CPU
+CARD_EXAMPLES = ("quickstart_torch", "streaming_torch", "kernel_methods_torch",
+                 "ragged_serving_torch", "sessions_serving_torch",
+                 "serve_lm_torch", "train_lm_torch", "observability_torch")
+
+
+@pytest.mark.parametrize("name", CARD_EXAMPLES)
+def test_example_raises_without_a_card_unless_asked_for_the_cpu(name):
+    import torch
+
+    from _torch_examples import load_example
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the example would run on it")
+    mod = load_example(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])

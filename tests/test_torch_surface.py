@@ -21,11 +21,9 @@ MISSING = {
     # submodule names too; the kernels are sig_trunc.sig_trunc and
     # sig_words.sig_words
     "kernels": {"sig_trunc", "sig_words"},
-    # ROADMAP queue 1, item 19 (with the benchmark): the regression gate;
-    # and instrument_jit, which has no counterpart: the port has no jit,
-    # and launch-shape accounting (obs.compile.count_new_shape) plays its
-    # role
-    "obs": {"baseline", "instrument_jit"},
+    # instrument_jit has no counterpart: the port has no jit, and
+    # launch-shape accounting (obs.compile.count_new_shape) plays its role
+    "obs": {"instrument_jit"},
 }
 # names the port exports that the reference's __all__ leaves out
 EXTRA = {"obs": {"breached", "report"}}
