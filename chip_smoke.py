@@ -444,7 +444,20 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              observability check) fails the phase; so does a kernel of
              sig_trunc, sig_words, sig_gram and sig_sweep that no example
              launched.  Each example's seconds and launches are printed.
-30. report — one JSON line of kernels (the sig_trunc row with its cases:
+30. cost   — the four kernels as registered operators: at the serving
+             micro-batch sig_trunc (64, 1,024, 6, 5), the §8 sig_words
+             (128, 500, 10; 1,685 words), the reference Gram 2,048 ×
+             2,048 × 9,330 and the §8 truncated value and gradient
+             (sig_trunc + sig_sweep, 128 × 500 over 10 letters, depth 3),
+             obs.record_cost of the cuda route on meta tensors (nothing
+             built or launched) equals kernels/cost.py's count exactly, a
+             CostCounter around the same call on the card reads the same
+             FLOPs, and the call launches one of each of its kernels and
+             nothing else; then the host ms from call to return of a
+             (64, 32, 4, 3) sig_trunc launch through the operator beside
+             the kernel's launch body called directly, and of the
+             sig_trunc wrapper.
+31. report — one JSON line of kernels (the sig_trunc row with its cases:
              serving micro-batch, engine references, largest Table 1 cell,
              streamed cell, and the fused ones: §8 lead_lag depth 3, the
              time_augment serving micro-batch, the two Table 1 transform
@@ -483,11 +496,14 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              launches a rank; and phase 27's 2 x 2 sig-MMD train_loop and
              phase 28's 2 x 2 Adafactor sig-MMD steps on the sig_trunc,
              sig_gram and sig_sweep rows, with their launches a rank; and
-             phase 29's launches on every row, by example), the card's
-             name and power limit, then the device line last.
+             phase 29's launches on every row, by example; and phase
+             30's cost case on each kernel's row, and the host ms on the
+             sig_trunc row), the card's name and power limit, then the
+             device line last.
 
 Nothing of JAX or of the JAX package is imported.  Times come from CUDA
-events on the card; bounds from the shapes (H100 SXM: 3.35 TB/s HBM,
+events on the card; bounds from the shapes by kernels/cost.py, the one
+module of the work counts and bounds (H100 SXM: 3.35 TB/s HBM,
 67 TFLOP/s FP32 on the CUDA cores, 495 TFLOP/s dense TF32 on the tensor
 cores, where the Gram is held to three TF32 products).  Tolerances of
 composed results (signature kernel, then Gram) are 1e-4·max|plain|: each
@@ -545,6 +561,13 @@ from repro_torch.models.sig_head import (_learned_path,  # noqa: E402
                                          sig_stream_features)
 from repro_torch.optim import adamw, linear_warmup_cosine  # noqa: E402
 from repro_torch.kernels import _build, autotune, ops  # noqa: E402
+from repro_torch.kernels.cost import (FP32_FLOPS_PER_S,  # noqa: E402
+                                      HBM_BYTES_PER_S, bound,
+                                      fused_step_flops, gram_bound,
+                                      gram_work, horner_flops,
+                                      lm_matmul_flops, roofline_ms,
+                                      sweep_bound, sweep_work, trunc_work,
+                                      words_flops, words_work)
 from repro_torch.kernels import sig_gram as sg  # noqa: E402
 from repro_torch.kernels import sig_sweep as ss  # noqa: E402
 from repro_torch.kernels import sig_trunc as st  # noqa: E402
@@ -561,9 +584,6 @@ from repro_torch.train import (TrainLoopConfig,  # noqa: E402
                                make_train_step, train_loop)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-TF32_FLOPS_PER_S = 495e12   # dense, on the tensor cores
 SWEEP = [(2, 3), (3, 4), (6, 5), (10, 3), (10, 5)]
 # (B, M, d, N) cells of the paper's Table 1 (depth, length and batch sweeps)
 TABLE1 = ([(32, 100, 6, n) for n in (2, 3, 4, 5)]
@@ -605,94 +625,6 @@ SCORE_CELL = (2048, 1024, 6, 5, 256)
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def horner_flops(d: int, depth: int, moving: int | None = None) -> int:
-    """Least FP32 operations of one levelwise Horner step for one example,
-    with each 1/k scale folded into dx once: per level n, d for acc_1 =
-    dx/n, then d^(j-1) adds and d^j products per j = 2..n, then d^n adds
-    into the state.  With only ``moving`` of the d letters nonzero in dx,
-    only the words whose last letter moves change: each count d^k becomes
-    moving·d^(k-1)."""
-    m = d if moving is None else moving
-    return sum(m + sum(m * d ** (j - 2) + m * d ** (j - 1)
-                       for j in range(2, n + 1)) + m * d ** (n - 1)
-               for n in range(1, depth + 1))
-
-
-def words_flops(plan, moving=None) -> int:
-    """Least FP32 operations of one word-table Horner step for one example
-    over a plan's untiled prefix closure, chain prefixes shared as in
-    horner_flops: for each target length n, with P_j the distinct length-j
-    prefixes of the closure words of length n, |P_1| values acc_1 = dx/n,
-    then |P_{j-1}| adds and |P_j| products per j = 2..n, then |P_n| adds
-    into the state.  Equal to horner_flops(d, N) on all_words(d, N); the
-    ancestor rows that tiles repeat do not count.  With ``moving`` (a set
-    of letters, the others zero in dx) each P_j keeps only the prefixes
-    whose last letter moves, as in horner_flops."""
-    total = 0
-    for n in {len(w) for w in plan.closure}:
-        ws = [w for w in plan.closure if len(w) == n]
-        p = [len({w[:j] for w in ws
-                  if j == 0 or moving is None or w[j - 1] in moving})
-             for j in range(n + 1)]
-        total += p[1] + sum(p[j - 1] + p[j] for j in range(2, n + 1)) + p[n]
-    return total
-
-
-def moving_letters(spec, d_raw: int) -> list[set[int]]:
-    """The letters of a fused transform's augmented alphabet ([t?, lag,
-    lead]) that can be nonzero in each of its sub-steps: lead-lag moves the
-    lead block, then the lag block; a time channel moves in every
-    sub-step.  The other letters are zero by construction."""
-    t = int(spec.time)
-    blocks = ([range(t + d_raw, t + 2 * d_raw), range(t, t + d_raw)]
-              if spec.lead_lag else [range(t, t + d_raw)])
-    return [set(b) | ({0} if spec.time else set()) for b in blocks]
-
-
-def fused_step_flops(spec, d_raw: int, count) -> float:
-    """Least operations of one augmented step of a fused (or materialised)
-    transform cell, averaged over its sub-steps: ``count(moving)`` counts
-    a step in which only the ``moving`` letters are nonzero."""
-    phases = moving_letters(spec, d_raw)
-    return sum(count(m) for m in phases) / len(phases)
-
-
-def bound(B: int, M: int, d: int, depth: int, in_bytes: int,
-          out_elems: int, out_bytes: int, step_flops: float | None = None,
-          raw: tuple[int, int] | None = None,
-          aux_bytes: int = 0) -> tuple[float, str]:
-    """Least time (ms) the card could take: bytes moved once over HBM
-    against the operations over FP32 peak (``step_flops`` per example and
-    step, default the levelwise Horner count); and which bounds it.  A
-    fused transform cell runs its M (augmented) steps over d (augmented)
-    letters but reads ``raw`` = (M_raw, d_raw) increments an example and
-    ``aux_bytes`` of time rows; its ``step_flops`` count only the letters
-    that move (fused_step_flops)."""
-    if step_flops is None:
-        step_flops = horner_flops(d, depth)
-    m_in, d_in = raw if raw is not None else (M, d)
-    t_bytes = (B * m_in * d_in * in_bytes + aux_bytes
-               + out_elems * out_bytes) / HBM_BYTES_PER_S
-    t_ops = B * M * step_flops / FP32_FLOPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def gram_bound(Bx: int, By: int, D: int) -> dict:
-    """Least times (ms) of a weighted Gram, ((B_x + B_y)·D + D + B_x·B_y)·4
-    bytes over HBM against its operations, on two routes: the tensor cores
-    in 3xTF32 (three TF32 products, 3·2·B_x·B_y·D over 495 TFLOP/s), the
-    route the kernel takes and the bound it is held to (``bound_ms``); and
-    the FP32 CUDA cores (2·B_x·B_y·D over 67 TFLOP/s, ``fp32_bound_ms``)."""
-    t_bytes = ((Bx + By) * D + D + Bx * By) * 4 / HBM_BYTES_PER_S
-    out = {}
-    for key, t_ops in (("", 3 * 2 * Bx * By * D / TF32_FLOPS_PER_S),
-                       ("fp32_", 2 * Bx * By * D / FP32_FLOPS_PER_S)):
-        out[key + "bound_ms"] = max(t_bytes, t_ops) * 1e3
-        out[key + "bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    return out
 
 
 def trunc_partition(B: int, d: int, depth: int) -> dict:
@@ -1694,18 +1626,6 @@ def grad_within(got: torch.Tensor, want: torch.Tensor) -> bool:
     scale = float(want.abs().max())
     return bool(((got.double() - want).abs()
                  <= 1e-3 * want.abs() + E2E_TOL * scale).all())
-
-
-def sweep_bound(B: int, M: int, plan, n_emit: int) -> tuple[float, str]:
-    """Least time (ms) of one sweep: 3 × the forward's prefix-shared Horner
-    count a step and example (the inverse step, then the two products of
-    its VJP) over the FP32 peak, against the increments in, g_dx out, S_T
-    and the cotangents in, once each, over HBM."""
-    t_ops = 3 * B * M * words_flops(plan) / FP32_FLOPS_PER_S
-    t_bytes = 4 * (2 * B * M * plan.d + B * plan.closure_size
-                   + B * n_emit * len(plan.words)) / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def atol_needed(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -4409,19 +4329,6 @@ LM_LANDMARKS = 16
 LM_LEVEL3 = 100        # level-3 words of the projected head's word set
 
 
-def lm_matmul_flops(cfg, B: int, S: int) -> float:
-    """Operations of one sig-MMD train step's matmuls: the weight
-    products (2 a parameter and token, embedding and LM head excluded:
-    the sig-MMD loss reads neither product) and the attention's two
-    batched products, forward once and backward twice; the "dots" remat
-    recomputes the attention's products once more."""
-    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-    weights = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
-               + 3 * d * ff) * cfg.n_layers + d * cfg.sig_head.channels
-    attn = 4 * B * cfg.n_heads * S * S * hd * cfg.n_layers
-    return 3 * 2 * weights * B * S + 4 * attn
-
-
 def lm_free() -> None:
     gc.collect()
     torch.cuda.synchronize()
@@ -6819,6 +6726,151 @@ def examples_case(ex: dict, counter: str) -> dict:
                 plain_max_abs_err=held)
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the kernels as operators, costed on meta tensors and on the card
+# ---------------------------------------------------------------------------
+
+# (B, M, d, N) of the serving micro-batch; the §8 projection's augmented
+# increments (B, M, letters) and word depth; the reference Gram; the §8
+# truncated training step (B, M, letters, N)
+COST_TRUNC = (64, 1024, 6, 5)
+COST_WORDS = (128, 500, 10, 4)
+COST_GRAM = (2048, 2048, 9330)
+COST_VG = (128, 500, 10, 3)
+HOST_CELL = (64, 32, 4, 3)     # the small launch whose host time is taken
+HOST_CALLS = 400
+
+
+def cost_case(name: str, fn, args: tuple, want: int, kernels: dict) -> dict:
+    """``obs.record_cost`` of ``fn`` on meta copies of ``args`` (nothing
+    built, nothing launched), then a ``CostCounter`` around the real call
+    on the card: both read ``want`` FLOPs exactly, and the real call
+    launches ``kernels`` ({counter: launches}) and nothing else."""
+    reset_counts()
+    meta = obs.record_cost(f"chip_smoke.{name}", fn, *args)
+    check(all(v == 0 for v in counts().values()),
+          f"{name}: the meta count launched {counts()}")
+    reset_counts()
+    with obs.compile.CostCounter() as cc:
+        fn(*args)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"[cost] {name}: record_cost {meta['flops']:,.0f} FLOPs on meta, "
+          f"{cc.flops:,.0f} around the call on the card, cost.py "
+          f"{want:,}; launches {got}; by operator "
+          f"{cc.raw()['flops_by_op']}", flush=True)
+    check(meta["flops"] == want, f"{name}: record_cost reads "
+          f"{meta['flops']} FLOPs, cost.py {want}")
+    check(cc.flops == meta["flops"], f"{name}: the call on the card reads "
+          f"{cc.flops} FLOPs, the meta count {meta['flops']}")
+    check(got == dict({k: 0 for k in got}, **kernels),
+          f"{name}: launches {got}, expected {kernels}")
+    return dict(case=name, shape=[int(v) for v in args[0].shape],
+                flops=int(want), meta_flops=meta["flops"],
+                card_flops=cc.flops, meta_bytes=meta["bytes"],
+                launches=kernels)
+
+
+def host_ms(fns: dict) -> dict:
+    """Median host ms from call to return of each of ``fns``, in turns
+    (each call of one, then each of the next), ``HOST_CALLS`` calls
+    each, synchronizing every 50 calls so the queue stays short."""
+    times = {k: [] for k in fns}
+    for f in fns.values():
+        f()
+    torch.cuda.synchronize()
+    for i in range(HOST_CALLS):
+        for k, f in fns.items():
+            t0 = time.perf_counter()
+            f()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+        if i % 50 == 49:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def direct_launch(x: torch.Tensor, depth: int) -> torch.Tensor:
+    """The ``sig_trunc`` launch as ``_launch`` made it before the kernel
+    became an operator: the planner, the increments detached and cast,
+    the kernel's launch body called directly (no dispatcher) and the
+    reassembly."""
+    B, _, d = x.shape
+    p = st.plan_launch(B, d, depth)
+    xs = x.detach().to(st._storage_dtype("fp32")).contiguous()
+    out = st._kernel(xs, None, depth, 0, 0, p.split, 0, p.threads,
+                     p.examples, p.top_slots)
+    return st._reassemble(out, d, depth, p.split)
+
+
+def phase_cost(rng) -> dict:
+    """Phase 30: each kernel's route costed by ``obs.record_cost`` on
+    meta tensors against ``kernels/cost.py`` and against a
+    ``CostCounter`` around the same call on the card, one launch each;
+    then the host time of a small ``sig_trunc`` launch through the
+    operator beside the direct launch."""
+    t_phase = time.perf_counter()
+    os.environ["PATHSIG_AUTOTUNE"] = "off"
+    cases = {}
+    B, M, d, N = COST_TRUNC
+    x = torch.diff(brownian(rng, B, M, d), dim=1)
+    cases["sig_trunc"] = cost_case(
+        "sig_trunc serving micro-batch",
+        lambda a: ops.signature(a, N, backend="cuda"), (x,),
+        trunc_work(B, M, d, N)[0], {"sig_trunc": 1})
+    check(roofline_ms(*trunc_work(B, M, d, N)) == bound(
+        B, M, d, N, 4, B * sig.sig_dim(d, N), 4),
+        "cost.trunc_work's bound differs from cost.bound's")
+    B, M, d, N = COST_WORDS
+    words = generated_words(sparse_leadlag_generators(d // 2), N)
+    x = torch.diff(brownian(rng, B, M, d), dim=1)
+    cases["sig_words"] = cost_case(
+        f"sig_words §8 ({len(words)} words)",
+        lambda a: ops.projected(a, words, backend="cuda"), (x,),
+        words_work(B, M, d, make_plan(words, d), len(words))[0],
+        {"sig_words": 1})
+    Bx, By, D = COST_GRAM
+    Sx = torch.tensor(rng.normal(size=(Bx, D)), dtype=torch.float32,
+                      device="cuda")
+    Sy = torch.tensor(rng.normal(size=(By, D)), dtype=torch.float32,
+                      device="cuda")
+    w = torch.tensor(rng.random(D), dtype=torch.float32, device="cuda")
+    cases["sig_gram"] = cost_case(
+        "sig_gram reference Gram",
+        lambda a, b, c: ops.gram(a, b, c, backend="cuda"), (Sx, Sy, w),
+        gram_work(Bx, By, D)[0], {"sig_gram": 1})
+    del Sx, Sy
+    B, M, d, N = COST_VG
+    x = torch.diff(brownian(rng, B, M, d), dim=1).requires_grad_()
+
+    def value_and_grad(a):
+        out = ops.signature(a, N, backend="cuda")
+        return out, torch.autograd.grad(out, a, torch.ones_like(out))
+
+    want = (trunc_work(B, M, d, N)[0]
+            + sweep_work(B, M, sig.truncation_closure(d, N), 1)[0])
+    cases["sig_sweep"] = cost_case(
+        "§8 truncated value and gradient", value_and_grad, (x,), want,
+        {"sig_trunc": 1, "sig_sweep": 1})
+    B, M, d, N = HOST_CELL
+    x = torch.diff(brownian(rng, B, M, d), dim=1)
+    torch.testing.assert_close(st._launch(x, N, None, False, 1, "fp32"),
+                               direct_launch(x, N), rtol=0, atol=0)
+    host = host_ms({
+        "operator": lambda: st._launch(x, N, None, False, 1, "fp32"),
+        "direct": lambda: direct_launch(x, N),
+        "wrapper": lambda: st.sig_trunc(x, N)})
+    print(f"[cost] host ms from call to return of a sig_trunc launch "
+          f"{HOST_CELL}, median of {HOST_CALLS}: through the operator "
+          f"{host['operator']:.4f}, the direct launch {host['direct']:.4f} "
+          f"(+{host['operator'] - host['direct']:.4f}), the sig_trunc "
+          f"wrapper {host['wrapper']:.4f}", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[timing] cost phase: {seconds:.1f} s", flush=True)
+    return dict(cases=cases, host_ms=host, host_cell=list(HOST_CELL),
+                seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6883,6 +6935,7 @@ def main() -> int:
     print(f"[timing] dry-run and model-axis phase: {drmp['seconds']:.1f} s",
           flush=True)
     ex = phase_examples()
+    costed = phase_cost(rng)
     shard_cases = {name: [] for name in ("sig_trunc", "sig_words",
                                          "sig_gram", "sig_sweep")}
     for P, r0 in distd["worlds"].items():
@@ -7045,6 +7098,11 @@ def main() -> int:
             {c["shape"][3] for c in sweep_cases if "shape" in c})},
         partitions_checked=sweep["partitions"],
         ptxas=ptxas.get("sig_sweep", {}), cases=sweep_cases))
+    for row in kernels:   # phase 30: the route's FLOPs, meta and on the card
+        if row["name"] in costed["cases"]:
+            row["cost"] = costed["cases"][row["name"]]
+    kernels[0]["host_ms"] = dict(costed["host_ms"],
+                                 shape=costed["host_cell"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
@@ -7056,7 +7114,8 @@ def main() -> int:
             streams=streams, new_phases_s=new_s, sessions=sessions,
             sessions_s=sessions_s, slice8=slice8, slice8_s=slice8_s,
             lm=lm, lm_s=lm_s, families=fam, distributed=distd,
-            model_parallel=mpar, dryrun_mp=drmp, examples=ex), indent=1))
+            model_parallel=mpar, dryrun_mp=drmp, examples=ex,
+            cost=costed), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -100,12 +100,15 @@ def kernel_layer(rng, dev) -> None:
         ops.signature(x, 3, device=dev)
     # a second shape: a new launch shape, labelled with its shape key
     ops.signature(x[:, :7], 3, device=dev)
-    # the torch engine's cost, counted on meta tensors (nothing runs)
-    cost = obs.record_cost(
-        "signature",
-        lambda a: ops.signature(a, 3, backend="torch", device=a.device), x)
-    print(f"  lowered cost: {cost['flops']:.0f} flops, "
-          f"{cost['bytes']:.0f} bytes")
+    # the cost of the route this device runs (the kernels on the card, the
+    # torch engine on the CPU) and of the other, counted on meta tensors:
+    # nothing is built, launched or run
+    routes = ("cuda", "torch") if dev.type == "cuda" else ("torch", "cuda")
+    for route in routes:
+        cost = obs.record_cost(f"signature.{route}", lambda a: ops.signature(
+            a, 3, backend=route), x)
+        print(f"  lowered cost ({route} route): {cost['flops']:.0f} flops, "
+              f"{cost['bytes']:.0f} bytes")
 
 
 def _ring_rank(rank: int, store: str, sx: np.ndarray, device,

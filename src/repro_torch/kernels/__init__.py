@@ -8,10 +8,14 @@ kernel wrappers are ``sig_trunc.sig_trunc`` and ``sig_words.sig_words``),
 and ``sig_gram_tiles`` is the Hopper Gram :func:`sig_gram.sig_gram`.
 ``core`` imports the plan caches from this package, so the names that
 import ``core`` in turn (``ops``, ``ref``, ``sig_gram_tiles``,
-``choose_split``, ``cone_rows``) load on first access.
+``choose_split``, ``cone_rows``) load on first access.  Importing the
+package defines the four kernels' operators (``pathsig::sig_trunc``,
+``sig_words``, ``sig_gram``, ``sig_sweep``; :mod:`.library`), with no
+kernel built.
 """
 import importlib
 
+from . import cost, library  # noqa: F401  (defines the operators)
 from .cache import (BoundedCache, clear_plan_caches, plan_cache_info,
                     set_plan_cache_maxsize)
 

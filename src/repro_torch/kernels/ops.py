@@ -11,10 +11,17 @@ Port of the ``signature``, ``signature_time_parallel``, ``projected``,
 - ``"cuda"``  — the hand-written Hopper kernels: ``sig_trunc``
   (:mod:`repro_torch.kernels.sig_trunc`), ``sig_words``
   (:mod:`repro_torch.kernels.sig_words`) and ``sig_gram``
-  (:mod:`repro_torch.kernels.sig_gram`); needs a CUDA device.
-- ``"auto"``  — ``cuda`` on a CUDA device, ``torch`` on the CPU.
+  (:mod:`repro_torch.kernels.sig_gram`), registered operators
+  (:mod:`repro_torch.kernels.library`); needs a CUDA device, or the meta
+  device, where nothing runs and the operators give their outputs'
+  shapes: ``obs.record_cost(site, lambda a: ops.signature(a, N,
+  backend="cuda"), x)`` counts the kernel route's work without a card.
+- ``"auto"``  — ``cuda`` on a CUDA device, ``torch`` on the CPU and on the
+  meta device.
 
-``device=None`` means the CUDA card (:mod:`repro_torch.device`).
+``device=None`` means the CUDA card (:mod:`repro_torch.device`), or the
+meta device when the input is a meta tensor.  On the meta device the
+autotuner is neither consulted nor timed: the planner's partition is used.
 
 Backend × backward × stream support matrix (✗ raises)
 ------------------------------------------------------
@@ -147,7 +154,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core.projection import plan_tables, projected_signature_from_increments
+from ..core.projection import projected_signature_from_increments
 from ..core.signature import (as_lengths, canon_precision, default_chunk,
                               mask_increments, prepend_basepoint,
                               quantise_increments, signature_combine,
@@ -211,13 +218,14 @@ def _obs_entry(fn):
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:
-    """backend string -> engine (``"torch"`` | ``"cuda"``) on ``device``."""
+    """backend string -> engine (``"torch"`` | ``"cuda"``) on ``device``;
+    ``"cuda"`` is accepted on the meta device, where nothing runs."""
     if backend == "auto":
         return "cuda" if device.type == "cuda" else "torch"
     if backend == "cuda":
-        if device.type != "cuda":
-            raise ValueError(f"backend='cuda' needs a CUDA device, got "
-                             f"device={device}")
+        if device.type not in ("cuda", "meta"):
+            raise ValueError(f"backend='cuda' needs a CUDA device (or the "
+                             f"meta device), got device={device}")
         return "cuda"
     if backend == "torch":
         return "torch"
@@ -227,6 +235,22 @@ def resolve_backend(backend: str, device: torch.device) -> str:
             "truncated signature IS the dense engine); use backend='torch'")
     raise ValueError(f"unknown backend {backend!r}; expected one of "
                      f"{BACKENDS}")
+
+
+def _entry_device(x, device) -> torch.device:
+    """An entry point's device: ``device``, or the meta device when it is
+    None and ``x`` is a meta tensor (a cost count, nothing runs)."""
+    if device is None and getattr(x, "is_meta", False):
+        return x.device
+    return resolve_device(device)
+
+
+def _lookup(kind: str, dev: torch.device, **cell) -> dict:
+    """The autotuner's record for a cell; {} on the meta device, where the
+    planner's partition is used and nothing is timed."""
+    if dev.type == "meta":
+        return {}
+    return autotune.lookup(kind, **cell)
 
 
 def _check_backward(backward: str) -> None:
@@ -556,9 +580,10 @@ def signature(increments, depth: int, *, backend: str = "auto",
     into the kernel (the ``transform`` column of the support matrix).  On
     the ``cuda`` engine ``split=None`` consults the autotuner
     (:mod:`repro_torch.kernels.autotune`) for the launch's split and
-    examples a block; on a miss the planner chooses.
+    examples a block; on a miss, and on the meta device, the planner
+    chooses.
     """
-    dev = resolve_device(device)
+    dev = _entry_device(increments, device)
     increments = _as_batch(increments, dev)
     engine = resolve_backend(backend, dev)
     _check_backward(backward)
@@ -580,8 +605,8 @@ def signature(increments, depth: int, *, backend: str = "auto",
     B = increments.shape[0]
     d_eff = transform_dim(spec, increments.shape[-1])
     if split is None:  # {} on the torch engine, which has no partition
-        hit = autotune.lookup(
-            "sig_trunc", engine=engine, d=d_eff, depth=depth,
+        hit = _lookup(
+            "sig_trunc", dev, engine=engine, d=d_eff, depth=depth,
             M=transform_steps(spec, increments.shape[1]), B=B,
             precision=precision)
         split, examples = hit.get("split"), hit.get("examples")
@@ -616,7 +641,7 @@ def signature_time_parallel(increments, depth: int, time_chunks: int, *,
     them in a log-depth tree.  Differentiable end to end: each chunk
     signature carries its cell's backward and the tree is plain tensor
     algebra."""
-    dev = resolve_device(device)
+    dev = _entry_device(increments, device)
     return _time_parallel_combine(
         lambda x: signature(x, depth, backend=backend, backward=backward,
                             split=split, precision=precision, device=dev),
@@ -709,9 +734,15 @@ def _closure_kernel(increments: torch.Tensor, wplan: WordPlan,
                    stream=stream, stream_stride=stream_stride,
                    precision=precision,
                    closure=_plan_for_words(wplan.closure, wplan.d), **fused)
-    # out_rows count the eps row as 0; the closure words start at 1
-    out_rows = plan_tables(wplan, increments.device, torch.float32)[4]
-    return cw[..., out_rows - 1]
+    return cw[..., _closure_cols(wplan.words, wplan.d, increments.device)]
+
+
+@plan_cache
+def _closure_cols(words: tuple, d: int, device: torch.device) -> torch.Tensor:
+    """The requested words' columns among the closure words: their state
+    rows less the eps row, made on the host."""
+    rows = np.asarray(_plan_for_words(words, d).out_rows, np.int64)
+    return torch.as_tensor(rows - 1, device=device)
 
 
 def _projected_local(increments: torch.Tensor, lengths, *, wplan: WordPlan,
@@ -774,7 +805,7 @@ def _projected_args(increments, plan, backend: str, backward: str,
                     transform, precision: str, device):
     """Validation shared by :func:`projected` and
     :func:`projected_forward_only`."""
-    dev = resolve_device(device)
+    dev = _entry_device(increments, device)
     increments = _as_batch(increments, dev)
     engine = "hybrid" if backend == "hybrid" else resolve_backend(backend,
                                                                   dev)
@@ -800,11 +831,12 @@ def _projected_args(increments, plan, backend: str, backward: str,
 def _max_rows(max_rows: int | None, engine: str, increments: torch.Tensor,
               wplan: WordPlan, spec, precision: str) -> int:
     """An explicit ``max_rows``, else the autotuner's ``sig_words`` pick on
-    the ``cuda`` engine, else 256."""
+    the ``cuda`` engine off the meta device, else 256."""
     if max_rows is not None:
         return max_rows
-    return autotune.lookup(
-        "sig_words", engine=engine, d=wplan.d, depth=wplan.depth,
+    return _lookup(
+        "sig_words", increments.device, engine=engine, d=wplan.d,
+        depth=wplan.depth,
         M=transform_steps(spec, increments.shape[1]), B=increments.shape[0],
         precision=precision).get("max_rows", 256)
 
@@ -1090,7 +1122,7 @@ def gram(Sx, Sy, weights, *, backend: str = "auto",
     padding them to a multiple of the shard count), and the result is a
     (B_x, B_y) DTensor placed Shard(0).
     """
-    dev = resolve_device(device)
+    dev = _entry_device(Sx, device)
     Sx, Sy = _as_batch(Sx, dev), _as_batch(Sy, dev)
     weights = torch.as_tensor(weights, device=dev)
     # the gram product has no dense/word split: hybrid is the torch engine
@@ -1113,7 +1145,7 @@ def gram(Sx, Sy, weights, *, backend: str = "auto",
                           precision)
     Sx = quantise_increments(Sx, precision)
     Sy = quantise_increments(Sy, precision)
-    tuned = autotune.partition(autotune.lookup(
-        "gram", engine=engine, D=Sx.shape[1], Bx=Sx.shape[0],
+    tuned = autotune.partition(_lookup(
+        "gram", dev, engine=engine, D=Sx.shape[1], Bx=Sx.shape[0],
         By=Sy.shape[0], precision=precision), "gram")
     return GramFunction.apply(Sx, Sy, weights, engine, block_words, tuned)

@@ -20,8 +20,10 @@ chooses the tile (:func:`tile_rows`), the word slices
 (:func:`word_slices`) and the copy width (:func:`copy_width`) from the
 shape and the pointers.  On a CPU tensor :func:`sig_gram` runs
 :func:`sig_gram_plain`, the word-blocked loop of the reference's
-``ops._gram_blocked_jax``; on a CUDA tensor it launches the kernel or
-raises.
+``ops._gram_blocked_jax``; on a CUDA tensor it launches the kernel, the
+registered operator ``pathsig::sig_gram``
+(:mod:`repro_torch.kernels.library`), or raises; on a meta tensor the
+operator's Meta implementation runs.
 """
 from __future__ import annotations
 
@@ -126,23 +128,39 @@ def _plan(Bx: int, By: int, D: int, sms: int) -> tuple[int, int]:
 def _launch(Sx: torch.Tensor, Sy: torch.Tensor, weights: torch.Tensor,
             rows: int | None = None, slice_words: int | None = None,
             vec: int | None = None) -> torch.Tensor:
-    """Launch the kernel on CUDA operands with B_x, B_y, D >= 1.  ``rows``
-    (64 or 128), ``slice_words`` (a multiple of ``KBLOCK``) and ``vec``
-    (floats per copy, at most :func:`copy_width`) override the planner's
-    choices, for tests and measurements."""
+    """Launch the kernel on CUDA (or meta) operands with B_x, B_y, D >= 1,
+    through ``pathsig::sig_gram``.  ``rows`` (64 or 128), ``slice_words``
+    (a multiple of ``KBLOCK``) and ``vec`` (floats per copy, at most
+    :func:`copy_width`) override the planner's choices, for tests and
+    measurements."""
+    x = Sx.detach().to(torch.float32).contiguous()
+    y = Sy.detach().to(torch.float32).contiguous()
+    w = weights.detach().to(device=x.device, dtype=torch.float32).contiguous()
+    return torch.ops.pathsig.sig_gram(x, y, w, rows or 0, slice_words or 0,
+                                      vec or 0)
+
+
+def _output(x: torch.Tensor, y: torch.Tensor, *args) -> torch.Tensor:
+    """The fp32 (B_x, B_y) Gram ``pathsig::sig_gram`` writes, on ``x``'s
+    device (its Meta implementation)."""
+    return torch.empty((x.shape[0], y.shape[0]), dtype=torch.float32,
+                       device=x.device)
+
+
+def _kernel(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, rows: int,
+            slice_words: int, vec: int) -> torch.Tensor:
+    """``pathsig::sig_gram`` on the card: the kernel over contiguous fp32
+    operands; ``rows``, ``slice_words`` and ``vec`` 0 are the planner's."""
     global launches
-    Bx, D = Sx.shape
-    By = Sy.shape[0]
-    plan_rows, plan_words = _plan(Bx, By, D, _sms(Sx.device))
+    Bx, D = x.shape
+    By = y.shape[0]
+    plan_rows, plan_words = _plan(Bx, By, D, _sms(x.device))
     rows = rows or plan_rows
     slice_words = slice_words or plan_words
     if -(-Bx // rows) > MAX_ROW_TILES:
         raise ValueError(f"B_x = {Bx} exceeds the kernel's "
                          f"{MAX_ROW_TILES * rows} rows; split the batch")
-    x = Sx.detach().to(torch.float32).contiguous()
-    y = Sy.detach().to(torch.float32).contiguous()
-    w = weights.detach().to(device=x.device, dtype=torch.float32).contiguous()
-    out = torch.empty((Bx, By), dtype=torch.float32, device=x.device)
+    out = _output(x, y)
     vec = vec or copy_width(D, x.data_ptr(), y.data_ptr())
     n_slices = -(-D // slice_words)
     ws = (torch.empty((n_slices, Bx, By), dtype=torch.float32,
@@ -182,7 +200,8 @@ def sig_gram(Sx: torch.Tensor, Sy: torch.Tensor, weights: torch.Tensor,
 
     Sx (B_x, D), Sy (B_y, D), weights (D,) -> (B_x, B_y) float32, with the
     operands cast to float32 as the reference kernel casts them.  A CPU
-    tensor runs :func:`sig_gram_plain`; a CUDA tensor launches the kernel.
+    tensor runs :func:`sig_gram_plain`; a CUDA tensor launches the kernel;
+    a meta tensor runs the operator's Meta implementation.
     ``rows`` (64 or 128 rows of S_x a tile) and ``slice_words`` (a
     multiple of ``KBLOCK``) override the planner's partition (the
     autotuner's ``gram`` record).
@@ -198,12 +217,12 @@ def sig_gram(Sx: torch.Tensor, Sy: torch.Tensor, weights: torch.Tensor,
                          f"{KBLOCK}, got {slice_words}")
     count_new_shape("sig_gram_tiles", launch_shapes,
                     (tuple(Sx.shape), tuple(Sy.shape), Sx.dtype, rows,
-                     slice_words),
+                     slice_words, Sx.is_meta),
                     Sx, Sy, rows=rows, slice_words=slice_words)
     if Sx.device.type == "cpu":
         return sig_gram_plain(Sx.float(), Sy.float(), weights.float())
-    if Sx.device.type != "cuda":
-        raise ValueError(f"sig_gram runs on cuda or cpu tensors, not "
+    if Sx.device.type not in ("cuda", "meta"):
+        raise ValueError(f"sig_gram runs on cuda, meta or cpu tensors, not "
                          f"{Sx.device}")
     if 0 in (Sx.shape[0], Sy.shape[0], Sx.shape[1]):  # empty: no launch
         return torch.zeros((Sx.shape[0], Sy.shape[0]), dtype=torch.float32,

@@ -20,11 +20,13 @@ the Horner step's VJP written out per closure row; the ``torch`` engine's
 inverse backwards call it.  :func:`sig_sweep` is the wrapper of the
 hand-written CUDA kernel (``csrc/sig_sweep.cu``), one launch a backward
 call, which ``SigTruncFunction`` and ``SigWordsFunction`` call: on a CPU
-tensor it runs the plain version, on a CUDA tensor it launches the kernel
-or raises.  The kernel runs the sweep levelwise over the tables of
-:func:`level_tables` (each row's parent, last letter and children, its
-chain values by target length, rows grouped by letter, each row's
-cotangent columns), partitioned by :func:`plan_sweep_launch`.
+tensor it runs the plain version, on a CUDA tensor it launches the kernel,
+the registered operator ``pathsig::sig_sweep``
+(:mod:`repro_torch.kernels.library`), or raises, and on a meta tensor the
+operator's Meta implementation runs.  The kernel runs the sweep levelwise
+over the tables of :func:`level_tables` (each row's parent, last letter
+and children, its chain values by target length, rows grouped by letter,
+each row's cotangent columns), partitioned by :func:`plan_sweep_launch`.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from ..core.words import WordPlan
 from ..obs.compile import count_new_shape
 from . import _build
 from .cache import plan_cache
+from .library import plan_key
 
 # per-block dynamic shared memory the kernel may take on an H100 (the
 # opt-in maximum, 232,448 bytes, less a margin)
@@ -448,41 +451,64 @@ def _lib() -> ctypes.CDLL:
 def _launch(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
             g: torch.Tensor, stride: int,
             launch: SweepLaunch | None = None) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors, B, M >= 1; ``stride`` 0 is the
-    terminal cell; ``launch`` forces a partition (default the planner's).
-    Returns the fp32 (B, M, d) gradient."""
-    global launches
-    B, M, d = increments.shape
+    """Launch the kernel on CUDA (or meta) tensors, B, M >= 1, through
+    ``pathsig::sig_sweep``; ``stride`` 0 is the terminal cell; ``launch``
+    forces a partition (default the planner's).  Returns the fp32 (B, M,
+    d) gradient."""
+    M = increments.shape[1]
     p = launch or plan_sweep_launch(plan)
     lt = level_tables(plan)
     dev = increments.device
-    x = increments.detach().float().contiguous()
-    s = S_T.detach().float().contiguous()
-    gg = g.detach().float().contiguous()
-    tabs = _level_tables_on(plan, dev)
-    slots = _slots_on(M, stride, dev)
-    n_emit = -(-M // stride) if stride else 1
-    scratch = None if p.in_smem else torch.empty(
-        (B, example_floats(lt)), dtype=torch.float32, device=dev)
-    gx = torch.empty((B, M, d), dtype=torch.float32, device=dev)
-    lo = np.ascontiguousarray(lt.lo, np.int32)
-    coff = np.ascontiguousarray(lt.chain_off, np.int32)
-    lanes = np.array((1,) + p.lanes, np.int32)
+    return torch.ops.pathsig.sig_sweep(
+        increments.detach().float().contiguous(),
+        S_T.detach().float().contiguous(), g.detach().float().contiguous(),
+        *_level_tables_on(plan, dev), _slots_on(M, stride, dev),
+        plan_key(plan), plan.depth, p.threads, int(p.in_smem),
+        [int(v) for v in lt.lo], [int(v) for v in lt.chain_off],
+        [1, *p.lanes], example_floats(lt))
+
+
+def _output(x: torch.Tensor, *args) -> torch.Tensor:
+    """The fp32 (B, M, d) gradient ``pathsig::sig_sweep`` writes, on
+    ``x``'s device (its Meta implementation)."""
+    return torch.empty(x.shape, dtype=torch.float32, device=x.device)
+
+
+def _kernel(x: torch.Tensor, s_t: torch.Tensor, g: torch.Tensor,
+            up: torch.Tensor, down: torch.Tensor, child: torch.Tensor,
+            letter_off: torch.Tensor, col_off: torch.Tensor,
+            cols: torch.Tensor, slots: torch.Tensor, plan: int, depth: int,
+            threads: int, in_smem: int, lo: list[int], chain_off: list[int],
+            lanes: list[int], example_floats: int) -> torch.Tensor:
+    """``pathsig::sig_sweep`` on the card: the kernel over contiguous fp32
+    increments (B, M, d), terminal closure state (B, W) and cotangents
+    (B, |I|) or (B, M_out, |I|), the level tables of
+    :func:`_level_tables_on` and the emission slots of
+    :func:`emit_slot_table`; ``lo``, ``chain_off`` and ``lanes`` are read
+    by the host entry point."""
+    global launches
+    B, M, d = x.shape
+    dev = x.device
+    n_emit = g.shape[1] if g.ndim == 3 else 1
+    scratch = None if in_smem else torch.empty(
+        (B, example_floats), dtype=torch.float32, device=dev)
+    gx = _output(x)
+    host = [np.ascontiguousarray(v, np.int32) for v in (lo, chain_off, lanes)]
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.sig_sweep_launch(
-            x.data_ptr(), s.data_ptr(), gg.data_ptr(),
-            *(t.data_ptr() for t in tabs), slots.data_ptr(),
+            x.data_ptr(), s_t.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() for t in (up, down, child, letter_off, col_off,
+                                     cols)), slots.data_ptr(),
             None if scratch is None else scratch.data_ptr(), gx.data_ptr(),
-            B, M, d, plan.closure_size, plan.depth, len(plan.words), n_emit,
-            p.threads, lo.ctypes.data, coff.ctypes.data,
-            lanes.ctypes.data, example_floats(lt),
+            B, M, d, s_t.shape[1], depth, g.shape[-1], n_emit, threads,
+            *(h.ctypes.data for h in host), example_floats,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"sig_sweep kernel launch failed with cudaError "
-                           f"{err} (B={B}, M={M}, d={d}, W="
-                           f"{plan.closure_size}, depth={plan.depth}, "
-                           f"stride={stride}, {p})")
+                           f"{err} (B={B}, M={M}, d={d}, W={s_t.shape[1]}, "
+                           f"depth={depth}, n_emit={n_emit}, threads="
+                           f"{threads}, in_smem={bool(in_smem)})")
     launches += 1
     return gx
 
@@ -493,18 +519,19 @@ def sig_sweep(increments: torch.Tensor, plan: WordPlan, S_T: torch.Tensor,
     """The increments' gradient (B, M, d), in their dtype, by the reverse
     sweep (arguments as for :func:`sig_sweep_plain`).  A CPU tensor runs
     :func:`sig_sweep_plain`; a CUDA tensor launches the kernel, which sums
-    in fp32."""
+    in fp32; a meta tensor runs the operator's Meta implementation."""
     _check(increments, plan, S_T, g, stream, stream_stride)
     count_new_shape("sig_sweep", launch_shapes,
                     (tuple(increments.shape), increments.dtype,
-                     len(plan.words), plan.depth, stream, stream_stride),
+                     len(plan.words), plan.depth, stream, stream_stride,
+                     increments.is_meta),
                     increments, words=len(plan.words), stream=stream,
                     stride=stream_stride)
     if increments.device.type == "cpu":
         return sig_sweep_plain(increments, plan, S_T, g, stream=stream,
                                stream_stride=stream_stride)
-    if increments.device.type != "cuda":
-        raise ValueError(f"sig_sweep runs on cuda or cpu tensors, not "
+    if increments.device.type not in ("cuda", "meta"):
+        raise ValueError(f"sig_sweep runs on cuda, meta or cpu tensors, not "
                          f"{increments.device}")
     B, M, _ = increments.shape
     if B == 0 or M == 0:  # no steps: no gradient to sweep, no launch

@@ -18,7 +18,11 @@ memory a block then takes.  :func:`state_footprint` and
 state block and the smallest split whose block fits.
 
 On a CPU tensor :func:`sig_trunc` runs :func:`sig_trunc_plain`, the
-levelwise Horner scan; on a CUDA tensor it launches the kernel or raises.
+levelwise Horner scan; on a CUDA tensor it launches the kernel, the
+registered operator ``pathsig::sig_trunc``
+(:mod:`repro_torch.kernels.library`), or raises; on a meta tensor the
+operator's Meta implementation gives the output's shape, with nothing
+built or launched, so ``obs.record_cost`` counts the kernel route's work.
 :class:`SigTruncFunction` saves the increments and the terminal signature
 (the last emission when streamed) and its backward is the §4.2 sweep
 kernel over the truncation's word table
@@ -337,51 +341,76 @@ def fuse_flags(transform) -> tuple[bool, bool]:
 def _launch(incs: torch.Tensor, depth: int, split: int | None, stream: bool,
             stride: int, precision: str, plan: LaunchPlan | None = None,
             transform=None, taux: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the kernel on CUDA increments (B, M, d_raw), B, M >= 1.
-    Returns fp32 (B, D_sig), or (B, M_out, D_sig) in the storage dtype,
-    over the d = transform_dim(transform, d_raw) augmented letters and
-    M_aug augmented steps.  ``plan`` (from :func:`plan_launch` at d)
-    replaces the planner's (a forced partition, or the autotuner's)."""
-    global launches, stream_launches, fused_launches
-    B, M, d_raw = incs.shape
+    """Launch the kernel on CUDA (or meta) increments (B, M, d_raw), B, M
+    >= 1, through ``pathsig::sig_trunc``.  Returns fp32 (B, D_sig), or
+    (B, M_out, D_sig) in the storage dtype, over the d =
+    transform_dim(transform, d_raw) augmented letters and M_aug augmented
+    steps.  ``plan`` (from :func:`plan_launch` at d) replaces the
+    planner's (a forced partition, or the autotuner's)."""
+    B, _, d_raw = incs.shape
     ll, time = fuse_flags(transform)
     d = transform_dim(transform, d_raw)
-    M_aug = 2 * M if ll else M
     if plan is None:
         plan = plan_launch(B, d, depth, split)
-    s = plan.split
-    rows = max(0, s - 1) + cone_rows(d, depth, s)
-    storage = _storage_dtype(precision)
-    x = incs.detach().to(storage).contiguous()
+    x = incs.detach().to(_storage_dtype(precision)).contiguous()
     ta = taux.detach().to(device=x.device, dtype=torch.float32).contiguous() \
         if time else None
-    cells = plan.grid[1]
-    if stream:
-        out = torch.empty((B, -(-M_aug // stride), cells, rows),
-                          dtype=storage, device=x.device)
-    else:
-        out = torch.empty((B, cells, rows), dtype=torch.float32,
-                          device=x.device)
+    out = torch.ops.pathsig.sig_trunc(
+        x, ta, depth, int(ll), int(time), plan.split,
+        stride if stream else 0, plan.threads, plan.examples,
+        plan.top_slots)
+    return _reassemble(out, d, depth, plan.split)
+
+
+def _output(x: torch.Tensor, taux: torch.Tensor | None, depth: int,
+            lead_lag: int, time: int, split: int, stride: int, *partition
+            ) -> torch.Tensor:
+    """The cone blocks ``pathsig::sig_trunc`` writes, on ``x``'s device
+    (its Meta implementation): fp32 (B, d^s, rows), or streamed (B,
+    M_out, d^s, rows) in the increments' storage dtype."""
+    B, M, d_raw = x.shape
+    d = d_raw * (2 if lead_lag else 1) + time
+    rows = max(0, split - 1) + cone_rows(d, depth, split)
+    if stride:
+        M_aug = 2 * M if lead_lag else M
+        return torch.empty((B, -(-M_aug // stride), d**split, rows),
+                           dtype=x.dtype, device=x.device)
+    return torch.empty((B, d**split, rows), dtype=torch.float32,
+                       device=x.device)
+
+
+def _kernel(x: torch.Tensor, taux: torch.Tensor | None, depth: int,
+            lead_lag: int, time: int, split: int, stride: int, threads: int,
+            examples: int, top_slots: int) -> torch.Tensor:
+    """``pathsig::sig_trunc`` on the card: the kernel over contiguous
+    increments in the storage dtype (fp32 or bf16) and fp32 time rows;
+    ``stride`` 0 is the terminal cell.  Returns the cone blocks."""
+    global launches, stream_launches, fused_launches
+    B, M, d_raw = x.shape
+    d = d_raw * (2 if lead_lag else 1) + time
+    bf16 = x.dtype == torch.bfloat16
+    out = _output(x, taux, depth, lead_lag, time, split, stride)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.sig_trunc_launch(
-            x.data_ptr(), None if ta is None else ta.data_ptr(),
-            out.data_ptr(), B, M, d_raw, d, int(ll), int(time), depth, s,
-            stride if stream else 0, int(storage == torch.bfloat16),
-            int(stream and storage == torch.bfloat16), plan.threads,
-            plan.examples, plan.top_slots,
+            x.data_ptr(), None if taux is None else taux.data_ptr(),
+            out.data_ptr(), B, M, d_raw, d, lead_lag, time, depth, split,
+            stride, int(bf16), int(bool(stride) and bf16), threads,
+            examples, top_slots,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"sig_trunc kernel launch failed with cudaError "
                            f"{err} (B={B}, M={M}, d={d}, depth={depth}, "
-                           f"transform={transform}, {plan})")
-    if stream:
+                           f"lead_lag={lead_lag}, time={time}, split={split},"
+                           f" threads={threads}, examples={examples}, "
+                           f"top_slots={top_slots})")
+    if stride:
         stream_launches += 1
     else:
         launches += 1
-    if transform is not None:
+    if lead_lag or time:
         fused_launches += 1
-    return _reassemble(out, d, depth, s)
+    return out
 
 
 class SigTruncFunction(torch.autograd.Function):
@@ -459,7 +488,8 @@ def sig_trunc(increments: torch.Tensor, depth: int, *,
     increments stay raw (B, M, d_raw), the output is over d_aug letters
     and M_out = ceil(M_aug / stream_stride); the time channel stays fp32.
     A CPU tensor runs :func:`sig_trunc_plain` on the same rounded values; a
-    CUDA tensor launches the kernel.
+    CUDA tensor launches the kernel; a meta tensor runs the operator's Meta
+    implementation.
     """
     if increments.ndim != 3:
         raise ValueError(f"expected (B, M, d), got {tuple(increments.shape)}")
@@ -479,7 +509,8 @@ def sig_trunc(increments: torch.Tensor, depth: int, *,
         check_split(d, depth, split)
     count_new_shape("sig_trunc", launch_shapes,
                     (tuple(increments.shape), increments.dtype, depth, split,
-                     examples, stream, stream_stride, precision, transform),
+                     examples, stream, stream_stride, precision, transform,
+                     increments.is_meta),
                     increments, depth=depth, split=split, examples=examples,
                     stream=stream, stride=stream_stride, precision=precision,
                     transform=str(transform) if transform else None)
@@ -491,8 +522,8 @@ def sig_trunc(increments: torch.Tensor, depth: int, *,
                               transform=transform, taux=ta)
         return out.to(storage if stream else torch.float32).to(
             increments.dtype)
-    if increments.device.type != "cuda":
-        raise ValueError(f"sig_trunc runs on cuda or cpu tensors, not "
+    if increments.device.type not in ("cuda", "meta"):
+        raise ValueError(f"sig_trunc runs on cuda, meta or cpu tensors, not "
                          f"{increments.device}")
     if B == 0 or M == 0:  # no steps: zeros, no launch
         M_aug = 2 * M if ll else M

@@ -24,14 +24,16 @@ packed into registers (:func:`packed_tables`), several examples of one
 group a block; it writes (B, |I|) fp32 words, or (B, M_out, |I|) in the
 storage dtype, through each group's emission list.  On a CPU tensor
 :func:`sig_words` runs :func:`sig_words_plain`, the padded tiles as a
-word-table scan in PyTorch; on a CUDA tensor it launches the kernel or
-raises.  :class:`SigWordsFunction` given the untiled plan of a word set
-that is its own prefix closure in level-major order (the closure tiles of
-``ops.projected``) saves the increments and the terminal closure state,
-and its backward is the §4.2 sweep kernel over that plan
-(:func:`repro_torch.kernels.sig_sweep.sig_sweep`), one launch a call;
-without one (``ops.projected_forward_only``) it keeps no closure state
-and its backward raises.
+word-table scan in PyTorch; on a CUDA tensor it launches the kernel, the
+registered operator ``pathsig::sig_words``
+(:mod:`repro_torch.kernels.library`), or raises; on a meta tensor the
+operator's Meta implementation runs.  :class:`SigWordsFunction` given the
+untiled plan of a word set that is its own prefix closure in level-major
+order (the closure tiles of ``ops.projected``) saves the increments and
+the terminal closure state, and its backward is the §4.2 sweep kernel
+over that plan (:func:`repro_torch.kernels.sig_sweep.sig_sweep`), one
+launch a call; without one (``ops.projected_forward_only``) it keeps no
+closure state and its backward raises.
 
 ``transform=`` (basepoint-free) and ``taux=`` fuse lead_lag /
 time_augment into the kernel as in :mod:`repro_torch.kernels.sig_trunc`:
@@ -52,10 +54,11 @@ import torch
 
 from ..core.signature import _fused_build_increment, stream_emit_steps
 from ..core.transforms import fused_adjoint, fused_augment, transform_dim
-from ..core.words import TiledPlan, WordPlan
+from ..core.words import TiledPlan, WordPlan, make_plan
 from ..obs.compile import count_new_shape
 from . import _build
 from .cache import plan_cache
+from .library import plan_key
 from .sig_sweep import sig_sweep
 from .sig_trunc import _storage_dtype, fuse_flags
 
@@ -455,19 +458,25 @@ def link_words(prefix: np.ndarray, letters: np.ndarray, lengths: np.ndarray,
     return out
 
 
+@plan_cache
+def _closure_key(tplan: TiledPlan) -> int:
+    """The interned key of ``tplan``'s untiled word set, whose closure the
+    operator's FLOP formula counts."""
+    return plan_key(make_plan(tplan.words, tplan.d))
+
+
 def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
             precision: str, plan: WordsLaunch | None = None, transform=None,
             taux: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the kernel on CUDA increments (B, M, d_raw), B, M >= 1, over
-    ``tplan``'s d = transform_dim(transform, d_raw) letters.  Returns fp32
-    (B, |I|), or (B, M_out, |I|) in the storage dtype, M_out counting
-    augmented steps.  ``plan`` (from :func:`plan_words_launch` at d)
-    replaces the planner's, for tests and measurements."""
-    global launches, stream_launches, fused_launches
-    B, M, d_raw = incs.shape
+    """Launch the kernel on CUDA (or meta) increments (B, M, d_raw), B, M
+    >= 1, over ``tplan``'s d = transform_dim(transform, d_raw) letters,
+    through ``pathsig::sig_words``.  Returns fp32 (B, |I|), or (B, M_out,
+    |I|) in the storage dtype, M_out counting augmented steps.  ``plan``
+    (from :func:`plan_words_launch` at d) replaces the planner's, for tests
+    and measurements."""
+    B, _, d_raw = incs.shape
     ll, time = fuse_flags(transform)
     d = transform_dim(transform, d_raw)
-    M_aug = 2 * M if ll else M
     tt = tile_tables(tplan)
     if plan is None:
         plan = plan_words_launch(B, tt, d, lead_lag=ll)
@@ -476,37 +485,66 @@ def _launch(incs: torch.Tensor, tplan: TiledPlan, stream: bool, stride: int,
                          f"a chunk of an even number of steps, not "
                          f"{plan.chunk} (plan_words_launch(lead_lag=True))")
     tabs = _packed_on(tt, plan.groups, d, incs.device)
-    storage = _storage_dtype(precision)
-    x = incs.detach().to(storage).contiguous()
+    x = incs.detach().to(_storage_dtype(precision)).contiguous()
     ta = taux.detach().to(device=x.device, dtype=torch.float32).contiguous() \
         if time else None
-    n = len(tplan.words)
-    if stream:
-        out = torch.empty((B, -(-M_aug // stride), n), dtype=storage,
-                          device=x.device)
-    else:
-        out = torch.empty((B, n), dtype=torch.float32, device=x.device)
+    return torch.ops.pathsig.sig_words(
+        x, ta, *tabs, _closure_key(tplan), len(tplan.words), tt.depth,
+        int(ll), int(time), stride if stream else 0, plan.rows_per_thread,
+        plan.threads, plan.examples, plan.chunk)
+
+
+def _output(x: torch.Tensor, taux, links, emit_off, emit_rows, emit_cols,
+            plan: int, n_words: int, depth: int, lead_lag: int, time: int,
+            stride: int, *partition) -> torch.Tensor:
+    """The words ``pathsig::sig_words`` writes, on ``x``'s device (its Meta
+    implementation): fp32 (B, |I|), or streamed (B, M_out, |I|) in the
+    increments' storage dtype."""
+    B, M, _ = x.shape
+    if stride:
+        M_aug = 2 * M if lead_lag else M
+        return torch.empty((B, -(-M_aug // stride), n_words), dtype=x.dtype,
+                           device=x.device)
+    return torch.empty((B, n_words), dtype=torch.float32, device=x.device)
+
+
+def _kernel(x: torch.Tensor, taux: torch.Tensor | None, links: torch.Tensor,
+            emit_off: torch.Tensor, emit_rows: torch.Tensor,
+            emit_cols: torch.Tensor, plan: int, n_words: int, depth: int,
+            lead_lag: int, time: int, stride: int, rows_per_thread: int,
+            threads: int, examples: int, chunk: int) -> torch.Tensor:
+    """``pathsig::sig_words`` on the card: the kernel over contiguous
+    increments in the storage dtype, fp32 time rows and a packing's
+    tables (:func:`packed_tables`: links (G, slots, r_pad), the emission
+    list); ``stride`` 0 is the terminal cell."""
+    global launches, stream_launches, fused_launches
+    B, M, d_raw = x.shape
+    d = d_raw * (2 if lead_lag else 1) + time
+    G, slots, r_pad = links.shape
+    bf16 = x.dtype == torch.bfloat16
+    out = _output(x, taux, links, emit_off, emit_rows, emit_cols, plan,
+                  n_words, depth, lead_lag, time, stride)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.sig_words_launch(
-            x.data_ptr(), None if ta is None else ta.data_ptr(),
-            *(a.data_ptr() for a in tabs), out.data_ptr(), B, M, d_raw, d,
-            int(ll), int(time), len(plan.groups), plan.r_pad, n, tt.depth,
-            stride if stream else 0,
-            int(storage == torch.bfloat16),
-            int(stream and storage == torch.bfloat16), plan.depth_slots,
-            plan.rows_per_thread, plan.threads, plan.examples, plan.chunk,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), None if taux is None else taux.data_ptr(),
+            links.data_ptr(), emit_off.data_ptr(), emit_rows.data_ptr(),
+            emit_cols.data_ptr(), out.data_ptr(), B, M, d_raw, d, lead_lag,
+            time, G, r_pad, n_words, depth, stride, int(bf16),
+            int(bool(stride) and bf16), slots, rows_per_thread, threads,
+            examples, chunk, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"sig_words kernel launch failed with cudaError "
-                           f"{err} (B={B}, M={M}, d={d}, depth={tt.depth}, "
-                           f"transform={transform}, "
-                           f"{plan._replace(groups=len(plan.groups))})")
-    if stream:
+                           f"{err} (B={B}, M={M}, d={d}, depth={depth}, "
+                           f"lead_lag={lead_lag}, time={time}, groups={G}, "
+                           f"r_pad={r_pad}, rows_per_thread={rows_per_thread}"
+                           f", threads={threads}, examples={examples}, "
+                           f"chunk={chunk})")
+    if stride:
         stream_launches += 1
     else:
         launches += 1
-    if transform is not None:
+    if lead_lag or time:
         fused_launches += 1
     return out
 
@@ -618,7 +656,8 @@ def sig_words(increments: torch.Tensor, tplan: TiledPlan, *,
     Increments are stored in the precision's dtype (bf16 under
     ``"bf16_fp32"``) and accumulated in fp32; float64 inputs run in fp32
     and are cast back.  A CPU tensor runs :func:`sig_words_plain` on the
-    same rounded values; a CUDA tensor launches the kernel.  ``closure``,
+    same rounded values; a CUDA tensor launches the kernel; a meta tensor
+    runs the operator's Meta implementation.  ``closure``,
     the untiled plan of ``tplan.words`` when they are their own prefix
     closure, makes the launch differentiable (:class:`SigWordsFunction`).
     ``transform`` (basepoint-free) and ``taux`` (needed iff it has a time
@@ -646,7 +685,7 @@ def sig_words(increments: torch.Tensor, tplan: TiledPlan, *,
     count_new_shape("sig_words", launch_shapes,
                     (tuple(increments.shape), increments.dtype,
                      len(tplan.words), len(tplan.tiles), stream,
-                     stream_stride, precision, transform),
+                     stream_stride, precision, transform, increments.is_meta),
                     increments, words=len(tplan.words),
                     tiles=len(tplan.tiles), stream=stream,
                     stride=stream_stride, precision=precision,
@@ -659,8 +698,8 @@ def sig_words(increments: torch.Tensor, tplan: TiledPlan, *,
                               transform=transform, taux=ta)
         return out.to(storage if stream else torch.float32).to(
             increments.dtype)
-    if increments.device.type != "cuda":
-        raise ValueError(f"sig_words runs on cuda or cpu tensors, not "
+    if increments.device.type not in ("cuda", "meta"):
+        raise ValueError(f"sig_words runs on cuda, meta or cpu tensors, not "
                          f"{increments.device}")
     if B == 0 or M == 0:  # no steps: zeros, no launch
         n = len(tplan.words)

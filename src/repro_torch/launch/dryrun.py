@@ -11,7 +11,10 @@ collective is accepted and moves nothing.  The step is the port's own:
 model under the cell's rules, then the train, prefill or decode step.
 From it:
 
-- ``hlo_flops_per_dev``: ``FlopCounterMode`` over the step;
+- ``hlo_flops_per_dev``: the step's FLOPs as XLA's ``cost_analysis``
+  counts them, as the reference's are (:class:`repro_torch.obs.compile.
+  CostCounter`: matmuls by ``FlopCounterMode``, elementwise and reduction
+  work an output element, transcendentals apart);
 - ``hlo_bytes_per_dev``: each operation's inputs and outputs, unfused, as
   XLA's ``bytes accessed`` is (:class:`repro_torch.obs.compile.
   CostCounter`, shared with ``obs.record_cost``);
@@ -63,15 +66,17 @@ from ..distributed import collectives as C
 from ..distributed import model_parallel as MP
 from ..distributed.ctx import AbstractMesh, sharding_ctx
 from ..distributed.hlo import collective_stats, duplication
+from ..kernels.cost import BF16_FLOPS_PER_S, HBM_BYTES_PER_S
 from ..obs.compile import CostCounter
 from ..optim import adafactor, adamw
 from ..serve.engine import make_prefill_step, make_serve_step
 from ..train.trainer import make_train_step, place_batch
 from . import specs as SP
 
-# H100 SXM5 hardware model (roofline constants)
-PEAK_FLOPS = 989.4e12      # dense BF16 tensor-core FLOP/s (NVIDIA H100 datasheet, SXM5)
-HBM_BW = 3.35e12           # HBM3 bytes/s (NVIDIA H100 datasheet, SXM5)
+# H100 SXM5 hardware model (roofline constants), the first two from the
+# kernels' cost module
+PEAK_FLOPS = BF16_FLOPS_PER_S   # dense BF16 tensor-core FLOP/s (datasheet)
+HBM_BW = HBM_BYTES_PER_S        # HBM3 bytes/s (NVIDIA H100 datasheet, SXM5)
 NVLINK_BW = 450e9          # bytes/s a direction: NVLink 4's 900 GB/s (H100 datasheet)
 NIC_BW = 50e9              # bytes/s: one 400 Gb/s NIC a card (ConnectX-7, DGX H100)
 CARDS_PER_NODE = 8         # HGX / DGX H100 node

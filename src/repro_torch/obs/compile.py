@@ -15,11 +15,27 @@ metrics off.
 
 The reference's ``record_cost`` publishes XLA's ``cost_analysis`` of a
 lowered computation.  The port's :func:`record_cost` runs the callable
-on meta copies of its tensor arguments under :class:`CostCounter`: a
-``torch.utils.flop_counter.FlopCounterMode`` for the FLOPs and a
-dispatch mode that adds up every operation's input and output bytes,
-unfused, as XLA's ``bytes accessed`` is.  ``repro_torch.launch.dryrun``
-counts its cells with the same :class:`CostCounter`.
+on meta copies of its tensor arguments under :class:`CostCounter`, which
+counts as ``cost_analysis`` counts (:func:`op_cost`):
+
+- matmuls, attention and convolutions by
+  ``torch.utils.flop_counter.FlopCounterMode`` (2·m·n·k a matmul), and
+  the four kernels' operators (``pathsig::sig_trunc`` ...) by their FLOP
+  formulas, the analytic counts of ``kernels/cost.py``;
+- 1 FLOP an output element for each arithmetic, compare, select and cast
+  aten operation; transcendentals (exp, log, tanh, sqrt, rsqrt, erf,
+  pow, ...) 1 an output element under ``transcendentals``, not FLOPs;
+- n - 1 FLOPs an output element for a reduction over n elements;
+- nothing for copies, views, indexing, fills and concatenation;
+- the fused aten operations the LM runs (``_softmax``, ``_log_softmax``,
+  ``logsumexp``, ``silu``, ``gelu``, ``sigmoid``, ...) as XLA's
+  decomposition of the same function counts them;
+
+and a dispatch mode adds up every operation's input and output bytes,
+unfused, as XLA's ``bytes accessed`` is.  Where XLA counts a loop's body
+once, the port counts every step: the two agree exactly on loop-free
+programs.  ``repro_torch.launch.dryrun`` counts its cells with the same
+:class:`CostCounter`.
 
 The reference's ``instrument_jit`` (``jax.jit`` with a retrace counter)
 has no counterpart: the port has no jit, and launch-shape accounting
@@ -38,7 +54,7 @@ from . import metrics
 
 __all__ = ["shape_key", "count_trace", "count_new_shape",
            "TRACE_COUNTER_NAME", "set_retrace_sink", "record_collectives",
-           "record_cost", "CostCounter"]
+           "record_cost", "CostCounter", "op_cost"]
 
 TRACE_COUNTER_NAME = "pathsig_jit_traces_total"
 
@@ -135,12 +151,15 @@ def record_collectives(site: str, stats) -> None:
 
 
 class CostCounter:
-    """Count the FLOPs and the bytes of the operations run inside the
-    block: ``with CostCounter() as cc: fn(...)`` then ``cc.flops``,
-    ``cc.bytes`` and ``cc.raw()``.  FLOPs are
-    ``torch.utils.flop_counter.FlopCounterMode``'s (matmuls, attention,
-    convolutions); bytes are each operation's tensor inputs read once and
-    outputs written once, views (an output aliasing an input, not written)
+    """Count the FLOPs, transcendentals and bytes of the operations run
+    inside the block: ``with CostCounter() as cc: fn(...)`` then
+    ``cc.flops``, ``cc.transcendentals``, ``cc.bytes`` and ``cc.raw()``.
+    FLOPs are ``torch.utils.flop_counter.FlopCounterMode``'s (matmuls,
+    attention, convolutions, and the kernels' operators by their
+    registered formulas) plus each aten operation's elementwise and
+    reduction count (:func:`op_cost`, as XLA's ``cost_analysis`` counts
+    them); bytes are each operation's tensor inputs read once and outputs
+    written once, views (an output aliasing an input, not written)
     excluded.  ``peak_bytes`` is the peak of the live bytes of the
     operations' new outputs (each counted until it is freed) and
     ``matmuls`` the (operation, input shapes, dtype) key of every matmul.
@@ -165,7 +184,12 @@ class CostCounter:
 
     @property
     def flops(self) -> float:
-        return float(self._flops.get_total_flops())
+        return float(self._flops.get_total_flops()) + float(
+            sum(self._ops.flops_by_op.values()))
+
+    @property
+    def transcendentals(self) -> float:
+        return float(sum(self._ops.trans_by_op.values()))
 
     @property
     def bytes(self) -> float:
@@ -176,14 +200,120 @@ class CostCounter:
         return self._ops.peak
 
     def raw(self) -> dict:
-        """``{"flops_by_op": ..., "bytes_by_op": ...}`` keyed by aten
-        operation name."""
-        flops = self._flops.get_flop_counts().get("Global", {})
-        return {"flops_by_op": {str(k): float(v) for k, v in flops.items()},
+        """``{"flops_by_op", "transcendentals", "transcendentals_by_op",
+        "bytes_by_op"}``, keyed by operation name (``aten.mm``,
+        ``pathsig.sig_trunc``)."""
+        flops = {str(k): float(v) for k, v in
+                 self._flops.get_flop_counts().get("Global", {}).items()}
+        for k, v in self._ops.flops_by_op.items():
+            flops[k] = flops.get(k, 0.0) + float(v)
+        return {"flops_by_op": flops,
+                "transcendentals": self.transcendentals,
+                "transcendentals_by_op": {k: float(v) for k, v in
+                                          self._ops.trans_by_op.items()},
                 "bytes_by_op": dict(self.bytes_by_op)}
 
 
 _MATMULS = ("mm", "bmm", "addmm", "baddbmm")
+
+# XLA's cost_analysis, an output element: 1 FLOP for each of these aten
+# operations (arithmetic, compare, select, cast) ...
+_ELEMENTWISE = frozenset("""
+    add sub rsub mul div neg abs sign sgn reciprocal maximum minimum fmax fmin
+    clamp clamp_min clamp_max eq ne lt le gt ge where logical_and logical_or
+    logical_not logical_xor bitwise_and bitwise_or bitwise_not bitwise_xor
+    floor ceil round trunc frac remainder fmod floor_divide relu masked_fill
+    threshold_backward hardtanh copysign isnan isinf isfinite nan_to_num
+    heaviside""".split())
+# ... 1 transcendental for each of these ...
+_TRANSCENDENTAL = frozenset("""
+    exp exp2 expm1 log log2 log10 log1p tanh sin cos tan asin acos atan atan2
+    sinh cosh asinh acosh atanh sqrt rsqrt erf erfc erfinv lgamma digamma
+    """.split())
+# ... and (FLOPs, transcendentals) for these fused ones, as XLA decomposes
+# the same function: sigmoid 1 / (1 + exp(-x)), silu x·sigmoid(x),
+# softplus, gelu (erf, or its tanh approximation), the backward products
+_FUSED = {"sigmoid": (3, 1), "silu": (4, 1), "softplus": (6, 2),
+          "lerp": (3, 0), "addcmul": (3, 0), "addcdiv": (3, 0),
+          "sigmoid_backward": (3, 0), "tanh_backward": (3, 0),
+          "gelu": (64, 1), "gelu_tanh": (8, 1)}
+# reductions over n elements: n - 1 FLOPs an output element
+_REDUCTIONS = frozenset("sum nansum prod amax amin max min any all".split())
+
+
+def _pow_muls(e: int) -> int:
+    """Multiplications of x**e by squaring (XLA's integer_pow), a divide
+    more for a negative exponent."""
+    a = abs(e)
+    return (a.bit_length() - 1) + (bin(a).count("1") - 1) + (e < 0)
+
+
+def op_cost(func, args, kwargs, out) -> tuple[int, int]:
+    """(FLOPs, transcendentals) of one aten operation as XLA's
+    ``cost_analysis`` counts the same computation, beside what
+    ``FlopCounterMode`` counts (matmuls, attention, convolutions: 0 here
+    but for the bias add of ``addmm`` / ``baddbmm``).  See the module
+    docstring; any other operation counts 0."""
+    if func.namespace != "aten":
+        return 0, 0
+    name = func._overloadpacket.__name__
+    if name.endswith("_") and not name.endswith("__"):
+        name = name[:-1]                      # in place: add_ -> add
+    outs = _tensors(out if isinstance(out, (list, tuple)) else [out])
+    n = outs[0].numel() if outs else 0
+    if name in _ELEMENTWISE:
+        return n, 0
+    if name in _TRANSCENDENTAL:
+        return 0, n
+    x = args[0] if args and isinstance(args[0], torch.Tensor) else None
+    if name in ("max", "min") and func._overloadname == "other":
+        return n, 0                           # maximum / minimum
+    if name in _REDUCTIONS:
+        return (x.numel() - n, 0) if x is not None else (0, 0)
+    if name == "mean":
+        return (x.numel(), 0) if x is not None else (0, 0)
+    if name == "var" or name == "std":       # mean, sub, square, sum, div
+        return 4 * x.numel(), (n if name == "std" else 0)
+    if name in ("argmax", "argmin"):         # a (value, index) reduce
+        return 9 * (x.numel() - n), 0
+    if name in ("cumsum", "cumprod"):        # a window reduce a position
+        k = x.shape[args[1]] if x.dim() else 1
+        return n * (k - 1), 0
+    if name in ("_softmax", "_log_softmax", "logsumexp"):
+        r = n // max(1, x.shape[args[1]] if x.dim() else 1) \
+            if name != "logsumexp" else n
+        m = x.numel()
+        if name == "_softmax":               # max, sub, exp, sum, div
+            return 2 * (m - r) + 2 * m, m
+        if name == "_log_softmax":           # max, sub, exp, sum, log, sub
+            return 2 * (m - r) + 3 * m, m + r
+        return 2 * (m - r) + m + 4 * r, m + r   # max, sub, exp, sum, log, add
+    if name == "_softmax_backward_data":     # y·(g - sum(g·y))
+        r = n // max(1, outs[0].shape[args[2]] if outs[0].dim() else 1)
+        return 3 * n + (n - r), 0
+    if name == "_log_softmax_backward_data":  # g - exp(y)·sum(g)
+        r = n // max(1, outs[0].shape[args[2]] if outs[0].dim() else 1)
+        return 2 * n + (n - r), n
+    if name == "gelu":
+        approx = (kwargs or {}).get("approximate", args[1] if len(args) > 1
+                                    else "none")
+        name = "gelu_tanh" if approx == "tanh" else "gelu"
+    if name in _FUSED:
+        f, t = _FUSED[name]
+        return f * n, t * n
+    if name == "pow":
+        e = args[1] if func._overloadname == "Tensor_Scalar" else None
+        if isinstance(e, (int, float)) and float(e).is_integer():
+            return _pow_muls(int(e)) * n, 0
+        return 0, n
+    if name in ("addmm", "baddbmm"):         # the bias add of the product
+        return n, 0
+    if name == "_to_copy":                   # a convert, not a copy
+        return (n, 0) if x is not None and outs and \
+            outs[0].dtype != x.dtype else (0, 0)
+    if name == "copy" and len(args) > 1 and isinstance(args[1], torch.Tensor):
+        return (n, 0) if args[1].dtype != args[0].dtype else (0, 0)
+    return 0, 0
 
 
 def matmul_key(func, args):
@@ -210,6 +340,8 @@ class _OpCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.by_op: dict = {}
+        self.flops_by_op: dict = {}
+        self.trans_by_op: dict = {}
         self.matmuls: list = []
         self.live = 0
         self.peak = 0
@@ -229,6 +361,15 @@ class _OpCounter(TorchDispatchMode):
                         list((kwargs or {}).values())) + outs)
             name = func.__name__.split(".")[0]
             self.by_op[name] = self.by_op.get(name, 0) + n
+            flops, trans = op_cost(func, args, kwargs, out)
+            if flops or trans:
+                key = str(func._overloadpacket)
+                if flops:
+                    self.flops_by_op[key] = self.flops_by_op.get(key, 0) \
+                        + flops
+                if trans:
+                    self.trans_by_op[key] = self.trans_by_op.get(key, 0) \
+                        + trans
         if not any(r.alias_info is not None for r in returns):  # new
             for t in outs:
                 n = t.numel() * t.element_size()
@@ -270,7 +411,10 @@ def record_cost(site: str, fn, *args, **kwargs) -> dict:
     (a module's parameters included) under :class:`CostCounter` and
     publish its cost as gauges: ``pathsig_lowered_flops{site=}`` and
     ``pathsig_lowered_bytes{site=}``.  Returns ``{"flops", "bytes",
-    "raw"}``.
+    "raw"}``, ``raw["transcendentals"]`` under the reference's key.  The
+    kernel route (``backend="cuda"``) runs the operators' Meta
+    implementations: nothing is built or launched, and its FLOPs are the
+    kernels' analytic counts.
 
     Nothing runs on a device and nothing is allocated: opt-in for
     benchmarks and examples, not the hot path.  ``fn`` must run on meta
@@ -283,7 +427,8 @@ def record_cost(site: str, fn, *args, **kwargs) -> dict:
     flops, nbytes = cc.flops, cc.bytes
     metrics.gauge("pathsig_lowered_flops",
                   "FLOPs of the computation counted on meta tensors "
-                  "(FlopCounterMode)", ("site",)).set(flops, site=site)
+                  "(matmuls, kernels' operators, elementwise work)",
+                  ("site",)).set(flops, site=site)
     metrics.gauge("pathsig_lowered_bytes",
                   "bytes accessed by the computation's operations, "
                   "unfused, counted on meta tensors", ("site",)

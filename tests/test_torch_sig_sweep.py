@@ -162,6 +162,14 @@ def test_the_sweep_of_the_sec8_step_fits_shared_memory():
     assert ss.sweep_geometry(285, 10, 3) == (288, 4 * (20 + 3 * 286), True)
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device of another type."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_shapes_are_checked_and_other_devices_raise():
     d, words = SETS[0]
     plan = tw.make_plan(words, d)
@@ -174,6 +182,9 @@ def test_shapes_are_checked_and_other_devices_raise():
         ss.sig_sweep(x, plan, S_T, g, stream=True)
     with pytest.raises(ValueError, match="channels"):
         ss.sig_sweep(torch.zeros(2, 4, d + 1), plan, S_T, g)
-    with pytest.raises(ValueError):
-        ss.sig_sweep(x.to("meta"), plan, S_T.to("meta"), g.to("meta"))
+    with pytest.raises(ValueError, match="cuda, meta or cpu"):
+        ss.sig_sweep(x.as_subclass(_Elsewhere), plan, S_T, g)
+    before = ss.launches
+    gx = ss.sig_sweep(x.to("meta"), plan, S_T.to("meta"), g.to("meta"))
+    assert gx.is_meta and gx.shape == x.shape and ss.launches == before
     assert not ss.sig_sweep(torch.zeros(2, 0, d), plan, S_T, g).any()

@@ -215,9 +215,24 @@ def test_cuda_cell_backward_raises(monkeypatch):
         torch.testing.assert_close(g, ad, rtol=1e-3, atol=1e-5)
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device of another type."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_wrapper_rejects_other_devices():
-    with pytest.raises(ValueError):
-        st.sig_trunc(torch.zeros(1, 2, 2, device="meta"), 2)
+    """A device other than the CPU, CUDA and meta raises; a meta tensor
+    runs the operator's Meta implementation: the kernel's output shape,
+    nothing launched."""
+    with pytest.raises(ValueError, match="cuda, meta or cpu"):
+        st.sig_trunc(torch.zeros(1, 2, 2).as_subclass(_Elsewhere), 2)
+    before = st.launches
+    out = st.sig_trunc(torch.zeros(1, 2, 2, device="meta"), 2)
+    assert out.is_meta and tuple(out.shape) == (1, 6)
+    assert st.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,6 @@ through are tested here against the reference's ``tile_idx``/``row_idx``.
 Tolerances: rtol 2e-4, atol 2e-5 for fp32; n·2^-8 per full level for
 bf16_fp32.
 """
-import importlib.util
-import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +22,7 @@ from repro.kernels.sig_words import sig_words as j_sig_words
 from repro_torch.core import transforms as tt
 from repro_torch.core import words as tw
 from repro_torch.core.transforms import sparse_leadlag_generators
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import sig_words as sw
 
@@ -176,17 +175,31 @@ def test_cuda_cell_backward_raises(monkeypatch):
         out.sum().backward()
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device of another type."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_wrapper_rejects_other_devices():
-    with pytest.raises(ValueError):
-        sw.sig_words(torch.zeros(1, 2, 4, device="meta"),
-                     tw.make_tiled_plan(SPARSE, 4))
+    """A device other than the CPU, CUDA and meta raises; a meta tensor
+    runs the operator's Meta implementation: the kernel's output shape,
+    nothing launched."""
+    tplan = tw.make_tiled_plan(SPARSE, 4)
+    with pytest.raises(ValueError, match="cuda, meta or cpu"):
+        sw.sig_words(torch.zeros(1, 2, 4).as_subclass(_Elsewhere), tplan)
+    before = sw.launches
+    out = sw.sig_words(torch.zeros(1, 2, 4, device="meta"), tplan)
+    assert out.is_meta and tuple(out.shape) == (1, len(tplan.words))
+    assert sw.launches == before
 
 
 # ---------------------------------------------------------------------------
 # the kernel's launch planner: tiles packed into groups that fill the card
 # ---------------------------------------------------------------------------
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 SEC8 = tw.generated_words(sparse_leadlag_generators(5), 4)   # 10 letters
 
 
@@ -469,23 +482,16 @@ def test_emission_list_writes_every_column_once_repeats_included():
 
 
 # ---------------------------------------------------------------------------
-# chip_smoke.py's bound: the prefix-shared operation count
+# the bounds' prefix-shared operation count (kernels/cost.py, which
+# chip_smoke.py imports)
 # ---------------------------------------------------------------------------
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @pytest.mark.parametrize("d,N", [(1, 4), (2, 3), (3, 4), (6, 5), (10, 3),
                                  (2, 8)])
 def test_words_flops_is_the_horner_count_on_the_full_truncation(d, N):
-    cs = _chip_smoke()
-    assert cs.words_flops(tw.make_plan(tw.all_words(d, N), d)) \
-        == cs.horner_flops(d, N)
+    assert cost.words_flops(tw.make_plan(tw.all_words(d, N), d)) \
+        == cost.horner_flops(d, N)
 
 
 def _brute_force_flops(closure, moving=None):
@@ -507,7 +513,6 @@ def _brute_force_flops(closure, moving=None):
 
 
 def test_words_flops_matches_a_brute_force_count():
-    cs = _chip_smoke()
     rng = np.random.default_rng(11)
     sets = [SEC8, ANISO, SPARSE] + [
         [tuple(int(c) for c in rng.integers(0, 4, rng.integers(1, 7)))
@@ -515,26 +520,24 @@ def test_words_flops_matches_a_brute_force_count():
     for words in sets:
         d = 10 if words is SEC8 else 4
         plan = tw.make_plan(words, d)
-        assert cs.words_flops(plan) == _brute_force_flops(plan.closure)
-    assert cs.words_flops(tw.make_plan(SEC8, 10)) == 4740
+        assert cost.words_flops(plan) == _brute_force_flops(plan.closure)
+    assert cost.words_flops(tw.make_plan(SEC8, 10)) == 4740
 
 
 @pytest.mark.parametrize("d,N", [(2, 3), (3, 4), (7, 3), (13, 2)])
 def test_horner_flops_count_only_the_moving_letters(d, N):
     """A step whose dx is zero outside ``moving`` letters changes only the
     words ending in one: the full truncation's count, restricted."""
-    cs = _chip_smoke()
     plan = tw.make_plan(tw.all_words(d, N), d)
-    assert cs.horner_flops(d, N, d) == cs.horner_flops(d, N)
+    assert cost.horner_flops(d, N, d) == cost.horner_flops(d, N)
     for m in range(1, d + 1):
         moving = set(range(d - m, d))
-        assert cs.words_flops(plan, moving) == cs.horner_flops(d, N, m)
-        assert cs.words_flops(plan, moving) == _brute_force_flops(
+        assert cost.words_flops(plan, moving) == cost.horner_flops(d, N, m)
+        assert cost.words_flops(plan, moving) == _brute_force_flops(
             plan.closure, moving)
 
 
 def test_words_flops_of_moving_letters_match_a_brute_force_count():
-    cs = _chip_smoke()
     rng = np.random.default_rng(12)
     for words in [SEC8, ANISO, SPARSE]:
         d = 10 if words is SEC8 else 4
@@ -542,13 +545,13 @@ def test_words_flops_of_moving_letters_match_a_brute_force_count():
         for _ in range(4):
             moving = {int(c) for c in rng.choice(d, rng.integers(1, d + 1),
                                                  replace=False)}
-            assert cs.words_flops(plan, moving) == _brute_force_flops(
+            assert cost.words_flops(plan, moving) == _brute_force_flops(
                 plan.closure, moving)
     # §8's lead-lag word set: the lead and lag halves move in turn
-    ll = cs.moving_letters(tt.as_transform("lead_lag"), 5)
-    assert cs.fused_step_flops(
+    ll = cost.moving_letters(tt.as_transform("lead_lag"), 5)
+    assert cost.fused_step_flops(
         tt.as_transform("lead_lag"), 5,
-        lambda m: cs.words_flops(tw.make_plan(SEC8, 10), m)) == 2370
+        lambda m: cost.words_flops(tw.make_plan(SEC8, 10), m)) == 2370
     assert ll == [set(range(5, 10)), set(range(5))]
 
 
@@ -556,15 +559,14 @@ def test_words_flops_of_moving_letters_match_a_brute_force_count():
                                    "time_augment+lead_lag"])
 @pytest.mark.parametrize("d_raw", [1, 3])
 def test_moving_letters_are_the_channels_fused_augment_moves(tname, d_raw):
-    """chip_smoke.py's bound counts, in each sub-step, the augmented
-    channels that fused_augment can make nonzero, and no others."""
-    cs = _chip_smoke()
+    """The bounds count, in each sub-step, the augmented channels that
+    fused_augment can make nonzero, and no others."""
     spec = tt.as_transform(tname)
     B, M = 3, 6
     x = torch.tensor(np.random.default_rng(13).normal(size=(B, M, d_raw)))
     taux = tt.transform_time_aux(spec, B, M, dtype=torch.float64)
     e = tt.fused_augment(x, taux, spec)
-    moving = cs.moving_letters(spec, d_raw)
+    moving = cost.moving_letters(spec, d_raw)
     assert len(moving) == spec.sub_steps
     for p, m in enumerate(moving):
         nonzero = (e[:, p::spec.sub_steps] != 0).any(dim=(0, 1))

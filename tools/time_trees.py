@@ -4,6 +4,8 @@ process on one card.
 
     python3 tools/time_trees.py --tree DIR --tree DIR [--out FILE]
 
+    python3 tools/time_trees.py --host --tree DIR --tree DIR [--out FILE]
+
 Each ``--tree`` is the root of a checkout whose ``src/repro_torch`` is
 timed (unpack another version with ``git archive`` into a directory that
 ``.gitignore`` lists).  Both are imported into this one process, each as
@@ -21,6 +23,12 @@ time between launches is counted, and keeps the median.  Turns go A B,
 then B A, and so on for 12 pairs.  Prints, per case, each tree's
 turns, the ratio B/A of each pair and their median, then one JSON line
 with the card's name and power limit.
+
+``--host`` times the host instead, from call to return, of a small
+``sig_trunc`` launch (64, 32, 4, 3) through each tree's ``_launch`` and
+through its public ``sig_trunc`` wrapper: a turn is the median of
+``HOST_CALLS`` calls by the host's clock, the queue drained after each
+turn, in the same A B, B A order.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import numpy as np
 REPS = 20
 PAIRS = 12
 SLEEP_CYCLES = 1_000_000    # about 0.5 ms at the H100's clock
+HOST_CALLS = 200
 
 
 def load_tree(root: Path) -> SimpleNamespace:
@@ -74,6 +83,32 @@ def turn_ms(fn) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
+def turn_host_ms(fn) -> float:
+    """Median host ms from call to return of ``fn`` over HOST_CALLS calls;
+    the queue is drained before the turn and after it."""
+    import time
+
+    import torch
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(HOST_CALLS):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def host_cases(tree: SimpleNamespace, inputs: dict) -> dict:
+    """{case: zero-argument call} of a tree's small sig_trunc launch."""
+    st, x = tree.st, inputs["host"]
+    return {
+        "sig_trunc _launch (64, 32, 4, 3)": lambda: st._launch(
+            x, 3, None, False, 1, "fp32"),
+        "sig_trunc wrapper (64, 32, 4, 3)": lambda: st.sig_trunc(x, 3),
+    }
+
+
 def cases(tree: SimpleNamespace, inputs: dict) -> dict:
     """{case: zero-argument launch} of a tree on the shared inputs."""
     st, sw, tw = tree.st, tree.sw, tree.words
@@ -93,6 +128,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", action="append", required=True)
     ap.add_argument("--out", help="append the JSON line to this file")
+    ap.add_argument("--host", action="store_true",
+                    help="time the host from call to return of a small "
+                    "sig_trunc launch")
     args = ap.parse_args()
     if len(args.tree) != 2:
         raise SystemExit("time_trees: give two --tree")
@@ -109,10 +147,16 @@ def main() -> int:
         return torch.tensor(rng.normal(size=(B, M, d)) / np.sqrt(M),
                             dtype=torch.float32, device="cuda")
 
-    inputs = dict(table1=brownian(32, 200, 13), serving=brownian(64, 1024, 6),
-                  sec8=brownian(128, 500, 10))
+    if args.host:
+        inputs = dict(host=brownian(64, 32, 4))
+        make, timer, unit = host_cases, turn_host_ms, "host ms"
+    else:
+        inputs = dict(table1=brownian(32, 200, 13),
+                      serving=brownian(64, 1024, 6),
+                      sec8=brownian(128, 500, 10))
+        make, timer, unit = cases, turn_ms, "device ms"
     trees = [load_tree(Path(t).resolve()) for t in args.tree]
-    runs = [cases(t, inputs) for t in trees]
+    runs = [make(t, inputs) for t in trees]
     names = list(runs[0])
     for name in names:   # warm up, and the two trees agree
         outs = [r[name]() for r in runs]
@@ -121,8 +165,9 @@ def main() -> int:
     for p in range(PAIRS):
         for i in ((0, 1) if p % 2 == 0 else (1, 0)):
             for name in names:
-                ms[name][i].append(turn_ms(runs[i][name]))
-    result = dict(device=smi, trees=args.tree, pairs=PAIRS, reps=REPS,
+                ms[name][i].append(timer(runs[i][name]))
+    result = dict(device=smi, trees=args.tree, pairs=PAIRS,
+                  reps=HOST_CALLS if args.host else REPS, unit=unit,
                   cases={})
     for name in names:
         a, b = (np.array(v) for v in ms[name])
