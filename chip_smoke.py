@@ -406,7 +406,14 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              1e-4·max(1, |loss|), gradient norm within 1e-3 relative) and
              three greedy tokens on the 1 x 2 mesh equal to one rank's;
              (d) every parameter and cache leaf of a sharded decode step
-             updated in place (hlo.donation_stats).
+             updated in place (hlo.donation_stats); (e) deepseek-v2-lite
+             at full width, depth 2, decoded on the 2 x 2 mesh under
+             dryrun.rules_for(arch, decode_32k), the reference's decode
+             layout (the requests over the data axis, the MLA latent
+             cache's 16 positions in blocks of 8 over the model axis,
+             which the 6-token prompts and 4 new tokens cross): greedy
+             tokens equal to one rank's, the cache bytes a rank beside
+             the whole cache's.
 28. dryrun_mp — the dry run, whisper's model axis and Adafactor on
              sharded parameters: gloo worlds of 4 (2 x 2) and 2 (1 x 2)
              ranks sharing the card as in phase 27, each case against rank
@@ -424,7 +431,11 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              published on 2 x 2: greedy tokens equal to one rank's under
              dryrun.rules_for(qwen3-4b, decode_32k) and under the default
              rules, ms a step of each (rules_for's no more than the
-             default's) and one rank's; (e) the dry run's parameter and
+             default's) and one rank's; under rules_for also 4 requests
+             with 10-token prompts and 4 new tokens, whose positions
+             cross the cache's sequence blocks of 8; the cache bytes a
+             rank under each rule set beside the whole cache's; (e) the
+             dry run's parameter and
              Adafactor-state bytes a rank for (b) and (c) equal to rank
              0's exactly, and one backbone forward's collectives by kind
              equal to the real world's log.
@@ -5792,6 +5803,11 @@ MP_FAMILIES = ("deepseek-v2-lite-16b", "zamba2-7b", "rwkv6-1.6b")
 MP_FAM_DEPTH = 2
 MP_FAM_TRAIN = (2, 512)           # batch, tokens: one row a data rank
 MP_FAM_DECODE = (2, 4, 3, 16)     # batch, prompt, new tokens, max_len
+# deepseek's MLA decoded under rules_for(arch, "decode_32k") on 2 x 2: the
+# requests over the data axis, the latent cache's 16 positions in blocks
+# of 8 over the model axis, which the prompt and new tokens cross
+MP_CP_ARCH = "deepseek-v2-lite-16b"
+MP_CP_DECODE = (2, 6, 4, 16)
 MP_SGD_LR = 1e-3
 
 
@@ -5984,12 +6000,15 @@ def mp_family_train(rank: int, mesh, seed: int, arch: str) -> dict:
     return res
 
 
-def mp_decode(rank: int, mesh, seed: int, cfg, shape, donation=False):
-    """Greedy tokens of ``cfg`` on the sharded model against one rank's;
-    ms a decode step (rank 0, the ranks starting together)."""
+def mp_decode(rank: int, mesh, seed: int, cfg, shape, donation=False,
+              rules=None):
+    """Greedy tokens of ``cfg`` on the model sharded under ``rules``
+    against one rank's; ms a decode step (rank 0, the ranks starting
+    together) and the cache bytes a rank against the whole cache's."""
     from repro_torch.distributed import model_parallel as MP
     from repro_torch.distributed import sharding_ctx
     from repro_torch.distributed.hlo import buffer_ptrs, donation_stats
+    from repro_torch.launch.dryrun import tree_bytes
     B, P, new, max_len = shape
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 27)
@@ -6004,9 +6023,11 @@ def mp_decode(rank: int, mesh, seed: int, cfg, shape, donation=False):
                            device=dev).generate(prompts, new)
 
     alone = dist_alone(gen, rank, None, warm=False)
-    MP.shard_model(model, mesh)
+    MP.shard_model(model, mesh, rules)
     lm_free()
-    with sharding_ctx(mesh):
+    with sharding_ctx(mesh, rules):
+        cache_bytes = tree_bytes(LM.init_cache(cfg, B, max_len,
+                                               torch.float32, device=dev))
         gen()
         torch.distributed.barrier()
         torch.cuda.synchronize()
@@ -6023,10 +6044,14 @@ def mp_decode(rank: int, mesh, seed: int, cfg, shape, donation=False):
             don = (st.n_aliased, len(before))
             check(st.n_aliased == len(before), f"{cfg.name} sharded decode: "
                   f"{st.n_aliased} of {len(before)} buffers in place")
-    res = dict(case=f"{cfg.name} ({cfg.n_layers} layers) greedy",
+    res = dict(case=f"{cfg.name} ({cfg.n_layers} layers) greedy"
+               + (f" under {rules}" if rules else ""),
                mesh=list(mesh.shape),
-               shape=[B, P, new], ms_per_step=ms, donation=don,
-               local_params=sum(p.numel() for p in model.parameters()))
+               shape=[B, P, new, max_len], ms_per_step=ms, donation=don,
+               local_params=sum(p.numel() for p in model.parameters()),
+               cache_bytes=cache_bytes, whole_cache_bytes=tree_bytes(
+                   LM.init_cache(cfg, B, max_len, torch.float32,
+                                 device="meta")))
     if rank == 0:
         want, single_ms = alone
         check(torch.equal(toks, want), f"{cfg.name} model-parallel tokens "
@@ -6052,11 +6077,15 @@ def mp_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
         world_size=world, timeout=timedelta(seconds=DIST_COLLECTIVE_S))
     res, seconds = dict(rank=rank), {}
     if world == 4:
+        from repro_torch.launch.dryrun import rules_for
         mesh = make_dev_mesh(2, 2)
         parts = [("train", lambda: mp_qwen_train(rank, mesh, seed))]
         parts += [(f"train/{a}", lambda a=a: mp_family_train(rank, mesh,
                                                              seed, a))
                   for a in MP_FAMILIES]
+        parts += [("decode_cp", lambda: mp_decode(
+            rank, mesh, seed, mp_family_cfg(MP_CP_ARCH), MP_CP_DECODE,
+            rules=rules_for(MP_CP_ARCH, "decode_32k")))]
     else:
         mesh = make_dev_mesh(1, 2)
         parts = [("serve", lambda: mp_decode(
@@ -6108,12 +6137,16 @@ def phase_model_parallel(seed: int) -> dict:
               f"(one rank {f['single_loss']:.6f}), |g| {f['grad_norm']:.4f} "
               f"(one rank {f['single_grad_norm']:.4f}); {f['ms']:.1f} ms "
               f"(one rank alone {f['single_ms']:.1f} ms)", flush=True)
-    for key in ["serve"] + [f"decode/{a}" for a in MP_FAMILIES]:
-        d = r2[key]
-        print(f"[mp] 1 x 2 {d['case']} {d['shape']}: tokens equal one "
-              f"rank's; {d['ms_per_step']:.1f} ms a decode step (one rank "
-              f"alone {d['single_ms_per_step']:.1f} ms); "
-              f"{d['local_params']} parameters on rank 0"
+    for world, key in [(2, "serve")] + [(2, f"decode/{a}")
+                                        for a in MP_FAMILIES] \
+            + [(4, "decode_cp")]:
+        d = (r2 if world == 2 else r4)[key]
+        print(f"[mp] {' x '.join(map(str, d['mesh']))} {d['case']} "
+              f"{d['shape']}: tokens equal one rank's; "
+              f"{d['ms_per_step']:.1f} ms a decode step (one rank alone "
+              f"{d['single_ms_per_step']:.1f} ms); {d['local_params']} "
+              f"parameters on rank 0; cache bytes a rank "
+              f"{d['cache_bytes']} of {d['whole_cache_bytes']} whole"
               + (f"; buffers in place {d['donation']}" if d["donation"]
                  else ""), flush=True)
     print(f"[mp] worlds' wall seconds {world_s}; seconds a case (rank 0) "
@@ -6141,6 +6174,10 @@ DR_ADAFACTOR = dict(lr=1e-3)       # factored at the published widths
 # under the default rules gathers its 16 GB of weights through the host,
 # 12.3 s with four ranks sharing the card: two steps, the second timed)
 DR_DECODE = (4, 1, 2, 16)
+# and under rules_for(qwen3-4b, "decode_32k") at a shape whose 14
+# positions cross the cache's sequence blocks of 8 (the model axis): the
+# four requests over the data axis, 2 a rank
+DR_DECODE_CP = (4, 10, 4, 16)
 DR_SHAPES = {"phase28_whisper": "whisper", "phase28_qwen": "qwen"}
 
 
@@ -6369,16 +6406,18 @@ def dr_in_turns(rank: int, world: int, make):
 
 @torch.no_grad()
 def dr_greedy(model, cfg, prompts, n_new: int, cache):
-    """The prompt's decode steps, then n_new greedy tokens, each step
+    """The prompt's decode steps, then n_new greedy tokens through
+    ``make_serve_step`` (the whole batch's on every rank), each step
     timed to a synchronize; -> (tokens, median ms a step after the first
     step, which is warm-up)."""
+    from repro_torch.serve.engine import make_serve_step
+    step = make_serve_step(cfg)
     P = prompts.shape[1]
     ms, tok, out = [], prompts[:, :1], [prompts]
     for j in range(P - 1 + n_new):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = LM.decode_step(model, cfg, tok, cache)
-        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        nxt, cache = step(model, cache, tok)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         if j + 1 < P:
@@ -6393,51 +6432,69 @@ def dr_decode(rank: int, mesh, seed: int) -> dict:
     """(d) qwen3-4b as published on the 2 x 2 mesh: greedy tokens and ms a
     step under the dry run's decode rules, under the default rules, and
     on one rank alone (DR_DECODE: every weight is gathered over the data
-    axis a step under the default rules, through gloo's host staging)."""
+    axis a step under the default rules, through gloo's host staging);
+    then under the decode rules at DR_DECODE_CP, whose positions cross
+    the cache's sequence blocks.  The cache bytes a rank holds under each
+    rule set, beside the whole cache's."""
     from repro_torch.distributed import model_parallel as MP
     from repro_torch.distributed import sharding_ctx
-    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.launch.dryrun import rules_for, tree_bytes
     cfg = get_config(LM_ARCH)
-    B, P, new, max_len = DR_DECODE
     g = torch.Generator(device="cuda").manual_seed(seed + 28)
-    prompts = torch.randint(1, cfg.vocab_size, (B, P), generator=g,
-                            device="cuda", dtype=torch.int32)
+    prompts = {shape: torch.randint(
+        1, cfg.vocab_size, shape[:2], generator=g, device="cuda",
+        dtype=torch.int32) for shape in (DR_DECODE, DR_DECODE_CP)}
     dev = torch.device("cuda", torch.cuda.current_device())
     decode_rules = rules_for(LM_ARCH, "decode_32k")
 
-    def gen(model):
-        return dr_greedy(model, cfg, prompts, new, LM.init_cache(
-            cfg, B, max_len, torch.float32, device=dev))
+    def gen(model, shape, key=None):
+        B, _, new, max_len = shape
+        cache = LM.init_cache(cfg, B, max_len, torch.float32, device=dev)
+        if key is not None:
+            res[f"{key}_cache_bytes"] = tree_bytes(cache)
+        return dr_greedy(model, cfg, prompts[shape], new, cache)
 
-    alone = None
+    res = dict(rules=str(decode_rules))
+    for key, (B, _, _, max_len) in (("whole", DR_DECODE),
+                                    ("whole_cp", DR_DECODE_CP)):
+        res[f"{key}_cache_bytes"] = tree_bytes(LM.init_cache(
+            cfg, B, max_len, torch.float32, device="meta"))
+    alone = {}
     if rank == 0:
         whole = LM.init_params(seed, cfg)
-        alone = gen(whole)
+        alone = {shape: gen(whole, shape) for shape in (DR_DECODE,
+                                                        DR_DECODE_CP)}
         del whole
     torch.distributed.barrier()
     lm_free()
-    res = dict(rules=str(decode_rules))
-    for name, rules in (("default", None), ("rules_for", decode_rules)):
+    runs = (("default", None, (DR_DECODE,)),
+            ("rules_for", decode_rules, (DR_DECODE, DR_DECODE_CP)))
+    for name, rules, shapes in runs:
         model = dr_in_turns(rank, 4, lambda rules=rules: MP.shard_model(
             LM.init_params(seed, cfg), mesh, rules))
-        with sharding_ctx(mesh, rules):
-            torch.distributed.barrier()
-            toks, res[f"{name}_ms"] = gen(model)
+        for shape in shapes:
+            key = name if shape is DR_DECODE else f"{name}_cp"
+            with sharding_ctx(mesh, rules):
+                torch.distributed.barrier()
+                toks, res[f"{key}_ms"] = gen(model, shape, key)
+            if rank == 0:
+                check(torch.equal(toks, alone[shape][0]), f"qwen3-4b 2 x 2 "
+                      f"decode {list(shape)} under the {name} rules: tokens "
+                      f"{toks.tolist()} against one rank's "
+                      f"{alone[shape][0].tolist()}")
         res[f"{name}_local_params"] = sum(p.numel()
                                           for p in model.parameters())
-        if rank == 0:
-            check(torch.equal(toks, alone[0]), f"qwen3-4b 2 x 2 decode "
-                  f"under the {name} rules: tokens {toks.tolist()} against "
-                  f"one rank's {alone[0].tolist()}")
         del model
         lm_free()
     if rank == 0:
-        res["single_ms"] = alone[1]
+        res["single_ms"] = alone[DR_DECODE][1]
+        res["single_cp_ms"] = alone[DR_DECODE_CP][1]
         check(res["rules_for_ms"] <= res["default_ms"],
               f"qwen3-4b 2 x 2 decode: {res['rules_for_ms']:.1f} ms a step "
               f"under rules_for against {res['default_ms']:.1f} under the "
               f"default rules")
-    res.update(shape=[B, P, new], params=cfg.param_count())
+    res.update(shape=list(DR_DECODE[:3]), cp_shape=list(DR_DECODE_CP),
+               params=cfg.param_count())
     return res
 
 
@@ -6605,6 +6662,7 @@ def phase_dryrun_mp(seed: int) -> dict:
           f"{[r['qwen_train']['launches_per_rank'] for r in worlds[4]]}",
           flush=True)
     d = r4["decode"]
+    B, P, new, max_len = d["cp_shape"]
     print(f"[dryrun_mp] 2 x 2 qwen3-4b as published, greedy "
           f"{d['shape']}: tokens equal one rank's under both rule sets; "
           f"{d['rules_for_ms']:.1f} ms a step under rules_for(qwen3-4b, "
@@ -6613,7 +6671,19 @@ def phase_dryrun_mp(seed: int) -> dict:
           f"share the card: ratio rules_for / default "
           f"{d['rules_for_ms'] / d['default_ms']:.3f}, not a speedup); "
           f"{d['rules_for_local_params']} and {d['default_local_params']} "
-          f"parameters on rank 0", flush=True)
+          f"parameters on rank 0; cache bytes a rank "
+          f"{d['rules_for_cache_bytes']} under rules_for (the requests over "
+          f"the data axis, the sequence over the model axis) and "
+          f"{d['default_cache_bytes']} under the default rules, of "
+          f"{d['whole_cache_bytes']} whole", flush=True)
+    print(f"[dryrun_mp] 2 x 2 qwen3-4b as published under rules_for, "
+          f"{B} requests, {P}-token prompts, {new} greedy tokens, max_len "
+          f"{max_len} (the positions cross the model axis's sequence "
+          f"blocks of {max_len // 2}): tokens equal one rank's; "
+          f"{d['rules_for_cp_ms']:.1f} ms a step ({d['single_cp_ms']:.1f} "
+          f"on one rank alone); cache bytes a rank "
+          f"{d['rules_for_cp_cache_bytes']} of "
+          f"{d['whole_cp_cache_bytes']} whole", flush=True)
     dry = {"whisper": dr_compare("whisper", predicted["whisper"],
                                  w["measured"]),
            "qwen": dr_compare("qwen3-4b sig-MMD", predicted["qwen"],

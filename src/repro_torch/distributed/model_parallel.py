@@ -23,6 +23,11 @@ each parameter, and records the parameter's :class:`Placement` on the
   rank's block of the gradient backward: the computation downstream is
   the same on every rank of the group).
 
+A decode cache is laid out as the reference's ``cache_specs`` place it
+(:func:`local_cache`): a :class:`LocalCache` of this rank's blocks, from
+which a decode step reads its rows of the requests (:func:`decode_rows`)
+and its block of each attention cache's sequence (:func:`cache_split`).
+
 Every collective goes through :mod:`repro_torch.distributed.collectives`
 and is logged there with its transport.
 """
@@ -33,7 +38,7 @@ import dataclasses
 import torch
 
 from . import collectives as C
-from .ctx import NamedSharding, axis_names, axis_size
+from .ctx import AbstractMesh, NamedSharding, axis_names, axis_size
 
 MODEL = "model"
 
@@ -41,10 +46,12 @@ MODEL = "model"
 @dataclasses.dataclass(frozen=True)
 class Split:
     """This rank's block of a dimension split over mesh axes: the axes'
-    process group, the number of blocks and this rank's index."""
+    process group, the number of blocks, this rank's index and the axes'
+    names in mesh order."""
     group: object
     size: int
     index: int
+    axes: tuple = ()
 
     def block(self, n: int) -> tuple[int, int]:
         """(start, length) of this rank's block of a dimension of n."""
@@ -72,20 +79,26 @@ _GROUPS: dict = {}
 def axes_split(mesh, axes) -> Split:
     """The :class:`Split` of the mesh axes ``axes`` (a name or a tuple of
     names) for this rank: one axis's group, or the group of several axes
-    flattened in mesh order."""
+    flattened in mesh order.  On an :class:`~repro_torch.distributed.ctx.
+    AbstractMesh` (shapes only) it is rank 0's, with no group."""
     names = (axes,) if isinstance(axes, str) else tuple(axes)
     order = tuple(a for a in axis_names(mesh) if a in names)
     key = (id(mesh), order)
     if key not in _GROUPS:
         from .batch import batch_mesh
-        coord = mesh.get_coordinate()
-        size, index = 1, 0
+        size = 1
         for a in order:
-            n = axis_size(mesh, a)
-            index = index * n + coord[axis_names(mesh).index(a)]
-            size *= n
+            size *= axis_size(mesh, a)
+        if isinstance(mesh, AbstractMesh):
+            _GROUPS[key] = (mesh, Split(None, size, 0, order))
+            return _GROUPS[key][1]
+        coord = mesh.get_coordinate()
+        index = 0
+        for a in order:
+            index = index * axis_size(mesh, a) + \
+                coord[axis_names(mesh).index(a)]
         sub = mesh[order[0]] if len(order) == 1 else batch_mesh(mesh, order)
-        _GROUPS[key] = (mesh, Split(sub.get_group(), size, index))
+        _GROUPS[key] = (mesh, Split(sub.get_group(), size, index, order))
     return _GROUPS[key][1]
 
 
@@ -327,15 +340,78 @@ def gather_opt_state(opt_state, model):
                     else gather_tensor(t, pl[path]))
 
 
-def local_cache(cache, mesh, rules: dict | None = None):
-    """The decode cache cut to this rank's blocks by
-    :func:`~repro_torch.distributed.sharding.cache_specs`, the batch and
-    the sequence whole on every rank (decode runs every request on every
-    rank of the model group; context parallelism is not executed)."""
+class LocalCache(dict):
+    """A decode cache cut to this rank's blocks (:func:`local_cache`): the
+    tree of local tensors, and ``placements``, ``{leaf path:
+    Placement}`` (each leaf's sharding and whole shape), from which decode
+    reads this rank's rows of the batch (:func:`decode_rows`) and its
+    block of each cache's sequence (:func:`cache_split`)."""
+
+    def __init__(self, tree: dict, placements: dict):
+        super().__init__(tree)
+        self.placements = placements
+
+    def copy(self) -> "LocalCache":
+        return LocalCache(self, self.placements)
+
+
+def local_cache(cache, mesh, rules: dict | None = None, device=None):
+    """A decode cache of this rank's blocks of ``cache`` by
+    :func:`~repro_torch.distributed.sharding.cache_specs` under ``rules``,
+    as the reference lays it out: the batch over the data axes, each
+    attention cache's sequence over the axes of ``kv_seq``, heads and
+    states over the model axis, where the axes divide the dimension (else
+    it stays whole).  The ``index`` leaves are global positions, whole on
+    every rank.  Only the leaves' shapes and dtypes are read (meta tensors
+    will do): the blocks are a new cache's zeros, on ``device`` (default
+    each leaf's own), so the whole cache is never allocated.  Returns a
+    :class:`LocalCache`."""
     from .sharding import _leaves_with_path, _rebuild, cache_specs
-    specs = dict(_leaves_with_path(cache_specs(
-        cache, mesh, dict(rules or {}, batch=None, kv_seq=None))))
-    return _rebuild(cache, lambda path, t: block(t, specs[path]))
+    specs = dict(_leaves_with_path(cache_specs(cache, mesh, rules)))
+
+    def zeros(path, t):
+        return torch.zeros(block(t.to("meta"), specs[path]).shape,
+                           dtype=t.dtype,
+                           device=t.device if device is None else device)
+    return LocalCache(_rebuild(cache, zeros),
+                      {path: Placement(specs[path], tuple(t.shape))
+                       for path, t in _leaves_with_path(cache)})
+
+
+def cache_split(cache, path: tuple, dim: int) -> Split | None:
+    """The :class:`Split` of dimension ``dim`` of the cache leaf at
+    ``path`` (a :class:`LocalCache`'s), None when every rank holds it
+    whole."""
+    pl = getattr(cache, "placements", {}).get(path)
+    if pl is None or pl.spec[dim] is None:
+        return None
+    sp = axes_split(pl.sharding.mesh, pl.spec[dim])
+    return sp if sp.size > 1 else None
+
+
+def decode_rows(cache, B: int | None = None) -> Split | None:
+    """The batch axes' :class:`Split` of the requests of a decode cache
+    (every leaf is (L, B, ...) or a 1-D ``index``): None when every rank
+    decodes every request.  ``B``, the whole batch a step is given, must
+    be the cache's."""
+    for path, pl in getattr(cache, "placements", {}).items():
+        if len(pl.shape) >= 2:
+            if B is not None and B != pl.shape[1]:
+                raise ValueError(
+                    f"a decode step of {B} requests on a cache of "
+                    f"{pl.shape[1]}: pass the whole batch, the same on "
+                    f"every rank")
+            return cache_split(cache, path, 1)
+    return None
+
+
+def gather_decode_rows(x: torch.Tensor, cache, *, tag: str = "decode_rows"):
+    """The whole batch on every rank from this rank's rows ``x`` of a
+    decode step on ``cache`` (an all-gather over the batch axes); ``x``
+    itself when every rank decodes every request."""
+    rows = decode_rows(cache)
+    return x if rows is None else C.all_gather(x, rows.group, dim=0,
+                                               tag=tag)
 
 
 def grads_reduced_in_backward(placement: Placement | None) -> bool:

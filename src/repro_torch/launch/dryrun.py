@@ -30,12 +30,15 @@ From it:
   tensors (operation outputs, views excluded), which holds the tensors
   saved for the backward, checkpointed layers' included.
 
-What the port executes differs from the reference's SPMD program in two
-ways, and the numbers show it: a batch spec that shards the sequence
+What the port executes differs from the reference's SPMD program in one
+way, and the numbers show it: a batch spec that shards the sequence
 (``"seq"``, the reference's prefill rule for dense models) runs with the
-sequence whole on every rank (no context parallelism), and decode runs
-every request on every rank of the model group (the cache is cut by its
-heads only, as ``model_parallel.local_cache`` cuts it).
+sequence whole on every rank (no sequence parallelism in prefill or
+training).  Decode runs the reference's layout: each rank decodes its
+rows of the requests, and each attention cache is cut on its sequence
+over ``kv_seq``'s axes (``model_parallel.local_cache``), the blocks'
+softmax partials combined over their group (``models.layers.
+attention``).
 
 A process holds one default process group, so the fake world lives in a
 process of its own (the CLI's, or a subprocess), never inside a real
@@ -405,9 +408,8 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
                     placed.get("tokens", placed.get("embeds"))):
                 logits = step(model, local)
             out_bytes = tree_bytes(logits)
-        else:  # decode: the cache cut to this rank's heads, updated in place
+        else:  # decode: this rank's blocks of the cache, updated in place
             tokens, cache, gen = SP.decode_inputs_for(cfg, shape)
-            cache = MP.local_cache(cache, dmesh, run_rules)
             args_bytes = param_bytes + tree_bytes(cache) + tree_bytes(tokens)
             step = make_serve_step(cfg)
             with CostCounter() as cost:

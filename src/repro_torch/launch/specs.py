@@ -62,9 +62,10 @@ def batch_specs_for(cfg: ModelConfig, shape_name: str) -> dict:
 
 
 def decode_inputs_for(cfg: ModelConfig, shape_name: str):
-    """(tokens, cache, generator) for a serve_step cell: meta tokens and
-    the full (unsharded) meta cache, and a seeded ``torch.Generator`` where
-    the reference returns a key.
+    """(tokens, cache, generator) for a serve_step cell: meta tokens (the
+    whole batch), the meta cache (under a sharding context, this rank's
+    blocks of it) and a seeded ``torch.Generator`` where the reference
+    returns a key.
 
     The cache length is rounded up to a multiple of 512 so the kv_seq axis
     is cleanly divisible by any mesh-axis product (16, 256, 512) — uneven

@@ -26,7 +26,9 @@ gathered logits in decoding.  A head count the model axis does not divide
 (20 heads over 16) runs on the whole weights.  FSDP shards (``"data"``)
 are gathered by ``p[key]``.  A cache made by :func:`init_cache` under a
 sharding context is this rank's block by ``cache_specs``, the self and
-the cross K/V alike.
+the cross K/V alike: its rows of the requests, and its block of the
+decoder positions and of the frames where ``kv_seq``'s axes divide them
+(1,500 frames stay whole over 16 ranks).
 """
 from __future__ import annotations
 
@@ -35,13 +37,15 @@ import torch
 
 from ..device import resolve_device
 from ..distributed.ctx import current_mesh, current_rules
-from ..distributed.model_parallel import copy_to, local_cache, reduce_from
+from ..distributed.model_parallel import (cache_split, copy_to, local_cache,
+                                          reduce_from)
 from .config import ModelConfig
-from .layers import (ParamTree, _full, _init, _sdpa, _weight, _zeros,
-                     as_generator, attention, heads_split, init_attention,
-                     init_mlp, mlp, rms_norm)
-from .transformer import (_remat, _token_nll, default_positions, embed,
-                          logits_fn, vocab_logits)
+from .layers import (ParamTree, _attend_cache, _full, _init, _sdpa, _weight,
+                     _zeros, as_generator, attention, every_head,
+                     heads_split, init_attention, init_mlp, mlp, rms_norm)
+from .transformer import (_remat, _token_nll, _with_seq, decode_batch,
+                          default_positions, embed, logits_fn,
+                          vocab_logits)
 
 
 def sinusoids(length: int, channels: int) -> np.ndarray:
@@ -99,23 +103,31 @@ def init_params(generator, cfg: ModelConfig, dtype=torch.float32, *,
     return EncDecLM(tree, cfg).to(dtype)
 
 
-def _cross_attention(p, x: torch.Tensor, enc_kv, cfg) -> torch.Tensor:
+def _cross_attention(p, x: torch.Tensor, enc_kv, cfg,
+                     seq=None) -> torch.Tensor:
     """x: (B,S,d); enc_kv: precomputed (k, v) each (B, F, Hkv, hd): every
-    KV head, or this rank's under a heads split."""
+    KV head, or this rank's under a heads split; under ``seq`` (a cache
+    cut on its frames) this rank's block of the frames, combined over its
+    group as ``layers.attention`` combines a self-attention cache."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     tp = heads_split(p, cfg)
+    every = every_head(tp, seq)
     k, v = enc_kv
     if tp is None:
         sp, H = None, cfg.n_heads
     else:
         sp, kv0, Hkv = tp
         H = cfg.n_heads // sp.size
-        if k.shape[2] != Hkv:       # the cross K/V of every head
+        if k.shape[2] != Hkv and not every:   # the cross K/V of every head
             k, v = (t.narrow(2, kv0, Hkv) for t in (k, v))
     q = (copy_to(x, sp) @ _weight(p, "wq", sp).to(x.dtype)).reshape(
         B, S, H, hd)
-    out = _sdpa(q, k.to(x.dtype), v.to(x.dtype), causal=False)
+    k, v = k.to(x.dtype), v.to(x.dtype)
+    if seq is None:
+        out = _sdpa(q, k, v, causal=False)
+    else:
+        out = _attend_cache(q, k, v, None, seq, tp if every else None)
     return reduce_from(out @ _weight(p, "wo", sp).to(x.dtype), sp)
 
 
@@ -210,11 +222,14 @@ def init_cache(cfg: ModelConfig, B: int, n_frames: int,
     """Cross K/V (L, B, n_frames, Hkv, hd), self K/V (L, B,
     decoder_max_len, Hkv, hd) and an int32 ``index`` a layer, zero, on
     ``device`` (default CUDA).  Under a sharding context each leaf is this
-    rank's block by ``cache_specs`` (the batch whole on every rank)."""
-    cache = _init_cache(cfg, B, n_frames, dtype, device)
+    rank's block by ``cache_specs`` (the requests over the data axes, the
+    frames and the decoder positions over ``kv_seq``'s axes where they
+    divide), allocated as such."""
     mesh = current_mesh()
-    return cache if mesh is None else local_cache(cache, mesh,
-                                                  current_rules())
+    if mesh is None:
+        return _init_cache(cfg, B, n_frames, dtype, device)
+    return local_cache(_init_cache(cfg, B, n_frames, dtype, "meta"), mesh,
+                       current_rules(), device=resolve_device(device))
 
 
 def _init_cache(cfg: ModelConfig, B: int, n_frames: int, dtype,
@@ -235,12 +250,22 @@ def _init_cache(cfg: ModelConfig, B: int, n_frames: int, dtype,
 def prefill_cross(params, cfg: ModelConfig, enc_out: torch.Tensor,
                   cache: dict) -> dict:
     """The cache with each decoder layer's cross K/V of ``enc_out`` (in
-    the cache's dtype), as many KV heads as the cache holds."""
+    the cache's dtype), as many KV heads as the cache holds.  On a cache
+    made under a sharding context ``enc_out`` is the whole batch's, and
+    the cross K/V are those of this rank's rows and block of the
+    frames."""
+    mine, _ = decode_batch(cache, enc_out.shape[0])
+    enc_out = enc_out[mine]
+    seq = cache_split(cache, ("cross_k",), 2)
+    if seq is not None:
+        enc_out = enc_out.narrow(1, *seq.block(enc_out.shape[1]))
     heads = cache["cross_k"].shape[3]
     ks, vs = zip(*(cross_kv(p["cross_attn"], enc_out, cfg, heads)
                    for p in params["dec_layers"]))
-    return dict(cache, cross_k=torch.stack(ks).to(cache["cross_k"].dtype),
-                cross_v=torch.stack(vs).to(cache["cross_v"].dtype))
+    out = cache.copy()
+    out.update(cross_k=torch.stack(ks).to(cache["cross_k"].dtype),
+               cross_v=torch.stack(vs).to(cache["cross_v"].dtype))
+    return out
 
 
 @torch.no_grad()
@@ -248,25 +273,35 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: dict):
     """tokens (B, S) -> (float32 logits (B, S, V), cache); the cross K/V
     must be prefilled.  The decoder position ``index`` is clamped to the
     last of ``decoder_max_len`` rows, as the reference's
-    ``dynamic_slice_in_dim`` clamps; the self cache is written in place."""
+    ``dynamic_slice_in_dim`` clamps; the self cache is written in place.
+    On a cache made under a sharding context ``tokens`` is the whole
+    batch and the step runs this rank's rows of it (the logits are
+    theirs), as the decoder LM's ``decode_step`` does."""
+    mine, scope = decode_batch(cache, tokens.shape[0])
+    tokens = tokens[mine]
     B, S = tokens.shape
     idx = cache["index"][0]
+    self_seq = cache_split(cache, ("self_k",), 2)
+    cross_seq = cache_split(cache, ("cross_k",), 2)
     x = embed(params, tokens)
     row = torch.clamp(idx, 0, params["pos_dec"].shape[0] - 1).long()
     x = x + params["pos_dec"].index_select(0, row.reshape(1))[None].to(
         x.dtype)
     positions = default_positions(cfg, B, S, x.device, start=idx)
-    for i, p in enumerate(params["dec_layers"]):
-        a, new_kv = attention(
-            p["self_attn"], rms_norm(x, p["ln_self"], cfg.norm_eps), cfg,
-            positions, cache={"k": cache["self_k"][i],
-                              "v": cache["self_v"][i],
-                              "index": cache["index"][i]})
-        x = x + a
-        x = x + _cross_attention(
-            p["cross_attn"], rms_norm(x, p["ln_cross"], cfg.norm_eps),
-            (cache["cross_k"][i], cache["cross_v"][i]), cfg)
-        x = x + mlp(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps), cfg.act)
-        cache["index"][i] = new_kv["index"]
+    with scope:
+        for i, p in enumerate(params["dec_layers"]):
+            a, new_kv = attention(
+                p["self_attn"], rms_norm(x, p["ln_self"], cfg.norm_eps), cfg,
+                positions, cache=_with_seq({"k": cache["self_k"][i],
+                                            "v": cache["self_v"][i],
+                                            "index": cache["index"][i]},
+                                           self_seq))
+            x = x + a
+            x = x + _cross_attention(
+                p["cross_attn"], rms_norm(x, p["ln_cross"], cfg.norm_eps),
+                (cache["cross_k"][i], cache["cross_v"][i]), cfg, cross_seq)
+            x = x + mlp(p["mlp"], rms_norm(x, p["ln_mlp"], cfg.norm_eps),
+                        cfg.act)
+            cache["index"][i] = new_kv["index"]
     hidden = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return logits_fn(params, cfg, hidden).float(), cache

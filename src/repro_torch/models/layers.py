@@ -20,6 +20,14 @@ on every token of its rows; the row-parallel sum adds their outputs).
 ``p[key]`` is the parameter as the layer uses it (FSDP shards gathered),
 ``p.full(key)`` the whole of it; a layer whose split does not fall on
 head boundaries runs on the whole weights, replicated.
+
+In decode, a cache cut on its sequence (the reference's ``kv_seq`` rule,
+where GSPMD splits the softmax and the PV product into partial sums over
+the split) runs context-parallel: each rank writes the new rows that fall
+in its block of the positions (:func:`block_rows`, :func:`write_rows`),
+computes its block's max, sum of exponentials and exp-weighted values in
+float32, and the blocks are merged by the log-sum-exp rule after one
+all-gather over the split's group (:func:`combine_blocks`).
 """
 from __future__ import annotations
 
@@ -31,8 +39,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributed import batch as DB
+from ..distributed import collectives as C
 from ..distributed.collectives import reduce_sum
-from ..distributed.model_parallel import (copy_to, fsdp_view, full_view,
+from ..distributed.model_parallel import (MODEL, copy_to, fsdp_view,
+                                          full_view, gather_from,
                                           model_split, reduce_from)
 
 
@@ -247,7 +257,9 @@ def heads_split(p, cfg):
 
 
 def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor,
-                 tp=None):
+                 tp=None, every_kv: bool = False):
+    """q of this rank's heads (every head without a split), k and v of
+    their KV heads, or of every KV head with ``every_kv``."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     if tp is None:
@@ -256,6 +268,8 @@ def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     else:
         sp, kv0, Hkv = tp
         H = cfg.n_heads // sp.size
+        if every_kv:
+            kv0, Hkv = 0, cfg.n_kv_heads
 
     def kv(key):        # replicated; this rank reads its KV heads' columns
         w = copy_to(_full(p, key), sp)
@@ -312,6 +326,87 @@ def cache_rows(index: torch.Tensor, S: int, Skv: int) -> torch.Tensor:
     return start + torch.arange(S, device=index.device)
 
 
+def block_rows(index: torch.Tensor, S: int, n: int, seq=None):
+    """-> (rows, inside): the rows of this rank's cache block of n rows
+    that S new entries at ``index`` go to.  Without a sequence split (seq
+    None) the block is the whole cache: :func:`cache_rows`, inside None.
+    Over a split, the rows are the whole cache's (clamped as on it), less
+    the block's start, modulo n: S consecutive rows land on distinct rows
+    of the block (n at a time), and ``inside`` (S,) marks the ones that
+    fall in it."""
+    if seq is None:
+        return cache_rows(index, S, n), None
+    rows = cache_rows(index, S, n * seq.size) - seq.index * n
+    return rows % n, (rows >= 0) & (rows < n)
+
+
+def write_rows(c: torch.Tensor, rows: torch.Tensor, inside,
+               new: torch.Tensor) -> None:
+    """Write ``new`` (B, S, ...) into the cache block ``c`` (B, n, ...)
+    at :func:`block_rows`' rows, in place.  Under a split only the rows
+    ``inside`` the block change: the others rewrite the row they land on
+    with its own value, n rows at a time so that no two rows of a write
+    meet."""
+    new = new.to(c.dtype)
+    if inside is None:
+        c.index_copy_(1, rows, new)
+        return
+    n = c.shape[1]
+    for j in range(0, rows.shape[0], n):
+        r, v = rows[j:j + n], new[:, j:j + n]
+        m = inside[j:j + n].view((1, -1) + (1,) * (v.ndim - 2))
+        c.index_copy_(1, r, torch.where(m, v, c.index_select(1, r)))
+
+
+def valid_rows(index: torch.Tensor, S: int, n: int, seq=None):
+    """(n,) True where this rank's cache block holds a position below
+    ``index + S`` (global positions)."""
+    pos = torch.arange(n, device=index.device)
+    if seq is not None:
+        pos = pos + seq.index * n
+    return pos < (index + S)
+
+
+def every_head(tp, seq) -> bool:
+    """True when the cache's sequence is split over the model axis that
+    also splits the query heads: each rank then attends with every head
+    over its block of the sequence."""
+    return tp is not None and seq is not None and MODEL in seq.axes
+
+
+def _partials(logits: torch.Tensor, values, dtype):
+    """One block's share of a softmax-weighted sum: from float32
+    ``logits`` (..., k), the block's max m and sum of exponentials s, and
+    the exp-weighted sum ``values(e)``, its weights cast to ``dtype`` as
+    the reference casts its softmax -> (o, m, s) in float32.  A block
+    with no valid position (every logit -1e30) gets m = -1e30, which
+    :func:`merge_partials` weighs by zero."""
+    m = logits.amax(-1, keepdim=True)
+    e = torch.exp(logits - m)
+    return values(e.to(dtype)).float(), m[..., 0], e.sum(-1)
+
+
+def merge_partials(parts: torch.Tensor) -> torch.Tensor:
+    """Blocks' partials (P, ..., D + 2) (each the exp-weighted sum, the
+    max and the sum of exponentials of one block) -> the softmax-weighted
+    sum over every block (..., D), float32, by the log-sum-exp rule."""
+    o, m, s = parts[..., :-2], parts[..., -2], parts[..., -1]
+    w = torch.exp(m - m.amax(0))
+    return (o * w[..., None]).sum(0) / (s * w).sum(0)[..., None]
+
+
+def pack_partials(o, m, s) -> torch.Tensor:
+    """A block's (o, m, s) as one (..., D + 2) tensor."""
+    return torch.cat([o, m[..., None], s[..., None]], dim=-1)
+
+
+def combine_blocks(o, m, s, seq) -> torch.Tensor:
+    """This rank's partials merged with the other blocks' of the sequence
+    group (one all-gather of the packed triples)."""
+    return merge_partials(C.all_gather(pack_partials(o, m, s)[None],
+                                       seq.group, dim=0, tag="cp_combine"))
+
+
 def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
               causal: bool = True, cache=None):
     """Returns (out, new_cache).  cache = dict(k, v, index) for decode: the
@@ -321,28 +416,76 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     ``index + S`` is attended to: there is no causal mask among the S new
     tokens, as in the reference (decoding feeds S = 1).  Under a heads
     split the cache holds this rank's KV heads (or all of them, of which
-    it writes and reads its own)."""
+    it writes and reads its own).
+
+    With ``cache["seq"]``, the :class:`~repro_torch.distributed.
+    model_parallel.Split` of a cache cut on its sequence (context
+    parallelism), the cache is this rank's block of the positions: the
+    rank writes the new rows that fall in it, attends over it, and the
+    blocks' partial softmax sums are combined over the split's group
+    (:func:`combine_blocks`).  Where the model axis splits both the
+    sequence and the query heads, each rank projects every KV head,
+    gathers every query head, attends with all of them and keeps its own
+    heads' output for its rows of ``wo``."""
     B, S, _ = x.shape
     tp = heads_split(p, cfg)
-    q, k, v = _project_qkv(p, x, cfg, positions, tp)
+    seq = None if cache is None else cache.get("seq")
+    every = every_head(tp, seq)
+    q, k, v = _project_qkv(p, x, cfg, positions, tp, every)
     new_cache = None
     if cache is not None:
         idx = cache["index"]
         ck, cv = cache["k"], cache["v"]
-        if tp is not None and ck.shape[2] != k.shape[2]:
+        if tp is not None and not every and ck.shape[2] != k.shape[2]:
             ck, cv = (c.narrow(2, tp[1], tp[2]) for c in (ck, cv))
-        Skv = ck.shape[1]
-        rows = cache_rows(idx, S, Skv)
-        ck.index_copy_(1, rows, k.to(ck.dtype))
-        cv.index_copy_(1, rows, v.to(cv.dtype))
+        n = ck.shape[1]
+        rows, inside = block_rows(idx, S, n, seq)
+        write_rows(ck, rows, inside, k)
+        write_rows(cv, rows, inside, v)
         new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + S}
-        valid = torch.arange(Skv, device=x.device) < (idx + S)
-        out = _sdpa_decode(q, ck, cv, valid)
+        valid = valid_rows(idx, S, n, seq)
+        out = _attend_cache(q, ck, cv, valid, seq, tp if every else None)
     else:
         out = _sdpa(q, k, v, causal)
     sp = None if tp is None else tp[0]
     return reduce_from(out @ _weight(p, "wo", sp).to(x.dtype), sp), \
         new_cache
+
+
+def _attend_cache(q, k, v, valid, seq, gather=None) -> torch.Tensor:
+    """Decode attention of q over a cache (whole, or this rank's block of
+    its sequence under ``seq``); ``gather``, a heads split, gathers every
+    query head first and keeps this rank's heads of the output."""
+    if seq is None:
+        return _sdpa_decode(q, k, v, valid)
+    if gather is not None:
+        q = gather_from(q, gather[0], dim=2, tag="cp_heads")
+    out = combine_blocks(*decode_partials(q, k, v, valid), seq)
+    B, Sq, Hq, hd = q.shape
+    out = out.to(v.dtype).reshape(B, Sq, Hq * hd)
+    if gather is not None:
+        sp = gather[0]
+        w = Hq // sp.size * hd
+        out = out.narrow(-1, sp.index * w, w)
+    return out
+
+
+def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    valid=None):
+    """One block's partials of :func:`_sdpa_decode`: q (B, Sq, Hq, hd)
+    against k/v (B, n, Hkv, hd) with ``valid`` (n,) or None (every
+    position) -> (o (B, Sq, Hq, hd), m, s (B, Sq, Hq)), float32."""
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    q = q.reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    logits = torch.einsum("bqhgd,bkhd->bqhgk", q, k.to(q.dtype))
+    logits = logits.float() / math.sqrt(hd)
+    if valid is not None:
+        logits = logits.masked_fill(~valid, -1e30)
+    o, m, s = _partials(logits, lambda e: torch.einsum(
+        "bqhgk,bkhd->bqhgd", e, v.to(e.dtype)), v.dtype)
+    return o.reshape(B, Sq, Hq, hd), m.reshape(B, Sq, Hq), \
+        s.reshape(B, Sq, Hq)
 
 
 def _sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -395,7 +538,9 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     as :func:`attention` writes its cache.  Returns (out, new_cache).
     Under a heads split (``w_u*``, ``wq`` and ``wo`` split by heads) the
     latent and the rope key are computed whole and every rank runs its
-    heads on them; the cache is the whole latent on every rank."""
+    heads on them; the cache is the whole latent on every rank, or its
+    block of the positions under ``cache["seq"]`` (:func:`_mla_blocks`).
+    """
     B, S, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
         cfg.v_head_dim
@@ -421,6 +566,9 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     k_rope = x @ _full(p, "w_krope").to(x.dtype)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
+    if cache is not None and cache.get("seq") is not None:
+        return _mla_blocks(p, x, cfg, q_nope, q_rope, c_kv, k_rope, cache,
+                           sp)
 
     new_cache = valid = None
     if cache is not None:
@@ -452,6 +600,59 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, S, Hl * dv)
     return reduce_from(out @ _weight(p, "wo", sp).to(x.dtype), sp), \
         new_cache
+
+
+def _mla_blocks(p, x, cfg, q_nope, q_rope, c_kv, k_rope, cache, sp):
+    """MLA decode over this rank's block of a cache cut on its sequence
+    (``cache["seq"]``), with ``w_uk`` absorbed into the queries and
+    ``w_uv`` applied after the blocks are combined: each rank scores its
+    block's latents ``c_kv`` directly, and the sequence group exchanges
+    latent-width partials (rank + 2 floats a head), never the
+    up-projected keys and values or the ``w_u*`` weights.  Where the model
+    axis splits both the sequence and the heads, the absorbed queries of
+    every head are gathered and each rank keeps its heads' latents for
+    its ``w_uv`` and ``wo`` blocks."""
+    B, S, Hl, dn = q_nope.shape
+    r, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    seq = cache["seq"]
+    idx = cache["index"]
+    cc, cr = cache["c_kv"], cache["k_rope"]
+    n = cc.shape[1]
+    rows, inside = block_rows(idx, S, n, seq)
+    write_rows(cc, rows, inside, c_kv)
+    write_rows(cr, rows, inside, k_rope)
+    new_cache = {"c_kv": cc, "k_rope": cr, "index": idx + S}
+    w_uk = _weight(p, "w_uk", sp).to(x.dtype).view(r, Hl, dn)
+    qs = torch.cat([torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk), q_rope],
+                   dim=-1)
+    every = every_head(sp, seq)
+    if every:
+        qs = gather_from(qs, sp, dim=2, tag="cp_heads")
+    lat = combine_blocks(*mla_partials(
+        qs[..., :r], qs[..., r:], cc.to(x.dtype), cr.to(x.dtype),
+        valid_rows(idx, S, n, seq), 1.0 / math.sqrt(dn + cfg.qk_rope_dim)),
+        seq)
+    if every:
+        lat = lat.narrow(2, sp.index * Hl, Hl)
+    w_uv = _weight(p, "w_uv", sp).to(x.dtype).view(r, Hl, dv)
+    out = torch.einsum("bqhr,rhd->bqhd", lat.to(x.dtype), w_uv)
+    return reduce_from(out.reshape(B, S, Hl * dv)
+                       @ _weight(p, "wo", sp).to(x.dtype), sp), new_cache
+
+
+def mla_partials(q_lat, q_rope, c_kv, k_rope, valid, scale: float):
+    """One block's partials of MLA with ``w_uk`` absorbed: the latent
+    queries q_lat (B, Sq, H, r) and the rope queries (B, Sq, H, dr)
+    against the block's latents c_kv (B, n, r) and rope keys (B, n, dr)
+    -> (o (B, Sq, H, r), m, s (B, Sq, H)), float32; o is the exp-weighted
+    sum of the latents, which ``w_uv`` maps to the values."""
+    logits = (torch.einsum("bqhr,bkr->bqhk", q_lat, c_kv)
+              + torch.einsum("bqhd,bkd->bqhk", q_rope, k_rope)
+              ).float() * scale
+    if valid is not None:
+        logits = logits.masked_fill(~valid, -1e30)
+    return _partials(logits, lambda e: torch.einsum(
+        "bqhk,bkr->bqhr", e, c_kv.to(e.dtype)), c_kv.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,9 @@ logits are this rank's vocabulary block, and the token NLL all-reduces
 their max and sum-exp over the model group, so no rank holds the whole
 logits in training; decoding gathers them.  A cache made by
 :func:`init_cache` under a sharding context is this rank's block of every
-leaf (``cache_specs``), written in place.
+leaf (``cache_specs``), written in place: decode runs the reference's
+layout, each rank its rows of the requests (the batch over the data
+axes) against its block of each attention cache's sequence (``kv_seq``).
 """
 from __future__ import annotations
 
@@ -41,11 +43,12 @@ from ..device import resolve_device
 from ..distributed import batch as DB
 from ..distributed import collectives as C
 from ..distributed.ctx import current_mesh, current_rules
-from ..distributed.model_parallel import (copy_to, gather_from,
+from ..distributed.model_parallel import (cache_split, copy_to,
+                                          decode_rows, gather_from,
                                           local_cache, reduce_from)
 from .config import ModelConfig
 from .layers import (ParamTree, _full, _init, _split, _zeros, as_generator,
-                     attention, cache_rows, init_attention, init_mla,
+                     attention, block_rows, init_attention, init_mla,
                      init_mlp, init_moe, mla_attention, mlp, moe, rms_norm)
 from .ssm import (init_mamba, init_rwkv, mamba_block, mamba_cache,
                   rwkv_block, rwkv_cache)
@@ -330,11 +333,14 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     and SSM state; the hybrid's ``shared_attn`` K/V a shared block; an
     int32 ``index`` a layer (a block) for the attention caches.  Under a
     sharding context each leaf is this rank's block by ``cache_specs``
-    (the batch whole on every rank)."""
-    cache = _init_cache(cfg, B, max_len, dtype, device)
+    (:func:`~repro_torch.distributed.model_parallel.local_cache`: the
+    requests over the data axes, each attention cache's sequence over
+    ``kv_seq``'s axes), allocated as such."""
     mesh = current_mesh()
-    return cache if mesh is None else local_cache(cache, mesh,
-                                                  current_rules())
+    if mesh is None:
+        return _init_cache(cfg, B, max_len, dtype, device)
+    return local_cache(_init_cache(cfg, B, max_len, dtype, "meta"), mesh,
+                       current_rules(), device=resolve_device(device))
 
 
 def _init_cache(cfg: ModelConfig, B: int, max_len: int, dtype,
@@ -371,12 +377,52 @@ def _write(stacked: dict, i: int, new: dict) -> None:
         stacked[k][i] = v
 
 
+def decode_batch(cache, B: int):
+    """-> (this rank's rows of a decode step of B requests, a slice of
+    the whole batch; a scope installing them for the MoE, whose dispatch
+    groups are the whole batch's).  The rows are the cache's
+    (:func:`~repro_torch.distributed.model_parallel.decode_rows`): every
+    row where the cache holds the whole batch."""
+    rows = decode_rows(cache, B)
+    if rows is None:
+        return slice(None), contextlib.nullcontext()
+    start, n = rows.block(B)
+    return slice(start, start + n), DB.rows_set(DB.Rows(rows.group, B,
+                                                        start, n))
+
+
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, tokens, cache: dict,
                 positions=None, embeds=None):
     """One decoding step.  tokens: (B, S) (or embeds (B, S, d)).  Returns
     (logits (B, S, V), cache): the cache is updated in place (the
-    counterpart of the reference's donated cache) and returned."""
+    counterpart of the reference's donated cache) and returned.
+
+    On a cache made under a sharding context (:func:`init_cache`) the
+    inputs are the whole batch, the same on every rank, and the step runs
+    this rank's rows of it, the cache's: the logits are those rows'
+    (``serve.engine.make_serve_step`` gathers the next tokens).  Where the
+    cache's sequence is cut, the attention layers combine their blocks
+    over its group (``layers.attention``)."""
+    mine, scope = decode_batch(cache, (tokens if embeds is None
+                                       else embeds).shape[0])
+    tokens = None if tokens is None else tokens[mine]
+    embeds = None if embeds is None else embeds[mine]
+    if positions is not None:
+        positions = positions[..., mine, :]
+    with scope:
+        return _decode_step(params, cfg, tokens, cache, positions, embeds)
+
+
+def _with_seq(c: dict, seq) -> dict:
+    """A layer's cache with its sequence split (when cut)."""
+    if seq is not None:
+        c["seq"] = seq
+    return c
+
+
+def _decode_step(params, cfg: ModelConfig, tokens, cache: dict, positions,
+                 embeds):
     x = embed(params, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     lc = cache["layers"]
@@ -396,6 +442,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: dict,
             _write(lc, i, c2)
     elif cfg.family == "hybrid":
         kvs = cache["shared_attn"]
+        seq = cache_split(cache, ("shared_attn", "k"), 2)
         layers, shared = params["layers"], params["shared_attn"]
         for g, first, take, b in _groups(cfg):
             for i in range(first, first + take):
@@ -405,14 +452,15 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: dict,
                                     cache={k: v[i] for k, v in lc.items()})
                 x = x + h
                 _write(lc, i, c2)
-            kvc = {"k": kvs["k"][b], "v": kvs["v"][b],
-                   "index": kvs["index"][b]}
+            kvc = _with_seq({"k": kvs["k"][b], "v": kvs["v"][b],
+                             "index": kvs["index"][b]}, seq)
             if g < cfg.n_shared_attn_blocks:  # shared blocks share one cache
                 x, _, kvn = _decoder_layer_fwd(shared[b], x, cfg, positions,
                                                cache=kvc)
                 kvs["index"][b] = kvn["index"]
             else:  # the reference discards this group's write
-                rows = cache_rows(kvc["index"], S, kvc["k"].shape[1])
+                rows, _ = block_rows(kvc["index"], S, kvc["k"].shape[1],
+                                     seq)
                 saved = [kvc[k].index_select(1, rows) for k in ("k", "v")]
                 x, _, _ = _decoder_layer_fwd(shared[b], x, cfg, positions,
                                              cache=kvc)
@@ -422,12 +470,13 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: dict,
         stacks = [("layers", cfg.moe)]
         if cfg.moe and cfg.moe_layer_start:
             stacks.insert(0, ("dense_layers", False))
+        seq = cache_split(cache, ("layers", "c_kv" if cfg.mla else "k"), 2)
         i = 0
         for key, use_moe in stacks:
             for p in params[key]:
                 x, _, c2 = _decoder_layer_fwd(
                     p, x, cfg, positions, use_moe,
-                    cache={k: v[i] for k, v in lc.items()})
+                    cache=_with_seq({k: v[i] for k, v in lc.items()}, seq))
                 lc["index"][i] = c2["index"]
                 i += 1
     hidden = rms_norm(x, params["ln_f"], cfg.norm_eps)

@@ -33,6 +33,7 @@ from ..core.signature import canon_precision
 from ..core.stream import SignatureStream
 from .. import models as M
 from ..device import resolve_device
+from ..distributed.model_parallel import gather_decode_rows
 from ..kernels import ops
 from ..models import encdec, transformer as T
 from ..models.config import ModelConfig
@@ -317,7 +318,15 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 0.0):
     (B, 1) int32, cache).  Greedy at temperature 0; otherwise a
     ``torch.multinomial`` draw from softmax(logits / temperature) with the
     generator: reproducible under a seed, but not the reference's
-    ``jax.random.categorical`` draws."""
+    ``jax.random.categorical`` draws.
+
+    On a cache made under a sharding context ``tokens`` is the whole batch
+    and each rank decodes its rows of it (``models.decode_step``); their
+    next tokens are gathered over the batch axes, so every rank returns
+    the whole batch's.  Greedy tokens are one rank's.  A sampling rank
+    draws its own rows from its own ``generator``: the draws are
+    reproducible for a seed and a mesh, and differ from one rank's, which
+    draws every row from one generator."""
 
     def serve_step(params, cache, tokens, generator=None):
         logits, cache = M.decode_step(params, cfg, tokens, cache)
@@ -327,7 +336,8 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 0.0):
             next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
         else:
             next_tok = torch.argmax(logits, dim=-1)
-        return next_tok[:, None].to(torch.int32), cache
+        return gather_decode_rows(next_tok[:, None].to(torch.int32), cache,
+                           tag="decode_tokens"), cache
 
     return serve_step
 

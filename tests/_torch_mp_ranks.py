@@ -36,6 +36,18 @@ TRAIN = (4, 8, 3)        # batch, sequence, steps
 AUX = (8, 8)             # the MoE-aux batch: 64 tokens > 4E = 16
 MICRO = (8, 8, 2)        # batch, sequence, microbatches
 DECODE = (2, 3, 3, 16)   # batch, prompt, new tokens, max_len
+# the decode cells' layout (rules_for(arch, "decode_32k")): the cache's
+# sequence in blocks of 8 over the model axis, which the prompt and the
+# new tokens cross, the batch over the data axis of the 2 x 2 mesh
+CP_DECODE = (2, 6, 6, 16)
+CP_SHAPE = "decode_32k"
+# reduced qwen3-4b under the long-context override: the sequence over
+# both axes (blocks of 4), the batch whole
+CP_OVERRIDE = {"kv_seq": ("data", "model"), "batch": ("pod",)}
+# writes of S > 1 rows on the 2 x 2 mesh under rules_for (blocks of 8):
+# 10 rows (more than a block, across its end), 3, then 5 at index 13,
+# clamped to rows 11-15 as lax.dynamic_update_slice clamps
+CP_WRITES = (10, 3, 5)
 SIG = dict(channels=3, depth=2)
 # SGD's learning rate: small enough that three steps of the reduced
 # models stay well conditioned.  At 1e-2 zamba2's gradient norms of 40-85
@@ -61,12 +73,15 @@ def config(arch: str, configs):
     """The reduced config both packages run (``configs`` is either
     package's ``configs`` module): deepseek's dispatch groups of 8 tokens
     so that no group straddles two ranks, zamba2 with 4 groups over its 2
-    shared blocks (the decode's shared-block row restore)."""
+    shared blocks (the decode's shared-block row restore), whisper with
+    16 decoder positions (CP_DECODE crosses their blocks of 8)."""
     cfg = configs.reduce_config(configs.get_config(arch))
     if arch == "deepseek-v2-lite-16b":
         cfg = dataclasses.replace(cfg, moe_group_size=8)
     if arch == "zamba2-7b":
         cfg = dataclasses.replace(cfg, n_layers=8)
+    if arch == "whisper-large-v3":
+        cfg = dataclasses.replace(cfg, decoder_max_len=16)
     return cfg
 
 
@@ -75,12 +90,12 @@ def _t(b):
     return {k: torch.from_numpy(np.array(v)) for k, v in b.items()}
 
 
-def _model(inputs, key, cfg, mesh=None):
+def _model(inputs, key, cfg, mesh=None, rules=None):
     from repro_torch.convert import lm_params_from_reference
     from repro_torch.distributed.model_parallel import shard_model
     model = lm_params_from_reference(inputs["params"][key], cfg,
                                      device="cpu")
-    return model if mesh is None else shard_model(model, mesh)
+    return model if mesh is None else shard_model(model, mesh, rules)
 
 
 def _steps(model, cfg, batches, mesh, opt=None, **kw) -> tuple[list, dict]:
@@ -127,6 +142,125 @@ def decode_cases(mesh, inputs: dict) -> dict:
                                device="cpu").generate(
                 torch.from_numpy(inputs["prompts"][arch]), n_new)
         out[f"decode/{arch}"] = toks.numpy()
+    return out
+
+
+def greedy_logits(model, cfg, prompts, n_new: int, max_len: int,
+                  enc_out=None):
+    """Greedy decode through ``decode_step`` (whisper's cross K/V
+    prefilled from ``enc_out``) -> (tokens (B, P + n_new), the whole
+    batch's float32 logits a step (steps, B, V)), both gathered over the
+    batch axes under a sharding context."""
+    import torch
+    from repro_torch import models as M
+    from repro_torch.distributed.model_parallel import gather_decode_rows
+    B, P = prompts.shape
+    cache = M.init_cache(cfg, B, max_len, torch.float32, device="cpu")
+    if enc_out is not None:
+        cache = M.encdec.prefill_cross(model, cfg, enc_out, cache)
+    tok, out, hist = prompts[:, :1], [prompts], []
+    for j in range(P - 1 + n_new):
+        logits, cache = M.decode_step(model, cfg, tok, cache)
+        logits = gather_decode_rows(logits[:, -1].float(), cache)
+        hist.append(logits)
+        if j + 1 < P:
+            tok = prompts[:, j + 1:j + 2]
+        else:
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            out.append(tok)
+    return torch.cat(out, dim=1).numpy(), torch.stack(hist).numpy()
+
+
+def cp_inputs(inputs, arch):
+    """(prompts, enc_out or None) of an arch's CP_DECODE case."""
+    import torch
+    enc = inputs["enc_out"].get(arch)
+    return (torch.from_numpy(inputs["prompts_cp"][arch]),
+            None if enc is None else torch.from_numpy(enc))
+
+
+def cp_decode_cases(mesh, inputs: dict) -> dict:
+    """Each arch decoded under its decode cell's rules
+    (``rules_for(arch, CP_SHAPE)``) at CP_DECODE: the greedy tokens of
+    ``ServeEngine`` and the tokens and logits of :func:`greedy_logits`,
+    and rank 0's cache leaf shapes; on the 2 x 2 mesh also reduced
+    qwen3-4b under CP_OVERRIDE."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import models as M
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.serve import ServeEngine
+    B, P, n_new, max_len = CP_DECODE
+    cases = [(f"cp/{arch}", arch, rules_for(arch, CP_SHAPE))
+             for arch in ARCHS]
+    if mesh.size() == 4:
+        cases.append(("cp/qwen3-4b/override", "qwen3-4b",
+                      rules_for("qwen3-4b", CP_SHAPE, CP_OVERRIDE)))
+    out = {}
+    for key, arch, rules in cases:
+        cfg = config(arch, configs)
+        model = _model(inputs, arch, cfg, mesh, rules)
+        prompts, enc = cp_inputs(inputs, arch)
+        with sharding_ctx(mesh, rules):
+            engine = ServeEngine(cfg, model, max_len=max_len, device="cpu")
+            toks = engine.generate(prompts, n_new).numpy()
+            got = greedy_logits(model, cfg, prompts, n_new, max_len, enc)
+            cache = M.init_cache(cfg, B, max_len, torch.float32,
+                                 device="cpu")
+        out[key] = dict(engine=toks, tokens=got[0], logits=got[1],
+                        shapes={"/".join(map(str, k)): tuple(v.shape)
+                                for k, v in _leaves(cache)})
+    return out
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def cp_write_steps(model, cfg, tokens, writes, max_len: int):
+    """Decode steps of S = ``writes`` rows each -> (the whole batch's
+    float32 logits of every step, the whole cache after them), both
+    gathered under a sharding context."""
+    import torch
+    from repro_torch import models as M
+    from repro_torch.distributed.model_parallel import (gather_decode_rows,
+                                                        gather_tensor)
+    cache = M.init_cache(cfg, tokens.shape[0], max_len, torch.float32,
+                         device="cpu")
+    hist, j = [], 0
+    for S in writes:
+        logits, cache = M.decode_step(model, cfg, tokens[:, j:j + S], cache)
+        hist.append(gather_decode_rows(logits.float(), cache).numpy())
+        j += S
+    pl = getattr(cache, "placements", {})
+    whole = {"/".join(map(str, k)): (gather_tensor(v, pl[k]) if k in pl
+                                     else v).numpy()
+             for k, v in _leaves(cache)}
+    return hist, whole
+
+
+def cp_write_case(mesh, inputs: dict) -> dict:
+    """Reduced qwen3-4b and deepseek under their decode cells' rules on
+    the 2 x 2 mesh: CP_WRITES, rows across a block's end, more rows than
+    a block and a clamped write."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.launch.dryrun import rules_for
+    out = {}
+    for arch in ("qwen3-4b", "deepseek-v2-lite-16b"):
+        cfg = config(arch, configs)
+        rules = rules_for(arch, CP_SHAPE)
+        model = _model(inputs, arch, cfg, mesh, rules)
+        tokens = torch.from_numpy(inputs["write_tokens"])
+        with sharding_ctx(mesh, rules):
+            out[f"cp_write/{arch}"] = cp_write_steps(
+                model, cfg, tokens, CP_WRITES, CP_DECODE[3])
     return out
 
 
@@ -324,6 +458,7 @@ def rank_main(rank: int, world: int, store_path: str, inputs: dict,
         out = {}
         out.update(train_cases(mesh, inputs))
         out.update(decode_cases(mesh, inputs))
+        out.update(cp_decode_cases(mesh, inputs))
         out.update(whisper_case(mesh))
         out.update(rwkv64_case(mesh, inputs))
         if world == 4:
@@ -332,6 +467,7 @@ def rank_main(rank: int, world: int, store_path: str, inputs: dict,
             out.update(adafactor_cases(mesh, inputs))
             out.update(dryrun_cases(mesh, inputs))
             out.update(donation_case(mesh, inputs))
+            out.update(cp_write_case(mesh, inputs))
             out.update(launcher_case(dirs["ckpt"]))
         dp = make_dev_mesh(world, 1, device="cpu")
         out.update(moe_aux_cases(dp, inputs))

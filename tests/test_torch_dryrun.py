@@ -5,7 +5,9 @@
 - The fake world lives in a subprocess (one for the module): the CLI over
   every arch at ``long_500k`` on both production meshes (the eight
   full-attention archs skipped with the reference's reason, zamba2's and
-  rwkv6's decode cells run), two decode cells of the production mesh, and
+  rwkv6's decode cells run), two decode cells of the production mesh in
+  the reference's layout (each rank its rows of the requests and its
+  block of each cache's sequence), and
   a dense LM-loss train step of reduced qwen3-4b on a 2 x 2 mesh whose
   FLOPs a rank times 4 lie within 10% of the same step's FLOPs on one
   rank alone.
@@ -146,6 +148,12 @@ def test_cli_runs_every_long_context_cell(child):
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-large-v3"])
 def test_production_decode_cells(child, arch):
+    """The decode cells run the reference's layout: a rank holds its rows
+    of the requests (128 over the data axis) and its block of each
+    attention cache's sequence (over the model axis), so its argument
+    bytes less its parameters are its blocks of the cache and the whole
+    batch's tokens; each layer combines its blocks with an all-gather."""
+    from repro_torch.distributed.model_parallel import local_cache
     res = child[2][arch]
     assert res["mesh"] == "16x16" and res["kind"] == "decode"
     assert res["hlo_flops_per_dev"] > 0 and res["hlo_bytes_per_dev"] > 0
@@ -154,9 +162,19 @@ def test_production_decode_cells(child, arch):
     assert res["dominant"] in ("compute_s", "memory_s", "collective_s")
     # weight-stationary decode: no FSDP gather of the parameters
     assert res["rules"]["fsdp"] == "None"
-    # the request batch is whole on every rank, the cache cut by heads
-    assert mem["output_size_bytes"] >= mem["argument_size_bytes"] - \
-        mem["param_bytes"]
+    assert res["rules"]["kv_seq"] == "model"
+    cfg = tconfigs.get_config(arch)
+    tokens, cache, _ = tspecs.decode_inputs_for(cfg, "decode_32k")
+    rank = tdryrun.tree_bytes(local_cache(
+        cache, tdryrun.production_mesh(),
+        tdryrun.rules_for(arch, "decode_32k"), device="meta"))
+    extra = tdryrun.tree_bytes(tokens)
+    assert mem["argument_size_bytes"] - mem["param_bytes"] == rank + extra
+    assert mem["output_size_bytes"] == rank + extra
+    if arch == "qwen2-vl-2b":     # 1/256 of the whole 122,138,132,480
+        assert abs(rank + extra - (477_102_080 + extra)) <= \
+            0.01 * (477_102_080 + extra)
+    assert res["collectives"]["all-gather"]["count"] >= cfg.n_layers
 
 
 def test_a_dense_steps_flops_split_over_the_2x2_mesh(child):

@@ -61,6 +61,7 @@ from repro_torch.launch import dryrun as tdryrun
 from repro_torch.launch import specs as tspecs
 
 GRAD = dict(rtol=1e-3, atol=1e-5)
+CP_WRITE_ARCHS = ("qwen3-4b", "deepseek-v2-lite-16b")
 MESHES = (((2, 4), ("data", "model")), ((16, 16), ("data", "model")),
           ((2, 16, 16), ("pod", "data", "model")))
 _REF: dict = {}          # reference results shared by the parametrised cases
@@ -191,7 +192,7 @@ def _jcfg(arch, sig=False):
 
 
 def _inputs() -> dict:
-    params, batches, prompts = {}, {}, {}
+    params, batches, prompts, prompts_cp, enc_out = {}, {}, {}, {}, {}
     rng = np.random.default_rng(0)
     B, S, steps = R.TRAIN
     for i, arch in enumerate(R.ARCHS):
@@ -208,6 +209,12 @@ def _inputs() -> dict:
                     np.float32)
         prompts[arch] = rng.integers(1, jcfg.vocab_size, size=R.DECODE[:2]
                                      ).astype(np.int32)
+        prompts_cp[arch] = rng.integers(1, jcfg.vocab_size,
+                                        size=R.CP_DECODE[:2]).astype(np.int32)
+        if jcfg.family == "encdec":       # the encoder's states to prefill
+            enc_out[arch] = rng.standard_normal(
+                (R.CP_DECODE[0], jcfg.n_audio_frames, jcfg.d_model)).astype(
+                np.float32)
     for arch in ("qwen3-4b", "deepseek-v2-lite-16b"):
         jcfg = _jcfg(arch, sig=True)
         p = dict(params[arch])
@@ -240,7 +247,11 @@ def _inputs() -> dict:
                                           1, 3)
     batches["micro/moe_aux"] = [jax.tree.map(np.asarray, next(
         jpipe.TokenStream(128, Bm, Sm, 16)))]
-    return dict(params=params, batches=batches, prompts=prompts)
+    write_tokens = np.random.default_rng(1).integers(
+        1, 128, size=(R.CP_DECODE[0], sum(R.CP_WRITES))).astype(np.int32)
+    return dict(params=params, batches=batches, prompts=prompts,
+                prompts_cp=prompts_cp, enc_out=enc_out,
+                write_tokens=write_tokens)
 
 
 def _start(world: int, inputs: dict, tmp):
@@ -321,6 +332,50 @@ def _reference_decode(arch: str):
                                       R.DECODE[2]))
 
 
+def _reference_decode_cp(arch: str):
+    """The reference's single-device greedy tokens at CP_DECODE."""
+    inputs = _REF["inputs"]
+    return np.asarray(jengine.ServeEngine(
+        _jcfg(arch), jax.tree.map(jnp.asarray, inputs["params"][arch]),
+        max_len=R.CP_DECODE[3]).generate(
+        jnp.asarray(inputs["prompts_cp"][arch]), R.CP_DECODE[2]))
+
+
+def _port_decode_cp(arch: str):
+    """The port's one-rank greedy tokens and logits at CP_DECODE
+    (``_torch_mp_ranks.greedy_logits`` with no mesh)."""
+    inputs = _REF["inputs"]
+    cfg = R.config(arch, tconfigs)
+    prompts, enc = R.cp_inputs(inputs, arch)
+    B, P, n_new, max_len = R.CP_DECODE
+    return R.greedy_logits(R._model(inputs, arch, cfg), cfg, prompts, n_new,
+                           max_len, enc)
+
+
+def _reference_writes(arch: str):
+    """The reference's single-device logits of CP_WRITES' decode steps."""
+    inputs = _REF["inputs"]
+    cfg = _jcfg(arch)
+    params = jax.tree.map(jnp.asarray, inputs["params"][arch])
+    cache = JM.init_cache(cfg, R.CP_DECODE[0], R.CP_DECODE[3], jnp.float32)
+    out, j = [], 0
+    for S in R.CP_WRITES:
+        logits, cache = JM.decode_step(
+            params, cfg, jnp.asarray(inputs["write_tokens"][:, j:j + S]),
+            cache)
+        out.append(np.asarray(logits, np.float32))
+        j += S
+    return out
+
+
+def _port_writes(arch: str):
+    """The port's one-rank logits and cache of CP_WRITES' steps."""
+    cfg = R.config(arch, tconfigs)
+    return R.cp_write_steps(R._model(_REF["inputs"], arch, cfg), cfg,
+                            torch.from_numpy(_REF["inputs"]["write_tokens"]),
+                            R.CP_WRITES, R.CP_DECODE[3])
+
+
 def _reference_rwkv64():
     """rwkv6's three SGD steps at the shared learning rate in float64."""
     inputs = _REF["inputs"]
@@ -348,6 +403,11 @@ def _references(inputs) -> dict:
         table[f"train/{arch}"] = lambda a=arch: _reference_steps(a, b[a])
         table[f"port/{arch}"] = lambda a=arch: _port_steps(a, b[a])
         table[f"decode/{arch}"] = lambda a=arch: _reference_decode(a)
+        table[f"decode_cp/{arch}"] = lambda a=arch: _reference_decode_cp(a)
+        table[f"port_cp/{arch}"] = lambda a=arch: _port_decode_cp(a)
+    for arch in CP_WRITE_ARCHS:
+        table[f"writes/{arch}"] = lambda a=arch: _reference_writes(a)
+        table[f"port_writes/{arch}"] = lambda a=arch: _port_writes(a)
     table["sig_mmd"] = lambda: _reference_steps(
         "qwen3-4b/sig", b["sig_mmd"], loss="sig_mmd")
     table["microbatch"] = lambda: _reference_steps(
@@ -429,6 +489,132 @@ def test_model_parallel_greedy_tokens_equal_the_reference(worlds, arch,
     want = _ref(f"decode/{arch}")
     for r in range(world):
         np.testing.assert_array_equal(res[world][r][f"decode/{arch}"], want)
+
+
+def _assert_logits(got, want, what):
+    """Each step's logits within 1e-4·max|want| of the step's."""
+    assert len(got) == len(want), what
+    for j, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-4 * np.abs(b).max(),
+                                   err_msg=f"{what} step {j}")
+
+
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+@pytest.mark.parametrize("arch", R.ARCHS)
+def test_decode_cells_layout_gives_the_references_tokens(worlds, arch,
+                                                         world):
+    """Under ``rules_for(arch, "decode_32k")`` (the requests over the
+    data axis, each attention cache's sequence in blocks of 8 over the
+    model axis, which CP_DECODE's 12 positions cross): ``ServeEngine``'s
+    greedy tokens are the reference's single-device tokens on every rank,
+    and so are ``decode_step``'s (whisper's, against prefilled cross K/V,
+    the port's one rank's)."""
+    res, _ = worlds
+    want = _ref(f"decode_cp/{arch}")
+    one = _ref(f"port_cp/{arch}")[0]
+    if arch != "whisper-large-v3":
+        np.testing.assert_array_equal(one, want)
+    for r in range(world):
+        got = res[world][r][f"cp/{arch}"]
+        np.testing.assert_array_equal(got["engine"], want)
+        np.testing.assert_array_equal(got["tokens"], one)
+
+
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+@pytest.mark.parametrize("arch", R.ARCHS)
+def test_decode_cells_layout_logits_equal_one_ranks(worlds, arch, world):
+    """Each step's logits (the whole batch, gathered) within
+    1e-4·max|ref| of the port's one-rank logits: the blocks' log-sum-exp
+    combine changes only the order of summation."""
+    res, _ = worlds
+    want = _ref(f"port_cp/{arch}")[1]
+    for r in range(world):
+        _assert_logits(res[world][r][f"cp/{arch}"]["logits"], want,
+                       (arch, world, r))
+
+
+def _blocks(arch: str, world: int, rules: dict) -> dict:
+    """``{leaf path: block shape}`` of CP_DECODE's cache by the port's
+    ``cache_specs`` on the world's abstract mesh: each dimension over the
+    product of its axes' sizes."""
+    cfg = R.config(arch, tconfigs)
+    mesh = AbstractMesh((2, 2) if world == 4 else (1, 2), ("data", "model"))
+    B, _, _, max_len = R.CP_DECODE
+    cache = TM.init_cache(cfg, B, max_len, torch.float32, device="meta")
+    specs = _port_flat(tsharding.cache_specs(cache, mesh, rules))
+    out = {}
+    for path, t in _port_flat(cache).items():
+        shape = []
+        for n, axes in zip(t.shape, specs[path].spec):
+            for a in (() if axes is None else (axes,) if isinstance(
+                    axes, str) else axes):
+                n //= dict(zip(mesh.mesh_dim_names, mesh.shape))[a]
+            shape.append(n)
+        out[path] = tuple(shape)
+    return out
+
+
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+@pytest.mark.parametrize("arch", R.ARCHS)
+def test_decode_cells_cache_is_this_ranks_blocks(worlds, arch, world):
+    """Rank 0's cache leaves are ``cache_specs``' blocks: the requests
+    over the data axis, and for the attention caches of every family but
+    the hybrid and rwkv the sequence (and whisper's frames) over the
+    model axis."""
+    res, _ = worlds
+    got = res[world][0][f"cp/{arch}"]["shapes"]
+    assert got == _blocks(arch, world, tdryrun.rules_for(arch, R.CP_SHAPE))
+    B, _, _, max_len = R.CP_DECODE
+    for path, shape in got.items():
+        if len(shape) > 1:
+            assert shape[1] == B // (2 if world == 4 else 1), path
+        if path.split("/")[-1] in ("k", "v", "c_kv", "k_rope", "self_k",
+                                   "self_v", "cross_k", "cross_v"):
+            seq = R.config(arch, tconfigs).n_audio_frames if "cross" in \
+                path else max_len
+            split = arch not in ("zamba2-7b", "rwkv6-1.6b")
+            assert shape[2] == (seq // 2 if split else seq), path
+
+
+def test_long_context_override_decodes_over_both_axes(worlds):
+    """Reduced qwen3-4b on 2 x 2 under ``kv_seq: ("data", "model")`` and
+    ``batch: ("pod",)``: the sequence in four blocks of 4, the batch
+    whole; the reference's tokens, one rank's logits."""
+    res, _ = worlds
+    rules = tdryrun.rules_for("qwen3-4b", R.CP_SHAPE, R.CP_OVERRIDE)
+    B, _, _, max_len = R.CP_DECODE
+    for r in range(4):
+        got = res[4][r]["cp/qwen3-4b/override"]
+        np.testing.assert_array_equal(got["engine"],
+                                      _ref("decode_cp/qwen3-4b"))
+        _assert_logits(got["logits"], _ref("port_cp/qwen3-4b")[1],
+                       ("override", r))
+    shapes = res[4][0]["cp/qwen3-4b/override"]["shapes"]
+    assert shapes == _blocks("qwen3-4b", 4, rules)
+    assert shapes["layers/k"][1:3] == (B, max_len // 4)
+
+
+@pytest.mark.parametrize("arch", CP_WRITE_ARCHS)
+def test_multi_row_writes_across_blocks_and_at_the_clamp(worlds, arch):
+    """Decode steps of 10, 3 and 5 rows on 2 x 2 under the decode cell's
+    rules (blocks of 8): a write longer than a block and across its end,
+    and one at index 13 that clamps to rows 11-15 as
+    ``lax.dynamic_update_slice`` clamps.  Each step's logits are the
+    reference's and one rank's, and the gathered cache is one rank's."""
+    res, _ = worlds
+    ref = _ref(f"writes/{arch}")
+    one, whole = _ref(f"port_writes/{arch}")
+    _assert_logits(one, ref, (arch, "one rank"))
+    for r in range(4):
+        got, cache = res[4][r][f"cp_write/{arch}"]
+        _assert_logits(got, ref, (arch, r, "reference"))
+        _assert_logits(got, one, (arch, r, "one rank"))
+        assert set(cache) == set(whole)
+        for k, v in whole.items():
+            np.testing.assert_allclose(cache[k], v, rtol=0,
+                                       atol=1e-4 * max(np.abs(v).max(), 1),
+                                       err_msg=f"{arch} {k}")
 
 
 def test_sig_mmd_steps_on_a_2x2_mesh_equal_the_reference(worlds):
