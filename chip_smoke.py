@@ -6179,6 +6179,18 @@ DR_DECODE = (4, 1, 2, 16)
 # four requests over the data axis, 2 a rank
 DR_DECODE_CP = (4, 10, 4, 16)
 DR_SHAPES = {"phase28_whisper": "whisper", "phase28_qwen": "qwen"}
+# (e) the prefill under rules_for(arch, "prefill_32k") on 2 x 2: the
+# requests over the data axis, each prompt in blocks over the model axis.
+# qwen3-4b as published; zamba2-7b and rwkv6-1.6b at full width and
+# DR_PREFILL_DEPTH layers, whisper at DR_PREFILL_DEPTH + DR_PREFILL_DEPTH
+# over its 1,500 frames and 448 decoder tokens.  A prefill on the mesh
+# gathers every layer's weights (FSDP over both axes) through gloo's host
+# staging: qwen3-4b's 16 GB take ~16 s a call, so it is timed once and
+# the smaller models after one warm call.
+DR_PREFILL = (2, 2048)             # requests, prompt tokens (blocks of 1,024)
+DR_PREFILL_ARCHS = (LM_ARCH, "zamba2-7b", "rwkv6-1.6b", DR_ARCH)
+DR_PREFILL_DEPTH = 2
+DR_PREFILL_SHAPE = "prefill_32k"
 
 
 def dr_whisper_cfg():
@@ -6544,6 +6556,141 @@ def dr_whisper_serve(rank: int, mesh, seed: int) -> dict:
     return res
 
 
+def dr_prefill_cfg(arch: str):
+    """Case (e)'s config: qwen3-4b as published, the others at full width
+    and DR_PREFILL_DEPTH layers (each stack)."""
+    cfg = get_config(arch)
+    if arch == LM_ARCH:
+        return cfg
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, n_layers=DR_PREFILL_DEPTH,
+                                   n_encoder_layers=DR_PREFILL_DEPTH)
+    return dataclasses.replace(cfg, n_layers=DR_PREFILL_DEPTH)
+
+
+def dr_prefill_batch(cfg, seed: int) -> dict:
+    """Case (e)'s prompts, the same on every rank: DR_PREFILL's tokens,
+    or whisper's frames and its decoder_max_len tokens."""
+    B, S = DR_PREFILL
+    g = torch.Generator(device="cuda").manual_seed(seed + 33)
+    if cfg.family == "encdec":
+        return {"frames": torch.randn(B, cfg.n_audio_frames, cfg.d_model,
+                                      generator=g, device="cuda"),
+                "tokens": torch.randint(1, cfg.vocab_size,
+                                        (B, cfg.decoder_max_len),
+                                        generator=g, device="cuda",
+                                        dtype=torch.int32)}
+    return {"tokens": torch.randint(1, cfg.vocab_size, (B, S), generator=g,
+                                    device="cuda", dtype=torch.int32)}
+
+
+def dr_timed(fn, warm: bool):
+    """``fn()`` (after one untimed call with ``warm``) -> (its result, ms
+    to a synchronize, this process's peak allocated bytes during the
+    timed call, the collectives it issued)."""
+    from repro_torch.distributed import collectives as C
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    C.LOG.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated(), list(C.LOG.records))
+
+
+def dr_prefill(rank: int, mesh, seed: int) -> dict:
+    """(e) each of DR_PREFILL_ARCHS prefilled on the 2 x 2 mesh under its
+    prefill cell's rules (each rank its request and its block of the
+    prompt) against one rank's prefill of the whole batch: the last
+    position's logits of every rank within 1e-4·max|ref| (rwkv6 at
+    FAM_F32_TOL) with equal argmax, ms a prefill beside one rank's, peak
+    bytes a rank beside one rank's, all-gathers a forward by tag, and
+    the kernel launches the path made (none: no kernel is on it)."""
+    from repro_torch.distributed import batch as DB
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.launch.dryrun import collectives_by_tag, rules_for
+    from repro_torch.train import place_batch
+    out = {}
+    for arch in DR_PREFILL_ARCHS:
+        cfg = dr_prefill_cfg(arch)
+        rules = rules_for(arch, DR_PREFILL_SHAPE)
+        batch = dr_prefill_batch(cfg, seed)
+        step = make_prefill_step(cfg)
+        warm = arch != LM_ARCH
+        t0 = time.perf_counter()
+        alone = None
+        if rank == 0:
+            whole = LM.init_params(seed, cfg)
+            alone = dr_timed(lambda: step(whole, batch), warm=True)
+            del whole
+            print(f"[dryrun_mp] (e) {arch}: one rank's prefill, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        torch.distributed.barrier()
+        lm_free()
+        # FSDP over both axes shards on their flattened group: a new
+        # process group is made by every rank together, not in turns
+        MP.axes_split(mesh, rules["fsdp"])
+        model = dr_in_turns(rank, 4, lambda: MP.shard_model(
+            LM.init_params(seed, cfg), mesh, rules))
+        if rank == 0:
+            print(f"[dryrun_mp] (e) {arch}: sharded in turns, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        with sharding_ctx(mesh, rules):
+            placed = place_batch(batch)
+            lead = placed.get("tokens")
+            with DB.rows_scope(lead) as rows:
+                start, block = rows.start, rows.seq.block(lead.shape[1])
+            torch.distributed.barrier()
+            reset_counts()
+            logits, ms, peak, records = dr_timed(
+                lambda: step(model, placed), warm=warm)
+            launches = {k: v for k, v in counts().items() if v}
+        every = C.all_gather(logits, torch.distributed.group.WORLD,
+                             tag="check")
+        starts = [None] * 4
+        torch.distributed.all_gather_object(starts, start)
+        res = dict(ms=ms, peak_bytes=peak, launches=launches, block=block,
+                   layers=[cfg.n_encoder_layers, cfg.n_layers]
+                   if cfg.family == "encdec" else cfg.n_layers,
+                   batch={k: list(v.shape) for k, v in batch.items()},
+                   all_gathers={t: v["all-gather"]["count"] for t, v in
+                                collectives_by_tag(records).items()
+                                if "all-gather" in v},
+                   local_params=sum(p.numel() for p in model.parameters()),
+                   rules=str(rules))
+        del model
+        lm_free()
+        if rank == 0:
+            want, single_ms, single_peak, _ = alone
+            tol = FAM_F32_TOL.get(arch, 1e-4)
+            scale = float(want.abs().max())
+            errs = []
+            for r in range(4):
+                ref = want[starts[r]:starts[r] + 1]
+                errs.append(float((every[r:r + 1] - ref).abs().max()))
+                check(errs[-1] <= tol * scale and torch.equal(
+                    every[r:r + 1].argmax(-1), ref.argmax(-1)),
+                    f"{arch} 2 x 2 prefill, rank {r}: max |err| "
+                    f"{errs[-1]:.3e} against one rank's (max |logit| "
+                    f"{scale:.3e}, tolerance {tol}·max), argmax "
+                    f"{int(every[r].argmax())} against "
+                    f"{int(ref[0].argmax())}")
+            check(peak < single_peak, f"{arch} 2 x 2 prefill: peak "
+                  f"{peak} bytes a rank against one rank's {single_peak}")
+            check(set(res["all_gathers"]) >= {"sp_last"},
+                  f"{arch} 2 x 2 prefill: all-gathers {res['all_gathers']}"
+                  f" hold no sequence-block exchange")
+            res.update(single_ms=single_ms, single_peak_bytes=single_peak,
+                       max_abs_err=max(errs), max_logit=scale, tol=tol)
+        out[arch] = res
+    return out
+
+
 def dr_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
     """One gloo rank on the card: phase 28's cases on a 2 x 2 mesh (world
     4) or a 1 x 2 mesh (world 2); nothing is caught."""
@@ -6560,7 +6707,8 @@ def dr_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
     if world == 4:
         mesh = make_dev_mesh(2, 2)
         parts = [("whisper_train", dr_whisper_train),
-                 ("qwen_train", dr_qwen_train), ("decode", dr_decode)]
+                 ("qwen_train", dr_qwen_train), ("decode", dr_decode),
+                 ("prefill", dr_prefill)]
     else:
         mesh = make_dev_mesh(1, 2)
         parts = [("whisper_serve", dr_whisper_serve)]
@@ -6605,7 +6753,9 @@ def dr_compare(name: str, predicted: dict, measured: dict) -> dict:
 def phase_dryrun_mp(seed: int) -> dict:
     """Phase 28: the dry run on an abstract 2 x 2 mesh against a real
     gloo world, whisper's model axis served and trained, Adafactor on
-    sharded parameters, and decode under the dry run's rules."""
+    sharded parameters, decode under the dry run's rules, and (e) the
+    prefill under the dry run's prefill rules, each prompt in blocks over
+    the model axis."""
     import queue as queue_mod
     t0 = time.perf_counter()
     ctx = torch.multiprocessing.get_context("spawn")
@@ -6684,6 +6834,23 @@ def phase_dryrun_mp(seed: int) -> dict:
           f"on one rank alone); cache bytes a rank "
           f"{d['rules_for_cp_cache_bytes']} of "
           f"{d['whole_cp_cache_bytes']} whole", flush=True)
+    for arch, e in r4["prefill"].items():
+        print(f"[dryrun_mp] (e) 2 x 2 {arch} prefill (layers {e['layers']},"
+              f" batch {e['batch']}) under rules_for({arch}, "
+              f"{DR_PREFILL_SHAPE}) = {e['rules']}: each rank its request "
+              f"and its block {e['block']} (start, length) of the prompt; "
+              f"last-position logits of every rank within "
+              f"{e['tol']}·max|ref| of one rank's (max |err| "
+              f"{e['max_abs_err']:.2e}, max |logit| {e['max_logit']:.2e}), "
+              f"argmax equal; {e['ms']:.1f} ms a prefill "
+              f"({'first call' if arch == LM_ARCH else 'after a warm call'}"
+              f"; one rank alone {e['single_ms']:.1f} ms; ranks share the "
+              f"card: not a speedup); peak {e['peak_bytes']} bytes a rank "
+              f"against one rank's {e['single_peak_bytes']}; "
+              f"{e['local_params']} parameters on rank 0; all-gathers a "
+              f"forward by tag {e['all_gathers']}; kernel launches "
+              f"{[r['prefill'][arch]['launches'] for r in worlds[4]]}",
+              flush=True)
     dry = {"whisper": dr_compare("whisper", predicted["whisper"],
                                  w["measured"]),
            "qwen": dr_compare("qwen3-4b sig-MMD", predicted["qwen"],

@@ -9,6 +9,12 @@ first ``min(c, B − r·c)`` of them, are exactly the block
 the sharded results are DTensors of the true global shape with no padding
 left in them.  (Port-only module: the reference's arrays carry their
 layout.)
+
+Under a ``"seq"`` rule (the reference's prefill rule) a placed leaf is
+also cut on its sequence: :func:`rows_scope` installs that split with the
+rows (``Rows.seq``), and the layers that run a block of a prompt read it
+(:func:`current_seq`); the paths that cannot refuse it
+(:func:`refuse_seq`).
 """
 from __future__ import annotations
 
@@ -138,33 +144,69 @@ def gather_rows(x, *, tag: str = "gather"):
 
 @dataclasses.dataclass(frozen=True)
 class Rows:
-    """This rank's rows of a placed batch: the group over the batch axes,
-    the global row count B, this rank's first row and its row count."""
+    """This rank's rows of a placed batch: the group over the batch axes
+    (None where the batch is whole on every rank), the global row count
+    B, this rank's first row and its row count; and ``seq``, the
+    :class:`~repro_torch.distributed.model_parallel.Split` of the axes
+    that cut the sequence (the ``"seq"`` rule), under which each rank
+    holds block ``seq.index`` of every sequence, its first position
+    ``seq.index`` times its length (None when the sequence is whole)."""
     group: object
     B: int
     start: int
     n: int
+    seq: object = None
+
+    def seq_start(self, n: int) -> int:
+        """The global position of this rank's first of a block of n."""
+        return 0 if self.seq is None else self.seq.index * n
 
 
 _ROWS: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_rows", default=None)
 
 
+def _sharding_axes(x, dim: int) -> tuple:
+    """The mesh axes (in mesh order) over which a DTensor is sharded on
+    ``dim``."""
+    from torch.distributed.tensor import Shard
+    return tuple(n for n, p in zip(axis_names(x.device_mesh), x.placements)
+                 if isinstance(p, Shard) and p.dim == dim)
+
+
+def seq_split(x, dim: int = 1):
+    """The :class:`~repro_torch.distributed.model_parallel.Split` of the
+    axes that cut a placed batch leaf's sequence (dimension ``dim``: 1 for
+    (B, S, ...) leaves, 2 for M-RoPE's (3, B, S) positions), None for a
+    plain tensor or a whole sequence."""
+    if not is_dtensor(x):
+        return None
+    axes = _sharding_axes(x, dim)
+    if not axes:
+        return None
+    from .model_parallel import axes_split
+    return axes_split(x.device_mesh, axes)
+
+
 @contextlib.contextmanager
 def rows_scope(placed):
     """Run a block that computes on this rank's rows of the placed batch
     DTensor ``placed``: statistics over the global batch (the MoE aux
-    loss and dispatch groups) read :func:`current_rows`.  A plain tensor
-    installs nothing."""
+    loss and dispatch groups) read :func:`current_rows`, and so do the
+    layers that run a block of a sequence cut over the ``"seq"`` rule's
+    axes (``Rows.seq``).  A plain tensor installs nothing."""
     if not is_dtensor(placed):
         yield None
         return
-    import torch.distributed as dist
-    group = group_of(placed)
     B = placed.shape[0]
-    start, n, _ = rows_of(B, dist.get_world_size(group),
-                          dist.get_rank(group))
-    token = _ROWS.set(Rows(group, B, start, n))
+    if _sharding_axes(placed, 0):
+        import torch.distributed as dist
+        group = group_of(placed)
+        start, n, _ = rows_of(B, dist.get_world_size(group),
+                              dist.get_rank(group))
+    else:
+        group, start, n = None, 0, B
+    token = _ROWS.set(Rows(group, B, start, n, seq_split(placed)))
     try:
         yield _ROWS.get()
     finally:
@@ -175,6 +217,45 @@ def current_rows():
     """The :class:`Rows` of the innermost :func:`rows_scope` (None outside
     one)."""
     return _ROWS.get()
+
+
+def current_seq():
+    """The sequence :class:`~repro_torch.distributed.model_parallel.Split`
+    of the innermost :func:`rows_scope` (None outside one, or where the
+    sequence is whole)."""
+    rows = _ROWS.get()
+    return None if rows is None else rows.seq
+
+
+ITEM_21 = ("ROADMAP item 21's remainder (training, decode, MoE and MLA "
+           "under a sequence split)")
+
+
+def batch_seq(batch: dict):
+    """The sequence split of a placed batch: that of its first leaf whose
+    sequence is cut (M-RoPE's (3, B, S) ``positions`` on dimension 2,
+    other leaves of two or more dimensions on 1), else None."""
+    for k, v in batch.items():
+        if is_dtensor(v) and v.ndim >= 2:
+            sp = seq_split(v, 2 if k.endswith("positions") and v.ndim == 3
+                           else 1)
+            if sp is not None:
+                return sp
+    return None
+
+
+def refuse_seq(where: str, batch: dict | None = None) -> None:
+    """Raise ``NotImplementedError`` when the innermost :func:`rows_scope`
+    (or the placed ``batch``) holds a block of a sequence cut over the
+    ``"seq"`` rule's axes: only the prefill runs such a block; ``where``
+    names the path refused."""
+    if current_seq() is not None or (batch is not None
+                                     and batch_seq(batch) is not None):
+        raise NotImplementedError(
+            f"{where} on a batch whose sequence is cut over the mesh (the "
+            f"'seq' rule) would compute a block as if it were the whole "
+            f"prompt: only the prefill runs under a sequence split; "
+            f"{ITEM_21} is not ported")
 
 
 @contextlib.contextmanager

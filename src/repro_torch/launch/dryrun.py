@@ -30,15 +30,19 @@ From it:
   tensors (operation outputs, views excluded), which holds the tensors
   saved for the backward, checkpointed layers' included.
 
-What the port executes differs from the reference's SPMD program in one
-way, and the numbers show it: a batch spec that shards the sequence
-(``"seq"``, the reference's prefill rule for dense models) runs with the
-sequence whole on every rank (no sequence parallelism in prefill or
-training).  Decode runs the reference's layout: each rank decodes its
-rows of the requests, and each attention cache is cut on its sequence
-over ``kv_seq``'s axes (``model_parallel.local_cache``), the blocks'
-softmax partials combined over their group (``models.layers.
-attention``).
+The port executes the reference's layouts with one exception, and the
+numbers show it: a train cell runs with the sequence whole on every rank
+(``exec_rules`` drops ``"seq"``; ``rules_for`` gives it to no train cell
+at the reference's shapes, and training under a sequence split is not
+ported).  A prefill cell runs the reference's ``seq: "model"`` rule:
+each rank runs its rows of the requests and its block of the prompt, the
+blocks exchanging keys and values for attention, boundary rows for the
+convolution and the token shifts, and one state a block for the Mamba2
+and RWKV6 recurrences (``serve.engine.make_prefill_step``).  Decode runs
+the reference's layout: each rank decodes its rows of the requests, and
+each attention cache is cut on its sequence over ``kv_seq``'s axes
+(``model_parallel.local_cache``), the blocks' softmax partials combined
+over their group (``models.layers.attention``).
 
 A process holds one default process group, so the fake world lives in a
 process of its own (the CLI's, or a subprocess), never inside a real
@@ -72,7 +76,8 @@ from ..distributed.hlo import collective_stats, duplication
 from ..kernels.cost import BF16_FLOPS_PER_S, HBM_BYTES_PER_S
 from ..obs.compile import CostCounter
 from ..optim import adafactor, adamw
-from ..serve.engine import make_prefill_step, make_serve_step
+from ..serve.engine import (make_prefill_step, make_serve_step,
+                            prefill_hidden)
 from ..train.trainer import make_train_step, place_batch
 from . import specs as SP
 
@@ -129,10 +134,12 @@ def rules_for(arch: str, shape: str, overrides: dict | None = None) -> dict:
     return rules
 
 
-def exec_rules(rules: dict) -> dict:
-    """The rules the port executes a cell under: the sequence stays whole
-    (the port runs no sequence parallelism)."""
-    return dict(rules, seq=None)
+def exec_rules(rules: dict, kind: str = "train") -> dict:
+    """The rules the port executes a cell of ``kind`` under: a prefill
+    cell's as they are (its ``"seq"`` rule cuts the prompt), another
+    cell's with the sequence whole (training under a sequence split is
+    not ported)."""
+    return dict(rules) if kind == "prefill" else dict(rules, seq=None)
 
 
 def production_mesh(multi_pod: bool = False) -> AbstractMesh:
@@ -231,21 +238,24 @@ def collective_seconds(records) -> float:
 
 def backbone_forward(model, cfg, batch: dict) -> None:
     """One backbone forward (no logits, no loss) of a placed batch on this
-    rank's rows: the decoder's ``backbone``, or whisper's encoder and
-    decoder."""
-    from ..models import encdec, transformer
-    local = {k: DB.to_local(v) for k, v in batch.items()}
-    placed = batch.get("tokens", batch.get("embeds"))
-    with torch.no_grad(), DB.rows_scope(placed):
-        if cfg.family == "encdec":
-            enc = encdec.encode(model, cfg, local["frames"], remat="none")
-            encdec.decode_train(model, cfg, enc, local["tokens"],
-                                remat="none")
-        else:
-            transformer.backbone(model, cfg, tokens=local.get("tokens"),
-                                 embeds=local.get("embeds"),
-                                 positions=local.get("positions"),
-                                 remat="none")
+    rank's rows, and its block of the sequence under the ``"seq"`` rule:
+    the decoder's ``backbone``, or whisper's encoder and decoder
+    (``serve.engine.prefill_hidden``)."""
+    with torch.no_grad():
+        prefill_hidden(model, cfg, batch, remat="none")
+
+
+def collectives_by_tag(records) -> dict:
+    """``{tag: {kind: {"count", "result_bytes"}}}`` of the recorded
+    collectives: each site's share (``sp_kv``, ``fsdp_gather``, ...)."""
+    out: dict = {}
+    for r in records:
+        if r.ranks:
+            c = out.setdefault(r.tag, {}).setdefault(
+                r.kind, {"count": 0, "result_bytes": 0})
+            c["count"] += 1
+            c["result_bytes"] += r.result_bytes
+    return out
 
 
 def _stats(records) -> dict:
@@ -303,7 +313,8 @@ def _extrapolate(runs: list, seqs: tuple, seq: int) -> dict:
     out = dict(first)
     for key in ("hlo_flops_per_dev", "hlo_bytes_per_dev",
                 "collective_wire_bytes_per_dev", "t_collective_s",
-                "memory_analysis", "collectives", "forward_collectives"):
+                "memory_analysis", "collectives", "forward_collectives",
+                "collectives_by_tag"):
         if key in first:
             out[key] = curve(*(r[key] for r in runs))
     (s1, t1), (s2, t2) = [(s, r["memory_analysis"]["temp_size_bytes"])
@@ -355,8 +366,8 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
     amesh = mesh if mesh is not None else production_mesh(multi_pod)
     if rules is None:
         rules = rules_for(arch, shape, rule_overrides)
-    run_rules = exec_rules(rules)
     kind = SP.SHAPES[shape]["kind"]
+    run_rules = exec_rules(rules, kind)
     seq = SP.SHAPES[shape]["seq"]
     if cfg.family in POLY_FAMILIES and kind != "decode" and batch is None \
             and params is None and seq > POLY_SEQ[-1]:
@@ -403,10 +414,8 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
                                  else SP.batch_specs_for(cfg, shape))
             args_bytes = param_bytes + tree_bytes(placed)
             step = make_prefill_step(cfg, remat=remat)
-            local = {k: DB.to_local(v) for k, v in placed.items()}
-            with CostCounter() as cost, DB.rows_scope(
-                    placed.get("tokens", placed.get("embeds"))):
-                logits = step(model, local)
+            with CostCounter() as cost:
+                logits = step(model, placed)
             out_bytes = tree_bytes(logits)
         else:  # decode: this rank's blocks of the cache, updated in place
             tokens, cache, gen = SP.decode_inputs_for(cfg, shape)
@@ -435,6 +444,10 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
     temp_note = ("peak live bytes of the step's intermediate tensors "
                  "(operation outputs, views excluded), counted on meta "
                  "tensors")
+    if kind == "prefill" and run_rules.get("seq") is not None:
+        temp_note += (", of this rank's block of the prompt (the 'seq' "
+                      "rule), the whole prompt's keys and values gathered "
+                      "a layer")
     result = {
         "arch": arch, "shape": shape, "kind": kind,
         "mesh": "x".join(map(str, amesh.shape)),
@@ -444,6 +457,7 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
         "hlo_bytes_per_dev": bytes_accessed,
         "collective_wire_bytes_per_dev": coll.total_wire_bytes,
         "collectives": _stats(step_records),
+        "collectives_by_tag": collectives_by_tag(step_records),
         "collective_bw": axis_bandwidth(amesh),
         "t_compute_s": t_compute, "t_memory_s": t_memory,
         "t_collective_s": t_coll, "dominant": dominant,
@@ -463,6 +477,7 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
         "opt": opt_name if kind == "train" else None,
         "remat": remat if kind != "decode" else None,
         "rules": {k: str(v) for k, v in rules.items()},
+        "executed_rules": {k: str(v) for k, v in run_rules.items()},
     }
     if fwd is not None:
         result["forward_collectives"] = fwd

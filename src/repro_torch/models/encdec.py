@@ -29,6 +29,16 @@ sharding context is this rank's block by ``cache_specs``, the self and
 the cross K/V alike: its rows of the requests, and its block of the
 decoder positions and of the frames where ``kv_seq``'s axes divide them
 (1,500 frames stay whole over 16 ranks).
+
+In a prefill under the ``"seq"`` rule the frames and the decoder tokens
+are both cut over the same group (``distributed.batch.Rows.seq``): the
+encoder adds its block's rows of the sinusoids and its self-attention
+attends the block's queries over the gathered frames, the decoder adds
+its block's rows of ``pos_dec`` and attends causally over the gathered
+tokens, and the cross-attention gathers the decoder's queries (448 rows,
+where the frames are 32k), attends them over this rank's block of the
+frames, merges the blocks' softmax partials (``layers.combine_blocks``)
+and keeps its block's query rows.
 """
 from __future__ import annotations
 
@@ -36,20 +46,24 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed import batch as DB
+from ..distributed import collectives as C
 from ..distributed.ctx import current_mesh, current_rules
 from ..distributed.model_parallel import (cache_split, copy_to, local_cache,
                                           reduce_from)
 from .config import ModelConfig
 from .layers import (ParamTree, _attend_cache, _full, _init, _sdpa, _weight,
-                     _zeros, as_generator, attention, every_head,
-                     heads_split, init_attention, init_mlp, mlp, rms_norm)
+                     _zeros, as_generator, attention, combine_blocks,
+                     decode_partials, every_head, heads_split,
+                     init_attention, init_mlp, mlp, prompt_split, rms_norm)
 from .transformer import (_remat, _token_nll, _with_seq, decode_batch,
                           default_positions, embed, logits_fn,
                           vocab_logits)
 
 
-def sinusoids(length: int, channels: int) -> np.ndarray:
-    t = np.arange(length)[:, None]
+def sinusoids(length: int, channels: int, start: int = 0) -> np.ndarray:
+    """Rows [start, start + length) of the sinusoidal position table."""
+    t = np.arange(start, start + length)[:, None]
     inv = np.exp(-np.log(10000.0) * np.arange(channels // 2)
                  / (channels // 2 - 1))
     ang = t * inv[None]
@@ -107,8 +121,11 @@ def _cross_attention(p, x: torch.Tensor, enc_kv, cfg,
                      seq=None) -> torch.Tensor:
     """x: (B,S,d); enc_kv: precomputed (k, v) each (B, F, Hkv, hd): every
     KV head, or this rank's under a heads split; under ``seq`` (a cache
-    cut on its frames) this rank's block of the frames, combined over its
-    group as ``layers.attention`` combines a self-attention cache."""
+    cut on its frames, or a prefill's block of the frames) this rank's
+    block of the frames, combined over its group as ``layers.attention``
+    combines a self-attention cache.  Where ``x`` is itself a block of a
+    prefill's tokens, the tokens' queries are gathered first and this
+    block's rows of the output kept."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     tp = heads_split(p, cfg)
@@ -124,10 +141,16 @@ def _cross_attention(p, x: torch.Tensor, enc_kv, cfg,
     q = (copy_to(x, sp) @ _weight(p, "wq", sp).to(x.dtype)).reshape(
         B, S, H, hd)
     k, v = k.to(x.dtype), v.to(x.dtype)
+    qseq = prompt_split(x)
     if seq is None:
         out = _sdpa(q, k, v, causal=False)
-    else:
+    elif qseq is None:
         out = _attend_cache(q, k, v, None, seq, tp if every else None)
+    else:
+        q = C.all_gather(q, qseq.group, dim=1, tag="sp_cross_q")
+        out = combine_blocks(*decode_partials(q, k, v), seq, tag="sp_cross")
+        out = out.narrow(1, qseq.index * S, S).to(v.dtype).reshape(
+            B, S, H * hd)
     return reduce_from(out @ _weight(p, "wo", sp).to(x.dtype), sp)
 
 
@@ -152,12 +175,16 @@ def cross_kv(p, enc_out: torch.Tensor, cfg, heads: int | None = None):
 
 def encode(params, cfg: ModelConfig, frames: torch.Tensor,
            remat: str = "dots") -> torch.Tensor:
-    """frames: (B, F, d_model) stub embeddings -> encoder states."""
+    """frames: (B, F, d_model) stub embeddings -> encoder states.  Inside
+    a ``rows_scope`` of frames cut on their sequence, ``frames`` is this
+    rank's block and so are the states."""
     B, F, d = frames.shape
-    pos = torch.as_tensor(sinusoids(F, d), device=frames.device).to(
+    rows = DB.current_rows()
+    start = 0 if rows is None else rows.seq_start(F)
+    pos = torch.as_tensor(sinusoids(F, d, start), device=frames.device).to(
         frames.dtype)
     x = frames + pos[None]
-    positions = default_positions(cfg, B, F, frames.device)
+    positions = default_positions(cfg, B, F, frames.device, start=start)
 
     def body(p, h):
         a, _ = attention(p["attn"], rms_norm(h, p["ln_attn"], cfg.norm_eps),
@@ -173,11 +200,17 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor,
 
 
 def decode_train(params, cfg: ModelConfig, enc_out: torch.Tensor, tokens,
-                 remat: str = "dots") -> torch.Tensor:
+                 remat: str = "dots", enc_seq=None) -> torch.Tensor:
+    """The decoder's final hidden states (B, S, d) over ``enc_out``.
+    Inside a ``rows_scope`` of tokens cut on their sequence, ``tokens``
+    is this rank's block; ``enc_seq`` is the split of which ``enc_out``
+    is a block of the frames (None: every frame)."""
     B, S = tokens.shape
+    rows = DB.current_rows()
+    start = 0 if rows is None else rows.seq_start(S)
     x = embed(params, tokens)
-    x = x + params["pos_dec"][:S][None].to(x.dtype)
-    positions = default_positions(cfg, B, S, x.device)
+    x = x + params["pos_dec"][start:start + S][None].to(x.dtype)
+    positions = default_positions(cfg, B, S, x.device, start=start)
 
     def body(p, h):
         a, _ = attention(p["self_attn"],
@@ -187,7 +220,7 @@ def decode_train(params, cfg: ModelConfig, enc_out: torch.Tensor, tokens,
         kv = cross_kv(p["cross_attn"], enc_out, cfg)
         h = h + _cross_attention(p["cross_attn"],
                                  rms_norm(h, p["ln_cross"], cfg.norm_eps),
-                                 kv, cfg)
+                                 kv, cfg, enc_seq)
         return h + mlp(p["mlp"], rms_norm(h, p["ln_mlp"], cfg.norm_eps),
                        cfg.act)
 
@@ -202,6 +235,7 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
     ignore).  The token NLL through the tied output embedding (over a
     vocabulary split, this rank's block of the logits); no z-loss and no
     aux loss.  Returns (loss, metrics)."""
+    DB.refuse_seq("the encoder-decoder's LM loss")
     enc = encode(params, cfg, batch["frames"], remat=remat)
     hidden = decode_train(params, cfg, enc, batch["tokens"], remat=remat)
     logits, sp = vocab_logits(params, cfg, hidden)

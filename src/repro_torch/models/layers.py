@@ -28,6 +28,16 @@ in its block of the positions (:func:`block_rows`, :func:`write_rows`),
 computes its block's max, sum of exponentials and exp-weighted values in
 float32, and the blocks are merged by the log-sum-exp rule after one
 all-gather over the split's group (:func:`combine_blocks`).
+
+In a prefill whose prompt is cut on its sequence (the reference's
+``"seq"`` rule, ``distributed.batch.Rows.seq``) each rank runs its block
+of the positions: attention all-gathers the block's keys and values over
+the split's group and attends its queries over the whole prompt under the
+causal mask offset to the block's first position (GSPMD's program for
+queries cut on the sequence against whole keys), and the vocabulary-
+parallel embedding looks up the group's tokens and reduce-scatters the
+rows back to their blocks.  These exchanges are not differentiable: the
+sequence split is an inference path (:func:`prompt_split`).
 """
 from __future__ import annotations
 
@@ -400,11 +410,40 @@ def pack_partials(o, m, s) -> torch.Tensor:
     return torch.cat([o, m[..., None], s[..., None]], dim=-1)
 
 
-def combine_blocks(o, m, s, seq) -> torch.Tensor:
+def combine_blocks(o, m, s, seq, tag: str = "cp_combine") -> torch.Tensor:
     """This rank's partials merged with the other blocks' of the sequence
     group (one all-gather of the packed triples)."""
     return merge_partials(C.all_gather(pack_partials(o, m, s)[None],
-                                       seq.group, dim=0, tag="cp_combine"))
+                                       seq.group, dim=0, tag=tag))
+
+
+def prompt_split(x: torch.Tensor):
+    """The :class:`~repro_torch.distributed.model_parallel.Split` of the
+    prompt's sequence of which ``x`` (B, S, ...) is this rank's block
+    (``distributed.batch.current_seq``), None when the sequence is whole.
+    The blocks exchange detached tensors, so a block that would be
+    differentiated raises."""
+    seq = DB.current_seq()
+    if seq is not None and torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            f"a gradient through a sequence cut over the mesh: the "
+            f"sequence split is an inference path; {DB.ITEM_21} is not "
+            f"ported")
+    return seq
+
+
+def halo_rows(x: torch.Tensor, n: int, seq, tag: str) -> torch.Tensor:
+    """The n rows of the sequence just before this rank's block ``x``
+    (B, S, ...): the earlier blocks' last rows, from one all-gather of
+    each block's tail over the split's group, zeros before the prompt's
+    start."""
+    t = min(n, x.shape[1])
+    tails = C.all_gather(x[:, x.shape[1] - t:], seq.group, dim=1, tag=tag)
+    prev = tails[:, :seq.index * t]
+    if prev.shape[1] < n:
+        prev = torch.cat([prev.new_zeros((x.shape[0], n - prev.shape[1])
+                                         + tuple(x.shape[2:])), prev], dim=1)
+    return prev[:, prev.shape[1] - n:]
 
 
 def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
@@ -446,10 +485,21 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
         valid = valid_rows(idx, S, n, seq)
         out = _attend_cache(q, ck, cv, valid, seq, tp if every else None)
     else:
-        out = _sdpa(q, k, v, causal)
+        out = _prefill_attend(q, k, v, causal, prompt_split(x))
     sp = None if tp is None else tp[0]
     return reduce_from(out @ _weight(p, "wo", sp).to(x.dtype), sp), \
         new_cache
+
+
+def _prefill_attend(q, k, v, causal: bool, seq) -> torch.Tensor:
+    """Attention of a prompt's block: under a sequence split the block's
+    keys and values are all-gathered over the split's group (one packed
+    all-gather) and its queries attend over the whole prompt, causally
+    from the block's first position."""
+    if seq is None:
+        return _sdpa(q, k, v, causal)
+    kv = C.all_gather(torch.stack([k, v]), seq.group, dim=2, tag="sp_kv")
+    return _sdpa(q, kv[0], kv[1], causal, q_offset=seq.index * q.shape[1])
 
 
 def _attend_cache(q, k, v, valid, seq, gather=None) -> torch.Tensor:
@@ -541,6 +591,7 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     heads on them; the cache is the whole latent on every rank, or its
     block of the positions under ``cache["seq"]`` (:func:`_mla_blocks`).
     """
+    DB.refuse_seq("mla_attention")
     B, S, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
         cfg.v_head_dim
@@ -770,7 +821,9 @@ def moe(p, x: torch.Tensor, cfg):
     the aux loss E·Σ me·ce takes ``me`` and ``ce`` over the global batch:
     their sums and the token count are added over the data group first
     (differentiably for ``ce``), as the reference's means over its whole
-    batch are."""
+    batch are.  A batch whose sequence is cut over the mesh raises
+    (``distributed.batch.refuse_seq``)."""
+    DB.refuse_seq("moe")
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S

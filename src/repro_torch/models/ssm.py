@@ -20,6 +20,15 @@ back.  RWKV6 runs its WKV heads split over the model axis (``w_r``,
 ``w_k``, ``w_v``, ``w_g`` column-parallel, ``w_o`` row-parallel, the WKV
 state cached per head) and its channel mix as a column/row-parallel pair,
 ``w_cr``'s gate columns gathered.
+
+In a prefill whose prompt is cut on its sequence (``distributed.batch.
+Rows.seq``) each rank runs its block: the causal convolution and the
+token shifts take the rows before the block from one all-gather of each
+block's tail (:func:`~repro_torch.models.layers.halo_rows`), and each
+recurrence runs its block from a zero state, all-gathers every block's
+(final state, total decay), folds the earlier blocks' into its incoming
+state (:func:`fold_states`) and adds that state's share to its outputs,
+which by linearity equals a scan started from it.
 """
 from __future__ import annotations
 
@@ -27,9 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..distributed import collectives as C
 from ..distributed.model_parallel import copy_to, gather_from, reduce_from
-from .layers import _full, _init, _split, _weight, _zeros, model_axis, \
-    rms_norm
+from .layers import _full, _init, _split, _weight, _zeros, halo_rows, \
+    model_axis, prompt_split, rms_norm
 
 
 def _whole(t: torch.Tensor, n: int, dim: int, sp):
@@ -75,19 +85,69 @@ def init_mamba(generator: torch.Generator, cfg) -> dict:
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv: x (B, S, C), w (K, C)."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 halo: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv: x (B, S, C), w (K, C); ``halo`` (B, K - 1,
+    C) the rows before x (zeros when None)."""
     K, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    xp = F.pad(x, (0, 0, K - 1, 0)) if halo is None else \
+        torch.cat([halo.to(x.dtype), x], dim=1)
     out = sum(xp[:, i:i + S] * w[i][None, None] for i in range(K))
     return out + b[None, None]
 
 
-def _ssd_chunked(xh, dt, a_log, Bc, Cc, chunk: int) -> torch.Tensor:
+def fold_states(states: torch.Tensor, decays: torch.Tensor,
+                index: int) -> torch.Tensor:
+    """The state entering block ``index`` of a linear recurrence cut into
+    blocks, from each block's final state from a zero start (P, ...) and
+    its total decay (P, ..., broadcast against a state):
+    Σ_{j<index} S_j ∏_{j<l<index} decay_l."""
+    S = torch.zeros_like(states[0])
+    for j in range(index):
+        S = S * decays[j] + states[j]
+    return S
+
+
+def _gather_states(state: torch.Tensor, decay: torch.Tensor, seq):
+    """Every block's (final state, total decay) over the split's group,
+    from one all-gather of the pair -> ((P,) + state's shape, (P,) +
+    decay's shape)."""
+    B = state.shape[0]
+    n = state[0].numel()
+    g = C.all_gather(torch.cat([state.reshape(B, -1),
+                                decay.reshape(B, -1).to(state.dtype)],
+                               dim=1)[None], seq.group, dim=0,
+                     tag="sp_state")
+    return g[:, :, :n].reshape((-1,) + tuple(state.shape)), \
+        g[:, :, n:].reshape((-1,) + tuple(decay.shape))
+
+
+def ssd_state_term(Cc: torch.Tensor, cum: torch.Tensor,
+                   S_in: torch.Tensor) -> torch.Tensor:
+    """The outputs' share of an incoming SSD state S_in (B, nh, hd, ds):
+    C_t · exp(cum_t) · S_in, cum (B, S, nh) the block's inclusive
+    cumulative log-decay -> (B, S, nh, hd), in S_in's dtype."""
+    return torch.einsum("btn,bth,bhdn->bthd", Cc.to(S_in.dtype),
+                        torch.exp(cum).to(S_in.dtype), S_in)
+
+
+def _ssd_blocks(xh, dt, a_log, Bc, Cc, chunk: int, seq) -> torch.Tensor:
+    """:func:`_ssd_chunked` over this rank's block of a sequence cut over
+    ``seq``: the block from a zero state, the earlier blocks' states
+    folded in (:func:`fold_states`, :func:`ssd_state_term`)."""
+    y, final = _ssd_chunked(xh, dt, a_log, Bc, Cc, chunk, final=True)
+    cum = torch.cumsum(a_log.float(), dim=1)
+    states, decays = _gather_states(final, cum[:, -1], seq)
+    S_in = fold_states(states, torch.exp(decays)[..., None, None], seq.index)
+    return y + ssd_state_term(Cc, cum, S_in)
+
+
+def _ssd_chunked(xh, dt, a_log, Bc, Cc, chunk: int, final: bool = False):
     """Chunked SSD scan (Mamba2).  xh: (B,S,nh,hd), dt: (B,S,nh),
     a_log: per-step log-decay (B,S,nh), Bc/Cc: (B,S,ds).  S is padded up
-    to a multiple of the chunk and the scan runs in float32.
+    to a multiple of the chunk and the scan runs in float32, from a zero
+    state.  Returns y (B,S,nh,hd), and with ``final`` (y, the final state
+    (B,nh,hd,ds)).
 
     Within a chunk the decay exp(cum_t - cum_s) is wanted for s <= t only;
     above the diagonal the difference is positive and its exponential can
@@ -139,8 +199,8 @@ def _ssd_chunked(xh, dt, a_log, Bc, Cc, chunk: int) -> torch.Tensor:
     S_prevs = torch.stack(prevs, dim=1)                      # (B,nc,nh,hd,ds)
     y_inter = torch.einsum("bctn,bcth,bchdn->bcthd",
                            Cc, torch.exp(cum), S_prevs)
-    y = (y_intra + y_inter).reshape(B, nc * L, nh, hd)
-    return y[:, :S]
+    y = (y_intra + y_inter).reshape(B, nc * L, nh, hd)[:, :S]
+    return (y, state) if final else y
 
 
 def mamba_block(p, x: torch.Tensor, cfg, chunk: int = 128, cache=None):
@@ -160,8 +220,11 @@ def mamba_block(p, x: torch.Tensor, cfg, chunk: int = 128, cache=None):
     z, xBC, dt = torch.split(proj, [d_in, d_in + 2 * ds, nh], dim=-1)
     conv_w, conv_b = _full(p, "conv_w"), _full(p, "conv_b")
 
+    seq = prompt_split(x) if cache is None else None
     if cache is None:
-        xBC = _causal_conv(xBC, conv_w.to(x.dtype), conv_b.to(x.dtype))
+        halo = None if seq is None else halo_rows(
+            xBC, conv_w.shape[0] - 1, seq, "sp_conv")
+        xBC = _causal_conv(xBC, conv_w.to(x.dtype), conv_b.to(x.dtype), halo)
         new_conv = None
     else:
         conv = _whole(cache["conv"], d_in + 2 * ds, -1, ms)
@@ -178,7 +241,8 @@ def mamba_block(p, x: torch.Tensor, cfg, chunk: int = 128, cache=None):
 
     new_cache = None
     if cache is None:
-        y = _ssd_chunked(xh, dt, a_log, Bc, Cc, chunk)
+        y = _ssd_chunked(xh, dt, a_log, Bc, Cc, chunk) if seq is None \
+            else _ssd_blocks(xh, dt, a_log, Bc, Cc, chunk, seq)
     else:  # single/few-step decode: recurrent update
         Sst = _whole(cache["ssm"], nh, 1, ms).float()
         xf, Bf, Cf = xh.float(), Bc.float(), Cc.float()
@@ -262,6 +326,31 @@ def _wkv_scan(r, k, v, w, u, state):
     return torch.stack(ys, dim=1), S
 
 
+def wkv_state_term(r: torch.Tensor, w: torch.Tensor,
+                   S_in: torch.Tensor) -> torch.Tensor:
+    """The outputs' share of an incoming WKV state S_in (B, nh, hk, hv):
+    (r_t ⊙ P_t) · S_in, P_t the per-channel product of the decays w
+    (B, S, nh, hk) over the block's steps before t -> (B, S, nh, hv), in
+    float32 or wider."""
+    f = torch.promote_types(S_in.dtype, torch.float32)
+    w = w.to(f)
+    P = torch.cumprod(torch.cat([torch.ones_like(w[:, :1]), w[:, :-1]],
+                                dim=1), dim=1)
+    return torch.einsum("bthk,bhkv->bthv", r.to(f) * P, S_in)
+
+
+def _wkv_blocks(r, k, v, w, u, state, seq):
+    """:func:`_wkv_scan` over this rank's block of a sequence cut over
+    ``seq``: the block scanned once from ``state`` (zeros), the earlier
+    blocks' states folded in (:func:`fold_states`, :func:`wkv_state_term`)
+    -> (y, this block's final state)."""
+    y, S_loc = _wkv_scan(r, k, v, w, u, state)
+    W = torch.prod(w.float(), dim=1)                       # (B, nh, hk)
+    states, decays = _gather_states(S_loc, W, seq)
+    S_in = fold_states(states, decays[..., None], seq.index)
+    return y + wkv_state_term(r, w, S_in), S_loc + W[..., None] * S_in
+
+
 def rwkv_block(p, x_in: torch.Tensor, cfg, cache=None):
     """Full residual RWKV6 block: x + time mix + channel mix.  Returns
     (out, new_cache); cache = {"shift_a", "shift_c": (B, d), "wkv":
@@ -270,9 +359,18 @@ def rwkv_block(p, x_in: torch.Tensor, cfg, cache=None):
     hk = cfg.rwkv_head_dim
     nh = d // hk
     x = rms_norm(x_in, _full(p, "ln1"), cfg.norm_eps)
-    prev_a = cache["shift_a"].to(x.dtype) if cache is not None else \
-        x.new_zeros((B, d))
-    xs = _token_shift(x, prev_a)
+    seq = prompt_split(x_in) if cache is None else None
+
+    def prev_row(h, key):
+        """The row before the block: the cache's, the previous block's
+        last, or zeros at the prompt's start."""
+        if cache is not None:
+            return cache[key].to(h.dtype)
+        if seq is not None:
+            return halo_rows(h, 1, seq, "sp_shift")[:, 0]
+        return h.new_zeros((B, d))
+
+    xs = _token_shift(x, prev_row(x, "shift_a"))
 
     def lerp(mu):
         return x + (xs - x) * _full(p, mu).to(x.dtype)[None, None]
@@ -306,9 +404,9 @@ def rwkv_block(p, x_in: torch.Tensor, cfg, cache=None):
         state = torch.zeros((B, nhl, hk, hk), dtype=torch.float32,
                             device=x.device)
     u = copy_to(_full(p, "u"), sp)[h0:h0 + nhl]
-    y, S_fin = _wkv_scan(r.reshape(B, S, nhl, hk), k.reshape(B, S, nhl, hk),
-                         v.reshape(B, S, nhl, hk), w.reshape(B, S, nhl, hk),
-                         u, state)
+    rkvw = [t.reshape(B, S, nhl, hk) for t in (r, k, v, w)]
+    y, S_fin = _wkv_scan(*rkvw, u, state) if seq is None else \
+        _wkv_blocks(*rkvw, u, state, seq)
     y = y.reshape(B, S, dl).to(x.dtype)
     # per-head group norm
     yh = y.reshape(B, S, nhl, hk).float()
@@ -323,9 +421,7 @@ def rwkv_block(p, x_in: torch.Tensor, cfg, cache=None):
     # channel mix on the post-attention residual stream
     res = x_in + att
     x2 = rms_norm(res, _full(p, "ln2"), cfg.norm_eps)
-    prev_c = cache["shift_c"].to(x.dtype) if cache is not None else \
-        x.new_zeros((B, d))
-    xs2 = _token_shift(x2, prev_c)
+    xs2 = _token_shift(x2, prev_row(x2, "shift_c"))
 
     def lerp2(mu):
         return x2 + (xs2 - x2) * _full(p, mu).to(x.dtype)[None, None]

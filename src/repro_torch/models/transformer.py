@@ -209,26 +209,45 @@ def _groups(cfg: ModelConfig):
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     """The token embeddings; vocab-parallel on a vocabulary split: each
     rank looks up the tokens of its rows of the table (zeros elsewhere)
-    and the lookups are summed over the model group."""
+    and the lookups are summed over the model group.  Where that group
+    also cuts the prompt's sequence (a prefill under the ``"seq"`` rule)
+    its ranks hold different tokens: each looks up the whole group's
+    tokens (gathered) and the sums are reduce-scattered back to the
+    blocks."""
     sp = _split(params, "embed", 0)
     if sp is None:
         return _full(params, "embed")[tokens.long()]
+    seq = DB.current_seq()
+    if seq is not None and set(seq.axes) & set(sp.axes):
+        if seq.axes != sp.axes:
+            raise NotImplementedError(
+                f"a vocabulary split over {sp.axes} with the sequence cut "
+                f"over {seq.axes}: {DB.ITEM_21} is not ported")
+        tokens = C.all_gather(tokens, seq.group, dim=1, tag="sp_tokens")
     w = params["embed"]
     v0, Vl = sp.block(sp.size * w.shape[0])
     loc = tokens.long() - v0
     inside = (loc >= 0) & (loc < Vl)
     x = w[loc.clamp(0, Vl - 1)] * inside[..., None].to(w.dtype)
+    if seq is not None and seq.axes == sp.axes:
+        return C.reduce_scatter(x, seq.group, dim=1, tag="sp_embed")
     return reduce_from(x, sp, tag="embed")
 
 
 def backbone(params, cfg: ModelConfig, tokens=None, embeds=None,
              positions=None, remat: str = "dots"):
     """Token/embedding inputs -> final hidden states (B, S, d).  Returns
-    (hidden, aux_loss); the aux loss is the MoE layers' sum, else 0."""
+    (hidden, aux_loss); the aux loss is the MoE layers' sum, else 0.
+    Inside a ``rows_scope`` of a batch whose sequence is cut, the inputs
+    are this rank's block and the default positions are the block's
+    global ones."""
     x = embed(params, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     if positions is None:
-        positions = default_positions(cfg, B, S, x.device)
+        rows = DB.current_rows()
+        positions = default_positions(
+            cfg, B, S, x.device, start=0 if rows is None
+            else rows.seq_start(S))
     aux = x.new_zeros(())
     if cfg.family == "rwkv":
         body = _remat(lambda p, h: rwkv_block(p, h, cfg)[0], remat)
@@ -302,6 +321,7 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
     """batch: tokens (B, S) int, labels (B, S) int (< 0 = ignore), optional
     embeds/positions.  Returns (loss + aux + z-loss, metrics): the metrics'
     ``loss`` is the token NLL alone."""
+    DB.refuse_seq("the LM loss")
     hidden, aux = backbone(params, cfg, tokens=batch.get("tokens"),
                            embeds=batch.get("embeds"),
                            positions=batch.get("positions"), remat=remat)

@@ -33,6 +33,9 @@ from ..core.signature import canon_precision
 from ..core.stream import SignatureStream
 from .. import models as M
 from ..device import resolve_device
+from ..distributed import batch as DB
+from ..distributed import collectives as C
+from ..distributed import model_parallel as MP
 from ..distributed.model_parallel import gather_decode_rows
 from ..kernels import ops
 from ..models import encdec, transformer as T
@@ -290,26 +293,76 @@ class SigScoreEngine:
         self._cross = None
 
 
+def _refuse_tensor_parallel(params, seq) -> None:
+    """A sequence cut over the model axis leaves that axis's ranks with
+    different tokens, so no layer may split its weights over it (the
+    vocabulary excepted: ``transformer.embed`` and the logits handle it).
+    ``rules_for``'s prefill cells turn tensor parallelism off."""
+    if seq is None or MP.MODEL not in seq.axes:
+        return
+    split = sorted(n for n, pl in MP.placements(params).items()
+                   if MP.MODEL in pl.spec
+                   and n.split(".")[-1] not in ("embed", "lm_head"))
+    if split:
+        raise NotImplementedError(
+            f"a prefill with the sequence cut over the model axis and "
+            f"{split[0]} (and {len(split) - 1} more) tensor-parallel over it:"
+            f" {DB.ITEM_21} is not ported; use rules_for's prefill rules "
+            f"(heads, kv_heads and ff None)")
+
+
+def prefill_hidden(params, cfg: ModelConfig, batch: dict,
+                   remat: str = "dots"):
+    """The final hidden states of this rank's block of a prefill batch ->
+    (hidden (B_r, S_r, d), the split of the prompt's sequence they are a
+    block of, or None).  A plain batch runs whole.  A placed batch
+    (``train.place_batch``: DTensors of this rank's rows, and of its block
+    of the sequence under the ``"seq"`` rule) runs this rank's block
+    inside a ``rows_scope`` of it; whisper's encoder runs inside the
+    frames' scope and its decoder inside the tokens'."""
+    local = {k: DB.to_local(v) for k, v in batch.items()}
+    if cfg.family == "encdec":
+        frames, tokens = batch["frames"], batch["tokens"]
+        enc_seq, seq = DB.seq_split(frames), DB.seq_split(tokens)
+        _refuse_tensor_parallel(params, enc_seq or seq)
+        with DB.rows_scope(frames):
+            enc = encdec.encode(params, cfg, local["frames"], remat=remat)
+        with DB.rows_scope(tokens):
+            hidden = encdec.decode_train(params, cfg, enc, local["tokens"],
+                                         remat=remat, enc_seq=enc_seq)
+        return hidden, seq
+    placed = batch.get("tokens", batch.get("embeds"))
+    seq = DB.seq_split(placed)
+    _refuse_tensor_parallel(params, seq)
+    with DB.rows_scope(placed):
+        hidden, _ = T.backbone(params, cfg, tokens=local.get("tokens"),
+                               embeds=local.get("embeds"),
+                               positions=local.get("positions"), remat=remat)
+    return hidden, seq
+
+
 def make_prefill_step(cfg: ModelConfig, remat: str = "dots"):
     """Forward over the full prompt: prefill(params, batch) -> the last
     position's float32 logits (B, V).  For the ``encdec`` family the batch
     holds ``frames`` too: the encoder runs over them and the decoder over
-    the tokens."""
-    if cfg.family == "encdec":
-        @torch.no_grad()
-        def prefill(params, batch):
-            enc = encdec.encode(params, cfg, batch["frames"], remat=remat)
-            hidden = encdec.decode_train(params, cfg, enc, batch["tokens"],
-                                         remat=remat)
-            return T.logits_fn(params, cfg, hidden[:, -1:])[:, 0].float()
-        return prefill
+    the tokens.
+
+    On a placed batch (``train.place_batch`` under a sharding context)
+    each rank runs its rows of the requests and, under the ``"seq"`` rule
+    (``launch.dryrun.rules_for``'s prefill cells), its block of the prompt
+    (:func:`prefill_hidden`); the prompt's last position lives on the
+    last block, whose row every rank of the group gathers (one all-gather
+    of the blocks' last rows).  The logits are this rank's rows', the same
+    on every rank of the sequence group, as the reference's replicated
+    output is."""
 
     @torch.no_grad()
     def prefill(params, batch):
-        hidden, _ = T.backbone(params, cfg, tokens=batch.get("tokens"),
-                               embeds=batch.get("embeds"),
-                               positions=batch.get("positions"), remat=remat)
-        return T.logits_fn(params, cfg, hidden[:, -1:])[:, 0].float()
+        hidden, seq = prefill_hidden(params, cfg, batch, remat)
+        last = hidden[:, -1:]
+        if seq is not None:
+            last = C.all_gather(last, seq.group, dim=1, tag="sp_last")[:, -1:]
+        return T.logits_fn(params, cfg, last)[:, 0].float()
     return prefill
 
 
@@ -329,6 +382,7 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 0.0):
     draws every row from one generator."""
 
     def serve_step(params, cache, tokens, generator=None):
+        DB.refuse_seq("make_serve_step", {"tokens": tokens})
         logits, cache = M.decode_step(params, cfg, tokens, cache)
         logits = logits[:, -1].float()
         if temperature > 0:

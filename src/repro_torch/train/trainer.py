@@ -137,6 +137,7 @@ def make_sig_mmd_loss(cfg: ModelConfig):
     def loss_fn(params, batch, remat):
         # a placed batch (DTensors): the backbone runs on this rank's rows
         # and the paths go back to the batch layout for the sharded MMD
+        DB.refuse_seq("the sig-MMD loss", batch)
         placed = batch.get("tokens", batch.get("embeds"))
         local = {k: DB.to_local(v) for k, v in batch.items()}
         with DB.rows_scope(placed):      # the aux loss over the global batch
@@ -238,11 +239,15 @@ def replicate_tree(tree, mesh):
 
 def place_batch(batch, mesh=None, rules=None):
     """Lay a batch (the whole batch, the same on every rank) out over the
-    mesh's data axes by
-    :func:`repro_torch.distributed.sharding.batch_specs`: sharded leaves
-    become DTensors holding this rank's rows, replicated ones stay as they
-    are (no-op without a mesh).  Defaults come from the installed sharding
-    context."""
+    mesh by :func:`repro_torch.distributed.sharding.batch_specs`: the rows
+    over the axes of the ``"batch"`` rule (the data axes), and under a
+    ``"seq"`` rule (``launch.dryrun.rules_for``'s prefill cells) the
+    sequence over its axes.  Sharded leaves become DTensors holding this
+    rank's block (its rows, and its block of the sequence), replicated
+    ones stay as they are (no-op without a mesh).  Only the prefill
+    (``serve.engine.make_prefill_step``) runs a block of a sequence: the
+    train and eval steps refuse it.  Defaults come from the installed
+    sharding context."""
     mesh = current_mesh() if mesh is None else mesh
     if mesh is None:
         return batch
@@ -283,6 +288,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
         return loss_val.detach(), _detached(metrics), grads
 
     def train_step(params, opt_state, batch):
+        DB.refuse_seq("the train step", batch)
         group = _batch_group(batch)
         layout = MP.placements(params) \
             if isinstance(params, torch.nn.Module) else {}
@@ -330,6 +336,7 @@ def make_eval_step(cfg: ModelConfig, remat: str = "none", *,
 
     @torch.no_grad()
     def eval_step(params, batch):
+        DB.refuse_seq("the eval step", batch)
         _, metrics = base_loss(params, batch, remat)
         return metrics
     return eval_step

@@ -11,7 +11,9 @@ MoE aux loss (the world of 2 also microbatched sig-MMD and MoE-aux steps
 there).  The world of 4 also trains with Adafactor on the sharded
 parameters and records what the dry run predicts for its cells: the
 parameter and optimizer-state bytes a rank holds and the collectives of
-one step.
+one step.  Both worlds prefill six archs under their ``prefill_32k``
+cells' rules (the prompt in blocks over the model axis), and the world of
+2 records what the dry run predicts for a small prefill cell.
 """
 from __future__ import annotations
 
@@ -48,6 +50,20 @@ CP_OVERRIDE = {"kv_seq": ("data", "model"), "batch": ("pod",)}
 # 10 rows (more than a block, across its end), 3, then 5 at index 13,
 # clamped to rows 11-15 as lax.dynamic_update_slice clamps
 CP_WRITES = (10, 3, 5)
+# the prefill cells' layout (rules_for(arch, "prefill_32k")): the
+# requests over the data axis, the prompt in blocks of 4 over the model
+# axis; a prompt of 7 is left whole by the divisibility guard.  The two
+# dense archs that the other cases do not run have references of their
+# own (M-RoPE embeds and positions; tied embeddings).
+PREFILL_ARCHS = ("qwen3-4b", "qwen2-vl-2b", "command-r-35b", "zamba2-7b",
+                 "rwkv6-1.6b", "whisper-large-v3")
+PREFILL = (2, 8)         # requests, prompt
+PREFILL_ODD = 7
+PREFILL_SHAPE = "prefill_32k"
+# the small prefill cells the dry run predicts on AbstractMesh((1, 2))
+DRYRUN_PREFILL = ("prefill_tiny", dict(kind="prefill", seq=PREFILL[1],
+                                       batch=PREFILL[0]))
+DRYRUN_PREFILL_ARCHS = ("qwen3-4b", "zamba2-7b")
 SIG = dict(channels=3, depth=2)
 # SGD's learning rate: small enough that three steps of the reduced
 # models stay well conditioned.  At 1e-2 zamba2's gradient norms of 40-85
@@ -366,6 +382,111 @@ def dryrun_cases(mesh, inputs: dict) -> dict:
     return out
 
 
+def prefill_batch(inputs: dict, arch: str, key: str = "prefill"):
+    """The torch batch of an arch's prefill case (``inputs[key]``)."""
+    return _t(inputs[key][arch])
+
+
+def prefill_model(inputs: dict, arch: str, cfg, mesh=None, rules=None):
+    """The converted reference model of a prefill case (rwkv6 in
+    float64)."""
+    import torch
+    model = _model(inputs, arch, cfg)
+    if arch == "rwkv6-1.6b":
+        model = model.to(torch.float64)
+    if mesh is not None:
+        from repro_torch.distributed.model_parallel import shard_model
+        shard_model(model, mesh, rules)
+    return model
+
+
+def prefill_cases(mesh, inputs: dict) -> dict:
+    """Each of PREFILL_ARCHS prefilled under its prefill cell's rules:
+    this rank's rows' last-position logits and their first row, and the
+    collectives' tags; a prompt of PREFILL_ODD tokens (left whole); and
+    the refusals of the paths that do not run a block of a sequence."""
+    import torch
+    from repro_torch import configs, optim, train
+    from repro_torch.distributed import batch as DB
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.serve.engine import make_prefill_step
+    out = {}
+    cases = [(f"prefill/{a}", a, "prefill") for a in PREFILL_ARCHS]
+    cases.append(("prefill_odd/qwen3-4b", "qwen3-4b", "prefill_odd"))
+    for key, arch, bkey in cases:
+        cfg = config(arch, configs)
+        rules = rules_for(arch, PREFILL_SHAPE)
+        model = prefill_model(inputs, arch, cfg, mesh, rules)
+        with sharding_ctx(mesh, rules):
+            placed = train.place_batch(prefill_batch(inputs, arch, bkey))
+            lead = placed.get("tokens", placed.get("embeds"))
+            with DB.rows_scope(lead) as rows:
+                start, split = rows.start, rows.seq is not None
+            C.LOG.reset()
+            logits = make_prefill_step(cfg)(model, placed)
+        out[key] = dict(logits=logits.numpy(), start=start, split=split,
+                        tags=sorted({r.tag for r in C.LOG.records}))
+    cfg = config("qwen3-4b", configs)
+    rules = rules_for("qwen3-4b", PREFILL_SHAPE)
+    model = prefill_model(inputs, "qwen3-4b", cfg, mesh, rules)
+    refused = {}
+    with sharding_ctx(mesh, rules):
+        placed = train.place_batch(dict(
+            prefill_batch(inputs, "qwen3-4b"),
+            labels=prefill_batch(inputs, "qwen3-4b")["tokens"]))
+        opt = optim.sgd(lr=LR)
+        try:
+            train.make_train_step(cfg, opt)(model, opt.init(model), placed)
+        except NotImplementedError as e:
+            refused["train"] = str(e)
+    tp = dict(rules, heads="model", ff="model")
+    model = prefill_model(inputs, "qwen3-4b", cfg, mesh, tp)
+    with sharding_ctx(mesh, tp):
+        try:
+            make_prefill_step(cfg)(model, train.place_batch(
+                prefill_batch(inputs, "qwen3-4b")))
+        except NotImplementedError as e:
+            refused["tensor_parallel"] = str(e)
+    out["prefill_refused"] = refused
+    return out
+
+
+def dryrun_prefill_cases(mesh, inputs: dict) -> dict:
+    """What the dry run predicts for DRYRUN_PREFILL's cells, measured:
+    rank 0's argument, output and peak bytes of the prefill step and its
+    collectives by kind and by tag."""
+    from repro_torch import configs, train
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.distributed.hlo import collective_stats
+    from repro_torch.launch import dryrun
+    from repro_torch.obs.compile import CostCounter
+    from repro_torch.serve.engine import make_prefill_step
+    name, shape = DRYRUN_PREFILL
+    out = {}
+    for arch in DRYRUN_PREFILL_ARCHS:
+        cfg = config(arch, configs)
+        rules = dryrun.rules_for(arch, PREFILL_SHAPE)
+        model = prefill_model(inputs, arch, cfg, mesh, rules)
+        with sharding_ctx(mesh, dryrun.exec_rules(rules, "prefill")):
+            placed = train.place_batch(prefill_batch(inputs, arch))
+            C.LOG.reset()
+            with CostCounter() as cost:
+                logits = make_prefill_step(cfg)(model, placed)
+            records = list(C.LOG.records)
+        out[f"dryrun_prefill/{arch}"] = dict(
+            argument_bytes=dryrun.tree_bytes(model) + dryrun.tree_bytes(
+                placed),
+            output_bytes=dryrun.tree_bytes(logits),
+            peak_bytes=cost.peak_bytes,
+            collectives={k: list(v) for k, v in
+                         collective_stats(records).by_kind.items()},
+            by_tag=dryrun.collectives_by_tag(records))
+    return out
+
+
 def rwkv64_case(mesh, inputs: dict) -> dict:
     """Three float64 SGD steps of rwkv6 at the shared learning rate."""
     import torch
@@ -461,6 +582,9 @@ def rank_main(rank: int, world: int, store_path: str, inputs: dict,
         out.update(cp_decode_cases(mesh, inputs))
         out.update(whisper_case(mesh))
         out.update(rwkv64_case(mesh, inputs))
+        out.update(prefill_cases(mesh, inputs))
+        if world == 2:
+            out.update(dryrun_prefill_cases(mesh, inputs))
         if world == 4:
             out.update(sig_mmd_case(mesh, inputs))
             out.update(micro_case(mesh, inputs))

@@ -11,6 +11,9 @@
   a dense LM-loss train step of reduced qwen3-4b on a 2 x 2 mesh whose
   FLOPs a rank times 4 lie within 10% of the same step's FLOPs on one
   rank alone.
+- A ``prefill_32k`` cell executes the reference's ``seq: "model"`` rule
+  (each rank its block of 2,048 of the prompt, the keys and values
+  gathered a layer); a train cell runs with the sequence whole.
 - ``record_cost`` counts 2·m·n·k FLOPs for a matmul and publishes its
   gauges under the reference's names.
 """
@@ -80,6 +83,7 @@ from repro_torch.optim import sgd
 out = {}
 for arch in ("qwen2-vl-2b", "whisper-large-v3"):
     out[arch] = dryrun.lower_cell(arch, "decode_32k")
+out["prefill"] = dryrun.lower_cell("qwen2-vl-2b", "prefill_32k")
 specs.SHAPES["train_flops"] = dict(kind="train", seq=16, batch=256)
 cfg = configs.reduce_config(configs.get_config("qwen3-4b"))
 res = dryrun.lower_cell("qwen3-4b", "train_flops", cfg=cfg,
@@ -175,6 +179,33 @@ def test_production_decode_cells(child, arch):
         assert abs(rank + extra - (477_102_080 + extra)) <= \
             0.01 * (477_102_080 + extra)
     assert res["collectives"]["all-gather"]["count"] >= cfg.n_layers
+
+
+def test_prefill_cells_keep_the_sequence_rule_and_train_cells_drop_it(
+        child):
+    """``exec_rules`` keeps ``seq`` for a prefill cell and drops it for a
+    train cell; qwen2-vl-2b's ``prefill_32k`` cell on 16 × 16 runs each
+    rank's 2 requests over its block of 2,048 positions: one ``sp_kv``
+    all-gather a layer of the whole prompt's keys and values, one
+    ``sp_last``, and useful FLOPs over executed about 16 times the
+    0.0231 of every model rank running the whole prompt."""
+    for arch in tconfigs.ARCH_IDS:
+        rules = tdryrun.rules_for(arch, "prefill_32k")
+        assert tdryrun.exec_rules(rules, "prefill") == rules
+        assert tdryrun.exec_rules(tdryrun.rules_for(arch, "train_4k"),
+                                  "train")["seq"] is None
+    res = child[2]["prefill"]
+    assert res["rules"]["seq"] == res["executed_rules"]["seq"] == "model"
+    assert child[2]["flops"]["mesh"]["executed_rules"]["seq"] == "None"
+    cfg = tconfigs.get_config("qwen2-vl-2b")
+    tags = res["collectives_by_tag"]
+    assert tags["sp_kv"]["all-gather"]["count"] == cfg.n_layers
+    assert tags["sp_last"]["all-gather"]["count"] == 1
+    # 2 requests × 32,768 positions × 2 (k, v) × Hkv × hd × bf16, a layer
+    kv = 2 * 32768 * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    assert tags["sp_kv"]["all-gather"]["result_bytes"] == cfg.n_layers * kv
+    assert 0.3 < res["useful_flops_ratio"] < 0.45
+    assert "block of the prompt" in res["memory_analysis"]["temp_size_note"]
 
 
 def test_a_dense_steps_flops_split_over_the_2x2_mesh(child):

@@ -24,9 +24,18 @@ tensor-, expert- and FSDP-parallel LM execution on a ``("data",
   of each loss on a data-only mesh of all their ranks: the MoE aux loss
   is the global batch's; the world of 2 also microbatched sig-MMD and
   MoE-aux steps there.
+- Prefill: both worlds prefill reduced qwen3-4b, qwen2-vl-2b (M-RoPE),
+  command-r-35b, zamba2-7b, rwkv6-1.6b (float64) and whisper-large-v3
+  under ``rules_for(arch, "prefill_32k")``: the requests over the data
+  axis, the prompt in blocks over the model axis.  The last-position
+  logits are the reference's single-device ``make_prefill_step`` and the
+  port's one rank's; a prompt the model axis does not divide runs whole;
+  the train step and a tensor-parallel layout refuse a sequence split.
 - The dry run: ``launch.dryrun.lower_cell`` in a fake world of 4 ranks
   (a subprocess) predicts the 2 x 2 world's parameter and optimizer-state
-  bytes a rank and the collectives of one step.
+  bytes a rank and the collectives of one step, and in a fake world of 2
+  the 1 x 2 world's argument, output and peak bytes and collectives by
+  tag of a small prefill cell.
 
 Tolerances: losses within the reference's 1e-4·max(1, |loss|), metrics
 and parameters at the gradient tolerance rtol 1e-3 / atol 1e-5; greedy
@@ -215,6 +224,16 @@ def _inputs() -> dict:
             enc_out[arch] = rng.standard_normal(
                 (R.CP_DECODE[0], jcfg.n_audio_frames, jcfg.d_model)).astype(
                 np.float32)
+    prefill, odd = {}, {}
+    Bp, Sp = R.PREFILL
+    for i, arch in enumerate(R.PREFILL_ARCHS):
+        jcfg = _jcfg(arch)
+        if arch not in params:
+            params[arch] = jax.tree.map(np.asarray, JM.init_params(
+                jax.random.PRNGKey(20 + i), jcfg, jnp.float32))
+        prefill[arch] = _prefill_batch(jcfg, Bp, Sp, rng)
+    odd["qwen3-4b"] = _prefill_batch(_jcfg("qwen3-4b"), Bp, R.PREFILL_ODD,
+                                     rng)
     for arch in ("qwen3-4b", "deepseek-v2-lite-16b"):
         jcfg = _jcfg(arch, sig=True)
         p = dict(params[arch])
@@ -251,7 +270,25 @@ def _inputs() -> dict:
         1, 128, size=(R.CP_DECODE[0], sum(R.CP_WRITES))).astype(np.int32)
     return dict(params=params, batches=batches, prompts=prompts,
                 prompts_cp=prompts_cp, enc_out=enc_out,
-                write_tokens=write_tokens)
+                write_tokens=write_tokens, prefill=prefill,
+                prefill_odd=odd)
+
+
+def _prefill_batch(jcfg, B: int, S: int, rng) -> dict:
+    """A prefill batch of numpy arrays: tokens; qwen2-vl's stub embeds
+    and M-RoPE positions (t, h, w streams that differ); whisper's frames
+    too."""
+    if jcfg.rope_type == "mrope":
+        t = np.arange(S)
+        pos = np.stack([t, t // 2, t % 3])[:, None].repeat(B, 1)
+        return {"embeds": rng.standard_normal((B, S, jcfg.d_model)).astype(
+            np.float32), "positions": pos.astype(np.int32)}
+    out = {"tokens": rng.integers(1, jcfg.vocab_size, size=(B, S)).astype(
+        np.int32)}
+    if jcfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (B, jcfg.n_audio_frames, jcfg.d_model)).astype(np.float32)
+    return out
 
 
 def _start(world: int, inputs: dict, tmp):
@@ -376,6 +413,31 @@ def _port_writes(arch: str):
                             R.CP_WRITES, R.CP_DECODE[3])
 
 
+def _reference_prefill(arch: str, key: str = "prefill"):
+    """The reference's single-device ``make_prefill_step`` (rwkv6 in
+    float64), jitted."""
+    inputs = _REF["inputs"]
+    step = jax.jit(jengine.make_prefill_step(_jcfg(arch)))
+    batch = inputs[key][arch]
+    if arch != "rwkv6-1.6b":
+        return np.asarray(step(jax.tree.map(jnp.asarray,
+                                            inputs["params"][arch]),
+                               jax.tree.map(jnp.asarray, batch)))
+    with jax.enable_x64(True):
+        params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                              inputs["params"][arch])
+        return np.asarray(step(params, jax.tree.map(jnp.asarray, batch)))
+
+
+def _port_prefill(arch: str, key: str = "prefill"):
+    """The port's one-rank prefill of the same inputs."""
+    from repro_torch.serve.engine import make_prefill_step
+    cfg = R.config(arch, tconfigs)
+    model = R.prefill_model(_REF["inputs"], arch, cfg)
+    return make_prefill_step(cfg)(model, R.prefill_batch(
+        _REF["inputs"], arch, key)).numpy()
+
+
 def _reference_rwkv64():
     """rwkv6's three SGD steps at the shared learning rate in float64."""
     inputs = _REF["inputs"]
@@ -424,6 +486,13 @@ def _references(inputs) -> dict:
             _reference_steps(f"{a}/sig", b[f"micro/{c}"], loss=lo,
                              microbatch=R.MICRO[2])
     table["rwkv64"] = _reference_rwkv64
+    for arch in R.PREFILL_ARCHS:
+        table[f"prefill/{arch}"] = lambda a=arch: _reference_prefill(a)
+        table[f"port_prefill/{arch}"] = lambda a=arch: _port_prefill(a)
+    table["prefill_odd/qwen3-4b"] = lambda: _reference_prefill(
+        "qwen3-4b", "prefill_odd")
+    table["port_prefill_odd/qwen3-4b"] = lambda: _port_prefill(
+        "qwen3-4b", "prefill_odd")
     return table
 
 
@@ -617,6 +686,67 @@ def test_multi_row_writes_across_blocks_and_at_the_clamp(worlds, arch):
                                        err_msg=f"{arch} {k}")
 
 
+def _assert_prefill(got: dict, ref, one, what, split: bool):
+    """A rank's rows of the last-position logits within 1e-4·max|ref| of
+    the reference's and of one rank's; the blocks' collectives ran where
+    the prompt is cut."""
+    rows = slice(got["start"], got["start"] + got["logits"].shape[0])
+    for want, who in ((ref, "reference"), (one, "one rank")):
+        np.testing.assert_allclose(got["logits"], want[rows], rtol=0,
+                                   atol=1e-4 * np.abs(want).max(),
+                                   err_msg=f"{what} against {who}")
+    assert got["split"] == split, what
+    assert ("sp_last" in got["tags"]) == split, (what, got["tags"])
+
+
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+@pytest.mark.parametrize("arch", R.PREFILL_ARCHS)
+def test_sequence_parallel_prefill_equals_the_reference(worlds, arch,
+                                                        world):
+    """Under ``rules_for(arch, "prefill_32k")`` each rank runs its rows
+    of the requests and its block of 4 of the 8-token prompt: every
+    rank's logits are its rows' of the reference's single-device prefill
+    and of the port's one rank's (rwkv6 in float64), and the blocks
+    exchanged keys and values, halo rows or states as the family needs."""
+    res, _ = worlds
+    ref, one = _ref(f"prefill/{arch}"), _ref(f"port_prefill/{arch}")
+    np.testing.assert_allclose(one, ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
+    need = {"zamba2-7b": {"sp_conv", "sp_state", "sp_kv"},
+            "rwkv6-1.6b": {"sp_shift", "sp_state"},
+            "whisper-large-v3": {"sp_kv", "sp_cross", "sp_cross_q"}}.get(
+        arch, {"sp_kv"})
+    for r in range(world):
+        got = res[world][r][f"prefill/{arch}"]
+        _assert_prefill(got, ref, one, (arch, world, r), split=True)
+        assert need <= set(got["tags"]), (arch, got["tags"])
+
+
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+def test_prefill_of_a_prompt_the_split_does_not_divide(worlds, world):
+    """A 7-token prompt over a model axis of 2 is left whole by the
+    divisibility guard: every rank runs the whole prompt and gives one
+    rank's logits."""
+    res, _ = worlds
+    ref = _ref("prefill_odd/qwen3-4b")
+    one = _ref("port_prefill_odd/qwen3-4b")
+    for r in range(world):
+        _assert_prefill(res[world][r]["prefill_odd/qwen3-4b"], ref, one,
+                        ("odd", world, r), split=False)
+
+
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+def test_train_step_and_tensor_parallel_refuse_a_sequence_split(worlds,
+                                                               world):
+    """The train step refuses a batch placed under the prefill rules, and
+    the prefill refuses a layout that also splits heads and ``ff`` over
+    the model axis that cuts the prompt: neither computes a block as if it
+    were the whole prompt."""
+    got = worlds[0][world][0]["prefill_refused"]
+    assert "the train step" in got["train"] and "item 21" in got["train"]
+    assert "tensor-parallel" in got["tensor_parallel"]
+
+
 def test_sig_mmd_steps_on_a_2x2_mesh_equal_the_reference(worlds):
     res, _ = worlds
     _assert_steps(res[4][0]["sig_mmd"], _ref("sig_mmd"), "sig_mmd")
@@ -759,6 +889,16 @@ for arch in R.DRYRUN_ARCHS:
         params=M.init_params(0, cfg, torch.float32, device="meta"),
         opt=optim.adafactor(**R.ADAFACTOR))
     out[arch] = res
+name, shape = R.DRYRUN_PREFILL
+specs.SHAPES[name] = shape
+for arch in R.DRYRUN_PREFILL_ARCHS:
+    cfg = R.config(arch, configs)
+    out["prefill/" + arch] = dryrun.lower_cell(
+        arch, name, mesh=AbstractMesh((1, 2), ("data", "model")), cfg=cfg,
+        params=M.init_params(0, cfg, torch.float32, device="meta"),
+        batch={"tokens": torch.empty(R.PREFILL, dtype=torch.int32,
+                                     device="meta")},
+        rules=dryrun.rules_for(arch, R.PREFILL_SHAPE))
 dryrun.close_world()
 print(json.dumps(out))
 """
@@ -805,6 +945,27 @@ def test_dry_run_predicts_the_2x2_worlds_bytes_and_collectives(
         k: {"count": v[0], "result_bytes": v[1], "wire_bytes": v[2]}
         for k, v in want["collectives"].items()}
     assert got["hlo_flops_per_dev"] > 0 and mem["argument_size_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch", R.DRYRUN_PREFILL_ARCHS)
+def test_dry_run_predicts_the_1x2_worlds_prefill(worlds, dryrun_cells,
+                                                 arch):
+    """``lower_cell`` of a small prefill cell on ``AbstractMesh((1, 2))``
+    under the prefill rules (the prompt in blocks of 4): the argument,
+    output and peak bytes a rank equal rank 0's of the gloo world
+    exactly, and so do the step's collectives by kind and by tag."""
+    want = worlds[0][2][0][f"dryrun_prefill/{arch}"]
+    got = dryrun_cells[f"prefill/{arch}"]
+    mem = got["memory_analysis"]
+    assert got["executed_rules"]["seq"] == "model"
+    assert mem["argument_size_bytes"] == want["argument_bytes"]
+    assert mem["output_size_bytes"] == want["output_bytes"]
+    assert mem["temp_size_bytes"] == want["peak_bytes"]
+    assert got["collectives"] == {
+        k: {"count": v[0], "result_bytes": v[1], "wire_bytes": v[2]}
+        for k, v in want["collectives"].items()}
+    assert got["collectives_by_tag"] == want["by_tag"]
+    assert "sp_kv" in got["collectives_by_tag"]
 
 
 def test_remat_duplication_counts_recomputed_matmuls():

@@ -1,0 +1,364 @@
+"""The blocks of a sequence-parallel prefill (the reference's ``seq:
+"model"`` rule) against the whole sequence and ``repro.models``, in one
+process.
+
+A group of P ranks is simulated: block i runs inside a ``rows_set`` of a
+``Rows`` whose ``seq`` is ``Split(None, P, i)``, and every
+``collectives.all_gather`` a block issues is answered with the
+concatenation of the P blocks' inputs to that call, the blocks run again
+until those inputs stop changing (a block's later gathers read its
+earlier ones).  So the code under test is the layers' own: the
+attention's gathered keys and values under the offset causal mask, the
+convolution's and the token shifts' halo rows, the Mamba2 SSD and RWKV6
+WKV blocks folded by the state rule.  Values at the reference's rtol
+2e-4 / atol 2e-5; the WKV scan runs in float32 as the reference's does,
+and the state rule it adds is also held in float64.  Every path that
+does not run a block of a sequence refuses one.
+"""
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import layers as JL
+from repro.models import ssm as JS
+
+from repro_torch import configs as tconfigs
+from repro_torch.distributed import batch as DB
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.model_parallel import Split
+from repro_torch.models import layers as TL
+from repro_torch.models import ssm as TS
+
+VALUE = dict(rtol=2e-4, atol=2e-5)
+
+
+def normal(shape, seed, scale=1.0, dtype=np.float32):
+    return (scale * np.random.default_rng(seed).normal(size=shape)).astype(
+        dtype)
+
+
+def split(P: int, i: int) -> Split:
+    return Split(None, P, i, ("model",))
+
+
+def in_blocks(P: int, fn) -> list:
+    """``fn(i)`` for each block i of a simulated group of P ranks, its
+    all-gathers answered with every block's inputs (iterated to a fixed
+    point) -> the P blocks' outputs."""
+    sent = None
+    for _ in range(16):
+        got = [[] for _ in range(P)]
+        outs = []
+        for i in range(P):
+            def gather(t, group, *, tag="", dim=0, i=i):
+                k = len(got[i])
+                got[i].append(t.detach().clone())
+                parts = [t] * P if sent is None or k >= len(sent[i]) else \
+                    [sent[j][k] for j in range(P)]
+                return torch.cat(parts, dim=dim)
+            rows = DB.Rows(None, 1, 0, 1, split(P, i))
+            with mock.patch.object(C, "all_gather", gather), \
+                    DB.rows_set(rows):
+                outs.append(fn(i))
+        if sent is not None and all(
+                len(a) == len(b) and all(torch.equal(x, y)
+                                         for x, y in zip(a, b))
+                for a, b in zip(got, sent)):
+            return outs
+        sent = got
+    raise AssertionError("the blocks' gathers did not settle")
+
+
+def blocks_of(x: np.ndarray, P: int, i: int, dim: int = 1) -> torch.Tensor:
+    n = x.shape[dim] // P
+    return torch.from_numpy(np.ascontiguousarray(
+        np.take(x, range(i * n, (i + 1) * n), axis=dim)))
+
+
+def joined(outs, dim: int = 1) -> np.ndarray:
+    return torch.cat([o.detach() for o in outs], dim=dim).numpy()
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("P", [2, 4])
+def test_query_blocks_attend_over_the_gathered_keys(P, causal):
+    """``_sdpa`` of each query block with ``q_offset`` against the whole
+    keys, and ``_prefill_attend`` of each block (its keys and values
+    gathered), equal the reference's ``_sdpa`` of the whole sequence."""
+    B, S, Hq, Hkv, hd = 2, 16, 4, 2, 8
+    q, k, v = (normal((B, S, H, hd), s) for s, H in
+               ((0, Hq), (1, Hkv), (2, Hkv)))
+    want = np.asarray(JL._sdpa(*map(jnp.asarray, (q, k, v)), causal))
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    n = S // P
+    offset = [TL._sdpa(blocks_of(q, P, i), tk, tv, causal,
+                       q_offset=i * n if causal else None)
+              for i in range(P)]
+    np.testing.assert_allclose(joined(offset), want, **VALUE)
+    gathered = in_blocks(P, lambda i: TL._prefill_attend(
+        blocks_of(q, P, i), blocks_of(k, P, i), blocks_of(v, P, i), causal,
+        DB.current_seq()))
+    np.testing.assert_allclose(joined(gathered), want, **VALUE)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2: the SSD blocks, the convolution's halo
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(S: int, seed: int = 0):
+    B, nh, hd, ds = 2, 3, 4, 5
+    xh = normal((B, S, nh, hd), seed)
+    dt = np.log1p(np.exp(normal((B, S, nh), seed + 1))).astype(np.float32)
+    a_log = (-0.5 * dt).astype(np.float32)
+    return xh, dt, a_log, normal((B, S, ds), seed + 2, 0.5), \
+        normal((B, S, ds), seed + 3, 0.5)
+
+
+@pytest.mark.parametrize("S,chunk,P", [(32, 8, 2), (32, 8, 4), (24, 8, 2),
+                                       (40, 8, 4)],
+                         ids=["16-a-block", "8-a-block", "12-a-block",
+                              "10-a-block"])
+def test_ssd_blocks_fold_to_the_whole_scan(S, chunk, P):
+    """Each block's chunked SSD from a zero state, every block's (final
+    state, total log-decay) gathered and folded into its incoming state,
+    equals the whole sequence's scan (the port's and the reference's),
+    where the block is a multiple of the chunk and where it is not."""
+    args = ssd_inputs(S)
+    want = np.asarray(JS._ssd_chunked(*map(jnp.asarray, args), chunk))
+    whole = TS._ssd_chunked(*map(torch.from_numpy, args), chunk)
+    np.testing.assert_allclose(whole.numpy(), want, **VALUE)
+    got = in_blocks(P, lambda i: TS._ssd_blocks(
+        *(blocks_of(a, P, i) for a in args), chunk, DB.current_seq()))
+    np.testing.assert_allclose(joined(got), want, **VALUE)
+
+
+def test_ssd_final_state_is_the_recurrences():
+    """``_ssd_chunked(final=True)``'s state is the step-by-step
+    recurrence's (the decode path's update) after S steps."""
+    xh, dt, a_log, Bc, Cc = map(torch.from_numpy, ssd_inputs(13, 4))
+    _, state = TS._ssd_chunked(xh, dt, a_log, Bc, Cc, 4, final=True)
+    S = torch.zeros_like(state)
+    for t in range(xh.shape[1]):
+        S = S * torch.exp(a_log[:, t])[..., None, None] + torch.einsum(
+            "bh,bhd,bn->bhdn", dt[:, t], xh[:, t], Bc[:, t])
+    np.testing.assert_allclose(state.numpy(), S.numpy(), **VALUE)
+
+
+@pytest.mark.parametrize("S,P", [(12, 2), (8, 4)],
+                         ids=["6-a-block", "2-a-block"])
+def test_causal_conv_and_token_shift_with_halo_rows(S, P):
+    """The convolution over each block with the K - 1 rows before it
+    (from blocks of 2 as well, shorter than K - 1 = 3) and the token
+    shift with the row before it equal the reference's over the whole
+    sequence, zeros before the first block."""
+    x = normal((2, S, 6), 4)
+    w, b = normal((4, 6), 6), normal((6,), 7)
+    want = np.asarray(JS._causal_conv(*map(jnp.asarray, (x, w, b))))
+    tw, tb = torch.from_numpy(w), torch.from_numpy(b)
+    got = in_blocks(P, lambda i: TS._causal_conv(
+        blocks_of(x, P, i), tw, tb, TL.halo_rows(
+            blocks_of(x, P, i), 3, DB.current_seq(), "sp_conv")))
+    np.testing.assert_allclose(joined(got), want, **VALUE)
+    shift = np.asarray(JS._token_shift(jnp.asarray(x),
+                                       jnp.zeros((2, 6), jnp.float32)))
+    got = in_blocks(P, lambda i: TS._token_shift(
+        blocks_of(x, P, i), TL.halo_rows(blocks_of(x, P, i), 1,
+                                         DB.current_seq(), "sp_shift")[:, 0]))
+    np.testing.assert_array_equal(joined(got), shift)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6: the WKV blocks
+# ---------------------------------------------------------------------------
+
+def wkv_inputs(S: int, dtype=np.float64):
+    B, nh, hk = 2, 2, 4
+    r, k, v = (normal((B, S, nh, hk), s, 0.5, dtype) for s in (0, 1, 2))
+    w = np.exp(-np.exp(normal((B, S, nh, hk), 3, 0.5, dtype) - 1.0))
+    return r, k, v, w.astype(dtype), normal((nh, hk), 4, 0.5, dtype)
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_wkv_blocks_fold_to_the_whole_scan(P):
+    """Each block scanned once from zero, then corrected by (r_t ⊙ P_t) ·
+    S_in with S_in folded from the earlier blocks' (state, decay
+    product) pairs: float64 inputs, the scan in float32 as the
+    reference's; the outputs and the final state equal the whole scan's
+    (the port's and the reference's)."""
+    S = 24
+    r, k, v, w, u = wkv_inputs(S)
+    state = np.zeros((2, 2, 4, 4))
+    want, want_state = JS._wkv_scan(*map(jnp.asarray, (r, k, v, w, u,
+                                                         state)))
+    whole, whole_state = TS._wkv_scan(*map(torch.from_numpy,
+                                           (r, k, v, w, u, state)))
+    np.testing.assert_allclose(whole.numpy(), np.asarray(want), **VALUE)
+    tu = torch.from_numpy(u)
+    got = in_blocks(P, lambda i: TS._wkv_blocks(
+        *(blocks_of(a, P, i) for a in (r, k, v, w)), tu,
+        torch.zeros((2, 2, 4, 4)), DB.current_seq()))
+    np.testing.assert_allclose(joined([y for y, _ in got]),
+                               np.asarray(want), **VALUE)
+    np.testing.assert_allclose(got[-1][1].numpy(), np.asarray(want_state),
+                               **VALUE)
+    np.testing.assert_allclose(got[-1][1].numpy(), whole_state.numpy(),
+                               **VALUE)
+
+
+def test_wkv_state_rule_in_float64():
+    """In float64, the share of an incoming state S_in that
+    ``wkv_state_term`` adds is the recurrence's S ← w_t ⊙ S, y_t = r_t · S
+    from S_in, and ``fold_states`` of two blocks' states is the state the
+    recurrence carries across both, to 1e-12."""
+    r, _, _, w, _ = wkv_inputs(7)
+    S_in = normal((2, 2, 4, 3), 9, 1.0, np.float64)
+    S, ys = S_in.copy(), []
+    for t in range(r.shape[1]):
+        ys.append(np.einsum("bhk,bhkv->bhv", r[:, t], S))
+        S = S * w[:, t, ..., None]
+    got = TS.wkv_state_term(torch.from_numpy(r), torch.from_numpy(w),
+                            torch.from_numpy(S_in))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), np.stack(ys, 1), rtol=1e-12,
+                               atol=1e-12)
+    S0, S1 = (normal((2, 2, 4, 3), s, 1.0, np.float64) for s in (10, 11))
+    W = w.prod(1)
+    folded = TS.fold_states(torch.from_numpy(np.stack([S0, S1, S0])),
+                            torch.from_numpy(np.stack([W, W, W]))[..., None],
+                            2)
+    np.testing.assert_allclose(folded.numpy(), S0 * W[..., None] + S1,
+                               rtol=1e-12, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# whole blocks: mamba_block and rwkv_block
+# ---------------------------------------------------------------------------
+
+def cfgs(arch):
+    return (tconfigs.reduce_config(tconfigs.get_config(arch)),
+            jconfigs.reduce_config(jconfigs.get_config(arch)))
+
+
+def block_params(init, jcfg, seed=0, scale=0.1):
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda x: (np.asarray(x) + scale * rng.normal(
+        size=x.shape)).astype(np.float32), init(jax.random.PRNGKey(seed),
+                                                jcfg))
+
+
+@pytest.mark.parametrize("arch,name,init", [
+    ("zamba2-7b", "mamba_block", JS.init_mamba),
+    ("rwkv6-1.6b", "rwkv_block", JS.init_rwkv)], ids=["mamba", "rwkv"])
+def test_ssm_blocks_over_a_cut_sequence(arch, name, init):
+    """``mamba_block`` (chunk 4 over blocks of 6) and ``rwkv_block`` over
+    the blocks of a 12-token sequence equal the reference's block over the
+    whole sequence."""
+    cfg, jcfg = cfgs(arch)
+    p = block_params(init, jcfg)
+    x = normal((2, 12, cfg.d_model), 1, 0.5)
+    kw = {"chunk": 4} if name == "mamba_block" else {}
+    want = np.asarray(jax.jit(lambda p, x: getattr(JS, name)(
+        p, x, jcfg, **kw)[0])(jax.tree.map(jnp.asarray, p), jnp.asarray(x)))
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+    got = in_blocks(2, lambda i: getattr(TS, name)(
+        tp, blocks_of(x, 2, i), cfg, **kw)[0])
+    np.testing.assert_allclose(joined(got), want, **VALUE)
+
+
+def test_a_differentiated_block_refuses():
+    """The blocks exchange detached tensors: a block under autograd
+    raises instead of giving a wrong gradient."""
+    x = torch.zeros((1, 4, 2), requires_grad=True)
+    with DB.rows_set(DB.Rows(None, 1, 0, 1, split(2, 0))):
+        with pytest.raises(NotImplementedError, match="inference path"):
+            TL.prompt_split(x)
+        with torch.no_grad():
+            assert TL.prompt_split(x) == split(2, 0)
+
+
+# ---------------------------------------------------------------------------
+# the paths that refuse a sequence split
+# ---------------------------------------------------------------------------
+
+def _reduced(arch):
+    return tconfigs.reduce_config(tconfigs.get_config(arch))
+
+
+def _decode():
+    from repro_torch import models as M
+    from repro_torch.serve.engine import make_serve_step
+    cfg = _reduced("qwen3-4b")
+    model = M.init_params(0, cfg, device="cpu")
+    make_serve_step(cfg)(model, M.init_cache(cfg, 1, 8, torch.float32,
+                                             device="cpu"),
+                         torch.ones((1, 1), dtype=torch.int32))
+
+
+def _moe():
+    from repro_torch import models as M
+    cfg = _reduced("deepseek-v2-lite-16b")
+    model = M.init_params(0, cfg, device="cpu")
+    TL.moe(model["layers"][0]["moe"], torch.zeros((1, 4, cfg.d_model)), cfg)
+
+
+def _mla():
+    from repro_torch import models as M
+    from repro_torch.models.transformer import default_positions
+    cfg = _reduced("deepseek-v2-lite-16b")
+    model = M.init_params(0, cfg, device="cpu")
+    TL.mla_attention(model["layers"][0]["attn"],
+                     torch.zeros((1, 4, cfg.d_model)), cfg,
+                     default_positions(cfg, 1, 4, "cpu"))
+
+
+def _train():
+    from repro_torch import models as M
+    from repro_torch import optim, train
+    cfg = _reduced("qwen3-4b")
+    model = M.init_params(0, cfg, device="cpu")
+    batch = {"tokens": torch.ones((1, 4), dtype=torch.int32),
+             "labels": torch.ones((1, 4), dtype=torch.int32)}
+    opt = optim.sgd(lr=1e-3)
+    train.make_train_step(cfg, opt)(model, opt.init(model), batch)
+
+
+def _lm_loss():
+    from repro_torch.models import transformer
+    transformer.lm_loss(None, None, {})
+
+
+def _encdec_loss():
+    from repro_torch.models import encdec
+    encdec.lm_loss(None, None, {})
+
+
+def _sig_mmd_loss():
+    from repro_torch.train.trainer import make_sig_mmd_loss
+    cfg = tconfigs.with_sig_head(_reduced("qwen3-4b"), channels=3, depth=2)
+    make_sig_mmd_loss(cfg)(None, {}, "dots")
+
+
+@pytest.mark.parametrize("where,run", [
+    ("make_serve_step", _decode), ("moe", _moe), ("mla_attention", _mla),
+    ("the train step", _train), ("the LM loss", _lm_loss),
+    ("the encoder-decoder's LM loss", _encdec_loss),
+    ("the sig-MMD loss", _sig_mmd_loss)],
+    ids=["decode", "moe", "mla", "train_step", "lm_loss", "encdec_loss",
+         "sig_mmd_loss"])
+def test_paths_refuse_a_sequence_split(where, run):
+    """Decode, the MoE, MLA, the train step and the three losses it can
+    reach raise ``NotImplementedError`` naming ROADMAP item 21 inside
+    the scope of a batch whose sequence is cut, before computing."""
+    with DB.rows_set(DB.Rows(None, 1, 0, 1, split(2, 1))):
+        with pytest.raises(NotImplementedError, match="item 21") as e:
+            run()
+    assert where in str(e.value)
