@@ -423,22 +423,34 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              published (1.95B parameters, 32 + 32 layers) on 1 x 2: encode
              1,500 frames, prefill the cross caches, greedy tokens equal to
              one rank's, ms a decode step; (b) whisper at full width,
-             depth 4 + 4, Adafactor, 3 steps on 2 x 2 (losses within
+             depth 2 + 2, Adafactor, 2 steps on 2 x 2 under its train
+             cell's rules (FSDP over both axes, each sequence in blocks
+             over "model") and under the default rules (heads and ff over
+             "model", FSDP over "data"); (c) phase 27's qwen3-4b sig-MMD
+             step with Adafactor, 2 steps on 2 x 2 under its train cell's
+             rules (2 sig_trunc, 3·2 sig_gram and 1 sig_sweep launches a
+             rank a step, on the gathered path); (f) zamba2-7b and
+             rwkv6-1.6b at full width, depth 2, LM loss, 2 steps under
+             their train cells' rules.  Each training case against one
+             rank (that rank's model alone on the card): losses within
              1e-4·max(1, |loss|), first-step gradients by the gradient
-             rule); (c) phase 27's qwen3-4b sig-MMD step with Adafactor, 3
-             steps on 2 x 2 (the same checks, 2 sig_trunc, 3·2 sig_gram
-             and 1 sig_sweep launches a rank a step); (d) qwen3-4b as
-             published on 2 x 2: greedy tokens equal to one rank's under
-             dryrun.rules_for(qwen3-4b, decode_32k) and under the default
-             rules, ms a step of each (rules_for's no more than the
-             default's) and one rank's; under rules_for also 4 requests
-             with 10-token prompts and 4 new tokens, whose positions
-             cross the cache's sequence blocks of 8; the cache bytes a
-             rank under each rule set beside the whole cache's; (e) the
-             dry run's parameter and
-             Adafactor-state bytes a rank for (b) and (c) equal to rank
-             0's exactly, and one backbone forward's collectives by kind
-             equal to the real world's log.
+             rule, ms a step, peak bytes a rank below one rank's, a
+             step's sequence exchanges and their backward by tag; (d)
+             qwen3-4b as published on 2 x 2: greedy tokens equal to one
+             rank's under dryrun.rules_for(qwen3-4b, decode_32k) and
+             under the default rules, ms a step of each (rules_for's no
+             more than the default's) and one rank's; under rules_for
+             also 4 requests with 10-token prompts and 4 new tokens,
+             whose positions cross the cache's sequence blocks of 8; the
+             cache bytes a rank under each rule set beside the whole
+             cache's; (e) the prefill under rules_for(arch,
+             "prefill_32k"), each prompt in blocks over "model":
+             qwen3-4b (12 layers), zamba2-7b, rwkv6-1.6b and whisper,
+             last-position logits against one rank's; and the dry run's
+             parameter and Adafactor-state bytes a rank for both (b)
+             cells and (c) equal to rank 0's exactly, one backbone
+             forward's collectives by kind and a step's collectives by
+             tag equal to the real world's log.
 29. examples — the eight examples with a _torch counterpart
              (examples/quickstart_torch.py, streaming_torch.py,
              kernel_methods_torch.py, ragged_serving_torch.py,
@@ -5811,22 +5823,21 @@ MP_CP_DECODE = (2, 6, 4, 16)
 MP_SGD_LR = 1e-3
 
 
-def mp_full_grads(model, grads, data_group) -> list:
-    """A sharded model's gradients as the reference's full arrays, summed
-    over the data ranks (an FSDP shard's already is)."""
-    from repro_torch.distributed import collectives as C
+def mp_full_grads(model, grads, placed) -> list:
+    """A sharded model's gradients of a loss of the placed batch leaf
+    ``placed`` as the reference's full arrays, reduced by the train step's
+    rule (``train.trainer.reduce_grads``: summed over the axes that split
+    the batch, where an FSDP shard's reduce-scatter has not)."""
     from repro_torch.distributed import model_parallel as MP
     from repro_torch.optim.optimizers import named
+    from repro_torch.train.trainer import reduce_grads
     pl = MP.placements(model)
-    out = []
-    for name, g in zip(named(model), grads):
-        if g is None:
-            out.append(None)
-            continue
-        if not MP.grads_reduced_in_backward(pl.get(name)):
-            g = C.all_reduce_(g.clone(), data_group, tag="check")
-        out.append(MP.gather_tensor(g, pl[name]) if name in pl else g)
-    return out
+    have = {k: g.clone() for k, g in zip(named(model), grads)
+            if g is not None}
+    summed = reduce_grads(have, model, placed)
+    return [None if name not in summed else
+            MP.gather_tensor(summed[name], pl[name]) if name in pl
+            else summed[name] for name in named(model)]
 
 
 def mp_forward_collectives(model, cfg, batch, mesh) -> dict:
@@ -5874,8 +5885,8 @@ def mp_qwen_train(rank: int, mesh, seed: int) -> dict:
     loss_fn = make_sig_mmd_loss(cfg)
     batch = next(lm_data(cfg, "sig_mmd", 0, seed))
 
-    def first_grads(m):
-        loss, _ = loss_fn(m, place_batch(batch), "dots")
+    def first_grads(m, placed=None):
+        loss, _ = loss_fn(m, batch if placed is None else placed, "dots")
         return torch.autograd.grad(loss, list(named(m).values()),
                                    allow_unused=True)
 
@@ -5888,9 +5899,10 @@ def mp_qwen_train(rank: int, mesh, seed: int) -> dict:
     alone = dist_alone(single, rank, None, warm=False)
     lm_free()
     sharded = MP.shard_model(copy.deepcopy(model), mesh)
-    data_group = mesh["data"].get_group()
     with sharding_ctx(mesh):
-        g = mp_full_grads(sharded, first_grads(sharded), data_group)
+        placed = place_batch(batch)
+        g = mp_full_grads(sharded, first_grads(sharded, placed),
+                          placed["tokens"])
     coll = mp_forward_collectives(sharded, cfg, batch, mesh)
     del sharded
     lm_free()
@@ -6167,7 +6179,10 @@ def phase_model_parallel(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 DR_ARCH = "whisper-large-v3"
-DR_WHISPER_TRAIN = (4, 2, 64, 3)   # layers a stack, batch, tokens, steps
+# layers a stack and steps (cut from 4 and 3 when the case took the
+# sequence rule: FSDP over both axes gathers every layer through the
+# host), batch, tokens
+DR_WHISPER_TRAIN = (2, 2, 64, 2)
 DR_WHISPER_SERVE = (2, 4, 8)       # batch, prompt, new tokens (1 x 2)
 DR_ADAFACTOR = dict(lr=1e-3)       # factored at the published widths
 # qwen3-4b's decode on 2 x 2: batch, prompt, new tokens, max_len (a step
@@ -6178,18 +6193,35 @@ DR_DECODE = (4, 1, 2, 16)
 # positions cross the cache's sequence blocks of 8 (the model axis): the
 # four requests over the data axis, 2 a rank
 DR_DECODE_CP = (4, 10, 4, 16)
-DR_SHAPES = {"phase28_whisper": "whisper", "phase28_qwen": "qwen"}
+# (b), (c) and (f) train under rules_for(arch, their shape): no batch here
+# divides by 256, so each carries the reference's "seq": "model" rule (the
+# rows over the data axis, each sequence in blocks over the model axis,
+# FSDP over both axes, no tensor parallelism).  (f): zamba2-7b and
+# rwkv6-1.6b at full width, DR_FAMILY_TRAIN's layers, batch, tokens (blocks
+# of 128) and Adafactor steps
+DR_FAMILY = ("zamba2-7b", "rwkv6-1.6b")
+DR_FAMILY_TRAIN = (2, 4, 256, 2)
+DR_QWEN_STEPS = 2                 # (c)'s steps (phase 27 (a) takes 3)
+DR_SHAPES = {"whisper": ("phase28_whisper", DR_WHISPER_TRAIN[1:3]),
+             "qwen": ("phase28_qwen", LM_TRAIN[1:3]),
+             "family": ("phase28_family", DR_FAMILY_TRAIN[1:3])}
+# rwkv6's float32 gradients over blocks against the whole sequence's: its
+# WKV state folds change the order of float32 sums, as its prefill's
+# (FAM_F32_TOL), so the atol is FAM_F32_TOL's share of max|g|
+DR_GRAD_ATOL = {"rwkv6-1.6b": FAM_F32_TOL["rwkv6-1.6b"]}
 # (e) the prefill under rules_for(arch, "prefill_32k") on 2 x 2: the
 # requests over the data axis, each prompt in blocks over the model axis.
-# qwen3-4b as published; zamba2-7b and rwkv6-1.6b at full width and
-# DR_PREFILL_DEPTH layers, whisper at DR_PREFILL_DEPTH + DR_PREFILL_DEPTH
-# over its 1,500 frames and 448 decoder tokens.  A prefill on the mesh
-# gathers every layer's weights (FSDP over both axes) through gloo's host
-# staging: qwen3-4b's 16 GB take ~16 s a call, so it is timed once and
-# the smaller models after one warm call.
+# qwen3-4b at full width and DR_PREFILL_QWEN_DEPTH of its 36 layers (cut
+# from all 36 when phase 28 took the training cases); zamba2-7b and
+# rwkv6-1.6b at full width and DR_PREFILL_DEPTH layers, whisper at
+# DR_PREFILL_DEPTH + DR_PREFILL_DEPTH over its 1,500 frames and 448
+# decoder tokens.  A prefill on the mesh gathers every layer's weights
+# (FSDP over both axes) through gloo's host staging, so qwen3-4b is timed
+# once and the smaller models after one warm call.
 DR_PREFILL = (2, 2048)             # requests, prompt tokens (blocks of 1,024)
 DR_PREFILL_ARCHS = (LM_ARCH, "zamba2-7b", "rwkv6-1.6b", DR_ARCH)
 DR_PREFILL_DEPTH = 2
+DR_PREFILL_QWEN_DEPTH = 12
 DR_PREFILL_SHAPE = "prefill_32k"
 
 
@@ -6219,31 +6251,48 @@ def dr_meta(batch: dict) -> dict:
     return {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
 
 
+def dr_rules(name: str, arch: str) -> dict:
+    """rules_for(arch, DR_SHAPES[name]'s train shape), the shape made
+    known to the dry run's table first."""
+    from repro_torch.launch import dryrun, specs
+    shape, (B, S) = DR_SHAPES[name]
+    specs.SHAPES[shape] = dict(kind="train", seq=S, batch=B)
+    return dryrun.rules_for(arch, shape)
+
+
 def dr_child(seed: int, queue) -> None:
     """The dry run's process (the fake world of 4 is its default process
     group; it never touches the card): ``lower_cell`` on
-    ``AbstractMesh((2, 2))`` for phase 28's two training steps."""
+    ``AbstractMesh((2, 2))`` for phase 28's training steps under their
+    cells' rules (``dr_rules``: each sequence in blocks), whisper's under
+    the default rules too."""
     from repro_torch.distributed.ctx import AbstractMesh
-    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch import dryrun
     from repro_torch.optim import adafactor
     mesh = AbstractMesh((2, 2), ("data", "model"))
     out = {}
     w = dr_whisper_cfg()
     wb = dr_meta(dr_whisper_batch(w, seed, "cpu"))
     q = dr_qwen_cfg()
-    qb = next(lm_data_cpu(q, seed))
-    cells = (("whisper", DR_ARCH, w, LM.init_params(
-                  seed, w, torch.float32, device="meta"), wb, "lm"),
-             ("qwen", LM_ARCH, q, lm_model_meta(q, seed), dr_meta(qb),
-              "sig_mmd"))
-    for name, arch, cfg, params, batch, loss in cells:
-        shape = f"phase28_{name}"
-        B, S = batch["tokens"].shape
-        specs.SHAPES[shape] = dict(kind="train", seq=S, batch=B)
+    qb = dr_meta(next(lm_data_cpu(q, seed)))
+
+    def whisper():
+        return LM.init_params(seed, w, torch.float32, device="meta")
+    # (cell, DR_SHAPES key, arch, config, meta parameters, batch, loss,
+    # rules): whisper under its train cell's rules and the default rules
+    cells = (("whisper", "whisper", DR_ARCH, w, whisper, wb, "lm",
+              dr_rules("whisper", DR_ARCH)),
+             ("whisper_default", "whisper", DR_ARCH, w, whisper, wb, "lm",
+              {}),
+             ("qwen", "qwen", LM_ARCH, q, lambda: lm_model_meta(q, seed), qb,
+              "sig_mmd", dr_rules("qwen", LM_ARCH)))
+    for name, key, arch, cfg, params, batch, loss, rules in cells:
+        check(tuple(batch["tokens"].shape) == DR_SHAPES[key][1],
+              f"the dry run's {name} batch {tuple(batch['tokens'].shape)}")
         t0 = time.perf_counter()
-        res = dryrun.lower_cell(arch, shape, mesh=mesh, cfg=cfg,
-                                params=params, batch=batch, loss=loss,
-                                opt=adafactor(**DR_ADAFACTOR), rules={},
+        res = dryrun.lower_cell(arch, DR_SHAPES[key][0], mesh=mesh, cfg=cfg,
+                                params=params(), batch=batch, loss=loss,
+                                opt=adafactor(**DR_ADAFACTOR), rules=rules,
                                 forward_collectives=True)
         res["wall_s"] = time.perf_counter() - t0
         out[name] = res
@@ -6265,7 +6314,7 @@ def lm_model_meta(cfg, seed: int):
     return model
 
 
-def dr_measured(model, state, cfg, batch: dict, mesh) -> dict:
+def dr_measured(model, state, cfg, batch: dict, mesh, rules) -> dict:
     """What the dry run predicts, on this rank: parameter and
     optimizer-state bytes, and one backbone forward's collectives by
     kind."""
@@ -6274,7 +6323,7 @@ def dr_measured(model, state, cfg, batch: dict, mesh) -> dict:
     from repro_torch.distributed.hlo import collective_stats
     from repro_torch.launch import dryrun
     from repro_torch.train import place_batch
-    with sharding_ctx(mesh):
+    with sharding_ctx(mesh, rules):
         placed = place_batch(batch)
         C.LOG.reset()
         dryrun.backbone_forward(model, cfg, placed)
@@ -6284,117 +6333,194 @@ def dr_measured(model, state, cfg, batch: dict, mesh) -> dict:
                 forward={k: list(v) for k, v in st.by_kind.items()})
 
 
-def dr_train(rank: int, mesh, seed: int, cfg, model, batches: list,
-             loss: str) -> dict:
-    """Adafactor steps of ``model`` on the mesh against one rank: the
-    losses, the first step's gradients (gathered whole) and ms a step,
-    launches a rank counted over the sharded steps; and the measured side
-    of the dry run."""
+def dr_steps(cfg, m, batches: list, loss: str, place):
+    """Adafactor steps of ``m`` over ``batches`` (each placed by
+    ``place``): [(loss, ms)], the optimizer state, the peak bytes since
+    the first step began, the first step's collectives by tag and its
+    gradients as the step applies them (reduced by its rule), copied to
+    the host."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.dryrun import collectives_by_tag
+    from repro_torch.optim import Optimizer, adafactor
+    inner = adafactor(**DR_ADAFACTOR)
+    first = {}
+
+    def update(grads, state, params):
+        # the first step's gradients, copied to the host (no device bytes
+        # added to the step's peak)
+        if not first:
+            first.update({k: g.detach().cpu() for k, g in grads.items()})
+        return inner.update(grads, state, params)
+    opt = Optimizer(init=inner.init, update=update)
+    state = opt.init(m)
+    step = make_train_step(cfg, opt, loss=loss)
+    hist, tags = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches:
+        placed = place(b)
+        torch.cuda.synchronize()
+        C.LOG.reset()
+        t0 = time.perf_counter()
+        _, _, metrics = step(m, state, placed)
+        value = float(metrics["loss"])
+        hist.append((value, (time.perf_counter() - t0) * 1e3))
+        if tags is None:
+            tags = collectives_by_tag(C.LOG.records)
+    return hist, state, torch.cuda.max_memory_allocated(), tags, first
+
+
+def dr_alone(rank: int, cfg, model, batches: list, loss: str):
+    """``dr_steps`` of a copy of ``model`` on rank 0 alone while the other
+    ranks wait, ``model`` moved to the host meanwhile so that the peak
+    counts one copy of the weights: (first-step gradients, [(loss, ms)],
+    peak bytes) on rank 0, None elsewhere."""
     import copy
-    from repro_torch.distributed import model_parallel as MP
-    from repro_torch.distributed import sharding_ctx
-    from repro_torch.optim import adafactor
-    from repro_torch.optim.optimizers import named
-    from repro_torch.train import place_batch
-    from repro_torch.train.trainer import _resolve_loss
-    loss_fn = _resolve_loss(cfg, loss)
-
-    def first_grads(m, b):
-        value, _ = loss_fn(m, b, "dots")
-        return torch.autograd.grad(value, list(named(m).values()),
-                                   allow_unused=True)
-
-    def steps(m, place):
-        opt = adafactor(**DR_ADAFACTOR)
-        state = opt.init(m)
-        step = make_train_step(cfg, opt, loss=loss)
-        hist = []
-        for b in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, _, metrics = step(m, state, place(b))
-            value = float(metrics["loss"])
-            hist.append((value, (time.perf_counter() - t0) * 1e3))
-        return hist, state
 
     def single():
-        m = copy.deepcopy(model)
-        g = first_grads(m, batches[0])
-        hist, _ = steps(m, lambda b: b)
-        return [None if t is None else t.cpu() for t in g], hist
-
+        model.cpu()
+        lm_free()
+        m = copy.deepcopy(model).cuda()
+        hist, _, peak, _, g = dr_steps(cfg, m, batches, loss, lambda b: b)
+        del m
+        lm_free()
+        model.cuda()
+        return g, hist, peak
     alone = dist_alone(single, rank, None, warm=False)
     lm_free()
-    MP.shard_model(model, mesh)
-    with sharding_ctx(mesh):
-        g = mp_full_grads(model, first_grads(model, place_batch(batches[0])),
-                          mesh["data"].get_group())
+    return None if alone is None else alone[0]
+
+
+def dr_train(rank: int, mesh, cfg, model, batches: list, loss: str,
+             rules: dict, alone, measure: bool = True) -> dict:
+    """Adafactor steps of ``model`` on the mesh under ``rules`` against one
+    rank's (``alone``, from :func:`dr_alone`): the losses, the first
+    step's gradients (as the step applies them: reduced by its rule, then
+    gathered whole), ms a step, peak bytes a rank, the first sharded
+    step's collectives by tag (under a ``"seq"`` rule, the sequence
+    blocks' exchanges and their backward), launches a rank counted over
+    the sharded steps; with ``measure``, the measured side of the dry
+    run."""
+    from repro_torch.distributed import batch as DB
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.optim.optimizers import named
+    from repro_torch.train import place_batch
+    if rules.get("fsdp"):
+        # FSDP over both axes shards on their flattened group: every rank
+        # makes it together
+        MP.axes_split(mesh, rules["fsdp"])
+    MP.shard_model(model, mesh, rules)
+    with sharding_ctx(mesh, rules):
+        split = DB.batch_seq(place_batch(batches[0]))
         reset_counts()
-        hist, state = steps(model, place_batch)
+        hist, state, peak, tags, g = dr_steps(cfg, model, batches, loss,
+                                              place_batch)
         torch.cuda.synchronize()
     launches = counts()
-    measured = dr_measured(model, state, cfg, batches[0], mesh)
+    pl = MP.placements(model)
+    g = {k: MP.gather_tensor(v, pl[k]) if k in pl else v
+         for k, v in g.items()}
+    measured = dr_measured(model, state, cfg, batches[0], mesh, rules) \
+        if measure else None
     res = dict(losses=[h[0] for h in hist],
                step_ms=float(np.median([h[1] for h in hist[1:]])),
+               peak_bytes=peak, by_tag=tags, rules=str(rules),
+               block=None if split is None else
+               list(split.block(batches[0]["tokens"].shape[1])),
                launches_per_rank={k: v for k, v in launches.items() if v},
                local_params=sum(p.numel() for p in model.parameters()),
                measured=measured)
+    if rules.get("seq") is None:
+        check(split is None, f"{cfg.name} 2 x 2 steps under {rules}: the "
+              f"batch's sequence is cut over {split}")
+    else:
+        check(split is not None and split.axes == ("model",),
+              f"{cfg.name} 2 x 2 steps under {rules}: the batch's sequence "
+              f"is not cut over the model axis")
+        check({"sp_kv", "sp_kv_grad"} <= set(tags) or
+              {"sp_state", "sp_state_grad"} <= set(tags),
+              f"{cfg.name} 2 x 2 steps: collectives by tag {sorted(tags)} "
+              f"hold no sequence-block exchange and its backward")
     if rank == 0:
-        (g1, hist1), _ = alone
+        g1, hist1, single_peak = alone
         ref = [h[0] for h in hist1]
         check(all(abs(a - b) <= 1e-4 * max(1.0, abs(b))
                   for a, b in zip(res["losses"], ref)),
               f"{cfg.name} 2 x 2 Adafactor losses {res['losses']} against "
               f"one rank's {ref}")
-        worst = 0.0
-        for name, a, b in zip(named(model), g, g1):
-            if b is None:
-                check(a is None, f"{cfg.name} first-step gradient {name}: "
-                      f"one rank has none, the mesh has one")
-                continue
-            b = b.cuda()
+        atol = DR_GRAD_ATOL.get(cfg.name, E2E_TOL)
+        worst, need = 0.0, 0.0
+        check(set(g) == set(g1) == set(named(model)),
+              f"{cfg.name} first-step gradients: names differ")
+        for name in named(model):
+            a, b = g[name].cuda(), g1[name].cuda().double()
             worst = max(worst, float((a - b).abs().max()))
-            check(grad_within(a, b.double()),
+            scale = float(b.abs().max())
+            if scale > 0:
+                need = max(need, atol_needed(a, b))
+            check(bool(((a.double() - b).abs()
+                        <= 1e-3 * b.abs() + atol * scale).all()),
                   f"{cfg.name} 2 x 2 first-step gradient {name}: max |err| "
-                  f"{float((a - b).abs().max()):.3e}")
+                  f"{float((a - b).abs().max()):.3e} (atol {atol}·max|g|)")
+        check(peak < single_peak, f"{cfg.name} 2 x 2 steps: peak {peak} "
+              f"bytes a rank against one rank's {single_peak}")
         res.update(single_losses=ref, grad_max_abs_err=worst,
+                   grad_atol_needed=need, grad_atol=atol,
+                   single_peak_bytes=single_peak,
                    single_step_ms=float(np.median(
                        [h[1] for h in hist1[1:]])))
     return res
 
 
 def dr_whisper_train(rank: int, mesh, seed: int) -> dict:
-    """(b) whisper at full width, depth cut, Adafactor on the 2 x 2 mesh."""
+    """(b) whisper at full width, depth cut, Adafactor on the 2 x 2 mesh
+    under its train cell's rules (the frames and the tokens in blocks,
+    key "seq") and under the default rules (heads and ``ff`` over the
+    model axis, FSDP over the data axis, key "default"), both against the
+    same one-rank steps."""
     cfg = dr_whisper_cfg()
-    model = LM.init_params(seed, cfg)
     batches = [dr_whisper_batch(cfg, seed + i) for i in
                range(DR_WHISPER_TRAIN[3])]
-    res = dr_train(rank, mesh, seed, cfg, model, batches, "lm")
-    res.update(layers=[cfg.n_encoder_layers, cfg.n_layers],
-               published_layers=[get_config(DR_ARCH).n_encoder_layers,
-                                 get_config(DR_ARCH).n_layers],
-               batch=list(batches[0]["frames"].shape[:2])
-               + [batches[0]["tokens"].shape[1]],
-               full_params=sum(p.numel() for p in LM.init_params(
-                   seed, cfg, device="meta").parameters()))
-    del model
-    lm_free()
-    return res
+    model = LM.init_params(seed, cfg)
+    alone = dr_alone(rank, cfg, model, batches, "lm")
+    out = {}
+    for key, rules in (("seq", dr_rules("whisper", DR_ARCH)),
+                       ("default", {})):
+        if model is None:
+            model = LM.init_params(seed, cfg)
+        res = dr_train(rank, mesh, cfg, model, batches, "lm", rules, alone)
+        res.update(layers=[cfg.n_encoder_layers, cfg.n_layers],
+                   published_layers=[get_config(DR_ARCH).n_encoder_layers,
+                                     get_config(DR_ARCH).n_layers],
+                   batch=list(batches[0]["frames"].shape[:2])
+                   + [batches[0]["tokens"].shape[1]],
+                   full_params=sum(p.numel() for p in LM.init_params(
+                       seed, cfg, device="meta").parameters()))
+        out[key] = res
+        model = None
+        lm_free()
+    return out
 
 
 def dr_qwen_train(rank: int, mesh, seed: int) -> dict:
-    """(c) phase 27's qwen3-4b sig-MMD step with Adafactor on 2 x 2."""
+    """(c) phase 27's qwen3-4b sig-MMD step with Adafactor on 2 x 2 under
+    its train cell's rules: each rank projects its block, the whole path
+    is gathered, and the three kernels run on it."""
     cfg = dr_qwen_cfg()
     model = lm_model(cfg, seed)
     data = lm_data(cfg, "sig_mmd", 0, seed)
-    batches = [next(data) for _ in range(MP_TRAIN[1])]
-    res = dr_train(rank, mesh, seed, cfg, model, batches, "sig_mmd")
+    batches = [next(data) for _ in range(DR_QWEN_STEPS)]
+    alone = dr_alone(rank, cfg, model, batches, "sig_mmd")
+    res = dr_train(rank, mesh, cfg, model, batches, "sig_mmd",
+                   dr_rules("qwen", LM_ARCH), alone)
     P = 2
     want = {k: dict(sig_trunc=2, sig_gram=3 * P, sig_sweep=1).get(k, 0)
-            * MP_TRAIN[1] for k in counts()}
+            * DR_QWEN_STEPS for k in counts()}
     got = {k: res["launches_per_rank"].get(k, 0) for k in want}
     check(got == want, f"2 x 2 Adafactor sig-MMD steps: launches a rank "
           f"{got}, expected {want}")
+    check("sp_path" in res["by_tag"], f"2 x 2 sig-MMD steps: no gathered "
+          f"path among {sorted(res['by_tag'])}")
     res.update(layers=cfg.n_layers, mesh=[2, 2],
                shape=[LM_TRAIN[1], LM_TRAIN[2], LM_HEAD["channels"],
                       LM_HEAD["depth"]],
@@ -6402,6 +6528,29 @@ def dr_qwen_train(rank: int, mesh, seed: int) -> dict:
     del model
     lm_free()
     return res
+
+
+def dr_family_train(rank: int, mesh, seed: int) -> dict:
+    """(f) zamba2-7b and rwkv6-1.6b at full width and DR_FAMILY_TRAIN's
+    depth, LM loss, Adafactor on 2 x 2 under their train cells' rules
+    (each sequence in blocks over the model axis)."""
+    L, B, S, n = DR_FAMILY_TRAIN
+    out = {}
+    for arch in DR_FAMILY:
+        cfg = dataclasses.replace(mp_family_cfg(arch), n_layers=L)
+        model = LM.init_params(seed, cfg)
+        batches = [dict(item) for item, _ in zip(
+            TokenStream(cfg.vocab_size, B, S, seed + 6), range(n))]
+        alone = dr_alone(rank, cfg, model, batches, "lm")
+        res = dr_train(rank, mesh, cfg, model, batches, "lm",
+                       dr_rules("family", arch), alone, measure=False)
+        res.update(layers=L, batch=[B, S],
+                   full_params=sum(p.numel() for p in LM.init_params(
+                       seed, cfg, device="meta").parameters()))
+        out[arch] = res
+        del model
+        lm_free()
+    return out
 
 
 def dr_in_turns(rank: int, world: int, make):
@@ -6557,11 +6706,12 @@ def dr_whisper_serve(rank: int, mesh, seed: int) -> dict:
 
 
 def dr_prefill_cfg(arch: str):
-    """Case (e)'s config: qwen3-4b as published, the others at full width
-    and DR_PREFILL_DEPTH layers (each stack)."""
+    """Case (e)'s config: each arch at full width, qwen3-4b at
+    DR_PREFILL_QWEN_DEPTH layers, the others at DR_PREFILL_DEPTH (each
+    stack)."""
     cfg = get_config(arch)
     if arch == LM_ARCH:
-        return cfg
+        return dataclasses.replace(cfg, n_layers=DR_PREFILL_QWEN_DEPTH)
     if cfg.family == "encdec":
         return dataclasses.replace(cfg, n_layers=DR_PREFILL_DEPTH,
                                    n_encoder_layers=DR_PREFILL_DEPTH)
@@ -6707,7 +6857,8 @@ def dr_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
     if world == 4:
         mesh = make_dev_mesh(2, 2)
         parts = [("whisper_train", dr_whisper_train),
-                 ("qwen_train", dr_qwen_train), ("decode", dr_decode),
+                 ("qwen_train", dr_qwen_train),
+                 ("family_train", dr_family_train), ("decode", dr_decode),
                  ("prefill", dr_prefill)]
     else:
         mesh = make_dev_mesh(1, 2)
@@ -6725,9 +6876,11 @@ def dr_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
     queue.put(res)
 
 
-def dr_compare(name: str, predicted: dict, measured: dict) -> dict:
-    """The dry run's bytes a rank and forward collectives against the real
-    world's rank 0 (counts by kind equal, bytes exactly equal)."""
+def dr_compare(name: str, predicted: dict, measured: dict,
+               step_tags: dict) -> dict:
+    """The dry run's bytes a rank, forward collectives and a step's
+    collectives by tag against the real world's rank 0 (counts by kind
+    equal, bytes exactly equal; by tag, counts and result bytes)."""
     mem = predicted["memory_analysis"]
     fwd = {k: v["count"] for k, v in predicted["forward_collectives"].items()}
     real = {k: v[0] for k, v in measured["forward"].items()}
@@ -6739,15 +6892,38 @@ def dr_compare(name: str, predicted: dict, measured: dict) -> dict:
           f"{measured['opt_state_bytes']})")
     check(fwd == real, f"{name}: the dry run's forward collectives {fwd} "
           f"against the real world's {real}")
+    check(predicted["collectives_by_tag"] == step_tags,
+          f"{name}: the dry run's step collectives by tag "
+          f"{predicted['collectives_by_tag']} against the real world's first "
+          f"step's {step_tags}")
     return dict(param_bytes=mem["param_bytes"],
                 opt_state_bytes=mem["opt_state_bytes"], forward=fwd,
                 step_collectives={k: v["count"] for k, v in
                                   predicted["collectives"].items()},
+                step_by_tag={t: {k: v["count"] for k, v in kinds.items()}
+                             for t, kinds in step_tags.items()},
                 flops_per_dev=predicted["hlo_flops_per_dev"],
                 t_s={k: predicted[k] for k in ("t_compute_s", "t_memory_s",
                                               "t_collective_s")},
                 temp_bytes=mem["temp_size_bytes"],
                 wall_s=predicted["wall_s"])
+
+
+def dr_train_line(r: dict) -> str:
+    """A training case's numbers against one rank, for its printed
+    line."""
+    tags = {t: {k: v["count"] for k, v in kinds.items()}
+            for t, kinds in sorted(r["by_tag"].items())
+            if t.startswith("sp_")}
+    return (f"losses {np.round(r['losses'], 6).tolist()} against one rank's "
+            f"{np.round(r['single_losses'], 6).tolist()}; first-step "
+            f"gradients max |err| {r['grad_max_abs_err']:.2e}, within "
+            f"1e-3·|g| + {r['grad_atol']}·max|g| (least atol "
+            f"{r['grad_atol_needed']:.2e}); step {r['step_ms']:.1f} ms (one "
+            f"rank alone {r['single_step_ms']:.1f} ms; ranks share the card:"
+            f" not a speedup); peak {r['peak_bytes']} bytes a rank against "
+            f"one rank's {r['single_peak_bytes']} (its model alone on the "
+            f"card); a step's sequence exchanges by tag {tags or 'none'}")
 
 
 def phase_dryrun_mp(seed: int) -> dict:
@@ -6790,27 +6966,34 @@ def phase_dryrun_mp(seed: int) -> dict:
           f"{s['ms_per_step']:.1f} ms a decode step (one rank alone "
           f"{s['single_ms_per_step']:.1f} ms); {s['local_params']} "
           f"parameters on rank 0", flush=True)
-    w = r4["whisper_train"]
-    print(f"[dryrun_mp] 2 x 2 whisper-large-v3 at full width, depth cut to "
-          f"{w['layers'][0]} + {w['layers'][1]} of {w['published_layers'][0]}"
-          f" + {w['published_layers'][1]} layers, batch {w['batch']} "
-          f"(requests, frames, tokens), Adafactor {len(w['losses'])} steps: "
-          f"losses {np.round(w['losses'], 6).tolist()} against one rank's "
-          f"{np.round(w['single_losses'], 6).tolist()}; first-step "
-          f"gradients max |err| {w['grad_max_abs_err']:.2e}; step "
-          f"{w['step_ms']:.1f} ms (one rank alone {w['single_step_ms']:.1f}"
-          f" ms); {w['local_params']} of {w['full_params']} parameters on "
-          f"rank 0", flush=True)
+    for key, w in r4["whisper_train"].items():
+        rules = ("its train cell's rules" if key == "seq" else
+                 "the default rules (heads and ff over the model axis, "
+                 "FSDP over the data axis, each sequence whole)")
+        print(f"[dryrun_mp] (b) 2 x 2 whisper-large-v3 at full width, depth "
+              f"cut to {w['layers'][0]} + {w['layers'][1]} of "
+              f"{w['published_layers'][0]} + {w['published_layers'][1]} "
+              f"layers, batch {w['batch']} (requests, frames, tokens), "
+              f"Adafactor {len(w['losses'])} steps under {rules} "
+              f"{w['rules']}"
+              + ("" if w["block"] is None else
+                 f" (rank 0's block {w['block']} of the tokens)")
+              + f": {dr_train_line(w)}; {w['local_params']} of "
+              f"{w['full_params']} parameters on rank 0", flush=True)
     q = r4["qwen_train"]
-    print(f"[dryrun_mp] 2 x 2 qwen3-4b sig-MMD with Adafactor (depth "
-          f"{q['layers']}, {q['shape'][0]} x {q['shape'][1]}): losses "
-          f"{np.round(q['losses'], 6).tolist()} against one rank's "
-          f"{np.round(q['single_losses'], 6).tolist()}; first-step "
-          f"gradients max |err| {q['grad_max_abs_err']:.2e}; step "
-          f"{q['step_ms']:.1f} ms (one rank alone {q['single_step_ms']:.1f}"
-          f" ms); launches a rank "
+    print(f"[dryrun_mp] (c) 2 x 2 qwen3-4b sig-MMD with Adafactor (depth "
+          f"{q['layers']}, {q['shape'][0]} x {q['shape'][1]}) under "
+          f"{q['rules']} (rank 0's block {q['block']}): {dr_train_line(q)}; "
+          f"launches a rank "
           f"{[r['qwen_train']['launches_per_rank'] for r in worlds[4]]}",
           flush=True)
+    for arch, f in r4["family_train"].items():
+        print(f"[dryrun_mp] (f) 2 x 2 {arch} at full width, depth "
+              f"{f['layers']}, batch {f['batch']} (sequences, tokens), LM "
+              f"loss, Adafactor {len(f['losses'])} steps under {f['rules']} "
+              f"(rank 0's block {f['block']}): {dr_train_line(f)}; "
+              f"{f['local_params']} of {f['full_params']} parameters on "
+              f"rank 0", flush=True)
     d = r4["decode"]
     B, P, new, max_len = d["cp_shape"]
     print(f"[dryrun_mp] 2 x 2 qwen3-4b as published, greedy "
@@ -6851,15 +7034,21 @@ def phase_dryrun_mp(seed: int) -> dict:
               f"forward by tag {e['all_gathers']}; kernel launches "
               f"{[r['prefill'][arch]['launches'] for r in worlds[4]]}",
               flush=True)
+    w = r4["whisper_train"]
     dry = {"whisper": dr_compare("whisper", predicted["whisper"],
-                                 w["measured"]),
+                                 w["seq"]["measured"], w["seq"]["by_tag"]),
+           "whisper_default": dr_compare(
+               "whisper under the default rules",
+               predicted["whisper_default"], w["default"]["measured"],
+               w["default"]["by_tag"]),
            "qwen": dr_compare("qwen3-4b sig-MMD", predicted["qwen"],
-                              q["measured"])}
+                              q["measured"], q["by_tag"])}
     print(f"[dryrun_mp] dry run on AbstractMesh((2, 2)) against rank 0: "
           + "; ".join(f"{k}: parameters {v['param_bytes']} B, Adafactor "
                       f"state {v['opt_state_bytes']} B (equal), one "
                       f"forward's collectives {v['forward']} (equal), a "
                       f"step's {v['step_collectives']}, "
+                      f"by tag {v['step_by_tag']} (equal), "
                       f"{v['flops_per_dev']:.4e} FLOPs a rank, terms "
                       f"{ {t: float(f'{x:.4g}') for t, x in v['t_s'].items()} }"
                       f", {v['wall_s']:.1f} s"

@@ -10,11 +10,12 @@ the sharded results are DTensors of the true global shape with no padding
 left in them.  (Port-only module: the reference's arrays carry their
 layout.)
 
-Under a ``"seq"`` rule (the reference's prefill rule) a placed leaf is
-also cut on its sequence: :func:`rows_scope` installs that split with the
-rows (``Rows.seq``), and the layers that run a block of a prompt read it
-(:func:`current_seq`); the paths that cannot refuse it
-(:func:`refuse_seq`).
+Under a ``"seq"`` rule (``launch.dryrun.rules_for``'s prefill and train
+cells) a placed leaf is also cut on its sequence: :func:`rows_scope`
+installs that split with the rows (``Rows.seq``), and the layers that run
+a block of a sequence read it (:func:`current_seq`); the paths that cannot
+refuse it (:func:`refuse_seq`).  A loss over such a batch is summed over
+the ranks of every axis that splits it (:func:`shard_group`).
 """
 from __future__ import annotations
 
@@ -95,14 +96,17 @@ def from_rows(local: torch.Tensor, bmesh, B: int):
 
 
 def rows_like(local: torch.Tensor, ref):
-    """``local`` rows laid out as the batch DTensor ``ref`` is (same mesh,
-    placements and global row count); ``local`` itself when ``ref`` is a
-    plain tensor."""
-    if not is_dtensor(ref):
+    """``local`` rows laid out as the batch DTensor ``ref``'s rows are (same
+    mesh, its rows over the same axes, replicated over the others, which
+    may cut its sequence; the global row count); ``local`` itself when
+    ``ref`` is a plain tensor or holds every row."""
+    if not is_dtensor(ref) or not _sharding_axes(ref, 0):
         return local
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     shape = (ref.shape[0],) + tuple(local.shape[1:])
-    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in ref.placements)
+    return DTensor.from_local(local, ref.device_mesh, rows,
                               run_check=False, shape=torch.Size(shape),
                               stride=_contiguous_stride(shape))
 
@@ -117,6 +121,25 @@ def group_of(x):
     names = tuple(n for n, p in zip(axis_names(mesh), x.placements)
                   if isinstance(p, Shard) and p.dim == 0)
     return batch_mesh(mesh, names).get_group()
+
+
+def shard_axes(x) -> tuple:
+    """The mesh axes (in mesh order) over which a batch DTensor is split
+    on any dimension: its rows' and, under the ``"seq"`` rule, its
+    sequence's; the ranks along them hold different tokens."""
+    from torch.distributed.tensor import Shard
+    return tuple(n for n, p in zip(axis_names(x.device_mesh), x.placements)
+                 if isinstance(p, Shard))
+
+
+def shard_group(x):
+    """The process group over :func:`shard_axes` (its whole mesh when that
+    is 1-D): the ranks over which a loss of the batch DTensor ``x`` is
+    summed."""
+    mesh = x.device_mesh
+    if mesh.ndim == 1:
+        return mesh.get_group()
+    return batch_mesh(mesh, shard_axes(x)).get_group()
 
 
 def to_local(x):
@@ -227,8 +250,22 @@ def current_seq():
     return None if rows is None else rows.seq
 
 
-ITEM_21 = ("ROADMAP item 21's remainder (training, decode, MoE and MLA "
-           "under a sequence split)")
+ITEM_21 = ("ROADMAP item 21's remainder (decode, MoE and MLA under a "
+           "sequence split, and tensor parallelism over the axis that "
+           "cuts it)")
+
+
+def whole_seq(x, dim: int = 1, *, tag: str = "gather"):
+    """A batch DTensor whose sequence (dimension ``dim``) is cut, made
+    whole: this rank's block all-gathered over the split's group, placed
+    on its rows only (not differentiable: data, such as reference paths
+    or a mask).  Anything else comes back as it is."""
+    sp = seq_split(x, dim)
+    if sp is None:
+        return x
+    from . import collectives as C
+    return rows_like(C.all_gather(x.to_local(), sp.group, dim=dim, tag=tag),
+                     x)
 
 
 def batch_seq(batch: dict):
@@ -247,15 +284,15 @@ def batch_seq(batch: dict):
 def refuse_seq(where: str, batch: dict | None = None) -> None:
     """Raise ``NotImplementedError`` when the innermost :func:`rows_scope`
     (or the placed ``batch``) holds a block of a sequence cut over the
-    ``"seq"`` rule's axes: only the prefill runs such a block; ``where``
-    names the path refused."""
+    ``"seq"`` rule's axes: only the prefill and the train and eval steps
+    run such a block; ``where`` names the path refused."""
     if current_seq() is not None or (batch is not None
                                      and batch_seq(batch) is not None):
         raise NotImplementedError(
             f"{where} on a batch whose sequence is cut over the mesh (the "
             f"'seq' rule) would compute a block as if it were the whole "
-            f"prompt: only the prefill runs under a sequence split; "
-            f"{ITEM_21} is not ported")
+            f"sequence: only the prefill and the train and eval steps run "
+            f"under a sequence split; {ITEM_21} is not ported")
 
 
 @contextlib.contextmanager
@@ -277,10 +314,20 @@ def microbatches(x, n: int) -> list:
     shard of those rows, gathered from the ranks that hold them (one
     all-gather of the leaf's rows over the batch group a step; every
     microbatch must split evenly, B divisible by n times the shard
-    count).  A plain leaf is sliced on its first axis."""
-    if not is_dtensor(x):
-        per = x.shape[0] // n
-        return [x[i * per:(i + 1) * per] for i in range(n)]
+    count), its block of the sequence kept.  A plain leaf, or a placed one
+    whose rows are whole, is sliced on its first axis."""
+    from torch.distributed.tensor import DTensor
+
+    def placed(loc):
+        shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+        return DTensor.from_local(loc, x.device_mesh, x.placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=_contiguous_stride(shape))
+    if not is_dtensor(x) or not _sharding_axes(x, 0):
+        loc = to_local(x)
+        per = loc.shape[0] // n
+        parts = [loc[i * per:(i + 1) * per] for i in range(n)]
+        return [placed(p) for p in parts] if is_dtensor(x) else parts
     import torch.distributed as dist
     from . import collectives as C
     B, group = x.shape[0], group_of(x)
@@ -291,9 +338,5 @@ def microbatches(x, n: int) -> list:
             f"rows must split evenly, B divisible by {n * P}")
     whole = C.all_gather(x.to_local(), group, tag="microbatch")
     per = B // (n * P)
-    from torch.distributed.tensor import DTensor
-    shape = (B // n,) + tuple(whole.shape[1:])
-    return [DTensor.from_local(
-        whole[(i * P + r) * per:(i * P + r + 1) * per], x.device_mesh,
-        x.placements, run_check=False, shape=torch.Size(shape),
-        stride=_contiguous_stride(shape)) for i in range(n)]
+    return [placed(whole[(i * P + r) * per:(i * P + r + 1) * per])
+            for i in range(n)]

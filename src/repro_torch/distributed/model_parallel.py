@@ -10,7 +10,7 @@ each parameter, and records the parameter's :class:`Placement` on the
 
 - a dimension sharded over an axis other than ``"model"`` (``"fsdp"`` ->
   ``"data"``) is ZeRO-3: ``p[key]`` all-gathers it before its layer runs
-  (:class:`FsdpGather`), and the backward reduce-scatters the gradient
+  (:class:`GatherScatter`), and the backward reduce-scatters the gradient
   back to the shard, summed over the data ranks;
 - a dimension sharded over ``"model"`` is a tensor-parallel block: the
   layer code (:mod:`repro_torch.models.layers`, ``transformer``, ``ssm``)
@@ -22,6 +22,16 @@ each parameter, and records the parameter's :class:`Placement` on the
   computation needs the whole of a split tensor (all-gather forward, this
   rank's block of the gradient backward: the computation downstream is
   the same on every rank of the group).
+
+Under the ``"seq"`` rule the ranks of a group hold different blocks of
+every sequence, and the blocks exchange activations through two more
+pairs: :func:`seq_gather` (all-gather forward, reduce-scatter of the
+gradient backward: each rank computes only its own block's share from the
+gathered tensor, so every rank's gradient of every block is summed) and
+:func:`seq_scatter` (reduce-scatter forward, all-gather backward).  A
+gather whose consumer every rank of the group runs the same is
+:func:`gather_from`.  Each backward collective is logged under its
+forward tag with ``_grad`` appended.
 
 A decode cache is laid out as the reference's ``cache_specs`` place it
 (:func:`local_cache`): a :class:`LocalCache` of this rank's blocks, from
@@ -150,21 +160,40 @@ class GatherFrom(torch.autograd.Function):
                 None, None, None, None)
 
 
-class FsdpGather(torch.autograd.Function):
-    """All-gather of a parameter shard along ``dim`` forward,
-    reduce-scatter of its gradient backward (ZeRO-3): the gradient comes
-    back to the shard summed over the group's ranks, each of which ran its
-    own rows."""
+class GatherScatter(torch.autograd.Function):
+    """All-gather along ``dim`` forward, reduce-scatter (sum) of the
+    gradient backward: a tensor split over the group made whole for
+    computations that differ from rank to rank, each of which
+    differentiates its own share (ZeRO-3's parameter gather, the sequence
+    blocks' exchanges): the gradient comes back to this rank's block
+    summed over the group's ranks."""
 
     @staticmethod
-    def forward(ctx, w, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return C.all_gather(w, group, dim=dim, tag="fsdp_gather")
+    def forward(ctx, x, group, dim, tag, grad_tag):
+        ctx.group, ctx.dim, ctx.grad_tag = group, dim, grad_tag
+        return C.all_gather(x, group, dim=dim, tag=tag)
 
     @staticmethod
     def backward(ctx, g):
         return C.reduce_scatter(g.contiguous(), ctx.group, dim=ctx.dim,
-                                tag="fsdp_grad"), None, None
+                                tag=ctx.grad_tag), None, None, None, None
+
+
+class ScatterGather(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward, all-gather of the gradient
+    backward: partial sums over the whole group's rows added and cut back
+    to each rank's block (the vocabulary-parallel embedding of a sequence
+    in blocks)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, tag, grad_tag):
+        ctx.group, ctx.dim, ctx.grad_tag = group, dim, grad_tag
+        return C.reduce_scatter(x.contiguous(), group, dim=dim, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return C.all_gather(g.contiguous(), ctx.group, dim=ctx.dim,
+                            tag=ctx.grad_tag), None, None, None, None
 
 
 def copy_to(x, split: Split | None, tag: str = "tp_in"):
@@ -180,6 +209,21 @@ def gather_from(x, split: Split | None, dim: int = -1,
     if split is None:
         return x
     return GatherFrom.apply(x, split.group, split.index, dim % x.ndim, tag)
+
+
+def seq_gather(x, split: Split, dim: int, tag: str):
+    """Every block of ``x`` over the split's group, concatenated along
+    ``dim`` (:class:`GatherScatter`: the backward sums the blocks'
+    gradients over the group)."""
+    return GatherScatter.apply(x, split.group, dim % x.ndim, tag,
+                               tag + "_grad")
+
+
+def seq_scatter(x, split: Split, dim: int, tag: str):
+    """The sum of every rank's ``x`` over the split's group, cut to this
+    rank's block along ``dim`` (:class:`ScatterGather`)."""
+    return ScatterGather.apply(x, split.group, dim % x.ndim, tag,
+                               tag + "_grad")
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +244,8 @@ def fsdp_view(w: torch.Tensor, placement: Placement) -> torch.Tensor:
         if axes != MODEL:
             sp = axes_split(mesh, axes)
             if sp.size > 1:
-                w = FsdpGather.apply(w, sp.group, d)
+                w = GatherScatter.apply(w, sp.group, d, "fsdp_gather",
+                                        "fsdp_grad")
     return w
 
 
@@ -414,12 +459,53 @@ def gather_decode_rows(x: torch.Tensor, cache, *, tag: str = "decode_rows"):
                                                tag=tag)
 
 
-def grads_reduced_in_backward(placement: Placement | None) -> bool:
-    """True when the parameter's gradient is summed over the data ranks
-    by its FSDP reduce-scatter (a dimension sharded over an axis other
-    than the model axis)."""
-    return placement is not None and any(
-        a != MODEL for _, a in _dims(placement))
+def _names(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def grad_reduction(placement: Placement | None, mesh,
+                   batch_axes: tuple) -> tuple[tuple, int]:
+    """How one rank's gradient of a parameter becomes the step's, the
+    batch's rows and blocks split over the mesh axes ``batch_axes``: ->
+    (the axes to all-reduce it over, the count to divide it by).  The
+    backward of an FSDP gather has summed it over the parameter's axes
+    other than the model axis; where the batch is not split over one of
+    them, each of its ranks computed the same share and the sum counts it
+    that many times.  A batch axis the parameter is not held over is
+    summed by the all-reduce; a model-axis block is this rank's whole
+    gradient of it (tensor parallelism, or the vocabulary's exchanges
+    under a sequence split)."""
+    held, summed = set(), set()
+    if placement is not None:
+        for _, axes in _dims(placement):
+            held.update(_names(axes))
+            if axes != MODEL:
+                summed.update(_names(axes))
+    over = 1
+    for a in summed - set(batch_axes):
+        over *= axis_size(mesh, a)
+    return tuple(a for a in batch_axes if a not in held), over
+
+
+def refuse_tensor_parallel(params, seq, where: str) -> None:
+    """A sequence cut over the model axis leaves that axis's ranks with
+    different tokens, so no layer may split its weights over it (the
+    vocabulary excepted: ``transformer.embed`` and ``vocab_logits``
+    handle it); ``where`` names the path refused.  ``rules_for``'s train
+    and prefill cells turn tensor parallelism off."""
+    if seq is None or MODEL not in seq.axes or \
+            not isinstance(params, torch.nn.Module):
+        return
+    from .batch import ITEM_21
+    split = sorted(n for n, pl in placements(params).items()
+                   if MODEL in pl.spec
+                   and n.split(".")[-1] not in ("embed", "lm_head"))
+    if split:
+        raise NotImplementedError(
+            f"{where} with the sequence cut over the model axis and "
+            f"{split[0]} (and {len(split) - 1} more) tensor-parallel over "
+            f"it: {ITEM_21} is not ported; use rules_for's train and "
+            f"prefill rules (heads, kv_heads and ff None)")
 
 
 def block_share(placement: Placement | None, mesh) -> float:

@@ -30,15 +30,17 @@ From it:
   tensors (operation outputs, views excluded), which holds the tensors
   saved for the backward, checkpointed layers' included.
 
-The port executes the reference's layouts with one exception, and the
-numbers show it: a train cell runs with the sequence whole on every rank
-(``exec_rules`` drops ``"seq"``; ``rules_for`` gives it to no train cell
-at the reference's shapes, and training under a sequence split is not
-ported).  A prefill cell runs the reference's ``seq: "model"`` rule:
-each rank runs its rows of the requests and its block of the prompt, the
-blocks exchanging keys and values for attention, boundary rows for the
-convolution and the token shifts, and one state a block for the Mamba2
-and RWKV6 recurrences (``serve.engine.make_prefill_step``).  Decode runs
+The port executes the reference's layouts.  A prefill or train cell
+under the reference's ``seq: "model"`` rule (``rules_for`` gives it to
+the cells whose batch 256 does not divide: every prefill cell of a dense
+model, and a train cell of such a batch) runs it: each rank runs its rows
+and its block of every sequence, the blocks exchanging keys and values
+for attention, boundary rows for the convolution and the token shifts,
+and one state a block for the Mamba2 and RWKV6 recurrences
+(``serve.engine.make_prefill_step``, ``train.make_train_step``); a train
+step's backward sums each exchange's gradients back to the blocks, and
+the dry run counts those collectives under their own tags (``sp_kv_grad``,
+...).  Decode runs
 the reference's layout: each rank decodes its rows of the requests, and
 each attention cache is cut on its sequence over ``kv_seq``'s axes
 (``model_parallel.local_cache``), the blocks' softmax partials combined
@@ -132,14 +134,6 @@ def rules_for(arch: str, shape: str, overrides: dict | None = None) -> dict:
     if overrides:
         rules.update(overrides)
     return rules
-
-
-def exec_rules(rules: dict, kind: str = "train") -> dict:
-    """The rules the port executes a cell of ``kind`` under: a prefill
-    cell's as they are (its ``"seq"`` rule cuts the prompt), another
-    cell's with the sequence whole (training under a sequence split is
-    not ported)."""
-    return dict(rules) if kind == "prefill" else dict(rules, seq=None)
 
 
 def production_mesh(multi_pod: bool = False) -> AbstractMesh:
@@ -278,9 +272,26 @@ def _stats(records) -> dict:
 # three short lengths and each number is read off the parabola through
 # them.  Two are not polynomials and are estimates (the result's notes
 # say so): the peak live bytes, on the line through the two longest runs,
-# and the matmuls' duplication, the longest run's.
+# and the matmuls' duplication, the longest run's.  The cost and the peak
+# follow the block of the sequence a rank runs: under a sequence split
+# over m ranks the runs are m times POLY_SEQ's lengths, so that each
+# rank's block is POLY_SEQ's (shorter blocks leave the peak on the
+# optimizer's, not on the line).
 POLY_FAMILIES = ("rwkv",)
 POLY_SEQ = (32, 64, 128)
+
+
+def seq_blocks(rules: dict, mesh, seq: int) -> int:
+    """The number of blocks the ``"seq"`` rule cuts a sequence of ``seq``
+    into on ``mesh`` (1 where it is whole or not divided)."""
+    axes = rules.get("seq")
+    names = () if axes is None else (axes,) if isinstance(axes, str) \
+        else tuple(axes)
+    m = 1
+    for a in names:
+        if a in mesh.mesh_dim_names:
+            m *= mesh.shape[mesh.mesh_dim_names.index(a)]
+    return m if seq % m == 0 else 1
 
 
 def _extrapolate(runs: list, seqs: tuple, seq: int) -> dict:
@@ -356,9 +367,10 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
     ``forward_collectives`` (also log one backbone forward's
     collectives).  ``keep_hlo`` keeps the collective log's records.
 
-    An rwkv train or prefill cell longer than ``POLY_SEQ[-1]`` tokens runs
-    at the three lengths of ``POLY_SEQ`` and is extrapolated
-    (``extrapolated_from_seq`` in the result)."""
+    An rwkv train or prefill cell whose blocks a rank are longer than
+    ``POLY_SEQ[-1]`` tokens runs at the three lengths of ``POLY_SEQ``
+    times the number of blocks (:func:`seq_blocks`) and is extrapolated
+    (``extrapolated_from_seq`` in the result: the runs' lengths)."""
     cfg = cfg if cfg is not None else get_config(arch)
     ok, why = SP.cell_is_runnable(arch, shape)
     if not ok:
@@ -367,12 +379,12 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
     if rules is None:
         rules = rules_for(arch, shape, rule_overrides)
     kind = SP.SHAPES[shape]["kind"]
-    run_rules = exec_rules(rules, kind)
     seq = SP.SHAPES[shape]["seq"]
+    lengths = tuple(s * seq_blocks(rules, amesh, seq) for s in POLY_SEQ)
     if cfg.family in POLY_FAMILIES and kind != "decode" and batch is None \
-            and params is None and seq > POLY_SEQ[-1]:
+            and params is None and seq > lengths[-1]:
         runs = []
-        for s_short in POLY_SEQ:
+        for s_short in lengths:
             name = f"{shape}@seq{s_short}"
             SP.SHAPES[name] = dict(SP.SHAPES[shape], seq=s_short)
             try:
@@ -383,7 +395,7 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
                     rules=rules))
             finally:
                 del SP.SHAPES[name]
-        res = _extrapolate(runs, POLY_SEQ, seq)
+        res = _extrapolate(runs, lengths, seq)
         model_flops = SP.flops_estimate(cfg, shape)
         res.update(shape=shape, model_flops_global=model_flops,
                    useful_flops_ratio=model_flops / max(
@@ -396,7 +408,7 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
     param_bytes = tree_bytes(model)
     opt_bytes = 0
     C.LOG.reset()
-    with sharding_ctx(dmesh, run_rules):
+    with sharding_ctx(dmesh, rules):
         if kind == "train":
             if opt is None:
                 opt = adafactor() if opt_name == "adafactor" else adamw()
@@ -444,10 +456,11 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
     temp_note = ("peak live bytes of the step's intermediate tensors "
                  "(operation outputs, views excluded), counted on meta "
                  "tensors")
-    if kind == "prefill" and run_rules.get("seq") is not None:
-        temp_note += (", of this rank's block of the prompt (the 'seq' "
-                      "rule), the whole prompt's keys and values gathered "
-                      "a layer")
+    if kind != "decode" and rules.get("seq") is not None:
+        what = "prompt" if kind == "prefill" else "sequence"
+        temp_note += (f", of this rank's block of the {what} (the 'seq' "
+                      f"rule), the whole {what}'s keys and values gathered "
+                      f"a layer")
     result = {
         "arch": arch, "shape": shape, "kind": kind,
         "mesh": "x".join(map(str, amesh.shape)),
@@ -477,7 +490,7 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
         "opt": opt_name if kind == "train" else None,
         "remat": remat if kind != "decode" else None,
         "rules": {k: str(v) for k, v in rules.items()},
-        "executed_rules": {k: str(v) for k, v in run_rules.items()},
+        "executed_rules": {k: str(v) for k, v in rules.items()},
     }
     if fwd is not None:
         result["forward_collectives"] = fwd

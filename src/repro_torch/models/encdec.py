@@ -30,15 +30,18 @@ the cross K/V alike: its rows of the requests, and its block of the
 decoder positions and of the frames where ``kv_seq``'s axes divide them
 (1,500 frames stay whole over 16 ranks).
 
-In a prefill under the ``"seq"`` rule the frames and the decoder tokens
-are both cut over the same group (``distributed.batch.Rows.seq``): the
-encoder adds its block's rows of the sinusoids and its self-attention
-attends the block's queries over the gathered frames, the decoder adds
-its block's rows of ``pos_dec`` and attends causally over the gathered
-tokens, and the cross-attention gathers the decoder's queries (448 rows,
-where the frames are 32k), attends them over this rank's block of the
-frames, merges the blocks' softmax partials (``layers.combine_blocks``)
-and keeps its block's query rows.
+In a prefill or a train step under the ``"seq"`` rule the frames and the
+decoder tokens are both cut over the same group (``distributed.batch.
+Rows.seq``; :func:`placed_hidden`): the encoder adds its block's rows of
+the sinusoids and its self-attention attends the block's queries over the
+gathered frames, the decoder adds its block's rows of ``pos_dec`` and
+attends causally over the gathered tokens, and the cross-attention
+gathers the decoder's queries (448 rows, where the frames are 32k),
+attends them over this rank's block of the frames, merges the blocks'
+softmax partials (``layers.combine_blocks``) and keeps its block's query
+rows.  Every exchange is differentiable; a train step whose frames are
+cut and whose tokens are not (so that every rank of the group computes
+the same decoder) raises.
 """
 from __future__ import annotations
 
@@ -47,10 +50,9 @@ import torch
 
 from ..device import resolve_device
 from ..distributed import batch as DB
-from ..distributed import collectives as C
 from ..distributed.ctx import current_mesh, current_rules
 from ..distributed.model_parallel import (cache_split, copy_to, local_cache,
-                                          reduce_from)
+                                          reduce_from, seq_gather)
 from .config import ModelConfig
 from .layers import (ParamTree, _attend_cache, _full, _init, _sdpa, _weight,
                      _zeros, as_generator, attention, combine_blocks,
@@ -147,7 +149,7 @@ def _cross_attention(p, x: torch.Tensor, enc_kv, cfg,
     elif qseq is None:
         out = _attend_cache(q, k, v, None, seq, tp if every else None)
     else:
-        q = C.all_gather(q, qseq.group, dim=1, tag="sp_cross_q")
+        q = seq_gather(q, qseq, 1, "sp_cross_q")
         out = combine_blocks(*decode_partials(q, k, v), seq, tag="sp_cross")
         out = out.narrow(1, qseq.index * S, S).to(v.dtype).reshape(
             B, S, H * hd)
@@ -230,18 +232,48 @@ def decode_train(params, cfg: ModelConfig, enc_out: torch.Tensor, tokens,
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
+def placed_hidden(params, cfg: ModelConfig, batch: dict,
+                  remat: str = "dots", head=None):
+    """The decoder's final hidden states of a batch whose leaves may be
+    placed (DTensors of this rank's rows, and of its block of the frames
+    and the tokens under the ``"seq"`` rule): the encoder runs inside the
+    frames' rows scope, the decoder inside the tokens', and ``head(hidden)``
+    (when given) inside it too -> (hidden or head's result, the split of
+    the tokens' sequence or None).  A plain batch is whole, or the block
+    of an enclosing scope's split."""
+    frames, tokens = batch["frames"], batch["tokens"]
+    with DB.rows_scope(frames):
+        enc_seq = DB.current_seq()
+        enc = encode(params, cfg, DB.to_local(frames), remat=remat)
+    with DB.rows_scope(tokens):
+        seq = DB.current_seq()
+        if enc_seq is not None and seq is None and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"training on frames cut over {enc_seq.axes} with the "
+                f"decoder's tokens whole (a sequence the split does not "
+                f"divide): {DB.ITEM_21} is not ported")
+        out = decode_train(params, cfg, enc, DB.to_local(tokens),
+                           remat=remat, enc_seq=enc_seq)
+        if head is not None:
+            out = head(out)
+    return out, seq
+
+
 def lm_loss(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
     """batch: frames (B, F, d), tokens (B, S), labels (B, S) (< 0 =
     ignore).  The token NLL through the tied output embedding (over a
     vocabulary split, this rank's block of the logits); no z-loss and no
-    aux loss.  Returns (loss, metrics)."""
-    DB.refuse_seq("the encoder-decoder's LM loss")
-    enc = encode(params, cfg, batch["frames"], remat=remat)
-    hidden = decode_train(params, cfg, enc, batch["tokens"], remat=remat)
-    logits, sp = vocab_logits(params, cfg, hidden)
-    labels = batch["labels"]
+    aux loss.  Returns (loss, metrics).  On a placed batch it is this
+    rank's rows' and blocks' loss (:func:`placed_hidden`), ``ntok`` their
+    count."""
+    labels = DB.to_local(batch["labels"])
+
+    def head(hidden):
+        logits, sp = vocab_logits(params, cfg, hidden)
+        return _token_nll(logits.float(), labels, sp)[0]
+
+    nll, _ = placed_hidden(params, cfg, batch, remat, head)
     valid = (labels >= 0).float()
-    nll, _ = _token_nll(logits.float(), labels, sp)
     ntok = torch.clamp(valid.sum(), min=1.0)
     loss = (nll * valid).sum() / ntok
     return loss, {"loss": loss, "ntok": ntok}

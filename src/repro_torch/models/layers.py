@@ -29,15 +29,18 @@ computes its block's max, sum of exponentials and exp-weighted values in
 float32, and the blocks are merged by the log-sum-exp rule after one
 all-gather over the split's group (:func:`combine_blocks`).
 
-In a prefill whose prompt is cut on its sequence (the reference's
+In a prefill or a train step whose sequence is cut (the reference's
 ``"seq"`` rule, ``distributed.batch.Rows.seq``) each rank runs its block
 of the positions: attention all-gathers the block's keys and values over
-the split's group and attends its queries over the whole prompt under the
-causal mask offset to the block's first position (GSPMD's program for
+the split's group and attends its queries over the whole sequence under
+the causal mask offset to the block's first position (GSPMD's program for
 queries cut on the sequence against whole keys), and the vocabulary-
 parallel embedding looks up the group's tokens and reduce-scatters the
-rows back to their blocks.  These exchanges are not differentiable: the
-sequence split is an inference path (:func:`prompt_split`).
+rows back to their blocks.  Each exchange is differentiable
+(``model_parallel.seq_gather`` / ``seq_scatter``): every rank computes
+only its own block's share from a gathered tensor, so the backward sums
+the blocks' gradients over the group (a reduce-scatter; an all-gather
+for the embedding's reduce-scatter).
 """
 from __future__ import annotations
 
@@ -49,11 +52,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributed import batch as DB
-from ..distributed import collectives as C
 from ..distributed.collectives import reduce_sum
 from ..distributed.model_parallel import (MODEL, copy_to, fsdp_view,
                                           full_view, gather_from,
-                                          model_split, reduce_from)
+                                          model_split, reduce_from,
+                                          seq_gather)
 
 
 class ParamTree(nn.Module):
@@ -412,38 +415,33 @@ def pack_partials(o, m, s) -> torch.Tensor:
 
 def combine_blocks(o, m, s, seq, tag: str = "cp_combine") -> torch.Tensor:
     """This rank's partials merged with the other blocks' of the sequence
-    group (one all-gather of the packed triples)."""
-    return merge_partials(C.all_gather(pack_partials(o, m, s)[None],
-                                       seq.group, dim=0, tag=tag))
+    group (one all-gather of the packed triples; its backward sums the
+    merged result's gradients over the group, whose ranks each keep their
+    own rows of it)."""
+    return merge_partials(seq_gather(pack_partials(o, m, s)[None], seq, 0,
+                                     tag))
 
 
 def prompt_split(x: torch.Tensor):
     """The :class:`~repro_torch.distributed.model_parallel.Split` of the
-    prompt's sequence of which ``x`` (B, S, ...) is this rank's block
-    (``distributed.batch.current_seq``), None when the sequence is whole.
-    The blocks exchange detached tensors, so a block that would be
-    differentiated raises."""
-    seq = DB.current_seq()
-    if seq is not None and torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            f"a gradient through a sequence cut over the mesh: the "
-            f"sequence split is an inference path; {DB.ITEM_21} is not "
-            f"ported")
-    return seq
+    sequence of which ``x`` (B, S, ...) is this rank's block
+    (``distributed.batch.current_seq``), None when the sequence is
+    whole."""
+    return DB.current_seq()
 
 
 def halo_rows(x: torch.Tensor, n: int, seq, tag: str) -> torch.Tensor:
     """The n rows of the sequence just before this rank's block ``x``
     (B, S, ...): the earlier blocks' last rows, from one all-gather of
-    each block's tail over the split's group, zeros before the prompt's
-    start."""
+    each block's tail over the split's group, zeros before the sequence's
+    start.  Every rank takes its rows by the same operations (only the
+    offset differs), so every rank's backward reaches the gather."""
     t = min(n, x.shape[1])
-    tails = C.all_gather(x[:, x.shape[1] - t:], seq.group, dim=1, tag=tag)
-    prev = tails[:, :seq.index * t]
-    if prev.shape[1] < n:
-        prev = torch.cat([prev.new_zeros((x.shape[0], n - prev.shape[1])
-                                         + tuple(x.shape[2:])), prev], dim=1)
-    return prev[:, prev.shape[1] - n:]
+    tails = seq_gather(x[:, x.shape[1] - t:], seq, 1, tag)
+    prev = torch.cat([tails.new_zeros((x.shape[0], n) + tuple(x.shape[2:])),
+                      tails], dim=1)
+    end = n + seq.index * t
+    return prev[:, end - n:end]
 
 
 def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
@@ -498,7 +496,7 @@ def _prefill_attend(q, k, v, causal: bool, seq) -> torch.Tensor:
     from the block's first position."""
     if seq is None:
         return _sdpa(q, k, v, causal)
-    kv = C.all_gather(torch.stack([k, v]), seq.group, dim=2, tag="sp_kv")
+    kv = seq_gather(torch.stack([k, v]), seq, 2, "sp_kv")
     return _sdpa(q, kv[0], kv[1], causal, q_offset=seq.index * q.shape[1])
 
 

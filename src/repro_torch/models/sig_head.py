@@ -101,6 +101,15 @@ def _learned_path(p, hidden: torch.Tensor, sc: SigHeadConfig, mask=None):
     count.
     """
     path = (hidden @ p["proj"].to(hidden.dtype)).float()
+    return normalise_path(path, sc, mask)
+
+
+def normalise_path(path: torch.Tensor, sc: SigHeadConfig, mask=None):
+    """A projected path (B, S, channels) -> the head's path: every
+    ``sc.stride``-th point from the first, scaled by 1/√(points); with the
+    mask (B, S), ``(path, lengths)`` as :func:`_learned_path`.  The
+    stride, the scale and the lengths are the whole sequence's: a block of
+    it is gathered first."""
     if sc.stride > 1:
         path = path[:, ::sc.stride]
     if mask is None:

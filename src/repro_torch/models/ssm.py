@@ -21,14 +21,17 @@ back.  RWKV6 runs its WKV heads split over the model axis (``w_r``,
 state cached per head) and its channel mix as a column/row-parallel pair,
 ``w_cr``'s gate columns gathered.
 
-In a prefill whose prompt is cut on its sequence (``distributed.batch.
+In a prefill or a train step whose sequence is cut (``distributed.batch.
 Rows.seq``) each rank runs its block: the causal convolution and the
 token shifts take the rows before the block from one all-gather of each
 block's tail (:func:`~repro_torch.models.layers.halo_rows`), and each
 recurrence runs its block from a zero state, all-gathers every block's
 (final state, total decay), folds the earlier blocks' into its incoming
 state (:func:`fold_states`) and adds that state's share to its outputs,
-which by linearity equals a scan started from it.
+which by linearity equals a scan started from it.  The gathers are
+differentiable (``model_parallel.seq_gather``): the gradient of an
+incoming state reaches the earlier blocks through their reduce-scatter,
+and the fold is plain torch.
 """
 from __future__ import annotations
 
@@ -36,8 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..distributed import collectives as C
-from ..distributed.model_parallel import copy_to, gather_from, reduce_from
+from ..distributed.model_parallel import (copy_to, gather_from, reduce_from,
+                                          seq_gather)
 from .layers import _full, _init, _split, _weight, _zeros, halo_rows, \
     model_axis, prompt_split, rms_norm
 
@@ -101,8 +104,10 @@ def fold_states(states: torch.Tensor, decays: torch.Tensor,
     """The state entering block ``index`` of a linear recurrence cut into
     blocks, from each block's final state from a zero start (P, ...) and
     its total decay (P, ..., broadcast against a state):
-    Σ_{j<index} S_j ∏_{j<l<index} decay_l."""
-    S = torch.zeros_like(states[0])
+    Σ_{j<index} S_j ∏_{j<l<index} decay_l.  The first block's is zero, as
+    a product with the gathered states, so that every rank's backward
+    reaches their gather."""
+    S = states[0] * 0
     for j in range(index):
         S = S * decays[j] + states[j]
     return S
@@ -114,10 +119,9 @@ def _gather_states(state: torch.Tensor, decay: torch.Tensor, seq):
     decay's shape)."""
     B = state.shape[0]
     n = state[0].numel()
-    g = C.all_gather(torch.cat([state.reshape(B, -1),
-                                decay.reshape(B, -1).to(state.dtype)],
-                               dim=1)[None], seq.group, dim=0,
-                     tag="sp_state")
+    g = seq_gather(torch.cat([state.reshape(B, -1),
+                              decay.reshape(B, -1).to(state.dtype)],
+                             dim=1)[None], seq, 0, "sp_state")
     return g[:, :, :n].reshape((-1,) + tuple(state.shape)), \
         g[:, :, n:].reshape((-1,) + tuple(decay.shape))
 

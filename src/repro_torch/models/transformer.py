@@ -24,7 +24,12 @@ On a model sharded over a model axis the embedding is vocab-parallel (a
 masked lookup of this rank's rows, summed over the model group), the
 logits are this rank's vocabulary block, and the token NLL all-reduces
 their max and sum-exp over the model group, so no rank holds the whole
-logits in training; decoding gathers them.  A cache made by
+logits in training; decoding gathers them.  Where the model axis also
+cuts the sequence (the ``"seq"`` rule) its ranks hold different tokens:
+the embedding looks up the group's tokens and reduce-scatters them back
+to the blocks, and the LM loss gathers the vocabulary's blocks of the
+output weight (its backward reduce-scatters their gradients) and takes
+each block's whole logits.  A cache made by
 :func:`init_cache` under a sharding context is this rank's block of every
 leaf (``cache_specs``), written in place: decode runs the reference's
 layout, each rank its rows of the requests (the batch over the data
@@ -45,7 +50,8 @@ from ..distributed import collectives as C
 from ..distributed.ctx import current_mesh, current_rules
 from ..distributed.model_parallel import (cache_split, copy_to,
                                           decode_rows, gather_from,
-                                          local_cache, reduce_from)
+                                          local_cache, reduce_from,
+                                          seq_gather, seq_scatter)
 from .config import ModelConfig
 from .layers import (ParamTree, _full, _init, _split, _zeros, as_generator,
                      attention, block_rows, init_attention, init_mla,
@@ -210,28 +216,39 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     """The token embeddings; vocab-parallel on a vocabulary split: each
     rank looks up the tokens of its rows of the table (zeros elsewhere)
     and the lookups are summed over the model group.  Where that group
-    also cuts the prompt's sequence (a prefill under the ``"seq"`` rule)
-    its ranks hold different tokens: each looks up the whole group's
-    tokens (gathered) and the sums are reduce-scattered back to the
-    blocks."""
+    also cuts the sequence (the ``"seq"`` rule) its ranks hold different
+    tokens: each looks up the whole group's tokens (gathered) and the sums
+    are reduce-scattered back to the blocks (the backward all-gathers the
+    blocks' gradients, so each rank's rows of the table take every
+    token's)."""
     sp = _split(params, "embed", 0)
     if sp is None:
         return _full(params, "embed")[tokens.long()]
-    seq = DB.current_seq()
-    if seq is not None and set(seq.axes) & set(sp.axes):
-        if seq.axes != sp.axes:
-            raise NotImplementedError(
-                f"a vocabulary split over {sp.axes} with the sequence cut "
-                f"over {seq.axes}: {DB.ITEM_21} is not ported")
+    seq = _vocab_seq(sp)
+    if seq is not None:
         tokens = C.all_gather(tokens, seq.group, dim=1, tag="sp_tokens")
     w = params["embed"]
     v0, Vl = sp.block(sp.size * w.shape[0])
     loc = tokens.long() - v0
     inside = (loc >= 0) & (loc < Vl)
     x = w[loc.clamp(0, Vl - 1)] * inside[..., None].to(w.dtype)
-    if seq is not None and seq.axes == sp.axes:
-        return C.reduce_scatter(x, seq.group, dim=1, tag="sp_embed")
+    if seq is not None:
+        return seq_scatter(x, seq, 1, "sp_embed")
     return reduce_from(x, sp, tag="embed")
+
+
+def _vocab_seq(sp):
+    """The sequence split of the innermost rows scope when it cuts the
+    sequence over the axes of the vocabulary split ``sp`` (None when it
+    does not: the ranks of ``sp`` then hold the same tokens)."""
+    seq = DB.current_seq()
+    if seq is None or not set(seq.axes) & set(sp.axes):
+        return None
+    if seq.axes != sp.axes:
+        raise NotImplementedError(
+            f"a vocabulary split over {sp.axes} with the sequence cut "
+            f"over {seq.axes}: {DB.ITEM_21} is not ported")
+    return seq
 
 
 def backbone(params, cfg: ModelConfig, tokens=None, embeds=None,
@@ -274,12 +291,38 @@ def backbone(params, cfg: ModelConfig, tokens=None, embeds=None,
     return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
 
 
+def placed_backbone(params, cfg: ModelConfig, batch: dict,
+                    remat: str = "dots", head=None):
+    """:func:`backbone` over a batch whose leaves may be placed (DTensors
+    of this rank's rows, and of its block of the sequence under the
+    ``"seq"`` rule), inside the rows scope of its tokens (or embeds), and
+    ``head(hidden)`` (when given) inside it too -> (hidden or head's
+    result, the aux loss, the sequence's split or None).  A plain batch
+    is whole, or the block of an enclosing scope's split."""
+    local = {k: DB.to_local(v) for k, v in batch.items()}
+    with DB.rows_scope(batch.get("tokens", batch.get("embeds"))):
+        hidden, aux = backbone(params, cfg, tokens=local.get("tokens"),
+                               embeds=local.get("embeds"),
+                               positions=local.get("positions"),
+                               remat=remat)
+        return (hidden if head is None else head(hidden)), aux, \
+            DB.current_seq()
+
+
 def vocab_logits(params, cfg: ModelConfig, hidden: torch.Tensor):
     """-> (logits of this rank's vocabulary block, the vocabulary split);
-    the whole logits and None when the vocabulary is not split."""
+    the whole logits and None when the vocabulary is not split.  Where
+    the vocabulary's axes also cut the sequence, the ranks hold different
+    tokens: the weight's blocks are gathered (``seq_gather``: the backward
+    sums each block's gradient over the group) and the logits are the
+    block's whole vocabulary."""
     key, dim = ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
     sp = _split(params, key, dim)
-    w = params[key] if sp is not None else _full(params, key)
+    seq = None if sp is None else _vocab_seq(sp)
+    if seq is not None:
+        w, sp = seq_gather(params[key], seq, dim, "sp_vocab"), None
+    else:
+        w = params[key] if sp is not None else _full(params, key)
     if cfg.tie_embeddings:
         w = w.T
     logits = copy_to(hidden, sp) @ w.to(hidden.dtype)
@@ -320,13 +363,13 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor, sp):
 def lm_loss(params, cfg: ModelConfig, batch: dict, remat: str = "dots"):
     """batch: tokens (B, S) int, labels (B, S) int (< 0 = ignore), optional
     embeds/positions.  Returns (loss + aux + z-loss, metrics): the metrics'
-    ``loss`` is the token NLL alone."""
-    DB.refuse_seq("the LM loss")
-    hidden, aux = backbone(params, cfg, tokens=batch.get("tokens"),
-                           embeds=batch.get("embeds"),
-                           positions=batch.get("positions"), remat=remat)
-    logits, sp = vocab_logits(params, cfg, hidden)
-    labels = batch["labels"]
+    ``loss`` is the token NLL alone.  On a placed batch
+    (:func:`placed_backbone`) the loss is this rank's rows' and, under the
+    ``"seq"`` rule, its block's positions' (each its own label: the data
+    shifts them), ``ntok`` their count."""
+    (logits, sp), aux, _ = placed_backbone(
+        params, cfg, batch, remat, lambda h: vocab_logits(params, cfg, h))
+    labels = DB.to_local(batch["labels"])
     valid = (labels >= 0).float()
     nll, lse = _token_nll(logits.float(), labels, sp)
     ntok = torch.clamp(valid.sum(), min=1.0)

@@ -293,24 +293,6 @@ class SigScoreEngine:
         self._cross = None
 
 
-def _refuse_tensor_parallel(params, seq) -> None:
-    """A sequence cut over the model axis leaves that axis's ranks with
-    different tokens, so no layer may split its weights over it (the
-    vocabulary excepted: ``transformer.embed`` and the logits handle it).
-    ``rules_for``'s prefill cells turn tensor parallelism off."""
-    if seq is None or MP.MODEL not in seq.axes:
-        return
-    split = sorted(n for n, pl in MP.placements(params).items()
-                   if MP.MODEL in pl.spec
-                   and n.split(".")[-1] not in ("embed", "lm_head"))
-    if split:
-        raise NotImplementedError(
-            f"a prefill with the sequence cut over the model axis and "
-            f"{split[0]} (and {len(split) - 1} more) tensor-parallel over it:"
-            f" {DB.ITEM_21} is not ported; use rules_for's prefill rules "
-            f"(heads, kv_heads and ff None)")
-
-
 def prefill_hidden(params, cfg: ModelConfig, batch: dict,
                    remat: str = "dots"):
     """The final hidden states of this rank's block of a prefill batch ->
@@ -320,24 +302,10 @@ def prefill_hidden(params, cfg: ModelConfig, batch: dict,
     of the sequence under the ``"seq"`` rule) runs this rank's block
     inside a ``rows_scope`` of it; whisper's encoder runs inside the
     frames' scope and its decoder inside the tokens'."""
-    local = {k: DB.to_local(v) for k, v in batch.items()}
+    MP.refuse_tensor_parallel(params, DB.batch_seq(batch), "a prefill")
     if cfg.family == "encdec":
-        frames, tokens = batch["frames"], batch["tokens"]
-        enc_seq, seq = DB.seq_split(frames), DB.seq_split(tokens)
-        _refuse_tensor_parallel(params, enc_seq or seq)
-        with DB.rows_scope(frames):
-            enc = encdec.encode(params, cfg, local["frames"], remat=remat)
-        with DB.rows_scope(tokens):
-            hidden = encdec.decode_train(params, cfg, enc, local["tokens"],
-                                         remat=remat, enc_seq=enc_seq)
-        return hidden, seq
-    placed = batch.get("tokens", batch.get("embeds"))
-    seq = DB.seq_split(placed)
-    _refuse_tensor_parallel(params, seq)
-    with DB.rows_scope(placed):
-        hidden, _ = T.backbone(params, cfg, tokens=local.get("tokens"),
-                               embeds=local.get("embeds"),
-                               positions=local.get("positions"), remat=remat)
+        return encdec.placed_hidden(params, cfg, batch, remat)
+    hidden, _, seq = T.placed_backbone(params, cfg, batch, remat)
     return hidden, seq
 
 

@@ -40,6 +40,17 @@ rows_scope`).  The signature head and sig-MMD run on the data axis: the
 hidden states leave the backbone replicated over the model group, every
 rank of a model group computes the same head, and the Gram ring runs over
 the data subgroup.
+
+Under the reference's ``seq: "model"`` rule (``launch.dryrun.rules_for``'s
+train cells whose batch 256 does not divide) each rank runs its rows and
+its block of every sequence, forward and backward, the blocks exchanging
+activations differentiably (``model_parallel.seq_gather``).  The LM loss
+weights each rank's token mean over every rank that holds different
+tokens (``distributed.batch.shard_group``); the sig-MMD loss projects each
+block, gathers the whole path over the sequence's group (each rank keeps
+its block's gradient) and only then strides, scales and measures it, so
+every rank of the group computes the same MMD.  Each gradient is summed by
+:func:`reduce_grads`.
 """
 from __future__ import annotations
 
@@ -131,39 +142,34 @@ def make_sig_mmd_loss(cfg: ModelConfig):
                          "trajectories (decoder/rwkv/hybrid families); the "
                          "encdec family has no single backbone trajectory")
     from ..models import transformer as T
-    from ..models.sig_head import _learned_path, mask_path_lengths
+    from ..models.sig_head import normalise_path
     from ..sigkernel import sig_mmd
 
     def loss_fn(params, batch, remat):
         # a placed batch (DTensors): the backbone runs on this rank's rows
-        # and the paths go back to the batch layout for the sharded MMD
-        DB.refuse_seq("the sig-MMD loss", batch)
+        # (and its block of the sequence under the "seq" rule) and the
+        # paths go back to the batch layout's rows for the sharded MMD
         placed = batch.get("tokens", batch.get("embeds"))
-        local = {k: DB.to_local(v) for k, v in batch.items()}
-        with DB.rows_scope(placed):      # the aux loss over the global batch
-            hidden, aux = T.backbone(params, cfg,
-                                     tokens=local.get("tokens"),
-                                     embeds=local.get("embeds"),
-                                     positions=local.get("positions"),
-                                     remat=remat)
-        mask = local.get("mask")
-        lengths = None
+        # the aux loss over the global batch
+        hidden, aux, seq = T.placed_backbone(params, cfg, batch, remat)
         hp = params.get("sig_head")
         if hp is not None and "proj" in hp:
-            if mask is None:
-                path = _learned_path(hp, hidden, sc)
-            else:
-                path, lengths = _learned_path(hp, hidden, sc, mask)
+            path = (hidden @ hp["proj"].to(hidden.dtype)).float()
         else:
             path = hidden[..., :sc.channels].float()
-            if sc.stride > 1:
-                path = path[:, ::sc.stride]
-            if mask is None:
-                path = path / torch.sqrt(torch.tensor(float(path.shape[1])))
-            else:
-                lengths, norm = mask_path_lengths(mask, sc.stride)
-                path = path / norm[:, None, None]
-        ref = batch["paths"]
+        mask = DB.to_local(batch.get("mask"))
+        if seq is not None:
+            # the whole path on every rank of the group, which computes the
+            # same MMD from it: the backward keeps this block's rows
+            path = MP.gather_from(path, seq, dim=1, tag="sp_path")
+            if mask is not None:
+                mask = C.all_gather(mask, seq.group, dim=1, tag="sp_mask")
+        lengths = None
+        if mask is None:
+            path = normalise_path(path, sc)
+        else:
+            path, lengths = normalise_path(path, sc, mask)
+        ref = DB.whole_seq(batch["paths"], tag="sp_paths")
         mmd = sig_mmd(DB.rows_like(path, placed),
                       DB.rows_like(DB.to_local(ref).float(), ref), sc.depth,
                       backend=sc.backend, backward=sc.backward,
@@ -179,16 +185,15 @@ def make_sig_mmd_loss(cfg: ModelConfig):
 
 def _placed_lm_loss(params, cfg: ModelConfig, batch: dict, remat: str):
     """The LM loss of a placed batch: each rank's token mean (and z-loss)
-    weighted by its share of the valid tokens, summed over the ranks, plus
-    the aux loss, which the MoE layers already take over the global batch:
-    the loss of the whole batch on every rank."""
-    placed = batch.get("tokens", batch.get("embeds"))
-    group = DB.group_of(placed)
-    with DB.rows_scope(placed):
-        total, m = M.loss_fn(params, cfg, {k: DB.to_local(v)
-                                           for k, v in batch.items()},
-                             remat=remat)
-    ntok = C.all_reduce_(m["ntok"].detach().clone(), group, tag="loss")
+    weighted by its share of the valid tokens, summed over the ranks that
+    hold different tokens (``DB.shard_group``: its rows' axes and, under
+    the ``"seq"`` rule, its sequence's), plus the aux loss, which the MoE
+    layers already take over the global batch: the loss of the whole batch
+    on every rank.  A rank whose tokens are all ignored adds nothing."""
+    group = DB.shard_group(_placed(batch))
+    total, m = M.loss_fn(params, cfg, batch, remat=remat)
+    valid = (DB.to_local(batch["labels"]) >= 0).sum().to(m["ntok"].dtype)
+    ntok = torch.clamp(C.all_reduce_(valid, group, tag="loss"), min=1.0)
     share = m["ntok"].detach() / ntok
     aux = torch.as_tensor(m.get("aux", 0.0), dtype=total.dtype,
                           device=total.device)
@@ -204,20 +209,45 @@ def _resolve_loss(cfg: ModelConfig, loss: str):
         return make_sig_mmd_loss(cfg)
     if loss == "lm":
         def lm(params, batch, remat):
-            if _batch_group(batch) is not None:
+            if _placed(batch) is not None:
                 return _placed_lm_loss(params, cfg, batch, remat)
             return M.loss_fn(params, cfg, batch, remat=remat)
         return lm
     raise ValueError(f"unknown loss {loss!r}; expected 'lm' or 'sig_mmd'")
 
 
-def _batch_group(batch: dict):
-    """The process group of a placed batch (its DTensors' mesh), else
-    None."""
-    for v in batch.values():
+def _placed(batch: dict):
+    """The leaf that lays a placed batch out (its tokens or embeds, else
+    its first DTensor), None for a plain batch."""
+    for v in (batch.get("tokens"), batch.get("embeds"), *batch.values()):
         if DB.is_dtensor(v):
-            return DB.group_of(v)
+            return v
     return None
+
+
+def reduce_grads(grads: dict, params, placed) -> dict:
+    """Each rank's gradients of a loss of the placed batch whose layout the
+    DTensor ``placed`` gives -> the step's gradients of this rank's
+    parameter blocks, by :func:`~repro_torch.distributed.model_parallel.
+    grad_reduction`: summed over the axes that split the batch (its rows,
+    and its sequence under the ``"seq"`` rule), where the parameter's own
+    backward has not summed them (an FSDP shard's reduce-scatter, a
+    vocabulary block's exchanges), and a sum over ranks that computed the
+    same share divided out."""
+    mesh = placed.device_mesh
+    axes = DB.shard_axes(placed)
+    layout = MP.placements(params) \
+        if isinstance(params, torch.nn.Module) else {}
+    out = {}
+    for k, g in grads.items():
+        rest, over = MP.grad_reduction(layout.get(k), mesh, axes)
+        if over > 1:
+            g = g / over
+        if rest:
+            g = C.all_reduce_(g, DB.batch_mesh(mesh, rest).get_group(),
+                              tag="grads")
+        out[k] = g
+    return out
 
 
 def replicate_tree(tree, mesh):
@@ -241,13 +271,13 @@ def place_batch(batch, mesh=None, rules=None):
     """Lay a batch (the whole batch, the same on every rank) out over the
     mesh by :func:`repro_torch.distributed.sharding.batch_specs`: the rows
     over the axes of the ``"batch"`` rule (the data axes), and under a
-    ``"seq"`` rule (``launch.dryrun.rules_for``'s prefill cells) the
-    sequence over its axes.  Sharded leaves become DTensors holding this
-    rank's block (its rows, and its block of the sequence), replicated
-    ones stay as they are (no-op without a mesh).  Only the prefill
-    (``serve.engine.make_prefill_step``) runs a block of a sequence: the
-    train and eval steps refuse it.  Defaults come from the installed
-    sharding context."""
+    ``"seq"`` rule (``launch.dryrun.rules_for``'s prefill and train
+    cells) the sequence over its axes.  Sharded leaves become DTensors
+    holding this rank's block (its rows, and its block of the sequence),
+    replicated ones stay as they are (no-op without a mesh).  The prefill
+    (``serve.engine.make_prefill_step``) and the train and eval steps run
+    a block of a sequence; decoding refuses one.  Defaults come from the
+    installed sharding context."""
     mesh = current_mesh() if mesh is None else mesh
     if mesh is None:
         return batch
@@ -288,8 +318,9 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
         return loss_val.detach(), _detached(metrics), grads
 
     def train_step(params, opt_state, batch):
-        DB.refuse_seq("the train step", batch)
-        group = _batch_group(batch)
+        MP.refuse_tensor_parallel(params, DB.batch_seq(batch),
+                                  "the train step")
+        placed = _placed(batch)
         layout = MP.placements(params) \
             if isinstance(params, torch.nn.Module) else {}
         if microbatch and microbatch > 1:
@@ -309,12 +340,10 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
             metrics = {"loss": loss_val}
         else:
             loss_val, metrics, grads = grads_of(params, batch)
-        if group is not None:
-            # each rank holds its rows' share of every gradient; an FSDP
-            # shard's was summed over the data ranks by its reduce-scatter
-            grads = {k: g if layout and MP.grads_reduced_in_backward(
-                layout.get(k)) else C.all_reduce_(g, group, tag="grads")
-                for k, g in grads.items()}
+        if placed is not None:
+            # each rank holds its rows' (and block's) share of every
+            # gradient; an FSDP shard's was summed by its reduce-scatter
+            grads = reduce_grads(grads, params, placed)
         # a sharded model's norm (and AdamW's clip) is the whole gradient's
         with norm_scope((lambda g: MP.sharded_norm(g, params)) if layout
                         else None):
@@ -336,7 +365,8 @@ def make_eval_step(cfg: ModelConfig, remat: str = "none", *,
 
     @torch.no_grad()
     def eval_step(params, batch):
-        DB.refuse_seq("the eval step", batch)
+        MP.refuse_tensor_parallel(params, DB.batch_seq(batch),
+                                  "the eval step")
         _, metrics = base_loss(params, batch, remat)
         return metrics
     return eval_step

@@ -13,7 +13,10 @@ parameters and records what the dry run predicts for its cells: the
 parameter and optimizer-state bytes a rank holds and the collectives of
 one step.  Both worlds prefill six archs under their ``prefill_32k``
 cells' rules (the prompt in blocks over the model axis), and the world of
-2 records what the dry run predicts for a small prefill cell.
+2 records what the dry run predicts for a small prefill cell.  The world
+of 4 also trains under the train cells' rules (each sequence in blocks
+over the model axis): four archs, a sig-MMD step, a masked and strided
+one, a batch whose ignored labels fill one block, and an eval step.
 """
 from __future__ import annotations
 
@@ -65,6 +68,17 @@ DRYRUN_PREFILL = ("prefill_tiny", dict(kind="prefill", seq=PREFILL[1],
                                        batch=PREFILL[0]))
 DRYRUN_PREFILL_ARCHS = ("qwen3-4b", "zamba2-7b")
 SIG = dict(channels=3, depth=2)
+# training under rules_for(arch, DRYRUN_SHAPE's cell): the rows over the
+# data axis, each sequence in blocks of 4 over the model axis (TRAIN's
+# batches); the masked sig-MMD case's sequences of 6 in blocks of 3, whose
+# second block starts off SEQ_STRIDE
+SEQ_ARCHS = ("qwen3-4b", "zamba2-7b", "rwkv6-1.6b", "whisper-large-v3")
+SEQ_MASKED = (4, 6)      # batch, sequence
+SEQ_STRIDE = 2
+# a sequence the model axis does not divide stays whole (the divisibility
+# guard): the model ranks then run the same rows, which FSDP over both
+# axes must not count twice
+SEQ_ODD = (4, 7)
 # SGD's learning rate: small enough that three steps of the reduced
 # models stay well conditioned.  At 1e-2 zamba2's gradient norms of 40-85
 # amplify a 2e-7 first-step difference (sharded or not) to 1.5e-5 in the
@@ -114,8 +128,10 @@ def _model(inputs, key, cfg, mesh=None, rules=None):
     return model if mesh is None else shard_model(model, mesh, rules)
 
 
-def _steps(model, cfg, batches, mesh, opt=None, **kw) -> tuple[list, dict]:
-    """Train steps on placed batches -> (metrics a step, full params)."""
+def _steps(model, cfg, batches, mesh, opt=None, rules=None,
+           **kw) -> tuple[list, dict]:
+    """Train steps on batches placed under ``rules`` -> (metrics a step,
+    full params)."""
     from repro_torch import optim, train
     from repro_torch.distributed import sharding_ctx
     from repro_torch.distributed.model_parallel import gather_params
@@ -123,7 +139,7 @@ def _steps(model, cfg, batches, mesh, opt=None, **kw) -> tuple[list, dict]:
     state = opt.init(model)
     step = train.make_train_step(cfg, opt, **kw)
     hist = []
-    with sharding_ctx(mesh):
+    with sharding_ctx(mesh, rules):
         for b in batches:
             model, state, m = step(model, state, train.place_batch(_t(b)))
             hist.append({k: float(v) for k, v in m.items()})
@@ -289,6 +305,65 @@ def sig_mmd_case(mesh, inputs: dict) -> dict:
                               loss="sig_mmd")}
 
 
+def seq_cfg(key: str, configs):
+    """The config of a sequence-split training case: ``arch``,
+    ``qwen3-4b/sig`` (the signature head) or ``qwen3-4b/masked`` (the head
+    at SEQ_STRIDE)."""
+    arch, _, kind = key.partition("/")
+    cfg = config(arch, configs)
+    if kind == "sig":
+        cfg = configs.with_sig_head(cfg, **SIG)
+    elif kind == "masked":
+        cfg = configs.with_sig_head(cfg, **SIG, stride=SEQ_STRIDE)
+    return cfg
+
+
+# (case, model and config key, batches key, loss, microbatches)
+SEQ_CASES = tuple((a, a, a, "lm", 0) for a in SEQ_ARCHS) + (
+    ("sig_mmd", "qwen3-4b/sig", "sig_mmd", "sig_mmd", 0),
+    ("masked", "qwen3-4b/masked", "seq_masked", "sig_mmd", 0),
+    ("uneven", "qwen3-4b", "seq_uneven", "lm", 0),
+    ("odd", "qwen3-4b", "seq_odd", "lm", 0),
+    ("micro", "qwen3-4b/sig", "micro/sig_mmd", "sig_mmd", MICRO[2]))
+
+
+def seq_train_cases(mesh, inputs: dict) -> dict:
+    """SGD steps under the train cells' rules (``rules_for(arch,
+    DRYRUN_SHAPE's cell)``: the rows over the data axis, each sequence in
+    blocks over the model axis) of each of SEQ_CASES, with the executed
+    rules and the batch's sequence split; and an eval step of qwen3-4b
+    there."""
+    from repro_torch import configs, train
+    from repro_torch.distributed import batch as DB
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.launch import dryrun, specs
+    name, shape = DRYRUN_SHAPE
+    specs.SHAPES[name] = shape
+    out = {}
+    for case, key, bkey, loss, micro in SEQ_CASES:
+        cfg = seq_cfg(key, configs)
+        rules = dryrun.rules_for(key.split("/")[0], name)
+        pkey = "qwen3-4b/sig" if key == "qwen3-4b/masked" else key
+        model = _model(inputs, pkey, cfg, mesh, rules)
+        batches = inputs["batches"][bkey]
+        with sharding_ctx(mesh, rules):
+            seq = DB.batch_seq(train.place_batch(_t(batches[0])))
+        out[f"seq/{case}"] = dict(
+            steps=_steps(model, cfg, batches, mesh, rules=rules, loss=loss,
+                         microbatch=micro),
+            seq_rule=rules.get("seq"), split=None if seq is None
+            else (seq.axes, seq.size))
+    cfg = config("qwen3-4b", configs)
+    rules = dryrun.rules_for("qwen3-4b", name)
+    model = _model(inputs, "qwen3-4b", cfg, mesh, rules)
+    with sharding_ctx(mesh, rules):
+        m = train.make_eval_step(cfg)(model, train.place_batch(_t(
+            inputs["batches"]["qwen3-4b"][0])))
+    out["seq/eval"] = {k: float(v) for k, v in m.items()}
+    del specs.SHAPES[name]
+    return out
+
+
 def micro_case(mesh, inputs: dict) -> dict:
     """``microbatch=2`` of a placed batch (qwen3-4b, LM loss)."""
     from repro_torch import configs
@@ -344,9 +419,10 @@ def micro_dp_cases(dp, inputs: dict) -> dict:
 
 def dryrun_cases(mesh, inputs: dict) -> dict:
     """What the dry run predicts, measured: a reduced arch's Adafactor
-    train step under the rules of the dry run's DRYRUN_SHAPE cell (the
-    sequence whole, as the dry run runs it): rank 0's parameter and
-    optimizer-state bytes and the collectives of one step by kind."""
+    train step under the rules of the dry run's DRYRUN_SHAPE cell (each
+    sequence in blocks over the model axis, as the dry run runs it): rank
+    0's parameter and optimizer-state bytes and the collectives of one
+    step by kind and by tag, the backward's exchanges included."""
     import torch
     from repro_torch import configs, optim, train
     from repro_torch.distributed import collectives as C
@@ -368,7 +444,7 @@ def dryrun_cases(mesh, inputs: dict) -> dict:
                                                      shape["seq"]),
                                   generator=g, dtype=torch.int32)
                  for k in ("tokens", "labels")}
-        with sharding_ctx(mesh, dryrun.exec_rules(rules)):
+        with sharding_ctx(mesh, rules):
             placed = train.place_batch(batch)
             step = train.make_train_step(cfg, opt)
             C.LOG.reset()
@@ -377,7 +453,8 @@ def dryrun_cases(mesh, inputs: dict) -> dict:
         out[f"dryrun/{arch}"] = dict(
             param_bytes=dryrun.tree_bytes(model),
             opt_state_bytes=dryrun.tree_bytes(state),
-            collectives={k: list(v) for k, v in st.by_kind.items()})
+            collectives={k: list(v) for k, v in st.by_kind.items()},
+            by_tag=dryrun.collectives_by_tag(C.LOG.records))
     del specs.SHAPES[name]
     return out
 
@@ -404,9 +481,10 @@ def prefill_cases(mesh, inputs: dict) -> dict:
     """Each of PREFILL_ARCHS prefilled under its prefill cell's rules:
     this rank's rows' last-position logits and their first row, and the
     collectives' tags; a prompt of PREFILL_ODD tokens (left whole); and
-    the refusals of the paths that do not run a block of a sequence."""
-    import torch
-    from repro_torch import configs, optim, train
+    a train step under the prefill rules (labels the tokens); and the
+    refusal of a tensor-parallel layout over the axis that cuts the
+    prompt."""
+    from repro_torch import configs, train
     from repro_torch.distributed import batch as DB
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed import sharding_ctx
@@ -432,15 +510,8 @@ def prefill_cases(mesh, inputs: dict) -> dict:
     rules = rules_for("qwen3-4b", PREFILL_SHAPE)
     model = prefill_model(inputs, "qwen3-4b", cfg, mesh, rules)
     refused = {}
-    with sharding_ctx(mesh, rules):
-        placed = train.place_batch(dict(
-            prefill_batch(inputs, "qwen3-4b"),
-            labels=prefill_batch(inputs, "qwen3-4b")["tokens"]))
-        opt = optim.sgd(lr=LR)
-        try:
-            train.make_train_step(cfg, opt)(model, opt.init(model), placed)
-        except NotImplementedError as e:
-            refused["train"] = str(e)
+    out["prefill_train"] = _steps(model, cfg, [prefill_train_batch(inputs)],
+                                  mesh, rules=rules)
     tp = dict(rules, heads="model", ff="model")
     model = prefill_model(inputs, "qwen3-4b", cfg, mesh, tp)
     with sharding_ctx(mesh, tp):
@@ -451,6 +522,13 @@ def prefill_cases(mesh, inputs: dict) -> dict:
             refused["tensor_parallel"] = str(e)
     out["prefill_refused"] = refused
     return out
+
+
+def prefill_train_batch(inputs: dict) -> dict:
+    """qwen3-4b's prefill prompts as a train batch, the tokens their own
+    labels (numpy)."""
+    b = inputs["prefill"]["qwen3-4b"]
+    return dict(b, labels=b["tokens"])
 
 
 def dryrun_prefill_cases(mesh, inputs: dict) -> dict:
@@ -470,7 +548,7 @@ def dryrun_prefill_cases(mesh, inputs: dict) -> dict:
         cfg = config(arch, configs)
         rules = dryrun.rules_for(arch, PREFILL_SHAPE)
         model = prefill_model(inputs, arch, cfg, mesh, rules)
-        with sharding_ctx(mesh, dryrun.exec_rules(rules, "prefill")):
+        with sharding_ctx(mesh, rules):
             placed = train.place_batch(prefill_batch(inputs, arch))
             C.LOG.reset()
             with CostCounter() as cost:
@@ -587,6 +665,7 @@ def rank_main(rank: int, world: int, store_path: str, inputs: dict,
             out.update(dryrun_prefill_cases(mesh, inputs))
         if world == 4:
             out.update(sig_mmd_case(mesh, inputs))
+            out.update(seq_train_cases(mesh, inputs))
             out.update(micro_case(mesh, inputs))
             out.update(adafactor_cases(mesh, inputs))
             out.update(dryrun_cases(mesh, inputs))

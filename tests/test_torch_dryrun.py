@@ -13,7 +13,8 @@
   rank alone.
 - A ``prefill_32k`` cell executes the reference's ``seq: "model"`` rule
   (each rank its block of 2,048 of the prompt, the keys and values
-  gathered a layer); a train cell runs with the sequence whole.
+  gathered a layer), and so does a train cell whose rules carry it; a
+  train cell whose batch 256 divides has none.
 - ``record_cost`` counts 2·m·n·k FLOPs for a matmul and publishes its
   gauges under the reference's names.
 """
@@ -90,7 +91,7 @@ res = dryrun.lower_cell("qwen3-4b", "train_flops", cfg=cfg,
                         mesh=AbstractMesh((2, 2), ("data", "model")),
                         opt=sgd(), forward_collectives=True)
 rwkv = configs.reduce_config(configs.get_config("rwkv6-1.6b"))
-specs.SHAPES["rwkv_long"] = dict(kind="train", seq=128, batch=8)
+specs.SHAPES["rwkv_long"] = dict(kind="train", seq=256, batch=8)
 cells = []
 for seqs in ((1000, 2000, 4000), (16, 32, 64)):   # run whole, extrapolated
     dryrun.POLY_SEQ = seqs
@@ -183,20 +184,27 @@ def test_production_decode_cells(child, arch):
 
 def test_prefill_cells_keep_the_sequence_rule_and_train_cells_drop_it(
         child):
-    """``exec_rules`` keeps ``seq`` for a prefill cell and drops it for a
-    train cell; qwen2-vl-2b's ``prefill_32k`` cell on 16 × 16 runs each
+    """A cell runs under its own rules, ``seq`` included: a prefill cell's
+    rules cut the prompt over ``"model"``, and, since training runs a
+    block of every sequence, a train cell's too
+    (qwen3-4b's ``train_tiny`` cell of batch 8 carries ``seq: "model"``;
+    no ``train_4k`` cell's rules have it, its batch of 256 split over both
+    axes instead); qwen2-vl-2b's ``prefill_32k`` cell on 16 × 16 runs each
     rank's 2 requests over its block of 2,048 positions: one ``sp_kv``
     all-gather a layer of the whole prompt's keys and values, one
     ``sp_last``, and useful FLOPs over executed about 16 times the
     0.0231 of every model rank running the whole prompt."""
     for arch in tconfigs.ARCH_IDS:
-        rules = tdryrun.rules_for(arch, "prefill_32k")
-        assert tdryrun.exec_rules(rules, "prefill") == rules
-        assert tdryrun.exec_rules(tdryrun.rules_for(arch, "train_4k"),
-                                  "train")["seq"] is None
+        assert tdryrun.rules_for(arch, "train_4k").get("seq") is None
+    tspecs.SHAPES["train_tiny"] = dict(kind="train", seq=8, batch=8)
+    try:
+        rules = tdryrun.rules_for("qwen3-4b", "train_tiny")
+    finally:
+        del tspecs.SHAPES["train_tiny"]
+    assert rules["seq"] == "model"
     res = child[2]["prefill"]
     assert res["rules"]["seq"] == res["executed_rules"]["seq"] == "model"
-    assert child[2]["flops"]["mesh"]["executed_rules"]["seq"] == "None"
+    assert child[2]["flops"]["mesh"]["executed_rules"].get("seq") is None
     cfg = tconfigs.get_config("qwen2-vl-2b")
     tags = res["collectives_by_tag"]
     assert tags["sp_kv"]["all-gather"]["count"] == cfg.n_layers
@@ -220,12 +228,14 @@ def test_a_dense_steps_flops_split_over_the_2x2_mesh(child):
 
 def test_rwkv_cells_extrapolate_exactly(child):
     """An rwkv train cell read off the parabola through three short runs
-    (``POLY_SEQ``) equals the cell run whole: FLOPs, unfused bytes (a
-    quadratic), collectives and wire bytes, argument and output bytes;
-    the peak live bytes, an estimate, within 5%."""
+    (``POLY_SEQ``'s lengths times the cell's two sequence blocks: its rules
+    carry ``seq: "model"``) equals the cell run whole: FLOPs, unfused
+    bytes (a quadratic), collectives and wire bytes, argument and output
+    bytes; the peak live bytes, an estimate, within 5%."""
     whole, ex = child[2]["rwkv"]
     assert "extrapolated_from_seq" not in whole
-    assert ex["extrapolated_from_seq"] == [16, 32, 64]
+    assert ex["executed_rules"]["seq"] == "model"
+    assert ex["extrapolated_from_seq"] == [32, 64, 128]
     for k in ("hlo_flops_per_dev", "hlo_bytes_per_dev",
               "collective_wire_bytes_per_dev"):
         assert ex[k] == pytest.approx(whole[k], rel=1e-9), k

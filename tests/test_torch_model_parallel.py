@@ -30,10 +30,20 @@ tensor-, expert- and FSDP-parallel LM execution on a ``("data",
   axis, the prompt in blocks over the model axis.  The last-position
   logits are the reference's single-device ``make_prefill_step`` and the
   port's one rank's; a prompt the model axis does not divide runs whole;
-  the train step and a tensor-parallel layout refuse a sequence split.
+  a train step under those rules is the reference's, and a
+  tensor-parallel layout refuses a sequence split.
+- Training under the sequence rule: the 2 x 2 world trains reduced
+  qwen3-4b (LM and sig-MMD), zamba2-7b, rwkv6-1.6b and whisper-large-v3
+  under ``rules_for(arch, "train_tiny")`` (the rows over the data axis,
+  each sequence in blocks of 4 over the model axis), a masked sig-MMD
+  step at stride 2 over blocks of 3, a batch whose ignored labels fill
+  one rank's block, and an eval step, against the reference's
+  single-device steps.
 - The dry run: ``launch.dryrun.lower_cell`` in a fake world of 4 ranks
   (a subprocess) predicts the 2 x 2 world's parameter and optimizer-state
-  bytes a rank and the collectives of one step, and in a fake world of 2
+  bytes a rank and the collectives of one step by kind and by tag (each
+  sequence in blocks, the backward's exchanges included), and in a fake
+  world of 2
   the 1 x 2 world's argument, output and peak bytes and collectives by
   tag of a small prefill cell.
 
@@ -266,6 +276,22 @@ def _inputs() -> dict:
                                           1, 3)
     batches["micro/moe_aux"] = [jax.tree.map(np.asarray, next(
         jpipe.TokenStream(128, Bm, Sm, 16)))]
+    # a batch whose ignored labels fill one rank's block on 2 x 2 (rows
+    # 0-1, positions 4-7), and a masked batch of sequences of 6
+    uneven = {k: v.copy() for k, v in batches["qwen3-4b"][0].items()}
+    uneven["labels"][:2, S // 2:] = -1
+    batches["seq_uneven"] = [uneven]
+    Bs, Ss = R.SEQ_MASKED
+    masked = jax.tree.map(np.asarray, next(jpipe.TokenStream(128, Bs, Ss,
+                                                             17)))
+    masked["mask"] = (np.arange(Ss)[None] < np.array([[Ss], [Ss - 1], [3],
+                                                      [Ss - 2]])).astype(
+        np.int32)
+    masked["paths"] = np.asarray(next(jpipe.RaggedPathStream(
+        5, Ss - 1, R.SIG["channels"], seed=4))["paths"])
+    batches["seq_masked"] = [masked]
+    batches["seq_odd"] = [jax.tree.map(np.asarray, next(jpipe.TokenStream(
+        _jcfg("qwen3-4b").vocab_size, *R.SEQ_ODD, 18)))]
     write_tokens = np.random.default_rng(1).integers(
         1, 128, size=(R.CP_DECODE[0], sum(R.CP_WRITES))).astype(np.int32)
     return dict(params=params, batches=batches, prompts=prompts,
@@ -334,11 +360,13 @@ def worlds(tmp_path_factory):
     return {w: _collect(w, *started[w]) for w in (4, 2)}, inputs
 
 
-def _reference_steps(key: str, batches: list, opt=None, **kw):
-    """The reference's single-device steps (SGD unless ``opt``), jitted;
-    -> (metrics a step, per-layer params)."""
+def _reference_steps(key: str, batches: list, opt=None, jcfg=None, **kw):
+    """The reference's single-device steps (SGD unless ``opt``; the
+    config ``jcfg`` or the key's), jitted; -> (metrics a step, per-layer
+    params)."""
     arch = key.split("/")[0]
-    jcfg = _jcfg(arch, sig="sig" in key or kw.get("loss") == "sig_mmd")
+    if jcfg is None:
+        jcfg = _jcfg(arch, sig="sig" in key or kw.get("loss") == "sig_mmd")
     opt = joptim.sgd(lr=R.lr_of(key)) if opt is None else opt
     step = jax.jit(jtrain.make_train_step(jcfg, opt, **kw))
     return _run(step, key, batches, opt)
@@ -438,6 +466,14 @@ def _port_prefill(arch: str, key: str = "prefill"):
         _REF["inputs"], arch, key)).numpy()
 
 
+def _reference_eval(arch: str, batch: dict) -> dict:
+    """The reference's single-device ``make_eval_step`` metrics, jitted."""
+    step = jax.jit(jtrain.make_eval_step(_jcfg(arch)))
+    m = step(jax.tree.map(jnp.asarray, _REF["inputs"]["params"][arch]),
+             jax.tree.map(jnp.asarray, batch))
+    return {k: float(v) for k, v in m.items()}
+
+
 def _reference_rwkv64():
     """rwkv6's three SGD steps at the shared learning rate in float64."""
     inputs = _REF["inputs"]
@@ -486,6 +522,16 @@ def _references(inputs) -> dict:
             _reference_steps(f"{a}/sig", b[f"micro/{c}"], loss=lo,
                              microbatch=R.MICRO[2])
     table["rwkv64"] = _reference_rwkv64
+    table["seq_uneven"] = lambda: _reference_steps("qwen3-4b",
+                                                   b["seq_uneven"])
+    table["seq_odd"] = lambda: _reference_steps("qwen3-4b", b["seq_odd"])
+    table["seq_masked"] = lambda: _reference_steps(
+        "qwen3-4b/sig", b["seq_masked"], loss="sig_mmd",
+        jcfg=R.seq_cfg("qwen3-4b/masked", jconfigs))
+    table["eval/qwen3-4b"] = lambda: _reference_eval(
+        "qwen3-4b", b["qwen3-4b"][0])
+    table["prefill_train"] = lambda: _reference_steps(
+        "qwen3-4b", [R.prefill_train_batch(inputs)])
     for arch in R.PREFILL_ARCHS:
         table[f"prefill/{arch}"] = lambda a=arch: _reference_prefill(a)
         table[f"port_prefill/{arch}"] = lambda a=arch: _port_prefill(a)
@@ -738,13 +784,62 @@ def test_prefill_of_a_prompt_the_split_does_not_divide(worlds, world):
 @pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
 def test_train_step_and_tensor_parallel_refuse_a_sequence_split(worlds,
                                                                world):
-    """The train step refuses a batch placed under the prefill rules, and
-    the prefill refuses a layout that also splits heads and ``ff`` over
-    the model axis that cuts the prompt: neither computes a block as if it
-    were the whole prompt."""
+    """The train step no longer refuses a batch placed under the prefill
+    rules: its SGD step over the prompt's blocks (the tokens their own
+    labels) is the reference's single-device step.  The prefill still
+    refuses a layout that also splits heads and ``ff`` over the model axis
+    that cuts the prompt."""
+    _assert_steps(worlds[0][world][0]["prefill_train"], _ref("prefill_train"),
+                  ("prefill_train", world))
     got = worlds[0][world][0]["prefill_refused"]
-    assert "the train step" in got["train"] and "item 21" in got["train"]
     assert "tensor-parallel" in got["tensor_parallel"]
+    assert "item 21" in got["tensor_parallel"]
+
+
+_SEQ_REFS = {"sig_mmd": "sig_mmd", "masked": "seq_masked",
+             "uneven": "seq_uneven", "odd": "seq_odd",
+             "micro": "micro/sig_mmd"}
+
+
+@pytest.mark.parametrize("case", [c[0] for c in R.SEQ_CASES])
+def test_training_under_the_sequence_rule_equals_the_reference(worlds,
+                                                               case):
+    """SGD steps on 2 x 2 under the train cells' rules, which carry
+    ``seq: "model"`` (each sequence in blocks of 4, 3 for the masked case,
+    over the model axis; the rows over the data axis): every rank's losses
+    and the trained parameters are the reference's single-device steps.
+    ``sig_mmd`` is qwen3-4b's sig-MMD step, ``masked`` the same with a
+    ragged mask at stride 2 (the second block starts off the stride),
+    ``uneven`` an LM step whose ignored labels fill rank 1's block,
+    ``odd`` one of 7 tokens, which the model axis leaves whole: its ranks
+    run the same rows, and the FSDP reduce-scatter over both axes must
+    not count their gradient twice (it did before training ran the
+    sequence rule), and ``micro`` a sig-MMD step of two microbatches
+    whose reference paths (5 rows) are whole on every rank and cut on
+    their sequence."""
+    res, _ = worlds
+    ref = _ref(_SEQ_REFS.get(case, f"train/{case}"))
+    for r in range(4):
+        got = res[4][r][f"seq/{case}"]
+        assert got["seq_rule"] == "model", (case, got["seq_rule"])
+        assert got["split"] == (None if case == "odd" else
+                                (("model",), 2)), (case, got["split"])
+        _assert_steps(got["steps"], ref, ("seq", case, r))
+
+
+def test_eval_step_under_the_sequence_rule_equals_the_reference(worlds):
+    """``make_eval_step`` on 2 x 2 under the train cell's rules: every
+    rank's metrics of qwen3-4b's first batch are the reference's
+    single-device eval step's (the token NLL within 1e-4·max(1, |loss|))."""
+    res, _ = worlds
+    want = _ref("eval/qwen3-4b")
+    for r in range(4):
+        got = res[4][r]["seq/eval"]
+        assert abs(got["loss"] - want["loss"]) <= 1e-4 * max(
+            1.0, abs(want["loss"])), (r, got, want)
+        for k in set(got) & set(want) - {"loss"}:
+            np.testing.assert_allclose(got[k], want[k], **GRAD,
+                                       err_msg=f"eval {k} rank {r}")
 
 
 def test_sig_mmd_steps_on_a_2x2_mesh_equal_the_reference(worlds):
@@ -935,7 +1030,9 @@ def test_dry_run_predicts_the_2x2_worlds_bytes_and_collectives(
     """``lower_cell`` on ``AbstractMesh((2, 2))``: the parameter and
     Adafactor-state bytes a rank holds equal rank 0's of the gloo world
     exactly, and so do one step's collectives by kind (count, result
-    bytes, wire bytes)."""
+    bytes, wire bytes) and by tag.  qwen3-4b's cell executes ``seq:
+    "model"``: the tags hold the blocks' exchanges and their backward
+    collectives."""
     want = worlds[0][4][0][f"dryrun/{arch}"]
     got = dryrun_cells[arch]
     mem = got["memory_analysis"]
@@ -944,6 +1041,11 @@ def test_dry_run_predicts_the_2x2_worlds_bytes_and_collectives(
     assert got["collectives"] == {
         k: {"count": v[0], "result_bytes": v[1], "wire_bytes": v[2]}
         for k, v in want["collectives"].items()}
+    assert got["collectives_by_tag"] == want["by_tag"]
+    if arch == "qwen3-4b":
+        assert got["executed_rules"]["seq"] == "model"
+        assert {"sp_kv", "sp_kv_grad", "sp_embed", "sp_embed_grad",
+                "sp_vocab", "sp_vocab_grad"} <= set(want["by_tag"])
     assert got["hlo_flops_per_dev"] > 0 and mem["argument_size_bytes"] > 0
 
 

@@ -1,19 +1,22 @@
-"""The blocks of a sequence-parallel prefill (the reference's ``seq:
-"model"`` rule) against the whole sequence and ``repro.models``, in one
-process.
+"""The blocks of a sequence-parallel prefill and train step (the
+reference's ``seq: "model"`` rule) against the whole sequence and
+``repro.models``, in one process.
 
 A group of P ranks is simulated: block i runs inside a ``rows_set`` of a
-``Rows`` whose ``seq`` is ``Split(None, P, i)``, and every
-``collectives.all_gather`` a block issues is answered with the
-concatenation of the P blocks' inputs to that call, the blocks run again
-until those inputs stop changing (a block's later gathers read its
-earlier ones).  So the code under test is the layers' own: the
-attention's gathered keys and values under the offset causal mask, the
-convolution's and the token shifts' halo rows, the Mamba2 SSD and RWKV6
-WKV blocks folded by the state rule.  Values at the reference's rtol
-2e-4 / atol 2e-5; the WKV scan runs in float32 as the reference's does,
-and the state rule it adds is also held in float64.  Every path that
-does not run a block of a sequence refuses one.
+``Rows`` whose ``seq`` is ``Split(None, P, i)``, and every collective a
+block issues (all-gather, reduce-scatter, all-reduce) is answered from
+the P blocks' inputs to that call, the blocks run again until those
+inputs stop changing (a block's later exchanges read its earlier ones).
+So the code under test is the layers' own: the attention's gathered keys
+and values under the offset causal mask, the convolution's and the token
+shifts' halo rows, the Mamba2 SSD and RWKV6 WKV blocks folded by the
+state rule, and in training their backward reduce-scatters.  Values at
+the reference's rtol 2e-4 / atol 2e-5; the WKV scan runs in float32 as
+the reference's does, and the state rule it adds is also held in
+float64.  The LM losses, the sig-MMD loss and the train step of the
+blocks equal the whole sequence's, losses within 1e-4·max(1, |loss|)
+and gradients within 1e-3·|g| + 1e-4·max|g|; decode, the MoE and MLA
+refuse a sequence split.
 """
 from unittest import mock
 
@@ -48,21 +51,38 @@ def split(P: int, i: int) -> Split:
 
 def in_blocks(P: int, fn) -> list:
     """``fn(i)`` for each block i of a simulated group of P ranks, its
-    all-gathers answered with every block's inputs (iterated to a fixed
-    point) -> the P blocks' outputs."""
+    collectives answered from every block's inputs to the same call
+    (iterated to a fixed point) -> the P blocks' outputs.  An all-gather
+    concatenates the blocks' inputs, a reduce-scatter keeps block i of
+    their sum and an all-reduce writes their sum (or maximum) in place,
+    so a block's forward and backward exchanges (``model_parallel.
+    seq_gather`` / ``seq_scatter``, a loss's sums) all run as a group's."""
     sent = None
-    for _ in range(16):
+    for _ in range(32):
         got = [[] for _ in range(P)]
         outs = []
         for i in range(P):
-            def gather(t, group, *, tag="", dim=0, i=i):
+            def parts(t, i=i):
                 k = len(got[i])
                 got[i].append(t.detach().clone())
-                parts = [t] * P if sent is None or k >= len(sent[i]) else \
-                    [sent[j][k] for j in range(P)]
-                return torch.cat(parts, dim=dim)
+                return [t.detach()] * P if sent is None or \
+                    k >= len(sent[i]) else [sent[j][k] for j in range(P)]
+
+            def gather(t, group, *, tag="", dim=0):
+                return torch.cat(parts(t), dim=dim)
+
+            def scatter(t, group, *, tag="", dim=0, i=i):
+                n = t.shape[dim] // P
+                return sum(parts(t)).narrow(dim, i * n, n).contiguous()
+
+            def reduce(t, group, *, tag="", op="sum"):
+                got_ = parts(t)
+                return t.copy_(torch.stack(got_).amax(0) if op == "max"
+                               else sum(got_))
             rows = DB.Rows(None, 1, 0, 1, split(P, i))
             with mock.patch.object(C, "all_gather", gather), \
+                    mock.patch.object(C, "reduce_scatter", scatter), \
+                    mock.patch.object(C, "all_reduce_", reduce), \
                     DB.rows_set(rows):
                 outs.append(fn(i))
         if sent is not None and all(
@@ -71,7 +91,7 @@ def in_blocks(P: int, fn) -> list:
                 for a, b in zip(got, sent)):
             return outs
         sent = got
-    raise AssertionError("the blocks' gathers did not settle")
+    raise AssertionError("the blocks' collectives did not settle")
 
 
 def blocks_of(x: np.ndarray, P: int, i: int, dim: int = 1) -> torch.Tensor:
@@ -274,15 +294,64 @@ def test_ssm_blocks_over_a_cut_sequence(arch, name, init):
     np.testing.assert_allclose(joined(got), want, **VALUE)
 
 
+def assert_grads(got, want, what=""):
+    """Gradients within 1e-3·|g| + 1e-4·max|g| (the reference's rule)."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=1e-3,
+                               atol=1e-4 * max(np.abs(want).max(), 1e-30),
+                               err_msg=what)
+
+
+def block_grads(P: int, fn, inputs: dict, params: dict) -> tuple:
+    """``fn(block inputs, params) -> loss`` run over the simulated blocks
+    of a group of P (each input cut on dimension 1) and over the whole
+    sequence -> ((the blocks' losses summed, their input gradients
+    joined, their parameter gradients summed), the whole's)."""
+    def run(ins):
+        ins = {k: v.clone().requires_grad_(v.is_floating_point())
+               for k, v in ins.items()}
+        loss = fn(ins, params)
+        leaves = [v for v in ins.values() if v.requires_grad] + \
+            list(params.values())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return (loss.detach(),) + tuple(
+            torch.zeros_like(t) if g is None else g
+            for t, g in zip(leaves, grads))
+
+    whole = run({k: torch.from_numpy(v) for k, v in inputs.items()})
+    outs = in_blocks(P, lambda i: run({k: blocks_of(v, P, i)
+                                       for k, v in inputs.items()}))
+    n_in = sum(np.issubdtype(v.dtype, np.floating) for v in inputs.values())
+    got = [sum(o[0] for o in outs)]
+    got += [joined([o[1 + j] for o in outs]) for j in range(n_in)]
+    got += [sum(o[j] for o in outs) for j in range(1 + n_in, len(outs[0]))]
+    return got, whole
+
+
 def test_a_differentiated_block_refuses():
-    """The blocks exchange detached tensors: a block under autograd
-    raises instead of giving a wrong gradient."""
-    x = torch.zeros((1, 4, 2), requires_grad=True)
-    with DB.rows_set(DB.Rows(None, 1, 0, 1, split(2, 0))):
-        with pytest.raises(NotImplementedError, match="inference path"):
-            TL.prompt_split(x)
-        with torch.no_grad():
-            assert TL.prompt_split(x) == split(2, 0)
+    """A differentiated block no longer refuses: its exchanges are
+    differentiable, so ``mamba_block`` (conv halo and SSD state) and
+    ``rwkv_block`` (token shifts and WKV state) over two blocks of a
+    12-token sequence give the whole sequence's gradient of every
+    parameter and of the input."""
+    for arch, name, init in (("zamba2-7b", "mamba_block", JS.init_mamba),
+                             ("rwkv6-1.6b", "rwkv_block", JS.init_rwkv)):
+        cfg, jcfg = cfgs(arch)
+        p = {k: torch.from_numpy(np.array(v)).requires_grad_()
+             for k, v in block_params(init, jcfg).items()}
+        x = normal((2, 12, cfg.d_model), 1, 0.5)
+        c = torch.from_numpy(normal((2, 12, cfg.d_model), 2))
+        kw = {"chunk": 4} if name == "mamba_block" else {}
+
+        def loss(ins, params):
+            out = getattr(TS, name)(params, ins["x"], cfg, **kw)[0]
+            seq = DB.current_seq()
+            cc = c if seq is None else c.narrow(1, *seq.block(12))
+            return (out * cc).sum()
+        got, want = block_grads(2, loss, {"x": x}, p)
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+        for g, w, k in zip(got[1:], want[1:], ["x"] + list(p)):
+            assert_grads(g, w, f"{name} {k}")
 
 
 # ---------------------------------------------------------------------------
@@ -320,45 +389,175 @@ def _mla():
                      default_positions(cfg, 1, 4, "cpu"))
 
 
-def _train():
+def _lm_loss():
+    """transformer.lm_loss of reduced qwen3-4b's blocks, each weighted by
+    its share of the valid tokens (block 1 of row 0 has none)."""
     from repro_torch import models as M
-    from repro_torch import optim, train
+    from repro_torch.models import transformer
     cfg = _reduced("qwen3-4b")
     model = M.init_params(0, cfg, device="cpu")
-    batch = {"tokens": torch.ones((1, 4), dtype=torch.int32),
-             "labels": torch.ones((1, 4), dtype=torch.int32)}
-    opt = optim.sgd(lr=1e-3)
-    train.make_train_step(cfg, opt)(model, opt.init(model), batch)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(1, cfg.vocab_size, (2, 8)).astype(np.int32)
+    labels = rng.integers(1, cfg.vocab_size, (2, 8)).astype(np.int32)
+    labels[0, 4:] = -1
+    n = max(int((labels >= 0).sum()), 1)
 
-
-def _lm_loss():
-    from repro_torch.models import transformer
-    transformer.lm_loss(None, None, {})
+    def loss(ins, params):
+        total, m = transformer.lm_loss(model, cfg, ins)
+        return total * m["ntok"] / n
+    return model, loss, dict(tokens=tokens, labels=labels)
 
 
 def _encdec_loss():
+    """encdec.lm_loss of reduced whisper's blocks of frames and tokens."""
+    from repro_torch import models as M
     from repro_torch.models import encdec
-    encdec.lm_loss(None, None, {})
+    cfg = _reduced("whisper-large-v3")
+    model = M.init_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(4)
+    batch = dict(frames=normal((2, cfg.n_audio_frames, cfg.d_model), 5),
+                 tokens=rng.integers(1, cfg.vocab_size, (2, 8)).astype(
+                     np.int32),
+                 labels=rng.integers(1, cfg.vocab_size, (2, 8)).astype(
+                     np.int32))
+    n = batch["labels"].size
+
+    def loss(ins, params):
+        total, m = encdec.lm_loss(model, cfg, ins)
+        return total * m["ntok"] / n
+    return model, loss, batch
 
 
 def _sig_mmd_loss():
+    """The sig-MMD loss of reduced qwen3-4b with its head, stride 3 over
+    blocks of 4 (block 1 starts off the stride) and a ragged mask: every
+    block computes the whole path's MMD."""
+    from repro_torch import models as M
+    from repro_torch.models.sig_head import init_sig_head
     from repro_torch.train.trainer import make_sig_mmd_loss
-    cfg = tconfigs.with_sig_head(_reduced("qwen3-4b"), channels=3, depth=2)
-    make_sig_mmd_loss(cfg)(None, {}, "dots")
+    cfg = tconfigs.with_sig_head(_reduced("qwen3-4b"), channels=3, depth=2,
+                                 stride=3)
+    model = M.init_params(0, cfg, device="cpu")
+    model["sig_head"] = init_sig_head(1, cfg, 2, device="cpu")
+    rng = np.random.default_rng(5)
+    mask = (np.arange(8)[None] < np.array([[8], [7], [5], [8]])).astype(
+        np.int32)
+    batch = dict(tokens=rng.integers(1, cfg.vocab_size, (4, 8)).astype(
+        np.int32), mask=mask)
+    paths = torch.from_numpy(np.cumsum(normal((5, 6, 3), 6, 0.3), 1))
+    fn = make_sig_mmd_loss(cfg)
+
+    def loss(ins, params):
+        return fn(model, dict(ins, paths=paths), "dots")[0]
+    return model, loss, batch
+
+
+@pytest.mark.parametrize("run", [_lm_loss, _encdec_loss, _sig_mmd_loss],
+                         ids=["lm_loss", "encdec_loss", "sig_mmd_loss"])
+def test_paths_run_a_sequence_split(run):
+    """The LM loss, the encoder-decoder's and the sig-MMD loss run over
+    two blocks of every sequence: the blocks' weighted losses add to the
+    whole sequence's loss (the sig-MMD's is the same on every block), and
+    the blocks' gradients of every parameter to its gradient."""
+    model, loss, batch = run()
+    params = dict(model.named_parameters())
+    got, want = block_grads(2, loss, batch, params)
+    names = list(params)
+    summed = float(got[0]) / (2 if run is _sig_mmd_loss else 1)
+    assert abs(summed - float(want[0])) <= 1e-4 * max(1.0,
+                                                      abs(float(want[0])))
+    n_in = len(got) - len(names)
+    for g, w, k in zip(got[n_in:], want[n_in:], names):
+        assert_grads(g, w, k)
+
+
+class _Mesh:
+    """The simulated group as a 1-D mesh of the model axis."""
+    ndim = 1
+    mesh_dim_names = ("model",)
+
+    def __init__(self, P):
+        self.shape = (P,)
+
+    def get_group(self):
+        return None
+
+
+class _Placed:
+    """A batch leaf placed on its sequence over the simulated group: the
+    train step reads its loss and gradient groups from it."""
+
+    def __init__(self, P):
+        from torch.distributed.tensor import Shard
+        self.device_mesh, self.placements = _Mesh(P), (Shard(1),)
+
+
+def test_train_step_runs_a_sequence_split():
+    """``make_train_step``'s SGD step of reduced qwen3-4b on two blocks of
+    every sequence (the batch's layout a stand-in placed leaf of the
+    simulated group): each block's loss is the whole batch's and each
+    block's updated parameters are the whole sequence's step, the
+    ignored labels of one block included."""
+    import copy
+    from repro_torch import optim, train
+    from repro_torch.train import trainer
+    model, _, batch = _lm_loss()
+    opt = optim.sgd(lr=0.1)
+
+    def step(b):
+        m = copy.deepcopy(model)
+        _, _, metrics = train.make_train_step(_reduced("qwen3-4b"), opt)(
+            m, opt.init(m), b)
+        return float(metrics["loss"]), {k: v.detach().clone() for k, v in
+                                        m.named_parameters()}
+    want_loss, want = step({k: torch.from_numpy(v) for k, v in
+                            batch.items()})
+    with mock.patch.object(trainer, "_placed", lambda b: _Placed(2)):
+        outs = in_blocks(2, lambda i: step({k: blocks_of(v, 2, i) for k, v
+                                            in batch.items()}))
+    for loss, params in outs:
+        assert abs(loss - want_loss) <= 1e-4 * max(1.0, abs(want_loss))
+        for k, w in want.items():
+            start = model.get_parameter(k).detach()
+            assert_grads((params[k] - start).numpy(), (w - start).numpy(), k)
+
+
+def _decode():
+    from repro_torch import models as M
+    from repro_torch.serve.engine import make_serve_step
+    cfg = _reduced("qwen3-4b")
+    model = M.init_params(0, cfg, device="cpu")
+    make_serve_step(cfg)(model, M.init_cache(cfg, 1, 8, torch.float32,
+                                             device="cpu"),
+                         torch.ones((1, 1), dtype=torch.int32))
+
+
+def _moe():
+    from repro_torch import models as M
+    cfg = _reduced("deepseek-v2-lite-16b")
+    model = M.init_params(0, cfg, device="cpu")
+    TL.moe(model["layers"][0]["moe"], torch.zeros((1, 4, cfg.d_model)), cfg)
+
+
+def _mla():
+    from repro_torch import models as M
+    from repro_torch.models.transformer import default_positions
+    cfg = _reduced("deepseek-v2-lite-16b")
+    model = M.init_params(0, cfg, device="cpu")
+    TL.mla_attention(model["layers"][0]["attn"],
+                     torch.zeros((1, 4, cfg.d_model)), cfg,
+                     default_positions(cfg, 1, 4, "cpu"))
 
 
 @pytest.mark.parametrize("where,run", [
-    ("make_serve_step", _decode), ("moe", _moe), ("mla_attention", _mla),
-    ("the train step", _train), ("the LM loss", _lm_loss),
-    ("the encoder-decoder's LM loss", _encdec_loss),
-    ("the sig-MMD loss", _sig_mmd_loss)],
-    ids=["decode", "moe", "mla", "train_step", "lm_loss", "encdec_loss",
-         "sig_mmd_loss"])
+    ("make_serve_step", _decode), ("moe", _moe), ("mla_attention", _mla)],
+    ids=["decode", "moe", "mla"])
 def test_paths_refuse_a_sequence_split(where, run):
-    """Decode, the MoE, MLA, the train step and the three losses it can
-    reach raise ``NotImplementedError`` naming ROADMAP item 21 inside
-    the scope of a batch whose sequence is cut, before computing."""
+    """Decode, the MoE and MLA raise ``NotImplementedError`` naming what
+    is left of ROADMAP item 21 inside the scope of a batch whose sequence
+    is cut, before computing."""
     with DB.rows_set(DB.Rows(None, 1, 0, 1, split(2, 1))):
         with pytest.raises(NotImplementedError, match="item 21") as e:
             run()
     assert where in str(e.value)
+    assert "tensor parallelism" in str(e.value)
