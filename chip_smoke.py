@@ -296,8 +296,9 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              greedy token the prefill's argmax up to near ties, no
              signature launch; tokens/s, ms a decode step, a traced
              step's kernels and idle share, peak memory.  (b) train_loop
-             at full width with the depth cut to 4 layers (0.79B
-             parameters; 36 layers need 64 GB for fp32 parameters,
+             at full width with the depth cut to 2 layers (0.59B
+             parameters, cut from 4 for time when phase 28 took case
+             (g); 36 layers need 64 GB for fp32 parameters,
              gradients and AdamW state before any activation), the
              SigHeadConfig defaults (8 channels, depth 3) and an
              init_sig_head projection, AdamW under linear_warmup_cosine,
@@ -352,10 +353,12 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              norm, peak memory.  (c) the plain _ssd_chunked and _wkv_scan
              forward at those shapes: ms, kernels a call, bytes bound.
 26. distributed — the data-parallel slice (repro_torch.distributed):
-             gloo worlds of P = 2 and P = 4 ranks spawned on the one card
-             (NCCL refuses two ranks on one device; a collective times out
-             after 120 s and a world after 420 s, each rank's exit code is
-             checked), each rank loading the kernels phase 2 built.  Under
+             gloo worlds of P = 2 and P = 4 ranks spawned side by side on
+             the one card (NCCL refuses two ranks on one device; a
+             collective times out after 120 s and the worlds after 420 s,
+             each rank's exit code is checked; phases 27 and 28 run their
+             two worlds side by side too), each rank loading the kernels
+             phase 2 built.  Under
              sharding_ctx(make_sig_mesh()), against rank 0's single-rank
              result on the card (values rtol 2e-4 / atol 2e-5, the Gram
              1e-5·max|G|, gradients 1e-3·|g| + 1e-4·max|g|): (a) sharded
@@ -370,7 +373,7 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              (P − 1)·⌈B_y/P⌉·D·4 bytes, equal to the analytic counters,
              each posted before its tile (ring_overlap).  At P = 2 only:
              (d) the sig-MMD train_loop, qwen3-4b at full width, depth 2,
-             8 × 512 tokens, AdamW, 3 steps: losses within
+             8 × 512 tokens, AdamW, 2 steps: losses within
              1e-4·max(1, |loss|) of one rank's, the first step's
              gradients by the gradient rule, 2 sig_trunc, 3·P sig_gram and
              1 sig_sweep launches a rank a step; (e) signature_service(
@@ -391,7 +394,7 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              spawned on the one card as in phase 26, the models laid out by
              param_specs (tensor, expert and FSDP parallel), each against
              rank 0 alone with the whole model: (a) qwen3-4b at full width,
-             depth 2, the sig-MMD train_loop, 8 x 512 tokens, AdamW, 3
+             depth 2, the sig-MMD train_loop, 8 x 512 tokens, AdamW, 2
              steps: losses within 1e-4·max(1, |loss|), the first step's
              gradients (gathered to full arrays) by the gradient rule, 2
              sig_trunc, 3·2 sig_gram and 1 sig_sweep launches a rank a step
@@ -399,7 +402,8 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              collectives of one backbone forward by kind and site against
              the analytic count (2 model-axis all-reduces and 7 FSDP
              all-gathers a dense layer, one for the embedding); (b)
-             qwen3-4b as published (36 layers) served on the 1 x 2 mesh:
+             qwen3-4b at full width, 12 of 36 layers (cut from 36 when
+             phase 28 took case (g)), served on the 1 x 2 mesh:
              greedy tokens equal to one rank's, ms a decode step; (c)
              deepseek-v2-lite-16b, zamba2-7b and rwkv6-1.6b at full width,
              depth 2 each: one SGD step on the 2 x 2 mesh (loss within
@@ -419,11 +423,11 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              ranks sharing the card as in phase 27, each case against rank
              0 alone, and the dry run (launch/dryrun.py::lower_cell on an
              AbstractMesh((2, 2)) in a fake world of 4, in a process of its
-             own that never touches the card): (a) whisper-large-v3 as
-             published (1.95B parameters, 32 + 32 layers) on 1 x 2: encode
+             own that never touches the card): (a) whisper-large-v3 at
+             full width, 8 + 8 of 32 + 32 layers, on 1 x 2: encode
              1,500 frames, prefill the cross caches, greedy tokens equal to
              one rank's, ms a decode step; (b) whisper at full width,
-             depth 2 + 2, Adafactor, 2 steps on 2 x 2 under its train
+             depth 1 + 1, Adafactor, 2 steps on 2 x 2 under its train
              cell's rules (FSDP over both axes, each sequence in blocks
              over "model") and under the default rules (heads and ff over
              "model", FSDP over "data"); (c) phase 27's qwen3-4b sig-MMD
@@ -436,7 +440,8 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              1e-4·max(1, |loss|), first-step gradients by the gradient
              rule, ms a step, peak bytes a rank below one rank's, a
              step's sequence exchanges and their backward by tag; (d)
-             qwen3-4b as published on 2 x 2: greedy tokens equal to one
+             qwen3-4b at full width, 12 of 36 layers, on 2 x 2: greedy
+             tokens equal to one
              rank's under dryrun.rules_for(qwen3-4b, decode_32k) and
              under the default rules, ms a step of each (rules_for's no
              more than the default's) and one rank's; under rules_for
@@ -445,8 +450,17 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              cache bytes a rank under each rule set beside the whole
              cache's; (e) the prefill under rules_for(arch,
              "prefill_32k"), each prompt in blocks over "model":
-             qwen3-4b (12 layers), zamba2-7b, rwkv6-1.6b and whisper,
-             last-position logits against one rank's; and the dry run's
+             qwen3-4b (6 layers), zamba2-7b, rwkv6-1.6b and whisper,
+             last-position logits against one rank's; (g) Megatron
+             sequence parallelism under rules_for(arch, shape, {"seq":
+             "model"}) (heads, ff and experts over "model", which cuts
+             each sequence): deepseek-v2-lite-16b at full width, depth 2,
+             2 sig-MMD Adafactor steps at 8 x 512 (the training gates
+             above; 2 sig_trunc, 3·2 sig_gram and 1 sig_sweep launches a
+             rank a step; the split layers' sp_tp_* and sp_moe_*
+             exchanges and their backward), and its prefill and
+             phi3.5-moe's (depth 2) at 2 x 1,024 against one rank's
+             logits; and the dry run's
              parameter and Adafactor-state bytes a rank for both (b)
              cells and (c) equal to rank 0's exactly, one backbone
              forward's collectives by kind and a step's collectives by
@@ -4344,7 +4358,8 @@ LM_SERVE = (8, 64, 32)
 # parameters, gradients and AdamW state before any activation), batch,
 # tokens a sequence, sig-MMD steps, the step checkpointed, steps resumed
 # from that checkpoint, ragged steps, LM steps
-LM_TRAIN = (4, 8, 512, 10, 5, 2, 3, 3)
+# (2 layers: cut from 4 for time when phase 28 took case (g))
+LM_TRAIN = (2, 8, 512, 10, 5, 2, 3, 3)
 LM_HEAD = dict(channels=8, depth=3, backend="auto")   # the SigHeadConfig
 LM_OUT = 16            # the pooled heads' readout width
 LM_STREAM_STRIDE = 8
@@ -5235,7 +5250,8 @@ DIST_GRAMS = (("reference Gram", 2048, 2048, 9330),
 # the trainer: layers (qwen3-4b at full width, depth cut so that two
 # ranks' fp32 weights, gradients and AdamW state share one card), steps;
 # batch and tokens are phase 24's (LM_TRAIN: 8 x 512)
-DIST_TRAIN = (2, 3)
+# qwen3-4b depth, steps (cut from 3 steps when phase 28 took case (g))
+DIST_TRAIN = (2, 2)
 DIST_POOL_N = 10_000              # phase 22's smallest pool
 DIST_COLLECTIVE_S = 120           # a hung collective fails the phase
 DIST_WORLD_S = 420                # a hung world fails the phase
@@ -5652,41 +5668,62 @@ def dist_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
 
 def dist_world(P: int, seed: int, target=None) -> list:
     """Spawn a gloo world of P ranks on the card running ``target``
-    (default :func:`dist_rank`); -> every rank's results.  Each rank's
-    exit code is checked, and a world that does not finish in
-    DIST_WORLD_S fails."""
+    (default :func:`dist_rank`); -> every rank's results
+    (:func:`dist_worlds` of one world)."""
+    return dist_worlds((P,), seed, target)[0][P]
+
+
+def dist_worlds(sizes: tuple, seed: int, target=None) -> tuple:
+    """Spawn a gloo world of each size in ``sizes`` side by side on the
+    card, every rank running ``target`` (default :func:`dist_rank`) ->
+    ({P: every rank's results}, {P: seconds from the spawn to the
+    world's last result}).  Each rank's exit code is checked, and worlds
+    that do not finish in DIST_WORLD_S fail."""
     import queue as queue_mod
     import tempfile
     ctx = torch.multiprocessing.get_context("spawn")
-    q = ctx.Queue()
-    where = tempfile.mkdtemp(dir=ROOT / "build")
-    procs = [ctx.Process(target=target or dist_rank,
-                         args=(r, P, where, seed, q)) for r in range(P)]
-    for p in procs:
-        p.start()
-    got, deadline = {}, time.perf_counter() + DIST_WORLD_S
+    t0 = time.perf_counter()
+    worlds = {}
+    for P in sizes:
+        q = ctx.Queue()
+        where = tempfile.mkdtemp(dir=ROOT / "build")
+        procs = [ctx.Process(target=target or dist_rank,
+                             args=(r, P, where, seed, q)) for r in range(P)]
+        worlds[P] = (q, where, procs, {})
+        for p in procs:
+            p.start()
+    seconds, deadline = {}, t0 + DIST_WORLD_S
     try:
-        while len(got) < P:
-            try:
-                res = q.get(timeout=5)
-                got[res["rank"]] = res
-            except queue_mod.Empty:
-                dead = [p.exitcode for p in procs if p.exitcode not in
-                        (None, 0)]
-                check(not dead, f"world of {P}: a rank exited {dead}")
-                check(time.perf_counter() < deadline,
-                      f"world of {P}: no result in {DIST_WORLD_S} s")
-        for p in procs:
-            p.join(timeout=60)
+        while len(seconds) < len(sizes):
+            for P, (q, _, procs, got) in worlds.items():
+                if P in seconds:
+                    continue
+                try:
+                    res = q.get(timeout=1)
+                    got[res["rank"]] = res
+                    if len(got) == P:
+                        seconds[P] = time.perf_counter() - t0
+                except queue_mod.Empty:
+                    dead = [p.exitcode for p in procs if p.exitcode not in
+                            (None, 0)]
+                    check(not dead, f"world of {P}: a rank exited {dead}")
+                    check(time.perf_counter() < deadline,
+                          f"world of {P}: no result in {DIST_WORLD_S} s")
+        for _, _, procs, _ in worlds.values():
+            for p in procs:
+                p.join(timeout=60)
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        shutil.rmtree(where, ignore_errors=True)
-    codes = [p.exitcode for p in procs]
-    check(codes == [0] * P, f"world of {P}: exit codes {codes}")
-    return [got[r] for r in range(P)]
+        for _, where, procs, _ in worlds.values():
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            shutil.rmtree(where, ignore_errors=True)
+    for P, (_, _, procs, _) in worlds.items():
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * P, f"world of {P}: exit codes {codes}")
+    return ({P: [got[r] for r in range(P)]
+             for P, (_, _, _, got) in worlds.items()}, seconds)
 
 
 def free_port() -> int:
@@ -5750,11 +5787,8 @@ def phase_distributed(seed: int) -> dict:
     one = dist_nccl_one(seed)
     print(f"[dist] NCCL world of one: the size-1 context is bit-identical "
           f"to none {one['bit_identical']}", flush=True)
-    worlds, world_s = {}, {}
-    for P in DIST_WORLDS:
-        t1 = time.perf_counter()
-        worlds[P] = dist_world(P, seed)
-        world_s[P] = time.perf_counter() - t1
+    # the worlds run side by side, sharing the card and the host
+    worlds, world_s = dist_worlds(DIST_WORLDS, seed)
     print(f"[dist] worlds' wall seconds (spawn to exit) {world_s}",
           flush=True)
     for P, ranks in worlds.items():
@@ -5809,8 +5843,11 @@ def phase_distributed(seed: int) -> dict:
                 seconds=seconds)
 
 
-MP_TRAIN = (2, 3)                 # qwen3-4b depth, sig-MMD steps (2 x 2)
+# qwen3-4b depth, sig-MMD steps (2 x 2; cut from 3 steps when phase 28
+# took case (g))
+MP_TRAIN = (2, 2)
 MP_SERVE = (4, 8, 8, 64)          # batch, prompt, new tokens, max_len
+MP_SERVE_DEPTH = 12               # of qwen3-4b's 36 (cut for case (g))
 MP_FAMILIES = ("deepseek-v2-lite-16b", "zamba2-7b", "rwkv6-1.6b")
 MP_FAM_DEPTH = 2
 MP_FAM_TRAIN = (2, 512)           # batch, tokens: one row a data rank
@@ -6101,7 +6138,8 @@ def mp_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
     else:
         mesh = make_dev_mesh(1, 2)
         parts = [("serve", lambda: mp_decode(
-            rank, mesh, seed, get_config(LM_ARCH), MP_SERVE,
+            rank, mesh, seed, dataclasses.replace(
+                get_config(LM_ARCH), n_layers=MP_SERVE_DEPTH), MP_SERVE,
             donation=True))]
         parts += [(f"decode/{a}", lambda a=a: mp_decode(
             rank, mesh, seed, mp_family_cfg(a), MP_FAM_DECODE))
@@ -6121,11 +6159,8 @@ def phase_model_parallel(seed: int) -> dict:
     """Phase 27: the model-parallel slice on a 2 x 2 and a 1 x 2 mesh of
     gloo ranks sharing the one card, against one rank."""
     t0 = time.perf_counter()
-    worlds, world_s = {}, {}
-    for P in (4, 2):
-        t1 = time.perf_counter()
-        worlds[P] = dist_world(P, seed, target=mp_rank)
-        world_s[P] = time.perf_counter() - t1
+    # the worlds run side by side, sharing the card and the host
+    worlds, world_s = dist_worlds((4, 2), seed, target=mp_rank)
     r4, r2 = worlds[4][0], worlds[2][0]
     t = r4["train"]
     print(f"[mp] 2 x 2 sig-MMD train_loop qwen3-4b depth {t['layers']}, "
@@ -6181,13 +6216,17 @@ def phase_model_parallel(seed: int) -> dict:
 DR_ARCH = "whisper-large-v3"
 # layers a stack and steps (cut from 4 and 3 when the case took the
 # sequence rule: FSDP over both axes gathers every layer through the
-# host), batch, tokens
-DR_WHISPER_TRAIN = (2, 2, 64, 2)
+# host; from 2 layers when phase 28 took case (g)), batch, tokens
+DR_WHISPER_TRAIN = (1, 2, 64, 2)
 DR_WHISPER_SERVE = (2, 4, 8)       # batch, prompt, new tokens (1 x 2)
+DR_WHISPER_SERVE_DEPTH = 8         # a stack, of 32 (cut for case (g))
 DR_ADAFACTOR = dict(lr=1e-3)       # factored at the published widths
-# qwen3-4b's decode on 2 x 2: batch, prompt, new tokens, max_len (a step
-# under the default rules gathers its 16 GB of weights through the host,
-# 12.3 s with four ranks sharing the card: two steps, the second timed)
+# qwen3-4b's decode on 2 x 2 at full width and DR_DECODE_DEPTH of its 36
+# layers (cut from all 36 when phase 28 took case (g)): batch, prompt, new
+# tokens, max_len (a step under the default rules gathers every layer's
+# weights through the host, 12.3 s at 36 layers with four ranks sharing
+# the card: two steps, the second timed)
+DR_DECODE_DEPTH = 12
 DR_DECODE = (4, 1, 2, 16)
 # and under rules_for(qwen3-4b, "decode_32k") at a shape whose 14
 # positions cross the cache's sequence blocks of 8 (the model axis): the
@@ -6204,7 +6243,8 @@ DR_FAMILY_TRAIN = (2, 4, 256, 2)
 DR_QWEN_STEPS = 2                 # (c)'s steps (phase 27 (a) takes 3)
 DR_SHAPES = {"whisper": ("phase28_whisper", DR_WHISPER_TRAIN[1:3]),
              "qwen": ("phase28_qwen", LM_TRAIN[1:3]),
-             "family": ("phase28_family", DR_FAMILY_TRAIN[1:3])}
+             "family": ("phase28_family", DR_FAMILY_TRAIN[1:3]),
+             "sptp": ("phase28_sptp", LM_TRAIN[1:3])}
 # rwkv6's float32 gradients over blocks against the whole sequence's: its
 # WKV state folds change the order of float32 sums, as its prefill's
 # (FAM_F32_TOL), so the atol is FAM_F32_TOL's share of max|g|
@@ -6212,7 +6252,8 @@ DR_GRAD_ATOL = {"rwkv6-1.6b": FAM_F32_TOL["rwkv6-1.6b"]}
 # (e) the prefill under rules_for(arch, "prefill_32k") on 2 x 2: the
 # requests over the data axis, each prompt in blocks over the model axis.
 # qwen3-4b at full width and DR_PREFILL_QWEN_DEPTH of its 36 layers (cut
-# from all 36 when phase 28 took the training cases); zamba2-7b and
+# from all 36 when phase 28 took the training cases, from 12 when it took
+# case (g)); zamba2-7b and
 # rwkv6-1.6b at full width and DR_PREFILL_DEPTH layers, whisper at
 # DR_PREFILL_DEPTH + DR_PREFILL_DEPTH over its 1,500 frames and 448
 # decoder tokens.  A prefill on the mesh gathers every layer's weights
@@ -6221,8 +6262,21 @@ DR_GRAD_ATOL = {"rwkv6-1.6b": FAM_F32_TOL["rwkv6-1.6b"]}
 DR_PREFILL = (2, 2048)             # requests, prompt tokens (blocks of 1,024)
 DR_PREFILL_ARCHS = (LM_ARCH, "zamba2-7b", "rwkv6-1.6b", DR_ARCH)
 DR_PREFILL_DEPTH = 2
-DR_PREFILL_QWEN_DEPTH = 12
+DR_PREFILL_QWEN_DEPTH = 6
 DR_PREFILL_SHAPE = "prefill_32k"
+# (g) Megatron sequence parallelism under rules_for(arch, shape,
+# DR_SPTP_OVERRIDE) on 2 x 2: heads, ff and experts over the model axis,
+# which also cuts each sequence, FSDP over the data axis.  deepseek-v2-
+# lite-16b at full width and DR_SPTP_DEPTH layers (layer 0 dense with its
+# 10,944-wide MLP, layer 1 its 64 experts top-6 and 2 shared; MLA in
+# both): DR_SPTP_STEPS sig-MMD Adafactor steps at LM_TRAIN's 8 x 512, then
+# a prefill of DR_SPTP_PREFILL; phi3.5-moe-42b-a6.6b at full width and
+# the same depth (GQA heads split, 16 experts top-2): the prefill
+DR_SPTP = ("deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b")
+DR_SPTP_DEPTH = 2
+DR_SPTP_STEPS = 2
+DR_SPTP_PREFILL = (2, 1024)        # requests, prompt tokens (blocks of 512)
+DR_SPTP_OVERRIDE = {"seq": "model"}
 
 
 def dr_whisper_cfg():
@@ -6251,13 +6305,13 @@ def dr_meta(batch: dict) -> dict:
     return {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
 
 
-def dr_rules(name: str, arch: str) -> dict:
-    """rules_for(arch, DR_SHAPES[name]'s train shape), the shape made
-    known to the dry run's table first."""
+def dr_rules(name: str, arch: str, override: dict | None = None) -> dict:
+    """rules_for(arch, DR_SHAPES[name]'s train shape, override), the
+    shape made known to the dry run's table first."""
     from repro_torch.launch import dryrun, specs
     shape, (B, S) = DR_SHAPES[name]
     specs.SHAPES[shape] = dict(kind="train", seq=S, batch=B)
-    return dryrun.rules_for(arch, shape)
+    return dryrun.rules_for(arch, shape, override)
 
 
 def dr_child(seed: int, queue) -> None:
@@ -6438,7 +6492,8 @@ def dr_train(rank: int, mesh, cfg, model, batches: list, loss: str,
               f"{cfg.name} 2 x 2 steps under {rules}: the batch's sequence "
               f"is not cut over the model axis")
         check({"sp_kv", "sp_kv_grad"} <= set(tags) or
-              {"sp_state", "sp_state_grad"} <= set(tags),
+              {"sp_state", "sp_state_grad"} <= set(tags) or
+              {"sp_tp_in", "sp_tp_in_grad"} <= set(tags),
               f"{cfg.name} 2 x 2 steps: collectives by tag {sorted(tags)} "
               f"hold no sequence-block exchange and its backward")
     if rank == 0:
@@ -6590,17 +6645,18 @@ def dr_greedy(model, cfg, prompts, n_new: int, cache):
 
 
 def dr_decode(rank: int, mesh, seed: int) -> dict:
-    """(d) qwen3-4b as published on the 2 x 2 mesh: greedy tokens and ms a
-    step under the dry run's decode rules, under the default rules, and
-    on one rank alone (DR_DECODE: every weight is gathered over the data
-    axis a step under the default rules, through gloo's host staging);
+    """(d) qwen3-4b at full width, DR_DECODE_DEPTH layers, on the 2 x 2
+    mesh: greedy tokens and ms a step under the dry run's decode rules,
+    under the default rules, and on one rank alone (DR_DECODE: every
+    weight is gathered over the data axis a step under the default rules,
+    through gloo's host staging);
     then under the decode rules at DR_DECODE_CP, whose positions cross
     the cache's sequence blocks.  The cache bytes a rank holds under each
     rule set, beside the whole cache's."""
     from repro_torch.distributed import model_parallel as MP
     from repro_torch.distributed import sharding_ctx
     from repro_torch.launch.dryrun import rules_for, tree_bytes
-    cfg = get_config(LM_ARCH)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=DR_DECODE_DEPTH)
     g = torch.Generator(device="cuda").manual_seed(seed + 28)
     prompts = {shape: torch.randint(
         1, cfg.vocab_size, shape[:2], generator=g, device="cuda",
@@ -6671,10 +6727,13 @@ def dr_whisper_greedy(model, cfg, frames, prompts, n_new: int):
 
 
 def dr_whisper_serve(rank: int, mesh, seed: int) -> dict:
-    """(a) whisper as published on the 1 x 2 mesh against one rank."""
+    """(a) whisper at full width, DR_WHISPER_SERVE_DEPTH layers a stack,
+    on the 1 x 2 mesh against one rank."""
     from repro_torch.distributed import model_parallel as MP
     from repro_torch.distributed import sharding_ctx
-    cfg = get_config(DR_ARCH)
+    cfg = dataclasses.replace(get_config(DR_ARCH),
+                              n_layers=DR_WHISPER_SERVE_DEPTH,
+                              n_encoder_layers=DR_WHISPER_SERVE_DEPTH)
     B, P, new = DR_WHISPER_SERVE
     g = torch.Generator(device="cuda").manual_seed(seed + 29)
     frames = torch.randn(B, cfg.n_audio_frames, cfg.d_model, generator=g,
@@ -6718,10 +6777,11 @@ def dr_prefill_cfg(arch: str):
     return dataclasses.replace(cfg, n_layers=DR_PREFILL_DEPTH)
 
 
-def dr_prefill_batch(cfg, seed: int) -> dict:
-    """Case (e)'s prompts, the same on every rank: DR_PREFILL's tokens,
-    or whisper's frames and its decoder_max_len tokens."""
-    B, S = DR_PREFILL
+def dr_prefill_batch(cfg, seed: int, shape=DR_PREFILL) -> dict:
+    """Case (e)'s prompts, the same on every rank: ``shape``'s tokens
+    (requests, prompt), or whisper's frames and its decoder_max_len
+    tokens."""
+    B, S = shape
     g = torch.Generator(device="cuda").manual_seed(seed + 33)
     if cfg.family == "encdec":
         return {"frames": torch.randn(B, cfg.n_audio_frames, cfg.d_model,
@@ -6754,90 +6814,163 @@ def dr_timed(fn, warm: bool):
 def dr_prefill(rank: int, mesh, seed: int) -> dict:
     """(e) each of DR_PREFILL_ARCHS prefilled on the 2 x 2 mesh under its
     prefill cell's rules (each rank its request and its block of the
-    prompt) against one rank's prefill of the whole batch: the last
-    position's logits of every rank within 1e-4·max|ref| (rwkv6 at
-    FAM_F32_TOL) with equal argmax, ms a prefill beside one rank's, peak
-    bytes a rank beside one rank's, all-gathers a forward by tag, and
-    the kernel launches the path made (none: no kernel is on it)."""
+    prompt) against one rank's prefill of the whole batch
+    (:func:`dr_prefill_one`)."""
+    from repro_torch.launch.dryrun import rules_for
+    out = {}
+    for arch in DR_PREFILL_ARCHS:
+        cfg = dr_prefill_cfg(arch)
+        out[arch] = dr_prefill_one(rank, mesh, seed, cfg,
+                                   rules_for(arch, DR_PREFILL_SHAPE),
+                                   dr_prefill_batch(cfg, seed),
+                                   warm=arch != LM_ARCH)
+    return out
+
+
+def dr_prefill_one(rank: int, mesh, seed: int, cfg, rules: dict,
+                   batch: dict, warm: bool) -> dict:
+    """``cfg``'s prefill of ``batch`` on the 2 x 2 mesh under ``rules``
+    against one rank's prefill of the whole batch: the last position's
+    logits of every rank within 1e-4·max|ref| (rwkv6 at FAM_F32_TOL)
+    with equal argmax, ms a prefill beside one rank's (timed once, or
+    after a warm call with ``warm``), peak bytes a rank beside one
+    rank's, all-gathers and reduce-scatters a forward by tag, and the
+    kernel launches the path made (none: no kernel is on it)."""
     from repro_torch.distributed import batch as DB
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed import model_parallel as MP
     from repro_torch.distributed import sharding_ctx
-    from repro_torch.launch.dryrun import collectives_by_tag, rules_for
+    from repro_torch.launch.dryrun import collectives_by_tag
     from repro_torch.train import place_batch
-    out = {}
-    for arch in DR_PREFILL_ARCHS:
-        cfg = dr_prefill_cfg(arch)
-        rules = rules_for(arch, DR_PREFILL_SHAPE)
-        batch = dr_prefill_batch(cfg, seed)
-        step = make_prefill_step(cfg)
-        warm = arch != LM_ARCH
-        t0 = time.perf_counter()
-        alone = None
-        if rank == 0:
-            whole = LM.init_params(seed, cfg)
-            alone = dr_timed(lambda: step(whole, batch), warm=True)
-            del whole
-            print(f"[dryrun_mp] (e) {arch}: one rank's prefill, "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    arch = cfg.name
+    step = make_prefill_step(cfg)
+    t0 = time.perf_counter()
+    alone = None
+    if rank == 0:
+        whole = LM.init_params(seed, cfg)
+        alone = dr_timed(lambda: step(whole, batch), warm=True)
+        del whole
+        print(f"[dryrun_mp] {arch}: one rank's prefill, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.distributed.barrier()
+    lm_free()
+    # FSDP over both axes shards on their flattened group: a new process
+    # group is made by every rank together, not in turns
+    MP.axes_split(mesh, rules.get("fsdp") or "data")
+    model = dr_in_turns(rank, 4, lambda: MP.shard_model(
+        LM.init_params(seed, cfg), mesh, rules))
+    if rank == 0:
+        print(f"[dryrun_mp] {arch}: sharded in turns, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with sharding_ctx(mesh, rules):
+        placed = place_batch(batch)
+        lead = placed.get("tokens")
+        with DB.rows_scope(lead) as rows:
+            start, block = rows.start, rows.seq.block(lead.shape[1])
         torch.distributed.barrier()
-        lm_free()
-        # FSDP over both axes shards on their flattened group: a new
-        # process group is made by every rank together, not in turns
-        MP.axes_split(mesh, rules["fsdp"])
-        model = dr_in_turns(rank, 4, lambda: MP.shard_model(
-            LM.init_params(seed, cfg), mesh, rules))
-        if rank == 0:
-            print(f"[dryrun_mp] (e) {arch}: sharded in turns, "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
-        with sharding_ctx(mesh, rules):
-            placed = place_batch(batch)
-            lead = placed.get("tokens")
-            with DB.rows_scope(lead) as rows:
-                start, block = rows.start, rows.seq.block(lead.shape[1])
-            torch.distributed.barrier()
-            reset_counts()
-            logits, ms, peak, records = dr_timed(
-                lambda: step(model, placed), warm=warm)
-            launches = {k: v for k, v in counts().items() if v}
-        every = C.all_gather(logits, torch.distributed.group.WORLD,
-                             tag="check")
-        starts = [None] * 4
-        torch.distributed.all_gather_object(starts, start)
-        res = dict(ms=ms, peak_bytes=peak, launches=launches, block=block,
-                   layers=[cfg.n_encoder_layers, cfg.n_layers]
-                   if cfg.family == "encdec" else cfg.n_layers,
-                   batch={k: list(v.shape) for k, v in batch.items()},
-                   all_gathers={t: v["all-gather"]["count"] for t, v in
-                                collectives_by_tag(records).items()
-                                if "all-gather" in v},
-                   local_params=sum(p.numel() for p in model.parameters()),
-                   rules=str(rules))
-        del model
-        lm_free()
-        if rank == 0:
-            want, single_ms, single_peak, _ = alone
-            tol = FAM_F32_TOL.get(arch, 1e-4)
-            scale = float(want.abs().max())
-            errs = []
-            for r in range(4):
-                ref = want[starts[r]:starts[r] + 1]
-                errs.append(float((every[r:r + 1] - ref).abs().max()))
-                check(errs[-1] <= tol * scale and torch.equal(
-                    every[r:r + 1].argmax(-1), ref.argmax(-1)),
-                    f"{arch} 2 x 2 prefill, rank {r}: max |err| "
-                    f"{errs[-1]:.3e} against one rank's (max |logit| "
-                    f"{scale:.3e}, tolerance {tol}·max), argmax "
-                    f"{int(every[r].argmax())} against "
-                    f"{int(ref[0].argmax())}")
-            check(peak < single_peak, f"{arch} 2 x 2 prefill: peak "
-                  f"{peak} bytes a rank against one rank's {single_peak}")
-            check(set(res["all_gathers"]) >= {"sp_last"},
-                  f"{arch} 2 x 2 prefill: all-gathers {res['all_gathers']}"
-                  f" hold no sequence-block exchange")
-            res.update(single_ms=single_ms, single_peak_bytes=single_peak,
-                       max_abs_err=max(errs), max_logit=scale, tol=tol)
-        out[arch] = res
+        reset_counts()
+        logits, ms, peak, records = dr_timed(
+            lambda: step(model, placed), warm=warm)
+        launches = {k: v for k, v in counts().items() if v}
+    every = C.all_gather(logits, torch.distributed.group.WORLD,
+                         tag="check")
+    starts = [None] * 4
+    torch.distributed.all_gather_object(starts, start)
+    by_tag = collectives_by_tag(records)
+    res = dict(ms=ms, peak_bytes=peak, launches=launches, block=block,
+               layers=[cfg.n_encoder_layers, cfg.n_layers]
+               if cfg.family == "encdec" else cfg.n_layers,
+               batch={k: list(v.shape) for k, v in batch.items()},
+               all_gathers={t: v["all-gather"]["count"] for t, v in
+                            by_tag.items() if "all-gather" in v},
+               reduce_scatters={t: v["reduce-scatter"]["count"] for t, v
+                                in by_tag.items() if "reduce-scatter" in v},
+               local_params=sum(p.numel() for p in model.parameters()),
+               rules=str(rules))
+    del model
+    lm_free()
+    if rank == 0:
+        want, single_ms, single_peak, _ = alone
+        tol = FAM_F32_TOL.get(arch, 1e-4)
+        scale = float(want.abs().max())
+        errs = []
+        for r in range(4):
+            ref = want[starts[r]:starts[r] + 1]
+            errs.append(float((every[r:r + 1] - ref).abs().max()))
+            check(errs[-1] <= tol * scale and torch.equal(
+                every[r:r + 1].argmax(-1), ref.argmax(-1)),
+                f"{arch} 2 x 2 prefill, rank {r}: max |err| "
+                f"{errs[-1]:.3e} against one rank's (max |logit| "
+                f"{scale:.3e}, tolerance {tol}·max), argmax "
+                f"{int(every[r].argmax())} against "
+                f"{int(ref[0].argmax())}")
+        check(peak < single_peak, f"{arch} 2 x 2 prefill: peak "
+              f"{peak} bytes a rank against one rank's {single_peak}")
+        check(set(res["all_gathers"]) >= {"sp_last"},
+              f"{arch} 2 x 2 prefill: all-gathers {res['all_gathers']}"
+              f" hold no sequence-block exchange")
+        res.update(single_ms=single_ms, single_peak_bytes=single_peak,
+                   max_abs_err=max(errs), max_logit=scale, tol=tol)
+    return res
+
+
+def dr_sptp_cfg(arch: str, sig: bool = False):
+    """Case (g)'s config: ``arch`` at full width and DR_SPTP_DEPTH layers
+    (deepseek-v2-lite: the dense layer 0 and the first MoE layer), with
+    phase 24's signature head for the sig-MMD steps."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=DR_SPTP_DEPTH)
+    return with_sig_head(cfg, **LM_HEAD) if sig else cfg
+
+
+def dr_sptp(rank: int, mesh, seed: int) -> dict:
+    """(g) Megatron sequence parallelism on the 2 x 2 mesh under
+    ``rules_for(arch, shape, {"seq": "model"})``: heads, ``ff`` and
+    experts over the model axis, which also cuts each sequence, FSDP over
+    the data axis.  deepseek-v2-lite-16b's DR_SPTP_STEPS sig-MMD
+    Adafactor steps at LM_TRAIN's 8 x 512 against one rank's (the three
+    kernels on the gathered path at one data rank's 4 sequences), then
+    the prefill of DR_SPTP_PREFILL of deepseek-v2-lite-16b and
+    phi3.5-moe-42b-a6.6b against one rank's."""
+    from repro_torch.launch.dryrun import rules_for
+    arch = DR_SPTP[0]
+    cfg = dr_sptp_cfg(arch, sig=True)
+    model = lm_model(cfg, seed)
+    data = lm_data(cfg, "sig_mmd", 0, seed)
+    batches = [next(data) for _ in range(DR_SPTP_STEPS)]
+    alone = dr_alone(rank, cfg, model, batches, "sig_mmd")
+    res = dr_train(rank, mesh, cfg, model, batches, "sig_mmd",
+                   dr_rules("sptp", arch, DR_SPTP_OVERRIDE), alone,
+                   measure=False)
+    del model
+    lm_free()
+    P = 2
+    want = {k: dict(sig_trunc=2, sig_gram=3 * P, sig_sweep=1).get(k, 0)
+            * DR_SPTP_STEPS for k in counts()}
+    got = {k: res["launches_per_rank"].get(k, 0) for k in want}
+    check(got == want, f"(g) 2 x 2 {arch} sig-MMD steps: launches a rank "
+          f"{got}, expected {want}")
+    need = {"sp_tp_in", "sp_tp_out", "sp_moe_in", "sp_moe_out", "sp_path"}
+    need |= {t + "_grad" for t in need - {"sp_path"}}
+    check(need <= set(res["by_tag"]), f"(g) 2 x 2 {arch} steps: "
+          f"collectives by tag {sorted(res['by_tag'])} lack "
+          f"{sorted(need - set(res['by_tag']))}")
+    res.update(layers=cfg.n_layers, shape=[LM_TRAIN[1], LM_TRAIN[2],
+                                           LM_HEAD["channels"],
+                                           LM_HEAD["depth"]],
+               full_params=sum(p.numel() for p in LM.init_params(
+                   seed, cfg, device="meta").parameters()))
+    out = {"train": res}
+    for a in DR_SPTP:
+        cfg = dr_sptp_cfg(a)
+        pre = dr_prefill_one(rank, mesh, seed, cfg, rules_for(
+            a, DR_PREFILL_SHAPE, DR_SPTP_OVERRIDE),
+            dr_prefill_batch(cfg, seed, DR_SPTP_PREFILL), warm=False)
+        check({"sp_tp_in", "sp_moe_in"} <= set(pre["all_gathers"])
+              and {"sp_tp_out", "sp_moe_out"}
+              <= set(pre["reduce_scatters"]),
+              f"(g) 2 x 2 {a} prefill: all-gathers {pre['all_gathers']}, "
+              f"reduce-scatters {pre['reduce_scatters']}")
+        out[f"prefill/{a}"] = pre
     return out
 
 
@@ -6859,7 +6992,7 @@ def dr_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
         parts = [("whisper_train", dr_whisper_train),
                  ("qwen_train", dr_qwen_train),
                  ("family_train", dr_family_train), ("decode", dr_decode),
-                 ("prefill", dr_prefill)]
+                 ("prefill", dr_prefill), ("sptp", dr_sptp)]
     else:
         mesh = make_dev_mesh(1, 2)
         parts = [("whisper_serve", dr_whisper_serve)]
@@ -6938,12 +7071,9 @@ def phase_dryrun_mp(seed: int) -> dict:
     dq = ctx.Queue()
     child = ctx.Process(target=dr_child, args=(seed, dq))
     child.start()
-    worlds, world_s = {}, {}
     try:
-        for P in (4, 2):
-            t1 = time.perf_counter()
-            worlds[P] = dist_world(P, seed, target=dr_rank)
-            world_s[P] = time.perf_counter() - t1
+        # the worlds run side by side, sharing the card and the host
+        worlds, world_s = dist_worlds((4, 2), seed, target=dr_rank)
         try:
             predicted = dq.get(timeout=DIST_WORLD_S)
         except queue_mod.Empty:
@@ -6958,7 +7088,7 @@ def phase_dryrun_mp(seed: int) -> dict:
           f"{child.exitcode}")
     r4, r2 = worlds[4][0], worlds[2][0]
     s = r2["whisper_serve"]
-    print(f"[dryrun_mp] 1 x 2 whisper-large-v3 as published ("
+    print(f"[dryrun_mp] 1 x 2 whisper-large-v3 at full width ("
           f"{s['params'] / 1e9:.2f}B parameters, {s['layers'][0]} + "
           f"{s['layers'][1]} layers), {s['shape'][0]} requests over "
           f"{s['shape'][1]} frames, {s['shape'][2]}-token prompts, "
@@ -6996,7 +7126,8 @@ def phase_dryrun_mp(seed: int) -> dict:
               f"rank 0", flush=True)
     d = r4["decode"]
     B, P, new, max_len = d["cp_shape"]
-    print(f"[dryrun_mp] 2 x 2 qwen3-4b as published, greedy "
+    print(f"[dryrun_mp] 2 x 2 qwen3-4b at full width, {DR_DECODE_DEPTH} "
+          f"of 36 layers, greedy "
           f"{d['shape']}: tokens equal one rank's under both rule sets; "
           f"{d['rules_for_ms']:.1f} ms a step under rules_for(qwen3-4b, "
           f"decode_32k) = {d['rules']}, {d['default_ms']:.1f} under the "
@@ -7009,7 +7140,8 @@ def phase_dryrun_mp(seed: int) -> dict:
           f"the data axis, the sequence over the model axis) and "
           f"{d['default_cache_bytes']} under the default rules, of "
           f"{d['whole_cache_bytes']} whole", flush=True)
-    print(f"[dryrun_mp] 2 x 2 qwen3-4b as published under rules_for, "
+    print(f"[dryrun_mp] 2 x 2 qwen3-4b at full width, {DR_DECODE_DEPTH} "
+          f"of 36 layers, under rules_for, "
           f"{B} requests, {P}-token prompts, {new} greedy tokens, max_len "
           f"{max_len} (the positions cross the model axis's sequence "
           f"blocks of {max_len // 2}): tokens equal one rank's; "
@@ -7033,6 +7165,35 @@ def phase_dryrun_mp(seed: int) -> dict:
               f"{e['local_params']} parameters on rank 0; all-gathers a "
               f"forward by tag {e['all_gathers']}; kernel launches "
               f"{[r['prefill'][arch]['launches'] for r in worlds[4]]}",
+              flush=True)
+    g = r4["sptp"]
+    t = g["train"]
+    print(f"[dryrun_mp] (g) 2 x 2 {DR_SPTP[0]} at full width, depth "
+          f"{t['layers']} ({t['local_params']} of {t['full_params']} "
+          f"parameters on rank 0), sig-MMD Adafactor {len(t['losses'])} "
+          f"steps at {t['shape'][0]} x {t['shape'][1]} under {t['rules']} "
+          f"(heads, ff and experts over the model axis that cuts each "
+          f"sequence; rank 0's block {t['block']}): {dr_train_line(t)}; "
+          f"launches a rank "
+          f"{[r['sptp']['train']['launches_per_rank'] for r in worlds[4]]}",
+          flush=True)
+    for arch in DR_SPTP:
+        e = g[f"prefill/{arch}"]
+        print(f"[dryrun_mp] (g) 2 x 2 {arch} prefill (layers {e['layers']},"
+              f" batch {e['batch']}) under {e['rules']}: each rank its "
+              f"request and its block {e['block']} of the prompt, its heads "
+              f"and experts over the whole prompt; last-position logits of "
+              f"every rank within {e['tol']}·max|ref| of one rank's (max "
+              f"|err| {e['max_abs_err']:.2e}, max |logit| "
+              f"{e['max_logit']:.2e}), argmax equal; {e['ms']:.1f} ms a "
+              f"prefill, its first call (one rank alone, after a warm call, "
+              f"{e['single_ms']:.1f} ms; ranks share the card: not a "
+              f"speedup); peak {e['peak_bytes']} bytes a rank against one "
+              f"rank's {e['single_peak_bytes']}; {e['local_params']} "
+              f"parameters on rank 0; all-gathers a forward by tag "
+              f"{e['all_gathers']}, reduce-scatters {e['reduce_scatters']}"
+              f"; kernel launches "
+              f"{[r['sptp'][f'prefill/{arch}']['launches'] for r in worlds[4]]}",
               flush=True)
     w = r4["whisper_train"]
     dry = {"whisper": dr_compare("whisper", predicted["whisper"],
@@ -7060,7 +7221,9 @@ def phase_dryrun_mp(seed: int) -> dict:
           f"phase 28 {seconds:.1f} s", flush=True)
     return dict(world_s=world_s, world4=r4, world2=r2, dryrun=dry,
                 launches=[r["qwen_train"]["launches_per_rank"]
-                          for r in worlds[4]], seconds=seconds)
+                          for r in worlds[4]],
+                sptp_launches=[r["sptp"]["train"]["launches_per_rank"]
+                               for r in worlds[4]], seconds=seconds)
 
 
 # phase 29: the examples with a _torch counterpart, each run on the card as
@@ -7381,11 +7544,14 @@ def main() -> int:
     for k in ("sig_trunc", "sig_gram", "sig_sweep"):
         shard_cases[k].append(dict(mp_case, launches_per_rank=[
             {n: c for n, c in r.items() if n == k} for r in mpar["launches"]]))
-    dr_case = {k: v for k, v in drmp["world4"]["qwen_train"].items()
-               if k not in ("losses", "single_losses", "measured")}
-    for k in ("sig_trunc", "sig_gram", "sig_sweep"):
-        shard_cases[k].append(dict(dr_case, launches_per_rank=[
-            {n: c for n, c in r.items() if n == k} for r in drmp["launches"]]))
+    for case, launches in ((drmp["world4"]["qwen_train"], drmp["launches"]),
+                           (drmp["world4"]["sptp"]["train"],
+                            drmp["sptp_launches"])):
+        dr_case = {k: v for k, v in case.items()
+                   if k not in ("losses", "single_losses", "measured")}
+        for k in ("sig_trunc", "sig_gram", "sig_sweep"):
+            shard_cases[k].append(dict(dr_case, launches_per_rank=[
+                {n: c for n, c in r.items() if n == k} for r in launches]))
     heads = lm["heads"]
     lm_launches = lm["train"]["launches"]
     moe = fam["train"]

@@ -22,10 +22,11 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import math
 
 import torch
 
-from .ctx import axis_names
+from .ctx import axis_names, axis_size
 
 
 def batch_mesh(mesh, names: tuple):
@@ -99,8 +100,13 @@ def rows_like(local: torch.Tensor, ref):
     """``local`` rows laid out as the batch DTensor ``ref``'s rows are (same
     mesh, its rows over the same axes, replicated over the others, which
     may cut its sequence; the global row count); ``local`` itself when
-    ``ref`` is a plain tensor or holds every row."""
-    if not is_dtensor(ref) or not _sharding_axes(ref, 0):
+    ``ref`` is a plain tensor or holds every row (its rows whole, or
+    split over axes of size 1)."""
+    if not is_dtensor(ref):
+        return local
+    axes = _sharding_axes(ref, 0)
+    if not axes or math.prod(axis_size(ref.device_mesh, a)
+                             for a in axes) == 1:
         return local
     from torch.distributed.tensor import DTensor, Replicate, Shard
     shape = (ref.shape[0],) + tuple(local.shape[1:])
@@ -250,9 +256,12 @@ def current_seq():
     return None if rows is None else rows.seq
 
 
-ITEM_21 = ("ROADMAP item 21's remainder (decode, MoE and MLA under a "
-           "sequence split, and tensor parallelism over the axis that "
-           "cuts it)")
+ITEM_21 = ("ROADMAP item 21's remainder (decode under a sequence split; "
+           "tensor parallelism over the axis that cuts the sequence in the "
+           "hybrid, rwkv and encdec families, or over axes that only partly "
+           "overlap the sequence's; whisper's frames cut with its tokens "
+           "whole in training; a vocabulary split over other axes than the "
+           "sequence's)")
 
 
 def whole_seq(x, dim: int = 1, *, tag: str = "gather"):

@@ -33,6 +33,21 @@ gather whose consumer every rank of the group runs the same is
 :func:`gather_from`.  Each backward collective is logged under its
 forward tag with ``_grad`` appended.
 
+Where the model axis both cuts the sequence and splits a layer's weights
+(Megatron-LM's sequence parallelism, :func:`seq_tp`), the layer's input
+block is all-gathered over the group in place of :func:`copy_to`
+(:func:`tp_enter`, tag ``sp_tp_in``; its backward reduce-scatters the
+gradient, which sums the ranks' partial input gradients) and its
+row-parallel output is reduce-scattered back to the block in place of
+:func:`reduce_from`'s all-reduce (:func:`tp_exit`, ``sp_tp_out``).  Inside
+that region every rank runs its heads, columns or experts over the
+group's whole sequences, and a weight it reads whole takes no
+:func:`copy_to`: its gradient there is the rank's partial one, which the
+step's gradient reduction sums over the model axis once (it splits the
+batch's tokens), as it sums the gradient of a weight read on the block.
+A model-axis block read whole under such a split (:func:`full_view`) is
+gathered with the same summing backward.
+
 A decode cache is laid out as the reference's ``cache_specs`` place it
 (:func:`local_cache`): a :class:`LocalCache` of this rank's blocks, from
 which a decode step reads its rows of the requests (:func:`decode_rows`)
@@ -261,15 +276,65 @@ def model_split(placement: Placement | None, dim: int) -> Split | None:
 
 def full_view(w: torch.Tensor, placement: Placement | None):
     """The whole parameter: its FSDP view with the model-axis blocks
-    gathered too (:func:`gather_from`)."""
+    gathered too: by :func:`gather_from` where the ranks of the model
+    group hold the same tokens, and by :class:`GatherScatter` where the
+    model axis cuts the sequence (each rank then uses the whole weight
+    on its own tokens or heads, and its gradient is summed over the
+    group)."""
     if placement is None:
         return w
     w = fsdp_view(w, placement)
+    from .batch import current_seq
+    seq = current_seq()
+    differ = seq is not None and MODEL in seq.axes
     for d in range(len(placement.shape)):
         sp = model_split(placement, d)
-        if sp is not None:
+        if sp is None:
+            continue
+        if differ:
+            w = GatherScatter.apply(w, sp.group, d, "tp_param_gather",
+                                    "tp_param_gather_grad")
+        else:
             w = gather_from(w, sp, dim=d, tag="tp_param_gather")
     return w
+
+
+def seq_tp(split: Split | None, seq) -> Split | None:
+    """The sequence split over which a layer split over the model axis
+    (``split``) gathers its input: ``seq`` where the model axis also cuts
+    the sequence (every rank then runs its share of the layer over the
+    group's whole sequences), None where the ranks of ``split`` hold the
+    same tokens (or nothing is split).  A sequence cut over the model
+    axis and other axes is refused."""
+    if split is None or seq is None or MODEL not in seq.axes:
+        return None
+    if tuple(seq.axes) != tuple(split.axes):
+        from .batch import ITEM_21
+        raise NotImplementedError(
+            f"a layer split over {split.axes} with the sequence cut over "
+            f"{seq.axes}, axes that only partly overlap: {ITEM_21} is not "
+            f"ported")
+    return seq
+
+
+def tp_enter(x, split: Split | None, whole: Split | None):
+    """A split layer's input: the group's whole sequences under a split
+    over the axis that cuts them (``whole``, from :func:`seq_tp`: one
+    all-gather, tag ``sp_tp_in``, whose backward reduce-scatters), else
+    :func:`copy_to` over ``split``."""
+    if whole is not None:
+        return seq_gather(x, whole, 1, "sp_tp_in")
+    return copy_to(x, split)
+
+
+def tp_exit(x, split: Split | None, whole: Split | None):
+    """A split layer's row-parallel output summed over the group: cut
+    back to this rank's block of the sequence under ``whole`` (one
+    reduce-scatter, tag ``sp_tp_out``, whose backward all-gathers), else
+    :func:`reduce_from` over ``split``."""
+    if whole is not None:
+        return seq_scatter(x, whole, 1, "sp_tp_out")
+    return reduce_from(x, split)
 
 
 def block(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
@@ -473,8 +538,11 @@ def grad_reduction(placement: Placement | None, mesh,
     them, each of its ranks computed the same share and the sum counts it
     that many times.  A batch axis the parameter is not held over is
     summed by the all-reduce; a model-axis block is this rank's whole
-    gradient of it (tensor parallelism, or the vocabulary's exchanges
-    under a sequence split)."""
+    gradient of it (tensor parallelism, its sequence-parallel form too,
+    or the vocabulary's exchanges under a sequence split).  Under a
+    sequence cut over the model axis a weight it does not split is summed
+    over that axis once here, whether the rank read it on its block or
+    whole for its heads or experts (:func:`seq_tp`)."""
     held, summed = set(), set()
     if placement is not None:
         for _, axes in _dims(placement):
@@ -487,12 +555,17 @@ def grad_reduction(placement: Placement | None, mesh,
     return tuple(a for a in batch_axes if a not in held), over
 
 
-def refuse_tensor_parallel(params, seq, where: str) -> None:
-    """A sequence cut over the model axis leaves that axis's ranks with
-    different tokens, so no layer may split its weights over it (the
-    vocabulary excepted: ``transformer.embed`` and ``vocab_logits``
-    handle it); ``where`` names the path refused.  ``rules_for``'s train
-    and prefill cells turn tensor parallelism off."""
+TP_REFUSED_FAMILIES = ("hybrid", "rwkv", "encdec")
+
+
+def refuse_tensor_parallel(params, seq, where: str, family: str) -> None:
+    """What of tensor parallelism under a sequence cut over the model axis
+    is not ported: the ``hybrid``, ``rwkv`` and ``encdec`` families with
+    weights split over that axis (Mamba2's segments, the WKV state and
+    whisper's cross attention), and a sequence cut over the model axis and
+    other axes (a split that only partly overlaps it).  The vocabulary
+    is excepted (``transformer.embed`` and ``vocab_logits`` handle it);
+    ``where`` names the path refused."""
     if seq is None or MODEL not in seq.axes or \
             not isinstance(params, torch.nn.Module):
         return
@@ -500,12 +573,19 @@ def refuse_tensor_parallel(params, seq, where: str) -> None:
     split = sorted(n for n, pl in placements(params).items()
                    if MODEL in pl.spec
                    and n.split(".")[-1] not in ("embed", "lm_head"))
-    if split:
+    if not split:
+        return
+    what = f"{split[0]} (and {len(split) - 1} more) tensor-parallel over it"
+    if family in TP_REFUSED_FAMILIES:
         raise NotImplementedError(
-            f"{where} with the sequence cut over the model axis and "
-            f"{split[0]} (and {len(split) - 1} more) tensor-parallel over "
-            f"it: {ITEM_21} is not ported; use rules_for's train and "
-            f"prefill rules (heads, kv_heads and ff None)")
+            f"{where} of the {family} family with the sequence cut over the "
+            f"model axis and {what}: {ITEM_21} is not ported; use "
+            f"rules_for's train and prefill rules (heads, kv_heads and ff "
+            f"None)")
+    if tuple(seq.axes) != (MODEL,):
+        raise NotImplementedError(
+            f"{where} with the sequence cut over {seq.axes} and {what}, "
+            f"axes that only partly overlap: {ITEM_21} is not ported")
 
 
 def block_share(placement: Placement | None, mesh) -> float:

@@ -33,14 +33,19 @@ From it:
 The port executes the reference's layouts.  A prefill or train cell
 under the reference's ``seq: "model"`` rule (``rules_for`` gives it to
 the cells whose batch 256 does not divide: every prefill cell of a dense
-model, and a train cell of such a batch) runs it: each rank runs its rows
+model, and a train cell of such a batch; ``rule_overrides={"seq":
+"model"}``, the CLI's ``--override``, gives it to any cell, the MoE and
+MLA archs' and those whose heads, ``ff`` and experts the model axis
+splits included) runs it: each rank runs its rows
 and its block of every sequence, the blocks exchanging keys and values
 for attention, boundary rows for the convolution and the token shifts,
 and one state a block for the Mamba2 and RWKV6 recurrences
 (``serve.engine.make_prefill_step``, ``train.make_train_step``); a train
 step's backward sums each exchange's gradients back to the blocks, and
 the dry run counts those collectives under their own tags (``sp_kv_grad``,
-...).  Decode runs
+...).  Where the model axis also splits a layer, the layer gathers the
+group's rows and reduce-scatters its output (``sp_tp_in`` /
+``sp_tp_out``, the MoE's ``sp_moe_in`` / ``sp_moe_out``).  Decode runs
 the reference's layout: each rank decodes its rows of the requests, and
 each attention cache is cut on its sequence over ``kv_seq``'s axes
 (``model_parallel.local_cache``), the blocks' softmax partials combined
@@ -514,8 +519,16 @@ def main(argv=None):
     ap.add_argument("--remat", default="dots",
                     choices=["dots", "full", "none"])
     ap.add_argument("--out", default="runs/dryrun")
+    ap.add_argument("--override", default="",
+                    help='rules merged into rules_for\'s, as JSON: '
+                         '\'{"seq": "model"}\' cuts every sequence over '
+                         'the model axis')
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
+    override = json.loads(args.override) if args.override else None
+    if override:
+        override = {k: tuple(v) if isinstance(v, list) else v
+                    for k, v in override.items()}
 
     archs = ARCH_IDS if args.arch == "all" else [args.arch]
     shapes = list(SP.SHAPES) if args.shape == "all" else [args.shape]
@@ -528,9 +541,13 @@ def main(argv=None):
             for shape in shapes:
                 for mp in meshes:
                     tag = f"{arch}__{shape}__{'pod2' if mp else 'pod1'}"
+                    if override:
+                        tag += "__" + "_".join(f"{k}-{v}" for k, v in
+                                               sorted(override.items()))
                     try:
                         res = lower_cell(arch, shape, multi_pod=mp,
-                                         opt_name=args.opt, remat=args.remat)
+                                         opt_name=args.opt, remat=args.remat,
+                                         rule_overrides=override)
                     except Exception as e:  # a dry-run failure is a bug
                         n_fail += 1
                         res = {"arch": arch, "shape": shape, "error": str(e),
@@ -544,7 +561,9 @@ def main(argv=None):
                             print(f"[SKIP] {tag}: {res['skipped']}",
                                   flush=True)
                         else:
+                            mem = res["memory_analysis"]
                             print(f"[OK]   {tag} compile={res['compile_s']}s "
+                                  f"temp={mem['temp_size_bytes']} "
                                   f"dom={res['dominant']} "
                                   f"tc={res['t_compute_s']:.3e} "
                                   f"tm={res['t_memory_s']:.3e} "

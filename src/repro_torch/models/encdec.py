@@ -60,7 +60,7 @@ from .layers import (ParamTree, _attend_cache, _full, _init, _sdpa, _weight,
                      init_attention, init_mlp, mlp, prompt_split, rms_norm)
 from .transformer import (_remat, _token_nll, _with_seq, decode_batch,
                           default_positions, embed, logits_fn,
-                          vocab_logits)
+                          sequence_positions, vocab_logits)
 
 
 def sinusoids(length: int, channels: int, start: int = 0) -> np.ndarray:
@@ -186,7 +186,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor,
     pos = torch.as_tensor(sinusoids(F, d, start), device=frames.device).to(
         frames.dtype)
     x = frames + pos[None]
-    positions = default_positions(cfg, B, F, frames.device, start=start)
+    positions = sequence_positions(cfg, B, F, frames.device)
 
     def body(p, h):
         a, _ = attention(p["attn"], rms_norm(h, p["ln_attn"], cfg.norm_eps),
@@ -212,7 +212,7 @@ def decode_train(params, cfg: ModelConfig, enc_out: torch.Tensor, tokens,
     start = 0 if rows is None else rows.seq_start(S)
     x = embed(params, tokens)
     x = x + params["pos_dec"][start:start + S][None].to(x.dtype)
-    positions = default_positions(cfg, B, S, x.device, start=start)
+    positions = sequence_positions(cfg, B, S, x.device)
 
     def body(p, h):
         a, _ = attention(p["self_attn"],

@@ -34,13 +34,24 @@ In a prefill or a train step whose sequence is cut (the reference's
 of the positions: attention all-gathers the block's keys and values over
 the split's group and attends its queries over the whole sequence under
 the causal mask offset to the block's first position (GSPMD's program for
-queries cut on the sequence against whole keys), and the vocabulary-
-parallel embedding looks up the group's tokens and reduce-scatters the
-rows back to their blocks.  Each exchange is differentiable
-(``model_parallel.seq_gather`` / ``seq_scatter``): every rank computes
-only its own block's share from a gathered tensor, so the backward sums
-the blocks' gradients over the group (a reduce-scatter; an all-gather
-for the embedding's reduce-scatter).
+queries cut on the sequence against whole keys), MLA gathers the block's
+latents and rope keys the same way, and the vocabulary-parallel embedding
+looks up the group's tokens and reduce-scatters the rows back to their
+blocks.  The layers then take the whole sequence's positions
+(:func:`block_positions` gives the block's).  Where the model axis that
+cuts the sequence also splits a layer's heads or ``ff`` columns
+(Megatron-LM's sequence parallelism, ``model_parallel.seq_tp``), the
+layer gathers its input block over the group (``tp_enter``), runs its
+heads or columns over the group's whole sequences (attention causal from
+position 0) and reduce-scatters its row-parallel output back to the
+block (``tp_exit``).  The MoE gathers the group's tokens in any case, so
+that each rank routes whole sequences in the reference's dispatch
+groups; its experts' (and shared experts') partial sums are
+reduce-scattered back to the block where the experts are split over that
+axis.  Each exchange is differentiable (``model_parallel.seq_gather`` /
+``seq_scatter``): every rank computes only its own block's share (or its
+heads' share) from a gathered tensor, so the backward sums the gradients
+over the group (a reduce-scatter; an all-gather for a reduce-scatter).
 """
 from __future__ import annotations
 
@@ -56,7 +67,8 @@ from ..distributed.collectives import reduce_sum
 from ..distributed.model_parallel import (MODEL, copy_to, fsdp_view,
                                           full_view, gather_from,
                                           model_split, reduce_from,
-                                          seq_gather)
+                                          seq_gather, seq_scatter, seq_tp,
+                                          tp_enter, tp_exit)
 
 
 class ParamTree(nn.Module):
@@ -270,9 +282,12 @@ def heads_split(p, cfg):
 
 
 def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor,
-                 tp=None, every_kv: bool = False):
+                 tp=None, every_kv: bool = False, whole=None):
     """q of this rank's heads (every head without a split), k and v of
-    their KV heads, or of every KV head with ``every_kv``."""
+    their KV heads, or of every KV head with ``every_kv``.  With
+    ``whole`` (``model_parallel.seq_tp``'s split) ``x`` is the group's
+    gathered rows and nothing is copied to the group: the gather's
+    backward and the step's reduction sum the ranks' gradients."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     if tp is None:
@@ -283,12 +298,13 @@ def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor,
         H = cfg.n_heads // sp.size
         if every_kv:
             kv0, Hkv = 0, cfg.n_kv_heads
+    cp = None if whole is not None else sp
 
     def kv(key):        # replicated; this rank reads its KV heads' columns
-        w = copy_to(_full(p, key), sp)
+        w = copy_to(_full(p, key), cp)
         return w[..., kv0 * hd:(kv0 + Hkv) * hd].to(x.dtype)
 
-    x = copy_to(x, sp)
+    x = copy_to(x, cp)
     q = x @ _weight(p, "wq", sp).to(x.dtype)
     k = x @ kv("wk")
     v = x @ kv("wv")
@@ -300,8 +316,8 @@ def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     k = k.reshape(B, S, Hkv, hd)
     v = v.reshape(B, S, Hkv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, copy_to(_full(p, "q_norm"), sp), cfg.norm_eps)
-        k = rms_norm(k, copy_to(_full(p, "k_norm"), sp), cfg.norm_eps)
+        q = rms_norm(q, copy_to(_full(p, "q_norm"), cp), cfg.norm_eps)
+        k = rms_norm(k, copy_to(_full(p, "k_norm"), cp), cfg.norm_eps)
     if cfg.rope_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -430,6 +446,16 @@ def prompt_split(x: torch.Tensor):
     return DB.current_seq()
 
 
+def block_positions(positions: torch.Tensor, S: int, seq) -> torch.Tensor:
+    """This rank's block of S positions of the whole sequence's
+    ``positions`` (B, S·P) or M-RoPE's (3, B, S·P), which the layers take
+    under a sequence split; ``positions`` itself when the sequence is
+    whole."""
+    if seq is None:
+        return positions
+    return positions.narrow(-1, seq.index * S, S)
+
+
 def halo_rows(x: torch.Tensor, n: int, seq, tag: str) -> torch.Tensor:
     """The n rows of the sequence just before this rank's block ``x``
     (B, S, ...): the earlier blocks' last rows, from one all-gather of
@@ -463,28 +489,44 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     (:func:`combine_blocks`).  Where the model axis splits both the
     sequence and the query heads, each rank projects every KV head,
     gathers every query head, attends with all of them and keeps its own
-    heads' output for its rows of ``wo``."""
+    heads' output for its rows of ``wo``.
+
+    Without a cache, under a sequence split (``positions`` the whole
+    sequence's) each rank attends its block's queries over the gathered
+    keys and values (:func:`_prefill_attend`), or, where the heads are
+    split over the axis that cuts the sequence, its heads over the
+    group's gathered rows causally from position 0, the output
+    reduce-scattered back to the block."""
     B, S, _ = x.shape
     tp = heads_split(p, cfg)
-    seq = None if cache is None else cache.get("seq")
+    sp = None if tp is None else tp[0]
+    if cache is None:
+        prompt = prompt_split(x)
+        whole = seq_tp(sp, prompt)
+        if whole is not None:
+            q, k, v = _project_qkv(p, tp_enter(x, sp, whole), cfg, positions,
+                                   tp, whole=whole)
+            out = _sdpa(q, k, v, causal)
+        else:
+            q, k, v = _project_qkv(p, x, cfg, block_positions(
+                positions, S, prompt), tp)
+            out = _prefill_attend(q, k, v, causal, prompt)
+        return tp_exit(out @ _weight(p, "wo", sp).to(x.dtype), sp, whole), \
+            None
+    seq = cache.get("seq")
     every = every_head(tp, seq)
     q, k, v = _project_qkv(p, x, cfg, positions, tp, every)
-    new_cache = None
-    if cache is not None:
-        idx = cache["index"]
-        ck, cv = cache["k"], cache["v"]
-        if tp is not None and not every and ck.shape[2] != k.shape[2]:
-            ck, cv = (c.narrow(2, tp[1], tp[2]) for c in (ck, cv))
-        n = ck.shape[1]
-        rows, inside = block_rows(idx, S, n, seq)
-        write_rows(ck, rows, inside, k)
-        write_rows(cv, rows, inside, v)
-        new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + S}
-        valid = valid_rows(idx, S, n, seq)
-        out = _attend_cache(q, ck, cv, valid, seq, tp if every else None)
-    else:
-        out = _prefill_attend(q, k, v, causal, prompt_split(x))
-    sp = None if tp is None else tp[0]
+    idx = cache["index"]
+    ck, cv = cache["k"], cache["v"]
+    if tp is not None and not every and ck.shape[2] != k.shape[2]:
+        ck, cv = (c.narrow(2, tp[1], tp[2]) for c in (ck, cv))
+    n = ck.shape[1]
+    rows, inside = block_rows(idx, S, n, seq)
+    write_rows(ck, rows, inside, k)
+    write_rows(cv, rows, inside, v)
+    new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + S}
+    valid = valid_rows(idx, S, n, seq)
+    out = _attend_cache(q, ck, cv, valid, seq, tp if every else None)
     return reduce_from(out @ _weight(p, "wo", sp).to(x.dtype), sp), \
         new_cache
 
@@ -588,24 +630,43 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     latent and the rope key are computed whole and every rank runs its
     heads on them; the cache is the whole latent on every rank, or its
     block of the positions under ``cache["seq"]`` (:func:`_mla_blocks`).
+
+    Without a cache, under a sequence split (``positions`` the whole
+    sequence's) each rank's block gathers the group's normed latents and
+    rope keys (one packed all-gather, tag ``sp_latent``), up-projects
+    them to its heads' keys and values and attends its queries causally
+    from the block's first position; where the heads are split over the
+    axis that cuts the sequence, each rank gathers the group's rows
+    (``model_parallel.tp_enter``), computes the latents, rope keys and
+    its heads over them, attends from position 0 and reduce-scatters its
+    ``wo`` partial sum back to the block.  ``w_dkv``, ``w_krope``,
+    ``kv_norm``, ``w_dq`` and ``q_norm`` are read whole there, each
+    rank's gradient its heads' share.
     """
-    DB.refuse_seq("mla_attention")
-    B, S, _ = x.shape
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
         cfg.v_head_dim
+    r = cfg.kv_lora_rank
     qkey = "w_uq" if cfg.q_lora_rank else "wq"
     sp = _split(p, "w_uk", 1)
     if sp is not None and (H % sp.size or _split(p, "w_uv", 1) is None
                            or _split(p, qkey, 1) is None
                            or _split(p, "wo", 0) is None):
         sp = None
+    prompt = prompt_split(x) if cache is None else None
+    whole = seq_tp(sp, prompt)
+    if whole is not None:           # every row of the group's sequences
+        x, prompt = tp_enter(x, sp, whole), None
+    else:
+        positions = block_positions(positions, x.shape[1], prompt)
+    cp = None if whole is not None else sp     # copied to the heads split
+    B, S, _ = x.shape
     Hl = H if sp is None else H // sp.size
     if cfg.q_lora_rank:
         q = rms_norm(x @ _full(p, "w_dq").to(x.dtype), _full(p, "q_norm"),
                      cfg.norm_eps)
-        q = copy_to(q, sp) @ _weight(p, "w_uq", sp).to(x.dtype)
+        q = copy_to(q, cp) @ _weight(p, "w_uq", sp).to(x.dtype)
     else:
-        q = copy_to(x, sp) @ _weight(p, "wq", sp).to(x.dtype)
+        q = copy_to(x, cp) @ _weight(p, "wq", sp).to(x.dtype)
     q = q.reshape(B, S, Hl, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -620,6 +681,7 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
                            sp)
 
     new_cache = valid = None
+    q0 = 0                          # the queries' first position
     if cache is not None:
         idx = cache["index"]
         cc, cr = cache["c_kv"], cache["k_rope"]
@@ -629,8 +691,12 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
         new_cache = {"c_kv": cc, "k_rope": cr, "index": idx + S}
         c_kv, k_rope = cc.to(x.dtype), cr.to(x.dtype)
         valid = torch.arange(cc.shape[1], device=x.device) < (idx + S)
+    elif prompt is not None:        # the group's latents and rope keys
+        lat = seq_gather(torch.cat([c_kv, k_rope], dim=-1), prompt, 1,
+                         "sp_latent")
+        c_kv, k_rope, q0 = lat[..., :r], lat[..., r:], prompt.index * S
 
-    c_kv, k_rope = copy_to(c_kv, sp), copy_to(k_rope, sp)
+    c_kv, k_rope = copy_to(c_kv, cp), copy_to(k_rope, cp)
     k_nope = (c_kv @ _weight(p, "w_uk", sp).to(x.dtype)).reshape(
         B, -1, Hl, dn)
     v = (c_kv @ _weight(p, "w_uv", sp).to(x.dtype)).reshape(B, -1, Hl, dv)
@@ -642,12 +708,12 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     if valid is not None:
         logits = logits.masked_fill(~valid[None, None, None, :], -1e30)
     elif causal:
-        mask = torch.arange(S, device=x.device)[:, None] >= \
+        mask = q0 + torch.arange(S, device=x.device)[:, None] >= \
             torch.arange(Skv, device=x.device)[None, :]
         logits = logits.masked_fill(~mask[None, None], -1e30)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, S, Hl * dv)
-    return reduce_from(out @ _weight(p, "wo", sp).to(x.dtype), sp), \
+    return tp_exit(out @ _weight(p, "wo", sp).to(x.dtype), sp, whole), \
         new_cache
 
 
@@ -715,26 +781,38 @@ def init_mlp(generator: torch.Generator, d: int, ff: int, act: str) -> dict:
     return p
 
 
-def _mlp_partial(p, x: torch.Tensor, act: str):
-    """-> (this rank's partial output, its model split): column-parallel
+def _mlp_partial(p, x: torch.Tensor, act: str, gathered=None):
+    """-> (this rank's partial output, its model split, the sequence
+    split its input was gathered over or None): column-parallel
     ``w_up``/``w_gate`` and row-parallel ``w_down`` under an ``ff`` split
     (the output still to be summed over the split), else the whole MLP
-    and None."""
+    and None.  Under an ``ff`` split over the axis that cuts the sequence
+    the input block is gathered over the group first
+    (``model_parallel.tp_enter``); ``gathered``, a sequence split, says
+    that ``x`` is already the group's whole sequences over it."""
     sp = _split(p, "w_up", 1)
     if sp is not None and _split(p, "w_down", 0) is None:
         sp = None
-    x = copy_to(x, sp)
+    if gathered is None:
+        whole = seq_tp(sp, DB.current_seq())
+        x = tp_enter(x, sp, whole)
+    else:
+        whole = seq_tp(sp, gathered)
+        x = x if whole is not None else copy_to(x, sp)
     up = x @ _weight(p, "w_up", sp).to(x.dtype)
     if "w_gate" in p:
         up = act_fn(act)(x @ _weight(p, "w_gate", sp).to(x.dtype)) * up
     else:
         up = act_fn(act)(up)
-    return up @ _weight(p, "w_down", sp).to(x.dtype), sp
+    return up @ _weight(p, "w_down", sp).to(x.dtype), sp, whole
 
 
 def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
-    out, sp = _mlp_partial(p, x, act)
-    return reduce_from(out, sp)
+    """The MLP of ``x``; under an ``ff`` split the row-parallel sum over
+    the split, reduce-scattered back to this rank's block where the split
+    is over the axis that cuts the sequence."""
+    out, sp, whole = _mlp_partial(p, x, act)
+    return tp_exit(out, sp, whole)
 
 
 def init_moe(generator: torch.Generator, cfg) -> dict:
@@ -819,11 +897,22 @@ def moe(p, x: torch.Tensor, cfg):
     the aux loss E·Σ me·ce takes ``me`` and ``ce`` over the global batch:
     their sums and the token count are added over the data group first
     (differentiably for ``ce``), as the reference's means over its whole
-    batch are.  A batch whose sequence is cut over the mesh raises
-    (``distributed.batch.refuse_seq``)."""
-    DB.refuse_seq("moe")
-    B, S, d = x.shape
+    batch are.
+
+    On a batch whose sequence is cut (``distributed.batch.current_seq``)
+    each rank gathers its rows' whole sequences over the split's group
+    (tag ``sp_moe_in``) and routes them in the global batch's groups.
+    Experts (or shared experts) split over the axis that cuts the
+    sequence add their partial sums in one reduce-scatter back to the
+    block (``sp_moe_out``); an output every rank of the group computes
+    whole is cut to the block.  The aux loss's sums are taken over the
+    block's tokens and added over the data group and the sequence's."""
+    B, Sb, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    seq = DB.current_seq()
+    if seq is not None:
+        x = seq_gather(x, seq, 1, "sp_moe_in")
+    S = x.shape[1]
     T = B * S
     xt = x.reshape(T, d)
     probs = torch.softmax((xt @ _full(p, "router").to(x.dtype)).float(),
@@ -841,6 +930,8 @@ def moe(p, x: torch.Tensor, cfg):
     if sp is not None and (E % sp.size or _split(p, "w_up", 0) is None
                            or _split(p, "w_down", 0) is None):
         sp = None
+    whole = seq_tp(sp, seq)
+    cp = None if whole is not None else sp     # copied to the expert split
     El = E if sp is None else E // sp.size
     e0 = 0 if sp is None else sp.index * El
     mine = (gate_idx >= e0) & (gate_idx < e0 + El)              # (T, k)
@@ -851,7 +942,7 @@ def moe(p, x: torch.Tensor, cfg):
     # dropped pairs (and other ranks' experts') land in one spare row
     target = torch.where((keep & mine).reshape(-1), slot,
                          torch.full_like(slot, n_slots))
-    xin = copy_to(xt, sp)
+    xin = copy_to(xt, cp)
     xe = xin.new_zeros((n_slots + 1, d)).index_add(
         0, target, xin.repeat_interleave(k, dim=0))[:n_slots]
     xe = xe.reshape(El, G * C, d)
@@ -860,23 +951,50 @@ def moe(p, x: torch.Tensor, cfg):
     ye = torch.bmm(h, _weight(p, "w_down", sp).to(x.dtype)).reshape(n_slots,
                                                                      d)
     ye = torch.cat([ye, ye.new_zeros((1, d))])
-    w = (copy_to(gate_vals * keep, sp) * mine).to(x.dtype)      # (T, k)
+    w = (copy_to(gate_vals * keep, cp) * mine).to(x.dtype)      # (T, k)
     out = (ye[target].reshape(T, k, d) * w[..., None]).sum(1)
+    terms = [(out, sp, whole)]
     if cfg.n_shared_experts:
-        sh, ssp = _mlp_partial(p["shared"], x, cfg.act)
-        sh = sh.reshape(T, d)
-        if sp is not None and ssp is not None:
-            out = out + sh
-        else:
-            out = reduce_from(out, sp) + reduce_from(sh, ssp)
-            sp = None
-    out = reduce_from(out, sp)
+        sh, ssp, swhole = _mlp_partial(p["shared"], x, cfg.act,
+                                       gathered=seq)
+        terms.append((sh.reshape(T, d), ssp, swhole))
+    out = _moe_output(terms, seq, (B, S, d), Sb)
     # load-balancing aux loss (Switch-style), over the global batch
-    sums = torch.stack([onehot[:, 0].sum(0), probs.sum(0)])
-    n = T
-    if rows is not None:
+    first, pr = onehot[:, 0], probs
+    if seq is not None:             # this rank's block of the tokens
+        first, pr = (t.reshape(B, S, E).narrow(1, seq.index * Sb, Sb)
+                     .reshape(-1, E) for t in (first, pr))
+    sums = torch.stack([first.sum(0), pr.sum(0)])
+    if rows is not None and rows.group is not None:
         sums = reduce_sum(sums, rows.group, tag="moe_aux")
-        n = rows.B * S
+    if seq is not None:
+        sums = reduce_sum(sums, seq.group, tag="moe_aux")
+    n = (B if rows is None else rows.B) * S
     me, ce = sums[0].detach() / n, sums[1] / n
     aux = E * torch.sum(me * ce) * cfg.router_aux_coef
-    return out.reshape(B, S, d), aux
+    return out, aux
+
+
+def _moe_output(terms: list, seq, shape: tuple, Sb: int) -> torch.Tensor:
+    """The MoE's output (B, Sb, d) from its terms (output (T, d), model
+    split, sequence split gathered over or None): the terms under one
+    model split summed over it together (one all-reduce); where the
+    sequence is cut, the terms every rank of its group computed whole cut
+    to this rank's block, and the partial sums over the axis that cuts it
+    added in one reduce-scatter back to the block."""
+    whole = [t for t, sp, w in terms if sp is None]
+    summed = [(t, sp) for t, sp, w in terms if sp is not None and w is None]
+    parts = [t for t, sp, w in terms if w is not None]
+    out = None
+    if summed:
+        out = reduce_from(sum(t for t, _ in summed), summed[0][1])
+    if whole:
+        out = sum(whole) if out is None else sum(whole) + out
+    if out is not None:
+        out = out.reshape(shape)
+        if seq is not None:
+            out = out.narrow(1, seq.index * Sb, Sb)
+    if parts:
+        y = seq_scatter(sum(parts).reshape(shape), seq, 1, "sp_moe_out")
+        out = y if out is None else out + y
+    return out

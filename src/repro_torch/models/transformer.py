@@ -29,7 +29,8 @@ cuts the sequence (the ``"seq"`` rule) its ranks hold different tokens:
 the embedding looks up the group's tokens and reduce-scatters them back
 to the blocks, and the LM loss gathers the vocabulary's blocks of the
 output weight (its backward reduce-scatters their gradients) and takes
-each block's whole logits.  A cache made by
+each block's whole logits; the layers take the whole sequence's positions
+(:func:`sequence_positions`).  A cache made by
 :func:`init_cache` under a sharding context is this rank's block of every
 leaf (``cache_specs``), written in place: decode runs the reference's
 layout, each rank its rows of the requests (the batch over the data
@@ -144,7 +145,9 @@ def init_params(generator, cfg: ModelConfig, dtype=torch.float32, *,
 def _decoder_layer_fwd(p, x: torch.Tensor, cfg: ModelConfig,
                        positions: torch.Tensor, use_moe: bool = False,
                        cache=None):
-    """Returns (x, aux, new_cache); aux is 0 for a dense layer."""
+    """Returns (x, aux, new_cache); aux is 0 for a dense layer.  Under a
+    sequence split ``x`` is this rank's block and ``positions`` the whole
+    sequence's (:func:`sequence_positions`)."""
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     attn_fn = mla_attention if cfg.mla else attention
     a, new_kv = attn_fn(p["attn"], h, cfg, positions, cache=cache)
@@ -203,6 +206,25 @@ def default_positions(cfg: ModelConfig, B: int, S: int, device,
     return pos
 
 
+def sequence_positions(cfg: ModelConfig, B: int, S: int, device,
+                       positions=None) -> torch.Tensor:
+    """The positions the layers take for rows of S tokens: inside a rows
+    scope whose sequence is cut (``distributed.batch.current_seq``), of
+    which the rows are this rank's block, the whole sequence's (a layer
+    that gathers the group's rows applies RoPE over all of them, and
+    ``layers.block_positions`` gives the block's): the default positions
+    from 0, or the given block's ``positions`` all-gathered over the
+    split on their last dimension (tag ``sp_positions``).  Outside a
+    split, ``positions`` or the default ones."""
+    seq = DB.current_seq()
+    if positions is not None:
+        return positions if seq is None else C.all_gather(
+            positions.contiguous(), seq.group, dim=positions.ndim - 1,
+            tag="sp_positions")
+    return default_positions(cfg, B, S if seq is None else S * seq.size,
+                             device)
+
+
 def _groups(cfg: ModelConfig):
     """The hybrid's groups: (g, first Mamba layer, layers, shared block)."""
     per, done = cfg.hybrid_attn_every, 0
@@ -256,15 +278,11 @@ def backbone(params, cfg: ModelConfig, tokens=None, embeds=None,
     """Token/embedding inputs -> final hidden states (B, S, d).  Returns
     (hidden, aux_loss); the aux loss is the MoE layers' sum, else 0.
     Inside a ``rows_scope`` of a batch whose sequence is cut, the inputs
-    are this rank's block and the default positions are the block's
-    global ones."""
+    are this rank's block (``positions`` too) and the layers take the
+    whole sequence's positions (:func:`sequence_positions`)."""
     x = embed(params, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
-    if positions is None:
-        rows = DB.current_rows()
-        positions = default_positions(
-            cfg, B, S, x.device, start=0 if rows is None
-            else rows.seq_start(S))
+    positions = sequence_positions(cfg, B, S, x.device, positions)
     aux = x.new_zeros(())
     if cfg.family == "rwkv":
         body = _remat(lambda p, h: rwkv_block(p, h, cfg)[0], remat)

@@ -42,9 +42,13 @@ rank of a model group computes the same head, and the Gram ring runs over
 the data subgroup.
 
 Under the reference's ``seq: "model"`` rule (``launch.dryrun.rules_for``'s
-train cells whose batch 256 does not divide) each rank runs its rows and
-its block of every sequence, forward and backward, the blocks exchanging
-activations differentiably (``model_parallel.seq_gather``).  The LM loss
+train cells whose batch 256 does not divide, or any cell's override) each
+rank runs its rows and its block of every sequence, forward and backward,
+the blocks exchanging activations differentiably
+(``model_parallel.seq_gather``); layers whose heads, ``ff`` or experts
+the model axis also splits gather the group's rows and reduce-scatter
+their output (Megatron-LM's sequence parallelism, ``model_parallel.
+seq_tp``).  The LM loss
 weights each rank's token mean over every rank that holds different
 tokens (``distributed.batch.shard_group``); the sig-MMD loss projects each
 block, gathers the whole path over the sequence's group (each rank keeps
@@ -319,7 +323,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
 
     def train_step(params, opt_state, batch):
         MP.refuse_tensor_parallel(params, DB.batch_seq(batch),
-                                  "the train step")
+                                  "the train step", cfg.family)
         placed = _placed(batch)
         layout = MP.placements(params) \
             if isinstance(params, torch.nn.Module) else {}
@@ -366,7 +370,7 @@ def make_eval_step(cfg: ModelConfig, remat: str = "none", *,
     @torch.no_grad()
     def eval_step(params, batch):
         MP.refuse_tensor_parallel(params, DB.batch_seq(batch),
-                                  "the eval step")
+                                  "the eval step", cfg.family)
         _, metrics = base_loss(params, batch, remat)
         return metrics
     return eval_step

@@ -17,6 +17,9 @@ cells' rules (the prompt in blocks over the model axis), and the world of
 of 4 also trains under the train cells' rules (each sequence in blocks
 over the model axis): four archs, a sig-MMD step, a masked and strided
 one, a batch whose ignored labels fill one block, and an eval step.
+Both worlds run Megatron sequence parallelism (``sp_tp_cases``): reduced
+deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b and qwen3-4b with their heads,
+``ff`` and experts over the model axis that cuts each sequence.
 """
 from __future__ import annotations
 
@@ -37,6 +40,12 @@ ADAFACTOR = dict(lr=1e-3, min_dim_factored=32)
 # under the cell's rules (rules_for of the published arch and this shape)
 DRYRUN_SHAPE = ("train_tiny", dict(kind="train", seq=8, batch=8))
 DRYRUN_ARCHS = ("qwen3-4b", "deepseek-v2-lite-16b")
+# {cell: (arch, rule override)}: DRYRUN_ARCHS' cells, and deepseek's under
+# the "seq" override (MLA's heads and the experts over the model axis
+# that cuts each sequence)
+DRYRUN_CELLS = {**{a: (a, None) for a in DRYRUN_ARCHS},
+                "deepseek-v2-lite-16b/sp_tp": ("deepseek-v2-lite-16b",
+                                               {"seq": "model"})}
 TRAIN = (4, 8, 3)        # batch, sequence, steps
 AUX = (8, 8)             # the MoE-aux batch: 64 tokens > 4E = 16
 MICRO = (8, 8, 2)        # batch, sequence, microbatches
@@ -68,6 +77,17 @@ DRYRUN_PREFILL = ("prefill_tiny", dict(kind="prefill", seq=PREFILL[1],
                                        batch=PREFILL[0]))
 DRYRUN_PREFILL_ARCHS = ("qwen3-4b", "zamba2-7b")
 SIG = dict(channels=3, depth=2)
+# Megatron sequence parallelism (the model axis both cuts each sequence and
+# splits the layers): the MoE archs under rules_for(arch, shape, SP_TP's
+# override) (heads, ff and experts over the model axis, FSDP over the data
+# axis), qwen3-4b with its heads and ff over the model axis too (FSDP over
+# the data axis, so that wq and wo split on head boundaries); prefill, LM
+# and sig-MMD steps, the MoE aux loss at AUX and SEQ_ODD's sequence of 7,
+# which the split leaves whole
+SP_TP_ARCHS = ("deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b", "qwen3-4b")
+SP_TP = {"seq": "model"}
+SP_TP_DENSE = {"heads": "model", "kv_heads": "model", "ff": "model",
+               "fsdp": "data"}
 # training under rules_for(arch, DRYRUN_SHAPE's cell): the rows over the
 # data axis, each sequence in blocks of 4 over the model axis (TRAIN's
 # batches); the masked sig-MMD case's sequences of 6 in blocks of 3, whose
@@ -101,12 +121,13 @@ def lr_of(key: str) -> float:
 
 def config(arch: str, configs):
     """The reduced config both packages run (``configs`` is either
-    package's ``configs`` module): deepseek's dispatch groups of 8 tokens
-    so that no group straddles two ranks, zamba2 with 4 groups over its 2
-    shared blocks (the decode's shared-block row restore), whisper with
-    16 decoder positions (CP_DECODE crosses their blocks of 8)."""
+    package's ``configs`` module): the MoE archs' dispatch groups of 8
+    tokens so that no group straddles two ranks, zamba2 with 4 groups
+    over its 2 shared blocks (the decode's shared-block row restore),
+    whisper with 16 decoder positions (CP_DECODE crosses their blocks of
+    8)."""
     cfg = configs.reduce_config(configs.get_config(arch))
-    if arch == "deepseek-v2-lite-16b":
+    if cfg.moe:
         cfg = dataclasses.replace(cfg, moe_group_size=8)
     if arch == "zamba2-7b":
         cfg = dataclasses.replace(cfg, n_layers=8)
@@ -433,9 +454,9 @@ def dryrun_cases(mesh, inputs: dict) -> dict:
     name, shape = DRYRUN_SHAPE
     specs.SHAPES[name] = shape
     out = {}
-    for arch in DRYRUN_ARCHS:
+    for cell, (arch, over) in DRYRUN_CELLS.items():
         cfg = config(arch, configs)
-        rules = dryrun.rules_for(arch, name)
+        rules = dryrun.rules_for(arch, name, over)
         model = shard_model(_model(inputs, arch, cfg), mesh, rules)
         opt = optim.adafactor(**ADAFACTOR)
         state = opt.init(model)
@@ -450,7 +471,7 @@ def dryrun_cases(mesh, inputs: dict) -> dict:
             C.LOG.reset()
             step(model, state, placed)
             st = collective_stats()
-        out[f"dryrun/{arch}"] = dict(
+        out[f"dryrun/{cell}"] = dict(
             param_bytes=dryrun.tree_bytes(model),
             opt_state_bytes=dryrun.tree_bytes(state),
             collectives={k: list(v) for k, v in st.by_kind.items()},
@@ -480,10 +501,13 @@ def prefill_model(inputs: dict, arch: str, cfg, mesh=None, rules=None):
 def prefill_cases(mesh, inputs: dict) -> dict:
     """Each of PREFILL_ARCHS prefilled under its prefill cell's rules:
     this rank's rows' last-position logits and their first row, and the
-    collectives' tags; a prompt of PREFILL_ODD tokens (left whole); and
-    a train step under the prefill rules (labels the tokens); and the
-    refusal of a tensor-parallel layout over the axis that cuts the
-    prompt."""
+    collectives' tags; a prompt of PREFILL_ODD tokens (left whole); a
+    train step under the prefill rules (labels the tokens); and
+    qwen3-4b's prefill under a layout that also splits its heads and
+    ``ff`` over the model axis that cuts the prompt (FSDP over both axes:
+    ``wq`` and ``w_up`` then shard over both, ``wo`` and ``w_down``
+    split their rows over the model axis, and the layers read them
+    whole)."""
     from repro_torch import configs, train
     from repro_torch.distributed import batch as DB
     from repro_torch.distributed import collectives as C
@@ -509,18 +533,77 @@ def prefill_cases(mesh, inputs: dict) -> dict:
     cfg = config("qwen3-4b", configs)
     rules = rules_for("qwen3-4b", PREFILL_SHAPE)
     model = prefill_model(inputs, "qwen3-4b", cfg, mesh, rules)
-    refused = {}
     out["prefill_train"] = _steps(model, cfg, [prefill_train_batch(inputs)],
                                   mesh, rules=rules)
     tp = dict(rules, heads="model", ff="model")
     model = prefill_model(inputs, "qwen3-4b", cfg, mesh, tp)
     with sharding_ctx(mesh, tp):
-        try:
-            make_prefill_step(cfg)(model, train.place_batch(
-                prefill_batch(inputs, "qwen3-4b")))
-        except NotImplementedError as e:
-            refused["tensor_parallel"] = str(e)
-    out["prefill_refused"] = refused
+        placed = train.place_batch(prefill_batch(inputs, "qwen3-4b"))
+        with DB.rows_scope(placed["tokens"]) as rows:
+            start = rows.start
+        C.LOG.reset()
+        logits = make_prefill_step(cfg)(model, placed)
+    out["prefill_tp"] = dict(logits=logits.numpy(), start=start, split=True,
+                             tags=sorted({r.tag for r in C.LOG.records}))
+    return out
+
+
+def sp_tp_rules(arch: str, shape: str) -> dict:
+    """``rules_for(arch, shape, SP_TP)``, with SP_TP_DENSE for a dense
+    arch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import rules_for
+    over = dict(SP_TP) if get_config(arch).moe else dict(SP_TP, **SP_TP_DENSE)
+    return rules_for(arch, shape, over)
+
+
+def sp_tp_cases(mesh, inputs: dict) -> dict:
+    """Each of SP_TP_ARCHS under :func:`sp_tp_rules`: a prefill (this
+    rank's rows' last-position logits, its first row, the collectives'
+    tags), three LM and three sig-MMD steps of the train cell's rules
+    (with their tags); deepseek's MoE-aux step at AUX and qwen3-4b's
+    steps on SEQ_ODD's sequence of 7 there."""
+    from repro_torch import configs, train
+    from repro_torch.distributed import batch as DB
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.launch import specs
+    from repro_torch.serve.engine import make_prefill_step
+    name, shape = DRYRUN_SHAPE
+    specs.SHAPES[name] = shape
+    out = {}
+
+    def steps(key, cfg, bkey, rules, loss="lm"):
+        model = _model(inputs, key, cfg, mesh, rules)
+        C.LOG.reset()
+        got = _steps(model, cfg, inputs["batches"][bkey], mesh, rules=rules,
+                     loss=loss)
+        return dict(steps=got, tags=sorted({r.tag for r in C.LOG.records}))
+    for arch in SP_TP_ARCHS:
+        cfg = config(arch, configs)
+        rules = sp_tp_rules(arch, PREFILL_SHAPE)
+        model = prefill_model(inputs, arch, cfg, mesh, rules)
+        with sharding_ctx(mesh, rules):
+            placed = train.place_batch(prefill_batch(inputs, arch))
+            with DB.rows_scope(placed["tokens"]) as rows:
+                start, split = rows.start, rows.seq is not None
+            C.LOG.reset()
+            logits = make_prefill_step(cfg)(model, placed)
+        out[f"sp_tp/prefill/{arch}"] = dict(
+            logits=logits.numpy(), start=start, split=split,
+            tags=sorted({r.tag for r in C.LOG.records}))
+        rules = sp_tp_rules(arch, name)
+        out[f"sp_tp/lm/{arch}"] = steps(arch, cfg, arch, rules)
+        out[f"sp_tp/sig_mmd/{arch}"] = steps(
+            f"{arch}/sig", configs.with_sig_head(cfg, **SIG), "sig_mmd",
+            rules, "sig_mmd")
+    arch = "deepseek-v2-lite-16b"
+    out["sp_tp/aux"] = steps(
+        f"{arch}/sig", configs.with_sig_head(config(arch, configs), **SIG),
+        "aux/lm", sp_tp_rules(arch, name))
+    out["sp_tp/odd"] = steps("qwen3-4b", config("qwen3-4b", configs),
+                             "seq_odd", sp_tp_rules("qwen3-4b", name))
+    del specs.SHAPES[name]
     return out
 
 
@@ -661,6 +744,7 @@ def rank_main(rank: int, world: int, store_path: str, inputs: dict,
         out.update(whisper_case(mesh))
         out.update(rwkv64_case(mesh, inputs))
         out.update(prefill_cases(mesh, inputs))
+        out.update(sp_tp_cases(mesh, inputs))
         if world == 2:
             out.update(dryrun_prefill_cases(mesh, inputs))
         if world == 4:

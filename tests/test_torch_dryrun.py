@@ -15,6 +15,9 @@
   (each rank its block of 2,048 of the prompt, the keys and values
   gathered a layer), and so does a train cell whose rules carry it; a
   train cell whose batch 256 divides has none.
+- deepseek-v2-lite-16b's ``prefill_32k`` cell runs under
+  ``rule_overrides={"seq": "model"}``: MLA's heads, the dense MLP's
+  ``ff`` and the experts over the model axis that cuts the prompt.
 - ``record_cost`` counts 2·m·n·k FLOPs for a matmul and publishes its
   gauges under the reference's names.
 """
@@ -85,6 +88,9 @@ out = {}
 for arch in ("qwen2-vl-2b", "whisper-large-v3"):
     out[arch] = dryrun.lower_cell(arch, "decode_32k")
 out["prefill"] = dryrun.lower_cell("qwen2-vl-2b", "prefill_32k")
+out["deepseek"] = {k: dryrun.lower_cell("deepseek-v2-lite-16b",
+                                        "prefill_32k", rule_overrides=over)
+                   for k, over in (("whole", None), ("cut", {"seq": "model"}))}
 specs.SHAPES["train_flops"] = dict(kind="train", seq=16, batch=256)
 cfg = configs.reduce_config(configs.get_config("qwen3-4b"))
 res = dryrun.lower_cell("qwen3-4b", "train_flops", cfg=cfg,
@@ -214,6 +220,38 @@ def test_prefill_cells_keep_the_sequence_rule_and_train_cells_drop_it(
     assert tags["sp_kv"]["all-gather"]["result_bytes"] == cfg.n_layers * kv
     assert 0.3 < res["useful_flops_ratio"] < 0.45
     assert "block of the prompt" in res["memory_analysis"]["temp_size_note"]
+
+
+def test_moe_and_mla_prefill_cell_under_the_sequence_override(child):
+    """deepseek-v2-lite-16b's ``prefill_32k`` cell on 16 × 16 with
+    ``rule_overrides={"seq": "model"}`` runs (it raised while MLA, the MoE
+    and tensor parallelism over the cut axis were unported): each rank
+    holds its 2 requests' block of 2,048 positions, every MLA layer and
+    the dense MLP gather the group's rows (``sp_tp_in``, 2 × 32,768 × 2,048
+    bf16 a layer) and reduce-scatter their sums back (``sp_tp_out``), and
+    each of the 26 MoE layers gathers its tokens and reduce-scatters its
+    experts' and shared experts' sums once (``sp_moe_in`` /
+    ``sp_moe_out``).  Its peak a rank is below the cell with the sequence
+    whole, by less than 5%: attention's (2, 1, 32,768, 32,768) float32
+    scores of a rank's one head dominate either way."""
+    cells = child[2]["deepseek"]
+    whole, cut = cells["whole"], cells["cut"]
+    assert whole["executed_rules"].get("seq") is None
+    assert cut["executed_rules"]["seq"] == "model"
+    cfg = tconfigs.get_config("deepseek-v2-lite-16b")
+    L, n_moe = cfg.n_layers, cfg.n_layers - cfg.moe_layer_start
+    tags = cut["collectives_by_tag"]
+    for tag, kind, n in (("sp_tp_in", "all-gather", L + 1),
+                         ("sp_tp_out", "reduce-scatter", L + 1),
+                         ("sp_moe_in", "all-gather", n_moe),
+                         ("sp_moe_out", "reduce-scatter", n_moe)):
+        assert tags[tag][kind]["count"] == n, (tag, tags[tag])
+    assert tags["sp_tp_in"]["all-gather"]["result_bytes"] == \
+        (L + 1) * 2 * 32768 * cfg.d_model * 2
+    assert "sp_kv" not in tags and "sp_latent" not in tags
+    t_whole = whole["memory_analysis"]["temp_size_bytes"]
+    t_cut = cut["memory_analysis"]["temp_size_bytes"]
+    assert 0.95 * t_whole < t_cut < t_whole
 
 
 def test_a_dense_steps_flops_split_over_the_2x2_mesh(child):

@@ -30,8 +30,9 @@ tensor-, expert- and FSDP-parallel LM execution on a ``("data",
   axis, the prompt in blocks over the model axis.  The last-position
   logits are the reference's single-device ``make_prefill_step`` and the
   port's one rank's; a prompt the model axis does not divide runs whole;
-  a train step under those rules is the reference's, and a
-  tensor-parallel layout refuses a sequence split.
+  a train step under those rules is the reference's, and so is the
+  prefill of a layout that also splits heads and ``ff`` over the model
+  axis.
 - Training under the sequence rule: the 2 x 2 world trains reduced
   qwen3-4b (LM and sig-MMD), zamba2-7b, rwkv6-1.6b and whisper-large-v3
   under ``rules_for(arch, "train_tiny")`` (the rows over the data axis,
@@ -39,11 +40,17 @@ tensor-, expert- and FSDP-parallel LM execution on a ``("data",
   step at stride 2 over blocks of 3, a batch whose ignored labels fill
   one rank's block, and an eval step, against the reference's
   single-device steps.
+- Megatron sequence parallelism: both worlds prefill reduced
+  deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b and qwen3-4b (heads and
+  ``ff`` over the model axis too) under ``rules_for(arch, shape, {"seq":
+  "model"})``, train three LM and three sig-MMD steps of each, a MoE-aux
+  step at AUX and a sequence the split does not divide, against the
+  reference's single-device results.
 - The dry run: ``launch.dryrun.lower_cell`` in a fake world of 4 ranks
   (a subprocess) predicts the 2 x 2 world's parameter and optimizer-state
   bytes a rank and the collectives of one step by kind and by tag (each
-  sequence in blocks, the backward's exchanges included), and in a fake
-  world of 2
+  sequence in blocks, the backward's exchanges included; deepseek's cell
+  under the ``"seq"`` override too), and in a fake world of 2
   the 1 x 2 world's argument, output and peak bytes and collectives by
   tag of a small prefill cell.
 
@@ -244,7 +251,17 @@ def _inputs() -> dict:
         prefill[arch] = _prefill_batch(jcfg, Bp, Sp, rng)
     odd["qwen3-4b"] = _prefill_batch(_jcfg("qwen3-4b"), Bp, R.PREFILL_ODD,
                                      rng)
-    for arch in ("qwen3-4b", "deepseek-v2-lite-16b"):
+    for i, arch in enumerate(R.SP_TP_ARCHS):
+        jcfg = _jcfg(arch)
+        if arch not in params:
+            params[arch] = jax.tree.map(np.asarray, JM.init_params(
+                jax.random.PRNGKey(30 + i), jcfg, jnp.float32))
+            stream = jpipe.TokenStream(jcfg.vocab_size, B, S, 30 + i)
+            batches[arch] = [jax.tree.map(np.asarray, next(stream))
+                             for _ in range(steps)]
+        if arch not in prefill:
+            prefill[arch] = _prefill_batch(jcfg, Bp, Sp, rng)
+    for arch in ("qwen3-4b", "deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b"):
         jcfg = _jcfg(arch, sig=True)
         p = dict(params[arch])
         p["sig_head"] = jax.tree.map(np.asarray, JS.init_sig_head(
@@ -537,6 +554,13 @@ def _references(inputs) -> dict:
         table[f"port_prefill/{arch}"] = lambda a=arch: _port_prefill(a)
     table["prefill_odd/qwen3-4b"] = lambda: _reference_prefill(
         "qwen3-4b", "prefill_odd")
+    for arch in R.SP_TP_ARCHS:
+        if arch not in R.ARCHS:
+            table[f"train/{arch}"] = lambda a=arch: _reference_steps(a, b[a])
+        if arch not in R.PREFILL_ARCHS:
+            table[f"prefill/{arch}"] = lambda a=arch: _reference_prefill(a)
+        table[f"sig_mmd/{arch}"] = lambda a=arch: _reference_steps(
+            f"{a}/sig", b["sig_mmd"], loss="sig_mmd")
     table["port_prefill_odd/qwen3-4b"] = lambda: _port_prefill(
         "qwen3-4b", "prefill_odd")
     return table
@@ -786,14 +810,111 @@ def test_train_step_and_tensor_parallel_refuse_a_sequence_split(worlds,
                                                                world):
     """The train step no longer refuses a batch placed under the prefill
     rules: its SGD step over the prompt's blocks (the tokens their own
-    labels) is the reference's single-device step.  The prefill still
-    refuses a layout that also splits heads and ``ff`` over the model axis
-    that cuts the prompt."""
+    labels) is the reference's single-device step.  Nor does the prefill
+    refuse a layout that also splits heads and ``ff`` over the model axis
+    that cuts the prompt (it did until the layers ran tensor parallelism
+    over that axis): with FSDP over both axes ``wo`` and ``w_down`` split
+    their rows over the model axis, the layers read them whole, and every
+    rank's logits are its rows' of the reference's."""
     _assert_steps(worlds[0][world][0]["prefill_train"], _ref("prefill_train"),
                   ("prefill_train", world))
-    got = worlds[0][world][0]["prefill_refused"]
-    assert "tensor-parallel" in got["tensor_parallel"]
-    assert "item 21" in got["tensor_parallel"]
+    ref = _ref("prefill/qwen3-4b")
+    for r in range(world):
+        got = worlds[0][world][r]["prefill_tp"]
+        _assert_prefill(got, ref, ref, ("prefill_tp", world, r), split=True)
+        assert {"sp_kv", "tp_param_gather",
+                "tp_param_gather_grad"} & set(got["tags"]), got["tags"]
+
+
+def _sp_tp_ref(kind: str, arch: str):
+    """The reference's result a Megatron sequence-parallel case is held
+    against: its prefill, or its LM or sig-MMD steps."""
+    if kind == "prefill":
+        return _ref(f"prefill/{arch}")
+    if kind == "lm":
+        return _ref(f"train/{arch}")
+    return _ref("sig_mmd" if arch == "qwen3-4b" else f"sig_mmd/{arch}")
+
+
+# the exchanges a case's layers must have made (MoE archs: MLA's or
+# attention's heads and the experts over the model axis; qwen3-4b: heads
+# and ff), forward and, in training, backward
+_SP_TP_TAGS = {"deepseek-v2-lite-16b": {"sp_tp_in", "sp_tp_out",
+                                        "sp_moe_in", "sp_moe_out"},
+               "phi3.5-moe-42b-a6.6b": {"sp_tp_in", "sp_tp_out",
+                                        "sp_moe_in", "sp_moe_out"},
+               "qwen3-4b": {"sp_tp_in", "sp_tp_out"}}
+
+
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+@pytest.mark.parametrize("arch", R.SP_TP_ARCHS)
+def test_sequence_parallel_tensor_parallel_prefill_equals_the_reference(
+        worlds, arch, world):
+    """Under ``rules_for(arch, "prefill_32k", {"seq": "model"})`` (qwen3-4b
+    with its heads and ``ff`` over the model axis too) each rank gathers
+    its block of the prompt at every split layer, runs its heads, columns
+    or experts over the whole prompt and reduce-scatters their sums back:
+    every rank's last-position logits are its rows' of the reference's
+    single-device prefill."""
+    res, _ = worlds
+    ref = _sp_tp_ref("prefill", arch)
+    for r in range(world):
+        got = res[world][r][f"sp_tp/prefill/{arch}"]
+        _assert_prefill(got, ref, ref, (arch, world, r), split=True)
+        assert _SP_TP_TAGS[arch] <= set(got["tags"]), (arch, got["tags"])
+
+
+@pytest.mark.parametrize("loss", ["lm", "sig_mmd"])
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+@pytest.mark.parametrize("arch", R.SP_TP_ARCHS)
+def test_sequence_parallel_tensor_parallel_steps_equal_the_reference(
+        worlds, arch, world, loss):
+    """Three SGD steps under ``rules_for(arch, "train_tiny", {"seq":
+    "model"})``, each sequence in blocks over the model axis that also
+    splits heads, ``ff`` and experts: every rank's losses, metrics and
+    trained parameters are the reference's single-device steps, and each
+    split layer's exchanges ran with their backward."""
+    res, _ = worlds
+    ref = _sp_tp_ref(loss, arch)
+    want = _SP_TP_TAGS[arch] | {t + "_grad" for t in _SP_TP_TAGS[arch]}
+    for r in range(world):
+        got = res[world][r][f"sp_tp/{loss}/{arch}"]
+        _assert_steps(got["steps"], ref, (arch, loss, world, r))
+        assert want <= set(got["tags"]), (arch, loss, got["tags"])
+
+
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+def test_moe_aux_loss_under_sequence_parallelism(worlds, world):
+    """Reduced deepseek's LM step at AUX (64 tokens > 4E = 16, dispatch
+    groups of 8, tokens drop) under the train cell's rules with ``{"seq":
+    "model"}``: each rank routes its rows' whole sequences, and the aux
+    loss, the loss and the trained parameters are the reference's
+    single-device values (the aux's sums added over the data and the
+    sequence's groups)."""
+    res, _ = worlds
+    ref = _ref("aux/lm")
+    for r in range(world):
+        got = res[world][r]["sp_tp/aux"]
+        np.testing.assert_allclose(got["steps"][0][0]["aux"],
+                                   ref[0][0]["aux"], rtol=1e-5, atol=1e-9)
+        _assert_steps(got["steps"], ref, ("sp_tp aux", world, r))
+        assert {"moe_aux", "sp_moe_in", "sp_moe_out"} <= set(got["tags"])
+
+
+@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
+def test_sequence_parallel_rules_on_a_sequence_the_split_does_not_divide(
+        worlds, world):
+    """qwen3-4b's steps on a sequence of 7 under the rules that split its
+    heads and ``ff`` over the model axis and cut the sequence over it: the
+    divisibility guard leaves the sequence whole, the model ranks run the
+    same rows under plain tensor parallelism, and the steps are the
+    reference's."""
+    res, _ = worlds
+    for r in range(world):
+        got = res[world][r]["sp_tp/odd"]
+        _assert_steps(got["steps"], _ref("seq_odd"), ("sp_tp odd", world, r))
+        assert not {"sp_tp_in", "sp_kv"} & set(got["tags"]), got["tags"]
+        assert "tp_in" in got["tags"], got["tags"]
 
 
 _SEQ_REFS = {"sig_mmd": "sig_mmd", "masked": "seq_masked",
@@ -977,13 +1098,13 @@ from repro_torch.launch import dryrun, specs
 name, shape = R.DRYRUN_SHAPE
 specs.SHAPES[name] = shape
 out = {}
-for arch in R.DRYRUN_ARCHS:
+for cell, (arch, over) in R.DRYRUN_CELLS.items():
     cfg = R.config(arch, configs)
     res = dryrun.lower_cell(
         arch, name, mesh=AbstractMesh((2, 2), ("data", "model")), cfg=cfg,
         params=M.init_params(0, cfg, torch.float32, device="meta"),
-        opt=optim.adafactor(**R.ADAFACTOR))
-    out[arch] = res
+        opt=optim.adafactor(**R.ADAFACTOR), rule_overrides=over)
+    out[cell] = res
 name, shape = R.DRYRUN_PREFILL
 specs.SHAPES[name] = shape
 for arch in R.DRYRUN_PREFILL_ARCHS:
@@ -1024,7 +1145,7 @@ def dryrun_cells(worlds):
     return json.loads(out.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("arch", R.DRYRUN_ARCHS)
+@pytest.mark.parametrize("arch", list(R.DRYRUN_CELLS))
 def test_dry_run_predicts_the_2x2_worlds_bytes_and_collectives(
         worlds, dryrun_cells, arch):
     """``lower_cell`` on ``AbstractMesh((2, 2))``: the parameter and
@@ -1032,7 +1153,10 @@ def test_dry_run_predicts_the_2x2_worlds_bytes_and_collectives(
     exactly, and so do one step's collectives by kind (count, result
     bytes, wire bytes) and by tag.  qwen3-4b's cell executes ``seq:
     "model"``: the tags hold the blocks' exchanges and their backward
-    collectives."""
+    collectives.  deepseek's cell under ``rule_overrides={"seq":
+    "model"}`` runs MLA's heads and the experts over the model axis that
+    cuts each sequence: its tags hold the split layers' gathers and
+    reduce-scatters and their backward."""
     want = worlds[0][4][0][f"dryrun/{arch}"]
     got = dryrun_cells[arch]
     mem = got["memory_analysis"]
@@ -1046,6 +1170,11 @@ def test_dry_run_predicts_the_2x2_worlds_bytes_and_collectives(
         assert got["executed_rules"]["seq"] == "model"
         assert {"sp_kv", "sp_kv_grad", "sp_embed", "sp_embed_grad",
                 "sp_vocab", "sp_vocab_grad"} <= set(want["by_tag"])
+    if arch.endswith("/sp_tp"):
+        assert got["executed_rules"]["seq"] == "model"
+        assert {"sp_tp_in", "sp_tp_in_grad", "sp_tp_out", "sp_tp_out_grad",
+                "sp_moe_in", "sp_moe_in_grad", "sp_moe_out",
+                "sp_moe_out_grad"} <= set(want["by_tag"])
     assert got["hlo_flops_per_dev"] > 0 and mem["argument_size_bytes"] > 0
 
 

@@ -15,9 +15,14 @@ the reference's rtol 2e-4 / atol 2e-5; the WKV scan runs in float32 as
 the reference's does, and the state rule it adds is also held in
 float64.  The LM losses, the sig-MMD loss and the train step of the
 blocks equal the whole sequence's, losses within 1e-4·max(1, |loss|)
-and gradients within 1e-3·|g| + 1e-4·max|g|; decode, the MoE and MLA
-refuse a sequence split.
+and gradients within 1e-3·|g| + 1e-4·max|g|.  MLA (heads whole and
+split), the MoE (experts whole and split, dropless and capacity-bound),
+attention with its heads and the MLP with its ``ff`` split over the axis
+that cuts the sequence equal the reference's whole sequence; decode, the
+hybrid family's weights split over that axis and a split that only
+partly overlaps it refuse a sequence split.
 """
+import dataclasses
 from unittest import mock
 
 import jax
@@ -49,37 +54,44 @@ def split(P: int, i: int) -> Split:
     return Split(None, P, i, ("model",))
 
 
-def in_blocks(P: int, fn) -> list:
+TAGS: set = set()        # the tags of the last in_blocks run's collectives
+
+
+def in_blocks(P: int, fn, B: int = 1) -> list:
     """``fn(i)`` for each block i of a simulated group of P ranks, its
     collectives answered from every block's inputs to the same call
     (iterated to a fixed point) -> the P blocks' outputs.  An all-gather
     concatenates the blocks' inputs, a reduce-scatter keeps block i of
     their sum and an all-reduce writes their sum (or maximum) in place,
     so a block's forward and backward exchanges (``model_parallel.
-    seq_gather`` / ``seq_scatter``, a loss's sums) all run as a group's."""
+    seq_gather`` / ``seq_scatter``, a loss's sums) all run as a group's.
+    Each block's rows scope holds the B rows of the batch whole; the
+    collectives' tags are left in ``TAGS``."""
     sent = None
+    TAGS.clear()
     for _ in range(32):
         got = [[] for _ in range(P)]
         outs = []
         for i in range(P):
-            def parts(t, i=i):
+            def parts(t, tag, i=i):
+                TAGS.add(tag)
                 k = len(got[i])
                 got[i].append(t.detach().clone())
                 return [t.detach()] * P if sent is None or \
                     k >= len(sent[i]) else [sent[j][k] for j in range(P)]
 
             def gather(t, group, *, tag="", dim=0):
-                return torch.cat(parts(t), dim=dim)
+                return torch.cat(parts(t, tag), dim=dim)
 
             def scatter(t, group, *, tag="", dim=0, i=i):
                 n = t.shape[dim] // P
-                return sum(parts(t)).narrow(dim, i * n, n).contiguous()
+                return sum(parts(t, tag)).narrow(dim, i * n, n).contiguous()
 
             def reduce(t, group, *, tag="", op="sum"):
-                got_ = parts(t)
+                got_ = parts(t, tag)
                 return t.copy_(torch.stack(got_).amax(0) if op == "max"
                                else sum(got_))
-            rows = DB.Rows(None, 1, 0, 1, split(P, i))
+            rows = DB.Rows(None, B, 0, B, split(P, i))
             with mock.patch.object(C, "all_gather", gather), \
                     mock.patch.object(C, "reduce_scatter", scatter), \
                     mock.patch.object(C, "all_reduce_", reduce), \
@@ -294,6 +306,178 @@ def test_ssm_blocks_over_a_cut_sequence(arch, name, init):
     np.testing.assert_allclose(joined(got), want, **VALUE)
 
 
+# ---------------------------------------------------------------------------
+# layers under a sequence split: MLA, the MoE, and the layers split over
+# the axis that cuts the sequence (Megatron sequence parallelism)
+# ---------------------------------------------------------------------------
+
+class SplitTree(TL.ParamTree):
+    """A layer's weights as rank i of the simulated group reads them: each
+    key of ``dims`` split on its dimension over the model axis, which is
+    also the axis that cuts the sequence (in a block of ``in_blocks`` the
+    split is the block's ``Split``), every other weight whole.  ``p[key]``
+    of a split key is this rank's block of the one parameter, so the
+    blocks' gradients sum to the whole's, as the step's reduction sums
+    them; outside a split every weight is whole."""
+
+    def __init__(self, tree: dict, dims: dict):
+        super().__init__({k: v for k, v in tree.items()
+                          if not isinstance(v, dict)})
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self[k] = SplitTree(v, dims.get(k, {}))
+        self._dims = {k: d for k, d in dims.items() if isinstance(d, int)}
+
+    def split(self, key, dim):
+        seq = DB.current_seq()
+        return seq if seq is not None and self._dims.get(key) == dim \
+            else None
+
+    def __getitem__(self, key):
+        v = super().__getitem__(key)
+        sp = self.split(key, self._dims.get(key, -1))
+        if sp is None:
+            return v
+        dim = self._dims[key]
+        n = v.shape[dim] // sp.size
+        return v.narrow(dim, sp.index * n, n)
+
+    def full(self, key):
+        return self._parameters[key]
+
+
+def split_tree(tree: dict, dims: dict) -> SplitTree:
+    """A :class:`SplitTree` of the reference's numpy tree (parameters that
+    require grad)."""
+    def leaves(t):
+        return {k: leaves(v) if isinstance(v, dict) else
+                torch.nn.Parameter(torch.from_numpy(np.array(v)))
+                for k, v in t.items()}
+    return SplitTree(leaves(tree), dims)
+
+
+MLA_HEADS = {"w_uk": 1, "w_uv": 1, "wq": 1, "w_uq": 1, "wo": 0}
+EXPERTS = {"w_gate": 0, "w_up": 0, "w_down": 0,
+           "shared": {"w_gate": 1, "w_up": 1, "w_down": 0}}
+HEADS = {"wq": 1, "wo": 0}
+FF = {"w_gate": 1, "w_up": 1, "w_down": 0}
+
+
+def mla_case(q_lora: int):
+    """Reduced deepseek-v2-lite's MLA (``q_lora`` > 0: the queries'
+    low-rank path), its reference parameters, a (2, 8) input and the
+    whole sequence's positions."""
+    cfg, jcfg = (dataclasses.replace(c, q_lora_rank=q_lora)
+                 for c in cfgs("deepseek-v2-lite-16b"))
+    p = block_params(JL.init_mla, jcfg)
+    x = normal((2, 8, cfg.d_model), 1, 0.5)
+    pos = np.broadcast_to(np.arange(8, dtype=np.int32), (2, 8)).copy()
+    return cfg, jcfg, p, x, pos
+
+
+@pytest.mark.parametrize("q_lora", [0, 16], ids=["wq", "w_dq"])
+@pytest.mark.parametrize("heads", ["whole", "split"])
+@pytest.mark.parametrize("P", [2, 4])
+def test_mla_blocks_equal_the_whole_sequence(P, heads, q_lora):
+    """``mla_attention`` over the blocks of an 8-token sequence equals the
+    reference's over the whole: with the heads whole each block gathers
+    the group's latents and rope keys (``sp_latent``) and attends from its
+    first position; with the heads split over the axis that cuts the
+    sequence each rank gathers the rows (``sp_tp_in``), runs its heads
+    from position 0 and reduce-scatters ``wo``'s partial sums
+    (``sp_tp_out``)."""
+    cfg, jcfg, p, x, pos = mla_case(q_lora)
+    want = np.asarray(JL.mla_attention(jax.tree.map(jnp.asarray, p),
+                                       jnp.asarray(x), jcfg,
+                                       jnp.asarray(pos))[0])
+    tree = split_tree(p, MLA_HEADS if heads == "split" else {})
+    got = in_blocks(P, lambda i: TL.mla_attention(
+        tree, blocks_of(x, P, i), cfg, torch.from_numpy(pos))[0])
+    np.testing.assert_allclose(joined(got), want, **VALUE)
+    assert TAGS == ({"sp_tp_in", "sp_tp_out"} if heads == "split"
+                    else {"sp_latent"})
+
+
+# (config overrides, (B, S)): one dropless group (T = 16 = 4E), and
+# groups of 8 at a tight capacity (T = 32 > 4E: tokens drop)
+MOE_CASES = [(dict(), (2, 8)),
+             (dict(capacity_factor=0.5, moe_group_size=8), (2, 16))]
+
+
+def moe_case(kw: dict, shape: tuple):
+    cfg, jcfg = (dataclasses.replace(c, **kw)
+                 for c in cfgs("deepseek-v2-lite-16b"))
+    p = block_params(JL.init_moe, jcfg)
+    return cfg, jcfg, p, normal(shape + (cfg.d_model,), 1, 0.3)
+
+
+@pytest.mark.parametrize("experts", ["whole", "split"])
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("kw,shape", MOE_CASES, ids=["dropless",
+                                                     "capacity"])
+def test_moe_blocks_route_whole_sequences(kw, shape, P, experts):
+    """``moe`` (reduced deepseek-v2-lite: 4 experts, top-2, a shared
+    expert) over the blocks of every sequence equals the reference's over
+    the whole batch, dropless and capacity-bound: each block gathers its
+    rows' whole sequences (``sp_moe_in``) and routes them in the global
+    groups; with the experts and the shared expert's ``ff`` split over the
+    axis that cuts the sequence their partial sums are reduce-scattered
+    back (``sp_moe_out``), else each block keeps its rows of the whole
+    output.  Every block's aux loss is the whole batch's."""
+    cfg, jcfg, p, x = moe_case(kw, shape)
+    jout, jaux = JL.moe(jax.tree.map(jnp.asarray, p), jnp.asarray(x), jcfg)
+    tree = split_tree(p, EXPERTS if experts == "split" else {})
+    got = in_blocks(P, lambda i: TL.moe(tree, blocks_of(x, P, i), cfg),
+                    B=shape[0])
+    np.testing.assert_allclose(joined([o for o, _ in got]),
+                               np.asarray(jout), **VALUE)
+    for _, aux in got:
+        np.testing.assert_allclose(float(aux.detach()), float(jaux), **VALUE)
+    want = {"sp_moe_in", "moe_aux"}
+    assert TAGS == (want | {"sp_moe_out"} if experts == "split" else want)
+
+
+def dense_case(kind: str):
+    """Reduced qwen3-4b's attention (GQA: 4 query heads over 2 KV heads,
+    qk-norm) or its MLP, the reference's function of the whole sequence
+    and a (2, 8) input."""
+    cfg, jcfg = (dataclasses.replace(c, n_kv_heads=2)
+                 for c in cfgs("qwen3-4b"))
+    x = normal((2, 8, cfg.d_model), 1, 0.5)
+    pos = np.broadcast_to(np.arange(8, dtype=np.int32), (2, 8)).copy()
+    if kind == "attention":
+        p = block_params(JL.init_attention, jcfg)
+        return cfg, p, x, pos, lambda jp, jx: JL.attention(
+            jp, jx, jcfg, jnp.asarray(pos))[0]
+    p = block_params(lambda key, c: JL.init_mlp(key, c.d_model, c.d_ff,
+                                                c.act), jcfg)
+    return cfg, p, x, pos, lambda jp, jx: JL.mlp(jp, jx, jcfg.act)
+
+
+def run_dense(kind: str, tree, x, cfg, pos):
+    if kind == "attention":
+        return TL.attention(tree, x, cfg, torch.from_numpy(pos))[0]
+    return TL.mlp(tree, x, cfg.act)
+
+
+@pytest.mark.parametrize("kind", ["attention", "mlp"])
+@pytest.mark.parametrize("P", [2, 4])
+def test_split_layers_over_the_cut_axis_equal_the_whole(P, kind):
+    """Attention with its query heads split over the axis that cuts the
+    sequence (two ranks sharing a KV head at P = 4) and the MLP with its
+    ``ff`` columns split: each rank gathers the group's rows
+    (``sp_tp_in``), runs its heads or columns over the whole sequence and
+    reduce-scatters the row-parallel sum back to its block
+    (``sp_tp_out``); the blocks equal the reference's whole sequence."""
+    cfg, p, x, pos, ref = dense_case(kind)
+    want = np.asarray(ref(jax.tree.map(jnp.asarray, p), jnp.asarray(x)))
+    tree = split_tree(p, HEADS if kind == "attention" else FF)
+    got = in_blocks(P, lambda i: run_dense(kind, tree, blocks_of(x, P, i),
+                                           cfg, pos))
+    np.testing.assert_allclose(joined(got), want, **VALUE)
+    assert TAGS == {"sp_tp_in", "sp_tp_out"}
+
+
 def assert_grads(got, want, what=""):
     """Gradients within 1e-3·|g| + 1e-4·max|g| (the reference's rule)."""
     got, want = np.asarray(got), np.asarray(want)
@@ -302,11 +486,13 @@ def assert_grads(got, want, what=""):
                                err_msg=what)
 
 
-def block_grads(P: int, fn, inputs: dict, params: dict) -> tuple:
+def block_grads(P: int, fn, inputs: dict, params: dict,
+                B: int = 1) -> tuple:
     """``fn(block inputs, params) -> loss`` run over the simulated blocks
-    of a group of P (each input cut on dimension 1) and over the whole
-    sequence -> ((the blocks' losses summed, their input gradients
-    joined, their parameter gradients summed), the whole's)."""
+    of a group of P (each input cut on dimension 1; the rows scope's
+    batch of B rows) and over the whole sequence -> ((the blocks' losses
+    summed, their input gradients joined, their parameter gradients
+    summed), the whole's)."""
     def run(ins):
         ins = {k: v.clone().requires_grad_(v.is_floating_point())
                for k, v in ins.items()}
@@ -320,7 +506,7 @@ def block_grads(P: int, fn, inputs: dict, params: dict) -> tuple:
 
     whole = run({k: torch.from_numpy(v) for k, v in inputs.items()})
     outs = in_blocks(P, lambda i: run({k: blocks_of(v, P, i)
-                                       for k, v in inputs.items()}))
+                                       for k, v in inputs.items()}), B=B)
     n_in = sum(np.issubdtype(v.dtype, np.floating) for v in inputs.values())
     got = [sum(o[0] for o in outs)]
     got += [joined([o[1 + j] for o in outs]) for j in range(n_in)]
@@ -355,7 +541,8 @@ def test_a_differentiated_block_refuses():
 
 
 # ---------------------------------------------------------------------------
-# the paths that refuse a sequence split
+# the paths that refuse a sequence split, and the losses and the train
+# step over one
 # ---------------------------------------------------------------------------
 
 def _reduced(arch):
@@ -372,21 +559,44 @@ def _decode():
                          torch.ones((1, 1), dtype=torch.int32))
 
 
-def _moe():
+def _hybrid_tp():
+    """The prefill's check of reduced zamba2-7b laid out by the default
+    rules (Mamba2's ``ff`` over the model axis) on a 1 x 2 mesh."""
     from repro_torch import models as M
-    cfg = _reduced("deepseek-v2-lite-16b")
-    model = M.init_params(0, cfg, device="cpu")
-    TL.moe(model["layers"][0]["moe"], torch.zeros((1, 4, cfg.d_model)), cfg)
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.distributed.ctx import AbstractMesh
+    cfg = _reduced("zamba2-7b")
+    model = MP.shard_model(M.init_params(0, cfg, device="cpu"),
+                           AbstractMesh((1, 2), ("data", "model")), {})
+    MP.refuse_tensor_parallel(model, DB.current_seq(), "a prefill",
+                              cfg.family)
 
 
-def _mla():
-    from repro_torch import models as M
-    from repro_torch.models.transformer import default_positions
-    cfg = _reduced("deepseek-v2-lite-16b")
-    model = M.init_params(0, cfg, device="cpu")
-    TL.mla_attention(model["layers"][0]["attn"],
-                     torch.zeros((1, 4, cfg.d_model)), cfg,
-                     default_positions(cfg, 1, 4, "cpu"))
+def _partial():
+    """A layer split over the model axis with the sequence cut over the
+    data and model axes."""
+    from repro_torch.distributed.model_parallel import seq_tp
+    seq_tp(split(2, 0), Split(None, 4, 1, ("data", "model")))
+
+
+@pytest.mark.parametrize("where,run", [
+    ("make_serve_step", _decode), ("the hybrid family", _hybrid_tp),
+    ("only partly overlap", _partial)], ids=["decode", "hybrid_tp",
+                                             "partial_overlap"])
+def test_paths_refuse_a_sequence_split(where, run):
+    """Decode, the hybrid family with weights split over the model axis
+    that cuts the sequence, and a layer split over the model axis with the
+    sequence cut over more axes raise ``NotImplementedError`` naming what
+    is left of ROADMAP item 21, inside the scope of a batch whose
+    sequence is cut, before computing.  (MLA and the MoE, which refused
+    until the layers ran a sequence split, are the parity cases
+    ``test_mla_blocks_equal_the_whole_sequence`` and
+    ``test_moe_blocks_route_whole_sequences``.)"""
+    with DB.rows_set(DB.Rows(None, 1, 0, 1, split(2, 1))):
+        with pytest.raises(NotImplementedError, match="item 21") as e:
+            run()
+    assert where in str(e.value)
+    assert "tensor parallelism" in str(e.value)
 
 
 def _lm_loss():
@@ -520,44 +730,3 @@ def test_train_step_runs_a_sequence_split():
         for k, w in want.items():
             start = model.get_parameter(k).detach()
             assert_grads((params[k] - start).numpy(), (w - start).numpy(), k)
-
-
-def _decode():
-    from repro_torch import models as M
-    from repro_torch.serve.engine import make_serve_step
-    cfg = _reduced("qwen3-4b")
-    model = M.init_params(0, cfg, device="cpu")
-    make_serve_step(cfg)(model, M.init_cache(cfg, 1, 8, torch.float32,
-                                             device="cpu"),
-                         torch.ones((1, 1), dtype=torch.int32))
-
-
-def _moe():
-    from repro_torch import models as M
-    cfg = _reduced("deepseek-v2-lite-16b")
-    model = M.init_params(0, cfg, device="cpu")
-    TL.moe(model["layers"][0]["moe"], torch.zeros((1, 4, cfg.d_model)), cfg)
-
-
-def _mla():
-    from repro_torch import models as M
-    from repro_torch.models.transformer import default_positions
-    cfg = _reduced("deepseek-v2-lite-16b")
-    model = M.init_params(0, cfg, device="cpu")
-    TL.mla_attention(model["layers"][0]["attn"],
-                     torch.zeros((1, 4, cfg.d_model)), cfg,
-                     default_positions(cfg, 1, 4, "cpu"))
-
-
-@pytest.mark.parametrize("where,run", [
-    ("make_serve_step", _decode), ("moe", _moe), ("mla_attention", _mla)],
-    ids=["decode", "moe", "mla"])
-def test_paths_refuse_a_sequence_split(where, run):
-    """Decode, the MoE and MLA raise ``NotImplementedError`` naming what
-    is left of ROADMAP item 21 inside the scope of a batch whose sequence
-    is cut, before computing."""
-    with DB.rows_set(DB.Rows(None, 1, 0, 1, split(2, 1))):
-        with pytest.raises(NotImplementedError, match="item 21") as e:
-            run()
-    assert where in str(e.value)
-    assert "tensor parallelism" in str(e.value)

@@ -16,15 +16,27 @@ from every block's inputs to the same call).  Two backward rules are held:
   from the gathered tensor (the sig-MMD path), so each keeps its own
   block's gradient and nothing is summed.
 
+Where the model axis that cuts the sequence also splits a layer (heads,
+``ff`` columns, experts), the layer's entry gathers the block
+(``tp_enter``: reduce-scatter backward, which sums the ranks' partial
+input gradients) and its exit reduce-scatters the row-parallel sum
+(``tp_exit``: all-gather backward); a weight every rank reads whole in
+between takes each rank's partial gradient, which the step sums over the
+model axis once (here: the blocks' gradients summed).  MLA, the MoE (its
+aux loss too), attention and the MLP are held that way, with the layer
+whole and split.
+
 Gradients within 1e-3·|g| + 1e-4·max|g|.
 """
 import numpy as np
 import pytest
 import torch
 
-from test_torch_seq_prefill import (assert_grads, block_grads, cfgs,
-                                    in_blocks, joined, normal, ssd_inputs,
-                                    wkv_inputs)
+from test_torch_seq_prefill import (EXPERTS, FF, HEADS, MLA_HEADS,
+                                    MOE_CASES, assert_grads, block_grads,
+                                    cfgs, dense_case, in_blocks, joined,
+                                    mla_case, moe_case, normal, run_dense,
+                                    split_tree, ssd_inputs, wkv_inputs)
 
 from repro_torch.distributed import batch as DB
 from repro_torch.distributed.model_parallel import (gather_from,
@@ -212,3 +224,68 @@ def test_cross_attention_blocks_gradients():
                                   seq)
         return (out * own(c, S)).sum()
     check(*block_grads(2, loss, ins, p), list(ins) + list(p))
+
+
+@pytest.mark.parametrize("q_lora", [0, 16], ids=["wq", "w_dq"])
+@pytest.mark.parametrize("heads", ["whole", "split"])
+@pytest.mark.parametrize("P", [2, 4])
+def test_mla_blocks_gradients(P, heads, q_lora):
+    """MLA over the blocks of an 8-token sequence, its heads whole (the
+    gathered latents, ``sp_latent``) and split over the axis that cuts the
+    sequence (``sp_tp_in`` / ``sp_tp_out``; ``w_dkv``, ``w_krope``,
+    ``kv_norm``, ``w_dq`` and ``q_norm`` read whole by every rank): the
+    gradients of the input and of every weight are the whole
+    sequence's."""
+    cfg, _, p, x, pos = mla_case(q_lora)
+    tree = split_tree(p, MLA_HEADS if heads == "split" else {})
+    params = dict(tree.named_parameters())
+    c = torch.from_numpy(normal(x.shape, 9))
+    tpos = torch.from_numpy(pos)
+
+    def loss(t, _):
+        out = TL.mla_attention(tree, t["x"], cfg, tpos)[0]
+        return (out * own(c, x.shape[1])).sum()
+    check(*block_grads(P, loss, {"x": x}, params), ["x"] + list(params))
+
+
+@pytest.mark.parametrize("experts", ["whole", "split"])
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("kw,shape", MOE_CASES, ids=["dropless",
+                                                     "capacity"])
+def test_moe_blocks_gradients(kw, shape, P, experts):
+    """The MoE over the blocks of every sequence, dropless and
+    capacity-bound, its experts whole and split over the axis that cuts
+    the sequence: the gradients of the input, the router, the experts and
+    the shared expert of an output loss plus the aux loss (which every
+    block adds, each its own tokens' share of its gradient) are the whole
+    batch's."""
+    cfg, _, p, x = moe_case(kw, shape)
+    tree = split_tree(p, EXPERTS if experts == "split" else {})
+    params = dict(tree.named_parameters())
+    c = torch.from_numpy(normal(x.shape, 7))
+
+    def loss(t, _):
+        out, aux = TL.moe(tree, t["x"], cfg)
+        return (out * own(c, shape[1])).sum() + aux
+    got, want = block_grads(P, loss, {"x": x}, params, B=shape[0])
+    for g, w, k in zip(got[1:], want[1:], ["x"] + list(params)):
+        assert_grads(g, w, k)
+
+
+@pytest.mark.parametrize("kind", ["attention", "mlp"])
+@pytest.mark.parametrize("P", [2, 4])
+def test_entry_and_exit_of_a_split_layer_gradients(P, kind):
+    """The entry/exit pair (``tp_enter`` / ``tp_exit``) around attention
+    with its heads split over the axis that cuts the sequence (GQA, two
+    ranks sharing a KV head at P = 4; ``wk``, ``wv`` and the qk-norms read
+    whole) and around the MLP with its ``ff`` split: the gradients of the
+    input and of every weight are the whole computation's."""
+    cfg, p, x, pos, _ = dense_case(kind)
+    tree = split_tree(p, HEADS if kind == "attention" else FF)
+    params = dict(tree.named_parameters())
+    c = torch.from_numpy(normal(x.shape, 8))
+
+    def loss(t, _):
+        return (run_dense(kind, tree, t["x"], cfg, pos)
+                * own(c, x.shape[1])).sum()
+    check(*block_grads(P, loss, {"x": x}, params), ["x"] + list(params))
