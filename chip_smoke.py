@@ -460,7 +460,14 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              rank a step; the split layers' sp_tp_* and sp_moe_*
              exchanges and their backward), and its prefill and
              phi3.5-moe's (depth 2) at 2 x 1,024 against one rank's
-             logits; and the dry run's
+             logits; (h) phi3.5-moe at full width, depth 2, under
+             rules_for(arch, "decode_32k"): the cell's 128 requests,
+             each step one dispatch group of 128 tokens (C = 20) split
+             across both data ranks, greedy tokens equal to one rank's,
+             each step's logits within 1e-4·max|ref|, the dropped pairs
+             a step equal to one rank's and above 0 in some step, one
+             moe_pos all-gather a MoE layer a step, ms a step and peak
+             bytes a rank beside one rank's; and the dry run's
              parameter and Adafactor-state bytes a rank for both (b)
              cells and (c) equal to rank 0's exactly, one backbone
              forward's collectives by kind and a step's collectives by
@@ -6277,6 +6284,12 @@ DR_SPTP_DEPTH = 2
 DR_SPTP_STEPS = 2
 DR_SPTP_PREFILL = (2, 1024)        # requests, prompt tokens (blocks of 512)
 DR_SPTP_OVERRIDE = {"seq": "model"}
+# (h) phi3.5-moe-42b-a6.6b's decode_32k cell on the 2 x 2 mesh: the cell's
+# 128 requests (64 a data rank) are one capacity-bound dispatch group of
+# 128 tokens a step (C = 20 slots an expert), split across both data ranks
+DR_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+DR_MOE_DEPTH = 2
+DR_MOE_DECODE = (128, 4, 4, 16)    # requests, prompt, new tokens, max_len
 
 
 def dr_whisper_cfg():
@@ -6974,6 +6987,117 @@ def dr_sptp(rank: int, mesh, seed: int) -> dict:
     return out
 
 
+@torch.no_grad()
+def dr_moe_greedy(model, cfg, prompts, n_new: int, max_len: int):
+    """Greedy decode through ``decode_step``, each step timed to a
+    synchronize (the whole batch's logits gathered after the timed call)
+    -> (tokens, the whole batch's float32 logits a step, median ms a step
+    after the first, this rank's dropped pairs a step, this process's
+    peak allocated bytes, the collectives' records of the steps)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.model_parallel import gather_decode_rows
+    from repro_torch.models.layers import dropped_pairs
+    B, P = prompts.shape
+    cache = LM.init_cache(cfg, B, max_len, torch.float32,
+                          device=prompts.device)
+    tok, out, hist, ms, drops = prompts[:, :1], [prompts], [], [], []
+    records = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for j in range(P - 1 + n_new):
+        C.LOG.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with dropped_pairs() as d:
+            logits, cache = LM.decode_step(model, cfg, tok, cache)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        records += C.LOG.records
+        logits = gather_decode_rows(logits[:, -1].float(), cache)
+        drops.append(int(sum(d)))
+        hist.append(logits)
+        if j + 1 < P:
+            tok = prompts[:, j + 1:j + 2]
+        else:
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            out.append(tok)
+    return (torch.cat(out, dim=1), torch.stack(hist),
+            float(np.median(ms[1:])), drops,
+            torch.cuda.max_memory_allocated(), records)
+
+
+def dr_moe_decode(rank: int, mesh, seed: int) -> dict:
+    """(h) phi3.5-moe-42b-a6.6b at full width, DR_MOE_DEPTH layers, on
+    the 2 x 2 mesh under ``rules_for(arch, "decode_32k")`` (the requests
+    over the data axis, 8 experts a rank over the model axis, the cache's
+    sequence over the model axis): DR_MOE_DECODE's 128 requests, a step's
+    one dispatch group of 128 tokens split across both data ranks, whose
+    capacity positions each rank completes with the lower rank's
+    per-expert counts (``moe_pos``), against the same model decoded by
+    one rank alone: greedy tokens equal, each step's logits within
+    1e-4·max|ref|, pairs dropped in some step; ms a step, peak bytes a
+    rank and ``moe_pos`` all-gathers a step beside one rank's."""
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.models.layers import moe_groups
+    cfg = dataclasses.replace(get_config(DR_MOE_ARCH), n_layers=DR_MOE_DEPTH)
+    B, P, n_new, max_len = DR_MOE_DECODE
+    g = torch.Generator(device="cuda").manual_seed(seed + 36)
+    prompts = torch.randint(1, cfg.vocab_size, (B, P), generator=g,
+                            device="cuda", dtype=torch.int32)
+    rules = rules_for(DR_MOE_ARCH, "decode_32k")
+    alone = None
+    if rank == 0:
+        whole = LM.init_params(seed, cfg)
+        alone = dr_moe_greedy(whole, cfg, prompts, n_new, max_len)
+        del whole
+    torch.distributed.barrier()
+    lm_free()
+    model = dr_in_turns(rank, 4, lambda: MP.shard_model(
+        LM.init_params(seed, cfg), mesh, rules))
+    with sharding_ctx(mesh, rules):
+        torch.distributed.barrier()
+        toks, logits, ms, drops, peak, records = dr_moe_greedy(
+            model, cfg, prompts, n_new, max_len)
+    local = sum(p.numel() for p in model.parameters())
+    del model
+    lm_free()
+    every = [None] * 4
+    torch.distributed.all_gather_object(every, drops)
+    steps = P - 1 + n_new
+    moe_pos = sum(r.tag == "moe_pos" for r in records)
+    _, Tg, C = moe_groups(cfg, B)
+    res = dict(ms=ms, peak_bytes=peak, local_params=local,
+               moe_pos_per_step=moe_pos / steps, group=[Tg, C],
+               shape=list(DR_MOE_DECODE), layers=cfg.n_layers,
+               rules=str(rules))
+    if rank == 0:
+        want, want_logits, single_ms, _, single_peak, _ = alone
+        # ranks 0 and 2 hold the two data rows' tokens; 1 and 3 repeat them
+        mesh_drops = [a + b for a, b in zip(every[0], every[2])]
+        check(torch.equal(toks, want), f"(h) 2 x 2 {DR_MOE_ARCH} decode: "
+              f"tokens {toks.tolist()} against one rank's {want.tolist()}")
+        scale = float(want_logits.abs().max())
+        err = float((logits - want_logits).abs().max())
+        check(err <= 1e-4 * scale, f"(h) 2 x 2 {DR_MOE_ARCH} decode: "
+              f"logits max |err| {err:.3e} against one rank's (max |logit| "
+              f"{scale:.3e})")
+        check(mesh_drops == alone[3], f"(h) 2 x 2 {DR_MOE_ARCH} decode: "
+              f"dropped pairs a step {mesh_drops} against one rank's "
+              f"{alone[3]}")
+        check(max(mesh_drops) > 0, f"(h) 2 x 2 {DR_MOE_ARCH} decode: no "
+              f"pair dropped in {steps} steps: the capacity path is not "
+              f"exercised")
+        check(moe_pos == steps * cfg.n_layers, f"(h) 2 x 2 {DR_MOE_ARCH} "
+              f"decode: {moe_pos} moe_pos all-gathers in {steps} steps, "
+              f"expected one a MoE layer a step")
+        res.update(single_ms=single_ms, single_peak_bytes=single_peak,
+                   drops=mesh_drops, max_abs_err=err, max_logit=scale,
+                   tokens_equal=True)
+    return res
+
+
 def dr_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
     """One gloo rank on the card: phase 28's cases on a 2 x 2 mesh (world
     4) or a 1 x 2 mesh (world 2); nothing is caught."""
@@ -6992,7 +7116,8 @@ def dr_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
         parts = [("whisper_train", dr_whisper_train),
                  ("qwen_train", dr_qwen_train),
                  ("family_train", dr_family_train), ("decode", dr_decode),
-                 ("prefill", dr_prefill), ("sptp", dr_sptp)]
+                 ("prefill", dr_prefill), ("sptp", dr_sptp),
+                 ("moe_decode", dr_moe_decode)]
     else:
         mesh = make_dev_mesh(1, 2)
         parts = [("whisper_serve", dr_whisper_serve)]
@@ -7062,9 +7187,11 @@ def dr_train_line(r: dict) -> str:
 def phase_dryrun_mp(seed: int) -> dict:
     """Phase 28: the dry run on an abstract 2 x 2 mesh against a real
     gloo world, whisper's model axis served and trained, Adafactor on
-    sharded parameters, decode under the dry run's rules, and (e) the
+    sharded parameters, decode under the dry run's rules, (e) the
     prefill under the dry run's prefill rules, each prompt in blocks over
-    the model axis."""
+    the model axis, (g) Megatron sequence parallelism, and (h)
+    phi3.5-moe's decode_32k cell, whose dispatch group straddles the data
+    ranks."""
     import queue as queue_mod
     t0 = time.perf_counter()
     ctx = torch.multiprocessing.get_context("spawn")
@@ -7195,6 +7322,23 @@ def phase_dryrun_mp(seed: int) -> dict:
               f"; kernel launches "
               f"{[r['sptp'][f'prefill/{arch}']['launches'] for r in worlds[4]]}",
               flush=True)
+    h = r4["moe_decode"]
+    B, P, new, max_len = h["shape"]
+    print(f"[dryrun_mp] (h) 2 x 2 {DR_MOE_ARCH} at full width, depth "
+          f"{h['layers']}, under rules_for({DR_MOE_ARCH}, decode_32k) = "
+          f"{h['rules']}: {B} requests ({B // 2} a data rank), {P}-token "
+          f"prompts, {new} greedy tokens, max_len {max_len}; a step's "
+          f"tokens are one dispatch group of {h['group'][0]} with "
+          f"{h['group'][1]} slots an expert, split across both data ranks: "
+          f"tokens equal one rank's; logits max |err| "
+          f"{h['max_abs_err']:.2e} (max |logit| {h['max_logit']:.2e}, "
+          f"within 1e-4·max); dropped pairs a step {h['drops']} (equal to "
+          f"one rank's); {h['ms']:.1f} ms a step (one rank alone "
+          f"{h['single_ms']:.1f} ms; ranks share the card: not a speedup); "
+          f"peak {h['peak_bytes']} bytes a rank against one rank's "
+          f"{h['single_peak_bytes']}; {h['moe_pos_per_step']:g} moe_pos "
+          f"all-gathers a step a rank; {h['local_params']} parameters on "
+          f"rank 0", flush=True)
     w = r4["whisper_train"]
     dry = {"whisper": dr_compare("whisper", predicted["whisper"],
                                  w["seq"]["measured"], w["seq"]["by_tag"]),

@@ -38,6 +38,8 @@ import logging
 import torch
 import torch.distributed as dist
 
+from ..obs.compile import freed_on_return
+
 _logger = logging.getLogger(__name__)
 
 # the reference's HLO collective kinds
@@ -167,12 +169,14 @@ def all_gather(t: torch.Tensor, group, *, tag: str = "",
     group order."""
     how = transport(group, t, ALL_GATHER)
     n = dist.get_world_size(group)
-    src = t.detach().contiguous()
-    if how == "gloo-host":
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts, dim=dim).to(t.device)
+    with freed_on_return() as keep:
+        src = t.detach().contiguous()
+        if how == "gloo-host":
+            src = src.cpu()
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+        out = torch.cat(parts, dim=dim).to(t.device)
+        keep(out)
     _log(ALL_GATHER, out, group, how, tag=tag)
     return out
 
@@ -186,9 +190,11 @@ def reduce_scatter(t: torch.Tensor, group, *, tag: str = "",
     n, me = dist.get_world_size(group), dist.get_rank(group)
     per = t.shape[dim] // n
     if how == "gloo-allreduce":
-        full = t.detach().clone()
-        dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
-        out = full.narrow(dim, me * per, per).contiguous()
+        with freed_on_return() as keep:
+            full = t.detach().clone()
+            dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
+            out = full.narrow(dim, me * per, per).contiguous()
+            keep(out)
     else:
         src = t.detach().movedim(dim, 0).contiguous()
         out = src.new_empty((per,) + tuple(src.shape[1:]))

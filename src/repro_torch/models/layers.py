@@ -55,15 +55,19 @@ over the group (a reduce-scatter; an all-gather for a reduce-scatter).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
 import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..distributed import batch as DB
-from ..distributed.collectives import reduce_sum
+from ..distributed.collectives import all_gather, reduce_sum
 from ..distributed.model_parallel import (MODEL, copy_to, fsdp_view,
                                           full_view, gather_from,
                                           model_split, reduce_from,
@@ -852,28 +856,107 @@ def moe_groups(cfg, T: int) -> tuple[int, int, int]:
     return T // Tg, Tg, max(1, int(cfg.capacity_factor * Tg * k / E))
 
 
-def dispatch_groups(cfg, T: int, S: int, rows=None) -> tuple[int, int, int]:
-    """:func:`moe_groups` of this rank's T tokens.  On a placed batch
-    (``rows``: the data group's global row count and this rank's first
-    row) the groups are the reference's groups of the global batch
-    restricted to this rank's rows: a dropless global batch is dropless
-    here, else every rank takes the global (Tg, C).  A group that would
-    straddle two ranks raises."""
+@dataclasses.dataclass(frozen=True)
+class Dispatch:
+    """A rank's view of the dispatch groups of the global batch: the
+    groups its tokens touch (G; the first ``first`` in the global order,
+    ``lead`` tokens of it held by lower ranks), tokens a group Tg and
+    slots an expert a group C; ``lower``, the ranks of the data group
+    (by rows, the group's order) that hold the rest of its first group;
+    ``straddles``, whether any group of the batch holds the tokens of two
+    ranks (then every rank exchanges its counts)."""
+    G: int
+    Tg: int
+    C: int
+    first: int = 0
+    lead: int = 0
+    lower: tuple = ()
+    straddles: bool = False
+
+
+def dispatch_groups(cfg, T: int, S: int, rows=None, P: int = 1) -> Dispatch:
+    """The :class:`Dispatch` of this rank's T tokens (``rows.n`` rows of
+    S), from the static layout alone.  Off a placed batch (``rows``
+    None) it is :func:`moe_groups` of T.  On one (``rows``: the global
+    row count B and this rank's first row, of the P ranks'
+    ``distributed.batch.rows_of`` blocks) the groups are the reference's
+    groups of the global B·S tokens: a dropless global batch is dropless
+    here (one group of this rank's tokens), else every rank takes the
+    global (Tg, C) over the groups its tokens [start·S, (start + n)·S)
+    touch, the first and last of them maybe partial."""
     if rows is None:
-        return moe_groups(cfg, T)
-    Tglob = rows.B * S
+        return Dispatch(*moe_groups(cfg, T))
+    B = rows.B
+    Tglob = B * S
     if Tglob <= 4 * cfg.n_experts or cfg.capacity_factor <= 0:
-        return 1, T, T
-    _, Tg, Cap = moe_groups(cfg, Tglob)
-    t0 = rows.start * S
-    if T % Tg or t0 % Tg:
-        raise ValueError(
-            f"MoE dispatch: the global batch's {Tglob} tokens form groups "
-            f"of {Tg}, and this rank's tokens [{t0}, {t0 + T}) would split "
-            f"one across two ranks, which would drop differently from one "
-            f"device: place a batch whose rows a rank times the sequence "
-            f"length ({S}) is a multiple of {Tg}, or lower moe_group_size")
-    return T // Tg, Tg, Cap
+        return Dispatch(1, T, T)
+    _, Tg, C = moe_groups(cfg, Tglob)
+    spans = [DB.rows_of(B, P, i)[:2] for i in range(P)]
+    straddles = any(start * S % Tg for start, _ in spans)
+    t0, t1 = rows.start * S, rows.start * S + T
+    first = t0 // Tg
+    if T == 0:
+        return Dispatch(0, Tg, C, first, 0, (), straddles)
+    lower = tuple(i for i, (start, n) in enumerate(spans)
+                  if n and start < rows.start
+                  and ((start + n) * S - 1) // Tg == first)
+    return Dispatch((t1 - 1) // Tg - first + 1, Tg, C, first, t0 - first * Tg,
+                    lower, straddles)
+
+
+def capacity_positions(onehot: torch.Tensor, disp: Dispatch,
+                       rows=None) -> torch.Tensor:
+    """Each (token, slot) pair's position among its expert's pairs of its
+    dispatch group, in the group's flattened (token, slot) order, counted
+    in float32 -> (T·k,).  ``onehot`` (T, k, E) holds this rank's pairs.
+    A group whose start lower ranks hold (``disp.lead`` tokens) is padded
+    at the front with pairs of no expert, the last at the back; where a
+    group of the batch straddles ranks, every rank all-gathers over the
+    data group (tag ``moe_pos``) the per-expert counts of its pairs in the
+    last group it touches, and the first group's positions add those of
+    the lower ranks that share it (``disp.lower``).  Not differentiable,
+    as the reference's positions are not."""
+    T, k, E = onehot.shape
+    G, Tg = disp.G, disp.Tg
+    tail = G * Tg - disp.lead - T
+    ohf = F.pad(onehot.reshape(T * k, E), (0, 0, disp.lead * k, tail * k))
+    ohf = ohf.reshape(G, Tg * k, E)
+    excl = torch.cumsum(ohf, dim=1) - ohf
+    if disp.straddles:
+        P = dist.get_world_size(rows.group)
+        me = dist.get_rank(rows.group)
+        if DB.rows_of(rows.B, P, me)[:2] != (rows.start, rows.n):
+            raise AssertionError(
+                f"MoE dispatch: rank {me} of the data group holds rows "
+                f"[{rows.start}, {rows.start + rows.n}), not its block "
+                f"{DB.rows_of(rows.B, P, me)[:2]} in the group's order")
+        last = ohf[-1].sum(0) if G else onehot.new_zeros(E)
+        counts = all_gather(last[None], rows.group, tag="moe_pos")  # (P, E)
+        if disp.lower:
+            offset = counts[list(disp.lower)].sum(0)
+            excl = excl + F.pad(offset[None, None], (0, 0, 0, 0, 0, G - 1))
+    pos = (excl * ohf).sum(-1).reshape(-1)
+    return pos[disp.lead * k:(disp.lead + T) * k]
+
+
+_DROPS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_moe_drops", default=None)
+
+
+@contextlib.contextmanager
+def dropped_pairs():
+    """Collect the (token, slot) pairs past their expert's capacity: the
+    yielded list gets, for each run of a MoE layer inside the block (a
+    layer recomputed in the backward runs again), the count of this
+    rank's dropped pairs as a detached 0-d tensor.  The model ranks that
+    route the same tokens count the same pairs; the data ranks' counts
+    add up to one device's."""
+    out: list = []
+    token = _DROPS.set(out)
+    try:
+        yield out
+    finally:
+        _DROPS.reset(token)
 
 
 def moe(p, x: torch.Tensor, cfg):
@@ -893,11 +976,16 @@ def moe(p, x: torch.Tensor, cfg):
     one device) and the row-parallel sum over the model group adds the
     ranks' outputs, the shared experts' partial sums with them.  On a
     placed batch (:func:`repro_torch.distributed.batch.current_rows`) the
-    dispatch groups are the global batch's (:func:`dispatch_groups`) and
-    the aux loss E·Σ me·ce takes ``me`` and ``ce`` over the global batch:
-    their sums and the token count are added over the data group first
-    (differentiably for ``ce``), as the reference's means over its whole
-    batch are.
+    dispatch groups are the global batch's (:func:`dispatch_groups`), a
+    group may hold the tokens of several data ranks, and each rank gives
+    its own pairs the positions, and so the keep/drop decisions, that one
+    device gives them over the whole group (:func:`capacity_positions`:
+    one all-gather of per-expert counts where a group straddles ranks).
+    Each rank fills only its own pairs' slots; the slots of other ranks'
+    pairs stay zero rows.  The aux loss E·Σ me·ce takes ``me`` and
+    ``ce`` over the global batch: their sums and the token count are
+    added over the data group first (differentiably for ``ce``), as the
+    reference's means over its whole batch are.
 
     On a batch whose sequence is cut (``distributed.batch.current_seq``)
     each rank gathers its rows' whole sequences over the split's group
@@ -921,11 +1009,16 @@ def moe(p, x: torch.Tensor, cfg):
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
 
     rows = DB.current_rows()
-    G, Tg, C = dispatch_groups(cfg, T, S, rows)
+    P = 1 if rows is None or rows.group is None else \
+        dist.get_world_size(rows.group)
+    disp = dispatch_groups(cfg, T, S, rows, P)
+    G, C = disp.G, disp.C
     onehot = F.one_hot(gate_idx, E).float()                     # (T, k, E)
-    ohf = onehot.reshape(G, Tg * k, E)
-    pos = ((torch.cumsum(ohf, dim=1) - ohf) * ohf).sum(-1)      # (G, Tg*k)
+    pos = capacity_positions(onehot, disp, rows)                # (T*k,)
     keep = (pos < C).reshape(T, k)
+    drops = _DROPS.get()
+    if drops is not None:
+        drops.append((~keep).sum().detach())
     sp = _split(p, "w_gate", 0)
     if sp is not None and (E % sp.size or _split(p, "w_up", 0) is None
                            or _split(p, "w_down", 0) is None):
@@ -935,9 +1028,10 @@ def moe(p, x: torch.Tensor, cfg):
     El = E if sp is None else E // sp.size
     e0 = 0 if sp is None else sp.index * El
     mine = (gate_idx >= e0) & (gate_idx < e0 + El)              # (T, k)
-    group = torch.arange(G, device=x.device).repeat_interleave(Tg * k)
+    group = ((torch.arange(T, device=x.device) + disp.lead) // disp.Tg
+             ).repeat_interleave(k)                            # local group
     slot = ((gate_idx.reshape(-1) - e0).clamp(0, El - 1) * G + group) * C \
-        + pos.reshape(-1).long().clamp(max=C - 1)               # (T*k,)
+        + pos.long().clamp(max=C - 1)                           # (T*k,)
     n_slots = El * G * C
     # dropped pairs (and other ranks' experts') land in one spare row
     target = torch.where((keep & mine).reshape(-1), slot,

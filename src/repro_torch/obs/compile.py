@@ -44,6 +44,8 @@ its role.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import copy
 import weakref
 
@@ -336,6 +338,31 @@ def _tensors(x) -> list:
     return []
 
 
+# the tensors made inside the innermost freed_on_return block
+_HELD: contextvars.ContextVar = contextvars.ContextVar("repro_torch_held",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def freed_on_return():
+    """Count every tensor made inside the block as freed where the block
+    ends, but those passed to the yielded ``keep``.  A collective's
+    buffers need it: a gloo group's worker thread holds them for a moment
+    after the call returns, so their Python objects die at a time that
+    varies from run to run, and :class:`CostCounter`'s peak with them."""
+    held, kept = [], []
+    token = _HELD.set(held)
+    try:
+        yield kept.append
+    finally:
+        _HELD.reset(token)
+        for ref, fin, n, counter in held:
+            t = ref()
+            if fin.alive and not any(t is k for k in kept):
+                fin.detach()
+                counter._free(n)
+
+
 class _OpCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
@@ -371,10 +398,13 @@ class _OpCounter(TorchDispatchMode):
                     self.trans_by_op[key] = self.trans_by_op.get(key, 0) \
                         + trans
         if not any(r.alias_info is not None for r in returns):  # new
+            held = _HELD.get()
             for t in outs:
                 n = t.numel() * t.element_size()
                 self.live += n
-                weakref.finalize(t, self._free, n)
+                fin = weakref.finalize(t, self._free, n)
+                if held is not None:
+                    held.append((weakref.ref(t), fin, n, self))
             self.peak = max(self.peak, self.live)
         key = matmul_key(func, args)
         if key is not None:

@@ -19,7 +19,10 @@ over the model axis): four archs, a sig-MMD step, a masked and strided
 one, a batch whose ignored labels fill one block, and an eval step.
 Both worlds run Megatron sequence parallelism (``sp_tp_cases``): reduced
 deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b and qwen3-4b with their heads,
-``ff`` and experts over the model axis that cuts each sequence.
+``ff`` and experts over the model axis that cuts each sequence.  Both
+worlds train reduced phi3.5-moe in dispatch groups that straddle data
+ranks on their data-only mesh, and the world of 4 on 2 x 2, where it
+also decodes 24 requests in one group a step (``STRADDLE_*``).
 """
 from __future__ import annotations
 
@@ -77,6 +80,19 @@ DRYRUN_PREFILL = ("prefill_tiny", dict(kind="prefill", seq=PREFILL[1],
                                        batch=PREFILL[0]))
 DRYRUN_PREFILL_ARCHS = ("qwen3-4b", "zamba2-7b")
 SIG = dict(channels=3, depth=2)
+# MoE dispatch groups that straddle data ranks: reduced phi3.5-moe (E = 4,
+# top-2) at capacity factor 0.5.  Training in groups of 16: (8, 6) is 48
+# tokens, 3 groups of C = 4 (on 2 data ranks group [16, 32) straddles,
+# on 4 every group does); (7, 6), rows the data ranks do not divide, is
+# 42 tokens in groups of 14 (C = 3).  Decode keeps the config's group
+# size: STRADDLE_DECODE's 24 requests are one group of 24 a step (C = 6),
+# 12 tokens a data rank on the 2 x 2 mesh under rules_for(arch, CP_SHAPE)
+STRADDLE_ARCH = "phi3.5-moe-42b-a6.6b"
+STRADDLE_GROUP = 16
+STRADDLE_CF = 0.5
+STRADDLE_TRAIN = (8, 6, 3)     # batch, sequence, steps
+STRADDLE_PAD = (7, 6, 3)
+STRADDLE_DECODE = (24, 4, 4, 16)   # requests, prompt, new tokens, max_len
 # Megatron sequence parallelism (the model axis both cuts each sequence and
 # splits the layers): the MoE archs under rules_for(arch, shape, SP_TP's
 # override) (heads, ff and experts over the model axis, FSDP over the data
@@ -134,6 +150,17 @@ def config(arch: str, configs):
     if arch == "whisper-large-v3":
         cfg = dataclasses.replace(cfg, decoder_max_len=16)
     return cfg
+
+
+def straddle_config(configs, decode: bool = False):
+    """The reduced phi3.5-moe of the straddling cases: capacity factor
+    STRADDLE_CF, dispatch groups of STRADDLE_GROUP tokens (decode: the
+    config's own)."""
+    cfg = dataclasses.replace(
+        configs.reduce_config(configs.get_config(STRADDLE_ARCH)),
+        capacity_factor=STRADDLE_CF)
+    return cfg if decode else dataclasses.replace(
+        cfg, moe_group_size=STRADDLE_GROUP)
 
 
 def _t(b):
@@ -408,6 +435,101 @@ def moe_aux_cases(dp, inputs: dict) -> dict:
                                         inputs["batches"][f"aux/{loss}"], dp,
                                         loss=loss)
     return out
+
+
+def place_uneven(batch: dict, mesh) -> dict:
+    """Each leaf's rows over the mesh's ``"data"`` axis in
+    ``distributed.batch.rows_of`` blocks, the last ranks holding fewer
+    true rows, as DTensors of the global shape: the layout of a batch the
+    data ranks do not divide, which ``place_batch``'s divisibility guard
+    leaves whole, placed by hand."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.distributed.batch import rows_of
+    P, r = mesh.size(0), mesh.get_local_rank(0)
+    out = {}
+    for k, v in batch.items():
+        start, n, _ = rows_of(v.shape[0], P, r)
+        out[k] = DTensor.from_local(
+            v[start:start + n], mesh,
+            [Shard(0)] + [Replicate()] * (mesh.ndim - 1), run_check=False,
+            shape=v.shape, stride=v.stride())
+    return out
+
+
+def _straddle_steps(model, cfg, batches, mesh, place) -> dict:
+    """Three SGD steps on batches placed by ``place`` -> {"steps":
+    (metrics a step, full params), "grads": the first step's full
+    gradient (SGD's momentum after one step), "drops": this rank's
+    dropped pairs a step, "tags": the collectives' tags a step}."""
+    from repro_torch import optim, train
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.distributed.model_parallel import (
+        gather_params, gather_tensor, placements)
+    from repro_torch.models.layers import dropped_pairs
+    opt = optim.sgd(lr=lr_of(cfg.name))
+    state = opt.init(model)
+    step = train.make_train_step(cfg, opt)
+    pl = placements(model)
+    hist, grads, drops, tags = [], None, [], []
+    with sharding_ctx(mesh):
+        for b in batches:
+            C.LOG.reset()
+            with dropped_pairs() as d:
+                model, state, m = step(model, state, place(_t(b), mesh))
+            hist.append({k: float(v) for k, v in m.items()})
+            drops.append(int(sum(d)))
+            tags.append(sorted({r.tag for r in C.LOG.records}))
+            if grads is None:
+                grads = {k: (gather_tensor(v, pl[k]) if k in pl else v)
+                         .numpy().copy() for k, v in state["mom"].items()}
+    params = {k: v.numpy() for k, v in gather_params(model).items()}
+    return dict(steps=(hist, params), grads=grads, drops=drops, tags=tags)
+
+
+def straddle_train_cases(mesh, inputs: dict, keys=("train", "pad")) -> dict:
+    """SGD steps of the straddling config (``straddle_config``) on the
+    mesh (the model sharded where it has a model axis of 2):
+    STRADDLE_TRAIN's batches placed by ``place_batch``, and STRADDLE_PAD's,
+    whose rows the data ranks do not divide, by :func:`place_uneven`."""
+    from repro_torch import configs, train
+    cfg = straddle_config(configs)
+    place = {"train": lambda b, mesh: train.place_batch(b),
+             "pad": place_uneven}
+    return {f"straddle/{k}": _straddle_steps(
+        _model(inputs, STRADDLE_ARCH, cfg,
+               mesh if mesh.size(1) > 1 else None), cfg,
+        inputs["batches"][f"straddle/{k}"], mesh, place[k]) for k in keys}
+
+
+def straddle_decode_case(mesh, inputs: dict) -> dict:
+    """STRADDLE_DECODE's greedy decode of the straddling config under
+    ``rules_for(arch, CP_SHAPE)``: ``ServeEngine``'s tokens, and the
+    tokens, every step's logits, this rank's dropped pairs a step and the
+    collectives by tag of :func:`greedy_logits`."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.launch.dryrun import collectives_by_tag, rules_for
+    from repro_torch.models.layers import dropped_pairs
+    from repro_torch.serve import ServeEngine
+    B, P, n_new, max_len = STRADDLE_DECODE
+    cfg = straddle_config(configs, decode=True)
+    rules = rules_for(STRADDLE_ARCH, CP_SHAPE)
+    model = _model(inputs, STRADDLE_ARCH, cfg, mesh, rules)
+    prompts = torch.from_numpy(inputs["prompts_straddle"])
+    with sharding_ctx(mesh, rules):
+        engine = ServeEngine(cfg, model, max_len=max_len, device="cpu")
+        toks = engine.generate(prompts, n_new).numpy()
+        C.LOG.reset()
+        with dropped_pairs() as d:
+            got = greedy_logits(model, cfg, prompts, n_new, max_len)
+        tags = collectives_by_tag(C.LOG.records)
+    L = cfg.n_layers
+    return {"straddle/decode": dict(
+        engine=toks, tokens=got[0], logits=got[1], tags=tags,
+        drops=[int(sum(d[i:i + L])) for i in range(0, len(d), L)])}
 
 
 def adafactor_cases(mesh, inputs: dict) -> dict:
@@ -757,7 +879,12 @@ def rank_main(rank: int, world: int, store_path: str, inputs: dict,
             out.update(cp_write_case(mesh, inputs))
             out.update(launcher_case(dirs["ckpt"]))
         dp = make_dev_mesh(world, 1, device="cpu")
+        if world == 4:
+            out.update(straddle_train_cases(mesh, inputs))
+            out.update(straddle_decode_case(mesh, inputs))
         out.update(moe_aux_cases(dp, inputs))
+        out.update({f"dp/{k}": v for k, v in
+                    straddle_train_cases(dp, inputs).items()})
         if world == 2:
             out.update(micro_dp_cases(dp, inputs))
         dist.barrier()

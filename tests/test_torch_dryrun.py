@@ -15,6 +15,8 @@
   (each rank its block of 2,048 of the prompt, the keys and values
   gathered a layer), and so does a train cell whose rules carry it; a
   train cell whose batch 256 divides has none.
+- phi3.5-moe-42b-a6.6b's ``decode_32k`` cell runs on both production
+  meshes, its one dispatch group a step spread over the data ranks.
 - deepseek-v2-lite-16b's ``prefill_32k`` cell runs under
   ``rule_overrides={"seq": "model"}``: MLA's heads, the dense MLP's
   ``ff`` and the experts over the model axis that cuts the prompt.
@@ -88,6 +90,10 @@ out = {}
 for arch in ("qwen2-vl-2b", "whisper-large-v3"):
     out[arch] = dryrun.lower_cell(arch, "decode_32k")
 out["prefill"] = dryrun.lower_cell("qwen2-vl-2b", "prefill_32k")
+out["phi_decode"] = {pod: dryrun.lower_cell("phi3.5-moe-42b-a6.6b",
+                                            "decode_32k",
+                                            multi_pod=pod == "pod2")
+                     for pod in ("pod1", "pod2")}
 out["deepseek"] = {k: dryrun.lower_cell("deepseek-v2-lite-16b",
                                         "prefill_32k", rule_overrides=over)
                    for k, over in (("whole", None), ("cut", {"seq": "model"}))}
@@ -186,6 +192,29 @@ def test_production_decode_cells(child, arch):
         assert abs(rank + extra - (477_102_080 + extra)) <= \
             0.01 * (477_102_080 + extra)
     assert res["collectives"]["all-gather"]["count"] >= cfg.n_layers
+
+
+@pytest.mark.parametrize("pod", ["pod1", "pod2"])
+def test_moe_decode_cell_whose_dispatch_group_straddles_data_ranks(child,
+                                                                   pod):
+    """phi3.5-moe-42b-a6.6b's ``decode_32k`` cell runs on both
+    production meshes (it raised while a dispatch group could not
+    straddle ranks): a step's 128 tokens are one capacity-bound group
+    spread over the 16 (32) data ranks, so each MoE layer all-gathers
+    every data rank's 16 per-expert counts once (``moe_pos``), under the
+    reference's rules for the cell."""
+    arch = "phi3.5-moe-42b-a6.6b"
+    res = child[2]["phi_decode"][pod]
+    assert "error" not in res and "skipped" not in res, res
+    assert res["mesh"] == ("16x16" if pod == "pod1" else "2x16x16")
+    assert res["rules"] == {k: str(v) for k, v in
+                            tdryrun.rules_for(arch, "decode_32k").items()}
+    cfg = tconfigs.get_config(arch)
+    P = 16 if pod == "pod1" else 32
+    got = res["collectives_by_tag"]["moe_pos"]["all-gather"]
+    assert got["count"] == cfg.n_layers
+    assert got["result_bytes"] == cfg.n_layers * P * cfg.n_experts * 4
+    assert res["hlo_flops_per_dev"] > 0
 
 
 def test_prefill_cells_keep_the_sequence_rule_and_train_cells_drop_it(

@@ -46,6 +46,12 @@ tensor-, expert- and FSDP-parallel LM execution on a ``("data",
   "model"})``, train three LM and three sig-MMD steps of each, a MoE-aux
   step at AUX and a sequence the split does not divide, against the
   reference's single-device results.
+- MoE dispatch groups that straddle data ranks: reduced phi3.5-moe at
+  capacity factor 0.5 trains three SGD steps on the data-only mesh of
+  each world and on 2 x 2 (a batch the data ranks divide, and one of 7
+  rows placed by hand in uneven blocks) and decodes 24 requests, one
+  group a step, under ``rules_for(arch, "decode_32k")`` on 2 x 2, against
+  the reference's single-device losses, gradients, tokens and logits.
 - The dry run: ``launch.dryrun.lower_cell`` in a fake world of 4 ranks
   (a subprocess) predicts the 2 x 2 world's parameter and optimizer-state
   bytes a rank and the collectives of one step by kind and by tag (each
@@ -311,10 +317,18 @@ def _inputs() -> dict:
         _jcfg("qwen3-4b").vocab_size, *R.SEQ_ODD, 18)))]
     write_tokens = np.random.default_rng(1).integers(
         1, 128, size=(R.CP_DECODE[0], sum(R.CP_WRITES))).astype(np.int32)
+    V = R.straddle_config(jconfigs).vocab_size
+    for i, (key, (Bs, Ss, n)) in enumerate((("train", R.STRADDLE_TRAIN),
+                                            ("pad", R.STRADDLE_PAD))):
+        stream = jpipe.TokenStream(V, Bs, Ss, 40 + i)
+        batches[f"straddle/{key}"] = [jax.tree.map(np.asarray, next(stream))
+                                      for _ in range(n)]
+    prompts_straddle = np.random.default_rng(2).integers(
+        1, V, size=R.STRADDLE_DECODE[:2]).astype(np.int32)
     return dict(params=params, batches=batches, prompts=prompts,
                 prompts_cp=prompts_cp, enc_out=enc_out,
                 write_tokens=write_tokens, prefill=prefill,
-                prefill_odd=odd)
+                prefill_odd=odd, prompts_straddle=prompts_straddle)
 
 
 def _prefill_batch(jcfg, B: int, S: int, rng) -> dict:
@@ -508,6 +522,54 @@ def _reference_rwkv64():
         return hist, _per_layer(jax.tree.map(np.asarray, params))
 
 
+def _reference_straddle(key: str) -> dict:
+    """The reference's single-device SGD steps of the straddling config
+    on ``batches["straddle/<key>"]``: {"steps": (metrics a step, per-layer
+    params), "grads": the first step's gradient (SGD's momentum after one
+    step)}."""
+    inputs = _REF["inputs"]
+    opt = joptim.sgd(lr=R.lr_of(R.STRADDLE_ARCH))
+    step = jax.jit(jtrain.make_train_step(R.straddle_config(jconfigs), opt))
+    params = jax.tree.map(jnp.asarray, inputs["params"][R.STRADDLE_ARCH])
+    state = opt.init(params)
+    hist, grads = [], None
+    for b in inputs["batches"][f"straddle/{key}"]:
+        params, state, m = step(params, state, jax.tree.map(jnp.asarray, b))
+        hist.append({k: float(v) for k, v in m.items()})
+        if grads is None:
+            grads = _per_layer(jax.tree.map(np.asarray, state["mom"]))
+    return dict(steps=(hist, _per_layer(jax.tree.map(np.asarray, params))),
+                grads=grads)
+
+
+def _reference_straddle_decode() -> dict:
+    """The reference's single-device greedy decode of STRADDLE_DECODE:
+    ``ServeEngine``'s tokens, and the tokens and every step's float32
+    logits of ``decode_step`` fed as ``_torch_mp_ranks.greedy_logits``
+    feeds the port."""
+    inputs = _REF["inputs"]
+    cfg = R.straddle_config(jconfigs, decode=True)
+    params = jax.tree.map(jnp.asarray, inputs["params"][R.STRADDLE_ARCH])
+    B, P, n_new, max_len = R.STRADDLE_DECODE
+    prompts = inputs["prompts_straddle"]
+    engine = np.asarray(jengine.ServeEngine(cfg, params, max_len=max_len)
+                        .generate(jnp.asarray(prompts), n_new))
+    step = jax.jit(lambda p, t, c: JM.decode_step(p, cfg, t, c))
+    cache = JM.init_cache(cfg, B, max_len, jnp.float32)
+    tok, out, hist = prompts[:, :1], [prompts], []
+    for j in range(P - 1 + n_new):
+        logits, cache = step(params, jnp.asarray(tok), cache)
+        logits = np.asarray(logits[:, -1], np.float32)
+        hist.append(logits)
+        if j + 1 < P:
+            tok = prompts[:, j + 1:j + 2]
+        else:
+            tok = np.argmax(logits, axis=-1)[:, None].astype(np.int32)
+            out.append(tok)
+    return dict(engine=engine, tokens=np.concatenate(out, axis=1),
+                logits=np.stack(hist))
+
+
 def _references(inputs) -> dict:
     """{name: the reference's (or the single-device port's) result as a
     zero-argument function} for every case the tests hold the worlds
@@ -563,6 +625,9 @@ def _references(inputs) -> dict:
             f"{a}/sig", b["sig_mmd"], loss="sig_mmd")
     table["port_prefill_odd/qwen3-4b"] = lambda: _port_prefill(
         "qwen3-4b", "prefill_odd")
+    for key in ("train", "pad"):
+        table[f"straddle/{key}"] = lambda k=key: _reference_straddle(k)
+    table["straddle/decode"] = _reference_straddle_decode
     return table
 
 
@@ -994,18 +1059,127 @@ def test_moe_aux_loss_is_the_global_batchs(worlds, world, loss):
 
 def test_moe_dispatch_groups_of_a_placed_batch():
     """Each rank takes the global batch's (Tg, C) on its own rows; a
-    dropless global batch is dropless; a group across two ranks raises."""
+    dropless global batch is dropless."""
     from repro_torch.distributed.batch import Rows
     from repro_torch.models.layers import dispatch_groups, moe_groups
     cfg = dataclasses.replace(
         tconfigs.reduce_config(tconfigs.get_config("deepseek-v2-lite-16b")),
         moe_group_size=8)
     assert moe_groups(cfg, 64) == (8, 8, 5)
-    assert dispatch_groups(cfg, 16, 8, Rows(None, 8, 2, 2)) == (2, 8, 5)
-    assert dispatch_groups(cfg, 16, 8, Rows(None, 2, 0, 2)) == (1, 16, 16)
-    wide = dataclasses.replace(cfg, moe_group_size=32)
-    with pytest.raises(ValueError, match="split one across two ranks"):
-        dispatch_groups(wide, 16, 8, Rows(None, 8, 2, 2))
+    got = dispatch_groups(cfg, 16, 8, Rows(None, 8, 2, 2), P=4)
+    assert (got.G, got.Tg, got.C, got.first, got.lead, got.lower,
+            got.straddles) == (2, 8, 5, 2, 0, (), False)
+    got = dispatch_groups(cfg, 16, 8, Rows(None, 2, 0, 2))
+    assert (got.G, got.Tg, got.C, got.straddles) == (1, 16, 16, False)
+
+
+# (rows (B, start, n), S, P, group size) -> (G, first, lead, lower,
+# straddles); T = n·S
+_STRADDLE_LAYOUTS = {
+    # 4 ranks of 2 rows of 8 in groups of 32: two ranks a group
+    "two_a_group": ((8, 2, 2), 8, 4, 32, (1, 0, 16, (0,), True)),
+    # phi3.5-moe's decode_32k cell: 16 ranks of 8 requests, one group of 128
+    "decode_32k": ((128, 40, 8), 1, 16, 512, (1, 0, 40, (0, 1, 2, 3, 4),
+                                               True)),
+    # 2 ranks of 24 tokens in groups of 16: rank 1 starts mid-group 1 and
+    # touches groups 1 and 2
+    "dp2": ((8, 4, 4), 6, 2, 16, (2, 1, 8, (0,), True)),
+    # 4 ranks of 12: rank 2 shares group 1 with rank 1 only
+    "dp4": ((8, 4, 2), 6, 4, 16, (2, 1, 8, (1,), True)),
+    # B = 7 on 4 ranks (blocks 2, 2, 2, 1) in groups of 14: the last rank
+    # holds one true row, group 2's last 6 tokens, after rank 2's first 8
+    "uneven": ((7, 6, 1), 6, 4, 16, (1, 2, 8, (2,), True)),
+    # rank 0 of the uneven batch: no lower rank, its last group straddles
+    "uneven_first": ((7, 0, 2), 6, 4, 16, (1, 0, 0, (), True)),
+    # 2 ranks of 32 tokens in groups of 8: aligned, no exchange
+    "aligned": ((8, 4, 4), 8, 2, 8, (4, 4, 0, (), False)),
+}
+
+
+@pytest.mark.parametrize("layout", list(_STRADDLE_LAYOUTS))
+def test_moe_dispatch_groups_that_straddle_ranks(layout):
+    """A rank's view of the global groups from its rows alone: its first
+    group, the groups its tokens touch, the tokens of its first group
+    that lower ranks hold, which of those ranks add to its first group's
+    positions, and whether any group of the batch straddles ranks."""
+    from repro_torch.distributed.batch import Rows
+    from repro_torch.models.layers import dispatch_groups
+    (B, start, n), S, P, group, want = _STRADDLE_LAYOUTS[layout]
+    cfg = dataclasses.replace(R.straddle_config(tconfigs),
+                              moe_group_size=group)
+    got = dispatch_groups(cfg, n * S, S, Rows(None, B, start, n), P=P)
+    assert (got.G, got.first, got.lead, got.lower, got.straddles) == want
+    assert got.Tg <= group and B * S % got.Tg == 0
+    assert got.lead + n * S <= got.G * got.Tg
+
+
+# {case: (world, result key)}: the data-only mesh of each world, and the
+# 2 x 2 mesh with the experts over "model"
+_STRADDLE_CASES = {"dp2/train": (2, "dp/straddle/train"),
+                   "dp2/pad": (2, "dp/straddle/pad"),
+                   "dp4/train": (4, "dp/straddle/train"),
+                   "dp4/pad": (4, "dp/straddle/pad"),
+                   "2x2/train": (4, "straddle/train"),
+                   "2x2/pad": (4, "straddle/pad")}
+
+
+@pytest.mark.parametrize("case", list(_STRADDLE_CASES))
+def test_straddling_dispatch_groups_train_as_one_device(worlds, case):
+    """Reduced phi3.5-moe at capacity factor 0.5 in groups that hold the
+    tokens of two or more data ranks (``_torch_mp_ranks.STRADDLE_*``;
+    ``pad``: rows the data ranks do not divide, the last ranks holding
+    fewer): three SGD steps' losses, aux losses and parameters and the
+    first step's gradient of every parameter are the reference's
+    single-device values, pairs drop, and every step exchanges the
+    capacity counts (tag ``moe_pos``)."""
+    world, key = _STRADDLE_CASES[case]
+    res, _ = worlds
+    ref = _ref(key.removeprefix("dp/"))
+    got = res[world][0][key]
+    _assert_steps(got["steps"], ref["steps"], case)
+    np.testing.assert_allclose(got["steps"][0][0]["aux"],
+                               ref["steps"][0][0]["aux"], rtol=1e-5,
+                               atol=1e-9)
+    assert set(got["grads"]) == set(ref["grads"]), case
+    for k, v in ref["grads"].items():
+        np.testing.assert_allclose(got["grads"][k], v, **GRAD,
+                                   err_msg=f"{case} gradient {k}")
+    assert sum(res[world][r][key]["drops"][0] for r in range(world)) > 0
+    assert all("moe_pos" in tags for tags in got["tags"]), got["tags"]
+
+
+def test_straddling_dispatch_group_decodes_as_one_device(worlds):
+    """STRADDLE_DECODE on the 2 x 2 mesh under ``rules_for(arch,
+    "decode_32k")``: each step's 24 tokens are one group with 6 slots an
+    expert, 12 tokens on each data rank.  ``ServeEngine``'s and
+    ``decode_step``'s greedy tokens are the reference's single-device
+    tokens on every rank, each step's logits within 1e-4·max|ref| of the
+    reference's, pairs drop, and each step exchanges the counts once a
+    MoE layer."""
+    res, _ = worlds
+    want = _ref("straddle/decode")
+    for r in range(4):
+        got = res[4][r]["straddle/decode"]
+        np.testing.assert_array_equal(got["engine"], want["engine"])
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        _assert_logits(got["logits"], want["logits"], ("straddle", r))
+    steps = len(want["logits"])
+    layers = R.straddle_config(tconfigs, decode=True).n_layers
+    tags = res[4][0]["straddle/decode"]["tags"]
+    assert tags["moe_pos"]["all-gather"]["count"] == steps * layers
+    # ranks 0 and 2 are the two data ranks
+    drops = [res[4][0]["straddle/decode"]["drops"][j]
+             + res[4][2]["straddle/decode"]["drops"][j] for j in range(steps)]
+    assert max(drops) > 0, drops
+
+
+def test_moe_pos_only_where_a_group_straddles(worlds):
+    """The capacity counts travel only where a group straddles ranks:
+    the 2 x 2 world's aligned MoE steps (the dry run's deepseek cells:
+    groups of 8, 32 tokens a data rank) issue no ``moe_pos``."""
+    res, _ = worlds
+    for cell in R.DRYRUN_CELLS:
+        assert "moe_pos" not in res[4][0][f"dryrun/{cell}"]["by_tag"], cell
 
 
 def test_sharded_steps_update_their_buffers_in_place(worlds):
