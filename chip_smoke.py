@@ -6290,6 +6290,26 @@ DR_SPTP_OVERRIDE = {"seq": "model"}
 DR_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 DR_MOE_DEPTH = 2
 DR_MOE_DECODE = (128, 4, 4, 16)    # requests, prompt, new tokens, max_len
+# (i) the hybrid, rwkv and encdec families with their weights split over
+# the model axis that cuts each sequence: rules_for(arch, shape,
+# DR_TP_OVERRIDE) on 2 x 2 (heads, kv_heads and ff over the model axis,
+# FSDP over the data axis; the cells keep their "seq": "model").  (f)'s
+# zamba2-7b and rwkv6-1.6b at (f)'s depth and batches, DR_TP_STEPS of its
+# Adafactor steps (cut from 2 to hold the script's time), against (f)'s
+# one-rank steps; (e)'s zamba2-7b, rwkv6-1.6b and whisper-large-v3
+# prefilled once, its first call (a warm call cut for the same reason),
+# against (e)'s one-rank logits.  DR_TP_TAGS: the exchanges
+# each family's layers must make (and, in training, their backward):
+# Megatron's gather and reduce-scatter of the split layers, Mamba2's
+# split weights read whole on its block with its halo and state
+DR_TP_OVERRIDE = {"heads": "model", "kv_heads": "model", "ff": "model",
+                  "fsdp": "data"}
+DR_TP_FAMILY = ("zamba2-7b", "rwkv6-1.6b", DR_ARCH)
+DR_TP_STEPS = 1
+DR_TP_TAGS = {"zamba2-7b": {"sp_tp_in", "sp_tp_out", "tp_param_gather",
+                            "sp_conv", "sp_state"},
+              "rwkv6-1.6b": {"sp_tp_in", "sp_tp_out", "tp_param_gather"},
+              DR_ARCH: {"sp_tp_in", "sp_tp_out"}}
 
 
 def dr_whisper_cfg():
@@ -6490,7 +6510,7 @@ def dr_train(rank: int, mesh, cfg, model, batches: list, loss: str,
     measured = dr_measured(model, state, cfg, batches[0], mesh, rules) \
         if measure else None
     res = dict(losses=[h[0] for h in hist],
-               step_ms=float(np.median([h[1] for h in hist[1:]])),
+               step_ms=float(np.median([h[1] for h in hist[1:] or hist])),
                peak_bytes=peak, by_tag=tags, rules=str(rules),
                block=None if split is None else
                list(split.block(batches[0]["tokens"].shape[1])),
@@ -6601,23 +6621,37 @@ def dr_qwen_train(rank: int, mesh, seed: int) -> dict:
 def dr_family_train(rank: int, mesh, seed: int) -> dict:
     """(f) zamba2-7b and rwkv6-1.6b at full width and DR_FAMILY_TRAIN's
     depth, LM loss, Adafactor on 2 x 2 under their train cells' rules
-    (each sequence in blocks over the model axis)."""
+    (each sequence in blocks over the model axis), key "f"; and (i), key
+    "i": DR_TP_STEPS of the same steps of the same model under
+    DR_TP_OVERRIDE (heads and ``ff`` over the model axis that cuts each
+    sequence), both against the same one-rank steps."""
     L, B, S, n = DR_FAMILY_TRAIN
-    out = {}
+    out = {"f": {}, "i": {}}
     for arch in DR_FAMILY:
         cfg = dataclasses.replace(mp_family_cfg(arch), n_layers=L)
         model = LM.init_params(seed, cfg)
         batches = [dict(item) for item, _ in zip(
             TokenStream(cfg.vocab_size, B, S, seed + 6), range(n))]
         alone = dr_alone(rank, cfg, model, batches, "lm")
-        res = dr_train(rank, mesh, cfg, model, batches, "lm",
-                       dr_rules("family", arch), alone, measure=False)
-        res.update(layers=L, batch=[B, S],
-                   full_params=sum(p.numel() for p in LM.init_params(
-                       seed, cfg, device="meta").parameters()))
-        out[arch] = res
-        del model
-        lm_free()
+        for case, over, steps in (("f", None, n),
+                                  ("i", DR_TP_OVERRIDE, DR_TP_STEPS)):
+            t0 = time.perf_counter()
+            if model is None:
+                model = LM.init_params(seed, cfg)
+            res = dr_train(rank, mesh, cfg, model, batches[:steps], "lm",
+                           dr_rules("family", arch, over), alone,
+                           measure=False)
+            res.update(layers=L, batch=[B, S],
+                       full_params=sum(p.numel() for p in LM.init_params(
+                           seed, cfg, device="meta").parameters()),
+                       seconds=time.perf_counter() - t0)
+            out[case][arch] = res
+            model = None
+            lm_free()
+        need = DR_TP_TAGS[arch] | {t + "_grad" for t in DR_TP_TAGS[arch]}
+        got = set(out["i"][arch]["by_tag"])
+        check(need <= got, f"(i) 2 x 2 {arch} steps: collectives by tag "
+              f"{sorted(got)} lack {sorted(need - got)}")
     return out
 
 
@@ -6828,27 +6862,44 @@ def dr_prefill(rank: int, mesh, seed: int) -> dict:
     """(e) each of DR_PREFILL_ARCHS prefilled on the 2 x 2 mesh under its
     prefill cell's rules (each rank its request and its block of the
     prompt) against one rank's prefill of the whole batch
-    (:func:`dr_prefill_one`)."""
+    (:func:`dr_prefill_one`), key "e"; and (i), key "i", each of
+    DR_TP_FAMILY under DR_TP_OVERRIDE too (its heads and ``ff`` over the
+    model axis that cuts the prompt) against the same one-rank logits."""
     from repro_torch.launch.dryrun import rules_for
-    out = {}
+    out = {"e": {}, "i": {}}
     for arch in DR_PREFILL_ARCHS:
         cfg = dr_prefill_cfg(arch)
-        out[arch] = dr_prefill_one(rank, mesh, seed, cfg,
-                                   rules_for(arch, DR_PREFILL_SHAPE),
-                                   dr_prefill_batch(cfg, seed),
-                                   warm=arch != LM_ARCH)
+        batch = dr_prefill_batch(cfg, seed)
+        out["e"][arch], alone = dr_prefill_one(
+            rank, mesh, seed, cfg, rules_for(arch, DR_PREFILL_SHAPE), batch,
+            warm=arch != LM_ARCH)
+        if arch not in DR_TP_FAMILY:
+            continue
+        t0 = time.perf_counter()
+        res, _ = dr_prefill_one(
+            rank, mesh, seed, cfg,
+            rules_for(arch, DR_PREFILL_SHAPE, DR_TP_OVERRIDE), batch,
+            warm=False, alone=alone)
+        got = set(res["all_gathers"]) | set(res["reduce_scatters"])
+        check(DR_TP_TAGS[arch] <= got, f"(i) 2 x 2 {arch} prefill: "
+              f"all-gathers {res['all_gathers']}, reduce-scatters "
+              f"{res['reduce_scatters']} lack "
+              f"{sorted(DR_TP_TAGS[arch] - got)}")
+        res["seconds"] = time.perf_counter() - t0
+        out["i"][arch] = res
     return out
 
 
 def dr_prefill_one(rank: int, mesh, seed: int, cfg, rules: dict,
-                   batch: dict, warm: bool) -> dict:
+                   batch: dict, warm: bool, alone=None) -> tuple:
     """``cfg``'s prefill of ``batch`` on the 2 x 2 mesh under ``rules``
-    against one rank's prefill of the whole batch: the last position's
-    logits of every rank within 1e-4·max|ref| (rwkv6 at FAM_F32_TOL)
-    with equal argmax, ms a prefill beside one rank's (timed once, or
-    after a warm call with ``warm``), peak bytes a rank beside one
-    rank's, all-gathers and reduce-scatters a forward by tag, and the
-    kernel launches the path made (none: no kernel is on it)."""
+    against one rank's prefill of the whole batch (``alone``, rank 0's
+    earlier result, or made here): the last position's logits of every
+    rank within 1e-4·max|ref| (rwkv6 at FAM_F32_TOL) with equal argmax,
+    ms a prefill beside one rank's (timed once, or after a warm call with
+    ``warm``), peak bytes a rank beside one rank's, all-gathers and
+    reduce-scatters a forward by tag, and the kernel launches the path
+    made (none: no kernel is on it) -> (those numbers, ``alone``)."""
     from repro_torch.distributed import batch as DB
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed import model_parallel as MP
@@ -6858,8 +6909,7 @@ def dr_prefill_one(rank: int, mesh, seed: int, cfg, rules: dict,
     arch = cfg.name
     step = make_prefill_step(cfg)
     t0 = time.perf_counter()
-    alone = None
-    if rank == 0:
+    if rank == 0 and alone is None:
         whole = LM.init_params(seed, cfg)
         alone = dr_timed(lambda: step(whole, batch), warm=True)
         del whole
@@ -6924,7 +6974,7 @@ def dr_prefill_one(rank: int, mesh, seed: int, cfg, rules: dict,
               f" hold no sequence-block exchange")
         res.update(single_ms=single_ms, single_peak_bytes=single_peak,
                    max_abs_err=max(errs), max_logit=scale, tol=tol)
-    return res
+    return res, alone
 
 
 def dr_sptp_cfg(arch: str, sig: bool = False):
@@ -6975,7 +7025,7 @@ def dr_sptp(rank: int, mesh, seed: int) -> dict:
     out = {"train": res}
     for a in DR_SPTP:
         cfg = dr_sptp_cfg(a)
-        pre = dr_prefill_one(rank, mesh, seed, cfg, rules_for(
+        pre, _ = dr_prefill_one(rank, mesh, seed, cfg, rules_for(
             a, DR_PREFILL_SHAPE, DR_SPTP_OVERRIDE),
             dr_prefill_batch(cfg, seed, DR_SPTP_PREFILL), warm=False)
         check({"sp_tp_in", "sp_moe_in"} <= set(pre["all_gathers"])
@@ -7177,7 +7227,9 @@ def dr_train_line(r: dict) -> str:
             f"{np.round(r['single_losses'], 6).tolist()}; first-step "
             f"gradients max |err| {r['grad_max_abs_err']:.2e}, within "
             f"1e-3·|g| + {r['grad_atol']}·max|g| (least atol "
-            f"{r['grad_atol_needed']:.2e}); step {r['step_ms']:.1f} ms (one "
+            f"{r['grad_atol_needed']:.2e}); "
+            f"{'step' if len(r['losses']) > 1 else 'its first step'} "
+            f"{r['step_ms']:.1f} ms (one "
             f"rank alone {r['single_step_ms']:.1f} ms; ranks share the card:"
             f" not a speedup); peak {r['peak_bytes']} bytes a rank against "
             f"one rank's {r['single_peak_bytes']} (its model alone on the "
@@ -7189,9 +7241,10 @@ def phase_dryrun_mp(seed: int) -> dict:
     gloo world, whisper's model axis served and trained, Adafactor on
     sharded parameters, decode under the dry run's rules, (e) the
     prefill under the dry run's prefill rules, each prompt in blocks over
-    the model axis, (g) Megatron sequence parallelism, and (h)
-    phi3.5-moe's decode_32k cell, whose dispatch group straddles the data
-    ranks."""
+    the model axis, (g) Megatron sequence parallelism, (h) phi3.5-moe's
+    decode_32k cell, whose dispatch group straddles the data ranks, and
+    (i) the hybrid, rwkv and encdec families with their heads and ``ff``
+    over the model axis that cuts each sequence."""
     import queue as queue_mod
     t0 = time.perf_counter()
     ctx = torch.multiprocessing.get_context("spawn")
@@ -7244,7 +7297,7 @@ def phase_dryrun_mp(seed: int) -> dict:
           f"launches a rank "
           f"{[r['qwen_train']['launches_per_rank'] for r in worlds[4]]}",
           flush=True)
-    for arch, f in r4["family_train"].items():
+    for arch, f in r4["family_train"]["f"].items():
         print(f"[dryrun_mp] (f) 2 x 2 {arch} at full width, depth "
               f"{f['layers']}, batch {f['batch']} (sequences, tokens), LM "
               f"loss, Adafactor {len(f['losses'])} steps under {f['rules']} "
@@ -7276,7 +7329,7 @@ def phase_dryrun_mp(seed: int) -> dict:
           f"on one rank alone); cache bytes a rank "
           f"{d['rules_for_cp_cache_bytes']} of "
           f"{d['whole_cp_cache_bytes']} whole", flush=True)
-    for arch, e in r4["prefill"].items():
+    for arch, e in r4["prefill"]["e"].items():
         print(f"[dryrun_mp] (e) 2 x 2 {arch} prefill (layers {e['layers']},"
               f" batch {e['batch']}) under rules_for({arch}, "
               f"{DR_PREFILL_SHAPE}) = {e['rules']}: each rank its request "
@@ -7291,7 +7344,7 @@ def phase_dryrun_mp(seed: int) -> dict:
               f"against one rank's {e['single_peak_bytes']}; "
               f"{e['local_params']} parameters on rank 0; all-gathers a "
               f"forward by tag {e['all_gathers']}; kernel launches "
-              f"{[r['prefill'][arch]['launches'] for r in worlds[4]]}",
+              f"{[r['prefill']['e'][arch]['launches'] for r in worlds[4]]}",
               flush=True)
     g = r4["sptp"]
     t = g["train"]
@@ -7339,6 +7392,43 @@ def phase_dryrun_mp(seed: int) -> dict:
           f"{h['single_peak_bytes']}; {h['moe_pos_per_step']:g} moe_pos "
           f"all-gathers a step a rank; {h['local_params']} parameters on "
           f"rank 0", flush=True)
+    for arch, t in r4["family_train"]["i"].items():
+        f = r4["family_train"]["f"][arch]
+        print(f"[dryrun_mp] (i) 2 x 2 {arch} at full width, depth "
+              f"{t['layers']}, batch {t['batch']}, LM loss, Adafactor "
+              f"{len(t['losses'])} of (f)'s steps under {t['rules']} (heads "
+              f"and ff over the model axis that cuts each sequence; rank 0's "
+              f"block {t['block']}), against (f)'s one-rank steps: "
+              f"{dr_train_line(t)}; the predicted tags "
+              f"{sorted(DR_TP_TAGS[arch])} and their backward present; (f) "
+              f"on the same mesh without the override: step "
+              f"{f['step_ms']:.1f} ms, peak {f['peak_bytes']} bytes a rank, "
+              f"{f['local_params']} parameters on rank 0; here "
+              f"{t['local_params']} of {t['full_params']} parameters on rank "
+              f"0; {t['seconds']:.1f} s", flush=True)
+    for arch, e in r4["prefill"]["i"].items():
+        f = r4["prefill"]["e"][arch]
+        print(f"[dryrun_mp] (i) 2 x 2 {arch} prefill (layers {e['layers']},"
+              f" batch {e['batch']}) under rules_for({arch}, "
+              f"{DR_PREFILL_SHAPE}, {DR_TP_OVERRIDE}) = {e['rules']}: each "
+              f"rank its request, its block {e['block']} of the prompt and "
+              f"its heads and ff columns over the whole prompt; "
+              f"last-position logits of every rank within "
+              f"{e['tol']}·max|ref| of (e)'s one rank's (max |err| "
+              f"{e['max_abs_err']:.2e}, max |logit| {e['max_logit']:.2e}), "
+              f"argmax equal; {e['ms']:.1f} ms a prefill "
+              f"(its first call; "
+              f"one rank alone {e['single_ms']:.1f} ms; (e) on the same mesh"
+              f" {f['ms']:.1f} ms after a warm call; ranks share the card: "
+              f"not a speedup); peak {e['peak_bytes']} bytes a rank against "
+              f"one rank's {e['single_peak_bytes']} and (e)'s "
+              f"{f['peak_bytes']}; {e['local_params']} parameters on rank 0 "
+              f"((e): {f['local_params']}); all-gathers a forward by tag "
+              f"{e['all_gathers']}, reduce-scatters {e['reduce_scatters']} "
+              f"(predicted tags {sorted(DR_TP_TAGS[arch])} present); kernel "
+              f"launches "
+              f"{[r['prefill']['i'][arch]['launches'] for r in worlds[4]]}; "
+              f"{e['seconds']:.1f} s", flush=True)
     w = r4["whisper_train"]
     dry = {"whisper": dr_compare("whisper", predicted["whisper"],
                                  w["seq"]["measured"], w["seq"]["by_tag"]),

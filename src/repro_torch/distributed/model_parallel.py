@@ -555,37 +555,28 @@ def grad_reduction(placement: Placement | None, mesh,
     return tuple(a for a in batch_axes if a not in held), over
 
 
-TP_REFUSED_FAMILIES = ("hybrid", "rwkv", "encdec")
-
-
-def refuse_tensor_parallel(params, seq, where: str, family: str) -> None:
+def refuse_tensor_parallel(params, seq, where: str) -> None:
     """What of tensor parallelism under a sequence cut over the model axis
-    is not ported: the ``hybrid``, ``rwkv`` and ``encdec`` families with
-    weights split over that axis (Mamba2's segments, the WKV state and
-    whisper's cross attention), and a sequence cut over the model axis and
-    other axes (a split that only partly overlaps it).  The vocabulary
+    is not ported: a sequence cut over the model axis and other axes with
+    weights split over the model axis (a split that only partly overlaps
+    the sequence's).  Every family runs a sequence cut over the model axis
+    alone with its weights split over it (Megatron sequence parallelism,
+    :func:`seq_tp`; Mamba2 reads its split weights whole).  The vocabulary
     is excepted (``transformer.embed`` and ``vocab_logits`` handle it);
     ``where`` names the path refused."""
     if seq is None or MODEL not in seq.axes or \
+            tuple(seq.axes) == (MODEL,) or \
             not isinstance(params, torch.nn.Module):
         return
     from .batch import ITEM_21
     split = sorted(n for n, pl in placements(params).items()
                    if MODEL in pl.spec
                    and n.split(".")[-1] not in ("embed", "lm_head"))
-    if not split:
-        return
-    what = f"{split[0]} (and {len(split) - 1} more) tensor-parallel over it"
-    if family in TP_REFUSED_FAMILIES:
+    if split:
         raise NotImplementedError(
-            f"{where} of the {family} family with the sequence cut over the "
-            f"model axis and {what}: {ITEM_21} is not ported; use "
-            f"rules_for's train and prefill rules (heads, kv_heads and ff "
-            f"None)")
-    if tuple(seq.axes) != (MODEL,):
-        raise NotImplementedError(
-            f"{where} with the sequence cut over {seq.axes} and {what}, "
-            f"axes that only partly overlap: {ITEM_21} is not ported")
+            f"{where} with the sequence cut over {seq.axes} and {split[0]} "
+            f"(and {len(split) - 1} more) tensor-parallel over the model "
+            f"axis, axes that only partly overlap: {ITEM_21} is not ported")
 
 
 def block_share(placement: Placement | None, mesh) -> float:

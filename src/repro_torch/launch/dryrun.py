@@ -281,7 +281,12 @@ def _stats(records) -> dict:
 # follow the block of the sequence a rank runs: under a sequence split
 # over m ranks the runs are m times POLY_SEQ's lengths, so that each
 # rank's block is POLY_SEQ's (shorter blocks leave the peak on the
-# optimizer's, not on the line).
+# optimizer's, not on the line).  Where the WKV heads are split over the
+# axes that cut the sequence (Megatron sequence parallelism) each rank
+# scans the group's whole sequences, and the runs are POLY_SEQ's: their
+# blocks are too short to put the peak on the line, so such a cell's
+# peak is not predicted (None), and the runs are checked to have run no
+# WKV state fold (rwkv_block's dispatch, not scan_blocks', decides).
 POLY_FAMILIES = ("rwkv",)
 POLY_SEQ = (32, 64, 128)
 
@@ -297,6 +302,24 @@ def seq_blocks(rules: dict, mesh, seq: int) -> int:
         if a in mesh.mesh_dim_names:
             m *= mesh.shape[mesh.mesh_dim_names.index(a)]
     return m if seq % m == 0 else 1
+
+
+def scan_blocks(cfg, rules: dict, mesh, seq: int) -> int:
+    """The number of blocks of a sequence of ``seq`` of which a rank's
+    recurrence scans one: :func:`seq_blocks`'s, or 1 where the rwkv
+    family's heads (its ``"ff"`` rule) are split over the axes that cut
+    the sequence and divide them (each rank then scans the whole
+    sequences for its heads)."""
+    m = seq_blocks(rules, mesh, seq)
+
+    def names(axes):
+        return () if axes is None else (axes,) if isinstance(axes, str) \
+            else tuple(axes)
+    if m > 1 and cfg.family == "rwkv" and \
+            names(rules.get("ff")) == names(rules.get("seq")) and \
+            (cfg.d_model // cfg.rwkv_head_dim) % m == 0:
+        return 1
+    return m
 
 
 def _extrapolate(runs: list, seqs: tuple, seq: int) -> dict:
@@ -374,8 +397,10 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
 
     An rwkv train or prefill cell whose blocks a rank are longer than
     ``POLY_SEQ[-1]`` tokens runs at the three lengths of ``POLY_SEQ``
-    times the number of blocks (:func:`seq_blocks`) and is extrapolated
-    (``extrapolated_from_seq`` in the result: the runs' lengths)."""
+    times the number of blocks a rank's scan runs one of
+    (:func:`scan_blocks`) and is extrapolated (``extrapolated_from_seq``
+    in the result: the runs' lengths); where a rank scans whole sequences
+    of a cut one its peak (``temp_size_bytes``) is None."""
     cfg = cfg if cfg is not None else get_config(arch)
     ok, why = SP.cell_is_runnable(arch, shape)
     if not ok:
@@ -385,7 +410,8 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
         rules = rules_for(arch, shape, rule_overrides)
     kind = SP.SHAPES[shape]["kind"]
     seq = SP.SHAPES[shape]["seq"]
-    lengths = tuple(s * seq_blocks(rules, amesh, seq) for s in POLY_SEQ)
+    blocks = scan_blocks(cfg, rules, amesh, seq)
+    lengths = tuple(s * blocks for s in POLY_SEQ)
     if cfg.family in POLY_FAMILIES and kind != "decode" and batch is None \
             and params is None and seq > lengths[-1]:
         runs = []
@@ -400,7 +426,21 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
                     rules=rules))
             finally:
                 del SP.SHAPES[name]
+        if ("sp_state" in runs[0]["collectives_by_tag"]) != (blocks > 1):
+            raise RuntimeError(
+                f"{arch}: the WKV scan ran {'' if blocks > 1 else 'no '}"
+                f"state fold where scan_blocks gives {blocks} blocks: the "
+                f"dry run's runs do not follow rwkv_block's dispatch")
         res = _extrapolate(runs, lengths, seq)
+        if blocks < seq_blocks(rules, amesh, seq):
+            mem = res["memory_analysis"]
+            mem["temp_size_bytes"] = None
+            mem["temp_size_note"] = (
+                f"not predicted: a rank scans whole sequences of "
+                f"{list(lengths)} tokens, its block of them "
+                f"{seq_blocks(rules, amesh, seq)} times shorter, and at "
+                f"those lengths the peak sits on the weights' temporaries, "
+                f"not on the gathered rows")
         model_flops = SP.flops_estimate(cfg, shape)
         res.update(shape=shape, model_flops_global=model_flops,
                    useful_flops_ratio=model_flops / max(

@@ -39,9 +39,24 @@ attends causally over the gathered tokens, and the cross-attention
 gathers the decoder's queries (448 rows, where the frames are 32k),
 attends them over this rank's block of the frames, merges the blocks'
 softmax partials (``layers.combine_blocks``) and keeps its block's query
-rows.  Every exchange is differentiable; a train step whose frames are
-cut and whose tokens are not (so that every rank of the group computes
-the same decoder) raises.
+rows.  Where the model axis that cuts them also splits the heads and
+the ``ff`` columns (Megatron sequence parallelism, ``model_parallel.
+seq_tp``), self-attention and the MLPs gather their block's rows and
+reduce-scatter their row-parallel sums (``layers.attention``,
+``layers.mlp``), and so does the cross-attention: :func:`cross_kv`
+gathers the encoder's block of frames once a layer and projects this
+rank's KV heads over every frame, and the decoder's block of tokens is
+gathered for the queries of this rank's heads, which attend over every
+frame, ``wo``'s partial sums reduce-scattered back to the token block.
+In a prefill whose frames are cut and whose tokens are not, the queries
+are the same on every rank of the group and only the K/V side gathers.
+Every exchange is differentiable.  Two train steps raise: one whose
+frames are cut and whose tokens are not (every rank of the group then
+computes the same decoder), and one whose tokens are cut over the model
+axis and whose frames are not while encoder weights are split over it
+(the encoder's tensor-parallel backward takes its output's gradient as
+the same on every rank of the group, where each holds its tokens'
+share).
 """
 from __future__ import annotations
 
@@ -51,8 +66,10 @@ import torch
 from ..device import resolve_device
 from ..distributed import batch as DB
 from ..distributed.ctx import current_mesh, current_rules
-from ..distributed.model_parallel import (cache_split, copy_to, local_cache,
-                                          reduce_from, seq_gather)
+from ..distributed.model_parallel import (MODEL, cache_split, copy_to,
+                                          local_cache, placements,
+                                          seq_gather, seq_tp, tp_enter,
+                                          tp_exit)
 from .config import ModelConfig
 from .layers import (ParamTree, _attend_cache, _full, _init, _sdpa, _weight,
                      _zeros, as_generator, attention, combine_blocks,
@@ -127,7 +144,12 @@ def _cross_attention(p, x: torch.Tensor, enc_kv, cfg,
     block of the frames, combined over its group as ``layers.attention``
     combines a self-attention cache.  Where ``x`` is itself a block of a
     prefill's tokens, the tokens' queries are gathered first and this
-    block's rows of the output kept."""
+    block's rows of the output kept; where the heads are split over the
+    axis that cuts the tokens (``model_parallel.seq_tp``), the block's
+    rows are gathered instead (``tp_enter``), this rank's heads attend
+    over every frame (``enc_kv`` and ``seq`` None, as :func:`cross_kv`
+    returns them) and ``wo``'s row-parallel sum is reduce-scattered
+    back to the block (``tp_exit``)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     tp = heads_split(p, cfg)
@@ -140,10 +162,11 @@ def _cross_attention(p, x: torch.Tensor, enc_kv, cfg,
         H = cfg.n_heads // sp.size
         if k.shape[2] != Hkv and not every:   # the cross K/V of every head
             k, v = (t.narrow(2, kv0, Hkv) for t in (k, v))
-    q = (copy_to(x, sp) @ _weight(p, "wq", sp).to(x.dtype)).reshape(
-        B, S, H, hd)
-    k, v = k.to(x.dtype), v.to(x.dtype)
     qseq = prompt_split(x)
+    whole = seq_tp(sp, qseq)
+    x = tp_enter(x, sp, whole)
+    q = (x @ _weight(p, "wq", sp).to(x.dtype)).reshape(B, x.shape[1], H, hd)
+    k, v = k.to(x.dtype), v.to(x.dtype)
     if seq is None:
         out = _sdpa(q, k, v, causal=False)
     elif qseq is None:
@@ -153,26 +176,41 @@ def _cross_attention(p, x: torch.Tensor, enc_kv, cfg,
         out = combine_blocks(*decode_partials(q, k, v), seq, tag="sp_cross")
         out = out.narrow(1, qseq.index * S, S).to(v.dtype).reshape(
             B, S, H * hd)
-    return reduce_from(out @ _weight(p, "wo", sp).to(x.dtype), sp)
+    return tp_exit(out @ _weight(p, "wo", sp).to(x.dtype), sp, whole)
 
 
-def cross_kv(p, enc_out: torch.Tensor, cfg, heads: int | None = None):
+def cross_kv(p, enc_out: torch.Tensor, cfg, heads: int | None = None,
+             seq=None):
     """The cross K/V of ``enc_out``, each (B, F, Hkv, hd): every KV head,
     or under a heads split this rank's (the KV groups of its query heads,
     from the replicated ``wk``/``wv``); ``heads=cfg.n_kv_heads`` asks for
-    every head."""
-    B, F, _ = enc_out.shape
+    every head.  ``seq`` is the split of which ``enc_out`` is a block of
+    the frames in a prefill or a train step: where the heads are split
+    over its axis (``model_parallel.seq_tp``) the blocks are gathered
+    (``tp_enter``) and the K/V are of every frame.  Where the ranks of
+    the heads' split hold different frames or tokens, nothing is copied
+    to the group: each rank's gradient of ``wk``/``wv`` is its heads'
+    share, which the step sums.  -> ((k, v), the split of the frames the
+    K/V are a block of: ``seq``, or None where they are of every
+    frame), the pair and the split :func:`_cross_attention` takes."""
+    B = enc_out.shape[0]
     hd = cfg.resolved_head_dim
     tp = None if heads == cfg.n_kv_heads else heads_split(p, cfg)
     sp, kv0, Hkv = (None, 0, cfg.n_kv_heads) if tp is None else tp
+    whole = seq_tp(sp, seq)
+    differ = whole is not None or seq_tp(sp, prompt_split(enc_out)) \
+        is not None
+    cp = None if differ else sp
 
     def w(key):
-        return copy_to(_full(p, key), sp)[..., kv0 * hd:(kv0 + Hkv) * hd] \
+        return copy_to(_full(p, key), cp)[..., kv0 * hd:(kv0 + Hkv) * hd] \
             .to(enc_out.dtype)
 
-    x = copy_to(enc_out, sp)
+    x = tp_enter(enc_out, cp, whole)
+    F = x.shape[1]
     return ((x @ w("wk")).reshape(B, F, Hkv, hd),
-            (x @ w("wv")).reshape(B, F, Hkv, hd))
+            (x @ w("wv")).reshape(B, F, Hkv, hd)), \
+        None if whole is not None else seq
 
 
 def encode(params, cfg: ModelConfig, frames: torch.Tensor,
@@ -219,10 +257,10 @@ def decode_train(params, cfg: ModelConfig, enc_out: torch.Tensor, tokens,
                          rms_norm(h, p["ln_self"], cfg.norm_eps), cfg,
                          positions, causal=True)
         h = h + a
-        kv = cross_kv(p["cross_attn"], enc_out, cfg)
-        h = h + _cross_attention(p["cross_attn"],
-                                 rms_norm(h, p["ln_cross"], cfg.norm_eps),
-                                 kv, cfg, enc_seq)
+        ca = p["cross_attn"]
+        kv, frames = cross_kv(ca, enc_out, cfg, seq=enc_seq)
+        h = h + _cross_attention(ca, rms_norm(h, p["ln_cross"], cfg.norm_eps),
+                                 kv, cfg, frames)
         return h + mlp(p["mlp"], rms_norm(h, p["ln_mlp"], cfg.norm_eps),
                        cfg.act)
 
@@ -230,6 +268,30 @@ def decode_train(params, cfg: ModelConfig, enc_out: torch.Tensor, tokens,
     for p in params["dec_layers"]:
         x = fn(p, x)
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def _refuse_mixed_split(params, enc_seq, seq) -> None:
+    """Training where only one of the frames and the tokens is cut in a
+    way the encoder's backward cannot take: the frames cut and the tokens
+    whole, or the tokens cut over the model axis and the frames not while
+    an encoder weight is split over that axis."""
+    if enc_seq is not None and seq is None:
+        raise NotImplementedError(
+            f"training on frames cut over {enc_seq.axes} with the "
+            f"decoder's tokens whole (a sequence the split does not "
+            f"divide): {DB.ITEM_21} is not ported")
+    if seq is None or MODEL not in seq.axes or \
+            (enc_seq is not None and MODEL in enc_seq.axes) or \
+            not isinstance(params, torch.nn.Module):
+        return
+    split = sorted(n for n, pl in placements(params).items()
+                   if n.startswith("enc_layers.") and MODEL in pl.spec)
+    if split:
+        raise NotImplementedError(
+            f"training on tokens cut over {seq.axes} with the frames not "
+            f"cut over the model axis (a count the split does not divide) "
+            f"and {split[0]} (and {len(split) - 1} more) tensor-parallel "
+            f"over it: {DB.ITEM_21} is not ported")
 
 
 def placed_hidden(params, cfg: ModelConfig, batch: dict,
@@ -242,16 +304,14 @@ def placed_hidden(params, cfg: ModelConfig, batch: dict,
     the tokens' sequence or None).  A plain batch is whole, or the block
     of an enclosing scope's split."""
     frames, tokens = batch["frames"], batch["tokens"]
-    with DB.rows_scope(frames):
-        enc_seq = DB.current_seq()
-        enc = encode(params, cfg, DB.to_local(frames), remat=remat)
     with DB.rows_scope(tokens):
         seq = DB.current_seq()
-        if enc_seq is not None and seq is None and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"training on frames cut over {enc_seq.axes} with the "
-                f"decoder's tokens whole (a sequence the split does not "
-                f"divide): {DB.ITEM_21} is not ported")
+    with DB.rows_scope(frames):
+        enc_seq = DB.current_seq()
+        if torch.is_grad_enabled():
+            _refuse_mixed_split(params, enc_seq, seq)
+        enc = encode(params, cfg, DB.to_local(frames), remat=remat)
+    with DB.rows_scope(tokens):
         out = decode_train(params, cfg, enc, DB.to_local(tokens),
                            remat=remat, enc_seq=enc_seq)
         if head is not None:
@@ -326,7 +386,7 @@ def prefill_cross(params, cfg: ModelConfig, enc_out: torch.Tensor,
     if seq is not None:
         enc_out = enc_out.narrow(1, *seq.block(enc_out.shape[1]))
     heads = cache["cross_k"].shape[3]
-    ks, vs = zip(*(cross_kv(p["cross_attn"], enc_out, cfg, heads)
+    ks, vs = zip(*(cross_kv(p["cross_attn"], enc_out, cfg, heads)[0]
                    for p in params["dec_layers"]))
     out = cache.copy()
     out.update(cross_k=torch.stack(ks).to(cache["cross_k"].dtype),

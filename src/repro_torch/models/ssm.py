@@ -14,12 +14,12 @@ flat over its (z, xBC, dt) columns by the reference's rule, which cuts
 across the segments, so each rank projects onto its columns, the
 projections are gathered (activations, not the weight) and the block
 runs whole; ``w_out`` is row-parallel over ``d_in`` (each rank its rows
-of the gated, normed output, summed over the model group).  Its decode caches are this
-rank's blocks (conv channels, SSM heads), gathered for the step and cut
-back.  RWKV6 runs its WKV heads split over the model axis (``w_r``,
-``w_k``, ``w_v``, ``w_g`` column-parallel, ``w_o`` row-parallel, the WKV
-state cached per head) and its channel mix as a column/row-parallel pair,
-``w_cr``'s gate columns gathered.
+of the gated, normed output, summed over the model group).  Its decode
+caches are this rank's blocks (conv channels, SSM heads), gathered for
+the step and cut back.  RWKV6 runs its WKV heads split over the model
+axis (``w_r``, ``w_k``, ``w_v``, ``w_g`` column-parallel, ``w_o``
+row-parallel, the WKV state cached per head) and its channel mix as a
+column/row-parallel pair, ``w_cr``'s gate columns gathered.
 
 In a prefill or a train step whose sequence is cut (``distributed.batch.
 Rows.seq``) each rank runs its block: the causal convolution and the
@@ -32,6 +32,22 @@ which by linearity equals a scan started from it.  The gathers are
 differentiable (``model_parallel.seq_gather``): the gradient of an
 incoming state reaches the earlier blocks through their reduce-scatter,
 and the fold is plain torch.
+
+Where the model axis that cuts the sequence also splits the weights
+(``model_parallel.seq_tp``): Mamba2 reads ``w_in`` and ``w_out`` whole
+(``p.full``: one gather of each a layer, whose backward reduce-scatters
+the gradient) and runs its block as above, so that no rank computes
+another's convolution or scan.  RWKV6 runs Megatron sequence parallelism,
+as attention and the MLP do: the time mix gathers the block's normed
+rows over the group (``model_parallel.tp_enter``), shifts them and runs
+the decay LoRA over the group's whole sequences from position 0, scans
+its WKV heads over them from a zero state (no state crosses ranks: a
+rank's heads are its own) and reduce-scatters ``w_o``'s row-parallel sum
+back to the block (``tp_exit``); the channel mix gathers its rows the
+same way for the ``w_ck`` / ``w_cv`` pair, and computes its gate on the
+block with ``w_cr`` read whole.  A weight read on the gathered rows
+keeps its partial gradient there, which the step sums over the model
+axis once.
 """
 from __future__ import annotations
 
@@ -40,7 +56,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..distributed.model_parallel import (copy_to, gather_from, reduce_from,
-                                          seq_gather)
+                                          seq_gather, seq_tp, tp_enter,
+                                          tp_exit)
 from .layers import _full, _init, _split, _weight, _zeros, halo_rows, \
     model_axis, prompt_split, rms_norm
 
@@ -215,8 +232,9 @@ def mamba_block(p, x: torch.Tensor, cfg, chunk: int = 128, cache=None):
     d_in, nh = mamba_dims(cfg)
     hd = cfg.mamba_head_dim
     ms = model_axis(p, "w_in", "w_out")
+    seq = prompt_split(x) if cache is None else None
     sp = _split(p, "w_in", 1)
-    if sp is None:
+    if sp is None or seq_tp(sp, seq) is not None:
         proj = x @ _full(p, "w_in").to(x.dtype)
     else:       # column-parallel, the projection gathered whole
         proj = gather_from(copy_to(x, sp) @ p["w_in"].to(x.dtype), sp,
@@ -224,7 +242,6 @@ def mamba_block(p, x: torch.Tensor, cfg, chunk: int = 128, cache=None):
     z, xBC, dt = torch.split(proj, [d_in, d_in + 2 * ds, nh], dim=-1)
     conv_w, conv_b = _full(p, "conv_w"), _full(p, "conv_b")
 
-    seq = prompt_split(x) if cache is None else None
     if cache is None:
         halo = None if seq is None else halo_rows(
             xBC, conv_w.shape[0] - 1, seq, "sp_conv")
@@ -263,7 +280,7 @@ def mamba_block(p, x: torch.Tensor, cfg, chunk: int = 128, cache=None):
     y = y.reshape(B, S, d_in).to(x.dtype) * F.silu(z)
     y = rms_norm(y, _full(p, "norm"), cfg.norm_eps)
     sp = _split(p, "w_out", 0)
-    if sp is None:
+    if sp is None or seq_tp(sp, seq) is not None:
         return y @ _full(p, "w_out").to(x.dtype), new_cache
     start, n = sp.block(d_in)
     y = copy_to(y, sp)[..., start:start + n]
@@ -365,37 +382,52 @@ def rwkv_block(p, x_in: torch.Tensor, cfg, cache=None):
     x = rms_norm(x_in, _full(p, "ln1"), cfg.norm_eps)
     seq = prompt_split(x_in) if cache is None else None
 
-    def prev_row(h, key):
-        """The row before the block: the cache's, the previous block's
-        last, or zeros at the prompt's start."""
+    def enter(h, sp, key):
+        """The rows a mix split over ``sp`` runs on and their token
+        shift: the group's gathered whole sequences, shifted from a zero
+        row, where ``sp`` is over the axis that cuts them
+        (``model_parallel.seq_tp``); else ``h`` itself, shifted from the
+        cache's row, the previous block's last or zeros -> (rows,
+        shifted rows, the split to copy them to, the gathered split or
+        None)."""
+        whole = seq_tp(sp, seq)
+        if whole is not None:
+            rows = tp_enter(h, sp, whole)
+            return rows, _token_shift(rows, rows.new_zeros((B, d))), None, \
+                whole
         if cache is not None:
-            return cache[key].to(h.dtype)
-        if seq is not None:
-            return halo_rows(h, 1, seq, "sp_shift")[:, 0]
-        return h.new_zeros((B, d))
+            prev = cache[key].to(h.dtype)
+        elif seq is not None:
+            prev = halo_rows(h, 1, seq, "sp_shift")[:, 0]
+        else:
+            prev = h.new_zeros((B, d))
+        return h, _token_shift(h, prev), sp, None
 
-    xs = _token_shift(x, prev_row(x, "shift_a"))
+    def mix(a, shifted, mu):
+        return a + (shifted - a) * _full(p, mu).to(x.dtype)[None, None]
 
-    def lerp(mu):
-        return x + (xs - x) * _full(p, mu).to(x.dtype)[None, None]
-
-    # the WKV heads split over the model axis (this rank's d / M channels)
+    # the WKV heads split over the model axis (this rank's d / M channels);
+    # over the axis that cuts the sequence the time mix runs on the
+    # group's whole sequences, nothing copied to the group
     sp = _split(p, "w_r", 1)
     if sp is not None and (nh % sp.size or _split(p, "w_o", 0) is None):
         sp = None
+    xt, xs, cp, whole = enter(x, sp, "shift_a")
+    St = xt.shape[1]
     c0, dl = (0, d) if sp is None else sp.block(d)
     h0, nhl = c0 // hk, dl // hk
 
     def proj(mu, key):
-        return copy_to(lerp(mu), sp) @ _weight(p, key, sp).to(x.dtype)
+        return copy_to(mix(xt, xs, mu), cp) @ _weight(p, key, sp).to(x.dtype)
 
     r, k = proj("mu_r", "w_r"), proj("mu_k", "w_k")
     v, g = proj("mu_v", "w_v"), proj("mu_g", "w_g")
     # data-dependent decay (the Finch contribution)
-    wl = torch.tanh(lerp("mu_w") @ _full(p, "w_lora_a").to(x.dtype)) \
+    wl = torch.tanh(mix(xt, xs, "mu_w")
+                    @ _full(p, "w_lora_a").to(x.dtype)) \
         @ _full(p, "w_lora_b").to(x.dtype)
     w = torch.exp(-torch.exp((_full(p, "w0")[None, None] + wl).float()))
-    w = copy_to(w, sp)[..., c0:c0 + dl]
+    w = copy_to(w, cp)[..., c0:c0 + dl]
 
     if cache is not None:
         state = cache["wkv"]
@@ -407,37 +439,40 @@ def rwkv_block(p, x_in: torch.Tensor, cfg, cache=None):
     else:
         state = torch.zeros((B, nhl, hk, hk), dtype=torch.float32,
                             device=x.device)
-    u = copy_to(_full(p, "u"), sp)[h0:h0 + nhl]
-    rkvw = [t.reshape(B, S, nhl, hk) for t in (r, k, v, w)]
-    y, S_fin = _wkv_scan(*rkvw, u, state) if seq is None else \
-        _wkv_blocks(*rkvw, u, state, seq)
-    y = y.reshape(B, S, dl).to(x.dtype)
+    u = copy_to(_full(p, "u"), cp)[h0:h0 + nhl]
+    rkvw = [t.reshape(B, St, nhl, hk) for t in (r, k, v, w)]
+    if seq is None or whole is not None:
+        y, S_fin = _wkv_scan(*rkvw, u, state)
+    else:
+        y, S_fin = _wkv_blocks(*rkvw, u, state, seq)
+    y = y.reshape(B, St, dl).to(x.dtype)
     # per-head group norm
-    yh = y.reshape(B, S, nhl, hk).float()
+    yh = y.reshape(B, St, nhl, hk).float()
     mu = yh.mean(-1, keepdim=True)
     var = yh.var(-1, unbiased=False, keepdim=True)
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
-    ln_x = copy_to(_full(p, "ln_x"), sp)[c0:c0 + dl]
-    y = (yh.reshape(B, S, dl) * (1.0 + ln_x[None, None])).to(x.dtype)
+    ln_x = copy_to(_full(p, "ln_x"), cp)[c0:c0 + dl]
+    y = (yh.reshape(B, St, dl) * (1.0 + ln_x[None, None])).to(x.dtype)
     y = y * F.silu(g)
-    att = reduce_from(y @ _weight(p, "w_o", sp).to(x.dtype), sp)
+    att = tp_exit(y @ _weight(p, "w_o", sp).to(x.dtype), sp, whole)
 
     # channel mix on the post-attention residual stream
     res = x_in + att
     x2 = rms_norm(res, _full(p, "ln2"), cfg.norm_eps)
-    xs2 = _token_shift(x2, prev_row(x2, "shift_c"))
-
-    def lerp2(mu):
-        return x2 + (xs2 - x2) * _full(p, mu).to(x.dtype)[None, None]
-
     csp = _split(p, "w_ck", 1)
     if csp is not None and _split(p, "w_cv", 0) is None:
         csp = None
-    ck = copy_to(lerp2("mu_ck"), csp) @ _weight(p, "w_ck", csp).to(x.dtype)
-    cv = reduce_from(torch.square(F.relu(ck))
-                     @ _weight(p, "w_cv", csp).to(x.dtype), csp)
+    x2t, xs2t, ccp, cwhole = enter(x2, csp, "shift_c")
+    # the gate's rows: this block's of the shifted whole sequences
+    xs2 = xs2t if cwhole is None else xs2t.narrow(1, cwhole.index * S, S)
+    ck = copy_to(mix(x2t, xs2t, "mu_ck"), ccp) \
+        @ _weight(p, "w_ck", csp).to(x.dtype)
+    cv = tp_exit(torch.square(F.relu(ck))
+                 @ _weight(p, "w_cv", csp).to(x.dtype), csp, cwhole)
     rsp = _split(p, "w_cr", 1)
-    cr = torch.sigmoid(copy_to(lerp2("mu_cr"), rsp)
+    if seq_tp(rsp, seq) is not None:     # the gate of the block: w_cr whole
+        rsp = None
+    cr = torch.sigmoid(copy_to(mix(x2, xs2, "mu_cr"), rsp)
                        @ _weight(p, "w_cr", rsp).to(x.dtype))
     ffn = gather_from(cr, rsp, dim=-1) * cv
 

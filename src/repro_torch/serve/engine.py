@@ -302,8 +302,7 @@ def prefill_hidden(params, cfg: ModelConfig, batch: dict,
     of the sequence under the ``"seq"`` rule) runs this rank's block
     inside a ``rows_scope`` of it; whisper's encoder runs inside the
     frames' scope and its decoder inside the tokens'."""
-    MP.refuse_tensor_parallel(params, DB.batch_seq(batch), "a prefill",
-                              cfg.family)
+    MP.refuse_tensor_parallel(params, DB.batch_seq(batch), "a prefill")
     if cfg.family == "encdec":
         return encdec.placed_hidden(params, cfg, batch, remat)
     hidden, _, seq = T.placed_backbone(params, cfg, batch, remat)

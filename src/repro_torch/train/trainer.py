@@ -323,7 +323,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
 
     def train_step(params, opt_state, batch):
         MP.refuse_tensor_parallel(params, DB.batch_seq(batch),
-                                  "the train step", cfg.family)
+                                  "the train step")
         placed = _placed(batch)
         layout = MP.placements(params) \
             if isinstance(params, torch.nn.Module) else {}
@@ -370,7 +370,7 @@ def make_eval_step(cfg: ModelConfig, remat: str = "none", *,
     @torch.no_grad()
     def eval_step(params, batch):
         MP.refuse_tensor_parallel(params, DB.batch_seq(batch),
-                                  "the eval step", cfg.family)
+                                  "the eval step")
         _, metrics = base_loss(params, batch, remat)
         return metrics
     return eval_step

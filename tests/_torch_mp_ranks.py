@@ -19,7 +19,9 @@ over the model axis): four archs, a sig-MMD step, a masked and strided
 one, a batch whose ignored labels fill one block, and an eval step.
 Both worlds run Megatron sequence parallelism (``sp_tp_cases``): reduced
 deepseek-v2-lite-16b, phi3.5-moe-42b-a6.6b and qwen3-4b with their heads,
-``ff`` and experts over the model axis that cuts each sequence.  Both
+``ff`` and experts over the model axis that cuts each sequence, and the
+hybrid, rwkv and encdec families (zamba2-7b, rwkv6-1.6b,
+whisper-large-v3) with their heads and ``ff`` over it.  Both
 worlds train reduced phi3.5-moe in dispatch groups that straddle data
 ranks on their data-only mesh, and the world of 4 on 2 x 2, where it
 also decodes 24 requests in one group a step (``STRADDLE_*``).
@@ -101,6 +103,9 @@ STRADDLE_DECODE = (24, 4, 4, 16)   # requests, prompt, new tokens, max_len
 # and sig-MMD steps, the MoE aux loss at AUX and SEQ_ODD's sequence of 7,
 # which the split leaves whole
 SP_TP_ARCHS = ("deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b", "qwen3-4b")
+# the hybrid, rwkv and encdec families under SP_TP + SP_TP_DENSE: the
+# prefill and the LM steps (a sig-MMD head is not family-specific)
+SP_TP_FAMILIES = ("zamba2-7b", "rwkv6-1.6b", "whisper-large-v3")
 SP_TP = {"seq": "model"}
 SP_TP_DENSE = {"heads": "model", "kv_heads": "model", "ff": "model",
                "fsdp": "data"}
@@ -680,11 +685,12 @@ def sp_tp_rules(arch: str, shape: str) -> dict:
 
 
 def sp_tp_cases(mesh, inputs: dict) -> dict:
-    """Each of SP_TP_ARCHS under :func:`sp_tp_rules`: a prefill (this
-    rank's rows' last-position logits, its first row, the collectives'
-    tags), three LM and three sig-MMD steps of the train cell's rules
-    (with their tags); deepseek's MoE-aux step at AUX and qwen3-4b's
-    steps on SEQ_ODD's sequence of 7 there."""
+    """Each of SP_TP_ARCHS and SP_TP_FAMILIES under :func:`sp_tp_rules`: a
+    prefill (this rank's rows' last-position logits, its first row, the
+    collectives' tags), three LM steps of the train cell's rules and, for
+    SP_TP_ARCHS, three sig-MMD steps (with their tags); deepseek's
+    MoE-aux step at AUX and qwen3-4b's steps on SEQ_ODD's sequence of 7
+    there."""
     from repro_torch import configs, train
     from repro_torch.distributed import batch as DB
     from repro_torch.distributed import collectives as C
@@ -701,7 +707,7 @@ def sp_tp_cases(mesh, inputs: dict) -> dict:
         got = _steps(model, cfg, inputs["batches"][bkey], mesh, rules=rules,
                      loss=loss)
         return dict(steps=got, tags=sorted({r.tag for r in C.LOG.records}))
-    for arch in SP_TP_ARCHS:
+    for arch in SP_TP_ARCHS + SP_TP_FAMILIES:
         cfg = config(arch, configs)
         rules = sp_tp_rules(arch, PREFILL_SHAPE)
         model = prefill_model(inputs, arch, cfg, mesh, rules)
@@ -716,9 +722,10 @@ def sp_tp_cases(mesh, inputs: dict) -> dict:
             tags=sorted({r.tag for r in C.LOG.records}))
         rules = sp_tp_rules(arch, name)
         out[f"sp_tp/lm/{arch}"] = steps(arch, cfg, arch, rules)
-        out[f"sp_tp/sig_mmd/{arch}"] = steps(
-            f"{arch}/sig", configs.with_sig_head(cfg, **SIG), "sig_mmd",
-            rules, "sig_mmd")
+        if arch in SP_TP_ARCHS:
+            out[f"sp_tp/sig_mmd/{arch}"] = steps(
+                f"{arch}/sig", configs.with_sig_head(cfg, **SIG), "sig_mmd",
+                rules, "sig_mmd")
     arch = "deepseek-v2-lite-16b"
     out["sp_tp/aux"] = steps(
         f"{arch}/sig", configs.with_sig_head(config(arch, configs), **SIG),

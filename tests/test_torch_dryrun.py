@@ -19,7 +19,8 @@
   meshes, its one dispatch group a step spread over the data ranks.
 - deepseek-v2-lite-16b's ``prefill_32k`` cell runs under
   ``rule_overrides={"seq": "model"}``: MLA's heads, the dense MLP's
-  ``ff`` and the experts over the model axis that cuts the prompt.
+  ``ff`` and the experts over the model axis that cuts the prompt; and
+  rwkv6-1.6b's with its heads and ``ff`` put back on that axis.
 - ``record_cost`` counts 2·m·n·k FLOPs for a matmul and publishes its
   gauges under the reference's names.
 """
@@ -97,6 +98,9 @@ out["phi_decode"] = {pod: dryrun.lower_cell("phi3.5-moe-42b-a6.6b",
 out["deepseek"] = {k: dryrun.lower_cell("deepseek-v2-lite-16b",
                                         "prefill_32k", rule_overrides=over)
                    for k, over in (("whole", None), ("cut", {"seq": "model"}))}
+out["rwkv_tp"] = dryrun.lower_cell(
+    "rwkv6-1.6b", "prefill_32k", rule_overrides={
+        "heads": "model", "kv_heads": "model", "ff": "model", "fsdp": "data"})
 specs.SHAPES["train_flops"] = dict(kind="train", seq=16, batch=256)
 cfg = configs.reduce_config(configs.get_config("qwen3-4b"))
 res = dryrun.lower_cell("qwen3-4b", "train_flops", cfg=cfg,
@@ -281,6 +285,31 @@ def test_moe_and_mla_prefill_cell_under_the_sequence_override(child):
     t_whole = whole["memory_analysis"]["temp_size_bytes"]
     t_cut = cut["memory_analysis"]["temp_size_bytes"]
     assert 0.95 * t_whole < t_cut < t_whole
+
+
+def test_rwkv_prefill_cell_with_its_weights_split_over_the_cut_axis(child):
+    """rwkv6-1.6b's ``prefill_32k`` cell on 16 × 16 with its heads, ``ff``
+    and FSDP overridden back to tensor parallelism over the model axis
+    that cuts the prompt (``{"heads": "model", "kv_heads": "model", "ff":
+    "model", "fsdp": "data"}``; it raised while the rwkv family refused
+    that layout) returns a result: each of the 24 layers' time and channel
+    mixes gathers the group's rows (``sp_tp_in``), 2 × 32,768 × 2,048
+    bf16 each, and reduce-scatters its sums back (``sp_tp_out``).  Its
+    runs scan whole sequences of 32 to 128 tokens, too short for the
+    peak to grow with the rows, so the peak is not predicted."""
+    res = child[2]["rwkv_tp"]
+    assert "error" not in res and "skipped" not in res, res
+    assert res["extrapolated_from_seq"] == [32, 64, 128]
+    assert res["memory_analysis"]["temp_size_bytes"] is None
+    assert res["executed_rules"]["seq"] == "model"
+    assert res["executed_rules"]["ff"] == "model"
+    cfg = tconfigs.get_config("rwkv6-1.6b")
+    tags = res["collectives_by_tag"]
+    assert "sp_tp_in" in tags
+    assert tags["sp_tp_in"]["all-gather"]["count"] == 2 * cfg.n_layers
+    assert tags["sp_tp_in"]["all-gather"]["result_bytes"] == \
+        2 * cfg.n_layers * 2 * 32768 * cfg.d_model * 2
+    assert tags["sp_tp_out"]["reduce-scatter"]["count"] == 2 * cfg.n_layers
 
 
 def test_a_dense_steps_flops_split_over_the_2x2_mesh(child):

@@ -908,19 +908,28 @@ _SP_TP_TAGS = {"deepseek-v2-lite-16b": {"sp_tp_in", "sp_tp_out",
                                         "sp_moe_in", "sp_moe_out"},
                "phi3.5-moe-42b-a6.6b": {"sp_tp_in", "sp_tp_out",
                                         "sp_moe_in", "sp_moe_out"},
-               "qwen3-4b": {"sp_tp_in", "sp_tp_out"}}
+               "qwen3-4b": {"sp_tp_in", "sp_tp_out"},
+               # Mamba2's w_in / w_out read whole, its blocks' halo and
+               # state; the shared blocks' attention and MLP
+               "zamba2-7b": {"sp_tp_in", "sp_tp_out", "tp_param_gather",
+                             "sp_conv", "sp_state"},
+               # the time and channel mixes; w_cr read whole for the gate
+               "rwkv6-1.6b": {"sp_tp_in", "sp_tp_out", "tp_param_gather"},
+               # every layer's, the cross-attention's frames and tokens
+               "whisper-large-v3": {"sp_tp_in", "sp_tp_out"}}
 
 
 @pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
-@pytest.mark.parametrize("arch", R.SP_TP_ARCHS)
+@pytest.mark.parametrize("arch", R.SP_TP_ARCHS + R.SP_TP_FAMILIES)
 def test_sequence_parallel_tensor_parallel_prefill_equals_the_reference(
         worlds, arch, world):
-    """Under ``rules_for(arch, "prefill_32k", {"seq": "model"})`` (qwen3-4b
-    with its heads and ``ff`` over the model axis too) each rank gathers
-    its block of the prompt at every split layer, runs its heads, columns
-    or experts over the whole prompt and reduce-scatters their sums back:
+    """Under ``rules_for(arch, "prefill_32k", {"seq": "model"})`` (the
+    dense archs with their heads and ``ff`` over the model axis too) each
+    rank gathers its block of the prompt at every split layer, runs its
+    heads, columns or experts over the whole prompt and reduce-scatters
+    their sums back (Mamba2 reads its split weights whole on its block):
     every rank's last-position logits are its rows' of the reference's
-    single-device prefill."""
+    single-device prefill (rwkv6 in float64)."""
     res, _ = worlds
     ref = _sp_tp_ref("prefill", arch)
     for r in range(world):
@@ -929,16 +938,24 @@ def test_sequence_parallel_tensor_parallel_prefill_equals_the_reference(
         assert _SP_TP_TAGS[arch] <= set(got["tags"]), (arch, got["tags"])
 
 
-@pytest.mark.parametrize("loss", ["lm", "sig_mmd"])
-@pytest.mark.parametrize("world", [4, 2], ids=["2x2", "1x2"])
-@pytest.mark.parametrize("arch", R.SP_TP_ARCHS)
+# (arch, world, loss): the LM and sig-MMD steps of SP_TP_ARCHS, the LM
+# steps of SP_TP_FAMILIES
+_SP_TP_STEPS = [pytest.param(a, w, loss, id=f"{a}-{wid}-{loss}")
+                for a in R.SP_TP_ARCHS + R.SP_TP_FAMILIES
+                for w, wid in ((4, "2x2"), (2, "1x2"))
+                for loss in (("lm", "sig_mmd") if a in R.SP_TP_ARCHS
+                             else ("lm",))]
+
+
+@pytest.mark.parametrize("arch,world,loss", _SP_TP_STEPS)
 def test_sequence_parallel_tensor_parallel_steps_equal_the_reference(
         worlds, arch, world, loss):
     """Three SGD steps under ``rules_for(arch, "train_tiny", {"seq":
     "model"})``, each sequence in blocks over the model axis that also
     splits heads, ``ff`` and experts: every rank's losses, metrics and
-    trained parameters are the reference's single-device steps, and each
-    split layer's exchanges ran with their backward."""
+    trained parameters are the reference's single-device steps (rwkv6 at
+    its learning rate, ``LR_OF``), and each split layer's exchanges ran
+    with their backward."""
     res, _ = worlds
     ref = _sp_tp_ref(loss, arch)
     want = _SP_TP_TAGS[arch] | {t + "_grad" for t in _SP_TP_TAGS[arch]}

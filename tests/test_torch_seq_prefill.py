@@ -18,10 +18,16 @@ blocks equal the whole sequence's, losses within 1e-4·max(1, |loss|)
 and gradients within 1e-3·|g| + 1e-4·max|g|.  MLA (heads whole and
 split), the MoE (experts whole and split, dropless and capacity-bound),
 attention with its heads and the MLP with its ``ff`` split over the axis
-that cuts the sequence equal the reference's whole sequence; decode, the
-hybrid family's weights split over that axis and a split that only
-partly overlaps it refuse a sequence split.
+that cuts the sequence equal the reference's whole sequence, and so do
+``mamba_block`` with ``w_in`` / ``w_out`` split over that axis (read
+whole on each block), ``rwkv_block`` with its heads and channel-mix
+columns split (Megatron sequence parallelism) and whisper's
+cross-attention with its heads split, its tokens cut or whole; decode, a
+split that only partly overlaps the cut axis and whisper trained with
+its tokens cut over the model axis, its frames whole and its encoder
+split over that axis refuse a sequence split.
 """
+import contextlib
 import dataclasses
 from unittest import mock
 
@@ -32,6 +38,7 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro.models import encdec as JE
 from repro.models import layers as JL
 from repro.models import ssm as JS
 
@@ -39,6 +46,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.distributed import batch as DB
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.model_parallel import Split
+from repro_torch.models import encdec as TE
 from repro_torch.models import layers as TL
 from repro_torch.models import ssm as TS
 
@@ -315,10 +323,12 @@ class SplitTree(TL.ParamTree):
     """A layer's weights as rank i of the simulated group reads them: each
     key of ``dims`` split on its dimension over the model axis, which is
     also the axis that cuts the sequence (in a block of ``in_blocks`` the
-    split is the block's ``Split``), every other weight whole.  ``p[key]``
-    of a split key is this rank's block of the one parameter, so the
-    blocks' gradients sum to the whole's, as the step's reduction sums
-    them; outside a split every weight is whole."""
+    split is the block's ``Split``, or ``over`` where it is set), every
+    other weight whole.  ``p[key]`` of a split key is this rank's block of
+    the one parameter, so the blocks' gradients sum to the whole's, as
+    the step's reduction sums them; outside a split every weight is
+    whole."""
+    over = None         # the model split inside a scope of whole tokens
 
     def __init__(self, tree: dict, dims: dict):
         super().__init__({k: v for k, v in tree.items()
@@ -329,7 +339,7 @@ class SplitTree(TL.ParamTree):
         self._dims = {k: d for k, d in dims.items() if isinstance(d, int)}
 
     def split(self, key, dim):
-        seq = DB.current_seq()
+        seq = DB.current_seq() if SplitTree.over is None else SplitTree.over
         return seq if seq is not None and self._dims.get(key) == dim \
             else None
 
@@ -540,6 +550,127 @@ def test_a_differentiated_block_refuses():
             assert_grads(g, w, f"{name} {k}")
 
 
+MAMBA_SPLIT = {"w_in": 1, "w_out": 0}
+RWKV_SPLIT = {"w_r": 1, "w_k": 1, "w_v": 1, "w_g": 1, "w_o": 0, "w_ck": 1,
+              "w_cv": 0, "w_cr": 1}
+
+
+@pytest.mark.parametrize("arch,name,init,dims,tags", [
+    ("zamba2-7b", "mamba_block", JS.init_mamba, MAMBA_SPLIT,
+     {"sp_conv", "sp_state"}),
+    ("rwkv6-1.6b", "rwkv_block", JS.init_rwkv, RWKV_SPLIT,
+     {"sp_tp_in", "sp_tp_out"})], ids=["mamba", "rwkv"])
+@pytest.mark.parametrize("P", [2, 4])
+def test_ssm_blocks_split_over_the_cut_axis_equal_the_whole(P, arch, name,
+                                                           init, dims, tags):
+    """``mamba_block`` (chunk 4) with ``w_in``'s columns and ``w_out``'s
+    rows split over the axis that cuts a 16-token sequence reads both
+    whole on its block, whose convolution halo and SSD state cross the
+    blocks as without a split; ``rwkv_block`` with its WKV heads
+    (``w_r``/``w_k``/``w_v``/``w_g`` columns, ``w_o`` rows, one head a
+    rank at P = 4) and its channel mix (``w_ck``/``w_cr`` columns,
+    ``w_cv`` rows) split gathers the group's rows (``sp_tp_in``), scans
+    its heads over the whole sequence from zero and reduce-scatters its
+    row-parallel sums (``sp_tp_out``), its gate on the block with
+    ``w_cr`` whole.  Values and every gradient (the blocks' parameter
+    gradients summed, as the step's reduction sums them) equal the
+    reference's block over the whole sequence."""
+    cfg, jcfg = cfgs(arch)
+    p = block_params(init, jcfg)
+    S = 16
+    x = normal((2, S, cfg.d_model), 1, 0.5)
+    kw = {"chunk": 4} if name == "mamba_block" else {}
+    want = np.asarray(jax.jit(lambda p, x: getattr(JS, name)(
+        p, x, jcfg, **kw)[0])(jax.tree.map(jnp.asarray, p), jnp.asarray(x)))
+    tree = split_tree(p, dims)
+    got = in_blocks(P, lambda i: getattr(TS, name)(
+        tree, blocks_of(x, P, i), cfg, **kw)[0])
+    np.testing.assert_allclose(joined(got), want, **VALUE)
+    assert TAGS == tags
+    c = torch.from_numpy(normal((2, S, cfg.d_model), 2))
+
+    def loss(ins, params):
+        out = getattr(TS, name)(tree, ins["x"], cfg, **kw)[0]
+        seq = DB.current_seq()
+        return (out * (c if seq is None else c.narrow(1, *seq.block(S)))
+                ).sum()
+    params = dict(tree.named_parameters())
+    got, whole = block_grads(P, loss, {"x": x}, params)
+    np.testing.assert_allclose(got[0], whole[0], rtol=1e-5)
+    for g, w, k in zip(got[1:], whole[1:], ["x"] + list(params)):
+        assert_grads(g, w, f"{name} {k}")
+
+
+def cross_case():
+    """Reduced whisper's cross-attention (4 heads, 4 KV heads), its
+    reference parameters, the decoder's (2, 8) rows, the encoder's (2,
+    16) frames and the reference's output over all of them."""
+    cfg, jcfg = cfgs("whisper-large-v3")
+    p = block_params(JL.init_attention, jcfg)
+    x = normal((2, 8, cfg.d_model), 1, 0.5)
+    enc = normal((2, cfg.n_audio_frames, cfg.d_model), 3, 0.5)
+    jp = jax.tree.map(jnp.asarray, p)
+    want = np.asarray(JE._cross_attention(jp, jnp.asarray(x), JE.cross_kv(
+        jp, jnp.asarray(enc), jcfg), jcfg))
+    return cfg, p, x, enc, want
+
+
+def run_cross(tree, x, enc, cfg):
+    """A decoder layer's cross-attention on this block's frames ``enc``
+    (its K/V from ``cross_kv``) over the rows ``x``."""
+    kv, frames = TE.cross_kv(tree, enc, cfg, seq=DB.current_seq())
+    return TE._cross_attention(tree, x, kv, cfg, frames)
+
+
+@pytest.mark.parametrize("tokens", ["cut", "whole"])
+@pytest.mark.parametrize("P", [2, 4])
+def test_cross_attention_split_over_the_cut_axis_equals_the_whole(P,
+                                                                  tokens):
+    """Whisper's cross-attention with its heads split over the axis that
+    cuts the 16 frames: ``cross_kv`` gathers the frames (``sp_tp_in``)
+    and projects this rank's KV heads over all of them.  With the 8
+    decoder tokens cut too, the token block's rows are gathered for the
+    queries (``sp_tp_in``) and ``wo``'s partial sums reduce-scattered
+    back (``sp_tp_out``): values, and every gradient (the blocks'
+    parameter gradients summed), equal the reference's over every frame
+    and token.  With the tokens whole (a prefill's layout; training there
+    is refused), every rank's queries are the same and ``wo``'s partial
+    sums are all-reduced (``tp_out``): every rank's output is the
+    reference's."""
+    cfg, p, x, enc, want = cross_case()
+    tree = split_tree(p, HEADS)
+    if tokens == "cut":
+        got = in_blocks(P, lambda i: run_cross(tree, blocks_of(x, P, i),
+                                               blocks_of(enc, P, i), cfg))
+        np.testing.assert_allclose(joined(got), want, **VALUE)
+        assert TAGS == {"sp_tp_in", "sp_tp_out"}
+        c = torch.from_numpy(normal(x.shape, 2))
+
+        def loss(ins, params):
+            seq = DB.current_seq()
+            out = run_cross(tree, ins["x"], ins["enc"], cfg)
+            return (out * (c if seq is None else c.narrow(
+                1, *seq.block(x.shape[1])))).sum()
+        params = dict(tree.named_parameters())
+        got, whole = block_grads(P, loss, {"x": x, "enc": enc}, params)
+        np.testing.assert_allclose(got[0], whole[0], rtol=1e-5)
+        for g, w, k in zip(got[1:], whole[1:], ["x", "enc"] + list(params)):
+            assert_grads(g, w, f"cross-attention {k}")
+        return
+
+    def whole_tokens(i):
+        seq = DB.current_seq()
+        kv, frames = TE.cross_kv(tree, blocks_of(enc, P, i), cfg, seq=seq)
+        assert frames is None
+        with DB.rows_set(DB.Rows(None, 1, 0, 1, None)), \
+                mock.patch.object(SplitTree, "over", seq):
+            return TE._cross_attention(tree, torch.from_numpy(x), kv, cfg,
+                                       frames)
+    for out in in_blocks(P, whole_tokens):
+        np.testing.assert_allclose(out.detach().numpy(), want, **VALUE)
+    assert TAGS == {"sp_tp_in", "tp_out"}
+
+
 # ---------------------------------------------------------------------------
 # the paths that refuse a sequence split, and the losses and the train
 # step over one
@@ -561,15 +692,42 @@ def _decode():
 
 def _hybrid_tp():
     """The prefill's check of reduced zamba2-7b laid out by the default
-    rules (Mamba2's ``ff`` over the model axis) on a 1 x 2 mesh."""
+    rules (Mamba2's ``ff`` over the model axis) on a 1 x 2 mesh, its
+    sequence cut over the data and model axes."""
     from repro_torch import models as M
     from repro_torch.distributed import model_parallel as MP
     from repro_torch.distributed.ctx import AbstractMesh
     cfg = _reduced("zamba2-7b")
     model = MP.shard_model(M.init_params(0, cfg, device="cpu"),
                            AbstractMesh((1, 2), ("data", "model")), {})
-    MP.refuse_tensor_parallel(model, DB.current_seq(), "a prefill",
-                              cfg.family)
+    MP.refuse_tensor_parallel(model, Split(None, 4, 1, ("data", "model")),
+                              "a prefill of the hybrid family")
+
+
+def _encdec_tokens_cut():
+    """The LM loss of reduced whisper laid out by the default rules (its
+    encoder's heads and ``ff`` over the model axis) on a 1 x 2 mesh, its
+    8 tokens cut over the model axis and its 7 frames whole (a count the
+    split does not divide): each rank's gradient of the encoder's output
+    would be its tokens' share, which the encoder's tensor-parallel
+    backward takes as the whole."""
+    from repro_torch import models as M
+    from repro_torch.distributed import model_parallel as MP
+    from repro_torch.distributed.ctx import AbstractMesh
+    cfg = dataclasses.replace(_reduced("whisper-large-v3"), n_audio_frames=7)
+    model = MP.shard_model(M.init_params(0, cfg, device="cpu"),
+                           AbstractMesh((1, 2), ("data", "model")), {})
+    tokens = torch.ones((1, 8), dtype=torch.int32)
+    batch = {"frames": torch.zeros((1, 7, cfg.d_model)), "tokens": tokens,
+             "labels": tokens}
+
+    @contextlib.contextmanager
+    def scope(placed):      # the tokens' block of 4 of 8, the frames whole
+        with DB.rows_set(DB.Rows(None, 1, 0, 1, split(2, 1) if placed is
+                                 tokens else None)):
+            yield DB.current_rows()
+    with mock.patch.object(DB, "rows_scope", scope):
+        TE.lm_loss(model, cfg, batch)
 
 
 def _partial():
@@ -581,17 +739,24 @@ def _partial():
 
 @pytest.mark.parametrize("where,run", [
     ("make_serve_step", _decode), ("the hybrid family", _hybrid_tp),
-    ("only partly overlap", _partial)], ids=["decode", "hybrid_tp",
-                                             "partial_overlap"])
+    ("only partly overlap", _partial),
+    ("frames not cut over the model axis", _encdec_tokens_cut)],
+    ids=["decode", "hybrid_tp", "partial_overlap", "encdec_tokens_cut"])
 def test_paths_refuse_a_sequence_split(where, run):
     """Decode, the hybrid family with weights split over the model axis
-    that cuts the sequence, and a layer split over the model axis with the
-    sequence cut over more axes raise ``NotImplementedError`` naming what
-    is left of ROADMAP item 21, inside the scope of a batch whose
-    sequence is cut, before computing.  (MLA and the MoE, which refused
-    until the layers ran a sequence split, are the parity cases
-    ``test_mla_blocks_equal_the_whole_sequence`` and
-    ``test_moe_blocks_route_whole_sequences``.)"""
+    and its sequence cut over the data and model axes, a layer split
+    over the model axis with the sequence cut over more axes, and
+    whisper's training with its tokens cut over the model axis, its
+    frames whole and its encoder split over that axis raise
+    ``NotImplementedError`` naming what is left of ROADMAP item 21,
+    inside the scope of a batch whose sequence is cut, before computing.
+    (MLA and the MoE, which refused until the layers ran a sequence split,
+    are the parity cases ``test_mla_blocks_equal_the_whole_sequence`` and
+    ``test_moe_blocks_route_whole_sequences``; the hybrid, rwkv and
+    encdec families split over the axis that cuts the sequence alone,
+    which refused until their layers ran it, are
+    ``test_ssm_blocks_split_over_the_cut_axis_equal_the_whole`` and
+    ``test_cross_attention_split_over_the_cut_axis_equals_the_whole``.)"""
     with DB.rows_set(DB.Rows(None, 1, 0, 1, split(2, 1))):
         with pytest.raises(NotImplementedError, match="item 21") as e:
             run()
