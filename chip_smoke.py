@@ -467,7 +467,18 @@ Phases, each of which fails loudly (non-zero exit, nothing caught):
              each step's logits within 1e-4·max|ref|, the dropped pairs
              a step equal to one rank's and above 0 in some step, one
              moe_pos all-gather a MoE layer a step, ms a step and peak
-             bytes a rank beside one rank's; and the dry run's
+             bytes a rank beside one rank's; (i) the hybrid, rwkv and
+             encdec families with heads and ff over the model axis that
+             cuts each sequence; (j) context parallelism under
+             rules_for(arch, shape, {"seq": ("data", "model"), "batch":
+             ("pod",)}), each sequence in four blocks, the batch whole:
+             (c)'s qwen3-4b sig-MMD step with heads and ff over the model
+             axis too against (c)'s one rank (loss, first-step
+             gradients, 2 sig_trunc, 3 sig_gram and 1 sig_sweep launches
+             a rank), the prefills of qwen3-4b, zamba2-7b, rwkv6-1.6b,
+             whisper and deepseek-v2-lite against (e)'s and (g)'s one
+             rank, each case's exchanges by tag equal to the count its
+             layers predict (DR_CP_TAGS); and the dry run's
              parameter and Adafactor-state bytes a rank for both (b)
              cells and (c) equal to rank 0's exactly, one backbone
              forward's collectives by kind and a step's collectives by
@@ -6312,6 +6323,47 @@ DR_TP_TAGS = {"zamba2-7b": {"sp_tp_in", "sp_tp_out", "tp_param_gather",
               DR_ARCH: {"sp_tp_in", "sp_tp_out"}}
 
 
+# (j) context parallelism, the reference's long_500k layout for a prompt or
+# a training sequence: rules_for(arch, shape, DR_CP) on 2 x 2, each
+# sequence in four blocks over both axes, the batch whole on every rank,
+# the vocabulary (and heads, ff and experts where they are split) over the
+# model axis inside the sequence's group.  (c)'s qwen3-4b sig-MMD model
+# and first batch (depth 2, as (g)'s), DR_CP_STEPS Adafactor step under
+# DR_CP + DR_TP_OVERRIDE against (c)'s one-rank steps; prefills against
+# (e)'s and (g)'s one-rank logits: qwen3-4b under DR_CP alone at (e)'s
+# depth and prompts, zamba2-7b, rwkv6-1.6b and whisper under DR_CP +
+# DR_TP_OVERRIDE at (e)'s, deepseek-v2-lite under DR_CP with its MoE
+# rules at (g)'s.  DR_CP_TAGS: the exchanges a forward makes, by count
+# (the step's: its forward, its remat recompute, which stops before a
+# layer's last exchange, and, "_grad", its backward), from the layers'
+# structure
+DR_CP = {"seq": ("data", "model"), "batch": ("pod",)}
+DR_CP_STEPS = 1
+DR_CP_TP = ("zamba2-7b", "rwkv6-1.6b", DR_ARCH)
+DR_CP_TAGS = {
+    "train": {"sp_tokens": 1, "sp_embed": 1, "sp_embed_grad": 1,
+              "sp_tp_in": 8, "sp_tp_in_grad": 4, "sp_tp_out": 6,
+              "sp_tp_out_grad": 4, "sp_kv": 4, "sp_kv_grad": 2,
+              "sp_path": 1, "sp_paths": 1},
+    LM_ARCH: {"sp_tokens": 1, "sp_embed": 1, "sp_kv": 6, "sp_last": 1},
+    "zamba2-7b": {"sp_tokens": 1, "sp_embed": 1, "tp_param_gather": 4,
+                  "sp_conv": 2, "sp_state": 2, "sp_tp_in": 2,
+                  "sp_tp_out": 2, "sp_kv": 1, "sp_last": 1},
+    "rwkv6-1.6b": {"sp_tokens": 1, "sp_embed": 1, "sp_tp_in": 4,
+                   "sp_tp_out": 4, "sp_shift": 4, "sp_state": 2,
+                   "tp_param_gather": 2, "sp_last": 1},
+    DR_ARCH: {"sp_tokens": 1, "sp_embed": 1, "sp_tp_in": 12,
+              "sp_tp_out": 10, "sp_kv": 4, "sp_cross_kv": 2, "sp_last": 1},
+    "deepseek-v2-lite-16b": {"sp_tokens": 1, "sp_embed": 1, "sp_tp_in": 3,
+                             "sp_tp_out": 3, "sp_latent": 2,
+                             "sp_moe_in": 1, "sp_moe_out": 1, "moe_aux": 1,
+                             "sp_last": 1}}
+# one-rank results of earlier cases that (j) is held against, on rank 0
+# of the world of 4: {"c": (c)'s dr_alone, ("e" or "g", arch): a
+# prefill's}; (j) run alone makes its own
+DR_ALONE: dict = {}
+
+
 def dr_whisper_cfg():
     L = DR_WHISPER_TRAIN[0]
     return dataclasses.replace(get_config(DR_ARCH), n_layers=L,
@@ -6521,9 +6573,11 @@ def dr_train(rank: int, mesh, cfg, model, batches: list, loss: str,
         check(split is None, f"{cfg.name} 2 x 2 steps under {rules}: the "
               f"batch's sequence is cut over {split}")
     else:
-        check(split is not None and split.axes == ("model",),
+        axes = (rules["seq"],) if isinstance(rules["seq"], str) \
+            else tuple(rules["seq"])
+        check(split is not None and split.axes == axes,
               f"{cfg.name} 2 x 2 steps under {rules}: the batch's sequence "
-              f"is not cut over the model axis")
+              f"is not cut over {axes}")
         check({"sp_kv", "sp_kv_grad"} <= set(tags) or
               {"sp_state", "sp_state_grad"} <= set(tags) or
               {"sp_tp_in", "sp_tp_in_grad"} <= set(tags),
@@ -6599,6 +6653,7 @@ def dr_qwen_train(rank: int, mesh, seed: int) -> dict:
     data = lm_data(cfg, "sig_mmd", 0, seed)
     batches = [next(data) for _ in range(DR_QWEN_STEPS)]
     alone = dr_alone(rank, cfg, model, batches, "sig_mmd")
+    DR_ALONE["c"] = alone
     res = dr_train(rank, mesh, cfg, model, batches, "sig_mmd",
                    dr_rules("qwen", LM_ARCH), alone)
     P = 2
@@ -6873,6 +6928,7 @@ def dr_prefill(rank: int, mesh, seed: int) -> dict:
         out["e"][arch], alone = dr_prefill_one(
             rank, mesh, seed, cfg, rules_for(arch, DR_PREFILL_SHAPE), batch,
             warm=arch != LM_ARCH)
+        DR_ALONE[("e", arch)] = alone
         if arch not in DR_TP_FAMILY:
             continue
         t0 = time.perf_counter()
@@ -6948,6 +7004,8 @@ def dr_prefill_one(rank: int, mesh, seed: int, cfg, rules: dict,
                             by_tag.items() if "all-gather" in v},
                reduce_scatters={t: v["reduce-scatter"]["count"] for t, v
                                 in by_tag.items() if "reduce-scatter" in v},
+               all_reduces={t: v["all-reduce"]["count"] for t, v in
+                            by_tag.items() if "all-reduce" in v},
                local_params=sum(p.numel() for p in model.parameters()),
                rules=str(rules))
     del model
@@ -6957,16 +7015,18 @@ def dr_prefill_one(rank: int, mesh, seed: int, cfg, rules: dict,
         tol = FAM_F32_TOL.get(arch, 1e-4)
         scale = float(want.abs().max())
         errs = []
+        n = logits.shape[0]             # rows a rank (every row: batch whole)
         for r in range(4):
-            ref = want[starts[r]:starts[r] + 1]
-            errs.append(float((every[r:r + 1] - ref).abs().max()))
+            ref = want[starts[r]:starts[r] + n]
+            got = every[r * n:(r + 1) * n]
+            errs.append(float((got - ref).abs().max()))
             check(errs[-1] <= tol * scale and torch.equal(
-                every[r:r + 1].argmax(-1), ref.argmax(-1)),
+                got.argmax(-1), ref.argmax(-1)),
                 f"{arch} 2 x 2 prefill, rank {r}: max |err| "
                 f"{errs[-1]:.3e} against one rank's (max |logit| "
                 f"{scale:.3e}, tolerance {tol}·max), argmax "
-                f"{int(every[r].argmax())} against "
-                f"{int(ref[0].argmax())}")
+                f"{got.argmax(-1).tolist()} against "
+                f"{ref.argmax(-1).tolist()}")
         check(peak < single_peak, f"{arch} 2 x 2 prefill: peak "
               f"{peak} bytes a rank against one rank's {single_peak}")
         check(set(res["all_gathers"]) >= {"sp_last"},
@@ -7025,8 +7085,9 @@ def dr_sptp(rank: int, mesh, seed: int) -> dict:
     out = {"train": res}
     for a in DR_SPTP:
         cfg = dr_sptp_cfg(a)
-        pre, _ = dr_prefill_one(rank, mesh, seed, cfg, rules_for(
-            a, DR_PREFILL_SHAPE, DR_SPTP_OVERRIDE),
+        pre, DR_ALONE[("g", a)] = dr_prefill_one(
+            rank, mesh, seed, cfg, rules_for(a, DR_PREFILL_SHAPE,
+                                             DR_SPTP_OVERRIDE),
             dr_prefill_batch(cfg, seed, DR_SPTP_PREFILL), warm=False)
         check({"sp_tp_in", "sp_moe_in"} <= set(pre["all_gathers"])
               and {"sp_tp_out", "sp_moe_out"}
@@ -7034,6 +7095,74 @@ def dr_sptp(rank: int, mesh, seed: int) -> dict:
               f"(g) 2 x 2 {a} prefill: all-gathers {pre['all_gathers']}, "
               f"reduce-scatters {pre['reduce_scatters']}")
         out[f"prefill/{a}"] = pre
+    return out
+
+
+def dr_cp_counts(by_tag: dict) -> dict:
+    """A record's exchanges by tag -> {tag: count of its collectives}."""
+    return {t: sum(v["count"] for v in kinds.values())
+            for t, kinds in by_tag.items()}
+
+
+def dr_cp_check(what: str, want: dict, got: dict) -> None:
+    """Every predicted tag of ``want`` made exactly its count."""
+    bad = {t: (n, got.get(t, 0)) for t, n in want.items()
+           if got.get(t, 0) != n}
+    check(not bad, f"(j) 2 x 2 {what}: exchanges (predicted, made) {bad}")
+
+
+def dr_cp(rank: int, mesh, seed: int) -> dict:
+    """(j) context parallelism on the 2 x 2 mesh under ``rules_for(arch,
+    shape, DR_CP)``: (c)'s qwen3-4b sig-MMD step under DR_CP +
+    DR_TP_OVERRIDE against (c)'s one-rank steps (the three kernels on the
+    path gathered over all four ranks: the whole batch on every rank,
+    launches a rank as one device's), then the prefills against (e)'s
+    and (g)'s one-rank logits; each case's exchanges by tag held to
+    DR_CP_TAGS."""
+    from repro_torch.launch.dryrun import rules_for
+    cfg = dr_qwen_cfg()
+    model = lm_model(cfg, seed)
+    data = lm_data(cfg, "sig_mmd", 0, seed)
+    batches = [next(data) for _ in range(DR_CP_STEPS)]
+    t0 = time.perf_counter()
+    if "c" not in DR_ALONE:         # every rank alike: (j) run alone
+        DR_ALONE["c"] = dr_alone(rank, cfg, model, batches, "sig_mmd")
+    res = dr_train(rank, mesh, cfg, model, batches, "sig_mmd",
+                   dr_rules("sptp", LM_ARCH, dict(DR_CP, **DR_TP_OVERRIDE)),
+                   DR_ALONE["c"], measure=False)
+    del model
+    lm_free()
+    want = {k: dict(sig_trunc=2, sig_gram=3, sig_sweep=1).get(k, 0)
+            * DR_CP_STEPS for k in counts()}
+    got = {k: res["launches_per_rank"].get(k, 0) for k in want}
+    check(got == want, f"(j) 2 x 2 {LM_ARCH} sig-MMD step: launches a rank "
+          f"{got}, expected {want}")
+    dr_cp_check(f"{LM_ARCH} sig-MMD step", DR_CP_TAGS["train"],
+                dr_cp_counts(res["by_tag"]))
+    res.update(layers=cfg.n_layers, seconds=time.perf_counter() - t0,
+               shape=[LM_TRAIN[1], LM_TRAIN[2], LM_HEAD["channels"],
+                      LM_HEAD["depth"]])
+    out = {"train": res}
+    cases = [(LM_ARCH, "e", dr_prefill_cfg(LM_ARCH), DR_CP, DR_PREFILL)]
+    cases += [(a, "e", dr_prefill_cfg(a), dict(DR_CP, **DR_TP_OVERRIDE),
+               DR_PREFILL) for a in DR_CP_TP]
+    cases.append((DR_SPTP[0], "g", dr_sptp_cfg(DR_SPTP[0]), DR_CP,
+                  DR_SPTP_PREFILL))
+    for arch, was, cfg, over, shape in cases:
+        t0 = time.perf_counter()
+        pre, _ = dr_prefill_one(
+            rank, mesh, seed, cfg, rules_for(arch, DR_PREFILL_SHAPE, over),
+            dr_prefill_batch(cfg, seed, shape), warm=False,
+            alone=DR_ALONE.get((was, arch)))
+        made = dict(pre["all_gathers"])
+        for t, n in pre["reduce_scatters"].items():
+            made[t] = made.get(t, 0) + n
+        made["moe_aux"] = pre.get("all_reduces", {}).get("moe_aux", 0)
+        want = DR_CP_TAGS[arch]
+        dr_cp_check(f"{arch} prefill", want, made)
+        pre.update(was=was, seconds=time.perf_counter() - t0,
+                   exchanges={t: made.get(t, 0) for t in want})
+        out[f"prefill/{arch}"] = pre
     return out
 
 
@@ -7167,7 +7296,7 @@ def dr_rank(rank: int, world: int, where: str, seed: int, queue) -> None:
                  ("qwen_train", dr_qwen_train),
                  ("family_train", dr_family_train), ("decode", dr_decode),
                  ("prefill", dr_prefill), ("sptp", dr_sptp),
-                 ("moe_decode", dr_moe_decode)]
+                 ("moe_decode", dr_moe_decode), ("cp", dr_cp)]
     else:
         mesh = make_dev_mesh(1, 2)
         parts = [("whisper_serve", dr_whisper_serve)]
@@ -7242,9 +7371,11 @@ def phase_dryrun_mp(seed: int) -> dict:
     sharded parameters, decode under the dry run's rules, (e) the
     prefill under the dry run's prefill rules, each prompt in blocks over
     the model axis, (g) Megatron sequence parallelism, (h) phi3.5-moe's
-    decode_32k cell, whose dispatch group straddles the data ranks, and
-    (i) the hybrid, rwkv and encdec families with their heads and ``ff``
-    over the model axis that cuts each sequence."""
+    decode_32k cell, whose dispatch group straddles the data ranks, (i)
+    the hybrid, rwkv and encdec families with their heads and ``ff``
+    over the model axis that cuts each sequence, and (j) context
+    parallelism, each sequence cut over both axes with the vocabulary
+    and the split layers over the model axis inside its group."""
     import queue as queue_mod
     t0 = time.perf_counter()
     ctx = torch.multiprocessing.get_context("spawn")
@@ -7429,6 +7560,43 @@ def phase_dryrun_mp(seed: int) -> dict:
               f"launches "
               f"{[r['prefill']['i'][arch]['launches'] for r in worlds[4]]}; "
               f"{e['seconds']:.1f} s", flush=True)
+    j = r4["cp"]
+    t, c = j["train"], r4["qwen_train"]
+    print(f"[dryrun_mp] (j) 2 x 2 {LM_ARCH} at full width, depth "
+          f"{t['layers']}, sig-MMD Adafactor {len(t['losses'])} step at "
+          f"{t['shape'][0]} x {t['shape'][1]} under {t['rules']} (context "
+          f"parallelism: each sequence in four blocks over both axes, rank "
+          f"0's block {t['block']}, the batch whole; heads, ff and the "
+          f"vocabulary over the model axis inside the sequence's group), "
+          f"against (c)'s one-rank steps: {dr_train_line(t)}; (c) on the "
+          f"same mesh under seq: 'model': step {c['step_ms']:.1f} ms, peak "
+          f"{c['peak_bytes']} bytes a rank; exchanges by count "
+          f"{dr_cp_counts(t['by_tag'])} (predicted {DR_CP_TAGS['train']}); "
+          f"launches a rank "
+          f"{[r['cp']['train']['launches_per_rank'] for r in worlds[4]]}; "
+          f"{t['seconds']:.1f} s", flush=True)
+    for arch in (LM_ARCH,) + DR_CP_TP + (DR_SPTP[0],):
+        e = j[f"prefill/{arch}"]
+        f = r4["prefill"]["i"].get(arch) or r4["prefill"]["e"][arch] \
+            if e["was"] == "e" else r4["sptp"][f"prefill/{arch}"]
+        base = {"e": "(i)" if arch in r4["prefill"]["i"] else "(e)",
+                "g": "(g)"}[e["was"]]
+        print(f"[dryrun_mp] (j) 2 x 2 {arch} prefill (layers "
+              f"{e['layers']}, batch {e['batch']}) under {e['rules']}: each "
+              f"rank every request and its block {e['block']} of the prompt"
+              f"; last-position logits of every rank within "
+              f"{e['tol']}·max|ref| of ({e['was']})'s one rank's (max |err| "
+              f"{e['max_abs_err']:.2e}, max |logit| {e['max_logit']:.2e}), "
+              f"argmax equal; {e['ms']:.1f} ms a prefill, its first call "
+              f"(one rank alone {e['single_ms']:.1f} ms; {base} on the same "
+              f"mesh under seq: 'model' {f['ms']:.1f} ms; ranks share the "
+              f"card: not a speedup); peak {e['peak_bytes']} bytes a rank "
+              f"against one rank's {e['single_peak_bytes']} and {base}'s "
+              f"{f['peak_bytes']}; {e['local_params']} parameters on rank 0 "
+              f"({base}: {f['local_params']}); exchanges by count "
+              f"{e['exchanges']} (as predicted); kernel launches "
+              f"{[r['cp'][f'prefill/{arch}']['launches'] for r in worlds[4]]}"
+              f"; {e['seconds']:.1f} s", flush=True)
     w = r4["whisper_train"]
     dry = {"whisper": dr_compare("whisper", predicted["whisper"],
                                  w["seq"]["measured"], w["seq"]["by_tag"]),
@@ -7457,7 +7625,9 @@ def phase_dryrun_mp(seed: int) -> dict:
                 launches=[r["qwen_train"]["launches_per_rank"]
                           for r in worlds[4]],
                 sptp_launches=[r["sptp"]["train"]["launches_per_rank"]
-                               for r in worlds[4]], seconds=seconds)
+                               for r in worlds[4]],
+                cp_launches=[r["cp"]["train"]["launches_per_rank"]
+                             for r in worlds[4]], seconds=seconds)
 
 
 # phase 29: the examples with a _torch counterpart, each run on the card as
@@ -7780,7 +7950,9 @@ def main() -> int:
             {n: c for n, c in r.items() if n == k} for r in mpar["launches"]]))
     for case, launches in ((drmp["world4"]["qwen_train"], drmp["launches"]),
                            (drmp["world4"]["sptp"]["train"],
-                            drmp["sptp_launches"])):
+                            drmp["sptp_launches"]),
+                           (drmp["world4"]["cp"]["train"],
+                            drmp["cp_launches"])):
         dr_case = {k: v for k, v in case.items()
                    if k not in ("losses", "single_losses", "measured")}
         for k in ("sig_trunc", "sig_gram", "sig_sweep"):

@@ -256,12 +256,11 @@ def current_seq():
     return None if rows is None else rows.seq
 
 
-ITEM_21 = ("ROADMAP item 21's remainder (tensor parallelism over axes "
-           "that only partly overlap the sequence's; whisper trained with "
-           "its frames cut and its tokens whole, or with its tokens cut "
-           "over the model axis and its frames not while its encoder is "
-           "split over that axis; a vocabulary split over other axes than "
-           "the sequence's; a decode step whose tokens are cut)")
+ITEM_21 = ("ROADMAP item 21's remainder (whisper trained with its frames "
+           "cut and its tokens whole, or with its tokens cut over the "
+           "model axis and its frames not while its encoder runs tensor "
+           "parallelism over that axis; a decode step whose tokens are "
+           "cut)")
 
 
 def whole_seq(x, dim: int = 1, *, tag: str = "gather"):

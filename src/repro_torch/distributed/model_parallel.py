@@ -46,7 +46,11 @@ group's whole sequences, and a weight it reads whole takes no
 step's gradient reduction sums over the model axis once (it splits the
 batch's tokens), as it sums the gradient of a weight read on the block.
 A model-axis block read whole under such a split (:func:`full_view`) is
-gathered with the same summing backward.
+gathered with the same summing backward.  Where the sequence is cut over
+the model axis and other axes (context parallelism), the model group's
+blocks are consecutive and gathered make a super-block: the same pairs run
+over the model group, and what crosses super-blocks is exchanged over the
+other axes (:class:`SeqTP`).
 
 A decode cache is laid out as the reference's ``cache_specs`` place it
 (:func:`local_cache`): a :class:`LocalCache` of this rank's blocks, from
@@ -59,6 +63,7 @@ and is logged there with its transport.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -77,6 +82,10 @@ class Split:
     size: int
     index: int
     axes: tuple = ()
+    # the mesh the split was made on (None for one made by hand), from
+    # which a split of some of its axes is made (:func:`seq_tp`)
+    mesh: object = dataclasses.field(default=None, compare=False,
+                                     repr=False)
 
     def block(self, n: int) -> tuple[int, int]:
         """(start, length) of this rank's block of a dimension of n."""
@@ -115,7 +124,7 @@ def axes_split(mesh, axes) -> Split:
         for a in order:
             size *= axis_size(mesh, a)
         if isinstance(mesh, AbstractMesh):
-            _GROUPS[key] = (mesh, Split(None, size, 0, order))
+            _GROUPS[key] = (mesh, Split(None, size, 0, order, mesh))
             return _GROUPS[key][1]
         coord = mesh.get_coordinate()
         index = 0
@@ -123,7 +132,8 @@ def axes_split(mesh, axes) -> Split:
             index = index * axis_size(mesh, a) + \
                 coord[axis_names(mesh).index(a)]
         sub = mesh[order[0]] if len(order) == 1 else batch_mesh(mesh, order)
-        _GROUPS[key] = (mesh, Split(sub.get_group(), size, index, order))
+        _GROUPS[key] = (mesh, Split(sub.get_group(), size, index, order,
+                                    mesh))
     return _GROUPS[key][1]
 
 
@@ -299,41 +309,67 @@ def full_view(w: torch.Tensor, placement: Placement | None):
     return w
 
 
-def seq_tp(split: Split | None, seq) -> Split | None:
-    """The sequence split over which a layer split over the model axis
-    (``split``) gathers its input: ``seq`` where the model axis also cuts
-    the sequence (every rank then runs its share of the layer over the
-    group's whole sequences), None where the ranks of ``split`` hold the
-    same tokens (or nothing is split).  A sequence cut over the model
-    axis and other axes is refused."""
+class SeqTP(NamedTuple):
+    """The two levels of a sequence cut over the model axis for a layer
+    split over it (:func:`seq_tp`): ``inner``, the model axis's group
+    inside the sequence's, over which the layer gathers its input block
+    into a super-block of the sequence and reduce-scatters its output
+    back; ``outer``, the split of the super-blocks over the sequence's
+    other axes, None where the model axis alone cuts the sequence."""
+    inner: Split
+    outer: Split | None
+
+
+def seq_tp(split: Split | None, seq) -> SeqTP | None:
+    """How a layer split over the model axis (``split``) runs on a block
+    of a sequence cut over ``seq``: None where the model axis does not
+    cut the sequence (the ranks of ``split`` hold the same tokens) or
+    nothing is split, else a :class:`SeqTP`.  Over the model axis alone,
+    ``inner`` is ``seq`` and ``outer`` None: every rank runs its share of
+    the layer over the group's whole sequences.  Over the model axis and
+    others (context parallelism, ``{"seq": ("data", "model")}``) the model
+    group of a rank holds consecutive blocks of the sequence, since a
+    group's axes are flattened in mesh order with the model axis last:
+    its blocks gathered are a super-block, ``inner`` is the model split
+    and ``outer`` the super-blocks' split over the other axes (None when
+    they have one rank).  A layer then runs its share over its
+    super-block and exchanges what crosses super-blocks (keys and
+    values, halo rows, states) over ``outer``.  A mesh whose model axis
+    is not the last of the sequence's raises."""
     if split is None or seq is None or MODEL not in seq.axes:
         return None
-    if tuple(seq.axes) != tuple(split.axes):
-        from .batch import ITEM_21
-        raise NotImplementedError(
-            f"a layer split over {split.axes} with the sequence cut over "
-            f"{seq.axes}, axes that only partly overlap: {ITEM_21} is not "
-            f"ported")
-    return seq
+    if tuple(seq.axes) == tuple(split.axes):
+        return SeqTP(seq, None)
+    rest = tuple(a for a in seq.axes if a != MODEL)
+    outer = axes_split(seq.mesh, rest)
+    if seq.axes[-1] != MODEL or outer.size * split.size != seq.size or \
+            outer.index * split.size + split.index != seq.index:
+        raise ValueError(
+            f"a sequence cut over {seq.axes} (rank's block {seq.index} of "
+            f"{seq.size}) with a layer split over {split.axes} (block "
+            f"{split.index} of {split.size}): the model axis must be the "
+            f"last of the sequence's, so that a model group holds "
+            f"consecutive blocks")
+    return SeqTP(split, outer if outer.size > 1 else None)
 
 
-def tp_enter(x, split: Split | None, whole: Split | None):
-    """A split layer's input: the group's whole sequences under a split
-    over the axis that cuts them (``whole``, from :func:`seq_tp`: one
-    all-gather, tag ``sp_tp_in``, whose backward reduce-scatters), else
-    :func:`copy_to` over ``split``."""
+def tp_enter(x, split: Split | None, whole: SeqTP | None):
+    """A split layer's input: its super-block of the sequence under a
+    split over an axis that cuts it (``whole``, from :func:`seq_tp`: one
+    all-gather over ``whole.inner``, tag ``sp_tp_in``, whose backward
+    reduce-scatters), else :func:`copy_to` over ``split``."""
     if whole is not None:
-        return seq_gather(x, whole, 1, "sp_tp_in")
+        return seq_gather(x, whole.inner, 1, "sp_tp_in")
     return copy_to(x, split)
 
 
-def tp_exit(x, split: Split | None, whole: Split | None):
+def tp_exit(x, split: Split | None, whole: SeqTP | None):
     """A split layer's row-parallel output summed over the group: cut
-    back to this rank's block of the sequence under ``whole`` (one
-    reduce-scatter, tag ``sp_tp_out``, whose backward all-gathers), else
-    :func:`reduce_from` over ``split``."""
+    back to this rank's block of its super-block under ``whole`` (one
+    reduce-scatter over ``whole.inner``, tag ``sp_tp_out``, whose
+    backward all-gathers), else :func:`reduce_from` over ``split``."""
     if whole is not None:
-        return seq_scatter(x, whole, 1, "sp_tp_out")
+        return seq_scatter(x, whole.inner, 1, "sp_tp_out")
     return reduce_from(x, split)
 
 
@@ -538,11 +574,15 @@ def grad_reduction(placement: Placement | None, mesh,
     them, each of its ranks computed the same share and the sum counts it
     that many times.  A batch axis the parameter is not held over is
     summed by the all-reduce; a model-axis block is this rank's whole
-    gradient of it (tensor parallelism, its sequence-parallel form too,
-    or the vocabulary's exchanges under a sequence split).  Under a
-    sequence cut over the model axis a weight it does not split is summed
-    over that axis once here, whether the rank read it on its block or
-    whole for its heads or experts (:func:`seq_tp`)."""
+    gradient of it over the tokens of its model group (tensor
+    parallelism, its sequence-parallel form too, or the vocabulary's
+    exchanges under a sequence split), summed here over the batch axes
+    that hold other tokens (under context parallelism, the other
+    super-blocks).  Under a sequence cut over the model axis a weight it
+    does not split is summed over that axis once here, whether the rank
+    read it on its block or on its super-block for its heads or experts
+    (:func:`seq_tp`): each rank's gradient is then its share, never the
+    same as another's."""
     held, summed = set(), set()
     if placement is not None:
         for _, axes in _dims(placement):
@@ -553,30 +593,6 @@ def grad_reduction(placement: Placement | None, mesh,
     for a in summed - set(batch_axes):
         over *= axis_size(mesh, a)
     return tuple(a for a in batch_axes if a not in held), over
-
-
-def refuse_tensor_parallel(params, seq, where: str) -> None:
-    """What of tensor parallelism under a sequence cut over the model axis
-    is not ported: a sequence cut over the model axis and other axes with
-    weights split over the model axis (a split that only partly overlaps
-    the sequence's).  Every family runs a sequence cut over the model axis
-    alone with its weights split over it (Megatron sequence parallelism,
-    :func:`seq_tp`; Mamba2 reads its split weights whole).  The vocabulary
-    is excepted (``transformer.embed`` and ``vocab_logits`` handle it);
-    ``where`` names the path refused."""
-    if seq is None or MODEL not in seq.axes or \
-            tuple(seq.axes) == (MODEL,) or \
-            not isinstance(params, torch.nn.Module):
-        return
-    from .batch import ITEM_21
-    split = sorted(n for n, pl in placements(params).items()
-                   if MODEL in pl.spec
-                   and n.split(".")[-1] not in ("embed", "lm_head"))
-    if split:
-        raise NotImplementedError(
-            f"{where} with the sequence cut over {seq.axes} and {split[0]} "
-            f"(and {len(split) - 1} more) tensor-parallel over the model "
-            f"axis, axes that only partly overlap: {ITEM_21} is not ported")
 
 
 def block_share(placement: Placement | None, mesh) -> float:

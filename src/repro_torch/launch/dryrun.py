@@ -282,11 +282,13 @@ def _stats(records) -> dict:
 # over m ranks the runs are m times POLY_SEQ's lengths, so that each
 # rank's block is POLY_SEQ's (shorter blocks leave the peak on the
 # optimizer's, not on the line).  Where the WKV heads are split over the
-# axes that cut the sequence (Megatron sequence parallelism) each rank
-# scans the group's whole sequences, and the runs are POLY_SEQ's: their
-# blocks are too short to put the peak on the line, so such a cell's
-# peak is not predicted (None), and the runs are checked to have run no
-# WKV state fold (rwkv_block's dispatch, not scan_blocks', decides).
+# model axis that cuts the sequence (Megatron sequence parallelism) each
+# rank scans its model group's blocks (the whole sequences, or under
+# context parallelism a super-block), and the runs are POLY_SEQ's times
+# the super-blocks: a rank's blocks are too short to put the peak on the
+# line, so such a cell's peak is not predicted (None), and the runs are
+# checked to have run a WKV state fold exactly where there is more than
+# one super-block (rwkv_block's dispatch, not scan_blocks', decides).
 POLY_FAMILIES = ("rwkv",)
 POLY_SEQ = (32, 64, 128)
 
@@ -306,19 +308,23 @@ def seq_blocks(rules: dict, mesh, seq: int) -> int:
 
 def scan_blocks(cfg, rules: dict, mesh, seq: int) -> int:
     """The number of blocks of a sequence of ``seq`` of which a rank's
-    recurrence scans one: :func:`seq_blocks`'s, or 1 where the rwkv
-    family's heads (its ``"ff"`` rule) are split over the axes that cut
-    the sequence and divide them (each rank then scans the whole
-    sequences for its heads)."""
+    recurrence scans one: :func:`seq_blocks`'s, or, where the rwkv
+    family's heads (its ``"ff"`` rule) are split over the model axis that
+    cuts the sequence and the model axis divides them, the number of the
+    model groups' super-blocks (each rank then scans its model group's
+    blocks for its heads: the whole sequences where the model axis alone
+    cuts them)."""
     m = seq_blocks(rules, mesh, seq)
 
     def names(axes):
         return () if axes is None else (axes,) if isinstance(axes, str) \
             else tuple(axes)
-    if m > 1 and cfg.family == "rwkv" and \
-            names(rules.get("ff")) == names(rules.get("seq")) and \
-            (cfg.d_model // cfg.rwkv_head_dim) % m == 0:
-        return 1
+    M = mesh.shape[mesh.mesh_dim_names.index("model")] \
+        if "model" in mesh.mesh_dim_names else 1
+    if m > 1 and cfg.family == "rwkv" and names(rules.get("ff")) == \
+            ("model",) and "model" in names(rules.get("seq")) and \
+            (cfg.d_model // cfg.rwkv_head_dim) % M == 0:
+        return m // M
     return m
 
 
@@ -436,11 +442,11 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
             mem = res["memory_analysis"]
             mem["temp_size_bytes"] = None
             mem["temp_size_note"] = (
-                f"not predicted: a rank scans whole sequences of "
-                f"{list(lengths)} tokens, its block of them "
-                f"{seq_blocks(rules, amesh, seq)} times shorter, and at "
-                f"those lengths the peak sits on the weights' temporaries, "
-                f"not on the gathered rows")
+                f"not predicted: a rank scans its model group's "
+                f"{list(POLY_SEQ)} tokens of runs of {list(lengths)}, "
+                f"its block of them {seq_blocks(rules, amesh, seq) // blocks}"
+                f" times shorter, and at those lengths the peak sits on the "
+                f"weights' temporaries, not on the gathered rows")
         model_flops = SP.flops_estimate(cfg, shape)
         res.update(shape=shape, model_flops_global=model_flops,
                    useful_flops_ratio=model_flops / max(

@@ -48,9 +48,15 @@ gathers the encoder's block of frames once a layer and projects this
 rank's KV heads over every frame, and the decoder's block of tokens is
 gathered for the queries of this rank's heads, which attend over every
 frame, ``wo``'s partial sums reduce-scattered back to the token block.
-In a prefill whose frames are cut and whose tokens are not, the queries
-are the same on every rank of the group and only the K/V side gathers.
-Every exchange is differentiable.  Two train steps raise: one whose
+Where the frames and tokens are cut over the model axis and others
+(context parallelism, ``model_parallel.SeqTP``), the gathered rows are
+the model group's super-blocks: self-attention and the MLPs run as the
+decoder LM's layers do, and :func:`cross_kv` gathers the K/V of its
+heads over the other axes too, so that each rank's heads attend the
+tokens' super-block over every frame.  In a prefill whose frames are
+cut and whose tokens are not, the queries are the same on every rank of
+the group and only the K/V side gathers.  Every exchange is
+differentiable.  Two train steps raise: one whose
 frames are cut and whose tokens are not (every rank of the group then
 computes the same decoder), and one whose tokens are cut over the model
 axis and whose frames are not while encoder weights are split over it
@@ -145,11 +151,12 @@ def _cross_attention(p, x: torch.Tensor, enc_kv, cfg,
     combines a self-attention cache.  Where ``x`` is itself a block of a
     prefill's tokens, the tokens' queries are gathered first and this
     block's rows of the output kept; where the heads are split over the
-    axis that cuts the tokens (``model_parallel.seq_tp``), the block's
-    rows are gathered instead (``tp_enter``), this rank's heads attend
-    over every frame (``enc_kv`` and ``seq`` None, as :func:`cross_kv`
-    returns them) and ``wo``'s row-parallel sum is reduce-scattered
-    back to the block (``tp_exit``)."""
+    axis that cuts the tokens (``model_parallel.seq_tp``), the model
+    group's rows are gathered instead (``tp_enter``: the tokens'
+    super-block under context parallelism), this rank's heads attend
+    them over every frame (``enc_kv`` and ``seq`` None, as
+    :func:`cross_kv` returns them) and ``wo``'s row-parallel sum is
+    reduce-scattered back to the block (``tp_exit``)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     tp = heads_split(p, cfg)
@@ -187,7 +194,10 @@ def cross_kv(p, enc_out: torch.Tensor, cfg, heads: int | None = None,
     every head.  ``seq`` is the split of which ``enc_out`` is a block of
     the frames in a prefill or a train step: where the heads are split
     over its axis (``model_parallel.seq_tp``) the blocks are gathered
-    (``tp_enter``) and the K/V are of every frame.  Where the ranks of
+    over the model group (``tp_enter``) and, where other axes cut the
+    frames too (context parallelism), the K/V of that super-block are
+    gathered over them (tag ``sp_cross_kv``): the K/V are of every
+    frame.  Where the ranks of
     the heads' split hold different frames or tokens, nothing is copied
     to the group: each rank's gradient of ``wk``/``wv`` is its heads'
     share, which the step sums.  -> ((k, v), the split of the frames the
@@ -208,9 +218,14 @@ def cross_kv(p, enc_out: torch.Tensor, cfg, heads: int | None = None,
 
     x = tp_enter(enc_out, cp, whole)
     F = x.shape[1]
-    return ((x @ w("wk")).reshape(B, F, Hkv, hd),
-            (x @ w("wv")).reshape(B, F, Hkv, hd)), \
-        None if whole is not None else seq
+    k, v = (x @ w("wk")).reshape(B, F, Hkv, hd), \
+        (x @ w("wv")).reshape(B, F, Hkv, hd)
+    if whole is not None and whole.outer is not None:
+        # a super-block of the frames: every super-block's K/V of this
+        # rank's heads, gathered over the other axes
+        kv = seq_gather(torch.stack([k, v]), whole.outer, 2, "sp_cross_kv")
+        k, v = kv[0], kv[1]
+    return (k, v), None if whole is not None else seq
 
 
 def encode(params, cfg: ModelConfig, frames: torch.Tensor,

@@ -41,17 +41,24 @@ blocks.  The layers then take the whole sequence's positions
 (:func:`block_positions` gives the block's).  Where the model axis that
 cuts the sequence also splits a layer's heads or ``ff`` columns
 (Megatron-LM's sequence parallelism, ``model_parallel.seq_tp``), the
-layer gathers its input block over the group (``tp_enter``), runs its
-heads or columns over the group's whole sequences (attention causal from
-position 0) and reduce-scatters its row-parallel output back to the
-block (``tp_exit``).  The MoE gathers the group's tokens in any case, so
-that each rank routes whole sequences in the reference's dispatch
-groups; its experts' (and shared experts') partial sums are
-reduce-scattered back to the block where the experts are split over that
-axis.  Each exchange is differentiable (``model_parallel.seq_gather`` /
-``seq_scatter``): every rank computes only its own block's share (or its
-heads' share) from a gathered tensor, so the backward sums the gradients
-over the group (a reduce-scatter; an all-gather for a reduce-scatter).
+layer gathers its input block over the model group (``tp_enter``), runs
+its heads or columns over the gathered rows and reduce-scatters its
+row-parallel output back to the block (``tp_exit``).  Over the model
+axis alone the gathered rows are the whole sequences (attention causal
+from position 0).  Over the model axis and others (context parallelism,
+``{"seq": ("data", "model")}``) they are the model group's super-block
+of the sequence, and what crosses super-blocks goes over the other axes
+(``SeqTP.outer``): attention gathers its heads' keys and values there
+and attends causally from the super-block's first position, MLA gathers
+its latents there.  The MoE gathers the sequence's tokens in any case,
+so that each rank routes whole sequences in the reference's dispatch
+groups; where the experts are split over the model axis their (and the
+shared experts') partial sums are cut to the super-block and
+reduce-scattered back to the block over the model group.  Each exchange
+is differentiable (``model_parallel.seq_gather`` / ``seq_scatter``):
+every rank computes only its own block's share (or its heads' share)
+from a gathered tensor, so the backward sums the gradients over the
+group (a reduce-scatter; an all-gather for a reduce-scatter).
 """
 from __future__ import annotations
 
@@ -289,9 +296,10 @@ def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor,
                  tp=None, every_kv: bool = False, whole=None):
     """q of this rank's heads (every head without a split), k and v of
     their KV heads, or of every KV head with ``every_kv``.  With
-    ``whole`` (``model_parallel.seq_tp``'s split) ``x`` is the group's
-    gathered rows and nothing is copied to the group: the gather's
-    backward and the step's reduction sum the ranks' gradients."""
+    ``whole`` (``model_parallel.seq_tp``'s pair) ``x`` is the model
+    group's gathered rows and nothing is copied to the group: the
+    gather's backward and the step's reduction sum the ranks'
+    gradients."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     if tp is None:
@@ -498,19 +506,21 @@ def attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     Without a cache, under a sequence split (``positions`` the whole
     sequence's) each rank attends its block's queries over the gathered
     keys and values (:func:`_prefill_attend`), or, where the heads are
-    split over the axis that cuts the sequence, its heads over the
-    group's gathered rows causally from position 0, the output
-    reduce-scattered back to the block."""
+    split over an axis that cuts the sequence, its heads over the model
+    group's gathered rows (the whole sequence, or under context
+    parallelism its super-block, whose keys and values are gathered over
+    the other axes), the output reduce-scattered back to the block."""
     B, S, _ = x.shape
     tp = heads_split(p, cfg)
     sp = None if tp is None else tp[0]
     if cache is None:
         prompt = prompt_split(x)
         whole = seq_tp(sp, prompt)
-        if whole is not None:
-            q, k, v = _project_qkv(p, tp_enter(x, sp, whole), cfg, positions,
-                                   tp, whole=whole)
-            out = _sdpa(q, k, v, causal)
+        if whole is not None:       # this rank's heads over its super-block
+            x = tp_enter(x, sp, whole)
+            q, k, v = _project_qkv(p, x, cfg, block_positions(
+                positions, x.shape[1], whole.outer), tp, whole=whole)
+            out = _prefill_attend(q, k, v, causal, whole.outer)
         else:
             q, k, v = _project_qkv(p, x, cfg, block_positions(
                 positions, S, prompt), tp)
@@ -639,11 +649,13 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
     sequence's) each rank's block gathers the group's normed latents and
     rope keys (one packed all-gather, tag ``sp_latent``), up-projects
     them to its heads' keys and values and attends its queries causally
-    from the block's first position; where the heads are split over the
-    axis that cuts the sequence, each rank gathers the group's rows
+    from the block's first position; where the heads are split over an
+    axis that cuts the sequence, each rank gathers the model group's rows
     (``model_parallel.tp_enter``), computes the latents, rope keys and
-    its heads over them, attends from position 0 and reduce-scatters its
-    ``wo`` partial sum back to the block.  ``w_dkv``, ``w_krope``,
+    its heads over them, attends from the rows' first position (under
+    context parallelism the super-block's, the latents gathered over the
+    other axes) and reduce-scatters its ``wo`` partial sum back to the
+    block.  ``w_dkv``, ``w_krope``,
     ``kv_norm``, ``w_dq`` and ``q_norm`` are read whole there, each
     rank's gradient its heads' share.
     """
@@ -658,10 +670,9 @@ def mla_attention(p, x: torch.Tensor, cfg, positions: torch.Tensor,
         sp = None
     prompt = prompt_split(x) if cache is None else None
     whole = seq_tp(sp, prompt)
-    if whole is not None:           # every row of the group's sequences
-        x, prompt = tp_enter(x, sp, whole), None
-    else:
-        positions = block_positions(positions, x.shape[1], prompt)
+    if whole is not None:           # the rows of the model group's blocks
+        x, prompt = tp_enter(x, sp, whole), whole.outer
+    positions = block_positions(positions, x.shape[1], prompt)
     cp = None if whole is not None else sp     # copied to the heads split
     B, S, _ = x.shape
     Hl = H if sp is None else H // sp.size
@@ -990,10 +1001,13 @@ def moe(p, x: torch.Tensor, cfg):
     On a batch whose sequence is cut (``distributed.batch.current_seq``)
     each rank gathers its rows' whole sequences over the split's group
     (tag ``sp_moe_in``) and routes them in the global batch's groups.
-    Experts (or shared experts) split over the axis that cuts the
-    sequence add their partial sums in one reduce-scatter back to the
-    block (``sp_moe_out``); an output every rank of the group computes
-    whole is cut to the block.  The aux loss's sums are taken over the
+    Experts (or shared experts) split over an axis that cuts the
+    sequence add their partial sums in one reduce-scatter over the model
+    group back to the block (``sp_moe_out``), cut first to the group's
+    super-block under context parallelism (the ranks of the other axes
+    compute the same experts on the same tokens, and nothing is summed
+    over them); an output every rank of the group computes whole is cut
+    to the block.  The aux loss's sums are taken over the
     block's tokens and added over the data group and the sequence's."""
     B, Sb, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -1071,11 +1085,12 @@ def moe(p, x: torch.Tensor, cfg):
 
 def _moe_output(terms: list, seq, shape: tuple, Sb: int) -> torch.Tensor:
     """The MoE's output (B, Sb, d) from its terms (output (T, d), model
-    split, sequence split gathered over or None): the terms under one
-    model split summed over it together (one all-reduce); where the
-    sequence is cut, the terms every rank of its group computed whole cut
-    to this rank's block, and the partial sums over the axis that cuts it
-    added in one reduce-scatter back to the block."""
+    split, ``model_parallel.SeqTP`` or None): the terms under one model
+    split summed over it together (one all-reduce); where the sequence is
+    cut, the terms every rank of its group computed whole cut to this
+    rank's block, and the partial sums over the model axis that cuts it
+    cut to the model group's super-block and added in one reduce-scatter
+    over that group back to the block."""
     whole = [t for t, sp, w in terms if sp is None]
     summed = [(t, sp) for t, sp, w in terms if sp is not None and w is None]
     parts = [t for t, sp, w in terms if w is not None]
@@ -1089,6 +1104,11 @@ def _moe_output(terms: list, seq, shape: tuple, Sb: int) -> torch.Tensor:
         if seq is not None:
             out = out.narrow(1, seq.index * Sb, Sb)
     if parts:
-        y = seq_scatter(sum(parts).reshape(shape), seq, 1, "sp_moe_out")
+        tp = next(w for t, sp, w in terms if w is not None)
+        y = sum(parts).reshape(shape)
+        if tp.outer is not None:    # this rank's super-block
+            n = Sb * tp.inner.size
+            y = y.narrow(1, tp.outer.index * n, n)
+        y = seq_scatter(y, tp.inner, 1, "sp_moe_out")
         out = y if out is None else out + y
     return out

@@ -47,7 +47,14 @@ back to the block (``tp_exit``); the channel mix gathers its rows the
 same way for the ``w_ck`` / ``w_cv`` pair, and computes its gate on the
 block with ``w_cr`` read whole.  A weight read on the gathered rows
 keeps its partial gradient there, which the step sums over the model
-axis once.
+axis once.  Where the sequence is cut over the model axis and others
+(context parallelism, ``model_parallel.SeqTP``), the gathered rows are
+the model group's super-block: Mamba2 runs as above (its split weights
+read whole, its halo and state over the whole sequence's group), and
+RWKV6's mixes shift the super-block from the previous super-block's last
+row (``halo_rows`` over the other axes) and its WKV heads fold the
+earlier super-blocks' states into theirs (:func:`_wkv_blocks` over the
+other axes, not a scan from zero).
 """
 from __future__ import annotations
 
@@ -384,17 +391,19 @@ def rwkv_block(p, x_in: torch.Tensor, cfg, cache=None):
 
     def enter(h, sp, key):
         """The rows a mix split over ``sp`` runs on and their token
-        shift: the group's gathered whole sequences, shifted from a zero
-        row, where ``sp`` is over the axis that cuts them
+        shift: the model group's gathered super-block, shifted from the
+        previous super-block's last row (zeros where the model axis alone
+        cuts the sequence), where ``sp`` is over an axis that cuts it
         (``model_parallel.seq_tp``); else ``h`` itself, shifted from the
         cache's row, the previous block's last or zeros -> (rows,
-        shifted rows, the split to copy them to, the gathered split or
-        None)."""
+        shifted rows, the split to copy them to, the
+        ``model_parallel.SeqTP`` gathered over or None)."""
         whole = seq_tp(sp, seq)
         if whole is not None:
             rows = tp_enter(h, sp, whole)
-            return rows, _token_shift(rows, rows.new_zeros((B, d))), None, \
-                whole
+            prev = rows.new_zeros((B, d)) if whole.outer is None else \
+                halo_rows(rows, 1, whole.outer, "sp_shift")[:, 0]
+            return rows, _token_shift(rows, prev), None, whole
         if cache is not None:
             prev = cache[key].to(h.dtype)
         elif seq is not None:
@@ -441,10 +450,12 @@ def rwkv_block(p, x_in: torch.Tensor, cfg, cache=None):
                             device=x.device)
     u = copy_to(_full(p, "u"), cp)[h0:h0 + nhl]
     rkvw = [t.reshape(B, St, nhl, hk) for t in (r, k, v, w)]
-    if seq is None or whole is not None:
+    # the blocks this rank's scan is one of: its own, or its super-block
+    blocks = seq if whole is None else whole.outer
+    if blocks is None:
         y, S_fin = _wkv_scan(*rkvw, u, state)
     else:
-        y, S_fin = _wkv_blocks(*rkvw, u, state, seq)
+        y, S_fin = _wkv_blocks(*rkvw, u, state, blocks)
     y = y.reshape(B, St, dl).to(x.dtype)
     # per-head group norm
     yh = y.reshape(B, St, nhl, hk).float()
@@ -463,8 +474,9 @@ def rwkv_block(p, x_in: torch.Tensor, cfg, cache=None):
     if csp is not None and _split(p, "w_cv", 0) is None:
         csp = None
     x2t, xs2t, ccp, cwhole = enter(x2, csp, "shift_c")
-    # the gate's rows: this block's of the shifted whole sequences
-    xs2 = xs2t if cwhole is None else xs2t.narrow(1, cwhole.index * S, S)
+    # the gate's rows: this block's of the shifted super-block
+    xs2 = xs2t if cwhole is None else xs2t.narrow(1, cwhole.inner.index * S,
+                                                  S)
     ck = copy_to(mix(x2t, xs2t, "mu_ck"), ccp) \
         @ _weight(p, "w_ck", csp).to(x.dtype)
     cv = tp_exit(torch.square(F.relu(ck))

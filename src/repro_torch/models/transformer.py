@@ -25,11 +25,12 @@ masked lookup of this rank's rows, summed over the model group), the
 logits are this rank's vocabulary block, and the token NLL all-reduces
 their max and sum-exp over the model group, so no rank holds the whole
 logits in training; decoding gathers them.  Where the model axis also
-cuts the sequence (the ``"seq"`` rule) its ranks hold different tokens:
-the embedding looks up the group's tokens and reduce-scatters them back
-to the blocks, and the LM loss gathers the vocabulary's blocks of the
-output weight (its backward reduce-scatters their gradients) and takes
-each block's whole logits; the layers take the whole sequence's positions
+cuts the sequence (the ``"seq"`` rule, alone or with other axes) its
+ranks hold different tokens: the embedding looks up the model group's
+tokens and reduce-scatters them back to the blocks, and the LM loss
+gathers the vocabulary's blocks of the output weight over that group
+(its backward reduce-scatters their gradients) and takes each block's
+whole logits; the layers take the whole sequence's positions
 (:func:`sequence_positions`).  A cache made by
 :func:`init_cache` under a sharding context is this rank's block of every
 leaf (``cache_specs``), written in place: decode runs the reference's
@@ -52,7 +53,7 @@ from ..distributed.ctx import current_mesh, current_rules
 from ..distributed.model_parallel import (cache_split, copy_to,
                                           decode_rows, gather_from,
                                           local_cache, reduce_from,
-                                          seq_gather, seq_scatter)
+                                          seq_gather, seq_scatter, seq_tp)
 from .config import ModelConfig
 from .layers import (ParamTree, _full, _init, _split, _zeros, as_generator,
                      attention, block_rows, init_attention, init_mla,
@@ -237,12 +238,14 @@ def _groups(cfg: ModelConfig):
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     """The token embeddings; vocab-parallel on a vocabulary split: each
     rank looks up the tokens of its rows of the table (zeros elsewhere)
-    and the lookups are summed over the model group.  Where that group
-    also cuts the sequence (the ``"seq"`` rule) its ranks hold different
-    tokens: each looks up the whole group's tokens (gathered) and the sums
-    are reduce-scattered back to the blocks (the backward all-gathers the
-    blocks' gradients, so each rank's rows of the table take every
-    token's)."""
+    and the lookups are summed over the model group.  Where the model
+    axis also cuts the sequence (the ``"seq"`` rule, alone or with other
+    axes) its ranks hold different tokens: each looks up the whole model
+    group's tokens (gathered: the sequence, or under context parallelism
+    the group's super-block of it) and the sums are reduce-scattered
+    back to the blocks (the backward all-gathers the blocks' gradients,
+    so each rank's rows of the table take every token of its group's,
+    and the step sums them over the other super-blocks)."""
     sp = _split(params, "embed", 0)
     if sp is None:
         return _full(params, "embed")[tokens.long()]
@@ -260,17 +263,14 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _vocab_seq(sp):
-    """The sequence split of the innermost rows scope when it cuts the
-    sequence over the axes of the vocabulary split ``sp`` (None when it
-    does not: the ranks of ``sp`` then hold the same tokens)."""
-    seq = DB.current_seq()
-    if seq is None or not set(seq.axes) & set(sp.axes):
-        return None
-    if seq.axes != sp.axes:
-        raise NotImplementedError(
-            f"a vocabulary split over {sp.axes} with the sequence cut "
-            f"over {seq.axes}: {DB.ITEM_21} is not ported")
-    return seq
+    """The group over which a vocabulary split ``sp`` exchanges tokens
+    when the innermost rows scope cuts the sequence over its axis: the
+    model group inside the sequence's (``model_parallel.seq_tp``), whose
+    blocks are the sequence's over the model axis alone and a
+    super-block of it under context parallelism.  None when the ranks of
+    ``sp`` hold the same tokens."""
+    tp = seq_tp(sp, DB.current_seq())
+    return None if tp is None else tp.inner
 
 
 def backbone(params, cfg: ModelConfig, tokens=None, embeds=None,
@@ -330,10 +330,12 @@ def placed_backbone(params, cfg: ModelConfig, batch: dict,
 def vocab_logits(params, cfg: ModelConfig, hidden: torch.Tensor):
     """-> (logits of this rank's vocabulary block, the vocabulary split);
     the whole logits and None when the vocabulary is not split.  Where
-    the vocabulary's axes also cut the sequence, the ranks hold different
-    tokens: the weight's blocks are gathered (``seq_gather``: the backward
-    sums each block's gradient over the group) and the logits are the
-    block's whole vocabulary."""
+    the vocabulary's axis also cuts the sequence (alone or with other
+    axes), the ranks of the model group hold different tokens: the
+    weight's blocks are gathered over that group (``seq_gather``: the
+    backward sums each block's gradient over it) and the logits are the
+    block's whole vocabulary, so the loss takes no vocabulary
+    exchange."""
     key, dim = ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
     sp = _split(params, key, dim)
     seq = None if sp is None else _vocab_seq(sp)

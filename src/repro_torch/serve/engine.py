@@ -35,7 +35,6 @@ from .. import models as M
 from ..device import resolve_device
 from ..distributed import batch as DB
 from ..distributed import collectives as C
-from ..distributed import model_parallel as MP
 from ..distributed.model_parallel import gather_decode_rows
 from ..kernels import ops
 from ..models import encdec, transformer as T
@@ -302,7 +301,6 @@ def prefill_hidden(params, cfg: ModelConfig, batch: dict,
     of the sequence under the ``"seq"`` rule) runs this rank's block
     inside a ``rows_scope`` of it; whisper's encoder runs inside the
     frames' scope and its decoder inside the tokens'."""
-    MP.refuse_tensor_parallel(params, DB.batch_seq(batch), "a prefill")
     if cfg.family == "encdec":
         return encdec.placed_hidden(params, cfg, batch, remat)
     hidden, _, seq = T.placed_backbone(params, cfg, batch, remat)

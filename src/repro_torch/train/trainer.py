@@ -46,9 +46,10 @@ train cells whose batch 256 does not divide, or any cell's override) each
 rank runs its rows and its block of every sequence, forward and backward,
 the blocks exchanging activations differentiably
 (``model_parallel.seq_gather``); layers whose heads, ``ff`` or experts
-the model axis also splits gather the group's rows and reduce-scatter
-their output (Megatron-LM's sequence parallelism, ``model_parallel.
-seq_tp``).  The LM loss
+the model axis also splits gather the model group's rows and
+reduce-scatter their output (Megatron-LM's sequence parallelism,
+``model_parallel.seq_tp``; under ``seq: ("data", "model")``, context
+parallelism, the model group's super-block).  The LM loss
 weights each rank's token mean over every rank that holds different
 tokens (``distributed.batch.shard_group``); the sig-MMD loss projects each
 block, gathers the whole path over the sequence's group (each rank keeps
@@ -237,11 +238,17 @@ def reduce_grads(grads: dict, params, placed) -> dict:
     and its sequence under the ``"seq"`` rule), where the parameter's own
     backward has not summed them (an FSDP shard's reduce-scatter, a
     vocabulary block's exchanges), and a sum over ranks that computed the
-    same share divided out."""
-    mesh = placed.device_mesh
-    axes = DB.shard_axes(placed)
+    same share divided out.  ``placed`` None is a batch whole on every
+    rank of the sharded model's mesh (no axis splits it: a rule that
+    keeps the rows whole, with a sequence the split does not divide), so
+    only the FSDP reduce-scatters' sums of equal shares are divided
+    out."""
     layout = MP.placements(params) \
         if isinstance(params, torch.nn.Module) else {}
+    if placed is None:
+        mesh, axes = MP.model_mesh(params), ()
+    else:
+        mesh, axes = placed.device_mesh, DB.shard_axes(placed)
     out = {}
     for k, g in grads.items():
         rest, over = MP.grad_reduction(layout.get(k), mesh, axes)
@@ -322,8 +329,6 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
         return loss_val.detach(), _detached(metrics), grads
 
     def train_step(params, opt_state, batch):
-        MP.refuse_tensor_parallel(params, DB.batch_seq(batch),
-                                  "the train step")
         placed = _placed(batch)
         layout = MP.placements(params) \
             if isinstance(params, torch.nn.Module) else {}
@@ -344,7 +349,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, remat: str = "dots",
             metrics = {"loss": loss_val}
         else:
             loss_val, metrics, grads = grads_of(params, batch)
-        if placed is not None:
+        if placed is not None or layout:
             # each rank holds its rows' (and block's) share of every
             # gradient; an FSDP shard's was summed by its reduce-scatter
             grads = reduce_grads(grads, params, placed)
@@ -369,8 +374,6 @@ def make_eval_step(cfg: ModelConfig, remat: str = "none", *,
 
     @torch.no_grad()
     def eval_step(params, batch):
-        MP.refuse_tensor_parallel(params, DB.batch_seq(batch),
-                                  "the eval step")
         _, metrics = base_loss(params, batch, remat)
         return metrics
     return eval_step

@@ -24,7 +24,11 @@ hybrid, rwkv and encdec families (zamba2-7b, rwkv6-1.6b,
 whisper-large-v3) with their heads and ``ff`` over it.  Both
 worlds train reduced phi3.5-moe in dispatch groups that straddle data
 ranks on their data-only mesh, and the world of 4 on 2 x 2, where it
-also decodes 24 requests in one group a step (``STRADDLE_*``).
+also decodes 24 requests in one group a step (``STRADDLE_*``).  The
+world of 4 also runs context parallelism (``cp_cases``): each sequence
+in blocks over both axes of the 2 x 2 mesh, the batch whole, qwen3-4b
+and deepseek prefilled and trained, the hybrid, rwkv and encdec families
+prefilled, with their vocabulary and split layers over the model axis.
 """
 from __future__ import annotations
 
@@ -109,6 +113,19 @@ SP_TP_FAMILIES = ("zamba2-7b", "rwkv6-1.6b", "whisper-large-v3")
 SP_TP = {"seq": "model"}
 SP_TP_DENSE = {"heads": "model", "kv_heads": "model", "ff": "model",
                "fsdp": "data"}
+# context parallelism, the reference's long_500k layout for a prompt or a
+# training sequence: each sequence in blocks over both axes of the 2 x 2
+# mesh (blocks of 2 of PREFILL's and TRAIN's 8), the batch whole on every
+# rank.  CP_STEPS prefill and train (three LM steps) under rules_for(arch,
+# shape, CP), qwen3-4b also with SP_TP_DENSE (its heads and ff over the
+# model axis inside the sequence's group; alone only its vocabulary is
+# split there), deepseek with its MoE rules (MLA's heads and the experts
+# over the model axis, capacity-bound groups of 8); CP_FAMILIES prefill
+# under CP + SP_TP_DENSE
+CP = {"seq": ("data", "model"), "batch": ("pod",)}
+CP_STEPS = (("qwen3-4b", False), ("qwen3-4b", True),
+            ("deepseek-v2-lite-16b", False))
+CP_FAMILIES = ("zamba2-7b", "rwkv6-1.6b", "whisper-large-v3")
 # training under rules_for(arch, DRYRUN_SHAPE's cell): the rows over the
 # data axis, each sequence in blocks of 4 over the model axis (TRAIN's
 # batches); the masked sig-MMD case's sequences of 6 in blocks of 3, whose
@@ -461,10 +478,10 @@ def place_uneven(batch: dict, mesh) -> dict:
     return out
 
 
-def _straddle_steps(model, cfg, batches, mesh, place) -> dict:
-    """Three SGD steps on batches placed by ``place`` -> {"steps":
-    (metrics a step, full params), "grads": the first step's full
-    gradient (SGD's momentum after one step), "drops": this rank's
+def _sgd_steps(model, cfg, batches, mesh, place, rules=None) -> dict:
+    """Three SGD steps on batches placed by ``place`` under ``rules`` ->
+    {"steps": (metrics a step, full params), "grads": the first step's
+    full gradient (SGD's momentum after one step), "drops": this rank's
     dropped pairs a step, "tags": the collectives' tags a step}."""
     from repro_torch import optim, train
     from repro_torch.distributed import collectives as C
@@ -477,7 +494,7 @@ def _straddle_steps(model, cfg, batches, mesh, place) -> dict:
     step = train.make_train_step(cfg, opt)
     pl = placements(model)
     hist, grads, drops, tags = [], None, [], []
-    with sharding_ctx(mesh):
+    with sharding_ctx(mesh, rules):
         for b in batches:
             C.LOG.reset()
             with dropped_pairs() as d:
@@ -501,7 +518,7 @@ def straddle_train_cases(mesh, inputs: dict, keys=("train", "pad")) -> dict:
     cfg = straddle_config(configs)
     place = {"train": lambda b, mesh: train.place_batch(b),
              "pad": place_uneven}
-    return {f"straddle/{k}": _straddle_steps(
+    return {f"straddle/{k}": _sgd_steps(
         _model(inputs, STRADDLE_ARCH, cfg,
                mesh if mesh.size(1) > 1 else None), cfg,
         inputs["batches"][f"straddle/{k}"], mesh, place[k]) for k in keys}
@@ -736,6 +753,66 @@ def sp_tp_cases(mesh, inputs: dict) -> dict:
     return out
 
 
+def cp_key(arch: str, tp: bool) -> str:
+    return f"{arch}/tp" if tp else arch
+
+
+def cp_cases(mesh, inputs: dict) -> dict:
+    """Context parallelism on the 2 x 2 mesh: each of CP_STEPS prefilled
+    (this rank's rows' last-position logits, the collectives' tags, the
+    sequence's split axes) and trained (:func:`_sgd_steps`: three LM
+    steps, the first step's gradients, the tags a step) under
+    ``rules_for(arch, shape, CP)`` (with SP_TP_DENSE where marked), each
+    of CP_FAMILIES prefilled under CP + SP_TP_DENSE, and qwen3-4b trained
+    on SEQ_ODD's sequence under CP, which leaves the batch whole."""
+    from repro_torch import configs, train
+    from repro_torch.distributed import batch as DB
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding_ctx
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.serve.engine import make_prefill_step
+    name, shape = DRYRUN_SHAPE
+    specs.SHAPES[name] = shape
+    out = {}
+
+    def rules(arch, cell, tp):
+        return rules_for(arch, cell, dict(CP, **SP_TP_DENSE) if tp else CP)
+
+    def prefill(arch, tp):
+        cfg = config(arch, configs)
+        r = rules(arch, PREFILL_SHAPE, tp)
+        model = prefill_model(inputs, arch, cfg, mesh, r)
+        with sharding_ctx(mesh, r):
+            placed = train.place_batch(prefill_batch(inputs, arch))
+            with DB.rows_scope(placed["tokens"]) as rows:
+                start, split = rows.start, rows.seq
+            C.LOG.reset()
+            logits = make_prefill_step(cfg)(model, placed)
+        out[f"cp/prefill/{cp_key(arch, tp)}"] = dict(
+            logits=logits.numpy(), start=start, split=split is not None,
+            axes=split.axes, tags=sorted({r.tag for r in C.LOG.records}))
+    for arch, tp in CP_STEPS:
+        prefill(arch, tp)
+        cfg = config(arch, configs)
+        r = rules(arch, name, tp)
+        out[f"cp/lm/{cp_key(arch, tp)}"] = _sgd_steps(
+            _model(inputs, arch, cfg, mesh, r), cfg,
+            inputs["batches"][arch], mesh,
+            lambda b, mesh: train.place_batch(b), r)
+    for arch in CP_FAMILIES:
+        prefill(arch, True)
+    # SEQ_ODD's 7 tokens, which the four blocks do not divide: the batch
+    # is whole on every rank, placed nowhere
+    cfg = config("qwen3-4b", configs)
+    r = rules("qwen3-4b", name, False)
+    out["cp/odd"] = _sgd_steps(_model(inputs, "qwen3-4b", cfg, mesh, r), cfg,
+                               inputs["batches"]["seq_odd"], mesh,
+                               lambda b, mesh: train.place_batch(b), r)
+    del specs.SHAPES[name]
+    return out
+
+
 def prefill_train_batch(inputs: dict) -> dict:
     """qwen3-4b's prefill prompts as a train batch, the tokens their own
     labels (numpy)."""
@@ -879,6 +956,7 @@ def rank_main(rank: int, world: int, store_path: str, inputs: dict,
         if world == 4:
             out.update(sig_mmd_case(mesh, inputs))
             out.update(seq_train_cases(mesh, inputs))
+            out.update(cp_cases(mesh, inputs))
             out.update(micro_case(mesh, inputs))
             out.update(adafactor_cases(mesh, inputs))
             out.update(dryrun_cases(mesh, inputs))

@@ -542,6 +542,18 @@ def _reference_straddle(key: str) -> dict:
                 grads=grads)
 
 
+def _reference_grads(arch: str) -> dict:
+    """The reference's single-device gradient of the first of
+    ``train/<arch>``'s SGD steps (SGD's momentum after one step)."""
+    inputs = _REF["inputs"]
+    opt = joptim.sgd(lr=R.lr_of(arch))
+    step = jax.jit(jtrain.make_train_step(_jcfg(arch), opt))
+    params = jax.tree.map(jnp.asarray, inputs["params"][arch])
+    _, state, _ = step(params, opt.init(params), jax.tree.map(
+        jnp.asarray, inputs["batches"][arch][0]))
+    return _per_layer(jax.tree.map(np.asarray, state["mom"]))
+
+
 def _reference_straddle_decode() -> dict:
     """The reference's single-device greedy decode of STRADDLE_DECODE:
     ``ServeEngine``'s tokens, and the tokens and every step's float32
@@ -625,6 +637,8 @@ def _references(inputs) -> dict:
             f"{a}/sig", b["sig_mmd"], loss="sig_mmd")
     table["port_prefill_odd/qwen3-4b"] = lambda: _port_prefill(
         "qwen3-4b", "prefill_odd")
+    for arch, _ in R.CP_STEPS:
+        table[f"grads/{arch}"] = lambda a=arch: _reference_grads(a)
     for key in ("train", "pad"):
         table[f"straddle/{key}"] = lambda k=key: _reference_straddle(k)
     table["straddle/decode"] = _reference_straddle_decode
@@ -999,6 +1013,83 @@ def test_sequence_parallel_rules_on_a_sequence_the_split_does_not_divide(
         assert "tp_in" in got["tags"], got["tags"]
 
 
+# context parallelism (``_torch_mp_ranks.CP``): the exchanges each case's
+# layers must make besides the vocabulary's (``sp_tokens``, ``sp_embed``;
+# the LM loss's ``sp_vocab``): the keys and values, latents, halo rows and
+# states across super-blocks, Megatron's pair inside them
+_CP_TAGS = {"qwen3-4b": {"sp_kv"},
+            "qwen3-4b/tp": {"sp_kv", "sp_tp_in", "sp_tp_out"},
+            "deepseek-v2-lite-16b": {"sp_tp_in", "sp_tp_out", "sp_latent",
+                                     "sp_moe_in", "sp_moe_out"},
+            "zamba2-7b/tp": {"sp_tp_in", "sp_tp_out", "sp_kv", "sp_conv",
+                             "sp_state", "tp_param_gather"},
+            "rwkv6-1.6b/tp": {"sp_tp_in", "sp_tp_out", "sp_shift",
+                              "sp_state", "tp_param_gather"},
+            "whisper-large-v3/tp": {"sp_tp_in", "sp_tp_out", "sp_kv",
+                                    "sp_cross_kv"}}
+
+
+@pytest.mark.parametrize("key", list(_CP_TAGS))
+def test_context_parallel_prefill_equals_the_reference(worlds, key):
+    """The prefill on 2 x 2 under ``rules_for(arch, "prefill_32k", CP)``
+    (``/tp``: with SP_TP_DENSE): each prompt in blocks of 2 over the data
+    and model axes, the requests whole, the vocabulary (and ``/tp``'s
+    heads and ``ff``, deepseek's heads and experts) split over the model
+    axis inside the sequence's group.  Every rank's last-position logits
+    are its rows' of the reference's single-device prefill (rwkv6 in
+    float64), and the predicted exchanges ran."""
+    res, _ = worlds
+    arch = key.split("/")[0]
+    ref = _ref(f"prefill/{arch}")
+    want = _CP_TAGS[key] | {"sp_tokens", "sp_embed", "sp_last"}
+    for r in range(4):
+        got = res[4][r][f"cp/prefill/{key}"]
+        _assert_prefill(got, ref, ref, ("cp", key, r), split=True)
+        assert got["axes"] == ("data", "model"), (key, got["axes"])
+        assert want <= set(got["tags"]), (key, got["tags"])
+
+
+@pytest.mark.parametrize("key", [R.cp_key(a, tp) for a, tp in R.CP_STEPS])
+def test_context_parallel_steps_equal_the_reference(worlds, key):
+    """Three SGD steps on 2 x 2 under ``rules_for(arch, "train_tiny",
+    CP)`` (``/tp``: with SP_TP_DENSE; deepseek in capacity-bound dispatch
+    groups of 8 over the whole batch on every rank): every rank's losses,
+    metrics and trained parameters, and the first step's gradient of
+    every parameter, are the reference's single-device values, and every
+    step made the predicted exchanges and their backward."""
+    res, _ = worlds
+    arch = key.split("/")[0]
+    fwd = _CP_TAGS[key] | {"sp_embed", "sp_vocab"}
+    want = fwd | {t + "_grad" for t in fwd} | {"sp_tokens"}
+    grads = _ref(f"grads/{arch}")
+    for r in range(4):
+        got = res[4][r][f"cp/lm/{key}"]
+        _assert_steps(got["steps"], _ref(f"train/{arch}"), ("cp", key, r))
+        assert set(got["grads"]) == set(grads), key
+        for k, v in grads.items():
+            np.testing.assert_allclose(got["grads"][k], v, **GRAD,
+                                       err_msg=f"cp {key} gradient {k}")
+        for tags in got["tags"]:
+            assert want <= set(tags), (key, sorted(want - set(tags)))
+
+
+def test_context_parallel_step_on_a_sequence_the_split_does_not_divide(
+        worlds):
+    """qwen3-4b's SGD step on SEQ_ODD's 7 tokens under ``rules_for(arch,
+    "train_tiny", CP)``: the four blocks do not divide the sequence and CP
+    keeps the rows whole, so the batch is placed nowhere and every rank
+    runs the whole batch.  The FSDP reduce-scatter over both axes sums
+    four equal gradients, which the step divides out (it did not before
+    this layout ran): the losses and trained parameters are the
+    reference's, and no sequence exchange ran."""
+    res, _ = worlds
+    for r in range(4):
+        got = res[4][r]["cp/odd"]
+        _assert_steps(got["steps"], _ref("seq_odd"), ("cp odd", r))
+        for tags in got["tags"]:
+            assert not {t for t in tags if t.startswith("sp_")}, tags
+
+
 _SEQ_REFS = {"sig_mmd": "sig_mmd", "masked": "seq_masked",
              "uneven": "seq_uneven", "odd": "seq_odd",
              "micro": "micro/sig_mmd"}
@@ -1072,6 +1163,22 @@ def test_moe_aux_loss_is_the_global_batchs(worlds, world, loss):
     np.testing.assert_allclose(got[0][0]["aux"], ref[0][0]["aux"],
                                rtol=1e-5, atol=1e-9)
     _assert_steps(got, ref, ("moe_aux", loss, world))
+
+
+@pytest.mark.parametrize("seq,ff,want", [
+    ("model", "model", 1), (("data", "model"), "model", 16),
+    ("model", None, 16), (("data", "model"), None, 256)],
+    ids=["sp_tp", "cp_tp", "sp", "cp"])
+def test_rwkv_scan_blocks_follow_the_model_group(seq, ff, want):
+    """The dry run's rwkv extrapolation runs a rank's scan at POLY_SEQ's
+    lengths: ``scan_blocks`` on 16 × 16 for rwkv6-1.6b's 32,768 tokens is
+    the sequence's blocks, or, with its heads (``"ff"``) over the model
+    axis that cuts them, its model groups' super-blocks (one where the
+    model axis alone cuts the sequence, 16 under context parallelism)."""
+    cfg = tconfigs.get_config("rwkv6-1.6b")
+    rules = {"seq": seq, "ff": ff}
+    assert tdryrun.scan_blocks(cfg, rules, AbstractMesh(
+        (16, 16), ("data", "model")), 32768) == want
 
 
 def test_moe_dispatch_groups_of_a_placed_batch():

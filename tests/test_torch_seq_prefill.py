@@ -22,10 +22,14 @@ that cuts the sequence equal the reference's whole sequence, and so do
 ``mamba_block`` with ``w_in`` / ``w_out`` split over that axis (read
 whole on each block), ``rwkv_block`` with its heads and channel-mix
 columns split (Megatron sequence parallelism) and whisper's
-cross-attention with its heads split, its tokens cut or whole; decode, a
-split that only partly overlaps the cut axis and whisper trained with
-its tokens cut over the model axis, its frames whole and its encoder
-split over that axis refuse a sequence split.
+cross-attention with its heads split, its tokens cut or whole.  Context
+parallelism runs on a simulated D x M grid (``in_blocks(..., grid=)``):
+the sequence cut over both axes, each collective answered from the
+blocks of the group it names, and every family's split layer and the
+vocabulary held to the reference in value and gradient at 2 x 2 and
+1 x 4.  Decode, and whisper trained with its tokens cut over the model
+axis, its frames whole and its encoder split over that axis, refuse a
+sequence split.
 """
 import contextlib
 import dataclasses
@@ -45,6 +49,7 @@ from repro.models import ssm as JS
 from repro_torch import configs as tconfigs
 from repro_torch.distributed import batch as DB
 from repro_torch.distributed import collectives as C
+from repro_torch.distributed import model_parallel as MP
 from repro_torch.distributed.model_parallel import Split
 from repro_torch.models import encdec as TE
 from repro_torch.models import layers as TL
@@ -62,10 +67,49 @@ def split(P: int, i: int) -> Split:
     return Split(None, P, i, ("model",))
 
 
+class Grid:
+    """A simulated D x M mesh of ``("data", "model")`` as block i = d·M +
+    m sees it: its splits carry a group label (their axes' names) that
+    the simulated collectives answer from, and their mesh is this grid,
+    from which ``model_parallel.seq_tp`` makes the split of the data
+    axis."""
+
+    def __init__(self, D: int, M: int, i: int):
+        self.sizes = {"data": D, "model": M}
+        self.coord = dict(zip(("data", "model"), divmod(i, M)))
+
+    def split(self, axes) -> Split:
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        size, index = 1, 0
+        for a in names:
+            size *= self.sizes[a]
+            index = index * self.sizes[a] + self.coord[a]
+        return Split(names, size, index, names, self)
+
+    def members(self, group) -> list:
+        """The blocks of the group labelled ``group`` that holds this
+        one, in the group's order (every block for None)."""
+        D, M = self.sizes["data"], self.sizes["model"]
+        if group is None:
+            return list(range(D * M))
+        return [j for j in range(D * M)
+                if all(dict(zip(("data", "model"), divmod(j, M)))[a]
+                       == self.coord[a] for a in ("data", "model")
+                       if a not in group)]
+
+
+_AXES_SPLIT = MP.axes_split
+
+
+def _axes_split(mesh, axes):
+    return mesh.split(axes) if isinstance(mesh, Grid) else \
+        _AXES_SPLIT(mesh, axes)
+
+
 TAGS: set = set()        # the tags of the last in_blocks run's collectives
 
 
-def in_blocks(P: int, fn, B: int = 1) -> list:
+def in_blocks(P: int, fn, B: int = 1, grid: tuple | None = None) -> list:
     """``fn(i)`` for each block i of a simulated group of P ranks, its
     collectives answered from every block's inputs to the same call
     (iterated to a fixed point) -> the P blocks' outputs.  An all-gather
@@ -74,35 +118,55 @@ def in_blocks(P: int, fn, B: int = 1) -> list:
     so a block's forward and backward exchanges (``model_parallel.
     seq_gather`` / ``seq_scatter``, a loss's sums) all run as a group's.
     Each block's rows scope holds the B rows of the batch whole; the
-    collectives' tags are left in ``TAGS``."""
+    collectives' tags are left in ``TAGS``.  With ``grid`` = (D, M) the
+    P = D·M blocks are a D x M mesh (:class:`Grid`) whose sequence is cut
+    over both axes, block d·M + m the rank at (d, m), and each collective
+    is answered from the blocks of the group it names (the model axis's,
+    the data axis's or both); a split layer's model split is the model
+    axis's (:class:`SplitTree`).  Without, the sequence and the model
+    split are one axis of P."""
+    if grid is not None:
+        P = grid[0] * grid[1]
     sent = None
     TAGS.clear()
     for _ in range(32):
         got = [[] for _ in range(P)]
         outs = []
         for i in range(P):
-            def parts(t, tag, i=i):
+            mesh = Grid(*(grid or (1, P)), i)
+
+            def parts(t, tag, group, i=i, mesh=mesh):
                 TAGS.add(tag)
                 k = len(got[i])
                 got[i].append(t.detach().clone())
-                return [t.detach()] * P if sent is None or \
-                    k >= len(sent[i]) else [sent[j][k] for j in range(P)]
+                who = mesh.members(group)
+                if sent is None or k >= len(sent[i]):
+                    return [t.detach()] * len(who), who.index(i)
+                return [sent[j][k] for j in who], who.index(i)
 
             def gather(t, group, *, tag="", dim=0):
-                return torch.cat(parts(t, tag), dim=dim)
+                return torch.cat(parts(t, tag, group)[0], dim=dim)
 
-            def scatter(t, group, *, tag="", dim=0, i=i):
-                n = t.shape[dim] // P
-                return sum(parts(t, tag)).narrow(dim, i * n, n).contiguous()
+            def scatter(t, group, *, tag="", dim=0):
+                got_, me = parts(t, tag, group)
+                n = t.shape[dim] // len(got_)
+                return sum(got_).narrow(dim, me * n, n).contiguous()
 
             def reduce(t, group, *, tag="", op="sum"):
-                got_ = parts(t, tag)
+                got_, _ = parts(t, tag, group)
                 return t.copy_(torch.stack(got_).amax(0) if op == "max"
                                else sum(got_))
-            rows = DB.Rows(None, B, 0, B, split(P, i))
+            if grid is None:
+                seq = model = split(P, i)
+            else:
+                seq, model = mesh.split(("data", "model")), \
+                    mesh.split("model")
+            rows = DB.Rows(None, B, 0, B, seq)
             with mock.patch.object(C, "all_gather", gather), \
                     mock.patch.object(C, "reduce_scatter", scatter), \
                     mock.patch.object(C, "all_reduce_", reduce), \
+                    mock.patch.object(MP, "axes_split", _axes_split), \
+                    mock.patch.object(SplitTree, "model", model), \
                     DB.rows_set(rows):
                 outs.append(fn(i))
         if sent is not None and all(
@@ -321,14 +385,15 @@ def test_ssm_blocks_over_a_cut_sequence(arch, name, init):
 
 class SplitTree(TL.ParamTree):
     """A layer's weights as rank i of the simulated group reads them: each
-    key of ``dims`` split on its dimension over the model axis, which is
-    also the axis that cuts the sequence (in a block of ``in_blocks`` the
-    split is the block's ``Split``, or ``over`` where it is set), every
-    other weight whole.  ``p[key]`` of a split key is this rank's block of
+    key of ``dims`` split on its dimension over the model axis, which
+    also cuts the sequence, alone or with the data axis (in a block of
+    ``in_blocks`` the split is the block's model ``Split``, or ``over``
+    where it is set), every other weight whole.  ``p[key]`` of a split key is this rank's block of
     the one parameter, so the blocks' gradients sum to the whole's, as
     the step's reduction sums them; outside a split every weight is
     whole."""
     over = None         # the model split inside a scope of whole tokens
+    model = None        # the model split of an in_blocks block
 
     def __init__(self, tree: dict, dims: dict):
         super().__init__({k: v for k, v in tree.items()
@@ -339,8 +404,10 @@ class SplitTree(TL.ParamTree):
         self._dims = {k: d for k, d in dims.items() if isinstance(d, int)}
 
     def split(self, key, dim):
-        seq = DB.current_seq() if SplitTree.over is None else SplitTree.over
-        return seq if seq is not None and self._dims.get(key) == dim \
+        sp = SplitTree.over
+        if sp is None and DB.current_seq() is not None:
+            sp = SplitTree.model
+        return sp if sp is not None and self._dims.get(key) == dim \
             else None
 
     def __getitem__(self, key):
@@ -497,12 +564,15 @@ def assert_grads(got, want, what=""):
 
 
 def block_grads(P: int, fn, inputs: dict, params: dict,
-                B: int = 1) -> tuple:
+                B: int = 1, grid: tuple | None = None) -> tuple:
     """``fn(block inputs, params) -> loss`` run over the simulated blocks
     of a group of P (each input cut on dimension 1; the rows scope's
-    batch of B rows) and over the whole sequence -> ((the blocks' losses
-    summed, their input gradients joined, their parameter gradients
-    summed), the whole's)."""
+    batch of B rows; ``grid``: a D x M grid of P = D·M blocks, as
+    :func:`in_blocks` takes it) and over the whole sequence -> ((the
+    blocks' losses summed, their input gradients joined, their parameter
+    gradients summed), the whole's)."""
+    if grid is not None:
+        P = grid[0] * grid[1]
     def run(ins):
         ins = {k: v.clone().requires_grad_(v.is_floating_point())
                for k, v in ins.items()}
@@ -516,7 +586,8 @@ def block_grads(P: int, fn, inputs: dict, params: dict,
 
     whole = run({k: torch.from_numpy(v) for k, v in inputs.items()})
     outs = in_blocks(P, lambda i: run({k: blocks_of(v, P, i)
-                                       for k, v in inputs.items()}), B=B)
+                                       for k, v in inputs.items()}), B=B,
+                     grid=grid)
     n_in = sum(np.issubdtype(v.dtype, np.floating) for v in inputs.values())
     got = [sum(o[0] for o in outs)]
     got += [joined([o[1 + j] for o in outs]) for j in range(n_in)]
@@ -672,6 +743,188 @@ def test_cross_attention_split_over_the_cut_axis_equals_the_whole(P,
 
 
 # ---------------------------------------------------------------------------
+# context parallelism: the sequence cut over both axes of a D x M grid,
+# the layers and the vocabulary split over its model axis
+# ---------------------------------------------------------------------------
+
+# D x M: two super-blocks of two blocks, and one super-block of four (the
+# model axis alone cuts the sequence: the one-axis path)
+GRIDS = [(2, 2), (1, 4)]
+
+
+@dataclasses.dataclass
+class CPCase:
+    """A layer of the context-parallel tests: its SplitTree, ``run(tree,
+    block inputs) -> output`` (the MoE's ``(out, aux)``), the whole
+    inputs, the reference's whole output (and aux), the rows scope's
+    batch, the forward exchanges' tags on every grid and those made only
+    where the data axis cuts the sequence too (between super-blocks)."""
+    tree: SplitTree
+    run: object
+    inputs: dict
+    want: object
+    B: int
+    tags: set
+    outer: set = dataclasses.field(default_factory=set)
+    aux: float | None = None
+
+
+def _cp_dense(kind: str) -> CPCase:
+    cfg, p, x, pos, ref = dense_case(kind)
+    want = np.asarray(ref(jax.tree.map(jnp.asarray, p), jnp.asarray(x)))
+    return CPCase(split_tree(p, HEADS if kind == "attention" else FF),
+                  lambda t, ins: run_dense(kind, t, ins["x"], cfg, pos),
+                  {"x": x}, want, 1, {"sp_tp_in", "sp_tp_out"},
+                  {"sp_kv"} if kind == "attention" else set())
+
+
+def _cp_mla() -> CPCase:
+    cfg, jcfg, p, x, pos = mla_case(16)
+    want = np.asarray(JL.mla_attention(jax.tree.map(jnp.asarray, p),
+                                       jnp.asarray(x), jcfg,
+                                       jnp.asarray(pos))[0])
+    tpos = torch.from_numpy(pos)
+    return CPCase(split_tree(p, MLA_HEADS),
+                  lambda t, ins: TL.mla_attention(t, ins["x"], cfg, tpos)[0],
+                  {"x": x}, want, 1, {"sp_tp_in", "sp_tp_out"},
+                  {"sp_latent"})
+
+
+def _cp_moe(kw: dict, shape: tuple) -> CPCase:
+    cfg, jcfg, p, x = moe_case(kw, shape)
+    jout, jaux = JL.moe(jax.tree.map(jnp.asarray, p), jnp.asarray(x), jcfg)
+    return CPCase(split_tree(p, EXPERTS),
+                  lambda t, ins: TL.moe(t, ins["x"], cfg), {"x": x},
+                  np.asarray(jout), shape[0],
+                  {"sp_moe_in", "sp_moe_out", "moe_aux"}, aux=float(jaux))
+
+
+def _cp_ssm(arch: str, name: str, init, dims: dict, tags: set,
+            outer: set) -> CPCase:
+    cfg, jcfg = cfgs(arch)
+    p = block_params(init, jcfg)
+    x = normal((2, 16, cfg.d_model), 1, 0.5)
+    kw = {"chunk": 4} if name == "mamba_block" else {}
+    want = np.asarray(jax.jit(lambda p, x: getattr(JS, name)(
+        p, x, jcfg, **kw)[0])(jax.tree.map(jnp.asarray, p), jnp.asarray(x)))
+    return CPCase(split_tree(p, dims), lambda t, ins: getattr(TS, name)(
+        t, ins["x"], cfg, **kw)[0], {"x": x}, want, 1, tags, outer)
+
+
+def _cp_cross() -> CPCase:
+    cfg, p, x, enc, want = cross_case()
+    return CPCase(split_tree(p, HEADS),
+                  lambda t, ins: run_cross(t, ins["x"], ins["enc"], cfg),
+                  {"x": x, "enc": enc}, want, 1, {"sp_tp_in", "sp_tp_out"},
+                  {"sp_cross_kv"})
+
+
+def _cp_vocab(kind: str) -> CPCase:
+    """Reduced qwen3-4b's vocabulary split over the model axis: the
+    embedding of a block of (2, 8) tokens, or the logits of a block of
+    (2, 8) hidden states (through ``lm_head``, untied)."""
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as TT
+    cfg, jcfg = (dataclasses.replace(c, tie_embeddings=False)
+                 for c in cfgs("qwen3-4b"))
+    V, d = cfg.vocab_size, cfg.d_model
+    p = {"embed": normal((V, d), 0, 0.5), "lm_head": normal((d, V), 1, 0.2)}
+    if kind == "embed":
+        tokens = np.random.default_rng(2).integers(0, V, (2, 8)).astype(
+            np.int32)
+        return CPCase(split_tree(p, {"embed": 0}),
+                      lambda t, ins: TT.embed(t, ins["tokens"]),
+                      {"tokens": tokens}, p["embed"][tokens], 1,
+                      {"sp_tokens", "sp_embed"})
+    h = normal((2, 8, d), 3, 0.5)
+    want = np.asarray(JT.logits_fn(jax.tree.map(jnp.asarray, p), jcfg,
+                                   jnp.asarray(h)))
+
+    def run(t, ins):
+        logits, sp = TT.vocab_logits(t, cfg, ins["h"])
+        assert sp is None           # the block's whole vocabulary
+        return logits
+    return CPCase(split_tree(p, {"lm_head": 1}), run, {"h": h}, want, 1,
+                  {"sp_vocab"})
+
+
+CP_CASES = {
+    "attention": lambda: _cp_dense("attention"),
+    "mla": _cp_mla,
+    "mlp": lambda: _cp_dense("mlp"),
+    "moe_dropless": lambda: _cp_moe(*MOE_CASES[0]),
+    "moe_capacity": lambda: _cp_moe(*MOE_CASES[1]),
+    "mamba": lambda: _cp_ssm("zamba2-7b", "mamba_block", JS.init_mamba,
+                             MAMBA_SPLIT, {"sp_conv", "sp_state"}, set()),
+    "rwkv": lambda: _cp_ssm("rwkv6-1.6b", "rwkv_block", JS.init_rwkv,
+                            RWKV_SPLIT, {"sp_tp_in", "sp_tp_out"},
+                            {"sp_shift", "sp_state"}),
+    "cross": _cp_cross,
+    "embed": lambda: _cp_vocab("embed"),
+    "vocab": lambda: _cp_vocab("logits"),
+}
+# forward exchanges without a backward collective
+NO_GRAD_TAG = {"moe_aux", "sp_tokens"}
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=["2x2", "1x4"])
+@pytest.mark.parametrize("kind", list(CP_CASES))
+def test_context_parallel_blocks_equal_the_whole(kind, grid):
+    """Each family's layer, split over the model axis, over a sequence
+    cut over the data and model axes of a simulated D x M grid: each
+    model group gathers its blocks into a super-block (``sp_tp_in``),
+    runs its heads, ``ff`` columns, experts or vocabulary block over it,
+    and exchanges what crosses super-blocks over the data axis (the keys
+    and values ``sp_kv``, MLA's latents ``sp_latent``, RWKV6's shift row
+    and WKV state ``sp_shift`` / ``sp_state``, whisper's cross K/V
+    ``sp_cross_kv``); the MoE routes the whole sequences and
+    reduce-scatters its super-block's sums over the model axis
+    (``sp_moe_out``); Mamba2 reads its split weights whole on its block.
+    At 1 x 4 the model axis alone cuts the sequence and nothing crosses
+    the data axis.  Values (and the MoE's aux loss, dropless and
+    capacity-bound) at rtol 2e-4 / atol 2e-5, and the gradients of the
+    inputs and of every weight (the blocks' summed, as the step's
+    reduction sums them) within 1e-3·|g| + 1e-4·max|g|, equal the
+    reference's whole sequence; the exchanges' tags are the predicted
+    ones, forward and backward."""
+    case = CP_CASES[kind]()
+    P = grid[0] * grid[1]
+    fwd = case.tags | (case.outer if grid[0] > 1 else set())
+    got = in_blocks(P, lambda i: case.run(case.tree, {
+        k: blocks_of(v, P, i) for k, v in case.inputs.items()}), B=case.B,
+        grid=grid)
+    assert TAGS == fwd, (kind, grid, TAGS)
+    if case.aux is not None:
+        for _, aux in got:
+            np.testing.assert_allclose(float(aux.detach()), case.aux,
+                                       **VALUE)
+        got = [o for o, _ in got]
+    np.testing.assert_allclose(joined(got), case.want, **VALUE)
+    S = next(iter(case.inputs.values())).shape[1]
+    c = torch.from_numpy(normal(case.want.shape, 9))
+
+    def loss(ins, _):
+        out = case.run(case.tree, ins)
+        out, aux = out if case.aux is not None else (out, 0.0)
+        seq = DB.current_seq()
+        return (out * (c if seq is None else c.narrow(1, *seq.block(S)))
+                ).sum() + aux
+    params = dict(case.tree.named_parameters())
+    got, whole = block_grads(P, loss, case.inputs, params, B=case.B,
+                             grid=grid)
+    assert TAGS == fwd | {t + "_grad" for t in fwd - NO_GRAD_TAG}, \
+        (kind, grid, TAGS)
+    names = [k for k, v in case.inputs.items()
+             if np.issubdtype(v.dtype, np.floating)] + list(params)
+    # every block's loss adds the aux loss, which is the whole batch's
+    extra = (P - 1) * case.aux if case.aux is not None else 0.0
+    np.testing.assert_allclose(float(got[0]) - extra, whole[0], rtol=1e-5,
+                               atol=1e-6)
+    for g, w, k in zip(got[1:], whole[1:], names):
+        assert_grads(g, w, f"{kind} {grid} {k}")
+
+
+# ---------------------------------------------------------------------------
 # the paths that refuse a sequence split, and the losses and the train
 # step over one
 # ---------------------------------------------------------------------------
@@ -688,20 +941,6 @@ def _decode():
     make_serve_step(cfg)(model, M.init_cache(cfg, 1, 8, torch.float32,
                                              device="cpu"),
                          torch.ones((1, 1), dtype=torch.int32))
-
-
-def _hybrid_tp():
-    """The prefill's check of reduced zamba2-7b laid out by the default
-    rules (Mamba2's ``ff`` over the model axis) on a 1 x 2 mesh, its
-    sequence cut over the data and model axes."""
-    from repro_torch import models as M
-    from repro_torch.distributed import model_parallel as MP
-    from repro_torch.distributed.ctx import AbstractMesh
-    cfg = _reduced("zamba2-7b")
-    model = MP.shard_model(M.init_params(0, cfg, device="cpu"),
-                           AbstractMesh((1, 2), ("data", "model")), {})
-    MP.refuse_tensor_parallel(model, Split(None, 4, 1, ("data", "model")),
-                              "a prefill of the hybrid family")
 
 
 def _encdec_tokens_cut():
@@ -730,24 +969,13 @@ def _encdec_tokens_cut():
         TE.lm_loss(model, cfg, batch)
 
 
-def _partial():
-    """A layer split over the model axis with the sequence cut over the
-    data and model axes."""
-    from repro_torch.distributed.model_parallel import seq_tp
-    seq_tp(split(2, 0), Split(None, 4, 1, ("data", "model")))
-
-
 @pytest.mark.parametrize("where,run", [
-    ("make_serve_step", _decode), ("the hybrid family", _hybrid_tp),
-    ("only partly overlap", _partial),
+    ("make_serve_step", _decode),
     ("frames not cut over the model axis", _encdec_tokens_cut)],
-    ids=["decode", "hybrid_tp", "partial_overlap", "encdec_tokens_cut"])
+    ids=["decode", "encdec_tokens_cut"])
 def test_paths_refuse_a_sequence_split(where, run):
-    """Decode, the hybrid family with weights split over the model axis
-    and its sequence cut over the data and model axes, a layer split
-    over the model axis with the sequence cut over more axes, and
-    whisper's training with its tokens cut over the model axis, its
-    frames whole and its encoder split over that axis raise
+    """Decode, and whisper's training with its tokens cut over the model
+    axis, its frames whole and its encoder split over that axis raise
     ``NotImplementedError`` naming what is left of ROADMAP item 21,
     inside the scope of a batch whose sequence is cut, before computing.
     (MLA and the MoE, which refused until the layers ran a sequence split,
@@ -756,7 +984,10 @@ def test_paths_refuse_a_sequence_split(where, run):
     encdec families split over the axis that cuts the sequence alone,
     which refused until their layers ran it, are
     ``test_ssm_blocks_split_over_the_cut_axis_equal_the_whole`` and
-    ``test_cross_attention_split_over_the_cut_axis_equals_the_whole``.)"""
+    ``test_cross_attention_split_over_the_cut_axis_equals_the_whole``;
+    every family's layers and the vocabulary under a sequence cut over
+    the data and model axes, which refused until the layers ran context
+    parallelism, are ``test_context_parallel_blocks_equal_the_whole``.)"""
     with DB.rows_set(DB.Rows(None, 1, 0, 1, split(2, 1))):
         with pytest.raises(NotImplementedError, match="item 21") as e:
             run()
